@@ -78,6 +78,15 @@ class LossType(enum.Enum):
     IDENTITY = "identity"
 
 
+class MetricsType(enum.Enum):
+    ACCURACY = "accuracy"
+    CATEGORICAL_CROSSENTROPY = "categorical_crossentropy"
+    SPARSE_CATEGORICAL_CROSSENTROPY = "sparse_categorical_crossentropy"
+    MEAN_SQUARED_ERROR = "mean_squared_error"
+    ROOT_MEAN_SQUARED_ERROR = "root_mean_squared_error"
+    MEAN_ABSOLUTE_ERROR = "mean_absolute_error"
+
+
 class OpType(enum.Enum):
     """Operator types: the PCG node vocabulary, with the JAX package's
     values. Only the ops of the Llama serving path have lowerings in the

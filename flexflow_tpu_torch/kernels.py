@@ -1,11 +1,13 @@
 """Hand-written CUDA kernels: build, load and bind.
 
-Each kernel is one `csrc/*.cu` file with a plain C interface. At first use
-it is compiled with nvcc for sm_90a into a shared library under `_build/`
-(listed in .gitignore; the file name carries a hash of the source, so an
-edited source never loads a stale build) and bound with ctypes. Nothing is
-built or loaded when this module is imported: the CPU tests import it on
-machines with no nvcc and no card.
+Each kernel lives in a `csrc/*.cu` file with a plain C interface (one
+file may hold several kernels, each its own entry point). At first use a
+file is compiled with nvcc for sm_90a into a shared library under
+`_build/` (listed in .gitignore; the file name carries a hash of the
+source and the shared headers, so an edited source never loads a stale
+build) and bound with ctypes. Nothing is built or loaded when this module
+is imported: the CPU tests import it on machines with no nvcc and no
+card.
 
 Each kernel object counts its launches in `launches`, a plain integer the
 launch method bumps once per kernel launch, so a run can show that its
@@ -65,7 +67,9 @@ class CudaKernel:
         self._lock = threading.Lock()
 
     def library_path(self) -> Path:
-        digest = hashlib.sha1(self.source.read_bytes()
+        headers = b"".join(h.read_bytes()
+                           for h in sorted(CSRC_DIR.glob("*.cuh")))
+        digest = hashlib.sha1(self.source.read_bytes() + headers
                               + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return BUILD_DIR / f"lib{self.source.stem}_{digest[:12]}.so"
 
@@ -99,15 +103,17 @@ class CudaKernel:
 
 
 def build(kernels: Sequence[CudaKernel]) -> Dict[str, float]:
-    """Compile every kernel whose library is missing, one nvcc process per
-    source, all started together; returns {name: seconds} for the ones
-    built. A failed compile raises with nvcc's output."""
+    """Compile every source whose library is missing, one nvcc process per
+    source, all started together; returns {source file: seconds} for the
+    ones built. A failed compile raises with nvcc's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
+    started = set()
     for k in kernels:
         out = k.library_path()
-        if out.exists():
+        if out.exists() or out in started:
             continue
+        started.add(out)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs.append((k, out, tmp, time.monotonic(), subprocess.Popen(
             k.build_command(tmp), stdout=subprocess.PIPE,
@@ -120,7 +126,7 @@ def build(kernels: Sequence[CudaKernel]) -> Dict[str, float]:
             failures.append(f"{k.source.name}:\n{log}")
             continue
         os.replace(tmp, out)
-        secs[k.name] = time.monotonic() - t0
+        secs[k.source.name] = time.monotonic() - t0
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return secs
@@ -134,10 +140,48 @@ RAGGED_PAGED_ATTENTION = CudaKernel(
     replaces="flexflow_tpu/paged/attention.py:213",
 )
 
-KERNELS = (RAGGED_PAGED_ATTENTION,)
+_FLASH = "flexflow_tpu/ops/pallas/flash_attention.py"
+
+FLASH_ATTENTION_FWD = CudaKernel(
+    name="flash_attention_fwd",
+    source="flash_attention_fwd.cu",
+    symbol="ff_flash_attention_fwd",
+    argtypes=[_VOID_P] * 5 + [_INT] * 7 + [ctypes.c_float, _INT, _VOID_P],
+    replaces=f"{_FLASH}:119",
+)
+
+FLASH_ATTENTION_DQ = CudaKernel(
+    name="flash_attention_dq",
+    source="flash_attention_bwd.cu",
+    symbol="ff_flash_attention_dq",
+    argtypes=[_VOID_P] * 7 + [_INT] * 7 + [ctypes.c_float, _INT, _VOID_P],
+    replaces=f"{_FLASH}:178",
+)
+
+FLASH_ATTENTION_DKV = CudaKernel(
+    name="flash_attention_dkv",
+    source="flash_attention_bwd.cu",
+    symbol="ff_flash_attention_dkv",
+    argtypes=[_VOID_P] * 8 + [_INT] * 7 + [ctypes.c_float, _INT, _VOID_P],
+    replaces=f"{_FLASH}:197",
+)
+
+KERNELS = (RAGGED_PAGED_ATTENTION, FLASH_ATTENTION_FWD, FLASH_ATTENTION_DQ,
+           FLASH_ATTENTION_DKV)
 
 # dtypes the kernels take, with the code their C entry points use for each
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _launch(kernel: CudaKernel, device, *args):
+    """Call `kernel`'s C entry point with `args` and the current stream of
+    `device`, raise on a non-zero code, and count the launch."""
+    fn = kernel.function()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = fn(*args, stream)
+    kernel.check(code)
+    kernel.launches += 1
 
 
 def launch_ragged_paged_attention(q, kc, vc, page_tables, pos, q_lens, anc,
@@ -145,16 +189,49 @@ def launch_ragged_paged_attention(q, kc, vc, page_tables, pos, q_lens, anc,
     """Launch the ragged paged-attention kernel on the current stream.
     The caller (paged.attention.ragged_flash_attention) has validated
     devices, dtypes, shapes and contiguity."""
-    fn = RAGGED_PAGED_ATTENTION.function()
     B, S, H, D = q.shape
     _, P, Hkv, _ = kc.shape
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                  page_tables.data_ptr(), pos.data_ptr(), q_lens.data_ptr(),
-                  anc.data_ptr(), out.data_ptr(), B, S, H, Hkv, D, P,
-                  page_tables.shape[1], float(scale),
-                  KERNEL_DTYPES[q.dtype], stream)
-    RAGGED_PAGED_ATTENTION.check(code)
-    RAGGED_PAGED_ATTENTION.launches += 1
+    _launch(RAGGED_PAGED_ATTENTION, q.device, q.data_ptr(), kc.data_ptr(),
+            vc.data_ptr(), page_tables.data_ptr(), pos.data_ptr(),
+            q_lens.data_ptr(), anc.data_ptr(), out.data_ptr(), B, S, H, Hkv,
+            D, P, page_tables.shape[1], float(scale), KERNEL_DTYPES[q.dtype])
     return out
+
+
+def launch_flash_attention_fwd(q, k, v, out, lse, causal: bool,
+                               scale: float):
+    """K1: out (B, S, H, D) and the fp32 logsumexp lse (B, H, S) of
+    attention over q (B, S, H, D), k/v (B, T, Hkv, D). The caller
+    (ops.flash_attention) has validated devices, dtypes, shapes and
+    contiguity."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    _launch(FLASH_ATTENTION_FWD, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(), B, S, T, H, Hkv, D,
+            int(causal), float(scale), KERNEL_DTYPES[q.dtype])
+    return out, lse
+
+
+def launch_flash_attention_dq(q, k, v, dout, lse, delta, dq, causal: bool,
+                              scale: float):
+    """K2, dq: the query gradient from the saved lse and delta."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    _launch(FLASH_ATTENTION_DQ, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), B, S, T, H, Hkv, D, int(causal), float(scale),
+            KERNEL_DTYPES[q.dtype])
+    return dq
+
+
+def launch_flash_attention_dkv(q, k, v, dout, lse, delta, dk, dv,
+                               causal: bool, scale: float):
+    """K2, dk/dv: the key and value gradients at Hkv heads, summed over
+    each GQA group's query heads inside the kernel."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    _launch(FLASH_ATTENTION_DKV, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, S, T, H, Hkv, D, int(causal),
+            float(scale), KERNEL_DTYPES[q.dtype])
+    return dk, dv

@@ -4,14 +4,18 @@ flexflow_tpu/model.py).
 Layer-building methods record a lazy PCG exactly as the JAX package's do
 (same node names, guids and attrs); `compile()` infers shapes, builds the
 eager Executor on the configured device and draws the parameters there;
+`fit`, `eval` and `predict` train and run the model on numpy batches;
 `serve_generation(paged=True)` starts the paged continuous-batching
-server. Training is not ported yet: `fit` raises.
+server.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
 
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.ffconst import (
@@ -19,17 +23,15 @@ from flexflow_tpu_torch.ffconst import (
     AggrMode,
     DataType,
     LossType,
+    MetricsType,
     OpType,
 )
 from flexflow_tpu_torch.ops import attrs as A
 from flexflow_tpu_torch.pcg.graph import Graph, Node
 from flexflow_tpu_torch.pcg.tensor import TensorShape
 from flexflow_tpu_torch.runtime.executor import Executor
-
-_TRAINING_NOT_PORTED = (
-    "training is not ported to PyTorch yet: the training step and its "
-    "flash-attention kernels are the next slice (ROADMAP.md, queue 1 "
-    "item 2 and queue 2)")
+from flexflow_tpu_torch.runtime.metrics import LOSS_KEYS, PerfMetrics
+from flexflow_tpu_torch.runtime.optimizer import Optimizer, SGDOptimizer
 
 
 @dataclasses.dataclass
@@ -52,13 +54,20 @@ class Tensor:
 
 
 class FFModel:
-    """Build a layer graph, compile it for one device, serve it."""
+    """Build a layer graph, compile it for one device, train or serve
+    it."""
 
     def __init__(self, config: Optional[FFConfig] = None):
         self.config = config or FFConfig()
         self.graph = Graph()
         self._executor: Optional[Executor] = None
         self._params = None  # (trainable, nontrainable)
+        self._opt_state = None
+        self._optimizer: Optional[Optimizer] = None
+        self._loss_type = LossType.SPARSE_CATEGORICAL_CROSSENTROPY
+        self._metrics: List[MetricsType] = []
+        self._step_count = 0
+        self.current_metrics: Optional[PerfMetrics] = None
         self._used_names: set = set()
 
     # ------------------------------------------------------------------
@@ -151,26 +160,45 @@ class FFModel:
     # ------------------------------------------------------------------
     # compile / serve
 
-    def compile(self, optimizer=None, loss_type: Optional[LossType] = None,
-                params=None):
+    def compile(self, optimizer: Optional[Optimizer] = None,
+                loss_type: LossType = LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                metrics: Sequence[MetricsType] = (), params=None):
         """Infer shapes, build the executor on the configured device and
         draw the parameters there from `config.seed` — or, when `params`
         is given, take those (trainable, nontrainable) trees instead,
         moved to the device (e.g. runtime.weights.params_from_numpy's, or
-        another FFModel's `_params`). Inference only: an optimizer raises;
-        `loss_type` is accepted as the reference's callers pass it, and
-        unused."""
-        if optimizer is not None:
-            raise NotImplementedError(_TRAINING_NOT_PORTED)
+        another FFModel's `_params`; copied when compiled to train).
+
+        With an `optimizer` the model is compiled to train: every
+        floating trainable leaf is an fp32 master (the reference's
+        init_params) and the optimizer state is drawn now. Without one
+        the weights keep their use-site dtypes, as serving needs, and
+        `fit` trains with SGDOptimizer() (the reference's default),
+        turning the trainable leaves into fp32 masters at its first
+        step."""
         device = self.config.torch_device()
+        self._optimizer = optimizer or SGDOptimizer()
+        self._loss_type = loss_type
+        self._metrics = list(metrics)
         self.graph.infer_shapes()
-        self._executor = Executor(self.graph, device)
+        self._executor = Executor(self.graph, device, loss_type=loss_type,
+                                  metrics=self._metrics, optimizer=optimizer,
+                                  remat=self.config.remat)
         if params is None:
-            self._params = self._executor.init_params(self.config.seed)
+            tr, ntr = self._executor.init_params(self.config.seed)
         else:
-            self._params = tuple(
-                {k: {n: t.to(device) for n, t in w.items()}
+            # training updates the weights in place: a model compiled to
+            # train takes copies, so it never shares storage with the
+            # trees it was given
+            tr, ntr = tuple(
+                {k: {n: t.to(device, copy=optimizer is not None)
+                     for n, t in w.items()}
                  for k, w in tree.items()} for tree in params)
+        self._opt_state = None
+        if optimizer is not None:
+            tr = self._executor.master_params(tr)
+            self._opt_state = self._executor.init_opt_state(optimizer, tr)
+        self._params = (tr, ntr)
         return self
 
     @property
@@ -183,8 +211,124 @@ class FFModel:
     def device(self):
         return self.executor.device
 
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError(_TRAINING_NOT_PORTED)
+    # ------------------------------------------------------------------
+    # train / eval / predict on numpy batches
+
+    @staticmethod
+    def _batches(arrays: List[np.ndarray], batch_size: int):
+        """Full batches only; the trailing partial batch is dropped (as
+        the reference's dataloader, which sizes steps as n // batch)."""
+        for i in range(arrays[0].shape[0] // batch_size):
+            yield [a[i * batch_size:(i + 1) * batch_size] for a in arrays]
+
+    def _to_device(self, arrays):
+        """Host batches onto the device. On the card they go through
+        pinned memory without blocking, so the step loop never waits for
+        the card to drain."""
+        dev = self.executor.device
+        if dev.type != "cuda":
+            return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        return [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                .to(dev, non_blocking=True) for a in arrays]
+
+    def _prepare_training(self):
+        """The executor's optimizer and its fp32 masters and state, made
+        at the first training step of a model compiled without one."""
+        ex = self.executor
+        if ex.optimizer is None:
+            ex.optimizer = self._optimizer
+        if self._opt_state is None:
+            tr, ntr = self._params
+            tr = ex.master_params(tr)
+            self._opt_state = ex.init_opt_state(ex.optimizer, tr)
+            self._params = (tr, ntr)
+
+    def fit(self, x=None, y=None, epochs: Optional[int] = None,
+            batch_size: Optional[int] = None, verbose: bool = True,
+            dataloaders=None, recompile_state=None) -> PerfMetrics:
+        """Training loop over numpy arrays `x` (one array or a list, one
+        per graph input) and labels `y`: one train_step per full batch.
+        Metrics add up on the device through the epoch and reach the
+        host once per epoch, as the reference's do. Data loaders and
+        recompilation are not ported yet and raise."""
+        if dataloaders is not None:
+            raise NotImplementedError(
+                "fit(dataloaders=...) is not ported yet (ROADMAP.md, queue "
+                "1 item 10); pass numpy arrays x, y")
+        if recompile_state is not None:
+            raise NotImplementedError(
+                "fit(recompile_state=...) is not ported yet (ROADMAP.md, "
+                "queue 1 item 10)")
+        epochs = epochs or self.config.epochs
+        batch_size = batch_size or self.config.batch_size
+        xs = [x] if isinstance(x, np.ndarray) else list(x)
+        self._prepare_training()
+        ex = self.executor
+        tr, ntr = self._params
+        opt_state = self._opt_state
+        for epoch in range(epochs):
+            self.current_metrics = PerfMetrics()
+            dev_sums = None
+            n_samples = 0
+            for batch in self._batches(xs + [y], batch_size):
+                *bx, by = self._to_device(batch)
+                tr, ntr, opt_state, m = ex.train_step(tr, ntr, opt_state,
+                                                      by, *bx)
+                self._step_count += 1
+                bsz = by.shape[0]
+                n_samples += bsz
+                scaled = {k: (v if k == "accuracy_correct" else v * bsz)
+                          for k, v in m.items() if k != "loss"}
+                dev_sums = scaled if dev_sums is None else {
+                    k: dev_sums[k] + v for k, v in scaled.items()}
+            self.current_metrics.train_all = n_samples
+            if dev_sums is not None:
+                # the one device-to-host sync of the epoch
+                host = {k: float(v) for k, v in dev_sums.items()}
+                self.current_metrics.train_correct = int(
+                    round(host.get("accuracy_correct", 0.0)))
+                for k in LOSS_KEYS:
+                    if k in host:
+                        setattr(self.current_metrics, k, host[k])
+            if verbose:
+                print(f"epoch {epoch}: "
+                      f"{self.current_metrics.report(self._metrics)}")
+        self._params = (tr, ntr)
+        self._opt_state = opt_state
+        return self.current_metrics
+
+    def eval(self, x: Union[np.ndarray, Sequence[np.ndarray]], y: np.ndarray,
+             batch_size: Optional[int] = None,
+             verbose: bool = True) -> PerfMetrics:
+        xs = [x] if isinstance(x, np.ndarray) else list(x)
+        batch_size = batch_size or self.config.batch_size
+        tr, ntr = self._params
+        pm = PerfMetrics()
+        for batch in self._batches(xs + [y], batch_size):
+            *bx, by = self._to_device(batch)
+            m = self.executor.eval_step(tr, ntr, by, *bx)
+            pm.update({k: float(v) for k, v in m.items() if k != "loss"},
+                      batch_size)
+        if verbose:
+            print(f"eval: {pm.report(self._metrics)}")
+        return pm
+
+    def predict(self, x: Union[np.ndarray, Sequence[np.ndarray]],
+                batch_size: Optional[int] = None) -> np.ndarray:
+        """The sink output for every row of `x` (the last batch padded,
+        unlike fit/eval), as fp32 numpy."""
+        xs = [x] if isinstance(x, np.ndarray) else list(x)
+        batch_size = batch_size or self.config.batch_size
+        tr, ntr = self._params
+        n = xs[0].shape[0]
+        pad = (-n) % batch_size
+        if pad:
+            xs = [np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
+                  for a in xs]
+        outs = [self.executor.forward(tr, ntr, *self._to_device(batch))
+                .float().cpu().numpy()
+                for batch in self._batches(xs, batch_size)]
+        return np.concatenate(outs, axis=0)[:n]
 
     def serve_generation(self, slots: int = 4, max_len: int = 512,
                          eos_id=None, seed: int = 0, paged: bool = False,

@@ -22,6 +22,7 @@ class LowerCtx:
     mesh, the port carries the device the step runs on."""
 
     device: Optional[torch.device] = None
+    training: bool = False
     node_guid: int = 0
     # paged KV cache: kv_cache is THIS attention node's {"k", "v"} pool,
     # (num_pages, page_size, Hkv, D); page_tables maps each batch entry's

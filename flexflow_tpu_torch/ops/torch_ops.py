@@ -1,12 +1,14 @@
-"""PyTorch lowerings of the Llama serving path's operators (counterpart of
+"""PyTorch lowerings of the Llama path's operators (counterpart of
 flexflow_tpu/ops/jax_ops.py).
 
 Each lowering reproduces the reference's numerics discipline: weights
 are cast to the activation dtype at the use site, matmuls accumulate in
 fp32 and round to the activation dtype, RMSNorm computes in fp32. Plain
 matmuls and elementwise ops go to PyTorch, as the JAX package left them
-to XLA; the one hand-written kernel on this path is the ragged paged
-attention behind the MULTIHEAD_ATTENTION lowering's paged branch.
+to XLA; the hand-written kernels on this path are behind the
+MULTIHEAD_ATTENTION lowering: the ragged paged attention on its paged
+branch (serving), the flash-attention forward and backward on its
+no-cache branch (training, eval and predict).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from flexflow_tpu_torch.ffconst import ActiMode, AggrMode, OpType
+from flexflow_tpu_torch.ops.flash_attention import flash_attention
 from flexflow_tpu_torch.ops.registry import register_lowering
 
 
@@ -73,12 +76,14 @@ def apply_rope(x, theta: float, pos_offset=0):
     # blocking host-to-device copy in every layer
     freqs = float(theta) ** (
         -torch.arange(0, d2, dtype=torch.float32, device=dev) / d2)
-    off = torch.as_tensor(pos_offset, dtype=torch.float32, device=dev)
-    if off.ndim == 2:
-        pos = off                                              # (B, S)
+    ar = torch.arange(S, dtype=torch.float32, device=dev)[None, :]
+    if isinstance(pos_offset, (int, float)):
+        # a Python offset (the training path's 0) stays on the host: a
+        # device tensor made from it would be a blocking copy per layer
+        pos = ar + float(pos_offset)                           # (1, S)
     else:
-        pos = (torch.arange(S, dtype=torch.float32, device=dev)[None, :]
-               + off.reshape(-1, 1))                          # (B|1, S)
+        off = torch.as_tensor(pos_offset, dtype=torch.float32, device=dev)
+        pos = off if off.ndim == 2 else ar + off.reshape(-1, 1)  # (B|1, S)
     ang = pos[:, :, None] * freqs[None, None, :]              # (B|1, S, d2)
     cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
     sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
@@ -117,6 +122,19 @@ def dot_product_attention(q, k, v, scale: float, mask):
     return out.to(q.dtype)
 
 
+def fused_attention(q, k, v, *, causal: bool, scale: float,
+                    dropout: float = 0.0):
+    """Attention over the whole sequence (counterpart of
+    jax_ops.fused_attention): the flash kernels on the card, their plain
+    version on the CPU (ops/flash_attention.py). Attention dropout is not
+    ported: a rate above 0 raises."""
+    if dropout > 0.0:
+        raise NotImplementedError(
+            "attention dropout is not ported yet (ROADMAP.md, queue 1 "
+            "item 8, DROPOUT); Llama's attention has none")
+    return flash_attention(q, k, v, causal=causal, scale=scale)
+
+
 @register_lowering(OpType.MULTIHEAD_ATTENTION)
 def _mha(attrs, inputs, params, ctx):
     q_in = inputs[0]
@@ -130,23 +148,32 @@ def _mha(attrs, inputs, params, ctx):
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    if ctx.kv_cache is None or ctx.page_tables is None:
+    scale = 1.0 / (attrs.kdim ** 0.5)
+    if ctx.kv_cache is None:
+        if attrs.rope:
+            q = apply_rope(q, attrs.rope_theta)
+            k = apply_rope(k, attrs.rope_theta)
+        out = fused_attention(
+            q, k, v, causal=attrs.causal, scale=scale,
+            dropout=attrs.dropout if ctx.training else 0.0)
+    elif ctx.page_tables is None:
         raise NotImplementedError(
-            "the port lowers attention only on the paged serving path; "
-            "dense and training attention (flash kernels) are ROADMAP.md "
-            "queue 2")
-    # every paged step — decode rows and chunked-prefill pieces — is the
-    # same ragged call: rope, write this step's K/V rows into their pool
-    # pages, attend through the page table (paged/attention.py)
-    from flexflow_tpu_torch.paged.attention import ragged_paged_attention
+            "dense KV-cache decode is not ported yet (ROADMAP.md, queue 1 "
+            "item 6); the port serves through the paged cache")
+    else:
+        # every paged step — decode rows and chunked-prefill pieces — is
+        # the same ragged call: rope, write this step's K/V rows into
+        # their pool pages, attend through the page table
+        # (paged/attention.py)
+        from flexflow_tpu_torch.paged.attention import ragged_paged_attention
 
-    out, kc, vc = ragged_paged_attention(
-        q, k, v, ctx.kv_cache["k"], ctx.kv_cache["v"], ctx.page_tables,
-        ctx.cache_position, ctx.ragged_q_lens, ctx.ragged_depths,
-        ctx.ragged_anc, scale=1.0 / (attrs.kdim ** 0.5),
-        rope_theta=attrs.rope_theta if attrs.rope else None)
-    ctx.cache_updates["k"] = kc
-    ctx.cache_updates["v"] = vc
+        out, kc, vc = ragged_paged_attention(
+            q, k, v, ctx.kv_cache["k"], ctx.kv_cache["v"], ctx.page_tables,
+            ctx.cache_position, ctx.ragged_q_lens, ctx.ragged_depths,
+            ctx.ragged_anc, scale=scale,
+            rope_theta=attrs.rope_theta if attrs.rope else None)
+        ctx.cache_updates["k"] = kc
+        ctx.cache_updates["v"] = vc
     y = attn_out_project(out, params["wo"], dt)
     if attrs.use_bias:
         y = y + params["bo"].to(dt)

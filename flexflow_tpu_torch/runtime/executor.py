@@ -1,11 +1,14 @@
 """Executor: runs a PCG eagerly on one device (counterpart of
-flexflow_tpu/runtime/executor.py, inference only).
+flexflow_tpu/runtime/executor.py).
 
 Where the JAX package traces the topo-order walk into one jitted XLA
 program, the port walks the same order eagerly, calling each node's
-PyTorch lowering (ops/torch_ops.py). The serving slice needs parameter
-creation, the paged KV pools and the one ragged step; training (loss,
-backward, optimizers) is not ported yet.
+PyTorch lowering (ops/torch_ops.py). It draws the parameters, runs the
+forward pass for inference and training, the training step (loss,
+autograd backward through the hand-written attention kernels, optimizer
+update) and the evaluation step, and owns the paged KV pools and the one
+ragged serving step. Where the reference returns a jitted step function
+(`train_step()`, `ragged_step_fn()`), the port's method is the step.
 """
 
 from __future__ import annotations
@@ -13,15 +16,19 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from flexflow_tpu_torch.ffconst import OpType
+from flexflow_tpu_torch.ffconst import LossType, MetricsType, OpType
 from flexflow_tpu_torch.ops.registry import LowerCtx, get_lowering
 from flexflow_tpu_torch.pcg.graph import Graph, Node
 from flexflow_tpu_torch.runtime import initializer as init_mod
+from flexflow_tpu_torch.runtime.loss import compute_loss
+from flexflow_tpu_torch.runtime.metrics import compute_step_metrics
 
 # weights whose lowering computes in fp32 whatever the activation dtype:
 # stored fp32 so their values equal the reference's fp32 masters
 _FP32_USE = {(OpType.RMS_NORM, "scale")}
+_ATTENTION_OPS = (OpType.MULTIHEAD_ATTENTION, OpType.RING_ATTENTION)
 
 
 def node_key(node: Node) -> str:
@@ -31,15 +38,30 @@ def node_key(node: Node) -> str:
 class Executor:
     """Owns the eager step functions for one compiled PCG on `device`."""
 
-    def __init__(self, graph: Graph, device: torch.device):
+    def __init__(self, graph: Graph, device: torch.device, *,
+                 loss_type: Optional[LossType] = None,
+                 metrics: Sequence[MetricsType] = (), optimizer=None,
+                 remat: str = "attention"):
         self.graph = graph
         self.device = torch.device(device)
+        self.loss_type = loss_type
+        self.metrics = list(metrics)
+        self.optimizer = optimizer
+        self.remat = remat
         self.topo = graph.topo_order()
         self.input_nodes = [n for n in self.topo if n.op_type == OpType.INPUT]
         sinks = graph.sinks()
         if len(sinks) != 1:
             raise ValueError(f"PCG must have exactly one sink, got {sinks}")
         self.sink = sinks[0]
+        self.last_op_is_softmax = self.sink.op_type == OpType.SOFTMAX
+        # a graph ending in Softmax under a cross-entropy loss skips the
+        # final softmax in train/eval and fuses it into the loss as a
+        # log-softmax; predict still runs the real softmax
+        self.fuse_loss_softmax = self.last_op_is_softmax and loss_type in (
+            LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+            LossType.CATEGORICAL_CROSSENTROPY,
+        )
 
     # ------------------------------------------------------------------
     # parameters
@@ -58,12 +80,18 @@ class Executor:
     def storage_dtype(self, node: Node, weight_name: str, spec) -> torch.dtype:
         """The dtype a weight is stored in. The reference keeps fp32
         masters and casts each to its use-site dtype inside the lowering
-        (the activation dtype, or fp32 for the norm scales); storing the
-        use-site dtype directly gives the same values with half the
-        memory of fp32 masters for a bf16 model."""
+        (the activation dtype, or fp32 for the norm scales). A model
+        compiled to train does the same: every floating trainable leaf is
+        an fp32 master. A model compiled for inference stores the
+        use-site dtype directly, the same values with half the memory of
+        fp32 masters for a bf16 model."""
+        dt = spec.shape.dtype.torch_dtype
         if (node.op_type, weight_name) in _FP32_USE:
             return torch.float32
-        return spec.shape.dtype.torch_dtype
+        if self.optimizer is not None and spec.trainable \
+                and dt.is_floating_point:
+            return torch.float32
+        return dt
 
     def init_params(self, seed: int):
         """Draw (trainable, nontrainable) parameter trees on the device.
@@ -89,16 +117,36 @@ class Executor:
                 (tr if spec.trainable else ntr).setdefault(nk, {})[wn] = arr
         return tr, ntr
 
+    @staticmethod
+    def master_params(trainable):
+        """The trainable tree with every floating leaf in fp32 (the
+        masters the optimizer updates); leaves already fp32 are kept, not
+        copied."""
+        return {nk: {wn: (p.float() if p.is_floating_point() else p)
+                     for wn, p in ws.items()}
+                for nk, ws in trainable.items()}
+
+    def init_opt_state(self, optimizer, params):
+        """The optimizer's state for `params`, on the params' device."""
+        return optimizer.init_state(params)
+
     # ------------------------------------------------------------------
     # forward
 
     def run_forward(self, trainable, nontrainable, inputs: Sequence, *,
+                    training: bool = False, skip_sink_softmax: bool = False,
                     kv_caches=None, cache_position=None, cache_out=None,
                     page_tables=None, ragged=None):
         """Topo-order evaluation; returns the sink output. With
-        `kv_caches` + `page_tables` attention nodes run the PAGED step:
-        kv_caches are per-node {"k", "v"} page pools, updated in place and
-        reported in `cache_out`, and `ragged` = (q_lens, depths, anc) is the
+        `skip_sink_softmax` a final Softmax node passes its input (the raw
+        logits) through, for a loss that fuses the softmax. With
+        `training` and remat="attention" each attention lowering runs
+        under torch.utils.checkpoint (non-reentrant): its intermediates
+        are recomputed in the backward pass instead of saved, as the
+        reference's jax.checkpoint does. With `kv_caches` + `page_tables`
+        attention nodes run the PAGED step: kv_caches are per-node
+        {"k", "v"} page pools, updated in place and reported in
+        `cache_out`, and `ragged` = (q_lens, depths, anc) is the
         per-entry work descriptor (causal-chain default when None)."""
         values: Dict[Tuple[int, int], Any] = {}
         if len(inputs) != len(self.input_nodes):
@@ -118,18 +166,87 @@ class Executor:
             key = node_key(n)
             ins = [values[(e.src, e.src_idx)] for e in self.graph.in_edges(n)]
             params = {**trainable.get(key, {}), **nontrainable.get(key, {})}
+            if skip_sink_softmax and n.guid == self.sink.guid \
+                    and n.op_type == OpType.SOFTMAX:
+                values[(n.guid, 0)] = ins[0]
+                continue
             ctx = LowerCtx(
-                device=self.device, node_guid=n.guid,
+                device=self.device, training=training, node_guid=n.guid,
                 kv_cache=(kv_caches.get(key) if kv_caches is not None
                           else None),
                 cache_position=cache_position, page_tables=page_tables,
                 ragged_q_lens=q_lens, ragged_depths=depths, ragged_anc=anc)
-            outs = get_lowering(n.op_type)(n.attrs, ins, params, ctx)
+            lowering = get_lowering(n.op_type)
+            if training and self.remat == "attention" \
+                    and n.op_type in _ATTENTION_OPS:
+                outs = checkpoint(
+                    lambda *xs, _n=n, _p=params, _c=ctx, _l=lowering:
+                    _l(_n.attrs, list(xs), _p, _c), *ins,
+                    use_reentrant=False)
+            else:
+                outs = lowering(n.attrs, ins, params, ctx)
             for i, o in enumerate(outs):
                 values[(n.guid, i)] = o
             if ctx.cache_updates and cache_out is not None:
                 cache_out[key] = dict(ctx.cache_updates)
         return values[(self.sink.guid, 0)]
+
+    # ------------------------------------------------------------------
+    # training and evaluation steps
+
+    def train_step(self, trainable, nontrainable, opt_state, labels,
+                   *inputs):
+        """One training step: forward (training=True, the sink softmax
+        fused into the loss), autograd backward to every trainable leaf,
+        and the optimizer's update of the fp32 masters and the state, in
+        place. Returns (trainable, nontrainable, opt_state, metrics);
+        metrics (the compiled metrics and "loss") are 0-d tensors on the
+        device, so the step never waits for the card."""
+        leaves = [p for ws in trainable.values() for p in ws.values()]
+        for p in leaves:
+            if p.dtype != torch.float32:
+                raise ValueError("train_step updates fp32 master weights; "
+                                 "pass Executor.master_params(trainable)")
+            p.requires_grad_(True)
+        try:
+            logits = self.run_forward(
+                trainable, nontrainable, inputs, training=True,
+                skip_sink_softmax=self.fuse_loss_softmax)
+            sink_is_sm = self.last_op_is_softmax \
+                and not self.fuse_loss_softmax
+            loss = compute_loss(self.loss_type, logits, labels, sink_is_sm)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        it = iter(grads)
+        grad_tree = {nk: {wn: next(it) for wn in ws}
+                     for nk, ws in trainable.items()}
+        metrics = compute_step_metrics(self.metrics, self.loss_type,
+                                       logits.detach(), labels, sink_is_sm)
+        metrics["loss"] = loss.detach()
+        del logits, grads
+        trainable, opt_state = self.optimizer.update(grad_tree, trainable,
+                                                     opt_state)
+        return trainable, nontrainable, opt_state, metrics
+
+    @torch.no_grad()
+    def eval_step(self, trainable, nontrainable, labels, *inputs):
+        """The loss and the compiled metrics of one batch, as 0-d tensors
+        on the device."""
+        logits = self.run_forward(trainable, nontrainable, inputs,
+                                  skip_sink_softmax=self.fuse_loss_softmax)
+        sink_is_sm = self.last_op_is_softmax and not self.fuse_loss_softmax
+        m = compute_step_metrics(self.metrics, self.loss_type, logits,
+                                 labels, sink_is_sm)
+        m["loss"] = compute_loss(self.loss_type, logits, labels, sink_is_sm)
+        return m
+
+    @torch.no_grad()
+    def forward(self, trainable, nontrainable, *inputs):
+        """The sink output (the real softmax included) for one batch
+        (the reference's forward_fn())."""
+        return self.run_forward(trainable, nontrainable, inputs)
 
     # ------------------------------------------------------------------
     # paged KV pools + the ragged step

@@ -2,7 +2,8 @@
 
 The port keeps the JAX package's parameter layout — the same node keys
 (`Node.stable_key()`), weight names and array shapes — so weights move
-over with no reshaping: only the dtype and the device change.
+over with no reshaping: only the dtype and the device change, and only
+the device unless a dtype is asked for, so fp32 masters stay fp32.
 """
 
 from __future__ import annotations
@@ -35,5 +36,21 @@ def params_from_numpy(trainable: Dict[str, Dict[str, np.ndarray]],
                     t = t.to(dtype)
                 out[nk][wn] = t.to(device)
         return out
+
+    return convert(trainable), convert(nontrainable)
+
+
+def params_to_numpy(trainable: Params, nontrainable: Params
+                    ) -> Tuple[Dict[str, Dict[str, np.ndarray]],
+                               Dict[str, Dict[str, np.ndarray]]]:
+    """The inverse of params_from_numpy: the port's parameter trees as
+    numpy arrays on the host, each leaf in its own dtype (bfloat16 leaves,
+    which numpy lacks, come back as float32)."""
+
+    def convert(tree):
+        return {nk: {wn: (t.detach().float() if t.dtype == torch.bfloat16
+                          else t.detach()).cpu().numpy()
+                     for wn, t in ws.items()}
+                for nk, ws in tree.items()}
 
     return convert(trainable), convert(nontrainable)

@@ -2,7 +2,7 @@
 (Hopper, sm_90a) and the CUDA toolkit, and skip without a card. Run them
 on the card with:
 
-    python -m pytest -m cuda tests/test_torch_cuda.py
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Each kernel is held to its plain PyTorch version on the same inputs."""
 
@@ -10,6 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from flexflow_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+)
 from flexflow_tpu_torch.paged.attention import (
     ragged_flash_attention,
     ragged_gather_attention,
@@ -88,3 +92,76 @@ def test_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError):  # a non-contiguous q
         q = args[0].transpose(1, 2).contiguous().transpose(1, 2)
         ragged_flash_attention(q, *args[1:], scale=0.1)
+
+
+# flash attention. fp32: summation order only (out and lse 1e-5; the
+# gradients sum up to 1000 products per element, 1e-4). bf16: p and ds
+# are rounded to bf16 at other points than in the plain version, and
+# every output is bf16.
+FLASH_TOLS = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def _close(got, want, tol):
+    err = float((got.float() - want.float()).abs().max())
+    return err <= tol * max(1.0, float(want.float().abs().max())), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,D", [(128, 64), (1000, 64), (256, 128),
+                                 (1000, 128)])
+def test_flash_kernels_match_plain_version(dtype, causal, S, D):
+    """K1 (out, lse) and K2 (dq, dk, dv from a fixed, non-contiguous dO)
+    against the plain version's forward and autograd gradients, GQA
+    (H 4, Hkv 2), S = T including a ragged 1000."""
+    _needs_card()
+    from flexflow_tpu_torch.kernels import (
+        FLASH_ATTENTION_DKV,
+        FLASH_ATTENTION_DQ,
+        FLASH_ATTENTION_FWD,
+        launch_flash_attention_fwd,
+    )
+
+    B, H, Hkv = 2, 4, 2
+    scale = 1.0 / D ** 0.5
+    g = torch.Generator(device="cuda").manual_seed(S + D)
+    q, k, v = (torch.randn(B, S, h, D, generator=g, device="cuda")
+               .to(dtype) for h in (H, Hkv, Hkv))
+    # dO as the output projection's backward may hand it over: strided
+    do = torch.randn(B, H, S, D, generator=g, device="cuda").to(
+        dtype).transpose(1, 2)
+    fwd_tol, grad_tol = FLASH_TOLS[dtype]
+
+    want_out, want_lse = flash_attention_reference(q, k, v, causal, scale)
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, S, device="cuda")
+    launch_flash_attention_fwd(q, k, v, out, lse, causal, scale)
+    torch.cuda.synchronize()
+    for name, got, want in (("out", out, want_out), ("lse", lse, want_lse)):
+        ok, err = _close(got, want, fwd_tol)
+        assert ok, (name, err)
+
+    counts = [kk.launches for kk in (FLASH_ATTENTION_FWD, FLASH_ATTENTION_DQ,
+                                     FLASH_ATTENTION_DKV)]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention(*leaves, causal=causal, scale=scale).backward(do)
+    torch.cuda.synchronize()
+    assert [kk.launches for kk in (FLASH_ATTENTION_FWD, FLASH_ATTENTION_DQ,
+                                   FLASH_ATTENTION_DKV)] == [
+        c + 1 for c in counts]
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention_reference(*plain, causal, scale)[0].backward(do)
+    for name, got, want in zip(("dq", "dk", "dv"), leaves, plain):
+        assert got.grad.dtype == dtype
+        ok, err = _close(got.grad, want.grad, grad_tol)
+        assert ok, (name, err)
+
+
+def test_flash_wrapper_refuses_what_the_kernels_do_not_take():
+    _needs_card()
+    q = torch.zeros(1, 8, 2, 96, device="cuda")
+    with pytest.raises(ValueError, match="K4"):
+        flash_attention(q, q, q, causal=True, scale=0.1)
+    q = torch.zeros(1, 8, 2, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q, causal=True, scale=0.1)

@@ -8,6 +8,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -98,10 +99,22 @@ def test_chip_smoke_fails_without_cuda():
 
 
 def test_training_entry_points_raise():
+    """What the training slice does not port raises, naming ROADMAP:
+    remat="hidden", attention dropout in training, fit(dataloaders=...)."""
     from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
 
-    ff = FFModel(FFConfig(device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ff.fit()
+        FFConfig(device="cpu", remat="hidden")
+    ff = FFModel(FFConfig(batch_size=1, device="cpu"))
+    x = ff.create_tensor((1, 4, 16))
+    ff.multihead_attention(x, x, x, 16, 2, dropout=0.1)
+    ff.compile()
+    ids = np.zeros((1, 4, 16), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ff.compile(optimizer=object())
+        ff.fit(ids, np.zeros((1, 4, 16), np.float32))
+    ff = FFModel(FFConfig(batch_size=1, device="cpu"))
+    build_llama(ff, LlamaConfig.tiny(), batch_size=1, seq_len=4)
+    ff.compile()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ff.fit(dataloaders=[object()])

@@ -184,9 +184,18 @@ def test_mha_paged_branch(heads, kv_heads):
 
 
 def test_mha_outside_the_paged_path_raises():
-    attrs = A.MultiHeadAttentionAttrs(16, 2)
+    """Outside the paged path the lowering attends with the flash path
+    (tests/test_torch_flash_attention.py); what is not ported there
+    raises: attention dropout in training, and a dense KV cache."""
+    attrs = A.MultiHeadAttentionAttrs(16, 2, dropout=0.1)
     x = torch.zeros(1, 2, 16)
     params = {"wq": torch.zeros(16, 2, 8), "wk": torch.zeros(16, 2, 8),
               "wv": torch.zeros(16, 2, 8), "wo": torch.zeros(2, 8, 16)}
-    with pytest.raises(NotImplementedError):
-        torch_ops._mha(attrs, [x] * 3, params, LowerCtx())
+    with pytest.raises(NotImplementedError, match="dropout"):
+        torch_ops._mha(attrs, [x] * 3, params, LowerCtx(training=True))
+    (y,) = torch_ops._mha(attrs, [x] * 3, params, LowerCtx(training=False))
+    assert y.shape == (1, 2, 16)
+    with pytest.raises(NotImplementedError, match="dense KV-cache"):
+        torch_ops._mha(attrs, [x] * 3, params, LowerCtx(
+            kv_cache={"k": torch.zeros(1, 4, 2, 8),
+                      "v": torch.zeros(1, 4, 2, 8)}))
