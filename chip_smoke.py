@@ -1,9 +1,9 @@
 """Chip smoke test of flexflow_tpu_torch, the PyTorch/CUDA port: drives the
-port's two main paths on one NVIDIA card, paged Llama serving and Llama
-training, and holds every hand-written kernel on it to its plain PyTorch
-version.
+port's main paths on one NVIDIA card, paged Llama serving (fp and int8 KV
+pools, prefix cache, preemption, defrag) and Llama training, and holds
+every hand-written kernel on it to its plain PyTorch version.
 
-    python3 chip_smoke.py            # phases 1,2,3,4,6 on one card
+    python3 chip_smoke.py            # phases 1,2,3,4,6,7 on one card
     python3 chip_smoke.py --phases 5 # + profiles of serving and training
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
@@ -13,18 +13,21 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      library times and the roofline bound: the ragged paged attention at
      the serving path's shapes (Llama-3-8B attention: H=32, Hkv=8,
      D=128, page 64, 129 pages; decode, chunk and pad entries; window 1
-     and 8), and the flash-attention forward, dq and dk/dv kernels at
-     the training path's shape (bench_1b attention: B 8, S = T 1024,
-     H 16, Hkv 8, D 128, causal); bf16 and fp32;
+     and 8) over fp pools, over int8 pools written by the port's own
+     quantize-on-append, and over a bf16 pool under fp32 q; and the
+     flash-attention forward, dq and dk/dv kernels at the training
+     path's shape (bench_1b attention: B 8, S = T 1024, H 16, Hkv 8,
+     D 128, causal); bf16 and fp32;
   3. full-width checks, card against CPU on the same seeded weights, fp32
-     with TF32 off: one packed ragged step at Llama-3-8B widths, depth 2;
-     one Adam train step at bench_1b widths, depth 2, batch 1, seq 256
-     (the loss and every parameter after the step);
+     with TF32 off: two packed ragged steps at Llama-3-8B widths, depth 2,
+     on an fp pool and on an int8 pool; one Adam train step at bench_1b
+     widths, depth 2, batch 1, seq 256 (the loss and every parameter
+     after the step);
   4. serving: Llama-3-8B (32 layers, bf16, random weights from a seed)
-     through serve_generation(paged=True); 8 requests of 128..1024
-     prompt tokens, 64 new tokens each; the ragged kernel must have
-     launched once per layer and step (counts reset just before, read
-     just after);
+     through serve_generation(paged=True) at its defaults (prefix cache
+     and preemption on); 8 requests of 128..1024 prompt tokens, 64 new
+     tokens each; the ragged kernel must have launched once per layer and
+     step (counts reset just before, read just after);
   5. (on request) torch.profiler breakdowns of one decode step, one
      prefill step and one bench_1b train step;
   6. training: bench_1b (16 layers, bf16, batch 8, seq 1024,
@@ -32,7 +35,15 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      ff.fit for one epoch of 10 seeded batches, then 10 timed steps on
      one repeated batch (the loss must fall); each flash kernel must
      launch 16 times per step; then two remat="attention" steps, where
-     the forward kernel launches twice per layer.
+     the forward kernel launches twice per layer;
+  7. the whole paged server: Llama-3-8B (32 layers, bf16) through
+     serve_generation(paged=True, kv_dtype="int8") with a pool smaller
+     than four slots' longest sequences; a 512-token system prompt served
+     first, then 8 requests of that prompt + a 64..512-token suffix, 192
+     new tokens each, and a defrag while they run; the int8 kernel must
+     launch once per layer and step and the fp kernel never, the shared
+     pages must hit, growth must preempt, and the pool's invariants must
+     hold after the drain.
 The line before the last is the kernel list as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -64,6 +75,7 @@ from flexflow_tpu_torch.kernels import (
     FLASH_ATTENTION_FWD,
     KERNELS,
     RAGGED_PAGED_ATTENTION,
+    RAGGED_PAGED_ATTENTION_INT8,
     build,
     launch_flash_attention_dkv,
     launch_flash_attention_dq,
@@ -81,6 +93,7 @@ from flexflow_tpu_torch.paged.attention import (
     ragged_gather_attention,
     ragged_visibility_mask,
 )
+from flexflow_tpu_torch.paged.quant import dequantize_pages, quantized_append
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type
 HBM_BYTES_PER_S = 3.35e12
@@ -94,8 +107,21 @@ TOLS = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 # sum up to 1024 products per element, 1e-4); bf16 rounds p and ds to
 # bf16 at other points than the plain version and every output is bf16
 FLASH_TOLS = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+# int8 kernel vs plain version, max |err| <= tol * max(1, max |plain|), as
+# for the flash kernels: an int8 pool is dequantized to fp32 and attended
+# in fp32 by both (summation order only) for fp32 q; bf16 q rounds the
+# output to bf16
+INT8_TOLS = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # card step vs CPU step, fp32 with TF32 off: summation order only
 STEP_RTOL, STEP_ATOL = 1e-3, 1e-7
+# the same on an int8 pool: the fp32 rows entering the pools differ by
+# summation order, so a stored byte can land on the other side of a
+# rounding boundary (+-1, rarely), and a scale (the amax of 128 elements
+# of 4096-term dot products, / 127) by as much as those elements do: a
+# few 1e-6 relative (H100 80GB HBM3: 1.17e-6 for the scales, 4.2e-6 for
+# the fp step's probabilities); the probabilities follow within 1e-4
+INT8_STEP_PROB_ATOL, INT8_STEP_BYTE_FRACTION, INT8_STEP_SCALE_RTOL = (
+    1e-4, 1e-4, 1e-5)
 # card train step vs CPU train step, fp32 with TF32 off: the loss differs
 # by summation order only (1e-5). Adam's first step moves each weight by
 # lr * g / (|g| + eps): about lr whatever |g| is, so where a gradient
@@ -183,26 +209,31 @@ def attention_case(window: int, kinds, dtype, seed: int, fixed_pos=None):
             torch.from_numpy(anc).to(dev))
 
 
-def attention_bound(args) -> tuple:
+def attention_bound(args, quantized: bool = False) -> tuple:
     """(bound_ms, bound_by, bytes, ops): the least time the card could
     take — every input byte the call needs read once (q; the K/V rows up
-    to each entry's horizon; the descriptor), every output byte written
-    once — against the ops the visible keys need (QK and PV dots, 4*D
-    per visible (q head, key) pair) at the operand type's peak."""
+    to each entry's horizon at the pool's element size, and for an int8
+    pool one fp32 scale per (page read, kv head) for K and for V; the
+    descriptor), every output byte written once — against the ops the
+    visible keys need (QK and PV dots, 4*D per visible (q head, key)
+    pair) at the peak of the type they run in: q's, or fp32 for an int8
+    pool (q is upcast and the pages dequantized to fp32)."""
     q, kc, vc, pt, pos, qls, anc = args
     B, S = q.shape[:2]
-    isz = q.element_size()
+    isz, kv_isz = q.element_size(), kc.element_size()
     horizon = (pos.long() + qls.long()) * (qls > 0).long()
     kv_rows = int(horizon.sum())
-    nbytes = (2 * q.numel() * isz + 2 * kv_rows * HKV * D * isz
+    nbytes = (2 * q.numel() * isz + 2 * kv_rows * HKV * D * kv_isz
               + pt.numel() * 4 + pos.numel() * 4 + qls.numel() * 4
               + anc.numel())
+    if quantized:
+        nbytes += 2 * int(((horizon + P - 1) // P).sum()) * HKV * 4
     vis = ragged_visibility_mask(pt, pos, qls, anc, P)
     live = torch.arange(S, device=q.device)[None, :] < qls[:, None]
     visible = int((vis.sum(-1) * live).sum())
     ops = 4 * D * H * visible
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS[q.dtype]
+    t_ops = ops / PEAK_OPS[torch.float32 if quantized else q.dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
@@ -274,6 +305,100 @@ def phase_kernels(card: str) -> list:
                     f"{res['max_abs_err']:.3g} vs atol {atol} rtol {rtol}, "
                     f"zero tail {zero_tail}")
             results.append(res)
+    return results
+
+
+def int8_pools(kc, vc):
+    """(k pages, k scales, v pages, v scales): the int8 pool the port's own
+    quantize-on-append writes for the seeded fp rows, one page a call."""
+    N = kc.shape[0]
+    out = []
+    for x in (kc, vc):
+        pool = torch.zeros(x.shape, dtype=torch.int8, device=x.device)
+        scales = torch.zeros((N, HKV), device=x.device)
+        off = torch.arange(P, device=x.device)[None]
+        live = torch.ones((1, P), dtype=torch.bool, device=x.device)
+        for page in range(N):
+            quantized_append(pool, scales, x[page][None],
+                             torch.full_like(off, page), off, live)
+        out += [pool, scales]
+    return out
+
+
+def _kernel_check(name, dtype, tol, args, sc, scale, card, extra):
+    """Launch the wrapper once, hold it to the plain version (max |err|
+    <= tol * max(1, max |plain|), rows past q_len exact zeros), and time
+    kernel, plain version and bound."""
+    got = ragged_flash_attention(*args, scale=scale, **sc)
+    want = ragged_gather_attention(*args, scale=scale, **sc)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    limit = tol * max(1.0, float(want.float().abs().max()))
+    zero_tail = all(not got[b, int(args[5][b]):].any()
+                    for b in range(args[0].shape[0]))
+    bound_ms, bound_by, nbytes, ops = attention_bound(args, bool(sc))
+    res = {
+        "case": name, "dtype": str(dtype).replace("torch.", ""),
+        "pool": str(args[1].dtype).replace("torch.", ""),
+        "pos": args[4].tolist(), "q_lens": args[5].tolist(),
+        "max_abs_err": err, "tol": tol, "limit": limit,
+        "ms": time_ms(lambda: ragged_flash_attention(*args, scale=scale,
+                                                     **sc)),
+        "plain_ms": time_ms(lambda: ragged_gather_attention(
+            *args, scale=scale, **sc)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+        "ops": ops, "card": card, **extra,
+    }
+    log(f"kernel {json.dumps(res)}")
+    if err > limit or not zero_tail:
+        raise AssertionError(f"{name} {dtype} {res['pool']} pool: max |err| "
+                             f"{err:.3g} over {limit:.3g}, zero tail "
+                             f"{zero_tail}")
+    return res
+
+
+def phase_int8_kernels(card: str) -> list:
+    """The int8 kernel at the serving shapes (the cases of phase_kernels,
+    q in bf16 and fp32) over int8 pages written by quantized_append from
+    seeded rows; then the fp-pool kernel over a bf16 pool under fp32 q
+    (the mixed-dtype route). No single PyTorch call dequantizes and
+    attends, so library_ms is None; SDPA over the same pages
+    pre-dequantized to bf16 is timed beside it as a yardstick only."""
+    scale = 1.0 / D ** 0.5
+    results = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (name, window, kinds, fixed) in enumerate(ATTENTION_CASES):
+            q, kc, vc, pt, pos, qls, anc = attention_case(
+                window, kinds, torch.float32, seed=i, fixed_pos=fixed)
+            kq, ks, vq, vs = int8_pools(kc, vc)
+            del kc, vc
+            args = (q.to(dtype), kq, vq, pt, pos, qls, anc)
+            deq = [dequantize_pages(p, s).bfloat16()
+                   for p, s in ((kq, ks), (vq, vs))]
+            yard = time_ms(library_call(
+                (q.bfloat16(), *deq, pt, pos, qls, anc), scale))
+            del deq
+            results.append(_kernel_check(
+                name, dtype, INT8_TOLS[dtype], args,
+                {"k_scales": ks, "v_scales": vs}, scale, card,
+                {"window": window, "kinds": kinds, "library_ms": None,
+                 "library": "none (no single PyTorch call dequantizes "
+                            "and attends)",
+                 "sdpa_bf16_predequantized_ms": yard}))
+    name, window, kinds, fixed = ATTENTION_CASES[0]
+    q, kc, vc, pt, pos, qls, anc = attention_case(
+        window, kinds, torch.float32, seed=0, fixed_pos=fixed)
+    args = (q, kc.bfloat16(), vc.bfloat16(), pt, pos, qls, anc)
+    del kc, vc
+    results.append(_kernel_check(
+        name + "_bf16_pool", torch.float32, TOLS[torch.float32][0], args,
+        {}, scale, card,
+        {"window": window, "kinds": kinds,
+         "library_ms": time_ms(library_call(
+             (q, args[1].float(), args[2].float(), pt, pos, qls, anc),
+             scale)),
+         "library": "SDPA over the pages cast to fp32"}))
+    torch.cuda.empty_cache()
     return results
 
 
@@ -437,6 +562,11 @@ def _step_inputs(device, vocab):
 
 
 def phase_step(seed: int) -> dict:
+    """Two packed ragged steps at Llama-3-8B widths, depth 2, fp32 with
+    TF32 off, card against CPU on the same seeded weights: on an fp pool
+    (probabilities to STEP_RTOL/ATOL) and on an int8 pool (probabilities
+    to 1e-4; int8 bytes equal but for +-1 at a fraction <= 1e-4 of the
+    pools' elements; scales to 1e-5 relative)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = LlamaConfig.llama3_8b()
@@ -447,9 +577,9 @@ def phase_step(seed: int) -> dict:
         build_llama(ff, cfg, batch_size=1, seq_len=8, dtype=DataType.FLOAT)
         return ff.compile(params=params)
 
-    def run(ff):
+    def run(ff, kv_dtype):
         ex = ff.executor
-        caches = ex.init_paged_kv_cache(16, P)
+        caches = ex.init_paged_kv_cache(16, P, dtype=kv_dtype)
         tr, ntr = ff._params
         out = []
         for tables, pos, qls, deps, anc, ids in _step_inputs(
@@ -457,25 +587,59 @@ def phase_step(seed: int) -> dict:
             p, caches = ex.ragged_step_fn(tr, ntr, caches, tables, pos,
                                           qls, deps, anc, ids)
             out.append(p.float().cpu())
-        return torch.stack(out)
+        return torch.stack(out), {k: {n: t.cpu() for n, t in b.items()}
+                                  for k, b in caches.items()}
 
     card_ff = make(DEVICE)
-    gpu = run(card_ff)
+    gpu = {dt: run(card_ff, dt) for dt in (None, torch.int8)}
     # the card's seeded weights, copied to the CPU
-    cpu = run(make("cpu", params=card_ff._params))
+    cpu_ff = make("cpu", params=card_ff._params)
     del card_ff
-    ok = torch.allclose(gpu, cpu, rtol=STEP_RTOL, atol=STEP_ATOL)
-    res = {"shape": list(gpu.shape),
-           "max_abs_err": float((gpu - cpu).abs().max()),
-           # relative error where a probability is above 1e-6
-           "max_rel_err": float(((gpu - cpu).abs() / cpu.abs())[
-               cpu > 1e-6].max()),
-           "rtol": STEP_RTOL, "atol": STEP_ATOL,
-           "finite": bool(torch.isfinite(gpu).all())}
-    log(f"step {json.dumps(res)}")
     torch.cuda.empty_cache()
+    cpu = {dt: run(cpu_ff, dt) for dt in (None, torch.int8)}
+    del cpu_ff
+
+    (g, _), (c, _) = gpu[None], cpu[None]
+    ok = torch.allclose(g, c, rtol=STEP_RTOL, atol=STEP_ATOL)
+    res = {"shape": list(g.shape),
+           "max_abs_err": float((g - c).abs().max()),
+           # relative error where a probability is above 1e-6
+           "max_rel_err": float(((g - c).abs() / c.abs())[
+               c > 1e-6].max()),
+           "rtol": STEP_RTOL, "atol": STEP_ATOL,
+           "finite": bool(torch.isfinite(g).all())}
+    log(f"step {json.dumps(res)}")
+
+    (g8, gp), (c8, cp) = gpu[torch.int8], cpu[torch.int8]
+    byte_diff = [(gp[k][n].int() - cp[k][n].int()).abs()
+                 for k in gp for n in ("k", "v")]
+    scale_rel = max(float(((gp[k][n] - cp[k][n]).abs()
+                           / cp[k][n].abs().clamp_min(1e-30))[
+                               cp[k][n] > 0].max())
+                    for k in gp for n in ("k_scale", "v_scale"))
+    n_bytes = sum(d.numel() for d in byte_diff)
+    n_off = sum(int((d > 0).sum()) for d in byte_diff)
+    res8 = {"shape": list(g8.shape),
+            "max_abs_err": float((g8 - c8).abs().max()),
+            "prob_atol": INT8_STEP_PROB_ATOL,
+            "pool_bytes": n_bytes,
+            "written_bytes": sum(int((cp[k][n] != 0).sum())
+                                 for k in cp for n in ("k", "v")),
+            "bytes_off": n_off,
+            "max_byte_diff": max(int(d.max()) for d in byte_diff),
+            "byte_fraction_allowed": INT8_STEP_BYTE_FRACTION,
+            "max_scale_rel_err": scale_rel,
+            "scale_rtol": INT8_STEP_SCALE_RTOL,
+            "finite": bool(torch.isfinite(g8).all())}
+    log(f"step_int8 {json.dumps(res8)}")
     if not ok or not res["finite"]:
         raise AssertionError(f"card step disagrees with CPU step: {res}")
+    if not (res8["finite"] and res8["max_abs_err"] <= INT8_STEP_PROB_ATOL
+            and res8["max_byte_diff"] <= 1
+            and n_off <= INT8_STEP_BYTE_FRACTION * n_bytes
+            and scale_rel <= INT8_STEP_SCALE_RTOL):
+        raise AssertionError(f"card int8 step disagrees with CPU: {res8}")
+    res["int8"] = res8
     return res
 
 
@@ -606,6 +770,160 @@ def phase_serve(seed: int, card: str) -> dict:
         "card": card,
     }
     log(f"serve {json.dumps(res)}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the whole paged server — int8 pool, prefix cache, preemption,
+# defrag — serving Llama-3-8B
+
+# serve_generation's settings for phase 7 and its traffic
+SERVE7 = dict(slots=4, max_len=2048, page_size=64, prefill_chunk=64,
+              kv_dtype="int8")
+SYS_LEN, SUFFIX_MIN, SUFFIX_MAX, SERVE7_REQUESTS, SERVE7_NEW = (
+    512, 64, 512, 8, 192)
+
+
+def serve7_num_pages(prompts) -> int:
+    """The pool for phase 7, null page included: the fewest pages that
+    admit the first four requests together. Admission asks for each
+    prompt's pages plus the first decode row's as free pages, counting
+    the shared system-prompt pages again each time though only the first
+    request takes them, so after the four are in, exactly that reserve of
+    SYS_LEN / page_size = 8 pages (plus at most one) is left. Each of the
+    four then grows by SERVE7_NEW / page_size = 3 pages, 12 in all, before
+    any finishes, so growth preempts. (At 64 new tokens they would grow
+    by 4 pages in all, which the 8 always cover: no preemption.) The
+    count is host arithmetic, the same at any width;
+    tests/test_torch_paged_server.py runs this traffic on the CPU with a
+    narrow model and holds it to at least one preemption."""
+    P = SERVE7["page_size"]
+    shared = SYS_LEN // P
+    held, capacity = 0, 0
+    for i, p in enumerate(prompts[:SERVE7["slots"]]):
+        capacity = max(capacity, held + -(-(len(p) + 1) // P))
+        held += -(-len(p) // P) - (shared if i else 0)
+    return capacity + 1
+
+
+def int8_traffic(vocab: int, seed: int):
+    """A seeded SYS_LEN-token system prompt, and SERVE7_REQUESTS prompts:
+    that prompt + a unique seeded suffix of SUFFIX_MIN..SUFFIX_MAX
+    tokens."""
+    rs = np.random.RandomState(seed + 7)
+    # lengths first: how many draws randint takes depends on its range, so
+    # drawn after the tokens they would change with the vocabulary
+    lens = rs.randint(SUFFIX_MIN, SUFFIX_MAX + 1, size=SERVE7_REQUESTS)
+    sys_prompt = rs.randint(0, vocab, (SYS_LEN,)).astype(np.int32)
+    return sys_prompt, [np.concatenate(
+        [sys_prompt, rs.randint(0, vocab, (n,)).astype(np.int32)])
+        for n in lens]
+
+
+def serve_int8_traffic(ff, vocab: int, seed: int,
+                       sync=lambda: None) -> dict:
+    """Phase 7's traffic through serve_generation(paged=True,
+    kv_dtype="int8", prefix cache and preemption at their defaults): the
+    system prompt alone first, off the clock (its 8 full pages publish to
+    the prefix cache), then the requests at once, with one
+    request_defrag() once the first has finished (the others are live or
+    queued). Kernel counts are reset just before the requests and read
+    just after. The pool's invariants are checked after the drain."""
+    sys_prompt, prompts = int8_traffic(vocab, seed)
+    num_pages = serve7_num_pages(prompts)
+    server = ff.serve_generation(paged=True, num_pages=num_pages, seed=seed,
+                                 **SERVE7)
+    try:
+        server.generate(sys_prompt, max_new_tokens=1, timeout=900)
+        sync()
+        steps0, served0 = server.ragged_steps, server.requests_served
+        _reset_launches()
+        t1 = time.monotonic()
+        futs = [server.submit(p, max_new_tokens=SERVE7_NEW)
+                for p in prompts]
+        futs[0].result(timeout=900)
+        server.request_defrag()
+        outs = [f.result(timeout=900) for f in futs]
+        sync()
+        wall = time.monotonic() - t1
+        launches = {k.name: k.launches for k in KERNELS}
+        steps = server.ragged_steps - steps0
+        m = server.metrics()
+    finally:
+        server.stop()
+    server.pool.check_invariants(owners={})
+    return {"server": server, "outs": outs, "wall": wall,
+            "launches": launches, "steps": steps, "metrics": m,
+            "records": m["requests"][served0:], "num_pages": num_pages,
+            "prompt_lens": [len(p) for p in prompts]}
+def phase_serve_int8(seed: int, card: str) -> dict:
+    """Phase 7 on the card: Llama-3-8B, 32 layers, bf16, random weights
+    from the seed, through serve_int8_traffic. Fails unless every output
+    has SERVE7_NEW valid tokens, the int8 kernel launched once per layer
+    and ragged step and the fp kernel never, the four requests admitted
+    first each mapped the 8 shared pages (hit tokens >= 4 x 512), growth
+    preempted at least once and a defrag ran."""
+    cfg = LlamaConfig.llama3_8b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ff = FFModel(FFConfig(batch_size=1, seed=seed, device=DEVICE))
+    build_llama(ff, cfg, batch_size=1, seq_len=SERVE7["max_len"],
+                dtype=DataType.BFLOAT16)
+    ff.compile()
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    r = serve_int8_traffic(ff, cfg.vocab_size, seed,
+                           sync=torch.cuda.synchronize)
+    log(f"serve_int8 num_pages {r['num_pages']}")
+    m, recs, launches, steps = (r["metrics"], r["records"], r["launches"],
+                                r["steps"])
+    bufs = [b for node in r["server"]._caches.values() for b in node.values()]
+    pool_bytes = sum(b.numel() * b.element_size() for b in bufs)
+    kv = [b for node in r["server"]._caches.values()
+          for n, b in node.items() if n in ("k", "v")]
+    bf16_bytes = sum(b.numel() * 2 for b in kv)
+    n_attn = len(kv) // 2
+    ttft = sorted(x["ttft_s"] for x in recs)
+    decode_rates = [(x["decode_tokens"] - 1) / x["decode_s"] for x in recs]
+    pc = m["prefix_cache"]
+    res = {
+        "model": "llama3_8b", "layers": cfg.layers, "dtype": "bfloat16",
+        "kv_dtype": m["kv_cache_dtype"], "num_pages": r["num_pages"],
+        **{k: SERVE7[k] for k in ("slots", "max_len", "page_size",
+                                  "prefill_chunk")},
+        "requests": len(r["outs"]), "prompt_lens": r["prompt_lens"],
+        "new_tokens": SERVE7_NEW, "ragged_steps": steps,
+        "launches": launches, "wall_s": r["wall"],
+        "generated_tokens_per_s": SERVE7_NEW * len(r["outs"]) / r["wall"],
+        "decode_tokens_per_s_per_request_mean": float(
+            np.mean(decode_rates)),
+        "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+        "init_s": init_s, "preemptions": m["preemptions"],
+        "defrags": m["defrags"], "hit_tokens": pc["hit_tokens"],
+        "miss_tokens": pc["miss_tokens"], "evictions": pc["evictions"],
+        "cached_prefill_tokens": [x["cached_prefill_tokens"] for x in recs],
+        "request_preemptions": [x["preemptions"] for x in recs],
+        "pool_bytes": pool_bytes, "bf16_pool_bytes_same_pages": bf16_bytes,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": card,
+    }
+    log(f"serve_int8 {json.dumps(res)}")
+    outs = r["outs"]
+    del r, ff, bufs, kv
+    torch.cuda.empty_cache()
+    for o in outs:
+        if len(o) != SERVE7_NEW or not ((0 <= o) & (o < cfg.vocab_size)).all():
+            raise AssertionError(f"bad output {o}")
+    if (steps == 0
+            or launches[RAGGED_PAGED_ATTENTION_INT8.name] != n_attn * steps
+            or launches[RAGGED_PAGED_ATTENTION.name] != 0):
+        raise AssertionError(f"launches {launches} != {n_attn} x {steps} "
+                             "int8, 0 fp")
+    if pc["hit_tokens"] < 4 * SYS_LEN or m["preemptions"] < 1 \
+            or m["defrags"] < 1:
+        raise AssertionError(f"hit tokens {pc['hit_tokens']} (want >= "
+                             f"{4 * SYS_LEN}), preemptions "
+                             f"{m['preemptions']}, defrags {m['defrags']}")
     return res
 
 
@@ -881,20 +1199,23 @@ def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
         entry["tol"] = ({"atol": res["atol"], "rtol": res["rtol"]}
                         if "atol" in res else
                         {"max_abs_err_over_max_plain": res["tol"]})
+        entry.update({k: res[k] for k in (
+            "library", "sdpa_bf16_predequantized_ms") if k in res})
     return entry
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6",
+    ap.add_argument("--phases", default="1,2,3,4,6,7",
                     help="comma-separated phases to run (default "
-                    "1,2,3,4,6; 5 profiles serving and training steps)")
+                    "1,2,3,4,6,7; 5 profiles serving and training steps)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", flush=True)
         return 2
+    t_start = time.monotonic()
     card = card_line()
     log(f"card {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -905,12 +1226,14 @@ def main(argv=None) -> int:
         k.function()  # load and bind
     log(f"build {json.dumps({'seconds': time.monotonic() - t0, 'per_source': secs})}")
     kern = phase_kernels(card) if 2 in phases else []
+    kern8 = phase_int8_kernels(card) if 2 in phases else []
     flash = phase_flash_kernels(card) if 2 in phases else {}
     if 3 in phases:
         phase_step(args.seed)
         phase_train_step(args.seed)
     serve = phase_serve(args.seed, card) if 4 in phases else None
     train = phase_train(args.seed, card) if 6 in phases else None
+    serve8 = phase_serve_int8(args.seed, card) if 7 in phases else None
     if 5 in phases:
         phase_profile(args.seed, card)
         phase_profile_train(args.seed, card)
@@ -921,6 +1244,13 @@ def main(argv=None) -> int:
         "flexflow_tpu_torch/csrc/ragged_paged_attention.cu",
         serve["launches"][RAGGED_PAGED_ATTENTION.name] if serve else 0,
         main_case)]
+    int8_case = next((r for r in kern8 if r["case"] == ATTENTION_CASES[0][0]
+                      and r["dtype"] == "bfloat16"), None)
+    entries.append(_kernel_entry(
+        RAGGED_PAGED_ATTENTION_INT8,
+        "flexflow_tpu_torch/csrc/ragged_paged_attention.cu",
+        serve8["launches"][RAGGED_PAGED_ATTENTION_INT8.name] if serve8
+        else 0, int8_case))
     for k, src in ((FLASH_ATTENTION_FWD, "flash_attention_fwd.cu"),
                    (FLASH_ATTENTION_DQ, "flash_attention_bwd.cu"),
                    (FLASH_ATTENTION_DKV, "flash_attention_bwd.cu")):
@@ -928,6 +1258,7 @@ def main(argv=None) -> int:
             k, f"flexflow_tpu_torch/csrc/{src}",
             train["fit_launches"][k.name] if train else 0,
             flash.get("bfloat16", {}).get(k.name)))
+    log(f"total {json.dumps({'seconds': time.monotonic() - t_start})}")
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

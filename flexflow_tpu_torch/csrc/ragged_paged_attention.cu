@@ -1,21 +1,29 @@
 // Ragged paged attention for Hopper (sm_90a), written by hand.
 //
 // Replaces flexflow_tpu/paged/attention.py::_ragged_kernel (the Pallas
-// body launched by ragged_flash_attention): one call attends every batch
-// entry's live query rows over its committed prefix plus the visible part
-// of its in-flight window, reading K/V straight out of the page pool
-// through the entry's page table. Decode rows, chunked-prefill pieces and
-// padded entries share the one launch.
+// body launched by ragged_flash_attention, fp pools) and its int8 body
+// _ragged_kernel_quant (:293, the ks_ref/vs_ref branch of :235-243): one
+// call attends every batch entry's live query rows over its committed
+// prefix plus the visible part of its in-flight window, reading K/V
+// straight out of the page pool through the entry's page table. Decode
+// rows, chunked-prefill pieces and padded entries share the one launch.
 //
 // Contract (the same as the TPU kernel's):
 //   q (B, S, H, D); kc/vc (N, P, Hkv, D); pt (B, maxp) int32;
-//   pos, qlens (B,) int32; anc (B, S, S) bool; out (B, S, H, D).
-//   Cache row kpos is visible to window row t of entry b when
+//   pos, qlens (B,) int32; anc (B, S, S) bool; out (B, S, H, D);
+//   for an int8 pool also ks/vs (N, Hkv) fp32, one scale per (page, kv
+//   head). Cache row kpos is visible to window row t of entry b when
 //   kpos < pos[b], or 0 <= kpos - pos[b] < qlens[b] and
 //   anc[b, t, kpos - pos[b]]. Scores are fp32 dots times `scale`; the
-//   online softmax keeps (m, l, acc) in fp32; probabilities are rounded to
-//   the value dtype before the P.V product; out = acc / max(l, 1e-30) in
-//   q's dtype, and rows t >= qlens[b] are exact zeros.
+//   online softmax keeps (m, l, acc) in fp32; out = acc / max(l, 1e-30)
+//   in q's dtype, and rows t >= qlens[b] are exact zeros.
+//   * fp pool: K/V are converted to q's dtype on load (a pool of another
+//     float dtype than q, e.g. kv_dtype="bf16" under an fp32 model, as
+//     the TPU kernel's k.astype(q.dtype)), then to fp32; probabilities
+//     are rounded to q's dtype before the P.V product.
+//   * int8 pool: K/V are staged as int8 x scale[pt[b, j], g] in fp32 (q
+//     upcast to fp32), and p is NOT rounded before P.V (v is fp32 after
+//     dequant), as the TPU kernel's quantized branch.
 //
 // What bounds it on the card: the bytes of K/V pages it reads. A decode
 // row does 4 flops per K/V element pair it loads (two dots of D), far
@@ -28,14 +36,18 @@
 //   * the block walks its page table in order and stops at the horizon
 //     pos + q_len - 1, so pages past it are never read, and a padded
 //     entry (q_len == 0) reads nothing and writes zeros;
-//   * K/V are staged through shared memory in sub-tiles of up to 64 rows,
+//   * K/V are staged through shared memory in sub-tiles of up to 64 rows
+//     (a sub-tile never crosses a page, so it has one scale per kv head),
 //     so any page size fits; the K tile is padded by one column so the
-//     score loop's column reads are free of bank conflicts.
+//     score loop's column reads are free of bank conflicts;
+//   * an int8 pool is read as 16-byte vectors (16 elements a thread):
+//     half the bytes of a bf16 pool for the same rows.
 // Known limit for a later change: B x Hkv blocks (32 at Llama-3-8B decode
 // with 4 slots) fill a quarter of the 132 SMs, and the inner products run
 // on CUDA cores (no wgmma, TMA or split-K yet).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -51,6 +63,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -78,16 +91,28 @@ size_t smem_floats(int rmax, int D, int kt) {
          (size_t)rmax * kt + 3 * (size_t)rmax;
 }
 
-template <typename T>
+// One K/V element staged for the fp-pool kernel: converted to q's type,
+// then to fp32 (the identity when the pool is of q's type, or fp32 from
+// bf16/fp16).
+template <typename TQ, typename TKV>
+__device__ __forceinline__ float stage(TKV x) {
+  return to_f(from_f<TQ>(to_f(x)));
+}
+
+// TQ: q and out; TKV: the pool's element (float, bf16, half, or int8
+// with kQuant and the ks/vs scale arrays).
+template <typename TQ, typename TKV, bool kQuant>
 __global__ void __launch_bounds__(kThreads)
-ragged_paged_attention_kernel(const T* __restrict__ q,
-                              const T* __restrict__ kc,
-                              const T* __restrict__ vc,
+ragged_paged_attention_kernel(const TQ* __restrict__ q,
+                              const TKV* __restrict__ kc,
+                              const TKV* __restrict__ vc,
+                              const float* __restrict__ ks,
+                              const float* __restrict__ vs,
                               const int32_t* __restrict__ pt,
                               const int32_t* __restrict__ pos,
                               const int32_t* __restrict__ qlens,
                               const uint8_t* __restrict__ anc,
-                              T* __restrict__ out, int S, int H, int Hkv,
+                              TQ* __restrict__ out, int S, int H, int Hkv,
                               int D, int P, int maxp, int kt, float scale) {
   const int b = blockIdx.x;
   const int g = blockIdx.y;
@@ -134,11 +159,42 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
       const int base = j * P + c0;  // cache row of tile column 0
       if (base >= horizon) break;
       const int n = min(kt, min(P - c0, horizon - base));
-      for (int i = tid; i < n * D; i += kThreads) {
-        const int c = i / D, d = i - c * D;
-        const size_t off = ((size_t)(page * P + c0 + c) * Hkv + g) * D + d;
-        sk[c * (D + 1) + d] = to_f(kc[off]);
-        sv[c * D + d] = to_f(vc[off]);
+      const size_t row0 = ((size_t)(page * P + c0) * Hkv + g) * D;
+      const size_t stride = (size_t)Hkv * D;  // between cache rows
+      if constexpr (kQuant) {
+        const float k_s = ks[(size_t)page * Hkv + g];
+        const float v_s = vs[(size_t)page * Hkv + g];
+        if ((D & 15) == 0) {
+          // 16 int8 elements a thread, one 16-byte load per K and V
+          const int nvec = D >> 4;
+          for (int i = tid; i < n * nvec; i += kThreads) {
+            const int c = i / nvec, d0 = (i - c * nvec) << 4;
+            const size_t off = row0 + c * stride + d0;
+            const int4 kw = *reinterpret_cast<const int4*>(kc + off);
+            const int4 vw = *reinterpret_cast<const int4*>(vc + off);
+            const int8_t* kb = reinterpret_cast<const int8_t*>(&kw);
+            const int8_t* vb = reinterpret_cast<const int8_t*>(&vw);
+#pragma unroll
+            for (int e = 0; e < 16; ++e) {
+              sk[c * (D + 1) + d0 + e] = (float)kb[e] * k_s;
+              sv[c * D + d0 + e] = (float)vb[e] * v_s;
+            }
+          }
+        } else {
+          for (int i = tid; i < n * D; i += kThreads) {
+            const int c = i / D, d = i - c * D;
+            const size_t off = row0 + c * stride + d;
+            sk[c * (D + 1) + d] = (float)kc[off] * k_s;
+            sv[c * D + d] = (float)vc[off] * v_s;
+          }
+        }
+      } else {
+        for (int i = tid; i < n * D; i += kThreads) {
+          const int c = i / D, d = i - c * D;
+          const size_t off = row0 + c * stride + d;
+          sk[c * (D + 1) + d] = stage<TQ>(kc[off]);
+          sv[c * D + d] = stage<TQ>(vc[off]);
+        }
       }
       __syncthreads();
 
@@ -176,8 +232,9 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
           const float s = pr[c];
           const float p = s == -INFINITY ? 0.f : expf(s - m_new);
           sum += p;
-          // rounded to the value dtype before P.V, as the TPU kernel
-          pr[c] = to_f(from_f<T>(p));
+          // fp pool: rounded to the value dtype (q's) before P.V, as the
+          // TPU kernel; int8 pool: v is fp32 after dequant, p unrounded
+          pr[c] = kQuant ? p : to_f(from_f<TQ>(p));
         }
         sum = warp_sum(sum);
         if (lane == 0) {
@@ -212,39 +269,16 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
       const int r = hl * qlen + t;
       val = sacc[r * D + d] / fmaxf(sl[r], 1e-30f);
     }
-    out[((size_t)(b * S + t) * H + g * rep + hl) * D + d] = from_f<T>(val);
+    out[((size_t)(b * S + t) * H + g * rep + hl) * D + d] = from_f<TQ>(val);
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* kc, const void* vc, const void* pt,
-           const void* pos, const void* qlens, const void* anc, void* out,
-           int B, int S, int H, int Hkv, int D, int P, int maxp, int kt,
-           size_t smem, float scale, cudaStream_t stream) {
-  auto kernel = ragged_paged_attention_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(B, Hkv), kThreads, smem, stream>>>(
-      (const T*)q, (const T*)kc, (const T*)vc, (const int32_t*)pt,
-      (const int32_t*)pos, (const int32_t*)qlens, (const uint8_t*)anc,
-      (T*)out, S, H, Hkv, D, P, maxp, kt, scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" {
-
-// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it). Returns a
-// cudaError_t: cudaErrorInvalidValue for shapes the kernel does not take,
-// otherwise the launch's cudaGetLastError().
-int ff_ragged_paged_attention(const void* q, const void* kc, const void* vc,
-                              const void* pt, const void* pos,
-                              const void* qlens, const void* anc, void* out,
-                              int B, int S, int H, int Hkv, int D, int P,
-                              int maxp, float scale, int dtype,
-                              void* stream) {
+template <typename TQ, typename TKV, bool kQuant>
+int launch(const void* q, const void* kc, const void* vc, const float* ks,
+           const float* vs, const void* pt, const void* pos,
+           const void* qlens, const void* anc, void* out, int B, int S,
+           int H, int Hkv, int D, int P, int maxp, float scale,
+           cudaStream_t stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || P <= 0 ||
       maxp <= 0)
     return (int)cudaErrorInvalidValue;
@@ -254,13 +288,85 @@ int ff_ragged_paged_attention(const void* q, const void* kc, const void* vc,
     kt = (kt + 1) / 2;
   const size_t smem = smem_floats(rmax, D, kt) * sizeof(float);
   if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  auto kernel = ragged_paged_attention_kernel<TQ, TKV, kQuant>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(B, Hkv), kThreads, smem, stream>>>(
+      (const TQ*)q, (const TKV*)kc, (const TKV*)vc, ks, vs,
+      (const int32_t*)pt, (const int32_t*)pos, (const int32_t*)qlens,
+      (const uint8_t*)anc, (TQ*)out, S, H, Hkv, D, P, maxp, kt, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename TQ>
+int launch_fp(const void* q, const void* kc, const void* vc, const void* pt,
+              const void* pos, const void* qlens, const void* anc,
+              void* out, int B, int S, int H, int Hkv, int D, int P,
+              int maxp, float scale, int kv_dtype, cudaStream_t st) {
+  if (kv_dtype == 0)
+    return launch<TQ, float, false>(q, kc, vc, nullptr, nullptr, pt, pos,
+                                    qlens, anc, out, B, S, H, Hkv, D, P,
+                                    maxp, scale, st);
+  if (kv_dtype == 1)
+    return launch<TQ, __nv_bfloat16, false>(q, kc, vc, nullptr, nullptr, pt,
+                                            pos, qlens, anc, out, B, S, H,
+                                            Hkv, D, P, maxp, scale, st);
+  if (kv_dtype == 2)
+    return launch<TQ, __half, false>(q, kc, vc, nullptr, nullptr, pt, pos,
+                                     qlens, anc, out, B, S, H, Hkv, D, P,
+                                     maxp, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// q_dtype: 0 = float32, 1 = bfloat16 (q and out); kv_dtype: 0 = float32,
+// 1 = bfloat16, 2 = float16 (the pools). Returns a cudaError_t:
+// cudaErrorInvalidValue for shapes or dtypes the kernel does not take,
+// otherwise the launch's cudaGetLastError().
+int ff_ragged_paged_attention(const void* q, const void* kc, const void* vc,
+                              const void* pt, const void* pos,
+                              const void* qlens, const void* anc, void* out,
+                              int B, int S, int H, int Hkv, int D, int P,
+                              int maxp, float scale, int q_dtype,
+                              int kv_dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float>(q, kc, vc, pt, pos, qlens, anc, out, B, S, H, Hkv,
-                         D, P, maxp, kt, smem, scale, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, kc, vc, pt, pos, qlens, anc, out, B, S,
-                                 H, Hkv, D, P, maxp, kt, smem, scale, st);
+  if (q_dtype == 0)
+    return launch_fp<float>(q, kc, vc, pt, pos, qlens, anc, out, B, S, H,
+                            Hkv, D, P, maxp, scale, kv_dtype, st);
+  if (q_dtype == 1)
+    return launch_fp<__nv_bfloat16>(q, kc, vc, pt, pos, qlens, anc, out, B,
+                                    S, H, Hkv, D, P, maxp, scale, kv_dtype,
+                                    st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The int8 pool: kc/vc int8 (N, P, Hkv, D), ks/vs fp32 (N, Hkv) scales.
+// q_dtype as above. The 16-byte loads need D % 16 == 0 and 16-byte
+// aligned pools (checked here); other head dims load element by element.
+int ff_ragged_paged_attention_quant(const void* q, const void* kc,
+                                    const void* vc, const void* ks,
+                                    const void* vs, const void* pt,
+                                    const void* pos, const void* qlens,
+                                    const void* anc, void* out, int B, int S,
+                                    int H, int Hkv, int D, int P, int maxp,
+                                    float scale, int q_dtype, void* stream) {
+  if ((D & 15) == 0 &&
+      (((uintptr_t)kc | (uintptr_t)vc) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (q_dtype == 0)
+    return launch<float, int8_t, true>(q, kc, vc, (const float*)ks,
+                                       (const float*)vs, pt, pos, qlens, anc,
+                                       out, B, S, H, Hkv, D, P, maxp, scale,
+                                       st);
+  if (q_dtype == 1)
+    return launch<__nv_bfloat16, int8_t, true>(
+        q, kc, vc, (const float*)ks, (const float*)vs, pt, pos, qlens, anc,
+        out, B, S, H, Hkv, D, P, maxp, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -136,8 +136,17 @@ RAGGED_PAGED_ATTENTION = CudaKernel(
     name="ragged_paged_attention",
     source="ragged_paged_attention.cu",
     symbol="ff_ragged_paged_attention",
-    argtypes=[_VOID_P] * 8 + [_INT] * 7 + [ctypes.c_float, _INT, _VOID_P],
+    argtypes=[_VOID_P] * 8 + [_INT] * 7 + [ctypes.c_float, _INT, _INT,
+                                           _VOID_P],
     replaces="flexflow_tpu/paged/attention.py:213",
+)
+
+RAGGED_PAGED_ATTENTION_INT8 = CudaKernel(
+    name="ragged_paged_attention_int8",
+    source="ragged_paged_attention.cu",
+    symbol="ff_ragged_paged_attention_quant",
+    argtypes=[_VOID_P] * 10 + [_INT] * 7 + [ctypes.c_float, _INT, _VOID_P],
+    replaces="flexflow_tpu/paged/attention.py:293",
 )
 
 _FLASH = "flexflow_tpu/ops/pallas/flash_attention.py"
@@ -166,11 +175,13 @@ FLASH_ATTENTION_DKV = CudaKernel(
     replaces=f"{_FLASH}:197",
 )
 
-KERNELS = (RAGGED_PAGED_ATTENTION, FLASH_ATTENTION_FWD, FLASH_ATTENTION_DQ,
-           FLASH_ATTENTION_DKV)
+KERNELS = (RAGGED_PAGED_ATTENTION, RAGGED_PAGED_ATTENTION_INT8,
+           FLASH_ATTENTION_FWD, FLASH_ATTENTION_DQ, FLASH_ATTENTION_DKV)
 
-# dtypes the kernels take, with the code their C entry points use for each
+# dtypes the kernels take for q (and out), with the code their C entry
+# points use for each; the fp-pool ragged kernel's K/V may also be fp16
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KV_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _launch(kernel: CudaKernel, device, *args):
@@ -186,13 +197,31 @@ def _launch(kernel: CudaKernel, device, *args):
 
 def launch_ragged_paged_attention(q, kc, vc, page_tables, pos, q_lens, anc,
                                   out, scale: float):
-    """Launch the ragged paged-attention kernel on the current stream.
-    The caller (paged.attention.ragged_flash_attention) has validated
-    devices, dtypes, shapes and contiguity."""
+    """Launch the fp-pool ragged paged-attention kernel on the current
+    stream (the pools may be of another float dtype than q). The caller
+    (paged.attention.ragged_flash_attention) has validated devices,
+    dtypes, shapes and contiguity."""
     B, S, H, D = q.shape
     _, P, Hkv, _ = kc.shape
     _launch(RAGGED_PAGED_ATTENTION, q.device, q.data_ptr(), kc.data_ptr(),
             vc.data_ptr(), page_tables.data_ptr(), pos.data_ptr(),
+            q_lens.data_ptr(), anc.data_ptr(), out.data_ptr(), B, S, H, Hkv,
+            D, P, page_tables.shape[1], float(scale), KERNEL_DTYPES[q.dtype],
+            KV_KERNEL_DTYPES[kc.dtype])
+    return out
+
+
+def launch_ragged_paged_attention_int8(q, kc, vc, k_scales, v_scales,
+                                       page_tables, pos, q_lens, anc, out,
+                                       scale: float):
+    """Launch the int8-pool ragged paged-attention kernel: int8 pages
+    dequantized on load with their (N, Hkv) fp32 scales. Validated by the
+    caller as above."""
+    B, S, H, D = q.shape
+    _, P, Hkv, _ = kc.shape
+    _launch(RAGGED_PAGED_ATTENTION_INT8, q.device, q.data_ptr(),
+            kc.data_ptr(), vc.data_ptr(), k_scales.data_ptr(),
+            v_scales.data_ptr(), page_tables.data_ptr(), pos.data_ptr(),
             q_lens.data_ptr(), anc.data_ptr(), out.data_ptr(), B, S, H, Hkv,
             D, P, page_tables.shape[1], float(scale), KERNEL_DTYPES[q.dtype])
     return out

@@ -333,19 +333,21 @@ class FFModel:
     def serve_generation(self, slots: int = 4, max_len: int = 512,
                          eos_id=None, seed: int = 0, paged: bool = False,
                          page_size: int = 64, num_pages=None,
-                         preemption: bool = False,
-                         prefix_cache: bool = False,
+                         preemption: bool = True,
+                         prefix_cache: bool = True,
                          prefill_chunk: int = 64, speculate=None,
                          ragged_pack: bool = True, megastep_ticks: int = 1,
                          megastep_mixed: bool = False,
                          overlap_dispatch: bool = False,
-                         kv_dtype: str = "auto", host_tier=None):
+                         kv_dtype: str = "auto", kv_quant_canary=None,
+                         host_tier=None):
         """Continuous-batching generation over the block-paged KV cache
-        (serving.serve_generation). The port serves the paged path with
-        prefix caching, preemption, megasteps, speculation, quantized
-        pools and the host tier off; asking for any of them raises
-        NotImplementedError rather than serving a different
-        configuration."""
+        (serving.serve_generation), with the reference's defaults
+        (prefix cache and preemption on) and its kv_dtype pools ("auto",
+        "int8", "bf16", "fp16", "fp32"). Megasteps, speculation, the host
+        tier, the unpacked launch and the kv_quant_canary shadow cache are
+        not ported: asking for any of them raises NotImplementedError
+        rather than serving a different configuration."""
         from flexflow_tpu_torch.serving import serve_generation as _sg
 
         return _sg(self, slots=slots, max_len=max_len, eos_id=eos_id,
@@ -356,4 +358,4 @@ class FFModel:
                    megastep_ticks=megastep_ticks,
                    megastep_mixed=megastep_mixed,
                    overlap_dispatch=overlap_dispatch, kv_dtype=kv_dtype,
-                   host_tier=host_tier)
+                   kv_quant_canary=kv_quant_canary, host_tier=host_tier)

@@ -164,16 +164,21 @@ def _mha(attrs, inputs, params, ctx):
         # every paged step — decode rows and chunked-prefill pieces — is
         # the same ragged call: rope, write this step's K/V rows into
         # their pool pages, attend through the page table
-        # (paged/attention.py)
+        # (paged/attention.py). An int8 pool carries its scale sidecar
+        # in the same per-node dict: the write quantizes under grow-only
+        # scales and the attention dequantizes on load
         from flexflow_tpu_torch.paged.attention import ragged_paged_attention
 
-        out, kc, vc = ragged_paged_attention(
-            q, k, v, ctx.kv_cache["k"], ctx.kv_cache["v"], ctx.page_tables,
+        cache = ctx.kv_cache
+        res = ragged_paged_attention(
+            q, k, v, cache["k"], cache["v"], ctx.page_tables,
             ctx.cache_position, ctx.ragged_q_lens, ctx.ragged_depths,
             ctx.ragged_anc, scale=scale,
-            rope_theta=attrs.rope_theta if attrs.rope else None)
-        ctx.cache_updates["k"] = kc
-        ctx.cache_updates["v"] = vc
+            rope_theta=attrs.rope_theta if attrs.rope else None,
+            k_scales=cache.get("k_scale"), v_scales=cache.get("v_scale"))
+        out = res[0]
+        ctx.cache_updates.update(zip(("k", "v", "k_scale", "v_scale"),
+                                     res[1:]))
     y = attn_out_project(out, params["wo"], dt)
     if attrs.use_bias:
         y = y + params["bo"].to(dt)

@@ -15,9 +15,12 @@ descriptor:
                         triangular; decode: ones((1, 1))).
 
 `ragged_flash_attention` is the kernel wrapper: on CUDA tensors it
-launches the hand-written Hopper kernel (csrc/ragged_paged_attention.cu)
-or raises; on CPU tensors it runs the plain PyTorch version of the same
-contract, `ragged_gather_attention`. There is no other path and no switch.
+launches a hand-written Hopper kernel (csrc/ragged_paged_attention.cu:
+the fp-pool kernel, whose pool may have another float dtype than q, or
+the int8 kernel that dequantizes pages with their per-(page, head)
+scales, paged/quant.py) or raises; on CPU tensors it runs the plain
+PyTorch version of the same contract, `ragged_gather_attention`. There is
+no other path and no switch.
 """
 
 from __future__ import annotations
@@ -28,9 +31,12 @@ import torch
 
 from flexflow_tpu_torch.kernels import (
     KERNEL_DTYPES,
+    KV_KERNEL_DTYPES,
     launch_ragged_paged_attention,
+    launch_ragged_paged_attention_int8,
 )
 from flexflow_tpu_torch.ops.torch_ops import apply_rope, dot_product_attention
+from flexflow_tpu_torch.paged.quant import dequantize_pages, quantized_append
 
 
 def ragged_visibility_mask(page_tables, pos, q_lens, anc_mask,
@@ -50,51 +56,69 @@ def ragged_visibility_mask(page_tables, pos, q_lens, anc_mask,
 
 
 def ragged_gather_attention(q, kc_pages, vc_pages, page_tables, pos,
-                            q_lens, anc_mask, *, scale: float):
-    """The plain PyTorch version of the kernel's contract: gather every
+                            q_lens, anc_mask, *, scale: float,
+                            k_scales=None, v_scales=None):
+    """The plain PyTorch version of the kernels' contract: gather every
     table-mapped page (`pool[page_table]`) and run dense masked attention
     under ragged_visibility_mask. q: (B, S, H, D); kc/vc_pages:
     (N, P, Hkv, D); page_tables: (B, max_pages) int32; pos/q_lens: (B,)
-    int32; anc_mask: (B, S, S) bool. Rows at or past q_lens[b] are zeroed,
-    as the kernel writes them."""
+    int32; anc_mask: (B, S, S) bool. An fp pool is cast to q's dtype. For
+    an int8 pool, k_scales/v_scales are its (N, Hkv) fp32 sidecar: the
+    gathered pages are dequantized, q is upcast, the whole attention runs
+    in fp32 and only the output is cast back to q's dtype. Rows at or
+    past q_lens[b] are zeroed, as the kernels write them."""
     B, S, _, D = q.shape
     P, Hkv = kc_pages.shape[1], kc_pages.shape[2]
     pt = page_tables.long()
-    kg = kc_pages[pt].reshape(B, -1, Hkv, D).to(q.dtype)
-    vg = vc_pages[pt].reshape(B, -1, Hkv, D).to(q.dtype)
+    if k_scales is not None:
+        kg = dequantize_pages(kc_pages[pt], k_scales[pt])
+        vg = dequantize_pages(vc_pages[pt], v_scales[pt])
+        qa = q.float()
+    else:
+        kg, vg, qa = kc_pages[pt].to(q.dtype), vc_pages[pt].to(q.dtype), q
     mask = ragged_visibility_mask(page_tables, pos, q_lens, anc_mask, P)
-    out = dot_product_attention(q, kg, vg, scale, mask)
+    out = dot_product_attention(qa, kg.reshape(B, -1, Hkv, D),
+                                vg.reshape(B, -1, Hkv, D), scale,
+                                mask).to(q.dtype)
     live = (torch.arange(S, device=q.device)[None, :]
             < q_lens[:, None].long())
     return out * live[:, :, None, None].to(out.dtype)
 
 
-def _check_kernel_args(q, kc, vc, page_tables, pos, q_lens, anc):
+def _check_kernel_args(q, kc, vc, page_tables, pos, q_lens, anc,
+                       k_scales=None, v_scales=None):
     B, S, H, D = q.shape
-    if kc.ndim != 4 or kc.shape != vc.shape:
-        raise ValueError(f"pools must share one (N, P, Hkv, D) shape, got "
-                         f"{tuple(kc.shape)} and {tuple(vc.shape)}")
+    if kc.ndim != 4 or kc.shape != vc.shape or kc.dtype != vc.dtype:
+        raise ValueError(f"pools must share one (N, P, Hkv, D) shape and "
+                         f"dtype, got {tuple(kc.shape)} {kc.dtype} and "
+                         f"{tuple(vc.shape)} {vc.dtype}")
     N, P, Hkv, Dk = kc.shape
     if Dk != D or H % Hkv != 0:
         raise ValueError(f"q {tuple(q.shape)} does not match pools "
                          f"{tuple(kc.shape)} (head dim, GQA grouping)")
-    if q.dtype not in KERNEL_DTYPES or kc.dtype != q.dtype \
-            or vc.dtype != q.dtype:
-        raise ValueError(f"kernel takes float32 or bfloat16 q and pools of "
-                         f"the same dtype, got {q.dtype}, {kc.dtype}, "
-                         f"{vc.dtype}")
+    quant = k_scales is not None
+    if q.dtype not in KERNEL_DTYPES or not (
+            quant or kc.dtype in KV_KERNEL_DTYPES):
+        raise ValueError(f"kernels take float32 or bfloat16 q and float32, "
+                         f"bfloat16, float16 or int8 pools, got {q.dtype} "
+                         f"and {kc.dtype}")
     shapes = {"page_tables": (page_tables, (B, page_tables.shape[-1]),
                               torch.int32),
               "pos": (pos, (B,), torch.int32),
               "q_lens": (q_lens, (B,), torch.int32),
               "anc": (anc, (B, S, S), torch.bool)}
+    if quant:
+        shapes["k_scales"] = (k_scales, (N, Hkv), torch.float32)
+        shapes["v_scales"] = (v_scales, (N, Hkv), torch.float32)
     for name, (t, shape, dt) in shapes.items():
         if tuple(t.shape) != shape or t.dtype != dt:
             raise ValueError(f"{name} must be {dt} of shape {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
     for name, t in (("q", q), ("kc", kc), ("vc", vc),
                     ("page_tables", page_tables), ("pos", pos),
-                    ("q_lens", q_lens), ("anc", anc)):
+                    ("q_lens", q_lens), ("anc", anc)) + (
+                        (("k_scales", k_scales), ("v_scales", v_scales))
+                        if quant else ()):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
@@ -102,28 +126,42 @@ def _check_kernel_args(q, kc, vc, page_tables, pos, q_lens, anc):
 
 
 def ragged_flash_attention(q, kc_pages, vc_pages, page_tables, pos, q_lens,
-                           anc_mask, *, scale: float):
+                           anc_mask, *, scale: float, k_scales=None,
+                           v_scales=None):
     """The kernel wrapper: (B, S, H, D) attention output under the ragged
     descriptor, rows at or past q_lens[b] exact zeros. CUDA tensors launch
-    the hand-written kernel (and raise on anything it does not take);
+    a hand-written kernel — the int8 kernel for an int8 pool (with its
+    k_scales/v_scales), the fp-pool kernel otherwise, whose K/V may be of
+    another float dtype than q — and raise on anything they do not take;
     CPU tensors take the plain version. Mixed devices raise."""
-    tensors = (q, kc_pages, vc_pages, page_tables, pos, q_lens, anc_mask)
+    if (kc_pages.dtype == torch.int8) != (k_scales is not None) or (
+            k_scales is None) != (v_scales is None):
+        raise ValueError("an int8 pool needs k_scales and v_scales, and "
+                         "only an int8 pool takes them")
+    tensors = (q, kc_pages, vc_pages, page_tables, pos, q_lens, anc_mask) \
+        + tuple(t for t in (k_scales, v_scales) if t is not None)
     if all(t.device.type == "cpu" for t in tensors):
         return ragged_gather_attention(q, kc_pages, vc_pages, page_tables,
-                                       pos, q_lens, anc_mask, scale=scale)
+                                       pos, q_lens, anc_mask, scale=scale,
+                                       k_scales=k_scales, v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"ragged attention runs on CUDA or CPU tensors, "
                          f"got q on {q.device}")
     _check_kernel_args(q, kc_pages, vc_pages, page_tables, pos, q_lens,
-                       anc_mask)
+                       anc_mask, k_scales, v_scales)
     out = torch.empty_like(q)
+    if k_scales is not None:
+        return launch_ragged_paged_attention_int8(
+            q, kc_pages, vc_pages, k_scales, v_scales, page_tables, pos,
+            q_lens, anc_mask, out, scale)
     return launch_ragged_paged_attention(q, kc_pages, vc_pages, page_tables,
                                          pos, q_lens, anc_mask, out, scale)
 
 
 def ragged_paged_attention(q, k, v, cache_k, cache_v, page_tables, pos,
                            q_lens, depths, anc_mask, *, scale: float,
-                           rope_theta: Optional[float] = None):
+                           rope_theta: Optional[float] = None,
+                           k_scales=None, v_scales=None):
     """The single paged-attention step every paged call lowers to: rope
     q/k at pos + depths, write the live K/V rows into their table-mapped
     pages, then attend through ragged_flash_attention.
@@ -133,8 +171,12 @@ def ragged_paged_attention(q, k, v, cache_k, cache_v, page_tables, pos,
     packed prefill piece see the rows an earlier piece of the same prompt
     wrote in this very step, as committed rows (kpos < pos). Rows past
     q_len or past the table land in the null page 0 with the other
-    garbage, never in a real row. Returns (output, cache_k, cache_v) —
-    the same pool tensors, updated."""
+    garbage, never in a real row. With k_scales/v_scales the pools are
+    int8 and the write is quantize-on-append under grow-only per-(page,
+    head) scales (paged/quant.py), scales updated in place too.
+
+    Returns (output, cache_k, cache_v) — the same pool tensors, updated —
+    plus (k_scales, v_scales) in the quantized case."""
     B, S = q.shape[0], q.shape[1]
     P = cache_k.shape[1]
     dev = q.device
@@ -150,10 +192,17 @@ def ragged_paged_attention(q, k, v, cache_k, cache_v, page_tables, pos,
     live = (rows < L) & (ar[None, :] < q_lens[:, None].long())
     page = torch.where(live, page, torch.zeros_like(page))
     off = safe % P
-    cache_k.index_put_((page, off), k.to(cache_k.dtype))
-    cache_v.index_put_((page, off), v.to(cache_v.dtype))
+    if k_scales is not None:
+        quantized_append(cache_k, k_scales, k, page, off, live)
+        quantized_append(cache_v, v_scales, v, page, off, live)
+    else:
+        cache_k.index_put_((page, off), k.to(cache_k.dtype))
+        cache_v.index_put_((page, off), v.to(cache_v.dtype))
     out = ragged_flash_attention(q, cache_k, cache_v, page_tables, pos,
-                                 q_lens, anc_mask, scale=scale)
+                                 q_lens, anc_mask, scale=scale,
+                                 k_scales=k_scales, v_scales=v_scales)
+    if k_scales is not None:
+        return out, cache_k, cache_v, k_scales, v_scales
     return out, cache_k, cache_v
 
 

@@ -1,45 +1,69 @@
 """Continuous-batching scheduler over the paged KV cache (counterpart of
-flexflow_tpu/paged/scheduler.py, in the configuration this port serves).
+flexflow_tpu/paged/scheduler.py).
 
-Admission is by free slot; a request's prompt is
-prefilled CHUNKED inside the decode loop (at most `prefill_chunk` prompt
+Admission is by FREE-PAGE BUDGET: a request is admitted when a decode slot
+is free AND the pool can hold its prompt's pages; it grows one page at a
+time as it decodes; page pressure preempts the youngest other request
+(its pages are freed and it requeues at the FRONT of the queue, to
+re-prefill prompt + generated prefix). EOS/max-new free pages and slot
+at once. All bookkeeping is host numpy; the step sees only int32 page
+tables and positions.
+
+PREFIX CACHING (prefix_cache=True, the default): admission first maps the
+longest content-addressed prefix of the prompt from the pool's hash
+index (paged/pool.py) — full pages are SHARED by refcount, a partially
+filled tail page is cloned copy-on-write — and only the uncached suffix
+is computed. Completed and preempted requests leave their pages behind
+as dead-but-cached LRU entries, so a preempted request's resume
+re-attaches its own K/V instead of recomputing it.
+
+CHUNKED PREFILL inside the decode loop: at most `prefill_chunk` prompt
 tokens per tick, packed into window pieces of at most PREFILL_WINDOW_ROWS
-rows), and it then grows one page at a time as it decodes. Every model
-call is the ONE ragged step (Executor.ragged_step_fn): a tick assembles
-work items — decode rows and prefill chunk pieces — into a (B, S) launch
-whose per-item descriptor (pos, q_len, depths, anc) says which rows are
-live. Items padded to the launch shape carry q_len 0; the attention
-kernel skips them and their K/V writes go to the null page. Splitting a
-chunk into pieces is sound because every item's K/V rows are written
-into the pool BEFORE attention runs at each layer, so piece i+1 sees
-piece i's rows as committed.
+rows. Every model call is the ONE ragged step (Executor.ragged_step_fn):
+a tick assembles work items — decode rows and prefill chunk pieces —
+into a (B, S) launch whose per-item descriptor (pos, q_len, depths, anc)
+says which rows are live. Items padded to the launch shape carry q_len 0;
+the attention kernel skips them and their K/V writes go to the null page.
+Splitting a chunk into pieces is sound because every item's K/V rows are
+written into the pool BEFORE attention runs at each layer, so piece i+1
+sees piece i's rows as committed.
+
+POOL DTYPES (kv_dtype): "auto" pools at the model's dtype; "bf16", "fp16",
+"fp32" are plain storage casts; "int8" stores quantized pages with a
+per-(page, kv head) fp32 scale sidecar in the same per-node dict
+(paged/quant.py), so the copy-on-write clone and the defrag permutation
+move scales with their pages by construction, and pages coming off the
+free list get their scales zeroed.
 
 Decode flow per tick:
-  1. admit queued requests into free slots while pages last (FIFO)
-  2. grow: decoding slots whose next write position crosses a page
-     boundary allocate a page
-  3. one packed prefill launch for the mid-prefill slots (the chunk that
+  1. defrag if requested (one gather per cache buffer, between ticks)
+  2. admit queued requests into free slots while pages last (FIFO;
+     preempted requests re-enter ahead of the queue); admission maps
+     prefix-cache hits and allocates the remaining pages — no model run
+  3. grow: decoding slots whose next write position crosses a page
+     boundary allocate a page, preempting under pressure
+  4. one packed prefill launch for the mid-prefill slots (the chunk that
      finishes a prompt samples its first token)
-  4. one ragged decode launch for the decoding slots
-  5. sample, append, finish/free
+  5. one ragged decode launch for the decoding slots
+  6. sample, append, publish freshly filled pages, finish/free
 
-Not ported yet, and refused at construction rather than ignored: prefix
-caching (with copy-on-write), preemption, decode megasteps, speculative
-decoding, quantized (int8) pools, the host KV tier, the unpacked
-(`ragged_pack=False`) launch, and a pool smaller than every slot's
-longest sequence (which the reference serves by preempting).
+Not ported yet, and refused at construction rather than ignored: decode
+megasteps, speculative decoding, the host KV tier, the unpacked
+(`ragged_pack=False`) launch and the kv_quant_canary shadow cache.
 """
 
 from __future__ import annotations
 
 import queue
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from flexflow_tpu_torch.paged.pool import PagePool
+from flexflow_tpu_torch.paged.pool import EMPTY_HASH, PagePool
+from flexflow_tpu_torch.paged.quant import is_quantized_dtype, resolve_kv_dtype
 from flexflow_tpu_torch.serving import (
     _GenerationServerBase,
     _GenRequest,
@@ -53,58 +77,82 @@ PREFILL_WINDOW_ROWS = 8
 def _not_ported(what: str):
     raise NotImplementedError(
         f"{what} is not ported to the PyTorch server yet (ROADMAP.md, "
-        "queue 1 item 3)")
+        "queue 1)")
+
+
+def copy_page(caches, src: int, dst: int):
+    """Copy-on-write clone of one pool page, in place: every leaf of every
+    node's dict (an int8 pool's scale sidecar included) gets row `src`
+    copied into row `dst`."""
+    for bufs in caches.values():
+        for b in bufs.values():
+            b[dst].copy_(b[src])
+
+
+def reset_page_scales(caches, pages: List[int]):
+    """Zero the scale-sidecar entries of `pages`, in place (a no-op on a
+    pool without scales)."""
+    for bufs in caches.values():
+        for name, b in bufs.items():
+            if name.endswith("_scale"):
+                b[pages] = 0.0
 
 
 class PagedGenerationServer(_GenerationServerBase):
     """Continuous batching over the block-paged KV cache
-    (serve_generation(..., paged=True))."""
+    (serve_generation(..., paged=True)). Device memory scales with the
+    page pool instead of slots x max_len, shared prompt prefixes are
+    stored once, and page pressure preempts instead of refusing."""
 
     def __init__(self, ff, slots: int = 4, max_len: int = 512,
                  eos_id: Optional[int] = None, seed: int = 0,
                  page_size: int = 64, num_pages: Optional[int] = None,
-                 preemption: bool = False, prefix_cache: bool = False,
+                 preemption: bool = True, prefix_cache: bool = True,
                  prefill_chunk: int = 64, speculate=None,
                  ragged_pack: bool = True, megastep_ticks: int = 1,
                  megastep_mixed: bool = False,
                  overlap_dispatch: bool = False, kv_dtype: str = "auto",
-                 host_tier=None):
-        if prefix_cache:
-            _not_ported("prefix_cache=True (prefix caching with COW)")
-        if preemption:
-            _not_ported("preemption=True")
+                 host_tier=None, kv_quant_canary: Optional[int] = None):
         if int(megastep_ticks) != 1 or megastep_mixed or overlap_dispatch:
             _not_ported("megastep_ticks > 1 / megastep_mixed / "
                         "overlap_dispatch")
         if speculate is not None:
             _not_ported("speculative decoding (speculate=...)")
-        if kv_dtype != "auto":
-            _not_ported(f"kv_dtype={kv_dtype!r}")
         if host_tier is not None and host_tier != 0:
             _not_ported("host_tier")
         if not ragged_pack:
             _not_ported("ragged_pack=False")
+        if kv_quant_canary:
+            _not_ported("kv_quant_canary (the fp32 shadow cache)")
+        self.kv_dtype = str(kv_dtype)
+        pool_dt = resolve_kv_dtype(self.kv_dtype)  # validates the name
+        self._quantized = pool_dt is not None and is_quantized_dtype(pool_dt)
         super().__init__(ff, slots, max_len, eos_id, seed)
         self.page_size = int(page_size)
         self.max_pages_per_seq = -(-self.max_len // self.page_size)
-        full = self.slots * self.max_pages_per_seq + 1
         if num_pages is None:
-            num_pages = full
-        if num_pages < full:
-            _not_ported(
-                f"num_pages={num_pages} below slots x pages-per-sequence "
-                f"+ 1 = {full} (an undersized pool needs preemption)")
+            # the dense layout's capacity (+ the null page); size it DOWN
+            # to oversubscribe slots, and preemption absorbs the pressure
+            num_pages = self.slots * self.max_pages_per_seq + 1
         self.pool = PagePool(num_pages, self.page_size,
                              self.max_pages_per_seq)
+        self.preemption = bool(preemption)
+        self.prefix_cache = bool(prefix_cache)
         self.prefill_chunk = max(1, int(prefill_chunk))
         self._chunk_rows = PREFILL_WINDOW_ROWS
         ex = ff.executor
         self._step = ex.ragged_step_fn
-        self._caches = ex.init_paged_kv_cache(num_pages, self.page_size)
+        self._caches = ex.init_paged_kv_cache(num_pages, self.page_size,
+                                              dtype=pool_dt)
         self._tables = np.zeros((self.slots, self.max_pages_per_seq),
                                 np.int32)
         self._chain_desc_cache: Dict[Tuple[int, int], tuple] = {}
         self._admit_order: List[int] = []  # live slots, oldest first
+        self._requeue: List[_GenRequest] = []  # preempted, ahead of queue
+        self._defrag_req = threading.Event()
+        self.preemptions = 0
+        self.defrags = 0
+        self.peak_active = 0
         self.prefill_ticks = 0
         # ragged steps run: each launches the attention kernel once per
         # attention layer
@@ -112,89 +160,312 @@ class PagedGenerationServer(_GenerationServerBase):
         self._prefill_rr = 0    # rotating start slot for the chunk budget
         self._start()
 
+    # -- capacity and metrics ----------------------------------------------
+
+    def _check_capacity(self, prompt: np.ndarray, max_new_tokens: int):
+        super()._check_capacity(prompt, max_new_tokens)
+        need = self.pool.pages_for(len(prompt) + max_new_tokens)
+        if need > self.pool.capacity:
+            raise ValueError(
+                f"request needs {need} pages at its longest "
+                f"({len(prompt)}+{max_new_tokens} tokens, page_size="
+                f"{self.page_size}) but the pool only holds "
+                f"{self.pool.capacity}; raise num_pages")
+
+    def _kv_pool_dtype_name(self) -> str:
+        """The pool's storage dtype name ("int8" for a quantized pool)."""
+        kbuf = next(iter(self._caches.values()))["k"]
+        return str(kbuf.dtype).replace("torch.", "")
+
     def metrics(self) -> dict:
+        """Aggregate serving metrics and the per-request records, plus
+        pool occupancy and fragmentation and the prefix-cache counters."""
         m = super().metrics()
-        m["paged"] = {
+        pool = self.pool
+        m.update({
+            "preemptions": self.preemptions,
+            "defrags": self.defrags,
+            "peak_active": self.peak_active,
             "page_size": self.page_size,
-            "num_pages": self.pool.num_pages,
-            "pages_in_use": self.pool.pages_in_use,
+            "num_pages": pool.num_pages,
+            "pages_in_use": pool.pages_in_use,
+            "free_pages": pool.free_pages,
+            "cached_pages": pool.cached_pages,
+            "pool_occupancy": pool.pages_in_use / pool.capacity,
+            "fragmentation": pool.fragmentation(),
             "prefill_ticks": self.prefill_ticks,
             "ragged_steps": self.ragged_steps,
-        }
+            "kv_cache_dtype": self._kv_pool_dtype_name(),
+            "prefix_cache": {
+                "enabled": self.prefix_cache,
+                "hit_tokens": pool.hit_tokens,
+                "miss_tokens": pool.lookup_tokens - pool.hit_tokens,
+                "lookup_tokens": pool.lookup_tokens,
+                "hits": pool.hits,
+                "misses": pool.misses,
+                "evictions": pool.evictions,
+            },
+        })
         return m
 
-    # -- slot lifecycle ---------------------------------------------------
+    def request_defrag(self):
+        """Ask the loop to compact the page pool between ticks (host
+        bookkeeping + one device gather per cache buffer)."""
+        self._defrag_req.set()
 
-    def _release_slot(self, slot: int, req: _GenRequest,
-                      completed: bool = False):
+    # -- prefix-cache publication -------------------------------------------
+
+    def _publish_prefix(self, req: _GenRequest, valid_rows: int):
+        """Register every freshly FILLED page (all page_size rows hold
+        committed K/V) under its token-prefix chain hash, so concurrent
+        and later requests sharing the prefix map it instead of
+        recomputing. A no-op until a page boundary is crossed."""
+        if not self.prefix_cache:
+            return
+        P = self.page_size
+        target = min(valid_rows // P, len(req.pages))
+        if req.hashed_blocks >= target:
+            return
+        chain = self.pool.chain_hashes(req.seq_tokens()[:target * P])
+        for b in range(req.hashed_blocks, target):
+            self.pool.register_full(req.pages[b], chain[b])
+        req.hashed_blocks = target
+
+    def _publish_tail(self, req: _GenRequest):
+        """On prefill completion, release and preemption: publish the
+        remaining full pages and the partially filled tail page, so a
+        resume (or an identical prompt) re-attaches these rows instead of
+        recomputing them."""
+        if not self.prefix_cache or not req.pages:
+            return
+        P = self.page_size
+        valid = max(req.pos, req.prefill_pos)
+        self._publish_prefix(req, valid)
+        full = req.hashed_blocks
+        tail = valid - full * P
+        if tail > 0 and full < len(req.pages):
+            seq = req.seq_tokens()
+            chain = self.pool.chain_hashes(seq[:full * P])
+            parent = chain[-1] if chain else EMPTY_HASH
+            self.pool.register_partial(req.pages[full], parent,
+                                       seq[full * P:valid])
+
+    # -- slot lifecycle -----------------------------------------------------
+
+    def _reset_prefill_state(self, req: _GenRequest):
+        req.pos = 0
+        req.prefill_pos = 0
+        req.prefill_target = 0
+        req.prefill_seq = None
+        req.hashed_blocks = 0
+
+    def _free_pages_of(self, slot: int, req: _GenRequest):
+        """Publish what the request wrote, then drop its page references
+        LEAF-first: a chain lookup stops at its first missing block, so
+        under pressure the LRU must reclaim tail pages before the roots
+        every shared prefix runs through."""
+        self._publish_tail(req)
         self.pool.free(list(reversed(req.pages)))
         req.pages = []
         self._tables[slot] = 0
         if slot in self._admit_order:
             self._admit_order.remove(slot)
+
+    def _release_slot(self, slot: int, req: _GenRequest,
+                      completed: bool = False):
+        self._free_pages_of(slot, req)
         super()._release_slot(slot, req, completed)
 
-    def _alloc(self, n: int) -> List[int]:
-        pages = self.pool.alloc(n)
-        if pages is None:
-            raise RuntimeError("page pool exhausted although it holds "
-                               "every slot's longest sequence")
-        return pages
+    def _evict(self, slot: int):
+        """Preempt: free the victim's pages and requeue it at the front;
+        its future stays pending. With the prefix cache on, the freed
+        pages stay content-addressed on the LRU dead list, so the resume
+        re-attaches them and recomputes only what was evicted in
+        between."""
+        req = self._active[slot]
+        self._free_pages_of(slot, req)
+        self._reset_prefill_state(req)
+        self._active[slot] = None
+        req.preemptions += 1
+        self.preemptions += 1
+        self._requeue.insert(0, req)
 
-    def _admit(self, req: _GenRequest, slot: int):
-        """Allocate the prompt's pages and queue the whole prompt for
-        CHUNKED prefill. No model step runs here."""
+    def _reset_page_scales(self, pages: List[int]):
+        """Zero the scales of freshly ALLOCATED pages (int8 pools only),
+        wherever pages come off the free list — admission's private pages
+        and per-tick growth — so a page's grow-only scale lifetime starts
+        at zero and no stale scale leaks across owners. LRU revivals skip
+        this: a revived page keeps its content, so it keeps its scale."""
+        if self._quantized and pages:
+            reset_page_scales(self._caches, pages)
+
+    def _admit(self, req: _GenRequest, slot: int) -> bool:
+        """Map the longest cached prefix (shared full pages by refcount,
+        copy-on-write clone of a matched partial tail), allocate private
+        pages for the rest, and queue the uncached suffix for CHUNKED
+        prefill. No model step runs here."""
         seq = req.seq_tokens()
         n = len(seq)
-        pages = self._alloc(self.pool.pages_for(n))
+        P = self.page_size
+        shared: List[int] = []
+        cached = 0
+        cow = None
+        if self.prefix_cache:
+            shared, cached, cow = self.pool.lookup(seq)
+        # always recompute at least the LAST prompt token: its forward
+        # pass gives the first sampled token's distribution (the cache
+        # stores K/V, not logits)
+        start = min(cached, n - 1)
+        b0 = start // P            # first block this request writes into
+        keep = shared[:b0]
+        # a shared page at or after the write boundary is cloned before
+        # anyone writes into it: the partial-tail donor or, on a
+        # page-aligned full-prompt hit, the last matched full page
+        cow_src = cow if cow is not None else (
+            shared[b0] if b0 < len(shared) else None)
+        assert not shared[b0 + 1:], (shared, b0, cached, n)
+        total = self.pool.pages_for(n)
+        fresh = self.pool.alloc(total - b0)
+        if fresh is None:
+            # transient shortfall (LRU revival vs the conservative gate):
+            # drop every cache hit, retry as a full recompute, and roll
+            # the pool's hit counters back
+            self.pool.free(keep + ([cow_src] if cow_src is not None
+                                   else []))
+            if cached > 0:
+                self.pool.hit_tokens -= cached
+                self.pool.hits -= 1
+                self.pool.misses += 1
+            keep, cached, cow_src = [], 0, None
+            start, b0 = 0, 0
+            fresh = self.pool.alloc(total)
+            if fresh is None:
+                self._push_back(req)
+                return False
+        if cached > start:
+            # full-prompt hit: the clamped last prompt token is recomputed
+            # for its logits, not served
+            self.pool.hit_tokens -= cached - start
+        pages = keep + fresh
         req.pages = pages
         req.peak_pages = max(req.peak_pages, len(pages))
+        # fresh pages start a new scale lifetime BEFORE the COW clone, so
+        # the clone's copied scale is not wiped
+        self._reset_page_scales(fresh)
         self._tables[slot] = 0
         self._tables[slot, :len(pages)] = pages
+        if cow_src is not None:
+            copy_page(self._caches, cow_src, pages[b0])
+            self.pool.free([cow_src])
         req.prefill_seq = seq
-        req.prefill_pos = 0
+        req.prefill_pos = start
         req.prefill_target = n
         req.pos = 0
+        req.hashed_blocks = min(b0, n // P)
+        req.cached_prefill_tokens += start
         req.admit_t = time.monotonic()
         self._active[slot] = req
         self._admit_order.append(slot)
+        return True
 
-    # -- page growth ------------------------------------------------------
+    def _pop_next(self) -> Optional[_GenRequest]:
+        if self._requeue:
+            return self._requeue.pop(0)
+        try:
+            return self._queue.get_nowait()
+        except queue.Empty:
+            return None
+
+    def _push_back(self, req: _GenRequest):
+        self._requeue.insert(0, req)
+
+    # -- page growth, preemption, defrag -------------------------------------
 
     def _pages_target(self, req: _GenRequest) -> int:
         """Pages a live slot must hold before the next tick: the page of
-        its next write position."""
+        its next write position (mid-prefill slots already hold their
+        prompt's pages)."""
         return min(self.pool.pages_for(req.pos + 1), self.max_pages_per_seq)
 
     def _ensure_pages(self):
-        """Before a tick, every live slot grows to its _pages_target. The
-        pool holds every slot's longest sequence, so growth never runs
-        short."""
+        """Before a tick, every live slot grows to its _pages_target; pool
+        pressure preempts the youngest OTHER live request
+        (`preemption=False` requeues the starved request itself — a
+        stall, never a wrong answer)."""
         for slot in list(self._admit_order):
             req = self._active[slot]
             if req is None:
                 continue
-            while len(req.pages) < self._pages_target(req):
-                got = self._alloc(1)
-                req.pages.append(got[0])
-                req.peak_pages = max(req.peak_pages, len(req.pages))
-                self._tables[slot, len(req.pages) - 1] = got[0]
+            target = self._pages_target(req)
+            while req is self._active[slot] and len(req.pages) < target:
+                got = self.pool.alloc(1)
+                if got is not None:
+                    self._reset_page_scales(got)
+                    req.pages.append(got[0])
+                    req.peak_pages = max(req.peak_pages, len(req.pages))
+                    self._tables[slot, len(req.pages) - 1] = got[0]
+                    continue
+                victims = [s for s in self._admit_order if s != slot]
+                if self.preemption and victims:
+                    self._evict(victims[-1])  # youngest other request
+                else:
+                    self._evict(slot)  # stall self until pages free up
+                    break
 
-    # -- scheduler loop ---------------------------------------------------
+    def _apply_defrag(self):
+        """Compact the pool: the host bookkeeping (pool.defrag) and one
+        gather per leaf of every node's dict, in place — an int8 pool's
+        (num_pages, Hkv) scales permute on the same axis 0 as its pages.
+        Every owner's table row and page list is rewritten through the
+        one global old-to-new map, so shared pages stay shared."""
+        perm, old_to_new = self.pool.defrag()
+        perm_t = torch.from_numpy(perm.astype(np.int64)).to(self.device)
+        for bufs in self._caches.values():
+            for b in bufs.values():
+                b.copy_(b[perm_t])
+        self._tables = old_to_new[self._tables]
+        for s in self._admit_order:
+            req = self._active[s]
+            if req is not None:
+                req.pages = [int(old_to_new[p]) for p in req.pages]
+        self.defrags += 1
+
+    # -- scheduler loop -----------------------------------------------------
+
+    def _admission_pages(self, req: _GenRequest) -> int:
+        """Free pages required before admitting `req`: the prompt's rows
+        plus the first decode tick's write row. Conservative: prefix-cache
+        hits can only reduce what admission allocates."""
+        return self.pool.pages_for(len(req.seq_tokens()) + 1)
+
+    def _outstanding_growth(self) -> int:
+        """Pages the live slots still need to reach their _pages_target:
+        admission must not hand them out."""
+        debt = 0
+        for s in self._admit_order:
+            req = self._active[s]
+            if req is not None:
+                debt += max(0, self._pages_target(req) - len(req.pages))
+        return debt
 
     def _admit_pending(self) -> bool:
-        """Admission, FIFO, into every free slot (the pool holds every
-        slot's longest sequence, so pages never hold a request back).
-        Returns whether anything was admitted."""
+        """Admission: a free slot + the request's page budget (net of
+        pages the live slots are still owed), FIFO — a head request too
+        big for the pool blocks later ones, so nothing starves. Returns
+        whether anything was admitted."""
         admitted = False
         for slot in range(self.slots):
             if self._active[slot] is not None:
                 continue
-            try:
-                req = self._queue.get_nowait()
-            except queue.Empty:
+            req = self._pop_next()
+            if req is None:
                 break
-            self._admit(req, slot)
+            if (self._admission_pages(req) + self._outstanding_growth()
+                    > self.pool.free_pages):
+                self._push_back(req)
+                break
+            if not self._admit(req, slot):
+                break
             admitted = True
         return admitted
 
@@ -248,17 +519,21 @@ class PagedGenerationServer(_GenerationServerBase):
         return probs
 
     def _tick_prep(self) -> Optional[List[int]]:
-        """Admit, grow pages. Returns the live slots (decoding AND
-        mid-prefill), or None when nothing is live (sleeps briefly when
-        nothing was admitted either)."""
+        """Defrag if requested, admit, grow pages. Returns the live slots
+        (decoding AND mid-prefill), or None when nothing is live (sleeps
+        briefly when nothing was admitted either)."""
+        if self._defrag_req.is_set():
+            self._defrag_req.clear()
+            self._apply_defrag()
         admitted = self._admit_pending()
         live = self._live()
+        self.peak_active = max(self.peak_active, len(live))
         if not live:
             if not admitted:
                 time.sleep(0.001)
             return None
-        self._ensure_pages()
-        return live
+        self._ensure_pages()  # may preempt: recompute live after
+        return self._live() or None
 
     def _split_live(self, live):
         """(mid-prefill slots, decoding slots) for this tick."""
@@ -270,8 +545,9 @@ class PagedGenerationServer(_GenerationServerBase):
         """Advance mid-prefill slots by at most `prefill_chunk` tokens
         ACROSS the tick, starting from a slot that rotates tick to tick.
         Every slot's chunk is split into window pieces and the whole tick
-        rides ONE packed launch; the chunk finishing a prompt samples the
-        request's first token from its own last-row probs."""
+        rides ONE packed launch; the chunk finishing a prompt publishes
+        the prompt's tail page and samples the request's first token from
+        its own last-row probs."""
         budget = self.prefill_chunk
         self.prefill_ticks += 1
         rot = self._prefill_rr % len(slots)
@@ -299,7 +575,14 @@ class PagedGenerationServer(_GenerationServerBase):
         for (s, req, start, take), (i, r) in zip(plan, ends):
             req.prefill_pos = start + take
             req.prefill_tokens += take
+            self._publish_prefix(req, req.prefill_pos)
             if req.prefill_pos >= req.prefill_target:
+                # publish the PROMPT's partial tail before decode appends
+                # rows to the same page: the entry names only rows
+                # [0, tail), which never change, so an identical or
+                # extending prompt can clone this page while this
+                # request keeps decoding into it
+                self._publish_tail(req)
                 self._sample_first_token(s, req, probs[i:i + 1, r, :])
                 self._finish_if_done(s)
 
@@ -323,6 +606,7 @@ class PagedGenerationServer(_GenerationServerBase):
             req.pos += 1
             req.tokens.append(int(toks[s]))
             self._tokens[s] = toks[s]
+            self._publish_prefix(req, req.pos)
             self._finish_if_done(s)
 
     def _loop_body(self, tr, ntr):
@@ -336,3 +620,8 @@ class PagedGenerationServer(_GenerationServerBase):
             if dec:
                 self._decode_tick(dec, tr, ntr)
 
+    def _drain(self):
+        super()._drain()
+        for req in self._requeue:
+            self._fail_or_cancel(req)
+        self._requeue.clear()

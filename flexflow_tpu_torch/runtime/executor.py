@@ -145,9 +145,10 @@ class Executor:
         are recomputed in the backward pass instead of saved, as the
         reference's jax.checkpoint does. With `kv_caches` + `page_tables`
         attention nodes run the PAGED step: kv_caches are per-node
-        {"k", "v"} page pools, updated in place and reported in
-        `cache_out`, and `ragged` = (q_lens, depths, anc) is the
-        per-entry work descriptor (causal-chain default when None)."""
+        {"k", "v"} page pools (plus "k_scale"/"v_scale" for an int8
+        pool), updated in place and reported in `cache_out`, and
+        `ragged` = (q_lens, depths, anc) is the per-entry work descriptor
+        (causal-chain default when None)."""
         values: Dict[Tuple[int, int], Any] = {}
         if len(inputs) != len(self.input_nodes):
             raise ValueError(f"expected {len(self.input_nodes)} inputs, "
@@ -256,7 +257,9 @@ class Executor:
                              ) -> Dict[str, Dict[str, Tuple[tuple, torch.dtype]]]:
         """{node key: {"k"/"v": (shape, dtype)}} of the paged K/V pools:
         (num_pages, page_size, Hkv, D) per attention node, at the
-        attention's activation dtype unless `dtype` is given."""
+        attention's activation dtype unless `dtype` is given. An int8
+        pool adds its (num_pages, Hkv) fp32 "k_scale"/"v_scale" sidecar
+        (paged/quant.py) to the same per-node dict."""
         specs = {}
         for n in self.topo:
             if n.op_type == OpType.PIPELINE:
@@ -270,6 +273,9 @@ class Executor:
                            else torch.bfloat16)
             shape = (num_pages, page_size, n.attrs.num_kv, n.attrs.kdim)
             specs[node_key(n)] = {"k": (shape, dt), "v": (shape, dt)}
+            if dt == torch.int8:
+                scales = ((num_pages, n.attrs.num_kv), torch.float32)
+                specs[node_key(n)].update(k_scale=scales, v_scale=scales)
         if not specs:
             raise ValueError("paged decode needs attention nodes "
                              "(MULTIHEAD_ATTENTION or RING_ATTENTION)")
@@ -277,7 +283,8 @@ class Executor:
 
     def init_paged_kv_cache(self, num_pages: int, page_size: int,
                             dtype: Optional[torch.dtype] = None):
-        """Per-attention-node zeroed K/V page pools on the device."""
+        """Per-attention-node zeroed K/V page pools (and, for an int8
+        pool, zeroed scale sidecars) on the device."""
         return {key: {name: torch.zeros(shape, dtype=dt, device=self.device)
                       for name, (shape, dt) in bufs.items()}
                 for key, bufs in self.paged_kv_cache_specs(

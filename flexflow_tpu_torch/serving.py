@@ -46,7 +46,8 @@ class _GenRequest:
     __slots__ = ("prompt", "max_new", "temperature", "future", "tokens",
                  "pos", "pages", "submit_t", "admit_t", "first_token_t",
                  "done_t", "prefill_tokens", "peak_pages", "prefill_pos",
-                 "prefill_target", "prefill_seq")
+                 "prefill_target", "prefill_seq", "hashed_blocks",
+                 "preemptions", "cached_prefill_tokens")
 
     def __init__(self, prompt: np.ndarray, max_new: int, temperature: float):
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -61,22 +62,30 @@ class _GenRequest:
         self.first_token_t: Optional[float] = None
         self.done_t: Optional[float] = None
         self.prefill_tokens = 0         # prompt rows computed
+        self.cached_prefill_tokens = 0  # prompt rows served by the cache
         self.peak_pages = 0
+        self.preemptions = 0
         # chunked-prefill progress: rows [0, prefill_pos) of prefill_seq
         # hold valid K/V; the slot decodes once prefill_pos reaches
-        # prefill_target
+        # prefill_target. hashed_blocks counts the full pages already
+        # published to the prefix cache (the hash chain is re-derived
+        # from seq_tokens(), so nothing of it survives a preemption).
         self.prefill_pos = 0
         self.prefill_target = 0
         self.prefill_seq: Optional[np.ndarray] = None
+        self.hashed_blocks = 0
 
     def seq_tokens(self) -> np.ndarray:
-        """prompt + generated-so-far."""
+        """prompt + generated-so-far: what a (re-)prefill after a
+        preemption feeds, without ever changing the prompt itself."""
         if not self.tokens:
             return self.prompt
         return np.concatenate([self.prompt,
                                np.asarray(self.tokens, np.int32)])
 
     def metrics(self) -> dict:
+        """Per-request metrics (the queue time runs from submit to the
+        LAST admission, so a preempted request's requeue wait counts)."""
         return {
             "queue_time_s": (self.admit_t - self.submit_t
                              if self.admit_t is not None else None),
@@ -87,8 +96,10 @@ class _GenRequest:
                          if self.done_t is not None
                          and self.first_token_t is not None else None),
             "prefill_tokens": self.prefill_tokens,
+            "cached_prefill_tokens": self.cached_prefill_tokens,
             "decode_tokens": len(self.tokens),
             "pages_held_peak": self.peak_pages,
+            "preemptions": self.preemptions,
         }
 
 
@@ -261,15 +272,17 @@ def serve_generation(ff, slots: int = 4, max_len: int = 512,
                      eos_id: Optional[int] = None, seed: int = 0,
                      paged: bool = False, page_size: int = 64,
                      num_pages: Optional[int] = None,
-                     preemption: bool = False, prefix_cache: bool = False,
+                     preemption: bool = True, prefix_cache: bool = True,
                      prefill_chunk: int = 64, speculate=None,
                      ragged_pack: bool = True, megastep_ticks: int = 1,
                      megastep_mixed: bool = False,
                      overlap_dispatch: bool = False,
-                     kv_dtype: str = "auto", host_tier=None):
+                     kv_dtype: str = "auto",
+                     kv_quant_canary: Optional[int] = None, host_tier=None):
     """Continuous-batching generation endpoint over a compiled causal-LM
-    FFModel, through the block-paged KV cache (paged/scheduler.py). Only
-    the paged server is ported; each knob it does not honour yet raises
+    FFModel, through the block-paged KV cache (paged/scheduler.py), at
+    the reference's defaults: prefix cache and preemption on. Only the
+    paged server is ported; each knob it does not honour yet raises
     NotImplementedError (PagedGenerationServer names them)."""
     if not paged:
         raise NotImplementedError(
@@ -284,4 +297,4 @@ def serve_generation(ff, slots: int = 4, max_len: int = 512,
         speculate=speculate, ragged_pack=ragged_pack,
         megastep_ticks=megastep_ticks, megastep_mixed=megastep_mixed,
         overlap_dispatch=overlap_dispatch, kv_dtype=kv_dtype,
-        host_tier=host_tier)
+        kv_quant_canary=kv_quant_canary, host_tier=host_tier)

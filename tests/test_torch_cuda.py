@@ -83,6 +83,94 @@ def test_ragged_kernel_matches_plain_version(dtype, H, Hkv, S, D, P):
         assert not got[b, ql:].any()
 
 
+def _int8_pools(kc, vc):
+    """int8 pools and their (N, Hkv) scales from fp pools, written page
+    by page through the port's quantize-on-append (on the CPU)."""
+    from flexflow_tpu_torch.paged.quant import quantized_append
+
+    N, P, Hkv, D = kc.shape
+    page = torch.arange(N).repeat_interleave(P)[None]
+    off = torch.arange(P).repeat(N)[None]
+    live = torch.ones(1, N * P, dtype=torch.bool)
+    out = []
+    for x in (kc, vc):
+        pool = torch.zeros((N, P, Hkv, D), dtype=torch.int8)
+        scales = torch.zeros((N, Hkv))
+        quantized_append(pool, scales, x.reshape(1, N * P, Hkv, D), page,
+                         off, live)
+        out += [pool, scales]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,S,D,P", [
+    (8, 2, 6, 32, 4),        # GQA, page 4
+    (4, 4, 5, 32, 16),       # MHA, page 16, ragged window
+    (8, 2, 3, 40, 16),       # a head dim the 16-byte loads do not divide
+    (32, 8, 8, 128, 64),     # Llama-3-8B attention, serving page size
+])
+def test_int8_kernel_matches_plain_version(dtype, H, Hkv, S, D, P):
+    """The int8 kernel (dequantize on load with the per-(page, kv head)
+    scales, fp32 attention, output in q's dtype) against the plain
+    version on the same int8 pages; it alone launches."""
+    _needs_card()
+    from flexflow_tpu_torch.kernels import (
+        RAGGED_PAGED_ATTENTION,
+        RAGGED_PAGED_ATTENTION_INT8,
+    )
+
+    N, MAXP = 4 * 8 + 1, 8
+    q, kc, vc, pt, pos, qls, anc = _mixed_case(H, Hkv, S, D, P, N, MAXP,
+                                               seed=S + P + D)
+    kq, ks, vq, vs = (t.cuda() for t in _int8_pools(kc, vc))
+    args = [q.cuda().to(dtype), kq, vq] + [a.cuda() for a in (pt, pos, qls,
+                                                              anc)]
+    scale = 1.0 / D ** 0.5
+    before = (RAGGED_PAGED_ATTENTION.launches,
+              RAGGED_PAGED_ATTENTION_INT8.launches)
+    got = ragged_flash_attention(*args, scale=scale, k_scales=ks,
+                                 v_scales=vs)
+    torch.cuda.synchronize()
+    assert (RAGGED_PAGED_ATTENTION.launches,
+            RAGGED_PAGED_ATTENTION_INT8.launches) == (before[0],
+                                                      before[1] + 1)
+    want = ragged_gather_attention(*args, scale=scale, k_scales=ks,
+                                   v_scales=vs)
+    assert got.dtype == want.dtype == dtype
+    err = (got.float() - want.float()).abs()
+    assert float(err.max()) <= TOLS[dtype] * max(1.0, float(
+        want.float().abs().max()))
+    for b, ql in enumerate(args[5].tolist()):
+        assert not got[b, ql:].any()
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.bfloat16),  # kv_dtype="bf16" under fp32
+    (torch.float32, torch.float16),   # kv_dtype="fp16" under fp32
+    (torch.bfloat16, torch.float32),  # kv_dtype="fp32" under bf16
+])
+@pytest.mark.parametrize("P", [4, 16, 64])
+def test_mixed_dtype_pools_match_plain_version(q_dtype, kv_dtype, P):
+    """A pool of another float dtype than q: the fp-pool kernel converts
+    K/V to q's dtype on load, as the plain version's cast does."""
+    _needs_card()
+    H, Hkv, S, D = 8, 2, 5, 64
+    args = [a.cuda() for a in _mixed_case(H, Hkv, S, D, P, 4 * 8 + 1, 8,
+                                          seed=P)]
+    args[0] = args[0].to(q_dtype)
+    args[1], args[2] = args[1].to(kv_dtype), args[2].to(kv_dtype)
+    scale = 1.0 / D ** 0.5
+    got = ragged_flash_attention(*args, scale=scale)
+    torch.cuda.synchronize()
+    want = ragged_gather_attention(*args, scale=scale)
+    assert got.dtype == q_dtype
+    err = (got.float() - want.float()).abs()
+    assert float(err.max()) <= TOLS[q_dtype] * max(1.0, float(
+        want.float().abs().max()))
+    for b, ql in enumerate(args[5].tolist()):
+        assert not got[b, ql:].any()
+
+
 def test_kernel_refuses_what_it_does_not_take():
     _needs_card()
     args = [a.cuda() for a in _mixed_case(8, 2, 6, 32, 8, 33, 8, seed=0)]

@@ -172,16 +172,21 @@ def test_paged_server_greedy_tokens_match_jax(kv_heads):
 
 
 def test_unsupported_server_knobs_raise():
+    """What the port does not serve yet raises, rather than serving a
+    different configuration; an unknown kv_dtype is a ValueError."""
     _, tff = _models(2)
-    for kw in ({"prefix_cache": True}, {"preemption": True},
-               {"megastep_ticks": 4}, {"kv_dtype": "int8"},
-               {"speculate": object()}, {"host_tier": 8},
-               {"num_pages": 5}, {"ragged_pack": False}):
+    for kw in ({"megastep_ticks": 4}, {"megastep_mixed": True},
+               {"overlap_dispatch": True}, {"speculate": object()},
+               {"host_tier": 8}, {"ragged_pack": False},
+               {"kv_quant_canary": 2}):
         with pytest.raises(NotImplementedError):
             tff.serve_generation(slots=2, max_len=32, paged=True,
                                  page_size=4, **kw)
     with pytest.raises(NotImplementedError):
         tff.serve_generation(slots=2, max_len=32)  # dense server
+    with pytest.raises(ValueError, match="kv_dtype"):
+        tff.serve_generation(slots=2, max_len=32, paged=True, page_size=4,
+                             kv_dtype="int7")
 
 
 def test_chunked_prefill_across_ticks_matches_generate():
@@ -204,8 +209,8 @@ def test_chunked_prefill_across_ticks_matches_generate():
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, w)
     m = server.metrics()
-    assert m["paged"]["prefill_ticks"] >= sum(len(p) for p in prompts) // 5
-    assert m["paged"]["pages_in_use"] == 0  # every page freed
+    assert m["prefill_ticks"] >= sum(len(p) for p in prompts) // 5
+    assert m["pages_in_use"] == 0  # every page freed
 
 
 def test_sampling_is_seeded_and_eos_stops():
