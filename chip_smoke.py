@@ -1,9 +1,10 @@
 """Chip smoke test of flexflow_tpu_torch, the PyTorch/CUDA port: drives the
 port's main paths on one NVIDIA card, paged Llama serving (fp and int8 KV
-pools, prefix cache, preemption, defrag) and Llama training, and holds
-every hand-written kernel on it to its plain PyTorch version.
+pools, prefix cache, preemption, defrag), Llama training, and GPT-2
+training and paged serving, and holds every hand-written kernel on them
+to its plain PyTorch version.
 
-    python3 chip_smoke.py            # phases 1,2,3,4,6,7 on one card
+    python3 chip_smoke.py            # phases 1,2,3,4,6,7,8,9 on one card
     python3 chip_smoke.py --phases 5 # + profiles of serving and training
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
@@ -13,23 +14,30 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      library times and the roofline bound: the ragged paged attention at
      the serving path's shapes (Llama-3-8B attention: H=32, Hkv=8,
      D=128, page 64, 129 pages; decode, chunk and pad entries; window 1
-     and 8) over fp pools, over int8 pools written by the port's own
+     and 8; and GPT-2 XL's decode: H = Hkv = 25, D 64) over fp pools,
+     over int8 pools (Llama's cases) written by the port's own
      quantize-on-append, and over a bf16 pool under fp32 q; and the
      flash-attention forward, dq and dk/dv kernels at the training
      path's shape (bench_1b attention: B 8, S = T 1024, H 16, Hkv 8,
-     D 128, causal); bf16 and fp32;
+     D 128, causal); bf16 and fp32; and the head-major flash kernels K4
+     (forward, dq, dk/dv) at GPT-2 XL training's shape (B*H 8*25, S = T
+     1024, D 64, causal) with times, then at head dims 48, 80, 96, 100 and
+     256, non-causal, S != T and S not a multiple of the tile, each
+     backward also fed a shifted lse (the ring's contract); K1/K2 timed at
+     D 64 on the same shape beside K4 and the head-major route;
   3. full-width checks, card against CPU on the same seeded weights, fp32
      with TF32 off: two packed ragged steps at Llama-3-8B widths, depth 2,
-     on an fp pool and on an int8 pool; one Adam train step at bench_1b
-     widths, depth 2, batch 1, seq 256 (the loss and every parameter
-     after the step);
+     on an fp pool and on an int8 pool, and at GPT-2 XL widths, depth 2,
+     on an fp pool; one Adam train step at bench_1b widths and one at
+     GPT-2 XL widths, depth 2, batch 1, seq 256 (the loss and every
+     parameter after the step);
   4. serving: Llama-3-8B (32 layers, bf16, random weights from a seed)
      through serve_generation(paged=True) at its defaults (prefix cache
      and preemption on); 8 requests of 128..1024 prompt tokens, 64 new
      tokens each; the ragged kernel must have launched once per layer and
      step (counts reset just before, read just after);
   5. (on request) torch.profiler breakdowns of one decode step, one
-     prefill step and one bench_1b train step;
+     prefill step, one bench_1b train step and one GPT-2 XL train step;
   6. training: bench_1b (16 layers, bf16, batch 8, seq 1024,
      remat="none", Adam lr 1e-4, random weights from a seed) through
      ff.fit for one epoch of 10 seeded batches, then 10 timed steps on
@@ -43,7 +51,18 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      new tokens each, and a defrag while they run; the int8 kernel must
      launch once per layer and step and the fp kernel never, the shared
      pages must hit, growth must preempt, and the pool's invariants must
-     hold after the drain.
+     hold after the drain;
+  8. training GPT-2 XL (openai-community/gpt2-xl widths: vocab 50257, dim
+     1600, 48 layers, 25 heads of 64, FFN 6400, 1024 positions; bf16,
+     batch 8, seq 1024, remat="none", Adam lr 1e-4, random weights from a
+     seed) through ff.fit for one epoch of 10 seeded batches, then 10
+     timed steps on one repeated batch (the loss must fall); each K4
+     kernel must launch 48 times per step and K1/K2 never;
+  9. serving GPT-2 XL (48 layers, bf16, max_len 1024 = its position
+     table) through serve_generation(paged=True) at its defaults; 8
+     requests of 128..768 prompt tokens, 64 new tokens each; the ragged
+     kernel must launch once per layer and step; max_len 1025 must be
+     refused.
 The line before the last is the kernel list as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -51,6 +70,7 @@ The line before the last is the kernel list as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -70,6 +90,9 @@ from flexflow_tpu_torch import (
     MetricsType,
 )
 from flexflow_tpu_torch.kernels import (
+    FLASH_ATTENTION_BH_DKV,
+    FLASH_ATTENTION_BH_DQ,
+    FLASH_ATTENTION_BH_FWD,
     FLASH_ATTENTION_DKV,
     FLASH_ATTENTION_DQ,
     FLASH_ATTENTION_FWD,
@@ -77,13 +100,23 @@ from flexflow_tpu_torch.kernels import (
     RAGGED_PAGED_ATTENTION,
     RAGGED_PAGED_ATTENTION_INT8,
     build,
+    launch_flash_attention_bh_dkv,
+    launch_flash_attention_bh_dq,
+    launch_flash_attention_bh_fwd,
     launch_flash_attention_dkv,
     launch_flash_attention_dq,
     launch_flash_attention_fwd,
 )
+from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2
 from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
 from flexflow_tpu_torch.ops.flash_attention import (
+    FlashAttentionFunction,
+    flash_attention,
     flash_attention_reference,
+    flash_bh_delta,
+    flash_bh_dkv_reference,
+    flash_bh_dq_reference,
+    flash_bh_reference,
     flash_delta,
     flash_dkv_reference,
     flash_dq_reference,
@@ -139,6 +172,37 @@ FB, FS, FH, FHKV, FD = 8, 1024, 16, 8, 128
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCHES, TIMED_STEPS = 8, 1024, 10, 10
 DEVICE = "cuda"
 FLASH_KERNELS = (FLASH_ATTENTION_FWD, FLASH_ATTENTION_DQ, FLASH_ATTENTION_DKV)
+K4_KERNELS = (FLASH_ATTENTION_BH_FWD, FLASH_ATTENTION_BH_DQ,
+              FLASH_ATTENTION_BH_DKV)
+# K4's main shape: GPT-2 XL training attention, B 8 x H 25 heads, S = T
+# 1024, D 64, causal (the kernels line's case)
+KB, KS, KH, KD = 8, 1024, 25, 64
+# K4 beyond the main shape (name, B*H, S, T, D, causal): the head dims of
+# the reference's own test (48), Phi-3-mini / OpenLLaMA-3B-like widths
+# (80, 96, 100), the widest instantiation (256), BERT's non-causal
+# route, S != T and S not a multiple of the 64-row tile
+K4_CASES = [
+    ("d48", 32, 512, 512, 48, True),
+    ("d80", 32, 512, 512, 80, True),
+    ("d96", 32, 512, 512, 96, True),
+    ("d100", 32, 512, 512, 100, True),
+    ("d256", 32, 512, 512, 256, True),
+    ("d64_noncausal", 32, 512, 512, 64, False),
+    ("d64_s1000_t1536", 16, 1000, 1536, 64, True),
+    ("d96_s777_noncausal", 16, 777, 777, 96, False),
+]
+GPT2_POSITIONS = 1024  # n_positions: the position table, serving's max_len
+GPT2_BATCHES = 10
+# phase 9's traffic: 8 prompts uniform in 128..768 tokens, 64 new each
+GPT2_PROMPTS, GPT2_PROMPT_MIN, GPT2_PROMPT_MAX, GPT2_NEW = 8, 128, 768, 64
+
+
+def gpt2_xl() -> GPT2Config:
+    """openai-community/gpt2-xl config.json: vocab 50257, n_embd 1600,
+    n_layer 48, n_head 25 (head dim 64), n_inner null (4 x 1600),
+    layer_norm_epsilon 1e-5, gelu_new (= tanh-GELU)."""
+    return GPT2Config(vocab_size=50257, dim=1600, layers=48, heads=25,
+                      inner=0, ln_eps=1e-5)
 
 
 def log(msg: str):
@@ -178,11 +242,13 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # phase 2: the ragged paged-attention kernel against its plain version
 
 
-def attention_case(window: int, kinds, dtype, seed: int, fixed_pos=None):
-    """Inputs of one ragged attention call at the serving path's shapes:
-    one entry per kind ("decode" q_len 1, "chunk:N" q_len N, "pad"),
-    positions `fixed_pos` or random up to ~2000, distinct random pages per
-    entry."""
+def attention_case(window: int, kinds, dtype, seed: int, fixed_pos=None,
+                   heads=(H, HKV, D)):
+    """Inputs of one ragged attention call at the serving path's shapes
+    (`heads` = (H, Hkv, D), Llama-3-8B's by default): one entry per kind
+    ("decode" q_len 1, "chunk:N" q_len N, "pad"), positions `fixed_pos` or
+    random up to ~2000, distinct random pages per entry."""
+    nh, nkv, hd = heads
     rs = np.random.RandomState(seed)
     B = len(kinds)
     pos = np.zeros(B, np.int32)
@@ -198,11 +264,11 @@ def attention_case(window: int, kinds, dtype, seed: int, fixed_pos=None):
         anc[b, :n, :n] = np.tril(np.ones((n, n), bool))
     pt = (rs.permutation(NUM_PAGES - 1)[:B * MAXP] + 1).reshape(B, MAXP)
     dev = DEVICE
-    q = torch.from_numpy(rs.standard_normal((B, window, H, D))
+    q = torch.from_numpy(rs.standard_normal((B, window, nh, hd))
                          .astype(np.float32)).to(dev, dtype)
-    kc = torch.from_numpy(rs.standard_normal((NUM_PAGES, P, HKV, D))
+    kc = torch.from_numpy(rs.standard_normal((NUM_PAGES, P, nkv, hd))
                           .astype(np.float32)).to(dev, dtype)
-    vc = torch.from_numpy(rs.standard_normal((NUM_PAGES, P, HKV, D))
+    vc = torch.from_numpy(rs.standard_normal((NUM_PAGES, P, nkv, hd))
                           .astype(np.float32)).to(dev, dtype)
     return (q, kc, vc, torch.from_numpy(pt.astype(np.int32)).to(dev),
             torch.from_numpy(pos).to(dev), torch.from_numpy(qls).to(dev),
@@ -219,19 +285,20 @@ def attention_bound(args, quantized: bool = False) -> tuple:
     pair) at the peak of the type they run in: q's, or fp32 for an int8
     pool (q is upcast and the pages dequantized to fp32)."""
     q, kc, vc, pt, pos, qls, anc = args
-    B, S = q.shape[:2]
+    B, S, nh, hd = q.shape
+    nkv = kc.shape[2]
     isz, kv_isz = q.element_size(), kc.element_size()
     horizon = (pos.long() + qls.long()) * (qls > 0).long()
     kv_rows = int(horizon.sum())
-    nbytes = (2 * q.numel() * isz + 2 * kv_rows * HKV * D * kv_isz
+    nbytes = (2 * q.numel() * isz + 2 * kv_rows * nkv * hd * kv_isz
               + pt.numel() * 4 + pos.numel() * 4 + qls.numel() * 4
               + anc.numel())
     if quantized:
-        nbytes += 2 * int(((horizon + P - 1) // P).sum()) * HKV * 4
+        nbytes += 2 * int(((horizon + P - 1) // P).sum()) * nkv * 4
     vis = ragged_visibility_mask(pt, pos, qls, anc, P)
     live = torch.arange(S, device=q.device)[None, :] < qls[:, None]
     visible = int((vis.sum(-1) * live).sum())
-    ops = 4 * D * H * visible
+    ops = 4 * hd * nh * visible
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS[torch.float32 if quantized else q.dtype]
     return (max(t_bytes, t_ops) * 1e3,
@@ -243,9 +310,10 @@ def library_call(args, scale):
     K/V with the same visibility mask (timed only; the port never calls
     it)."""
     q, kc, vc, pt, pos, qls, anc = args
-    B, S = q.shape[:2]
-    kg = kc[pt.long()].reshape(B, -1, HKV, D).transpose(1, 2).contiguous()
-    vg = vc[pt.long()].reshape(B, -1, HKV, D).transpose(1, 2).contiguous()
+    B, S, nh, hd = q.shape
+    nkv = kc.shape[2]
+    kg = kc[pt.long()].reshape(B, -1, nkv, hd).transpose(1, 2).contiguous()
+    vg = vc[pt.long()].reshape(B, -1, nkv, hd).transpose(1, 2).contiguous()
     qh = q.transpose(1, 2).contiguous()
     mask = ragged_visibility_mask(pt, pos, qls, anc, P)[:, None]
     try:
@@ -254,8 +322,8 @@ def library_call(args, scale):
         return lambda: F.scaled_dot_product_attention(
             qh, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True)
     except TypeError:  # a torch without enable_gqa: repeat heads first
-        kr = kg.repeat_interleave(H // HKV, dim=1)
-        vr = vg.repeat_interleave(H // HKV, dim=1)
+        kr = kg.repeat_interleave(nh // nkv, dim=1)
+        vr = vg.repeat_interleave(nh // nkv, dim=1)
         return lambda: F.scaled_dot_product_attention(
             qh, kr, vr, attn_mask=mask, scale=scale)
 
@@ -267,15 +335,23 @@ ATTENTION_CASES = [
     ("decode_pad_w1", 1, ["decode", "decode", "decode", "pad"], None),
     ("mixed_w8", 8, ["decode", "chunk:8", "chunk:5", "pad"], None),
 ]
+# GPT-2 XL serving's steady decode launch: 25 heads of 64, no GQA; its
+# 1024-row position table caps pos
+GPT2_ATTENTION_CASE = ("gpt2_xl_decode_b4_pos960", 1, ["decode"] * 4, 960)
+GPT2_HEADS = (25, 25, 64)
 
 
 def phase_kernels(card: str) -> list:
-    scale = 1.0 / D ** 0.5
+    """The fp-pool ragged kernel against its plain version at Llama-3-8B's
+    serving cases and GPT-2 XL's decode case, bf16 and fp32 q."""
+    cases = [(c, (H, HKV, D)) for c in ATTENTION_CASES] + [
+        (GPT2_ATTENTION_CASE, GPT2_HEADS)]
     results = []
     for dtype in (torch.bfloat16, torch.float32):
-        for i, (name, window, kinds, fixed) in enumerate(ATTENTION_CASES):
+        for i, ((name, window, kinds, fixed), heads) in enumerate(cases):
+            scale = 1.0 / heads[2] ** 0.5
             args = attention_case(window, kinds, dtype, seed=i,
-                                  fixed_pos=fixed)
+                                  fixed_pos=fixed, heads=heads)
             got = ragged_flash_attention(*args, scale=scale)
             want = ragged_gather_attention(*args, scale=scale)
             torch.cuda.synchronize()
@@ -287,7 +363,7 @@ def phase_kernels(card: str) -> list:
             bound_ms, bound_by, nbytes, ops = attention_bound(args)
             res = {
                 "case": name, "dtype": str(dtype).replace("torch.", ""),
-                "window": window, "kinds": kinds,
+                "heads": list(heads), "window": window, "kinds": kinds,
                 "pos": args[4].tolist(), "q_lens": args[5].tolist(),
                 "max_abs_err": float(err.max()), "atol": atol, "rtol": rtol,
                 "ms": time_ms(lambda: ragged_flash_attention(
@@ -406,6 +482,17 @@ def phase_int8_kernels(card: str) -> list:
 # phase 2: the flash-attention kernels against their plain versions
 
 
+def _err_ok(pairs, tol):
+    """(max |err| over the (got, want) pairs, whether each is within tol x
+    max(1, max |want|))."""
+    errs, ok = [], True
+    for got, want in pairs:
+        err = float((got.float() - want.float()).abs().max())
+        errs.append(err)
+        ok = ok and err <= tol * max(1.0, float(want.float().abs().max()))
+    return max(errs), ok
+
+
 def flash_case(dtype, seed: int):
     """q, k, v and a fixed dO at the training path's attention shape."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -417,11 +504,12 @@ def flash_case(dtype, seed: int):
             rand(FB, FS, FHKV, FD), rand(FB, FS, FH, FD))
 
 
-def flash_bounds(q, k, causal: bool) -> dict:
+def flash_bounds(q, k, causal: bool, kernels=FLASH_KERNELS) -> dict:
     """{kernel: (bound_ms, bound_by, bytes, ops)}: every input read once
     and every output written once, against 4 (fwd), 6 (dq) or 8 (dk/dv)
     * D operations per visible (query head, key) pair at the operand
-    type's peak."""
+    type's peak. q (B, S, H, D), k (B, T, Hkv, D); `kernels` names the
+    (fwd, dq, dkv) triple (K4's head-major tensors pass as H = 1)."""
     B, S, Hq, Dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     isz = q.element_size()
@@ -429,15 +517,14 @@ def flash_bounds(q, k, causal: bool) -> dict:
     pairs = B * Hq * int((np.minimum(rows + 1, T) if causal
                           else np.full(S, T)).sum())
     qb, kvb, rowb = q.numel() * isz, k.numel() * isz, B * Hq * S * 4
+    fwd, dq, dkv = (kk.name for kk in kernels)
     work = {
         # q, k, v in; out, lse out
-        FLASH_ATTENTION_FWD.name: (qb + 2 * kvb + qb + rowb, 4 * Dh * pairs),
+        fwd: (qb + 2 * kvb + qb + rowb, 4 * Dh * pairs),
         # q, k, v, dO, lse, delta in; dq out
-        FLASH_ATTENTION_DQ.name: (qb + 2 * kvb + qb + 2 * rowb + qb,
-                                  6 * Dh * pairs),
+        dq: (qb + 2 * kvb + qb + 2 * rowb + qb, 6 * Dh * pairs),
         # q, k, v, dO, lse, delta in; dk, dv out
-        FLASH_ATTENTION_DKV.name: (qb + 2 * kvb + qb + 2 * rowb + 2 * kvb,
-                                   8 * Dh * pairs),
+        dkv: (qb + 2 * kvb + qb + 2 * rowb + 2 * kvb, 8 * Dh * pairs),
     }
     out = {}
     for name, (nbytes, ops) in work.items():
@@ -511,18 +598,13 @@ def phase_flash_kernels(card: str) -> dict:
         for name, (kernel, plain, pairs, tol) in calls.items():
             kernel()
             torch.cuda.synchronize()
-            errs, ok = [], True
-            for got, want in pairs:
-                err = float((got.float() - want.float()).abs().max())
-                limit = tol * max(1.0, float(want.float().abs().max()))
-                errs.append(err)
-                ok = ok and err <= limit
+            err, ok = _err_ok(pairs, tol)
             bound_ms, bound_by, nbytes, ops = bounds[name]
             res = {
                 "case": "bench_1b_causal", "kernel": name,
                 "dtype": str(dtype).replace("torch.", ""),
                 "shape": [FB, FS, FH, FHKV, FD],
-                "max_abs_err": max(errs), "tol": tol,
+                "max_abs_err": err, "tol": tol,
                 "ms": time_ms(kernel), "plain_ms": time_ms(plain),
                 "library_ms": lib_ms[name], "bound_ms": bound_ms,
                 "bound_by": bound_by, "bytes": nbytes, "ops": ops,
@@ -531,12 +613,182 @@ def phase_flash_kernels(card: str) -> dict:
             log(f"kernel {json.dumps(res)}")
             if not ok:
                 raise AssertionError(
-                    f"{name} {dtype}: max |err| {errs} over tol {tol} x "
+                    f"{name} {dtype}: max |err| {err} over tol {tol} x "
                     "max(1, max |plain|)")
             per[name] = res
         results[res["dtype"]] = per
     torch.cuda.empty_cache()
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the head-major flash kernels K4 against their plain versions
+
+
+def k4_check(BH, S, T, D, causal, dtype, seed, timed=False):
+    """K4's three kernels on seeded (BH, S, D) q / dO and (BH, T, D) k, v
+    against their plain versions: the forward's out and lse, then dq and
+    dk/dv fed the plain forward's lse and a shifted one (the ring
+    backward's contract: the final lse, not the block's own). With
+    `timed`, kernel / plain / SDPA times and the bound at this shape.
+    Returns {kernel name: result}."""
+    scale = 1.0 / D ** 0.5
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=DEVICE).to(dtype)
+
+    q, k, v, do = rand(BH, S, D), rand(BH, T, D), rand(BH, T, D), \
+        rand(BH, S, D)
+    fwd_tol, grad_tol = FLASH_TOLS[dtype]
+    out = torch.empty_like(q)
+    lse = torch.empty(BH, S, device=DEVICE)
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    want_out, want_lse = flash_bh_reference(q, k, v, causal, scale)
+    delta = flash_bh_delta(do, want_out)
+    shifted = want_lse + torch.rand(BH, S, generator=g, device=DEVICE)
+    fwd = lambda: launch_flash_attention_bh_fwd(  # noqa: E731
+        q, k, v, out, lse, causal, scale)
+    fwd()
+    torch.cuda.synchronize()
+    errs = {FLASH_ATTENTION_BH_FWD.name: _err_ok(
+        [(out, want_out), (lse, want_lse)], fwd_tol)}
+    bwd_err = {FLASH_ATTENTION_BH_DQ.name: [], FLASH_ATTENTION_BH_DKV.name: []}
+    for given in (want_lse, shifted):
+        args = (q, k, v, do, given, delta)
+        launch_flash_attention_bh_dq(*args, dq, causal, scale)
+        launch_flash_attention_bh_dkv(*args, dk, dv, causal, scale)
+        torch.cuda.synchronize()
+        want_dk, want_dv = flash_bh_dkv_reference(*args, causal, scale)
+        bwd_err[FLASH_ATTENTION_BH_DQ.name].append(_err_ok(
+            [(dq, flash_bh_dq_reference(*args, causal, scale))], grad_tol))
+        bwd_err[FLASH_ATTENTION_BH_DKV.name].append(_err_ok(
+            [(dk, want_dk), (dv, want_dv)], grad_tol))
+        del want_dk, want_dv
+    for name, pair in bwd_err.items():
+        errs[name] = (max(e for e, _ in pair), all(o for _, o in pair))
+    res = {}
+    for kernel in K4_KERNELS:
+        err, ok = errs[kernel.name]
+        res[kernel.name] = {
+            "kernel": kernel.name, "dtype": str(dtype).replace("torch.", ""),
+            "shape": [BH, S, T, D], "causal": causal, "max_abs_err": err,
+            "tol": fwd_tol if kernel is FLASH_ATTENTION_BH_FWD else grad_tol,
+            "ok": ok}
+    if timed:
+        bwd_args = (q, k, v, do, want_lse, delta)
+        calls = {
+            FLASH_ATTENTION_BH_FWD.name: (
+                fwd, lambda: flash_bh_reference(q, k, v, causal, scale)),
+            FLASH_ATTENTION_BH_DQ.name: (
+                lambda: launch_flash_attention_bh_dq(*bwd_args, dq, causal,
+                                                     scale),
+                lambda: flash_bh_dq_reference(*bwd_args, causal, scale)),
+            FLASH_ATTENTION_BH_DKV.name: (
+                lambda: launch_flash_attention_bh_dkv(*bwd_args, dk, dv,
+                                                      causal, scale),
+                lambda: flash_bh_dkv_reference(*bwd_args, causal, scale)),
+        }
+        bounds = flash_bounds(q[:, :, None], k[:, :, None], causal,
+                              K4_KERNELS)
+        lib_fwd, lib_bwd = sdpa_bh_calls(q, k, v, do, scale, causal)
+        lib_ms = {FLASH_ATTENTION_BH_FWD.name: time_ms(lib_fwd)}
+        lib_ms[FLASH_ATTENTION_BH_DQ.name] = \
+            lib_ms[FLASH_ATTENTION_BH_DKV.name] = time_ms(lib_bwd)
+        for name, (kernel, plain) in calls.items():
+            bound_ms, bound_by, nbytes, ops = bounds[name]
+            res[name].update({
+                "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+                "library_ms": lib_ms[name], "bound_ms": bound_ms,
+                "bound_by": bound_by, "bytes": nbytes, "ops": ops})
+    return res
+
+
+def sdpa_bh_calls(q, k, v, do, scale, causal):
+    """The yardsticks for K4 (timed only; the port never calls them):
+    F.scaled_dot_product_attention's forward on the same head-major
+    tensors viewed as (BH, 1, S, D), and one autograd call of its
+    backward (dq, dk and dv together)."""
+    qh, kh, vh = (t[:, None].detach().requires_grad_() for t in (q, k, v))
+    doh = do[:, None]
+
+    def fwd():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
+                                              scale=scale)
+
+    out = fwd()
+    return fwd, lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                            retain_graph=True)
+
+
+def k1_vs_k4_d64() -> dict:
+    """The cost of the reference's head-major route at D 64 on K4's main
+    shape (B 8, S 1024, H 25, bf16, causal): K1/K2 launched directly on
+    the projection layout (their D 64 instantiation, which the lowering
+    no longer reaches) beside the whole routes, forward and forward +
+    backward: flash_attention (transposes to and from (B*H, S, D) around
+    K4) and FlashAttentionFunction (K1/K2)."""
+    scale = 1.0 / KD ** 0.5
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    q, k, v, do = (torch.randn(KB, KS, KH, KD, generator=g, device=DEVICE)
+                   .bfloat16() for _ in range(4))
+    out = torch.empty_like(q)
+    lse = torch.empty(KB, KH, KS, device=DEVICE)
+    launch_flash_attention_fwd(q, k, v, out, lse, True, scale)
+    delta = flash_delta(do, out)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    res = {
+        "shape": [KB, KS, KH, KD], "dtype": "bfloat16",
+        "k1_fwd_ms": time_ms(lambda: launch_flash_attention_fwd(
+            q, k, v, out, lse, True, scale)),
+        "k2_dq_ms": time_ms(lambda: launch_flash_attention_dq(
+            q, k, v, do, lse, delta, dq, True, scale)),
+        "k2_dkv_ms": time_ms(lambda: launch_flash_attention_dkv(
+            q, k, v, do, lse, delta, dk, dv, True, scale)),
+    }
+    routes = {
+        "k4_route": lambda *t: flash_attention(*t, causal=True, scale=scale),
+        "k1_route": lambda *t: FlashAttentionFunction.apply(*t, True, scale),
+    }
+    for name, route in routes.items():
+        with torch.no_grad():
+            res[f"{name}_fwd_ms"] = time_ms(lambda: route(q, k, v))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        res[f"{name}_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            route(*leaves), leaves, do))
+    return res
+
+
+def phase_k4_kernels(card: str) -> dict:
+    """K4 at its main shape (bf16 and fp32, timed), then at every case of
+    K4_CASES in both dtypes (errors only), then the K1-vs-K4 record.
+    Fails on any error over its tolerance. Returns {"main": {dtype name:
+    {kernel: result}}, "cases": [...], "k1_vs_k4_d64": {...}}."""
+    main, cases = {}, []
+    for seed, dtype in enumerate((torch.bfloat16, torch.float32)):
+        res = k4_check(KB * KH, KS, KS, KD, True, dtype, seed, timed=True)
+        for r in res.values():
+            r.update(case="gpt2_xl_causal", card=card)
+            log(f"kernel {json.dumps(r)}")
+        main[str(dtype).replace("torch.", "")] = res
+        torch.cuda.empty_cache()
+    for i, (name, BH, S, T, D, causal) in enumerate(K4_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            for r in k4_check(BH, S, T, D, causal, dtype, 100 + i).values():
+                r["case"] = name
+                log(f"kernel {json.dumps(r)}")
+                cases.append(r)
+    bad = [r for d in main.values() for r in d.values() if not r["ok"]]
+    bad += [r for r in cases if not r["ok"]]
+    if bad:
+        raise AssertionError(f"K4 kernels disagree with their plain "
+                             f"versions: {bad}")
+    cmp = k1_vs_k4_d64()
+    cmp["card"] = card
+    log(f"k1_vs_k4_d64 {json.dumps(cmp)}")
+    torch.cuda.empty_cache()
+    return {"main": main, "cases": cases, "k1_vs_k4_d64": cmp}
 
 
 # ---------------------------------------------------------------------------
@@ -561,6 +813,53 @@ def _step_inputs(device, vocab):
             for pos, qls in steps]
 
 
+def _ragged_steps(make, vocab, kv_dtypes):
+    """Run _step_inputs' two packed ragged steps on a model built by
+    make(device, params) on the card and, from the card's seeded weights
+    copied over, on the CPU, for each pool dtype (None: the model's).
+    Returns ({kv dtype: (probs, pools)} of the card, the same of the
+    CPU)."""
+
+    def run(ff, kv_dtype):
+        ex = ff.executor
+        caches = ex.init_paged_kv_cache(16, P, dtype=kv_dtype)
+        tr, ntr = ff._params
+        out = []
+        for tables, pos, qls, deps, anc, ids in _step_inputs(ex.device,
+                                                             vocab):
+            p, caches = ex.ragged_step_fn(tr, ntr, caches, tables, pos,
+                                          qls, deps, anc, ids)
+            out.append(p.float().cpu())
+        return torch.stack(out), {k: {n: t.cpu() for n, t in b.items()}
+                                  for k, b in caches.items()}
+
+    card_ff = make(DEVICE)
+    gpu = {dt: run(card_ff, dt) for dt in kv_dtypes}
+    # the card's seeded weights, copied to the CPU
+    cpu_ff = make("cpu", params=card_ff._params)
+    del card_ff
+    torch.cuda.empty_cache()
+    cpu = {dt: run(cpu_ff, dt) for dt in kv_dtypes}
+    return gpu, cpu
+
+
+def _fp_step_check(label, g, c) -> dict:
+    """The fp pool's probabilities, card against CPU, to STEP_RTOL/ATOL;
+    raises on a difference."""
+    ok = torch.allclose(g, c, rtol=STEP_RTOL, atol=STEP_ATOL)
+    res = {"model": label, "shape": list(g.shape),
+           "max_abs_err": float((g - c).abs().max()),
+           # relative error where a probability is above 1e-6
+           "max_rel_err": float(((g - c).abs() / c.abs())[
+               c > 1e-6].max()),
+           "rtol": STEP_RTOL, "atol": STEP_ATOL,
+           "finite": bool(torch.isfinite(g).all())}
+    log(f"step {json.dumps(res)}")
+    if not ok or not res["finite"]:
+        raise AssertionError(f"card step disagrees with CPU step: {res}")
+    return res
+
+
 def phase_step(seed: int) -> dict:
     """Two packed ragged steps at Llama-3-8B widths, depth 2, fp32 with
     TF32 off, card against CPU on the same seeded weights: on an fp pool
@@ -577,38 +876,8 @@ def phase_step(seed: int) -> dict:
         build_llama(ff, cfg, batch_size=1, seq_len=8, dtype=DataType.FLOAT)
         return ff.compile(params=params)
 
-    def run(ff, kv_dtype):
-        ex = ff.executor
-        caches = ex.init_paged_kv_cache(16, P, dtype=kv_dtype)
-        tr, ntr = ff._params
-        out = []
-        for tables, pos, qls, deps, anc, ids in _step_inputs(
-                ex.device, cfg.vocab_size):
-            p, caches = ex.ragged_step_fn(tr, ntr, caches, tables, pos,
-                                          qls, deps, anc, ids)
-            out.append(p.float().cpu())
-        return torch.stack(out), {k: {n: t.cpu() for n, t in b.items()}
-                                  for k, b in caches.items()}
-
-    card_ff = make(DEVICE)
-    gpu = {dt: run(card_ff, dt) for dt in (None, torch.int8)}
-    # the card's seeded weights, copied to the CPU
-    cpu_ff = make("cpu", params=card_ff._params)
-    del card_ff
-    torch.cuda.empty_cache()
-    cpu = {dt: run(cpu_ff, dt) for dt in (None, torch.int8)}
-    del cpu_ff
-
-    (g, _), (c, _) = gpu[None], cpu[None]
-    ok = torch.allclose(g, c, rtol=STEP_RTOL, atol=STEP_ATOL)
-    res = {"shape": list(g.shape),
-           "max_abs_err": float((g - c).abs().max()),
-           # relative error where a probability is above 1e-6
-           "max_rel_err": float(((g - c).abs() / c.abs())[
-               c > 1e-6].max()),
-           "rtol": STEP_RTOL, "atol": STEP_ATOL,
-           "finite": bool(torch.isfinite(g).all())}
-    log(f"step {json.dumps(res)}")
+    gpu, cpu = _ragged_steps(make, cfg.vocab_size, (None, torch.int8))
+    res = _fp_step_check("llama3_8b_depth2", gpu[None][0], cpu[None][0])
 
     (g8, gp), (c8, cp) = gpu[torch.int8], cpu[torch.int8]
     byte_diff = [(gp[k][n].int() - cp[k][n].int()).abs()
@@ -632,8 +901,6 @@ def phase_step(seed: int) -> dict:
             "scale_rtol": INT8_STEP_SCALE_RTOL,
             "finite": bool(torch.isfinite(g8).all())}
     log(f"step_int8 {json.dumps(res8)}")
-    if not ok or not res["finite"]:
-        raise AssertionError(f"card step disagrees with CPU step: {res}")
     if not (res8["finite"] and res8["max_abs_err"] <= INT8_STEP_PROB_ATOL
             and res8["max_byte_diff"] <= 1
             and n_off <= INT8_STEP_BYTE_FRACTION * n_bytes
@@ -643,13 +910,34 @@ def phase_step(seed: int) -> dict:
     return res
 
 
+def phase_gpt2_step(seed: int) -> dict:
+    """The same two packed ragged steps at GPT-2 XL widths, depth 2, fp32
+    with TF32 off, over an fp pool, card against CPU: learned positions
+    at the ragged rows, LayerNorm, biased attention through the ragged
+    kernel."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(gpt2_xl(), layers=2)
+
+    def make(device, params=None):
+        ff = FFModel(FFConfig(batch_size=1, seed=seed, device=device))
+        build_gpt2(ff, cfg, batch_size=1, seq_len=GPT2_POSITIONS,
+                   dtype=DataType.FLOAT)
+        return ff.compile(params=params)
+
+    gpu, cpu = _ragged_steps(make, cfg.vocab_size, (None,))
+    return _fp_step_check("gpt2_xl_depth2", gpu[None][0], cpu[None][0])
+
+
 def _train_model(cfg, device, *, batch, seq, dtype, remat, seed,
                  params=None) -> FFModel:
-    """build_llama -> compile(Adam lr 1e-4, sparse CE, accuracy and
-    sparse-CE metrics), the training path's entry points."""
+    """build_llama or build_gpt2 (by the config's type) -> compile(Adam
+    lr 1e-4, sparse CE, accuracy and sparse-CE metrics), the training
+    path's entry points."""
     ff = FFModel(FFConfig(batch_size=batch, seed=seed, device=device,
                           remat=remat))
-    build_llama(ff, cfg, batch_size=batch, seq_len=seq, dtype=dtype)
+    build_model = build_gpt2 if isinstance(cfg, GPT2Config) else build_llama
+    build_model(ff, cfg, batch_size=batch, seq_len=seq, dtype=dtype)
     return ff.compile(
         optimizer=AdamOptimizer(lr=TRAIN_LR),
         loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
@@ -665,14 +953,14 @@ def _token_batches(n: int, seq: int, vocab: int, seed: int):
     return x, np.roll(x, -1, axis=1).astype(np.int32)
 
 
-def phase_train_step(seed: int) -> dict:
-    """One Adam train step at bench_1b widths, depth 2, fp32 (TF32 off),
-    batch 1, seq 256: the card against the CPU from the same seeded
-    weights, the loss and every parameter after the step."""
+def phase_train_step(seed: int, cfg=None, label="bench_1b") -> dict:
+    """One Adam train step at `cfg`'s widths (bench_1b by default), depth
+    2, fp32 (TF32 off), batch 1, seq 256: the card against the CPU from
+    the same seeded weights, the loss and every parameter after the
+    step."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = LlamaConfig.bench_1b()
-    cfg.layers = 2
+    cfg = dataclasses.replace(cfg or LlamaConfig.bench_1b(), layers=2)
     kw = dict(batch=1, seq=256, dtype=DataType.FLOAT, remat="none",
               seed=seed)
     card_ff = _train_model(cfg, DEVICE, **kw)
@@ -695,7 +983,7 @@ def phase_train_step(seed: int) -> dict:
     outside = sum(int((d > TRAIN_PARAM_TOL * (1 + cp[n].abs())).sum())
                   for n, d in diffs.items())
     total = sum(d.numel() for d in diffs.values())
-    res = {"model": "bench_1b", "layers": 2, "loss_card": gl,
+    res = {"model": label, "layers": 2, "loss_card": gl,
            "loss_cpu": cl, "loss_rel_err": abs(gl - cl) / abs(cl),
            "max_param_abs_err": float(diffs[worst].max()),
            "worst_param": worst, "weights": total,
@@ -1148,13 +1436,15 @@ def phase_train(seed: int, card: str) -> dict:
     return res
 
 
-def phase_profile_train(seed: int, card: str) -> dict:
-    """One bench_1b train step (bf16, batch 8, seq 1024, remat none),
-    timed by the host clock around synchronised steps and traced with
-    torch.profiler: device-busy time, idle share, kernels by time."""
+def phase_profile_train(seed: int, card: str, cfg=None,
+                        label: str = "bench_1b") -> dict:
+    """One train step of `cfg` (bench_1b by default; bf16, batch 8, seq
+    1024, remat none), timed by the host clock around synchronised steps
+    and traced with torch.profiler: device-busy time, idle share, kernels
+    by time."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = LlamaConfig.bench_1b()
+    cfg = cfg or LlamaConfig.bench_1b()
     ff = _train_model(cfg, DEVICE, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                       dtype=DataType.BFLOAT16, remat="none", seed=seed)
     ex = ff.executor
@@ -1181,8 +1471,182 @@ def phase_profile_train(seed: int, card: str) -> dict:
         torch.cuda.synchronize()
     res = _profile_summary(prof, n, wall_ms)
     res["card"] = card
-    log(f"profile train_step {json.dumps(res)}")
+    log(f"profile train_step_{label} {json.dumps(res)}")
     del ff, ex, state
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 8 and 9: GPT-2 XL, trained and served
+
+
+def gpt2_flops_per_token(cfg, seq: int) -> float:
+    """Matmul FLOPs per trained token, forward and backward, as
+    llama_flops_per_token counts them: 6 x the matmul weights (q, k, v, o,
+    fc, proj per layer; lm_head) + causal attention at half density."""
+    per_layer = 4 * cfg.dim * cfg.dim + 2 * cfg.dim * cfg.intermediate
+    n_matmul = cfg.layers * per_layer + cfg.dim * cfg.vocab_size
+    return 6.0 * n_matmul + 6.0 * cfg.layers * seq * cfg.dim
+
+
+def _k4_launches() -> dict:
+    return {k.name: k.launches for k in K4_KERNELS}
+
+
+def phase_gpt2_train(seed: int, card: str) -> dict:
+    """GPT-2 XL, bf16, batch 8, seq 1024, remat none: one ff.fit epoch of
+    10 seeded batches (the main path; counts reset just before, read just
+    after), then 10 timed train steps on one repeated batch. Each K4
+    kernel must launch once per layer and step, K1/K2 and the ragged
+    kernels never."""
+    cfg = gpt2_xl()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ff = _train_model(cfg, DEVICE, batch=TRAIN_BATCH, seq=GPT2_POSITIONS,
+                      dtype=DataType.BFLOAT16, remat="none", seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    x, y = _token_batches(TRAIN_BATCH * GPT2_BATCHES, GPT2_POSITIONS,
+                          cfg.vocab_size, seed)
+    _reset_launches()
+    t0 = time.monotonic()
+    pm = ff.fit(x, y, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    fit_launches = {k.name: k.launches for k in KERNELS}
+    want = cfg.layers * GPT2_BATCHES
+    if any(fit_launches[k.name] != want for k in K4_KERNELS) \
+            or any(fit_launches[k.name] != 0 for k in KERNELS
+                   if k not in K4_KERNELS):
+        raise AssertionError(f"fit launches {fit_launches}: want {want} "
+                             "of each K4 kernel and no other")
+    fit_loss = pm.sparse_cce_loss / pm.train_all
+    if pm.train_all != TRAIN_BATCH * GPT2_BATCHES \
+            or not np.isfinite(fit_loss):
+        raise AssertionError(f"fit: {pm}")
+
+    ex = ff.executor
+    tr, ntr = ff._params
+    opt = ff._opt_state
+    bx, by = (torch.from_numpy(a[:TRAIN_BATCH]).to(DEVICE) for a in (x, y))
+    torch.cuda.synchronize()
+    _reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    losses = [float(v) for v in losses]
+    timed_launches = _k4_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN_BATCH * GPT2_POSITIONS
+    flops = gpt2_flops_per_token(cfg, GPT2_POSITIONS) * tokens
+    res = {
+        "model": "gpt2_xl", "layers": cfg.layers, "dim": cfg.dim,
+        "heads": cfg.heads, "dtype": "bfloat16", "batch": TRAIN_BATCH,
+        "seq": GPT2_POSITIONS, "remat": "none",
+        "params": sum(t.numel() for w in tr.values() for t in w.values()),
+        "init_s": init_s, "fit_s": fit_s, "fit_steps": GPT2_BATCHES,
+        "fit_loss": fit_loss, "fit_launches": fit_launches,
+        "timed_steps": TIMED_STEPS, "losses": losses,
+        "timed_launches": timed_launches, "step_ms": step_s * 1e3,
+        "tokens_per_s": tokens / step_s, "flops_per_step": flops,
+        "mfu": flops / step_s / PEAK_OPS[torch.bfloat16],
+        "peak_mem_gb": peak_gb, "card": card,
+    }
+    log(f"train_gpt2 {json.dumps(res)}")
+    del ff, ex, tr, ntr, opt, m
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"GPT-2 loss on a repeated batch did not "
+                             f"fall: {losses}")
+    if any(n != cfg.layers * TIMED_STEPS for n in timed_launches.values()):
+        raise AssertionError(f"timed launches {timed_launches}")
+    return res
+
+
+def gpt2_traffic(vocab: int, seed: int):
+    """GPT2_PROMPTS seeded prompts of GPT2_PROMPT_MIN..GPT2_PROMPT_MAX
+    tokens."""
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(GPT2_PROMPT_MIN, GPT2_PROMPT_MAX + 1,
+                      size=GPT2_PROMPTS)
+    return [rs.randint(0, vocab, (n,)).astype(np.int32) for n in lens]
+
+
+def phase_gpt2_serve(seed: int, card: str) -> dict:
+    """GPT-2 XL, 48 layers, bf16, random weights from the seed, through
+    serve_generation(paged=True) at its defaults (4 slots, page 64, a
+    pool for every slot's longest sequence) with max_len 1024, the
+    position table's rows: gpt2_traffic's 8 requests at once, 64 new
+    tokens each, greedy. The ragged kernel must launch once per layer
+    and ragged step (counts reset just before, read just after); max_len
+    1025 must be refused."""
+    cfg = gpt2_xl()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ff = FFModel(FFConfig(batch_size=1, seed=seed, device=DEVICE))
+    build_gpt2(ff, cfg, batch_size=1, seq_len=GPT2_POSITIONS,
+               dtype=DataType.BFLOAT16)
+    ff.compile()
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    try:
+        ff.serve_generation(paged=True, max_len=GPT2_POSITIONS + 1)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("max_len past the position table was served")
+    server = ff.serve_generation(paged=True, slots=4,
+                                 max_len=GPT2_POSITIONS, page_size=64,
+                                 seed=seed)
+    prompts = gpt2_traffic(cfg.vocab_size, seed)
+    try:
+        # warm cuBLAS and the allocator off the clock
+        server.generate(prompts[0][:16], max_new_tokens=2, timeout=600)
+        steps0, served0 = server.ragged_steps, server.requests_served
+        _reset_launches()
+        t1 = time.monotonic()
+        futs = [server.submit(p, max_new_tokens=GPT2_NEW)
+                for p in prompts]
+        outs = [f.result(timeout=900) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t1
+        launches = {k.name: k.launches for k in KERNELS}
+        steps = server.ragged_steps - steps0
+        recs = server.metrics()["requests"][served0:]
+        num_pages = server.pool.num_pages
+    finally:
+        server.stop()
+    server.pool.check_invariants(owners={})
+    for o in outs:
+        if len(o) != GPT2_NEW \
+                or not ((0 <= o) & (o < cfg.vocab_size)).all():
+            raise AssertionError(f"bad output {o}")
+    if launches[RAGGED_PAGED_ATTENTION.name] != cfg.layers * steps \
+            or steps == 0 or any(launches[k.name] for k in K4_KERNELS):
+        raise AssertionError(f"launches {launches} != {cfg.layers} x "
+                             f"{steps} ragged, 0 K4")
+    ttft = sorted(r["ttft_s"] for r in recs)
+    decode_rates = [(r["decode_tokens"] - 1) / r["decode_s"] for r in recs]
+    res = {
+        "model": "gpt2_xl", "layers": cfg.layers, "dtype": "bfloat16",
+        "max_len": GPT2_POSITIONS, "num_pages": num_pages,
+        "requests": len(outs), "prompt_lens": [len(p) for p in prompts],
+        "new_tokens": GPT2_NEW, "ragged_steps": steps,
+        "launches": launches, "wall_s": wall,
+        "generated_tokens_per_s": GPT2_NEW * len(outs) / wall,
+        "decode_tokens_per_s_per_request_mean": float(np.mean(decode_rates)),
+        "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+        "init_s": init_s, "max_len_1025_refused": refused,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": card,
+    }
+    log(f"serve_gpt2 {json.dumps(res)}")
+    del ff
     torch.cuda.empty_cache()
     return res
 
@@ -1206,9 +1670,10 @@ def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9",
                     help="comma-separated phases to run (default "
-                    "1,2,3,4,6,7; 5 profiles serving and training steps)")
+                    "1,2,3,4,6,7,8,9; 5 profiles serving and training "
+                    "steps)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -1228,15 +1693,22 @@ def main(argv=None) -> int:
     kern = phase_kernels(card) if 2 in phases else []
     kern8 = phase_int8_kernels(card) if 2 in phases else []
     flash = phase_flash_kernels(card) if 2 in phases else {}
+    k4 = phase_k4_kernels(card) if 2 in phases else {}
     if 3 in phases:
         phase_step(args.seed)
+        phase_gpt2_step(args.seed)
         phase_train_step(args.seed)
+        phase_train_step(args.seed, gpt2_xl(), "gpt2_xl")
     serve = phase_serve(args.seed, card) if 4 in phases else None
     train = phase_train(args.seed, card) if 6 in phases else None
     serve8 = phase_serve_int8(args.seed, card) if 7 in phases else None
+    train_gpt2 = phase_gpt2_train(args.seed, card) if 8 in phases else None
+    if 9 in phases:
+        phase_gpt2_serve(args.seed, card)
     if 5 in phases:
         phase_profile(args.seed, card)
         phase_profile_train(args.seed, card)
+        phase_profile_train(args.seed, card, gpt2_xl(), "gpt2_xl")
     main_case = next((r for r in kern if r["case"] == ATTENTION_CASES[0][0]
                       and r["dtype"] == "bfloat16"), None)
     entries = [_kernel_entry(
@@ -1258,6 +1730,13 @@ def main(argv=None) -> int:
             k, f"flexflow_tpu_torch/csrc/{src}",
             train["fit_launches"][k.name] if train else 0,
             flash.get("bfloat16", {}).get(k.name)))
+    for k, src in ((FLASH_ATTENTION_BH_FWD, "flash_attention_bh_fwd.cu"),
+                   (FLASH_ATTENTION_BH_DQ, "flash_attention_bh_bwd.cu"),
+                   (FLASH_ATTENTION_BH_DKV, "flash_attention_bh_bwd.cu")):
+        entries.append(_kernel_entry(
+            k, f"flexflow_tpu_torch/csrc/{src}",
+            train_gpt2["fit_launches"][k.name] if train_gpt2 else 0,
+            k4.get("main", {}).get("bfloat16", {}).get(k.name)))
     log(f"total {json.dumps({'seconds': time.monotonic() - t_start})}")
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -4,9 +4,12 @@ A second package beside the JAX one, with the same module names: the
 FFModel builder and PCG, the op lowerings, single-device training (loss,
 metrics, SGD and Adam) and paged continuous-batching serving, running
 eagerly on an NVIDIA GPU (or, when asked, the CPU). Its hand-written
-kernels are the ragged paged attention (csrc/ragged_paged_attention.cu)
-and the flash-attention forward and backward
-(csrc/flash_attention_fwd.cu, csrc/flash_attention_bwd.cu). It imports
+kernels are the ragged paged attention (csrc/ragged_paged_attention.cu),
+the flat-layout flash-attention forward and backward
+(csrc/flash_attention_fwd.cu, csrc/flash_attention_bwd.cu) for head dims
+that are multiples of 128, and the head-major ones for every other head
+dim (csrc/flash_attention_bh_fwd.cu, csrc/flash_attention_bh_bwd.cu).
+Models: Llama (models/llama.py) and GPT-2 (models/gpt2.py). It imports
 torch, never jax, and nothing of flexflow_tpu.
 """
 

@@ -1,0 +1,228 @@
+// Head-major flash-attention forward (kernel K4) for Hopper (sm_90a),
+// written by hand.
+//
+// Replaces flexflow_tpu/ops/pallas/flash_attention.py::_fwd (body
+// _fwd_kernel, tile math _online_block): blockwise attention with an
+// online softmax over head-major (BH, S, D) q and (BH, T, D) k/v, kv heads
+// already repeated to the q heads by the caller. The reference reaches it
+// for every head dim that is not a multiple of 128 (GPT-2, BERT: D 64).
+//
+// Contract (the TPU kernel's): scores are fp32 dots times `scale`; under
+// `causal` key kpos is visible to query qpos when qpos >= kpos (top-left
+// alignment) and a masked score is -1e30. (m, l, acc) stay in fp32;
+// probabilities are rounded to v's dtype before the P.V product;
+// out = acc / max(l, 1e-30) in q's dtype, and lse = m + log(max(l, 1e-30)),
+// fp32 (BH, S). (The TPU pads D to 128 lanes and broadcasts lse over 128
+// lanes; both are its tiling, not part of the contract.)
+//
+// Design: one block per (64-row query tile, bh), a loop over 64-row K/V
+// tiles that stops at the causal diagonal. D is any width up to 256: the
+// kernel is instantiated for a few padded widths DP (flash_bh_common.cuh),
+// loads the D real columns of each (contiguous) tile and zeroes the
+// columns D..DP-1 in shared memory, so no padded copy reaches device
+// memory. Rows past S and keys past T are masked here.
+//
+// What bounds it on the card: operations. At GPT-2 XL training (B 8,
+// S = T 1024, H 25, D 64, causal) it does 4 * D ops per visible pair, about
+// 0.031 ms at the bf16 tensor-core peak, against ~0.05 GB of q, k, v, out
+// and lse (~0.016 ms at 3.35 TB/s). This first version runs the dots on
+// CUDA cores from fp32 shared-memory tiles (register tiles of
+// (BQ / 16) x (BK / 16) scores per thread); wgmma and TMA are a later
+// change.
+
+#include "flash_bh_common.cuh"
+
+namespace {
+
+using namespace ffflash;
+
+template <typename T, int DP, int BT>
+__global__ void __launch_bounds__(kThreads)
+flash_bh_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ out,
+                    float* __restrict__ lse, int S, int Tk, int D,
+                    int causal, float scale) {
+  constexpr int LD = DP + 1;   // padded row stride of DP-wide tiles
+  constexpr int LP = BT + 1;   // padded row stride of the score tile
+  constexpr int RI = BT / 16;  // query rows per thread
+  constexpr int CJ = BT / 16;  // score columns per thread
+  constexpr int JD = DP / 16;  // output columns per thread
+  extern __shared__ float smem[];
+  float* sQ = smem;            // (BT, LD)
+  float* sK = sQ + BT * LD;    // (BT, LD)
+  float* sV = sK + BT * LD;    // (BT, LD)
+  float* sP = sV + BT * LD;    // (BT, LP) probabilities
+
+  const int q0 = blockIdx.x * BT;
+  const size_t bh = blockIdx.y;
+  const T* qb = q + bh * S * D;
+  const T* kb = k + bh * Tk * D;
+  const T* vb = v + bh * Tk * D;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+
+  load_tile<T, DP>(sQ, LD, qb, S, D, q0, BT);
+  float m[RI], l[RI], acc[RI][JD];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int jd = 0; jd < JD; ++jd) acc[i][jd] = 0.f;
+  }
+
+  // tiles wholly past the diagonal are never visited (the reference's
+  // _live)
+  const int kend = causal ? min(Tk, q0 + BT) : Tk;
+  for (int k0 = 0; k0 < kend; k0 += BT) {
+    __syncthreads();  // the previous tile's P.V is done with sV and sP
+    load_tile<T, DP>(sK, LD, kb, Tk, D, k0, BT);
+    load_tile<T, DP>(sV, LD, vb, Tk, D, k0, BT);
+    __syncthreads();
+
+    float s[RI][CJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < DP; ++d) {
+      float a[RI], c[CJ];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) a[i] = sQ[(ty * RI + i) * LD + d];
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) c[j] = sK[(tx + 16 * j) * LD + d];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+    }
+
+    // online softmax: fold this tile into (m, l, acc), row by row
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int qpos = q0 + ty * RI + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        float x = s[i][j] * scale;
+        if (causal && kpos > qpos) x = kNegInf;
+        s[i][j] = x;
+        if (kpos < Tk) mx = fmaxf(mx, x);
+      }
+      mx = row_max16(mx);
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        const float p = kpos < Tk ? expf(s[i][j] - m_new) : 0.f;
+        sum += p;
+        // rounded to v's dtype before P.V, as the TPU kernel
+        sP[(ty * RI + i) * LP + tx + 16 * j] = round_to<T>(p);
+      }
+      sum = row_sum16(sum);
+      l[i] = l[i] * corr + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int jd = 0; jd < JD; ++jd) acc[i][jd] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < BT; ++c) {
+      float vv[JD];
+#pragma unroll
+      for (int jd = 0; jd < JD; ++jd) vv[jd] = sV[c * LD + tx + 16 * jd];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const float p = sP[(ty * RI + i) * LP + c];
+#pragma unroll
+        for (int jd = 0; jd < JD; ++jd)
+          acc[i][jd] = fmaf(p, vv[jd], acc[i][jd]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int qpos = q0 + ty * RI + i;
+    if (qpos >= S) continue;
+    const float l_safe = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int jd = 0; jd < JD; ++jd) {
+      const int col = tx + 16 * jd;
+      if (col < D)
+        out[(bh * S + qpos) * D + col] = from_f<T>(acc[i][jd] / l_safe);
+    }
+    if (tx == 0) lse[bh * S + qpos] = m[i] + logf(l_safe);
+  }
+}
+
+template <int DP>
+constexpr size_t fwd_smem(int bt) {
+  return ((size_t)3 * bt * (DP + 1) + (size_t)bt * (bt + 1)) * sizeof(float);
+}
+
+template <typename T, int DP>
+int launch(const void* q, const void* k, const void* v, void* out,
+           void* lse, int BH, int S, int Tk, int D, int causal, float scale,
+           cudaStream_t stream) {
+  constexpr int BT = fwd_smem<DP>(64) <= kMaxSmemBytes ? 64 : 32;
+  constexpr size_t smem = fwd_smem<DP>(BT);
+  static_assert(smem <= kMaxSmemBytes, "tile does not fit shared memory");
+  auto kernel = flash_bh_fwd_kernel<T, DP, BT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + BT - 1) / BT, BH);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse, S, Tk, D,
+      causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             void* lse, int BH, int S, int Tk, int D, int causal,
+             float scale, cudaStream_t st) {
+#define FF_FWD(DP) \
+  return launch<T, DP>(q, k, v, out, lse, BH, S, Tk, D, causal, scale, st)
+  if (D <= 32) FF_FWD(32);
+  if (D <= 64) FF_FWD(64);
+  if (D <= 96) FF_FWD(96);
+  if (D <= 128) FF_FWD(128);
+  if (D <= 192) FF_FWD(192);
+  FF_FWD(256);
+#undef FF_FWD
+}
+
+}  // namespace
+
+extern "C" {
+
+// q (BH, S, D), k/v (BH, T, D), out (BH, S, D), all contiguous and of one
+// dtype: 0 = float32, 1 = bfloat16; lse fp32 (BH, S). Returns a
+// cudaError_t: cudaErrorInvalidValue for shapes the kernel does not take
+// (bh_shapes_ok), otherwise the launch's cudaGetLastError().
+int ff_flash_attention_bh_fwd(const void* q, const void* k, const void* v,
+                              void* out, void* lse, int BH, int S, int T,
+                              int D, int causal, float scale, int dtype,
+                              void* stream) {
+  if (!bh_shapes_ok(BH, S, T, D)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return dispatch<float>(q, k, v, out, lse, BH, S, T, D, causal, scale,
+                           st);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(q, k, v, out, lse, BH, S, T, D, causal,
+                                   scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* ff_cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -175,8 +175,41 @@ FLASH_ATTENTION_DKV = CudaKernel(
     replaces=f"{_FLASH}:197",
 )
 
+# K4, the head-major kernels (q (BH, S, D), k/v (BH, T, D), any D up to
+# 256): forward, dq and dk/dv
+FLASH_ATTENTION_BH_FWD = CudaKernel(
+    name="flash_attention_bh_fwd",
+    source="flash_attention_bh_fwd.cu",
+    symbol="ff_flash_attention_bh_fwd",
+    argtypes=[_VOID_P] * 5 + [_INT] * 5 + [ctypes.c_float, _INT, _VOID_P],
+    replaces=f"{_FLASH}:315",
+)
+
+FLASH_ATTENTION_BH_DQ = CudaKernel(
+    name="flash_attention_bh_dq",
+    source="flash_attention_bh_bwd.cu",
+    symbol="ff_flash_attention_bh_dq",
+    argtypes=[_VOID_P] * 7 + [_INT] * 5 + [ctypes.c_float, _INT, _VOID_P],
+    replaces=f"{_FLASH}:443",
+)
+
+FLASH_ATTENTION_BH_DKV = CudaKernel(
+    name="flash_attention_bh_dkv",
+    source="flash_attention_bh_bwd.cu",
+    symbol="ff_flash_attention_bh_dkv",
+    argtypes=[_VOID_P] * 8 + [_INT] * 5 + [ctypes.c_float, _INT, _VOID_P],
+    replaces=f"{_FLASH}:461",
+)
+
 KERNELS = (RAGGED_PAGED_ATTENTION, RAGGED_PAGED_ATTENTION_INT8,
-           FLASH_ATTENTION_FWD, FLASH_ATTENTION_DQ, FLASH_ATTENTION_DKV)
+           FLASH_ATTENTION_FWD, FLASH_ATTENTION_DQ, FLASH_ATTENTION_DKV,
+           FLASH_ATTENTION_BH_FWD, FLASH_ATTENTION_BH_DQ,
+           FLASH_ATTENTION_BH_DKV)
+
+# the largest head dim K4 takes (csrc/flash_bh_common.cuh, kMaxHeadDim)
+BH_MAX_HEAD_DIM = 256
+# the largest B * H K4 takes (the bh index rides grid.y)
+BH_MAX_HEADS = 65535
 
 # dtypes the kernels take for q (and out), with the code their C entry
 # points use for each; the fp-pool ragged kernel's K/V may also be fp16
@@ -262,5 +295,41 @@ def launch_flash_attention_dkv(q, k, v, dout, lse, delta, dk, dv,
     _launch(FLASH_ATTENTION_DKV, q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, S, T, H, Hkv, D, int(causal),
+            float(scale), KERNEL_DTYPES[q.dtype])
+    return dk, dv
+
+
+def launch_flash_attention_bh_fwd(q, k, v, out, lse, causal: bool,
+                                  scale: float):
+    """K4: out (BH, S, D) and the fp32 logsumexp lse (BH, S) of attention
+    over head-major q (BH, S, D), k/v (BH, T, D). The caller
+    (ops.flash_attention) has validated devices, dtypes, shapes and
+    contiguity."""
+    BH, S, D = q.shape
+    _launch(FLASH_ATTENTION_BH_FWD, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(), BH, S, k.shape[1],
+            D, int(causal), float(scale), KERNEL_DTYPES[q.dtype])
+    return out, lse
+
+
+def launch_flash_attention_bh_dq(q, k, v, dout, lse, delta, dq,
+                                 causal: bool, scale: float):
+    """K4, dq: the query gradient from the caller's lse and delta."""
+    BH, S, D = q.shape
+    _launch(FLASH_ATTENTION_BH_DQ, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), BH, S, k.shape[1], D, int(causal), float(scale),
+            KERNEL_DTYPES[q.dtype])
+    return dq
+
+
+def launch_flash_attention_bh_dkv(q, k, v, dout, lse, delta, dk, dv,
+                                  causal: bool, scale: float):
+    """K4, dk/dv: the key and value gradients at BH heads from the
+    caller's lse and delta."""
+    BH, S, D = q.shape
+    _launch(FLASH_ATTENTION_BH_DKV, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), BH, S, k.shape[1], D, int(causal),
             float(scale), KERNEL_DTYPES[q.dtype])
     return dk, dv

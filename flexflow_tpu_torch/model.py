@@ -92,8 +92,21 @@ class FFModel:
     def _one(self, op_type, op_attrs, inputs, name) -> Tensor:
         return Tensor(self._add(op_type, op_attrs, inputs, name))
 
+    def create_weight(self, dims: Sequence[int],
+                      dtype: DataType = DataType.FLOAT, initializer=None,
+                      name: Optional[str] = None) -> Tensor:
+        """A standalone weight as a graph source (glorot_uniform, as the
+        reference draws it when no initializer is given)."""
+        if initializer is not None:
+            raise NotImplementedError(
+                "initializer overrides are not ported yet (ROADMAP.md, "
+                "queue 1 item 8)")
+        return self._one(OpType.WEIGHT,
+                         A.WeightAttrs(TensorShape(tuple(dims), dtype)), [],
+                         name or "weight")
+
     # ------------------------------------------------------------------
-    # layers (the subset build_llama calls)
+    # layers (the subset build_llama and build_gpt2 call)
 
     def create_tensor(self, dims: Sequence[int],
                       dtype: DataType = DataType.FLOAT,
@@ -142,12 +155,30 @@ class FFModel:
     def add(self, x, y, name=None):
         return self._binary("add", x, y, name)
 
+    def add_position_embedding(self, x, table, name=None):
+        """Add a learned absolute-position row table (seq_len, dim) onto
+        (batch, seq, dim) activations, as an add MARKED as a position
+        table: under a KV cache the lowering takes the table rows at the
+        cache positions, and the servers refuse lengths beyond the table
+        (GPT-2/BERT-style positions)."""
+        return self._one(OpType.ELEMENT_BINARY,
+                         A.ElementBinaryAttrs("add", position_table=True),
+                         [x, table], name or "add_pos")
+
     def multiply(self, x, y, name=None):
         return self._binary("multiply", x, y, name)
 
     def silu(self, x, name=None):
         return self._one(OpType.ELEMENT_UNARY, A.ElementUnaryAttrs("silu"),
                          [x], name or "silu")
+
+    def layer_norm(self, input: Tensor, axes: Sequence[int] = (-1,),
+                   elementwise_affine: bool = True, eps: float = 1e-5,
+                   name=None) -> Tensor:
+        return self._one(
+            OpType.LAYER_NORM,
+            A.LayerNormAttrs(tuple(axes), elementwise_affine, eps),
+            [input], name or "layer_norm")
 
     def rms_norm(self, input: Tensor, eps: float = 1e-6, name=None) -> Tensor:
         return self._one(OpType.RMS_NORM, A.RMSNormAttrs(eps), [input],
@@ -156,6 +187,18 @@ class FFModel:
     def softmax(self, input: Tensor, axis: int = -1, name=None) -> Tensor:
         return self._one(OpType.SOFTMAX, A.SoftmaxAttrs(axis), [input],
                          name or "softmax")
+
+    def position_table_rows(self) -> Optional[int]:
+        """Rows of the smallest learned-position table in the graph, or
+        None. The servers keep prompt + new tokens within it."""
+        rows = None
+        for n in self.graph.nodes:
+            if getattr(n.attrs, "position_table", False):
+                ins = self.graph.input_shapes(n)
+                if len(ins) > 1:
+                    r = ins[1].dims[0].size
+                    rows = r if rows is None else min(rows, r)
+        return rows
 
     # ------------------------------------------------------------------
     # compile / serve

@@ -1,17 +1,18 @@
-"""Attribute dataclasses of the Llama path's operators (counterpart of
-flexflow_tpu/ops/attrs.py): INPUT, EMBEDDING, RMS_NORM, LINEAR,
-ELEMENT_BINARY, ELEMENT_UNARY, SOFTMAX, MULTIHEAD_ATTENTION.
+"""Attribute dataclasses of the ported operators (counterpart of
+flexflow_tpu/ops/attrs.py): INPUT, WEIGHT, EMBEDDING, RMS_NORM,
+LAYER_NORM, LINEAR, ELEMENT_BINARY, ELEMENT_UNARY, SOFTMAX,
+MULTIHEAD_ATTENTION.
 
 Field names, order and defaults match the reference, so `repr(attrs)` —
 and with it Graph.structure_hash — agrees between the two packages, and
 the weight specs keep the JAX layouts: `kernel` (in, out), `wq` (E, H, D),
-`wk`/`wv` (E, Hkv, D), `wo` (H, D, E), `scale`.
+`wk`/`wv` (E, Hkv, D), `wo` (H, D, E), `scale`, `bias`, `weight`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 from flexflow_tpu_torch.ffconst import ActiMode, AggrMode, DataType
 from flexflow_tpu_torch.ops.base import (
@@ -46,6 +47,21 @@ class InputAttrs(OpAttrs):
 
     def infer(self, *ins):
         return (ParallelTensorShape.from_shape(self.shape),)
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightAttrs(OpAttrs):
+    """PCG source node for a standalone weight (create_weight), e.g.
+    GPT-2's learned position table."""
+
+    shape: TensorShape
+    initializer: str = "glorot_uniform"
+
+    def infer(self, *ins):
+        return (ParallelTensorShape.from_shape(self.shape),)
+
+    def weights(self, *ins):
+        return {"weight": WeightSpec(self.shape, self.initializer)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,7 +163,10 @@ class MultiHeadAttentionAttrs(OpAttrs):
 
 @dataclasses.dataclass(frozen=True)
 class ElementBinaryAttrs(OpAttrs):
-    """add/subtract/multiply/divide/max/min with numpy broadcast."""
+    """add/subtract/multiply/divide/max/min with numpy broadcast.
+    `position_table` marks the add of a learned absolute-position row
+    table (add_position_embedding): under a KV cache the lowering takes
+    the table's rows at the cache positions."""
 
     kind: str
     position_table: bool = False
@@ -175,6 +194,28 @@ class ElementUnaryAttrs(OpAttrs):
 
     def infer(self, x: Shape):
         return (elementwise_like(x),)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerNormAttrs(OpAttrs):
+    """LayerNorm over `axes`, with a scale and a bias over those axes
+    when `elementwise_affine`."""
+
+    axes: Tuple[int, ...] = (-1,)
+    elementwise_affine: bool = True
+    eps: float = 1e-5
+
+    def infer(self, x: Shape):
+        return (elementwise_like(x),)
+
+    def weights(self, x: Shape):
+        if not self.elementwise_affine:
+            return {}
+        norm_shape = tuple(x.dims[a].size for a in self.axes)
+        return {
+            "scale": WeightSpec(TensorShape(norm_shape, x.dtype), "ones"),
+            "bias": WeightSpec(TensorShape(norm_shape, x.dtype), "zeros"),
+        }
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,14 +3,27 @@ flexflow_tpu/ops/pallas/flash_attention.py).
 
 `flash_attention(q, k, v, causal=, scale=)` takes the reference's layout,
 q (B, S, H, D) and k/v (B, T, Hkv, D) with H % Hkv == 0, and returns
-(B, S, H, D) in q's dtype. On CUDA tensors it is `FlashAttentionFunction`,
-whose forward is kernel K1 (csrc/flash_attention_fwd.cu) and whose
-backward is kernel K2's two launches, dq and dk/dv
-(csrc/flash_attention_bwd.cu), or it raises on what the kernels do not
-take. On CPU tensors it is the plain version, `flash_attention_reference`,
-whose gradient comes from autograd through its dense ops. There is no
-availability gate and no switch: the reference's
-`flash_attention_available` is not carried over.
+(B, S, H, D) in q's dtype. It routes as the reference does:
+
+- head dim a multiple of 128: the flat-layout kernels on the projection
+  layout, `FlashAttentionFunction`, whose forward is kernel K1
+  (csrc/flash_attention_fwd.cu) and whose backward is kernel K2's dq and
+  dk/dv launches (csrc/flash_attention_bwd.cu), GQA resolved in-kernel;
+- any other head dim: the head-major route. kv heads are repeated to H
+  (jnp.repeat's order), q/k/v transposed to (B * H, S, D) and handed to
+  `FlashAttentionHeadMajorFunction`: kernel K4's forward
+  (csrc/flash_attention_bh_fwd.cu), and in backward the delta pre-pass
+  and K4's dq and dk/dv kernels (csrc/flash_attention_bh_bwd.cu). The
+  repeat's autograd sums dk/dv over each GQA group. The reference also
+  zero-pads D to 128 lanes; that is TPU tiling, and K4 takes D as it is.
+
+On CUDA tensors each kernel launches or the wrapper raises on what it does
+not take. On CPU tensors the flat route is the plain version
+`flash_attention_reference` with autograd through its dense ops, and the
+head-major route runs the same autograd.Function over the plain versions
+of K4's three contracts (`flash_bh_reference`, `flash_bh_dq_reference`,
+`flash_bh_dkv_reference`). There is no availability gate and no switch:
+the reference's `flash_attention_available` is not carried over.
 """
 
 from __future__ import annotations
@@ -18,14 +31,19 @@ from __future__ import annotations
 import torch
 
 from flexflow_tpu_torch.kernels import (
+    BH_MAX_HEAD_DIM,
+    BH_MAX_HEADS,
     KERNEL_DTYPES,
+    launch_flash_attention_bh_dkv,
+    launch_flash_attention_bh_dq,
+    launch_flash_attention_bh_fwd,
     launch_flash_attention_dkv,
     launch_flash_attention_dq,
     launch_flash_attention_fwd,
 )
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (64, 128)
+LANES = 128
 
 
 def flash_attention_reference(q, k, v, causal: bool, scale: float):
@@ -99,7 +117,202 @@ def flash_delta(dout, out):
                         out.float()).contiguous()
 
 
+# ---------------------------------------------------------------------------
+# K4: the head-major contracts on (BH, S, D) q and (BH, T, D) k/v
+
+
+def _bh_scores(q, k, causal, scale):
+    """fp32 (BH, S, T) scores times `scale`, -1e30 where the top-left
+    causal mask hides a key."""
+    s = torch.einsum("bsd,btd->bst", q.float(), k.float()) * scale
+    if causal:
+        visible = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
+                             device=q.device).tril()
+        s = s.masked_fill(~visible, NEG_INF)
+    return s
+
+
+def flash_bh_reference(q, k, v, causal: bool, scale: float):
+    """The plain version of K4's forward (`_fwd`): (out, lse) of attention
+    over head-major q (BH, S, D) and k/v (BH, T, D). Probabilities are
+    rounded to v's dtype before the value product; out in q's dtype; lse
+    the fp32 (BH, S) logsumexp of the masked, scaled scores."""
+    s = _bh_scores(q, k, causal, scale)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None]).to(v.dtype)
+    out = torch.einsum("bst,btd->bsd", p.float(), v.float())
+    return out.to(q.dtype), lse
+
+
+def _bh_backward_terms(q, k, v, dout, lse, delta, causal, scale):
+    """p = exp(s - lse) and ds = p * (dp - delta) * scale, fp32 (BH, S,
+    T), from the lse and delta the caller gives."""
+    p = torch.exp(_bh_scores(q, k, causal, scale) - lse[..., None])
+    dp = torch.einsum("bsd,btd->bst", dout.float(), v.float())
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_bh_dq_reference(q, k, v, dout, lse, delta, causal: bool,
+                          scale: float):
+    """The plain version of K4's dq kernel (`_dq_kernel`): dq = ds
+    (rounded to k's dtype) . k, summed in fp32, in q's dtype."""
+    _, ds = _bh_backward_terms(q, k, v, dout, lse, delta, causal, scale)
+    dq = torch.einsum("bst,btd->bsd", ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype)
+
+
+def flash_bh_dkv_reference(q, k, v, dout, lse, delta, causal: bool,
+                           scale: float):
+    """The plain version of K4's dk/dv kernel (`_dkv_kernel`): dk = ds
+    (rounded to q's dtype) . q and dv = p (rounded to dO's dtype) . dO,
+    summed in fp32 over the queries, at BH heads."""
+    p, ds = _bh_backward_terms(q, k, v, dout, lse, delta, causal, scale)
+    dk = torch.einsum("bst,bsd->btd", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum("bst,bsd->btd", p.to(dout.dtype).float(),
+                      dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bh_delta(dout, out):
+    """delta = sum_d dO * O per (bh, s), fp32 (BH, S): the reference's
+    einsum in `_bwd` (flash_attention.py:486)."""
+    return torch.einsum("bsd,bsd->bs", dout.float(),
+                        out.float()).contiguous()
+
+
+def _on_cpu(*ts) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def _check_bh_args(q, k, v, *grads):
+    """Raise on what K4 does not take: q (BH, S, D), k/v (BH, T, D) of one
+    float32/bfloat16 dtype on one CUDA device, D <= 256, BH <= 65535;
+    `grads` (dO) are (BH, S, D) in q's dtype."""
+    if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"K4 takes q (BH, S, D) and k, v (BH, T, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    BH, _, D = q.shape
+    if D > BH_MAX_HEAD_DIM:
+        raise ValueError(f"K4 takes head dims up to {BH_MAX_HEAD_DIM} "
+                         f"(csrc/flash_bh_common.cuh), got {D}")
+    if BH > BH_MAX_HEADS:
+        raise ValueError(f"K4 takes B * H up to {BH_MAX_HEADS}, got {BH}")
+    for name, t in (("q", q), ("k", k), ("v", v)) + tuple(
+            ("dO", g) for g in grads):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"K4 runs on one CUDA device; {name} is on "
+                             f"{t.device}, q on {q.device}")
+        if t.dtype not in KERNEL_DTYPES or t.dtype != q.dtype:
+            raise ValueError(f"K4 takes float32 or bfloat16 tensors of one "
+                             f"dtype; {name} is {t.dtype}, q {q.dtype}")
+    for g in grads:
+        if g.shape != q.shape:
+            raise ValueError(f"dO {tuple(g.shape)} must match q "
+                             f"{tuple(q.shape)}")
+
+
+def _check_stats(q, *stats):
+    """lse and delta: fp32 (BH, S) on q's device."""
+    for t in stats:
+        if t.dtype != torch.float32 or t.shape != q.shape[:2] \
+                or t.device != q.device:
+            raise ValueError(f"lse and delta must be float32 "
+                             f"{tuple(q.shape[:2])} on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def flash_bh_forward(q, k, v, causal: bool, scale: float):
+    """K4's forward: (out (BH, S, D) in q's dtype, lse (BH, S) fp32). CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if _on_cpu(q, k, v):
+        return flash_bh_reference(q, k, v, causal, scale)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_bh_args(q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    return launch_flash_attention_bh_fwd(q, k, v, out, lse, causal, scale)
+
+
+def flash_bh_dq(q, k, v, dout, lse, delta, causal: bool, scale: float):
+    """K4's dq from the caller's lse and delta (the forward's own, or the
+    ring's final lse). CPU: plain version; CUDA: the kernel or raise."""
+    if _on_cpu(q, k, v, dout, lse, delta):
+        return flash_bh_dq_reference(q, k, v, dout, lse, delta, causal,
+                                     scale)
+    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+    lse, delta = lse.contiguous(), delta.contiguous()
+    _check_bh_args(q, k, v, dout)
+    _check_stats(q, lse, delta)
+    return launch_flash_attention_bh_dq(q, k, v, dout, lse, delta,
+                                        torch.empty_like(q), causal, scale)
+
+
+def flash_bh_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float):
+    """K4's (dk, dv) at BH heads from the caller's lse and delta. CPU:
+    plain version; CUDA: the kernel or raise."""
+    if _on_cpu(q, k, v, dout, lse, delta):
+        return flash_bh_dkv_reference(q, k, v, dout, lse, delta, causal,
+                                      scale)
+    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+    lse, delta = lse.contiguous(), delta.contiguous()
+    _check_bh_args(q, k, v, dout)
+    _check_stats(q, lse, delta)
+    return launch_flash_attention_bh_dkv(q, k, v, dout, lse, delta,
+                                         torch.empty_like(k),
+                                         torch.empty_like(v), causal, scale)
+
+
+class FlashAttentionHeadMajorFunction(torch.autograd.Function):
+    """K4 forward and backward on head-major (BH, S, D) tensors (the
+    reference's `_flash` custom VJP). Saves (q, k, v, out, lse); the
+    backward computes delta with torch ops, then runs the dq and the
+    dk/dv kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out, lse = flash_bh_forward(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = flash_bh_delta(dout, out)
+        dq = flash_bh_dq(q, k, v, dout, lse, delta, ctx.causal, ctx.scale)
+        dk, dv = flash_bh_dkv(q, k, v, dout, lse, delta, ctx.causal,
+                              ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def _head_major_attention(q, k, v, causal: bool, scale: float):
+    """The reference's fallback route (flash_attention.py:625-642) without
+    its lane padding: repeat kv to H heads, transpose to (B * H, S, D),
+    run K4, transpose back to (B, S, H, D)."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    if Hkv != H:
+        k = k.repeat_interleave(H // Hkv, dim=2)
+        v = v.repeat_interleave(H // Hkv, dim=2)
+
+    def to_bh(x):
+        return x.transpose(1, 2).reshape(B * H, x.shape[1], D)
+
+    out = FlashAttentionHeadMajorFunction.apply(to_bh(q), to_bh(k), to_bh(v),
+                                                bool(causal), float(scale))
+    return out.reshape(B, H, S, D).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# K1/K2 and the public entry
+
+
 def _check_kernel_args(q, k, v):
+    """Raise on what the flat-layout kernels K1/K2 do not take."""
     B, S, H, D = q.shape
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[3] != D:
@@ -109,11 +322,11 @@ def _check_kernel_args(q, k, v):
     if H % k.shape[2] != 0:
         raise ValueError(f"q heads {H} not a multiple of kv heads "
                          f"{k.shape[2]}")
-    if D not in KERNEL_HEAD_DIMS:
+    if D not in (64, LANES):
         raise ValueError(
-            f"the flash kernels take head dim 64 or 128, got {D}; other "
-            "head dims are the reference's head-major path, kernel K4 "
-            "(ROADMAP.md, queue 2)")
+            f"the flat-layout kernels K1/K2 take head dims 64 and 128, got "
+            f"{D}; a multiple of 128 above 128 is not ported (ROADMAP.md, "
+            "queue 3), other head dims take K4")
     if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"the flash kernels take float32 or bfloat16 q, k "
@@ -157,13 +370,22 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal: bool = False, scale: float = 1.0):
-    """Flash attention, (B, S, H, D) in q's dtype. CUDA tensors launch the
-    kernels (and raise on anything they do not take); CPU tensors take
-    the plain version. Mixed devices raise."""
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_attention_reference(q, k, v, causal, scale)[0]
-    if q.device.type != "cuda":
+    """Flash attention, (B, S, H, D) in q's dtype, routed by head dim as
+    the reference routes it: D % 128 == 0 to K1/K2, any other D to K4 on
+    the head-major layout. CUDA tensors launch the kernels (and raise on
+    anything they do not take); CPU tensors take the plain versions.
+    Mixed devices raise."""
+    B, S, H, D = q.shape
+    if H % k.shape[2] != 0:
+        raise ValueError(f"q heads {H} not a multiple of kv heads "
+                         f"{k.shape[2]}")
+    on_cpu = _on_cpu(q, k, v)
+    if not on_cpu and q.device.type != "cuda":
         raise ValueError(f"flash attention runs on CUDA or CPU tensors, got "
                          f"q on {q.device}")
+    if D % LANES != 0:
+        return _head_major_attention(q, k, v, causal, scale)
+    if on_cpu:
+        return flash_attention_reference(q, k, v, causal, scale)[0]
     _check_kernel_args(q, k, v)
     return FlashAttentionFunction.apply(q, k, v, bool(causal), float(scale))

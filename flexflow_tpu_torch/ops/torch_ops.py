@@ -1,10 +1,11 @@
-"""PyTorch lowerings of the Llama path's operators (counterpart of
-flexflow_tpu/ops/jax_ops.py).
+"""PyTorch lowerings of the ported operators, the Llama and GPT-2 paths'
+(counterpart of flexflow_tpu/ops/jax_ops.py).
 
 Each lowering reproduces the reference's numerics discipline: weights
 are cast to the activation dtype at the use site, matmuls accumulate in
-fp32 and round to the activation dtype, RMSNorm computes in fp32. Plain
-matmuls and elementwise ops go to PyTorch, as the JAX package left them
+fp32 and round to the activation dtype, RMSNorm and LayerNorm compute in
+fp32. Plain matmuls and elementwise ops go to PyTorch, as the JAX package
+left them
 to XLA; the hand-written kernels on this path are behind the
 MULTIHEAD_ATTENTION lowering: the ragged paged attention on its paged
 branch (serving), the flash-attention forward and backward on its
@@ -35,6 +36,15 @@ def apply_activation(x, act: ActiMode):
     if act == ActiMode.SILU:
         return F.silu(x)
     raise ValueError(f"unknown activation {act}")
+
+
+@register_lowering(OpType.WEIGHT)
+def _weight(attrs, inputs, params, ctx):
+    # the op's declared dtype is the activation dtype it feeds, as for the
+    # embedding: an fp32 master reaches a bf16 model as bf16. (The
+    # reference returns the master as it is, so jnp promotion lifts a bf16
+    # GPT-2 to fp32 at its position add; ROADMAP.md, queue 3.)
+    return [params["weight"].to(attrs.shape.dtype.torch_dtype)]
 
 
 @register_lowering(OpType.LINEAR)
@@ -199,13 +209,31 @@ _BINARY = {
 }
 
 
+def position_rows(table, seq: int, ctx):
+    """The rows of a learned (rows, E) position table that a (B, seq)
+    window adds under the cache state of `ctx` (jax_ops._element_binary's
+    cases): without a cache the whole table, broadcast over the batch; in
+    a ragged paged step row pos[b] + depths[b, i] for window row i; with
+    per-row positions alone rows pos[b] .. pos[b] + seq - 1. Indices are
+    clamped into the table, as the reference's gathers clamp: only padded
+    rows reach past it, and their outputs are never read. (The
+    reference's scalar position, lockstep dense decode, has no caller in
+    the port.)"""
+    pos = ctx.cache_position
+    if pos is None:
+        return table
+    depths = ctx.ragged_depths
+    if depths is None:
+        depths = torch.arange(seq, device=table.device)
+    idx = pos.long()[:, None] + depths.long()
+    return table[idx.clamp(0, table.shape[0] - 1)]
+
+
 @register_lowering(OpType.ELEMENT_BINARY)
 def _element_binary(attrs, inputs, params, ctx):
-    if attrs.position_table:
-        raise NotImplementedError(
-            "learned position tables are not ported yet (ROADMAP.md, "
-            "queue 1)")
     a, b = inputs
+    if attrs.position_table:
+        b = position_rows(b, a.shape[1], ctx)
     return [_BINARY[attrs.kind](a, b)]
 
 
@@ -239,6 +267,30 @@ def _element_unary(attrs, inputs, params, ctx):
     if k == "scalar_truediv":
         return [x / s]
     return [_UNARY[k](x)]
+
+
+@register_lowering(OpType.LAYER_NORM)
+def _layer_norm(attrs, inputs, params, ctx):
+    """fp32 statistics (biased variance), the affine in fp32, the result
+    cast back to x's dtype. Over trailing axes this is F.layer_norm on the
+    fp32 input, which saves for backward only that input and the row
+    statistics; other axes take the reference's formula."""
+    (x,) = inputs
+    axes = tuple(sorted(a % x.ndim for a in attrs.axes))
+    xf = x.float()
+    affine = attrs.elementwise_affine
+    scale = params["scale"].float() if affine else None
+    bias = params["bias"].float() if affine else None
+    if axes == tuple(range(x.ndim - len(axes), x.ndim)):
+        y = F.layer_norm(xf, xf.shape[x.ndim - len(axes):], scale, bias,
+                         attrs.eps)
+    else:
+        mean = xf.mean(dim=axes, keepdim=True)
+        var = xf.var(dim=axes, keepdim=True, unbiased=False)
+        y = (xf - mean) * torch.rsqrt(var + attrs.eps)
+        if affine:
+            y = y * scale + bias
+    return [y.to(x.dtype)]
 
 
 @register_lowering(OpType.RMS_NORM)

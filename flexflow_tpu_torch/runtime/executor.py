@@ -27,7 +27,8 @@ from flexflow_tpu_torch.runtime.metrics import compute_step_metrics
 
 # weights whose lowering computes in fp32 whatever the activation dtype:
 # stored fp32 so their values equal the reference's fp32 masters
-_FP32_USE = {(OpType.RMS_NORM, "scale")}
+_FP32_USE = {(OpType.RMS_NORM, "scale"), (OpType.LAYER_NORM, "scale"),
+             (OpType.LAYER_NORM, "bias")}
 _ATTENTION_OPS = (OpType.MULTIHEAD_ATTENTION, OpType.RING_ATTENTION)
 
 

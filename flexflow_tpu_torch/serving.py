@@ -115,6 +115,14 @@ class _GenerationServerBase:
         self.ff = ff
         self.slots = int(slots)
         self.max_len = int(max_len)
+        # learned-position models (GPT-2/BERT-style): a position past the
+        # table has no row; refuse at construction, as the reference does
+        rows = ff.position_table_rows()
+        if rows is not None and self.max_len > rows:
+            raise ValueError(
+                f"max_len ({self.max_len}) exceeds the model's learned "
+                f"position table ({rows} rows); rebuild with a longer "
+                "seq_len or lower max_len")
         self.eos_id = eos_id
         self._params = ff._params
         self.device = ff.device

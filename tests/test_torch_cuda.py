@@ -11,8 +11,13 @@ import pytest
 import torch
 
 from flexflow_tpu_torch.ops.flash_attention import (
+    FlashAttentionFunction,
     flash_attention,
     flash_attention_reference,
+    flash_bh_delta,
+    flash_bh_dkv_reference,
+    flash_bh_dq_reference,
+    flash_bh_reference,
 )
 from flexflow_tpu_torch.paged.attention import (
     ragged_flash_attention,
@@ -201,7 +206,8 @@ def _close(got, want, tol):
 def test_flash_kernels_match_plain_version(dtype, causal, S, D):
     """K1 (out, lse) and K2 (dq, dk, dv from a fixed, non-contiguous dO)
     against the plain version's forward and autograd gradients, GQA
-    (H 4, Hkv 2), S = T including a ragged 1000."""
+    (H 4, Hkv 2), S = T including a ragged 1000. K1/K2 are driven through
+    FlashAttentionFunction: flash_attention sends D 64 to K4."""
     _needs_card()
     from flexflow_tpu_torch.kernels import (
         FLASH_ATTENTION_DKV,
@@ -232,7 +238,7 @@ def test_flash_kernels_match_plain_version(dtype, causal, S, D):
     counts = [kk.launches for kk in (FLASH_ATTENTION_FWD, FLASH_ATTENTION_DQ,
                                      FLASH_ATTENTION_DKV)]
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    flash_attention(*leaves, causal=causal, scale=scale).backward(do)
+    FlashAttentionFunction.apply(*leaves, causal, scale).backward(do)
     torch.cuda.synchronize()
     assert [kk.launches for kk in (FLASH_ATTENTION_FWD, FLASH_ATTENTION_DQ,
                                    FLASH_ATTENTION_DKV)] == [
@@ -246,10 +252,114 @@ def test_flash_kernels_match_plain_version(dtype, causal, S, D):
 
 
 def test_flash_wrapper_refuses_what_the_kernels_do_not_take():
+    """D 256 (a multiple of 128 above 128) is refused by K1/K2; above 256
+    by K4; float16 by both."""
     _needs_card()
-    q = torch.zeros(1, 8, 2, 96, device="cuda")
-    with pytest.raises(ValueError, match="K4"):
+    q = torch.zeros(1, 8, 2, 256, device="cuda")
+    with pytest.raises(ValueError, match="64 and 128"):
         flash_attention(q, q, q, causal=True, scale=0.1)
-    q = torch.zeros(1, 8, 2, 64, device="cuda", dtype=torch.float16)
-    with pytest.raises(ValueError):
+    q = torch.zeros(1, 8, 2, 264, device="cuda")
+    with pytest.raises(ValueError, match="up to 256"):
         flash_attention(q, q, q, causal=True, scale=0.1)
+    for D in (64, 48):
+        q = torch.zeros(1, 8, 2, D, device="cuda", dtype=torch.float16)
+        with pytest.raises(ValueError):
+            flash_attention(q, q, q, causal=True, scale=0.1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,T,D", [(128, 128, 64), (200, 200, 48),
+                                   (130, 260, 80), (256, 100, 96),
+                                   (128, 128, 100), (96, 96, 8),
+                                   (160, 160, 256)])
+def test_head_major_kernels_match_plain_version(dtype, causal, S, T, D):
+    """K4's forward (out, lse), dq and dk/dv kernels against their plain
+    versions on head-major (BH, S, D) tensors: every padded width the
+    kernels are built for, S != T and S not a multiple of the tile; the
+    backward fed its forward's lse and a shifted one (the ring
+    contract)."""
+    _needs_card()
+    from flexflow_tpu_torch.kernels import (
+        FLASH_ATTENTION_BH_DKV,
+        FLASH_ATTENTION_BH_DQ,
+        FLASH_ATTENTION_BH_FWD,
+    )
+    from flexflow_tpu_torch.ops.flash_attention import (
+        flash_bh_dkv,
+        flash_bh_dq,
+        flash_bh_forward,
+    )
+
+    BH, scale = 6, 1.0 / D ** 0.5
+    g = torch.Generator(device="cuda").manual_seed(S + T + D)
+    q, do = (torch.randn(BH, S, D, generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(BH, T, D, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    fwd_tol, grad_tol = FLASH_TOLS[dtype]
+    counts = [kk.launches for kk in (FLASH_ATTENTION_BH_FWD,
+                                     FLASH_ATTENTION_BH_DQ,
+                                     FLASH_ATTENTION_BH_DKV)]
+    out, lse = flash_bh_forward(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    want_out, want_lse = flash_bh_reference(q, k, v, causal, scale)
+    for name, got, want in (("out", out, want_out), ("lse", lse, want_lse)):
+        ok, err = _close(got, want, fwd_tol)
+        assert ok, (name, err)
+    delta = flash_bh_delta(do, want_out)
+    shift = torch.rand(BH, S, generator=g, device="cuda")
+    for given in (want_lse, want_lse + shift):
+        args = (q, k, v, do, given, delta, causal, scale)
+        dq = flash_bh_dq(*args)
+        dk, dv = flash_bh_dkv(*args)
+        torch.cuda.synchronize()
+        want_dk, want_dv = flash_bh_dkv_reference(*args)
+        for name, got, want in (("dq", dq, flash_bh_dq_reference(*args)),
+                                ("dk", dk, want_dk), ("dv", dv, want_dv)):
+            assert got.dtype == dtype
+            ok, err = _close(got, want, grad_tol)
+            assert ok, (name, err)
+    assert [kk.launches for kk in (FLASH_ATTENTION_BH_FWD,
+                                   FLASH_ATTENTION_BH_DQ,
+                                   FLASH_ATTENTION_BH_DKV)] == [
+        counts[0] + 1, counts[1] + 2, counts[2] + 2]
+
+
+@pytest.mark.parametrize("D,Hkv", [(64, 4), (48, 2), (96, 1)])
+def test_head_major_route_matches_plain_autograd(D, Hkv):
+    """flash_attention at a head dim that is not a multiple of 128 (GQA
+    included) launches K4 once forward and once each backward, and its
+    gradients match the dense plain version's autograd."""
+    _needs_card()
+    from flexflow_tpu_torch.kernels import (
+        FLASH_ATTENTION_BH_DKV,
+        FLASH_ATTENTION_BH_DQ,
+        FLASH_ATTENTION_BH_FWD,
+        FLASH_ATTENTION_FWD,
+    )
+
+    B, S, H, scale = 2, 192, 4, 1.0 / D ** 0.5
+    g = torch.Generator(device="cuda").manual_seed(D)
+    q = torch.randn(B, S, H, D, generator=g, device="cuda")
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device="cuda")
+            for _ in range(2))
+    do = torch.randn(B, H, S, D, generator=g, device="cuda").transpose(1, 2)
+    kernels = (FLASH_ATTENTION_BH_FWD, FLASH_ATTENTION_BH_DQ,
+               FLASH_ATTENTION_BH_DKV, FLASH_ATTENTION_FWD)
+    counts = [kk.launches for kk in kernels]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=True, scale=scale)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert [kk.launches for kk in kernels] == [
+        counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3]]
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = flash_attention_reference(*plain, True, scale)[0]
+    want.backward(do)
+    ok, err = _close(out.detach(), want.detach(),
+                     FLASH_TOLS[torch.float32][0])
+    assert ok, ("out", err)
+    for name, got, ref in zip(("dq", "dk", "dv"), leaves, plain):
+        ok, err = _close(got.grad, ref.grad, FLASH_TOLS[torch.float32][1])
+        assert ok, (name, err)

@@ -2,10 +2,14 @@
 attention, run in interpret mode on the CPU: forward output, logsumexp and
 the gradients of q, k and v on the same numpy inputs. At head dim 128 the
 JAX side runs the flat-lane kernels K1 (`_fwd_bshd`) and K2 (`_bwd_bshd`)
-themselves; at head dim 64 its padded head-major kernels. The port's CPU
-path is the plain version (`flash_attention_reference`) with autograd
-through its dense ops; the CUDA kernels are held to that plain version on
-the card (tests/test_torch_cuda.py)."""
+themselves; at other head dims its padded head-major kernels K4 (`_fwd`,
+`_bwd`). The port's CPU path at head dim 128 is the plain version
+(`flash_attention_reference`) with autograd through its dense ops; at
+other head dims it is the head-major route (repeat, transpose,
+FlashAttentionHeadMajorFunction) over the plain versions of K4's three
+contracts, which are also held to K4 called directly. The CUDA kernels
+are held to these plain versions on the card
+(tests/test_torch_cuda.py)."""
 
 import numpy as np
 import pytest
@@ -18,6 +22,8 @@ import torch  # noqa: E402
 from flexflow_tpu.ops import attrs as JA  # noqa: E402
 from flexflow_tpu.ops import jax_ops  # noqa: E402
 from flexflow_tpu.ops.pallas.flash_attention import (  # noqa: E402
+    _bwd,
+    _fwd,
     _fwd_bshd,
 )
 from flexflow_tpu.ops.pallas.flash_attention import (  # noqa: E402
@@ -29,6 +35,10 @@ from flexflow_tpu_torch.ops import torch_ops  # noqa: E402
 from flexflow_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_reference,
+    flash_bh_delta,
+    flash_bh_dkv_reference,
+    flash_bh_dq_reference,
+    flash_bh_reference,
     flash_delta,
     flash_dkv_reference,
     flash_dq_reference,
@@ -56,6 +66,8 @@ def _inputs(S, H, Hkv, D, seed):
     (128, 256, 4),   # K1/K2, MHA
     (64, 128, 4),    # padded head-major kernels, MHA
     (64, 256, 2),    # padded head-major kernels, GQA
+    (48, 128, 2),    # head-major, GQA, the reference's own test's D
+    (96, 256, 2),    # head-major, GQA, D of Phi-3-mini's width
 ])
 def test_flash_attention_matches_jax_pallas(D, S, Hkv, causal):
     H = 4
@@ -150,21 +162,37 @@ def test_bf16_plain_version_rounds_like_the_reference():
 
 
 def test_wrapper_refuses_devices_and_shapes_it_does_not_take():
-    from flexflow_tpu_torch.ops.flash_attention import _check_kernel_args
+    """K1/K2 refuse head dims other than 64 and 128 (a multiple of 128
+    above it is an open gap, ROADMAP.md queue 3), K4 head dims above 256,
+    and both other dtypes, devices and head counts, each naming the
+    limit."""
+    from flexflow_tpu_torch.ops.flash_attention import (
+        _check_bh_args,
+        _check_kernel_args,
+    )
 
     q = torch.zeros(1, 4, 2, 64)
     kv = torch.zeros(1, 4, 1, 64)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"),
                         causal=True, scale=0.1)
-    with pytest.raises(ValueError, match="K4"):
-        _check_kernel_args(torch.zeros(1, 4, 2, 96), torch.zeros(1, 4, 1, 96),
-                           torch.zeros(1, 4, 1, 96))
+    with pytest.raises(ValueError, match="64 and 128"):
+        _check_kernel_args(torch.zeros(1, 4, 2, 256),
+                           torch.zeros(1, 4, 1, 256),
+                           torch.zeros(1, 4, 1, 256))
     with pytest.raises(ValueError, match="bfloat16"):
         _check_kernel_args(q.half(), kv.half(), kv.half())
     with pytest.raises(ValueError, match="multiple"):
         kv2 = torch.zeros(1, 4, 2, 64)
         _check_kernel_args(torch.zeros(1, 4, 3, 64), kv2, kv2)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(torch.zeros(1, 4, 3, 48), torch.zeros(1, 4, 2, 48),
+                        torch.zeros(1, 4, 2, 48))
+    bh = torch.zeros(2, 4, 264)
+    with pytest.raises(ValueError, match="up to 256"):
+        _check_bh_args(bh, bh, bh)
+    with pytest.raises(ValueError, match="CUDA"):  # checked for the card
+        _check_bh_args(*(torch.zeros(2, 4, 48),) * 3)
 
 
 @pytest.mark.parametrize("heads,kv_heads", [(4, 2), (4, 4)])
@@ -200,3 +228,72 @@ def test_mha_no_cache_branch_matches_jax(heads, kv_heads):
     for k in params:
         np.testing.assert_allclose(tp[k].grad.numpy(), np.asarray(jg[k]),
                                    atol=1e-4, rtol=1e-4, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# K4: the head-major contracts against the reference's _fwd / _bwd
+
+
+def _bh_inputs(BH, S, T, D, seed):
+    rs = np.random.RandomState(seed)
+    q = rs.standard_normal((BH, S, D)).astype(np.float32)
+    k = rs.standard_normal((BH, T, D)).astype(np.float32)
+    v = rs.standard_normal((BH, T, D)).astype(np.float32)
+    do = rs.standard_normal((BH, S, D)).astype(np.float32)
+    # a per-row shift: the lse a ring backward hands in is the final one,
+    # not the block's own
+    shift = rs.uniform(0.0, 1.0, (BH, S)).astype(np.float32)
+    return q, k, v, do, shift
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D,S,T", [(48, 128, 128), (64, 128, 256),
+                                   (96, 256, 128)])
+def test_head_major_plain_versions_match_jax_k4(D, S, T, causal):
+    """flash_bh_reference's (out, lse), and flash_bh_dq_reference /
+    flash_bh_dkv_reference from the forward's own lse and from a
+    caller-given one (the ring contract), against the reference's K4
+    `_fwd` and `_bwd` called directly in interpret mode, S != T
+    included."""
+    BH, scale = 3, 1.0 / np.sqrt(D)
+    q, k, v, do, shift = _bh_inputs(BH, S, T, D, seed=D + S + causal)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    jout, jlse = _fwd(jq, jk, jv, causal, scale, 128, 128, True)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = flash_bh_reference(tq, tk, tv, causal, scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=FWD_TOL,
+                               rtol=FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[..., 0],
+                               atol=FWD_TOL, rtol=FWD_TOL)
+    delta = flash_bh_delta(tdo, out)
+    assert delta.shape == (BH, S) and delta.dtype == torch.float32
+    for given in (lse, lse + torch.from_numpy(shift)):
+        jl = jnp.broadcast_to(jnp.asarray(given.numpy())[..., None],
+                              (BH, S, 128))
+        jdq, jdk, jdv = _bwd(jq, jk, jv, jout, jl, jdo, causal, scale, 128,
+                             128, True)
+        args = (tq, tk, tv, tdo, given, delta, causal, scale)
+        dq = flash_bh_dq_reference(*args)
+        dk, dv = flash_bh_dkv_reference(*args)
+        for name, got, want in (("dq", dq, jdq), ("dk", dk, jdk),
+                                ("dv", dv, jdv)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=GRAD_TOL, rtol=GRAD_TOL,
+                                       err_msg=name)
+
+
+def test_head_major_plain_backward_matches_autograd():
+    """With the forward's own lse, K4's two backward contracts give the
+    plain forward's autograd gradients (S != T, causal)."""
+    q, k, v, do, _ = _bh_inputs(2, 24, 40, 20, seed=6)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out, lse = flash_bh_reference(tq, tk, tv, True, 0.3)
+    dout = torch.from_numpy(do)
+    out.backward(dout)
+    args = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            dout, lse.detach(), flash_bh_delta(dout, out.detach()), True, 0.3)
+    dk, dv = flash_bh_dkv_reference(*args)
+    for got, want in ((flash_bh_dq_reference(*args), tq.grad),
+                      (dk, tk.grad), (dv, tv.grad)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                                   rtol=1e-5)

@@ -49,7 +49,8 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", _GUARDED_IMPORT], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 15
+    # models.gpt2 and the K4 wrappers' module among them
+    assert int(out.stdout.split()[0]) >= 16
 
 
 def test_no_reference_import_statements_in_port_sources():
@@ -83,6 +84,19 @@ def test_default_device_raises_without_cuda(monkeypatch):
         ff.compile()
     with pytest.raises(RuntimeError):
         ff.serve_generation(paged=True)  # not compiled: nothing to serve
+
+
+def test_gpt2_default_device_raises_without_cuda(monkeypatch):
+    """The GPT-2 path too: with no card visible, compile() on the default
+    device raises; nothing falls back to the CPU."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ff = FFModel(FFConfig(batch_size=1))
+    build_gpt2(ff, GPT2Config.tiny(), batch_size=1, seq_len=8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ff.compile()
 
 
 def test_chip_smoke_fails_without_cuda():
