@@ -1,10 +1,10 @@
 """Chip smoke test of flexflow_tpu_torch, the PyTorch/CUDA port: drives the
 port's main paths on one NVIDIA card, paged Llama serving (fp and int8 KV
-pools, prefix cache, preemption, defrag), Llama training, and GPT-2
-training and paged serving, and holds every hand-written kernel on them
-to its plain PyTorch version.
+pools, prefix cache, preemption, defrag), Llama training, GPT-2 training
+and paged serving, and Llama training through ring attention, and holds
+every hand-written kernel on them to its plain PyTorch version.
 
-    python3 chip_smoke.py            # phases 1,2,3,4,6,7,8,9 on one card
+    python3 chip_smoke.py            # phases 1,2,3,4,6,7,8,9,10 on one card
     python3 chip_smoke.py --phases 5 # + profiles of serving and training
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
@@ -22,22 +22,31 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      D 128, causal); bf16 and fp32; and the head-major flash kernels K4
      (forward, dq, dk/dv) at GPT-2 XL training's shape (B*H 8*25, S = T
      1024, D 64, causal) with times, then at head dims 48, 80, 96, 100 and
-     256, non-causal, S != T and S not a multiple of the tile, each
+     256, non-causal, S != T, S not a multiple of the tile and phase 10's
+     ring block (B*H 16, S = T 2048, D 128, causal and full), each
      backward also fed a shifted lse (the ring's contract); K1/K2 timed at
-     D 64 on the same shape beside K4 and the head-major route;
+     D 64 on the same shape beside K4 and the head-major route; K1/K2 at
+     head dim 256 (Gemma-7B's attention: B 2, S = T 1024, 16 heads of
+     256, causal); the ring step K5 at phase 10's block (B*H 16, S = T
+     2048, D 128, full and causal, a carried-in state) with times, then at
+     head dims 48..256 and S != T;
   3. full-width checks, card against CPU on the same seeded weights, fp32
      with TF32 off: two packed ragged steps at Llama-3-8B widths, depth 2,
      on an fp pool and on an int8 pool, and at GPT-2 XL widths, depth 2,
      on an fp pool; one Adam train step at bench_1b widths and one at
      GPT-2 XL widths, depth 2, batch 1, seq 256 (the loss and every
-     parameter after the step);
+     parameter after the step), and one of the ring-built bench_1b,
+     depth 2, seq 1024 over a {"seq": 4} mesh (K5 launched per fold);
+     and the einsum ring (a local sequence that is not a multiple of
+     128) at bench_1b's attention widths: its output and gradients;
   4. serving: Llama-3-8B (32 layers, bf16, random weights from a seed)
      through serve_generation(paged=True) at its defaults (prefix cache
      and preemption on); 8 requests of 128..1024 prompt tokens, 64 new
      tokens each; the ragged kernel must have launched once per layer and
      step (counts reset just before, read just after);
   5. (on request) torch.profiler breakdowns of one decode step, one
-     prefill step, one bench_1b train step and one GPT-2 XL train step;
+     prefill step, one bench_1b train step, one GPT-2 XL train step and
+     one phase-10 ring step;
   6. training: bench_1b (16 layers, bf16, batch 8, seq 1024,
      remat="none", Adam lr 1e-4, random weights from a seed) through
      ff.fit for one epoch of 10 seeded batches, then 10 timed steps on
@@ -53,7 +62,8 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      pages must hit, growth must preempt, and the pool's invariants must
      hold after the drain;
   8. training GPT-2 XL (openai-community/gpt2-xl widths: vocab 50257, dim
-     1600, 48 layers, 25 heads of 64, FFN 6400, 1024 positions; bf16,
+     1600, 48 layers, 25 heads of 64, FFN 6400, 1024 positions; declared
+     bf16, fp32 from the position add on as the reference computes it,
      batch 8, seq 1024, remat="none", Adam lr 1e-4, random weights from a
      seed) through ff.fit for one epoch of 10 seeded batches, then 10
      timed steps on one repeated batch (the loss must fall); each K4
@@ -62,7 +72,15 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      table) through serve_generation(paged=True) at its defaults; 8
      requests of 128..768 prompt tokens, 64 new tokens each; the ragged
      kernel must launch once per layer and step; max_len 1025 must be
-     refused.
+     refused;
+ 10. training bench_1b (16 layers, full width, bf16) at Llama-3's
+     8192-token context, batch 1, through ring attention over a
+     {"seq": 4} mesh (remat="none", Adam lr 1e-4) through ff.fit for one
+     epoch of 10 seeded batches, then 10 timed steps on one batch (the
+     loss must fall); per layer and step K5 must fold 10 blocks and K4's
+     dq and dk/dv kernels run once per fold, no other attention kernel;
+     then the same model and weights without the ring (K1/K2 over all
+     8192 rows): its step time, and its logits against the ring's.
 The line before the last is the kernel list as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -93,6 +111,7 @@ from flexflow_tpu_torch.kernels import (
     FLASH_ATTENTION_BH_DKV,
     FLASH_ATTENTION_BH_DQ,
     FLASH_ATTENTION_BH_FWD,
+    FLASH_ATTENTION_BH_FWD_CARRY,
     FLASH_ATTENTION_DKV,
     FLASH_ATTENTION_DQ,
     FLASH_ATTENTION_FWD,
@@ -103,6 +122,7 @@ from flexflow_tpu_torch.kernels import (
     launch_flash_attention_bh_dkv,
     launch_flash_attention_bh_dq,
     launch_flash_attention_bh_fwd,
+    launch_flash_attention_bh_fwd_carry,
     launch_flash_attention_dkv,
     launch_flash_attention_dq,
     launch_flash_attention_fwd,
@@ -116,6 +136,7 @@ from flexflow_tpu_torch.ops.flash_attention import (
     flash_bh_delta,
     flash_bh_dkv_reference,
     flash_bh_dq_reference,
+    flash_bh_fwd_carry_reference,
     flash_bh_reference,
     flash_delta,
     flash_dkv_reference,
@@ -127,6 +148,8 @@ from flexflow_tpu_torch.paged.attention import (
     ragged_visibility_mask,
 )
 from flexflow_tpu_torch.paged.quant import dequantize_pages, quantized_append
+from flexflow_tpu_torch.parallel.mesh import make_mesh
+from flexflow_tpu_torch.parallel.ring import ring_dot_product_attention
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type
 HBM_BYTES_PER_S = 3.35e12
@@ -177,11 +200,18 @@ K4_KERNELS = (FLASH_ATTENTION_BH_FWD, FLASH_ATTENTION_BH_DQ,
 # K4's main shape: GPT-2 XL training attention, B 8 x H 25 heads, S = T
 # 1024, D 64, causal (the kernels line's case)
 KB, KS, KH, KD = 8, 1024, 25, 64
+# K5's main shape: one step of phase 10's ring, bench_1b attention at B 1
+# x H 16 heads, s_loc = 8192 / 4 = 2048 rows of each block, D 128
+K5_BH, K5_S, K5_D = 16, 2048, 128
 # K4 beyond the main shape (name, B*H, S, T, D, causal): the head dims of
 # the reference's own test (48), Phi-3-mini / OpenLLaMA-3B-like widths
 # (80, 96, 100), the widest instantiation (256), BERT's non-causal
-# route, S != T and S not a multiple of the 64-row tile
+# route, S != T and S not a multiple of the 64-row tile, and phase 10's
+# ring block, where K4's dq and dk/dv run the ring's backward (a causal
+# block on the diagonal, a full one below it) against the final lse
 K4_CASES = [
+    ("d128_ring_block_causal", K5_BH, K5_S, K5_S, K5_D, True),
+    ("d128_ring_block_full", K5_BH, K5_S, K5_S, K5_D, False),
     ("d48", 32, 512, 512, 48, True),
     ("d80", 32, 512, 512, 80, True),
     ("d96", 32, 512, 512, 96, True),
@@ -191,6 +221,30 @@ K4_CASES = [
     ("d64_s1000_t1536", 16, 1000, 1536, 64, True),
     ("d96_s777_noncausal", 16, 777, 777, 96, False),
 ]
+# K5 beyond the main shape (name, B*H, S, T, D, causal): the card test's
+# head dims, S != T, S not a multiple of the tile
+K5_CASES = [
+    ("d48", 32, 512, 512, 48, True),
+    ("d64", 32, 512, 512, 64, False),
+    ("d80", 32, 512, 512, 80, True),
+    ("d128", 32, 512, 512, 128, False),
+    ("d256", 16, 512, 512, 256, True),
+    ("d64_s1000_t1536", 16, 1000, 1536, 64, False),
+    ("d128_s777_t300", 16, 777, 300, 128, True),
+]
+# K1/K2 at head dim 256: Gemma-7B's attention widths (16 heads of 256, no
+# GQA), B 2, S = T 1024, causal
+D256_SHAPE = (2, 1024, 16, 16, 256)
+# phase 10: bench_1b at Llama-3's 8192-token context, cut over a
+# {"seq": 4} mesh (s_loc 2048), batch 1, 10 batches for fit; then timed
+# steps of the same model without the ring
+RING_SEQ, RING_SHARDS, RING_BATCHES, RING_PLAIN_STEPS = 8192, 4, 10, 3
+# ring vs plain route, bf16 forward logits at the same weights: the two
+# fold the 8192 keys in other orders, so p is rounded to bf16 against
+# other running maxima in each of 16 layers. A coarse check of the whole
+# model, not set from a faulty ring: phase 2's kernel checks and phase
+# 3's card-vs-CPU ring step and einsum ring hold the ring to its contract
+RING_LOGITS_RTOL = 0.1
 GPT2_POSITIONS = 1024  # n_positions: the position table, serving's max_len
 GPT2_BATCHES = 10
 # phase 9's traffic: 8 prompts uniform in 128..768 tokens, 64 new each
@@ -493,15 +547,17 @@ def _err_ok(pairs, tol):
     return max(errs), ok
 
 
-def flash_case(dtype, seed: int):
-    """q, k, v and a fixed dO at the training path's attention shape."""
+def flash_case(dtype, seed: int, shape=(FB, FS, FH, FHKV, FD)):
+    """q, k, v and a fixed dO at `shape` = (B, S, H, Hkv, D), the training
+    path's attention by default."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
+    B, S, Hq, Hkv, Dh = shape
 
-    def rand(*shape):
-        return torch.randn(*shape, generator=g, device=DEVICE).to(dtype)
+    def rand(*dims):
+        return torch.randn(*dims, generator=g, device=DEVICE).to(dtype)
 
-    return (rand(FB, FS, FH, FD), rand(FB, FS, FHKV, FD),
-            rand(FB, FS, FHKV, FD), rand(FB, FS, FH, FD))
+    return (rand(B, S, Hq, Dh), rand(B, S, Hkv, Dh), rand(B, S, Hkv, Dh),
+            rand(B, S, Hq, Dh))
 
 
 def flash_bounds(q, k, causal: bool, kernels=FLASH_KERNELS) -> dict:
@@ -553,17 +609,20 @@ def sdpa_calls(q, k, v, do, scale):
                                             retain_graph=True)
 
 
-def phase_flash_kernels(card: str) -> dict:
+def phase_flash_kernels(card: str, shape=(FB, FS, FH, FHKV, FD),
+                        case: str = "bench_1b_causal") -> dict:
     """Each flash kernel against its plain version on the same inputs
-    (K2's take the plain forward's lse and delta), causal, both dtypes.
-    Returns {dtype name: {kernel name: result}}."""
-    scale = 1.0 / FD ** 0.5
+    (K2's take the plain forward's lse and delta), causal, both dtypes,
+    at `shape` = (B, S, H, Hkv, D). Returns {dtype name: {kernel name:
+    result}}."""
+    B, S, Hq, _, Dh = shape
+    scale = 1.0 / Dh ** 0.5
     results = {}
     for seed, dtype in enumerate((torch.bfloat16, torch.float32)):
-        q, k, v, do = flash_case(dtype, seed)
+        q, k, v, do = flash_case(dtype, seed, shape)
         fwd_tol, grad_tol = FLASH_TOLS[dtype]
         out = torch.empty_like(q)
-        lse = torch.empty(FB, FH, FS, device=DEVICE)
+        lse = torch.empty(B, Hq, S, device=DEVICE)
         dq = torch.empty_like(q)
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         want_out, want_lse = flash_attention_reference(q, k, v, True, scale)
@@ -601,9 +660,9 @@ def phase_flash_kernels(card: str) -> dict:
             err, ok = _err_ok(pairs, tol)
             bound_ms, bound_by, nbytes, ops = bounds[name]
             res = {
-                "case": "bench_1b_causal", "kernel": name,
+                "case": case, "kernel": name,
                 "dtype": str(dtype).replace("torch.", ""),
-                "shape": [FB, FS, FH, FHKV, FD],
+                "shape": list(shape),
                 "max_abs_err": err, "tol": tol,
                 "ms": time_ms(kernel), "plain_ms": time_ms(plain),
                 "library_ms": lib_ms[name], "bound_ms": bound_ms,
@@ -792,6 +851,103 @@ def phase_k4_kernels(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the ring step kernel K5 against its plain version
+
+
+def k5_bound(q, k, causal: bool) -> tuple:
+    """(bound_ms, bound_by, bytes, ops) of one K5 call: q, k and v read
+    once, the fp32 m, l and acc read once and written once, against 4 * D
+    operations per visible (query, key) pair at the operand type's
+    peak."""
+    BH, S, Dh = q.shape
+    T = k.shape[1]
+    rows = np.arange(S)
+    pairs = BH * int((np.minimum(rows + 1, T) if causal
+                      else np.full(S, T)).sum())
+    nbytes = (q.numel() + 2 * k.numel()) * q.element_size() \
+        + 2 * (2 * BH * S + q.numel()) * 4
+    ops = 4 * Dh * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[q.dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def k5_check(BH, S, T, D, causal, dtype, seed, timed=False) -> dict:
+    """K5 on seeded (BH, S, D) q and (BH, T, D) k, v against its plain
+    version, from the initial statistics and from a carried-in state (the
+    plain fold of another block). With `timed`, the kernel's, the plain
+    version's and SDPA's forward times (a yardstick: no PyTorch call
+    takes a carried state) on the carried case, and the bound."""
+    scale = 1.0 / D ** 0.5
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = torch.randn(BH, S, D, generator=g, device=DEVICE).to(dtype)
+    k, v, k0, v0 = (torch.randn(BH, T, D, generator=g, device=DEVICE)
+                    .to(dtype) for _ in range(4))
+    fresh = (torch.full((BH, S), -1e30, device=DEVICE),
+             torch.zeros(BH, S, device=DEVICE),
+             torch.zeros(BH, S, D, device=DEVICE))
+    carried = flash_bh_fwd_carry_reference(q, k0, v0, *fresh, False, scale)
+    tol = FLASH_TOLS[dtype][0]
+    errs = []
+    for stats in (fresh, carried):
+        want = flash_bh_fwd_carry_reference(q, k, v, *stats, causal, scale)
+        bufs = [t.clone() for t in stats]
+        launch_flash_attention_bh_fwd_carry(q, k, v, *bufs, causal, scale)
+        torch.cuda.synchronize()
+        errs.append(_err_ok(list(zip(bufs, want)), tol))
+        del want, bufs
+    res = {"kernel": FLASH_ATTENTION_BH_FWD_CARRY.name,
+           "dtype": str(dtype).replace("torch.", ""),
+           "shape": [BH, S, T, D], "causal": causal,
+           "max_abs_err": max(e for e, _ in errs), "tol": tol,
+           "ok": all(o for _, o in errs)}
+    if timed:
+        bufs = [t.clone() for t in carried]
+        qh, kh, vh = q[:, None], k[:, None], v[:, None]
+        bound_ms, bound_by, nbytes, ops = k5_bound(q, k, causal)
+        res.update({
+            "ms": time_ms(lambda: launch_flash_attention_bh_fwd_carry(
+                q, k, v, *bufs, causal, scale)),
+            "plain_ms": time_ms(lambda: flash_bh_fwd_carry_reference(
+                q, k, v, *carried, causal, scale)),
+            "library_ms": None,
+            "library": "none (no PyTorch call takes a carried state)",
+            "sdpa_fwd_yardstick_ms": time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=causal, scale=scale)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops})
+    return res
+
+
+def phase_k5_kernels(card: str) -> dict:
+    """K5 at phase 10's block shape (bf16 and fp32, full and causal,
+    timed), then at every case of K5_CASES in both dtypes (errors only).
+    Fails on any error over its tolerance. Returns {"main": {"<dtype>_
+    <full|causal>": result}, "cases": [...]}."""
+    main, cases = {}, []
+    for seed, dtype in enumerate((torch.bfloat16, torch.float32)):
+        for causal in (False, True):
+            r = k5_check(K5_BH, K5_S, K5_S, K5_D, causal, dtype, seed,
+                         timed=True)
+            mode = "causal" if causal else "full"
+            r.update(case=f"bench_1b_ring_step_{mode}", card=card)
+            log(f"kernel {json.dumps(r)}")
+            main[f"{r['dtype']}_{mode}"] = r
+        torch.cuda.empty_cache()
+    for i, (name, BH, S, T, D, causal) in enumerate(K5_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            r = k5_check(BH, S, T, D, causal, dtype, 200 + i)
+            r["case"] = name
+            log(f"kernel {json.dumps(r)}")
+            cases.append(r)
+    bad = [r for r in list(main.values()) + cases if not r["ok"]]
+    if bad:
+        raise AssertionError(f"K5 disagrees with its plain version: {bad}")
+    return {"main": main, "cases": cases}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: one ragged step at full width, card vs CPU
 
 
@@ -930,14 +1086,18 @@ def phase_gpt2_step(seed: int) -> dict:
 
 
 def _train_model(cfg, device, *, batch, seq, dtype, remat, seed,
-                 params=None) -> FFModel:
+                 params=None, mesh_shape=None) -> FFModel:
     """build_llama or build_gpt2 (by the config's type) -> compile(Adam
     lr 1e-4, sparse CE, accuracy and sparse-CE metrics), the training
-    path's entry points."""
+    path's entry points. With a `mesh_shape` the Llama is built with ring
+    attention over its `seq` axis."""
     ff = FFModel(FFConfig(batch_size=batch, seed=seed, device=device,
-                          remat=remat))
-    build_model = build_gpt2 if isinstance(cfg, GPT2Config) else build_llama
-    build_model(ff, cfg, batch_size=batch, seq_len=seq, dtype=dtype)
+                          remat=remat, mesh_shape=mesh_shape))
+    if isinstance(cfg, GPT2Config):
+        build_gpt2(ff, cfg, batch_size=batch, seq_len=seq, dtype=dtype)
+    else:
+        build_llama(ff, cfg, batch_size=batch, seq_len=seq, dtype=dtype,
+                    use_ring_attention=mesh_shape is not None)
     return ff.compile(
         optimizer=AdamOptimizer(lr=TRAIN_LR),
         loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
@@ -953,37 +1113,49 @@ def _token_batches(n: int, seq: int, vocab: int, seed: int):
     return x, np.roll(x, -1, axis=1).astype(np.int32)
 
 
-def phase_train_step(seed: int, cfg=None, label="bench_1b") -> dict:
+def ring_folds(n: int) -> int:
+    """Blocks a causal ring of n shards folds per attention call: the
+    diagonal and every block before it, n (n + 1) / 2 (10 at n 4)."""
+    return n * (n + 1) // 2
+
+
+def phase_train_step(seed: int, cfg=None, label="bench_1b", seq=256,
+                     mesh_shape=None) -> dict:
     """One Adam train step at `cfg`'s widths (bench_1b by default), depth
-    2, fp32 (TF32 off), batch 1, seq 256: the card against the CPU from
-    the same seeded weights, the loss and every parameter after the
-    step."""
+    2, fp32 (TF32 off), batch 1, seq 256 (or `seq`): the card against the
+    CPU from the same seeded weights, the loss and every parameter after
+    the step. With a `mesh_shape` the model is the ring-built Llama, and
+    the card's step must fold every visible block through K5."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(cfg or LlamaConfig.bench_1b(), layers=2)
-    kw = dict(batch=1, seq=256, dtype=DataType.FLOAT, remat="none",
-              seed=seed)
+    kw = dict(batch=1, seq=seq, dtype=DataType.FLOAT, remat="none",
+              seed=seed, mesh_shape=mesh_shape)
     card_ff = _train_model(cfg, DEVICE, **kw)
     # the card's seeded weights, copied to the CPU before the step
     cpu_ff = _train_model(cfg, "cpu", **kw, params=tuple(
         {k: {n: t.cpu() for n, t in w.items()} for k, w in tree.items()}
         for tree in card_ff._params))
-    x, y = _token_batches(1, 256, cfg.vocab_size, seed + 1)
+    x, y = _token_batches(1, seq, cfg.vocab_size, seed + 1)
     out = []
     for ff in (card_ff, cpu_ff):
         ex = ff.executor
         tr, ntr = ff._params
         bx, by = (torch.from_numpy(a).to(ex.device) for a in (x, y))
+        _reset_launches()
         tr, ntr, _, m = ex.train_step(tr, ntr, ff._opt_state, by, bx)
         out.append((float(m["loss"]), {f"{k}/{n}": t.cpu() for k, w in
                                        tr.items() for n, t in w.items()}))
+        if ff is card_ff:
+            k5 = FLASH_ATTENTION_BH_FWD_CARRY.launches
     (gl, gp), (cl, cp) = out
     diffs = {n: (gp[n] - cp[n]).abs() for n in gp}
     worst = max(diffs, key=lambda n: float(diffs[n].max()))
     outside = sum(int((d > TRAIN_PARAM_TOL * (1 + cp[n].abs())).sum())
                   for n, d in diffs.items())
     total = sum(d.numel() for d in diffs.values())
-    res = {"model": label, "layers": 2, "loss_card": gl,
+    res = {"model": label, "layers": 2, "seq": seq,
+           "mesh_shape": mesh_shape, "k5_launches": k5, "loss_card": gl,
            "loss_cpu": cl, "loss_rel_err": abs(gl - cl) / abs(cl),
            "max_param_abs_err": float(diffs[worst].max()),
            "worst_param": worst, "weights": total,
@@ -993,12 +1165,64 @@ def phase_train_step(seed: int, cfg=None, label="bench_1b") -> dict:
     log(f"train_step {json.dumps(res)}")
     del card_ff, cpu_ff
     torch.cuda.empty_cache()
+    n = (mesh_shape or {}).get("seq", 1)
+    want_k5 = 2 * ring_folds(n) if n > 1 else 0
     ok = (np.isfinite(gl) and res["loss_rel_err"] <= TRAIN_LOSS_RTOL
           and res["max_param_abs_err"] <= 2 * TRAIN_LR
-          and outside <= TRAIN_OUTLIER_FRACTION * total)
+          and outside <= TRAIN_OUTLIER_FRACTION * total and k5 == want_k5)
     if not ok:
         raise AssertionError(f"card train step disagrees with CPU: {res}")
     return res
+
+
+def phase_ring_einsum(seed: int) -> dict:
+    """The ring's other route on the card: ring_dot_product_attention over
+    a {"seq": 4} mesh at bench_1b's attention widths (B 1, H 16, Hkv 8,
+    D 128) and S 768, so s_loc 192 is not a multiple of 128 and the
+    reference's einsum ring runs, not K5. Its output and the gradients of
+    q, k and v on the card against the same call on the CPU, bf16 and
+    fp32 (TF32 off), causal and full, within FLASH_TOLS; no attention
+    kernel may launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S, H, Hkv, D = 768, 16, 8, 128
+    scale = D ** -0.5
+    res = []
+    for i, (dtype, causal) in enumerate(
+            (d, c) for d in (torch.bfloat16, torch.float32)
+            for c in (True, False)):
+        g = torch.Generator().manual_seed(seed + i)
+        q, w = (torch.randn(1, S, H, D, generator=g).to(dtype)
+                for _ in range(2))
+        k, v = (torch.randn(1, S, Hkv, D, generator=g).to(dtype)
+                for _ in range(2))
+        got = []
+        for device in (DEVICE, "cpu"):
+            leaves = [t.to(device).requires_grad_() for t in (q, k, v)]
+            _reset_launches()
+            out = ring_dot_product_attention(
+                *leaves, mesh=make_mesh({"seq": RING_SHARDS}),
+                causal=causal, scale=scale)
+            (out.float() * w.to(device).float()).sum().backward()
+            if device == DEVICE:
+                launched = sum(kk.launches for kk in KERNELS)
+            got.append([t.detach().cpu() for t in
+                        [out] + [x.grad for x in leaves]])
+        fwd_tol, grad_tol = FLASH_TOLS[dtype]
+        err_fwd, ok_fwd = _err_ok([(got[0][0], got[1][0])], fwd_tol)
+        err_grad, ok_grad = _err_ok(list(zip(got[0][1:], got[1][1:])),
+                                    grad_tol)
+        r = {"dtype": str(dtype).replace("torch.", ""), "causal": causal,
+             "shape": [1, S, H, Hkv, D], "shards": RING_SHARDS,
+             "out_max_abs_err": err_fwd, "grad_max_abs_err": err_grad,
+             "tol": [fwd_tol, grad_tol], "kernel_launches": launched,
+             "ok": ok_fwd and ok_grad and launched == 0}
+        log(f"ring_einsum {json.dumps(r)}")
+        res.append(r)
+    bad = [r for r in res if not r["ok"]]
+    if bad:
+        raise AssertionError(f"einsum ring on the card disagrees with the "
+                             f"CPU: {bad}")
+    return {"cases": res}
 
 
 # ---------------------------------------------------------------------------
@@ -1437,19 +1661,21 @@ def phase_train(seed: int, card: str) -> dict:
 
 
 def phase_profile_train(seed: int, card: str, cfg=None,
-                        label: str = "bench_1b") -> dict:
+                        label: str = "bench_1b", batch: int = TRAIN_BATCH,
+                        seq: int = TRAIN_SEQ, mesh_shape=None) -> dict:
     """One train step of `cfg` (bench_1b by default; bf16, batch 8, seq
-    1024, remat none), timed by the host clock around synchronised steps
-    and traced with torch.profiler: device-busy time, idle share, kernels
-    by time."""
+    1024, remat none; or `batch`, `seq` and a ring over `mesh_shape`),
+    timed by the host clock around synchronised steps and traced with
+    torch.profiler: device-busy time, idle share, kernels by time."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = cfg or LlamaConfig.bench_1b()
-    ff = _train_model(cfg, DEVICE, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                      dtype=DataType.BFLOAT16, remat="none", seed=seed)
+    ff = _train_model(cfg, DEVICE, batch=batch, seq=seq,
+                      dtype=DataType.BFLOAT16, remat="none", seed=seed,
+                      mesh_shape=mesh_shape)
     ex = ff.executor
     state = list(ff._params) + [ff._opt_state]
-    x, y = _token_batches(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size, seed)
+    x, y = _token_batches(batch, seq, cfg.vocab_size, seed)
     bx, by = (torch.from_numpy(a).to(DEVICE) for a in (x, y))
 
     def step():
@@ -1495,11 +1721,11 @@ def _k4_launches() -> dict:
 
 
 def phase_gpt2_train(seed: int, card: str) -> dict:
-    """GPT-2 XL, bf16, batch 8, seq 1024, remat none: one ff.fit epoch of
-    10 seeded batches (the main path; counts reset just before, read just
-    after), then 10 timed train steps on one repeated batch. Each K4
-    kernel must launch once per layer and step, K1/K2 and the ragged
-    kernels never."""
+    """GPT-2 XL, bf16 (fp32 from the position add on, as the reference
+    computes it), batch 8, seq 1024, remat none: one ff.fit epoch of 10
+    seeded batches (the main path; counts reset just before, read just
+    after), then 10 timed train steps on one repeated batch. Each K4 kernel must launch once per layer and step, K1/K2 and
+    the ragged kernels never."""
     cfg = gpt2_xl()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -1565,6 +1791,132 @@ def phase_gpt2_train(seed: int, card: str) -> dict:
                              f"fall: {losses}")
     if any(n != cfg.layers * TIMED_STEPS for n in timed_launches.values()):
         raise AssertionError(f"timed launches {timed_launches}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 10: bench_1b at an 8192-token context through ring attention
+
+
+def _forward_logits(ff, bx):
+    """The lm_head's logits (the sink softmax skipped) of one batch."""
+    with torch.no_grad():
+        return ff.executor.run_forward(*ff._params, [bx],
+                                       skip_sink_softmax=True)
+
+
+def phase_ring_train(seed: int, card: str) -> dict:
+    """bench_1b, full depth and width, bf16, batch 1 x RING_SEQ tokens,
+    ring attention over {"seq": RING_SHARDS}, remat none: one ff.fit epoch
+    of RING_BATCHES seeded batches (the main path; counts reset just
+    before, read just after: per layer and step K5 folds
+    ring_folds(RING_SHARDS) blocks and K4's dq and dk/dv kernels run once
+    per folded block, no other attention kernel), then 10 timed steps on
+    one repeated batch (the loss must fall). Then the same model and
+    weights without the ring (K1/K2 over the whole 8192 rows): its step
+    time, and its forward logits against the ring model's at the initial
+    weights (bf16, so within RING_LOGITS_RTOL of their largest)."""
+    cfg = LlamaConfig.bench_1b()
+    mesh = {"seq": RING_SHARDS}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ff = _train_model(cfg, DEVICE, batch=1, seq=RING_SEQ,
+                      dtype=DataType.BFLOAT16, remat="none", seed=seed,
+                      mesh_shape=mesh)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    x, y = _token_batches(RING_BATCHES, RING_SEQ, cfg.vocab_size, seed)
+    bx, by = (torch.from_numpy(a[:1]).to(DEVICE) for a in (x, y))
+    ring_logits = _forward_logits(ff, bx)
+    _reset_launches()
+    t0 = time.monotonic()
+    pm = ff.fit(x, y, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    fit_launches = {k.name: k.launches for k in KERNELS}
+    per_step = cfg.layers * ring_folds(RING_SHARDS)
+    ring_kernels = (FLASH_ATTENTION_BH_FWD_CARRY, FLASH_ATTENTION_BH_DQ,
+                    FLASH_ATTENTION_BH_DKV)
+    want = {k.name: (per_step * RING_BATCHES if k in ring_kernels else 0)
+            for k in KERNELS}
+    if fit_launches != want:
+        raise AssertionError(f"fit launches {fit_launches}, want {want}")
+    fit_loss = pm.sparse_cce_loss / pm.train_all
+    if pm.train_all != RING_BATCHES or not np.isfinite(fit_loss):
+        raise AssertionError(f"fit: {pm}")
+
+    ex = ff.executor
+    tr, ntr = ff._params
+    opt = ff._opt_state
+    torch.cuda.synchronize()
+    _reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    losses = [float(v) for v in losses]
+    timed_launches = {k.name: k.launches for k in ring_kernels}
+    flops = llama_flops_per_token(cfg, RING_SEQ) * RING_SEQ
+    res = {
+        "model": "bench_1b", "layers": cfg.layers, "dtype": "bfloat16",
+        "batch": 1, "seq": RING_SEQ, "mesh_shape": mesh, "remat": "none",
+        "params": sum(t.numel() for w in tr.values() for t in w.values()),
+        "init_s": init_s, "fit_s": fit_s, "fit_steps": RING_BATCHES,
+        "fit_loss": fit_loss, "fit_launches": fit_launches,
+        "launches_per_step": {k.name: per_step for k in ring_kernels},
+        "timed_steps": TIMED_STEPS, "losses": losses,
+        "timed_launches": timed_launches, "step_ms": step_s * 1e3,
+        "tokens_per_s": RING_SEQ / step_s, "flops_per_step": flops,
+        "mfu": flops / step_s / PEAK_OPS[torch.bfloat16],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": card,
+    }
+    del ff, ex, tr, ntr, opt, m
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"ring loss on a repeated batch did not fall: "
+                             f"{losses}")
+    if any(n != per_step * TIMED_STEPS for n in timed_launches.values()):
+        raise AssertionError(f"timed launches {timed_launches}")
+
+    # the same model and seed without the ring: K1/K2 over all 8192 rows
+    torch.cuda.reset_peak_memory_stats()
+    ff = _train_model(cfg, DEVICE, batch=1, seq=RING_SEQ,
+                      dtype=DataType.BFLOAT16, remat="none", seed=seed)
+    plain_logits = _forward_logits(ff, bx)
+    diff = float((ring_logits.float() - plain_logits.float()).abs().max())
+    scale = float(plain_logits.float().abs().max())
+    del ring_logits, plain_logits
+    ex = ff.executor
+    tr, ntr = ff._params
+    opt = ff._opt_state
+    tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)  # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(RING_PLAIN_STEPS):
+        tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
+    torch.cuda.synchronize()
+    plain_s = (time.perf_counter() - t0) / RING_PLAIN_STEPS
+    res["no_ring"] = {
+        "step_ms": plain_s * 1e3, "steps": RING_PLAIN_STEPS,
+        "launches": _flash_launches(),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "logits_max_abs_diff_vs_ring": diff, "logits_max_abs": scale,
+        "logits_rtol": RING_LOGITS_RTOL}
+    res["ring_step_over_no_ring"] = step_s / plain_s
+    del ff, ex, tr, ntr, opt, m
+    torch.cuda.empty_cache()
+    log(f"train_ring {json.dumps(res)}")
+    if diff > RING_LOGITS_RTOL * scale or not np.isfinite(diff):
+        raise AssertionError(f"ring logits differ from the plain route's "
+                             f"by {diff} (largest {scale})")
+    if any(n != cfg.layers * RING_PLAIN_STEPS
+           for n in res["no_ring"]["launches"].values()):
+        raise AssertionError(f"no-ring launches {res['no_ring']}")
     return res
 
 
@@ -1664,15 +2016,16 @@ def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
                         if "atol" in res else
                         {"max_abs_err_over_max_plain": res["tol"]})
         entry.update({k: res[k] for k in (
-            "library", "sdpa_bf16_predequantized_ms") if k in res})
+            "library", "sdpa_bf16_predequantized_ms",
+            "sdpa_fwd_yardstick_ms") if k in res})
     return entry
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10",
                     help="comma-separated phases to run (default "
-                    "1,2,3,4,6,7,8,9; 5 profiles serving and training "
+                    "1,2,3,4,6,7,8,9,10; 5 profiles serving and training "
                     "steps)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -1693,22 +2046,32 @@ def main(argv=None) -> int:
     kern = phase_kernels(card) if 2 in phases else []
     kern8 = phase_int8_kernels(card) if 2 in phases else []
     flash = phase_flash_kernels(card) if 2 in phases else {}
+    if 2 in phases:
+        phase_flash_kernels(card, D256_SHAPE, "gemma7b_d256_causal")
     k4 = phase_k4_kernels(card) if 2 in phases else {}
+    k5 = phase_k5_kernels(card) if 2 in phases else {}
     if 3 in phases:
         phase_step(args.seed)
         phase_gpt2_step(args.seed)
         phase_train_step(args.seed)
         phase_train_step(args.seed, gpt2_xl(), "gpt2_xl")
+        phase_train_step(args.seed, label="bench_1b_ring", seq=1024,
+                         mesh_shape={"seq": RING_SHARDS})
+        phase_ring_einsum(args.seed)
     serve = phase_serve(args.seed, card) if 4 in phases else None
     train = phase_train(args.seed, card) if 6 in phases else None
     serve8 = phase_serve_int8(args.seed, card) if 7 in phases else None
     train_gpt2 = phase_gpt2_train(args.seed, card) if 8 in phases else None
     if 9 in phases:
         phase_gpt2_serve(args.seed, card)
+    ring = phase_ring_train(args.seed, card) if 10 in phases else None
     if 5 in phases:
         phase_profile(args.seed, card)
         phase_profile_train(args.seed, card)
         phase_profile_train(args.seed, card, gpt2_xl(), "gpt2_xl")
+        phase_profile_train(args.seed, card, label="bench_1b_ring_s8192",
+                            batch=1, seq=RING_SEQ,
+                            mesh_shape={"seq": RING_SHARDS})
     main_case = next((r for r in kern if r["case"] == ATTENTION_CASES[0][0]
                       and r["dtype"] == "bfloat16"), None)
     entries = [_kernel_entry(
@@ -1737,6 +2100,11 @@ def main(argv=None) -> int:
             k, f"flexflow_tpu_torch/csrc/{src}",
             train_gpt2["fit_launches"][k.name] if train_gpt2 else 0,
             k4.get("main", {}).get("bfloat16", {}).get(k.name)))
+    entries.append(_kernel_entry(
+        FLASH_ATTENTION_BH_FWD_CARRY,
+        "flexflow_tpu_torch/csrc/flash_attention_bh_fwd.cu",
+        ring["fit_launches"][FLASH_ATTENTION_BH_FWD_CARRY.name] if ring
+        else 0, k5.get("main", {}).get("bfloat16_full")))
     log(f"total {json.dumps({'seconds': time.monotonic() - t_start})}")
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

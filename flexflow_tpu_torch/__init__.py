@@ -7,10 +7,13 @@ eagerly on an NVIDIA GPU (or, when asked, the CPU). Its hand-written
 kernels are the ragged paged attention (csrc/ragged_paged_attention.cu),
 the flat-layout flash-attention forward and backward
 (csrc/flash_attention_fwd.cu, csrc/flash_attention_bwd.cu) for head dims
-that are multiples of 128, and the head-major ones for every other head
-dim (csrc/flash_attention_bh_fwd.cu, csrc/flash_attention_bh_bwd.cu).
-Models: Llama (models/llama.py) and GPT-2 (models/gpt2.py). It imports
-torch, never jax, and nothing of flexflow_tpu.
+that are multiples of 128, the head-major ones for every other head dim
+(csrc/flash_attention_bh_fwd.cu, csrc/flash_attention_bh_bwd.cu), and
+the ring-attention step, which folds a k/v block into carried softmax
+statistics (csrc/flash_attention_bh_fwd.cu; ops/ring_flash.py,
+parallel/ring.py). Models: Llama (models/llama.py, optionally with ring
+attention over the mesh's seq axis) and GPT-2 (models/gpt2.py). It
+imports torch, never jax, and nothing of flexflow_tpu.
 """
 
 from flexflow_tpu_torch.config import FFConfig

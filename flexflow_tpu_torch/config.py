@@ -1,17 +1,21 @@
 """Runtime configuration (counterpart of flexflow_tpu/config.py).
 
 Carries the fields the serving and training slices read: batch size,
-epochs, seed and the rematerialization mode, and the new `device`. Every
-entry point runs on the card ("cuda") unless the caller asks for "cpu",
-and a CUDA request on a machine without a card raises instead of
-drifting to the CPU.
+epochs, seed, the rematerialization mode, the mesh shape (only its `seq`
+axis may exceed 1 on one device: ring attention's shards), and the new
+`device`. Every entry point runs on the card ("cuda") unless the caller
+asks for "cpu", and a CUDA request on a machine without a card raises
+instead of drifting to the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Optional
 
 import torch
+
+from flexflow_tpu_torch.parallel.mesh import check_axes
 
 REMAT_MODES = ("none", "attention")
 
@@ -28,8 +32,15 @@ class FFConfig:
     # saving its intermediates; "none" saves everything. The reference's
     # "hidden" mode (MLP hidden activations) is not ported yet.
     remat: str = "attention"
+    # explicit mesh shape, {axis name: size} (the reference's field); None
+    # is {"data": 1}. Only "seq" may exceed 1: ring attention cuts the
+    # sequence into that many shards on the one device; any other axis
+    # above 1 raises (ROADMAP.md, queue 1 item 12)
+    mesh_shape: Optional[Dict[str, int]] = None
 
     def __post_init__(self):
+        if self.mesh_shape is not None:
+            check_axes(self.mesh_shape)
         if self.remat == "hidden":
             raise NotImplementedError(
                 'remat="hidden" is not ported yet (ROADMAP.md, queue 1 '

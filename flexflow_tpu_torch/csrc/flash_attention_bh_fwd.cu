@@ -1,11 +1,19 @@
-// Head-major flash-attention forward (kernel K4) for Hopper (sm_90a),
-// written by hand.
+// Head-major flash-attention forward (kernel K4) and its ring-step variant
+// (kernel K5) for Hopper (sm_90a), written by hand.
 //
-// Replaces flexflow_tpu/ops/pallas/flash_attention.py::_fwd (body
+// K4 replaces flexflow_tpu/ops/pallas/flash_attention.py::_fwd (body
 // _fwd_kernel, tile math _online_block): blockwise attention with an
 // online softmax over head-major (BH, S, D) q and (BH, T, D) k/v, kv heads
 // already repeated to the q heads by the caller. The reference reaches it
 // for every head dim that is not a multiple of 128 (GPT-2, BERT: D 64).
+//
+// K5 replaces _fwd_carry (body _fwd_carry_kernel), one step of ring
+// attention (ring_flash.py): the same online softmax, but (m, l, acc)
+// are read from the caller's fp32 m, l (BH, S) and acc (BH, S, D) instead
+// of starting at (-1e30, 0, 0), and written back to them, updated in
+// place and not normalised, for the next ring step. Both kernels run one
+// block body (template flag Carry), so their math cannot drift apart;
+// each has a __global__ entry of its own, so a profile tells them apart.
 //
 // Contract (the TPU kernel's): scores are fp32 dots times `scale`; under
 // `causal` key kpos is visible to query qpos when qpos >= kpos (top-left
@@ -23,9 +31,12 @@
 // memory. Rows past S and keys past T are masked here.
 //
 // What bounds it on the card: operations. At GPT-2 XL training (B 8,
-// S = T 1024, H 25, D 64, causal) it does 4 * D ops per visible pair, about
+// S = T 1024, H 25, D 64, causal) K4 does 4 * D ops per visible pair, about
 // 0.031 ms at the bf16 tensor-core peak, against ~0.05 GB of q, k, v, out
-// and lse (~0.016 ms at 3.35 TB/s). This first version runs the dots on
+// and lse (~0.016 ms at 3.35 TB/s). K5 at a bench_1b ring step (BH 16,
+// S = T 2048, D 128, full) does 4 * D ops per pair (~0.035 ms) against
+// ~59 MB, over half of it the fp32 acc read and written (~0.018 ms). This
+// first version runs the dots on
 // CUDA cores from fp32 shared-memory tiles (register tiles of
 // (BQ / 16) x (BK / 16) scores per thread); wgmma and TMA are a later
 // change.
@@ -36,12 +47,16 @@ namespace {
 
 using namespace ffflash;
 
-template <typename T, int DP, int BT>
-__global__ void __launch_bounds__(kThreads)
-flash_bh_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ out,
-                    float* __restrict__ lse, int S, int Tk, int D,
-                    int causal, float scale) {
+// The block body of both kernels.
+// Carry = false: K4, writes out and lse (m_io, l_io, acc_io unused).
+// Carry = true: K5, reads and writes m_io, l_io, acc_io (out, lse unused).
+template <typename T, int DP, int BT, bool Carry>
+__device__ __forceinline__ void
+flash_bh_fwd_body(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ out,
+                  float* __restrict__ lse, float* __restrict__ m_io,
+                  float* __restrict__ l_io, float* __restrict__ acc_io,
+                  int S, int Tk, int D, int causal, float scale) {
   constexpr int LD = DP + 1;   // padded row stride of DP-wide tiles
   constexpr int LP = BT + 1;   // padded row stride of the score tile
   constexpr int RI = BT / 16;  // query rows per thread
@@ -64,10 +79,16 @@ flash_bh_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m[RI], l[RI], acc[RI][JD];
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+    const int qpos = q0 + ty * RI + i;
+    const bool carried = Carry && qpos < S;
+    const size_t row = bh * S + qpos;
+    m[i] = carried ? m_io[row] : kNegInf;
+    l[i] = carried ? l_io[row] : 0.f;
 #pragma unroll
-    for (int jd = 0; jd < JD; ++jd) acc[i][jd] = 0.f;
+    for (int jd = 0; jd < JD; ++jd) {
+      const int col = tx + 16 * jd;
+      acc[i][jd] = carried && col < D ? acc_io[row * D + col] : 0.f;
+    }
   }
 
   // tiles wholly past the diagonal are never visited (the reference's
@@ -149,15 +170,52 @@ flash_bh_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RI; ++i) {
     const int qpos = q0 + ty * RI + i;
     if (qpos >= S) continue;
+    const size_t row = bh * S + qpos;
+    if (Carry) {
+      // the statistics as they stand, for the next ring step
+#pragma unroll
+      for (int jd = 0; jd < JD; ++jd) {
+        const int col = tx + 16 * jd;
+        if (col < D) acc_io[row * D + col] = acc[i][jd];
+      }
+      if (tx == 0) {
+        m_io[row] = m[i];
+        l_io[row] = l[i];
+      }
+      continue;
+    }
     const float l_safe = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int jd = 0; jd < JD; ++jd) {
       const int col = tx + 16 * jd;
-      if (col < D)
-        out[(bh * S + qpos) * D + col] = from_f<T>(acc[i][jd] / l_safe);
+      if (col < D) out[row * D + col] = from_f<T>(acc[i][jd] / l_safe);
     }
-    if (tx == 0) lse[bh * S + qpos] = m[i] + logf(l_safe);
+    if (tx == 0) lse[row] = m[i] + logf(l_safe);
   }
+}
+
+// Two entry points over one body, so that a profile names K4 and K5 apart.
+template <typename T, int DP, int BT>
+__global__ void __launch_bounds__(kThreads)
+flash_bh_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ out,
+                    float* __restrict__ lse, float* __restrict__ m_io,
+                    float* __restrict__ l_io, float* __restrict__ acc_io,
+                    int S, int Tk, int D, int causal, float scale) {
+  flash_bh_fwd_body<T, DP, BT, false>(q, k, v, out, lse, m_io, l_io, acc_io,
+                                      S, Tk, D, causal, scale);
+}
+
+template <typename T, int DP, int BT>
+__global__ void __launch_bounds__(kThreads)
+flash_bh_fwd_carry_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ out,
+                          float* __restrict__ lse, float* __restrict__ m_io,
+                          float* __restrict__ l_io,
+                          float* __restrict__ acc_io, int S, int Tk, int D,
+                          int causal, float scale) {
+  flash_bh_fwd_body<T, DP, BT, true>(q, k, v, out, lse, m_io, l_io, acc_io,
+                                     S, Tk, D, causal, scale);
 }
 
 template <int DP>
@@ -165,30 +223,40 @@ constexpr size_t fwd_smem(int bt) {
   return ((size_t)3 * bt * (DP + 1) + (size_t)bt * (bt + 1)) * sizeof(float);
 }
 
-template <typename T, int DP>
-int launch(const void* q, const void* k, const void* v, void* out,
-           void* lse, int BH, int S, int Tk, int D, int causal, float scale,
+// the buffers of one launch: out and lse for K4, m, l and acc for K5
+struct Outputs {
+  void* out;
+  void* lse;
+  void* m;
+  void* l;
+  void* acc;
+};
+
+template <typename T, int DP, bool Carry>
+int launch(const void* q, const void* k, const void* v, Outputs o, int BH,
+           int S, int Tk, int D, int causal, float scale,
            cudaStream_t stream) {
   constexpr int BT = fwd_smem<DP>(64) <= kMaxSmemBytes ? 64 : 32;
   constexpr size_t smem = fwd_smem<DP>(BT);
   static_assert(smem <= kMaxSmemBytes, "tile does not fit shared memory");
-  auto kernel = flash_bh_fwd_kernel<T, DP, BT>;
+  auto kernel = Carry ? flash_bh_fwd_carry_kernel<T, DP, BT>
+                      : flash_bh_fwd_kernel<T, DP, BT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BT - 1) / BT, BH);
   kernel<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse, S, Tk, D,
-      causal, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o.out, (float*)o.lse,
+      (float*)o.m, (float*)o.l, (float*)o.acc, S, Tk, D, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out,
-             void* lse, int BH, int S, int Tk, int D, int causal,
-             float scale, cudaStream_t st) {
+template <typename T, bool Carry>
+int dispatch(const void* q, const void* k, const void* v, Outputs o, int BH,
+             int S, int Tk, int D, int causal, float scale,
+             cudaStream_t st) {
 #define FF_FWD(DP) \
-  return launch<T, DP>(q, k, v, out, lse, BH, S, Tk, D, causal, scale, st)
+  return launch<T, DP, Carry>(q, k, v, o, BH, S, Tk, D, causal, scale, st)
   if (D <= 32) FF_FWD(32);
   if (D <= 64) FF_FWD(64);
   if (D <= 96) FF_FWD(96);
@@ -212,12 +280,31 @@ int ff_flash_attention_bh_fwd(const void* q, const void* k, const void* v,
                               void* stream) {
   if (!bh_shapes_ok(BH, S, T, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const Outputs o{out, lse, nullptr, nullptr, nullptr};
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, lse, BH, S, T, D, causal, scale,
-                           st);
+    return dispatch<float, false>(q, k, v, o, BH, S, T, D, causal, scale,
+                                  st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, lse, BH, S, T, D, causal,
-                                   scale, st);
+    return dispatch<__nv_bfloat16, false>(q, k, v, o, BH, S, T, D, causal,
+                                          scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5: q (BH, S, D), k/v (BH, T, D) of one dtype (as K4); m, l fp32 (BH, S)
+// and acc fp32 (BH, S, D), read and updated in place. Same return codes.
+int ff_flash_attention_bh_fwd_carry(const void* q, const void* k,
+                                    const void* v, void* m, void* l,
+                                    void* acc, int BH, int S, int T, int D,
+                                    int causal, float scale, int dtype,
+                                    void* stream) {
+  if (!bh_shapes_ok(BH, S, T, D)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Outputs o{nullptr, nullptr, m, l, acc};
+  if (dtype == 0)
+    return dispatch<float, true>(q, k, v, o, BH, S, T, D, causal, scale, st);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16, true>(q, k, v, o, BH, S, T, D, causal,
+                                         scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

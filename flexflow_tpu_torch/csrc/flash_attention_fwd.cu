@@ -14,10 +14,13 @@
 // pass. (The TPU broadcasts lse over 128 lanes; that is its layout, not
 // part of the contract.)
 //
-// Design: one block per (64-row query tile, b * H + h). A loop over 64-row
+// Design: one block per (BT-row query tile, b * H + h). A loop over BT-row
 // K/V tiles takes the place of the TPU's sequential grid axis and stops at
 // the causal diagonal (the counterpart of _live). Rows and columns past S
 // or T are masked here, so S and T need not be multiples of the tile.
+// Head dims 64, 128 and 256 (the reference's flat route takes every
+// multiple of 128); BT is 64 at each, the largest tile whose fp32 Q, K, V
+// and score tiles fit a block's 227 KB (static_assert'ed).
 //
 // What bounds it on the card: operations. At the training shape (B 8,
 // S = T 1024, H 16, D 128, causal) it does 4 * D ops per visible (query,
@@ -32,30 +35,32 @@ namespace {
 
 using namespace ffflash;
 
-template <typename T, int D>
+template <typename T, int D, int BT>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int S, int Tk, int H, int Hkv,
                  int causal, float scale) {
   constexpr int LD = D + 1;    // padded row stride of D-wide tiles
-  constexpr int LP = kBK + 1;  // padded row stride of the score tile
+  constexpr int LP = BT + 1;   // padded row stride of the score tile
+  constexpr int RI = BT / 16;  // query rows per thread
+  constexpr int CJ = BT / 16;  // score columns per thread
   constexpr int JD = D / 16;   // output columns per thread
   extern __shared__ float smem[];
-  float* sQ = smem;             // (kBQ, LD)
-  float* sK = sQ + kBQ * LD;    // (kBK, LD)
-  float* sV = sK + kBK * LD;    // (kBK, LD)
-  float* sP = sV + kBK * LD;    // (kBQ, LP) probabilities
+  float* sQ = smem;            // (BT, LD)
+  float* sK = sQ + BT * LD;    // (BT, LD)
+  float* sV = sK + BT * LD;    // (BT, LD)
+  float* sP = sV + BT * LD;    // (BT, LP) probabilities
 
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * BT;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H, g = h / (H / Hkv);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
-  load_rows<T, D>(sQ, LD, q, b, S, H, h, q0, kBQ);
-  float m[4], l[4], acc[4][JD];
+  load_rows<T, D>(sQ, LD, q, b, S, H, h, q0, BT);
+  float m[RI], l[RI], acc[RI][JD];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
@@ -63,38 +68,38 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // tiles wholly past the diagonal are never visited
-  const int kend = causal ? min(Tk, q0 + kBQ) : Tk;
-  for (int k0 = 0; k0 < kend; k0 += kBK) {
+  const int kend = causal ? min(Tk, q0 + BT) : Tk;
+  for (int k0 = 0; k0 < kend; k0 += BT) {
     __syncthreads();  // the previous tile's P.V is done with sV and sP
-    load_rows<T, D>(sK, LD, k, b, Tk, Hkv, g, k0, kBK);
-    load_rows<T, D>(sV, LD, v, b, Tk, Hkv, g, k0, kBK);
+    load_rows<T, D>(sK, LD, k, b, Tk, Hkv, g, k0, BT);
+    load_rows<T, D>(sV, LD, v, b, Tk, Hkv, g, k0, BT);
     __syncthreads();
 
-    float s[4][4];
+    float s[RI][CJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float a[4], c[4];
+      float a[RI], c[CJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty * 4 + i) * LD + d];
+      for (int i = 0; i < RI; ++i) a[i] = sQ[(ty * RI + i) * LD + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = sK[(tx + 16 * j) * LD + d];
+      for (int j = 0; j < CJ; ++j) c[j] = sK[(tx + 16 * j) * LD + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+        for (int j = 0; j < CJ; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
     }
 
     // online softmax: fold this tile into (m, l, acc), row by row
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
+    for (int i = 0; i < RI; ++i) {
+      const int qpos = q0 + ty * RI + i;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < CJ; ++j) {
         const int kpos = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
         if (causal && kpos > qpos) x = kNegInf;
@@ -106,12 +111,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float corr = expf(m[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < CJ; ++j) {
         const int kpos = k0 + tx + 16 * j;
         const float p = kpos < Tk ? expf(s[i][j] - m_new) : 0.f;
         sum += p;
         // rounded to v's dtype before P.V, as the TPU kernel
-        sP[(ty * 4 + i) * LP + tx + 16 * j] = round_to<T>(p);
+        sP[(ty * RI + i) * LP + tx + 16 * j] = round_to<T>(p);
       }
       sum = row_sum16(sum);
       l[i] = l[i] * corr + sum;
@@ -122,13 +127,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
+    for (int c = 0; c < BT; ++c) {
       float vv[JD];
 #pragma unroll
       for (int jd = 0; jd < JD; ++jd) vv[jd] = sV[c * LD + tx + 16 * jd];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = sP[(ty * 4 + i) * LP + c];
+      for (int i = 0; i < RI; ++i) {
+        const float p = sP[(ty * RI + i) * LP + c];
 #pragma unroll
         for (int jd = 0; jd < JD; ++jd)
           acc[i][jd] = fmaf(p, vv[jd], acc[i][jd]);
@@ -137,8 +142,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int qpos = q0 + ty * RI + i;
     if (qpos >= S) continue;
     const float l_safe = fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -149,20 +154,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <int D>
+constexpr size_t fwd_smem(int bt) {
+  return ((size_t)3 * bt * (D + 1) + (size_t)bt * (bt + 1)) * sizeof(float);
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            void* lse, int B, int S, int Tk, int H, int Hkv, int causal,
            float scale, cudaStream_t stream) {
-  constexpr int LD = D + 1;
-  const size_t smem =
-      ((size_t)kBQ * LD + 2 * (size_t)kBK * LD + (size_t)kBQ * (kBK + 1)) *
-      sizeof(float);
-  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  auto kernel = flash_fwd_kernel<T, D>;
+  constexpr int BT = fwd_smem<D>(64) <= kMaxSmemBytes ? 64 : 32;
+  constexpr size_t smem = fwd_smem<D>(BT);
+  static_assert(smem <= kMaxSmemBytes, "tile does not fit shared memory");
+  auto kernel = flash_fwd_kernel<T, D, BT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  const dim3 grid((S + BT - 1) / BT, B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse, S, Tk, H,
       Hkv, causal, scale);
@@ -175,7 +183,7 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it); lse is
 // fp32 (B, H, S). Returns a cudaError_t: cudaErrorInvalidValue for shapes
-// the kernel does not take (D other than 64 or 128), otherwise the
+// the kernel does not take (D other than 64, 128 or 256), otherwise the
 // launch's cudaGetLastError().
 int ff_flash_attention_fwd(const void* q, const void* k, const void* v,
                            void* out, void* lse, int B, int S, int T, int H,
@@ -183,18 +191,16 @@ int ff_flash_attention_fwd(const void* q, const void* k, const void* v,
                            int dtype, void* stream) {
   if (!shapes_ok(B, S, T, H, Hkv, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, out, lse, B, S, T, H, Hkv, causal,
-                             scale, st);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, out, lse, B, S, T, H, Hkv, causal,
-                              scale, st);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, lse, B, S, T, H, Hkv,
-                                     causal, scale, st);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, out, lse, B, S, T, H, Hkv,
-                                      causal, scale, st);
+#define FF_FWD(TYPE, DIM)                                                  \
+  return launch<TYPE, DIM>(q, k, v, out, lse, B, S, T, H, Hkv, causal,    \
+                           scale, st)
+  if (dtype == 0 && D == 64) FF_FWD(float, 64);
+  if (dtype == 0 && D == 128) FF_FWD(float, 128);
+  if (dtype == 0 && D == 256) FF_FWD(float, 256);
+  if (dtype == 1 && D == 64) FF_FWD(__nv_bfloat16, 64);
+  if (dtype == 1 && D == 128) FF_FWD(__nv_bfloat16, 128);
+  if (dtype == 1 && D == 256) FF_FWD(__nv_bfloat16, 256);
+#undef FF_FWD
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,11 +8,13 @@
 // ((b * L + t) * heads + h) * D + d. A q head h reads kv head h / rep
 // (rep = H / Hkv): no head-major copy and no repeated K/V.
 //
-// Work split: a block of 256 threads is a 16 x 16 grid; thread (ty, tx)
-// owns rows ty * 4 + i (i < 4) of a 64-row tile and, of a 64-column score
-// tile, columns tx + 16 * j (j < 4); of a D-wide tile, columns
-// tx + 16 * jd (jd < D / 16). The 16 threads of one row are 16 lanes of
-// one warp, so a row's max and sum are warp shuffles. Tiles are staged in
+// Work split: a block of 256 threads is a 16 x 16 grid; tiles are BT x BT
+// with BT = 64, or 32 where 64-row tiles of a kernel do not fit a block's
+// 227 KB of shared memory (D 256 in the backward). Thread (ty, tx) owns
+// rows ty * (BT / 16) + i of a tile and, of a score tile, columns
+// tx + 16 * j (j < BT / 16); of a D-wide tile, columns tx + 16 * jd
+// (jd < D / 16). The 16 threads of one row are 16 lanes of one warp, so a
+// row's max and sum are warp shuffles. Tiles are staged in
 // fp32 (bf16 inputs are widened on load, so every product is exact in
 // fp32, as on a tensor core) with rows padded by one float, which keeps
 // the column-wise reads of the score loops free of bank conflicts.
@@ -26,8 +28,6 @@
 
 namespace ffflash {
 
-constexpr int kBQ = 64;        // query rows per tile
-constexpr int kBK = 64;        // key rows per tile
 constexpr int kThreads = 256;  // 16 x 16
 constexpr float kNegInf = -1e30f;  // masked score (as the TPU kernel)
 constexpr size_t kMaxSmemBytes = 232448;  // 227 KB a block may use
@@ -85,10 +85,11 @@ __device__ __forceinline__ size_t elem(int b, int L, int heads, int h,
   return (((size_t)b * L + t) * heads + h) * D + d;
 }
 
-// arguments every entry point validates the same way
+// arguments every entry point validates the same way: the head dims the
+// kernels are instantiated for, and B * H on grid.y
 inline bool shapes_ok(int B, int S, int T, int H, int Hkv, int D) {
   return B > 0 && S > 0 && T > 0 && Hkv > 0 && H % Hkv == 0 &&
-         (D == 64 || D == 128) && (long long)B * H <= 65535;
+         (D == 64 || D == 128 || D == 256) && (long long)B * H <= 65535;
 }
 
 }  // namespace ffflash

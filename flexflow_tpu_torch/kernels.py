@@ -185,6 +185,16 @@ FLASH_ATTENTION_BH_FWD = CudaKernel(
     replaces=f"{_FLASH}:315",
 )
 
+# K5, one ring step (`_fwd_carry`): K4's forward folding k/v into carried
+# fp32 (m, l, acc), updated in place; a second entry point of K4's source
+FLASH_ATTENTION_BH_FWD_CARRY = CudaKernel(
+    name="flash_attention_bh_fwd_carry",
+    source="flash_attention_bh_fwd.cu",
+    symbol="ff_flash_attention_bh_fwd_carry",
+    argtypes=[_VOID_P] * 6 + [_INT] * 5 + [ctypes.c_float, _INT, _VOID_P],
+    replaces=f"{_FLASH}:378",
+)
+
 FLASH_ATTENTION_BH_DQ = CudaKernel(
     name="flash_attention_bh_dq",
     source="flash_attention_bh_bwd.cu",
@@ -204,7 +214,7 @@ FLASH_ATTENTION_BH_DKV = CudaKernel(
 KERNELS = (RAGGED_PAGED_ATTENTION, RAGGED_PAGED_ATTENTION_INT8,
            FLASH_ATTENTION_FWD, FLASH_ATTENTION_DQ, FLASH_ATTENTION_DKV,
            FLASH_ATTENTION_BH_FWD, FLASH_ATTENTION_BH_DQ,
-           FLASH_ATTENTION_BH_DKV)
+           FLASH_ATTENTION_BH_DKV, FLASH_ATTENTION_BH_FWD_CARRY)
 
 # the largest head dim K4 takes (csrc/flash_bh_common.cuh, kMaxHeadDim)
 BH_MAX_HEAD_DIM = 256
@@ -310,6 +320,19 @@ def launch_flash_attention_bh_fwd(q, k, v, out, lse, causal: bool,
             v.data_ptr(), out.data_ptr(), lse.data_ptr(), BH, S, k.shape[1],
             D, int(causal), float(scale), KERNEL_DTYPES[q.dtype])
     return out, lse
+
+
+def launch_flash_attention_bh_fwd_carry(q, k, v, m, l, acc, causal: bool,
+                                        scale: float):
+    """K5: fold head-major k/v (BH, T, D) into the carried fp32 statistics
+    m, l (BH, S) and acc (BH, S, D) of q (BH, S, D), in place. Validated
+    by the caller (ops.flash_attention.flash_bh_fwd_carry)."""
+    BH, S, D = q.shape
+    _launch(FLASH_ATTENTION_BH_FWD_CARRY, q.device, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), m.data_ptr(), l.data_ptr(),
+            acc.data_ptr(), BH, S, k.shape[1], D, int(causal), float(scale),
+            KERNEL_DTYPES[q.dtype])
+    return m, l, acc
 
 
 def launch_flash_attention_bh_dq(q, k, v, dout, lse, delta, dq,

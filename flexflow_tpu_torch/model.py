@@ -27,6 +27,7 @@ from flexflow_tpu_torch.ffconst import (
     OpType,
 )
 from flexflow_tpu_torch.ops import attrs as A
+from flexflow_tpu_torch.parallel.mesh import Mesh, make_mesh
 from flexflow_tpu_torch.pcg.graph import Graph, Node
 from flexflow_tpu_torch.pcg.tensor import TensorShape
 from flexflow_tpu_torch.runtime.executor import Executor
@@ -61,6 +62,7 @@ class FFModel:
         self.config = config or FFConfig()
         self.graph = Graph()
         self._executor: Optional[Executor] = None
+        self._mesh: Optional[Mesh] = None
         self._params = None  # (trainable, nontrainable)
         self._opt_state = None
         self._optimizer: Optional[Optimizer] = None
@@ -148,6 +150,26 @@ class FFModel:
                 rope, rope_theta),
             [query, key, value], name or "attention")
 
+    def ring_attention(self, query: Tensor, key: Tensor, value: Tensor,
+                       embed_dim: int, num_heads: int, causal: bool = True,
+                       kv_heads: Optional[int] = None, rope: bool = False,
+                       rope_theta: float = 10000.0, seq_mode: str = "ring",
+                       name: Optional[str] = None) -> Tensor:
+        """Sequence-parallel attention: MULTIHEAD_ATTENTION's weights
+        (no biases) with the sequence cut over the mesh's `seq` axis
+        (parallel/ring.py). Only seq_mode="ring" is ported."""
+        return self._one(
+            OpType.RING_ATTENTION,
+            A.RingAttentionAttrs(embed_dim, num_heads, kv_heads, None, causal,
+                                 False, 0.0, rope, rope_theta, seq_mode),
+            [query, key, value], name or "ring_attention")
+
+    def ulysses_attention(self, *args, **kwargs) -> Tensor:
+        """DeepSpeed-Ulysses sequence parallelism is not ported yet."""
+        raise NotImplementedError(
+            "ulysses_attention is not ported yet (ROADMAP.md, queue 1 item "
+            "12); use ring_attention")
+
     def _binary(self, kind: str, x: Tensor, y: Tensor, name) -> Tensor:
         return self._one(OpType.ELEMENT_BINARY, A.ElementBinaryAttrs(kind),
                          [x, y], name or kind)
@@ -224,9 +246,11 @@ class FFModel:
         self._loss_type = loss_type
         self._metrics = list(metrics)
         self.graph.infer_shapes()
+        # the reference's default mesh is {"data": devices}: one here
+        self._mesh = make_mesh(self.config.mesh_shape or {"data": 1})
         self._executor = Executor(self.graph, device, loss_type=loss_type,
                                   metrics=self._metrics, optimizer=optimizer,
-                                  remat=self.config.remat)
+                                  remat=self.config.remat, mesh=self._mesh)
         if params is None:
             tr, ntr = self._executor.init_params(self.config.seed)
         else:
@@ -253,6 +277,11 @@ class FFModel:
     @property
     def device(self):
         return self.executor.device
+
+    @property
+    def mesh(self) -> Optional[Mesh]:
+        """The mesh compile() built from `config.mesh_shape`."""
+        return self._mesh
 
     # ------------------------------------------------------------------
     # train / eval / predict on numpy batches

@@ -1,8 +1,10 @@
 """Llama-family decoder builder (counterpart of
 flexflow_tpu/models/llama.py): RMSNorm, GQA attention with RoPE, SwiGLU
 MLP, through the FFModel layer API — the same calls in the same order, so
-both packages build the same PCG. Ring attention, the pipeline composite
-and the sharding strategies are not ported yet.
+both packages build the same PCG. With `use_ring_attention` each layer's
+attention is a RING_ATTENTION node (sequence-parallel over the mesh's
+`seq` axis). The pipeline composite and the sharding strategies are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -44,21 +46,28 @@ class LlamaConfig:
 def build_llama(ff: FFModel, cfg: LlamaConfig, batch_size: int = None,
                 seq_len: int = 2048, dtype: DataType = DataType.BFLOAT16,
                 use_ring_attention: bool = False,
+                seq_mode: str = "ring",
                 use_pipeline: bool = False) -> Tensor:
-    if use_ring_attention or use_pipeline:
+    if use_pipeline:
         raise NotImplementedError(
-            "ring attention and the pipeline composite are not ported yet "
-            "(ROADMAP.md, queue 1)")
+            "the pipeline composite is not ported yet (ROADMAP.md, queue 1 "
+            "items 8 and 12)")
     b = batch_size or ff.config.batch_size
     ids = ff.create_tensor((b, seq_len), DataType.INT32, name="input_ids")
     h = ff.embedding(ids, cfg.vocab_size, cfg.dim, dtype=dtype,
                      name="tok_emb")
     for i in range(cfg.layers):
         a = ff.rms_norm(h, eps=cfg.norm_eps, name=f"l{i}_attn_norm")
-        a = ff.multihead_attention(
-            a, a, a, cfg.dim, cfg.heads, causal=True, kv_heads=cfg.kv_heads,
-            rope=True, rope_theta=cfg.rope_theta, bias=False,
-            name=f"l{i}_attn")
+        if use_ring_attention:
+            a = ff.ring_attention(
+                a, a, a, cfg.dim, cfg.heads, causal=True,
+                kv_heads=cfg.kv_heads, rope=True, rope_theta=cfg.rope_theta,
+                seq_mode=seq_mode, name=f"l{i}_attn")
+        else:
+            a = ff.multihead_attention(
+                a, a, a, cfg.dim, cfg.heads, causal=True,
+                kv_heads=cfg.kv_heads, rope=True, rope_theta=cfg.rope_theta,
+                bias=False, name=f"l{i}_attn")
         h = ff.add(h, a, name=f"l{i}_res1")
         m = ff.rms_norm(h, eps=cfg.norm_eps, name=f"l{i}_mlp_norm")
         g = ff.dense(m, cfg.hidden, use_bias=False, name=f"l{i}_gate")

@@ -1,7 +1,7 @@
 """Attribute dataclasses of the ported operators (counterpart of
 flexflow_tpu/ops/attrs.py): INPUT, WEIGHT, EMBEDDING, RMS_NORM,
 LAYER_NORM, LINEAR, ELEMENT_BINARY, ELEMENT_UNARY, SOFTMAX,
-MULTIHEAD_ATTENTION.
+MULTIHEAD_ATTENTION, RING_ATTENTION.
 
 Field names, order and defaults match the reference, so `repr(attrs)` —
 and with it Graph.structure_hash — agrees between the two packages, and
@@ -159,6 +159,29 @@ class MultiHeadAttentionAttrs(OpAttrs):
             w["bv"] = WeightSpec(TensorShape((self.num_kv, hd), dt), "zeros")
             w["bo"] = WeightSpec(TensorShape((self.embed_dim,), dt), "zeros")
         return w
+
+
+SEQ_MODES = ("ring", "ulysses")
+
+
+@dataclasses.dataclass(frozen=True)
+class RingAttentionAttrs(MultiHeadAttentionAttrs):
+    """Sequence-parallel attention: MultiHeadAttention's math and
+    weights with the sequence cut over the mesh's `seq` axis. `seq_mode`
+    picks the exchange: "ring" rotates k/v blocks (parallel/ring.py);
+    "ulysses" (the reference's all-to-all of sequence for heads) is not
+    ported yet and raises."""
+
+    seq_mode: str = "ring"
+
+    def __post_init__(self):
+        if self.seq_mode == "ulysses":
+            raise NotImplementedError(
+                'seq_mode="ulysses" is not ported yet (ROADMAP.md, queue 1 '
+                'item 12); use "ring"')
+        if self.seq_mode not in SEQ_MODES:
+            raise ValueError(f"seq_mode must be one of {SEQ_MODES}, got "
+                             f"{self.seq_mode!r}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,10 +5,11 @@ flexflow_tpu/ops/pallas/flash_attention.py).
 q (B, S, H, D) and k/v (B, T, Hkv, D) with H % Hkv == 0, and returns
 (B, S, H, D) in q's dtype. It routes as the reference does:
 
-- head dim a multiple of 128: the flat-layout kernels on the projection
-  layout, `FlashAttentionFunction`, whose forward is kernel K1
-  (csrc/flash_attention_fwd.cu) and whose backward is kernel K2's dq and
-  dk/dv launches (csrc/flash_attention_bwd.cu), GQA resolved in-kernel;
+- head dim a multiple of 128 (128 and 256 are built): the flat-layout
+  kernels on the projection layout, `FlashAttentionFunction`, whose
+  forward is kernel K1 (csrc/flash_attention_fwd.cu) and whose backward
+  is kernel K2's dq and dk/dv launches (csrc/flash_attention_bwd.cu),
+  GQA resolved in-kernel;
 - any other head dim: the head-major route. kv heads are repeated to H
   (jnp.repeat's order), q/k/v transposed to (B * H, S, D) and handed to
   `FlashAttentionHeadMajorFunction`: kernel K4's forward
@@ -17,13 +18,18 @@ q (B, S, H, D) and k/v (B, T, Hkv, D) with H % Hkv == 0, and returns
   repeat's autograd sums dk/dv over each GQA group. The reference also
   zero-pads D to 128 lanes; that is TPU tiling, and K4 takes D as it is.
 
+The ring's step kernel K5 (`flash_bh_fwd_carry`, the reference's
+`_fwd_carry`) sits beside K4: it folds one head-major k/v block into
+carried fp32 statistics (m, l, acc) and is driven by ops/ring_flash.py.
+
 On CUDA tensors each kernel launches or the wrapper raises on what it does
 not take. On CPU tensors the flat route is the plain version
 `flash_attention_reference` with autograd through its dense ops, and the
 head-major route runs the same autograd.Function over the plain versions
 of K4's three contracts (`flash_bh_reference`, `flash_bh_dq_reference`,
-`flash_bh_dkv_reference`). There is no availability gate and no switch:
-the reference's `flash_attention_available` is not carried over.
+`flash_bh_dkv_reference`); K5's is `flash_bh_fwd_carry_reference`. There
+is no availability gate and no switch: the reference's
+`flash_attention_available` is not carried over.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from flexflow_tpu_torch.kernels import (
     launch_flash_attention_bh_dkv,
     launch_flash_attention_bh_dq,
     launch_flash_attention_bh_fwd,
+    launch_flash_attention_bh_fwd_carry,
     launch_flash_attention_dkv,
     launch_flash_attention_dq,
     launch_flash_attention_fwd,
@@ -44,6 +51,10 @@ from flexflow_tpu_torch.kernels import (
 
 NEG_INF = -1e30
 LANES = 128
+# the head dims the flat-layout kernels K1/K2 are built for: the
+# reference's flat route takes every multiple of 128, and no model of the
+# repo has one above 256
+FLAT_HEAD_DIMS = (64, 128, 256)
 
 
 def flash_attention_reference(q, k, v, causal: bool, scale: float):
@@ -144,6 +155,24 @@ def flash_bh_reference(q, k, v, causal: bool, scale: float):
     return out.to(q.dtype), lse
 
 
+def flash_bh_fwd_carry_reference(q, k, v, m, l, acc, causal: bool,
+                                 scale: float):
+    """The plain version of K5 (`_fwd_carry`, tile math `_online_block`):
+    fold head-major k/v (BH, T, D) into the carried fp32 statistics of q
+    (BH, S, D), m and l (BH, S) and acc (BH, S, D). With fp32 scores s
+    (masked -1e30 under `causal`): m' = max(m, rowmax s), corr =
+    exp(m - m'), p = exp(s - m'), l' = l corr + sum p, acc' = acc corr +
+    (p rounded to v's dtype) . v, summed in fp32. Returns new (m', l',
+    acc'), not normalised."""
+    s = _bh_scores(q, k, causal, scale)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    corr = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = l * corr + p.sum(dim=-1)
+    pv = torch.einsum("bst,btd->bsd", p.to(v.dtype).float(), v.float())
+    return m_new, l_new, acc * corr[..., None] + pv
+
+
 def _bh_backward_terms(q, k, v, dout, lse, delta, causal, scale):
     """p = exp(s - lse) and ds = p * (dp - delta) * scale, fp32 (BH, S,
     T), from the lse and delta the caller gives."""
@@ -214,11 +243,11 @@ def _check_bh_args(q, k, v, *grads):
 
 
 def _check_stats(q, *stats):
-    """lse and delta: fp32 (BH, S) on q's device."""
+    """lse and delta (or K5's m and l): fp32 (BH, S) on q's device."""
     for t in stats:
         if t.dtype != torch.float32 or t.shape != q.shape[:2] \
                 or t.device != q.device:
-            raise ValueError(f"lse and delta must be float32 "
+            raise ValueError(f"row statistics must be float32 "
                              f"{tuple(q.shape[:2])} on {q.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
@@ -234,6 +263,30 @@ def flash_bh_forward(q, k, v, causal: bool, scale: float):
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     return launch_flash_attention_bh_fwd(q, k, v, out, lse, causal, scale)
+
+
+def flash_bh_fwd_carry(q, k, v, m, l, acc, causal: bool, scale: float):
+    """K5, one ring step: (m', l', acc') after folding k/v into the
+    carried statistics. CPU tensors take the plain version (new tensors);
+    CUDA tensors launch the kernel, which updates m, l and acc in place
+    and returns them, or raise."""
+    if _on_cpu(q, k, v, m, l, acc):
+        return flash_bh_fwd_carry_reference(q, k, v, m, l, acc, causal,
+                                            scale)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_bh_args(q, k, v)
+    _check_stats(q, m, l)
+    if acc.dtype != torch.float32 or acc.shape != q.shape \
+            or acc.device != q.device:
+        raise ValueError(f"acc must be float32 {tuple(q.shape)} on "
+                         f"{q.device}, got {acc.dtype} {tuple(acc.shape)} "
+                         f"on {acc.device}")
+    for name, t in (("m", m), ("l", l), ("acc", acc)):
+        if not t.is_contiguous():
+            raise ValueError(f"K5 updates {name} in place: it must be "
+                             "contiguous")
+    return launch_flash_attention_bh_fwd_carry(q, k, v, m, l, acc, causal,
+                                               scale)
 
 
 def flash_bh_dq(q, k, v, dout, lse, delta, causal: bool, scale: float):
@@ -322,11 +375,11 @@ def _check_kernel_args(q, k, v):
     if H % k.shape[2] != 0:
         raise ValueError(f"q heads {H} not a multiple of kv heads "
                          f"{k.shape[2]}")
-    if D not in (64, LANES):
+    if D not in FLAT_HEAD_DIMS:
         raise ValueError(
-            f"the flat-layout kernels K1/K2 take head dims 64 and 128, got "
-            f"{D}; a multiple of 128 above 128 is not ported (ROADMAP.md, "
-            "queue 3), other head dims take K4")
+            f"the flat-layout kernels K1/K2 take head dims 64, 128 and 256, "
+            f"got {D}; a multiple of 128 above 256 is not ported "
+            "(ROADMAP.md, queue 3), other head dims take K4")
     if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"the flash kernels take float32 or bfloat16 q, k "

@@ -9,7 +9,7 @@ calls them eagerly, node by node, in topological order.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -18,10 +18,11 @@ from flexflow_tpu_torch.ffconst import OpType
 
 @dataclasses.dataclass
 class LowerCtx:
-    """Per-call lowering context. Where the JAX package carries a device
-    mesh, the port carries the device the step runs on."""
+    """Per-call lowering context: the device the step runs on and the
+    mesh (parallel/mesh.py), whose `seq` axis cuts ring attention."""
 
     device: Optional[torch.device] = None
+    mesh: Optional[Any] = None
     training: bool = False
     node_guid: int = 0
     # paged KV cache: kv_cache is THIS attention node's {"k", "v"} pool,

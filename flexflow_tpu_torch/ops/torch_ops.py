@@ -9,7 +9,8 @@ left them
 to XLA; the hand-written kernels on this path are behind the
 MULTIHEAD_ATTENTION lowering: the ragged paged attention on its paged
 branch (serving), the flash-attention forward and backward on its
-no-cache branch (training, eval and predict).
+no-cache branch (training, eval and predict); and behind RING_ATTENTION's
+no-cache branch, the ring of K5 steps (parallel/ring.py).
 """
 
 from __future__ import annotations
@@ -40,11 +41,11 @@ def apply_activation(x, act: ActiMode):
 
 @register_lowering(OpType.WEIGHT)
 def _weight(attrs, inputs, params, ctx):
-    # the op's declared dtype is the activation dtype it feeds, as for the
-    # embedding: an fp32 master reaches a bf16 model as bf16. (The
-    # reference returns the master as it is, so jnp promotion lifts a bf16
-    # GPT-2 to fp32 at its position add; ROADMAP.md, queue 3.)
-    return [params["weight"].to(attrs.shape.dtype.torch_dtype)]
+    # the stored parameter as it is, as the reference returns it: a
+    # floating weight is stored fp32 (its fp32 master; Executor
+    # .storage_dtype), so a bf16 model's position add promotes the
+    # residual stream to fp32 from there on, as jnp promotion does
+    return [params["weight"]]
 
 
 @register_lowering(OpType.LINEAR)
@@ -193,6 +194,18 @@ def _mha(attrs, inputs, params, ctx):
     if attrs.use_bias:
         y = y + params["bo"].to(dt)
     return [y]
+
+
+@register_lowering(OpType.RING_ATTENTION)
+def _ring_attention(attrs, inputs, params, ctx):
+    if ctx.kv_cache is not None:
+        # a cached (paged) step has no sequence to cut: ring attention's
+        # weights and math are MULTIHEAD_ATTENTION's, so it takes that
+        # lowering verbatim, as the reference does
+        return _mha(attrs, inputs, params, ctx)
+    from flexflow_tpu_torch.parallel.ring import ring_attention_lowering
+
+    return ring_attention_lowering(attrs, inputs, params, ctx)
 
 
 # ---------------------------------------------------------------------------

@@ -25,10 +25,12 @@ from flexflow_tpu_torch.runtime import initializer as init_mod
 from flexflow_tpu_torch.runtime.loss import compute_loss
 from flexflow_tpu_torch.runtime.metrics import compute_step_metrics
 
-# weights whose lowering computes in fp32 whatever the activation dtype:
-# stored fp32 so their values equal the reference's fp32 masters
+# weights stored fp32 whatever their declared dtype, so their values are
+# the reference's fp32 masters: the norm scales and biases (their
+# lowerings compute in fp32) and WEIGHT's table (its lowering hands the
+# master on as it is, and jnp-style promotion follows from its dtype)
 _FP32_USE = {(OpType.RMS_NORM, "scale"), (OpType.LAYER_NORM, "scale"),
-             (OpType.LAYER_NORM, "bias")}
+             (OpType.LAYER_NORM, "bias"), (OpType.WEIGHT, "weight")}
 _ATTENTION_OPS = (OpType.MULTIHEAD_ATTENTION, OpType.RING_ATTENTION)
 
 
@@ -42,9 +44,10 @@ class Executor:
     def __init__(self, graph: Graph, device: torch.device, *,
                  loss_type: Optional[LossType] = None,
                  metrics: Sequence[MetricsType] = (), optimizer=None,
-                 remat: str = "attention"):
+                 remat: str = "attention", mesh=None):
         self.graph = graph
         self.device = torch.device(device)
+        self.mesh = mesh
         self.loss_type = loss_type
         self.metrics = list(metrics)
         self.optimizer = optimizer
@@ -81,13 +84,14 @@ class Executor:
     def storage_dtype(self, node: Node, weight_name: str, spec) -> torch.dtype:
         """The dtype a weight is stored in. The reference keeps fp32
         masters and casts each to its use-site dtype inside the lowering
-        (the activation dtype, or fp32 for the norm scales). A model
+        (the activation dtype, or fp32 for the norm scales; WEIGHT hands
+        its master on uncast, so its table is stored fp32 always). A model
         compiled to train does the same: every floating trainable leaf is
         an fp32 master. A model compiled for inference stores the
         use-site dtype directly, the same values with half the memory of
         fp32 masters for a bf16 model."""
         dt = spec.shape.dtype.torch_dtype
-        if (node.op_type, weight_name) in _FP32_USE:
+        if (node.op_type, weight_name) in _FP32_USE and dt.is_floating_point:
             return torch.float32
         if self.optimizer is not None and spec.trainable \
                 and dt.is_floating_point:
@@ -173,7 +177,8 @@ class Executor:
                 values[(n.guid, 0)] = ins[0]
                 continue
             ctx = LowerCtx(
-                device=self.device, training=training, node_guid=n.guid,
+                device=self.device, mesh=self.mesh, training=training,
+                node_guid=n.guid,
                 kv_cache=(kv_caches.get(key) if kv_caches is not None
                           else None),
                 cache_position=cache_position, page_tables=page_tables,

@@ -202,12 +202,13 @@ def _close(got, want, tol):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S,D", [(128, 64), (1000, 64), (256, 128),
-                                 (1000, 128)])
+                                 (1000, 128), (256, 256), (200, 256)])
 def test_flash_kernels_match_plain_version(dtype, causal, S, D):
     """K1 (out, lse) and K2 (dq, dk, dv from a fixed, non-contiguous dO)
     against the plain version's forward and autograd gradients, GQA
-    (H 4, Hkv 2), S = T including a ragged 1000. K1/K2 are driven through
-    FlashAttentionFunction: flash_attention sends D 64 to K4."""
+    (H 4, Hkv 2), S = T including a ragged 1000 and 200; D 256 runs K2 on
+    32-row tiles. K1/K2 are driven through FlashAttentionFunction:
+    flash_attention sends D 64 to K4."""
     _needs_card()
     from flexflow_tpu_torch.kernels import (
         FLASH_ATTENTION_DKV,
@@ -252,11 +253,11 @@ def test_flash_kernels_match_plain_version(dtype, causal, S, D):
 
 
 def test_flash_wrapper_refuses_what_the_kernels_do_not_take():
-    """D 256 (a multiple of 128 above 128) is refused by K1/K2; above 256
+    """D 384 (a multiple of 128 above 256) is refused by K1/K2; above 256
     by K4; float16 by both."""
     _needs_card()
-    q = torch.zeros(1, 8, 2, 256, device="cuda")
-    with pytest.raises(ValueError, match="64 and 128"):
+    q = torch.zeros(1, 8, 2, 384, device="cuda")
+    with pytest.raises(ValueError, match="64, 128 and 256"):
         flash_attention(q, q, q, causal=True, scale=0.1)
     q = torch.zeros(1, 8, 2, 264, device="cuda")
     with pytest.raises(ValueError, match="up to 256"):
@@ -272,7 +273,7 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("S,T,D", [(128, 128, 64), (200, 200, 48),
                                    (130, 260, 80), (256, 100, 96),
                                    (128, 128, 100), (96, 96, 8),
-                                   (160, 160, 256)])
+                                   (256, 256, 128), (160, 160, 256)])
 def test_head_major_kernels_match_plain_version(dtype, causal, S, T, D):
     """K4's forward (out, lse), dq and dk/dv kernels against their plain
     versions on head-major (BH, S, D) tensors: every padded width the
@@ -362,4 +363,93 @@ def test_head_major_route_matches_plain_autograd(D, Hkv):
     assert ok, ("out", err)
     for name, got, ref in zip(("dq", "dk", "dv"), leaves, plain):
         ok, err = _close(got.grad, ref.grad, FLASH_TOLS[torch.float32][1])
+        assert ok, (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,T,D", [(128, 128, 48), (256, 256, 64),
+                                   (200, 200, 80), (256, 256, 128),
+                                   (160, 160, 256), (130, 260, 64),
+                                   (256, 100, 128)])
+def test_fwd_carry_kernel_matches_plain_version(dtype, causal, S, T, D):
+    """K5 against its plain version: from the initial statistics and from
+    a carried-in state (the plain fold of another block), S != T and S
+    not a multiple of the tile included. The kernel updates m, l and acc
+    in place and counts one launch a call."""
+    _needs_card()
+    from flexflow_tpu_torch.kernels import FLASH_ATTENTION_BH_FWD_CARRY
+    from flexflow_tpu_torch.ops.flash_attention import (
+        flash_bh_fwd_carry,
+        flash_bh_fwd_carry_reference,
+    )
+
+    BH, scale = 6, 1.0 / D ** 0.5
+    g = torch.Generator(device="cuda").manual_seed(S + T + D)
+    q = torch.randn(BH, S, D, generator=g, device="cuda").to(dtype)
+    k, v, k0, v0 = (torch.randn(BH, T, D, generator=g, device="cuda")
+                    .to(dtype) for _ in range(4))
+    fresh = (torch.full((BH, S), -1e30, device="cuda"),
+             torch.zeros(BH, S, device="cuda"),
+             torch.zeros(BH, S, D, device="cuda"))
+    carried = flash_bh_fwd_carry_reference(q, k0, v0, *fresh, False, scale)
+    tol = FLASH_TOLS[dtype][0]
+    for stats in (fresh, carried):
+        want = flash_bh_fwd_carry_reference(q, k, v, *stats, causal, scale)
+        bufs = [t.clone() for t in stats]
+        before = FLASH_ATTENTION_BH_FWD_CARRY.launches
+        got = flash_bh_fwd_carry(q, k, v, *bufs, causal, scale)
+        torch.cuda.synchronize()
+        assert FLASH_ATTENTION_BH_FWD_CARRY.launches == before + 1
+        assert all(a is b for a, b in zip(got, bufs))
+        for name, a, b in zip(("m", "l", "acc"), got, want):
+            ok, err = _close(a, b, tol)
+            assert ok, (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [512, 384])
+def test_ring_on_the_card_matches_the_cpu(dtype, causal, S):
+    """ring_dot_product_attention over 4 shards (B 2, H 4, Hkv 2, D 64):
+    the card's output and gradients against the same ring on the CPU (the
+    plain versions). At S 512 (s_loc 128, the K5 ring) K5 launches once
+    per folded block (10 causal, 16 not) and K4's dq and dk/dv kernels
+    once each per folded block in backward; at S 384 (s_loc 96, the
+    einsum ring) no kernel launches."""
+    _needs_card()
+    from flexflow_tpu_torch.kernels import (
+        FLASH_ATTENTION_BH_DKV,
+        FLASH_ATTENTION_BH_DQ,
+        FLASH_ATTENTION_BH_FWD_CARRY,
+    )
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    from flexflow_tpu_torch.parallel.ring import ring_dot_product_attention
+
+    B, H, Hkv, D = 2, 4, 2, 64
+    g = torch.Generator().manual_seed(int(causal))
+    q, w = (torch.randn(B, S, H, D, generator=g).to(dtype)
+            for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, generator=g).to(dtype)
+            for _ in range(2))
+    kernels = (FLASH_ATTENTION_BH_FWD_CARRY, FLASH_ATTENTION_BH_DQ,
+               FLASH_ATTENTION_BH_DKV)
+    results = []
+    for device in ("cuda", "cpu"):
+        counts = [kk.launches for kk in kernels]
+        leaves = [t.to(device).requires_grad_() for t in (q, k, v)]
+        out = ring_dot_product_attention(
+            *leaves, mesh=make_mesh({"seq": 4}), causal=causal,
+            scale=D ** -0.5)
+        (out.float() * w.to(device).float()).sum().backward()
+        results.append([t.detach().cpu() for t in
+                        [out] + [x.grad for x in leaves]])
+        folded = (10 if causal else 16) if S % (4 * 128) == 0 else 0
+        assert [kk.launches - c for kk, c in zip(kernels, counts)] == (
+            [folded] * 3 if device == "cuda" else [0] * 3)
+    fwd_tol, grad_tol = FLASH_TOLS[dtype]
+    for name, a, b, tol in zip(("out", "dq", "dk", "dv"), *results,
+                               (fwd_tol,) + (grad_tol,) * 3):
+        assert a.dtype == dtype
+        ok, err = _close(a, b, tol)
         assert ok, (name, err)

@@ -115,6 +115,50 @@ def test_flash_attention_matches_jax_pallas(D, S, Hkv, causal):
     np.testing.assert_allclose(lse.numpy(), want, atol=FWD_TOL, rtol=FWD_TOL)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_256_takes_the_flat_route_and_matches_jax(monkeypatch,
+                                                           causal):
+    """D 256 is a multiple of 128: the reference runs its flat-lane K1/K2
+    (here interpreted), and the port routes it to the flat kernels too
+    (their argument check takes it; on the CPU their plain version runs,
+    never the head-major route). Forward and gradients agree."""
+    from flexflow_tpu_torch.ops import flash_attention as fa
+
+    D, S, H, Hkv = 256, 128, 4, 2
+    scale = 1.0 / np.sqrt(D)
+    q, k, v, w = _inputs(S, H, Hkv, D, seed=23 + causal)
+    fa._check_kernel_args(*(torch.from_numpy(a) for a in (q, k, v)))
+    calls = []
+    real = fa.flash_attention_reference
+
+    def counted(*args):
+        calls.append(tuple(args[0].shape))
+        return real(*args)
+
+    monkeypatch.setattr(fa, "flash_attention_reference", counted)
+    monkeypatch.setattr(fa.FlashAttentionHeadMajorFunction, "apply",
+                        lambda *a: pytest.fail("head-major route taken"))
+
+    def jloss(q, k, v):
+        out = jflash_attention(q, k, v, causal=causal, scale=scale,
+                               interpret=True)
+        return jnp.sum(out * jnp.asarray(w)), out
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                           has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tout = fa.flash_attention(tq, tk, tv, causal=causal, scale=scale)
+    (tout * torch.from_numpy(w)).sum().backward()
+    assert calls == [(1, S, H, D)]
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout),
+                               atol=FWD_TOL, rtol=FWD_TOL)
+    for name, t, j in zip("qkv", (tq, tk, tv), jgrads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(j),
+                                   atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   err_msg=f"d{name}")
+
+
 def test_delta_prepass_matches_reference_einsum():
     rs = np.random.RandomState(3)
     do = rs.standard_normal((2, 8, 4, 16)).astype(np.float32)
@@ -162,9 +206,9 @@ def test_bf16_plain_version_rounds_like_the_reference():
 
 
 def test_wrapper_refuses_devices_and_shapes_it_does_not_take():
-    """K1/K2 refuse head dims other than 64 and 128 (a multiple of 128
-    above it is an open gap, ROADMAP.md queue 3), K4 head dims above 256,
-    and both other dtypes, devices and head counts, each naming the
+    """K1/K2 refuse head dims other than 64, 128 and 256 (a multiple of
+    128 above 256 is an open gap, ROADMAP.md queue 3), K4 head dims above
+    256, and both other dtypes, devices and head counts, each naming the
     limit."""
     from flexflow_tpu_torch.ops.flash_attention import (
         _check_bh_args,
@@ -176,10 +220,10 @@ def test_wrapper_refuses_devices_and_shapes_it_does_not_take():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"),
                         causal=True, scale=0.1)
-    with pytest.raises(ValueError, match="64 and 128"):
-        _check_kernel_args(torch.zeros(1, 4, 2, 256),
-                           torch.zeros(1, 4, 1, 256),
-                           torch.zeros(1, 4, 1, 256))
+    with pytest.raises(ValueError, match="64, 128 and 256"):
+        _check_kernel_args(torch.zeros(1, 4, 2, 384),
+                           torch.zeros(1, 4, 1, 384),
+                           torch.zeros(1, 4, 1, 384))
     with pytest.raises(ValueError, match="bfloat16"):
         _check_kernel_args(q.half(), kv.half(), kv.half())
     with pytest.raises(ValueError, match="multiple"):

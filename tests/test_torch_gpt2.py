@@ -64,17 +64,19 @@ def _np_tree(tree):
             for k, w in tree.items()}
 
 
-def _pair(seq, batch, optimizer=True, remat="attention", lr=1e-3):
-    """A tiny GPT-2 in each package (fp32), the port's carrying the JAX
-    model's initial weights; compiled with Adam(lr) when `optimizer`."""
+def _pair(seq, batch, optimizer=True, remat="attention", lr=1e-3,
+          dtype="FLOAT"):
+    """A tiny GPT-2 in each package (fp32 unless `dtype` names another
+    DataType), the port's carrying the JAX model's initial weights;
+    compiled with Adam(lr) when `optimizer`."""
     jff = JFFModel(JFFConfig(batch_size=batch, seed=3, num_devices=1,
                              remat=remat))
     jbuild_gpt2(jff, JGPT2Config.tiny(VOCAB), batch_size=batch, seq_len=seq,
-                dtype=JDataType.FLOAT)
+                dtype=getattr(JDataType, dtype))
     tff = FFModel(FFConfig(batch_size=batch, seed=3, device="cpu",
                            remat=remat))
     build_gpt2(tff, GPT2Config.tiny(VOCAB), batch_size=batch, seq_len=seq,
-               dtype=DataType.FLOAT)
+               dtype=getattr(DataType, dtype))
     if optimizer:
         jff.compile(optimizer=jopt.AdamOptimizer(lr=lr),
                     loss_type=JLossType.SPARSE_CATEGORICAL_CROSSENTROPY,
@@ -173,11 +175,21 @@ def test_weight_matches_jax_and_takes_its_declared_dtype():
     (tw,) = torch_ops._weight(tattrs, [], {"weight": torch.from_numpy(table)},
                               LowerCtx())
     np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
-    # an fp32 master of a bf16 model reaches it as bf16
+    # a bf16 weight's fp32 master reaches its use as it is, fp32, as the
+    # reference's does (jnp promotion then follows from it)
     battrs = A.WeightAttrs(TensorShape((6, 8), DataType.BFLOAT16))
     (bw,) = torch_ops._weight(battrs, [], {"weight": torch.from_numpy(table)},
                               LowerCtx())
-    assert bw.dtype == torch.bfloat16
+    (jbw,) = jax_ops._weight(
+        JA.WeightAttrs(JTensorShape((6, 8), JDataType.BFLOAT16)), [],
+        {"weight": jnp.asarray(table)}, JLowerCtx())
+    assert bw.dtype == torch.float32 and jbw.dtype == jnp.float32
+    # and is stored fp32, its master, whatever the compile
+    ff = FFModel(FFConfig(batch_size=1, device="cpu"))
+    ff.create_weight((6, 8), DataType.BFLOAT16, name="table")
+    for optimizer in (None, AdamOptimizer()):
+        (w,) = ff.compile(optimizer=optimizer)._params[0].values()
+        assert w["weight"].dtype == torch.float32
     assert {n: s.shape.dims for n, s in tattrs.weights().items()} == {
         n: s.shape.dims for n, s in jattrs.weights().items()}
 
@@ -276,7 +288,9 @@ def test_gpt2_leaves_carry_across_packages():
     """params_from_numpy / params_to_numpy carry every GPT-2 leaf (wte
     kernel, wpe weight, LayerNorm scale/bias, wq..wo and bq..bo, dense
     kernel/bias) exactly; a bf16 model compiled for serving stores the
-    LayerNorm leaves in fp32, the rest in bf16."""
+    LayerNorm leaves and the position table (the reference's fp32
+    masters, which their lowerings use as fp32) in fp32, the rest in
+    bf16."""
     jff, tff = _pair(16, 1, optimizer=False)
     jtr, jntr = _np_tree(jff._params[0]), _np_tree(jff._params[1])
     got, _ = params_to_numpy(*tff._params)
@@ -297,7 +311,7 @@ def test_gpt2_leaves_carry_across_packages():
     bff.compile()
     for k, w in bff._params[0].items():
         for n, t in w.items():
-            fp32 = k.startswith(("h0_ln", "h1_ln", "ln_f"))
+            fp32 = k.startswith(("h0_ln", "h1_ln", "ln_f", "wpe"))
             assert t.dtype == (torch.float32 if fp32 else torch.bfloat16), \
                 (k, n)
 
@@ -354,6 +368,69 @@ def test_tiny_gpt2_adam_steps_match_jax(monkeypatch, remat):
             assert got[k][n].dtype == np.float32  # fp32 masters
             np.testing.assert_allclose(got[k][n], np.asarray(a), atol=TOL,
                                        rtol=TOL, err_msg=(k, n))
+
+
+def test_bf16_gpt2_compiled_to_train_computes_as_the_reference(
+        monkeypatch):
+    """A tiny GPT-2 declared bf16, compiled to train: the reference's
+    position add meets the fp32 master of the table, so jnp promotion
+    runs the residual stream, attention (K4 in fp32) and lm_head in fp32
+    from there. The port's forward logits have the reference's dtype and
+    values, and so do one Adam step's loss and every parameter after it
+    (TOL: both run fp32 after the same bf16 embedding gather)."""
+    monkeypatch.setenv("FF_TPU_FLASH_INTERPRET", "1")
+    jff, tff = _pair(SEQ, 2, lr=1e-4, dtype="BFLOAT16")
+    x, y = _tokens(2, SEQ, seed=5)
+    jl = jff.executor.run_forward(*jff._params, [jnp.asarray(x)],
+                                  training=False, rng=None,
+                                  skip_sink_softmax=True)[0]
+    tl = tff.executor.run_forward(*tff._params, [torch.from_numpy(x)],
+                                  skip_sink_softmax=True)
+    assert jl.dtype == jnp.float32 and tl.dtype == torch.float32
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL,
+                               rtol=TOL)
+    jtr, jntr, _, jm = jff.executor.train_step()(
+        *jff._params, jff._opt_state, jax.random.key(0), jnp.asarray(y),
+        jnp.asarray(x))
+    ttr, _, _, tm = tff.executor.train_step(*tff._params, tff._opt_state,
+                                            torch.from_numpy(y),
+                                            torch.from_numpy(x))
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               atol=TOL, rtol=TOL)
+    got, _ = params_to_numpy(ttr, {})
+    for k, w in jtr.items():
+        for n, a in w.items():
+            np.testing.assert_allclose(got[k][n], np.asarray(a), atol=TOL,
+                                       rtol=TOL, err_msg=(k, n))
+
+
+def test_bf16_gpt2_inference_and_paged_serving_compute_as_the_reference(
+        monkeypatch):
+    """The same bf16 tiny GPT-2 compiled for inference (the reference
+    keeps fp32 masters there too): predict's probabilities, the logits'
+    dtype, and the paged server's greedy tokens are the reference's."""
+    monkeypatch.setenv("FF_TPU_FLASH_INTERPRET", "1")
+    jff, tff = _pair(SERVE_SEQ, 1, optimizer=False, dtype="BFLOAT16")
+    x, _ = _tokens(1, SERVE_SEQ, seed=6)
+    tl = tff.executor.run_forward(*tff._params, [torch.from_numpy(x)],
+                                  skip_sink_softmax=True)
+    assert tl.dtype == torch.float32
+    np.testing.assert_allclose(tff.predict(x), np.asarray(jff.predict(x)),
+                               atol=TOL, rtol=TOL)
+    rs = np.random.RandomState(7)
+    prompts = [rs.randint(0, VOCAB, (n,)).astype(np.int32) for n in (4, 11)]
+    out = []
+    for ff in (jff, tff):
+        server = ff.serve_generation(slots=2, max_len=SERVE_SEQ, paged=True,
+                                     page_size=4)
+        try:
+            out.append([f.result(timeout=120) for f in
+                        [server.submit(p, max_new_tokens=5)
+                         for p in prompts]])
+        finally:
+            server.stop()
+    for j, t in zip(*out):
+        np.testing.assert_array_equal(t, j)
 
 
 def test_tiny_gpt2_fit_learns_a_repeated_batch():

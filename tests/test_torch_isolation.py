@@ -39,7 +39,14 @@ _GUARDED_IMPORT = textwrap.dedent("""
            if m.split(".")[0] in ("jax", "jaxlib", "flexflow_tpu")]
     assert not bad, bad
     print(len(names), "modules")
+    print(" ".join(names))
 """)
+
+# the modules of the ring slice, each imported under the guard
+_RING_MODULES = ("flexflow_tpu_torch.parallel.mesh",
+                 "flexflow_tpu_torch.parallel.comm_spec",
+                 "flexflow_tpu_torch.parallel.ring",
+                 "flexflow_tpu_torch.ops.ring_flash")
 
 
 def test_port_and_chip_smoke_import_without_jax_or_reference():
@@ -49,8 +56,10 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", _GUARDED_IMPORT], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # models.gpt2 and the K4 wrappers' module among them
-    assert int(out.stdout.split()[0]) >= 16
+    count, names = out.stdout.splitlines()[:2]
+    # models.gpt2, the K4/K5 wrappers' module and the ring's among them
+    assert int(count.split()[0]) >= 21
+    assert set(_RING_MODULES) <= set(names.split())
 
 
 def test_no_reference_import_statements_in_port_sources():
