@@ -9,7 +9,9 @@ every hand-written kernel on them to its plain PyTorch version.
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
   1. card: name and power limit; build every kernel from csrc/ (nvcc,
-     sm_90a, one process per source, all started together);
+     sm_90a, one process per source, all started together), with the
+     seconds each source took and the HGMMA (wgmma) instructions in the
+     SASS of each tensor-core flash kernel;
   2. kernels vs their plain versions on the card, with kernel / plain /
      library times and the roofline bound: the ragged paged attention at
      the serving path's shapes (Llama-3-8B attention: H=32, Hkv=8,
@@ -19,15 +21,17 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      quantize-on-append, and over a bf16 pool under fp32 q; and the
      flash-attention forward, dq and dk/dv kernels at the training
      path's shape (bench_1b attention: B 8, S = T 1024, H 16, Hkv 8,
-     D 128, causal); bf16 and fp32; and the head-major flash kernels K4
+     D 128, causal), then at a ragged S = T = 1000, at S 256 against
+     T 1024 (full), at head dim 256 (Gemma-7B's attention: B 2, S = T
+     1024, 16 heads of 256, causal) and at 384 and 512 (FLASH_CASES);
+     bf16 and fp32; and the head-major flash kernels K4
      (forward, dq, dk/dv) at GPT-2 XL training's shape (B*H 8*25, S = T
      1024, D 64, causal) with times, then at head dims 48, 80, 96, 100 and
      256, non-causal, S != T, S not a multiple of the tile and phase 10's
      ring block (B*H 16, S = T 2048, D 128, causal and full), each
      backward also fed a shifted lse (the ring's contract); K1/K2 timed at
-     D 64 on the same shape beside K4 and the head-major route; K1/K2 at
-     head dim 256 (Gemma-7B's attention: B 2, S = T 1024, 16 heads of
-     256, causal); the ring step K5 at phase 10's block (B*H 16, S = T
+     D 64 on the same shape beside K4 and the head-major route; the ring
+     step K5 at phase 10's block (B*H 16, S = T
      2048, D 128, full and causal, a carried-in state) with times, then at
      head dims 48..256 and S != T;
   3. full-width checks, card against CPU on the same seeded weights, fp32
@@ -67,7 +71,10 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      batch 8, seq 1024, remat="none", Adam lr 1e-4, random weights from a
      seed) through ff.fit for one epoch of 10 seeded batches, then 10
      timed steps on one repeated batch (the loss must fall); each K4
-     kernel must launch 48 times per step and K1/K2 never;
+     kernel must launch 48 times per step and K1/K2 never; then the
+     masters before timed step 8 (where the loss jumps) give that step's
+     loss and gradients, fp32, batch 1, on the card and on the CPU, which
+     must agree;
   9. serving GPT-2 XL (48 layers, bf16, max_len 1024 = its position
      table) through serve_generation(paged=True) at its defaults; 8
      requests of 128..768 prompt tokens, 64 new tokens each; the ragged
@@ -90,6 +97,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -235,6 +244,18 @@ K5_CASES = [
 # K1/K2 at head dim 256: Gemma-7B's attention widths (16 heads of 256, no
 # GQA), B 2, S = T 1024, causal
 D256_SHAPE = (2, 1024, 16, 16, 256)
+# K1/K2 beyond the main shape (name, (B, S, H, Hkv, D), T or None for S,
+# causal): Gemma-7B's D 256; bench_1b's heads at a ragged S = T = 1000
+# (plain attention sends any length to K1 on the card) and at S 256
+# against T 1024, full; D 384 and 512, the flat route's widest (the
+# CUDA-core bodies), 8 heads, B 2
+FLASH_CASES = [
+    ("gemma7b_d256_causal", D256_SHAPE, None, True),
+    ("bench_1b_s1000_causal", (FB, 1000, FH, FHKV, FD), None, True),
+    ("bench_1b_s256_t1024_full", (FB, 256, FH, FHKV, FD), 1024, False),
+    ("d384_causal", (2, 1024, 8, 8, 384), None, True),
+    ("d512_causal", (2, 1024, 8, 8, 512), None, True),
+]
 # phase 10: bench_1b at Llama-3's 8192-token context, cut over a
 # {"seq": 4} mesh (s_loc 2048), batch 1, 10 batches for fit; then timed
 # steps of the same model without the ring
@@ -247,6 +268,10 @@ RING_SEQ, RING_SHARDS, RING_BATCHES, RING_PLAIN_STEPS = 8192, 4, 10, 3
 RING_LOGITS_RTOL = 0.1
 GPT2_POSITIONS = 1024  # n_positions: the position table, serving's max_len
 GPT2_BATCHES = 10
+# phase 8's timed step (1-based) whose loss jumps in every run, and the
+# card-vs-CPU gradient check of it: each leaf's gradient in norm, fp32
+# with TF32 off, summation order only over 48 layers at seq 1024
+GPT2_CHECK_STEP, GPT2_GRAD_RTOL = 8, 1e-3
 # phase 9's traffic: 8 prompts uniform in 128..768 tokens, 64 new each
 GPT2_PROMPTS, GPT2_PROMPT_MIN, GPT2_PROMPT_MAX, GPT2_NEW = 8, 128, 768, 64
 
@@ -269,6 +294,32 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0] if out else ""
+
+
+def hgmma_counts() -> dict:
+    """{tensor-core kernel: HGMMA instructions in its SASS}, for every
+    `*_wgmma_kernel` function of K1's and K2's built libraries
+    (cuobjdump -sass): the proof that their bf16 bodies run on the tensor
+    cores. Raises if there is none, or one holds no HGMMA."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for kern in (FLASH_ATTENTION_FWD, FLASH_ATTENTION_DQ):  # both sources
+        sass = subprocess.run([tool, "-sass", str(kern.library_path())],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        name = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                m = re.search(r"(flash_(?:fwd|dq|dkv)_wgmma_kernel)ILi(\d+)"
+                              r"ELi(\d+)E", line)
+                name = f"{m[1]}<{m[2]},{m[3]}>" if m else None
+                if name:
+                    counts[name] = 0
+            elif name and "HGMMA" in line:
+                counts[name] += 1
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"tensor-core kernels without HGMMA: {counts}")
+    return counts
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -547,16 +598,17 @@ def _err_ok(pairs, tol):
     return max(errs), ok
 
 
-def flash_case(dtype, seed: int, shape=(FB, FS, FH, FHKV, FD)):
+def flash_case(dtype, seed: int, shape=(FB, FS, FH, FHKV, FD), T=None):
     """q, k, v and a fixed dO at `shape` = (B, S, H, Hkv, D), the training
-    path's attention by default."""
+    path's attention by default; k and v have T rows (S by default)."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     B, S, Hq, Hkv, Dh = shape
+    T = S if T is None else T
 
     def rand(*dims):
         return torch.randn(*dims, generator=g, device=DEVICE).to(dtype)
 
-    return (rand(B, S, Hq, Dh), rand(B, S, Hkv, Dh), rand(B, S, Hkv, Dh),
+    return (rand(B, S, Hq, Dh), rand(B, T, Hkv, Dh), rand(B, T, Hkv, Dh),
             rand(B, S, Hq, Dh))
 
 
@@ -592,16 +644,17 @@ def flash_bounds(q, k, causal: bool, kernels=FLASH_KERNELS) -> dict:
     return out
 
 
-def sdpa_calls(q, k, v, do, scale):
+def sdpa_calls(q, k, v, do, scale, causal=True):
     """The yardsticks (timed only; the port never calls them):
-    F.scaled_dot_product_attention's causal GQA forward, and one
-    autograd call of its backward (dq, dk and dv together)."""
+    F.scaled_dot_product_attention's GQA forward (causal: top-left, as
+    the kernels), and one autograd call of its backward (dq, dk and dv
+    together)."""
     qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     doh = do.transpose(1, 2).contiguous()
 
     def fwd():
-        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
                                               scale=scale, enable_gqa=True)
 
     out = fwd()
@@ -610,49 +663,50 @@ def sdpa_calls(q, k, v, do, scale):
 
 
 def phase_flash_kernels(card: str, shape=(FB, FS, FH, FHKV, FD),
-                        case: str = "bench_1b_causal") -> dict:
+                        case: str = "bench_1b_causal", T=None,
+                        causal: bool = True) -> dict:
     """Each flash kernel against its plain version on the same inputs
-    (K2's take the plain forward's lse and delta), causal, both dtypes,
-    at `shape` = (B, S, H, Hkv, D). Returns {dtype name: {kernel name:
-    result}}."""
+    (K2's take the plain forward's lse and delta), both dtypes, at
+    `shape` = (B, S, H, Hkv, D) with T keys (S by default). Returns
+    {dtype name: {kernel name: result}}."""
     B, S, Hq, _, Dh = shape
     scale = 1.0 / Dh ** 0.5
     results = {}
     for seed, dtype in enumerate((torch.bfloat16, torch.float32)):
-        q, k, v, do = flash_case(dtype, seed, shape)
+        q, k, v, do = flash_case(dtype, seed, shape, T)
         fwd_tol, grad_tol = FLASH_TOLS[dtype]
         out = torch.empty_like(q)
         lse = torch.empty(B, Hq, S, device=DEVICE)
         dq = torch.empty_like(q)
         dk, dv = torch.empty_like(k), torch.empty_like(v)
-        want_out, want_lse = flash_attention_reference(q, k, v, True, scale)
+        want_out, want_lse = flash_attention_reference(q, k, v, causal, scale)
         delta = flash_delta(do, want_out)
         bwd_args = (q, k, v, do, want_lse, delta)
-        want_dq = flash_dq_reference(*bwd_args, True, scale)
-        want_dk, want_dv = flash_dkv_reference(*bwd_args, True, scale)
+        want_dq = flash_dq_reference(*bwd_args, causal, scale)
+        want_dk, want_dv = flash_dkv_reference(*bwd_args, causal, scale)
         # name: (kernel launch, plain version, (got, want) pairs, tol)
         calls = {
             FLASH_ATTENTION_FWD.name: (
-                lambda: launch_flash_attention_fwd(q, k, v, out, lse, True,
-                                                   scale),
-                lambda: flash_attention_reference(q, k, v, True, scale),
+                lambda: launch_flash_attention_fwd(q, k, v, out, lse,
+                                                   causal, scale),
+                lambda: flash_attention_reference(q, k, v, causal, scale),
                 [(out, want_out), (lse, want_lse)], fwd_tol),
             FLASH_ATTENTION_DQ.name: (
-                lambda: launch_flash_attention_dq(*bwd_args, dq, True,
+                lambda: launch_flash_attention_dq(*bwd_args, dq, causal,
                                                   scale),
-                lambda: flash_dq_reference(*bwd_args, True, scale),
+                lambda: flash_dq_reference(*bwd_args, causal, scale),
                 [(dq, want_dq)], grad_tol),
             FLASH_ATTENTION_DKV.name: (
-                lambda: launch_flash_attention_dkv(*bwd_args, dk, dv, True,
-                                                   scale),
-                lambda: flash_dkv_reference(*bwd_args, True, scale),
+                lambda: launch_flash_attention_dkv(*bwd_args, dk, dv,
+                                                   causal, scale),
+                lambda: flash_dkv_reference(*bwd_args, causal, scale),
                 [(dk, want_dk), (dv, want_dv)], grad_tol),
         }
-        lib_fwd, lib_bwd = sdpa_calls(q, k, v, do, scale)
+        lib_fwd, lib_bwd = sdpa_calls(q, k, v, do, scale, causal)
         lib_ms = {FLASH_ATTENTION_FWD.name: time_ms(lib_fwd)}
         lib_ms[FLASH_ATTENTION_DQ.name] = lib_ms[FLASH_ATTENTION_DKV.name] \
             = time_ms(lib_bwd)
-        bounds = flash_bounds(q, k, True)
+        bounds = flash_bounds(q, k, causal)
         per = {}
         for name, (kernel, plain, pairs, tol) in calls.items():
             kernel()
@@ -662,7 +716,7 @@ def phase_flash_kernels(card: str, shape=(FB, FS, FH, FHKV, FD),
             res = {
                 "case": case, "kernel": name,
                 "dtype": str(dtype).replace("torch.", ""),
-                "shape": list(shape),
+                "shape": list(shape), "T": k.shape[1], "causal": causal,
                 "max_abs_err": err, "tol": tol,
                 "ms": time_ms(kernel), "plain_ms": time_ms(plain),
                 "library_ms": lib_ms[name], "bound_ms": bound_ms,
@@ -1466,22 +1520,30 @@ def _prefill_launch(device, vocab, rs, B=8, W=8, pos=512):
 
 
 def _profile_summary(prof, n: int, wall_ms: float) -> dict:
-    """Device-busy ms per step, idle share, device launches and the
-    kernels by time from a torch.profiler run of n steps. Device-side
-    events only (kernels, memcpy/memset): the CPU-side aten ops also
-    carry their children's device time."""
+    """Device-busy ms per step, idle share, device launches, the kernels
+    by time and the port's own kernels (csrc/: flash_*, ragged_*) by time
+    from a torch.profiler run of n steps. Device-side events only
+    (kernels, memcpy/memset): the CPU-side aten ops also carry their
+    children's device time."""
     evs = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA
            and e.self_device_time_total > 0]
     dev_ms = sum(e.self_device_time_total for e in evs) / n / 1e3
-    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:10]
+    by_time = sorted(evs, key=lambda e: -e.self_device_time_total)
+    anon = "void (anonymous namespace)::"
+
+    def row(e):
+        return (e.key.replace(anon, "")[:60],
+                e.self_device_time_total / n / 1e3, e.count // n)
+
     return {
         "wall_ms": wall_ms,
         "device_ms": dev_ms if evs else "not measured",
         "idle_share": (1 - dev_ms / wall_ms) if evs else "not measured",
         "device_launches": sum(e.count for e in evs) // n,
-        "top": [(e.key[:60], e.self_device_time_total / n / 1e3,
-                 e.count // n) for e in top],
+        "top": [row(e) for e in by_time[:10]],
+        "own": [row(e) for e in by_time
+                if e.key.startswith((anon + "flash_", anon + "ragged_"))],
     }
 
 
@@ -1759,12 +1821,20 @@ def phase_gpt2_train(seed: int, card: str) -> dict:
     torch.cuda.synchronize()
     _reset_launches()
     losses = []
-    t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
-        tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
-        losses.append(m["loss"])
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    step_s = 0.0
+    # the masters before step GPT2_CHECK_STEP, copied to the CPU outside
+    # the timed windows, for the check below
+    for steps in (range(GPT2_CHECK_STEP - 1),
+                  range(GPT2_CHECK_STEP - 1, TIMED_STEPS)):
+        t0 = time.perf_counter()
+        for _ in steps:
+            tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        step_s += (time.perf_counter() - t0) / TIMED_STEPS
+        if len(losses) == GPT2_CHECK_STEP - 1:
+            saved = tuple({k: {n: t.cpu() for n, t in w.items()}
+                           for k, w in tree.items()} for tree in (tr, ntr))
     losses = [float(v) for v in losses]
     timed_launches = _k4_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1791,6 +1861,73 @@ def phase_gpt2_train(seed: int, card: str) -> dict:
                              f"fall: {losses}")
     if any(n != cfg.layers * TIMED_STEPS for n in timed_launches.values()):
         raise AssertionError(f"timed launches {timed_launches}")
+    res["step_check"] = gpt2_step_check(cfg, saved, x[:1], y[:1], seed)
+    return res
+
+
+def _loss_and_grads(ff, x, y):
+    """The loss and {leaf name: gradient} (on the CPU) of one batch, with
+    no update: Executor.loss_and_grads, the first half of a train step."""
+    ex = ff.executor
+    tr, ntr = ff._params
+    bx, by = (torch.from_numpy(a).to(ex.device) for a in (x, y))
+    loss, _, grads = ex.loss_and_grads(tr, ntr, by, bx)
+    return float(loss), {f"{k}/{n}": g.cpu() for k, ws in grads.items()
+                         for n, g in ws.items()}
+
+
+def gpt2_step_check(cfg, saved, x, y, seed) -> dict:
+    """Phase 8's step GPT2_CHECK_STEP (where its loss jumps, 9.90 ->
+    11.34, with the same digits in every run) looked at again: the
+    masters before that step, loaded into GPT-2 XL built in fp32 (TF32
+    off) on the card and on the CPU, give the loss and every gradient of the step's first sequence
+    (batch 1). If the two agree the card computes the step as the CPU's
+    plain path does, and the jump is the optimizer's dynamics (Adam on a
+    repeated batch), not a fault of the card's kernels. Agreement: the
+    loss to TRAIN_LOSS_RTOL; all gradients together, and every leaf's, to
+    GPT2_GRAD_RTOL in norm (fp32 summation order over 48 layers); except
+    the key biases, whose gradient is 0 in exact arithmetic (softmax does
+    not see a constant added to a row of scores), so both sides hold only
+    rounding noise there: each must be under GPT2_GRAD_RTOL of the norm of
+    all gradients."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    for device in (DEVICE, "cpu"):
+        params = tuple({k: {n: t.to(device) for n, t in w.items()}
+                        for k, w in tree.items()} for tree in saved)
+        ff = _train_model(cfg, device, batch=1, seq=GPT2_POSITIONS,
+                          dtype=DataType.FLOAT, remat="none", seed=seed,
+                          params=params)
+        t0 = time.monotonic()
+        out.append(_loss_and_grads(ff, x, y) + (time.monotonic() - t0,))
+        del ff, params
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    (gl, gg, gs), (cl, cg, cs) = out
+    norm = float(torch.cat([g.flatten() for g in cg.values()]).norm())
+    diff = float(torch.cat([(gg[n] - cg[n]).flatten() for n in cg]).norm())
+    key_bias = [n for n in cg if n.endswith("/bk")]
+    rel = {n: float((gg[n] - cg[n]).norm() / cg[n].norm().clamp_min(1e-30))
+           for n in cg if n not in key_bias}
+    worst = max(rel, key=rel.get)
+    bk_noise = max((float(max(gg[n].norm(), cg[n].norm())) / norm
+                    for n in key_bias), default=0.0)
+    res = {"step": GPT2_CHECK_STEP, "batch": 1, "dtype": "float32",
+           "loss_card": gl, "loss_cpu": cl,
+           "loss_rel_err": abs(gl - cl) / abs(cl),
+           "grad_norm": norm, "grad_rel_err": diff / norm,
+           "worst_grad": worst, "worst_grad_rel_err": rel[worst],
+           "leaves": len(cg), "key_bias_leaves": len(key_bias),
+           "key_bias_grad_over_norm": bk_noise, "card_s": gs, "cpu_s": cs,
+           "loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": GPT2_GRAD_RTOL}
+    log(f"gpt2_step_check {json.dumps(res)}")
+    if not (np.isfinite(gl) and res["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and res["grad_rel_err"] <= GPT2_GRAD_RTOL
+            and rel[worst] <= GPT2_GRAD_RTOL
+            and bk_noise <= GPT2_GRAD_RTOL):
+        raise AssertionError(f"GPT-2 XL step {GPT2_CHECK_STEP}: card and "
+                             f"CPU disagree: {res}")
     return res
 
 
@@ -2042,12 +2179,15 @@ def main(argv=None) -> int:
     secs = build(KERNELS)
     for k in KERNELS:
         k.function()  # load and bind
-    log(f"build {json.dumps({'seconds': time.monotonic() - t0, 'per_source': secs})}")
+    built = {"seconds": time.monotonic() - t0, "per_source": secs,
+             "hgmma": hgmma_counts()}
+    log(f"build {json.dumps(built)}")
     kern = phase_kernels(card) if 2 in phases else []
     kern8 = phase_int8_kernels(card) if 2 in phases else []
     flash = phase_flash_kernels(card) if 2 in phases else {}
     if 2 in phases:
-        phase_flash_kernels(card, D256_SHAPE, "gemma7b_d256_causal")
+        for case, shape, T, causal in FLASH_CASES:
+            phase_flash_kernels(card, shape, case, T, causal)
     k4 = phase_k4_kernels(card) if 2 in phases else {}
     k5 = phase_k5_kernels(card) if 2 in phases else {}
     if 3 in phases:

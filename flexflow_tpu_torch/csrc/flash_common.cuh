@@ -8,9 +8,12 @@
 // ((b * L + t) * heads + h) * D + d. A q head h reads kv head h / rep
 // (rep = H / Hkv): no head-major copy and no repeated K/V.
 //
-// Work split: a block of 256 threads is a 16 x 16 grid; tiles are BT x BT
+// Work split (the CUDA-core bodies: fp32, and bf16 off the tensor-core
+// head dims): a block of 256 threads is a 16 x 16 grid; tiles are BT x BT
 // with BT = 64, or 32 where 64-row tiles of a kernel do not fit a block's
-// 227 KB of shared memory (D 256 in the backward). Thread (ty, tx) owns
+// 227 KB of shared memory (D 256 in the backward, 384 in both, 512 in
+// the forward), 16 where 32 do not (D 512 in the backward). Thread
+// (ty, tx) owns
 // rows ty * (BT / 16) + i of a tile and, of a score tile, columns
 // tx + 16 * j (j < BT / 16); of a D-wide tile, columns tx + 16 * jd
 // (jd < D / 16). The 16 threads of one row are 16 lanes of one warp, so a
@@ -86,10 +89,12 @@ __device__ __forceinline__ size_t elem(int b, int L, int heads, int h,
 }
 
 // arguments every entry point validates the same way: the head dims the
-// kernels are instantiated for, and B * H on grid.y
+// kernels are instantiated for (up to kMaxFlatHeadDim), and B * H on grid.y
+constexpr int kMaxFlatHeadDim = 512;
 inline bool shapes_ok(int B, int S, int T, int H, int Hkv, int D) {
   return B > 0 && S > 0 && T > 0 && Hkv > 0 && H % Hkv == 0 &&
-         (D == 64 || D == 128 || D == 256) && (long long)B * H <= 65535;
+         (D == 64 || (D % 128 == 0 && D <= kMaxFlatHeadDim)) &&
+         (long long)B * H <= 65535;
 }
 
 }  // namespace ffflash

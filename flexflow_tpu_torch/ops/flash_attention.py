@@ -5,11 +5,11 @@ flexflow_tpu/ops/pallas/flash_attention.py).
 q (B, S, H, D) and k/v (B, T, Hkv, D) with H % Hkv == 0, and returns
 (B, S, H, D) in q's dtype. It routes as the reference does:
 
-- head dim a multiple of 128 (128 and 256 are built): the flat-layout
-  kernels on the projection layout, `FlashAttentionFunction`, whose
-  forward is kernel K1 (csrc/flash_attention_fwd.cu) and whose backward
-  is kernel K2's dq and dk/dv launches (csrc/flash_attention_bwd.cu),
-  GQA resolved in-kernel;
+- head dim a multiple of 128 (128 to 512 are built; bf16 at 128 and 256
+  runs on the tensor cores): the flat-layout kernels on the projection
+  layout, `FlashAttentionFunction`, whose forward is kernel K1
+  (csrc/flash_attention_fwd.cu) and whose backward is kernel K2's dq and
+  dk/dv launches (csrc/flash_attention_bwd.cu), GQA resolved in-kernel;
 - any other head dim: the head-major route. kv heads are repeated to H
   (jnp.repeat's order), q/k/v transposed to (B * H, S, D) and handed to
   `FlashAttentionHeadMajorFunction`: kernel K4's forward
@@ -52,9 +52,11 @@ from flexflow_tpu_torch.kernels import (
 NEG_INF = -1e30
 LANES = 128
 # the head dims the flat-layout kernels K1/K2 are built for: the
-# reference's flat route takes every multiple of 128, and no model of the
-# repo has one above 256
-FLAT_HEAD_DIMS = (64, 128, 256)
+# reference's flat route takes every multiple of 128; the kernels' fp32
+# tiles (and no model of the repo) go past 512 (csrc/flash_common.cuh,
+# kMaxFlatHeadDim)
+FLAT_MAX_HEAD_DIM = 512
+FLAT_HEAD_DIMS = (64, 128, 256, 384, 512)
 
 
 def flash_attention_reference(q, k, v, causal: bool, scale: float):
@@ -377,9 +379,9 @@ def _check_kernel_args(q, k, v):
                          f"{k.shape[2]}")
     if D not in FLAT_HEAD_DIMS:
         raise ValueError(
-            f"the flat-layout kernels K1/K2 take head dims 64, 128 and 256, "
-            f"got {D}; a multiple of 128 above 256 is not ported "
-            "(ROADMAP.md, queue 3), other head dims take K4")
+            f"the flat-layout kernels K1/K2 take head dims 64 and the "
+            f"multiples of 128 up to {FLAT_MAX_HEAD_DIM}, got {D}; other "
+            "head dims take K4")
     if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"the flash kernels take float32 or bfloat16 q, k "

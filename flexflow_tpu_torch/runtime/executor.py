@@ -201,27 +201,20 @@ class Executor:
     # ------------------------------------------------------------------
     # training and evaluation steps
 
-    def train_step(self, trainable, nontrainable, opt_state, labels,
-                   *inputs):
-        """One training step: forward (training=True, the sink softmax
-        fused into the loss), autograd backward to every trainable leaf,
-        and the optimizer's update of the fp32 masters and the state, in
-        place. Returns (trainable, nontrainable, opt_state, metrics);
-        metrics (the compiled metrics and "loss") are 0-d tensors on the
-        device, so the step never waits for the card."""
+    def loss_and_grads(self, trainable, nontrainable, labels, *inputs):
+        """The loss of one batch (forward with training=True, the sink
+        softmax fused into the loss) and its gradient with respect to
+        every trainable leaf. Returns (loss, logits, grads): loss and
+        logits detached, grads a tree shaped like `trainable`."""
         leaves = [p for ws in trainable.values() for p in ws.values()]
         for p in leaves:
-            if p.dtype != torch.float32:
-                raise ValueError("train_step updates fp32 master weights; "
-                                 "pass Executor.master_params(trainable)")
             p.requires_grad_(True)
         try:
             logits = self.run_forward(
                 trainable, nontrainable, inputs, training=True,
                 skip_sink_softmax=self.fuse_loss_softmax)
-            sink_is_sm = self.last_op_is_softmax \
-                and not self.fuse_loss_softmax
-            loss = compute_loss(self.loss_type, logits, labels, sink_is_sm)
+            loss = compute_loss(self.loss_type, logits, labels,
+                                self._sink_is_softmax())
             grads = torch.autograd.grad(loss, leaves)
         finally:
             for p in leaves:
@@ -229,10 +222,32 @@ class Executor:
         it = iter(grads)
         grad_tree = {nk: {wn: next(it) for wn in ws}
                      for nk, ws in trainable.items()}
-        metrics = compute_step_metrics(self.metrics, self.loss_type,
-                                       logits.detach(), labels, sink_is_sm)
-        metrics["loss"] = loss.detach()
-        del logits, grads
+        return loss.detach(), logits.detach(), grad_tree
+
+    def _sink_is_softmax(self) -> bool:
+        """The logits still end in the sink softmax (not fused into the
+        loss)."""
+        return self.last_op_is_softmax and not self.fuse_loss_softmax
+
+    def train_step(self, trainable, nontrainable, opt_state, labels,
+                   *inputs):
+        """One training step: the loss and gradients of `loss_and_grads`,
+        then the optimizer's update of the fp32 masters and the state, in
+        place. Returns (trainable, nontrainable, opt_state, metrics);
+        metrics (the compiled metrics and "loss") are 0-d tensors on the
+        device, so the step never waits for the card."""
+        for ws in trainable.values():
+            for p in ws.values():
+                if p.dtype != torch.float32:
+                    raise ValueError(
+                        "train_step updates fp32 master weights; pass "
+                        "Executor.master_params(trainable)")
+        loss, logits, grad_tree = self.loss_and_grads(
+            trainable, nontrainable, labels, *inputs)
+        metrics = compute_step_metrics(self.metrics, self.loss_type, logits,
+                                       labels, self._sink_is_softmax())
+        metrics["loss"] = loss
+        del logits
         trainable, opt_state = self.optimizer.update(grad_tree, trainable,
                                                      opt_state)
         return trainable, nontrainable, opt_state, metrics
@@ -243,7 +258,7 @@ class Executor:
         on the device."""
         logits = self.run_forward(trainable, nontrainable, inputs,
                                   skip_sink_softmax=self.fuse_loss_softmax)
-        sink_is_sm = self.last_op_is_softmax and not self.fuse_loss_softmax
+        sink_is_sm = self._sink_is_softmax()
         m = compute_step_metrics(self.metrics, self.loss_type, logits,
                                  labels, sink_is_sm)
         m["loss"] = compute_loss(self.loss_type, logits, labels, sink_is_sm)

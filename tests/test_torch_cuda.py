@@ -14,6 +14,7 @@ from flexflow_tpu_torch.ops.flash_attention import (
     FlashAttentionFunction,
     flash_attention,
     flash_attention_reference,
+    flash_delta,
     flash_bh_delta,
     flash_bh_dkv_reference,
     flash_bh_dq_reference,
@@ -199,16 +200,40 @@ def _close(got, want, tol):
     return err <= tol * max(1.0, float(want.float().abs().max())), err
 
 
+# (S, T, H, Hkv, D): S = T at 128, a ragged 1000 and 1024, S != T both
+# ways, GQA rep 1, 2 and 8; D 64 and 384 / 512 run the CUDA-core bodies,
+# bf16 at 128 and 256 the tensor-core ones
+FLASH_SHAPES = [
+    (128, 128, 4, 2, 64), (1000, 1000, 4, 2, 64),
+    (128, 128, 4, 4, 128), (256, 256, 4, 2, 128), (1000, 1000, 4, 2, 128),
+    (1024, 1024, 16, 8, 128), (1000, 1000, 8, 1, 128),
+    (256, 1024, 4, 2, 128), (1024, 256, 4, 2, 128), (200, 333, 8, 1, 128),
+    (256, 256, 4, 2, 256), (200, 200, 4, 2, 256), (1024, 1024, 4, 4, 256),
+    (128, 128, 8, 1, 256), (256, 1024, 4, 2, 256),
+    (128, 128, 4, 2, 384), (200, 300, 4, 2, 384), (128, 128, 4, 2, 512),
+    (200, 200, 8, 1, 512),
+]
+
+
+def _flash_inputs(S, T, H, Hkv, D, dtype, seed, B=2):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(B, T, Hkv, D, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    # dO as the output projection's backward may hand it over: strided
+    do = torch.randn(B, H, S, D, generator=g, device="cuda").to(
+        dtype).transpose(1, 2)
+    return q, k, v, do
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("S,D", [(128, 64), (1000, 64), (256, 128),
-                                 (1000, 128), (256, 256), (200, 256)])
-def test_flash_kernels_match_plain_version(dtype, causal, S, D):
+@pytest.mark.parametrize("S,T,H,Hkv,D", FLASH_SHAPES)
+def test_flash_kernels_match_plain_version(dtype, causal, S, T, H, Hkv, D):
     """K1 (out, lse) and K2 (dq, dk, dv from a fixed, non-contiguous dO)
-    against the plain version's forward and autograd gradients, GQA
-    (H 4, Hkv 2), S = T including a ragged 1000 and 200; D 256 runs K2 on
-    32-row tiles. K1/K2 are driven through FlashAttentionFunction:
-    flash_attention sends D 64 to K4."""
+    against the plain version's forward and autograd gradients, B 2, at
+    every shape class the bodies take (FLASH_SHAPES). K1/K2 are driven
+    through FlashAttentionFunction: flash_attention sends D 64 to K4."""
     _needs_card()
     from flexflow_tpu_torch.kernels import (
         FLASH_ATTENTION_DKV,
@@ -217,14 +242,9 @@ def test_flash_kernels_match_plain_version(dtype, causal, S, D):
         launch_flash_attention_fwd,
     )
 
-    B, H, Hkv = 2, 4, 2
+    B = 2
     scale = 1.0 / D ** 0.5
-    g = torch.Generator(device="cuda").manual_seed(S + D)
-    q, k, v = (torch.randn(B, S, h, D, generator=g, device="cuda")
-               .to(dtype) for h in (H, Hkv, Hkv))
-    # dO as the output projection's backward may hand it over: strided
-    do = torch.randn(B, H, S, D, generator=g, device="cuda").to(
-        dtype).transpose(1, 2)
+    q, k, v, do = _flash_inputs(S, T, H, Hkv, D, dtype, S + T + D)
     fwd_tol, grad_tol = FLASH_TOLS[dtype]
 
     want_out, want_lse = flash_attention_reference(q, k, v, causal, scale)
@@ -252,12 +272,46 @@ def test_flash_kernels_match_plain_version(dtype, causal, S, D):
         assert ok, (name, err)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,T,H,Hkv,D", [(1000, 1000, 16, 8, 128),
+                                         (256, 1024, 8, 1, 256)])
+def test_flash_bf16_kernels_are_bitwise_deterministic(causal, S, T, H, Hkv,
+                                                      D):
+    """Two launches of each bf16 kernel on the same inputs give the same
+    bits: dk/dv sum the GQA group inside the block, with no atomics."""
+    _needs_card()
+    from flexflow_tpu_torch.kernels import (
+        launch_flash_attention_dkv,
+        launch_flash_attention_dq,
+        launch_flash_attention_fwd,
+    )
+
+    B = 2
+    scale = 1.0 / D ** 0.5
+    q, k, v, do = _flash_inputs(S, T, H, Hkv, D, torch.bfloat16, 7)
+    do = do.contiguous()
+    runs = []
+    for _ in range(2):
+        out = torch.empty_like(q)
+        lse = torch.empty(B, H, S, device="cuda")
+        launch_flash_attention_fwd(q, k, v, out, lse, causal, scale)
+        delta = flash_delta(do, out)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        launch_flash_attention_dq(q, k, v, do, lse, delta, dq, causal, scale)
+        launch_flash_attention_dkv(q, k, v, do, lse, delta, dk, dv, causal,
+                                   scale)
+        runs.append((out, lse, dq, dk, dv))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
 def test_flash_wrapper_refuses_what_the_kernels_do_not_take():
-    """D 384 (a multiple of 128 above 256) is refused by K1/K2; above 256
+    """D 640 (a multiple of 128 above 512) is refused by K1/K2; above 256
     by K4; float16 by both."""
     _needs_card()
-    q = torch.zeros(1, 8, 2, 384, device="cuda")
-    with pytest.raises(ValueError, match="64, 128 and 256"):
+    q = torch.zeros(1, 8, 2, 640, device="cuda")
+    with pytest.raises(ValueError, match="up to 512"):
         flash_attention(q, q, q, causal=True, scale=0.1)
     q = torch.zeros(1, 8, 2, 264, device="cuda")
     with pytest.raises(ValueError, match="up to 256"):

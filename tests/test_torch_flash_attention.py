@@ -115,18 +115,17 @@ def test_flash_attention_matches_jax_pallas(D, S, Hkv, causal):
     np.testing.assert_allclose(lse.numpy(), want, atol=FWD_TOL, rtol=FWD_TOL)
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_head_dim_256_takes_the_flat_route_and_matches_jax(monkeypatch,
-                                                           causal):
-    """D 256 is a multiple of 128: the reference runs its flat-lane K1/K2
-    (here interpreted), and the port routes it to the flat kernels too
-    (their argument check takes it; on the CPU their plain version runs,
-    never the head-major route). Forward and gradients agree."""
+def _flat_route_matches_jax(monkeypatch, D, causal, seed):
+    """At head dim D (a multiple of 128) the reference runs its flat-lane
+    K1/K2 (here interpreted), and the port routes D to the flat kernels
+    too (their argument check takes it; on the CPU their plain version
+    runs, never the head-major route). Forward and gradients agree; S 128,
+    GQA 4 / 2."""
     from flexflow_tpu_torch.ops import flash_attention as fa
 
-    D, S, H, Hkv = 256, 128, 4, 2
+    S, H, Hkv = 128, 4, 2
     scale = 1.0 / np.sqrt(D)
-    q, k, v, w = _inputs(S, H, Hkv, D, seed=23 + causal)
+    q, k, v, w = _inputs(S, H, Hkv, D, seed=seed)
     fa._check_kernel_args(*(torch.from_numpy(a) for a in (q, k, v)))
     calls = []
     real = fa.flash_attention_reference
@@ -157,6 +156,22 @@ def test_head_dim_256_takes_the_flat_route_and_matches_jax(monkeypatch,
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(j),
                                    atol=GRAD_TOL, rtol=GRAD_TOL,
                                    err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_256_takes_the_flat_route_and_matches_jax(monkeypatch,
+                                                           causal):
+    """D 256 is a multiple of 128: the flat route on both sides."""
+    _flat_route_matches_jax(monkeypatch, 256, causal, seed=23 + causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [384, 512])
+def test_head_dims_384_and_512_take_the_flat_route_and_match_jax(
+        monkeypatch, D, causal):
+    """D 384 and 512: the reference's flat route takes every multiple of
+    128 (flash_attention.py:618), and so does the port's, up to 512."""
+    _flat_route_matches_jax(monkeypatch, D, causal, seed=D + causal)
 
 
 def test_delta_prepass_matches_reference_einsum():
@@ -206,10 +221,9 @@ def test_bf16_plain_version_rounds_like_the_reference():
 
 
 def test_wrapper_refuses_devices_and_shapes_it_does_not_take():
-    """K1/K2 refuse head dims other than 64, 128 and 256 (a multiple of
-    128 above 256 is an open gap, ROADMAP.md queue 3), K4 head dims above
-    256, and both other dtypes, devices and head counts, each naming the
-    limit."""
+    """K1/K2 refuse head dims other than 64 and the multiples of 128 up to
+    512 (384 and 512 pass), K4 head dims above 256, and both other
+    dtypes, devices and head counts, each naming the limit."""
     from flexflow_tpu_torch.ops.flash_attention import (
         _check_bh_args,
         _check_kernel_args,
@@ -220,10 +234,13 @@ def test_wrapper_refuses_devices_and_shapes_it_does_not_take():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"),
                         causal=True, scale=0.1)
-    with pytest.raises(ValueError, match="64, 128 and 256"):
-        _check_kernel_args(torch.zeros(1, 4, 2, 384),
-                           torch.zeros(1, 4, 1, 384),
-                           torch.zeros(1, 4, 1, 384))
+    for D in (384, 512):
+        _check_kernel_args(torch.zeros(1, 4, 2, D), torch.zeros(1, 4, 1, D),
+                           torch.zeros(1, 4, 1, D))
+    with pytest.raises(ValueError, match="up to 512"):
+        _check_kernel_args(torch.zeros(1, 4, 2, 640),
+                           torch.zeros(1, 4, 1, 640),
+                           torch.zeros(1, 4, 1, 640))
     with pytest.raises(ValueError, match="bfloat16"):
         _check_kernel_args(q.half(), kv.half(), kv.half())
     with pytest.raises(ValueError, match="multiple"):
