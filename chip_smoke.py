@@ -1,17 +1,19 @@
 """Chip smoke test of flexflow_tpu_torch, the PyTorch/CUDA port: drives the
 port's main paths on one NVIDIA card, paged Llama serving (fp and int8 KV
-pools, prefix cache, preemption, defrag), Llama training, GPT-2 training
-and paged serving, and Llama training through ring attention, and holds
-every hand-written kernel on them to its plain PyTorch version.
+pools, prefix cache, preemption, defrag), Llama training (head dims 128
+and 64), GPT-2 training and paged serving, and Llama training through
+ring attention, and holds every hand-written kernel on them to its plain
+PyTorch version.
 
-    python3 chip_smoke.py            # phases 1,2,3,4,6,7,8,9,10 on one card
+    python3 chip_smoke.py            # phases 1,2,3,4,6,7,8,9,10,11, one card
     python3 chip_smoke.py --phases 5 # + profiles of serving and training
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
   1. card: name and power limit; build every kernel from csrc/ (nvcc,
      sm_90a, one process per source, all started together), with the
      seconds each source took and the HGMMA (wgmma) instructions in the
-     SASS of each tensor-core flash kernel;
+     SASS of each tensor-core flash kernel: K1/K2's and K4's forward, dq
+     and dk/dv at head dims 64, 128 and 256 (WGMMA_KERNELS);
   2. kernels vs their plain versions on the card, with kernel / plain /
      library times and the roofline bound: the ragged paged attention at
      the serving path's shapes (Llama-3-8B attention: H=32, Hkv=8,
@@ -26,10 +28,14 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      1024, 16 heads of 256, causal) and at 384 and 512 (FLASH_CASES);
      bf16 and fp32; and the head-major flash kernels K4
      (forward, dq, dk/dv) at GPT-2 XL training's shape (B*H 8*25, S = T
-     1024, D 64, causal) with times, then at head dims 48, 80, 96, 100 and
-     256, non-causal, S != T, S not a multiple of the tile and phase 10's
-     ring block (B*H 16, S = T 2048, D 128, causal and full), each
-     backward also fed a shifted lse (the ring's contract); K1/K2 timed at
+     1024, D 64, causal) and at phase 11's (B*H 8*16, bf16) with times,
+     then at head dims 48, 80, 96, 100 and 256, non-causal, S != T, S not
+     a multiple of the tile and phase 10's ring block (B*H 16, S = T
+     2048, D 128, causal and full; bf16 timed beside SDPA), each
+     backward also fed a shifted lse (the ring's contract); the flash
+     checks (max |err|, error norm, lse; FLASH_TOLS, LSE_ATOL) must
+     reject a planted fault at GPT-2 XL's shape (the plain results with
+     one key tile skipped for the last query rows); K1/K2 timed at
      D 64 on the same shape beside K4 and the head-major route; the ring
      step K5 at phase 10's block (B*H 16, S = T
      2048, D 128, full and causal, a carried-in state) with times, then at
@@ -41,16 +47,17 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      GPT-2 XL widths, depth 2, batch 1, seq 256 (the loss and every
      parameter after the step), and one of the ring-built bench_1b,
      depth 2, seq 1024 over a {"seq": 4} mesh (K5 launched per fold);
-     and the einsum ring (a local sequence that is not a multiple of
-     128) at bench_1b's attention widths: its output and gradients;
+     and the ring at a local sequence that is not a multiple of 128
+     (s_loc 192, bench_1b's attention widths; the same K5 ring, no
+     length gate): its output, gradients and launches;
   4. serving: Llama-3-8B (32 layers, bf16, random weights from a seed)
      through serve_generation(paged=True) at its defaults (prefix cache
      and preemption on); 8 requests of 128..1024 prompt tokens, 64 new
      tokens each; the ragged kernel must have launched once per layer and
      step (counts reset just before, read just after);
   5. (on request) torch.profiler breakdowns of one decode step, one
-     prefill step, one bench_1b train step, one GPT-2 XL train step and
-     one phase-10 ring step;
+     prefill step, one bench_1b train step, one GPT-2 XL train step, one
+     phase-10 ring step and one phase-11 step;
   6. training: bench_1b (16 layers, bf16, batch 8, seq 1024,
      remat="none", Adam lr 1e-4, random weights from a seed) through
      ff.fit for one epoch of 10 seeded batches, then 10 timed steps on
@@ -87,7 +94,16 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      loss must fall); per layer and step K5 must fold 10 blocks and K4's
      dq and dk/dv kernels run once per fold, no other attention kernel;
      then the same model and weights without the ring (K1/K2 over all
-     8192 rows): its step time, and its logits against the ring's.
+     8192 rows): its step time, and its logits against the ring's;
+ 11. training bench.py's 200m Llama (bench.py:56-58: vocab 32000, dim
+     1024, 12 layers, 16 heads over 8 kv heads, head dim 64, FFN 2816;
+     bf16, fp32 masters, batch 8, seq 1024, remat="none", Adam lr 1e-4,
+     random weights from a seed) through ff.fit for one epoch of 10
+     seeded batches, then 10 timed steps on one repeated batch (the loss
+     must fall); each K4 kernel must launch 12 times per step and no
+     other attention kernel, and a profiled step must show K4 on its
+     tensor-core bodies only (K4's share of the device time reported).
+     The kernels line takes K4's launches from this phase.
 The line before the last is the kernel list as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -172,6 +188,13 @@ TOLS = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 # sum up to 1024 products per element, 1e-4); bf16 rounds p and ds to
 # bf16 at other points than the plain version and every output is bf16
 FLASH_TOLS = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+# and besides that max |err|, which scales with the tensor's largest value
+# (row 0's v in a causal output) and so is loose for late rows: the error's
+# norm within tol / 2 of the plain result's (||got - want|| <= tol / 2 *
+# ||want||), and a forward's lse within LSE_ATOL of the plain lse
+# everywhere. `planted_fault_check` shows that they reject a skipped key
+# tile
+LSE_ATOL = 1e-2
 # int8 kernel vs plain version, max |err| <= tol * max(1, max |plain|), as
 # for the flash kernels: an int8 pool is dequantized to fp32 and attended
 # in fp32 by both (summation order only) for fp32 q; bf16 q rounds the
@@ -264,7 +287,7 @@ RING_SEQ, RING_SHARDS, RING_BATCHES, RING_PLAIN_STEPS = 8192, 4, 10, 3
 # fold the 8192 keys in other orders, so p is rounded to bf16 against
 # other running maxima in each of 16 layers. A coarse check of the whole
 # model, not set from a faulty ring: phase 2's kernel checks and phase
-# 3's card-vs-CPU ring step and einsum ring hold the ring to its contract
+# 3's card-vs-CPU ring steps hold the ring to its contract
 RING_LOGITS_RTOL = 0.1
 GPT2_POSITIONS = 1024  # n_positions: the position table, serving's max_len
 GPT2_BATCHES = 10
@@ -274,6 +297,15 @@ GPT2_BATCHES = 10
 GPT2_CHECK_STEP, GPT2_GRAD_RTOL = 8, 1e-3
 # phase 9's traffic: 8 prompts uniform in 128..768 tokens, 64 new each
 GPT2_PROMPTS, GPT2_PROMPT_MIN, GPT2_PROMPT_MAX, GPT2_NEW = 8, 128, 768, 64
+
+
+def llama_200m() -> LlamaConfig:
+    """bench.py's 200m profile, built inline as bench.py:56-58 builds it
+    (no constructor of its own): vocab 32000, dim 1024, 12 layers, 16
+    heads over 8 kv heads (head dim 64: the head-major route, K4), FFN
+    2816."""
+    return LlamaConfig(vocab_size=32000, dim=1024, layers=12, heads=16,
+                       kv_heads=8, hidden=2816)
 
 
 def gpt2_xl() -> GPT2Config:
@@ -296,29 +328,53 @@ def card_line() -> str:
     return out[0] if out else ""
 
 
+# every tensor-core instantiation the sources build: K1/K2's bodies under
+# the FlatLayout tag and K4's under HeadMajor, forward, dq and dk/dv, at
+# head dims 64, 128 and 256
+WGMMA_KERNELS = tuple(f"flash_{k}_wgmma_kernel<{tag},{d}>"
+                      for tag in ("FlatLayout", "HeadMajor")
+                      for k in ("fwd", "dq", "dkv") for d in (64, 128, 256))
+
+
+def wgmma_name(symbol: str):
+    """'flash_fwd_wgmma_kernel<HeadMajor,64,128,2>' (kernel, layout tag,
+    head dim, tile, stages) from a mangled or demangled symbol of one of
+    the tensor-core bodies, or None."""
+    m = re.search(r"(flash_(?:fwd|dq|dkv)_wgmma_kernel)I.*?"
+                  r"(FlatLayout|HeadMajor)E((?:Li\d+E)+)", symbol)
+    if m:
+        return f"{m[1]}<{m[2]},{','.join(re.findall(r'Li(\d+)E', m[3]))}>"
+    m = re.search(r"(flash_(?:fwd|dq|dkv)_wgmma_kernel)<(?:ffwg::)?"
+                  r"(FlatLayout|HeadMajor), ([\d, ]+)>", symbol)
+    return f"{m[1]}<{m[2]},{m[3].replace(' ', '')}>" if m else None
+
+
 def hgmma_counts() -> dict:
     """{tensor-core kernel: HGMMA instructions in its SASS}, for every
-    `*_wgmma_kernel` function of K1's and K2's built libraries
-    (cuobjdump -sass): the proof that their bf16 bodies run on the tensor
-    cores. Raises if there is none, or one holds no HGMMA."""
+    `flash_*_wgmma_kernel` instantiation of K1/K2's and K4's built
+    libraries (cuobjdump -sass): the proof that their bf16 bodies run on
+    the tensor cores. Raises if one of WGMMA_KERNELS is missing or holds
+    no HGMMA."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
-    for kern in (FLASH_ATTENTION_FWD, FLASH_ATTENTION_DQ):  # both sources
+    # the four flash sources: K1, K2, K4's forward, K4's backward
+    for kern in (FLASH_ATTENTION_FWD, FLASH_ATTENTION_DQ,
+                 FLASH_ATTENTION_BH_FWD, FLASH_ATTENTION_BH_DQ):
         sass = subprocess.run([tool, "-sass", str(kern.library_path())],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
         name = None
         for line in sass.splitlines():
             if "Function :" in line:
-                m = re.search(r"(flash_(?:fwd|dq|dkv)_wgmma_kernel)ILi(\d+)"
-                              r"ELi(\d+)E", line)
-                name = f"{m[1]}<{m[2]},{m[3]}>" if m else None
+                name = wgmma_name(line)
                 if name:
                     counts[name] = 0
             elif name and "HGMMA" in line:
                 counts[name] += 1
-    if not counts or not all(counts.values()):
-        raise AssertionError(f"tensor-core kernels without HGMMA: {counts}")
+    found = {",".join(n.split(",")[:2]) + ">" for n in counts}
+    if set(WGMMA_KERNELS) - found or not all(counts.values()):
+        raise AssertionError(f"tensor-core kernels missing or without "
+                             f"HGMMA: {counts}, want {WGMMA_KERNELS}")
     return counts
 
 
@@ -587,15 +643,33 @@ def phase_int8_kernels(card: str) -> list:
 # phase 2: the flash-attention kernels against their plain versions
 
 
-def _err_ok(pairs, tol):
-    """(max |err| over the (got, want) pairs, whether each is within tol x
-    max(1, max |want|))."""
-    errs, ok = [], True
-    for got, want in pairs:
-        err = float((got.float() - want.float()).abs().max())
-        errs.append(err)
-        ok = ok and err <= tol * max(1.0, float(want.float().abs().max()))
-    return max(errs), ok
+def _err_parts(got, want, tol, lse: bool = False) -> dict:
+    """One (got, want) pair's verdicts: max |err| within tol x max(1, max
+    |want|), ||got - want|| within tol / 2 x ||want||, and with `lse`
+    every |err| within LSE_ATOL."""
+    diff = got.float() - want.float()
+    err = float(diff.abs().max())
+    dn, wn = float(diff.norm()), float(want.float().norm())
+    res = {"max_abs_err": err,
+           "max_abs": err <= tol * max(1.0, float(want.float().abs().max())),
+           "rel_norm_err": dn / wn if wn else (0.0 if dn == 0 else np.inf)}
+    res["norm"] = res["rel_norm_err"] <= tol / 2
+    if lse:
+        res["lse"] = err <= LSE_ATOL
+    return res
+
+
+def _err_ok(pairs, tol, lse=None):
+    """(max |err| over the (got, want) pairs and the (got, want) `lse`
+    pair, whether every verdict of `_err_parts` holds for each, the
+    largest ||got - want|| / ||want||)."""
+    parts = [_err_parts(got, want, tol) for got, want in pairs]
+    if lse is not None:
+        parts.append(_err_parts(*lse, tol, lse=True))
+    return (max(r["max_abs_err"] for r in parts),
+            all(r["max_abs"] and r["norm"] and r.get("lse", True)
+                for r in parts),
+            max(r["rel_norm_err"] for r in parts))
 
 
 def flash_case(dtype, seed: int, shape=(FB, FS, FH, FHKV, FD), T=None):
@@ -684,23 +758,24 @@ def phase_flash_kernels(card: str, shape=(FB, FS, FH, FHKV, FD),
         bwd_args = (q, k, v, do, want_lse, delta)
         want_dq = flash_dq_reference(*bwd_args, causal, scale)
         want_dk, want_dv = flash_dkv_reference(*bwd_args, causal, scale)
-        # name: (kernel launch, plain version, (got, want) pairs, tol)
+        # name: (kernel launch, plain version, (got, want) pairs, tol,
+        # (got, want) lse or None)
         calls = {
             FLASH_ATTENTION_FWD.name: (
                 lambda: launch_flash_attention_fwd(q, k, v, out, lse,
                                                    causal, scale),
                 lambda: flash_attention_reference(q, k, v, causal, scale),
-                [(out, want_out), (lse, want_lse)], fwd_tol),
+                [(out, want_out)], fwd_tol, (lse, want_lse)),
             FLASH_ATTENTION_DQ.name: (
                 lambda: launch_flash_attention_dq(*bwd_args, dq, causal,
                                                   scale),
                 lambda: flash_dq_reference(*bwd_args, causal, scale),
-                [(dq, want_dq)], grad_tol),
+                [(dq, want_dq)], grad_tol, None),
             FLASH_ATTENTION_DKV.name: (
                 lambda: launch_flash_attention_dkv(*bwd_args, dk, dv,
                                                    causal, scale),
                 lambda: flash_dkv_reference(*bwd_args, causal, scale),
-                [(dk, want_dk), (dv, want_dv)], grad_tol),
+                [(dk, want_dk), (dv, want_dv)], grad_tol, None),
         }
         lib_fwd, lib_bwd = sdpa_calls(q, k, v, do, scale, causal)
         lib_ms = {FLASH_ATTENTION_FWD.name: time_ms(lib_fwd)}
@@ -708,16 +783,16 @@ def phase_flash_kernels(card: str, shape=(FB, FS, FH, FHKV, FD),
             = time_ms(lib_bwd)
         bounds = flash_bounds(q, k, causal)
         per = {}
-        for name, (kernel, plain, pairs, tol) in calls.items():
+        for name, (kernel, plain, pairs, tol, lse_pair) in calls.items():
             kernel()
             torch.cuda.synchronize()
-            err, ok = _err_ok(pairs, tol)
+            err, ok, rel = _err_ok(pairs, tol, lse_pair)
             bound_ms, bound_by, nbytes, ops = bounds[name]
             res = {
                 "case": case, "kernel": name,
                 "dtype": str(dtype).replace("torch.", ""),
                 "shape": list(shape), "T": k.shape[1], "causal": causal,
-                "max_abs_err": err, "tol": tol,
+                "max_abs_err": err, "rel_norm_err": rel, "tol": tol,
                 "ms": time_ms(kernel), "plain_ms": time_ms(plain),
                 "library_ms": lib_ms[name], "bound_ms": bound_ms,
                 "bound_by": bound_by, "bytes": nbytes, "ops": ops,
@@ -726,8 +801,9 @@ def phase_flash_kernels(card: str, shape=(FB, FS, FH, FHKV, FD),
             log(f"kernel {json.dumps(res)}")
             if not ok:
                 raise AssertionError(
-                    f"{name} {dtype}: max |err| {err} over tol {tol} x "
-                    "max(1, max |plain|)")
+                    f"{name} {dtype}: outside tol {tol} (max |err| {err} "
+                    "over tol x max(1, max |plain|), error norm over tol / "
+                    "2 x the plain norm, or lse over LSE_ATOL)")
             per[name] = res
         results[res["dtype"]] = per
     torch.cuda.empty_cache()
@@ -766,7 +842,7 @@ def k4_check(BH, S, T, D, causal, dtype, seed, timed=False):
     fwd()
     torch.cuda.synchronize()
     errs = {FLASH_ATTENTION_BH_FWD.name: _err_ok(
-        [(out, want_out), (lse, want_lse)], fwd_tol)}
+        [(out, want_out)], fwd_tol, (lse, want_lse))}
     bwd_err = {FLASH_ATTENTION_BH_DQ.name: [], FLASH_ATTENTION_BH_DKV.name: []}
     for given in (want_lse, shifted):
         args = (q, k, v, do, given, delta)
@@ -780,13 +856,15 @@ def k4_check(BH, S, T, D, causal, dtype, seed, timed=False):
             [(dk, want_dk), (dv, want_dv)], grad_tol))
         del want_dk, want_dv
     for name, pair in bwd_err.items():
-        errs[name] = (max(e for e, _ in pair), all(o for _, o in pair))
+        errs[name] = (max(e[0] for e in pair), all(e[1] for e in pair),
+                      max(e[2] for e in pair))
     res = {}
     for kernel in K4_KERNELS:
-        err, ok = errs[kernel.name]
+        err, ok, rel = errs[kernel.name]
         res[kernel.name] = {
             "kernel": kernel.name, "dtype": str(dtype).replace("torch.", ""),
             "shape": [BH, S, T, D], "causal": causal, "max_abs_err": err,
+            "rel_norm_err": rel,
             "tol": fwd_tol if kernel is FLASH_ATTENTION_BH_FWD else grad_tol,
             "ok": ok}
     if timed:
@@ -839,9 +917,10 @@ def k1_vs_k4_d64() -> dict:
     """The cost of the reference's head-major route at D 64 on K4's main
     shape (B 8, S 1024, H 25, bf16, causal): K1/K2 launched directly on
     the projection layout (their D 64 instantiation, which the lowering
-    no longer reaches) beside the whole routes, forward and forward +
-    backward: flash_attention (transposes to and from (B*H, S, D) around
-    K4) and FlashAttentionFunction (K1/K2)."""
+    does not reach: the tensor-core bodies K4 runs, under the FlatLayout
+    tag) beside the whole routes, forward and forward + backward:
+    flash_attention (transposes to and from (B*H, S, D) around K4) and
+    FlashAttentionFunction (K1/K2)."""
     scale = 1.0 / KD ** 0.5
     g = torch.Generator(device=DEVICE).manual_seed(11)
     q, k, v, do = (torch.randn(KB, KS, KH, KD, generator=g, device=DEVICE)
@@ -873,12 +952,57 @@ def k1_vs_k4_d64() -> dict:
     return res
 
 
+def planted_fault_check(BH, S, D, dtype, seed, rows=128, keys=128,
+                        device=None) -> dict:
+    """The power of the flash checks: the plain versions' results on
+    seeded (BH, S, D) inputs, causal, with one key tile (the first `keys`
+    keys) left out of the last `rows` query rows, as from a kernel whose
+    K/V ring skipped that tile there: the forward's out and lse, and dq.
+    Returns each criterion's verdicts on each faulted result and whether
+    `_err_ok` rejects the forward and dq (it must)."""
+    device = device or DEVICE
+    scale = 1.0 / D ** 0.5
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(BH, S, D, generator=g, device=device)
+                   .to(dtype) for _ in range(4))
+    out, lse = flash_bh_reference(q, k, v, True, scale)
+    delta = flash_bh_delta(do, out)
+    dq = flash_bh_dq_reference(q, k, v, do, lse, delta, True, scale)
+    late, tile = slice(S - rows, S), slice(0, keys)
+    # the tile's part of the late rows, where all of its keys are visible
+    sub = (q[:, late], k[:, tile], v[:, tile])
+    out_t, lse_t = flash_bh_reference(*sub, False, scale)
+    share = torch.exp(lse_t - lse[:, late])  # of each late row's mass
+    bad_lse, bad_out, bad_dq = (t.float().clone() for t in (lse, out, dq))
+    bad_lse[:, late] += torch.log1p(-share)
+    bad_out[:, late] = ((bad_out[:, late] - share[..., None] * out_t.float())
+                        / (1 - share[..., None]))
+    bad_dq[:, late] -= flash_bh_dq_reference(
+        *sub, do[:, late], lse[:, late], delta[:, late], False, scale).float()
+    bad_out, bad_dq = bad_out.to(dtype), bad_dq.to(dtype)
+    fwd_tol, grad_tol = FLASH_TOLS[dtype]
+    return {
+        "shape": [BH, S, D], "dtype": str(dtype).replace("torch.", ""),
+        "rows": rows, "keys": keys,
+        "out": _err_parts(bad_out, out, fwd_tol),
+        "lse": _err_parts(bad_lse, lse, fwd_tol, lse=True),
+        "dq": _err_parts(bad_dq, dq, grad_tol),
+        "rejected": {
+            "fwd": not _err_ok([(bad_out, out)], fwd_tol, (bad_lse, lse))[1],
+            "dq": not _err_ok([(bad_dq, dq)], grad_tol)[1]}}
+
+
 def phase_k4_kernels(card: str) -> dict:
-    """K4 at its main shape (bf16 and fp32, timed), then at every case of
-    K4_CASES in both dtypes (errors only), then the K1-vs-K4 record.
-    Fails on any error over its tolerance. Returns {"main": {dtype name:
-    {kernel: result}}, "cases": [...], "k1_vs_k4_d64": {...}}."""
-    main, cases = {}, []
+    """K4 at GPT-2 XL's shape (bf16 and fp32, timed) and at phase 11's
+    (bench.py's 200m Llama: B*H 8*16, S = T 1024, D 64, causal; bf16,
+    timed: the kernels line's case), then at every case of K4_CASES in
+    both dtypes (errors; the ring block's bf16 cases timed too), then
+    the planted fault (the checks must reject a skipped key tile at
+    GPT-2 XL's shape), then the K1-vs-K4 record. Fails on any error over
+    its tolerance. Returns {"main": {dtype name: {kernel: result}},
+    "timed": {case: {kernel: result}}, "cases": [...], "planted_fault":
+    {...}, "k1_vs_k4_d64": {...}}."""
+    main, timed, cases = {}, {}, []
     for seed, dtype in enumerate((torch.bfloat16, torch.float32)):
         res = k4_check(KB * KH, KS, KS, KD, True, dtype, seed, timed=True)
         for r in res.values():
@@ -886,22 +1010,44 @@ def phase_k4_kernels(card: str) -> dict:
             log(f"kernel {json.dumps(r)}")
         main[str(dtype).replace("torch.", "")] = res
         torch.cuda.empty_cache()
+    cfg = llama_200m()
+    res = k4_check(TRAIN_BATCH * cfg.heads, TRAIN_SEQ, TRAIN_SEQ,
+                   cfg.dim // cfg.heads, True, torch.bfloat16, 2,
+                   timed=True)
+    for r in res.values():
+        r.update(case="llama_200m_causal", card=card)
+        log(f"kernel {json.dumps(r)}")
+    timed["llama_200m_causal"] = res
     for i, (name, BH, S, T, D, causal) in enumerate(K4_CASES):
         for dtype in (torch.bfloat16, torch.float32):
-            for r in k4_check(BH, S, T, D, causal, dtype, 100 + i).values():
+            t = dtype is torch.bfloat16 and name.startswith("d128_ring")
+            res = k4_check(BH, S, T, D, causal, dtype, 100 + i, timed=t)
+            for r in res.values():
                 r["case"] = name
+                if t:
+                    r["card"] = card
                 log(f"kernel {json.dumps(r)}")
                 cases.append(r)
+            if t:
+                timed[name] = res
+        torch.cuda.empty_cache()
     bad = [r for d in main.values() for r in d.values() if not r["ok"]]
-    bad += [r for r in cases if not r["ok"]]
+    bad += [r for r in cases + [r for d in timed.values()
+                                for r in d.values()] if not r["ok"]]
     if bad:
         raise AssertionError(f"K4 kernels disagree with their plain "
                              f"versions: {bad}")
+    fault = planted_fault_check(KB * KH, KS, KD, torch.bfloat16, 12)
+    log(f"planted_fault {json.dumps(fault)}")
+    if not all(fault["rejected"].values()):
+        raise AssertionError(f"the flash checks pass a skipped key tile: "
+                             f"{fault}")
     cmp = k1_vs_k4_d64()
     cmp["card"] = card
     log(f"k1_vs_k4_d64 {json.dumps(cmp)}")
     torch.cuda.empty_cache()
-    return {"main": main, "cases": cases, "k1_vs_k4_d64": cmp}
+    return {"main": main, "timed": timed, "cases": cases,
+            "planted_fault": fault, "k1_vs_k4_d64": cmp}
 
 
 # ---------------------------------------------------------------------------
@@ -953,8 +1099,9 @@ def k5_check(BH, S, T, D, causal, dtype, seed, timed=False) -> dict:
     res = {"kernel": FLASH_ATTENTION_BH_FWD_CARRY.name,
            "dtype": str(dtype).replace("torch.", ""),
            "shape": [BH, S, T, D], "causal": causal,
-           "max_abs_err": max(e for e, _ in errs), "tol": tol,
-           "ok": all(o for _, o in errs)}
+           "max_abs_err": max(e[0] for e in errs),
+           "rel_norm_err": max(e[2] for e in errs), "tol": tol,
+           "ok": all(e[1] for e in errs)}
     if timed:
         bufs = [t.clone() for t in carried]
         qh, kh, vh = q[:, None], k[:, None], v[:, None]
@@ -1229,17 +1376,21 @@ def phase_train_step(seed: int, cfg=None, label="bench_1b", seq=256,
     return res
 
 
-def phase_ring_einsum(seed: int) -> dict:
-    """The ring's other route on the card: ring_dot_product_attention over
-    a {"seq": 4} mesh at bench_1b's attention widths (B 1, H 16, Hkv 8,
-    D 128) and S 768, so s_loc 192 is not a multiple of 128 and the
-    reference's einsum ring runs, not K5. Its output and the gradients of
-    q, k and v on the card against the same call on the CPU, bf16 and
-    fp32 (TF32 off), causal and full, within FLASH_TOLS; no attention
-    kernel may launch."""
+def phase_ring_untiled(seed: int) -> dict:
+    """The ring at a local length that is not a multiple of 128 (no
+    length gate: the same K5 ring as any other length; the reference
+    takes its einsum ring there): ring_dot_product_attention over a
+    {"seq": 4} mesh at bench_1b's attention widths (B 1, H 16, Hkv 8, D
+    128) and S 768, so s_loc is 192. Its output and the gradients of q,
+    k and v on the card against the same call on the CPU (the plain
+    versions), bf16 and fp32 (TF32 off), causal and full, within
+    FLASH_TOLS; on the card K5 and K4's dq and dk/dv kernels launch once
+    per folded block (10 causal, 16 full), no other attention kernel."""
     torch.backends.cuda.matmul.allow_tf32 = False
     S, H, Hkv, D = 768, 16, 8, 128
     scale = D ** -0.5
+    ring_kernels = (FLASH_ATTENTION_BH_FWD_CARRY, FLASH_ATTENTION_BH_DQ,
+                    FLASH_ATTENTION_BH_DKV)
     res = []
     for i, (dtype, causal) in enumerate(
             (d, c) for d in (torch.bfloat16, torch.float32)
@@ -1258,24 +1409,30 @@ def phase_ring_einsum(seed: int) -> dict:
                 causal=causal, scale=scale)
             (out.float() * w.to(device).float()).sum().backward()
             if device == DEVICE:
-                launched = sum(kk.launches for kk in KERNELS)
+                launched = {kk.name: kk.launches for kk in KERNELS}
             got.append([t.detach().cpu() for t in
                         [out] + [x.grad for x in leaves]])
+        folded = ring_folds(RING_SHARDS) if causal else RING_SHARDS ** 2
+        want = {kk.name: folded if kk in ring_kernels else 0
+                for kk in KERNELS}
         fwd_tol, grad_tol = FLASH_TOLS[dtype]
-        err_fwd, ok_fwd = _err_ok([(got[0][0], got[1][0])], fwd_tol)
-        err_grad, ok_grad = _err_ok(list(zip(got[0][1:], got[1][1:])),
-                                    grad_tol)
+        err_fwd, ok_fwd, rel_fwd = _err_ok([(got[0][0], got[1][0])],
+                                           fwd_tol)
+        err_grad, ok_grad, rel_grad = _err_ok(
+            list(zip(got[0][1:], got[1][1:])), grad_tol)
         r = {"dtype": str(dtype).replace("torch.", ""), "causal": causal,
              "shape": [1, S, H, Hkv, D], "shards": RING_SHARDS,
-             "out_max_abs_err": err_fwd, "grad_max_abs_err": err_grad,
-             "tol": [fwd_tol, grad_tol], "kernel_launches": launched,
-             "ok": ok_fwd and ok_grad and launched == 0}
-        log(f"ring_einsum {json.dumps(r)}")
+             "s_loc": S // RING_SHARDS, "out_max_abs_err": err_fwd,
+             "grad_max_abs_err": err_grad,
+             "rel_norm_err": [rel_fwd, rel_grad], "tol": [fwd_tol, grad_tol],
+             "launches": launched,
+             "ok": ok_fwd and ok_grad and launched == want}
+        log(f"ring_untiled {json.dumps(r)}")
         res.append(r)
     bad = [r for r in res if not r["ok"]]
     if bad:
-        raise AssertionError(f"einsum ring on the card disagrees with the "
-                             f"CPU: {bad}")
+        raise AssertionError(f"the ring at s_loc {S // RING_SHARDS} on the "
+                             f"card disagrees with the CPU: {bad}")
     return {"cases": res}
 
 
@@ -1525,16 +1682,13 @@ def _profile_summary(prof, n: int, wall_ms: float) -> dict:
     from a torch.profiler run of n steps. Device-side events only
     (kernels, memcpy/memset): the CPU-side aten ops also carry their
     children's device time."""
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total > 0]
+    evs = _device_events(prof)
     dev_ms = sum(e.self_device_time_total for e in evs) / n / 1e3
     by_time = sorted(evs, key=lambda e: -e.self_device_time_total)
-    anon = "void (anonymous namespace)::"
 
     def row(e):
-        return (e.key.replace(anon, "")[:60],
-                e.self_device_time_total / n / 1e3, e.count // n)
+        return (_short(e.key)[:60], e.self_device_time_total / n / 1e3,
+                e.count // n)
 
     return {
         "wall_ms": wall_ms,
@@ -1542,9 +1696,33 @@ def _profile_summary(prof, n: int, wall_ms: float) -> dict:
         "idle_share": (1 - dev_ms / wall_ms) if evs else "not measured",
         "device_launches": sum(e.count for e in evs) // n,
         "top": [row(e) for e in by_time[:10]],
-        "own": [row(e) for e in by_time
-                if e.key.startswith((anon + "flash_", anon + "ragged_"))],
+        "own": [row(e) for e in by_time if _own_kernel(e.key)],
     }
+
+
+def _device_events(prof) -> list:
+    """The profile's device-side events with device time (kernels,
+    memcpy/memset), summed by name."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+# the namespaces of the port's kernels: each source's own anonymous one,
+# and ffwg for the tensor-core bodies the flash sources share
+_OWN_NAMESPACES = ("void (anonymous namespace)::", "void ffwg::")
+
+
+def _short(key: str) -> str:
+    for ns in _OWN_NAMESPACES + ("ffwg::",):
+        key = key.replace(ns, "")
+    return key
+
+
+def _own_kernel(key: str) -> bool:
+    """Whether a profiled kernel is one of csrc/'s (flash_*, ragged_*)."""
+    return key.startswith(tuple(ns + p for ns in _OWN_NAMESPACES
+                                for p in ("flash_", "ragged_")))
 
 
 def phase_profile(seed: int, card: str) -> dict:
@@ -2057,6 +2235,130 @@ def phase_ring_train(seed: int, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: bench.py's 200m Llama (head dim 64) trained through K4
+
+
+def k4_bodies(prof, n: int) -> dict:
+    """From a torch.profiler run of n train steps: per step, the launches
+    of each K4 body ({"tensor_core": {fwd, dq, dkv}, "cuda_core": {...}})
+    and K4's device ms and share of the device time."""
+    evs = _device_events(prof)
+    dev = sum(e.self_device_time_total for e in evs)
+    launches = {"tensor_core": {}, "cuda_core": {}}
+    k4_us = 0.0
+    for e in evs:
+        name = wgmma_name(e.key)
+        if name and "HeadMajor" in name:
+            body, kind = "tensor_core", name.split("_")[1]
+        else:
+            m = re.search(r"flash_bh_(fwd|dq|dkv)_kernel<", e.key)
+            if not m:
+                continue
+            body, kind = "cuda_core", m[1]
+        launches[body][kind] = launches[body].get(kind, 0) + e.count // n
+        k4_us += e.self_device_time_total
+    return {"launches_per_step": launches, "k4_ms_per_step": k4_us / n / 1e3,
+            "device_ms_per_step": dev / n / 1e3,
+            "k4_share_of_device_time": k4_us / dev if dev else
+            "not measured"}
+
+
+def phase_train_200m(seed: int, card: str) -> dict:
+    """bench.py's 200m Llama (llama_200m: head dim 64, so every attention
+    takes the head-major route), bf16, fp32 masters, batch 8, seq 1024,
+    remat none, Adam lr 1e-4: one ff.fit epoch of 10 seeded batches (the
+    main path; counts reset just before, read just after: each K4 kernel
+    once per layer and step, no other attention kernel), 10 timed steps
+    on one repeated batch (the loss must fall), then two profiled steps
+    that must show K4's launches on its tensor-core bodies
+    (flash_*_wgmma_kernel<HeadMajor, 64, ...>) and none on its CUDA-core
+    bodies; reports K4's share of the device time and the device's idle
+    share of a timed step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = llama_200m()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ff = _train_model(cfg, DEVICE, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                      dtype=DataType.BFLOAT16, remat="none", seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    x, y = _token_batches(TRAIN_BATCH * TRAIN_BATCHES, TRAIN_SEQ,
+                          cfg.vocab_size, seed)
+    _reset_launches()
+    t0 = time.monotonic()
+    pm = ff.fit(x, y, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    fit_launches = {k.name: k.launches for k in KERNELS}
+    want = {k.name: (cfg.layers * TRAIN_BATCHES if k in K4_KERNELS else 0)
+            for k in KERNELS}
+    if fit_launches != want:
+        raise AssertionError(f"fit launches {fit_launches}, want {want}")
+    fit_loss = pm.sparse_cce_loss / pm.train_all
+    if pm.train_all != TRAIN_BATCH * TRAIN_BATCHES \
+            or not np.isfinite(fit_loss):
+        raise AssertionError(f"fit: {pm}")
+
+    ex = ff.executor
+    tr, ntr = ff._params
+    opt = ff._opt_state
+    bx, by = (torch.from_numpy(a[:TRAIN_BATCH]).to(DEVICE) for a in (x, y))
+    torch.cuda.synchronize()
+    _reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    losses = [float(v) for v in losses]
+    timed_launches = _k4_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
+        torch.cuda.synchronize()
+    bodies = k4_bodies(prof, n)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = llama_flops_per_token(cfg, TRAIN_SEQ) * tokens
+    res = {
+        "model": "llama_200m", "layers": cfg.layers, "dim": cfg.dim,
+        "heads": cfg.heads, "kv_heads": cfg.kv_heads,
+        "head_dim": cfg.dim // cfg.heads, "dtype": "bfloat16",
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": "none",
+        "params": sum(t.numel() for w in tr.values() for t in w.values()),
+        "init_s": init_s, "fit_s": fit_s, "fit_steps": TRAIN_BATCHES,
+        "fit_loss": fit_loss, "fit_launches": fit_launches,
+        "timed_steps": TIMED_STEPS, "losses": losses,
+        "timed_launches": timed_launches, "step_ms": step_s * 1e3,
+        "tokens_per_s": tokens / step_s, "flops_per_step": flops,
+        "mfu": flops / step_s / PEAK_OPS[torch.bfloat16],
+        "peak_mem_gb": peak_gb, "profile": bodies, "card": card,
+    }
+    if isinstance(bodies["k4_share_of_device_time"], float):
+        # the device's idle share of a timed step
+        res["idle_share"] = 1 - bodies["device_ms_per_step"] / (step_s * 1e3)
+    log(f"train_200m {json.dumps(res)}")
+    del ff, ex, tr, ntr, opt, m
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"200m loss on a repeated batch did not fall: "
+                             f"{losses}")
+    if any(n != cfg.layers * TIMED_STEPS for n in timed_launches.values()):
+        raise AssertionError(f"timed launches {timed_launches}")
+    per_step = {k: cfg.layers for k in ("fwd", "dq", "dkv")}
+    if bodies["launches_per_step"] != {"tensor_core": per_step,
+                                       "cuda_core": {}}:
+        raise AssertionError(f"K4 did not run on its tensor-core bodies "
+                             f"alone: {bodies}")
+    return res
+
+
 def gpt2_traffic(vocab: int, seed: int):
     """GPT2_PROMPTS seeded prompts of GPT2_PROMPT_MIN..GPT2_PROMPT_MAX
     tokens."""
@@ -2160,10 +2462,10 @@ def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11",
                     help="comma-separated phases to run (default "
-                    "1,2,3,4,6,7,8,9,10; 5 profiles serving and training "
-                    "steps)")
+                    "1,2,3,4,6,7,8,9,10,11; 5 profiles serving and "
+                    "training steps)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -2197,14 +2499,16 @@ def main(argv=None) -> int:
         phase_train_step(args.seed, gpt2_xl(), "gpt2_xl")
         phase_train_step(args.seed, label="bench_1b_ring", seq=1024,
                          mesh_shape={"seq": RING_SHARDS})
-        phase_ring_einsum(args.seed)
+        phase_ring_untiled(args.seed)
     serve = phase_serve(args.seed, card) if 4 in phases else None
     train = phase_train(args.seed, card) if 6 in phases else None
     serve8 = phase_serve_int8(args.seed, card) if 7 in phases else None
-    train_gpt2 = phase_gpt2_train(args.seed, card) if 8 in phases else None
+    if 8 in phases:
+        phase_gpt2_train(args.seed, card)
     if 9 in phases:
         phase_gpt2_serve(args.seed, card)
     ring = phase_ring_train(args.seed, card) if 10 in phases else None
+    train_200m = phase_train_200m(args.seed, card) if 11 in phases else None
     if 5 in phases:
         phase_profile(args.seed, card)
         phase_profile_train(args.seed, card)
@@ -2212,6 +2516,7 @@ def main(argv=None) -> int:
         phase_profile_train(args.seed, card, label="bench_1b_ring_s8192",
                             batch=1, seq=RING_SEQ,
                             mesh_shape={"seq": RING_SHARDS})
+        phase_profile_train(args.seed, card, llama_200m(), "llama_200m")
     main_case = next((r for r in kern if r["case"] == ATTENTION_CASES[0][0]
                       and r["dtype"] == "bfloat16"), None)
     entries = [_kernel_entry(
@@ -2233,13 +2538,15 @@ def main(argv=None) -> int:
             k, f"flexflow_tpu_torch/csrc/{src}",
             train["fit_launches"][k.name] if train else 0,
             flash.get("bfloat16", {}).get(k.name)))
+    # K4 on this slice's main path: phase 11's bf16 fit, timed at its
+    # attention shape (phase 2)
     for k, src in ((FLASH_ATTENTION_BH_FWD, "flash_attention_bh_fwd.cu"),
                    (FLASH_ATTENTION_BH_DQ, "flash_attention_bh_bwd.cu"),
                    (FLASH_ATTENTION_BH_DKV, "flash_attention_bh_bwd.cu")):
         entries.append(_kernel_entry(
             k, f"flexflow_tpu_torch/csrc/{src}",
-            train_gpt2["fit_launches"][k.name] if train_gpt2 else 0,
-            k4.get("main", {}).get("bfloat16", {}).get(k.name)))
+            train_200m["fit_launches"][k.name] if train_200m else 0,
+            k4.get("timed", {}).get("llama_200m_causal", {}).get(k.name)))
     entries.append(_kernel_entry(
         FLASH_ATTENTION_BH_FWD_CARRY,
         "flexflow_tpu_torch/csrc/flash_attention_bh_fwd.cu",

@@ -20,18 +20,26 @@
 // dtype. lse and delta are fp32 (BH, S). Layout, padded widths and tiles
 // as the forward (flash_bh_common.cuh).
 //
-// dq: one block per (query tile, bh), looping over the live key tiles (up
-// to the causal diagonal). dk/dv: one block per (key tile, bh), looping
-// over the live query tiles (from the diagonal on). Nothing carries
-// between blocks and nothing is accumulated with atomics.
+// Two designs. bf16 at head dims 64, 128 and 256 (training at D 64; the
+// ring's backward at D 128) runs on the tensor cores: K2's bodies of
+// flash_wgmma_bwd.cuh (wgmma fed by TMA), instantiated here under the
+// HeadMajor tag as flash_dq_wgmma_kernel<HeadMajor, ...> and
+// flash_dkv_wgmma_kernel<HeadMajor, ...> on (B = BH, L, heads = 1, D)
+// tensor maps, lse and delta (BH, S) as K2's (B, H = 1, S). fp32 at every
+// width and bf16 at the other widths run the CUDA-core bodies below.
+//
+// CUDA-core bodies. dq: one block per (query tile, bh), looping over the
+// live key tiles (up to the causal diagonal). dk/dv: one block per (key
+// tile, bh), looping over the live query tiles (from the diagonal on).
+// Nothing carries between blocks and nothing is accumulated with atomics
+// (in either design).
 //
 // What bounds it on the card: operations, 6 * D per visible pair for dq
 // and 8 * D for dk/dv; at GPT-2 XL training (B 8, S = T 1024, H 25, D 64,
-// causal) about 0.041 and 0.054 ms at the bf16 tensor-core peak. This
-// first version runs the dots on CUDA cores from fp32 shared-memory
-// tiles; wgmma and TMA are a later change.
+// causal) about 0.041 and 0.054 ms at the bf16 tensor-core peak.
 
 #include "flash_bh_common.cuh"
+#include "flash_wgmma_bwd.cuh"
 
 namespace {
 
@@ -372,9 +380,11 @@ int dispatch_dkv(const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO, dq, dk, dv share it);
-// lse and delta fp32 (BH, S). Each returns a cudaError_t:
-// cudaErrorInvalidValue for shapes the kernels do not take
-// (bh_shapes_ok), otherwise the launch's cudaGetLastError().
+// lse and delta fp32 (BH, S). bf16 at D 64, 128 and 256 runs the
+// tensor-core bodies, every other case the CUDA-core ones. Each returns a
+// cudaError_t: cudaErrorInvalidValue for shapes the kernels do not take
+// (bh_shapes_ok) or tensors TMA cannot map, otherwise the launch's
+// cudaGetLastError().
 int ff_flash_attention_bh_dq(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dq, int BH, int S,
@@ -382,6 +392,13 @@ int ff_flash_attention_bh_dq(const void* q, const void* k, const void* v,
                              int dtype, void* stream) {
   if (!bh_shapes_ok(BH, S, T, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+#define FF_DQ_WG(DIM)                                                      \
+  return ffwg::launch_dq_wgmma<ffwg::HeadMajor, DIM>(                      \
+      q, k, v, dout, lse, delta, dq, BH, S, T, 1, 1, causal, scale, st)
+  if (dtype == 1 && D == 64) FF_DQ_WG(64);
+  if (dtype == 1 && D == 128) FF_DQ_WG(128);
+  if (dtype == 1 && D == 256) FF_DQ_WG(256);
+#undef FF_DQ_WG
   if (dtype == 0)
     return dispatch_dq<float>(q, k, v, dout, lse, delta, dq, BH, S, T, D,
                               causal, scale, st);
@@ -398,6 +415,13 @@ int ff_flash_attention_bh_dkv(const void* q, const void* k, const void* v,
                               int dtype, void* stream) {
   if (!bh_shapes_ok(BH, S, T, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+#define FF_DKV_WG(DIM)                                                     \
+  return ffwg::launch_dkv_wgmma<ffwg::HeadMajor, DIM>(                     \
+      q, k, v, dout, lse, delta, dk, dv, BH, S, T, 1, 1, causal, scale, st)
+  if (dtype == 1 && D == 64) FF_DKV_WG(64);
+  if (dtype == 1 && D == 128) FF_DKV_WG(128);
+  if (dtype == 1 && D == 256) FF_DKV_WG(256);
+#undef FF_DKV_WG
   if (dtype == 0)
     return dispatch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, BH, S, T,
                                D, causal, scale, st);

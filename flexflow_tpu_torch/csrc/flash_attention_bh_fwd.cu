@@ -23,25 +23,36 @@
 // fp32 (BH, S). (The TPU pads D to 128 lanes and broadcasts lse over 128
 // lanes; both are its tiling, not part of the contract.)
 //
-// Design: one block per (64-row query tile, bh), a loop over 64-row K/V
-// tiles that stops at the causal diagonal. D is any width up to 256: the
-// kernel is instantiated for a few padded widths DP (flash_bh_common.cuh),
-// loads the D real columns of each (contiguous) tile and zeroes the
-// columns D..DP-1 in shared memory, so no padded copy reaches device
-// memory. Rows past S and keys past T are masked here.
+// Two designs. K4 in bf16 at head dims 64, 128 and 256 (GPT-2's and
+// bench.py's 200m Llama's D 64 in training; the ring's D 128) runs on the
+// tensor cores: K1's body of flash_wgmma_fwd.cuh (wgmma fed by TMA,
+// 384-thread blocks of 128 query rows, K/V rings of mbarrier'd stages),
+// instantiated here under the HeadMajor tag as
+// flash_fwd_wgmma_kernel<HeadMajor, D, BK, Stages>: a head-major (BH, L,
+// D) tensor is the (B = BH, L, heads = 1, D) tensor its 4-D tensor maps
+// describe, and lse (BH, S) is K1's (B, H = 1, S). K4 in fp32 at every
+// width, bf16 at the other widths, and K5 run the CUDA-core body below:
+// fp32 products stay exact (a tensor-core fp32 path would be TF32), and
+// TMA's 64-column boxes need D a multiple of 64.
+//
+// CUDA-core body: one block per (64-row query tile, bh), a loop over
+// 64-row K/V tiles that stops at the causal diagonal. D is any width up
+// to 256: the kernel is instantiated for a few padded widths DP
+// (flash_bh_common.cuh), loads the D real columns of each (contiguous)
+// tile and zeroes the columns D..DP-1 in shared memory, so no padded copy
+// reaches device memory. Rows past S and keys past T are masked here.
 //
 // What bounds it on the card: operations. At GPT-2 XL training (B 8,
 // S = T 1024, H 25, D 64, causal) K4 does 4 * D ops per visible pair, about
-// 0.031 ms at the bf16 tensor-core peak, against ~0.05 GB of q, k, v, out
-// and lse (~0.016 ms at 3.35 TB/s). K5 at a bench_1b ring step (BH 16,
+// 0.027 ms at the bf16 tensor-core peak, against ~0.1 GB of q, k, v, out
+// and lse (~0.031 ms at 3.35 TB/s). K5 at a bench_1b ring step (BH 16,
 // S = T 2048, D 128, full) does 4 * D ops per pair (~0.035 ms) against
-// ~59 MB, over half of it the fp32 acc read and written (~0.018 ms). This
-// first version runs the dots on
-// CUDA cores from fp32 shared-memory tiles (register tiles of
-// (BQ / 16) x (BK / 16) scores per thread); wgmma and TMA are a later
-// change.
+// ~59 MB, over half of it the fp32 acc read and written (~0.018 ms). The
+// CUDA-core body runs the dots from fp32 shared-memory tiles (register
+// tiles of (BQ / 16) x (BK / 16) scores per thread).
 
 #include "flash_bh_common.cuh"
+#include "flash_wgmma_fwd.cuh"
 
 namespace {
 
@@ -271,15 +282,24 @@ int dispatch(const void* q, const void* k, const void* v, Outputs o, int BH,
 extern "C" {
 
 // q (BH, S, D), k/v (BH, T, D), out (BH, S, D), all contiguous and of one
-// dtype: 0 = float32, 1 = bfloat16; lse fp32 (BH, S). Returns a
-// cudaError_t: cudaErrorInvalidValue for shapes the kernel does not take
-// (bh_shapes_ok), otherwise the launch's cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16; lse fp32 (BH, S). bf16 at D 64, 128
+// and 256 runs the tensor-core body, every other case the CUDA-core body.
+// Returns a cudaError_t: cudaErrorInvalidValue for shapes the kernel does
+// not take (bh_shapes_ok) or tensors TMA cannot map, otherwise the
+// launch's cudaGetLastError().
 int ff_flash_attention_bh_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, int BH, int S, int T,
                               int D, int causal, float scale, int dtype,
                               void* stream) {
   if (!bh_shapes_ok(BH, S, T, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+#define FF_FWD_WG(DIM)                                                     \
+  return ffwg::launch_fwd_wgmma<ffwg::HeadMajor, DIM>(                     \
+      q, k, v, out, lse, BH, S, T, 1, 1, causal, scale, st)
+  if (dtype == 1 && D == 64) FF_FWD_WG(64);
+  if (dtype == 1 && D == 128) FF_FWD_WG(128);
+  if (dtype == 1 && D == 256) FF_FWD_WG(256);
+#undef FF_FWD_WG
   const Outputs o{out, lse, nullptr, nullptr, nullptr};
   if (dtype == 0)
     return dispatch<float, false>(q, k, v, o, BH, S, T, D, causal, scale,

@@ -14,12 +14,14 @@
 // pass. (The TPU broadcasts lse over 128 lanes; that is its layout, not
 // part of the contract.)
 //
-// Two bodies. bf16 at head dims 128 and 256 (every training shape of the
-// repo's flat route) runs on the tensor cores: wgmma fed by TMA, below
-// (flash_fwd_wgmma_kernel). fp32 at every head dim, and bf16 at 64, 384
-// and 512, run the CUDA-core body (flash_fwd_kernel): fp32 products must
-// stay exact (a tensor-core fp32 path would be TF32), and 64 / 384 / 512
-// are off the training path.
+// Two bodies. bf16 at head dims 64, 128 and 256 (every training shape of
+// the repo's flat route) runs on the tensor cores: wgmma fed by TMA, the
+// body of flash_wgmma_fwd.cuh, which K4's forward instantiates too
+// (flash_fwd_wgmma_kernel<FlatLayout, ...> here). fp32 at every head dim,
+// and bf16 at 384 and 512, run the CUDA-core body (flash_fwd_kernel):
+// fp32 products must stay exact (a tensor-core fp32 path would be TF32),
+// and 384 / 512 are off the training path. (The lowering sends D 64 to
+// K4; K1's D 64 is reached only by direct launches.)
 //
 // CUDA-core body: one block per (BT-row query tile, b * H + h). A loop
 // over BT-row K/V tiles takes the place of the TPU's sequential grid axis
@@ -38,7 +40,7 @@
 // thread); the tensor-core body is built for that bound.
 
 #include "flash_common.cuh"
-#include "flash_wgmma.cuh"
+#include "flash_wgmma_fwd.cuh"
 
 namespace {
 
@@ -190,256 +192,11 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// ---------------------------------------------------------------------------
-// The bf16 body at head dims 128 and 256: tensor cores (wgmma) fed by TMA.
-//
-// A block takes BM = 128 query rows of one (b, h) as two consumer
-// warpgroups of 64 rows, plus a producer warpgroup (384 threads) of which
-// one thread issues every TMA load and which hands its registers to the
-// consumers (setmaxnreg: 40 / 232; at 288 threads ptxas caps every thread
-// at 168 and the accumulators spill). The producer loads the Q tile
-// once, then K/V tiles of BK keys into a ring of kStages stages (full /
-// empty mbarriers). Each consumer warpgroup runs
-// S = Q.K^T on wgmma (both operands in shared memory), the online softmax
-// on the accumulator registers, then O += P.V on wgmma with P (rounded to
-// bf16) as the A operand straight from those registers and V as the
-// transposed (MN-major) B operand. O, m and l stay in fp32 registers; out
-// and lse are written once. Under `causal` the loop stops at the diagonal
-// and the grid launches the heaviest query tiles first (blockIdx.y counts
-// down from the last tile). Keys past T are masked (TMA reads them as
-// zeros); rows past S are not stored.
-// BK: 128 at D 128 (S 64 registers a thread, O 64), 64 at D 256 (O 128).
-
-namespace {
-
-using namespace ffflash;
-using namespace ffwg;
-
-constexpr int kBM = 128;              // query rows a block
-constexpr int kConsumers = 256;       // two warpgroups
-constexpr int kWgThreads = kConsumers + 128;  // + the producer warpgroup
-constexpr int kStages = 2;
-
-template <int D>
-constexpr int fwd_bk() { return D == 128 ? 128 : 64; }
-
-template <int D>
-constexpr size_t fwd_wg_smem() {
-  return (size_t)kBM * D * 2 + (size_t)2 * kStages * fwd_bk<D>() * D * 2 +
-         1024 /* barriers */ + 1024 /* alignment */;
-}
-
-template <int D, int BK>
-__global__ void __launch_bounds__(kWgThreads, 1)
-flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
-                       const __grid_constant__ CUtensorMap map_k,
-                       const __grid_constant__ CUtensorMap map_v,
-                       __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ lse, int S, int Tk, int H,
-                       int Hkv, int causal, float scale) {
-  constexpr int kQBytes = kBM * D * 2;
-  constexpr int kKVBytes = BK * D * 2;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* base = align1024(smem_raw);
-  __nv_bfloat16* sQ = (__nv_bfloat16*)base;
-  uint8_t* sK = base + kQBytes;                       // kStages tiles
-  uint8_t* sV = sK + kStages * kKVBytes;              // kStages tiles
-  uint64_t* bar_q = (uint64_t*)(sV + kStages * kKVBytes);
-  uint64_t* full = bar_q + 1;
-  uint64_t* empty = full + kStages;
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H, g = h / (H / Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // heaviest first
-  const int kend = causal ? min(Tk, q0 + kBM) : Tk;
-  const int nk = (kend + BK - 1) / BK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  if (threadIdx.x == 0) {
-    mbar_init(bar_q, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumers);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (warp >= kConsumers / 32) {  // the producer warpgroup: one thread
-    producer_regs();                // issues every load
-    if (warp == kConsumers / 32 && lane == 0) {
-      mbar_expect_tx(bar_q, kQBytes);
-#pragma unroll
-      for (int c = 0; c < D / 64; ++c)
-        tma_load_4d(sQ + c * kBM * 64, &map_q, bar_q, c * 64, h, q0, b);
-      for (int i = 0; i < nk; ++i) {
-        const int s = i % kStages;
-        if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
-        mbar_expect_tx(&full[s], 2 * kKVBytes);
-        __nv_bfloat16* k_s = (__nv_bfloat16*)(sK + s * kKVBytes);
-        __nv_bfloat16* v_s = (__nv_bfloat16*)(sV + s * kKVBytes);
-#pragma unroll
-        for (int c = 0; c < D / 64; ++c) {
-          tma_load_4d(k_s + c * BK * 64, &map_k, &full[s], c * 64, g,
-                      i * BK, b);
-          tma_load_4d(v_s + c * BK * 64, &map_v, &full[s], c * 64, g,
-                      i * BK, b);
-        }
-      }
-    }
-  } else {
-    consumer_regs();
-    // consumers: warpgroup wg takes rows q0 + 64 wg ..; this thread rows r0
-    // and r0 + 8, columns 8 j + cq + {0, 1} of each 8-column group j
-    const int wg = warp / 4;
-    const int r0 = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;
-    const int cq = 2 * (lane % 4);
-    const float scale_log2 = scale * kLog2e;
-    const float masked = kNegInf * kLog2e;  // -1e30, in log2 units
-    float o[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-    mbar_wait(bar_q, 0);
-    for (int i = 0; i < nk; ++i) {
-      const int s = i % kStages;
-      const int k0 = i * BK;
-      const __nv_bfloat16* k_s = (const __nv_bfloat16*)(sK + s * kKVBytes);
-      const __nv_bfloat16* v_s = (const __nv_bfloat16*)(sV + s * kKVBytes);
-      mbar_wait(&full[s], (i / kStages) & 1);
-
-      float sc[BK / 2];
-#pragma unroll
-      for (int x = 0; x < BK / 2; ++x) sc[x] = 0.f;
-      fence_regs(sc);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BK>(sc, kmajor<kBM>(sQ, wg * 64, kk), kmajor<BK>(k_s, 0, kk),
-                     1);
-      wg_commit();
-      wg_wait0();
-      fence_regs(sc);
-
-      // a key of this tile may be hidden from a row of this warpgroup
-      const bool edge =
-          k0 + BK > Tk || (causal && k0 + BK - 1 > q0 + wg * 64);
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float x = sc[4 * j + 2 * hf + e] * scale_log2;
-            if (edge) {
-              const int kpos = k0 + 8 * j + cq + e;
-              if (kpos >= Tk)
-                x = -INFINITY;
-              else if (causal && kpos > r0 + 8 * hf)
-                x = masked;
-            }
-            sc[4 * j + 2 * hf + e] = x;
-            mx[hf] = fmaxf(mx[hf], x);
-          }
-      float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
-        mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
-        corr[hf] = exp2f(m[hf] - mx[hf]);
-        m[hf] = mx[hf];
-      }
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float p = exp2f(sc[4 * j + 2 * hf + e] - m[hf]);
-            sum[hf] += p;
-            sc[4 * j + 2 * hf + e] = p;
-          }
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        sum[hf] += __shfl_xor_sync(0xffffffffu, sum[hf], 1);
-        sum[hf] += __shfl_xor_sync(0xffffffffu, sum[hf], 2);
-        l[hf] = l[hf] * corr[hf] + sum[hf];
-      }
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          o[4 * j + 2 * hf] *= corr[hf];
-          o[4 * j + 2 * hf + 1] *= corr[hf];
-        }
-      // P rounded to bf16: the A operand of P.V, from the accumulator layout
-      uint32_t pa[BK / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-      fence_regs(o);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<D>(o, pa[kk], mnmajor<BK>(v_s, kk), 1);
-      wg_commit();
-      wg_wait0();
-      fence_regs(o);
-      mbar_arrive(&empty[s]);
-    }
-
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = r0 + 8 * hf;
-      if (row >= S) continue;
-      const float l_safe = fmaxf(l[hf], 1e-30f);
-      __nv_bfloat16* dst = out + elem<D>(b, S, H, h, row, cq);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-            __floats2bfloat162_rn(o[4 * j + 2 * hf] / l_safe,
-                                  o[4 * j + 2 * hf + 1] / l_safe);
-      if (lane % 4 == 0)
-        lse[(size_t)bh * S + row] = m[hf] * kLn2 + logf(l_safe);
-    }
-  }
-}
-
-template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 void* lse, int B, int S, int Tk, int H, int Hkv, int causal,
-                 float scale, cudaStream_t stream) {
-  constexpr int BK = fwd_bk<D>();
-  constexpr size_t smem = fwd_wg_smem<D>();
-  static_assert(smem <= kMaxSmemBytes, "tiles do not fit shared memory");
-  CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, B, S, H, D, kBM) ||
-      !make_map(&mk, k, B, Tk, Hkv, D, BK) ||
-      !make_map(&mv, v, B, Tk, Hkv, D, BK))
-    return (int)cudaErrorInvalidValue;
-  auto kernel = flash_fwd_wgmma_kernel<D, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (S + kBM - 1) / kBM);
-  kernel<<<grid, kWgThreads, smem, stream>>>(mq, mk, mv,
-                                              (__nv_bfloat16*)out,
-                                              (float*)lse, S, Tk, H, Hkv,
-                                              causal, scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it); lse is
-// fp32 (B, H, S). bf16 at D 128 and 256 runs the tensor-core body, every
-// other case the CUDA-core body. Returns a cudaError_t:
+// fp32 (B, H, S). bf16 at D 64, 128 and 256 runs the tensor-core body,
+// every other case the CUDA-core body. Returns a cudaError_t:
 // cudaErrorInvalidValue for shapes the kernels do not take (D other than
 // 64, 128, 256, 384 or 512) or tensors TMA cannot map, otherwise the
 // launch's cudaGetLastError().
@@ -457,16 +214,16 @@ int ff_flash_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 256) FF_FWD(float, 256);
   if (dtype == 0 && D == 384) FF_FWD(float, 384);
   if (dtype == 0 && D == 512) FF_FWD(float, 512);
-  if (dtype == 1 && D == 64) FF_FWD(__nv_bfloat16, 64);
   if (dtype == 1 && D == 384) FF_FWD(__nv_bfloat16, 384);
   if (dtype == 1 && D == 512) FF_FWD(__nv_bfloat16, 512);
 #undef FF_FWD
-  if (dtype == 1 && D == 128)
-    return launch_wgmma<128>(q, k, v, out, lse, B, S, T, H, Hkv, causal,
-                             scale, st);
-  if (dtype == 1 && D == 256)
-    return launch_wgmma<256>(q, k, v, out, lse, B, S, T, H, Hkv, causal,
-                             scale, st);
+#define FF_FWD_WG(DIM)                                                     \
+  return ffwg::launch_fwd_wgmma<ffwg::FlatLayout, DIM>(                    \
+      q, k, v, out, lse, B, S, T, H, Hkv, causal, scale, st)
+  if (dtype == 1 && D == 64) FF_FWD_WG(64);
+  if (dtype == 1 && D == 128) FF_FWD_WG(128);
+  if (dtype == 1 && D == 256) FF_FWD_WG(256);
+#undef FF_FWD_WG
   return (int)cudaErrorInvalidValue;
 }
 

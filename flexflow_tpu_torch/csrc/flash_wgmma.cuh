@@ -1,7 +1,7 @@
 // Hopper building blocks of the tensor-core flash kernels (the bf16
-// bodies of flash_attention_fwd.cu and flash_attention_bwd.cu): mbarriers,
-// TMA loads, wgmma and its shared-memory descriptors, and the host-side
-// tensor maps.
+// bodies of flash_wgmma_fwd.cuh and flash_wgmma_bwd.cuh, instantiated by
+// K1/K2's and K4's sources): mbarriers, TMA loads, wgmma and its
+// shared-memory descriptors, and the host-side tensor maps.
 //
 // Tiles in shared memory: a tile of R rows of one head, D = 64 * c columns
 // wide, is loaded by TMA as D / 64 boxes of R rows x 64 bf16 (128 bytes a
@@ -100,6 +100,43 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 
 // ---- warp specialisation ---------------------------------------------------
 
+// A block of the tensor-core bodies (flash_wgmma_fwd.cuh,
+// flash_wgmma_bwd.cuh): kBM rows (queries, or keys for dk/dv) as two
+// consumer warpgroups of 64, plus a producer warpgroup
+constexpr int kBM = 128;
+constexpr int kConsumers = 256;
+constexpr int kWgThreads = kConsumers + 128;
+
+// The layouts the bodies are instantiated for. Both are a contiguous
+// bf16 (B, L, heads, D) tensor to TMA; the tag only gives each
+// instantiation a __global__ name of its own, so a profile and the SASS
+// tell K1/K2's launches from K4's:
+//  - FlatLayout: K1/K2, the projection layout (B, L, heads, D), GQA
+//    resolved in the kernel (q head h reads kv head h / (H / Hkv));
+//  - HeadMajor: K4, (BH, L, D) launched as B = BH, heads = H = Hkv = 1
+//    (the caller has repeated the kv heads).
+struct FlatLayout {};
+struct HeadMajor {};
+
+// The bodies' grids are persistent: one block per SM walks the work items,
+// which are numbered heaviest first, in rounds of gridDim.x: in round r
+// block b takes item r G + b, or r G + G - 1 - b when r is odd (G =
+// gridDim.x), so a block that took one of the heaviest items of a round
+// takes one of the lightest of the next. Returns -1 past the last round.
+__device__ __forceinline__ int zigzag_item(int r, int items) {
+  const int G = gridDim.x, t0 = r * G;
+  if (t0 >= items) return -1;
+  return t0 + ((r & 1) ? G - 1 - (int)blockIdx.x : (int)blockIdx.x);
+}
+
+// Item t of nq query tiles x BH heads (b * H + h; the forward and dq):
+// query tile nq - 1 - t / BH of head t % BH
+__device__ __forceinline__ void q_tile_item(int t, int BH, int nq, int& bh,
+                                            int& q0) {
+  bh = t % BH;
+  q0 = (nq - 1 - t / BH) * kBM;
+}
+
 // the producer warpgroup hands registers to the two consumer warpgroups:
 // 168 a thread at launch (384 threads), 40 for the producer, 232 for the
 // consumers (128 x 40 + 256 x 232 = 384 x 168)
@@ -121,6 +158,10 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// all but the last committed group done (groups complete in order)
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
 
 // keeps the compiler from moving reads or writes of an accumulator across
 // the asynchronous wgmma that owns it
@@ -128,6 +169,23 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// the same for a register A operand (K steps x 4 packed registers): the
+// hardware reads it until the wgmma that takes it completes, so it must
+// stay where it is until then
+template <int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[k][i])::"memory");
+}
+
+// 2^x on the special-function unit, denormals flushed: exp2(-inf) = 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // a shared-memory matrix descriptor with the 128-byte swizzle
@@ -158,6 +216,18 @@ __device__ __forceinline__ uint64_t mnmajor(const __nv_bfloat16* tile,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// p (fp32, the accumulator layout) rounded to bf16 as wgmma's register A
+// operand: k-step kk's four registers are p[8 kk + 2 x], p[8 kk + 2 x + 1]
+template <int BK>
+__device__ __forceinline__ void pack_tile(uint32_t (&a)[BK / 16][4],
+                                          const float (&p)[BK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      a[kk][x] = pack_bf16(p[8 * kk + 2 * x], p[8 * kk + 2 * x + 1]);
 }
 
 // m64nNk16, A and B from shared memory (both K-major), fp32 accumulators
@@ -223,6 +293,27 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -318,9 +409,10 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, b, scale_d);
   if constexpr (N == 128) wgmma_rs_n128(d, a, b, scale_d);
   if constexpr (N == 256) wgmma_rs_n256(d, a, b, scale_d);
-  static_assert(N == 128 || N == 256, "no wgmma_rs for this N");
+  static_assert(N == 64 || N == 128 || N == 256, "no wgmma_rs for this N");
 }
 
 // ---- host: tensor maps ----------------------------------------------------
@@ -371,6 +463,17 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int B, int L,
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the number of SMs of the current device: a persistent grid's size (0
+// when it cannot be read)
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return sms;
 }
 
 // shared-memory layout helpers

@@ -5,9 +5,12 @@ file may hold several kernels, each its own entry point). At first use a
 file is compiled with nvcc for sm_90a into a shared library under
 `_build/` (listed in .gitignore; the file name carries a hash of the
 source and the shared headers, so an edited source never loads a stale
-build) and bound with ctypes. Nothing is built or loaded when this module
-is imported: the CPU tests import it on machines with no nvcc and no
-card.
+build) and bound with ctypes. The headers hold what several sources
+share: `flash_wgmma_fwd.cuh` and `flash_wgmma_bwd.cuh` are the
+tensor-core flash bodies that K1/K2's sources and K4's sources both
+instantiate, each under its own layout tag. Nothing is built or loaded
+when this module is imported: the CPU tests import it on machines with
+no nvcc and no card.
 
 Each kernel object counts its launches in `launches`, a plain integer the
 launch method bumps once per kernel launch, so a run can show that its
@@ -176,7 +179,9 @@ FLASH_ATTENTION_DKV = CudaKernel(
 )
 
 # K4, the head-major kernels (q (BH, S, D), k/v (BH, T, D), any D up to
-# 256): forward, dq and dk/dv
+# 256): forward, dq and dk/dv; bf16 at D 64, 128 and 256 on the tensor
+# cores (K1/K2's bodies under the HeadMajor tag), every other case on
+# CUDA cores
 FLASH_ATTENTION_BH_FWD = CudaKernel(
     name="flash_attention_bh_fwd",
     source="flash_attention_bh_fwd.cu",

@@ -17,6 +17,11 @@ q (B, S, H, D) and k/v (B, T, Hkv, D) with H % Hkv == 0, and returns
   and K4's dq and dk/dv kernels (csrc/flash_attention_bh_bwd.cu). The
   repeat's autograd sums dk/dv over each GQA group. The reference also
   zero-pads D to 128 lanes; that is TPU tiling, and K4 takes D as it is.
+  K4 in bf16 at D 64 (GPT-2's and bench.py's 200m Llama's heads), 128
+  and 256 runs on the tensor cores, through the bodies K1/K2 run
+  (csrc/flash_wgmma_fwd.cuh, csrc/flash_wgmma_bwd.cuh); fp32 and the
+  other widths run K4's CUDA-core bodies. Which body runs is the C
+  entry's choice by dtype and D; the route here is by D alone.
 
 The ring's step kernel K5 (`flash_bh_fwd_carry`, the reference's
 `_fwd_carry`) sits beside K4: it folds one head-major k/v block into
@@ -218,7 +223,10 @@ def _on_cpu(*ts) -> bool:
 def _check_bh_args(q, k, v, *grads):
     """Raise on what K4 does not take: q (BH, S, D), k/v (BH, T, D) of one
     float32/bfloat16 dtype on one CUDA device, D <= 256, BH <= 65535;
-    `grads` (dO) are (BH, S, D) in q's dtype."""
+    `grads` (dO) are (BH, S, D) in q's dtype. What only the tensor-core
+    bodies refuse (a base address TMA cannot map: not 16-byte aligned)
+    comes back from the C entry as cudaErrorInvalidValue, and the launch
+    raises (kernels.CudaKernel.check): no other body takes over."""
     if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f"K4 takes q (BH, S, D) and k, v (BH, T, D), got "

@@ -206,13 +206,16 @@ def test_ring_gradients_match_jax(monkeypatch, H, Hkv):
 
 
 def test_untileable_local_sequence_takes_the_einsum_ring(monkeypatch):
-    """S 64 over 4 shards (s_loc 16, not a multiple of 128): both sides
-    take the einsum online-softmax ring, and agree, forward and
-    gradients; no kernel's plain version runs in the port."""
+    """S 64 over 4 shards (s_loc 16, not a multiple of 128): the reference
+    takes its einsum online-softmax ring (the route the name states, and
+    asserted below as the yardstick's); the port keeps one length rule
+    for both attention routes (no length gate) and takes the K5 ring, and
+    the two agree, forward and gradients. The port folds the 10 causal
+    blocks through K5's plain version and runs K4's dq and dk/dv plain
+    versions once per folded block."""
     monkeypatch.setenv("FF_TPU_FLASH_INTERPRET", "1")
     calls = []
-    for name in ("ring_attention_core", "ring_flash_attention",
-                 "fused_attention"):
+    for name in ("ring_flash_attention", "fused_attention"):
         _count(monkeypatch, ring, name, calls)
     for name in ("flash_bh_fwd_carry_reference", "flash_bh_dq_reference",
                  "flash_bh_dkv_reference"):
@@ -221,7 +224,10 @@ def test_untileable_local_sequence_takes_the_einsum_ring(monkeypatch):
     jout, jg = _jax_ring(q, k, v, w, 4, True, grads=True)
     assert jax_ops.LAST_ATTENTION_KERNEL == "ring_online_softmax"
     tout, tg = _port_ring(q, k, v, w, 4, True, grads=True)
-    assert calls == ["ring_attention_core"]
+    assert calls == (["ring_flash_attention"]
+                     + ["flash_bh_fwd_carry_reference"] * 10
+                     + ["flash_bh_dq_reference",
+                        "flash_bh_dkv_reference"] * 10)
     np.testing.assert_allclose(tout, jout, atol=FWD_TOL, rtol=FWD_TOL)
     for name, got, want in zip("qkv", tg, jg):
         np.testing.assert_allclose(got, want, atol=GRAD_TOL, rtol=GRAD_TOL,
@@ -259,8 +265,7 @@ def test_seq_size_one_takes_plain_flash_attention(monkeypatch):
     """No seq axis, or one of size 1: plain attention (fused_attention,
     the flash kernels' route), as the reference."""
     calls = []
-    for name in ("ring_attention_core", "ring_flash_attention",
-                 "fused_attention"):
+    for name in ("ring_flash_attention", "fused_attention"):
         _count(monkeypatch, ring, name, calls)
     q, k, v, _ = _ring_inputs(S=128, H=4, Hkv=2, seed=7)
     ts = [torch.from_numpy(a) for a in (q, k, v)]
@@ -329,9 +334,10 @@ def test_build_llama_ring_same_graph_in_both_packages():
 
 
 def test_ring_llama_predict_matches_jax(monkeypatch):
-    """predict at seq 512 (s_loc 128: the K5 ring) and at seq 64 (s_loc
-    16: the einsum ring), the reference on its {"seq": 4} mesh of CPU
-    devices, the port's shards on its CPU."""
+    """predict at seq 512 (s_loc 128: the flash ring on both sides) and at
+    seq 64 (s_loc 16: the reference's einsum ring, the port's K5 ring),
+    the reference on its {"seq": 4} mesh of CPU devices, the port's
+    shards on its CPU."""
     monkeypatch.setenv("FF_TPU_FLASH_INTERPRET", "1")
     for seq, kernel in ((512, "ring_pallas_flash"),
                         (64, "ring_online_softmax")):
