@@ -13,12 +13,15 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      sm_90a, one process per source, all started together), with the
      seconds each source took and the HGMMA (wgmma) instructions in the
      SASS of each tensor-core flash kernel: K1/K2's and K4's forward, dq
-     and dk/dv at head dims 64, 128 and 256 (WGMMA_KERNELS);
+     and dk/dv and K5's forward at head dims 64, 128 and 256
+     (WGMMA_KERNELS);
   2. kernels vs their plain versions on the card, with kernel / plain /
      library times and the roofline bound: the ragged paged attention at
      the serving path's shapes (Llama-3-8B attention: H=32, Hkv=8,
      D=128, page 64, 129 pages; decode, chunk and pad entries; window 1
-     and 8; and GPT-2 XL's decode: H = Hkv = 25, D 64) over fp pools,
+     and 8; a decode at the end of the 32-page table; and GPT-2 XL's
+     decode: H = Hkv = 25, D 64) over fp pools, the fp kernel's pages
+     per split swept at the steady decode case (SPLIT_SWEEP),
      over int8 pools (Llama's cases) written by the port's own
      quantize-on-append, and over a bf16 pool under fp32 q; and the
      flash-attention forward, dq and dk/dv kernels at the training
@@ -93,8 +96,10 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      epoch of 10 seeded batches, then 10 timed steps on one batch (the
      loss must fall); per layer and step K5 must fold 10 blocks and K4's
      dq and dk/dv kernels run once per fold, no other attention kernel;
-     then the same model and weights without the ring (K1/K2 over all
-     8192 rows): its step time, and its logits against the ring's;
+     a profiled step must show K5 on its tensor-core body only (and its
+     share of the device time); then the same model and weights without
+     the ring (K1/K2 over all 8192 rows): its step time, and its logits
+     against the ring's;
  11. training bench.py's 200m Llama (bench.py:56-58: vocab 32000, dim
      1024, 12 layers, 16 heads over 8 kv heads, head dim 64, FFN 2816;
      bf16, fp32 masters, batch 8, seq 1024, remat="none", Adam lr 1e-4,
@@ -144,6 +149,7 @@ from flexflow_tpu_torch.kernels import (
     RAGGED_PAGED_ATTENTION,
     RAGGED_PAGED_ATTENTION_INT8,
     build,
+    launch_ragged_paged_attention,
     launch_flash_attention_bh_dkv,
     launch_flash_attention_bh_dq,
     launch_flash_attention_bh_fwd,
@@ -168,8 +174,10 @@ from flexflow_tpu_torch.ops.flash_attention import (
     flash_dq_reference,
 )
 from flexflow_tpu_torch.paged.attention import (
+    SplitPlan,
     ragged_flash_attention,
     ragged_gather_attention,
+    ragged_split_plan,
     ragged_visibility_mask,
 )
 from flexflow_tpu_torch.paged.quant import dequantize_pages, quantized_append
@@ -329,11 +337,13 @@ def card_line() -> str:
 
 
 # every tensor-core instantiation the sources build: K1/K2's bodies under
-# the FlatLayout tag and K4's under HeadMajor, forward, dq and dk/dv, at
-# head dims 64, 128 and 256
+# the FlatLayout tag and K4's under HeadMajor, forward, dq and dk/dv, and
+# K5's forward under HeadMajorCarry, at head dims 64, 128 and 256
 WGMMA_KERNELS = tuple(f"flash_{k}_wgmma_kernel<{tag},{d}>"
                       for tag in ("FlatLayout", "HeadMajor")
-                      for k in ("fwd", "dq", "dkv") for d in (64, 128, 256))
+                      for k in ("fwd", "dq", "dkv") for d in (64, 128, 256)
+                      ) + tuple(f"flash_fwd_wgmma_kernel<HeadMajorCarry,{d}>"
+                                for d in (64, 128, 256))
 
 
 def wgmma_name(symbol: str):
@@ -341,17 +351,19 @@ def wgmma_name(symbol: str):
     head dim, tile, stages) from a mangled or demangled symbol of one of
     the tensor-core bodies, or None."""
     m = re.search(r"(flash_(?:fwd|dq|dkv)_wgmma_kernel)I.*?"
-                  r"(FlatLayout|HeadMajor)E((?:Li\d+E)+)", symbol)
+                  r"(FlatLayout|HeadMajorCarry|HeadMajor)E((?:Li\d+E)+)",
+                  symbol)
     if m:
         return f"{m[1]}<{m[2]},{','.join(re.findall(r'Li(\d+)E', m[3]))}>"
     m = re.search(r"(flash_(?:fwd|dq|dkv)_wgmma_kernel)<(?:ffwg::)?"
-                  r"(FlatLayout|HeadMajor), ([\d, ]+)>", symbol)
+                  r"(FlatLayout|HeadMajorCarry|HeadMajor), ([\d, ]+)>",
+                  symbol)
     return f"{m[1]}<{m[2]},{m[3].replace(' ', '')}>" if m else None
 
 
 def hgmma_counts() -> dict:
     """{tensor-core kernel: HGMMA instructions in its SASS}, for every
-    `flash_*_wgmma_kernel` instantiation of K1/K2's and K4's built
+    `flash_*_wgmma_kernel` instantiation of K1/K2's and K4/K5's built
     libraries (cuobjdump -sass): the proof that their bf16 bodies run on
     the tensor cores. Raises if one of WGMMA_KERNELS is missing or holds
     no HGMMA."""
@@ -378,17 +390,28 @@ def hgmma_counts() -> dict:
     return counts
 
 
+# a spin on the card (torch.cuda._sleep cycles, ~1 ms at the H100's
+# clock) before each timed call, so the host has queued the whole call
+# before its start event is reached: the events then time the device's
+# work and not the host's launch overhead
+TIME_SLEEP_CYCLES = 2_000_000
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of one fn() call, by CUDA events around each call,
     with the 50 MB L2 cache flushed (a 64 MB buffer rewritten) before each:
     on the serving path every layer reads its own pool, so a kernel finds
-    its K/V cold."""
+    its K/V cold. The card spins TIME_SLEEP_CYCLES between the flush and
+    the start event, so a call whose host side takes longer than its
+    device side (a small kernel behind its Python wrapper) is timed on
+    the device alone."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(TIME_SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -490,12 +513,18 @@ def library_call(args, scale):
 
 
 # (name, window, entries, fixed position): the first is the serving
-# path's steady decode launch (4 slots at pos 1024), the kernel line's case
+# path's steady decode launch (4 slots at pos 1024), the kernel line's
+# case; the last decodes at the end of a full table (pos MAXP x P - 8:
+# every split of the fp kernel live)
 ATTENTION_CASES = [
     ("decode_b4_pos1024", 1, ["decode"] * 4, 1024),
     ("decode_pad_w1", 1, ["decode", "decode", "decode", "pad"], None),
     ("mixed_w8", 8, ["decode", "chunk:8", "chunk:5", "pad"], None),
+    ("decode_b4_pos2040", 1, ["decode"] * 4, MAXP * P - 8),
 ]
+# the fp kernel's pages per split timed at the kernel line's case (bf16
+# and fp32 q) beside the plan's choice (ragged_split_plan)
+SPLIT_SWEEP = (1, 2, 4, 8, MAXP)
 # GPT-2 XL serving's steady decode launch: 25 heads of 64, no GQA; its
 # 1024-row position table caps pos
 GPT2_ATTENTION_CASE = ("gpt2_xl_decode_b4_pos960", 1, ["decode"] * 4, 960)
@@ -543,6 +572,42 @@ def phase_kernels(card: str) -> list:
                     f"zero tail {zero_tail}")
             results.append(res)
     return results
+
+
+def split_sweep(card: str) -> dict:
+    """The fp kernel at the kernel line's case with each SPLIT_SWEEP pages
+    per split beside the plan's, bf16 and fp32 q: every result held to the
+    plain version (TOLS) and timed. The times show the plan's choice
+    against its neighbours."""
+    name, window, kinds, fixed = ATTENTION_CASES[0]
+    scale = 1.0 / D ** 0.5
+    plan = ragged_split_plan(len(kinds), window, H, HKV, P, MAXP,
+                             torch.cuda.get_device_properties(0)
+                             .multi_processor_count)
+    res = {"case": name, "plan_pages_per_split": plan.pages_per_split,
+           "card": card}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = attention_case(window, kinds, dtype, seed=0, fixed_pos=fixed)
+        want = ragged_gather_attention(*args, scale=scale).float()
+        atol, rtol = TOLS[dtype]
+        times = {}
+        for pps in sorted(set(SPLIT_SWEEP) | {plan.pages_per_split}):
+            sp = SplitPlan(pps, -(-MAXP // pps))
+            out = torch.empty_like(args[0])
+
+            def run():
+                return launch_ragged_paged_attention(*args, out, scale, sp)
+
+            run()
+            torch.cuda.synchronize()
+            err = (out.float() - want).abs()
+            if not bool((err <= atol + rtol * want.abs()).all()):
+                raise AssertionError(f"split sweep {dtype} pps {pps}: max "
+                                     f"|err| {float(err.max()):.3g}")
+            times[pps] = time_ms(run)
+        res[str(dtype).replace("torch.", "")] = times
+    log(f"split_sweep {json.dumps(res)}")
+    return res
 
 
 def int8_pools(kc, vc):
@@ -2130,7 +2195,12 @@ def phase_ring_train(seed: int, card: str) -> dict:
     one repeated batch (the loss must fall). Then the same model and
     weights without the ring (K1/K2 over the whole 8192 rows): its step
     time, and its forward logits against the ring model's at the initial
-    weights (bf16, so within RING_LOGITS_RTOL of their largest)."""
+    weights (bf16, so within RING_LOGITS_RTOL of their largest). A
+    profiled ring step between the two must show K5's launches on its
+    tensor-core body (flash_fwd_wgmma_kernel<HeadMajorCarry, 128, ...>)
+    and none on its CUDA-core one (flash_bh_fwd_carry_kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
     cfg = LlamaConfig.bench_1b()
     mesh = {"seq": RING_SHARDS}
     torch.cuda.reset_peak_memory_stats()
@@ -2174,6 +2244,13 @@ def phase_ring_train(seed: int, card: str) -> dict:
     step_s = (time.perf_counter() - t0) / TIMED_STEPS
     losses = [float(v) for v in losses]
     timed_launches = {k.name: k.launches for k in ring_kernels}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
+        torch.cuda.synchronize()
+    carry = flash_bodies(prof, 1, "HeadMajorCarry",
+                         r"flash_bh_fwd_(carry)_kernel<", "k5")
+    del prof
     flops = llama_flops_per_token(cfg, RING_SEQ) * RING_SEQ
     res = {
         "model": "bench_1b", "layers": cfg.layers, "dtype": "bfloat16",
@@ -2187,7 +2264,7 @@ def phase_ring_train(seed: int, card: str) -> dict:
         "tokens_per_s": RING_SEQ / step_s, "flops_per_step": flops,
         "mfu": flops / step_s / PEAK_OPS[torch.bfloat16],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "card": card,
+        "profile": carry, "card": card,
     }
     del ff, ex, tr, ntr, opt, m
     torch.cuda.empty_cache()
@@ -2196,6 +2273,10 @@ def phase_ring_train(seed: int, card: str) -> dict:
                              f"{losses}")
     if any(n != per_step * TIMED_STEPS for n in timed_launches.values()):
         raise AssertionError(f"timed launches {timed_launches}")
+    if carry["launches_per_step"] != {"tensor_core": {"fwd": per_step},
+                                      "cuda_core": {}}:
+        raise AssertionError(f"K5 did not run on its tensor-core body "
+                             f"alone: {carry}")
 
     # the same model and seed without the ring: K1/K2 over all 8192 rows
     torch.cuda.reset_peak_memory_stats()
@@ -2239,28 +2320,35 @@ def phase_ring_train(seed: int, card: str) -> dict:
 # phase 11: bench.py's 200m Llama (head dim 64) trained through K4
 
 
-def k4_bodies(prof, n: int) -> dict:
+def flash_bodies(prof, n: int, tag: str = "HeadMajor",
+                 cuda_core=r"flash_bh_(fwd|dq|dkv)_kernel<",
+                 label: str = "k4") -> dict:
     """From a torch.profiler run of n train steps: per step, the launches
-    of each K4 body ({"tensor_core": {fwd, dq, dkv}, "cuda_core": {...}})
-    and K4's device ms and share of the device time."""
+    of each body of one head-major kernel family ({"tensor_core": {fwd,
+    dq, dkv}, "cuda_core": {...}}): the tensor-core bodies under the
+    layout tag `tag`, the CUDA-core ones whose names match `cuda_core`
+    (K4 by default; K5 is tag "HeadMajorCarry" and the
+    flash_bh_fwd_carry_kernel); and their device ms and share of the
+    device time, keyed by `label`."""
     evs = _device_events(prof)
     dev = sum(e.self_device_time_total for e in evs)
     launches = {"tensor_core": {}, "cuda_core": {}}
-    k4_us = 0.0
+    own_us = 0.0
     for e in evs:
         name = wgmma_name(e.key)
-        if name and "HeadMajor" in name:
+        if name and name.split("<")[1].split(",")[0] == tag:
             body, kind = "tensor_core", name.split("_")[1]
         else:
-            m = re.search(r"flash_bh_(fwd|dq|dkv)_kernel<", e.key)
+            m = re.search(cuda_core, e.key)
             if not m:
                 continue
             body, kind = "cuda_core", m[1]
         launches[body][kind] = launches[body].get(kind, 0) + e.count // n
-        k4_us += e.self_device_time_total
-    return {"launches_per_step": launches, "k4_ms_per_step": k4_us / n / 1e3,
+        own_us += e.self_device_time_total
+    return {"launches_per_step": launches,
+            f"{label}_ms_per_step": own_us / n / 1e3,
             "device_ms_per_step": dev / n / 1e3,
-            "k4_share_of_device_time": k4_us / dev if dev else
+            f"{label}_share_of_device_time": own_us / dev if dev else
             "not measured"}
 
 
@@ -2323,7 +2411,7 @@ def phase_train_200m(seed: int, card: str) -> dict:
         for _ in range(n):
             tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
         torch.cuda.synchronize()
-    bodies = k4_bodies(prof, n)
+    bodies = flash_bodies(prof, n)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = llama_flops_per_token(cfg, TRAIN_SEQ) * tokens
     res = {
@@ -2485,6 +2573,8 @@ def main(argv=None) -> int:
              "hgmma": hgmma_counts()}
     log(f"build {json.dumps(built)}")
     kern = phase_kernels(card) if 2 in phases else []
+    if 2 in phases:
+        split_sweep(card)
     kern8 = phase_int8_kernels(card) if 2 in phases else []
     flash = phase_flash_kernels(card) if 2 in phases else {}
     if 2 in phases:

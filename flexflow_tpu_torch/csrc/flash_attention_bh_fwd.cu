@@ -11,9 +11,10 @@
 // attention (ring_flash.py): the same online softmax, but (m, l, acc)
 // are read from the caller's fp32 m, l (BH, S) and acc (BH, S, D) instead
 // of starting at (-1e30, 0, 0), and written back to them, updated in
-// place and not normalised, for the next ring step. Both kernels run one
-// block body (template flag Carry), so their math cannot drift apart;
-// each has a __global__ entry of its own, so a profile tells them apart.
+// place and not normalised, for the next ring step. In each design below
+// both kernels run one body (the CUDA-core body's template flag Carry,
+// the tensor-core body's layout tag), so their math cannot drift apart;
+// each has a __global__ of its own, so a profile tells them apart.
 //
 // Contract (the TPU kernel's): scores are fp32 dots times `scale`; under
 // `causal` key kpos is visible to query qpos when qpos >= kpos (top-left
@@ -30,8 +31,11 @@
 // instantiated here under the HeadMajor tag as
 // flash_fwd_wgmma_kernel<HeadMajor, D, BK, Stages>: a head-major (BH, L,
 // D) tensor is the (B = BH, L, heads = 1, D) tensor its 4-D tensor maps
-// describe, and lse (BH, S) is K1's (B, H = 1, S). K4 in fp32 at every
-// width, bf16 at the other widths, and K5 run the CUDA-core body below:
+// describe, and lse (BH, S) is K1's (B, H = 1, S). K5 in bf16 at the same
+// widths runs that body under the HeadMajorCarry tag: each item starts
+// from the caller's (m, l, acc), loaded straight into the accumulator
+// registers, and ends by writing them back. K4 and K5 in fp32 at every
+// width, and in bf16 at the other widths, run the CUDA-core body below:
 // fp32 products stay exact (a tensor-core fp32 path would be TF32), and
 // TMA's 64-column boxes need D a multiple of 64.
 //
@@ -47,9 +51,13 @@
 // 0.027 ms at the bf16 tensor-core peak, against ~0.1 GB of q, k, v, out
 // and lse (~0.031 ms at 3.35 TB/s). K5 at a bench_1b ring step (BH 16,
 // S = T 2048, D 128, full) does 4 * D ops per pair (~0.035 ms) against
-// ~59 MB, over half of it the fp32 acc read and written (~0.018 ms). The
-// CUDA-core body runs the dots from fp32 shared-memory tiles (register
-// tiles of (BQ / 16) x (BK / 16) scores per thread).
+// ~59 MB, over half of it the fp32 acc read and written (~0.018 ms): the
+// tensor-core body keeps the products at the wgmma rate and moves acc
+// once each way, between the registers and device memory, at the item's
+// ends. Its causal block is a persistent zigzag of square, top-left
+// items, as K4's. The CUDA-core body runs the dots from fp32
+// shared-memory tiles (register tiles of (BQ / 16) x (BK / 16) scores per
+// thread).
 
 #include "flash_bh_common.cuh"
 #include "flash_wgmma_fwd.cuh"
@@ -311,7 +319,9 @@ int ff_flash_attention_bh_fwd(const void* q, const void* k, const void* v,
 }
 
 // K5: q (BH, S, D), k/v (BH, T, D) of one dtype (as K4); m, l fp32 (BH, S)
-// and acc fp32 (BH, S, D), read and updated in place. Same return codes.
+// and acc fp32 (BH, S, D), read and updated in place. bf16 at D 64, 128
+// and 256 runs the tensor-core body (HeadMajorCarry), every other case the
+// CUDA-core body. Same return codes.
 int ff_flash_attention_bh_fwd_carry(const void* q, const void* k,
                                     const void* v, void* m, void* l,
                                     void* acc, int BH, int S, int T, int D,
@@ -319,6 +329,14 @@ int ff_flash_attention_bh_fwd_carry(const void* q, const void* k,
                                     void* stream) {
   if (!bh_shapes_ok(BH, S, T, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+#define FF_CARRY_WG(DIM)                                                   \
+  return ffwg::launch_fwd_wgmma<ffwg::HeadMajorCarry, DIM>(                \
+      q, k, v, nullptr, nullptr, BH, S, T, 1, 1, causal, scale, st, m, l,  \
+      acc)
+  if (dtype == 1 && D == 64) FF_CARRY_WG(64);
+  if (dtype == 1 && D == 128) FF_CARRY_WG(128);
+  if (dtype == 1 && D == 256) FF_CARRY_WG(256);
+#undef FF_CARRY_WG
   const Outputs o{nullptr, nullptr, m, l, acc};
   if (dtype == 0)
     return dispatch<float, true>(q, k, v, o, BH, S, T, D, causal, scale, st);

@@ -107,16 +107,20 @@ constexpr int kBM = 128;
 constexpr int kConsumers = 256;
 constexpr int kWgThreads = kConsumers + 128;
 
-// The layouts the bodies are instantiated for. Both are a contiguous
-// bf16 (B, L, heads, D) tensor to TMA; the tag only gives each
-// instantiation a __global__ name of its own, so a profile and the SASS
-// tell K1/K2's launches from K4's:
+// The layouts the bodies are instantiated for. All are a contiguous
+// bf16 (B, L, heads, D) tensor to TMA; the tag gives each instantiation a
+// __global__ name of its own, so a profile and the SASS tell K1/K2's
+// launches from K4's and K5's:
 //  - FlatLayout: K1/K2, the projection layout (B, L, heads, D), GQA
 //    resolved in the kernel (q head h reads kv head h / (H / Hkv));
 //  - HeadMajor: K4, (BH, L, D) launched as B = BH, heads = H = Hkv = 1
-//    (the caller has repeated the kv heads).
+//    (the caller has repeated the kv heads);
+//  - HeadMajorCarry: K5, K4's layout; the forward body starts each item
+//    from the caller's fp32 (m, l, acc) and writes them back (the ring
+//    step) instead of writing out and lse.
 struct FlatLayout {};
 struct HeadMajor {};
+struct HeadMajorCarry {};
 
 // The bodies' grids are persistent: one block per SM walks the work items,
 // which are numbered heaviest first, in rounds of gridDim.x: in round r

@@ -31,10 +31,16 @@
 // flash_attention_bh_fwd.cu): scores are fp32 dots times `scale`, masked
 // -1e30 under the top-left causal mask; p is rounded to bf16 before P.V;
 // out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)), fp32 (B, H, S).
+// Under the HeadMajorCarry tag (K5, one ring step) an item starts from the
+// caller's fp32 m, l (BH, S) and acc (BH, S, D) instead of (-inf, 0, 0):
+// m in log2 units (m x log2 e), acc straight into the accumulator layout
+// and rescaled after tile 0; at its end it writes (m x ln 2, l, acc) back
+// in place, unnormalised, and no out or lse.
 
 #pragma once
 
 #include <algorithm>
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "flash_wgmma.cuh"
@@ -129,8 +135,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v,
                        __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ lse, int B, int S, int Tk, int H,
-                       int Hkv, int causal, float scale) {
+                       float* __restrict__ lse, float* __restrict__ m_io,
+                       float* __restrict__ l_io, float* __restrict__ acc_io,
+                       int B, int S, int Tk, int H, int Hkv, int causal,
+                       float scale) {
+  constexpr bool kCarry = std::is_same<Tag, HeadMajorCarry>::value;
   constexpr int kQBytes = kBM * D * 2;
   constexpr int kKVBytes = BK * D * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -225,6 +234,22 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
       for (int x = 0; x < D / 2; ++x) o[x] = 0.f;
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+      if constexpr (kCarry) {  // the carried state of rows r0, r0 + 8
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = r0 + 8 * hf;
+          if (row >= S) continue;
+          const size_t idx = (size_t)bh * S + row;
+          m[hf] = m_io[idx] * kLog2e;
+          l[hf] = l_io[idx];
+          const float* src = acc_io + idx * D + cq;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            o[4 * j + 2 * hf] = src[8 * j];
+            o[4 * j + 2 * hf + 1] = src[8 * j + 1];
+          }
+        }
+      }
       float sc[BK / 2];
       uint32_t pa[BK / 16][4];  // P of the previous tile, bf16
 
@@ -246,6 +271,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         if (nk == 1) mbar_arrive(&q_empty[qb]);
         softmax_tile<BK>(sc, m, l, corr, edge(0), 0, Tk, causal, r0, cq,
                          scale_log2);
+        if constexpr (kCarry) {  // O holds the carried acc
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              o[4 * j + 2 * hf] *= corr[hf];
+              o[4 * j + 2 * hf + 1] *= corr[hf];
+            }
+        }
         pack_tile<BK>(pa, sc);
         ++it;
       }
@@ -304,6 +338,20 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int hf = 0; hf < 2; ++hf) {
         const int row = r0 + 8 * hf;
         if (row >= S) continue;
+        if constexpr (kCarry) {  // the statistics, for the next ring step
+          const size_t idx = (size_t)bh * S + row;
+          float* dst = acc_io + idx * D + cq;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            dst[8 * j] = o[4 * j + 2 * hf];
+            dst[8 * j + 1] = o[4 * j + 2 * hf + 1];
+          }
+          if (lane % 4 == 0) {
+            m_io[idx] = m[hf] * kLn2;
+            l_io[idx] = l[hf];
+          }
+          continue;
+        }
         const float l_safe = fmaxf(l[hf], 1e-30f);
         __nv_bfloat16* dst = out + ffflash::elem<D>(b, S, H, h, row, cq);
 #pragma unroll
@@ -319,13 +367,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // Launch the body on contiguous bf16 q (B, S, H, D), k/v (B, T, Hkv, D),
-// out like q, fp32 lse (B, H, S). cudaErrorInvalidValue when TMA refuses
-// a map (e.g. a base address that is not 16-byte aligned), otherwise the
-// launch's cudaGetLastError().
+// out like q, fp32 lse (B, H, S); under HeadMajorCarry fp32 m, l (B, S)
+// and acc (B, S, D) instead of out and lse. cudaErrorInvalidValue when TMA
+// refuses a map (e.g. a base address that is not 16-byte aligned),
+// otherwise the launch's cudaGetLastError().
 template <class Tag, int D>
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                      void* lse, int B, int S, int Tk, int H, int Hkv,
-                     int causal, float scale, cudaStream_t stream) {
+                     int causal, float scale, cudaStream_t stream,
+                     void* m = nullptr, void* l = nullptr,
+                     void* acc = nullptr) {
   constexpr int BK = FwdTiles<D>::kBK;
   constexpr size_t smem = fwd_wg_smem<D>();
   static_assert(smem <= ffflash::kMaxSmemBytes,
@@ -343,10 +394,9 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
   const int items = B * H * ((S + kBM - 1) / kBM);
   const int grid = std::min(items, sm_count());
   if (grid <= 0) return (int)cudaErrorInvalidValue;
-  kernel<<<grid, kWgThreads, smem, stream>>>(mq, mk, mv,
-                                              (__nv_bfloat16*)out,
-                                              (float*)lse, B, S, Tk, H, Hkv,
-                                              causal, scale);
+  kernel<<<grid, kWgThreads, smem, stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)out, (float*)lse, (float*)m, (float*)l,
+      (float*)acc, B, S, Tk, H, Hkv, causal, scale);
   return (int)cudaGetLastError();
 }
 

@@ -139,8 +139,8 @@ RAGGED_PAGED_ATTENTION = CudaKernel(
     name="ragged_paged_attention",
     source="ragged_paged_attention.cu",
     symbol="ff_ragged_paged_attention",
-    argtypes=[_VOID_P] * 8 + [_INT] * 7 + [ctypes.c_float, _INT, _INT,
-                                           _VOID_P],
+    argtypes=[_VOID_P] * 11 + [_INT] * 9 + [ctypes.c_float, _INT, _INT,
+                                            _VOID_P],
     replaces="flexflow_tpu/paged/attention.py:213",
 )
 
@@ -244,18 +244,27 @@ def _launch(kernel: CudaKernel, device, *args):
 
 
 def launch_ragged_paged_attention(q, kc, vc, page_tables, pos, q_lens, anc,
-                                  out, scale: float):
-    """Launch the fp-pool ragged paged-attention kernel on the current
-    stream (the pools may be of another float dtype than q). The caller
+                                  out, scale: float, plan):
+    """Launch the fp-pool ragged paged-attention kernels on the current
+    stream (the pools may be of another float dtype than q): the split
+    page walk of `plan` = (pages per split, splits), then the combine
+    pass; one launch in `launches`. Allocates the fp32 workspace of the
+    splits' partials (acc, m, l). The caller
     (paged.attention.ragged_flash_attention) has validated devices,
     dtypes, shapes and contiguity."""
     B, S, H, D = q.shape
     _, P, Hkv, _ = kc.shape
+    pps, nsplit = plan
+    rows = B * nsplit * S * H
+    ws = torch.empty(rows * (D + 2), dtype=torch.float32, device=q.device)
+    acc = ws.data_ptr()
+    m = acc + rows * D * ws.element_size()
+    l = m + rows * ws.element_size()
     _launch(RAGGED_PAGED_ATTENTION, q.device, q.data_ptr(), kc.data_ptr(),
             vc.data_ptr(), page_tables.data_ptr(), pos.data_ptr(),
-            q_lens.data_ptr(), anc.data_ptr(), out.data_ptr(), B, S, H, Hkv,
-            D, P, page_tables.shape[1], float(scale), KERNEL_DTYPES[q.dtype],
-            KV_KERNEL_DTYPES[kc.dtype])
+            q_lens.data_ptr(), anc.data_ptr(), out.data_ptr(), acc, m, l, B,
+            S, H, Hkv, D, P, page_tables.shape[1], pps, nsplit, float(scale),
+            KERNEL_DTYPES[q.dtype], KV_KERNEL_DTYPES[kc.dtype])
     return out
 
 

@@ -188,6 +188,127 @@ def test_kernel_refuses_what_it_does_not_take():
         ragged_flash_attention(q, *args[1:], scale=0.1)
 
 
+def _split_case(H, Hkv, D, P, maxp, S, entries, q_dtype, kv_dtype, seed,
+                unaligned=False):
+    """One ragged launch on the card: entries (pos, q_len), a decode row
+    for q_len 1, a causal chunk above, a pad entry for 0; distinct random
+    pages per entry. `unaligned` shifts both pools one element off their
+    allocation (a 16-byte copy cannot take them)."""
+    rs = np.random.RandomState(seed)
+    B = len(entries)
+    N = B * maxp + 1
+    pos = np.array([e[0] for e in entries], np.int32)
+    q_lens = np.array([e[1] for e in entries], np.int32)
+    assert (pos + q_lens <= maxp * P).all() and (q_lens <= S).all()
+    anc = np.zeros((B, S, S), bool)
+    for b, n in enumerate(q_lens):
+        anc[b, :n, :n] = np.tril(np.ones((n, n), bool))
+    pt = (rs.permutation(N - 1)[:B * maxp] + 1).reshape(B, maxp)
+    q = torch.from_numpy(rs.standard_normal((B, S, H, D)).astype(
+        np.float32)).cuda().to(q_dtype)
+    pools = []
+    for _ in range(2):
+        x = torch.from_numpy(rs.standard_normal((N, P, Hkv, D)).astype(
+            np.float32)).cuda().to(kv_dtype)
+        if unaligned:
+            flat = torch.empty(x.numel() + 1, dtype=kv_dtype, device="cuda")
+            flat[1:] = x.reshape(-1)
+            x = flat[1:].view(N, P, Hkv, D)
+        pools.append(x)
+    return [q, *pools] + [torch.from_numpy(a).cuda() for a in
+                          (pt.astype(np.int32), pos, q_lens, anc)]
+
+
+# (name, H, Hkv, D, P, maxp, S, entries (pos, q_len), q dtype, pool dtype,
+# unaligned): the split walk's edges, each under the wrapper's plan and
+# under plans of 1, 2 and 3 pages a split
+RAGGED_SPLIT_CASES = [
+    ("horizon_on_page_edge", 8, 2, 64, 16, 8, 8,
+     [(31, 1), (47, 1), (40, 8), (0, 0)], torch.bfloat16, torch.bfloat16,
+     False),
+    ("horizon_in_first_split", 8, 2, 64, 16, 8, 8,
+     [(3, 1), (0, 5), (10, 1)], torch.bfloat16, torch.bfloat16, False),
+    ("maxp_1", 8, 2, 64, 16, 1, 4, [(0, 4), (12, 1), (5, 3), (15, 1)],
+     torch.bfloat16, torch.bfloat16, False),
+    ("maxp_not_a_multiple", 8, 2, 64, 16, 7, 8,
+     [(100, 1), (60, 8), (111, 1), (0, 0)], torch.bfloat16, torch.bfloat16,
+     False),
+    ("pos0_window8", 8, 2, 64, 16, 8, 8, [(0, 8), (0, 8), (0, 1), (0, 0)],
+     torch.bfloat16, torch.bfloat16, False),
+    ("padded_entries", 8, 2, 64, 16, 8, 1, [(0, 0), (20, 1), (0, 0)],
+     torch.bfloat16, torch.bfloat16, False),
+    ("gpt2_xl_heads", 25, 25, 64, 64, 16, 1,
+     [(960, 1), (500, 1), (1023, 1), (0, 0)], torch.bfloat16,
+     torch.bfloat16, False),
+    ("fp32_q_bf16_pool", 32, 8, 128, 64, 8, 1,
+     [(500, 1), (63, 1), (64, 1)], torch.float32, torch.bfloat16, False),
+    ("fp16_pool", 8, 2, 64, 16, 8, 8, [(70, 1), (30, 8), (0, 0)],
+     torch.float32, torch.float16, False),
+    ("fp32_pool", 8, 2, 64, 16, 8, 8, [(70, 1), (30, 8)], torch.bfloat16,
+     torch.float32, False),
+    ("unaligned_pool", 8, 2, 64, 16, 8, 8, [(70, 1), (30, 8), (0, 0)],
+     torch.bfloat16, torch.bfloat16, True),
+    ("unaligned_pool_fp32", 8, 2, 64, 16, 8, 8, [(70, 1), (30, 8)],
+     torch.float32, torch.float32, True),
+    ("d36_element_loads", 8, 2, 36, 16, 8, 8, [(70, 1), (30, 8), (0, 0)],
+     torch.bfloat16, torch.bfloat16, False),
+]
+
+
+@pytest.mark.parametrize("case", RAGGED_SPLIT_CASES, ids=lambda c: c[0])
+def test_ragged_split_edges_match_plain_version(case):
+    """The fp kernel's split page walk and combine pass at their edges
+    (a horizon on a page edge or inside the first split, one page a table,
+    a table not a multiple of the split, pos 0 with window 8, padded
+    entries, GPT-2 XL's rep 1, pools of another dtype than q, pools a
+    16-byte copy cannot take): under the wrapper's plan and under plans of
+    1, 2 and 3 pages a split, each call one launch, within the plain
+    version's tolerance, rows past q_len exact zeros."""
+    _needs_card()
+    from flexflow_tpu_torch.kernels import (
+        RAGGED_PAGED_ATTENTION,
+        launch_ragged_paged_attention,
+    )
+    from flexflow_tpu_torch.paged.attention import SplitPlan
+
+    name, H, Hkv, D, P, maxp, S, entries, q_dtype, kv_dtype, unal = case
+    args = _split_case(H, Hkv, D, P, maxp, S, entries, q_dtype, kv_dtype,
+                       seed=len(name), unaligned=unal)
+    scale = 1.0 / D ** 0.5
+    want = ragged_gather_attention(*args, scale=scale)
+    before = RAGGED_PAGED_ATTENTION.launches
+    runs = [ragged_flash_attention(*args, scale=scale)]
+    for pps in (1, 2, 3):
+        out = torch.empty_like(args[0])
+        runs.append(launch_ragged_paged_attention(
+            *args, out, scale, SplitPlan(pps, -(-maxp // pps))))
+    torch.cuda.synchronize()
+    assert RAGGED_PAGED_ATTENTION.launches == before + len(runs)
+    limit = TOLS[q_dtype] * max(1.0, float(want.float().abs().max()))
+    for pps, got in zip(("plan", 1, 2, 3), runs):
+        assert got.dtype == q_dtype
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= limit, (pps, err, limit)
+        for b, ql in enumerate(args[5].tolist()):
+            assert not got[b, ql:].any(), (pps, b)
+
+
+@pytest.mark.parametrize("pos", [1024, 2040])
+def test_ragged_long_context_decode_matches_plain_version(pos):
+    """Llama-3-8B's steady decode launch (4 slots, page 64, 32 pages a
+    table) at pos 1024 and at the end of the table, bf16 and fp32 q: the
+    serving path's plan (several live splits), within tolerance."""
+    _needs_card()
+    for q_dtype in (torch.bfloat16, torch.float32):
+        args = _split_case(32, 8, 128, 64, 32, 1, [(pos, 1)] * 4, q_dtype,
+                           q_dtype, seed=pos)
+        got = ragged_flash_attention(*args, scale=128 ** -0.5)
+        want = ragged_gather_attention(*args, scale=128 ** -0.5)
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= TOLS[q_dtype] * max(1.0, float(
+            want.float().abs().max())), (q_dtype, err)
+
+
 # flash attention. fp32: summation order only (out and lse 1e-5; the
 # gradients sum up to 1000 products per element, 1e-4). bf16: p and ds
 # are rounded to bf16 at other points than in the plain version, and
@@ -314,8 +435,8 @@ def test_flash_bf16_kernels_are_bitwise_deterministic(causal, S, T, H, Hkv,
 
 def test_flash_wrapper_refuses_what_the_kernels_do_not_take():
     """D 640 (a multiple of 128 above 512) is refused by K1/K2; above 256
-    by K4; float16 by both; a base address TMA cannot map by K4's
-    tensor-core body."""
+    by K4; float16 by both; a base address TMA cannot map by K4's and
+    K5's tensor-core bodies."""
     _needs_card()
     q = torch.zeros(1, 8, 2, 640, device="cuda")
     with pytest.raises(ValueError, match="up to 512"):
@@ -337,6 +458,13 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take():
     assert q.is_contiguous() and q.data_ptr() % 16 != 0
     with pytest.raises(RuntimeError, match="invalid argument"):
         flash_bh_forward(q, q, q, True, 0.1)
+    # the same for K5's tensor-core body (HeadMajorCarry)
+    from flexflow_tpu_torch.ops.flash_attention import flash_bh_fwd_carry
+
+    m, l = (torch.zeros(2, 128, device="cuda") for _ in range(2))
+    acc = torch.zeros(2, 128, 64, device="cuda")
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        flash_bh_fwd_carry(q, q, q, m, l, acc, True, 0.1)
 
 
 # (S, T, D) for K4: every padded width of the CUDA-core bodies (fp32 at
@@ -517,6 +645,92 @@ def test_fwd_carry_kernel_matches_plain_version(dtype, causal, S, T, D):
         for name, a, b in zip(("m", "l", "acc"), got, want):
             ok, err = _close(a, b, tol)
             assert ok, (name, err)
+
+
+def _carry_inputs(BH, S, T, D, seed, dtype=torch.bfloat16):
+    """q (BH, S, D), k, v (BH, T, D) and the fresh statistics (m -1e30,
+    l 0, acc 0) on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(BH, S, D, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(BH, T, D, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    fresh = (torch.full((BH, S), -1e30, device="cuda"),
+             torch.zeros(BH, S, device="cuda"),
+             torch.zeros(BH, S, D, device="cuda"))
+    return q, k, v, fresh
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,T", [(384, 384), (300, 520), (520, 300)])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_fwd_carry_tensor_core_bodies_match_plain_version(D, S, T, causal):
+    """K5 in bf16 at the tensor-core widths (HeadMajorCarry): full and
+    causal, S != T both ways, from fresh and from carried-in statistics
+    (the plain fold of another block), m, l and acc updated in place."""
+    _needs_card()
+    from flexflow_tpu_torch.ops.flash_attention import (
+        flash_bh_fwd_carry,
+        flash_bh_fwd_carry_reference,
+    )
+
+    scale = 1.0 / D ** 0.5
+    q, k, v, fresh = _carry_inputs(6, S, T, D, seed=D + S + T)
+    _, k0, v0, _ = _carry_inputs(6, S, T, D, seed=D + S + T + 1)
+    carried = flash_bh_fwd_carry_reference(q, k0, v0, *fresh, False, scale)
+    for stats in (fresh, carried):
+        want = flash_bh_fwd_carry_reference(q, k, v, *stats, causal, scale)
+        bufs = [t.clone() for t in stats]
+        got = flash_bh_fwd_carry(q, k, v, *bufs, causal, scale)
+        torch.cuda.synchronize()
+        assert all(a is b for a, b in zip(got, bufs))
+        for name, a, b in zip(("m", "l", "acc"), got, want):
+            ok, err = _close(a, b, FLASH_TOLS[torch.bfloat16][0])
+            assert ok, (name, err)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_fwd_carry_folds_equal_one_forward(D):
+    """Four K5 folds of the quarters of k/v, normalised, equal one K4
+    forward over the concatenated keys (out and lse), bf16 on the tensor
+    cores."""
+    _needs_card()
+    from flexflow_tpu_torch.ops.flash_attention import (
+        flash_bh_forward,
+        flash_bh_fwd_carry,
+    )
+
+    scale = 1.0 / D ** 0.5
+    q, k, v, fresh = _carry_inputs(4, 320, 4 * 192, D, seed=D)
+    m, l, acc = (t.clone() for t in fresh)
+    for i in range(4):
+        blk = slice(192 * i, 192 * (i + 1))
+        flash_bh_fwd_carry(q, k[:, blk], v[:, blk], m, l, acc, False, scale)
+    l_safe = l.clamp_min(1e-30)
+    out, lse = (acc / l_safe[..., None]).bfloat16(), m + torch.log(l_safe)
+    want_out, want_lse = flash_bh_forward(q, k, v, False, scale)
+    torch.cuda.synchronize()
+    ok, err = _close(out, want_out, FLASH_TOLS[torch.bfloat16][0])
+    assert ok, ("out", err)
+    assert float((lse - want_lse).abs().max()) <= 1e-2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_fwd_carry_bf16_is_bitwise_deterministic(D, causal):
+    """Two K5 launches on the tensor cores from the same inputs and state
+    give the same bits."""
+    _needs_card()
+    from flexflow_tpu_torch.ops.flash_attention import flash_bh_fwd_carry
+
+    scale = 1.0 / D ** 0.5
+    q, k, v, fresh = _carry_inputs(8, 1000, 1000, D, seed=D + 7)
+    runs = []
+    for _ in range(2):
+        bufs = [t.clone() for t in fresh]
+        runs.append(flash_bh_fwd_carry(q, k, v, *bufs, causal, scale))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("m", "l", "acc"), *runs):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

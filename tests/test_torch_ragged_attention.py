@@ -24,10 +24,13 @@ from flexflow_tpu.paged.attention import (  # noqa: E402
     ragged_paged_attention as jax_ragged_paged_attention,
 )
 from flexflow_tpu_torch.paged.attention import (  # noqa: E402
+    SplitPlan,
     chain_descriptor,
     ragged_flash_attention,
     ragged_gather_attention,
     ragged_paged_attention,
+    ragged_split_plan,
+    ragged_visibility_mask,
 )
 
 # fp32 on the CPU: the reference kernel's own test tolerance
@@ -174,3 +177,117 @@ def test_wrapper_refuses_mixed_devices():
     with pytest.raises(ValueError):
         ragged_flash_attention(*targs, scale=scale)
 
+
+
+# ---------------------------------------------------------------------------
+# the fp-pool kernel's split page walk (csrc/ragged_paged_attention.cu)
+
+# (B, S, H, Hkv, P, maxp, sm_count): Llama-3-8B decode and a packed
+# prefill on the serving pool (page 64, 32 pages), GPT-2 XL decode (rep
+# 1, 16 pages), phase 7's chunk of 64 rows, small test tables, one page,
+# a table that is not a multiple of the split, a small card
+PLAN_SHAPES = [
+    (4, 1, 32, 8, 64, 32, 132), (8, 8, 32, 8, 64, 32, 132),
+    (4, 1, 25, 25, 64, 16, 132), (4, 64, 32, 8, 64, 32, 132),
+    (3, 6, 8, 2, 8, 4, 132), (2, 1, 8, 2, 16, 1, 132),
+    (1, 1, 8, 8, 16, 7, 132), (64, 1, 32, 8, 16, 100, 8),
+    (1, 1, 4, 1, 1, 37, 132),
+]
+
+
+def _split_pages(plan, horizon, P, maxp):
+    """The pages each live split walks for an entry at `horizon`
+    (pos + q_len), as ragged_split_kernel computes them: split s takes
+    pages s * pps .. min((s + 1) * pps, live) - 1 and runs only when that
+    run is not empty."""
+    live = min(maxp, -(-horizon // P))
+    pps = plan.pages_per_split
+    return [list(range(s * pps, min((s + 1) * pps, live)))
+            for s in range(plan.n_splits) if s * pps < live]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,P,maxp,sms", PLAN_SHAPES)
+def test_split_plan_covers_each_live_page_once(B, S, H, Hkv, P, maxp, sms):
+    """For every horizon up to the table's maxp x P rows, the live splits
+    walk pages 0 .. ceil(horizon / P) - 1, each exactly once; the plan
+    covers the table with its splits; and the fp32 workspace of the
+    partials (D + 2 floats a row and split) is bounded by one row per 16
+    cache rows of a full table plus one per query row of a GQA group."""
+    plan = ragged_split_plan(B, S, H, Hkv, P, maxp, sms)
+    pps, n = plan
+    assert 1 <= pps <= maxp and n == -(-maxp // pps)
+    for horizon in range(1, maxp * P + 1):
+        walked = [j for run in _split_pages(plan, horizon, P, maxp)
+                  for j in run]
+        assert walked == list(range(-(-horizon // P))), horizon
+    rep, D = H // Hkv, 128
+    ws_rows = B * n * S * H
+    assert ws_rows * (D + 2) <= B * Hkv * (maxp * P // 16 + rep * S) * (
+        D + 2)
+    assert n <= max(1, -(-4 * sms // (B * Hkv)))  # SPLIT_WAVES fills
+
+
+def _split_combine_model(q, kc, vc, pt, pos, q_lens, anc, scale, plan):
+    """A plain model of the fp kernel: each live split's partial (m, l,
+    acc) over its pages, p = exp(s - m) against the split's own max
+    (floored at -1e30) rounded to q's dtype before P.V, then the partials
+    merged by max and rescale; rows past q_len zeros."""
+    B, S, H, D = q.shape
+    P, Hkv, maxp = kc.shape[1], kc.shape[2], pt.shape[1]
+    rep = H // Hkv
+    vis = ragged_visibility_mask(pt, pos, q_lens, anc, P)
+    out = torch.zeros(B, S, H, D)
+    for b in range(B):
+        n = int(q_lens[b])
+        if n == 0:
+            continue
+        parts = []
+        for run in _split_pages(plan, int(pos[b]) + n, P, maxp):
+            pages = pt[b, run].long()
+            k = kc[pages].reshape(-1, Hkv, D).to(q.dtype).float()
+            v = vc[pages].reshape(-1, Hkv, D).to(q.dtype).float()
+            k = k.repeat_interleave(rep, dim=1)
+            v = v.repeat_interleave(rep, dim=1)
+            see = vis[b, :n, run[0] * P:(run[-1] + 1) * P]       # (n, L)
+            sc = torch.einsum("thd,lhd->htl", q[b, :n].float(), k) * scale
+            sc = sc.masked_fill(~see[None], float("-inf"))
+            m = sc.amax(-1).clamp_min(-1e30)                      # (H, n)
+            p = torch.exp(sc - m[..., None])
+            acc = torch.einsum("htl,lhd->htd", p.to(q.dtype).float(), v)
+            parts.append((m, p.sum(-1), acc))
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        w = [torch.exp(m - mx) for m, _, _ in parts]
+        l = sum(wi * li for wi, (_, li, _) in zip(w, parts))
+        acc = sum(wi[..., None] * ai for wi, (_, _, ai) in zip(w, parts))
+        out[b, :n] = (acc / l.clamp_min(1e-30)[..., None]).transpose(0, 1)
+    return out.to(q.dtype)
+
+
+# the kernel's tolerances against the plain version (chip_smoke.TOLS):
+# fp32 summation order only; bf16 rounds p before normalising
+SPLIT_TOLS = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pps", [1, 3, None])
+@pytest.mark.parametrize("H,Hkv,S,mix", MIXES)
+def test_split_then_combine_matches_plain_version(H, Hkv, S, mix, pps,
+                                                  dtype):
+    """Split-then-combine over decode, chunk, tree and pad entries, at 1
+    and 3 pages a split and at ragged_split_plan's choice, equals the
+    plain version (ragged_gather_attention) within the kernel's
+    tolerances, zeros past q_len included."""
+    q, kc, vc, pt, pos, q_lens, anc, scale = _case(H, Hkv, S, mix)
+    args = [torch.from_numpy(a) for a in (q, kc, vc, pt, pos, q_lens, anc)]
+    args[:3] = [a.to(dtype) for a in args[:3]]
+    maxp, P = pt.shape[1], kc.shape[1]
+    plan = (SplitPlan(pps, -(-maxp // pps)) if pps else
+            ragged_split_plan(len(mix), S, H, Hkv, P, maxp, 132))
+    got = _split_combine_model(*args, scale, plan)
+    want = ragged_gather_attention(*args, scale=scale)
+    tol = SPLIT_TOLS[dtype]
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol + tol * want.float().abs()).all()), float(
+        err.max())
+    for b, n in enumerate(q_lens):
+        assert not got[b, n:].any()
