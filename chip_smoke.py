@@ -14,15 +14,16 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      seconds each source took and the HGMMA (wgmma) instructions in the
      SASS of each tensor-core flash kernel: K1/K2's and K4's forward, dq
      and dk/dv and K5's forward at head dims 64, 128 and 256
-     (WGMMA_KERNELS);
+     (WGMMA_KERNELS), and the tf32 HMMA (mma.sync) instructions of K4's
+     fp32 dq and dk/dv bodies at those widths (TF32_KERNELS);
   2. kernels vs their plain versions on the card, with kernel / plain /
      library times and the roofline bound: the ragged paged attention at
      the serving path's shapes (Llama-3-8B attention: H=32, Hkv=8,
      D=128, page 64, 129 pages; decode, chunk and pad entries; window 1
      and 8; a decode at the end of the 32-page table; and GPT-2 XL's
      decode: H = Hkv = 25, D 64) over fp pools, the fp kernel's pages
-     per split swept at the steady decode case (SPLIT_SWEEP),
-     over int8 pools (Llama's cases) written by the port's own
+     per split swept at the steady decode case (SPLIT_SWEEP, fp and int8
+     pools), over int8 pools (Llama's cases) written by the port's own
      quantize-on-append, and over a bf16 pool under fp32 q; and the
      flash-attention forward, dq and dk/dv kernels at the training
      path's shape (bench_1b attention: B 8, S = T 1024, H 16, Hkv 8,
@@ -37,8 +38,9 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      2048, D 128, causal and full; bf16 timed beside SDPA), each
      backward also fed a shifted lse (the ring's contract); the flash
      checks (max |err|, error norm, lse; FLASH_TOLS, LSE_ATOL) must
-     reject a planted fault at GPT-2 XL's shape (the plain results with
-     one key tile skipped for the last query rows); K1/K2 timed at
+     reject a planted fault at GPT-2 XL's shape, bf16 and fp32 (the
+     plain results with one key tile skipped for the last query rows);
+     fp32 cases' library time is SDPA's in fp32; K1/K2 timed at
      D 64 on the same shape beside K4 and the head-major route; the ring
      step K5 at phase 10's block (B*H 16, S = T
      2048, D 128, full and causal, a carried-in state) with times, then at
@@ -59,8 +61,10 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      tokens each; the ragged kernel must have launched once per layer and
      step (counts reset just before, read just after);
   5. (on request) torch.profiler breakdowns of one decode step, one
-     prefill step, one bench_1b train step, one GPT-2 XL train step, one
-     phase-10 ring step and one phase-11 step;
+     prefill step, one decode step on an int8 pool (with the int8 ragged
+     kernels' and quantize-on-append's launches and ms), one bench_1b
+     train step, one GPT-2 XL train step, one phase-10 ring step and one
+     phase-11 step;
   6. training: bench_1b (16 layers, bf16, batch 8, seq 1024,
      remat="none", Adam lr 1e-4, random weights from a seed) through
      ff.fit for one epoch of 10 seeded batches, then 10 timed steps on
@@ -81,7 +85,9 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      batch 8, seq 1024, remat="none", Adam lr 1e-4, random weights from a
      seed) through ff.fit for one epoch of 10 seeded batches, then 10
      timed steps on one repeated batch (the loss must fall); each K4
-     kernel must launch 48 times per step and K1/K2 never; then the
+     kernel must launch 48 times per step and K1/K2 never, and two
+     profiled steps must show K4's fp32 dq and dk/dv on their 3xTF32
+     bodies only (K4's ms a step reported); then the
      masters before timed step 8 (where the loss jumps) give that step's
      loss and gradients, fp32, batch 1, on the card and on the CPU, which
      must agree;
@@ -150,6 +156,7 @@ from flexflow_tpu_torch.kernels import (
     RAGGED_PAGED_ATTENTION_INT8,
     build,
     launch_ragged_paged_attention,
+    launch_ragged_paged_attention_int8,
     launch_flash_attention_bh_dkv,
     launch_flash_attention_bh_dq,
     launch_flash_attention_bh_fwd,
@@ -184,9 +191,12 @@ from flexflow_tpu_torch.paged.quant import dequantize_pages, quantized_append
 from flexflow_tpu_torch.parallel.mesh import make_mesh
 from flexflow_tpu_torch.parallel.ring import ring_dot_product_attention
 
-# NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type
+# NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type.
+# fp32 operands reach the tensor cores as tf32 (3xTF32 keeps fp32's
+# accuracy at 3 tf32 products each), so the least time of fp32 work takes
+# the tf32 rate, not the 67 TF/s of fp32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12}
 # kernel vs plain version: fp32 differs by summation order only; bf16
 # rounds probabilities to bf16 at different points (the kernel before
 # normalising, the plain version after) and rounds the output to bf16
@@ -390,6 +400,46 @@ def hgmma_counts() -> dict:
     return counts
 
 
+# K4's fp32 dq (false) and dk/dv (true) bodies on the tensor cores, 3xTF32
+# on mma.sync, at head dims 64, 128 and 256
+TF32_KERNELS = tuple(f"flash_bh_bwd_tf32_kernel<{k},{d}>"
+                     for k in ("false", "true") for d in (64, 128, 256))
+
+
+def tf32_name(symbol: str):
+    """'flash_bh_bwd_tf32_kernel<true,64>' from a mangled or demangled
+    symbol of K4's 3xTF32 body, or None."""
+    m = re.search(r"flash_bh_bwd_tf32_kernelILb([01])ELi(\d+)E", symbol)
+    if m:
+        return (f"flash_bh_bwd_tf32_kernel<"
+                f"{'true' if m[1] == '1' else 'false'},{m[2]}>")
+    m = re.search(r"flash_bh_bwd_tf32_kernel<(false|true), (\d+)>", symbol)
+    return f"flash_bh_bwd_tf32_kernel<{m[1]},{m[2]}>" if m else None
+
+
+def tf32_hmma_counts() -> dict:
+    """{K4 fp32 backward body: tf32 HMMA instructions in its SASS} from
+    K4's backward library (cuobjdump -sass): the proof that fp32 dq and
+    dk/dv run on the tensor cores. Raises if one of TF32_KERNELS is
+    missing or holds none."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "-sass", str(FLASH_ATTENTION_BH_DQ.library_path())],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = tf32_name(line)
+            if name:
+                counts[name] = 0
+        elif name and "HMMA" in line and "TF32" in line:
+            counts[name] += 1
+    if set(TF32_KERNELS) - set(counts) or not all(counts.values()):
+        raise AssertionError(f"3xTF32 bodies missing or without tf32 "
+                             f"HMMA: {counts}, want {TF32_KERNELS}")
+    return counts
+
+
 # a spin on the card (torch.cuda._sleep cycles, ~1 ms at the H100's
 # clock) before each timed call, so the host has queued the whole call
 # before its start event is reached: the events then time the device's
@@ -575,10 +625,11 @@ def phase_kernels(card: str) -> list:
 
 
 def split_sweep(card: str) -> dict:
-    """The fp kernel at the kernel line's case with each SPLIT_SWEEP pages
-    per split beside the plan's, bf16 and fp32 q: every result held to the
-    plain version (TOLS) and timed. The times show the plan's choice
-    against its neighbours."""
+    """The split kernels at the kernel line's case with each SPLIT_SWEEP
+    pages per split beside the plan's, bf16 and fp32 q, over the fp pool
+    and over its int8 pages (keys "int8_<q dtype>"): every result held to
+    the plain version (TOLS; INT8_TOLS) and timed. The times show the
+    plan's choice against its neighbours."""
     name, window, kinds, fixed = ATTENTION_CASES[0]
     scale = 1.0 / D ** 0.5
     plan = ragged_split_plan(len(kinds), window, H, HKV, P, MAXP,
@@ -586,26 +637,43 @@ def split_sweep(card: str) -> dict:
                              .multi_processor_count)
     res = {"case": name, "plan_pages_per_split": plan.pages_per_split,
            "card": card}
+    q, kc, vc, pt, pos, qls, anc = attention_case(
+        window, kinds, torch.float32, seed=0, fixed_pos=fixed)
+    kq, ks, vq, vs = int8_pools(kc, vc)
     for dtype in (torch.bfloat16, torch.float32):
-        args = attention_case(window, kinds, dtype, seed=0, fixed_pos=fixed)
-        want = ragged_gather_attention(*args, scale=scale).float()
-        atol, rtol = TOLS[dtype]
-        times = {}
-        for pps in sorted(set(SPLIT_SWEEP) | {plan.pages_per_split}):
-            sp = SplitPlan(pps, -(-MAXP // pps))
-            out = torch.empty_like(args[0])
+        for pool in ("fp", "int8"):
+            if pool == "fp":
+                args = (q.to(dtype), kc.to(dtype), vc.to(dtype), pt, pos,
+                        qls, anc)
+                want = ragged_gather_attention(*args, scale=scale).float()
+                atol, rtol = TOLS[dtype]
+                launch = launch_ragged_paged_attention
+            else:
+                args = (q.to(dtype), kq, vq, ks, vs, pt, pos, qls, anc)
+                want = ragged_gather_attention(
+                    *args[:3], *args[5:], scale=scale, k_scales=ks,
+                    v_scales=vs).float()
+                atol = INT8_TOLS[dtype] * max(1.0, float(want.abs().max()))
+                rtol = 0.0
+                launch = launch_ragged_paged_attention_int8
+            times = {}
+            for pps in sorted(set(SPLIT_SWEEP) | {plan.pages_per_split}):
+                sp = SplitPlan(pps, -(-MAXP // pps))
+                out = torch.empty_like(args[0])
 
-            def run():
-                return launch_ragged_paged_attention(*args, out, scale, sp)
+                def run():
+                    return launch(*args, out, scale, sp)
 
-            run()
-            torch.cuda.synchronize()
-            err = (out.float() - want).abs()
-            if not bool((err <= atol + rtol * want.abs()).all()):
-                raise AssertionError(f"split sweep {dtype} pps {pps}: max "
-                                     f"|err| {float(err.max()):.3g}")
-            times[pps] = time_ms(run)
-        res[str(dtype).replace("torch.", "")] = times
+                run()
+                torch.cuda.synchronize()
+                err = (out.float() - want).abs()
+                if not bool((err <= atol + rtol * want.abs()).all()):
+                    raise AssertionError(
+                        f"split sweep {pool} pool {dtype} pps {pps}: max "
+                        f"|err| {float(err.max()):.3g}")
+                times[pps] = time_ms(run)
+            key = str(dtype).replace("torch.", "")
+            res[key if pool == "fp" else f"int8_{key}"] = times
     log(f"split_sweep {json.dumps(res)}")
     return res
 
@@ -1063,10 +1131,11 @@ def phase_k4_kernels(card: str) -> dict:
     timed: the kernels line's case), then at every case of K4_CASES in
     both dtypes (errors; the ring block's bf16 cases timed too), then
     the planted fault (the checks must reject a skipped key tile at
-    GPT-2 XL's shape), then the K1-vs-K4 record. Fails on any error over
-    its tolerance. Returns {"main": {dtype name: {kernel: result}},
-    "timed": {case: {kernel: result}}, "cases": [...], "planted_fault":
-    {...}, "k1_vs_k4_d64": {...}}."""
+    GPT-2 XL's shape, bf16 and fp32), then the K1-vs-K4 record. Fails
+    on any error over its tolerance. Returns {"main": {dtype name:
+    {kernel: result}}, "timed": {case: {kernel: result}}, "cases":
+    [...], "planted_fault": {dtype name: {...}}, "k1_vs_k4_d64":
+    {...}}."""
     main, timed, cases = {}, {}, []
     for seed, dtype in enumerate((torch.bfloat16, torch.float32)):
         res = k4_check(KB * KH, KS, KS, KD, True, dtype, seed, timed=True)
@@ -1102,11 +1171,16 @@ def phase_k4_kernels(card: str) -> dict:
     if bad:
         raise AssertionError(f"K4 kernels disagree with their plain "
                              f"versions: {bad}")
-    fault = planted_fault_check(KB * KH, KS, KD, torch.bfloat16, 12)
-    log(f"planted_fault {json.dumps(fault)}")
-    if not all(fault["rejected"].values()):
-        raise AssertionError(f"the flash checks pass a skipped key tile: "
-                             f"{fault}")
+    # bf16 for the wgmma bodies, fp32 for the 3xTF32 ones
+    fault = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        f = planted_fault_check(KB * KH, KS, KD, dtype, 12)
+        log(f"planted_fault {json.dumps(f)}")
+        if not all(f["rejected"].values()):
+            raise AssertionError(f"the flash checks pass a skipped key "
+                                 f"tile: {f}")
+        fault[f["dtype"]] = f
+        torch.cuda.empty_cache()
     cmp = k1_vs_k4_d64()
     cmp["card"] = card
     log(f"k1_vs_k4_d64 {json.dumps(cmp)}")
@@ -1765,23 +1839,53 @@ def _profile_summary(prof, n: int, wall_ms: float) -> dict:
     }
 
 
+# record_function spans chip_smoke opens: the trace also draws each on the
+# device's timeline (from its first kernel to its last), which is no work
+# of the device's own
+_SPANS = ("quantized_append",)
+
+
 def _device_events(prof) -> list:
     """The profile's device-side events with device time (kernels,
     memcpy/memset), summed by name."""
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and e.key not in _SPANS]
 
 
-# the namespaces of the port's kernels: each source's own anonymous one,
-# and ffwg for the tensor-core bodies the flash sources share
-_OWN_NAMESPACES = ("void (anonymous namespace)::", "void ffwg::")
+# the namespaces of the port's kernels: each source's own anonymous one
+# (K4's 3xTF32 body in its tf32 namespace there), and ffwg for the
+# tensor-core bodies the flash sources share
+_OWN_NAMESPACES = ("void (anonymous namespace)::tf32::",
+                   "void (anonymous namespace)::", "void ffwg::")
 
 
 def _short(key: str) -> str:
     for ns in _OWN_NAMESPACES + ("ffwg::",):
         key = key.replace(ns, "")
     return key
+
+
+def _span_device(prof, name: str, n: int) -> tuple:
+    """(device launches, device ms) per step of the kernels launched under
+    the profiler spans called `name` (record_function), or "not measured"
+    where the trace links no kernel to them."""
+    launches, us = 0, 0.0
+
+    def walk(ev):
+        nonlocal launches, us
+        for k in ev.kernels:
+            launches += 1
+            us += k.duration
+        for c in ev.cpu_children:
+            walk(c)
+
+    for ev in prof.events():
+        if ev.name == name:
+            walk(ev)
+    if not launches:
+        return "not measured", "not measured"
+    return launches / n, us / n / 1e3
 
 
 def _own_kernel(key: str) -> bool:
@@ -1793,8 +1897,13 @@ def _own_kernel(key: str) -> bool:
 def phase_profile(seed: int, card: str) -> dict:
     """Llama-3-8B bf16 ragged steps at the serving shapes, timed by the
     host clock around synchronised steps and traced with torch.profiler:
-    device-busy time per step, idle share and the kernels by time."""
-    from torch.profiler import ProfilerActivity, profile
+    device-busy time per step, idle share and the kernels by time; on
+    an fp pool a decode and a prefill step, on an int8 pool (phase 7's)
+    a decode step with the int8 ragged kernels' launches and ms and
+    quantize-on-append's (its calls traced as record_function spans)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import flexflow_tpu_torch.paged.attention as paged_attention
 
     cfg = LlamaConfig.llama3_8b()
     ff = FFModel(FFConfig(batch_size=1, seed=seed, device=DEVICE))
@@ -1803,12 +1912,22 @@ def phase_profile(seed: int, card: str) -> dict:
     ff.compile()
     ex = ff.executor
     tr, ntr = ff._params
-    caches = ex.init_paged_kv_cache(NUM_PAGES, P)
+    pools = {None: ex.init_paged_kv_cache(NUM_PAGES, P),
+             "int8": ex.init_paged_kv_cache(NUM_PAGES, P, torch.int8)}
+    append = paged_attention.quantized_append
+
+    def traced_append(*a, **kw):
+        with record_function(_SPANS[0]):
+            return append(*a, **kw)
+
     rs = np.random.RandomState(seed)
     out = {"card": card}
-    for name, make in (("decode_b4_pos1024", _decode_launch),
-                       ("prefill_8x8_pos512", _prefill_launch)):
+    for name, make, kv in (("decode_b4_pos1024", _decode_launch, None),
+                           ("prefill_8x8_pos512", _prefill_launch, None),
+                           ("decode_b4_pos1024_int8", _decode_launch,
+                            "int8")):
         launch = make(DEVICE, cfg.vocab_size, rs)
+        caches = pools[kv]
 
         def step():
             return ex.ragged_step_fn(tr, ntr, caches, *launch)
@@ -1822,12 +1941,22 @@ def phase_profile(seed: int, card: str) -> dict:
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / n * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                step()
-            torch.cuda.synchronize()
+        paged_attention.quantized_append = traced_append
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    step()
+                torch.cuda.synchronize()
+        finally:
+            paged_attention.quantized_append = append
         res = _profile_summary(prof, n, wall_ms)
+        if kv == "int8":
+            rag = [r for r in res["own"] if r[0].startswith("ragged_")]
+            res["int8_ragged_ms"] = sum(r[1] for r in rag)
+            res["int8_ragged_launches"] = sum(r[2] for r in rag)
+            res["quantized_append_launches"], res["quantized_append_ms"] = \
+                _span_device(prof, _SPANS[0], n)
         log(f"profile {name} {json.dumps(res)}")
         out[name] = res
     return out
@@ -2029,8 +2158,10 @@ def phase_gpt2_train(seed: int, card: str) -> dict:
     """GPT-2 XL, bf16 (fp32 from the position add on, as the reference
     computes it), batch 8, seq 1024, remat none: one ff.fit epoch of 10
     seeded batches (the main path; counts reset just before, read just
-    after), then 10 timed train steps on one repeated batch. Each K4 kernel must launch once per layer and step, K1/K2 and
-    the ragged kernels never."""
+    after), then 10 timed train steps on one repeated batch, then two
+    profiled ones. Each K4 kernel must launch once per layer and step,
+    K1/K2 and the ragged kernels never, and K4's fp32 dq and dk/dv run
+    their 3xTF32 bodies alone."""
     cfg = gpt2_xl()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -2081,6 +2212,19 @@ def phase_gpt2_train(seed: int, card: str) -> dict:
     losses = [float(v) for v in losses]
     timed_launches = _k4_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # two profiled steps: K4's bodies (fp32 fwd on CUDA cores, dq and
+    # dk/dv on the 3xTF32 ones) and K4's device ms a step
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
+        torch.cuda.synchronize()
+    bodies = flash_bodies(prof, 2)
+    bwd_us = sum(e.self_device_time_total for e in _device_events(prof)
+                 if tf32_name(e.key))
+    bodies["k4_bwd_ms_per_step"] = bwd_us / 2 / 1e3
+    del prof
     tokens = TRAIN_BATCH * GPT2_POSITIONS
     flops = gpt2_flops_per_token(cfg, GPT2_POSITIONS) * tokens
     res = {
@@ -2094,7 +2238,7 @@ def phase_gpt2_train(seed: int, card: str) -> dict:
         "timed_launches": timed_launches, "step_ms": step_s * 1e3,
         "tokens_per_s": tokens / step_s, "flops_per_step": flops,
         "mfu": flops / step_s / PEAK_OPS[torch.bfloat16],
-        "peak_mem_gb": peak_gb, "card": card,
+        "peak_mem_gb": peak_gb, "profile": bodies, "card": card,
     }
     log(f"train_gpt2 {json.dumps(res)}")
     del ff, ex, tr, ntr, opt, m
@@ -2104,6 +2248,11 @@ def phase_gpt2_train(seed: int, card: str) -> dict:
                              f"fall: {losses}")
     if any(n != cfg.layers * TIMED_STEPS for n in timed_launches.values()):
         raise AssertionError(f"timed launches {timed_launches}")
+    if bodies["launches_per_step"] != {
+            "tensor_core": {}, "cuda_core": {"fwd": cfg.layers},
+            "tf32": {"dq": cfg.layers, "dkv": cfg.layers}}:
+        raise AssertionError(f"K4's fp32 dq and dk/dv did not run on their "
+                             f"3xTF32 bodies alone: {bodies}")
     res["step_check"] = gpt2_step_check(cfg, saved, x[:1], y[:1], seed)
     return res
 
@@ -2325,9 +2474,10 @@ def flash_bodies(prof, n: int, tag: str = "HeadMajor",
                  label: str = "k4") -> dict:
     """From a torch.profiler run of n train steps: per step, the launches
     of each body of one head-major kernel family ({"tensor_core": {fwd,
-    dq, dkv}, "cuda_core": {...}}): the tensor-core bodies under the
-    layout tag `tag`, the CUDA-core ones whose names match `cuda_core`
-    (K4 by default; K5 is tag "HeadMajorCarry" and the
+    dq, dkv}, "cuda_core": {...}}, and "tf32": {dq, dkv} where K4's
+    3xTF32 bodies ran): the tensor-core bodies under the layout tag
+    `tag`, the CUDA-core ones whose names match `cuda_core` (K4 by
+    default; K5 is tag "HeadMajorCarry" and the
     flash_bh_fwd_carry_kernel); and their device ms and share of the
     device time, keyed by `label`."""
     evs = _device_events(prof)
@@ -2336,8 +2486,12 @@ def flash_bodies(prof, n: int, tag: str = "HeadMajor",
     own_us = 0.0
     for e in evs:
         name = wgmma_name(e.key)
+        t32 = tf32_name(e.key)
         if name and name.split("<")[1].split(",")[0] == tag:
             body, kind = "tensor_core", name.split("_")[1]
+        elif t32 and tag == "HeadMajor":
+            body, kind = "tf32", "dkv" if "<true" in t32 else "dq"
+            launches.setdefault(body, {})
         else:
             m = re.search(cuda_core, e.key)
             if not m:
@@ -2570,7 +2724,7 @@ def main(argv=None) -> int:
     for k in KERNELS:
         k.function()  # load and bind
     built = {"seconds": time.monotonic() - t0, "per_source": secs,
-             "hgmma": hgmma_counts()}
+             "hgmma": hgmma_counts(), "tf32_hmma": tf32_hmma_counts()}
     log(f"build {json.dumps(built)}")
     kern = phase_kernels(card) if 2 in phases else []
     if 2 in phases:
@@ -2593,8 +2747,7 @@ def main(argv=None) -> int:
     serve = phase_serve(args.seed, card) if 4 in phases else None
     train = phase_train(args.seed, card) if 6 in phases else None
     serve8 = phase_serve_int8(args.seed, card) if 7 in phases else None
-    if 8 in phases:
-        phase_gpt2_train(args.seed, card)
+    gpt2 = phase_gpt2_train(args.seed, card) if 8 in phases else None
     if 9 in phases:
         phase_gpt2_serve(args.seed, card)
     ring = phase_ring_train(args.seed, card) if 10 in phases else None
@@ -2630,13 +2783,23 @@ def main(argv=None) -> int:
             flash.get("bfloat16", {}).get(k.name)))
     # K4 on this slice's main path: phase 11's bf16 fit, timed at its
     # attention shape (phase 2)
+    # and its fp32 bodies on phase 8's: GPT-2 XL's fit, timed at its
+    # attention shape (phase 2), under "fp32"
     for k, src in ((FLASH_ATTENTION_BH_FWD, "flash_attention_bh_fwd.cu"),
                    (FLASH_ATTENTION_BH_DQ, "flash_attention_bh_bwd.cu"),
                    (FLASH_ATTENTION_BH_DKV, "flash_attention_bh_bwd.cu")):
-        entries.append(_kernel_entry(
+        entry = _kernel_entry(
             k, f"flexflow_tpu_torch/csrc/{src}",
             train_200m["fit_launches"][k.name] if train_200m else 0,
-            k4.get("timed", {}).get("llama_200m_causal", {}).get(k.name)))
+            k4.get("timed", {}).get("llama_200m_causal", {}).get(k.name))
+        fp32 = _kernel_entry(
+            k, entry["source"],
+            gpt2["fit_launches"][k.name] if gpt2 else 0,
+            k4.get("main", {}).get("float32", {}).get(k.name))
+        entry["fp32"] = {key: val for key, val in fp32.items()
+                         if key not in ("name", "route", "source",
+                                        "replaces")}
+        entries.append(entry)
     entries.append(_kernel_entry(
         FLASH_ATTENTION_BH_FWD_CARRY,
         "flexflow_tpu_torch/csrc/flash_attention_bh_fwd.cu",

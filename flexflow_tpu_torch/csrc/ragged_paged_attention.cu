@@ -22,7 +22,7 @@
 //     float dtype than q, e.g. kv_dtype="bf16" under an fp32 model, as
 //     the TPU kernel's k.astype(q.dtype)), then to fp32; probabilities
 //     are rounded to q's dtype before the P.V product.
-//   * int8 pool: K/V are staged as int8 x scale[pt[b, j], g] in fp32 (q
+//   * int8 pool: K/V are read as int8 x scale[pt[b, j], g] in fp32 (q
 //     upcast to fp32), and p is NOT rounded before P.V (v is fp32 after
 //     dequant), as the TPU kernel's quantized branch.
 //
@@ -32,7 +32,8 @@
 // compute-bound. So each needed page is read once, no other page is read,
 // and the reads have to run at the memory's rate across enough SMs.
 //
-// The fp pools: a split page walk and a combine pass (flash-decoding).
+// Every pool (fp and int8) runs one design: a split page walk and a
+// combine pass (flash-decoding).
 //   * The grid is (kv head, split, entry). Block s walks pages
 //     s * pps .. s * pps + pps - 1 of its entry's table and serves all
 //     rep = H / Hkv query heads of its GQA group and all live window rows
@@ -54,9 +55,9 @@
 //   * A block first issues every load that needs nothing else together
 //     (the descriptor, its page ids, the q rows), then its K/V: sub-tiles
 //     of up to 64 rows (never crossing a page) staged with 16-byte
-//     cp.async copies (8 bf16/fp16 or 4 fp32 elements a thread,
-//     neighbouring threads on neighbouring addresses of one (page row,
-//     kv head) slice) into a ring of two stages, so the next sub-tile's
+//     cp.async copies (16 int8, 8 bf16/fp16 or 4 fp32 elements a
+//     thread, neighbouring threads on neighbouring addresses of one (page
+//     row, kv head) slice) into a ring of two stages, so the next sub-tile's
 //     bytes are in flight while this one's dots run. Where D x the
 //     element size is not a multiple of 16 or a pool is not 16-byte
 //     aligned, the same layout is filled element by element.
@@ -69,21 +70,23 @@
 //     bf16 pool runs both products on the tensor cores (mma.sync
 //     m16n8k16, q rows padded to 16, P rounded to bf16 in a padded
 //     shared tile, V as the transposed operand); fp32 q (exact fp32
-//     products) and pools of another dtype than q run on CUDA cores: in
+//     products), pools of another dtype than q and int8 pools (whose p
+//     stays fp32 into P.V, which bf16 tiles would round) run on CUDA
+//     cores: in
 //     the score pass a thread owns one key and reads its row 16 bytes at
 //     a time; in the P.V pass a thread owns a 16-byte column chunk of
 //     four rows over a slice of the tile's keys, the slices of one chunk
 //     neighbouring lanes summed by shuffles.
-//   * Numerics are the contract's; each split rounds p against its own
-//     running max, as any smaller tile of the online softmax does, and
-//     the combine only rescales fp32 sums: the result stays within the
-//     plain version's tolerances (bf16 2e-2, fp32 1e-5).
-//
-// The int8 pool keeps the one-block-per-(entry, kv head) body below
-// (ragged_paged_attention_kernel): 16 int8 elements a thread per 16-byte
-// load, dequantized into an fp32 K tile padded by one column. Moving it
-// onto the split walk is a later change: ragged_split_kernel is
-// templated on the pool's element for that.
+//   * An int8 pool is ragged_split_kernel<TQ, int8_t>: a (page row, kv
+//     head) slice is D bytes (128 at Llama-3-8B), half an fp pool's, and
+//     a staged 16-byte chunk is 16 elements, each dequantized as it is
+//     read (chunk_to_f: int8 x the sub-tile's scale, fp32). A sub-tile
+//     never crosses a page, so it has one K and one V scale, read with
+//     the split's page ids.
+//   * Numerics are the contract's; each split rounds p (fp pools) against
+//     its own running max, as any smaller tile of the online softmax
+//     does, and the combine only rescales fp32 sums: the result stays
+//     within the plain version's tolerances (bf16 2e-2, fp32 1e-5).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -95,7 +98,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;       // the int8 body and the combine pass
+constexpr int kThreads = 128;       // the combine pass
 constexpr int kWarps = kThreads / 32;
 constexpr int kSplitThreads = 256;  // the split walk
 constexpr int kSplitWarps = kSplitThreads / 32;
@@ -129,13 +132,15 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ---- the fp pools: split page walk + combine ------------------------------
+// ---- split page walk + combine ---------------------------------------------
 
-// everything both kernels of one fp launch read
+// everything both kernels of one launch read
 struct SplitArgs {
   const void* q;
   const void* kc;
   const void* vc;
+  const float* ks;  // int8 pools: (N, Hkv) scales of K and V; else null
+  const float* vs;
   const int32_t* pt;
   const int32_t* pos;
   const int32_t* qlens;
@@ -179,19 +184,45 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// one staged 16-byte chunk of TKV as fp32, each element converted to q's
+// one staged 16-byte chunk of TKV as fp32: an fp element converted to q's
 // type first (skipped where that is the identity: a pool of q's type, or
-// fp32 q)
+// fp32 q); an int8 element dequantized, times its page's scale `s`
 template <typename TQ, typename TKV>
 __device__ __forceinline__ void chunk_to_f(const TKV* src,
-                                           float (&f)[16 / sizeof(TKV)]) {
+                                           float (&f)[16 / sizeof(TKV)],
+                                           float s) {
   constexpr bool kExact =
       std::is_same<TQ, TKV>::value || std::is_same<TQ, float>::value;
   const uint4 w = *reinterpret_cast<const uint4*>(src);
   const TKV* x = reinterpret_cast<const TKV*>(&w);
 #pragma unroll
-  for (int e = 0; e < 16 / (int)sizeof(TKV); ++e)
-    f[e] = kExact ? to_f(x[e]) : to_f(from_f<TQ>(to_f(x[e])));
+  for (int e = 0; e < 16 / (int)sizeof(TKV); ++e) {
+    if constexpr (std::is_same<TKV, int8_t>::value)
+      f[e] = (float)x[e] * s;
+    else
+      f[e] = kExact ? to_f(x[e]) : to_f(from_f<TQ>(to_f(x[e])));
+  }
+}
+
+// column group y of a staged row (swizzle `swz` = the row's c & sw) as
+// fp32, for the CUDA-core P.V pass: a whole 16-byte chunk (PVE = the
+// chunk's elements), or over an int8 pool a 4-byte quarter of one (PVE =
+// 4), so a group's partial sums stay few enough to shuffle
+template <typename TQ, typename TKV, int PVE>
+__device__ __forceinline__ void group_to_f(const TKV* row, int y, int swz,
+                                           float (&f)[PVE], float s) {
+  constexpr int EPC = 16 / sizeof(TKV);
+  if constexpr (PVE == EPC) {
+    chunk_to_f<TQ>(row + (y ^ swz) * EPC, f, s);
+  } else {
+    static_assert(std::is_same<TKV, int8_t>::value && PVE == 4, "");
+    const int x = y / (EPC / PVE), sub = y - x * (EPC / PVE);
+    const uint32_t w =
+        *reinterpret_cast<const uint32_t*>(row + (x ^ swz) * EPC + sub * 4);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&w);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[e] = (float)b[e] * s;
+  }
 }
 
 // ---- tensor-core tiles (mma.sync m16n8k16, bf16 in, fp32 accumulate) -----
@@ -236,13 +267,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
 // bytes of dynamic shared memory of a split block: the K/V stages, then q
 // (fp32, or bf16 for the tensor-core tiles), acc, the bf16 P tile of the
 // tensor-core tiles (rows padded by 16 bytes), scores, (m, l, corr), the
-// split's page ids
+// split's page ids and their K and V scales (int8 pools)
 size_t split_smem(int rows, int ldk, int kt, int esz, int stages, bool mma,
                   int pps) {
   return (size_t)stages * 2 * kt * ldk * esz +
          (size_t)rows * ldk * (mma ? 2 : 4) + (size_t)rows * ldk * 4 +
          (mma ? (size_t)rows * (kt + 8) * 2 : 0) + (size_t)rows * kt * 4 +
-         (size_t)3 * rows * 4 + (size_t)pps * 4;
+         (size_t)3 * rows * 4 + (size_t)pps * 12;
 }
 
 template <typename TQ, typename TKV>
@@ -251,8 +282,13 @@ ragged_split_kernel(const SplitArgs a) {
   constexpr int EPC = 16 / sizeof(TKV);  // elements a 16-byte chunk
   constexpr bool kMmaTypes = std::is_same<TQ, __nv_bfloat16>::value &&
                              std::is_same<TKV, __nv_bfloat16>::value;
-  using Bits = typename std::conditional<sizeof(TKV) == 4, uint32_t,
-                                         uint16_t>::type;
+  // p is rounded to q's dtype before P.V, except over an int8 pool
+  constexpr bool kRoundP = !std::is_same<TKV, int8_t>::value;
+  constexpr int PVE = kRoundP ? EPC : 4;  // elements a CUDA-core P.V item
+  using Bits = typename std::conditional<
+      sizeof(TKV) == 4, uint32_t,
+      typename std::conditional<sizeof(TKV) == 2, uint16_t,
+                                uint8_t>::type>::type;
   // kv head fastest: the blocks that read the Hkv slices of one page's
   // rows are dispatched together
   const int g = blockIdx.x, s = blockIdx.y, b = blockIdx.z;
@@ -283,14 +319,23 @@ ragged_split_kernel(const SplitArgs a) {
   float* sl = sm + rows;                      // (rows) running denominator
   float* scorr = sl + rows;                   // (rows) this tile's rescale
   int* spt = reinterpret_cast<int*>(scorr + rows);  // (pps) page ids
+  float* sks = reinterpret_cast<float*>(spt + a.pps);  // (pps) K scales
+  float* svs = sks + a.pps;                            // (pps) V scales
 
   // The loads that need nothing else are issued together: the entry's
-  // descriptor, the split's page ids, and q's rows r = t * rep + hl for
-  // every window row t (zeros past D; the live rows, t < q_len, are the
-  // first R). acc 0, (m, l) = (-1e30, 0).
+  // descriptor, the split's page ids (and an int8 pool's scales of those
+  // pages), and q's rows r = t * rep + hl for every window row t (zeros
+  // past D; the live rows, t < q_len, are the first R). acc 0, (m, l) =
+  // (-1e30, 0).
   const int qlen = a.qlens[b], p0 = a.pos[b];
-  for (int i = tid; i < a.pps; i += kSplitThreads)
-    spt[i] = j0 + i < a.maxp ? a.pt[b * a.maxp + j0 + i] : 0;
+  for (int i = tid; i < a.pps; i += kSplitThreads) {
+    const int page = j0 + i < a.maxp ? a.pt[b * a.maxp + j0 + i] : 0;
+    spt[i] = page;
+    if constexpr (!kRoundP) {
+      sks[i] = a.ks[(size_t)page * a.Hkv + g];
+      svs[i] = a.vs[(size_t)page * a.Hkv + g];
+    }
+  }
   const TQ* q = static_cast<const TQ*>(a.q);
   const int rmax = rep * a.S;
   for (int i = tid; i < rows * ldk; i += kSplitThreads) {
@@ -364,11 +409,12 @@ ragged_split_kernel(const SplitArgs a) {
   };
 
   const int nrp = kSplitThreads / kt;  // row phases of the score pass
-  // the CUDA-core P.V pass: row blocks of 4, key slices nks
-  const int nrb = (R + 3) / 4;
+  // the CUDA-core P.V pass: row blocks of 4, column groups of PVE, key
+  // slices nks
+  const int nrb = (R + 3) / 4, ngr = ldk / PVE;
   int nks = 1;
-  while (nks < 32 && 2 * nks * nrb * nch <= kSplitThreads) nks *= 2;
-  const int items = nks * nrb * nch;
+  while (nks < 32 && 2 * nks * nrb * ngr <= kSplitThreads) nks *= 2;
+  const int items = nks * nrb * ngr;
   const int mts = (R + 15) / 16;  // the tensor-core tiles' 16-row blocks
   load(0, 0);
   cp_async_commit();
@@ -387,6 +433,9 @@ ragged_split_kernel(const SplitArgs a) {
     const int n = min(kt, min(P - c0, horizon - base));
     const TKV* tk = skv + (size_t)slot * 2 * kt * ldk;
     const TKV* tv = tk + (size_t)kt * ldk;
+    // an int8 pool's scales of this sub-tile's page (unused otherwise)
+    const float k_s = kRoundP ? 1.f : sks[i / tpp];
+    const float v_s = kRoundP ? 1.f : svs[i / tpp];
     // score of row r, key c: fp32 dot times scale where visible, -inf
     // where not (it adds nothing)
     auto put_score = [&](int r, int c, float dot) {
@@ -441,7 +490,7 @@ ragged_split_kernel(const SplitArgs a) {
 #pragma unroll 2
           for (int x = 0; x < nch; ++x) {
             float kf[EPC];
-            chunk_to_f<TQ>(krow + (x ^ (c & sw)) * EPC, kf);
+            chunk_to_f<TQ>(krow + (x ^ (c & sw)) * EPC, kf, k_s);
 #pragma unroll
             for (int u = 0; u < 4; ++u) {
               const int r = rb + u * nrp;
@@ -477,8 +526,8 @@ ragged_split_kernel(const SplitArgs a) {
     __syncthreads();
 
     // online softmax update, one warp per row; p rounded to q's dtype
-    // before P.V (into the bf16 P tile for the tensor cores, zeros past
-    // the tile's n keys)
+    // before P.V over an fp pool (into the bf16 P tile for the tensor
+    // cores, zeros past the tile's n keys), kept fp32 over an int8 pool
     for (int r = warp; r < R; r += kSplitWarps) {
       float* pr = sp + r * kt;
       float mx = kNegInf;
@@ -494,7 +543,7 @@ ragged_split_kernel(const SplitArgs a) {
         if (mma)
           spb[r * lp + c] = __float2bfloat16(p);
         else if (c < n)
-          pr[c] = to_f(from_f<TQ>(p));
+          pr[c] = kRoundP ? to_f(from_f<TQ>(p)) : p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -538,30 +587,30 @@ ragged_split_kernel(const SplitArgs a) {
     }
     if (!mma) {
       // acc = acc * corr + P.V on CUDA cores: item (key slice ks,
-      // 16-byte column chunk x, rows 4 rb .. 4 rb + 3) sums keys ks,
-      // ks + nks, .. of the tile; the nks slices of one (x, rb) are
+      // column group y of PVE elements, rows 4 rb .. 4 rb + 3) sums keys
+      // ks, ks + nks, .. of the tile; the nks slices of one (y, rb) are
       // neighbouring lanes of a warp and are summed by shuffles (nks a
       // power of two up to 32, as many as leave no thread idle)
       for (int it0 = 0; it0 < items; it0 += kSplitThreads) {
         const int it = it0 + tid;
-        const int ks = it & (nks - 1), x = (it / nks) % nch;
-        const int rb = it / (nks * nch);
-        float av[4][EPC];
+        const int ks = it & (nks - 1), y = (it / nks) % ngr;
+        const int rb = it / (nks * ngr);
+        float av[4][PVE];
 #pragma unroll
         for (int u = 0; u < 4; ++u)
 #pragma unroll
-          for (int e = 0; e < EPC; ++e) av[u][e] = 0.f;
+          for (int e = 0; e < PVE; ++e) av[u][e] = 0.f;
         if (it < items) {
           for (int c = ks; c < n; c += nks) {
-            float vf[EPC];
-            chunk_to_f<TQ>(tv + c * ldk + (x ^ (c & sw)) * EPC, vf);
+            float vf[PVE];
+            group_to_f<TQ, TKV, PVE>(tv + c * ldk, y, c & sw, vf, v_s);
 #pragma unroll
             for (int u = 0; u < 4; ++u) {
               const int r = 4 * rb + u;
               if (r < R) {
                 const float p = sp[r * kt + c];
 #pragma unroll
-                for (int e = 0; e < EPC; ++e)
+                for (int e = 0; e < PVE; ++e)
                   av[u][e] = fmaf(p, vf[e], av[u][e]);
               }
             }
@@ -572,7 +621,7 @@ ragged_split_kernel(const SplitArgs a) {
           for (int u = 0; u < 4; ++u)
             if (u < R) {  // uniform: rows a block of fewer than 4 lacks
 #pragma unroll
-              for (int e = 0; e < EPC; ++e)
+              for (int e = 0; e < PVE; ++e)
                 av[u][e] += __shfl_xor_sync(0xffffffffu, av[u][e], o);
             }
         if (it < items && ks == 0) {
@@ -581,9 +630,9 @@ ragged_split_kernel(const SplitArgs a) {
             const int r = 4 * rb + u;
             if (r >= R) break;
             const float corr = scorr[r];
-            float4* ar = reinterpret_cast<float4*>(sacc + r * ldk + x * EPC);
+            float4* ar = reinterpret_cast<float4*>(sacc + r * ldk + y * PVE);
 #pragma unroll
-            for (int e4 = 0; e4 < EPC / 4; ++e4) {
+            for (int e4 = 0; e4 < PVE / 4; ++e4) {
               const float4 o = ar[e4];
               ar[e4] = make_float4(fmaf(o.x, corr, av[u][4 * e4]),
                                    fmaf(o.y, corr, av[u][4 * e4 + 1]),
@@ -753,228 +802,11 @@ int launch_split(SplitArgs a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename TQ>
-int launch_split_fp(const SplitArgs& a, int kv_dtype, cudaStream_t st) {
-  if (kv_dtype == 0) return launch_split<TQ, float>(a, st);
-  if (kv_dtype == 1) return launch_split<TQ, __nv_bfloat16>(a, st);
-  if (kv_dtype == 2) return launch_split<TQ, __half>(a, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-// ---- the int8 pool: one block per (entry, kv head) ------------------------
-
-size_t smem_floats(int rmax, int D, int kt) {
-  // q rows + acc rows, K tile (padded) + V tile, scores, (m, l, corr)
-  return 2 * (size_t)rmax * D + (size_t)kt * (2 * D + 1) +
-         (size_t)rmax * kt + 3 * (size_t)rmax;
-}
-
-// TQ: q and out; the pool is int8 with the ks/vs scale arrays.
-template <typename TQ>
-__global__ void __launch_bounds__(kThreads)
-ragged_paged_attention_kernel(const TQ* __restrict__ q,
-                              const int8_t* __restrict__ kc,
-                              const int8_t* __restrict__ vc,
-                              const float* __restrict__ ks,
-                              const float* __restrict__ vs,
-                              const int32_t* __restrict__ pt,
-                              const int32_t* __restrict__ pos,
-                              const int32_t* __restrict__ qlens,
-                              const uint8_t* __restrict__ anc,
-                              TQ* __restrict__ out, int S, int H, int Hkv,
-                              int D, int P, int maxp, int kt, float scale) {
-  const int b = blockIdx.x;
-  const int g = blockIdx.y;
-  const int rep = H / Hkv;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int qlen = qlens[b];
-  const int p0 = pos[b];
-  const int rmax = rep * S;
-  // live rows of this group: r = hl * qlen + t for q head g * rep + hl
-  // and window row t < qlen; rows t >= qlen are never computed
-  const int R = rep * qlen;
-
-  extern __shared__ float smem[];
-  float* sq = smem;                  // (rmax, D) query rows, fp32
-  float* sacc = sq + rmax * D;       // (rmax, D) running P.V sums
-  float* sk = sacc + rmax * D;       // (kt, D + 1) K tile, padded
-  float* sv = sk + kt * (D + 1);     // (kt, D) V tile
-  float* sp = sv + kt * D;           // (rmax, kt) scores -> probabilities
-  float* sm = sp + rmax * kt;        // (rmax) running max
-  float* sl = sm + rmax;             // (rmax) running denominator
-  float* scorr = sl + rmax;          // (rmax) this tile's rescale factor
-
-  for (int i = tid; i < R * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    const int hl = r / qlen, t = r - hl * qlen;
-    sq[i] = to_f(q[((size_t)(b * S + t) * H + g * rep + hl) * D + d]);
-    sacc[i] = 0.f;
-  }
-  for (int r = tid; r < R; r += kThreads) {
-    sm[r] = kNegInf;
-    sl[r] = 0.f;
-  }
-  __syncthreads();
-
-  // cache rows at or past the horizon are visible to no row
-  const int horizon = p0 + qlen;
-  const int npages = qlen > 0 ? min(maxp, (horizon - 1) / P + 1) : 0;
-  for (int j = 0; j < npages; ++j) {
-    const int page = pt[b * maxp + j];
-    for (int c0 = 0; c0 < P; c0 += kt) {
-      const int base = j * P + c0;  // cache row of tile column 0
-      if (base >= horizon) break;
-      const int n = min(kt, min(P - c0, horizon - base));
-      const size_t row0 = ((size_t)(page * P + c0) * Hkv + g) * D;
-      const size_t stride = (size_t)Hkv * D;  // between cache rows
-      const float k_s = ks[(size_t)page * Hkv + g];
-      const float v_s = vs[(size_t)page * Hkv + g];
-      if ((D & 15) == 0) {
-        // 16 int8 elements a thread, one 16-byte load per K and V
-        const int nvec = D >> 4;
-        for (int i = tid; i < n * nvec; i += kThreads) {
-          const int c = i / nvec, d0 = (i - c * nvec) << 4;
-          const size_t off = row0 + c * stride + d0;
-          const int4 kw = *reinterpret_cast<const int4*>(kc + off);
-          const int4 vw = *reinterpret_cast<const int4*>(vc + off);
-          const int8_t* kb = reinterpret_cast<const int8_t*>(&kw);
-          const int8_t* vb = reinterpret_cast<const int8_t*>(&vw);
-#pragma unroll
-          for (int e = 0; e < 16; ++e) {
-            sk[c * (D + 1) + d0 + e] = (float)kb[e] * k_s;
-            sv[c * D + d0 + e] = (float)vb[e] * v_s;
-          }
-        }
-      } else {
-        for (int i = tid; i < n * D; i += kThreads) {
-          const int c = i / D, d = i - c * D;
-          const size_t off = row0 + c * stride + d;
-          sk[c * (D + 1) + d] = (float)kc[off] * k_s;
-          sv[c * D + d] = (float)vc[off] * v_s;
-        }
-      }
-      __syncthreads();
-
-      // scores; an invisible column scores -inf and adds nothing below
-      for (int i = tid; i < R * n; i += kThreads) {
-        const int r = i / n, c = i - r * n;
-        const int t = r % qlen;
-        const int kpos = base + c;
-        const int rel = kpos - p0;
-        const bool vis =
-            kpos < p0 ||
-            (rel >= 0 && rel < qlen && anc[((size_t)b * S + t) * S + rel]);
-        float s = -INFINITY;
-        if (vis) {
-          const float* qr = sq + r * D;
-          const float* kr = sk + c * (D + 1);
-          float acc = 0.f;
-          for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-          s = acc * scale;
-        }
-        sp[r * kt + c] = s;
-      }
-      __syncthreads();
-
-      // online softmax update, one warp per row; v is fp32 after dequant,
-      // so p is not rounded
-      for (int r = warp; r < R; r += kWarps) {
-        float* pr = sp + r * kt;
-        float mx = kNegInf;
-        for (int c = lane; c < n; c += 32) mx = fmaxf(mx, pr[c]);
-        mx = warp_max(mx);
-        const float m_prev = sm[r];
-        const float m_new = fmaxf(m_prev, mx);
-        float sum = 0.f;
-        for (int c = lane; c < n; c += 32) {
-          const float s = pr[c];
-          const float p = s == -INFINITY ? 0.f : expf(s - m_new);
-          sum += p;
-          pr[c] = p;
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) {
-          const float corr = expf(m_prev - m_new);
-          scorr[r] = corr;
-          sl[r] = sl[r] * corr + sum;
-          sm[r] = m_new;
-        }
-      }
-      __syncthreads();
-
-      for (int i = tid; i < R * D; i += kThreads) {
-        const int r = i / D, d = i - r * D;
-        const float* pr = sp + r * kt;
-        float a = sacc[i] * scorr[r];
-        for (int c = 0; c < n; ++c) a = fmaf(pr[c], sv[c * D + d], a);
-        sacc[i] = a;
-      }
-      __syncthreads();
-    }
-  }
-
-  // every row of the group is written: live rows normalized, rows past
-  // q_len (and every row of a padded entry) exact zeros
-  for (int i = tid; i < rmax * D; i += kThreads) {
-    const int d = i % D;
-    const int rest = i / D;
-    const int hl = rest % rep;
-    const int t = rest / rep;
-    float val = 0.f;
-    if (t < qlen) {
-      const int r = hl * qlen + t;
-      val = sacc[r * D + d] / fmaxf(sl[r], 1e-30f);
-    }
-    out[((size_t)(b * S + t) * H + g * rep + hl) * D + d] = from_f<TQ>(val);
-  }
-}
-
-template <typename TQ>
-int launch_int8(const void* q, const void* kc, const void* vc,
-                const float* ks, const float* vs, const void* pt,
-                const void* pos, const void* qlens, const void* anc,
-                void* out, int B, int S, int H, int Hkv, int D, int P,
-                int maxp, float scale, cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || P <= 0 ||
-      maxp <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int rmax = (H / Hkv) * S;
-  int kt = P < kMaxTileRows ? P : kMaxTileRows;
-  while (kt > 8 && smem_floats(rmax, D, kt) * sizeof(float) > kMaxSmemBytes)
-    kt = (kt + 1) / 2;
-  const size_t smem = smem_floats(rmax, D, kt) * sizeof(float);
-  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  auto kernel = ragged_paged_attention_kernel<TQ>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(B, Hkv), kThreads, smem, stream>>>(
-      (const TQ*)q, (const int8_t*)kc, (const int8_t*)vc, ks, vs,
-      (const int32_t*)pt, (const int32_t*)pos, (const int32_t*)qlens,
-      (const uint8_t*)anc, (TQ*)out, S, H, Hkv, D, P, maxp, kt, scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" {
-
-// The fp pools. q_dtype: 0 = float32, 1 = bfloat16 (q and out);
-// kv_dtype: 0 = float32, 1 = bfloat16, 2 = float16 (the pools). ws_acc
-// (B * nsplit * S * H * D), ws_m and ws_l (B * nsplit * S * H): fp32
-// workspace of the partials; pps pages a split, nsplit = ceil(maxp / pps)
-// splits (ragged_split_plan). Returns a cudaError_t:
-// cudaErrorInvalidValue for shapes or dtypes the kernels do not take,
-// otherwise the launches' cudaGetLastError().
-int ff_ragged_paged_attention(const void* q, const void* kc, const void* vc,
-                              const void* pt, const void* pos,
-                              const void* qlens, const void* anc, void* out,
-                              void* ws_acc, void* ws_m, void* ws_l, int B,
-                              int S, int H, int Hkv, int D, int P, int maxp,
-                              int pps, int nsplit, float scale, int q_dtype,
-                              int kv_dtype, void* stream) {
+SplitArgs split_args(const void* q, const void* kc, const void* vc,
+                     const void* pt, const void* pos, const void* qlens,
+                     const void* anc, void* out, void* ws_acc, void* ws_m,
+                     void* ws_l, int B, int S, int H, int Hkv, int D, int P,
+                     int maxp, int pps, int nsplit, float scale) {
   SplitArgs a{};
   a.q = q;
   a.kc = kc;
@@ -1000,34 +832,61 @@ int ff_ragged_paged_attention(const void* q, const void* kc, const void* vc,
   // 16-byte copies need 16-byte aligned pools (and whole chunks a row,
   // checked by the launcher); other pools load element by element
   a.vec = (((uintptr_t)kc | (uintptr_t)vc) & 15) == 0;
+  return a;
+}
+
+template <typename TQ>
+int launch_split_fp(const SplitArgs& a, int kv_dtype, cudaStream_t st) {
+  if (kv_dtype == 0) return launch_split<TQ, float>(a, st);
+  if (kv_dtype == 1) return launch_split<TQ, __nv_bfloat16>(a, st);
+  if (kv_dtype == 2) return launch_split<TQ, __half>(a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The fp pools. q_dtype: 0 = float32, 1 = bfloat16 (q and out);
+// kv_dtype: 0 = float32, 1 = bfloat16, 2 = float16 (the pools). ws_acc
+// (B * nsplit * S * H * D), ws_m and ws_l (B * nsplit * S * H): fp32
+// workspace of the partials; pps pages a split, nsplit = ceil(maxp / pps)
+// splits (ragged_split_plan). Returns a cudaError_t:
+// cudaErrorInvalidValue for shapes or dtypes the kernels do not take,
+// otherwise the launches' cudaGetLastError().
+int ff_ragged_paged_attention(const void* q, const void* kc, const void* vc,
+                              const void* pt, const void* pos,
+                              const void* qlens, const void* anc, void* out,
+                              void* ws_acc, void* ws_m, void* ws_l, int B,
+                              int S, int H, int Hkv, int D, int P, int maxp,
+                              int pps, int nsplit, float scale, int q_dtype,
+                              int kv_dtype, void* stream) {
+  const SplitArgs a = split_args(q, kc, vc, pt, pos, qlens, anc, out, ws_acc,
+                                 ws_m, ws_l, B, S, H, Hkv, D, P, maxp, pps,
+                                 nsplit, scale);
   cudaStream_t st = (cudaStream_t)stream;
   if (q_dtype == 0) return launch_split_fp<float>(a, kv_dtype, st);
   if (q_dtype == 1) return launch_split_fp<__nv_bfloat16>(a, kv_dtype, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// The int8 pool: kc/vc int8 (N, P, Hkv, D), ks/vs fp32 (N, Hkv) scales.
-// q_dtype as above. The 16-byte loads need D % 16 == 0 and 16-byte
-// aligned pools (checked here); other head dims load element by element.
-int ff_ragged_paged_attention_quant(const void* q, const void* kc,
-                                    const void* vc, const void* ks,
-                                    const void* vs, const void* pt,
-                                    const void* pos, const void* qlens,
-                                    const void* anc, void* out, int B, int S,
-                                    int H, int Hkv, int D, int P, int maxp,
-                                    float scale, int q_dtype, void* stream) {
-  if ((D & 15) == 0 &&
-      (((uintptr_t)kc | (uintptr_t)vc) & 15) != 0)
-    return (int)cudaErrorInvalidValue;
+// The int8 pool: kc/vc int8 (N, P, Hkv, D), ks/vs fp32 (N, Hkv) scales;
+// the other arguments as above. The split walk of ragged_split_kernel<TQ,
+// int8_t> and the same combine pass.
+int ff_ragged_paged_attention_quant(
+    const void* q, const void* kc, const void* vc, const void* ks,
+    const void* vs, const void* pt, const void* pos, const void* qlens,
+    const void* anc, void* out, void* ws_acc, void* ws_m, void* ws_l, int B,
+    int S, int H, int Hkv, int D, int P, int maxp, int pps, int nsplit,
+    float scale, int q_dtype, void* stream) {
+  SplitArgs a = split_args(q, kc, vc, pt, pos, qlens, anc, out, ws_acc, ws_m,
+                           ws_l, B, S, H, Hkv, D, P, maxp, pps, nsplit,
+                           scale);
+  a.ks = (const float*)ks;
+  a.vs = (const float*)vs;
   cudaStream_t st = (cudaStream_t)stream;
-  if (q_dtype == 0)
-    return launch_int8<float>(q, kc, vc, (const float*)ks, (const float*)vs,
-                              pt, pos, qlens, anc, out, B, S, H, Hkv, D, P,
-                              maxp, scale, st);
-  if (q_dtype == 1)
-    return launch_int8<__nv_bfloat16>(
-        q, kc, vc, (const float*)ks, (const float*)vs, pt, pos, qlens, anc,
-        out, B, S, H, Hkv, D, P, maxp, scale, st);
+  if (q_dtype == 0) return launch_split<float, int8_t>(a, st);
+  if (q_dtype == 1) return launch_split<__nv_bfloat16, int8_t>(a, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -148,7 +148,7 @@ RAGGED_PAGED_ATTENTION_INT8 = CudaKernel(
     name="ragged_paged_attention_int8",
     source="ragged_paged_attention.cu",
     symbol="ff_ragged_paged_attention_quant",
-    argtypes=[_VOID_P] * 10 + [_INT] * 7 + [ctypes.c_float, _INT, _VOID_P],
+    argtypes=[_VOID_P] * 13 + [_INT] * 9 + [ctypes.c_float, _INT, _VOID_P],
     replaces="flexflow_tpu/paged/attention.py:293",
 )
 
@@ -252,36 +252,49 @@ def launch_ragged_paged_attention(q, kc, vc, page_tables, pos, q_lens, anc,
     splits' partials (acc, m, l). The caller
     (paged.attention.ragged_flash_attention) has validated devices,
     dtypes, shapes and contiguity."""
-    B, S, H, D = q.shape
-    _, P, Hkv, _ = kc.shape
-    pps, nsplit = plan
-    rows = B * nsplit * S * H
-    ws = torch.empty(rows * (D + 2), dtype=torch.float32, device=q.device)
-    acc = ws.data_ptr()
-    m = acc + rows * D * ws.element_size()
-    l = m + rows * ws.element_size()
+    ws, partials = _split_workspace(q, plan)
     _launch(RAGGED_PAGED_ATTENTION, q.device, q.data_ptr(), kc.data_ptr(),
             vc.data_ptr(), page_tables.data_ptr(), pos.data_ptr(),
-            q_lens.data_ptr(), anc.data_ptr(), out.data_ptr(), acc, m, l, B,
-            S, H, Hkv, D, P, page_tables.shape[1], pps, nsplit, float(scale),
-            KERNEL_DTYPES[q.dtype], KV_KERNEL_DTYPES[kc.dtype])
+            q_lens.data_ptr(), anc.data_ptr(), out.data_ptr(), *partials,
+            *_split_shapes(q, kc, page_tables),
+            *plan, float(scale), KERNEL_DTYPES[q.dtype],
+            KV_KERNEL_DTYPES[kc.dtype])
     return out
 
 
 def launch_ragged_paged_attention_int8(q, kc, vc, k_scales, v_scales,
                                        page_tables, pos, q_lens, anc, out,
-                                       scale: float):
-    """Launch the int8-pool ragged paged-attention kernel: int8 pages
-    dequantized on load with their (N, Hkv) fp32 scales. Validated by the
-    caller as above."""
-    B, S, H, D = q.shape
-    _, P, Hkv, _ = kc.shape
+                                       scale: float, plan):
+    """Launch the int8-pool ragged paged-attention kernels: the same split
+    page walk and combine, int8 pages dequantized on load with their
+    (N, Hkv) fp32 scales. Validated by the caller as above."""
+    ws, partials = _split_workspace(q, plan)
     _launch(RAGGED_PAGED_ATTENTION_INT8, q.device, q.data_ptr(),
             kc.data_ptr(), vc.data_ptr(), k_scales.data_ptr(),
             v_scales.data_ptr(), page_tables.data_ptr(), pos.data_ptr(),
-            q_lens.data_ptr(), anc.data_ptr(), out.data_ptr(), B, S, H, Hkv,
-            D, P, page_tables.shape[1], float(scale), KERNEL_DTYPES[q.dtype])
+            q_lens.data_ptr(), anc.data_ptr(), out.data_ptr(), *partials,
+            *_split_shapes(q, kc, page_tables),
+            *plan, float(scale), KERNEL_DTYPES[q.dtype])
     return out
+
+
+def _split_workspace(q, plan):
+    """A fresh fp32 workspace of the splits' partials and the (acc, m, l)
+    pointers into it: (B, nsplit, S, H, D) acc, (B, nsplit, S, H) m and
+    l. The caller holds the tensor until the launch is enqueued."""
+    B, S, H, D = q.shape
+    rows = B * plan[1] * S * H
+    ws = torch.empty(rows * (D + 2), dtype=torch.float32, device=q.device)
+    acc = ws.data_ptr()
+    m = acc + rows * D * ws.element_size()
+    return ws, (acc, m, m + rows * ws.element_size())
+
+
+def _split_shapes(q, kc, page_tables):
+    """B, S, H, Hkv, D, P, maxp as the ragged entry points take them."""
+    B, S, H, D = q.shape
+    _, P, Hkv, _ = kc.shape
+    return B, S, H, Hkv, D, P, page_tables.shape[1]
 
 
 def launch_flash_attention_fwd(q, k, v, out, lse, causal: bool,

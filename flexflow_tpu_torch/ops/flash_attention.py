@@ -19,9 +19,11 @@ q (B, S, H, D) and k/v (B, T, Hkv, D) with H % Hkv == 0, and returns
   zero-pads D to 128 lanes; that is TPU tiling, and K4 takes D as it is.
   K4 in bf16 at D 64 (GPT-2's and bench.py's 200m Llama's heads), 128
   and 256 runs on the tensor cores, through the bodies K1/K2 run
-  (csrc/flash_wgmma_fwd.cuh, csrc/flash_wgmma_bwd.cuh); fp32 and the
-  other widths run K4's CUDA-core bodies. Which body runs is the C
-  entry's choice by dtype and D; the route here is by D alone.
+  (csrc/flash_wgmma_fwd.cuh, csrc/flash_wgmma_bwd.cuh), and its fp32
+  dq and dk/dv at those widths on them too, in 3xTF32 (the arithmetic
+  `einsum_3xtf32` emulates); the fp32 forward and the other widths run
+  K4's CUDA-core bodies. Which body runs is the C entry's choice by
+  dtype and D; the route here is by D alone.
 
 The ring's step kernel K5 (`flash_bh_fwd_carry`, the reference's
 `_fwd_carry`) sits beside K4: it folds one head-major k/v block into
@@ -139,10 +141,30 @@ def flash_delta(dout, out):
 # K4: the head-major contracts on (BH, S, D) q and (BH, T, D) k/v
 
 
-def _bh_scores(q, k, causal, scale):
+def tf32_round(x):
+    """fp32 x rounded to tf32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32: add half of the dropped 13 bits'
+    weight to the bit pattern, then clear them."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def einsum_3xtf32(eq: str, a, b):
+    """The fp32 products of K4's fp32 backward on the card (3xTF32): each
+    operand split as hi = tf32(x), lo = tf32(x - hi), and a . b summed as
+    a_lo . b_hi + a_hi . b_lo + a_hi . b_hi in fp32 (lo . lo dropped). A
+    plain emulation for checking the numerics against the reference."""
+    a, b = a.float(), b.float()
+    ah, bh = tf32_round(a), tf32_round(b)
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def _bh_scores(q, k, causal, scale, einsum=torch.einsum):
     """fp32 (BH, S, T) scores times `scale`, -1e30 where the top-left
     causal mask hides a key."""
-    s = torch.einsum("bsd,btd->bst", q.float(), k.float()) * scale
+    s = einsum("bsd,btd->bst", q.float(), k.float()) * scale
     if causal:
         visible = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
                              device=q.device).tril()
@@ -180,32 +202,36 @@ def flash_bh_fwd_carry_reference(q, k, v, m, l, acc, causal: bool,
     return m_new, l_new, acc * corr[..., None] + pv
 
 
-def _bh_backward_terms(q, k, v, dout, lse, delta, causal, scale):
+def _bh_backward_terms(q, k, v, dout, lse, delta, causal, scale,
+                       einsum=torch.einsum):
     """p = exp(s - lse) and ds = p * (dp - delta) * scale, fp32 (BH, S,
     T), from the lse and delta the caller gives."""
-    p = torch.exp(_bh_scores(q, k, causal, scale) - lse[..., None])
-    dp = torch.einsum("bsd,btd->bst", dout.float(), v.float())
+    p = torch.exp(_bh_scores(q, k, causal, scale, einsum) - lse[..., None])
+    dp = einsum("bsd,btd->bst", dout.float(), v.float())
     return p, p * (dp - delta[..., None]) * scale
 
 
 def flash_bh_dq_reference(q, k, v, dout, lse, delta, causal: bool,
-                          scale: float):
+                          scale: float, *, einsum=torch.einsum):
     """The plain version of K4's dq kernel (`_dq_kernel`): dq = ds
-    (rounded to k's dtype) . k, summed in fp32, in q's dtype."""
-    _, ds = _bh_backward_terms(q, k, v, dout, lse, delta, causal, scale)
-    dq = torch.einsum("bst,btd->bsd", ds.to(k.dtype).float(), k.float())
+    (rounded to k's dtype) . k, summed in fp32, in q's dtype. `einsum`
+    computes every product (einsum_3xtf32 emulates the fp32 card body's
+    arithmetic)."""
+    _, ds = _bh_backward_terms(q, k, v, dout, lse, delta, causal, scale,
+                               einsum)
+    dq = einsum("bst,btd->bsd", ds.to(k.dtype).float(), k.float())
     return dq.to(q.dtype)
 
 
 def flash_bh_dkv_reference(q, k, v, dout, lse, delta, causal: bool,
-                           scale: float):
+                           scale: float, *, einsum=torch.einsum):
     """The plain version of K4's dk/dv kernel (`_dkv_kernel`): dk = ds
     (rounded to q's dtype) . q and dv = p (rounded to dO's dtype) . dO,
-    summed in fp32 over the queries, at BH heads."""
-    p, ds = _bh_backward_terms(q, k, v, dout, lse, delta, causal, scale)
-    dk = torch.einsum("bst,bsd->btd", ds.to(q.dtype).float(), q.float())
-    dv = torch.einsum("bst,bsd->btd", p.to(dout.dtype).float(),
-                      dout.float())
+    summed in fp32 over the queries, at BH heads; `einsum` as for dq."""
+    p, ds = _bh_backward_terms(q, k, v, dout, lse, delta, causal, scale,
+                               einsum)
+    dk = einsum("bst,bsd->btd", ds.to(q.dtype).float(), q.float())
+    dv = einsum("bst,bsd->btd", p.to(dout.dtype).float(), dout.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 

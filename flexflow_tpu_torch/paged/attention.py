@@ -15,13 +15,13 @@ descriptor:
                         triangular; decode: ones((1, 1))).
 
 `ragged_flash_attention` is the kernel wrapper: on CUDA tensors it
-launches a hand-written Hopper kernel (csrc/ragged_paged_attention.cu:
-the fp-pool kernel, whose pool may have another float dtype than q, a
-page walk split by `ragged_split_plan` plus a combine pass, or the int8
-kernel that dequantizes pages with their per-(page, head) scales,
-paged/quant.py) or raises; on CPU tensors it runs the plain PyTorch
-version of the same contract, `ragged_gather_attention`. There is no
-other path and no switch.
+launches a hand-written Hopper kernel (csrc/ragged_paged_attention.cu: a
+page walk split by `ragged_split_plan` plus a combine pass, for an fp
+pool, whose dtype may differ from q's, or for an int8 pool, whose pages
+it dequantizes with their per-(page, head) scales, paged/quant.py) or
+raises; on CPU tensors it runs the plain PyTorch version of the same
+contract, `ragged_gather_attention`. There is no other path and no
+switch.
 """
 
 from __future__ import annotations
@@ -87,11 +87,11 @@ def ragged_gather_attention(q, kc_pages, vc_pages, page_tables, pos,
     return out * live[:, :, None, None].to(out.dtype)
 
 
-# The fp-pool kernel's split plan: a split walks at least SPLIT_MIN_ROWS
-# cache rows, and at least SPLIT_ROWS_PER_Q_ROW per query row of its GQA
-# group (rep x window), so a partial's fp32 write stays small beside the
-# K/V it read; and no more splits than fill the card SPLIT_WAVES times
-# over when an entry's whole table is live.
+# The kernels' split plan (fp and int8 pools): a split walks at least
+# SPLIT_MIN_ROWS cache rows, and at least SPLIT_ROWS_PER_Q_ROW per query
+# row of its GQA group (rep x window), so a partial's fp32 write stays
+# small beside the K/V it read; and no more splits than fill the card
+# SPLIT_WAVES times over when an entry's whole table is live.
 SPLIT_MIN_ROWS = 128
 SPLIT_ROWS_PER_Q_ROW = 16
 SPLIT_WAVES = 4
@@ -104,8 +104,8 @@ class SplitPlan(NamedTuple):
 
 def ragged_split_plan(B: int, S: int, H: int, Hkv: int, P: int, maxp: int,
                       sm_count: int) -> SplitPlan:
-    """How the fp-pool kernel splits each entry's page walk: split s of
-    an (entry, kv head) walks pages s * pages_per_split .. of its table,
+    """How the kernels split each entry's page walk: split s of an
+    (entry, kv head) walks pages s * pages_per_split .. of its table,
     n_splits = ceil(maxp / pages_per_split). Static shapes only (batch,
     window, heads, page size, table width, the card's SM count): never
     pos or q_lens, so the launch reads nothing back and a CUDA graph can
@@ -186,13 +186,13 @@ def ragged_flash_attention(q, kc_pages, vc_pages, page_tables, pos, q_lens,
     _check_kernel_args(q, kc_pages, vc_pages, page_tables, pos, q_lens,
                        anc_mask, k_scales, v_scales)
     out = torch.empty_like(q)
-    if k_scales is not None:
-        return launch_ragged_paged_attention_int8(
-            q, kc_pages, vc_pages, k_scales, v_scales, page_tables, pos,
-            q_lens, anc_mask, out, scale)
     B, S, H, _ = q.shape
     plan = ragged_split_plan(B, S, H, kc_pages.shape[2], kc_pages.shape[1],
                              page_tables.shape[1], _sm_count(q.device.index))
+    if k_scales is not None:
+        return launch_ragged_paged_attention_int8(
+            q, kc_pages, vc_pages, k_scales, v_scales, page_tables, pos,
+            q_lens, anc_mask, out, scale, plan)
     return launch_ragged_paged_attention(q, kc_pages, vc_pages, page_tables,
                                          pos, q_lens, anc_mask, out, scale,
                                          plan)

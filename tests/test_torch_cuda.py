@@ -537,6 +537,39 @@ def test_head_major_kernels_match_plain_version(dtype, causal, S, T, D):
         counts[0] + 1, counts[1] + 2, counts[2] + 2]
 
 
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_head_major_fp32_backward_takes_unaligned_tensors(D):
+    """K4's fp32 dq and dk/dv at D 64, 128 and 256 (the 3xTF32 bodies)
+    on tensors whose base is 4 bytes past a 16-byte boundary (staged by
+    scalar loads, not cp.async) match the plain versions within
+    FLASH_TOLS, as the aligned ones do."""
+    _needs_card()
+    from flexflow_tpu_torch.ops.flash_attention import flash_bh_dkv, flash_bh_dq
+
+    BH, S, scale = 3, 200, 1.0 / D ** 0.5
+    g = torch.Generator(device="cuda").manual_seed(D)
+
+    def unaligned(*shape):
+        flat = torch.randn(int(np.prod(shape)) + 1, generator=g,
+                           device="cuda")
+        t = flat[1:].view(*shape)
+        assert t.is_contiguous() and t.data_ptr() % 16 != 0
+        return t
+
+    q, k, v, do = (unaligned(BH, S, D) for _ in range(4))
+    out, lse = flash_bh_reference(q, k, v, True, scale)
+    args = (q, k, v, do, lse, flash_bh_delta(do, out), True, scale)
+    dq = flash_bh_dq(*args)
+    dk, dv = flash_bh_dkv(*args)
+    torch.cuda.synchronize()
+    want_dk, want_dv = flash_bh_dkv_reference(*args)
+    tol = FLASH_TOLS[torch.float32][1]
+    for name, got, want in (("dq", dq, flash_bh_dq_reference(*args)),
+                            ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        ok, err = _close(got, want, tol)
+        assert ok, (name, err)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S,T,D", [(1000, 1000, 64), (256, 1024, 128),
                                    (1024, 300, 256)])

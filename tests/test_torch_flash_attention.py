@@ -42,6 +42,8 @@ from flexflow_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_delta,
     flash_dkv_reference,
     flash_dq_reference,
+    einsum_3xtf32,
+    tf32_round,
 )
 from flexflow_tpu_torch.ops.registry import LowerCtx  # noqa: E402
 
@@ -358,3 +360,58 @@ def test_head_major_plain_backward_matches_autograd():
                       (dk, tk.grad), (dv, tv.grad)):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
                                    rtol=1e-5)
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """tf32_round keeps 10 mantissa bits, rounding to nearest with ties
+    away from zero (cvt.rna): 1 + 2^-11 (a tie) goes up to 1 + 2^-10, 1 +
+    2^-12 down to 1, signs alike; hi + tf32(x - hi) is within 2^-22 of x."""
+    x = torch.tensor([1 + 2 ** -11, 1 + 2 ** -12, -(1 + 2 ** -11),
+                      3 * 2 ** -11 + 1, 0.0])
+    want = torch.tensor([1 + 2 ** -10, 1.0, -(1 + 2 ** -10),
+                         1 + 2 ** -9, 0.0])
+    assert torch.equal(tf32_round(x), want)
+    rs = np.random.RandomState(0)
+    y = torch.from_numpy(rs.standard_normal(4096).astype(np.float32))
+    hi = tf32_round(y)
+    assert torch.equal(tf32_round(hi), hi)
+    err = (hi + tf32_round(y - hi) - y).abs()
+    assert bool((err <= 2.0 ** -22 * y.abs()).all())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_backward_matches_jax_k4(causal):
+    """K4's fp32 dq and dk/dv as the card's 3xTF32 body computes them
+    (einsum_3xtf32 through the plain backward) at GPT-2's head dim 64,
+    from a caller-given lse, against the reference's `_bwd` in interpret
+    mode within FLASH_TOLS[float32]: max |err| and the error norm, as
+    chip_smoke's checks hold the card's kernel to the plain version. One
+    tf32 product alone (operands rounded once) misses the same bounds."""
+    import chip_smoke
+    tol = chip_smoke.FLASH_TOLS[torch.float32][1]
+    BH, S, D = 2, 256, 64
+    scale = 1.0 / np.sqrt(D)
+    q, k, v, do, shift = _bh_inputs(BH, S, S, D, seed=64 + causal)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = flash_bh_reference(tq, tk, tv, causal, scale)
+    lse = lse + torch.from_numpy(shift)
+    delta = flash_bh_delta(tdo, out)
+    jl = jnp.broadcast_to(jnp.asarray(lse.numpy())[..., None], (BH, S, 128))
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    want = [torch.from_numpy(np.array(g)) for g in _bwd(
+        jq, jk, jv, jnp.asarray(out.numpy()), jl, jdo, causal, scale, 128,
+        128, True)]
+    args = (tq, tk, tv, tdo, lse, delta, causal, scale)
+
+    def one_tf32(eq, a, b):
+        return torch.einsum(eq, tf32_round(a), tf32_round(b))
+
+    for einsum, ok in ((einsum_3xtf32, True), (one_tf32, False)):
+        got = [flash_bh_dq_reference(*args, einsum=einsum),
+               *flash_bh_dkv_reference(*args, einsum=einsum)]
+        verdicts = [chip_smoke._err_ok([(g, w)], tol)[1]
+                    for g, w in zip(got, want)]
+        if ok:
+            assert all(verdicts), verdicts
+        else:
+            assert not all(verdicts), verdicts

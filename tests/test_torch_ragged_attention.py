@@ -32,6 +32,10 @@ from flexflow_tpu_torch.paged.attention import (  # noqa: E402
     ragged_split_plan,
     ragged_visibility_mask,
 )
+from flexflow_tpu_torch.paged.quant import (  # noqa: E402
+    dequantize_pages,
+    quantized_append,
+)
 
 # fp32 on the CPU: the reference kernel's own test tolerance
 TOL = 2e-5
@@ -212,7 +216,12 @@ def test_split_plan_covers_each_live_page_once(B, S, H, Hkv, P, maxp, sms):
     walk pages 0 .. ceil(horizon / P) - 1, each exactly once; the plan
     covers the table with its splits; and the fp32 workspace of the
     partials (D + 2 floats a row and split) is bounded by one row per 16
-    cache rows of a full table plus one per query row of a GQA group."""
+    cache rows of a full table plus one per query row of a GQA group.
+    fp and int8 pools share the plan (an int8 pool's split walk timed
+    fastest at the fp plan's pages a split, phase 2's sweep); an int8
+    split reads half an fp16 one's bytes, so a full split's partial
+    weighs twice as much beside its K/V reads: at most (D + 2) / (8 D)
+    of them for 1-byte elements, (D + 2) / (16 D) for 2-byte ones."""
     plan = ragged_split_plan(B, S, H, Hkv, P, maxp, sms)
     pps, n = plan
     assert 1 <= pps <= maxp and n == -(-maxp // pps)
@@ -225,16 +234,26 @@ def test_split_plan_covers_each_live_page_once(B, S, H, Hkv, P, maxp, sms):
     assert ws_rows * (D + 2) <= B * Hkv * (maxp * P // 16 + rep * S) * (
         D + 2)
     assert n <= max(1, -(-4 * sms // (B * Hkv)))  # SPLIT_WAVES fills
+    if pps < maxp:  # not cut short by the table
+        for esz in (1, 2, 4):  # int8, bf16 / fp16, fp32 pools
+            partial = rep * S * (D + 2) * 4       # a split's fp32 write
+            read = 2 * pps * P * D * esz          # its K and V bytes
+            assert partial * 8 * D * esz <= (D + 2) * read, esz
 
 
-def _split_combine_model(q, kc, vc, pt, pos, q_lens, anc, scale, plan):
-    """A plain model of the fp kernel: each live split's partial (m, l,
-    acc) over its pages, p = exp(s - m) against the split's own max
-    (floored at -1e30) rounded to q's dtype before P.V, then the partials
-    merged by max and rescale; rows past q_len zeros."""
+def _split_combine_model(q, kc, vc, pt, pos, q_lens, anc, scale, plan,
+                         k_scales=None, v_scales=None):
+    """A plain model of the kernels' split walk: each live split's
+    partial (m, l, acc) over its pages, p = exp(s - m) against the
+    split's own max (floored at -1e30), then the partials merged by max
+    and rescale; rows past q_len zeros. An fp pool is cast to q's dtype
+    and p rounded to q's dtype before P.V; an int8 pool (with its (N,
+    Hkv) k_scales / v_scales) is dequantized page by page against fp32
+    q, and p stays fp32."""
     B, S, H, D = q.shape
     P, Hkv, maxp = kc.shape[1], kc.shape[2], pt.shape[1]
     rep = H // Hkv
+    quant = k_scales is not None
     vis = ragged_visibility_mask(pt, pos, q_lens, anc, P)
     out = torch.zeros(B, S, H, D)
     for b in range(B):
@@ -244,16 +263,20 @@ def _split_combine_model(q, kc, vc, pt, pos, q_lens, anc, scale, plan):
         parts = []
         for run in _split_pages(plan, int(pos[b]) + n, P, maxp):
             pages = pt[b, run].long()
-            k = kc[pages].reshape(-1, Hkv, D).to(q.dtype).float()
-            v = vc[pages].reshape(-1, Hkv, D).to(q.dtype).float()
-            k = k.repeat_interleave(rep, dim=1)
-            v = v.repeat_interleave(rep, dim=1)
+            if quant:
+                k, v = (dequantize_pages(c[pages], sc[pages])
+                        for c, sc in ((kc, k_scales), (vc, v_scales)))
+            else:
+                k, v = (c[pages].to(q.dtype).float() for c in (kc, vc))
+            k = k.reshape(-1, Hkv, D).repeat_interleave(rep, dim=1)
+            v = v.reshape(-1, Hkv, D).repeat_interleave(rep, dim=1)
             see = vis[b, :n, run[0] * P:(run[-1] + 1) * P]       # (n, L)
             sc = torch.einsum("thd,lhd->htl", q[b, :n].float(), k) * scale
             sc = sc.masked_fill(~see[None], float("-inf"))
             m = sc.amax(-1).clamp_min(-1e30)                      # (H, n)
             p = torch.exp(sc - m[..., None])
-            acc = torch.einsum("htl,lhd->htd", p.to(q.dtype).float(), v)
+            pv = p if quant else p.to(q.dtype).float()
+            acc = torch.einsum("htl,lhd->htd", pv, v)
             parts.append((m, p.sum(-1), acc))
         mx = torch.stack([m for m, _, _ in parts]).amax(0)
         w = [torch.exp(m - mx) for m, _, _ in parts]
@@ -263,12 +286,35 @@ def _split_combine_model(q, kc, vc, pt, pos, q_lens, anc, scale, plan):
     return out.to(q.dtype)
 
 
-# the kernel's tolerances against the plain version (chip_smoke.TOLS):
-# fp32 summation order only; bf16 rounds p before normalising
+# the kernel's tolerances against the plain version (chip_smoke.TOLS and
+# INT8_TOLS): fp32 summation order only; bf16 rounds p before normalising
+# (fp pools) or rounds the output (int8 pools)
 SPLIT_TOLS = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def _int8_pools(kc, vc):
+    """int8 pools and their (N, Hkv) scales written page by page by the
+    port's quantize-on-append from fp32 pools."""
+    N, P, Hkv, D = kc.shape
+    page = torch.arange(N).repeat_interleave(P)[None]
+    off = torch.arange(P).repeat(N)[None]
+    live = torch.ones(1, N * P, dtype=torch.bool)
+    out = []
+    for x in (kc, vc):
+        pool = torch.zeros((N, P, Hkv, D), dtype=torch.int8)
+        scales = torch.zeros((N, Hkv))
+        quantized_append(pool, scales, x.reshape(1, N * P, Hkv, D), page,
+                         off, live)
+        out += [pool, scales]
+    return out
+
+
+# dtype: q's and an fp pool's, or (q's, "int8") for an int8 pool (the
+# fp cases keep their ids dtype0 / dtype1)
+@pytest.mark.parametrize("dtype", [
+    torch.float32, torch.bfloat16,
+    pytest.param((torch.float32, "int8"), id="fp32_q-int8_pool"),
+    pytest.param((torch.bfloat16, "int8"), id="bf16_q-int8_pool")])
 @pytest.mark.parametrize("pps", [1, 3, None])
 @pytest.mark.parametrize("H,Hkv,S,mix", MIXES)
 def test_split_then_combine_matches_plain_version(H, Hkv, S, mix, pps,
@@ -276,18 +322,40 @@ def test_split_then_combine_matches_plain_version(H, Hkv, S, mix, pps,
     """Split-then-combine over decode, chunk, tree and pad entries, at 1
     and 3 pages a split and at ragged_split_plan's choice, equals the
     plain version (ragged_gather_attention) within the kernel's
-    tolerances, zeros past q_len included."""
+    tolerances, zeros past q_len included; over an int8 pool also the
+    reference's int8 kernel (_ragged_kernel_quant, interpret mode) on the
+    same pages and scales."""
     q, kc, vc, pt, pos, q_lens, anc, scale = _case(H, Hkv, S, mix)
     args = [torch.from_numpy(a) for a in (q, kc, vc, pt, pos, q_lens, anc)]
-    args[:3] = [a.to(dtype) for a in args[:3]]
+    quant = isinstance(dtype, tuple)
+    sc = {}
+    if quant:
+        dtype = dtype[0]
+        args[1], ks, args[2], vs = _int8_pools(args[1], args[2])
+        sc = {"k_scales": ks, "v_scales": vs}
+        args[0] = args[0].to(dtype)
+    else:
+        args[:3] = [a.to(dtype) for a in args[:3]]
     maxp, P = pt.shape[1], kc.shape[1]
     plan = (SplitPlan(pps, -(-maxp // pps)) if pps else
             ragged_split_plan(len(mix), S, H, Hkv, P, maxp, 132))
-    got = _split_combine_model(*args, scale, plan)
-    want = ragged_gather_attention(*args, scale=scale)
+    got = _split_combine_model(*args, scale, plan, **sc)
+    want = ragged_gather_attention(*args, scale=scale, **sc)
     tol = SPLIT_TOLS[dtype]
-    err = (got.float() - want.float()).abs()
-    assert bool((err <= tol + tol * want.float().abs()).all()), float(
-        err.max())
+    wants = [want]
+    if quant:
+        jargs = [jnp.asarray(a.float().numpy() if a.dtype == torch.bfloat16
+                             else a.numpy()) for a in args]
+        jargs[0] = jargs[0].astype(jnp.bfloat16 if dtype == torch.bfloat16
+                                   else jnp.float32)
+        jout = jax_ragged_flash_attention(
+            *jargs, scale=scale, interpret=True,
+            k_scales=jnp.asarray(sc["k_scales"].numpy()),
+            v_scales=jnp.asarray(sc["v_scales"].numpy()))
+        wants.append(torch.from_numpy(np.array(jout.astype(jnp.float32))))
+    for w in wants:
+        err = (got.float() - w.float()).abs()
+        assert bool((err <= tol + tol * w.float().abs()).all()), float(
+            err.max())
     for b, n in enumerate(q_lens):
         assert not got[b, n:].any()
