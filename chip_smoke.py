@@ -14,8 +14,9 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      seconds each source took and the HGMMA (wgmma) instructions in the
      SASS of each tensor-core flash kernel: K1/K2's and K4's forward, dq
      and dk/dv and K5's forward at head dims 64, 128 and 256
-     (WGMMA_KERNELS), and the tf32 HMMA (mma.sync) instructions of K4's
-     fp32 dq and dk/dv bodies at those widths (TF32_KERNELS);
+     (WGMMA_KERNELS), and the tf32 HMMA (mma.sync) instructions of the
+     3xTF32 fp32 bodies: K4's forward, dq and dk/dv at those widths and
+     K2's flat dq and dk/dv at 128 and 256 (TF32_KERNELS);
   2. kernels vs their plain versions on the card, with kernel / plain /
      library times and the roofline bound: the ragged paged attention at
      the serving path's shapes (Llama-3-8B attention: H=32, Hkv=8,
@@ -30,13 +31,15 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      D 128, causal), then at a ragged S = T = 1000, at S 256 against
      T 1024 (full), at head dim 256 (Gemma-7B's attention: B 2, S = T
      1024, 16 heads of 256, causal) and at 384 and 512 (FLASH_CASES);
-     bf16 and fp32; and the head-major flash kernels K4
-     (forward, dq, dk/dv) at GPT-2 XL training's shape (B*H 8*25, S = T
-     1024, D 64, causal) and at phase 11's (B*H 8*16, bf16) with times,
-     then at head dims 48, 80, 96, 100 and 256, non-causal, S != T, S not
-     a multiple of the tile and phase 10's ring block (B*H 16, S = T
-     2048, D 128, causal and full; bf16 timed beside SDPA), each
-     backward also fed a shifted lse (the ring's contract); the flash
+     bf16 and fp32 (K2's fp32 at 128 and 256 on its 3xTF32 body, with
+     the body's floor, 3 x ops at the tf32 peak, beside the bound); and
+     the head-major flash kernels K4 (forward, dq, dk/dv) at GPT-2 XL
+     training's shape (B*H 8*25, S = T 1024, D 64, causal) and at phase
+     11's (B*H 8*16, bf16) with times, then at head dims 48, 80, 96, 100
+     and 256, non-causal, S != T, S not a multiple of the tile and phase
+     10's ring block (B*H 16, S = T 2048, D 128, causal and full), each
+     timed beside SDPA in its dtype and each backward also fed a shifted
+     lse (the ring's contract); the flash
      checks (max |err|, error norm, lse; FLASH_TOLS, LSE_ATOL) must
      reject a planted fault at GPT-2 XL's shape, bf16 and fp32 (the
      plain results with one key tile skipped for the last query rows);
@@ -51,7 +54,9 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      on an fp pool; one Adam train step at bench_1b widths and one at
      GPT-2 XL widths, depth 2, batch 1, seq 256 (the loss and every
      parameter after the step), and one of the ring-built bench_1b,
-     depth 2, seq 1024 over a {"seq": 4} mesh (K5 launched per fold);
+     depth 2, seq 1024 over a {"seq": 4} mesh (K5 launched per fold;
+     the bench_1b step launches K1 and K2 once a layer, K2 on its
+     3xTF32 body);
      and the ring at a local sequence that is not a multiple of 128
      (s_loc 192, bench_1b's attention widths; the same K5 ring, no
      length gate): its output, gradients and launches;
@@ -86,8 +91,9 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      seed) through ff.fit for one epoch of 10 seeded batches, then 10
      timed steps on one repeated batch (the loss must fall); each K4
      kernel must launch 48 times per step and K1/K2 never, and two
-     profiled steps must show K4's fp32 dq and dk/dv on their 3xTF32
-     bodies only (K4's ms a step reported); then the
+     profiled steps must show K4's fp32 forward, dq and dk/dv on their
+     3xTF32 bodies only (K4's forward and backward ms a step reported);
+     then the
      masters before timed step 8 (where the loss jumps) give that step's
      loss and gradients, fp32, batch 1, on the card and on the CPU, which
      must agree;
@@ -400,40 +406,53 @@ def hgmma_counts() -> dict:
     return counts
 
 
-# K4's fp32 dq (false) and dk/dv (true) bodies on the tensor cores, 3xTF32
-# on mma.sync, at head dims 64, 128 and 256
-TF32_KERNELS = tuple(f"flash_bh_bwd_tf32_kernel<{k},{d}>"
-                     for k in ("false", "true") for d in (64, 128, 256))
+# the fp32 bodies on the tensor cores, 3xTF32 on mma.sync: K4's forward
+# (flash_bh_fwd_tf32_kernel<D>), dq (false) and dk/dv (true) at head dims
+# 64, 128 and 256, and K2's flat-layout dq and dk/dv at 128 and 256
+TF32_KERNELS = tuple(
+    f"flash_bh_fwd_tf32_kernel<{d}>" for d in (64, 128, 256)) + tuple(
+    f"flash_bh_bwd_tf32_kernel<{k},{d}>"
+    for k in ("false", "true") for d in (64, 128, 256)) + tuple(
+    f"flash_bwd_tf32_kernel<{k},{d}>"
+    for k in ("false", "true") for d in (128, 256))
 
 
 def tf32_name(symbol: str):
-    """'flash_bh_bwd_tf32_kernel<true,64>' from a mangled or demangled
-    symbol of K4's 3xTF32 body, or None."""
-    m = re.search(r"flash_bh_bwd_tf32_kernelILb([01])ELi(\d+)E", symbol)
+    """'flash_bh_fwd_tf32_kernel<64>', 'flash_bh_bwd_tf32_kernel<true,64>'
+    (K4) or 'flash_bwd_tf32_kernel<false,128>' (K2, flat layout) from a
+    mangled or demangled symbol of a 3xTF32 body, or None."""
+    m = re.search(r"(flash_(?:bh_fwd|bh_bwd|bwd)_tf32_kernel)I"
+                  r"(?:Lb([01])E)?Li(\d+)E", symbol)
     if m:
-        return (f"flash_bh_bwd_tf32_kernel<"
-                f"{'true' if m[1] == '1' else 'false'},{m[2]}>")
-    m = re.search(r"flash_bh_bwd_tf32_kernel<(false|true), (\d+)>", symbol)
-    return f"flash_bh_bwd_tf32_kernel<{m[1]},{m[2]}>" if m else None
+        flag = "" if m[2] is None else \
+            ("true," if m[2] == "1" else "false,")
+        return f"{m[1]}<{flag}{m[3]}>"
+    m = re.search(r"(flash_(?:bh_fwd|bh_bwd|bwd)_tf32_kernel)<"
+                  r"(?:(false|true), )?(\d+)>", symbol)
+    if not m:
+        return None
+    return f"{m[1]}<{'' if m[2] is None else m[2] + ','}{m[3]}>"
 
 
 def tf32_hmma_counts() -> dict:
-    """{K4 fp32 backward body: tf32 HMMA instructions in its SASS} from
-    K4's backward library (cuobjdump -sass): the proof that fp32 dq and
-    dk/dv run on the tensor cores. Raises if one of TF32_KERNELS is
-    missing or holds none."""
+    """{3xTF32 body: tf32 HMMA instructions in its SASS} from K4's forward
+    and backward libraries and K2's (cuobjdump -sass): the proof that
+    the fp32 bodies of TF32_KERNELS run on the tensor cores. Raises if
+    one of them is missing or holds none."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run(
-        [tool, "-sass", str(FLASH_ATTENTION_BH_DQ.library_path())],
-        capture_output=True, text=True, timeout=300, check=True).stdout
     counts, name = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            name = tf32_name(line)
-            if name:
-                counts[name] = 0
-        elif name and "HMMA" in line and "TF32" in line:
-            counts[name] += 1
+    for kern in (FLASH_ATTENTION_BH_FWD, FLASH_ATTENTION_BH_DQ,
+                 FLASH_ATTENTION_DQ):
+        sass = subprocess.run(
+            [tool, "-sass", str(kern.library_path())],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        for line in sass.splitlines():
+            if "Function :" in line:
+                name = tf32_name(line)
+                if name:
+                    counts[name] = 0
+            elif name and "HMMA" in line and "TF32" in line:
+                counts[name] += 1
     if set(TF32_KERNELS) - set(counts) or not all(counts.values()):
         raise AssertionError(f"3xTF32 bodies missing or without tf32 "
                              f"HMMA: {counts}, want {TF32_KERNELS}")
@@ -851,6 +870,15 @@ def flash_bounds(q, k, causal: bool, kernels=FLASH_KERNELS) -> dict:
     return out
 
 
+def floor_3xtf32_ms(q, ops: int):
+    """The least time of an fp32 body on the tensor cores in 3xTF32: 3
+    tf32 products for each fp32 one at the tf32 peak (the design's floor,
+    beside the bound, which counts one); None for another dtype."""
+    if q.dtype != torch.float32:
+        return None
+    return 3 * ops / PEAK_OPS[torch.float32] * 1e3
+
+
 def sdpa_calls(q, k, v, do, scale, causal=True):
     """The yardsticks (timed only; the port never calls them):
     F.scaled_dot_product_attention's GQA forward (causal: top-left, as
@@ -929,7 +957,7 @@ def phase_flash_kernels(card: str, shape=(FB, FS, FH, FHKV, FD),
                 "ms": time_ms(kernel), "plain_ms": time_ms(plain),
                 "library_ms": lib_ms[name], "bound_ms": bound_ms,
                 "bound_by": bound_by, "bytes": nbytes, "ops": ops,
-                "card": card,
+                "floor_3xtf32_ms": floor_3xtf32_ms(q, ops), "card": card,
             }
             log(f"kernel {json.dumps(res)}")
             if not ok:
@@ -1025,7 +1053,8 @@ def k4_check(BH, S, T, D, causal, dtype, seed, timed=False):
             res[name].update({
                 "ms": time_ms(kernel), "plain_ms": time_ms(plain),
                 "library_ms": lib_ms[name], "bound_ms": bound_ms,
-                "bound_by": bound_by, "bytes": nbytes, "ops": ops})
+                "bound_by": bound_by, "bytes": nbytes, "ops": ops,
+                "floor_3xtf32_ms": floor_3xtf32_ms(q, ops)})
     return res
 
 
@@ -1129,7 +1158,8 @@ def phase_k4_kernels(card: str) -> dict:
     """K4 at GPT-2 XL's shape (bf16 and fp32, timed) and at phase 11's
     (bench.py's 200m Llama: B*H 8*16, S = T 1024, D 64, causal; bf16,
     timed: the kernels line's case), then at every case of K4_CASES in
-    both dtypes (errors; the ring block's bf16 cases timed too), then
+    both dtypes (errors and times: the padded widths' CUDA-core bodies,
+    the ring block's bf16 ones, the fp32 3xTF32 ones at 64..256), then
     the planted fault (the checks must reject a skipped key tile at
     GPT-2 XL's shape, bf16 and fp32), then the K1-vs-K4 record. Fails
     on any error over its tolerance. Returns {"main": {dtype name:
@@ -1154,20 +1184,15 @@ def phase_k4_kernels(card: str) -> dict:
     timed["llama_200m_causal"] = res
     for i, (name, BH, S, T, D, causal) in enumerate(K4_CASES):
         for dtype in (torch.bfloat16, torch.float32):
-            t = dtype is torch.bfloat16 and name.startswith("d128_ring")
-            res = k4_check(BH, S, T, D, causal, dtype, 100 + i, timed=t)
+            res = k4_check(BH, S, T, D, causal, dtype, 100 + i, timed=True)
             for r in res.values():
-                r["case"] = name
-                if t:
-                    r["card"] = card
+                r.update(case=name, card=card)
                 log(f"kernel {json.dumps(r)}")
                 cases.append(r)
-            if t:
-                timed[name] = res
+            timed[f"{name}_{str(dtype).replace('torch.', '')}"] = res
         torch.cuda.empty_cache()
     bad = [r for d in main.values() for r in d.values() if not r["ok"]]
-    bad += [r for r in cases + [r for d in timed.values()
-                                for r in d.values()] if not r["ok"]]
+    bad += [r for d in timed.values() for r in d.values() if not r["ok"]]
     if bad:
         raise AssertionError(f"K4 kernels disagree with their plain "
                              f"versions: {bad}")
@@ -1488,6 +1513,7 @@ def phase_train_step(seed: int, cfg=None, label="bench_1b", seq=256,
                                        tr.items() for n, t in w.items()}))
         if ff is card_ff:
             k5 = FLASH_ATTENTION_BH_FWD_CARRY.launches
+            flat = _flash_launches()
     (gl, gp), (cl, cp) = out
     diffs = {n: (gp[n] - cp[n]).abs() for n in gp}
     worst = max(diffs, key=lambda n: float(diffs[n].max()))
@@ -1495,7 +1521,8 @@ def phase_train_step(seed: int, cfg=None, label="bench_1b", seq=256,
                   for n, d in diffs.items())
     total = sum(d.numel() for d in diffs.values())
     res = {"model": label, "layers": 2, "seq": seq,
-           "mesh_shape": mesh_shape, "k5_launches": k5, "loss_card": gl,
+           "mesh_shape": mesh_shape, "k5_launches": k5,
+           "flash_launches": flat, "loss_card": gl,
            "loss_cpu": cl, "loss_rel_err": abs(gl - cl) / abs(cl),
            "max_param_abs_err": float(diffs[worst].max()),
            "worst_param": worst, "weights": total,
@@ -1507,9 +1534,14 @@ def phase_train_step(seed: int, cfg=None, label="bench_1b", seq=256,
     torch.cuda.empty_cache()
     n = (mesh_shape or {}).get("seq", 1)
     want_k5 = 2 * ring_folds(n) if n > 1 else 0
+    # the plain route at a head dim of 128 (bench_1b) runs K1 and K2
+    # (fp32: K2 on its 3xTF32 body) once a layer
+    flat_route = n == 1 and cfg.dim // cfg.heads % 128 == 0
+    want_flat = {k: 2 if flat_route else 0 for k in flat}
     ok = (np.isfinite(gl) and res["loss_rel_err"] <= TRAIN_LOSS_RTOL
           and res["max_param_abs_err"] <= 2 * TRAIN_LR
-          and outside <= TRAIN_OUTLIER_FRACTION * total and k5 == want_k5)
+          and outside <= TRAIN_OUTLIER_FRACTION * total and k5 == want_k5
+          and flat == want_flat)
     if not ok:
         raise AssertionError(f"card train step disagrees with CPU: {res}")
     return res
@@ -2160,8 +2192,8 @@ def phase_gpt2_train(seed: int, card: str) -> dict:
     seeded batches (the main path; counts reset just before, read just
     after), then 10 timed train steps on one repeated batch, then two
     profiled ones. Each K4 kernel must launch once per layer and step,
-    K1/K2 and the ragged kernels never, and K4's fp32 dq and dk/dv run
-    their 3xTF32 bodies alone."""
+    K1/K2 and the ragged kernels never, and K4's fp32 forward, dq and
+    dk/dv run their 3xTF32 bodies alone."""
     cfg = gpt2_xl()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -2212,8 +2244,8 @@ def phase_gpt2_train(seed: int, card: str) -> dict:
     losses = [float(v) for v in losses]
     timed_launches = _k4_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # two profiled steps: K4's bodies (fp32 fwd on CUDA cores, dq and
-    # dk/dv on the 3xTF32 ones) and K4's device ms a step
+    # two profiled steps: K4's bodies (fp32 forward, dq and dk/dv on the
+    # 3xTF32 ones) and K4's device ms a step, forward and backward
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2221,9 +2253,14 @@ def phase_gpt2_train(seed: int, card: str) -> dict:
             tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
         torch.cuda.synchronize()
     bodies = flash_bodies(prof, 2)
-    bwd_us = sum(e.self_device_time_total for e in _device_events(prof)
-                 if tf32_name(e.key))
-    bodies["k4_bwd_ms_per_step"] = bwd_us / 2 / 1e3
+    k4_us = {"fwd": 0.0, "bwd": 0.0}
+    for e in _device_events(prof):
+        t32 = tf32_name(e.key) or ""
+        if t32.startswith("flash_bh_"):
+            k4_us["fwd" if "_fwd_" in t32 else "bwd"] += \
+                e.self_device_time_total
+    for part, us in k4_us.items():
+        bodies[f"k4_{part}_ms_per_step"] = us / 2 / 1e3
     del prof
     tokens = TRAIN_BATCH * GPT2_POSITIONS
     flops = gpt2_flops_per_token(cfg, GPT2_POSITIONS) * tokens
@@ -2249,10 +2286,11 @@ def phase_gpt2_train(seed: int, card: str) -> dict:
     if any(n != cfg.layers * TIMED_STEPS for n in timed_launches.values()):
         raise AssertionError(f"timed launches {timed_launches}")
     if bodies["launches_per_step"] != {
-            "tensor_core": {}, "cuda_core": {"fwd": cfg.layers},
-            "tf32": {"dq": cfg.layers, "dkv": cfg.layers}}:
-        raise AssertionError(f"K4's fp32 dq and dk/dv did not run on their "
-                             f"3xTF32 bodies alone: {bodies}")
+            "tensor_core": {}, "cuda_core": {},
+            "tf32": {"fwd": cfg.layers, "dq": cfg.layers,
+                     "dkv": cfg.layers}}:
+        raise AssertionError(f"K4's fp32 forward, dq and dk/dv did not run "
+                             f"on their 3xTF32 bodies alone: {bodies}")
     res["step_check"] = gpt2_step_check(cfg, saved, x[:1], y[:1], seed)
     return res
 
@@ -2474,7 +2512,7 @@ def flash_bodies(prof, n: int, tag: str = "HeadMajor",
                  label: str = "k4") -> dict:
     """From a torch.profiler run of n train steps: per step, the launches
     of each body of one head-major kernel family ({"tensor_core": {fwd,
-    dq, dkv}, "cuda_core": {...}}, and "tf32": {dq, dkv} where K4's
+    dq, dkv}, "cuda_core": {...}}, and "tf32": {fwd, dq, dkv} where K4's
     3xTF32 bodies ran): the tensor-core bodies under the layout tag
     `tag`, the CUDA-core ones whose names match `cuda_core` (K4 by
     default; K5 is tag "HeadMajorCarry" and the
@@ -2489,8 +2527,10 @@ def flash_bodies(prof, n: int, tag: str = "HeadMajor",
         t32 = tf32_name(e.key)
         if name and name.split("<")[1].split(",")[0] == tag:
             body, kind = "tensor_core", name.split("_")[1]
-        elif t32 and tag == "HeadMajor":
-            body, kind = "tf32", "dkv" if "<true" in t32 else "dq"
+        elif t32 and t32.startswith("flash_bh_") and tag == "HeadMajor":
+            body = "tf32"
+            kind = ("fwd" if t32.startswith("flash_bh_fwd") else
+                    "dkv" if "<true" in t32 else "dq")
             launches.setdefault(body, {})
         else:
             m = re.search(cuda_core, e.key)
@@ -2736,10 +2776,11 @@ def main(argv=None) -> int:
             phase_flash_kernels(card, shape, case, T, causal)
     k4 = phase_k4_kernels(card) if 2 in phases else {}
     k5 = phase_k5_kernels(card) if 2 in phases else {}
+    step3 = None
     if 3 in phases:
         phase_step(args.seed)
         phase_gpt2_step(args.seed)
-        phase_train_step(args.seed)
+        step3 = phase_train_step(args.seed)
         phase_train_step(args.seed, gpt2_xl(), "gpt2_xl")
         phase_train_step(args.seed, label="bench_1b_ring", seq=1024,
                          mesh_shape={"seq": RING_SHARDS})
@@ -2774,13 +2815,25 @@ def main(argv=None) -> int:
         "flexflow_tpu_torch/csrc/ragged_paged_attention.cu",
         serve8["launches"][RAGGED_PAGED_ATTENTION_INT8.name] if serve8
         else 0, int8_case))
+    # K1/K2 on phase 6's bf16 fit, timed at bench_1b's attention shape
+    # (phase 2), and their fp32 bodies under "fp32": launches in phase 3's
+    # fp32 bench_1b step (K2 there on its 3xTF32 body), timed at the same
+    # shape
     for k, src in ((FLASH_ATTENTION_FWD, "flash_attention_fwd.cu"),
                    (FLASH_ATTENTION_DQ, "flash_attention_bwd.cu"),
                    (FLASH_ATTENTION_DKV, "flash_attention_bwd.cu")):
-        entries.append(_kernel_entry(
+        entry = _kernel_entry(
             k, f"flexflow_tpu_torch/csrc/{src}",
             train["fit_launches"][k.name] if train else 0,
-            flash.get("bfloat16", {}).get(k.name)))
+            flash.get("bfloat16", {}).get(k.name))
+        fp32 = _kernel_entry(
+            k, entry["source"],
+            step3["flash_launches"][k.name] if step3 else 0,
+            flash.get("float32", {}).get(k.name))
+        entry["fp32"] = {key: val for key, val in fp32.items()
+                         if key not in ("name", "route", "source",
+                                        "replaces")}
+        entries.append(entry)
     # K4 on this slice's main path: phase 11's bf16 fit, timed at its
     # attention shape (phase 2)
     # and its fp32 bodies on phase 8's: GPT-2 XL's fit, timed at its

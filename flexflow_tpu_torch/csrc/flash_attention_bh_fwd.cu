@@ -11,10 +11,11 @@
 // attention (ring_flash.py): the same online softmax, but (m, l, acc)
 // are read from the caller's fp32 m, l (BH, S) and acc (BH, S, D) instead
 // of starting at (-1e30, 0, 0), and written back to them, updated in
-// place and not normalised, for the next ring step. In each design below
-// both kernels run one body (the CUDA-core body's template flag Carry,
-// the tensor-core body's layout tag), so their math cannot drift apart;
-// each has a __global__ of its own, so a profile tells them apart.
+// place and not normalised, for the next ring step. In the wgmma and the
+// CUDA-core designs below both kernels run one body (the CUDA-core body's
+// template flag Carry, the wgmma body's layout tag), so their math cannot
+// drift apart; each has a __global__ of its own, so a profile tells them
+// apart. (K5 has no 3xTF32 body: fp32 K5 runs the CUDA-core one.)
 //
 // Contract (the TPU kernel's): scores are fp32 dots times `scale`; under
 // `causal` key kpos is visible to query qpos when qpos >= kpos (top-left
@@ -24,7 +25,7 @@
 // fp32 (BH, S). (The TPU pads D to 128 lanes and broadcasts lse over 128
 // lanes; both are its tiling, not part of the contract.)
 //
-// Two designs. K4 in bf16 at head dims 64, 128 and 256 (GPT-2's and
+// Three designs. K4 in bf16 at head dims 64, 128 and 256 (GPT-2's and
 // bench.py's 200m Llama's D 64 in training; the ring's D 128) runs on the
 // tensor cores: K1's body of flash_wgmma_fwd.cuh (wgmma fed by TMA,
 // 384-thread blocks of 128 query rows, K/V rings of mbarrier'd stages),
@@ -34,10 +35,14 @@
 // describe, and lse (BH, S) is K1's (B, H = 1, S). K5 in bf16 at the same
 // widths runs that body under the HeadMajorCarry tag: each item starts
 // from the caller's (m, l, acc), loaded straight into the accumulator
-// registers, and ends by writing them back. K4 and K5 in fp32 at every
-// width, and in bf16 at the other widths, run the CUDA-core body below:
-// fp32 products stay exact (a tensor-core fp32 path would be TF32), and
-// TMA's 64-column boxes need D a multiple of 64.
+// registers, and ends by writing them back. K4 in fp32 at 64, 128 and
+// 256 (GPT-2 trains its attention in fp32, as the reference computes it)
+// runs on the tensor cores too, in 3xTF32 on mma.sync
+// (flash_bh_fwd_tf32_kernel below, over the forward body of
+// flash_tf32.cuh): each fp32 product as three tf32 products of hi / lo
+// halves, about fp32's accuracy. K4 in fp32 at the other widths, K5 in
+// fp32 at every width, and both in bf16 at the other widths run the
+// CUDA-core body below (TMA's 64-column boxes need D a multiple of 64).
 //
 // CUDA-core body: one block per (64-row query tile, bh), a loop over
 // 64-row K/V tiles that stops at the causal diagonal. D is any width up
@@ -49,7 +54,9 @@
 // What bounds it on the card: operations. At GPT-2 XL training (B 8,
 // S = T 1024, H 25, D 64, causal) K4 does 4 * D ops per visible pair, about
 // 0.027 ms at the bf16 tensor-core peak, against ~0.1 GB of q, k, v, out
-// and lse (~0.031 ms at 3.35 TB/s). K5 at a bench_1b ring step (BH 16,
+// and lse (~0.031 ms at 3.35 TB/s); in fp32 the 3xTF32 body does 3 x
+// those operations at the tf32 peak (0.163 ms), against 0.063 ms of
+// bytes. K5 at a bench_1b ring step (BH 16,
 // S = T 2048, D 128, full) does 4 * D ops per pair (~0.035 ms) against
 // ~59 MB, over half of it the fp32 acc read and written (~0.018 ms): the
 // tensor-core body keeps the products at the wgmma rate and moves acc
@@ -60,6 +67,7 @@
 // thread).
 
 #include "flash_bh_common.cuh"
+#include "flash_tf32.cuh"
 #include "flash_wgmma_fwd.cuh"
 
 namespace {
@@ -237,6 +245,21 @@ flash_bh_fwd_carry_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                      S, Tk, D, causal, scale);
 }
 
+// ---- K4 in fp32 at D 64, 128 and 256: 3xTF32 on the tensor cores ---------
+namespace tf32 {
+
+template <int D>
+__global__ void __launch_bounds__(fftf32::FwdTiles<D>::BR * 2, 1)
+flash_bh_fwd_tf32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ out,
+                         float* __restrict__ lse, int S, int Tk, int causal,
+                         float scale, int vec) {
+  fftf32::fwd_body<D>(q, k, v, out, lse, S, Tk, causal, scale, vec);
+}
+
+}  // namespace tf32
+
 template <int DP>
 constexpr size_t fwd_smem(int bt) {
   return ((size_t)3 * bt * (DP + 1) + (size_t)bt * (bt + 1)) * sizeof(float);
@@ -290,8 +313,9 @@ int dispatch(const void* q, const void* k, const void* v, Outputs o, int BH,
 extern "C" {
 
 // q (BH, S, D), k/v (BH, T, D), out (BH, S, D), all contiguous and of one
-// dtype: 0 = float32, 1 = bfloat16; lse fp32 (BH, S). bf16 at D 64, 128
-// and 256 runs the tensor-core body, every other case the CUDA-core body.
+// dtype: 0 = float32, 1 = bfloat16; lse fp32 (BH, S). D 64, 128 and 256
+// run the tensor-core bodies (bf16: wgmma; fp32: 3xTF32 mma.sync), every
+// other case the CUDA-core body.
 // Returns a cudaError_t: cudaErrorInvalidValue for shapes the kernel does
 // not take (bh_shapes_ok) or tensors TMA cannot map, otherwise the
 // launch's cudaGetLastError().
@@ -308,6 +332,13 @@ int ff_flash_attention_bh_fwd(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 128) FF_FWD_WG(128);
   if (dtype == 1 && D == 256) FF_FWD_WG(256);
 #undef FF_FWD_WG
+#define FF_FWD_TF32(DIM)                                                    \
+  return fftf32::launch_fwd<DIM>(tf32::flash_bh_fwd_tf32_kernel<DIM>, q, k, v, \
+                                 out, lse, BH, S, T, causal, scale, st)
+  if (dtype == 0 && D == 64) FF_FWD_TF32(64);
+  if (dtype == 0 && D == 128) FF_FWD_TF32(128);
+  if (dtype == 0 && D == 256) FF_FWD_TF32(256);
+#undef FF_FWD_TF32
   const Outputs o{out, lse, nullptr, nullptr, nullptr};
   if (dtype == 0)
     return dispatch<float, false>(q, k, v, o, BH, S, T, D, causal, scale,

@@ -17,19 +17,25 @@
 // dtype. Layouts as the forward (flash_common.cuh); lse and delta are
 // fp32 (B, H, S).
 //
-// Two bodies. bf16 at head dims 64, 128 and 256 runs on the tensor cores:
-// wgmma fed by TMA, the bodies of flash_wgmma_bwd.cuh, which K4's backward
-// instantiates too (flash_dq_wgmma_kernel<FlatLayout, ...> and
+// Three bodies. bf16 at head dims 64, 128 and 256 runs on the tensor
+// cores: wgmma fed by TMA, the bodies of flash_wgmma_bwd.cuh, which K4's
+// backward instantiates too (flash_dq_wgmma_kernel<FlatLayout, ...> and
 // flash_dkv_wgmma_kernel<FlatLayout, ...> here). Every product runs on
 // wgmma; ds and p go from the accumulator registers, rounded to bf16,
-// straight into the A operand of the next product. fp32 at every head
-// dim, and bf16 at 384 and 512, run the CUDA-core bodies
-// (flash_dq_kernel, flash_dkv_kernel): fp32 products stay exact (a
-// tensor-core fp32 path would be TF32).
+// straight into the A operand of the next product. fp32 at 128 and 256
+// runs on the tensor cores too, in 3xTF32 on mma.sync: the body of
+// flash_tf32.cuh that K4's fp32 backward runs, here on the flat layout
+// (flash_bwd_tf32_kernel<kDkv, D>; each fp32 product as three tf32
+// products of hi / lo halves, about fp32's accuracy; dk/dv sums each
+// query head of the GQA group in registers and adds it to the outputs in
+// fp32, no atomics). fp32 at 64 (reached by no lowering:
+// the route sends D 64 to K4), 384 and 512, and bf16 at 384 and 512, run
+// the CUDA-core bodies (flash_dq_kernel, flash_dkv_kernel), exact fp32
+// products.
 //
 // CUDA-core bodies: tiles are BT x BT, the largest of 64, 32 and 16 whose
 // four fp32 D-wide tiles fit a block's 227 KB (static_assert'ed): 64 at
-// head dims 64 and 128, 32 at 256 and 384, 16 at 512.
+// head dim 64, 32 at 384, 16 at 512.
 // dq: one block per (BT-row query tile, b * H + h), looping over the live
 // K/V tiles (up to the causal diagonal).
 // dk/dv: one block per (BT-row key tile, b * Hkv + g), looping over every
@@ -40,10 +46,13 @@
 //
 // What bounds it on the card: operations (6 * D per visible pair for dq,
 // 8 * D for dk/dv at the training shape, ~52 us and ~70 us at the bf16
-// tensor-core peak). The CUDA-core bodies run the dots from fp32
-// shared-memory tiles; the tensor-core bodies are built for that bound.
+// tensor-core peak; in fp32 3 x those operations at the tf32 peak, 0.313
+// and 0.417 ms, for the 3xTF32 body). The CUDA-core bodies run the dots
+// from fp32 shared-memory tiles; the tensor-core bodies are built for
+// that bound.
 
 #include "flash_common.cuh"
+#include "flash_tf32.cuh"
 #include "flash_wgmma_bwd.cuh"
 
 namespace {
@@ -350,13 +359,35 @@ int launch_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---- fp32 at D 128 and 256: 3xTF32 on the tensor cores -------------------
+namespace tf32 {
+
+// kDkv false: dq (out1). kDkv true: dk (out1) and dv (out2), at Hkv heads.
+template <bool kDkv, int D>
+__global__ void __launch_bounds__(fftf32::Tiles<D>::BR * 2, 1)
+flash_bwd_tf32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ out1, float* __restrict__ out2,
+                      int S, int Tk, int H, int Hkv, int causal, float scale,
+                      int vec) {
+  fftf32::bwd_body<kDkv, D, true>(q, k, v, dout, lse, delta, out1, out2, S,
+                                  Tk, H, Hkv, causal, scale, vec);
+}
+
+}  // namespace tf32
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO, dq, dk, dv share it);
-// lse and delta fp32 (B, H, S). bf16 at D 64, 128 and 256 runs the
-// tensor-core bodies, every other case the CUDA-core ones. Each returns
+// lse and delta fp32 (B, H, S). bf16 at D 64, 128 and 256 runs the wgmma
+// bodies, fp32 at 128 and 256 the 3xTF32 ones, every other case the
+// CUDA-core ones. Each returns
 // a cudaError_t: cudaErrorInvalidValue for shapes the kernels do not take
 // or tensors TMA cannot map, otherwise the launch's cudaGetLastError().
 int ff_flash_attention_dq(const void* q, const void* k, const void* v,
@@ -370,8 +401,6 @@ int ff_flash_attention_dq(const void* q, const void* k, const void* v,
   return launch_dq<TYPE, DIM>(q, k, v, dout, lse, delta, dq, B, S, T, H,  \
                               Hkv, causal, scale, st)
   if (dtype == 0 && D == 64) FF_DQ(float, 64);
-  if (dtype == 0 && D == 128) FF_DQ(float, 128);
-  if (dtype == 0 && D == 256) FF_DQ(float, 256);
   if (dtype == 0 && D == 384) FF_DQ(float, 384);
   if (dtype == 0 && D == 512) FF_DQ(float, 512);
   if (dtype == 1 && D == 384) FF_DQ(__nv_bfloat16, 384);
@@ -384,6 +413,13 @@ int ff_flash_attention_dq(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 128) FF_DQ_WG(128);
   if (dtype == 1 && D == 256) FF_DQ_WG(256);
 #undef FF_DQ_WG
+#define FF_DQ_TF32(DIM)                                                  \
+  return fftf32::launch_bwd<false, DIM>(                                 \
+      tf32::flash_bwd_tf32_kernel<false, DIM>, q, k, v, dout, lse, delta, \
+      dq, nullptr, B, S, T, H, Hkv, causal, scale, st)
+  if (dtype == 0 && D == 128) FF_DQ_TF32(128);
+  if (dtype == 0 && D == 256) FF_DQ_TF32(256);
+#undef FF_DQ_TF32
   return (int)cudaErrorInvalidValue;
 }
 
@@ -398,8 +434,6 @@ int ff_flash_attention_dkv(const void* q, const void* k, const void* v,
   return launch_dkv<TYPE, DIM>(q, k, v, dout, lse, delta, dk, dv, B, S, T, \
                                H, Hkv, causal, scale, st)
   if (dtype == 0 && D == 64) FF_DKV(float, 64);
-  if (dtype == 0 && D == 128) FF_DKV(float, 128);
-  if (dtype == 0 && D == 256) FF_DKV(float, 256);
   if (dtype == 0 && D == 384) FF_DKV(float, 384);
   if (dtype == 0 && D == 512) FF_DKV(float, 512);
   if (dtype == 1 && D == 384) FF_DKV(__nv_bfloat16, 384);
@@ -413,6 +447,13 @@ int ff_flash_attention_dkv(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 128) FF_DKV_WG(128);
   if (dtype == 1 && D == 256) FF_DKV_WG(256);
 #undef FF_DKV_WG
+#define FF_DKV_TF32(DIM)                                                 \
+  return fftf32::launch_bwd<true, DIM>(                                  \
+      tf32::flash_bwd_tf32_kernel<true, DIM>, q, k, v, dout, lse, delta, \
+      dk, dv, B, S, T, H, Hkv, causal, scale, st)
+  if (dtype == 0 && D == 128) FF_DKV_TF32(128);
+  if (dtype == 0 && D == 256) FF_DKV_TF32(256);
+#undef FF_DKV_TF32
   return (int)cudaErrorInvalidValue;
 }
 

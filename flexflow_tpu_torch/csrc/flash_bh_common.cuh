@@ -1,11 +1,10 @@
 // Shared pieces of the CUDA-core bodies of the head-major flash-attention
 // kernels K4 and K5 (flash_attention_bh_fwd.cu, flash_attention_bh_bwd.cu),
-// on top of the tile helpers of flash_common.cuh. They serve the forward
-// in fp32 at every head dim, the backward in fp32 at the widths that are
-// not 64, 128 or 256, bf16 at those other widths, and K5 in fp32; K4 in
-// bf16 at 64, 128 and 256 runs the tensor-core bodies of
-// flash_wgmma_fwd.cuh / flash_wgmma_bwd.cuh instead, and K4's fp32
-// backward there its 3xTF32 body (flash_attention_bh_bwd.cu).
+// on top of the tile helpers of flash_common.cuh. They serve K4 in fp32
+// and bf16 at the widths that are not 64, 128 or 256, and K5 in fp32; K4
+// in bf16 at 64, 128 and 256 runs the tensor-core bodies of
+// flash_wgmma_fwd.cuh / flash_wgmma_bwd.cuh instead, and K4 in fp32
+// there the 3xTF32 bodies of flash_tf32.cuh.
 //
 // Layout: q/out/dO (BH, S, D) and k/v (BH, T, D), contiguous, so the rows
 // row0 .. row0 + n - 1 of one bh are one contiguous run of n * D elements.

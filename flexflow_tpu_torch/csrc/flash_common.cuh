@@ -8,11 +8,12 @@
 // ((b * L + t) * heads + h) * D + d. A q head h reads kv head h / rep
 // (rep = H / Hkv): no head-major copy and no repeated K/V.
 //
-// Work split (the CUDA-core bodies: fp32, and bf16 off the tensor-core
-// head dims): a block of 256 threads is a 16 x 16 grid; tiles are BT x BT
-// with BT = 64, or 32 where 64-row tiles of a kernel do not fit a block's
-// 227 KB of shared memory (D 256 in the backward, 384 in both, 512 in
-// the forward), 16 where 32 do not (D 512 in the backward). Thread
+// Work split (the CUDA-core bodies: K1 in fp32, K2 in fp32 at D 64, 384
+// and 512, and bf16 off the tensor-core head dims): a block of 256
+// threads is a 16 x 16 grid; tiles are BT x BT with BT = 64, or 32 where
+// 64-row tiles of a kernel do not fit a block's 227 KB of shared memory
+// (D 384 in both, 512 in the forward), 16 where 32 do not (D 512 in the
+// backward). Thread
 // (ty, tx) owns
 // rows ty * (BT / 16) + i of a tile and, of a score tile, columns
 // tx + 16 * j (j < BT / 16); of a D-wide tile, columns tx + 16 * jd

@@ -8,7 +8,9 @@ source and the shared headers, so an edited source never loads a stale
 build) and bound with ctypes. The headers hold what several sources
 share: `flash_wgmma_fwd.cuh` and `flash_wgmma_bwd.cuh` are the
 tensor-core flash bodies that K1/K2's sources and K4's sources both
-instantiate, each under its own layout tag. Nothing is built or loaded
+instantiate, each under its own layout tag, and `flash_tf32.cuh` the
+3xTF32 fp32 bodies that K4's sources and K2's wrap in kernels of their
+own names. Nothing is built or loaded
 when this module is imported: the CPU tests import it on machines with
 no nvcc and no card.
 
@@ -179,9 +181,9 @@ FLASH_ATTENTION_DKV = CudaKernel(
 )
 
 # K4, the head-major kernels (q (BH, S, D), k/v (BH, T, D), any D up to
-# 256): forward, dq and dk/dv; bf16 at D 64, 128 and 256 on the tensor
-# cores (K1/K2's bodies under the HeadMajor tag), every other case on
-# CUDA cores
+# 256): forward, dq and dk/dv; at D 64, 128 and 256 on the tensor cores
+# (bf16: K1/K2's bodies under the HeadMajor tag; fp32: the 3xTF32 bodies
+# of csrc/flash_tf32.cuh), every other case on CUDA cores
 FLASH_ATTENTION_BH_FWD = CudaKernel(
     name="flash_attention_bh_fwd",
     source="flash_attention_bh_fwd.cu",

@@ -19,10 +19,12 @@ q (B, S, H, D) and k/v (B, T, Hkv, D) with H % Hkv == 0, and returns
   zero-pads D to 128 lanes; that is TPU tiling, and K4 takes D as it is.
   K4 in bf16 at D 64 (GPT-2's and bench.py's 200m Llama's heads), 128
   and 256 runs on the tensor cores, through the bodies K1/K2 run
-  (csrc/flash_wgmma_fwd.cuh, csrc/flash_wgmma_bwd.cuh), and its fp32
-  dq and dk/dv at those widths on them too, in 3xTF32 (the arithmetic
-  `einsum_3xtf32` emulates); the fp32 forward and the other widths run
-  K4's CUDA-core bodies. Which body runs is the C entry's choice by
+  (csrc/flash_wgmma_fwd.cuh, csrc/flash_wgmma_bwd.cuh), and in fp32 at
+  those widths (forward, dq and dk/dv) on them too, in 3xTF32
+  (csrc/flash_tf32.cuh; the arithmetic `einsum_3xtf32` emulates); the
+  other widths run K4's CUDA-core bodies. K2's fp32 dq and dk/dv at D
+  128 and 256 run the same 3xTF32 body on the flat layout; K1 in fp32
+  stays on the CUDA cores. Which body runs is the C entry's choice by
   dtype and D; the route here is by D alone.
 
 The ring's step kernel K5 (`flash_bh_fwd_carry`, the reference's
@@ -66,29 +68,32 @@ FLAT_MAX_HEAD_DIM = 512
 FLAT_HEAD_DIMS = (64, 128, 256, 384, 512)
 
 
-def flash_attention_reference(q, k, v, causal: bool, scale: float):
+def flash_attention_reference(q, k, v, causal: bool, scale: float, *,
+                              einsum=torch.einsum):
     """The plain version of K1's contract: (out, lse). Dense fp32 logits
     times `scale`; under `causal` the top-left mask (query qpos sees key
     kpos when qpos >= kpos) sets masked logits to -1e30; probabilities
     are rounded to q's dtype before the value product; out in q's dtype;
     lse is the fp32 logsumexp of the masked, scaled logits, (B, H, S).
-    GQA: q head h reads kv head h // rep."""
+    GQA: q head h reads kv head h // rep. `einsum` computes both products
+    (einsum_3xtf32 emulates the card's fp32 tensor-core arithmetic)."""
     S, H = q.shape[1], q.shape[2]
     T, Hkv = k.shape[1], k.shape[2]
     if Hkv != H:
         k = k.repeat_interleave(H // Hkv, dim=2)
         v = v.repeat_interleave(H // Hkv, dim=2)
-    logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    logits = einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
     if causal:
         visible = torch.ones(S, T, dtype=torch.bool, device=q.device).tril()
         logits = logits.masked_fill(~visible, NEG_INF)
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.exp(logits - lse[..., None]).to(q.dtype)
-    out = torch.einsum("bhst,bthd->bshd", probs.float(), v.float())
+    out = einsum("bhst,bthd->bshd", probs.float(), v.float())
     return out.to(q.dtype), lse
 
 
-def _backward_terms(q, k, v, dout, lse, delta, causal, scale):
+def _backward_terms(q, k, v, dout, lse, delta, causal, scale,
+                    einsum=torch.einsum):
     """What both backward kernels recompute, densely: k and v repeated to
     the q heads, p = exp(s - lse) and ds = p * (dp - delta) * scale, all
     fp32 (B, H, S, T)."""
@@ -96,36 +101,39 @@ def _backward_terms(q, k, v, dout, lse, delta, causal, scale):
     T, Hkv = k.shape[1], k.shape[2]
     kr = k.repeat_interleave(H // Hkv, dim=2).float()
     vr = v.repeat_interleave(H // Hkv, dim=2).float()
-    s = torch.einsum("bshd,bthd->bhst", q.float(), kr) * scale
+    s = einsum("bshd,bthd->bhst", q.float(), kr) * scale
     if causal:
         visible = torch.ones(S, T, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~visible, NEG_INF)
     p = torch.exp(s - lse[..., None])
-    dp = torch.einsum("bshd,bthd->bhst", dout.float(), vr)
+    dp = einsum("bshd,bthd->bhst", dout.float(), vr)
     ds = p * (dp - delta[..., None]) * scale
     return kr, p, ds
 
 
 def flash_dq_reference(q, k, v, dout, lse, delta, causal: bool,
-                       scale: float):
+                       scale: float, *, einsum=torch.einsum):
     """The plain version of K2's dq kernel: dq = ds (rounded to k's
-    dtype) . k, summed in fp32, in q's dtype."""
-    kr, _, ds = _backward_terms(q, k, v, dout, lse, delta, causal, scale)
-    dq = torch.einsum("bhst,bthd->bshd", ds.to(k.dtype).float(), kr)
+    dtype) . k, summed in fp32, in q's dtype; `einsum` computes every
+    product (einsum_3xtf32 emulates the fp32 card body's arithmetic)."""
+    kr, _, ds = _backward_terms(q, k, v, dout, lse, delta, causal, scale,
+                                einsum)
+    dq = einsum("bhst,bthd->bshd", ds.to(k.dtype).float(), kr)
     return dq.to(q.dtype)
 
 
 def flash_dkv_reference(q, k, v, dout, lse, delta, causal: bool,
-                        scale: float):
+                        scale: float, *, einsum=torch.einsum):
     """The plain version of K2's dk/dv kernel: dk = ds (rounded to q's
     dtype) . q and dv = p (rounded to dO's dtype) . dO, summed in fp32
-    over the queries and the GQA group's heads, at Hkv heads."""
-    _, p, ds = _backward_terms(q, k, v, dout, lse, delta, causal, scale)
+    over the queries and the GQA group's heads, at Hkv heads; `einsum`
+    as for dq."""
+    _, p, ds = _backward_terms(q, k, v, dout, lse, delta, causal, scale,
+                               einsum)
     B, T, Hkv, D = k.shape
     rep = q.shape[2] // Hkv
-    dk = torch.einsum("bhst,bshd->bthd", ds.to(q.dtype).float(), q.float())
-    dv = torch.einsum("bhst,bshd->bthd", p.to(dout.dtype).float(),
-                      dout.float())
+    dk = einsum("bhst,bshd->bthd", ds.to(q.dtype).float(), q.float())
+    dv = einsum("bhst,bshd->bthd", p.to(dout.dtype).float(), dout.float())
     return (dk.reshape(B, T, Hkv, rep, D).sum(3).to(k.dtype),
             dv.reshape(B, T, Hkv, rep, D).sum(3).to(v.dtype))
 
@@ -150,10 +158,11 @@ def tf32_round(x):
 
 
 def einsum_3xtf32(eq: str, a, b):
-    """The fp32 products of K4's fp32 backward on the card (3xTF32): each
-    operand split as hi = tf32(x), lo = tf32(x - hi), and a . b summed as
-    a_lo . b_hi + a_hi . b_lo + a_hi . b_hi in fp32 (lo . lo dropped). A
-    plain emulation for checking the numerics against the reference."""
+    """The fp32 products of the 3xTF32 bodies on the card (K4's fp32
+    forward, dq and dk/dv; K2's fp32 dq and dk/dv): each operand split as
+    hi = tf32(x), lo = tf32(x - hi), and a . b summed as a_lo . b_hi +
+    a_hi . b_lo + a_hi . b_hi in fp32 (lo . lo dropped). A plain
+    emulation for checking the numerics against the reference."""
     a, b = a.float(), b.float()
     ah, bh = tf32_round(a), tf32_round(b)
     al, bl = tf32_round(a - ah), tf32_round(b - bh)
@@ -172,15 +181,18 @@ def _bh_scores(q, k, causal, scale, einsum=torch.einsum):
     return s
 
 
-def flash_bh_reference(q, k, v, causal: bool, scale: float):
+def flash_bh_reference(q, k, v, causal: bool, scale: float, *,
+                       einsum=torch.einsum):
     """The plain version of K4's forward (`_fwd`): (out, lse) of attention
     over head-major q (BH, S, D) and k/v (BH, T, D). Probabilities are
     rounded to v's dtype before the value product; out in q's dtype; lse
-    the fp32 (BH, S) logsumexp of the masked, scaled scores."""
-    s = _bh_scores(q, k, causal, scale)
+    the fp32 (BH, S) logsumexp of the masked, scaled scores. `einsum`
+    computes both products (einsum_3xtf32 emulates the fp32 card body's
+    arithmetic)."""
+    s = _bh_scores(q, k, causal, scale, einsum)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None]).to(v.dtype)
-    out = torch.einsum("bst,btd->bsd", p.float(), v.float())
+    out = einsum("bst,btd->bsd", p.float(), v.float())
     return out.to(q.dtype), lse
 
 

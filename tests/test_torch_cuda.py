@@ -15,6 +15,8 @@ from flexflow_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
     flash_delta,
+    flash_dkv_reference,
+    flash_dq_reference,
     flash_bh_delta,
     flash_bh_dkv_reference,
     flash_bh_dq_reference,
@@ -328,8 +330,9 @@ def _close(got, want, tol):
 
 
 # (S, T, H, Hkv, D): S = T at 128, a ragged 1000 and 1024, S != T both
-# ways, GQA rep 1, 2 and 8; fp32 and bf16 at 384 / 512 run the CUDA-core
-# bodies, bf16 at 64, 128 and 256 the tensor-core ones
+# ways, GQA rep 1, 2 and 8; bf16 at 64, 128 and 256 run K2's wgmma
+# bodies, fp32 at 128 and 256 its 3xTF32 ones, the rest (fp32 at 64,
+# both dtypes at 384 / 512, and K1 in fp32) the CUDA-core bodies
 FLASH_SHAPES = [
     (128, 128, 4, 2, 64), (1000, 1000, 4, 2, 64),
     (128, 128, 4, 4, 128), (256, 256, 4, 2, 128), (1000, 1000, 4, 2, 128),
@@ -467,10 +470,10 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take():
         flash_bh_fwd_carry(q, q, q, m, l, acc, True, 0.1)
 
 
-# (S, T, D) for K4: every padded width of the CUDA-core bodies (fp32 at
-# every D, bf16 at 8, 48, 80, 96, 100), S != T and S not a multiple of the
-# tile; and the tensor-core classes (bf16 at D 64, 128 and 256): S = T at
-# 128, a ragged 1000 and 1024, and S != T both ways
+# (S, T, D) for K4: every padded width of the CUDA-core bodies (8, 48,
+# 80, 96, 100), S != T and S not a multiple of the tile; and the
+# tensor-core classes (D 64, 128 and 256: wgmma in bf16, 3xTF32 in
+# fp32): S = T at 128, a ragged 1000 and 1024, and S != T both ways
 K4_SHAPES = [
     (128, 128, 64), (200, 200, 48), (130, 260, 80), (256, 100, 96),
     (128, 128, 100), (96, 96, 8), (256, 256, 128), (160, 160, 256),
@@ -598,6 +601,143 @@ def test_head_major_bf16_kernels_are_bitwise_deterministic(causal, S, T, D):
     torch.cuda.synchronize()
     for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_head_major_fp32_forward_takes_unaligned_tensors(D):
+    """K4's fp32 forward at D 64, 128 and 256 (the 3xTF32 body) on
+    tensors whose base is 4 bytes past a 16-byte boundary (staged by
+    scalar loads, not cp.async) matches the plain version within
+    FLASH_TOLS, causal and not, S not a multiple of the tile."""
+    _needs_card()
+    from flexflow_tpu_torch.ops.flash_attention import flash_bh_forward
+
+    BH, S, T, scale = 3, 200, 333, 1.0 / D ** 0.5
+    g = torch.Generator(device="cuda").manual_seed(D)
+
+    def unaligned(*shape):
+        flat = torch.randn(int(np.prod(shape)) + 1, generator=g,
+                           device="cuda")
+        t = flat[1:].view(*shape)
+        assert t.is_contiguous() and t.data_ptr() % 16 != 0
+        return t
+
+    q, k, v = unaligned(BH, S, D), unaligned(BH, T, D), unaligned(BH, T, D)
+    for causal in (True, False):
+        out, lse = flash_bh_forward(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        want_out, want_lse = flash_bh_reference(q, k, v, causal, scale)
+        for name, got, want in (("out", out, want_out),
+                                ("lse", lse, want_lse)):
+            ok, err = _close(got, want, FLASH_TOLS[torch.float32][0])
+            assert ok, (name, causal, err)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,T,D", [(1000, 1000, 64), (256, 1024, 128),
+                                   (1024, 300, 256)])
+def test_head_major_fp32_kernels_are_bitwise_deterministic(causal, S, T, D):
+    """Two launches of each fp32 K4 kernel on its 3xTF32 body (forward,
+    dq, dk/dv) on the same inputs give the same bits: no atomics."""
+    _needs_card()
+    from flexflow_tpu_torch.ops.flash_attention import (
+        flash_bh_dkv,
+        flash_bh_dq,
+        flash_bh_forward,
+    )
+
+    BH, scale = 8, 1.0 / D ** 0.5
+    g = torch.Generator(device="cuda").manual_seed(S + T + D)
+    q, do = (torch.randn(BH, S, D, generator=g, device="cuda")
+             for _ in range(2))
+    k, v = (torch.randn(BH, T, D, generator=g, device="cuda")
+            for _ in range(2))
+    runs = []
+    for _ in range(2):
+        out, lse = flash_bh_forward(q, k, v, causal, scale)
+        delta = flash_bh_delta(do, out)
+        args = (q, k, v, do, lse, delta, causal, scale)
+        runs.append((out, lse, flash_bh_dq(*args)) + flash_bh_dkv(*args))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,T,H,Hkv,D", [(1000, 1000, 16, 8, 128),
+                                         (256, 1024, 8, 1, 256),
+                                         (300, 200, 4, 4, 128)])
+def test_flash_fp32_kernels_are_bitwise_deterministic(causal, S, T, H, Hkv,
+                                                      D):
+    """Two launches of K1 and of K2's fp32 dq and dk/dv (the flat-layout
+    3xTF32 body at D 128 and 256) on the same inputs give the same bits:
+    dk/dv sum the GQA group (rep 2, 8 and 1) in registers, with no
+    atomics."""
+    _needs_card()
+    from flexflow_tpu_torch.kernels import (
+        launch_flash_attention_dkv,
+        launch_flash_attention_dq,
+        launch_flash_attention_fwd,
+    )
+
+    B = 2
+    scale = 1.0 / D ** 0.5
+    q, k, v, do = _flash_inputs(S, T, H, Hkv, D, torch.float32, 7)
+    do = do.contiguous()
+    runs = []
+    for _ in range(2):
+        out = torch.empty_like(q)
+        lse = torch.empty(B, H, S, device="cuda")
+        launch_flash_attention_fwd(q, k, v, out, lse, causal, scale)
+        delta = flash_delta(do, out)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        launch_flash_attention_dq(q, k, v, do, lse, delta, dq, causal, scale)
+        launch_flash_attention_dkv(q, k, v, do, lse, delta, dk, dv, causal,
+                                   scale)
+        runs.append((out, lse, dq, dk, dv))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("D", [128, 256])
+def test_flash_fp32_backward_takes_unaligned_tensors(D):
+    """K2's fp32 dq and dk/dv at D 128 and 256 (the flat-layout 3xTF32
+    body) on tensors whose base is 4 bytes past a 16-byte boundary
+    (scalar loads, not cp.async) match the plain versions within
+    FLASH_TOLS, GQA rep 2, causal, S != T."""
+    _needs_card()
+    from flexflow_tpu_torch.kernels import (
+        launch_flash_attention_dkv,
+        launch_flash_attention_dq,
+    )
+
+    B, S, T, H, Hkv, scale = 2, 200, 300, 4, 2, 1.0 / D ** 0.5
+    g = torch.Generator(device="cuda").manual_seed(D)
+
+    def unaligned(*shape):
+        flat = torch.randn(int(np.prod(shape)) + 1, generator=g,
+                           device="cuda")
+        t = flat[1:].view(*shape)
+        assert t.is_contiguous() and t.data_ptr() % 16 != 0
+        return t
+
+    q, do = unaligned(B, S, H, D), unaligned(B, S, H, D)
+    k, v = unaligned(B, T, Hkv, D), unaligned(B, T, Hkv, D)
+    out, lse = flash_attention_reference(q, k, v, True, scale)
+    delta = flash_delta(do, out)
+    args = (q, k, v, do, lse, delta)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    launch_flash_attention_dq(*args, dq, True, scale)
+    launch_flash_attention_dkv(*args, dk, dv, True, scale)
+    torch.cuda.synchronize()
+    want_dk, want_dv = flash_dkv_reference(*args, True, scale)
+    tol = FLASH_TOLS[torch.float32][1]
+    for name, got, want in (
+            ("dq", dq, flash_dq_reference(*args, True, scale)),
+            ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        ok, err = _close(got, want, tol)
+        assert ok, (name, err)
 
 
 @pytest.mark.parametrize("D,Hkv", [(64, 4), (48, 2), (96, 1)])

@@ -23,6 +23,7 @@ from flexflow_tpu.ops import attrs as JA  # noqa: E402
 from flexflow_tpu.ops import jax_ops  # noqa: E402
 from flexflow_tpu.ops.pallas.flash_attention import (  # noqa: E402
     _bwd,
+    _bwd_bshd,
     _fwd,
     _fwd_bshd,
 )
@@ -409,6 +410,81 @@ def test_3xtf32_backward_matches_jax_k4(causal):
     for einsum, ok in ((einsum_3xtf32, True), (one_tf32, False)):
         got = [flash_bh_dq_reference(*args, einsum=einsum),
                *flash_bh_dkv_reference(*args, einsum=einsum)]
+        verdicts = [chip_smoke._err_ok([(g, w)], tol)[1]
+                    for g, w in zip(got, want)]
+        if ok:
+            assert all(verdicts), verdicts
+        else:
+            assert not all(verdicts), verdicts
+
+
+def _one_tf32(eq, a, b):
+    """One tf32 product: operands rounded to tf32 once, summed in fp32."""
+    return torch.einsum(eq, tf32_round(a), tf32_round(b))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_forward_matches_jax_k4(causal):
+    """K4's fp32 forward as the card's 3xTF32 body computes it
+    (einsum_3xtf32 through flash_bh_reference) at GPT-2's head dim 64,
+    against the reference's `_fwd` in interpret mode within
+    FLASH_TOLS[float32] (out's max |err| and error norm, lse within
+    LSE_ATOL), judged by chip_smoke's `_err_ok` as the card's kernel is.
+    One tf32 product alone misses the same bounds."""
+    import chip_smoke
+    tol = chip_smoke.FLASH_TOLS[torch.float32][0]
+    BH, S, D = 2, 256, 64
+    scale = 1.0 / np.sqrt(D)
+    q, k, v, _, _ = _bh_inputs(BH, S, S, D, seed=640 + causal)
+    jout, jlse = _fwd(*(jnp.asarray(a) for a in (q, k, v)), causal, scale,
+                      128, 128, True)
+    want_out = torch.from_numpy(np.array(jout))
+    want_lse = torch.from_numpy(np.array(jlse)[..., 0])
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    for einsum, ok in ((einsum_3xtf32, True), (_one_tf32, False)):
+        out, lse = flash_bh_reference(tq, tk, tv, causal, scale,
+                                      einsum=einsum)
+        verdict = chip_smoke._err_ok([(out, want_out)], tol,
+                                     (lse, want_lse))[1]
+        assert verdict == ok, (einsum.__name__, chip_smoke._err_parts(
+            out, want_out, tol))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_flat_backward_matches_jax_k2(causal):
+    """K2's fp32 dq and dk/dv as the card's 3xTF32 body computes them on
+    the flat layout (einsum_3xtf32 through flash_dq_reference /
+    flash_dkv_reference) at head dim 128, GQA rep 2 (two query heads
+    over one kv head), against the reference's `_bwd_bshd` in interpret
+    mode within FLASH_TOLS[float32] (max |err| and the error norm, as
+    chip_smoke's checks hold the card's kernels). One tf32 product alone
+    misses the same bounds."""
+    import chip_smoke
+    tol = chip_smoke.FLASH_TOLS[torch.float32][1]
+    S, H, Hkv, D = 256, 2, 1, 128
+    scale = 1.0 / np.sqrt(D)
+    q, k, v, do = _inputs(S, H, Hkv, D, seed=128 + causal)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = flash_attention_reference(tq, tk, tv, causal, scale)
+    delta = flash_delta(tdo, out)
+    # the reference's lane-broadcast lse, (B, S, H * 128)
+    jl = jnp.broadcast_to(
+        jnp.asarray(lse.numpy().transpose(0, 2, 1))[..., None],
+        (1, S, H, 128)).reshape(1, S, H * 128)
+    jdq, jdk, jdv = _bwd_bshd(
+        jnp.asarray(q.reshape(1, S, H * D)),
+        jnp.asarray(k.reshape(1, S, Hkv * D)),
+        jnp.asarray(v.reshape(1, S, Hkv * D)),
+        jnp.asarray(out.numpy().reshape(1, S, H * D)), jl,
+        jnp.asarray(do.reshape(1, S, H * D)), causal, scale, 128, 128, True,
+        H, D)
+    want = [torch.from_numpy(np.array(jdq)).reshape(1, S, H, D),
+            torch.from_numpy(np.array(jdk)).reshape(1, S, Hkv, D),
+            torch.from_numpy(np.array(jdv)).reshape(1, S, Hkv, D)]
+    args = (tq, tk, tv, tdo, lse, delta, causal, scale)
+    for einsum, ok in ((einsum_3xtf32, True), (_one_tf32, False)):
+        got = [flash_dq_reference(*args, einsum=einsum),
+               *flash_dkv_reference(*args, einsum=einsum)]
         verdicts = [chip_smoke._err_ok([(g, w)], tol)[1]
                     for g, w in zip(got, want)]
         if ok:
