@@ -1,11 +1,11 @@
 """Chip smoke test of flexflow_tpu_torch, the PyTorch/CUDA port: drives the
 port's main paths on one NVIDIA card, paged Llama serving (fp and int8 KV
-pools, prefix cache, preemption, defrag), Llama training (head dims 128
-and 64), GPT-2 training and paged serving, and Llama training through
+pools, prefix cache, preemption, defrag), Llama training (head dims 128,
+64 and 96), GPT-2 training and paged serving, and Llama training through
 ring attention, and holds every hand-written kernel on them to its plain
 PyTorch version.
 
-    python3 chip_smoke.py            # phases 1,2,3,4,6,7,8,9,10,11, one card
+    python3 chip_smoke.py            # phases 1..4, 6..12, one card
     python3 chip_smoke.py --phases 5 # + profiles of serving and training
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
@@ -13,10 +13,11 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      sm_90a, one process per source, all started together), with the
      seconds each source took and the HGMMA (wgmma) instructions in the
      SASS of each tensor-core flash kernel: K1/K2's and K4's forward, dq
-     and dk/dv and K5's forward at head dims 64, 128 and 256
-     (WGMMA_KERNELS), and the tf32 HMMA (mma.sync) instructions of the
-     3xTF32 fp32 bodies: K4's forward, dq and dk/dv at those widths and
-     K2's flat dq and dk/dv at 128 and 256 (TF32_KERNELS);
+     and dk/dv and K5's forward at head dims 64, 128 and 256, and K4's
+     at 48, 80 and 96 (WGMMA_KERNELS), and the tf32 HMMA (mma.sync)
+     instructions of the 3xTF32 fp32 bodies: K4's forward, dq and dk/dv
+     at 64, 128 and 256 and K2's flat dq and dk/dv at 128 and 256
+     (TF32_KERNELS);
   2. kernels vs their plain versions on the card, with kernel / plain /
      library times and the roofline bound: the ragged paged attention at
      the serving path's shapes (Llama-3-8B attention: H=32, Hkv=8,
@@ -30,16 +31,20 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      path's shape (bench_1b attention: B 8, S = T 1024, H 16, Hkv 8,
      D 128, causal), then at a ragged S = T = 1000, at S 256 against
      T 1024 (full), at head dim 256 (Gemma-7B's attention: B 2, S = T
-     1024, 16 heads of 256, causal) and at 384 and 512 (FLASH_CASES);
+     1024, 16 heads of 256, causal), at 384 and 512, and at S = T 4096
+     (4 heads over 2, D 128, causal and full: K2's fp32 sums past 2048
+     rows) (FLASH_CASES);
      bf16 and fp32 (K2's fp32 at 128 and 256 on its 3xTF32 body, with
      the body's floor, 3 x ops at the tf32 peak, beside the bound); and
      the head-major flash kernels K4 (forward, dq, dk/dv) at GPT-2 XL
      training's shape (B*H 8*25, S = T 1024, D 64, causal) and at phase
-     11's (B*H 8*16, bf16) with times, then at head dims 48, 80, 96, 100
-     and 256, non-causal, S != T, S not a multiple of the tile and phase
-     10's ring block (B*H 16, S = T 2048, D 128, causal and full), each
-     timed beside SDPA in its dtype and each backward also fed a shifted
-     lse (the ring's contract); the flash
+     11's (B*H 8*16, bf16) and phase 12's (B*H 8*32, D 96, bf16) with
+     times, then at head dims 48, 80, 96, 100 and 256, non-causal, S !=
+     T, S not a multiple of the tile and phase 10's ring block (B*H 16,
+     S = T 2048, D 128, causal and full), each timed beside SDPA in its
+     dtype and each backward also fed a shifted lse (the ring's
+     contract), and in fp32 at S = T 4096 and 8192 (D 64 and 128, causal
+     and full: the 3xTF32 backward's sums past 2048 rows); the flash
      checks (max |err|, error norm, lse; FLASH_TOLS, LSE_ATOL) must
      reject a planted fault at GPT-2 XL's shape, bf16 and fp32 (the
      plain results with one key tile skipped for the last query rows);
@@ -68,8 +73,8 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
   5. (on request) torch.profiler breakdowns of one decode step, one
      prefill step, one decode step on an int8 pool (with the int8 ragged
      kernels' and quantize-on-append's launches and ms), one bench_1b
-     train step, one GPT-2 XL train step, one phase-10 ring step and one
-     phase-11 step;
+     train step, one GPT-2 XL train step, one phase-10 ring step, one
+     phase-11 step and one phase-12 step;
   6. training: bench_1b (16 layers, bf16, batch 8, seq 1024,
      remat="none", Adam lr 1e-4, random weights from a seed) through
      ff.fit for one epoch of 10 seeded batches, then 10 timed steps on
@@ -120,7 +125,13 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      must fall); each K4 kernel must launch 12 times per step and no
      other attention kernel, and a profiled step must show K4 on its
      tensor-core bodies only (K4's share of the device time reported).
-     The kernels line takes K4's launches from this phase.
+     The kernels line takes K4's launches from this phase;
+ 12. training a Llama at Phi-3-mini's widths
+     (microsoft/Phi-3-mini-4k-instruct: vocab 32064, dim 3072, 32 heads
+     and 32 kv heads of 96, FFN 8192, rope theta 10000; 16 of its 32
+     layers) as phase 11 trains the 200m one: each K4 kernel must launch
+     16 times per step, on its tensor-core bodies at head dim 96 only
+     (the kernels line records these launches under "phi3_mini").
 The line before the last is the kernel list as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -277,6 +288,12 @@ K4_CASES = [
     ("d64_s1000_t1536", 16, 1000, 1536, 64, True),
     ("d96_s777_noncausal", 16, 777, 777, 96, False),
 ]
+# K4's fp32 backward past 2048 rows (name, B*H, S, T, D, causal): its
+# 3xTF32 dq and dk/dv sum one head's products over every streamed row, so
+# a longer sequence is a longer chain of tensor-core sums (errors only)
+K4_LONG_FP32_CASES = [
+    (f"fp32_s{S}_d{D}_{'causal' if c else 'full'}", 2, S, S, D, c)
+    for S in (4096, 8192) for D in (64, 128) for c in (True, False)]
 # K5 beyond the main shape (name, B*H, S, T, D, causal): the card test's
 # head dims, S != T, S not a multiple of the tile
 K5_CASES = [
@@ -302,6 +319,10 @@ FLASH_CASES = [
     ("bench_1b_s256_t1024_full", (FB, 256, FH, FHKV, FD), 1024, False),
     ("d384_causal", (2, 1024, 8, 8, 384), None, True),
     ("d512_causal", (2, 1024, 8, 8, 512), None, True),
+    # the 3xTF32 dq and dk/dv past 2048 rows: each sums a GQA group's
+    # products over every streamed row (K2's fp32 is the point; bf16 rides)
+    ("heads_s4096_gqa2_causal", (1, 4096, 4, 2, 128), None, True),
+    ("heads_s4096_gqa2_full", (1, 4096, 4, 2, 128), None, False),
 ]
 # phase 10: bench_1b at Llama-3's 8192-token context, cut over a
 # {"seq": 4} mesh (s_loc 2048), batch 1, 10 batches for fit; then timed
@@ -332,6 +353,23 @@ def llama_200m() -> LlamaConfig:
                        kv_heads=8, hidden=2816)
 
 
+# phase 12: Phi-3-mini's 32 layers cut to 16 (fp32 masters, gradients and
+# Adam's two moments of the whole depth do not fit one 80 GB card)
+PHI3_LAYERS = 16
+
+
+def phi3_mini() -> LlamaConfig:
+    """microsoft/Phi-3-mini-4k-instruct config.json's widths, built inline
+    (no constructor of its own): vocab 32064, hidden 3072, 32 heads and 32
+    kv heads (head dim 96: the head-major route, K4), intermediate 8192,
+    rope_theta 10000, rms_norm_eps 1e-5; PHI3_LAYERS of its 32 layers.
+    Its sliding window (2047) does not bind at seq 1024, where plain
+    causal attention is its exact mask."""
+    return LlamaConfig(vocab_size=32064, dim=3072, layers=PHI3_LAYERS,
+                       heads=32, kv_heads=32, hidden=8192,
+                       rope_theta=10000.0, norm_eps=1e-5)
+
+
 def gpt2_xl() -> GPT2Config:
     """openai-community/gpt2-xl config.json: vocab 50257, n_embd 1600,
     n_layer 48, n_head 25 (head dim 64), n_inner null (4 x 1600),
@@ -354,12 +392,14 @@ def card_line() -> str:
 
 # every tensor-core instantiation the sources build: K1/K2's bodies under
 # the FlatLayout tag and K4's under HeadMajor, forward, dq and dk/dv, and
-# K5's forward under HeadMajorCarry, at head dims 64, 128 and 256
-WGMMA_KERNELS = tuple(f"flash_{k}_wgmma_kernel<{tag},{d}>"
-                      for tag in ("FlatLayout", "HeadMajor")
-                      for k in ("fwd", "dq", "dkv") for d in (64, 128, 256)
-                      ) + tuple(f"flash_fwd_wgmma_kernel<HeadMajorCarry,{d}>"
-                                for d in (64, 128, 256))
+# K5's forward under HeadMajorCarry, at head dims 64, 128 and 256; and
+# K4's at 48, 80 and 96 (tiles zero-padded to 64 / 128 columns)
+WGMMA_KERNELS = tuple(
+    f"flash_{k}_wgmma_kernel<{tag},{d}>"
+    for tag, dims in (("FlatLayout", (64, 128, 256)),
+                      ("HeadMajor", (48, 64, 80, 96, 128, 256)))
+    for k in ("fwd", "dq", "dkv") for d in dims) + tuple(
+    f"flash_fwd_wgmma_kernel<HeadMajorCarry,{d}>" for d in (64, 128, 256))
 
 
 def wgmma_name(symbol: str):
@@ -1155,18 +1195,20 @@ def planted_fault_check(BH, S, D, dtype, seed, rows=128, keys=128,
 
 
 def phase_k4_kernels(card: str) -> dict:
-    """K4 at GPT-2 XL's shape (bf16 and fp32, timed) and at phase 11's
+    """K4 at GPT-2 XL's shape (bf16 and fp32, timed), at phase 11's
     (bench.py's 200m Llama: B*H 8*16, S = T 1024, D 64, causal; bf16,
-    timed: the kernels line's case), then at every case of K4_CASES in
-    both dtypes (errors and times: the padded widths' CUDA-core bodies,
-    the ring block's bf16 ones, the fp32 3xTF32 ones at 64..256), then
-    the planted fault (the checks must reject a skipped key tile at
-    GPT-2 XL's shape, bf16 and fp32), then the K1-vs-K4 record. Fails
-    on any error over its tolerance. Returns {"main": {dtype name:
-    {kernel: result}}, "timed": {case: {kernel: result}}, "cases":
+    timed: the kernels line's case) and at phase 12's (Phi-3-mini: B*H
+    8*32, S = T 1024, D 96, causal; bf16, timed), then at every case of
+    K4_CASES in both dtypes (errors and times: the wgmma bodies at D 48..
+    256 in bf16, the fp32 3xTF32 ones at 64..256, the CUDA-core bodies
+    at the rest), then K4_LONG_FP32_CASES (errors), then the planted
+    fault (the checks must reject a skipped key tile at GPT-2 XL's
+    shape, bf16 and fp32), then the K1-vs-K4 record. Fails on any error
+    over its tolerance. Returns {"main": {dtype name: {kernel: result}},
+    "timed": {case: {kernel: result}}, "cases": [...], "long_fp32":
     [...], "planted_fault": {dtype name: {...}}, "k1_vs_k4_d64":
     {...}}."""
-    main, timed, cases = {}, {}, []
+    main, timed, cases, long_fp32 = {}, {}, [], []
     for seed, dtype in enumerate((torch.bfloat16, torch.float32)):
         res = k4_check(KB * KH, KS, KS, KD, True, dtype, seed, timed=True)
         for r in res.values():
@@ -1182,6 +1224,15 @@ def phase_k4_kernels(card: str) -> dict:
         r.update(case="llama_200m_causal", card=card)
         log(f"kernel {json.dumps(r)}")
     timed["llama_200m_causal"] = res
+    cfg = phi3_mini()
+    res = k4_check(TRAIN_BATCH * cfg.heads, TRAIN_SEQ, TRAIN_SEQ,
+                   cfg.dim // cfg.heads, True, torch.bfloat16, 3,
+                   timed=True)
+    for r in res.values():
+        r.update(case="phi3_mini_causal", card=card)
+        log(f"kernel {json.dumps(r)}")
+    timed["phi3_mini_causal"] = res
+    torch.cuda.empty_cache()
     for i, (name, BH, S, T, D, causal) in enumerate(K4_CASES):
         for dtype in (torch.bfloat16, torch.float32):
             res = k4_check(BH, S, T, D, causal, dtype, 100 + i, timed=True)
@@ -1191,8 +1242,16 @@ def phase_k4_kernels(card: str) -> dict:
                 cases.append(r)
             timed[f"{name}_{str(dtype).replace('torch.', '')}"] = res
         torch.cuda.empty_cache()
+    for i, (name, BH, S, T, D, causal) in enumerate(K4_LONG_FP32_CASES):
+        res = k4_check(BH, S, T, D, causal, torch.float32, 300 + i)
+        for r in res.values():
+            r.update(case=name, card=card)
+            log(f"kernel {json.dumps(r)}")
+            long_fp32.append(r)
+        torch.cuda.empty_cache()
     bad = [r for d in main.values() for r in d.values() if not r["ok"]]
     bad += [r for d in timed.values() for r in d.values() if not r["ok"]]
+    bad += [r for r in long_fp32 if not r["ok"]]
     if bad:
         raise AssertionError(f"K4 kernels disagree with their plain "
                              f"versions: {bad}")
@@ -1211,7 +1270,8 @@ def phase_k4_kernels(card: str) -> dict:
     log(f"k1_vs_k4_d64 {json.dumps(cmp)}")
     torch.cuda.empty_cache()
     return {"main": main, "timed": timed, "cases": cases,
-            "planted_fault": fault, "k1_vs_k4_d64": cmp}
+            "long_fp32": long_fp32, "planted_fault": fault,
+            "k1_vs_k4_d64": cmp}
 
 
 # ---------------------------------------------------------------------------
@@ -2504,7 +2564,7 @@ def phase_ring_train(seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: bench.py's 200m Llama (head dim 64) trained through K4
+# phases 11 and 12: Llamas whose head dims take the head-major route (K4)
 
 
 def flash_bodies(prof, n: int, tag: str = "HeadMajor",
@@ -2516,17 +2576,20 @@ def flash_bodies(prof, n: int, tag: str = "HeadMajor",
     3xTF32 bodies ran): the tensor-core bodies under the layout tag
     `tag`, the CUDA-core ones whose names match `cuda_core` (K4 by
     default; K5 is tag "HeadMajorCarry" and the
-    flash_bh_fwd_carry_kernel); and their device ms and share of the
-    device time, keyed by `label`."""
+    flash_bh_fwd_carry_kernel); the head dims of the tensor-core bodies
+    that ran; and their device ms and share of the device time, keyed by
+    `label`."""
     evs = _device_events(prof)
     dev = sum(e.self_device_time_total for e in evs)
     launches = {"tensor_core": {}, "cuda_core": {}}
+    dims = set()
     own_us = 0.0
     for e in evs:
         name = wgmma_name(e.key)
         t32 = tf32_name(e.key)
         if name and name.split("<")[1].split(",")[0] == tag:
             body, kind = "tensor_core", name.split("_")[1]
+            dims.add(int(name.split(",")[1]))
         elif t32 and t32.startswith("flash_bh_") and tag == "HeadMajor":
             body = "tf32"
             kind = ("fwd" if t32.startswith("flash_bh_fwd") else
@@ -2540,26 +2603,27 @@ def flash_bodies(prof, n: int, tag: str = "HeadMajor",
         launches[body][kind] = launches[body].get(kind, 0) + e.count // n
         own_us += e.self_device_time_total
     return {"launches_per_step": launches,
+            "tensor_core_head_dims": sorted(dims),
             f"{label}_ms_per_step": own_us / n / 1e3,
             "device_ms_per_step": dev / n / 1e3,
             f"{label}_share_of_device_time": own_us / dev if dev else
             "not measured"}
 
 
-def phase_train_200m(seed: int, card: str) -> dict:
-    """bench.py's 200m Llama (llama_200m: head dim 64, so every attention
+def _train_head_major(seed: int, card: str, cfg, label: str) -> dict:
+    """`cfg` (a head dim that is not a multiple of 128, so every attention
     takes the head-major route), bf16, fp32 masters, batch 8, seq 1024,
     remat none, Adam lr 1e-4: one ff.fit epoch of 10 seeded batches (the
     main path; counts reset just before, read just after: each K4 kernel
     once per layer and step, no other attention kernel), 10 timed steps
     on one repeated batch (the loss must fall), then two profiled steps
-    that must show K4's launches on its tensor-core bodies
-    (flash_*_wgmma_kernel<HeadMajor, 64, ...>) and none on its CUDA-core
-    bodies; reports K4's share of the device time and the device's idle
-    share of a timed step."""
+    that must show K4's launches on its tensor-core bodies at the
+    model's head dim (flash_*_wgmma_kernel<HeadMajor, D, ...>) and none
+    on its CUDA-core bodies; reports K4's share of the device time and
+    the device's idle share of a timed step. Logged as `label`."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = llama_200m()
+    head_dim = cfg.dim // cfg.heads
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     ff = _train_model(cfg, DEVICE, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
@@ -2609,9 +2673,10 @@ def phase_train_200m(seed: int, card: str) -> dict:
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = llama_flops_per_token(cfg, TRAIN_SEQ) * tokens
     res = {
-        "model": "llama_200m", "layers": cfg.layers, "dim": cfg.dim,
+        "model": label, "layers": cfg.layers, "dim": cfg.dim,
         "heads": cfg.heads, "kv_heads": cfg.kv_heads,
-        "head_dim": cfg.dim // cfg.heads, "dtype": "bfloat16",
+        "head_dim": head_dim, "hidden": cfg.hidden,
+        "vocab": cfg.vocab_size, "dtype": "bfloat16",
         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": "none",
         "params": sum(t.numel() for w in tr.values() for t in w.values()),
         "init_s": init_s, "fit_s": fit_s, "fit_steps": TRAIN_BATCHES,
@@ -2625,20 +2690,33 @@ def phase_train_200m(seed: int, card: str) -> dict:
     if isinstance(bodies["k4_share_of_device_time"], float):
         # the device's idle share of a timed step
         res["idle_share"] = 1 - bodies["device_ms_per_step"] / (step_s * 1e3)
-    log(f"train_200m {json.dumps(res)}")
+    log(f"train_{label} {json.dumps(res)}")
     del ff, ex, tr, ntr, opt, m
     torch.cuda.empty_cache()
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"200m loss on a repeated batch did not fall: "
-                             f"{losses}")
+        raise AssertionError(f"{label} loss on a repeated batch did not "
+                             f"fall: {losses}")
     if any(n != cfg.layers * TIMED_STEPS for n in timed_launches.values()):
         raise AssertionError(f"timed launches {timed_launches}")
     per_step = {k: cfg.layers for k in ("fwd", "dq", "dkv")}
     if bodies["launches_per_step"] != {"tensor_core": per_step,
-                                       "cuda_core": {}}:
+                                       "cuda_core": {}} \
+            or bodies["tensor_core_head_dims"] != [head_dim]:
         raise AssertionError(f"K4 did not run on its tensor-core bodies "
-                             f"alone: {bodies}")
+                             f"at head dim {head_dim} alone: {bodies}")
     return res
+
+
+def phase_train_200m(seed: int, card: str) -> dict:
+    """Phase 11: bench.py's 200m Llama (llama_200m: head dim 64) through
+    _train_head_major."""
+    return _train_head_major(seed, card, llama_200m(), "llama_200m")
+
+
+def phase_train_phi3(seed: int, card: str) -> dict:
+    """Phase 12: a Llama at Phi-3-mini's widths (phi3_mini: head dim 96,
+    PHI3_LAYERS layers) through _train_head_major."""
+    return _train_head_major(seed, card, phi3_mini(), "phi3_mini")
 
 
 def gpt2_traffic(vocab: int, seed: int):
@@ -2744,9 +2822,9 @@ def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default "
-                    "1,2,3,4,6,7,8,9,10,11; 5 profiles serving and "
+                    "1,2,3,4,6,7,8,9,10,11,12; 5 profiles serving and "
                     "training steps)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -2793,6 +2871,7 @@ def main(argv=None) -> int:
         phase_gpt2_serve(args.seed, card)
     ring = phase_ring_train(args.seed, card) if 10 in phases else None
     train_200m = phase_train_200m(args.seed, card) if 11 in phases else None
+    train_phi3 = phase_train_phi3(args.seed, card) if 12 in phases else None
     if 5 in phases:
         phase_profile(args.seed, card)
         phase_profile_train(args.seed, card)
@@ -2801,6 +2880,7 @@ def main(argv=None) -> int:
                             batch=1, seq=RING_SEQ,
                             mesh_shape={"seq": RING_SHARDS})
         phase_profile_train(args.seed, card, llama_200m(), "llama_200m")
+        phase_profile_train(args.seed, card, phi3_mini(), "phi3_mini")
     main_case = next((r for r in kern if r["case"] == ATTENTION_CASES[0][0]
                       and r["dtype"] == "bfloat16"), None)
     entries = [_kernel_entry(
@@ -2834,10 +2914,10 @@ def main(argv=None) -> int:
                          if key not in ("name", "route", "source",
                                         "replaces")}
         entries.append(entry)
-    # K4 on this slice's main path: phase 11's bf16 fit, timed at its
-    # attention shape (phase 2)
-    # and its fp32 bodies on phase 8's: GPT-2 XL's fit, timed at its
-    # attention shape (phase 2), under "fp32"
+    # K4 on phase 11's bf16 fit (D 64), timed at its attention shape
+    # (phase 2); under "phi3_mini" on phase 12's (D 96, the padded wgmma
+    # bodies), timed at its shape; and its fp32 bodies on phase 8's:
+    # GPT-2 XL's fit, timed at its attention shape (phase 2), under "fp32"
     for k, src in ((FLASH_ATTENTION_BH_FWD, "flash_attention_bh_fwd.cu"),
                    (FLASH_ATTENTION_BH_DQ, "flash_attention_bh_bwd.cu"),
                    (FLASH_ATTENTION_BH_DKV, "flash_attention_bh_bwd.cu")):
@@ -2845,13 +2925,17 @@ def main(argv=None) -> int:
             k, f"flexflow_tpu_torch/csrc/{src}",
             train_200m["fit_launches"][k.name] if train_200m else 0,
             k4.get("timed", {}).get("llama_200m_causal", {}).get(k.name))
-        fp32 = _kernel_entry(
-            k, entry["source"],
-            gpt2["fit_launches"][k.name] if gpt2 else 0,
-            k4.get("main", {}).get("float32", {}).get(k.name))
-        entry["fp32"] = {key: val for key, val in fp32.items()
-                         if key not in ("name", "route", "source",
-                                        "replaces")}
+        for key, launches, res in (
+                ("phi3_mini",
+                 train_phi3["fit_launches"][k.name] if train_phi3 else 0,
+                 k4.get("timed", {}).get("phi3_mini_causal", {}).get(
+                     k.name)),
+                ("fp32", gpt2["fit_launches"][k.name] if gpt2 else 0,
+                 k4.get("main", {}).get("float32", {}).get(k.name))):
+            other = _kernel_entry(k, entry["source"], launches, res)
+            entry[key] = {name: val for name, val in other.items()
+                          if name not in ("name", "route", "source",
+                                          "replaces")}
         entries.append(entry)
     entries.append(_kernel_entry(
         FLASH_ATTENTION_BH_FWD_CARRY,

@@ -21,19 +21,24 @@
 // as the forward (flash_bh_common.cuh).
 //
 // Three designs.
-//   * bf16 at head dims 64, 128 and 256 (training at D 64; the ring's
-//     backward at D 128) runs on the tensor cores: K2's bodies of
-//     flash_wgmma_bwd.cuh (wgmma fed by TMA), instantiated here under the
-//     HeadMajor tag as flash_dq_wgmma_kernel<HeadMajor, ...> and
+//   * bf16 at head dims 48, 64, 80, 96, 128 and 256 (training at D 64 and
+//     Phi-3-mini's 96; the ring's backward at D 128) runs on the tensor
+//     cores: K2's bodies of flash_wgmma_bwd.cuh (wgmma fed by TMA),
+//     instantiated here under the HeadMajor tag as
+//     flash_dq_wgmma_kernel<HeadMajor, ...> and
 //     flash_dkv_wgmma_kernel<HeadMajor, ...> on (B = BH, L, heads = 1, D)
-//     tensor maps, lse and delta (BH, S) as K2's (B, H = 1, S).
+//     tensor maps, lse and delta (BH, S) as K2's (B, H = 1, S); at D 48,
+//     80 and 96 on tiles zero-padded to 64 / 128 columns by TMA, as the
+//     forward (flash_attention_bh_fwd.cu). D 100 stays on the CUDA cores
+//     (rows of 200 bytes: no TMA stride).
 //   * fp32 at 64, 128 and 256 (GPT-2 trains its attention in fp32, as the
 //     reference computes it) runs on the tensor cores too, in 3xTF32 on
 //     mma.sync (flash_bh_bwd_tf32_kernel below, over the body of
 //     flash_tf32.cuh): each fp32 product as three tf32 products of hi /
 //     lo halves, about fp32's accuracy. One tf32 product would round the
 //     reference's fp32 numerics, so none is used alone.
-//   * fp32 and bf16 at the other widths run the CUDA-core bodies below.
+//   * fp32 and bf16 at the widths not named run the CUDA-core bodies
+//     below.
 //
 // CUDA-core bodies. dq: one block per (query tile, bh), looping over the
 // live key tiles (up to the causal diagonal). dk/dv: one block per (key
@@ -414,9 +419,9 @@ int dispatch_dkv(const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO, dq, dk, dv share it);
-// lse and delta fp32 (BH, S). D 64, 128 and 256 run the tensor-core
-// bodies (bf16: wgmma; fp32: 3xTF32 mma.sync), every other case the
-// CUDA-core ones. Each returns a
+// lse and delta fp32 (BH, S). bf16 at D 48, 64, 80, 96, 128 and 256 runs
+// the wgmma bodies, fp32 at D 64, 128 and 256 the 3xTF32 ones (mma.sync),
+// every other case the CUDA-core ones. Each returns a
 // cudaError_t: cudaErrorInvalidValue for shapes the kernels do not take
 // (bh_shapes_ok) or tensors TMA cannot map, otherwise the launch's
 // cudaGetLastError().
@@ -430,7 +435,10 @@ int ff_flash_attention_bh_dq(const void* q, const void* k, const void* v,
 #define FF_DQ_WG(DIM)                                                      \
   return ffwg::launch_dq_wgmma<ffwg::HeadMajor, DIM>(                      \
       q, k, v, dout, lse, delta, dq, BH, S, T, 1, 1, causal, scale, st)
+  if (dtype == 1 && D == 48) FF_DQ_WG(48);
   if (dtype == 1 && D == 64) FF_DQ_WG(64);
+  if (dtype == 1 && D == 80) FF_DQ_WG(80);
+  if (dtype == 1 && D == 96) FF_DQ_WG(96);
   if (dtype == 1 && D == 128) FF_DQ_WG(128);
   if (dtype == 1 && D == 256) FF_DQ_WG(256);
 #undef FF_DQ_WG
@@ -461,7 +469,10 @@ int ff_flash_attention_bh_dkv(const void* q, const void* k, const void* v,
 #define FF_DKV_WG(DIM)                                                     \
   return ffwg::launch_dkv_wgmma<ffwg::HeadMajor, DIM>(                     \
       q, k, v, dout, lse, delta, dk, dv, BH, S, T, 1, 1, causal, scale, st)
+  if (dtype == 1 && D == 48) FF_DKV_WG(48);
   if (dtype == 1 && D == 64) FF_DKV_WG(64);
+  if (dtype == 1 && D == 80) FF_DKV_WG(80);
+  if (dtype == 1 && D == 96) FF_DKV_WG(96);
   if (dtype == 1 && D == 128) FF_DKV_WG(128);
   if (dtype == 1 && D == 256) FF_DKV_WG(256);
 #undef FF_DKV_WG

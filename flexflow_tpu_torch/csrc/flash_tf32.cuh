@@ -15,12 +15,13 @@
 // IEEE sums: each mma truncates toward zero, so a long chain of mma into
 // one accumulator drifts (a non-causal forward over 2048 keys, 768 mma a
 // chain, was off by ~1.5e-5 of its output's norm on an H100, three times
-// the bound phase 2 holds it to). Chains are kept short where an output
-// sums over many rows: the forward sums each 64 columns of its scores
-// and each K/V tile's p . v in a fresh accumulator, and K2's flat dk/dv
-// adds each GQA head's sums to the outputs, all in fp32 (the backward's
-// products over one head's rows stay one chain, as K4's backward was
-// tuned: it holds its bounds at the sequences phase 2 runs).
+// the bound phase 2 holds it to; the backward's dq, dk and dv over 8192
+// rows in one chain, 3072 mma, by ~6e-5 to 9e-5, past the 5e-5 bound).
+// Chains are kept short wherever an output sums over many rows: the
+// forward sums each 64 columns of its scores and each K/V tile's p . v,
+// and the backward each streamed tile's products, in a fresh accumulator
+// (24 mma at the 64-row tiles) folded into the output by an fp32 add; K2's
+// flat dk/dv also adds each GQA head's sums to the outputs in fp32.
 //
 // A block holds BR rows of the RESIDENT operands, 16 a warp, and streams
 // BS-row tiles of the others (forward: q resident, k and v streamed;
@@ -746,33 +747,39 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ q,
       else
         softmax(false);
 
-      // the products over the streamed rows (as in `product_tile`, the
-      // two interleaved)
+      // the products over the streamed rows (`product_tile`), each output
+      // tile's sum over the tile's rows in a fresh accumulator (a chain
+      // over every streamed row would drift), then added to the output in
+      // fp32; dk's and dv's one after the other, 8 output tiles a pass,
+      // so at most 8 tiles' fresh accumulators are live at a time (16 at
+      // D 128 spill)
+      auto products = [&](const float (&c)[NT][4], const float* xh,
+                          const float* xl, float (&acc)[NO][4]) {
+        constexpr int NG = NO < 8 ? NO : 8;  // output tiles a pass
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        uint32_t ph[4], pl[4], dh[4], dl[4];
-        split_fragment(c2[j], dh, dl);
-        if (kDkv) split_fragment(c1[j], ph, pl);
-        const int row0 = (j * 8 + 2 * t) * D, row1 = row0 + D;
+        for (int o0 = 0; o0 < NO; o0 += NG) {
+          float f[NG][4];
 #pragma unroll
-        for (int o = 0; o < NO; ++o) {
-          const int col = cb + o * 8;
-          const int i0 = row0 + (col ^ gc0), i1 = row1 + (col ^ gc1);
-          // dq += ds . k; dk += ds . q
-          const uint32_t xh[2] = {__float_as_uint(sX1h[i0]),
-                                  __float_as_uint(sX1h[i1])};
-          const uint32_t xl[2] = {__float_as_uint(sX1l[i0]),
-                                  __float_as_uint(sX1l[i1])};
-          mma3(acc1[o], dh, dl, xh, xl);
-          if (kDkv) {  // dv += p . dO
-            const uint32_t vh[2] = {__float_as_uint(sX2h[i0]),
-                                    __float_as_uint(sX2h[i1])};
-            const uint32_t vl[2] = {__float_as_uint(sX2l[i0]),
-                                    __float_as_uint(sX2l[i1])};
-            mma3(acc2[o], ph, pl, vh, vl);
+          for (int o = 0; o < NG; ++o)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) f[o][e] = 0.f;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            uint32_t ah[4], al[4];
+            split_fragment(c[j], ah, al);
+#pragma unroll
+            for (int o = 0; o < NG; ++o)
+              product_tile<D>(f[o], ah, al, xh, xl, j, t, cb + (o0 + o) * 8,
+                              gc0, gc1);
           }
+#pragma unroll
+          for (int o = 0; o < NG; ++o)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[o0 + o][e] += f[o][e];
         }
-      }
+      };
+      products(c2, sX1h, sX1l, acc1);  // dq += ds . k; dk += ds . q
+      if (kDkv) products(c1, sX2h, sX2l, acc2);  // dv += p . dO
     }
     if (hl + 1 < passes) {  // flat dk/dv: flush this head's sums
       store(hl > 0);

@@ -3,9 +3,16 @@
 // K1/K2's and K4's sources): mbarriers, TMA loads, wgmma and its
 // shared-memory descriptors, and the host-side tensor maps.
 //
-// Tiles in shared memory: a tile of R rows of one head, D = 64 * c columns
-// wide, is loaded by TMA as D / 64 boxes of R rows x 64 bf16 (128 bytes a
-// row) with the 128-byte swizzle, box after box, each 1024-byte aligned.
+// Tiles in shared memory: a tile of R rows of one head, DP = 64 * c
+// columns wide, is loaded by TMA as DP / 64 boxes of R rows x 64 bf16 (128
+// bytes a row) with the 128-byte swizzle, box after box, each 1024-byte
+// aligned. DP is the head dim D rounded up to 64 (pad64): the tensor map's
+// dims say D, and TMA fills the columns D .. DP - 1 of a box with zeros
+// (rows past L alike), so a D 96 head lands as a zero-padded 128-column
+// tile read from unpadded device memory. A contraction over D then runs
+// ceil(D / 16) k-steps (the zeros past them add nothing), and a product
+// whose N runs along D has N = D (wgmma's N steps by 8), reading its last
+// box in part.
 // One such tile serves wgmma both ways:
 //  - K-major (the contraction runs along D: q.k^T, dO.v^T, k.q^T, v.dO^T):
 //    k-step kk (16 columns) starts at box kk / 4, byte 32 * (kk % 4) of
@@ -99,6 +106,9 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 }
 
 // ---- warp specialisation ---------------------------------------------------
+
+// a head dim's tile width in shared memory: D rounded up to 64 columns
+__host__ __device__ constexpr int pad64(int d) { return (d + 63) / 64 * 64; }
 
 // A block of the tensor-core bodies (flash_wgmma_fwd.cuh,
 // flash_wgmma_bwd.cuh): kBM rows (queries, or keys for dk/dv) as two
@@ -299,6 +309,74 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// m64nNk16 with A from registers at N 48, 80 and 96: the value products
+// of K4's head dims 48, 80 and 96, B MN-major over 64-column boxes, its
+// last box read in part
+__device__ __forceinline__ void wgmma_rs_n48(float (&d)[24],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23},"
+      " {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39},"
+      " {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47},"
+      " {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                                const uint32_t (&a)[4],
                                                uint64_t b, int scale_d) {
@@ -413,10 +491,15 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
+  if constexpr (N == 48) wgmma_rs_n48(d, a, b, scale_d);
   if constexpr (N == 64) wgmma_rs_n64(d, a, b, scale_d);
+  if constexpr (N == 80) wgmma_rs_n80(d, a, b, scale_d);
+  if constexpr (N == 96) wgmma_rs_n96(d, a, b, scale_d);
   if constexpr (N == 128) wgmma_rs_n128(d, a, b, scale_d);
   if constexpr (N == 256) wgmma_rs_n256(d, a, b, scale_d);
-  static_assert(N == 64 || N == 128 || N == 256, "no wgmma_rs for this N");
+  static_assert(N == 48 || N == 64 || N == 80 || N == 96 || N == 128 ||
+                    N == 256,
+                "no wgmma_rs for this N");
 }
 
 // ---- host: tensor maps ----------------------------------------------------
@@ -449,9 +532,10 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // the map of a contiguous bf16 (B, L, heads, D) tensor whose box is `rows`
-// rows x 64 columns of one head of one batch entry; rows past L read as
-// zeros. False when the driver refuses it (e.g. a base address that is not
-// 16-byte aligned).
+// rows x 64 columns of one head of one batch entry; rows past L and
+// columns past D read as zeros. False when the driver refuses it (a base
+// address that is not 16-byte aligned, or a row of D bf16 that is not a
+// multiple of 16 bytes: D 100).
 inline bool make_map(CUtensorMap* map, const void* ptr, int B, int L,
                      int heads, int D, int rows) {
   EncodeTiledFn fn = encode_tiled();

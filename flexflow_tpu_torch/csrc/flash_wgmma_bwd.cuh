@@ -1,5 +1,7 @@
-// The tensor-core flash-attention backward bodies (bf16, head dims 64,
-// 128 and 256): wgmma fed by TMA, one kernel for dq and one for dk/dv.
+// The tensor-core flash-attention backward bodies (bf16; head dims 64,
+// 128 and 256, and K4's 48, 80 and 96 on zero-padded 64 / 128-column
+// tiles, flash_wgmma.cuh): wgmma fed by TMA, one kernel for dq and one
+// for dk/dv.
 // Each body serves two kernels, instantiated under their own layout tags
 // (flash_wgmma.cuh): K2 (flash_attention_bwd.cu, FlatLayout, GQA summed
 // in the block) and K4's backward (flash_attention_bh_bwd.cu, HeadMajor).
@@ -42,66 +44,70 @@
 
 namespace ffwg {
 
-// dq: key rows a K/V tile and stages of its ring, by head dim, picked by
-// timing on the card (PERF.md, "Tiles"). dq's accumulator is D / 2
-// registers a thread (128 at D 256), S and dP BK / 2 each. A tile in
-// flight while the next is scored holds a stage, so the ring needs three
-// to keep a load ahead. Q/dO buffers: two where they fit beside the ring,
-// else one
+// dq: key rows a K/V tile and stages of its ring, by tile width DP =
+// pad64(D), picked by timing on the card (PERF.md, "Tiles"). dq's
+// accumulator is D / 2 registers a thread (128 at D 256), S and dP BK / 2
+// each. A tile in flight while the next is scored holds a stage,
+// so the ring needs three to keep a load ahead. Q/dO buffers: two where
+// they fit beside the ring, else one
 template <int D>
 struct DqTiles {
-  static constexpr int kBK = D == 64 ? 128 : D == 128 ? 64 : 32;
-  static constexpr int kStages = D == 64 ? 4 : D == 128 ? 4 : 2;
+  static constexpr int DP = pad64(D);
+  static constexpr int kBK = DP == 64 ? 128 : DP == 128 ? 64 : 32;
+  static constexpr int kStages = DP == 64 ? 4 : DP == 128 ? 4 : 2;
   static constexpr int kQBufs =
-      (size_t)2 * 2 * kBM * D * 2 + (size_t)2 * kStages * kBK * D * 2 +
+      (size_t)2 * 2 * kBM * DP * 2 + (size_t)2 * kStages * kBK * DP * 2 +
                   2048 <=
               ffflash::kMaxSmemBytes
           ? 2
           : 1;
   // overlap a tile's ds.K with the next tile's scores where the tile in
-  // flight fits the registers: at D 256 it spills (ptxas -v)
-  static constexpr bool kOverlap = D <= 128;
+  // flight fits the registers: at DP 256 it spills (ptxas -v)
+  static constexpr bool kOverlap = DP <= 128;
 };
 
 template <int D>
 constexpr size_t dq_wg_smem() {
   using T = DqTiles<D>;
-  return (size_t)T::kQBufs * 2 * kBM * D * 2 +
-         (size_t)2 * T::kStages * T::kBK * D * 2 + 1024 + 1024;
+  return (size_t)T::kQBufs * 2 * kBM * T::DP * 2 +
+         (size_t)2 * T::kStages * T::kBK * T::DP * 2 + 1024 + 1024;
 }
 
-// dk/dv: keys an item. At D 64 and 128 each warpgroup takes 64 keys; at
+// dk/dv: keys an item. At DP 64 and 128 each warpgroup takes 64 keys; at
 // D 256 both take the same 64 keys and split the columns of dk and dv
 // (128 each), since two 64 x 256 fp32 accumulators would need 256
 // registers a thread; each computes the whole S^T and dP^T (their D-long
 // dots) for its half
 template <int D>
-__host__ __device__ constexpr int dkv_keys() { return D > 128 ? 64 : kBM; }
+__host__ __device__ constexpr int dkv_keys() {
+  return pad64(D) > 128 ? 64 : kBM;
+}
 
 // dk/dv: query rows a Q/dO tile, stages of its ring (picked by timing on
 // the card, PERF.md "Tiles"), K/V buffers
 template <int D>
 struct DkvTiles {
+  static constexpr int DP = pad64(D);
   static constexpr int kBQ = 64;
-  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kStages = DP == 64 ? 4 : 2;
   static constexpr size_t kRing =
-      (size_t)2 * kStages * kBQ * D * 2 + (size_t)2 * kStages * kBQ * 4;
+      (size_t)2 * kStages * kBQ * DP * 2 + (size_t)2 * kStages * kBQ * 4;
   static constexpr int kKVBufs =
-      (size_t)2 * 2 * dkv_keys<D>() * D * 2 + kRing + 2048 <=
+      (size_t)2 * 2 * dkv_keys<D>() * DP * 2 + kRing + 2048 <=
               ffflash::kMaxSmemBytes
           ? 2
           : 1;
   // overlap a tile's products with the next tile's scores where p^T and
-  // ds^T in flight beside dk and dv fit the registers: at D 128 and 256
+  // ds^T in flight beside dk and dv fit the registers: at DP 128 and 256
   // they spill (ptxas -v)
-  static constexpr bool kOverlap = D <= 64;
+  static constexpr bool kOverlap = DP <= 64;
 };
 
 template <int D>
 constexpr size_t dkv_wg_smem() {
   using T = DkvTiles<D>;
-  return (size_t)T::kKVBufs * 2 * dkv_keys<D>() * D * 2 + T::kRing + 1024 +
-         1024;
+  return (size_t)T::kKVBufs * 2 * dkv_keys<D>() * T::DP * 2 + T::kRing +
+         1024 + 1024;
 }
 
 template <class Tag, int D, int BK, int Stages, int QBufs>
@@ -114,8 +120,13 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                       const float* __restrict__ delta,
                       __nv_bfloat16* __restrict__ dq, int B, int S, int Tk,
                       int H, int Hkv, int causal, float scale) {
-  constexpr int kQBytes = kBM * D * 2;
-  constexpr int kKVBytes = BK * D * 2;
+  // tiles DP columns wide; S and dP stop after ceil(D / 16) k-steps,
+  // ds.K has N = D
+  constexpr int DP = pad64(D), KD = (D + 15) / 16;
+  static_assert(D % 8 == 0 && (DP <= 128 || DP == D),
+                "a head dim the tile layout does not take");
+  constexpr int kQBytes = kBM * DP * 2;
+  constexpr int kKVBytes = BK * DP * 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
   uint8_t* sQ = base;                          // QBufs x (Q, dO) tiles
@@ -160,9 +171,9 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         ++n;
         mbar_expect_tx(&q_full[qb], 2 * kQBytes);
         __nv_bfloat16* q_s = (__nv_bfloat16*)(sQ + qb * 2 * kQBytes);
-        __nv_bfloat16* o_s = q_s + kBM * D;  // dO
+        __nv_bfloat16* o_s = q_s + kBM * DP;  // dO
 #pragma unroll
-        for (int c = 0; c < D / 64; ++c) {
+        for (int c = 0; c < DP / 64; ++c) {
           tma_load_4d(q_s + c * kBM * 64, &map_q, &q_full[qb], c * 64, h,
                       q0, b);
           tma_load_4d(o_s + c * kBM * 64, &map_do, &q_full[qb], c * 64, h,
@@ -175,7 +186,7 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           __nv_bfloat16* k_s = (__nv_bfloat16*)(sK + s * kKVBytes);
           __nv_bfloat16* v_s = (__nv_bfloat16*)(sV + s * kKVBytes);
 #pragma unroll
-          for (int c = 0; c < D / 64; ++c) {
+          for (int c = 0; c < DP / 64; ++c) {
             tma_load_4d(k_s + c * BK * 64, &map_k, &full[s], c * 64, g,
                         i * BK, b);
             tma_load_4d(v_s + c * BK * 64, &map_v, &full[s], c * 64, g,
@@ -204,7 +215,7 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const int qb = n % QBufs;
       const __nv_bfloat16* q_s =
           (const __nv_bfloat16*)(sQ + qb * 2 * kQBytes);
-      const __nv_bfloat16* o_s = q_s + kBM * D;  // dO
+      const __nv_bfloat16* o_s = q_s + kBM * DP;  // dO
       float row_lse[2], row_delta[2];
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
@@ -243,11 +254,11 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const __nv_bfloat16* k_s = (const __nv_bfloat16*)(sK + s * kKVBytes);
         const __nv_bfloat16* v_s = (const __nv_bfloat16*)(sV + s * kKVBytes);
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
+        for (int kk = 0; kk < KD; ++kk)
           wgmma_ss<BK>(sc, kmajor<kBM>(q_s, wg * 64, kk),
                        kmajor<BK>(k_s, 0, kk), kk > 0);
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
+        for (int kk = 0; kk < KD; ++kk)
           wgmma_ss<BK>(dp, kmajor<kBM>(o_s, wg * 64, kk),
                        kmajor<BK>(v_s, 0, kk), kk > 0);
         wg_commit();
@@ -368,10 +379,15 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        __nv_bfloat16* __restrict__ dk,
                        __nv_bfloat16* __restrict__ dv, int B, int S, int Tk,
                        int H, int Hkv, int causal, float scale) {
+  // tiles DP columns wide; S^T and dP^T stop after ceil(D / 16) k-steps,
+  // the products have N = DW
+  constexpr int DP = pad64(D), KD = (D + 15) / 16;
+  static_assert(D % 8 == 0 && (DP <= 128 || DP == D),
+                "a head dim the tile layout does not take");
   constexpr int BN = dkv_keys<D>();
-  constexpr int DW = D > 128 ? D / 2 : D;  // dk / dv columns a warpgroup
-  constexpr int kKBytes = BN * D * 2;
-  constexpr int kQBytes = BQ * D * 2;
+  constexpr int DW = DP > 128 ? D / 2 : D;  // dk / dv columns a warpgroup
+  constexpr int kKBytes = BN * DP * 2;
+  constexpr int kQBytes = BQ * DP * 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
   uint8_t* sKV = base;                       // KVBufs x (K, V) tiles
@@ -425,9 +441,9 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           if (n >= KVBufs) mbar_wait(&kv_empty[kb], ((n / KVBufs) - 1) & 1);
           mbar_expect_tx(&kv_full[kb], 2 * kKBytes);
           __nv_bfloat16* k_s = (__nv_bfloat16*)(sKV + kb * 2 * kKBytes);
-          __nv_bfloat16* v_s = k_s + BN * D;
+          __nv_bfloat16* v_s = k_s + BN * DP;
 #pragma unroll
-          for (int c = 0; c < D / 64; ++c) {
+          for (int c = 0; c < DP / 64; ++c) {
             tma_load_4d(k_s + c * BN * 64, &map_k, &kv_full[kb], c * 64, g,
                         k0, b);
             tma_load_4d(v_s + c * BN * 64, &map_v, &kv_full[kb], c * 64, g,
@@ -451,7 +467,7 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
             __nv_bfloat16* q_s = (__nv_bfloat16*)(sQ + s * kQBytes);
             __nv_bfloat16* o_s = (__nv_bfloat16*)(sO + s * kQBytes);
 #pragma unroll
-            for (int c = 0; c < D / 64; ++c) {
+            for (int c = 0; c < DP / 64; ++c) {
               tma_load_4d(q_s + c * BQ * 64, &map_q, &full[s], c * 64, h,
                           q0, b);
               tma_load_4d(o_s + c * BQ * 64, &map_do, &full[s], c * 64, h,
@@ -468,8 +484,8 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     // consumers: key rows kr0 and kr0 + 8 of this thread, query columns
     // 8 j + cq + e of each tile
     const int wg = warp / 4;
-    const int key_off = D > 128 ? 0 : wg * 64;  // keys of this warpgroup
-    const int col_off = D > 128 ? wg * DW : 0;  // its dk / dv columns
+    const int key_off = DP > 128 ? 0 : wg * 64;  // keys of this warpgroup
+    const int col_off = DP > 128 ? wg * DW : 0;  // its dk / dv columns
     const int cq = 2 * (lane % 4);
     const float scale_log2 = scale * kLog2e;
     int it = 0, n = 0;  // Q/dO tiles and K/V items consumed so far
@@ -488,7 +504,7 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const int kb = n % KVBufs;
         const __nv_bfloat16* k_s =
             (const __nv_bfloat16*)(sKV + kb * 2 * kKBytes);
-        const __nv_bfloat16* v_s = k_s + BN * D;
+        const __nv_bfloat16* v_s = k_s + BN * DP;
         float st[BQ / 2], dpt[BQ / 2];
         uint32_t pa[BQ / 16][4], da[BQ / 16][4];  // the previous tile's
         // S^T = K.Q^T and dP^T = V.dO^T of the tile in stage s
@@ -496,11 +512,11 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           const __nv_bfloat16* q_s = (const __nv_bfloat16*)(sQ + s * kQBytes);
           const __nv_bfloat16* o_s = (const __nv_bfloat16*)(sO + s * kQBytes);
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
+          for (int kk = 0; kk < KD; ++kk)
             wgmma_ss<BQ>(st, kmajor<BN>(k_s, key_off, kk),
                          kmajor<BQ>(q_s, 0, kk), kk > 0);
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
+          for (int kk = 0; kk < KD; ++kk)
             wgmma_ss<BQ>(dpt, kmajor<BN>(v_s, key_off, kk),
                          kmajor<BQ>(o_s, 0, kk), kk > 0);
           wg_commit();

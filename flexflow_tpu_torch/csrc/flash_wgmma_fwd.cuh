@@ -1,6 +1,7 @@
-// The tensor-core flash-attention forward body (bf16, head dims 64, 128
-// and 256): wgmma fed by TMA. One body for two kernels, each instantiating
-// it under its own layout tag (flash_wgmma.cuh): K1
+// The tensor-core flash-attention forward body (bf16; head dims 64, 128
+// and 256, and K4's 48, 80 and 96 on zero-padded 64 / 128-column tiles,
+// flash_wgmma.cuh): wgmma fed by TMA. One body for two kernels, each
+// instantiating it under its own layout tag (flash_wgmma.cuh): K1
 // (flash_attention_fwd.cu, FlatLayout) and K4's forward
 // (flash_attention_bh_fwd.cu, HeadMajor).
 //
@@ -47,18 +48,21 @@
 
 namespace ffwg {
 
-// key rows a K/V tile and stages of the K/V ring, by head dim, picked by
-// timing on the card (PERF.md, "Tiles"). O is D / 2 registers a
-// thread (32 at D 64, 128 at D 256), S BK / 2. A tile in flight while the
-// next is scored holds a stage, so a ring of two keeps no load ahead.
+// key rows a K/V tile and stages of the K/V ring, by tile width DP =
+// pad64(D), picked by timing on the card (PERF.md, "Tiles"). O is D / 2
+// registers a thread (32 at D 64, 128 at D 256), S BK / 2. A tile in
+// flight while the next is scored holds a stage, so a ring of two keeps
+// no load ahead.
 template <int D>
 struct FwdTiles {
-  static constexpr int kBK = D == 64 ? 128 : D == 128 ? 128 : 32;
-  static constexpr int kStages = D == 64 ? 4 : D == 128 ? 3 : 4;
+  static constexpr int DP = pad64(D);
+  static constexpr int kBK = DP == 64 ? 128 : DP == 128 ? 128 : 32;
+  static constexpr int kStages = DP == 64 ? 4 : DP == 128 ? 3 : 4;
   // Q tiles in flight: two (the next item's loads while this one runs)
   // where they fit beside the K/V ring, else one
   static constexpr int kQBufs =
-      (size_t)2 * kBM * D * 2 + (size_t)2 * kStages * kBK * D * 2 + 2048 <=
+      (size_t)2 * kBM * DP * 2 + (size_t)2 * kStages * kBK * DP * 2 +
+                  2048 <=
               ffflash::kMaxSmemBytes
           ? 2
           : 1;
@@ -67,8 +71,8 @@ struct FwdTiles {
 template <int D>
 constexpr size_t fwd_wg_smem() {
   using T = FwdTiles<D>;
-  return (size_t)T::kQBufs * kBM * D * 2 +
-         (size_t)2 * T::kStages * T::kBK * D * 2 + 1024 /* barriers */ +
+  return (size_t)T::kQBufs * kBM * T::DP * 2 +
+         (size_t)2 * T::kStages * T::kBK * T::DP * 2 + 1024 /* barriers */ +
          1024 /* alignment */;
 }
 
@@ -140,8 +144,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        int B, int S, int Tk, int H, int Hkv, int causal,
                        float scale) {
   constexpr bool kCarry = std::is_same<Tag, HeadMajorCarry>::value;
-  constexpr int kQBytes = kBM * D * 2;
-  constexpr int kKVBytes = BK * D * 2;
+  // tiles DP columns wide; Q.K^T stops after ceil(D / 16) k-steps, P.V
+  // has N = D
+  constexpr int DP = pad64(D), KD = (D + 15) / 16;
+  static_assert(D % 8 == 0 && (DP <= 128 || DP == D),
+                "a head dim the tile layout does not take");
+  constexpr int kQBytes = kBM * DP * 2;
+  constexpr int kKVBytes = BK * DP * 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
   uint8_t* sQ = base;                               // QBufs tiles
@@ -187,7 +196,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         mbar_expect_tx(&q_full[qb], kQBytes);
         __nv_bfloat16* q_s = (__nv_bfloat16*)(sQ + qb * kQBytes);
 #pragma unroll
-        for (int c = 0; c < D / 64; ++c)
+        for (int c = 0; c < DP / 64; ++c)
           tma_load_4d(q_s + c * kBM * 64, &map_q, &q_full[qb], c * 64, h,
                       q0, b);
         for (int i = 0; i < nk; ++i, ++it) {
@@ -197,7 +206,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           __nv_bfloat16* k_s = (__nv_bfloat16*)(sK + s * kKVBytes);
           __nv_bfloat16* v_s = (__nv_bfloat16*)(sV + s * kKVBytes);
 #pragma unroll
-          for (int c = 0; c < D / 64; ++c) {
+          for (int c = 0; c < DP / 64; ++c) {
             tma_load_4d(k_s + c * BK * 64, &map_k, &full[s], c * 64, g,
                         i * BK, b);
             tma_load_4d(v_s + c * BK * 64, &map_v, &full[s], c * 64, g,
@@ -262,7 +271,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         fence_regs(sc);
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
+        for (int kk = 0; kk < KD; ++kk)
           wgmma_ss<BK>(sc, kmajor<kBM>(q_s, wg * 64, kk),
                        kmajor<BK>(k_s, 0, kk), kk > 0);
         wg_commit();
@@ -292,7 +301,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         fence_regs(o);
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
+        for (int kk = 0; kk < KD; ++kk)
           wgmma_ss<BK>(sc, kmajor<kBM>(q_s, wg * 64, kk),
                        kmajor<BK>(k_s, 0, kk), kk > 0);
         wg_commit();

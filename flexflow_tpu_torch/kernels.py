@@ -181,9 +181,10 @@ FLASH_ATTENTION_DKV = CudaKernel(
 )
 
 # K4, the head-major kernels (q (BH, S, D), k/v (BH, T, D), any D up to
-# 256): forward, dq and dk/dv; at D 64, 128 and 256 on the tensor cores
-# (bf16: K1/K2's bodies under the HeadMajor tag; fp32: the 3xTF32 bodies
-# of csrc/flash_tf32.cuh), every other case on CUDA cores
+# 256): forward, dq and dk/dv; on the tensor cores in bf16 at D 48, 64, 80,
+# 96, 128 and 256 (K1/K2's bodies under the HeadMajor tag, 48..96 on tiles
+# zero-padded to 64 / 128 columns) and in fp32 at 64, 128 and 256 (the
+# 3xTF32 bodies of csrc/flash_tf32.cuh), every other case on CUDA cores
 FLASH_ATTENTION_BH_FWD = CudaKernel(
     name="flash_attention_bh_fwd",
     source="flash_attention_bh_fwd.cu",

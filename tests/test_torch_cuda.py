@@ -439,7 +439,7 @@ def test_flash_bf16_kernels_are_bitwise_deterministic(causal, S, T, H, Hkv,
 def test_flash_wrapper_refuses_what_the_kernels_do_not_take():
     """D 640 (a multiple of 128 above 512) is refused by K1/K2; above 256
     by K4; float16 by both; a base address TMA cannot map by K4's and
-    K5's tensor-core bodies."""
+    K5's tensor-core bodies (K4's at D 64 and at the padded D 96)."""
     _needs_card()
     q = torch.zeros(1, 8, 2, 640, device="cuda")
     with pytest.raises(ValueError, match="up to 512"):
@@ -461,9 +461,25 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take():
     assert q.is_contiguous() and q.data_ptr() % 16 != 0
     with pytest.raises(RuntimeError, match="invalid argument"):
         flash_bh_forward(q, q, q, True, 0.1)
+    # and at D 96, whose body reads tiles zero-padded to 128 columns:
+    # forward, dq and dk/dv alike
+    from flexflow_tpu_torch.ops.flash_attention import flash_bh_dkv, flash_bh_dq
+
+    flat = torch.zeros(2 * 128 * 96 + 1, device="cuda", dtype=torch.bfloat16)
+    q = flat[1:].view(2, 128, 96)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    stats = torch.zeros(2, 128, device="cuda")
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        flash_bh_forward(q, q, q, True, 0.1)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        flash_bh_dq(q, q, q, q, stats, stats, True, 0.1)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        flash_bh_dkv(q, q, q, q, stats, stats, True, 0.1)
     # the same for K5's tensor-core body (HeadMajorCarry)
     from flexflow_tpu_torch.ops.flash_attention import flash_bh_fwd_carry
 
+    q = torch.zeros(2 * 128 * 64 + 1, device="cuda",
+                    dtype=torch.bfloat16)[1:].view(2, 128, 64)
     m, l = (torch.zeros(2, 128, device="cuda") for _ in range(2))
     acc = torch.zeros(2, 128, 64, device="cuda")
     with pytest.raises(RuntimeError, match="invalid argument"):
@@ -471,12 +487,15 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take():
 
 
 # (S, T, D) for K4: every padded width of the CUDA-core bodies (8, 48,
-# 80, 96, 100), S != T and S not a multiple of the tile; and the
-# tensor-core classes (D 64, 128 and 256: wgmma in bf16, 3xTF32 in
-# fp32): S = T at 128, a ragged 1000 and 1024, and S != T both ways
+# 80, 96, 100; bf16 at 48, 80 and 96 runs the wgmma bodies on tiles
+# zero-padded to 64 / 128 columns), S != T and S not a multiple of the
+# tile, S = T 1024 at 80 and 96 (Phi-3-mini's), a ragged S != T at 48;
+# and the tensor-core classes (D 64, 128 and 256: wgmma in bf16, 3xTF32
+# in fp32): S = T at 128, a ragged 1000 and 1024, and S != T both ways
 K4_SHAPES = [
     (128, 128, 64), (200, 200, 48), (130, 260, 80), (256, 100, 96),
     (128, 128, 100), (96, 96, 8), (256, 256, 128), (160, 160, 256),
+    (1024, 1024, 80), (1024, 1024, 96), (1000, 1536, 48),
     (1000, 1000, 64), (1024, 1024, 64), (256, 1024, 64), (1024, 300, 64),
     (128, 128, 128), (1000, 1000, 128), (1024, 1024, 128),
     (200, 1000, 128), (1000, 200, 128),
@@ -575,7 +594,8 @@ def test_head_major_fp32_backward_takes_unaligned_tensors(D):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S,T,D", [(1000, 1000, 64), (256, 1024, 128),
-                                   (1024, 300, 256)])
+                                   (1024, 300, 256), (1000, 1000, 96),
+                                   (256, 1024, 80), (1024, 300, 48)])
 def test_head_major_bf16_kernels_are_bitwise_deterministic(causal, S, T, D):
     """Two launches of each bf16 K4 kernel on the tensor cores on the same
     inputs give the same bits: no atomics."""
@@ -601,6 +621,69 @@ def test_head_major_bf16_kernels_are_bitwise_deterministic(causal, S, T, D):
     torch.cuda.synchronize()
     for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [4096, 8192])
+def test_head_major_fp32_backward_holds_at_long_sequences(S, D, causal):
+    """K4's fp32 dq and dk/dv (the 3xTF32 bodies) at S = T 4096 and 8192,
+    past the 2048 rows of every other test: each sums one head's products
+    over every streamed row, so a longer sequence is a longer chain of
+    tensor-core sums. Held to the plain versions within FLASH_TOLS, fed
+    the forward's lse and a shifted one."""
+    _needs_card()
+    from flexflow_tpu_torch.ops.flash_attention import flash_bh_dkv, flash_bh_dq
+
+    BH, scale = 2, 1.0 / D ** 0.5
+    g = torch.Generator(device="cuda").manual_seed(S + D)
+    q, k, v, do = (torch.randn(BH, S, D, generator=g, device="cuda")
+                   for _ in range(4))
+    out, lse = flash_bh_reference(q, k, v, causal, scale)
+    delta = flash_bh_delta(do, out)
+    del out
+    tol = FLASH_TOLS[torch.float32][1]
+    shift = torch.rand(BH, S, generator=g, device="cuda")
+    for given in (lse, lse + shift):
+        args = (q, k, v, do, given, delta, causal, scale)
+        dq = flash_bh_dq(*args)
+        dk, dv = flash_bh_dkv(*args)
+        torch.cuda.synchronize()
+        want_dk, want_dv = flash_bh_dkv_reference(*args)
+        for name, got, want in (("dq", dq, flash_bh_dq_reference(*args)),
+                                ("dk", dk, want_dk), ("dv", dv, want_dv)):
+            ok, err = _close(got, want, tol)
+            assert ok, (name, err)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fp32_backward_holds_at_long_sequences(causal):
+    """K2's fp32 dq and dk/dv (the flat-layout 3xTF32 body) at S = T
+    4096, D 128, GQA rep 2: dk/dv sums the group's heads over every
+    streamed row. Held to the plain versions within FLASH_TOLS."""
+    _needs_card()
+    from flexflow_tpu_torch.kernels import (
+        launch_flash_attention_dkv,
+        launch_flash_attention_dq,
+    )
+
+    B, S, H, Hkv, D = 1, 4096, 4, 2, 128
+    scale = 1.0 / D ** 0.5
+    q, k, v, do = _flash_inputs(S, S, H, Hkv, D, torch.float32, S, B=B)
+    do = do.contiguous()
+    out, lse = flash_attention_reference(q, k, v, causal, scale)
+    args = (q, k, v, do, lse, flash_delta(do, out))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    launch_flash_attention_dq(*args, dq, causal, scale)
+    launch_flash_attention_dkv(*args, dk, dv, causal, scale)
+    torch.cuda.synchronize()
+    want_dk, want_dv = flash_dkv_reference(*args, causal, scale)
+    tol = FLASH_TOLS[torch.float32][1]
+    for name, got, want in (
+            ("dq", dq, flash_dq_reference(*args, causal, scale)),
+            ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        ok, err = _close(got, want, tol)
+        assert ok, (name, err)
 
 
 @pytest.mark.parametrize("D", [64, 128, 256])

@@ -335,15 +335,13 @@ def test_head_dim_128_train_steps_match_jax_pallas(monkeypatch):
     assert jax_ops.LAST_ATTENTION_KERNEL == "pallas_flash"
 
 
-def test_head_dim_64_train_steps_match_jax_pallas(monkeypatch):
-    """(e) head dim 64, the head geometry of bench.py's 200m Llama (dim
-    1024, 16 heads over 8 kv heads) at a small size: dim 256, 4 heads
-    over 2 kv heads (D 64, GQA 2), 2 layers, seq 128. Three Adam steps
-    through fit (6 sequences, batch 2) give the JAX fit's epoch metrics
-    and parameters within STEP_TOL: the JAX step runs its Pallas
-    head-major kernels (`_fwd`, `_bwd`) interpreted, the port takes the
-    head-major route (K4's plain versions on the CPU) once per layer and
-    step. lr 1e-4 for the reason test_head_dim_128_... gives."""
+def _head_major_fit_matches(monkeypatch, cfg, head_dim):
+    """Three Adam steps through fit (6 sequences of 128, batch 2, lr
+    1e-4) of `cfg` in both packages give the same epoch metrics and
+    parameters within STEP_TOL: the JAX step runs its Pallas head-major
+    kernels (`_fwd`, `_bwd`) interpreted, the port takes the head-major
+    route (K4's plain versions on the CPU) once per layer and step at
+    `head_dim`. lr 1e-4 for the reason test_head_dim_128_... gives."""
     monkeypatch.setenv("FF_TPU_FLASH_INTERPRET", "1")
     from flexflow_tpu.ops import jax_ops
     from flexflow_tpu_torch.ops import flash_attention as fa
@@ -356,14 +354,12 @@ def test_head_dim_64_train_steps_match_jax_pallas(monkeypatch):
         return real(q, *args)
 
     monkeypatch.setattr(fa, "_head_major_attention", head_major)
-    cfg = dict(vocab_size=512, dim=256, layers=2, heads=4, kv_heads=2,
-               hidden=512, rope_theta=10000.0)
     jff, tff = _pair(cfg, seq=128, batch=2, remat="none", lr=1e-4)
     x, y = _tokens(6, 128, 512, seed=9)
     jm = jff.fit(x, y, epochs=1, verbose=False)
     assert jax_ops.LAST_ATTENTION_KERNEL == "pallas_flash"
     tm = tff.fit(x, y, epochs=1, verbose=False)
-    assert calls == [64] * (2 * 3)
+    assert calls == [head_dim] * (cfg["layers"] * 3)
     assert tm.train_all == jm.train_all == 6
     assert tm.train_correct == jm.train_correct
     np.testing.assert_allclose(tm.sparse_cce_loss, jm.sparse_cce_loss,
@@ -375,6 +371,26 @@ def test_head_dim_64_train_steps_match_jax_pallas(monkeypatch):
             np.testing.assert_allclose(got[k][n], np.asarray(a),
                                        atol=STEP_TOL, rtol=STEP_TOL,
                                        err_msg=(k, n))
+
+
+def test_head_dim_64_train_steps_match_jax_pallas(monkeypatch):
+    """(e) head dim 64, the head geometry of bench.py's 200m Llama (dim
+    1024, 16 heads over 8 kv heads) at a small size: dim 256, 4 heads
+    over 2 kv heads (D 64, GQA 2), 2 layers, seq 128
+    (_head_major_fit_matches)."""
+    _head_major_fit_matches(
+        monkeypatch, dict(vocab_size=512, dim=256, layers=2, heads=4,
+                          kv_heads=2, hidden=512, rope_theta=10000.0), 64)
+
+
+def test_head_dim_96_train_steps_match_jax_pallas(monkeypatch):
+    """(e) head dim 96, the head geometry of Phi-3-mini (dim 3072, 32
+    heads, 32 kv heads, rope theta 10000) at a small size: dim 192, 2
+    heads over 2 kv heads (MHA, D 96), hidden 512, 2 layers, seq 128
+    (_head_major_fit_matches)."""
+    _head_major_fit_matches(
+        monkeypatch, dict(vocab_size=512, dim=192, layers=2, heads=2,
+                          kv_heads=2, hidden=512, rope_theta=10000.0), 96)
 
 
 def test_compile_without_optimizer_trains_with_sgd_on_fp32_masters():
