@@ -1,11 +1,11 @@
 """Chip smoke test of flexflow_tpu_torch, the PyTorch/CUDA port: drives the
 port's main paths on one NVIDIA card, paged Llama serving (fp and int8 KV
 pools, prefix cache, preemption, defrag), Llama training (head dims 128,
-64 and 96), GPT-2 training and paged serving, and Llama training through
-ring attention, and holds every hand-written kernel on them to its plain
-PyTorch version.
+64, 96 and 100), GPT-2 training and paged serving, and Llama training
+through ring attention, and holds every hand-written kernel on them to its
+plain PyTorch version.
 
-    python3 chip_smoke.py            # phases 1..4, 6..12, one card
+    python3 chip_smoke.py            # phases 1..4, 6..13, one card
     python3 chip_smoke.py --phases 5 # + profiles of serving and training
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
@@ -14,7 +14,9 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      seconds each source took and the HGMMA (wgmma) instructions in the
      SASS of each tensor-core flash kernel: K1/K2's and K4's forward, dq
      and dk/dv and K5's forward at head dims 64, 128 and 256, and K4's
-     at 48, 80 and 96 (WGMMA_KERNELS), and the tf32 HMMA (mma.sync)
+     at 48, 80, 96 and 100 (WGMMA_KERNELS; D 100's tiles filled by
+     cp.async), with ptxas's registers and spills for each (none may
+     spill), and the tf32 HMMA (mma.sync)
      instructions of the 3xTF32 fp32 bodies: K4's forward, dq and dk/dv
      at 64, 128 and 256 and K2's flat dq and dk/dv at 128 and 256
      (TF32_KERNELS);
@@ -38,7 +40,8 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      the body's floor, 3 x ops at the tf32 peak, beside the bound); and
      the head-major flash kernels K4 (forward, dq, dk/dv) at GPT-2 XL
      training's shape (B*H 8*25, S = T 1024, D 64, causal) and at phase
-     11's (B*H 8*16, bf16) and phase 12's (B*H 8*32, D 96, bf16) with
+     11's (B*H 8*16, bf16), phase 12's (B*H 8*32, D 96, bf16) and phase
+     13's (B*H 8*32, D 100, bf16) with
      times, then at head dims 48, 80, 96, 100 and 256, non-causal, S !=
      T, S not a multiple of the tile and phase 10's ring block (B*H 16,
      S = T 2048, D 128, causal and full), each timed beside SDPA in its
@@ -46,8 +49,9 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      contract), and in fp32 at S = T 4096 and 8192 (D 64 and 128, causal
      and full: the 3xTF32 backward's sums past 2048 rows); the flash
      checks (max |err|, error norm, lse; FLASH_TOLS, LSE_ATOL) must
-     reject a planted fault at GPT-2 XL's shape, bf16 and fp32 (the
-     plain results with one key tile skipped for the last query rows);
+     reject a planted fault at GPT-2 XL's shape, bf16 and fp32, and at
+     phase 13's (D 100, bf16) (the plain results with one key tile
+     skipped for the last query rows);
      fp32 cases' library time is SDPA's in fp32; K1/K2 timed at
      D 64 on the same shape beside K4 and the head-major route; the ring
      step K5 at phase 10's block (B*H 16, S = T
@@ -74,7 +78,7 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      prefill step, one decode step on an int8 pool (with the int8 ragged
      kernels' and quantize-on-append's launches and ms), one bench_1b
      train step, one GPT-2 XL train step, one phase-10 ring step, one
-     phase-11 step and one phase-12 step;
+     phase-11 step, one phase-12 step and one phase-13 step;
   6. training: bench_1b (16 layers, bf16, batch 8, seq 1024,
      remat="none", Adam lr 1e-4, random weights from a seed) through
      ff.fit for one epoch of 10 seeded batches, then 10 timed steps on
@@ -131,7 +135,14 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      and 32 kv heads of 96, FFN 8192, rope theta 10000; 16 of its 32
      layers) as phase 11 trains the 200m one: each K4 kernel must launch
      16 times per step, on its tensor-core bodies at head dim 96 only
-     (the kernels line records these launches under "phi3_mini").
+     (the kernels line records these launches under "phi3_mini");
+ 13. training a Llama at OpenLLaMA-3B's widths
+     (openlm-research/open_llama_3b: vocab 32000, dim 3200, 32 heads and
+     32 kv heads of 100, FFN 8640, rope theta 10000, rms_norm_eps 1e-6,
+     untied embeddings; 16 of its 26 layers) the same way: each K4 kernel
+     must launch 16 times per step, on its tensor-core bodies at head dim
+     100 only, whose tiles are filled by cp.async (the kernels line
+     records these launches under "openllama_3b").
 The line before the last is the kernel list as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -370,6 +381,24 @@ def phi3_mini() -> LlamaConfig:
                        rope_theta=10000.0, norm_eps=1e-5)
 
 
+# phase 13: OpenLLaMA-3B's 26 layers cut to 16 (fp32 masters, gradients
+# and Adam's two moments of the whole depth, with the activations of a
+# batch of 8 x 1024, do not fit one 80 GB card)
+OPENLLAMA_LAYERS = 16
+
+
+def open_llama_3b() -> LlamaConfig:
+    """openlm-research/open_llama_3b config.json's widths, built inline (no
+    constructor of its own): vocab 32000, hidden 3200, 32 heads and 32 kv
+    heads (head dim 100: the head-major route, K4, whose 200-byte rows
+    its tensor-core bodies load by cp.async), intermediate 8640,
+    rope_theta 10000, rms_norm_eps 1e-6, untied embeddings (build_llama's
+    lm_head is its own); OPENLLAMA_LAYERS of its 26 layers."""
+    return LlamaConfig(vocab_size=32000, dim=3200, layers=OPENLLAMA_LAYERS,
+                       heads=32, kv_heads=32, hidden=8640,
+                       rope_theta=10000.0, norm_eps=1e-6)
+
+
 def gpt2_xl() -> GPT2Config:
     """openai-community/gpt2-xl config.json: vocab 50257, n_embd 1600,
     n_layer 48, n_head 25 (head dim 64), n_inner null (4 x 1600),
@@ -393,11 +422,12 @@ def card_line() -> str:
 # every tensor-core instantiation the sources build: K1/K2's bodies under
 # the FlatLayout tag and K4's under HeadMajor, forward, dq and dk/dv, and
 # K5's forward under HeadMajorCarry, at head dims 64, 128 and 256; and
-# K4's at 48, 80 and 96 (tiles zero-padded to 64 / 128 columns)
+# K4's at 48, 80, 96 and 100 (tiles zero-padded to 64 / 128 columns; D
+# 100's filled by cp.async)
 WGMMA_KERNELS = tuple(
     f"flash_{k}_wgmma_kernel<{tag},{d}>"
     for tag, dims in (("FlatLayout", (64, 128, 256)),
-                      ("HeadMajor", (48, 64, 80, 96, 128, 256)))
+                      ("HeadMajor", (48, 64, 80, 96, 100, 128, 256)))
     for k in ("fwd", "dq", "dkv") for d in dims) + tuple(
     f"flash_fwd_wgmma_kernel<HeadMajorCarry,{d}>" for d in (64, 128, 256))
 
@@ -444,6 +474,46 @@ def hgmma_counts() -> dict:
         raise AssertionError(f"tensor-core kernels missing or without "
                              f"HGMMA: {counts}, want {WGMMA_KERNELS}")
     return counts
+
+
+def ptxas_report() -> dict:
+    """{tensor-core kernel: {"registers", "spill_stores", "spill_loads"}}
+    from ptxas -v in this process's build of the four flash sources
+    (each kernel's `build_log`; a source built before this process is not
+    reported). Raises if one of them spills (the consumers' accumulators
+    and the producer's 40 registers after setmaxnreg must fit) or, when
+    all four were built, one of WGMMA_KERNELS is missing."""
+    report, built = {}, 0
+    for kern in (FLASH_ATTENTION_FWD, FLASH_ATTENTION_DQ,
+                 FLASH_ATTENTION_BH_FWD, FLASH_ATTENTION_BH_DQ):
+        log = kern.build_log
+        if log is None:
+            continue
+        built += 1
+        name = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line \
+                    or "Function properties for" in line:
+                name = wgmma_name(line)
+                if name:
+                    report.setdefault(name, {})
+            elif name and "spill stores" in line:
+                st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                    line)
+                report[name].update(spill_stores=int(st),
+                                    spill_loads=int(ld))
+            elif name and "registers" in line:
+                report[name]["registers"] = int(
+                    re.search(r"Used (\d+) registers", line)[1])
+    if not built:
+        return {"not built in this run": True}
+    spilled = {n: r for n, r in report.items()
+               if r.get("spill_stores") or r.get("spill_loads")}
+    found = {",".join(n.split(",")[:2]) + ">" for n in report}
+    if (built == 4 and set(WGMMA_KERNELS) - found) or spilled:
+        raise AssertionError(f"tensor-core kernels missing from ptxas's "
+                             f"report or spilling: {spilled or report}")
+    return report
 
 
 # the fp32 bodies on the tensor cores, 3xTF32 on mma.sync: K4's forward
@@ -1197,16 +1267,19 @@ def planted_fault_check(BH, S, D, dtype, seed, rows=128, keys=128,
 def phase_k4_kernels(card: str) -> dict:
     """K4 at GPT-2 XL's shape (bf16 and fp32, timed), at phase 11's
     (bench.py's 200m Llama: B*H 8*16, S = T 1024, D 64, causal; bf16,
-    timed: the kernels line's case) and at phase 12's (Phi-3-mini: B*H
-    8*32, S = T 1024, D 96, causal; bf16, timed), then at every case of
+    timed: the kernels line's case), at phase 12's (Phi-3-mini: B*H
+    8*32, S = T 1024, D 96, causal; bf16, timed) and at phase 13's
+    (OpenLLaMA-3B: B*H 8*32, S = T 1024, D 100, causal; bf16, timed: the
+    cp.async-loaded bodies), then at every case of
     K4_CASES in both dtypes (errors and times: the wgmma bodies at D 48..
     256 in bf16, the fp32 3xTF32 ones at 64..256, the CUDA-core bodies
     at the rest), then K4_LONG_FP32_CASES (errors), then the planted
     fault (the checks must reject a skipped key tile at GPT-2 XL's
-    shape, bf16 and fp32), then the K1-vs-K4 record. Fails on any error
+    shape, bf16 and fp32, and at OpenLLaMA-3B's, bf16), then the
+    K1-vs-K4 record. Fails on any error
     over its tolerance. Returns {"main": {dtype name: {kernel: result}},
     "timed": {case: {kernel: result}}, "cases": [...], "long_fp32":
-    [...], "planted_fault": {dtype name: {...}}, "k1_vs_k4_d64":
+    [...], "planted_fault": {case: {...}}, "k1_vs_k4_d64":
     {...}}."""
     main, timed, cases, long_fp32 = {}, {}, [], []
     for seed, dtype in enumerate((torch.bfloat16, torch.float32)):
@@ -1232,6 +1305,14 @@ def phase_k4_kernels(card: str) -> dict:
         r.update(case="phi3_mini_causal", card=card)
         log(f"kernel {json.dumps(r)}")
     timed["phi3_mini_causal"] = res
+    cfg = open_llama_3b()
+    res = k4_check(TRAIN_BATCH * cfg.heads, TRAIN_SEQ, TRAIN_SEQ,
+                   cfg.dim // cfg.heads, True, torch.bfloat16, 4,
+                   timed=True)
+    for r in res.values():
+        r.update(case="openllama_3b_causal", card=card)
+        log(f"kernel {json.dumps(r)}")
+    timed["openllama_3b_causal"] = res
     torch.cuda.empty_cache()
     for i, (name, BH, S, T, D, causal) in enumerate(K4_CASES):
         for dtype in (torch.bfloat16, torch.float32):
@@ -1255,15 +1336,21 @@ def phase_k4_kernels(card: str) -> dict:
     if bad:
         raise AssertionError(f"K4 kernels disagree with their plain "
                              f"versions: {bad}")
-    # bf16 for the wgmma bodies, fp32 for the 3xTF32 ones
+    # bf16 for the wgmma bodies, fp32 for the 3xTF32 ones, and bf16 at
+    # OpenLLaMA-3B's head dim 100 for the cp.async-loaded bodies
     fault = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        f = planted_fault_check(KB * KH, KS, KD, dtype, 12)
+    cfg = open_llama_3b()
+    for key, (BH, D), dtype in (
+            ("bfloat16", (KB * KH, KD), torch.bfloat16),
+            ("float32", (KB * KH, KD), torch.float32),
+            ("bfloat16_d100", (TRAIN_BATCH * cfg.heads,
+                               cfg.dim // cfg.heads), torch.bfloat16)):
+        f = planted_fault_check(BH, KS, D, dtype, 12)
         log(f"planted_fault {json.dumps(f)}")
         if not all(f["rejected"].values()):
             raise AssertionError(f"the flash checks pass a skipped key "
                                  f"tile: {f}")
-        fault[f["dtype"]] = f
+        fault[key] = f
         torch.cuda.empty_cache()
     cmp = k1_vs_k4_d64()
     cmp["card"] = card
@@ -2719,6 +2806,12 @@ def phase_train_phi3(seed: int, card: str) -> dict:
     return _train_head_major(seed, card, phi3_mini(), "phi3_mini")
 
 
+def phase_train_openllama(seed: int, card: str) -> dict:
+    """Phase 13: a Llama at OpenLLaMA-3B's widths (open_llama_3b: head dim
+    100, OPENLLAMA_LAYERS layers) through _train_head_major."""
+    return _train_head_major(seed, card, open_llama_3b(), "openllama_3b")
+
+
 def gpt2_traffic(vocab: int, seed: int):
     """GPT2_PROMPTS seeded prompts of GPT2_PROMPT_MIN..GPT2_PROMPT_MAX
     tokens."""
@@ -2822,9 +2915,9 @@ def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default "
-                    "1,2,3,4,6,7,8,9,10,11,12; 5 profiles serving and "
+                    "1,2,3,4,6,7,8,9,10,11,12,13; 5 profiles serving and "
                     "training steps)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -2842,7 +2935,8 @@ def main(argv=None) -> int:
     for k in KERNELS:
         k.function()  # load and bind
     built = {"seconds": time.monotonic() - t0, "per_source": secs,
-             "hgmma": hgmma_counts(), "tf32_hmma": tf32_hmma_counts()}
+             "hgmma": hgmma_counts(), "ptxas": ptxas_report(),
+             "tf32_hmma": tf32_hmma_counts()}
     log(f"build {json.dumps(built)}")
     kern = phase_kernels(card) if 2 in phases else []
     if 2 in phases:
@@ -2872,6 +2966,8 @@ def main(argv=None) -> int:
     ring = phase_ring_train(args.seed, card) if 10 in phases else None
     train_200m = phase_train_200m(args.seed, card) if 11 in phases else None
     train_phi3 = phase_train_phi3(args.seed, card) if 12 in phases else None
+    train_ollama = (phase_train_openllama(args.seed, card) if 13 in phases
+                    else None)
     if 5 in phases:
         phase_profile(args.seed, card)
         phase_profile_train(args.seed, card)
@@ -2881,6 +2977,8 @@ def main(argv=None) -> int:
                             mesh_shape={"seq": RING_SHARDS})
         phase_profile_train(args.seed, card, llama_200m(), "llama_200m")
         phase_profile_train(args.seed, card, phi3_mini(), "phi3_mini")
+        phase_profile_train(args.seed, card, open_llama_3b(),
+                            "openllama_3b")
     main_case = next((r for r in kern if r["case"] == ATTENTION_CASES[0][0]
                       and r["dtype"] == "bfloat16"), None)
     entries = [_kernel_entry(
@@ -2916,8 +3014,10 @@ def main(argv=None) -> int:
         entries.append(entry)
     # K4 on phase 11's bf16 fit (D 64), timed at its attention shape
     # (phase 2); under "phi3_mini" on phase 12's (D 96, the padded wgmma
-    # bodies), timed at its shape; and its fp32 bodies on phase 8's:
-    # GPT-2 XL's fit, timed at its attention shape (phase 2), under "fp32"
+    # bodies), timed at its shape; under "openllama_3b" on phase 13's (D
+    # 100, the cp.async-loaded bodies), timed at its shape; and its fp32
+    # bodies on phase 8's: GPT-2 XL's fit, timed at its attention shape
+    # (phase 2), under "fp32"
     for k, src in ((FLASH_ATTENTION_BH_FWD, "flash_attention_bh_fwd.cu"),
                    (FLASH_ATTENTION_BH_DQ, "flash_attention_bh_bwd.cu"),
                    (FLASH_ATTENTION_BH_DKV, "flash_attention_bh_bwd.cu")):
@@ -2929,6 +3029,11 @@ def main(argv=None) -> int:
                 ("phi3_mini",
                  train_phi3["fit_launches"][k.name] if train_phi3 else 0,
                  k4.get("timed", {}).get("phi3_mini_causal", {}).get(
+                     k.name)),
+                ("openllama_3b",
+                 train_ollama["fit_launches"][k.name] if train_ollama
+                 else 0,
+                 k4.get("timed", {}).get("openllama_3b_causal", {}).get(
                      k.name)),
                 ("fp32", gpt2["fit_launches"][k.name] if gpt2 else 0,
                  k4.get("main", {}).get("float32", {}).get(k.name))):

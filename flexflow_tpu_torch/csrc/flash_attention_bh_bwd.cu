@@ -21,16 +21,17 @@
 // as the forward (flash_bh_common.cuh).
 //
 // Three designs.
-//   * bf16 at head dims 48, 64, 80, 96, 128 and 256 (training at D 64 and
-//     Phi-3-mini's 96; the ring's backward at D 128) runs on the tensor
-//     cores: K2's bodies of flash_wgmma_bwd.cuh (wgmma fed by TMA),
-//     instantiated here under the HeadMajor tag as
+//   * bf16 at head dims 48, 64, 80, 96, 100, 128 and 256 (training at D
+//     64, Phi-3-mini's 96 and OpenLLaMA-3B's 100; the ring's backward at
+//     D 128) runs on the tensor cores: K2's bodies of flash_wgmma_bwd.cuh
+//     (wgmma fed by TMA), instantiated here under the HeadMajor tag as
 //     flash_dq_wgmma_kernel<HeadMajor, ...> and
 //     flash_dkv_wgmma_kernel<HeadMajor, ...> on (B = BH, L, heads = 1, D)
 //     tensor maps, lse and delta (BH, S) as K2's (B, H = 1, S); at D 48,
 //     80 and 96 on tiles zero-padded to 64 / 128 columns by TMA, as the
-//     forward (flash_attention_bh_fwd.cu). D 100 stays on the CUDA cores
-//     (rows of 200 bytes: no TMA stride).
+//     forward (flash_attention_bh_fwd.cu). D 100 (rows of 200 bytes: no
+//     TMA stride) fills the same 128-column tiles by the producer
+//     warpgroup's cp.async copies, its value products at N 104.
 //   * fp32 at 64, 128 and 256 (GPT-2 trains its attention in fp32, as the
 //     reference computes it) runs on the tensor cores too, in 3xTF32 on
 //     mma.sync (flash_bh_bwd_tf32_kernel below, over the body of
@@ -419,12 +420,14 @@ int dispatch_dkv(const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO, dq, dk, dv share it);
-// lse and delta fp32 (BH, S). bf16 at D 48, 64, 80, 96, 128 and 256 runs
-// the wgmma bodies, fp32 at D 64, 128 and 256 the 3xTF32 ones (mma.sync),
-// every other case the CUDA-core ones. Each returns a
-// cudaError_t: cudaErrorInvalidValue for shapes the kernels do not take
-// (bh_shapes_ok) or tensors TMA cannot map, otherwise the launch's
-// cudaGetLastError().
+// lse and delta fp32 (BH, S). bf16 at D 48, 64, 80, 96, 100, 128 and 256
+// runs the wgmma bodies (D 100's tiles filled by cp.async), fp32 at D 64,
+// 128 and 256 the 3xTF32 ones (mma.sync), every other case (fp32 at D 100
+// too) the CUDA-core ones. Each returns a cudaError_t:
+// cudaErrorInvalidValue for shapes the kernels do not take
+// (bh_shapes_ok) or tensors the wgmma bodies cannot load (TMA: a base that
+// is not 16-byte aligned; cp.async at D 100: not 8-byte aligned),
+// otherwise the launch's cudaGetLastError().
 int ff_flash_attention_bh_dq(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dq, int BH, int S,
@@ -439,6 +442,7 @@ int ff_flash_attention_bh_dq(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 64) FF_DQ_WG(64);
   if (dtype == 1 && D == 80) FF_DQ_WG(80);
   if (dtype == 1 && D == 96) FF_DQ_WG(96);
+  if (dtype == 1 && D == 100) FF_DQ_WG(100);
   if (dtype == 1 && D == 128) FF_DQ_WG(128);
   if (dtype == 1 && D == 256) FF_DQ_WG(256);
 #undef FF_DQ_WG
@@ -473,6 +477,7 @@ int ff_flash_attention_bh_dkv(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 64) FF_DKV_WG(64);
   if (dtype == 1 && D == 80) FF_DKV_WG(80);
   if (dtype == 1 && D == 96) FF_DKV_WG(96);
+  if (dtype == 1 && D == 100) FF_DKV_WG(100);
   if (dtype == 1 && D == 128) FF_DKV_WG(128);
   if (dtype == 1 && D == 256) FF_DKV_WG(256);
 #undef FF_DKV_WG

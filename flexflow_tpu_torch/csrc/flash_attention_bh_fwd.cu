@@ -25,20 +25,21 @@
 // fp32 (BH, S). (The TPU pads D to 128 lanes and broadcasts lse over 128
 // lanes; both are its tiling, not part of the contract.)
 //
-// Three designs. K4 in bf16 at head dims 48, 64, 80, 96, 128 and 256
+// Three designs. K4 in bf16 at head dims 48, 64, 80, 96, 100, 128 and 256
 // (GPT-2's and bench.py's 200m Llama's D 64 in training; Phi-3-mini's D
-// 96; the ring's D 128) runs on the tensor cores: K1's body of
-// flash_wgmma_fwd.cuh (wgmma fed by TMA, 384-thread blocks of 128 query
-// rows, K/V rings of mbarrier'd stages), instantiated here under the
-// HeadMajor tag as flash_fwd_wgmma_kernel<HeadMajor, D, BK, Stages>: a
+// 96; OpenLLaMA-3B's D 100; the ring's D 128) runs on the tensor cores:
+// K1's body of flash_wgmma_fwd.cuh (wgmma fed by TMA, 384-thread blocks of
+// 128 query rows, K/V rings of mbarrier'd stages), instantiated here under
+// the HeadMajor tag as flash_fwd_wgmma_kernel<HeadMajor, D, BK, Stages>: a
 // head-major (BH, L, D) tensor is the (B = BH, L, heads = 1, D) tensor its
 // 4-D tensor maps describe, and lse (BH, S) is K1's (B, H = 1, S). At D
 // 48, 80 and 96 the maps' boxes are 64 columns past D, which TMA fills
 // with zeros: the tiles are 64 / 128 columns wide (DP), the scores stop
-// after D / 16 k-steps and P.V runs DP wide (flash_wgmma.cuh). D 100 has
-// rows of 200 bytes, which TMA cannot stride (16-byte multiples), and
-// stays on the CUDA cores. K5 in bf16 at D 64, 128 and 256 runs that body
-// under the HeadMajorCarry tag: each item starts
+// after ceil(D / 16) k-steps and P.V runs at N = D (flash_wgmma.cuh). D
+// 100 has rows of 200 bytes, which TMA cannot stride (16-byte multiples):
+// its producer warpgroup fills the same 128-column tiles by 8-byte
+// cp.async copies (cp_rows) and P.V runs at N 104. K5 in bf16 at D 64, 128
+// and 256 runs that body under the HeadMajorCarry tag: each item starts
 // from the caller's (m, l, acc), loaded straight into the accumulator
 // registers, and ends by writing them back. K4 in fp32 at 64, 128 and
 // 256 (GPT-2 trains its attention in fp32, as the reference computes it)
@@ -47,8 +48,8 @@
 // flash_tf32.cuh): each fp32 product as three tf32 products of hi / lo
 // halves, about fp32's accuracy. K4 in fp32 at the other widths, K5 in
 // fp32 at every width, K4 in bf16 at the widths not named above and K5 in
-// bf16 at the widths other than 64, 128 and 256 run the CUDA-core body
-// below.
+// bf16 at the widths other than 64, 128 and 256 (D 100 among them) run
+// the CUDA-core body below.
 //
 // CUDA-core body: one block per (64-row query tile, bh), a loop over
 // 64-row K/V tiles that stops at the causal diagonal. D is any width up
@@ -320,11 +321,13 @@ extern "C" {
 
 // q (BH, S, D), k/v (BH, T, D), out (BH, S, D), all contiguous and of one
 // dtype: 0 = float32, 1 = bfloat16; lse fp32 (BH, S). bf16 at D 48, 64,
-// 80, 96, 128 and 256 runs the wgmma body, fp32 at D 64, 128 and 256 the
-// 3xTF32 one (mma.sync), every other case the CUDA-core body.
+// 80, 96, 100, 128 and 256 runs the wgmma body (D 100's tiles filled by
+// cp.async), fp32 at D 64, 128 and 256 the 3xTF32 one (mma.sync), every
+// other case (fp32 at D 100 too) the CUDA-core body.
 // Returns a cudaError_t: cudaErrorInvalidValue for shapes the kernel does
-// not take (bh_shapes_ok) or tensors TMA cannot map, otherwise the
-// launch's cudaGetLastError().
+// not take (bh_shapes_ok) or tensors the wgmma body cannot load (TMA: a
+// base that is not 16-byte aligned; cp.async at D 100: not 8-byte
+// aligned), otherwise the launch's cudaGetLastError().
 int ff_flash_attention_bh_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, int BH, int S, int T,
                               int D, int causal, float scale, int dtype,
@@ -338,6 +341,7 @@ int ff_flash_attention_bh_fwd(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 64) FF_FWD_WG(64);
   if (dtype == 1 && D == 80) FF_FWD_WG(80);
   if (dtype == 1 && D == 96) FF_FWD_WG(96);
+  if (dtype == 1 && D == 100) FF_FWD_WG(100);
   if (dtype == 1 && D == 128) FF_FWD_WG(128);
   if (dtype == 1 && D == 256) FF_FWD_WG(256);
 #undef FF_FWD_WG
@@ -360,8 +364,8 @@ int ff_flash_attention_bh_fwd(const void* q, const void* k, const void* v,
 
 // K5: q (BH, S, D), k/v (BH, T, D) of one dtype (as K4); m, l fp32 (BH, S)
 // and acc fp32 (BH, S, D), read and updated in place. bf16 at D 64, 128
-// and 256 runs the tensor-core body (HeadMajorCarry), every other case the
-// CUDA-core body. Same return codes.
+// and 256 runs the tensor-core body (HeadMajorCarry), every other case
+// (D 100 among them) the CUDA-core body. Same return codes.
 int ff_flash_attention_bh_fwd_carry(const void* q, const void* k,
                                     const void* v, void* m, void* l,
                                     void* acc, int BH, int S, int T, int D,

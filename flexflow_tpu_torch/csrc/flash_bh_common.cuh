@@ -2,7 +2,7 @@
 // kernels K4 and K5 (flash_attention_bh_fwd.cu, flash_attention_bh_bwd.cu),
 // on top of the tile helpers of flash_common.cuh. They serve K4 in fp32
 // at the widths that are not 64, 128 or 256, K4 in bf16 at the widths
-// that are not 48, 64, 80, 96, 128 or 256, and K5 in fp32 and at the
+// that are not 48, 64, 80, 96, 100, 128 or 256, and K5 in fp32 and at the
 // widths other than 64, 128 and 256; K4 in bf16 at the widths named runs
 // the tensor-core bodies of flash_wgmma_fwd.cuh / flash_wgmma_bwd.cuh
 // instead, and K4 in fp32 at 64, 128 and 256 the 3xTF32 bodies of

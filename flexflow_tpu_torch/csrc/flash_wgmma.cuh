@@ -13,6 +13,13 @@
 // ceil(D / 16) k-steps (the zeros past them add nothing), and a product
 // whose N runs along D has N = D (wgmma's N steps by 8), reading its last
 // box in part.
+// A head dim whose bf16 rows are not a multiple of 16 bytes (D 100: 200
+// bytes) has no TMA stride. Its tiles are filled by the producer
+// warpgroup's threads instead (cp_rows): 8-byte cp.async copies into the
+// same boxes and swizzle, rows past L zero-filled by the copy, columns D ..
+// DP - 1 zeroed once when the block starts (the copies never write them);
+// a tile reaches its `full` barrier through CpAsyncPipe. Such a head dim's
+// value products run at N = 104 (vn), since wgmma's N steps by 8.
 // One such tile serves wgmma both ways:
 //  - K-major (the contraction runs along D: q.k^T, dO.v^T, k.q^T, v.dO^T):
 //    k-step kk (16 columns) starts at box kk / 4, byte 32 * (kk % 4) of
@@ -69,10 +76,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
       : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
+// arrive on the barrier at shared-memory address `bar`
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
                : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  mbar_arrive(smem_u32(bar));
 }
 
 // wait until the phase of parity `parity` has completed
@@ -105,10 +116,140 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// ---- cp.async: rows TMA cannot stride --------------------------------------
+
+// true when a head dim's bf16 rows are not a multiple of 16 bytes, TMA's
+// stride unit: the bodies then fill their tiles by cp.async (cp_rows)
+__host__ __device__ constexpr bool rows_by_cp_async(int d) {
+  return d * 2 % 16 != 0;
+}
+
+// an 8-byte copy from global memory to the shared-memory address dst;
+// `bytes` 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// rows row0 .. row0 + R - 1 of head h of batch entry b of a contiguous
+// bf16 (B, L, heads, D) tensor into a tile of R rows as TMA lays it out
+// (boxes of R rows x 64 columns, box after box, the 128-byte swizzle: the
+// 16-byte chunk j of row r at chunk j ^ (r & 7), an 8-byte half within it),
+// by the producer warpgroup's thread `tid`: one cp.async of 8 bytes per 4
+// columns, rows past L zero-filled. Columns D .. pad64(D) - 1 are not
+// written. Thread tid copies the 8-byte pieces p = tid % 16 and p + 16
+// (columns 4 p and 64 + 4 p, where they are below D) of rows tid / 16 + 8
+// i: its swizzle and its two shared-memory offsets are fixed, and each
+// row costs it a pointer step and its copies. D in (64, 128].
+template <int D, int R>
+__device__ __forceinline__ void cp_rows(__nv_bfloat16* tile,
+                                        const __nv_bfloat16* src, int b,
+                                        int L, int heads, int h, int row0,
+                                        int tid) {
+  static_assert(D % 4 == 0 && D > 64 && D <= 128 && R % 8 == 0,
+                "cp_rows takes two 8-byte pieces a row and thread");
+  const int r0 = tid / 16, p = tid % 16;
+  const bool second = p + 16 < D / 4;  // a piece in the second box
+  const size_t step = (size_t)8 * heads * D;  // 8 rows, in elements
+  const __nv_bfloat16* s =
+      src + (((size_t)b * L + row0 + r0) * heads + h) * D + 4 * p;
+  uint32_t d =
+      smem_u32(tile) + r0 * 128 + (((p >> 1) ^ r0) << 4) + (p & 1) * 8;
+#pragma unroll 1
+  for (int r = row0 + r0; r < row0 + R; r += 8, s += step, d += 1024) {
+    const bool live = r < L;
+    const __nv_bfloat16* g = live ? s : src;  // and reads nothing
+    cp_async8(d, g, live ? 8 : 0);
+    if (second) cp_async8(d + R * 128, g + 64, live ? 8 : 0);
+  }
+}
+
+// true when the phase of parity `parity` has completed (no wait)
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// makes this thread's generic-proxy writes to shared memory (cp.async,
+// plain stores) visible to the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// One producer thread's hand-off of cp.async tiles: it commits a tile's
+// copies as a group, and arrives on the tile's `full` barrier once that
+// group has landed (cp.async.wait_group, then fence.proxy.async, then
+// mbarrier.arrive): a barrier of a tile counts every producer thread. The
+// arrival lags one group, so a tile's copies are in flight while the
+// previous one lands. Before blocking on an `empty` barrier the thread
+// drains its pending arrival: the consumers may be waiting on that tile.
+struct CpAsyncPipe {
+  static constexpr uint32_t kNone = ~0u;
+  // the pending barrier's shared-memory address (32 bits: the producer
+  // has 40 registers)
+  uint32_t pending = kNone;
+
+  __device__ __forceinline__ void commit(uint64_t* full) {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    if (pending != kNone) {
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+      fence_proxy_async();
+      mbar_arrive(pending);
+    }
+    pending = smem_u32(full);
+  }
+  __device__ __forceinline__ void drain() {
+    if (pending != kNone) {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+      fence_proxy_async();
+      mbar_arrive(pending);
+      pending = kNone;
+    }
+  }
+  // wait for `bar`'s phase of parity `parity`, draining first if it has
+  // not completed
+  __device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
+    if (!mbar_test(bar, parity)) {
+      drain();
+      mbar_wait(bar, parity);
+    }
+  }
+};
+
+// zeros over `bytes` (a multiple of 16) of shared memory from `p`, by the
+// whole block, made visible to the async proxy; the caller syncs
+__device__ __forceinline__ void zero_smem(uint8_t* p, size_t bytes) {
+  for (size_t i = threadIdx.x * 16; i < bytes; i += blockDim.x * 16)
+    *reinterpret_cast<uint4*>(p + i) = make_uint4(0, 0, 0, 0);
+  fence_proxy_async();
+}
+
+// where the cp.async bodies read q, k, v and dO (TMA's maps stay unused)
+struct RowSrc {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const __nv_bfloat16* o;
+};
+
 // ---- warp specialisation ---------------------------------------------------
 
 // a head dim's tile width in shared memory: D rounded up to 64 columns
 __host__ __device__ constexpr int pad64(int d) { return (d + 63) / 64 * 64; }
+
+// the N of a value product (p.v, ds.k, p^T.dO, ds^T.q) at head dim d: d
+// rounded up to wgmma's N step of 8 (104 at D 100; timed against the tile
+// width 128 on the card, PERF.md)
+__host__ __device__ constexpr int vn(int d) { return (d + 7) / 8 * 8; }
 
 // A block of the tensor-core bodies (flash_wgmma_fwd.cuh,
 // flash_wgmma_bwd.cuh): kBM rows (queries, or keys for dk/dv) as two
@@ -309,9 +450,9 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// m64nNk16 with A from registers at N 48, 80 and 96: the value products
-// of K4's head dims 48, 80 and 96, B MN-major over 64-column boxes, its
-// last box read in part
+// m64nNk16 with A from registers at N 48, 80, 96 and 104: the value
+// products of K4's head dims 48, 80, 96 and 100, B MN-major over 64-column
+// boxes, its last box read in part
 __device__ __forceinline__ void wgmma_rs_n48(float (&d)[24],
                                               const uint32_t (&a)[4],
                                               uint64_t b, int scale_d) {
@@ -374,6 +515,33 @@ __device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
         "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
         "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n104(float (&d)[52],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %57, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51},"
+      " {%52, %53, %54, %55}, %56, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
@@ -495,10 +663,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   if constexpr (N == 64) wgmma_rs_n64(d, a, b, scale_d);
   if constexpr (N == 80) wgmma_rs_n80(d, a, b, scale_d);
   if constexpr (N == 96) wgmma_rs_n96(d, a, b, scale_d);
+  if constexpr (N == 104) wgmma_rs_n104(d, a, b, scale_d);
   if constexpr (N == 128) wgmma_rs_n128(d, a, b, scale_d);
   if constexpr (N == 256) wgmma_rs_n256(d, a, b, scale_d);
-  static_assert(N == 48 || N == 64 || N == 80 || N == 96 || N == 128 ||
-                    N == 256,
+  static_assert(N == 48 || N == 64 || N == 80 || N == 96 || N == 104 ||
+                    N == 128 || N == 256,
                 "no wgmma_rs for this N");
 }
 
@@ -535,7 +704,7 @@ inline EncodeTiledFn encode_tiled() {
 // rows x 64 columns of one head of one batch entry; rows past L and
 // columns past D read as zeros. False when the driver refuses it (a base
 // address that is not 16-byte aligned, or a row of D bf16 that is not a
-// multiple of 16 bytes: D 100).
+// multiple of 16 bytes: D 100, which the bodies load by cp.async).
 inline bool make_map(CUtensorMap* map, const void* ptr, int B, int L,
                      int heads, int D, int rows) {
   EncodeTiledFn fn = encode_tiled();
@@ -551,6 +720,11 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int B, int L,
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// true when p is a multiple of `bytes` (a power of two)
+inline bool aligned(const void* p, uintptr_t bytes) {
+  return ((uintptr_t)p & (bytes - 1)) == 0;
 }
 
 // the number of SMs of the current device: a persistent grid's size (0

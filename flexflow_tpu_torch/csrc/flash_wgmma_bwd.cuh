@@ -1,7 +1,9 @@
 // The tensor-core flash-attention backward bodies (bf16; head dims 64,
 // 128 and 256, and K4's 48, 80 and 96 on zero-padded 64 / 128-column
 // tiles, flash_wgmma.cuh): wgmma fed by TMA, one kernel for dq and one
-// for dk/dv.
+// for dk/dv. At K4's D 100 (rows TMA cannot stride) the producer
+// warpgroup's 128 threads fill the same tiles by cp.async (cp_rows,
+// CpAsyncPipe) and each arrives on a tile's barrier.
 // Each body serves two kernels, instantiated under their own layout tags
 // (flash_wgmma.cuh): K2 (flash_attention_bwd.cu, FlatLayout, GQA summed
 // in the block) and K4's backward (flash_attention_bh_bwd.cu, HeadMajor).
@@ -38,6 +40,7 @@
 #pragma once
 
 #include <algorithm>
+#include <cstring>
 
 #include "flash_common.cuh"
 #include "flash_wgmma.cuh"
@@ -89,14 +92,22 @@ template <int D>
 struct DkvTiles {
   static constexpr int DP = pad64(D);
   static constexpr int kBQ = 64;
-  static constexpr int kStages = DP == 64 ? 4 : 2;
+  // cp.async tiles (D 100) land later than TMA's: a third stage keeps
+  // one more ahead (9% at OpenLLaMA-3B's shape)
+  static constexpr int kStages = DP == 64 ? 4 : rows_by_cp_async(D) ? 3 : 2;
   static constexpr size_t kRing =
       (size_t)2 * kStages * kBQ * DP * 2 + (size_t)2 * kStages * kBQ * 4;
+  // shared memory past the tiles: the 1024-byte alignment and the
+  // barriers; the cp.async layout reserves only what its barriers take,
+  // so two K/V buffers fit beside its three stages
+  static constexpr size_t kSlack = rows_by_cp_async(D) ? 1024 + 128 : 2048;
   static constexpr int kKVBufs =
-      (size_t)2 * 2 * dkv_keys<D>() * DP * 2 + kRing + 2048 <=
+      (size_t)2 * 2 * dkv_keys<D>() * DP * 2 + kRing + kSlack <=
               ffflash::kMaxSmemBytes
           ? 2
           : 1;
+  static_assert((2 * kKVBufs + 2 * kStages) * 8 <= kSlack - 1024,
+                "the barriers do not fit");
   // overlap a tile's products with the next tile's scores where p^T and
   // ds^T in flight beside dk and dv fit the registers: at DP 128 and 256
   // they spill (ptxas -v)
@@ -107,7 +118,7 @@ template <int D>
 constexpr size_t dkv_wg_smem() {
   using T = DkvTiles<D>;
   return (size_t)T::kKVBufs * 2 * dkv_keys<D>() * T::DP * 2 + T::kRing +
-         1024 + 1024;
+         T::kSlack;
 }
 
 template <class Tag, int D, int BK, int Stages, int QBufs>
@@ -119,11 +130,13 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       __nv_bfloat16* __restrict__ dq, int B, int S, int Tk,
-                      int H, int Hkv, int causal, float scale) {
+                      int H, int Hkv, int causal, float scale,
+                      const RowSrc rows) {
+  constexpr bool kCp = rows_by_cp_async(D);
   // tiles DP columns wide; S and dP stop after ceil(D / 16) k-steps,
-  // ds.K has N = D
-  constexpr int DP = pad64(D), KD = (D + 15) / 16;
-  static_assert(D % 8 == 0 && (DP <= 128 || DP == D),
+  // ds.K has N = NV (vn)
+  constexpr int DP = pad64(D), KD = (D + 15) / 16, NV = vn(D);
+  static_assert(D % 4 == 0 && (DP <= 128 || DP == D),
                 "a head dim the tile layout does not take");
   constexpr int kQBytes = kBM * DP * 2;
   constexpr int kKVBytes = BK * DP * 2;
@@ -142,13 +155,17 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int items = BH * nq;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
+  // a tile's producer arrivals: one TMA thread, or every producer thread
+  constexpr int kArrivals = kCp ? 128 : 1;
+  if constexpr (kCp)  // columns D .. DP - 1, which the copies never write
+    zero_smem(sQ, (size_t)QBufs * 2 * kQBytes + 2 * Stages * kKVBytes);
   if (threadIdx.x == 0) {
     for (int i = 0; i < QBufs; ++i) {
-      mbar_init(&q_full[i], 1);
+      mbar_init(&q_full[i], kArrivals);
       mbar_init(&q_empty[i], kConsumers);
     }
     for (int s = 0; s < Stages; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], kArrivals);
       mbar_init(&empty[s], kConsumers);
     }
     mbar_init_fence();
@@ -156,8 +173,17 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   __syncthreads();
 
   if (warp >= kConsumers / 32) {  // the producer warpgroup: one thread
-    producer_regs();                // issues every load
-    if (warp == kConsumers / 32 && lane == 0) {
+    producer_regs();                // issues every TMA load, or all 128
+    if (kCp || (warp == kConsumers / 32 && lane == 0)) {  // copy
+      const int pt = threadIdx.x - kConsumers;
+      CpAsyncPipe pipe;
+      // wait for a buffer to be free
+      auto acquire = [&](uint64_t* bar, uint32_t parity) {
+        if constexpr (kCp)
+          pipe.wait(bar, parity);
+        else
+          mbar_wait(bar, parity);
+      };
       int it = 0, n = 0;  // K/V tiles and items loaded so far
       for (int r = 0, t; (t = zigzag_item(r, items)) >= 0; ++r) {
         if (t >= items) continue;
@@ -167,33 +193,46 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const int kend = causal ? min(Tk, q0 + kBM) : Tk;
         const int nk = (kend + BK - 1) / BK;
         const int qb = n % QBufs;
-        if (n >= QBufs) mbar_wait(&q_empty[qb], ((n / QBufs) - 1) & 1);
+        if (n >= QBufs) acquire(&q_empty[qb], ((n / QBufs) - 1) & 1);
         ++n;
-        mbar_expect_tx(&q_full[qb], 2 * kQBytes);
         __nv_bfloat16* q_s = (__nv_bfloat16*)(sQ + qb * 2 * kQBytes);
         __nv_bfloat16* o_s = q_s + kBM * DP;  // dO
+        if constexpr (kCp) {
+          cp_rows<D, kBM>(q_s, rows.q, b, S, H, h, q0, pt);
+          cp_rows<D, kBM>(o_s, rows.o, b, S, H, h, q0, pt);
+          pipe.commit(&q_full[qb]);
+        } else {
+          mbar_expect_tx(&q_full[qb], 2 * kQBytes);
 #pragma unroll
-        for (int c = 0; c < DP / 64; ++c) {
-          tma_load_4d(q_s + c * kBM * 64, &map_q, &q_full[qb], c * 64, h,
-                      q0, b);
-          tma_load_4d(o_s + c * kBM * 64, &map_do, &q_full[qb], c * 64, h,
-                      q0, b);
+          for (int c = 0; c < DP / 64; ++c) {
+            tma_load_4d(q_s + c * kBM * 64, &map_q, &q_full[qb], c * 64, h,
+                        q0, b);
+            tma_load_4d(o_s + c * kBM * 64, &map_do, &q_full[qb], c * 64,
+                        h, q0, b);
+          }
         }
         for (int i = 0; i < nk; ++i, ++it) {
           const int s = it % Stages;
-          if (it >= Stages) mbar_wait(&empty[s], ((it / Stages) - 1) & 1);
-          mbar_expect_tx(&full[s], 2 * kKVBytes);
+          if (it >= Stages) acquire(&empty[s], ((it / Stages) - 1) & 1);
           __nv_bfloat16* k_s = (__nv_bfloat16*)(sK + s * kKVBytes);
           __nv_bfloat16* v_s = (__nv_bfloat16*)(sV + s * kKVBytes);
+          if constexpr (kCp) {
+            cp_rows<D, BK>(k_s, rows.k, b, Tk, Hkv, g, i * BK, pt);
+            cp_rows<D, BK>(v_s, rows.v, b, Tk, Hkv, g, i * BK, pt);
+            pipe.commit(&full[s]);
+          } else {
+            mbar_expect_tx(&full[s], 2 * kKVBytes);
 #pragma unroll
-          for (int c = 0; c < DP / 64; ++c) {
-            tma_load_4d(k_s + c * BK * 64, &map_k, &full[s], c * 64, g,
-                        i * BK, b);
-            tma_load_4d(v_s + c * BK * 64, &map_v, &full[s], c * 64, g,
-                        i * BK, b);
+            for (int c = 0; c < DP / 64; ++c) {
+              tma_load_4d(k_s + c * BK * 64, &map_k, &full[s], c * 64, g,
+                          i * BK, b);
+              tma_load_4d(v_s + c * BK * 64, &map_v, &full[s], c * 64, g,
+                          i * BK, b);
+            }
           }
         }
       }
+      if constexpr (kCp) pipe.drain();
     }
   } else {
     consumer_regs();
@@ -223,9 +262,9 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         row_lse[hf] = row < S ? lse[(size_t)bh * S + row] * kLog2e : 0.f;
         row_delta[hf] = row < S ? delta[(size_t)bh * S + row] : 0.f;
       }
-      float acc[D / 2];
+      float acc[NV / 2];
 #pragma unroll
-      for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+      for (int x = 0; x < NV / 2; ++x) acc[x] = 0.f;
       float sc[BK / 2], dp[BK / 2];
       uint32_t da[BK / 16][4];  // ds of the previous tile, bf16
 
@@ -268,7 +307,7 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const __nv_bfloat16* k_s = (const __nv_bfloat16*)(sK + s * kKVBytes);
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma_rs<D>(acc, da[kk], mnmajor<BK>(k_s, kk), 1);
+          wgmma_rs<NV>(acc, da[kk], mnmajor<BK>(k_s, kk), 1);
         wg_commit();
       };
 
@@ -350,8 +389,9 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         if (row >= S) continue;
         __nv_bfloat16* dst = dq + ffflash::elem<D>(b, S, H, h, row, cq);
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+        for (int j = 0; j < (D + 7) / 8; ++j)
+          if (D % 8 == 0 || 8 * j + cq < D)  // no column past D
+            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
               __floats2bfloat162_rn(acc[4 * j + 2 * hf],
                                     acc[4 * j + 2 * hf + 1]);
       }
@@ -378,14 +418,19 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const float* __restrict__ delta,
                        __nv_bfloat16* __restrict__ dk,
                        __nv_bfloat16* __restrict__ dv, int B, int S, int Tk,
-                       int H, int Hkv, int causal, float scale) {
+                       int H, int Hkv, int causal, float scale,
+                       const RowSrc rows) {
+  constexpr bool kCp = rows_by_cp_async(D);
   // tiles DP columns wide; S^T and dP^T stop after ceil(D / 16) k-steps,
   // the products have N = DW
   constexpr int DP = pad64(D), KD = (D + 15) / 16;
-  static_assert(D % 8 == 0 && (DP <= 128 || DP == D),
+  static_assert(D % 4 == 0 && (DP <= 128 || DP == D),
                 "a head dim the tile layout does not take");
   constexpr int BN = dkv_keys<D>();
-  constexpr int DW = DP > 128 ? D / 2 : D;  // dk / dv columns a warpgroup
+  // dk / dv columns a warpgroup computes (DW, the products' N) and
+  // stores (DS: none past D)
+  constexpr int DW = DP > 128 ? D / 2 : vn(D);
+  constexpr int DS = DP > 128 ? D / 2 : D;
   constexpr int kKBytes = BN * DP * 2;
   constexpr int kQBytes = BQ * DP * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -406,13 +451,16 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int items = BG * ((Tk + BN - 1) / BN);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
+  if constexpr (kCp)  // columns D .. DP - 1, which the copies never write
+    zero_smem(sKV, (size_t)KVBufs * 2 * kKBytes + 2 * Stages * kQBytes);
   if (threadIdx.x == 0) {
     for (int i = 0; i < KVBufs; ++i) {
-      mbar_init(&kv_full[i], 1);
+      mbar_init(&kv_full[i], kCp ? 128 : 1);
       mbar_init(&kv_empty[i], kConsumers);
     }
     for (int s = 0; s < Stages; ++s) {
-      mbar_init(&full[s], 32);  // the producer warp's lanes
+      // the producer warp's lanes, or all 128 producer threads
+      mbar_init(&full[s], kCp ? 128 : 32);
       mbar_init(&empty[s], kConsumers);
     }
     mbar_init_fence();
@@ -425,8 +473,10 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   auto live_from = [&](int k0) { return causal ? min(k0 / BQ, nq) : 0; };
 
   if (warp >= kConsumers / 32) {  // the producer warpgroup: its first
-    producer_regs();                // warp loads, the others idle
-    if (warp == kConsumers / 32) {
+    producer_regs();                // warp loads, the others idle (all
+    if (kCp || warp == kConsumers / 32) {  // 128 copy at D 100)
+      const int pt = threadIdx.x - kConsumers;
+      CpAsyncPipe pipe;
       int it = 0, n = 0;  // Q/dO tiles and K/V items loaded so far
       for (int r = 0, t; (t = zigzag_item(r, items)) >= 0; ++r) {
         if (t >= items) continue;
@@ -437,7 +487,13 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const int live = nq - iq0;
         if (live == 0) continue;
         const int kb = n % KVBufs;
-        if (lane == 0) {
+        if constexpr (kCp) {
+          if (n >= KVBufs) pipe.wait(&kv_empty[kb], ((n / KVBufs) - 1) & 1);
+          __nv_bfloat16* k_s = (__nv_bfloat16*)(sKV + kb * 2 * kKBytes);
+          cp_rows<D, BN>(k_s, rows.k, b, Tk, Hkv, g, k0, pt);
+          cp_rows<D, BN>(k_s + BN * DP, rows.v, b, Tk, Hkv, g, k0, pt);
+          pipe.commit(&kv_full[kb]);
+        } else if (lane == 0) {
           if (n >= KVBufs) mbar_wait(&kv_empty[kb], ((n / KVBufs) - 1) & 1);
           mbar_expect_tx(&kv_full[kb], 2 * kKBytes);
           __nv_bfloat16* k_s = (__nv_bfloat16*)(sKV + kb * 2 * kKBytes);
@@ -455,14 +511,27 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           const int s = it % Stages;
           const int h = g * rep + j / live;
           const int q0 = (iq0 + j % live) * BQ;
-          if (it >= Stages) mbar_wait(&empty[s], ((it / Stages) - 1) & 1);
+          if (it >= Stages) {
+            if constexpr (kCp)
+              pipe.wait(&empty[s], ((it / Stages) - 1) & 1);
+            else
+              mbar_wait(&empty[s], ((it / Stages) - 1) & 1);
+          }
+          if constexpr (kCp) {  // in flight while lse and delta load
+            cp_rows<D, BQ>((__nv_bfloat16*)(sQ + s * kQBytes), rows.q, b,
+                           S, H, h, q0, pt);
+            cp_rows<D, BQ>((__nv_bfloat16*)(sO + s * kQBytes), rows.o, b,
+                           S, H, h, q0, pt);
+          }
           const size_t row_base = ((size_t)b * H + h) * S;
-          for (int r = lane; r < BQ; r += 32) {
+          for (int r = kCp ? pt : lane; r < BQ; r += kCp ? 128 : 32) {
             const int qpos = q0 + r;
             sL[s * BQ + r] = qpos < S ? lse[row_base + qpos] * kLog2e : 0.f;
             sD[s * BQ + r] = qpos < S ? delta[row_base + qpos] : 0.f;
           }
-          if (lane == 0) {
+          if constexpr (kCp) {
+            pipe.commit(&full[s]);
+          } else if (lane == 0) {
             mbar_expect_tx(&full[s], 2 * kQBytes);
             __nv_bfloat16* q_s = (__nv_bfloat16*)(sQ + s * kQBytes);
             __nv_bfloat16* o_s = (__nv_bfloat16*)(sO + s * kQBytes);
@@ -478,6 +547,7 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           }
         }
       }
+      if constexpr (kCp) pipe.drain();
     }
   } else {
     consumer_regs();
@@ -657,7 +727,8 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const size_t off =
             ffflash::elem<D>(b, Tk, Hkv, g, kpos, col_off + cq);
 #pragma unroll
-        for (int j = 0; j < DW / 8; ++j) {
+        for (int j = 0; j < (DS + 7) / 8; ++j) {
+          if (DS % 8 != 0 && 8 * j + cq >= DS) continue;  // past D
           *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
               __floats2bfloat162_rn(dka[4 * j + 2 * hf],
                                     dka[4 * j + 2 * hf + 1]);
@@ -670,9 +741,38 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// the maps of q, dO (boxes of qrows rows) and k, v (krows), or at a head
+// dim loaded by cp.async their addresses in `src` (maps zeroed); false
+// when TMA refuses a map or, under cp.async, a base is not 8-byte aligned
+// or an output's (dq, dk, dv) not 4-byte aligned
+template <int D>
+bool bwd_sources(CUtensorMap* mq, CUtensorMap* mo, CUtensorMap* mk,
+                 CUtensorMap* mv, RowSrc* src, const void* q, const void* k,
+                 const void* v, const void* dout, const void* out0,
+                 const void* out1, int B, int S, int Tk, int H, int Hkv,
+                 int qrows, int krows) {
+  if constexpr (rows_by_cp_async(D)) {
+    if (!aligned(q, 8) || !aligned(k, 8) || !aligned(v, 8) ||
+        !aligned(dout, 8) || !aligned(out0, 4) || !aligned(out1, 4))
+      return false;
+    std::memset(mq, 0, sizeof *mq);
+    *mo = *mk = *mv = *mq;
+    *src = {(const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+            (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout};
+    return true;
+  } else {
+    *src = RowSrc{};
+    return make_map(mq, q, B, S, H, D, qrows) &&
+           make_map(mo, dout, B, S, H, D, qrows) &&
+           make_map(mk, k, B, Tk, Hkv, D, krows) &&
+           make_map(mv, v, B, Tk, Hkv, D, krows);
+  }
+}
+
 // Launch the dq body on contiguous bf16 q, dO (B, S, H, D), k/v (B, T,
 // Hkv, D), dq like q, fp32 lse and delta (B, H, S). cudaErrorInvalidValue
-// when TMA refuses a map, otherwise the launch's cudaGetLastError().
+// when bwd_sources refuses them, otherwise the launch's
+// cudaGetLastError().
 template <class Tag, int D>
 int launch_dq_wgmma(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
@@ -683,10 +783,9 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
   static_assert(smem <= ffflash::kMaxSmemBytes,
                 "tiles do not fit shared memory");
   CUtensorMap mq, mk, mv, mo;
-  if (!make_map(&mq, q, B, S, H, D, kBM) ||
-      !make_map(&mo, dout, B, S, H, D, kBM) ||
-      !make_map(&mk, k, B, Tk, Hkv, D, T::kBK) ||
-      !make_map(&mv, v, B, Tk, Hkv, D, T::kBK))
+  RowSrc src;
+  if (!bwd_sources<D>(&mq, &mo, &mk, &mv, &src, q, k, v, dout, dq, dq, B,
+                      S, Tk, H, Hkv, kBM, T::kBK))
     return (int)cudaErrorInvalidValue;
   auto kernel =
       flash_dq_wgmma_kernel<Tag, D, T::kBK, T::kStages, T::kQBufs>;
@@ -697,7 +796,7 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
   if (grid <= 0) return (int)cudaErrorInvalidValue;
   kernel<<<grid, kWgThreads, smem, stream>>>(
       mq, mk, mv, mo, (const float*)lse, (const float*)delta,
-      (__nv_bfloat16*)dq, B, S, Tk, H, Hkv, causal, scale);
+      (__nv_bfloat16*)dq, B, S, Tk, H, Hkv, causal, scale, src);
   return (int)cudaGetLastError();
 }
 
@@ -713,10 +812,9 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
   static_assert(smem <= ffflash::kMaxSmemBytes,
                 "tiles do not fit shared memory");
   CUtensorMap mq, mk, mv, mo;
-  if (!make_map(&mq, q, B, S, H, D, T::kBQ) ||
-      !make_map(&mo, dout, B, S, H, D, T::kBQ) ||
-      !make_map(&mk, k, B, Tk, Hkv, D, BN) ||
-      !make_map(&mv, v, B, Tk, Hkv, D, BN))
+  RowSrc src;
+  if (!bwd_sources<D>(&mq, &mo, &mk, &mv, &src, q, k, v, dout, dk, dv, B,
+                      S, Tk, H, Hkv, T::kBQ, BN))
     return (int)cudaErrorInvalidValue;
   auto kernel =
       flash_dkv_wgmma_kernel<Tag, D, T::kBQ, T::kStages, T::kKVBufs>;
@@ -728,7 +826,7 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
   kernel<<<grid, kWgThreads, smem, stream>>>(
       mq, mk, mv, mo, (const float*)lse, (const float*)delta,
       (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, B, S, Tk, H, Hkv, causal,
-      scale);
+      scale, src);
   return (int)cudaGetLastError();
 }
 

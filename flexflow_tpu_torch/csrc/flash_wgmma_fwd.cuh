@@ -1,6 +1,8 @@
 // The tensor-core flash-attention forward body (bf16; head dims 64, 128
 // and 256, and K4's 48, 80 and 96 on zero-padded 64 / 128-column tiles,
-// flash_wgmma.cuh): wgmma fed by TMA. One body for two kernels, each
+// flash_wgmma.cuh): wgmma fed by TMA, or at K4's D 100 (rows TMA cannot
+// stride) by the producer warpgroup's cp.async copies into the same
+// tiles (cp_rows, CpAsyncPipe). One body for two kernels, each
 // instantiating it under its own layout tag (flash_wgmma.cuh): K1
 // (flash_attention_fwd.cu, FlatLayout) and K4's forward
 // (flash_attention_bh_fwd.cu, HeadMajor).
@@ -16,7 +18,8 @@
 // caps every thread at 168 and the accumulators spill). The producer
 // loads each item's Q tile into one of QBufs buffers, then its K/V tiles
 // of BK keys into a ring of Stages stages that runs on across items
-// (full / empty mbarriers for both). Each consumer warpgroup runs S =
+// (full / empty mbarriers for both; at D 100 all 128 producer threads
+// copy and arrive). Each consumer warpgroup runs S =
 // Q.K^T on wgmma (both operands in shared memory), the online softmax on
 // the accumulator registers, then O += P.V on wgmma with P (rounded to
 // bf16) as the A operand straight from those registers and V as the
@@ -26,7 +29,8 @@
 // flight holds its stage, so a ring of three keeps a load ahead). O, m
 // and l stay in fp32 registers; out and lse are written once. Under
 // `causal` an item's loop stops at the diagonal. Keys past T are masked
-// (TMA reads them as zeros); rows past S are not stored.
+// (TMA, or the zero-filling copy, reads them as zeros); rows past S and
+// columns past D are not stored.
 //
 // The contract is K1's and K4's (flash_attention_fwd.cu,
 // flash_attention_bh_fwd.cu): scores are fp32 dots times `scale`, masked
@@ -41,6 +45,7 @@
 #pragma once
 
 #include <algorithm>
+#include <cstring>
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -142,13 +147,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        float* __restrict__ lse, float* __restrict__ m_io,
                        float* __restrict__ l_io, float* __restrict__ acc_io,
                        int B, int S, int Tk, int H, int Hkv, int causal,
-                       float scale) {
+                       float scale, const RowSrc rows) {
   constexpr bool kCarry = std::is_same<Tag, HeadMajorCarry>::value;
+  constexpr bool kCp = rows_by_cp_async(D);
   // tiles DP columns wide; Q.K^T stops after ceil(D / 16) k-steps, P.V
-  // has N = D
-  constexpr int DP = pad64(D), KD = (D + 15) / 16;
-  static_assert(D % 8 == 0 && (DP <= 128 || DP == D),
+  // has N = NV (vn)
+  constexpr int DP = pad64(D), KD = (D + 15) / 16, NV = vn(D);
+  static_assert(D % 4 == 0 && (DP <= 128 || DP == D),
                 "a head dim the tile layout does not take");
+  static_assert(!(kCarry && kCp), "no carried state on the cp.async tiles");
   constexpr int kQBytes = kBM * DP * 2;
   constexpr int kKVBytes = BK * DP * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -166,13 +173,17 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int items = BH * nq;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
+  // a tile's producer arrivals: one TMA thread, or every producer thread
+  constexpr int kArrivals = kCp ? 128 : 1;
+  if constexpr (kCp)  // columns D .. DP - 1, which the copies never write
+    zero_smem(sQ, (size_t)QBufs * kQBytes + 2 * Stages * kKVBytes);
   if (threadIdx.x == 0) {
     for (int i = 0; i < QBufs; ++i) {
-      mbar_init(&q_full[i], 1);
+      mbar_init(&q_full[i], kArrivals);
       mbar_init(&q_empty[i], kConsumers);
     }
     for (int s = 0; s < Stages; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], kArrivals);
       mbar_init(&empty[s], kConsumers);
     }
     mbar_init_fence();
@@ -180,8 +191,17 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   __syncthreads();
 
   if (warp >= kConsumers / 32) {  // the producer warpgroup: one thread
-    producer_regs();                // issues every load
-    if (warp == kConsumers / 32 && lane == 0) {
+    producer_regs();                // issues every TMA load, or all 128
+    if (kCp || (warp == kConsumers / 32 && lane == 0)) {  // copy
+      const int pt = threadIdx.x - kConsumers;
+      CpAsyncPipe pipe;
+      // wait for a buffer to be free
+      auto acquire = [&](uint64_t* bar, uint32_t parity) {
+        if constexpr (kCp)
+          pipe.wait(bar, parity);
+        else
+          mbar_wait(bar, parity);
+      };
       int it = 0, n = 0;  // K/V tiles and items loaded so far
       for (int r = 0, t; (t = zigzag_item(r, items)) >= 0; ++r) {
         if (t >= items) continue;
@@ -191,29 +211,41 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const int kend = causal ? min(Tk, q0 + kBM) : Tk;
         const int nk = (kend + BK - 1) / BK;
         const int qb = n % QBufs;
-        if (n >= QBufs) mbar_wait(&q_empty[qb], ((n / QBufs) - 1) & 1);
+        if (n >= QBufs) acquire(&q_empty[qb], ((n / QBufs) - 1) & 1);
         ++n;
-        mbar_expect_tx(&q_full[qb], kQBytes);
         __nv_bfloat16* q_s = (__nv_bfloat16*)(sQ + qb * kQBytes);
+        if constexpr (kCp) {
+          cp_rows<D, kBM>(q_s, rows.q, b, S, H, h, q0, pt);
+          pipe.commit(&q_full[qb]);
+        } else {
+          mbar_expect_tx(&q_full[qb], kQBytes);
 #pragma unroll
-        for (int c = 0; c < DP / 64; ++c)
-          tma_load_4d(q_s + c * kBM * 64, &map_q, &q_full[qb], c * 64, h,
-                      q0, b);
+          for (int c = 0; c < DP / 64; ++c)
+            tma_load_4d(q_s + c * kBM * 64, &map_q, &q_full[qb], c * 64, h,
+                        q0, b);
+        }
         for (int i = 0; i < nk; ++i, ++it) {
           const int s = it % Stages;
-          if (it >= Stages) mbar_wait(&empty[s], ((it / Stages) - 1) & 1);
-          mbar_expect_tx(&full[s], 2 * kKVBytes);
+          if (it >= Stages) acquire(&empty[s], ((it / Stages) - 1) & 1);
           __nv_bfloat16* k_s = (__nv_bfloat16*)(sK + s * kKVBytes);
           __nv_bfloat16* v_s = (__nv_bfloat16*)(sV + s * kKVBytes);
+          if constexpr (kCp) {
+            cp_rows<D, BK>(k_s, rows.k, b, Tk, Hkv, g, i * BK, pt);
+            cp_rows<D, BK>(v_s, rows.v, b, Tk, Hkv, g, i * BK, pt);
+            pipe.commit(&full[s]);
+          } else {
+            mbar_expect_tx(&full[s], 2 * kKVBytes);
 #pragma unroll
-          for (int c = 0; c < DP / 64; ++c) {
-            tma_load_4d(k_s + c * BK * 64, &map_k, &full[s], c * 64, g,
-                        i * BK, b);
-            tma_load_4d(v_s + c * BK * 64, &map_v, &full[s], c * 64, g,
-                        i * BK, b);
+            for (int c = 0; c < DP / 64; ++c) {
+              tma_load_4d(k_s + c * BK * 64, &map_k, &full[s], c * 64, g,
+                          i * BK, b);
+              tma_load_4d(v_s + c * BK * 64, &map_v, &full[s], c * 64, g,
+                          i * BK, b);
+            }
           }
         }
       }
+      if constexpr (kCp) pipe.drain();
     }
   } else {
     consumer_regs();
@@ -239,9 +271,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       auto edge = [&](int k0) {
         return k0 + BK > Tk || (causal && k0 + BK - 1 > q0 + wg * 64);
       };
-      float o[D / 2];
+      float o[NV / 2];
 #pragma unroll
-      for (int x = 0; x < D / 2; ++x) o[x] = 0.f;
+      for (int x = 0; x < NV / 2; ++x) o[x] = 0.f;
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
       if constexpr (kCarry) {  // the carried state of rows r0, r0 + 8
 #pragma unroll
@@ -307,7 +339,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         wg_commit();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)  // O += P.V, tile i - 1
-          wgmma_rs<D>(o, pa[kk], mnmajor<BK>(v_p, kk), 1);
+          wgmma_rs<NV>(o, pa[kk], mnmajor<BK>(v_p, kk), 1);
         wg_commit();
         wg_wait1();  // S done; P.V may still run
         fence_regs(sc);
@@ -320,7 +352,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         fence_regs(pa);
         mbar_arrive(&empty[sp]);
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
+        for (int j = 0; j < NV / 8; ++j)
 #pragma unroll
           for (int hf = 0; hf < 2; ++hf) {
             o[4 * j + 2 * hf] *= corr[hf];
@@ -335,7 +367,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma_rs<D>(o, pa[kk], mnmajor<BK>(v_p, kk), 1);
+          wgmma_rs<NV>(o, pa[kk], mnmajor<BK>(v_p, kk), 1);
         wg_commit();
         wg_wait0();
         fence_regs(o);
@@ -364,8 +396,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const float l_safe = fmaxf(l[hf], 1e-30f);
         __nv_bfloat16* dst = out + ffflash::elem<D>(b, S, H, h, row, cq);
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+        for (int j = 0; j < (D + 7) / 8; ++j)
+          if (D % 8 == 0 || 8 * j + cq < D)  // no column past D
+            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
               __floats2bfloat162_rn(o[4 * j + 2 * hf] / l_safe,
                                     o[4 * j + 2 * hf + 1] / l_safe);
         if (lane % 4 == 0)
@@ -378,7 +411,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 // Launch the body on contiguous bf16 q (B, S, H, D), k/v (B, T, Hkv, D),
 // out like q, fp32 lse (B, H, S); under HeadMajorCarry fp32 m, l (B, S)
 // and acc (B, S, D) instead of out and lse. cudaErrorInvalidValue when TMA
-// refuses a map (e.g. a base address that is not 16-byte aligned),
+// refuses a map (e.g. a base address that is not 16-byte aligned) or, at
+// a head dim loaded by cp.async, a base is not 8-byte aligned (out: 4),
 // otherwise the launch's cudaGetLastError().
 template <class Tag, int D>
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
@@ -391,10 +425,20 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
   static_assert(smem <= ffflash::kMaxSmemBytes,
                 "tiles do not fit shared memory");
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, B, S, H, D, kBM) ||
-      !make_map(&mk, k, B, Tk, Hkv, D, BK) ||
-      !make_map(&mv, v, B, Tk, Hkv, D, BK))
+  RowSrc src{};
+  if constexpr (rows_by_cp_async(D)) {
+    if (!aligned(q, 8) || !aligned(k, 8) || !aligned(v, 8) ||
+        !aligned(out, 4))
+      return (int)cudaErrorInvalidValue;
+    std::memset(&mq, 0, sizeof mq);
+    mk = mv = mq;
+    src = {(const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+           (const __nv_bfloat16*)v, nullptr};
+  } else if (!make_map(&mq, q, B, S, H, D, kBM) ||
+             !make_map(&mk, k, B, Tk, Hkv, D, BK) ||
+             !make_map(&mv, v, B, Tk, Hkv, D, BK)) {
     return (int)cudaErrorInvalidValue;
+  }
   auto kernel = flash_fwd_wgmma_kernel<Tag, D, BK, FwdTiles<D>::kStages,
                                        FwdTiles<D>::kQBufs>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -405,7 +449,7 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
   if (grid <= 0) return (int)cudaErrorInvalidValue;
   kernel<<<grid, kWgThreads, smem, stream>>>(
       mq, mk, mv, (__nv_bfloat16*)out, (float*)lse, (float*)m, (float*)l,
-      (float*)acc, B, S, Tk, H, Hkv, causal, scale);
+      (float*)acc, B, S, Tk, H, Hkv, causal, scale, src);
   return (int)cudaGetLastError();
 }
 

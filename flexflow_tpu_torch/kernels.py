@@ -16,7 +16,9 @@ no nvcc and no card.
 
 Each kernel object counts its launches in `launches`, a plain integer the
 launch method bumps once per kernel launch, so a run can show that its
-main path went through the kernel.
+main path went through the kernel, and keeps in `build_log` nvcc's
+output (ptxas -v: each __global__'s registers and spills) when this
+process built its source.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -67,6 +69,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.replaces = replaces
         self.launches = 0
+        self.build_log = None
         self._fn = None
         self._lib = None
         self._lock = threading.Lock()
@@ -132,6 +135,9 @@ def build(kernels: Sequence[CudaKernel]) -> Dict[str, float]:
             continue
         os.replace(tmp, out)
         secs[k.source.name] = time.monotonic() - t0
+        for other in kernels:
+            if other.source == k.source:
+                other.build_log = log
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return secs
@@ -182,8 +188,9 @@ FLASH_ATTENTION_DKV = CudaKernel(
 
 # K4, the head-major kernels (q (BH, S, D), k/v (BH, T, D), any D up to
 # 256): forward, dq and dk/dv; on the tensor cores in bf16 at D 48, 64, 80,
-# 96, 128 and 256 (K1/K2's bodies under the HeadMajor tag, 48..96 on tiles
-# zero-padded to 64 / 128 columns) and in fp32 at 64, 128 and 256 (the
+# 96, 100, 128 and 256 (K1/K2's bodies under the HeadMajor tag, 48..100 on
+# tiles zero-padded to 64 / 128 columns, D 100's filled by cp.async since
+# its 200-byte rows are no TMA stride) and in fp32 at 64, 128 and 256 (the
 # 3xTF32 bodies of csrc/flash_tf32.cuh), every other case on CUDA cores
 FLASH_ATTENTION_BH_FWD = CudaKernel(
     name="flash_attention_bh_fwd",

@@ -18,14 +18,16 @@ q (B, S, H, D) and k/v (B, T, Hkv, D) with H % Hkv == 0, and returns
   repeat's autograd sums dk/dv over each GQA group. The reference also
   zero-pads D to 128 lanes; that is TPU tiling, and K4 takes D as it is.
   K4 in bf16 at D 64 (GPT-2's and bench.py's 200m Llama's heads), 128
-  and 256, and at D 48, 80 and 96 (Phi-3-mini's heads) on tiles that TMA
-  zero-pads to 64 / 128 columns, runs on the tensor cores, through the
-  bodies K1/K2 run (csrc/flash_wgmma_fwd.cuh, csrc/flash_wgmma_bwd.cuh);
-  in fp32 at D 64, 128 and 256 (forward, dq and dk/dv) on them too, in
-  3xTF32 (csrc/flash_tf32.cuh; the arithmetic `einsum_3xtf32` emulates).
-  The other cases run K4's CUDA-core bodies: fp32 at every other width,
-  bf16 at the others (D 100's 200-byte rows are no TMA stride). A tensor
-  a tensor-core body cannot map (a base that is not 16-byte aligned)
+  and 256, at D 48, 80 and 96 (Phi-3-mini's heads) on tiles that TMA
+  zero-pads to 64 / 128 columns, and at D 100 (OpenLLaMA-3B's heads,
+  200-byte rows that are no TMA stride) on the same tiles filled by
+  cp.async, runs on the tensor cores, through the bodies K1/K2 run
+  (csrc/flash_wgmma_fwd.cuh, csrc/flash_wgmma_bwd.cuh); in fp32 at D 64,
+  128 and 256 (forward, dq and dk/dv) on them too, in 3xTF32
+  (csrc/flash_tf32.cuh; the arithmetic `einsum_3xtf32` emulates). The
+  other cases run K4's CUDA-core bodies: fp32 at every other width, bf16
+  at the others. A tensor a tensor-core body cannot load (a base that is
+  not 16-byte aligned for TMA, not 8-byte aligned for D 100's cp.async)
   raises; no other body takes over. K2's fp32 dq and dk/dv at D
   128 and 256 run the same 3xTF32 body on the flat layout; K1 in fp32
   stays on the CUDA cores. Which body runs is the C entry's choice by

@@ -439,7 +439,9 @@ def test_flash_bf16_kernels_are_bitwise_deterministic(causal, S, T, H, Hkv,
 def test_flash_wrapper_refuses_what_the_kernels_do_not_take():
     """D 640 (a multiple of 128 above 512) is refused by K1/K2; above 256
     by K4; float16 by both; a base address TMA cannot map by K4's and
-    K5's tensor-core bodies (K4's at D 64 and at the padded D 96)."""
+    K5's tensor-core bodies (K4's at D 64 and at the padded D 96), and a
+    base the cp.async copies cannot take (not 8-byte aligned) by K4's
+    bodies at D 100."""
     _needs_card()
     q = torch.zeros(1, 8, 2, 640, device="cuda")
     with pytest.raises(ValueError, match="up to 512"):
@@ -475,6 +477,17 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take():
         flash_bh_dq(q, q, q, q, stats, stats, True, 0.1)
     with pytest.raises(RuntimeError, match="invalid argument"):
         flash_bh_dkv(q, q, q, q, stats, stats, True, 0.1)
+    # and at D 100, whose tiles are filled by 8-byte cp.async copies: a
+    # base 2 bytes off is refused by the forward, dq and dk/dv alike
+    flat = torch.zeros(2 * 128 * 100 + 1, device="cuda", dtype=torch.bfloat16)
+    q = flat[1:].view(2, 128, 100)
+    assert q.is_contiguous() and q.data_ptr() % 8 == 2
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        flash_bh_forward(q, q, q, True, 0.1)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        flash_bh_dq(q, q, q, q, stats, stats, True, 0.1)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        flash_bh_dkv(q, q, q, q, stats, stats, True, 0.1)
     # the same for K5's tensor-core body (HeadMajorCarry)
     from flexflow_tpu_torch.ops.flash_attention import flash_bh_fwd_carry
 
@@ -487,15 +500,17 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take():
 
 
 # (S, T, D) for K4: every padded width of the CUDA-core bodies (8, 48,
-# 80, 96, 100; bf16 at 48, 80 and 96 runs the wgmma bodies on tiles
-# zero-padded to 64 / 128 columns), S != T and S not a multiple of the
-# tile, S = T 1024 at 80 and 96 (Phi-3-mini's), a ragged S != T at 48;
+# 80, 96, 100; bf16 at 48, 80, 96 and 100 runs the wgmma bodies on tiles
+# zero-padded to 64 / 128 columns, D 100's filled by cp.async), S != T
+# and S not a multiple of the tile, S = T 1024 at 80, 96 (Phi-3-mini's)
+# and 100 (OpenLLaMA-3B's), a ragged S != T at 48 and 100;
 # and the tensor-core classes (D 64, 128 and 256: wgmma in bf16, 3xTF32
 # in fp32): S = T at 128, a ragged 1000 and 1024, and S != T both ways
 K4_SHAPES = [
     (128, 128, 64), (200, 200, 48), (130, 260, 80), (256, 100, 96),
     (128, 128, 100), (96, 96, 8), (256, 256, 128), (160, 160, 256),
     (1024, 1024, 80), (1024, 1024, 96), (1000, 1536, 48),
+    (1024, 1024, 100), (1000, 1536, 100),
     (1000, 1000, 64), (1024, 1024, 64), (256, 1024, 64), (1024, 300, 64),
     (128, 128, 128), (1000, 1000, 128), (1024, 1024, 128),
     (200, 1000, 128), (1000, 200, 128),
@@ -595,7 +610,8 @@ def test_head_major_fp32_backward_takes_unaligned_tensors(D):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S,T,D", [(1000, 1000, 64), (256, 1024, 128),
                                    (1024, 300, 256), (1000, 1000, 96),
-                                   (256, 1024, 80), (1024, 300, 48)])
+                                   (256, 1024, 80), (1024, 300, 48),
+                                   (1000, 1000, 100), (300, 1024, 100)])
 def test_head_major_bf16_kernels_are_bitwise_deterministic(causal, S, T, D):
     """Two launches of each bf16 K4 kernel on the tensor cores on the same
     inputs give the same bits: no atomics."""
@@ -621,6 +637,55 @@ def test_head_major_bf16_kernels_are_bitwise_deterministic(causal, S, T, D):
     torch.cuda.synchronize()
     for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_major_d100_bf16_kernels_take_8_byte_aligned_tensors(causal):
+    """K4's bf16 forward, dq and dk/dv at D 100 (tiles filled by 8-byte
+    cp.async copies) on tensors whose base is 8 bytes past a 16-byte
+    boundary, inputs and outputs alike, match the plain versions within
+    FLASH_TOLS, as the aligned ones do."""
+    _needs_card()
+    from flexflow_tpu_torch.kernels import (
+        launch_flash_attention_bh_dkv,
+        launch_flash_attention_bh_dq,
+        launch_flash_attention_bh_fwd,
+    )
+
+    BH, S, T, D = 4, 333, 517, 100
+    scale = 1.0 / D ** 0.5
+    g = torch.Generator(device="cuda").manual_seed(100 + causal)
+
+    def off8(*shape, rand=True):
+        n = int(np.prod(shape))
+        flat = (torch.randn(n + 4, generator=g, device="cuda") if rand
+                else torch.empty(n + 4, device="cuda")).bfloat16()
+        t = flat[4:].view(*shape)
+        assert t.is_contiguous() and t.data_ptr() % 16 == 8
+        return t
+
+    q, do = off8(BH, S, D), off8(BH, S, D)
+    k, v = off8(BH, T, D), off8(BH, T, D)
+    out, dq = off8(BH, S, D, rand=False), off8(BH, S, D, rand=False)
+    dk, dv = off8(BH, T, D, rand=False), off8(BH, T, D, rand=False)
+    lse = torch.empty(BH, S, device="cuda")
+    fwd_tol, grad_tol = FLASH_TOLS[torch.bfloat16]
+    launch_flash_attention_bh_fwd(q, k, v, out, lse, causal, scale)
+    torch.cuda.synchronize()
+    want_out, want_lse = flash_bh_reference(q, k, v, causal, scale)
+    for name, got, want in (("out", out, want_out), ("lse", lse, want_lse)):
+        ok, err = _close(got, want, fwd_tol)
+        assert ok, (name, err)
+    args = (q, k, v, do, want_lse, flash_bh_delta(do, want_out))
+    launch_flash_attention_bh_dq(*args, dq, causal, scale)
+    launch_flash_attention_bh_dkv(*args, dk, dv, causal, scale)
+    torch.cuda.synchronize()
+    want_dk, want_dv = flash_bh_dkv_reference(*args, causal, scale)
+    for name, got, want in (
+            ("dq", dq, flash_bh_dq_reference(*args, causal, scale)),
+            ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        ok, err = _close(got, want, grad_tol)
+        assert ok, (name, err)
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -3,7 +3,7 @@ that skipped one key tile for late query rows must fail them, and one
 bf16 rounding of the plain result must pass them. The checks hold the
 card's flash kernels to their plain versions; these tests hold the
 checks themselves, at GPT-2 XL's head dim and sequence (D 64, S 1024)
-over two heads."""
+over two heads, and at OpenLLaMA-3B's head dim (D 100)."""
 
 import pytest
 import torch
@@ -17,6 +17,16 @@ def test_skipped_key_tile_fails_the_flash_checks(dtype, rows, keys):
     import chip_smoke
     res = chip_smoke.planted_fault_check(2, 1024, 64, dtype, 12, rows=rows,
                                          keys=keys, device="cpu")
+    assert res["rejected"] == {"fwd": True, "dq": True}, res
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_skipped_key_tile_fails_the_flash_checks_at_head_dim_100(dtype):
+    """The same at OpenLLaMA-3B's head dim (D 100, S 1024, two heads),
+    where K4's bf16 bodies load their tiles by cp.async."""
+    import chip_smoke
+    res = chip_smoke.planted_fault_check(2, 1024, 100, dtype, 12,
+                                         device="cpu")
     assert res["rejected"] == {"fwd": True, "dq": True}, res
 
 

@@ -393,6 +393,17 @@ def test_head_dim_96_train_steps_match_jax_pallas(monkeypatch):
                           kv_heads=2, hidden=512, rope_theta=10000.0), 96)
 
 
+def test_head_dim_100_train_steps_match_jax_pallas(monkeypatch):
+    """(e) head dim 100, the head geometry of OpenLLaMA-3B (dim 3200, 32
+    heads, 32 kv heads, rope theta 10000) at a small size: dim 200, 2
+    heads over 2 kv heads (MHA, D 100), hidden 512, 2 layers, seq 128
+    (_head_major_fit_matches). The JAX step's Pallas K4 lane-pads D to
+    128; the port takes D as it is."""
+    _head_major_fit_matches(
+        monkeypatch, dict(vocab_size=512, dim=200, layers=2, heads=2,
+                          kv_heads=2, hidden=512, rope_theta=10000.0), 100)
+
+
 def test_compile_without_optimizer_trains_with_sgd_on_fp32_masters():
     """compile() with no optimizer keeps the use-site dtypes (bf16 here,
     as serving stores them); fit trains with SGDOptimizer() and turns the
