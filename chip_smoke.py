@@ -2,21 +2,21 @@
 port's main paths on one NVIDIA card, paged Llama serving (fp and int8 KV
 pools, prefix cache, preemption, defrag), Llama training (head dims 128,
 64, 96 and 100), GPT-2 training and paged serving, and Llama training
-through ring attention, and holds every hand-written kernel on them to its
-plain PyTorch version.
+through ring attention (head dims 128, 96 and 100), and holds every
+hand-written kernel on them to its plain PyTorch version.
 
-    python3 chip_smoke.py            # phases 1..4, 6..13, one card
+    python3 chip_smoke.py            # phases 1..4, 6..14, one card
     python3 chip_smoke.py --phases 5 # + profiles of serving and training
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
   1. card: name and power limit; build every kernel from csrc/ (nvcc,
      sm_90a, one process per source, all started together), with the
      seconds each source took and the HGMMA (wgmma) instructions in the
-     SASS of each tensor-core flash kernel: K1/K2's and K4's forward, dq
-     and dk/dv and K5's forward at head dims 64, 128 and 256, and K4's
-     at 48, 80, 96 and 100 (WGMMA_KERNELS; D 100's tiles filled by
-     cp.async), with ptxas's registers and spills for each (none may
-     spill), and the tf32 HMMA (mma.sync)
+     SASS of each tensor-core flash kernel: K1/K2's forward, dq and
+     dk/dv at head dims 64, 128 and 256, K4's at 48, 64, 80, 96, 100,
+     128 and 256, and K5's forward at those seven (WGMMA_KERNELS; D
+     100's tiles filled by cp.async), with ptxas's registers and spills
+     for each (none may spill), and the tf32 HMMA (mma.sync)
      instructions of the 3xTF32 fp32 bodies: K4's forward, dq and dk/dv
      at 64, 128 and 256 and K2's flat dq and dk/dv at 128 and 256
      (TF32_KERNELS);
@@ -55,8 +55,12 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      fp32 cases' library time is SDPA's in fp32; K1/K2 timed at
      D 64 on the same shape beside K4 and the head-major route; the ring
      step K5 at phase 10's block (B*H 16, S = T
-     2048, D 128, full and causal, a carried-in state) with times, then at
-     head dims 48..256 and S != T;
+     2048, D 128, full and causal, a carried-in state) and at phase 14's
+     (B*H 32, S = T 2048, D 96 and 100, bf16; K5_RING_BLOCKS) with times,
+     then at head dims 48..256, S != T and s_loc 192 at D 96 and 100
+     (K5_CASES); the K5 checks must reject a planted fault at phase 14's
+     blocks, from the initial and from a carried state
+     (planted_carry_fault_check);
   3. full-width checks, card against CPU on the same seeded weights, fp32
      with TF32 off: two packed ragged steps at Llama-3-8B widths, depth 2,
      on an fp pool and on an int8 pool, and at GPT-2 XL widths, depth 2,
@@ -78,7 +82,8 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      prefill step, one decode step on an int8 pool (with the int8 ragged
      kernels' and quantize-on-append's launches and ms), one bench_1b
      train step, one GPT-2 XL train step, one phase-10 ring step, one
-     phase-11 step, one phase-12 step and one phase-13 step;
+     phase-11 step, one phase-12 step, one phase-13 step and one ring
+     step of phase 14's Phi-3-mini-width Llama;
   6. training: bench_1b (16 layers, bf16, batch 8, seq 1024,
      remat="none", Adam lr 1e-4, random weights from a seed) through
      ff.fit for one epoch of 10 seeded batches, then 10 timed steps on
@@ -117,10 +122,11 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      epoch of 10 seeded batches, then 10 timed steps on one batch (the
      loss must fall); per layer and step K5 must fold 10 blocks and K4's
      dq and dk/dv kernels run once per fold, no other attention kernel;
-     a profiled step must show K5 on its tensor-core body only (and its
-     share of the device time); then the same model and weights without
-     the ring (K1/K2 over all 8192 rows): its step time, and its logits
-     against the ring's;
+     a profiled step must show K5 and K4's dq and dk/dv on their
+     tensor-core bodies at head dim 128 only (their ms a step, the idle
+     share); then the same model and weights without the ring (K1/K2
+     over all 8192 rows): its step time, and its logits against the
+     ring's;
  11. training bench.py's 200m Llama (bench.py:56-58: vocab 32000, dim
      1024, 12 layers, 16 heads over 8 kv heads, head dim 64, FFN 2816;
      bf16, fp32 masters, batch 8, seq 1024, remat="none", Adam lr 1e-4,
@@ -142,7 +148,23 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      untied embeddings; 16 of its 26 layers) the same way: each K4 kernel
      must launch 16 times per step, on its tensor-core bodies at head dim
      100 only, whose tiles are filled by cp.async (the kernels line
-     records these launches under "openllama_3b").
+     records these launches under "openllama_3b");
+ 14. training phase 12's Llama at Phi-3-mini's widths (16 layers, head
+     dim 96; its family's 128k-context variant shares these widths) at
+     8192 tokens, batch 1, through ring attention over {"seq": 4}, as
+     phase 10 trains bench_1b: per layer and step K5 folds 10 blocks and
+     K4's dq and dk/dv run once per fold, no other attention kernel; the
+     loss must fall; a profiled step must show K5 on
+     flash_fwd_wgmma_kernel<HeadMajorCarry, 96, ...> only and K4's
+     backward on <HeadMajor, 96, ...> only (their ms a step, the idle
+     share); then the same model without the ring (K4 over all 8192
+     rows): its step time, and its logits against the ring's. The
+     reference's build_llama has neither Phi-3's sliding window nor its
+     LongRoPE scaling, so this is a Llama at Phi-3-mini's widths, not
+     Phi-3-mini. Then OpenLLaMA-3B's widths (head dim 100: K5's
+     cp.async-loaded body) cut to 2 layers (RING_OPENLLAMA_LAYERS, to keep
+     the phase short) the same way (the kernels line records K5's
+     launches of each under "phi3_mini" and "openllama_3b").
 The line before the last is the kernel list as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -305,16 +327,28 @@ K4_CASES = [
 K4_LONG_FP32_CASES = [
     (f"fp32_s{S}_d{D}_{'causal' if c else 'full'}", 2, S, S, D, c)
     for S in (4096, 8192) for D in (64, 128) for c in (True, False)]
+# K5 at phase 14's ring blocks (name, B*H, D), S = T = K5_S: a Llama at
+# Phi-3-mini's widths (32 heads of 96) and one at OpenLLaMA-3B's (32 of
+# 100; tiles filled by cp.async), batch 1 at s_loc = 8192 / 4
+K5_RING_BLOCKS = [("phi3_mini_ring_step", 32, 96),
+                  ("openllama_3b_ring_step", 32, 100)]
 # K5 beyond the main shape (name, B*H, S, T, D, causal): the card test's
-# head dims, S != T, S not a multiple of the tile
+# head dims, S != T, S not a multiple of the tile, and the ring's s_loc
+# 192 (phase 3) at the widths of phase 14
 K5_CASES = [
     ("d48", 32, 512, 512, 48, True),
     ("d64", 32, 512, 512, 64, False),
     ("d80", 32, 512, 512, 80, True),
+    ("d96", 32, 512, 512, 96, False),
+    ("d100", 32, 512, 512, 100, True),
     ("d128", 32, 512, 512, 128, False),
     ("d256", 16, 512, 512, 256, True),
     ("d64_s1000_t1536", 16, 1000, 1536, 64, False),
     ("d128_s777_t300", 16, 777, 300, 128, True),
+    ("d100_s777_t300", 16, 777, 300, 100, False),
+    ("d100_s1000_t1536", 16, 1000, 1536, 100, True),
+    ("d96_s192", 32, 192, 192, 96, True),
+    ("d100_s192", 32, 192, 192, 100, True),
 ]
 # K1/K2 at head dim 256: Gemma-7B's attention widths (16 heads of 256, no
 # GQA), B 2, S = T 1024, causal
@@ -345,6 +379,10 @@ RING_SEQ, RING_SHARDS, RING_BATCHES, RING_PLAIN_STEPS = 8192, 4, 10, 3
 # model, not set from a faulty ring: phase 2's kernel checks and phase
 # 3's card-vs-CPU ring steps hold the ring to its contract
 RING_LOGITS_RTOL = 0.1
+# phase 14's second model: OpenLLaMA-3B's widths through the same ring at
+# depth 2, so that K5's cp.async-loaded body (D 100) runs on a model path
+# and the phase stays short
+RING_OPENLLAMA_LAYERS = 2
 GPT2_POSITIONS = 1024  # n_positions: the position table, serving's max_len
 GPT2_BATCHES = 10
 # phase 8's timed step (1-based) whose loss jumps in every run, and the
@@ -420,16 +458,17 @@ def card_line() -> str:
 
 
 # every tensor-core instantiation the sources build: K1/K2's bodies under
-# the FlatLayout tag and K4's under HeadMajor, forward, dq and dk/dv, and
-# K5's forward under HeadMajorCarry, at head dims 64, 128 and 256; and
-# K4's at 48, 80, 96 and 100 (tiles zero-padded to 64 / 128 columns; D
-# 100's filled by cp.async)
+# the FlatLayout tag, forward, dq and dk/dv, at head dims 64, 128 and 256;
+# K4's under HeadMajor and K5's forward under HeadMajorCarry at those and
+# at 48, 80, 96 and 100 (tiles zero-padded to 64 / 128 columns; D 100's
+# filled by cp.async)
 WGMMA_KERNELS = tuple(
     f"flash_{k}_wgmma_kernel<{tag},{d}>"
     for tag, dims in (("FlatLayout", (64, 128, 256)),
                       ("HeadMajor", (48, 64, 80, 96, 100, 128, 256)))
     for k in ("fwd", "dq", "dkv") for d in dims) + tuple(
-    f"flash_fwd_wgmma_kernel<HeadMajorCarry,{d}>" for d in (64, 128, 256))
+    f"flash_fwd_wgmma_kernel<HeadMajorCarry,{d}>"
+    for d in (48, 64, 80, 96, 100, 128, 256))
 
 
 def wgmma_name(symbol: str):
@@ -1264,6 +1303,46 @@ def planted_fault_check(BH, S, D, dtype, seed, rows=128, keys=128,
             "dq": not _err_ok([(bad_dq, dq)], grad_tol)[1]}}
 
 
+def planted_carry_fault_check(BH, S, D, dtype, seed, rows=128, keys=128,
+                              carried=False, device=None) -> dict:
+    """The same planted fault applied to K5: the plain fold of seeded
+    (BH, S, D) q, k, v, causal (the ring's diagonal block), into the
+    initial statistics or, with `carried`, into those of a full fold of
+    another block, with the first `keys` keys left out of the last `rows`
+    query rows (keys <= S - rows): those rows fold keys keys .. S - rows
+    - 1 (all visible to them) and then their own diagonal square. Returns
+    the verdicts on m, l and acc and whether `_err_ok` rejects the fold
+    (it must)."""
+    device = device or DEVICE
+    scale = 1.0 / D ** 0.5
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, k0, v0 = (torch.randn(BH, S, D, generator=g, device=device)
+                       .to(dtype) for _ in range(5))
+    stats = (torch.full((BH, S), -1e30, device=device),
+             torch.zeros(BH, S, device=device),
+             torch.zeros(BH, S, D, device=device))
+    if carried:
+        stats = flash_bh_fwd_carry_reference(q, k0, v0, *stats, False, scale)
+    want = flash_bh_fwd_carry_reference(q, k, v, *stats, True, scale)
+    late, rest, diag = (slice(S - rows, S), slice(keys, S - rows),
+                        slice(S - rows, S))
+    part = flash_bh_fwd_carry_reference(
+        q[:, late], k[:, rest], v[:, rest], *(t[:, late] for t in stats),
+        False, scale)
+    part = flash_bh_fwd_carry_reference(q[:, late], k[:, diag], v[:, diag],
+                                        *part, True, scale)
+    bad = [t.clone() for t in want]
+    for b, p in zip(bad, part):
+        b[:, late] = p
+    tol = FLASH_TOLS[dtype][0]
+    return {
+        "shape": [BH, S, D], "dtype": str(dtype).replace("torch.", ""),
+        "rows": rows, "keys": keys, "carried": carried,
+        **{name: _err_parts(b, w, tol)
+           for name, b, w in zip(("m", "l", "acc"), bad, want)},
+        "rejected": not _err_ok(list(zip(bad, want)), tol)[1]}
+
+
 def phase_k4_kernels(card: str) -> dict:
     """K4 at GPT-2 XL's shape (bf16 and fp32, timed), at phase 11's
     (bench.py's 200m Llama: B*H 8*16, S = T 1024, D 64, causal; bf16,
@@ -1434,10 +1513,14 @@ def k5_check(BH, S, T, D, causal, dtype, seed, timed=False) -> dict:
 
 def phase_k5_kernels(card: str) -> dict:
     """K5 at phase 10's block shape (bf16 and fp32, full and causal,
-    timed), then at every case of K5_CASES in both dtypes (errors only).
-    Fails on any error over its tolerance. Returns {"main": {"<dtype>_
-    <full|causal>": result}, "cases": [...]}."""
-    main, cases = {}, []
+    timed), at phase 14's (K5_RING_BLOCKS: bf16, full and causal,
+    timed), then at every case of K5_CASES in both dtypes (errors only),
+    then the planted fault (the checks must reject a skipped key tile in
+    a fold at each of phase 14's blocks, from the initial and from a
+    carried state). Fails on any error over its tolerance. Returns
+    {"main": {"<dtype>_<full|causal>": result}, "timed": {"<block>_<full|
+    causal>": result}, "cases": [...], "planted_fault": {...}}."""
+    main, timed, cases, fault = {}, {}, [], {}
     for seed, dtype in enumerate((torch.bfloat16, torch.float32)):
         for causal in (False, True):
             r = k5_check(K5_BH, K5_S, K5_S, K5_D, causal, dtype, seed,
@@ -1447,16 +1530,37 @@ def phase_k5_kernels(card: str) -> dict:
             log(f"kernel {json.dumps(r)}")
             main[f"{r['dtype']}_{mode}"] = r
         torch.cuda.empty_cache()
+    for i, (name, BH, D) in enumerate(K5_RING_BLOCKS):
+        for causal in (False, True):
+            r = k5_check(BH, K5_S, K5_S, D, causal, torch.bfloat16, 10 + i,
+                         timed=True)
+            r.update(case=f"{name}_{'causal' if causal else 'full'}",
+                     card=card)
+            log(f"kernel {json.dumps(r)}")
+            timed[r["case"]] = r
+        torch.cuda.empty_cache()
     for i, (name, BH, S, T, D, causal) in enumerate(K5_CASES):
         for dtype in (torch.bfloat16, torch.float32):
             r = k5_check(BH, S, T, D, causal, dtype, 200 + i)
             r["case"] = name
             log(f"kernel {json.dumps(r)}")
             cases.append(r)
-    bad = [r for r in list(main.values()) + cases if not r["ok"]]
+    bad = [r for r in list(main.values()) + list(timed.values()) + cases
+           if not r["ok"]]
     if bad:
         raise AssertionError(f"K5 disagrees with its plain version: {bad}")
-    return {"main": main, "cases": cases}
+    for name, BH, D in K5_RING_BLOCKS:
+        for carried in (False, True):
+            f = planted_carry_fault_check(BH, K5_S, D, torch.bfloat16, 12,
+                                          carried=carried)
+            log(f"planted_fault {json.dumps(f)}")
+            if not f["rejected"]:
+                raise AssertionError(f"the K5 checks pass a skipped key "
+                                     f"tile: {f}")
+            fault[f"{name}_{'carried' if carried else 'fresh'}"] = f
+            torch.cuda.empty_cache()
+    return {"main": main, "timed": timed, "cases": cases,
+            "planted_fault": fault}
 
 
 # ---------------------------------------------------------------------------
@@ -2519,23 +2623,29 @@ def _forward_logits(ff, bx):
                                        skip_sink_softmax=True)
 
 
-def phase_ring_train(seed: int, card: str) -> dict:
-    """bench_1b, full depth and width, bf16, batch 1 x RING_SEQ tokens,
-    ring attention over {"seq": RING_SHARDS}, remat none: one ff.fit epoch
-    of RING_BATCHES seeded batches (the main path; counts reset just
-    before, read just after: per layer and step K5 folds
-    ring_folds(RING_SHARDS) blocks and K4's dq and dk/dv kernels run once
-    per folded block, no other attention kernel), then 10 timed steps on
-    one repeated batch (the loss must fall). Then the same model and
-    weights without the ring (K1/K2 over the whole 8192 rows): its step
-    time, and its forward logits against the ring model's at the initial
-    weights (bf16, so within RING_LOGITS_RTOL of their largest). A
-    profiled ring step between the two must show K5's launches on its
-    tensor-core body (flash_fwd_wgmma_kernel<HeadMajorCarry, 128, ...>)
-    and none on its CUDA-core one (flash_bh_fwd_carry_kernel)."""
+def phase_ring_train(seed: int, card: str, cfg=None,
+                     label: str = "bench_1b") -> dict:
+    """`cfg` (bench_1b by default), bf16, batch 1 x RING_SEQ tokens, ring
+    attention over {"seq": RING_SHARDS}, remat none: one ff.fit epoch of
+    RING_BATCHES seeded batches (the main path; counts reset just before,
+    read just after: per layer and step K5 folds ring_folds(RING_SHARDS)
+    blocks and K4's dq and dk/dv kernels run once per folded block, no
+    other attention kernel), then 10 timed steps on one repeated batch
+    (the loss must fall). A profiled ring step must show K5's launches on
+    its tensor-core body at the model's head dim
+    (flash_fwd_wgmma_kernel<HeadMajorCarry, D, ...>) and none on its
+    CUDA-core one (flash_bh_fwd_carry_kernel), and K4's dq and dk/dv on
+    their tensor-core bodies at D alone; it gives their ms a step and the
+    device's idle share. Then the same model and weights without the ring
+    (K1/K2 over the whole RING_SEQ rows at a head dim that is a multiple
+    of 128, K4 otherwise): its step time, and its forward logits against
+    the ring model's at the initial weights (bf16, so within
+    RING_LOGITS_RTOL of their largest). Logged as train_ring_`label`
+    (before the ring half's checks) and train_ring_`label`_no_ring."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = LlamaConfig.bench_1b()
+    cfg = cfg or LlamaConfig.bench_1b()
+    head_dim = cfg.dim // cfg.heads
     mesh = {"seq": RING_SHARDS}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -2578,16 +2688,20 @@ def phase_ring_train(seed: int, card: str) -> dict:
     step_s = (time.perf_counter() - t0) / TIMED_STEPS
     losses = [float(v) for v in losses]
     timed_launches = {k.name: k.launches for k in ring_kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
         torch.cuda.synchronize()
     carry = flash_bodies(prof, 1, "HeadMajorCarry",
                          r"flash_bh_fwd_(carry)_kernel<", "k5")
+    k4 = flash_bodies(prof, 1)
     del prof
     flops = llama_flops_per_token(cfg, RING_SEQ) * RING_SEQ
     res = {
-        "model": "bench_1b", "layers": cfg.layers, "dtype": "bfloat16",
+        "model": label, "layers": cfg.layers, "dim": cfg.dim,
+        "heads": cfg.heads, "kv_heads": cfg.kv_heads,
+        "head_dim": head_dim, "dtype": "bfloat16",
         "batch": 1, "seq": RING_SEQ, "mesh_shape": mesh, "remat": "none",
         "params": sum(t.numel() for w in tr.values() for t in w.values()),
         "init_s": init_s, "fit_s": fit_s, "fit_steps": RING_BATCHES,
@@ -2597,9 +2711,13 @@ def phase_ring_train(seed: int, card: str) -> dict:
         "timed_launches": timed_launches, "step_ms": step_s * 1e3,
         "tokens_per_s": RING_SEQ / step_s, "flops_per_step": flops,
         "mfu": flops / step_s / PEAK_OPS[torch.bfloat16],
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "profile": carry, "card": card,
+        "peak_mem_gb": peak_gb, "profile": carry, "k4_profile": k4,
+        "card": card,
     }
+    if isinstance(carry["k5_share_of_device_time"], float):
+        # the device's idle share of a timed step
+        res["idle_share"] = 1 - carry["device_ms_per_step"] / (step_s * 1e3)
+    log(f"train_ring_{label} {json.dumps(res)}")
     del ff, ex, tr, ntr, opt, m
     torch.cuda.empty_cache()
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -2608,11 +2726,19 @@ def phase_ring_train(seed: int, card: str) -> dict:
     if any(n != per_step * TIMED_STEPS for n in timed_launches.values()):
         raise AssertionError(f"timed launches {timed_launches}")
     if carry["launches_per_step"] != {"tensor_core": {"fwd": per_step},
-                                      "cuda_core": {}}:
-        raise AssertionError(f"K5 did not run on its tensor-core body "
-                             f"alone: {carry}")
+                                      "cuda_core": {}} \
+            or carry["tensor_core_head_dims"] != [head_dim]:
+        raise AssertionError(f"K5 did not run on its tensor-core body at "
+                             f"head dim {head_dim} alone: {carry}")
+    if k4["launches_per_step"] != {
+            "tensor_core": {"dq": per_step, "dkv": per_step},
+            "cuda_core": {}} or k4["tensor_core_head_dims"] != [head_dim]:
+        raise AssertionError(f"K4's backward did not run on its tensor-core "
+                             f"bodies at head dim {head_dim} alone: {k4}")
 
-    # the same model and seed without the ring: K1/K2 over all 8192 rows
+    # the same model and seed without the ring: K1/K2 (D a multiple of
+    # 128) or K4 over all RING_SEQ rows
+    route = FLASH_KERNELS if head_dim % 128 == 0 else K4_KERNELS
     torch.cuda.reset_peak_memory_stats()
     ff = _train_model(cfg, DEVICE, batch=1, seq=RING_SEQ,
                       dtype=DataType.BFLOAT16, remat="none", seed=seed)
@@ -2631,23 +2757,39 @@ def phase_ring_train(seed: int, card: str) -> dict:
         tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
     torch.cuda.synchronize()
     plain_s = (time.perf_counter() - t0) / RING_PLAIN_STEPS
+    plain_launches = {k.name: k.launches for k in KERNELS}
     res["no_ring"] = {
         "step_ms": plain_s * 1e3, "steps": RING_PLAIN_STEPS,
-        "launches": _flash_launches(),
+        "launches": plain_launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "logits_max_abs_diff_vs_ring": diff, "logits_max_abs": scale,
         "logits_rtol": RING_LOGITS_RTOL}
-    res["ring_step_over_no_ring"] = step_s / plain_s
+    res["ring_step_over_no_ring"] = res["no_ring"]["ring_step_over_no_ring"] \
+        = step_s / plain_s
     del ff, ex, tr, ntr, opt, m
     torch.cuda.empty_cache()
-    log(f"train_ring {json.dumps(res)}")
+    log(f"train_ring_{label}_no_ring {json.dumps(res['no_ring'])}")
     if diff > RING_LOGITS_RTOL * scale or not np.isfinite(diff):
         raise AssertionError(f"ring logits differ from the plain route's "
                              f"by {diff} (largest {scale})")
-    if any(n != cfg.layers * RING_PLAIN_STEPS
-           for n in res["no_ring"]["launches"].values()):
+    if plain_launches != {k.name: (cfg.layers * RING_PLAIN_STEPS
+                                   if k in route else 0) for k in KERNELS}:
         raise AssertionError(f"no-ring launches {res['no_ring']}")
     return res
+
+
+def phase_ring_train_wide_heads(seed: int, card: str) -> dict:
+    """Phase 14: a Llama at Phi-3-mini's widths (phi3_mini: head dim 96,
+    PHI3_LAYERS layers) through phase_ring_train, then one at
+    OpenLLaMA-3B's widths (open_llama_3b: head dim 100, whose tiles K5
+    fills by cp.async) cut to RING_OPENLLAMA_LAYERS layers the same way.
+    Returns {"phi3_mini": ..., "openllama_3b": ...}."""
+    return {
+        "phi3_mini": phase_ring_train(seed, card, phi3_mini(), "phi3_mini"),
+        "openllama_3b": phase_ring_train(
+            seed, card, dataclasses.replace(
+                open_llama_3b(), layers=RING_OPENLLAMA_LAYERS),
+            "openllama_3b")}
 
 
 # ---------------------------------------------------------------------------
@@ -2915,10 +3057,10 @@ def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default "
-                    "1,2,3,4,6,7,8,9,10,11,12,13; 5 profiles serving and "
-                    "training steps)")
+                    "1,2,3,4,6,7,8,9,10,11,12,13,14; 5 profiles serving "
+                    "and training steps)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -2968,6 +3110,8 @@ def main(argv=None) -> int:
     train_phi3 = phase_train_phi3(args.seed, card) if 12 in phases else None
     train_ollama = (phase_train_openllama(args.seed, card) if 13 in phases
                     else None)
+    ring_wide = (phase_ring_train_wide_heads(args.seed, card) if 14 in phases
+                 else None)
     if 5 in phases:
         phase_profile(args.seed, card)
         phase_profile_train(args.seed, card)
@@ -2979,6 +3123,9 @@ def main(argv=None) -> int:
         phase_profile_train(args.seed, card, phi3_mini(), "phi3_mini")
         phase_profile_train(args.seed, card, open_llama_3b(),
                             "openllama_3b")
+        phase_profile_train(args.seed, card, phi3_mini(),
+                            "phi3_mini_ring_s8192", batch=1, seq=RING_SEQ,
+                            mesh_shape={"seq": RING_SHARDS})
     main_case = next((r for r in kern if r["case"] == ATTENTION_CASES[0][0]
                       and r["dtype"] == "bfloat16"), None)
     entries = [_kernel_entry(
@@ -3042,11 +3189,23 @@ def main(argv=None) -> int:
                           if name not in ("name", "route", "source",
                                           "replaces")}
         entries.append(entry)
-    entries.append(_kernel_entry(
-        FLASH_ATTENTION_BH_FWD_CARRY,
-        "flexflow_tpu_torch/csrc/flash_attention_bh_fwd.cu",
-        ring["fit_launches"][FLASH_ATTENTION_BH_FWD_CARRY.name] if ring
-        else 0, k5.get("main", {}).get("bfloat16_full")))
+    # K5 on phase 10's fit (bench_1b's ring, D 128), timed at its block;
+    # under "phi3_mini" and "openllama_3b" on phase 14's fits (D 96 and
+    # 100), timed at their blocks (full)
+    carry = FLASH_ATTENTION_BH_FWD_CARRY
+    entry = _kernel_entry(
+        carry, "flexflow_tpu_torch/csrc/flash_attention_bh_fwd.cu",
+        ring["fit_launches"][carry.name] if ring else 0,
+        k5.get("main", {}).get("bfloat16_full"))
+    for key, (block, _, _) in zip(("phi3_mini", "openllama_3b"),
+                                  K5_RING_BLOCKS):
+        other = _kernel_entry(
+            carry, entry["source"],
+            ring_wide[key]["fit_launches"][carry.name] if ring_wide else 0,
+            k5.get("timed", {}).get(f"{block}_full"))
+        entry[key] = {name: val for name, val in other.items()
+                      if name not in ("name", "route", "source", "replaces")}
+    entries.append(entry)
     log(f"total {json.dumps({'seconds': time.monotonic() - t_start})}")
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

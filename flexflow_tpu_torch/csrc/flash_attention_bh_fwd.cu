@@ -38,18 +38,19 @@
 // after ceil(D / 16) k-steps and P.V runs at N = D (flash_wgmma.cuh). D
 // 100 has rows of 200 bytes, which TMA cannot stride (16-byte multiples):
 // its producer warpgroup fills the same 128-column tiles by 8-byte
-// cp.async copies (cp_rows) and P.V runs at N 104. K5 in bf16 at D 64, 128
-// and 256 runs that body under the HeadMajorCarry tag: each item starts
+// cp.async copies (cp_rows) and P.V runs at N 104. K5 in bf16 at the same
+// widths (the ring at Phi-3-mini's D 96 and OpenLLaMA-3B's D 100 among
+// them) runs that body under the HeadMajorCarry tag: each item starts
 // from the caller's (m, l, acc), loaded straight into the accumulator
-// registers, and ends by writing them back. K4 in fp32 at 64, 128 and
+// registers (the columns below D), and ends by writing them back. K4 in
+// fp32 at 64, 128 and
 // 256 (GPT-2 trains its attention in fp32, as the reference computes it)
 // runs on the tensor cores too, in 3xTF32 on mma.sync
 // (flash_bh_fwd_tf32_kernel below, over the forward body of
 // flash_tf32.cuh): each fp32 product as three tf32 products of hi / lo
 // halves, about fp32's accuracy. K4 in fp32 at the other widths, K5 in
-// fp32 at every width, K4 in bf16 at the widths not named above and K5 in
-// bf16 at the widths other than 64, 128 and 256 (D 100 among them) run
-// the CUDA-core body below.
+// fp32 at every width, and K4 and K5 in bf16 at the widths not named
+// above (no model of the repo runs them) run the CUDA-core body below.
 //
 // CUDA-core body: one block per (64-row query tile, bh), a loop over
 // 64-row K/V tiles that stops at the causal diagonal. D is any width up
@@ -68,8 +69,11 @@
 // ~59 MB, over half of it the fp32 acc read and written (~0.018 ms): the
 // tensor-core body keeps the products at the wgmma rate and moves acc
 // once each way, between the registers and device memory, at the item's
-// ends. Its causal block is a persistent zigzag of square, top-left
-// items, as K4's. The CUDA-core body runs the dots from fp32
+// ends. At Phi-3-mini's ring block (BH 32, S = T 2048, D 96) the same
+// reckoning gives ~0.052 ms of operations full against ~89 MB (~0.027
+// ms), so a causal block (half the pairs) is bound by its bytes. Its
+// causal block is a persistent zigzag of square, top-left items, as
+// K4's. The CUDA-core body runs the dots from fp32
 // shared-memory tiles (register tiles of (BQ / 16) x (BK / 16) scores per
 // thread).
 
@@ -363,9 +367,11 @@ int ff_flash_attention_bh_fwd(const void* q, const void* k, const void* v,
 }
 
 // K5: q (BH, S, D), k/v (BH, T, D) of one dtype (as K4); m, l fp32 (BH, S)
-// and acc fp32 (BH, S, D), read and updated in place. bf16 at D 64, 128
-// and 256 runs the tensor-core body (HeadMajorCarry), every other case
-// (D 100 among them) the CUDA-core body. Same return codes.
+// and acc fp32 (BH, S, D), read and updated in place. bf16 at D 48, 64,
+// 80, 96, 100, 128 and 256 runs the tensor-core body (HeadMajorCarry; D
+// 100's tiles filled by cp.async), every other case (fp32 at every width)
+// the CUDA-core body. Same return codes, and cudaErrorInvalidValue for a
+// tensor-core launch whose acc is not 8-byte aligned.
 int ff_flash_attention_bh_fwd_carry(const void* q, const void* k,
                                     const void* v, void* m, void* l,
                                     void* acc, int BH, int S, int T, int D,
@@ -377,7 +383,11 @@ int ff_flash_attention_bh_fwd_carry(const void* q, const void* k,
   return ffwg::launch_fwd_wgmma<ffwg::HeadMajorCarry, DIM>(                \
       q, k, v, nullptr, nullptr, BH, S, T, 1, 1, causal, scale, st, m, l,  \
       acc)
+  if (dtype == 1 && D == 48) FF_CARRY_WG(48);
   if (dtype == 1 && D == 64) FF_CARRY_WG(64);
+  if (dtype == 1 && D == 80) FF_CARRY_WG(80);
+  if (dtype == 1 && D == 96) FF_CARRY_WG(96);
+  if (dtype == 1 && D == 100) FF_CARRY_WG(100);
   if (dtype == 1 && D == 128) FF_CARRY_WG(128);
   if (dtype == 1 && D == 256) FF_CARRY_WG(256);
 #undef FF_CARRY_WG

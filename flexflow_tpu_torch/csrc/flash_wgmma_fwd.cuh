@@ -1,11 +1,13 @@
 // The tensor-core flash-attention forward body (bf16; head dims 64, 128
-// and 256, and K4's 48, 80 and 96 on zero-padded 64 / 128-column tiles,
-// flash_wgmma.cuh): wgmma fed by TMA, or at K4's D 100 (rows TMA cannot
-// stride) by the producer warpgroup's cp.async copies into the same
-// tiles (cp_rows, CpAsyncPipe). One body for two kernels, each
-// instantiating it under its own layout tag (flash_wgmma.cuh): K1
-// (flash_attention_fwd.cu, FlatLayout) and K4's forward
-// (flash_attention_bh_fwd.cu, HeadMajor).
+// and 256, and the head-major 48, 80 and 96 on zero-padded 64 /
+// 128-column tiles, flash_wgmma.cuh): wgmma fed by TMA, or at the
+// head-major D 100 (rows TMA cannot stride) by the producer warpgroup's
+// cp.async copies into the same tiles (cp_rows, CpAsyncPipe). One body
+// for three kernels, each instantiating it under its own layout tag
+// (flash_wgmma.cuh): K1 (flash_attention_fwd.cu, FlatLayout), K4's
+// forward (flash_attention_bh_fwd.cu, HeadMajor) and K5, the ring step
+// (the same source, HeadMajorCarry), the head-major two at D 48, 64, 80,
+// 96, 100, 128 and 256.
 //
 // Work items are (query tile of kBM = 128 rows, b * H + h), numbered
 // heaviest first (the last query tiles, under `causal`, then b * H + h).
@@ -39,8 +41,10 @@
 // Under the HeadMajorCarry tag (K5, one ring step) an item starts from the
 // caller's fp32 m, l (BH, S) and acc (BH, S, D) instead of (-inf, 0, 0):
 // m in log2 units (m x log2 e), acc straight into the accumulator layout
-// and rescaled after tile 0; at its end it writes (m x ln 2, l, acc) back
-// in place, unnormalised, and no out or lse.
+// (two floats a load, columns below D only: at D 100 the N 104
+// accumulators' columns 100..103 stay zero) and rescaled after tile 0; at
+// its end it writes (m x ln 2, l, acc) back in place, unnormalised, the
+// columns below D only, and no out or lse.
 
 #pragma once
 
@@ -155,7 +159,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   constexpr int DP = pad64(D), KD = (D + 15) / 16, NV = vn(D);
   static_assert(D % 4 == 0 && (DP <= 128 || DP == D),
                 "a head dim the tile layout does not take");
-  static_assert(!(kCarry && kCp), "no carried state on the cp.async tiles");
   constexpr int kQBytes = kBM * DP * 2;
   constexpr int kKVBytes = BK * DP * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -283,12 +286,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           const size_t idx = (size_t)bh * S + row;
           m[hf] = m_io[idx] * kLog2e;
           l[hf] = l_io[idx];
+          // columns 8 j + cq, + 1 of acc's row, 8 bytes a load; the
+          // accumulators past D (100..103 at N 104) stay zero
           const float* src = acc_io + idx * D + cq;
 #pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
-            o[4 * j + 2 * hf] = src[8 * j];
-            o[4 * j + 2 * hf + 1] = src[8 * j + 1];
-          }
+          for (int j = 0; j < NV / 8; ++j)
+            if (D % 8 == 0 || 8 * j + cq < D) {
+              const float2 a = *reinterpret_cast<const float2*>(src + 8 * j);
+              o[4 * j + 2 * hf] = a.x;
+              o[4 * j + 2 * hf + 1] = a.y;
+            }
         }
       }
       float sc[BK / 2];
@@ -314,7 +321,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                          scale_log2);
         if constexpr (kCarry) {  // O holds the carried acc
 #pragma unroll
-          for (int j = 0; j < D / 8; ++j)
+          for (int j = 0; j < NV / 8; ++j)
 #pragma unroll
             for (int hf = 0; hf < 2; ++hf) {
               o[4 * j + 2 * hf] *= corr[hf];
@@ -383,10 +390,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           const size_t idx = (size_t)bh * S + row;
           float* dst = acc_io + idx * D + cq;
 #pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
-            dst[8 * j] = o[4 * j + 2 * hf];
-            dst[8 * j + 1] = o[4 * j + 2 * hf + 1];
-          }
+          for (int j = 0; j < NV / 8; ++j)
+            if (D % 8 == 0 || 8 * j + cq < D)  // no column past D
+              *reinterpret_cast<float2*>(dst + 8 * j) =
+                  make_float2(o[4 * j + 2 * hf], o[4 * j + 2 * hf + 1]);
           if (lane % 4 == 0) {
             m_io[idx] = m[hf] * kLn2;
             l_io[idx] = l[hf];
@@ -411,9 +418,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 // Launch the body on contiguous bf16 q (B, S, H, D), k/v (B, T, Hkv, D),
 // out like q, fp32 lse (B, H, S); under HeadMajorCarry fp32 m, l (B, S)
 // and acc (B, S, D) instead of out and lse. cudaErrorInvalidValue when TMA
-// refuses a map (e.g. a base address that is not 16-byte aligned) or, at
-// a head dim loaded by cp.async, a base is not 8-byte aligned (out: 4),
-// otherwise the launch's cudaGetLastError().
+// refuses a map (e.g. a base address that is not 16-byte aligned), at a
+// head dim loaded by cp.async a base is not 8-byte aligned (out: 4), or
+// under HeadMajorCarry acc is not 8-byte aligned (its two-float loads) or
+// m, l not 4-byte; otherwise the launch's cudaGetLastError().
 template <class Tag, int D>
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                      void* lse, int B, int S, int Tk, int H, int Hkv,
@@ -424,6 +432,10 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
   constexpr size_t smem = fwd_wg_smem<D>();
   static_assert(smem <= ffflash::kMaxSmemBytes,
                 "tiles do not fit shared memory");
+  if constexpr (std::is_same<Tag, HeadMajorCarry>::value) {
+    if (!aligned(acc, 8) || !aligned(m, 4) || !aligned(l, 4))
+      return (int)cudaErrorInvalidValue;
+  }
   CUtensorMap mq, mk, mv;
   RowSrc src{};
   if constexpr (rows_by_cp_async(D)) {

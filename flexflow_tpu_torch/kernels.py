@@ -201,7 +201,10 @@ FLASH_ATTENTION_BH_FWD = CudaKernel(
 )
 
 # K5, one ring step (`_fwd_carry`): K4's forward folding k/v into carried
-# fp32 (m, l, acc), updated in place; a second entry point of K4's source
+# fp32 (m, l, acc), updated in place; a second entry point of K4's source,
+# on K4's tensor-core forward body in bf16 at the same seven widths (acc
+# read and written two floats at a time: 8-byte aligned), every other case
+# on the CUDA-core body
 FLASH_ATTENTION_BH_FWD_CARRY = CudaKernel(
     name="flash_attention_bh_fwd_carry",
     source="flash_attention_bh_fwd.cu",

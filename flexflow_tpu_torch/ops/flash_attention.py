@@ -36,6 +36,12 @@ q (B, S, H, D) and k/v (B, T, Hkv, D) with H % Hkv == 0, and returns
 The ring's step kernel K5 (`flash_bh_fwd_carry`, the reference's
 `_fwd_carry`) sits beside K4: it folds one head-major k/v block into
 carried fp32 statistics (m, l, acc) and is driven by ops/ring_flash.py.
+In bf16 it runs K4's tensor-core forward body at K4's tensor-core widths
+(48, 64, 80, 96, 100, 128 and 256; the ring at Phi-3-mini's D 96 and
+OpenLLaMA-3B's D 100 among them), the carried state loaded into its
+accumulators and written back; in fp32, and in bf16 at other widths, the
+CUDA-core body. An acc that is not 8-byte aligned (the tensor-core body's
+two-float loads) raises, as the K4 bases above do.
 
 On CUDA tensors each kernel launches or the wrapper raises on what it does
 not take. On CPU tensors the flat route is the plain version

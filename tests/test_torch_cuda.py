@@ -497,6 +497,19 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take():
     acc = torch.zeros(2, 128, 64, device="cuda")
     with pytest.raises(RuntimeError, match="invalid argument"):
         flash_bh_fwd_carry(q, q, q, m, l, acc, True, 0.1)
+    # at D 100 (cp.async tiles) a q 2 bytes off; and at every tensor-core
+    # width an acc 4 bytes off, which its two-float loads cannot take
+    q = torch.zeros(2 * 128 * 100 + 1, device="cuda",
+                    dtype=torch.bfloat16)[1:].view(2, 128, 100)
+    acc = torch.zeros(2, 128, 100, device="cuda")
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        flash_bh_fwd_carry(q, q, q, m, l, acc, True, 0.1)
+    for D in (48, 64, 80, 96, 100, 128, 256):
+        q = torch.zeros(2, 128, D, device="cuda", dtype=torch.bfloat16)
+        acc = torch.zeros(2 * 128 * D + 1, device="cuda")[1:].view(2, 128, D)
+        assert acc.is_contiguous() and acc.data_ptr() % 8 == 4
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            flash_bh_fwd_carry(q, q, q, m, l, acc, True, 0.1)
 
 
 # (S, T, D) for K4: every padded width of the CUDA-core bodies (8, 48,
@@ -982,12 +995,16 @@ def _carry_inputs(BH, S, T, D, seed, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("S,T", [(384, 384), (300, 520), (520, 300)])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("S,T", [(384, 384), (300, 520), (520, 300),
+                                 (192, 192)])
+@pytest.mark.parametrize("D", [48, 64, 80, 96, 100, 128, 256])
 def test_fwd_carry_tensor_core_bodies_match_plain_version(D, S, T, causal):
-    """K5 in bf16 at the tensor-core widths (HeadMajorCarry): full and
-    causal, S != T both ways, from fresh and from carried-in statistics
-    (the plain fold of another block), m, l and acc updated in place."""
+    """K5 in bf16 at the tensor-core widths (HeadMajorCarry; 48, 80 and 96
+    on tiles TMA zero-pads, 100 on tiles filled by cp.async): full and
+    causal, S != T both ways and S 192 (a ring's s_loc that is not a
+    multiple of the 128-row tile), from fresh and from carried-in
+    statistics (the plain fold of another block), m, l and acc updated
+    in place."""
     _needs_card()
     from flexflow_tpu_torch.ops.flash_attention import (
         flash_bh_fwd_carry,
@@ -1009,7 +1026,7 @@ def test_fwd_carry_tensor_core_bodies_match_plain_version(D, S, T, causal):
             assert ok, (name, err)
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 96, 100, 128, 256])
 def test_fwd_carry_folds_equal_one_forward(D):
     """Four K5 folds of the quarters of k/v, normalised, equal one K4
     forward over the concatenated keys (out and lse), bf16 on the tensor
@@ -1036,7 +1053,7 @@ def test_fwd_carry_folds_equal_one_forward(D):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 96, 100, 128, 256])
 def test_fwd_carry_bf16_is_bitwise_deterministic(D, causal):
     """Two K5 launches on the tensor cores from the same inputs and state
     give the same bits."""
@@ -1057,13 +1074,15 @@ def test_fwd_carry_bf16_is_bitwise_deterministic(D, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S", [512, 384])
-def test_ring_on_the_card_matches_the_cpu(dtype, causal, S):
-    """ring_dot_product_attention over 4 shards (B 2, H 4, Hkv 2, D 64):
-    the card's output and gradients against the same ring on the CPU (the
-    plain versions). At S 512 (s_loc 128) and S 384 (s_loc 96, not a
-    multiple of 128: the same K5 ring, no length gate) K5 launches once
-    per folded block (10 causal, 16 not) and K4's dq and dk/dv kernels
-    once each per folded block in backward."""
+@pytest.mark.parametrize("D", [64, 96, 100])
+def test_ring_on_the_card_matches_the_cpu(dtype, causal, S, D):
+    """ring_dot_product_attention over 4 shards (B 2, H 4, Hkv 2; D 64,
+    Phi-3-mini's 96 and OpenLLaMA-3B's 100): the card's output and
+    gradients against the same ring on the CPU (the plain versions). At
+    S 512 (s_loc 128) and S 384 (s_loc 96, not a multiple of 128: the
+    same K5 ring, no length gate) K5 launches once per folded block (10
+    causal, 16 not) and K4's dq and dk/dv kernels once each per folded
+    block in backward."""
     _needs_card()
     from flexflow_tpu_torch.kernels import (
         FLASH_ATTENTION_BH_DKV,
@@ -1073,7 +1092,7 @@ def test_ring_on_the_card_matches_the_cpu(dtype, causal, S):
     from flexflow_tpu_torch.parallel.mesh import make_mesh
     from flexflow_tpu_torch.parallel.ring import ring_dot_product_attention
 
-    B, H, Hkv, D = 2, 4, 2, 64
+    B, H, Hkv = 2, 4, 2
     g = torch.Generator().manual_seed(int(causal))
     q, w = (torch.randn(B, S, H, D, generator=g).to(dtype)
             for _ in range(2))

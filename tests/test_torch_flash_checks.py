@@ -3,7 +3,9 @@ that skipped one key tile for late query rows must fail them, and one
 bf16 rounding of the plain result must pass them. The checks hold the
 card's flash kernels to their plain versions; these tests hold the
 checks themselves, at GPT-2 XL's head dim and sequence (D 64, S 1024)
-over two heads, and at OpenLLaMA-3B's head dim (D 100)."""
+over two heads, and at OpenLLaMA-3B's head dim (D 100); and the ring
+step K5's checks on (m, l, acc) at Phi-3-mini's and OpenLLaMA-3B's head
+dims (D 96, 100)."""
 
 import pytest
 import torch
@@ -28,6 +30,19 @@ def test_skipped_key_tile_fails_the_flash_checks_at_head_dim_100(dtype):
     res = chip_smoke.planted_fault_check(2, 1024, 100, dtype, 12,
                                          device="cpu")
     assert res["rejected"] == {"fwd": True, "dq": True}, res
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("D", [96, 100])
+def test_skipped_key_tile_fails_the_carry_checks(D, carried):
+    """K5's checks (max |err| and error norm over m, l and acc) reject a
+    causal fold at S 1024 over two heads, bf16, whose last 128 rows left
+    out the first 128 keys, from the initial statistics and from a
+    carried-in state."""
+    import chip_smoke
+    res = chip_smoke.planted_carry_fault_check(
+        2, 1024, D, torch.bfloat16, 12, carried=carried, device="cpu")
+    assert res["rejected"], res
 
 
 def test_one_bf16_rounding_passes_the_flash_checks():

@@ -92,12 +92,22 @@ def _count(monkeypatch, module, name, calls):
     (64, 128, 128, False, True),
     (8, 128, 256, False, True),    # S != T, full
     (64, 256, 128, False, False),  # S != T, full
+    # the widths whose bf16 K5 runs the padded tensor-core tiles on the
+    # card: 48 and 80, Phi-3-mini's 96 and OpenLLaMA-3B's 100
+    (48, 128, 128, True, False),
+    (80, 256, 256, False, True),
+    (96, 256, 256, True, True),
+    (96, 128, 128, False, False),
+    (100, 256, 256, True, False),
+    (100, 128, 128, False, True),
+    (100, 128, 256, False, True),  # S != T, full
 ])
 def test_fwd_carry_plain_version_matches_jax(D, S, T, causal, carried):
     """(m, l, acc) after one fold, fp32, from the initial statistics or
     from those of an earlier fold of another block (a carry in). The
     reference's m and l are broadcast over 128 lanes; the port's are
-    (BH, S)."""
+    (BH, S). The reference's kernel takes D as the caller gives it (its
+    ring lane-pads D to 128 before the call); the port's takes it too."""
     BH, scale = 3, 1.0 / np.sqrt(D)
     rs = np.random.RandomState(D + S + T + causal + carried)
     q = rs.standard_normal((BH, S, D)).astype(np.float32)
@@ -283,16 +293,18 @@ def test_seq_size_one_takes_plain_flash_attention(monkeypatch):
 
 
 def _pair(seq, batch=2, mesh_shape=None, ring_attn=True, lr=1e-4,
-          optimizer=True):
-    """A tiny Llama in each package (fp32) with the JAX model's initial
-    weights carried to the port's; both compiled with Adam(lr)."""
+          optimizer=True, cfg=None):
+    """A tiny Llama (or one of LlamaConfig fields `cfg`) in each package
+    (fp32) with the JAX model's initial weights carried to the port's;
+    both compiled with Adam(lr)."""
+    jcfg = JLlamaConfig(**cfg) if cfg else JLlamaConfig.tiny(VOCAB)
+    tcfg = LlamaConfig(**cfg) if cfg else LlamaConfig.tiny(VOCAB)
     jff = JFFModel(JFFConfig(batch_size=batch, seed=3, mesh_shape=mesh_shape))
-    jbuild_llama(jff, JLlamaConfig.tiny(VOCAB), batch_size=batch,
-                 seq_len=seq, dtype=JDataType.FLOAT,
-                 use_ring_attention=ring_attn)
+    jbuild_llama(jff, jcfg, batch_size=batch, seq_len=seq,
+                 dtype=JDataType.FLOAT, use_ring_attention=ring_attn)
     tff = FFModel(FFConfig(batch_size=batch, seed=3, device="cpu",
                            mesh_shape=mesh_shape))
-    build_llama(tff, LlamaConfig.tiny(VOCAB), batch_size=batch, seq_len=seq,
+    build_llama(tff, tcfg, batch_size=batch, seq_len=seq,
                 dtype=DataType.FLOAT, use_ring_attention=ring_attn)
     if optimizer:
         jff.compile(optimizer=jopt.AdamOptimizer(lr=lr),
@@ -372,6 +384,53 @@ def test_ring_llama_adam_steps_through_fit_match_jax(monkeypatch):
     for k, w in jff._params[0].items():
         for n, a in w.items():
             assert got[k][n].dtype == np.float32  # fp32 masters
+            np.testing.assert_allclose(got[k][n], np.asarray(a), atol=TOL,
+                                       rtol=TOL, err_msg=(k, n))
+
+
+# the head geometries of Phi-3-mini (dim 3072, 32 = 32 kv heads of 96)
+# and OpenLLaMA-3B (dim 3200, 32 = 32 kv heads of 100) at a small size:
+# 2 heads over 2 kv heads, hidden 512, 2 layers
+WIDE_HEADS = {
+    96: dict(vocab_size=VOCAB, dim=192, layers=2, heads=2, kv_heads=2,
+             hidden=512, rope_theta=10000.0),
+    100: dict(vocab_size=VOCAB, dim=200, layers=2, heads=2, kv_heads=2,
+              hidden=512, rope_theta=10000.0),
+}
+
+
+@pytest.mark.parametrize("head_dim", sorted(WIDE_HEADS))
+def test_ring_llama_at_wide_head_dims_matches_jax(monkeypatch, head_dim):
+    """A ring Llama at head dim 96 (Phi-3-mini's) or 100 (OpenLLaMA-3B's)
+    on {"seq": 4}, seq 512 (s_loc 128: the flash ring on both sides, the
+    reference's lane-padding D to 128, the port's taking D as it is):
+    predict, then three Adam steps through fit (batch 2, lr 1e-4), the
+    epoch's summed loss and every parameter afterwards within TOL. Every
+    K5 fold of the port runs at `head_dim`, 10 per ring call."""
+    monkeypatch.setenv("FF_TPU_FLASH_INTERPRET", "1")
+    rings, folds = [], []
+    _count(monkeypatch, ring, "ring_flash_attention", rings)
+    real = fa.flash_bh_fwd_carry_reference
+
+    def k5(q, *args):
+        folds.append(q.shape[-1])
+        return real(q, *args)
+
+    monkeypatch.setattr(fa, "flash_bh_fwd_carry_reference", k5)
+    jff, tff = _pair(512, mesh_shape={"seq": 4}, cfg=WIDE_HEADS[head_dim])
+    x, y = _tokens(6, 512, seed=head_dim)
+    want = jff.predict(x[:2])
+    assert jax_ops.LAST_ATTENTION_KERNEL == "ring_pallas_flash"
+    np.testing.assert_allclose(tff.predict(x[:2]), want, atol=TOL, rtol=TOL)
+    jm = jff.fit(x, y, verbose=False)
+    tm = tff.fit(x, y, verbose=False)
+    assert rings and folds == [head_dim] * (10 * len(rings))
+    assert tm.train_all == jm.train_all == 6
+    np.testing.assert_allclose(tm.sparse_cce_loss, jm.sparse_cce_loss,
+                               atol=TOL, rtol=TOL)
+    got, _ = params_to_numpy(*tff._params)
+    for k, w in jff._params[0].items():
+        for n, a in w.items():
             np.testing.assert_allclose(got[k][n], np.asarray(a), atol=TOL,
                                        rtol=TOL, err_msg=(k, n))
 
