@@ -1,11 +1,12 @@
 """Chip smoke test of flexflow_tpu_torch, the PyTorch/CUDA port: drives the
 port's main paths on one NVIDIA card, paged Llama serving (fp and int8 KV
-pools, prefix cache, preemption, defrag), Llama training (head dims 128,
+pools, prefix cache, preemption, defrag, decode megasteps, speculative
+decoding), Llama training (head dims 128,
 64, 96 and 100), GPT-2 training and paged serving, and Llama training
 through ring attention (head dims 128, 96 and 100), and holds every
 hand-written kernel on them to its plain PyTorch version.
 
-    python3 chip_smoke.py            # phases 1..4, 6..14, one card
+    python3 chip_smoke.py            # phases 1..4, 6..15, one card
     python3 chip_smoke.py --phases 5 # + profiles of serving and training
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
@@ -24,9 +25,11 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      library times and the roofline bound: the ragged paged attention at
      the serving path's shapes (Llama-3-8B attention: H=32, Hkv=8,
      D=128, page 64, 129 pages; decode, chunk and pad entries; window 1
-     and 8; a decode at the end of the 32-page table; and GPT-2 XL's
-     decode: H = Hkv = 25, D 64) over fp pools, the fp kernel's pages
-     per split swept at the steady decode case (SPLIT_SWEEP, fp and int8
+     and 8; a decode at the end of the 32-page table; the speculative
+     verify at its 9-row tree window under two real draft trees'
+     ancestor masks, tree_w9; and GPT-2 XL's decode: H = Hkv = 25, D
+     64) over fp pools, the fp kernel's pages per split swept at the
+     steady decode case and at tree_w9 (SPLIT_SWEEP, fp and int8
      pools), over int8 pools (Llama's cases) written by the port's own
      quantize-on-append, and over a bf16 pool under fp32 q; and the
      flash-attention forward, dq and dk/dv kernels at the training
@@ -80,7 +83,9 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      step (counts reset just before, read just after);
   5. (on request) torch.profiler breakdowns of one decode step, one
      prefill step, one decode step on an int8 pool (with the int8 ragged
-     kernels' and quantize-on-append's launches and ms), one bench_1b
+     kernels' and quantize-on-append's launches and ms), one decode
+     megastep of 8 ticks (Executor.paged_megastep_fn and its one
+     transfer back) at the decode step's launch, one bench_1b
      train step, one GPT-2 XL train step, one phase-10 ring step, one
      phase-11 step, one phase-12 step, one phase-13 step and one ring
      step of phase 14's Phi-3-mini-width Llama;
@@ -164,7 +169,24 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      Phi-3-mini. Then OpenLLaMA-3B's widths (head dim 100: K5's
      cp.async-loaded body) cut to 2 layers (RING_OPENLLAMA_LAYERS, to keep
      the phase short) the same way (the kernels line records K5's
-     launches of each under "phi3_mini" and "openllama_3b").
+     launches of each under "phi3_mini" and "openllama_3b");
+ 15. serving Llama-3-8B (phase 4's model, requests and server defaults)
+     (a) through megastep_ticks=8 against the one-tick loop, greedy and
+     sampled at a fixed seed: tokens identical, one synchronizing CUDA
+     call a megastep (set_sync_debug_mode("warn")), the ragged kernel
+     once per layer and ragged step (a megastep tick is one); (b)
+     through speculate=SpecConfig(width=2, depth=4) on make_token_cyclic
+     weights, each request's last 65 prompt tokens holding the cyclic
+     stream (prompt lookup has nothing to accept in phase 4's random
+     prompts at 128256 tokens): >= 1.5 tokens per verify step per
+     request, the ragged kernel once per layer and verify step at the
+     9-row window; (c) fp32 with TF32 off, depth 2, random weights,
+     requests rebuilt the same way from this model's own tokens: the
+     one-tick, megastep and speculative servers' tokens identical; the
+     speculative server on an int8 pool too, and a commit on the pools
+     it left equal on the card and on the CPU (the kernels line records
+     the tree-window launches of (b) and of (c)'s int8 pool under
+     "tree_w9").
 The line before the last is the kernel list as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -240,6 +262,10 @@ from flexflow_tpu_torch.paged.attention import (
 from flexflow_tpu_torch.paged.quant import dequantize_pages, quantized_append
 from flexflow_tpu_torch.parallel.mesh import make_mesh
 from flexflow_tpu_torch.parallel.ring import ring_dot_product_attention
+from flexflow_tpu_torch.serving import pick_tokens
+from flexflow_tpu_torch.spec import SpecConfig
+from flexflow_tpu_torch.spec.fixtures import make_token_cyclic
+from flexflow_tpu_torch.spec.tree import ancestor_masks, build_tree
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type.
 # fp32 operands reach the tensor cores as tf32 (3xTF32 keeps fp32's
@@ -290,6 +316,14 @@ TRAIN_LR = 1e-4
 TRAIN_LOSS_RTOL, TRAIN_PARAM_TOL, TRAIN_OUTLIER_FRACTION = 1e-5, 1e-5, 1e-5
 
 H, HKV, D, P, NUM_PAGES, MAXP = 32, 8, 128, 64, 129, 32
+# phase 15: the speculation policy (max_nodes 9: the tree window phase 2
+# times K3 at), the megastep width, the sampled runs' temperature, and
+# the least tokens a request may emit per verify step on the
+# token-cyclic fixture (the reference's contract, tests/test_spec.py:237)
+SPEC_CONFIG = SpecConfig(width=2, depth=4)
+MEGASTEP_TICKS = 8
+SAMPLE_TEMPERATURE = 0.8
+ACCEPT_FLOOR = 1.5
 # the training path's attention: bench_1b at batch 8, seq 1024
 FB, FS, FH, FHKV, FD = 8, 1024, 16, 8, 128
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCHES, TIMED_STEPS = 8, 1024, 10, 10
@@ -644,12 +678,23 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # phase 2: the ragged paged-attention kernel against its plain version
 
 
+def spec_trees() -> list:
+    """Two draft trees of phase 15's SpecConfig(width=2, depth=4) window
+    (max_nodes 9) from build_tree: three chains sharing prefixes that fill
+    all 9 nodes, and one chain of 2 (3 live nodes, 6 padding)."""
+    return [build_tree(5, [np.array([1, 2, 3, 4]), np.array([1, 2, 7, 8]),
+                           np.array([6, 9])], SPEC_CONFIG.max_nodes),
+            build_tree(3, [np.array([4, 5])], SPEC_CONFIG.max_nodes)]
+
+
 def attention_case(window: int, kinds, dtype, seed: int, fixed_pos=None,
                    heads=(H, HKV, D)):
     """Inputs of one ragged attention call at the serving path's shapes
     (`heads` = (H, Hkv, D), Llama-3-8B's by default): one entry per kind
-    ("decode" q_len 1, "chunk:N" q_len N, "pad"), positions `fixed_pos` or
-    random up to ~2000, distinct random pages per entry."""
+    ("decode" q_len 1, "chunk:N" q_len N, "tree:i" spec_trees()[i] as the
+    speculative server launches it: q_len its live nodes under its
+    ancestor mask, "pad"), positions `fixed_pos` or random up to ~2000,
+    distinct random pages per entry."""
     nh, nkv, hd = heads
     rs = np.random.RandomState(seed)
     B = len(kinds)
@@ -658,6 +703,12 @@ def attention_case(window: int, kinds, dtype, seed: int, fixed_pos=None,
     anc = np.zeros((B, window, window), bool)
     for b, kind in enumerate(kinds):
         if kind == "pad":
+            continue
+        if kind.startswith("tree:"):
+            tree = spec_trees()[int(kind[5:])]
+            qls[b] = tree.n_nodes
+            pos[b] = rs.randint(1, MAXP * P - window)
+            anc[b] = ancestor_masks(tree.parents[None])[0]
             continue
         n = 1 if kind == "decode" else int(kind.split(":")[1])
         qls[b] = n
@@ -739,6 +790,9 @@ ATTENTION_CASES = [
     ("decode_pad_w1", 1, ["decode", "decode", "decode", "pad"], None),
     ("mixed_w8", 8, ["decode", "chunk:8", "chunk:5", "pad"], None),
     ("decode_b4_pos2040", 1, ["decode"] * 4, MAXP * P - 8),
+    # the speculative verify launch at phase 15's tree window: two real
+    # draft trees, twice each, at varied positions
+    ("tree_w9", 9, ["tree:0", "tree:1", "tree:0", "tree:1"], None),
 ]
 # the fp kernel's pages per split timed at the kernel line's case (bf16
 # and fp32 q) beside the plan's choice (ragged_split_plan)
@@ -769,9 +823,13 @@ def phase_kernels(card: str) -> list:
             zero_tail = all(not got[b, int(args[5][b]):].any()
                             for b in range(len(kinds)))
             bound_ms, bound_by, nbytes, ops = attention_bound(args)
+            plan = ragged_split_plan(len(kinds), window, heads[0], heads[1],
+                                     P, MAXP, torch.cuda.get_device_properties(
+                                         0).multi_processor_count)
             res = {
                 "case": name, "dtype": str(dtype).replace("torch.", ""),
                 "heads": list(heads), "window": window, "kinds": kinds,
+                "split_plan": list(plan),
                 "pos": args[4].tolist(), "q_lens": args[5].tolist(),
                 "max_abs_err": float(err.max()), "atol": atol, "rtol": rtol,
                 "ms": time_ms(lambda: ragged_flash_attention(
@@ -792,13 +850,14 @@ def phase_kernels(card: str) -> list:
     return results
 
 
-def split_sweep(card: str) -> dict:
-    """The split kernels at the kernel line's case with each SPLIT_SWEEP
-    pages per split beside the plan's, bf16 and fp32 q, over the fp pool
-    and over its int8 pages (keys "int8_<q dtype>"): every result held to
-    the plain version (TOLS; INT8_TOLS) and timed. The times show the
-    plan's choice against its neighbours."""
-    name, window, kinds, fixed = ATTENTION_CASES[0]
+def split_sweep(card: str, case: int = 0) -> dict:
+    """The split kernels at ATTENTION_CASES[case] (the kernel line's by
+    default) with each SPLIT_SWEEP pages per split beside the plan's,
+    bf16 and fp32 q, over the fp pool and over its int8 pages (keys
+    "int8_<q dtype>"): every result held to the plain version (TOLS;
+    INT8_TOLS) and timed. The times show the plan's choice against its
+    neighbours."""
+    name, window, kinds, fixed = ATTENTION_CASES[case]
     scale = 1.0 / D ** 0.5
     plan = ragged_split_plan(len(kinds), window, H, HKV, P, MAXP,
                              torch.cuda.get_device_properties(0)
@@ -806,7 +865,7 @@ def split_sweep(card: str) -> dict:
     res = {"case": name, "plan_pages_per_split": plan.pages_per_split,
            "card": card}
     q, kc, vc, pt, pos, qls, anc = attention_case(
-        window, kinds, torch.float32, seed=0, fixed_pos=fixed)
+        window, kinds, torch.float32, seed=case, fixed_pos=fixed)
     kq, ks, vq, vs = int8_pools(kc, vc)
     for dtype in (torch.bfloat16, torch.float32):
         for pool in ("fp", "int8"):
@@ -2242,6 +2301,44 @@ def phase_profile(seed: int, card: str) -> dict:
                 _span_device(prof, _SPANS[0], n)
         log(f"profile {name} {json.dumps(res)}")
         out[name] = res
+    # one decode megastep of MEGASTEP_TICKS ticks at the same launch (each
+    # tick the window-1 step and pick_tokens, then the one transfer back),
+    # where the one-tick step above neither samples nor reads back
+    tables, pos, qls, _, _, ids = _decode_launch(DEVICE, cfg.vocab_size, rs)
+    B = pos.shape[0]
+    state = (ids[:, 0].contiguous(), torch.zeros(B, device=DEVICE),
+             torch.full((B,), 1 << 20, dtype=torch.int32, device=DEVICE),
+             torch.full((B,), MAXP * P, dtype=torch.int32, device=DEVICE),
+             qls.bool())
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+
+    def megastep():
+        _, toks, done, ran, _ = ex.paged_megastep_fn(
+            tr, ntr, pools[None], tables, pos, state[0], state[1],
+            state[2], state[3], state[4], gen, max_ticks=MEGASTEP_TICKS)
+        return torch.cat([toks.reshape(-1), done.int(),
+                          ran.reshape(1)]).cpu()
+
+    for _ in range(2):
+        megastep()
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        megastep()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            megastep()
+    res = _profile_summary(prof, n, wall_ms)
+    res.update({"ticks": MEGASTEP_TICKS,
+                "wall_ms_per_tick": wall_ms / MEGASTEP_TICKS})
+    if res["device_ms"] != "not measured":
+        res["device_ms_per_tick"] = res["device_ms"] / MEGASTEP_TICKS
+    name = f"megastep_x{MEGASTEP_TICKS}_b4_pos1024"
+    log(f"profile {name} {json.dumps(res)}")
+    out[name] = res
     return out
 
 
@@ -3037,6 +3134,355 @@ def phase_gpt2_serve(seed: int, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: speculative decoding and decode megasteps, Llama-3-8B
+
+
+def serve_traffic(vocab: int, seed: int):
+    """Phase 4's 8 requests: 128..1024 prompt tokens each."""
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(128, 1025, size=8)
+    return [rs.randint(0, vocab, (n,)).astype(np.int32) for n in lens]
+
+
+def _timed(server, name, calls):
+    """Replace the server's method `name` by one that appends each call's
+    host seconds to calls[name] (the loop calls it through the
+    instance)."""
+    fn = getattr(server, name)
+
+    def run(*a):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            calls[name].append(time.perf_counter() - t0)
+
+    setattr(server, name, run)
+
+
+# what torch.cuda.set_sync_debug_mode("warn") says at each synchronizing
+# call (c10/cuda/CUDAFunctions.cpp)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def _count_syncs(server, counts):
+    """Run each megastep of `server` under torch.cuda.set_sync_debug_mode
+    ("warn") and append to `counts` the synchronizing CUDA calls it made
+    (each one warns once)."""
+    fn = server._decode_megastep
+
+    def run(*a):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return fn(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                counts.append(sum(SYNC_WARNING in str(w.message)
+                                  for w in caught))
+
+    server._decode_megastep = run
+
+
+class _WindowCounter:
+    """Counts the ragged attention calls by window (q's S) and pool dtype
+    while installed as paged.attention.ragged_flash_attention, the name
+    the paged attention step calls."""
+
+    def __init__(self):
+        import flexflow_tpu_torch.paged.attention as pa
+
+        self.module, self.fn, self.counts = pa, pa.ragged_flash_attention, {}
+
+    def __enter__(self):
+        def count(q, kc, *a, **kw):
+            key = (int(q.shape[1]), str(kc.dtype).replace("torch.", ""))
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return self.fn(q, kc, *a, **kw)
+
+        self.module.ragged_flash_attention = count
+        return self
+
+    def __exit__(self, *exc):
+        self.module.ragged_flash_attention = self.fn
+
+    def at(self, window: int, pool: str) -> int:
+        return self.counts.get((window, pool), 0)
+
+
+def serve_closed(ff, vocab: int, prompts, new: int,
+                 temperature: float = 0.0, syncs=None, **kw) -> dict:
+    """Serve `prompts` (`new` tokens each) through
+    ff.serve_generation(paged=True) at the paged server's defaults (4
+    slots, max_len 2048, page 64, prefix cache and preemption on) and
+    `kw`, every request queued before the loop starts (defer_start), so
+    the schedule is a function of the tokens alone. Kernel counts are
+    reset just before and read just after; the tick methods are timed
+    on the host clock; with `syncs` (a list), each megastep's
+    synchronizing CUDA calls are counted into it."""
+    server = ff.serve_generation(paged=True, slots=4, max_len=2048,
+                                 page_size=64, prefill_chunk=64,
+                                 defer_start=True, **kw)
+    calls = {n: [] for n in ("_decode_tick", "_decode_megastep",
+                             "_spec_tick")}
+    for name in calls:
+        if hasattr(server, name):
+            _timed(server, name, calls)
+    if syncs is not None:
+        _count_syncs(server, syncs)
+    try:
+        futs = [server.submit(p, max_new_tokens=new,
+                              temperature=temperature) for p in prompts]
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.monotonic()
+        server.start()
+        outs = [np.asarray(f.result(timeout=900)) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k.name: k.launches for k in KERNELS}
+        m = server.metrics()
+    finally:
+        server.stop()
+    server.pool.check_invariants(owners={})
+    for o in outs:
+        if len(o) != new or not ((0 <= o) & (o < vocab)).all():
+            raise AssertionError(f"bad output {o}")
+    ms = m["megastep"]
+    ttft = sorted(r["ttft_s"] for r in m["requests"])
+    res = {
+        "wall_s": wall, "generated_tokens_per_s": new * len(outs) / wall,
+        "ttft_p50_s": ttft[len(ttft) // 2], "ragged_steps":
+        m["ragged_steps"], "launches": launches,
+        "decode_tick_ms": (1e3 * float(np.mean(calls["_decode_tick"]))
+                           if calls["_decode_tick"] else None),
+        "decode_ticks": len(calls["_decode_tick"]),
+        "prefill_ticks": m["prefill_ticks"], "kv_dtype": m["kv_cache_dtype"],
+    }
+    if ms["dispatches"]:
+        res.update({
+            "megastep_ms": 1e3 * float(np.mean(calls["_decode_megastep"])),
+            "megastep_ms_per_tick": 1e3 * sum(calls["_decode_megastep"])
+            / ms["ticks_run"],
+            "megasteps": ms["dispatches"],
+            "ticks_per_megastep": ms["ticks_run"] / ms["dispatches"],
+            "breaks": ms["breaks"], "wasted_ticks": ms["wasted_ticks"],
+            "host_roundtrips": ms["host_roundtrips"],
+            "decode_tokens": ms["decode_tokens"]})
+    if "speculative" in m:
+        per_req = [r["spec_accepted_tokens_per_step"] for r in m["requests"]
+                   if "spec_accepted_tokens_per_step" in r]
+        res.update({
+            "verify_step_ms": 1e3 * float(np.mean(calls["_spec_tick"])),
+            "speculative": m["speculative"],
+            "tokens_per_verify_step_per_request_mean": float(
+                np.mean(per_req)) if per_req else 0.0})
+    return {"outs": outs, "res": res, "server": server}
+
+
+def commit_check(ex, caches, seed: int) -> dict:
+    """The accepted-path commit (Executor.paged_commit_fn) at full width
+    on the pools a served run left: 4 slots each commit a 5-row path
+    (tree nodes 0, 2, 3, 7, 8 onto rows pos..pos+4) through random
+    tables, on the card and on CPU copies of the same pools, which must
+    end equal, bytes and scales included on an int8 pool."""
+    rs = np.random.RandomState(seed)
+    N = next(iter(caches.values()))["k"].shape[0]
+    tables = (rs.permutation(N - 1)[:4 * 8] + 1).reshape(4, 8)
+    pos = rs.randint(0, 7 * P - 9, size=4)
+    src = pos[:, None] + np.array([0, 2, 3, 7, 8])
+    dst = pos[:, None] + np.arange(5)
+    args = [a.astype(np.int32) for a in (tables, src, dst)]
+    before = {k: {n: b.to("cpu", copy=True) for n, b in bufs.items()}
+              for k, bufs in caches.items()}
+    cpu = {k: {n: b.clone() for n, b in bufs.items()}
+           for k, bufs in before.items()}
+    card = {k: {n: b.clone() for n, b in bufs.items()}
+            for k, bufs in caches.items()}
+    ex.paged_commit_fn(card, *[torch.from_numpy(a).to(DEVICE)
+                               for a in args])
+    ex.paged_commit_fn(cpu, *[torch.from_numpy(a) for a in args])
+    diff = {f"{k}/{n}": int((card[k][n].cpu() != b).sum())
+            for k, bufs in cpu.items() for n, b in bufs.items()}
+    moved = sum(int((card[k][n].cpu() != b).sum())
+                for k, bufs in before.items() for n, b in bufs.items())
+    res = {"elements_differing": sum(diff.values()),
+           "elements_moved": moved,
+           "buffers": sorted(diff)}
+    if res["elements_differing"] or not moved:
+        raise AssertionError(f"commit card vs CPU: {diff}, moved {moved}")
+    return res
+
+
+def _launches_ok(label, r, n_attn):
+    """Raise unless K3 (fp or int8, by the pool) launched once per
+    attention layer and ragged step."""
+    res = r["res"]
+    kern = (RAGGED_PAGED_ATTENTION_INT8 if res["kv_dtype"] == "int8"
+            else RAGGED_PAGED_ATTENTION)
+    got = res["launches"][kern.name]
+    if res["ragged_steps"] == 0 or got != n_attn * res["ragged_steps"]:
+        raise AssertionError(f"{label}: {kern.name} launched {got} times, "
+                             f"not {n_attn} x {res['ragged_steps']} steps")
+
+
+def lookup_prompts(prompts, outs):
+    """Each prompt with its last 65 tokens replaced by its last token t,
+    the first 63 tokens `outs` holds for it and t again: prompt lookup
+    finds t earlier in the context and drafts what followed it there."""
+    return [np.concatenate([p[:len(p) - 65], p[-1:], o[:63], p[-1:]])
+            for p, o in zip(prompts, outs)]
+
+
+def _same_share(a, b) -> float:
+    return float(np.mean([np.mean(x == y) for x, y in zip(a, b)]))
+
+
+def phase_spec_megastep(seed: int, card: str) -> dict:
+    """Phase 15: the paged server's decode megastep and speculative
+    decoding on Llama-3-8B (phase 4's model and 8 requests, 64 new each).
+    (a) megastep_ticks=8 against the one-tick loop at full width, bf16:
+    tokens identical, greedy and sampled at a fixed seed; one host sync a
+    megastep; K3 once per layer and ragged step (each megastep tick one
+    step). (b) speculate=SpecConfig(width=2, depth=4) on the
+    make_token_cyclic weights: >= ACCEPT_FLOOR tokens per verify step
+    per request, K3 once per layer and verify step at the 9-row tree
+    window. (c) fp32 with TF32 off,
+    depth 2, random weights, on the same lookup prompts: the one-tick,
+    the megastep and the speculative servers' greedy tokens identical on
+    an fp pool; the
+    speculative server on an int8 pool too, its tokens' share equal to
+    the int8 one-tick server's reported, and a commit on the pools it
+    left equal on the card and on the CPU."""
+    cfg = LlamaConfig.llama3_8b()
+    out = {"card": card}
+    t0 = time.monotonic()
+    ff = FFModel(FFConfig(batch_size=1, seed=seed, device=DEVICE))
+    build_llama(ff, cfg, batch_size=1, seq_len=2048,
+                dtype=DataType.BFLOAT16)
+    ff.compile()
+    torch.cuda.synchronize()
+    out["init_s"] = time.monotonic() - t0
+    n_attn = len(ff.executor.paged_kv_cache_specs(2, 1))
+    prompts = serve_traffic(cfg.vocab_size, seed)
+    # warm cuBLAS and the allocator off the clock, through both loops
+    for kw in ({}, {"megastep_ticks": MEGASTEP_TICKS}):
+        serve_closed(ff, cfg.vocab_size, [prompts[0][:16]], 4, **kw)
+
+    # (a) megastep against the one-tick loop
+    runs, syncs = {}, []
+    for temp in (0.0, SAMPLE_TEMPERATURE):
+        for n in (1, MEGASTEP_TICKS):
+            runs[temp, n] = serve_closed(
+                ff, cfg.vocab_size, prompts, 64, temperature=temp, seed=seed,
+                megastep_ticks=n,
+                syncs=syncs if temp and n > 1 else None)
+            _launches_ok(f"15a t={temp} n={n}", runs[temp, n], n_attn)
+    a = {("sampled_" if t else "greedy_") + (
+        "megastep" if n > 1 else "one_tick"): r["res"]
+        for (t, n), r in runs.items()}
+    a["syncs_per_megastep"] = sorted(set(syncs))
+    a["identical"] = {
+        kind: all(np.array_equal(x, y) for x, y in zip(
+            runs[t, 1]["outs"], runs[t, MEGASTEP_TICKS]["outs"]))
+        for kind, t in (("greedy", 0.0), ("sampled", SAMPLE_TEMPERATURE))}
+    log(f"spec_megastep a {json.dumps(a)}")
+    out["a"] = a
+    if not all(a["identical"].values()) or syncs == [] or set(syncs) != {1}:
+        raise AssertionError(f"15a: identical {a['identical']}, syncs a "
+                             f"megastep {a['syncs_per_megastep']} (want 1)")
+
+    # (b) speculation on the token-cyclic weights, where the next token
+    # is a function of the current one alone. At 128256 tokens that
+    # function's stream repeats only after hundreds of tokens, and phase
+    # 4's random prompts hold no n-gram it follows, so prompt lookup would
+    # draft nothing that can be accepted. Each request's last 65 tokens
+    # therefore become its last token t, the stream the one-tick run
+    # emitted from t (63 tokens) and t again: the context holds the
+    # continuation, as prompt lookup's users' (edits, quotes) do, and the
+    # 64 tokens served must equal the one-tick run's.
+    make_token_cyclic(ff)
+    plain = serve_closed(ff, cfg.vocab_size, prompts, 64, seed=seed)
+    lookup = lookup_prompts(prompts, plain["outs"])
+    with _WindowCounter() as wc:
+        spec = serve_closed(ff, cfg.vocab_size, lookup, 64, seed=seed,
+                            speculate=SPEC_CONFIG)
+    _launches_ok("15b", spec, n_attn)
+    r = spec["res"]
+    r["tree_window_launches"] = wc.at(SPEC_CONFIG.max_nodes, "bfloat16")
+    r["equal_to_one_tick_share"] = _same_share(plain["outs"], spec["outs"])
+    b = {"one_tick": plain["res"], "spec": r}
+    log(f"spec_megastep b {json.dumps(b)}")
+    steps = r["speculative"]["steps"]
+    if (r["tokens_per_verify_step_per_request_mean"] < ACCEPT_FLOOR
+            or r["tree_window_launches"] != n_attn * steps):
+        raise AssertionError(
+            f"15b: {r['tokens_per_verify_step_per_request_mean']} tokens a "
+            f"verify step (want >= {ACCEPT_FLOOR}), "
+            f"{r['tree_window_launches']} tree-window launches for "
+            f"{steps} verify steps")
+    out["b"] = b
+    del ff, runs, plain, spec
+    torch.cuda.empty_cache()
+
+    # (c) identity at full width, fp32, depth 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg2 = dataclasses.replace(cfg, layers=2)
+    ff = FFModel(FFConfig(batch_size=1, seed=seed, device=DEVICE))
+    build_llama(ff, cfg2, batch_size=1, seq_len=2048, dtype=DataType.FLOAT)
+    ff.compile()
+    # the lookup prompts, from phase 4's prompts and this model's own
+    # one-tick tokens, give the drafter trees to verify: K3 under real
+    # tree masks, and commits of accepted paths beside rejected rows
+    first = serve_closed(ff, cfg.vocab_size, prompts, 64, seed=seed)
+    lookup = lookup_prompts(prompts, first["outs"])
+    c, toks = {}, {}
+    for name, kw in (("one_tick", {}),
+                     ("megastep", {"megastep_ticks": MEGASTEP_TICKS}),
+                     ("spec", {"speculate": SPEC_CONFIG}),
+                     ("one_tick_int8", {"kv_dtype": "int8"}),
+                     ("spec_int8", {"speculate": SPEC_CONFIG,
+                                    "kv_dtype": "int8"})):
+        with _WindowCounter() as wc:
+            r = serve_closed(ff, cfg.vocab_size, lookup, 64, seed=seed,
+                             **kw)
+        _launches_ok(f"15c {name}", r, 2)
+        if name == "spec_int8":
+            r["res"]["commit_check"] = commit_check(
+                ff.executor, r["server"]._caches, seed)
+        r["res"]["tree_window_launches"] = wc.at(
+            SPEC_CONFIG.max_nodes, "int8" if "int8" in name else "float32")
+        c[name], toks[name] = r["res"], r["outs"]
+        if "spec" in name and r["res"]["tree_window_launches"] != \
+                2 * r["res"]["speculative"]["steps"]:
+            raise AssertionError(f"15c {name}: tree-window launches "
+                                 f"{r['res']['tree_window_launches']}")
+    # the int8 pair is reported, not required to match: the verify
+    # writes every drafted row, and a rejected row can grow its page's
+    # scale (grow-only, paged/quant.py), re-quantizing the committed rows
+    # there, which the one-tick loop never does (so in the reference)
+    c["identical"] = {
+        pair: all(np.array_equal(x, y) for x, y in zip(
+            toks[pair.split("=")[0]], toks[pair.split("=")[1]]))
+        for pair in ("one_tick=megastep", "one_tick=spec",
+                     "one_tick_int8=spec_int8")}
+    c["equal_share"] = {pair: _same_share(
+        toks[pair.split("=")[0]], toks[pair.split("=")[1]])
+        for pair in c["identical"]}
+    log(f"spec_megastep c {json.dumps(c)}")
+    out["c"] = c
+    del ff
+    torch.cuda.empty_cache()
+    if not (c["identical"]["one_tick=megastep"]
+            and c["identical"]["one_tick=spec"]):
+        raise AssertionError(f"15c: identical {c['identical']}, shares "
+                             f"{c['equal_share']}")
+    return out
+
+
 def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
     """One kernel's record for the kernels line: its main-path launches
     and, when phase 2 ran, its measured case."""
@@ -3057,10 +3503,11 @@ def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12,13,14",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default "
-                    "1,2,3,4,6,7,8,9,10,11,12,13,14; 5 profiles serving "
-                    "and training steps)")
+                    "1,2,3,4,6,7,8,9,10,11,12,13,14,15; 5 profiles "
+                    "serving and training steps)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -3083,6 +3530,7 @@ def main(argv=None) -> int:
     kern = phase_kernels(card) if 2 in phases else []
     if 2 in phases:
         split_sweep(card)
+        split_sweep(card, [c[0] for c in ATTENTION_CASES].index("tree_w9"))
     kern8 = phase_int8_kernels(card) if 2 in phases else []
     flash = phase_flash_kernels(card) if 2 in phases else {}
     if 2 in phases:
@@ -3112,6 +3560,7 @@ def main(argv=None) -> int:
                     else None)
     ring_wide = (phase_ring_train_wide_heads(args.seed, card) if 14 in phases
                  else None)
+    spec15 = phase_spec_megastep(args.seed, card) if 15 in phases else None
     if 5 in phases:
         phase_profile(args.seed, card)
         phase_profile_train(args.seed, card)
@@ -3140,6 +3589,21 @@ def main(argv=None) -> int:
         "flexflow_tpu_torch/csrc/ragged_paged_attention.cu",
         serve8["launches"][RAGGED_PAGED_ATTENTION_INT8.name] if serve8
         else 0, int8_case))
+    # K3 at the speculative verify's tree window: launches at S 9 in
+    # phase 15 (b) (bf16, fp pool) and (c) (fp32 q, int8 pool), timed at
+    # phase 2's tree_w9 case in the same q dtype
+    for entry, results, part, name, dtype in (
+            (entries[0], kern, "b", "spec", "bfloat16"),
+            (entries[1], kern8, "c", "spec_int8", "float32")):
+        launches = spec15[part][name]["tree_window_launches"] if spec15 \
+            else 0
+        case = next((r for r in results if r["case"] == "tree_w9"
+                     and r["dtype"] == dtype), None)
+        tree = _kernel_entry(RAGGED_PAGED_ATTENTION, entry["source"],
+                             launches, case)
+        entry["tree_w9"] = {name: val for name, val in tree.items()
+                            if name not in ("name", "route", "source",
+                                            "replaces")}
     # K1/K2 on phase 6's bf16 fit, timed at bench_1b's attention shape
     # (phase 2), and their fp32 bodies under "fp32": launches in phase 3's
     # fp32 bench_1b step (K2 there on its 3xTF32 body), timed at the same

@@ -412,14 +412,18 @@ class FFModel:
                          megastep_mixed: bool = False,
                          overlap_dispatch: bool = False,
                          kv_dtype: str = "auto", kv_quant_canary=None,
-                         host_tier=None):
+                         host_tier=None, defer_start: bool = False):
         """Continuous-batching generation over the block-paged KV cache
         (serving.serve_generation), with the reference's defaults
         (prefix cache and preemption on) and its kv_dtype pools ("auto",
-        "int8", "bf16", "fp16", "fp32"). Megasteps, speculation, the host
-        tier, the unpacked launch and the kv_quant_canary shadow cache are
-        not ported: asking for any of them raises NotImplementedError
-        rather than serving a different configuration."""
+        "int8", "bf16", "fp16", "fp32"). `speculate=SpecConfig(...)`
+        serves through the speculative server (draft trees verified in
+        one ragged step, the accepted path committed in place);
+        `megastep_ticks=N` runs up to N pure-decode ticks per host round
+        trip. The mixed megastep, overlap_dispatch, the host tier, the
+        unpacked launch and the kv_quant_canary shadow cache are not
+        ported: asking for any of them raises NotImplementedError rather
+        than serving a different configuration."""
         from flexflow_tpu_torch.serving import serve_generation as _sg
 
         return _sg(self, slots=slots, max_len=max_len, eos_id=eos_id,
@@ -430,4 +434,5 @@ class FFModel:
                    megastep_ticks=megastep_ticks,
                    megastep_mixed=megastep_mixed,
                    overlap_dispatch=overlap_dispatch, kv_dtype=kv_dtype,
-                   kv_quant_canary=kv_quant_canary, host_tier=host_tier)
+                   kv_quant_canary=kv_quant_canary, host_tier=host_tier,
+                   defer_start=defer_start)

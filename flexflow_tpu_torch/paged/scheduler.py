@@ -47,9 +47,22 @@ Decode flow per tick:
   5. one ragged decode launch for the decoding slots
   6. sample, append, publish freshly filled pages, finish/free
 
-Not ported yet, and refused at construction rather than ignored: decode
-megasteps, speculative decoding, the host KV tier, the unpacked
-(`ragged_pack=False`) launch and the kv_quant_canary shadow cache.
+DECODE MEGASTEPS (megastep_ticks=N > 1): a pure-decode tick (no slot
+mid-prefill) runs up to N decode ticks from device-resident state
+(Executor.paged_megastep_fn) and reads the (N, slots) token buffer, the
+finish flags and the tick count back in ONE transfer; the host then
+replays its bookkeeping token by token in the one-tick order. The
+megastep stops where the one-tick loop would resume the host: after a
+slot finishes, or before a write row past a slot's pages. The host knows
+every stop but an eos in advance and enqueues exactly that many ticks; an
+eos sampled mid-megastep predicates the rest off on the device, and the
+generator is set back to where the one-tick loop would have left it.
+
+Not ported yet, and refused at construction rather than ignored: the
+mixed megastep and overlap_dispatch (ROADMAP queue 1 item 7), the host
+KV tier and the kv_quant_canary shadow cache (item 9) and the unpacked
+(`ragged_pack=False`) launch (item 7). Speculative decoding is the
+subclass in spec/server.py.
 """
 
 from __future__ import annotations
@@ -67,17 +80,12 @@ from flexflow_tpu_torch.paged.quant import is_quantized_dtype, resolve_kv_dtype
 from flexflow_tpu_torch.serving import (
     _GenerationServerBase,
     _GenRequest,
+    not_ported,
     pick_tokens,
 )
 
 # Packed prefill windows are capped at this many rows.
 PREFILL_WINDOW_ROWS = 8
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch server yet (ROADMAP.md, "
-        "queue 1)")
 
 
 def copy_page(caches, src: int, dst: int):
@@ -108,28 +116,37 @@ class PagedGenerationServer(_GenerationServerBase):
                  eos_id: Optional[int] = None, seed: int = 0,
                  page_size: int = 64, num_pages: Optional[int] = None,
                  preemption: bool = True, prefix_cache: bool = True,
-                 prefill_chunk: int = 64, speculate=None,
+                 table_slack_tokens: int = 0, prefill_chunk: int = 64,
                  ragged_pack: bool = True, megastep_ticks: int = 1,
                  megastep_mixed: bool = False,
                  overlap_dispatch: bool = False, kv_dtype: str = "auto",
-                 host_tier=None, kv_quant_canary: Optional[int] = None):
-        if int(megastep_ticks) != 1 or megastep_mixed or overlap_dispatch:
-            _not_ported("megastep_ticks > 1 / megastep_mixed / "
-                        "overlap_dispatch")
-        if speculate is not None:
-            _not_ported("speculative decoding (speculate=...)")
+                 host_tier=None, kv_quant_canary: Optional[int] = None,
+                 defer_start: bool = False):
+        self.megastep_ticks = int(megastep_ticks)
+        if self.megastep_ticks < 1:
+            raise ValueError(
+                f"megastep_ticks must be >= 1, got {megastep_ticks}")
+        if megastep_mixed:
+            not_ported("megastep_mixed (the universal megastep)", 7)
+        if overlap_dispatch:
+            not_ported("overlap_dispatch", 7)
         if host_tier is not None and host_tier != 0:
-            _not_ported("host_tier")
+            not_ported("host_tier", 9)
         if not ragged_pack:
-            _not_ported("ragged_pack=False")
+            not_ported("ragged_pack=False", 7)
         if kv_quant_canary:
-            _not_ported("kv_quant_canary (the fp32 shadow cache)")
+            not_ported("kv_quant_canary (the fp32 shadow cache)", 9)
         self.kv_dtype = str(kv_dtype)
         pool_dt = resolve_kv_dtype(self.kv_dtype)  # validates the name
         self._quantized = pool_dt is not None and is_quantized_dtype(pool_dt)
         super().__init__(ff, slots, max_len, eos_id, seed)
         self.page_size = int(page_size)
-        self.max_pages_per_seq = -(-self.max_len // self.page_size)
+        # table_slack_tokens widens every page table past max_len: the
+        # speculative verify writes its draft tree's rows past the
+        # committed head, so the table addresses max_len + max_nodes rows
+        # though pos never passes max_len
+        self.max_pages_per_seq = -(-(self.max_len + int(table_slack_tokens))
+                                   // self.page_size)
         if num_pages is None:
             # the dense layout's capacity (+ the null page); size it DOWN
             # to oversubscribe slots, and preemption absorbs the pressure
@@ -142,6 +159,7 @@ class PagedGenerationServer(_GenerationServerBase):
         self._chunk_rows = PREFILL_WINDOW_ROWS
         ex = ff.executor
         self._step = ex.ragged_step_fn
+        self._megastep = ex.paged_megastep_fn
         self._caches = ex.init_paged_kv_cache(num_pages, self.page_size,
                                               dtype=pool_dt)
         self._tables = np.zeros((self.slots, self.max_pages_per_seq),
@@ -158,13 +176,29 @@ class PagedGenerationServer(_GenerationServerBase):
         # attention layer
         self.ragged_steps = 0
         self._prefill_rr = 0    # rotating start slot for the chunk budget
-        self._start()
+        # host round trips of the decode path (a one-tick decode or a
+        # megastep each pay one), the tokens they decoded, why each
+        # megastep handed control back, and the ticks an eos predicated
+        # off
+        self.host_roundtrips = 0
+        self.decode_tokens = 0
+        self.megastep_breaks = {"finish": 0, "page": 0, "limit": 0}
+        self.megastep_dispatches = 0
+        self.megastep_ticks_run = 0
+        self.megastep_wasted_ticks = 0
+        self._start(defer_start)
 
     # -- capacity and metrics ----------------------------------------------
 
+    def _peak_rows(self, prompt_len: int, max_new_tokens: int) -> int:
+        """Cache rows a request touches at its deepest point (subclass
+        hook: the speculative verify adds its tree's scratch rows)."""
+        return prompt_len + max_new_tokens
+
     def _check_capacity(self, prompt: np.ndarray, max_new_tokens: int):
         super()._check_capacity(prompt, max_new_tokens)
-        need = self.pool.pages_for(len(prompt) + max_new_tokens)
+        need = self.pool.pages_for(self._peak_rows(len(prompt),
+                                                   max_new_tokens))
         if need > self.pool.capacity:
             raise ValueError(
                 f"request needs {need} pages at its longest "
@@ -196,6 +230,15 @@ class PagedGenerationServer(_GenerationServerBase):
             "prefill_ticks": self.prefill_ticks,
             "ragged_steps": self.ragged_steps,
             "kv_cache_dtype": self._kv_pool_dtype_name(),
+            "megastep": {
+                "ticks_max": self.megastep_ticks,
+                "host_roundtrips": self.host_roundtrips,
+                "decode_tokens": self.decode_tokens,
+                "dispatches": self.megastep_dispatches,
+                "ticks_run": self.megastep_ticks_run,
+                "wasted_ticks": self.megastep_wasted_ticks,
+                "breaks": dict(self.megastep_breaks),
+            },
             "prefix_cache": {
                 "enabled": self.prefix_cache,
                 "hit_tokens": pool.hit_tokens,
@@ -492,23 +535,38 @@ class PagedGenerationServer(_GenerationServerBase):
         return hit
 
     def _launch(self, items, window, tr, ntr):
-        """Run ONE ragged step over packed work items, each
-        (slot, pos, tokens): `tokens` the item's q_len <= window live ids.
-        Rows past an item's q_len are padding. Returns the
-        (len(items), window, vocab) probs."""
+        """Run ONE ragged step over packed work items, each (slot, pos,
+        tokens, depths, anc): `tokens` the item's q_len <= window live
+        ids, depths/anc None for the causal chain (decode rows, chunk
+        pieces) or the (window,) node depths and (window, window)
+        ancestor relation of a drafted tree. Rows past an item's q_len are
+        padding. Returns the (len(items), window, vocab) probs."""
         B = len(items)
         ids = np.zeros((B, window), np.int32)
         pos = np.zeros((B,), np.int32)
         qls = np.zeros((B,), np.int32)
         slot_idx = np.zeros((B,), np.int64)
-        for i, (slot, p, toks) in enumerate(items):
+        chain = all(d is None and a is None for *_, d, a in items)
+        if not chain:
+            deps = np.tile(np.arange(window, dtype=np.int32), (B, 1))
+            anc = np.tile(np.tril(np.ones((window, window), np.bool_)),
+                          (B, 1, 1))
+        for i, (slot, p, toks, d, a) in enumerate(items):
             ql = len(toks)
             ids[i, :ql] = toks
             pos[i] = p
             qls[i] = ql
             slot_idx[i] = slot
-        deps_d, anc_d = self._chain_descriptor_device(B, window)
+            if d is not None:
+                deps[i] = d
+            if a is not None:
+                anc[i] = a
         dev = self.device
+        if chain:
+            deps_d, anc_d = self._chain_descriptor_device(B, window)
+        else:
+            deps_d = torch.from_numpy(deps).to(dev)
+            anc_d = torch.from_numpy(anc).to(dev)
         probs, upd = self._step(
             tr, ntr, self._caches,
             torch.from_numpy(self._tables[slot_idx]).to(dev),
@@ -569,7 +627,8 @@ class PagedGenerationServer(_GenerationServerBase):
                 piece = min(W, take - off)
                 items.append((s, start + off,
                               req.prefill_seq[start + off:
-                                              start + off + piece]))
+                                              start + off + piece],
+                              None, None))
             ends.append((len(items) - 1, (take - 1) % W))
         probs = self._launch(items, W, tr, ntr)
         for (s, req, start, take), (i, r) in zip(plan, ends):
@@ -592,7 +651,7 @@ class PagedGenerationServer(_GenerationServerBase):
         mid-prefill ones, so probs stays slot-indexed."""
         dec = set(live)
         items = [(s, self._active[s].pos if s in dec else 0,
-                  [int(self._tokens[s])] if s in dec else [])
+                  [int(self._tokens[s])] if s in dec else [], None, None)
                  for s in range(self.slots)]
         probs = self._launch(items, 1, tr, ntr)
         temps = torch.tensor(
@@ -601,6 +660,8 @@ class PagedGenerationServer(_GenerationServerBase):
             device=self.device)
         toks = pick_tokens(probs[:, -1, :], temps, self._gen).cpu().numpy()
         self._steps += 1
+        self.host_roundtrips += 1
+        self.decode_tokens += len(live)
         for s in live:
             req = self._active[s]
             req.pos += 1
@@ -608,6 +669,87 @@ class PagedGenerationServer(_GenerationServerBase):
             self._tokens[s] = toks[s]
             self._publish_prefix(req, req.pos)
             self._finish_if_done(s)
+
+    def _decode_megastep(self, live, tr, ntr):
+        """Up to `megastep_ticks` decode ticks in one dispatch
+        (Executor.paged_megastep_fn) for the decoding slots, with one
+        transfer back: the (ticks, slots) token buffer, the finish flags
+        and the tick count. The host enqueues exactly the ticks the
+        reference's device loop would run but for an eos: up to the tick
+        limit, to the last write row inside every live slot's pages, and
+        to the tick where the first live slot emits its last token. Then
+        it replays the bookkeeping
+        (append, prefix publication, finish) token by token in the
+        one-tick order, so page growth, admission, eviction and defrag
+        stay between megasteps, and greedy and fixed-seed sampled tokens
+        equal the one-tick loop's."""
+        N = self.megastep_ticks
+        pos = np.zeros((self.slots,), np.int32)
+        toks = np.zeros((self.slots,), np.int32)
+        temps = np.zeros((self.slots,), np.float32)
+        rem = np.zeros((self.slots,), np.int32)
+        cap = np.zeros((self.slots,), np.int32)
+        act = np.zeros((self.slots,), np.bool_)
+        for s in live:
+            req = self._active[s]
+            pos[s] = req.pos
+            toks[s] = self._tokens[s]
+            temps[s] = req.temperature
+            rem[s] = req.max_new - len(req.tokens)
+            cap[s] = len(req.pages) * self.page_size
+            act[s] = True
+        # >= 1: _ensure_pages gave every live slot the page of its next
+        # write row, and a decoding slot has a token left to emit
+        n = min(N, int((cap - pos)[act].min()), int(rem[act].min()))
+        dev = self.device
+
+        def up(a):  # no host sync: the staged copy needs no wait
+            return torch.from_numpy(a).to(dev, non_blocking=True)
+
+        caches, out, done, ran, states = self._megastep(
+            tr, ntr, self._caches, up(self._tables.copy()), up(pos),
+            up(toks), up(temps), up(rem), up(cap), up(act), self._gen,
+            max_ticks=N, ticks=n, eos_id=self.eos_id)
+        self._caches = caches
+        # the ONE host transfer of the megastep
+        back = torch.cat([out.reshape(-1), done.to(torch.int32),
+                          ran.reshape(1)]).cpu().numpy()
+        out_np = back[:N * self.slots].reshape(N, self.slots)
+        done_np = back[N * self.slots:-1]
+        ran = int(back[-1])
+        if ran < n:
+            # an eos stopped the run: the predicated-off ticks drew from
+            # the generator, the one-tick loop would not have
+            self._gen.set_state(states[ran])
+            self.megastep_wasted_ticks += n - ran
+        if done_np.any():
+            reason = "finish"
+        elif ran < N:
+            reason = "page"
+        else:
+            reason = "limit"
+        for t in range(ran):
+            self._steps += 1
+            for s in live:
+                req = self._active[s]
+                tok = int(out_np[t, s])
+                req.pos += 1
+                req.tokens.append(tok)
+                self._tokens[s] = tok
+                self._publish_prefix(req, req.pos)
+                self._finish_if_done(s)
+        self._on_megastep_resume()
+        self.ragged_steps += n
+        self.host_roundtrips += 1
+        self.decode_tokens += ran * len(live)
+        self.megastep_dispatches += 1
+        self.megastep_ticks_run += ran
+        self.megastep_breaks[reason] += 1
+
+    def _on_megastep_resume(self):
+        """Hook fired after a megastep's bookkeeping replay, the point
+        where the host resumes. Tests override it to check the pool's
+        invariants at every resume; the server does nothing here."""
 
     def _loop_body(self, tr, ntr):
         while not self._stop.is_set():
@@ -618,7 +760,10 @@ class PagedGenerationServer(_GenerationServerBase):
             if pre:
                 self._prefill_tick(pre, tr, ntr)
             if dec:
-                self._decode_tick(dec, tr, ntr)
+                if self.megastep_ticks > 1 and not pre:
+                    self._decode_megastep(dec, tr, ntr)
+                else:
+                    self._decode_tick(dec, tr, ntr)
 
     def _drain(self):
         super()._drain()

@@ -6,8 +6,9 @@ program, the port walks the same order eagerly, calling each node's
 PyTorch lowering (ops/torch_ops.py). It draws the parameters, runs the
 forward pass for inference and training, the training step (loss,
 autograd backward through the hand-written attention kernels, optimizer
-update) and the evaluation step, and owns the paged KV pools and the one
-ragged serving step. Where the reference returns a jitted step function
+update) and the evaluation step, and owns the paged KV pools, the one
+ragged serving step, and what serving builds on it: the speculative
+tree-verify step and accepted-path commit, and the decode megastep. Where the reference returns a jitted step function
 (`train_step()`, `ragged_step_fn()`), the port's method is the step.
 """
 
@@ -329,3 +330,149 @@ class Executor:
             cache_position=pos, cache_out=cache_out,
             page_tables=page_tables, ragged=(q_lens, depths, anc))
         return out, cache_out
+
+    @torch.inference_mode()
+    def verify_fn(self, trainable, nontrainable, caches, page_tables, pos,
+                  depths, tree_mask, ids):
+        """(params, pools, page_tables, pos, depths, tree_mask, ids) ->
+        (probs, pools): one speculative TREE-VERIFY step (spec/). `ids` is
+        (B, max_nodes), each entry's flattened draft tree with node 0 the
+        last sampled token; `depths` the (B, max_nodes) node depths and
+        `tree_mask` the (B, max_nodes, max_nodes) ancestor relation. Node
+        j's K/V row is written at cache row pos + j, and probs[:, j] is the
+        next-token distribution after the path root..j. It is the ragged
+        step with every window row live: a padding node sees only itself
+        and nothing sees it, by the mask, not by q_len."""
+        B, S = ids.shape
+        q_lens = torch.full((B,), S, dtype=torch.int32, device=ids.device)
+        return self.ragged_step_fn(trainable, nontrainable, caches,
+                                   page_tables, pos, q_lens, depths,
+                                   tree_mask, ids)
+
+    @torch.inference_mode()
+    def paged_commit_fn(self, caches, page_tables, src, dst):
+        """(pools, page_tables, src, dst) -> pools: copy the accepted tree
+        path's K/V rows onto the contiguous committed positions
+        (speculative rollback, spec/), in place. src/dst are (B, C) int32
+        cache-row positions resolved through each entry's page table;
+        unused entries point a row at itself, so one call shape serves
+        every acceptance outcome. Rejected rows are not touched: they sit
+        past the advanced write head, where the position mask hides them.
+
+        An fp pool gathers every source row, then scatters them once. An
+        int8 pool (scale sidecar, paged/quant.py) copies scale-aware, in
+        the reference's order: the destination pages' scales grow by a
+        scatter-max of the source pages' scales; the destination pages'
+        rows are re-quantized at old / new; then the source rows are read
+        (from the pages as re-quantized) and each is dequantized at its
+        source page's new scale and re-quantized at the destination's.
+        Every duplicate destination receives identical values (self-copy
+        entries at ratio 1), so the winner among duplicates does not
+        matter."""
+        bidx = torch.arange(src.shape[0], device=src.device)[:, None]
+        tables = page_tables.long()
+        src, dst = src.long(), dst.long()
+        for bufs in caches.values():
+            P = bufs["k"].shape[1]
+            sp, so = tables[bidx, src // P], src % P
+            dp, do = tables[bidx, dst // P], dst % P
+            for n in ("k", "v"):
+                if n + "_scale" in bufs:
+                    _commit_rows_quant(bufs[n], bufs[n + "_scale"], sp, so,
+                                       dp, do)
+                else:
+                    bufs[n][dp, do] = bufs[n][sp, so]
+        return caches
+
+    @torch.inference_mode()
+    def paged_megastep_fn(self, trainable, nontrainable, caches,
+                          page_tables, pos, toks, temps, remaining,
+                          cap_rows, active, gen, *, max_ticks: int,
+                          ticks: Optional[int] = None, eos_id=None):
+        """A decode MEGASTEP: up to `max_ticks` single-token decode ticks
+        from device-resident state, with no read back to the host (the
+        reference's `lax.while_loop`, executor.py paged_megastep_fn).
+
+        (params, pools, page_tables, pos, toks, temps, remaining,
+         cap_rows, active, gen) ->
+            (pools, out_tokens, done, ticks_run, gen_states)
+
+        Per-slot inputs are (slots,) device tensors: `pos` the next write
+        row, `toks` the last sampled token, `remaining` the tokens the
+        request may still emit, `cap_rows` the rows its allocated pages
+        cover, `active` which slots decode. `ticks` (default max_ticks)
+        ticks are enqueued, each the window-1 ragged step and one
+        pick_tokens draw on `gen`. A tick runs only where the reference's
+        loop would run it: no active slot has finished yet (remaining
+        spent, or `eos_id` sampled) and every active slot's next write row
+        lies inside its pages. A tick that does not run is predicated off
+        on the device: its q_lens are 0 (no attention work, K/V writes to
+        the null page), its tokens -1, and the tick counter stands still.
+        A caller that knows pos, cap_rows and remaining on the host
+        enqueues exactly the ticks that can run, so only an eos sampled
+        mid-megastep leaves ticks predicated off.
+
+        Returns the pools (updated in place), the (max_ticks, slots) int32
+        token buffer (-1 on inactive rows and unrun ticks), the done flags,
+        the 0-d count of ticks run, and the generator's state before each
+        enqueued tick and after the last: `gen.set_state(gen_states[n])`
+        after reading n back puts the generator where n one-tick decodes
+        would have left it."""
+        from flexflow_tpu_torch.serving import pick_tokens
+
+        N = int(max_ticks)
+        n = N if ticks is None else int(ticks)
+        if not 0 <= n <= N:
+            raise ValueError(f"ticks must lie in [0, {N}], got {ticks}")
+        slots = pos.shape[0]
+        dev = pos.device
+        depths = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
+        anc = torch.ones((slots, 1, 1), dtype=torch.bool, device=dev)
+        out = torch.full((N, slots), -1, dtype=torch.int32, device=dev)
+        done = torch.zeros_like(active)
+        halted = torch.zeros((), dtype=torch.bool, device=dev)
+        ran = torch.zeros((), dtype=torch.int32, device=dev)
+        p, tk, rem = pos, toks, remaining
+        states = []
+        for t in range(n):
+            room = torch.all(~active | (p + 1 <= cap_rows))
+            go = room & ~halted
+            run = active & go
+            probs, caches = self.ragged_step_fn(
+                trainable, nontrainable, caches, page_tables, p,
+                run.to(torch.int32), depths, anc, tk[:, None])
+            states.append(gen.get_state())
+            nxt = pick_tokens(probs[:, -1, :], temps, gen)
+            out[t] = torch.where(run, nxt, -1)
+            tk = torch.where(run, nxt, tk)
+            p = torch.where(run, p + 1, p)
+            rem = torch.where(run, rem - 1, rem)
+            fin = run & (rem <= 0)
+            if eos_id is not None:
+                fin = fin | (run & (nxt == int(eos_id)))
+            done = done | fin
+            ran = ran + go.to(torch.int32)
+            halted = halted | ~room | torch.any(fin)
+        states.append(gen.get_state())
+        return caches, out, done, ran, states
+
+
+def _commit_rows_quant(buf, sc, sp, so, dp, do):
+    """The int8 half of Executor.paged_commit_fn for one of K or V, in
+    place: buf (N, P, Hkv, D) int8, sc (N, Hkv) fp32, sp/so and dp/do the
+    (B, C) source and destination pages and offsets."""
+    from flexflow_tpu_torch.paged.quant import QMAX, SCALE_EPS
+
+    Hkv = sc.shape[1]
+    sc2 = sc.clone()
+    sc2.scatter_reduce_(0, dp.reshape(-1, 1).expand(-1, Hkv),
+                        sc[sp].reshape(-1, Hkv), "amax", include_self=True)
+    old_d, new_d = sc[dp], sc2[dp]                          # (B, C, Hkv)
+    ratio = torch.where(new_d > 0, old_d / new_d.clamp_min(SCALE_EPS),
+                        torch.zeros_like(old_d))
+    blk = buf[dp].float() * ratio[:, :, None, :, None]
+    buf[dp] = torch.round(blk).clamp_(-QMAX, QMAX).to(buf.dtype)
+    den = torch.where(new_d > 0, new_d, torch.ones_like(new_d))[..., None]
+    row = buf[sp, so].float() * sc2[sp][..., None] / den
+    buf[dp, do] = torch.round(row).clamp_(-QMAX, QMAX).to(buf.dtype)
+    sc.copy_(sc2)

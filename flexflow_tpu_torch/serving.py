@@ -28,18 +28,25 @@ import torch
 def pick_tokens(probs_last: torch.Tensor, temps: torch.Tensor,
                 gen: torch.Generator) -> torch.Tensor:
     """One token per row of (B, V) probabilities: greedy argmax where
-    temps <= 0, else a draw from softmax(log p / temp) with `gen`. Greedy
+    temps <= 0, else a draw from softmax(log p / temp). Every call draws
+    one (B, V) noise tensor from `gen`, whatever the temperatures, and
+    reads nothing back to the host, so a tick can run from device state
+    alone and the generator advances the same way on every serving path
+    (the one-tick decode, the megastep tick, the speculative tick's root
+    rows), as the reference splits its key once a tick. The draw is
+    Gumbel-max, argmax(logits - log E) with E ~ Exp(1): torch.multinomial
+    draws the same way but reads its arguments' validity back to the
+    host. Row b's draw depends only on its own logits and noise. Greedy
     rows are token-identical to the JAX package's; sampled rows match it
-    in distribution only (torch.Generator and jax.random differ)."""
+    in distribution only (torch.Generator is not jax.random's
+    threefry)."""
     greedy = torch.argmax(probs_last, dim=-1).to(torch.int32)
-    hot = temps > 0.0
-    if not bool(hot.any()):
-        return greedy
     logits = torch.log(probs_last.float().clamp_min(1e-30)) / \
         temps.clamp_min(1e-6)[:, None]
-    sampled = torch.multinomial(torch.softmax(logits, dim=-1), 1,
-                                generator=gen)[:, 0].to(torch.int32)
-    return torch.where(hot, sampled, greedy)
+    noise = torch.empty_like(logits).exponential_(generator=gen)
+    sampled = torch.argmax(logits - torch.log(noise), dim=-1).to(
+        torch.int32)
+    return torch.where(temps > 0.0, sampled, greedy)
 
 
 class _GenRequest:
@@ -47,7 +54,8 @@ class _GenRequest:
                  "pos", "pages", "submit_t", "admit_t", "first_token_t",
                  "done_t", "prefill_tokens", "peak_pages", "prefill_pos",
                  "prefill_target", "prefill_seq", "hashed_blocks",
-                 "preemptions", "cached_prefill_tokens")
+                 "preemptions", "cached_prefill_tokens", "spec_steps",
+                 "spec_drafted", "spec_accepted", "spec_emitted")
 
     def __init__(self, prompt: np.ndarray, max_new: int, temperature: float):
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -74,6 +82,12 @@ class _GenRequest:
         self.prefill_target = 0
         self.prefill_seq: Optional[np.ndarray] = None
         self.hashed_blocks = 0
+        # speculative decoding (spec/server.py): verify steps, drafted,
+        # accepted and emitted tokens
+        self.spec_steps = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
 
     def seq_tokens(self) -> np.ndarray:
         """prompt + generated-so-far: what a (re-)prefill after a
@@ -86,7 +100,7 @@ class _GenRequest:
     def metrics(self) -> dict:
         """Per-request metrics (the queue time runs from submit to the
         LAST admission, so a preempted request's requeue wait counts)."""
-        return {
+        m = {
             "queue_time_s": (self.admit_t - self.submit_t
                              if self.admit_t is not None else None),
             "ttft_s": (self.first_token_t - self.submit_t
@@ -101,6 +115,18 @@ class _GenRequest:
             "pages_held_peak": self.peak_pages,
             "preemptions": self.preemptions,
         }
+        if self.spec_steps:
+            m.update({
+                "spec_steps": self.spec_steps,
+                "spec_draft_tokens": self.spec_drafted,
+                "spec_accepted_tokens": self.spec_accepted,
+                "spec_acceptance_rate": (
+                    self.spec_accepted / self.spec_drafted
+                    if self.spec_drafted else 0.0),
+                "spec_accepted_tokens_per_step": (
+                    self.spec_emitted / self.spec_steps),
+            })
+        return m
 
 
 class _GenerationServerBase:
@@ -142,10 +168,19 @@ class _GenerationServerBase:
         self.loop_error: Optional[BaseException] = None
         self._thread: Optional[threading.Thread] = None
 
-    def _start(self):
-        """Subclasses call this LAST in __init__."""
+    def _start(self, defer: bool = False):
+        """Subclasses call this LAST in __init__; with `defer` the loop
+        waits for start()."""
         self._thread = threading.Thread(target=self._loop, daemon=True)
-        self._thread.start()
+        if not defer:
+            self._thread.start()
+
+    def start(self):
+        """Start the loop of a server built with defer_start=True: what
+        was submitted before is admitted in submission order from the
+        first tick on."""
+        if self._thread.ident is None:
+            self._thread.start()
 
     # -- public API ------------------------------------------------------
 
@@ -181,7 +216,8 @@ class _GenerationServerBase:
         with self._lock:
             self._running = False
             self._stop.set()
-        self._thread.join(timeout=30)
+        if self._thread.ident is not None:
+            self._thread.join(timeout=30)
         # drain from this thread only once the loop thread is dead —
         # otherwise its finally-drain owns the cleanup
         if not self._thread.is_alive():
@@ -276,6 +312,14 @@ class _GenerationServerBase:
             self._fail_or_cancel(req)
 
 
+def not_ported(what: str, item: int):
+    """Refuse a knob the port does not serve yet, naming the ROADMAP.md
+    queue-1 item that ports it."""
+    raise NotImplementedError(
+        f"{what} is not ported to the PyTorch server yet (ROADMAP.md, "
+        f"queue 1 item {item})")
+
+
 def serve_generation(ff, slots: int = 4, max_len: int = 512,
                      eos_id: Optional[int] = None, seed: int = 0,
                      paged: bool = False, page_size: int = 64,
@@ -286,23 +330,50 @@ def serve_generation(ff, slots: int = 4, max_len: int = 512,
                      megastep_mixed: bool = False,
                      overlap_dispatch: bool = False,
                      kv_dtype: str = "auto",
-                     kv_quant_canary: Optional[int] = None, host_tier=None):
+                     kv_quant_canary: Optional[int] = None, host_tier=None,
+                     defer_start: bool = False):
     """Continuous-batching generation endpoint over a compiled causal-LM
     FFModel, through the block-paged KV cache (paged/scheduler.py), at
-    the reference's defaults: prefix cache and preemption on. Only the
-    paged server is ported; each knob it does not honour yet raises
-    NotImplementedError (PagedGenerationServer names them)."""
+    the reference's defaults: prefix cache and preemption on.
+    `speculate=SpecConfig(...)` returns the speculative server
+    (spec/server.py); `megastep_ticks=N` runs up to N pure-decode ticks
+    per host round trip. Only the paged servers are ported; each knob they
+    do not honour yet raises NotImplementedError naming its ROADMAP item,
+    and the reference's invalid combinations raise its ValueErrors.
+    `defer_start=True` builds the server without starting its loop
+    (start() does)."""
+    megastep_ticks = int(megastep_ticks)
+    if megastep_ticks < 1:
+        raise ValueError(
+            f"megastep_ticks must be >= 1, got {megastep_ticks}")
+    if megastep_mixed:
+        not_ported("megastep_mixed (the universal megastep)", 7)
+    if overlap_dispatch:
+        not_ported("overlap_dispatch", 7)
+    if megastep_ticks > 1 and (not paged or speculate is not None):
+        raise ValueError(
+            "megastep_ticks > 1 rides the paged one-tick decode loop; "
+            "pass paged=True and no speculate (the speculative server's "
+            "verify step already emits multiple tokens per dispatch)")
+    if speculate is not None and not paged:
+        raise ValueError(
+            "speculative decoding rides the paged KV cache (rollback is a "
+            "position rewind, not a cache copy); pass paged=True")
     if not paged:
         raise NotImplementedError(
             "the dense GenerationServer is not ported yet; pass paged=True "
-            "(ROADMAP.md, queue 1)")
+            "(ROADMAP.md, queue 1 item 6)")
+    kw = dict(slots=slots, max_len=max_len, eos_id=eos_id, seed=seed,
+              page_size=page_size, num_pages=num_pages,
+              preemption=preemption, prefix_cache=prefix_cache,
+              prefill_chunk=prefill_chunk, ragged_pack=ragged_pack,
+              megastep_ticks=megastep_ticks, kv_dtype=kv_dtype,
+              kv_quant_canary=kv_quant_canary, host_tier=host_tier,
+              defer_start=defer_start)
+    if speculate is not None:
+        from flexflow_tpu_torch.spec.server import SpeculativePagedServer
+
+        return SpeculativePagedServer(ff, speculate, **kw)
     from flexflow_tpu_torch.paged.scheduler import PagedGenerationServer
 
-    return PagedGenerationServer(
-        ff, slots=slots, max_len=max_len, eos_id=eos_id, seed=seed,
-        page_size=page_size, num_pages=num_pages, preemption=preemption,
-        prefix_cache=prefix_cache, prefill_chunk=prefill_chunk,
-        speculate=speculate, ragged_pack=ragged_pack,
-        megastep_ticks=megastep_ticks, megastep_mixed=megastep_mixed,
-        overlap_dispatch=overlap_dispatch, kv_dtype=kv_dtype,
-        kv_quant_canary=kv_quant_canary, host_tier=host_tier)
+    return PagedGenerationServer(ff, **kw)

@@ -1,0 +1,249 @@
+"""Speculative continuous batching over the paged KV cache (counterpart
+of flexflow_tpu/spec/server.py).
+
+Each decode tick becomes a TREE-VERIFY step: a host-side drafter proposes
+a token tree per live greedy slot (spec/drafter.py), one ragged step
+scores every node under the tree's ancestor mask (the ragged kernel K3 at
+a window of max_nodes rows), and a greedy host-side walk accepts the
+longest verified path. Rollback is nearly free on the paged cache: the
+accepted path's K/V rows are copied onto the contiguous committed
+positions (Executor.paged_commit_fn), `pos` advances by the tokens
+emitted, and every rejected row sits past the new write head, where the
+position mask hides it.
+
+Tick flow (vs the base scheduler's one-token step):
+  1. admit (base policy, but the page gate also covers the tree)
+  2. grow pages to cover pos + max_nodes rows (tree scratch included)
+  3. draft: trailing-context trees for the live greedy slots
+  4. ONE ragged verify launch: a tree item per greedy slot (q_len = its
+     real node count), a one-row item per temperature>0 slot, nothing for
+     idle or mid-prefill slots
+  5. accept: the greedy walk per slot over the per-node argmaxes;
+     temperature>0 slots take the root's draw only (exactness under
+     sampling needs rejection sampling, which the reference does not
+     implement either), so they decode one token a step
+  6. commit the accepted rows, advance pos, append tokens, publish the
+     committed pages to the prefix cache, finish/free
+
+Greedy output is token-identical to the non-speculative paged path: every
+emitted token is the model's argmax continuation of its own committed
+prefix.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from flexflow_tpu_torch.paged.scheduler import PagedGenerationServer
+from flexflow_tpu_torch.serving import _GenRequest, pick_tokens
+from flexflow_tpu_torch.spec.config import SpecConfig
+from flexflow_tpu_torch.spec.tree import (
+    accept_greedy,
+    ancestor_masks,
+    build_tree,
+)
+
+
+class SpeculativePagedServer(PagedGenerationServer):
+    """PagedGenerationServer whose decode tick verifies a drafted token
+    tree (serve_generation(paged=True, speculate=SpecConfig(...))). Same
+    public surface, admission, preemption and defrag as the paged server;
+    only the tick body and the page-budget accounting change."""
+
+    def __init__(self, ff, spec: SpecConfig, slots: int = 4,
+                 max_len: int = 512, eos_id: Optional[int] = None,
+                 seed: int = 0, page_size: int = 64,
+                 num_pages: Optional[int] = None, preemption: bool = True,
+                 prefix_cache: bool = True, prefill_chunk: int = 64,
+                 ragged_pack: bool = True, megastep_ticks: int = 1,
+                 megastep_mixed: bool = False,
+                 overlap_dispatch: bool = False, kv_dtype: str = "auto",
+                 host_tier=None, kv_quant_canary: Optional[int] = None,
+                 defer_start: bool = False):
+        if not isinstance(spec, SpecConfig):
+            raise TypeError(
+                f"speculate must be a SpecConfig, got {type(spec).__name__}")
+        self.spec = spec
+        self.drafter = spec.build_drafter()
+        self._commit = ff.executor.paged_commit_fn
+        self.spec_steps = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
+        # the page tables address max_len + max_nodes rows: a verify at a
+        # pos close to max_len writes its tree past the committed head
+        super().__init__(ff, slots=slots, max_len=max_len, eos_id=eos_id,
+                         seed=seed, page_size=page_size,
+                         num_pages=num_pages, preemption=preemption,
+                         prefix_cache=prefix_cache,
+                         table_slack_tokens=spec.max_nodes,
+                         prefill_chunk=prefill_chunk,
+                         ragged_pack=ragged_pack,
+                         megastep_ticks=megastep_ticks,
+                         megastep_mixed=megastep_mixed,
+                         overlap_dispatch=overlap_dispatch,
+                         kv_dtype=kv_dtype, host_tier=host_tier,
+                         kv_quant_canary=kv_quant_canary,
+                         defer_start=defer_start)
+
+    # -- page accounting: the tree's scratch rows count --------------------
+
+    def _table_rows(self) -> int:
+        return self.max_pages_per_seq * self.page_size
+
+    def _peak_rows(self, prompt_len: int, max_new_tokens: int) -> int:
+        # the deepest verify runs at pos <= prompt + max_new - 1 and
+        # touches max_nodes rows from there
+        return min(prompt_len + max_new_tokens - 1 + self.spec.max_nodes,
+                   self._table_rows())
+
+    def _admission_pages(self, req: _GenRequest) -> int:
+        # admit only when the prompt and the first verify tree fit, so
+        # admission cannot preempt on its very first tick
+        return self.pool.pages_for(
+            min(len(req.seq_tokens()) + self.spec.max_nodes,
+                self._table_rows()))
+
+    def _pages_target(self, req: _GenRequest) -> int:
+        return min(self.pool.pages_for(req.pos + self.spec.max_nodes),
+                   self.max_pages_per_seq)
+
+    # -- metrics -----------------------------------------------------------
+
+    def metrics(self) -> dict:
+        m = super().metrics()
+        m["speculative"] = {
+            "steps": self.spec_steps,
+            "draft_tokens": self.spec_drafted,
+            "accepted_tokens": self.spec_accepted,
+            "emitted_tokens": self.spec_emitted,
+            "acceptance_rate": (self.spec_accepted / self.spec_drafted
+                                if self.spec_drafted else 0.0),
+            "accepted_tokens_per_step": (self.spec_emitted / self.spec_steps
+                                         if self.spec_steps else 0.0),
+        }
+        return m
+
+    # -- the speculative tick ----------------------------------------------
+
+    def _loop_body(self, tr, ntr):
+        while not self._stop.is_set():
+            live = self._tick_prep()
+            if live is None:
+                continue
+            # chunked prefill rides the same tick as in the base loop:
+            # mid-prefill slots advance one budgeted chunk, then the
+            # decoding slots verify
+            pre, live = self._split_live(live)
+            if pre:
+                self._prefill_tick(pre, tr, ntr)
+            if not live:
+                continue
+            if all(self._active[s].temperature > 0.0 for s in live):
+                # nothing to speculate on: sampled requests take one
+                # token a step either way, so the plain tick serves them
+                self._decode_tick(live, tr, ntr)
+                continue
+            self._spec_tick(live, tr, ntr)
+
+    def _spec_tick(self, live, tr, ntr):
+        T = self.spec.max_nodes
+        C = self.spec.depth + 1  # most rows committed a tick (path + bonus)
+        # draft: one tree item per live greedy slot; sampled slots skip
+        # the drafter (their accept path is the root's draw only)
+        trees = {}
+        parents = []
+        for s in live:
+            req = self._active[s]
+            if req.temperature > 0.0:
+                continue
+            chains = self.drafter.draft(req.seq_tokens(), self.spec.width,
+                                        self.spec.depth)
+            tree = build_tree(req.tokens[-1], chains, T,
+                              max_depth=self.spec.depth)
+            trees[s] = tree
+            parents.append(tree.parents)
+            drafted = tree.n_nodes - 1
+            self.spec_drafted += drafted
+            req.spec_drafted += drafted
+        anc = iter(ancestor_masks(np.stack(parents)))
+        pos = np.array([self._active[s].pos if self._active[s] else 0
+                        for s in range(self.slots)], np.int32)
+        # items: a tree (q_len = its real node count; padding nodes are
+        # skipped work whose writes land in the null page) or one row of
+        # the last sampled token for a sampled slot
+        items = []
+        for s in live:
+            req = self._active[s]
+            if s in trees:
+                tree = trees[s]
+                items.append((s, req.pos, tree.tokens[:tree.n_nodes],
+                              tree.depths, next(anc)))
+            else:
+                items.append((s, req.pos, [req.tokens[-1]], None, None))
+        probs = self._launch(items, T, tr, ntr)
+
+        # accept: the per-node argmaxes for the walk and the root rows'
+        # draw for sampled slots (scattered back to slot order, so the
+        # draw is the slot-shaped one of every other path) are reduced
+        # on the device; only (items, max_nodes) + (slots,) ints cross to
+        # the host, in one transfer, never the probabilities
+        dev = self.device
+        temps = torch.from_numpy(np.array(
+            [self._active[s].temperature if self._active[s] else 0.0
+             for s in range(self.slots)], np.float32)).to(dev)
+        idx = torch.from_numpy(np.array(live, np.int64)).to(dev)
+        root = probs.new_zeros((self.slots, probs.shape[-1]))
+        root[idx] = probs[:, 0, :]
+        sampled = pick_tokens(root, temps, self._gen)
+        back = torch.cat([torch.argmax(probs, dim=-1).to(torch.int32)
+                          .reshape(-1), sampled]).cpu().numpy()
+        preds = back[:len(live) * T].reshape(len(live), T)
+        sampled = back[len(live) * T:]
+        plans = {}
+        for i, s in enumerate(live):
+            if s in trees:
+                path, emitted = accept_greedy(trees[s], preds[i])
+                plans[s] = (path, emitted[:-1], emitted[-1])
+            else:
+                plans[s] = ([0], [], int(sampled[s]))
+        self._steps += 1
+        self.spec_steps += 1
+
+        # commit: the accepted path's rows onto the contiguous committed
+        # rows (unused entries copy a row onto itself)
+        src = np.repeat(pos[:, None], C, axis=1)
+        dst = src.copy()
+        for s in live:
+            req = self._active[s]
+            path, verified, bonus = plans[s]
+            emitted = verified + [int(bonus)]
+            emitted = emitted[:req.max_new - len(req.tokens)]
+            if self.eos_id is not None and self.eos_id in emitted:
+                emitted = emitted[:emitted.index(self.eos_id) + 1]
+            L = len(emitted)
+            # accepted = verified draft tokens actually emitted (the
+            # max_new / eos cut must not inflate acceptance)
+            accepted = min(len(verified), L)
+            self.spec_accepted += accepted
+            req.spec_accepted += accepted
+            src[s, :L] = req.pos + np.asarray(path[:L], np.int32)
+            dst[s, :L] = req.pos + np.arange(L, dtype=np.int32)
+            req.pos += L
+            req.tokens.extend(int(t) for t in emitted)
+            self._tokens[s] = emitted[-1]
+            req.spec_steps += 1
+            req.spec_emitted += L
+            self.spec_emitted += L
+        self._caches = self._commit(
+            self._caches, torch.from_numpy(self._tables).to(dev),
+            torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev))
+        for s in live:
+            # publish AFTER the commit: only rows below the advanced
+            # write head hold committed K/V; the tree's scratch rows past
+            # it never reach the prefix cache
+            self._publish_prefix(self._active[s], self._active[s].pos)
+            self._finish_if_done(s)

@@ -1119,3 +1119,208 @@ def test_ring_on_the_card_matches_the_cpu(dtype, causal, S, D):
         assert a.dtype == dtype
         ok, err = _close(a, b, tol)
         assert ok, (name, err)
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding and the decode megastep on the card
+
+
+def _tree_case(dtype, seed, H=32, Hkv=8, D=128, P=64, N=129, MAXP=16):
+    """Four entries at a tree window of 9 rows (SpecConfig(width=2,
+    depth=4)'s max_nodes) at Llama-3-8B's attention: two real draft
+    trees from build_tree (one with shared prefixes, one padded past its
+    live nodes), each once with q_len = its live nodes (the server's
+    launch) and once with every row live (verify_fn's, where a padding
+    node sees only itself)."""
+    from flexflow_tpu_torch.spec.tree import ancestor_masks, build_tree
+
+    T = 9
+    trees = [build_tree(5, [np.array([1, 2, 3, 4]), np.array([1, 2, 7, 8]),
+                            np.array([6, 9])], T),
+             build_tree(3, [np.array([4, 5])], T)]
+    assert trees[0].n_nodes == T and trees[1].n_nodes < T
+    rs = np.random.RandomState(seed)
+    anc = ancestor_masks(np.stack([t.parents for t in trees * 2]))
+    q_lens = np.array([t.n_nodes for t in trees] + [T, T], np.int32)
+    pos = rs.randint(1, MAXP * P - T, size=4).astype(np.int32)
+    pt = (rs.permutation(N - 1)[:4 * MAXP] + 1).reshape(4, MAXP)
+    q = rs.standard_normal((4, T, H, D)).astype(np.float32)
+    kc = rs.standard_normal((N, P, Hkv, D)).astype(np.float32)
+    vc = rs.standard_normal((N, P, Hkv, D)).astype(np.float32)
+    return [torch.from_numpy(a) for a in
+            (q, kc, vc, pt.astype(np.int32), pos, q_lens, anc)]
+
+
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_kernels_at_tree_window_match_plain_version(dtype, pool):
+    """K3 at the tree window (S 9 under a non-triangular ancestor mask,
+    padding nodes included) on fp and int8 pools, one launch each,
+    against the plain version (TOLS; rows past q_len exact zeros)."""
+    _needs_card()
+    from flexflow_tpu_torch.kernels import (
+        RAGGED_PAGED_ATTENTION,
+        RAGGED_PAGED_ATTENTION_INT8,
+    )
+
+    q, kc, vc, pt, pos, qls, anc = _tree_case(dtype, seed=9)
+    sc = {}
+    if pool == "int8":
+        kc, ks, vc, vs = _int8_pools(kc, vc)
+        sc = {"k_scales": ks.cuda(), "v_scales": vs.cuda()}
+        kernel = RAGGED_PAGED_ATTENTION_INT8
+    else:
+        kc, vc = kc.to(dtype), vc.to(dtype)
+        kernel = RAGGED_PAGED_ATTENTION
+    args = [q.to(dtype).cuda(), kc.cuda(), vc.cuda()] + [
+        a.cuda() for a in (pt, pos, qls, anc)]
+    scale = 128 ** -0.5
+    before = kernel.launches
+    got = ragged_flash_attention(*args, scale=scale, **sc)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = ragged_gather_attention(*args, scale=scale, **sc)
+    err = (got.float() - want.float()).abs()
+    assert float(err.max()) <= TOLS[dtype] * max(1.0, float(
+        want.float().abs().max()))
+    for b, ql in enumerate(args[5].tolist()):
+        assert not got[b, ql:].any()
+
+
+def _tiny_llama(device, vocab=512):
+    from flexflow_tpu_torch import DataType, FFConfig, FFModel
+    from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
+
+    ff = FFModel(FFConfig(batch_size=1, seed=7, device=device))
+    build_llama(ff, LlamaConfig.tiny(vocab), batch_size=1, seq_len=8,
+                dtype=DataType.FLOAT)
+    return ff.compile()
+
+
+@pytest.mark.parametrize("kv", ["fp32", "bf16", "int8"])
+def test_commit_on_card_matches_cpu(kv):
+    """The accepted-path commit (Executor.paged_commit_fn) on CUDA tensors
+    leaves the pools exactly as on CPU tensors: rows copied bit for bit,
+    and on an int8 pool the same bytes and scales (the scale-aware copy
+    re-quantizes a destination page that also holds a source row)."""
+    _needs_card()
+    rs = np.random.RandomState(1)
+    N, P, Hkv, D = 8, 4, 2, 8
+    tables = np.array([[3, 1, 2, 5], [4, 6, 7, 0], [0, 0, 0, 0]], np.int32)
+    src = np.array([[6, 8, 11, 6], [9, 9, 9, 9], [0, 0, 0, 0]], np.int32)
+    dst = np.array([[6, 7, 8, 6], [9, 9, 9, 9], [0, 0, 0, 0]], np.int32)
+    bufs = {}
+    for n in ("k", "v"):
+        if kv == "int8":
+            sc = rs.uniform(0.01, 0.02, (N, Hkv)).astype(np.float32)
+            sc[2] = rs.uniform(0.05, 0.06, Hkv)
+            bufs[n] = torch.from_numpy(
+                rs.randint(-127, 128, (N, P, Hkv, D)).astype(np.int8))
+            bufs[n + "_scale"] = torch.from_numpy(sc)
+        else:
+            bufs[n] = torch.from_numpy(rs.standard_normal(
+                (N, P, Hkv, D)).astype(np.float32)).to(
+                    getattr(torch, {"fp32": "float32",
+                                    "bf16": "bfloat16"}[kv]))
+    out = {}
+    for device in ("cuda", "cpu"):
+        ex = _tiny_llama(device).executor
+        caches = {"l0": {n: b.clone().to(device) for n, b in bufs.items()}}
+        t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+        out[device] = ex.paged_commit_fn(caches, t(tables), t(src), t(dst))
+    for n, b in out["cpu"]["l0"].items():
+        assert torch.equal(out["cuda"]["l0"][n].cpu(), b), n
+    if kv == "int8":
+        assert (out["cpu"]["l0"]["k_scale"][1] > bufs["k_scale"][1]).all()
+
+
+def test_pick_tokens_makes_no_host_sync():
+    """pick_tokens on CUDA tensors, greedy and sampled rows together,
+    runs under torch.cuda.set_sync_debug_mode("error"): no read back to
+    the host."""
+    _needs_card()
+    from flexflow_tpu_torch.serving import pick_tokens
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    probs = torch.softmax(torch.randn(4, 1000, device="cuda"), dim=-1)
+    temps = torch.tensor([0.0, 0.8, 0.0, 1.2], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks = pick_tokens(probs, temps, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    toks = toks.cpu()
+    assert toks.dtype == torch.int32
+    assert toks[0] == probs[0].argmax() and toks[2] == probs[2].argmax()
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_megastep_makes_no_host_sync_and_matches_one_tick(temperature):
+    """Executor.paged_megastep_fn runs 8 ticks of a tiny Llama under
+    torch.cuda.set_sync_debug_mode("error"), so no tick reads the device
+    from the host; its tokens, pools and generator equal 8 one-tick
+    ragged steps with pick_tokens on the same seed, and K3 launches once
+    a layer a tick."""
+    _needs_card()
+    from flexflow_tpu_torch.kernels import RAGGED_PAGED_ATTENTION
+    from flexflow_tpu_torch.serving import pick_tokens
+
+    ff = _tiny_llama("cuda")
+    ex = ff.executor
+    tr, ntr = ff._params
+    S, P, N = 4, 8, 16
+    tables = torch.arange(1, 1 + S * 3, dtype=torch.int32,
+                          device="cuda").reshape(S, 3)
+    pos = torch.tensor([5, 9, 0, 14], dtype=torch.int32, device="cuda")
+    active = torch.tensor([True, True, False, True], device="cuda")
+    toks = torch.tensor([3, 7, 0, 11], dtype=torch.int32, device="cuda")
+    temps = torch.full((S,), temperature, device="cuda")
+    rem = torch.full((S,), 20, dtype=torch.int32, device="cuda")
+    cap = torch.full((S,), 24, dtype=torch.int32, device="cuda")
+
+    def pools():
+        g = torch.Generator(device="cuda")
+        g.manual_seed(2)
+        caches = ex.init_paged_kv_cache(N, P)
+        for b in caches.values():
+            for t in b.values():
+                t.normal_(generator=g)
+        return caches
+
+    def gen():
+        g = torch.Generator(device="cuda")
+        g.manual_seed(5)
+        return g
+
+    # the one-tick reference (it also builds the kernel, off the clock)
+    caches, g1 = pools(), gen()
+    p, tk, want = pos.clone(), toks.clone(), []
+    depths = torch.zeros((S, 1), dtype=torch.int32, device="cuda")
+    anc = torch.ones((S, 1, 1), dtype=torch.bool, device="cuda")
+    for _ in range(8):
+        probs, caches = ex.ragged_step_fn(tr, ntr, caches, tables, p,
+                                          active.to(torch.int32), depths,
+                                          anc, tk[:, None])
+        nxt = pick_tokens(probs[:, -1, :], temps, g1)
+        want.append(torch.where(active, nxt, -1))
+        tk = torch.where(active, nxt, tk)
+        p = torch.where(active, p + 1, p)
+    mcaches, g8 = pools(), gen()
+    torch.cuda.synchronize()
+    before = RAGGED_PAGED_ATTENTION.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mcaches, out, done, ran, _ = ex.paged_megastep_fn(
+            tr, ntr, mcaches, tables, pos, toks, temps, rem, cap, active,
+            g8, max_ticks=8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert RAGGED_PAGED_ATTENTION.launches - before == 8 * 2
+    assert int(ran) == 8 and not done.any()
+    assert torch.equal(out, torch.stack(want))
+    assert torch.equal(g8.get_state(), g1.get_state())
+    for k in caches:
+        for n in ("k", "v"):
+            assert torch.equal(mcaches[k][n], caches[k][n])

@@ -47,6 +47,13 @@ _RING_MODULES = ("flexflow_tpu_torch.parallel.mesh",
                  "flexflow_tpu_torch.parallel.comm_spec",
                  "flexflow_tpu_torch.parallel.ring",
                  "flexflow_tpu_torch.ops.ring_flash")
+# the speculative-decoding package
+_SPEC_MODULES = ("flexflow_tpu_torch.spec",
+                 "flexflow_tpu_torch.spec.config",
+                 "flexflow_tpu_torch.spec.drafter",
+                 "flexflow_tpu_torch.spec.fixtures",
+                 "flexflow_tpu_torch.spec.server",
+                 "flexflow_tpu_torch.spec.tree")
 
 
 def test_port_and_chip_smoke_import_without_jax_or_reference():
@@ -60,6 +67,7 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
     # models.gpt2, the K4/K5 wrappers' module and the ring's among them
     assert int(count.split()[0]) >= 21
     assert set(_RING_MODULES) <= set(names.split())
+    assert set(_SPEC_MODULES) <= set(names.split())
 
 
 def test_no_reference_import_statements_in_port_sources():

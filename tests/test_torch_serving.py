@@ -172,17 +172,29 @@ def test_paged_server_greedy_tokens_match_jax(kv_heads):
 
 
 def test_unsupported_server_knobs_raise():
-    """What the port does not serve yet raises, rather than serving a
+    """megastep_ticks=4 serves; speculate=object() raises TypeError, as
+    the reference does; what the port does not serve yet raises
+    NotImplementedError naming its ROADMAP item, rather than serving a
     different configuration; an unknown kv_dtype is a ValueError."""
     _, tff = _models(2)
-    for kw in ({"megastep_ticks": 4}, {"megastep_mixed": True},
-               {"overlap_dispatch": True}, {"speculate": object()},
+    server = tff.serve_generation(slots=2, max_len=32, paged=True,
+                                  page_size=4, megastep_ticks=4)
+    try:
+        got = server.generate(np.arange(1, 7, dtype=np.int32), 5,
+                              timeout=120)
+    finally:
+        server.stop()
+    assert len(got) == 5 and server.metrics()["megastep"]["dispatches"] > 0
+    with pytest.raises(TypeError, match="SpecConfig"):
+        tff.serve_generation(slots=2, max_len=32, paged=True, page_size=4,
+                             speculate=object())
+    for kw in ({"megastep_mixed": True}, {"overlap_dispatch": True},
                {"host_tier": 8}, {"ragged_pack": False},
                {"kv_quant_canary": 2}):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             tff.serve_generation(slots=2, max_len=32, paged=True,
                                  page_size=4, **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tff.serve_generation(slots=2, max_len=32)  # dense server
     with pytest.raises(ValueError, match="kv_dtype"):
         tff.serve_generation(slots=2, max_len=32, paged=True, page_size=4,
