@@ -1,12 +1,13 @@
 """Chip smoke test of flexflow_tpu_torch, the PyTorch/CUDA port: drives the
 port's main paths on one NVIDIA card, paged Llama serving (fp and int8 KV
-pools, prefix cache, preemption, defrag, decode megasteps, speculative
-decoding), Llama training (head dims 128,
+pools, prefix cache, preemption, defrag, decode and universal megasteps,
+speculative decoding, the unpacked launch), dense KV-cache serving and
+generation, Llama training (head dims 128,
 64, 96 and 100), GPT-2 training and paged serving, and Llama training
 through ring attention (head dims 128, 96 and 100), and holds every
 hand-written kernel on them to its plain PyTorch version.
 
-    python3 chip_smoke.py            # phases 1..4, 6..15, one card
+    python3 chip_smoke.py            # phases 1..4, 6..16, one card
     python3 chip_smoke.py --phases 5 # + profiles of serving and training
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
@@ -28,7 +29,11 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      and 8; a decode at the end of the 32-page table; the speculative
      verify at its 9-row tree window under two real draft trees'
      ancestor masks, tree_w9; and GPT-2 XL's decode: H = Hkv = 25, D
-     64) over fp pools, the fp kernel's pages per split swept at the
+     64) over fp pools, then at the windows whose q and acc rows one
+     block cannot hold, which the kernel cuts into row tiles: the
+     unpacked prefill's one entry of a 13-token (window 16) and a
+     64-token chunk (window 64) and a 65-node tree (WIDE_CASES), bf16 and
+     fp32 q over fp and int8 pools, each with its split plan, the fp kernel's pages per split swept at the
      steady decode case and at tree_w9 (SPLIT_SWEEP, fp and int8
      pools), over int8 pools (Llama's cases) written by the port's own
      quantize-on-append, and over a bf16 pool under fp32 q; and the
@@ -85,7 +90,9 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      prefill step, one decode step on an int8 pool (with the int8 ragged
      kernels' and quantize-on-append's launches and ms), one decode
      megastep of 8 ticks (Executor.paged_megastep_fn and its one
-     transfer back) at the decode step's launch, one bench_1b
+     transfer back) at the decode step's launch, one universal megastep
+     of 8 ticks at phase 16's window 8 (three decode rows, one prefill
+     row; wall, device time, idle share, launches a tick), one bench_1b
      train step, one GPT-2 XL train step, one phase-10 ring step, one
      phase-11 step, one phase-12 step, one phase-13 step and one ring
      step of phase 14's Phi-3-mini-width Llama;
@@ -186,7 +193,27 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      speculative server on an int8 pool too, and a commit on the pools
      it left equal on the card and on the CPU (the kernels line records
      the tree-window launches of (b) and of (c)'s int8 pool under
-     "tree_w9").
+     "tree_w9");
+ 16. serving Llama-3-8B (phase 4's model, server settings and requests)
+     (a) through megastep_mixed=True, megastep_ticks=8 (the universal
+     megastep: chunk rows and decode rows in one dispatch, K3 at window
+     8) against the one-tick loop and the decode-only megastep, greedy,
+     and mixed N = 1 against N = 8 sampled, one synchronizing call a
+     mixed dispatch; tokens/s, TTFT, wall a tick, host round trips a
+     token, ticks a dispatch, breaks, predicated-off ticks; (b) +
+     overlap_dispatch=True; (e) serve_generation's dense default and
+     ff.generate, cache bytes and tokens/s; (d) ragged_pack=False (K3 at
+     windows 8..64) and its padded-row share; (c) on make_token_cyclic
+     weights speculation through the mixed megastep (device-drafted
+     chains), and (d) on the speculative server; tokens identical where
+     the runs launch the same shapes (bf16 rounds other shapes
+     differently: those shares are reported); (f) fp32, TF32 off, depth
+     2: the one-tick, mixed, mixed + speculative, unpacked and
+     draft-model speculative servers and dense generate, greedy tokens
+     identical, and the int8 mixed megastep against the int8 one-tick
+     server (the kernels line records K3's window-8 launches of (a)
+     under "mixed_w8" and its window-64 launches of (d) under
+     "unpacked_w64").
 The line before the last is the kernel list as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -321,6 +348,9 @@ H, HKV, D, P, NUM_PAGES, MAXP = 32, 8, 128, 64, 129, 32
 # the least tokens a request may emit per verify step on the
 # token-cyclic fixture (the reference's contract, tests/test_spec.py:237)
 SPEC_CONFIG = SpecConfig(width=2, depth=4)
+# a speculation policy SpecConfig does not cap: its 65-node tree is a
+# window whose q and acc rows no one block holds (phase 2's tree_w65)
+WIDE_SPEC = SpecConfig(width=8, depth=8)
 MEGASTEP_TICKS = 8
 SAMPLE_TEMPERATURE = 0.8
 ACCEPT_FLOOR = 1.5
@@ -384,6 +414,8 @@ K5_CASES = [
     ("d96_s192", 32, 192, 192, 96, True),
     ("d100_s192", 32, 192, 192, 100, True),
 ]
+# the K5_CASES also timed: the padded widths no phase trains through
+K5_TIMED_CASES = ("d48", "d80")
 # K1/K2 at head dim 256: Gemma-7B's attention widths (16 heads of 256, no
 # GQA), B 2, S = T 1024, causal
 D256_SHAPE = (2, 1024, 16, 16, 256)
@@ -681,10 +713,13 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def spec_trees() -> list:
     """Two draft trees of phase 15's SpecConfig(width=2, depth=4) window
     (max_nodes 9) from build_tree: three chains sharing prefixes that fill
-    all 9 nodes, and one chain of 2 (3 live nodes, 6 padding)."""
+    all 9 nodes, and one chain of 2 (3 live nodes, 6 padding); then
+    WIDE_SPEC's full tree, 8 chains of 8 distinct tokens (65 nodes)."""
     return [build_tree(5, [np.array([1, 2, 3, 4]), np.array([1, 2, 7, 8]),
                            np.array([6, 9])], SPEC_CONFIG.max_nodes),
-            build_tree(3, [np.array([4, 5])], SPEC_CONFIG.max_nodes)]
+            build_tree(3, [np.array([4, 5])], SPEC_CONFIG.max_nodes),
+            build_tree(7, [np.arange(8) + 10 * w + 1 for w in range(8)],
+                       WIDE_SPEC.max_nodes)]
 
 
 def attention_case(window: int, kinds, dtype, seed: int, fixed_pos=None,
@@ -713,7 +748,7 @@ def attention_case(window: int, kinds, dtype, seed: int, fixed_pos=None,
         n = 1 if kind == "decode" else int(kind.split(":")[1])
         qls[b] = n
         pos[b] = (fixed_pos if fixed_pos is not None
-                  else rs.randint(1, MAXP * P - 48))
+                  else rs.randint(1, MAXP * P - max(48, window)))
         anc[b, :n, :n] = np.tril(np.ones((n, n), bool))
     pt = (rs.permutation(NUM_PAGES - 1)[:B * MAXP] + 1).reshape(B, MAXP)
     dev = DEVICE
@@ -903,6 +938,61 @@ def split_sweep(card: str, case: int = 0) -> dict:
             res[key if pool == "fp" else f"int8_{key}"] = times
     log(f"split_sweep {json.dumps(res)}")
     return res
+
+
+# K3 at the windows the unpacked prefill (ragged_pack=False) launches, one
+# entry at _bucket(take) rows (a 13-token chunk: 16; the default 64-token
+# chunk: 64), and at WIDE_SPEC's 65-node tree: windows whose rep x S q and
+# acc rows do not fit one block beside the K/V sub-tiles (64 and 65 at
+# rep 4, D 128), which the kernel cuts into row tiles
+WIDE_CASES = [
+    ("unpacked_chunk13_w16", 16, ["chunk:13"], None),
+    ("unpacked_chunk64_w64", 64, ["chunk:64"], None),
+    ("tree_w65", 65, ["tree:2"], None),
+]
+
+
+def wide_window_case(case, dtype, pool: str, card: str,
+                     seed: int = None) -> dict:
+    """One WIDE_CASES entry (or any ATTENTION_CASES-style case) with q in
+    `dtype` over an fp pool of q's dtype or over its int8 pages: held to
+    the plain version and timed (_kernel_check) beside SDPA (fp pool) or
+    SDPA over the pages pre-dequantized to bf16 (int8 pool, a yardstick
+    only), with the split plan (ragged_split_plan) it ran under."""
+    name, window, kinds, fixed = case
+    scale = 1.0 / D ** 0.5
+    if seed is None:
+        seed = 100 + [c[0] for c in WIDE_CASES].index(name)
+    q, kc, vc, pt, pos, qls, anc = attention_case(
+        window, kinds, torch.float32, seed=seed, fixed_pos=fixed)
+    plan = ragged_split_plan(len(kinds), window, H, HKV, P, MAXP,
+                             torch.cuda.get_device_properties(0)
+                             .multi_processor_count)
+    extra = {"window": window, "kinds": kinds, "split_plan": list(plan)}
+    if pool == "int8":
+        kq, ks, vq, vs = int8_pools(kc, vc)
+        deq = [dequantize_pages(p, s).bfloat16()
+               for p, s in ((kq, ks), (vq, vs))]
+        extra.update(library_ms=None, sdpa_bf16_predequantized_ms=time_ms(
+            library_call((q.bfloat16(), *deq, pt, pos, qls, anc), scale)))
+        del deq
+        return _kernel_check(name, dtype, INT8_TOLS[dtype],
+                             (q.to(dtype), kq, vq, pt, pos, qls, anc),
+                             {"k_scales": ks, "v_scales": vs}, scale, card,
+                             extra)
+    args = (q.to(dtype), kc.to(dtype), vc.to(dtype), pt, pos, qls, anc)
+    extra["library_ms"] = time_ms(library_call(args, scale))
+    return _kernel_check(name, dtype, TOLS[dtype][0], args, {}, scale, card,
+                         extra)
+
+
+def phase_wide_windows(card: str) -> list:
+    """Every WIDE_CASES entry, bf16 and fp32 q, fp and int8 pools."""
+    out = [wide_window_case(c, dtype, pool, card) for c in WIDE_CASES
+           for dtype in (torch.bfloat16, torch.float32)
+           for pool in ("fp", "int8")]
+    torch.cuda.empty_cache()
+    return out
 
 
 def int8_pools(kc, vc):
@@ -1573,7 +1663,8 @@ def k5_check(BH, S, T, D, causal, dtype, seed, timed=False) -> dict:
 def phase_k5_kernels(card: str) -> dict:
     """K5 at phase 10's block shape (bf16 and fp32, full and causal,
     timed), at phase 14's (K5_RING_BLOCKS: bf16, full and causal,
-    timed), then at every case of K5_CASES in both dtypes (errors only),
+    timed), then at every case of K5_CASES in both dtypes (errors only;
+    K5_TIMED_CASES timed too),
     then the planted fault (the checks must reject a skipped key tile in
     a fold at each of phase 14's blocks, from the initial and from a
     carried state). Fails on any error over its tolerance. Returns
@@ -1600,7 +1691,8 @@ def phase_k5_kernels(card: str) -> dict:
         torch.cuda.empty_cache()
     for i, (name, BH, S, T, D, causal) in enumerate(K5_CASES):
         for dtype in (torch.bfloat16, torch.float32):
-            r = k5_check(BH, S, T, D, causal, dtype, 200 + i)
+            r = k5_check(BH, S, T, D, causal, dtype, 200 + i,
+                         timed=name in K5_TIMED_CASES)
             r["case"] = name
             log(f"kernel {json.dumps(r)}")
             cases.append(r)
@@ -2339,7 +2431,67 @@ def phase_profile(seed: int, card: str) -> dict:
     name = f"megastep_x{MEGASTEP_TICKS}_b4_pos1024"
     log(f"profile {name} {json.dumps(res)}")
     out[name] = res
+    out.update(profile_mixed_megastep(ex, tr, ntr, pools[None], cfg.vocab_size,
+                                      rs, seed))
     return out
+
+
+def profile_mixed_megastep(ex, tr, ntr, caches, vocab: int, rs,
+                           seed: int) -> dict:
+    """One universal megastep of MEGASTEP_TICKS ticks at phase 16's launch
+    (Executor.paged_mixed_megastep_fn, window MIXED_WINDOW, no drafting):
+    three slots decoding at pos 1024 and one mid-prefill slot taking 8
+    prompt rows a tick (its prompt of 512 does not complete), then the
+    one transfer back. Wall, device time and idle share by the profiler,
+    and launches a tick."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B = 4
+    t = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+    tables = t((1 + np.arange(B * MAXP, dtype=np.int32)).reshape(B, MAXP))
+    seq = t(rs.randint(0, vocab, (B, MAXP * P + 1)).astype(np.int32))
+    pos = t(np.array([1024, 1024, 0, 1024], np.int32))
+    pf_pos = t(np.array([0, 0, 64, 0], np.int32))
+    pf_target = t(np.array([0, 0, 512, 0], np.int32))
+    dec = t(np.array([True, True, False, True]))
+    pf = t(np.array([False, False, True, False]))
+    temps = torch.zeros(B, device=DEVICE)
+    rem = torch.full((B,), 1 << 20, dtype=torch.int32, device=DEVICE)
+    cap = torch.full((B,), MAXP * P, dtype=torch.int32, device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+
+    def megastep():
+        _, _, toks, cnt, done, pf_fin, ran, _ = ex.paged_mixed_megastep_fn(
+            tr, ntr, caches, tables, seq.clone(), pos, pf_pos, pf_target,
+            temps, rem, cap, dec, pf, torch.zeros_like(dec), gen,
+            max_ticks=MEGASTEP_TICKS, window=MIXED_WINDOW)
+        return torch.cat([toks.reshape(-1), cnt.reshape(-1), done.int(),
+                          pf_fin.int(), ran.reshape(1)]).cpu()
+
+    for _ in range(2):
+        megastep()
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        got = megastep()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    if int(got[-1]) != MEGASTEP_TICKS:
+        raise AssertionError(f"mixed megastep ran {int(got[-1])} ticks")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            megastep()
+    res = _profile_summary(prof, n, wall_ms)
+    res.update({"ticks": MEGASTEP_TICKS, "window": MIXED_WINDOW,
+                "wall_ms_per_tick": wall_ms / MEGASTEP_TICKS,
+                "device_launches_per_tick":
+                    res["device_launches"] / MEGASTEP_TICKS})
+    if res["device_ms"] != "not measured":
+        res["device_ms_per_tick"] = res["device_ms"] / MEGASTEP_TICKS
+    name = f"mixed_megastep_x{MEGASTEP_TICKS}_w{MIXED_WINDOW}"
+    log(f"profile {name} {json.dumps(res)}")
+    return {name: res}
 
 
 # ---------------------------------------------------------------------------
@@ -3166,11 +3318,12 @@ def _timed(server, name, calls):
 SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
-def _count_syncs(server, counts):
-    """Run each megastep of `server` under torch.cuda.set_sync_debug_mode
+def _count_syncs(server, counts, name="_decode_megastep"):
+    """Run each megastep of `server` (its method `name`: the decode
+    megastep, or _mixed_megastep) under torch.cuda.set_sync_debug_mode
     ("warn") and append to `counts` the synchronizing CUDA calls it made
     (each one warns once)."""
-    fn = server._decode_megastep
+    fn = getattr(server, name)
 
     def run(*a):
         with warnings.catch_warnings(record=True) as caught:
@@ -3183,7 +3336,7 @@ def _count_syncs(server, counts):
                 counts.append(sum(SYNC_WARNING in str(w.message)
                                   for w in caught))
 
-    server._decode_megastep = run
+    setattr(server, name, run)
 
 
 class _WindowCounter:
@@ -3211,6 +3364,10 @@ class _WindowCounter:
     def at(self, window: int, pool: str) -> int:
         return self.counts.get((window, pool), 0)
 
+    def by_window(self) -> dict:
+        """{"<window>/<pool>": launches}, for the record."""
+        return {f"{w}/{p}": n for (w, p), n in sorted(self.counts.items())}
+
 
 def serve_closed(ff, vocab: int, prompts, new: int,
                  temperature: float = 0.0, syncs=None, **kw) -> dict:
@@ -3222,16 +3379,17 @@ def serve_closed(ff, vocab: int, prompts, new: int,
     reset just before and read just after; the tick methods are timed
     on the host clock; with `syncs` (a list), each megastep's
     synchronizing CUDA calls are counted into it."""
+    kw = {"prefill_chunk": 64, **kw}
     server = ff.serve_generation(paged=True, slots=4, max_len=2048,
-                                 page_size=64, prefill_chunk=64,
-                                 defer_start=True, **kw)
+                                 page_size=64, defer_start=True, **kw)
     calls = {n: [] for n in ("_decode_tick", "_decode_megastep",
-                             "_spec_tick")}
+                             "_mixed_megastep", "_spec_tick")}
     for name in calls:
         if hasattr(server, name):
             _timed(server, name, calls)
     if syncs is not None:
-        _count_syncs(server, syncs)
+        _count_syncs(server, syncs, "_mixed_megastep"
+                     if kw.get("megastep_mixed") else "_decode_megastep")
     try:
         futs = [server.submit(p, max_new_tokens=new,
                               temperature=temperature) for p in prompts]
@@ -3254,28 +3412,37 @@ def serve_closed(ff, vocab: int, prompts, new: int,
     ttft = sorted(r["ttft_s"] for r in m["requests"])
     res = {
         "wall_s": wall, "generated_tokens_per_s": new * len(outs) / wall,
-        "ttft_p50_s": ttft[len(ttft) // 2], "ragged_steps":
-        m["ragged_steps"], "launches": launches,
+        "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+        "ragged_steps": m["ragged_steps"], "launches": launches,
         "decode_tick_ms": (1e3 * float(np.mean(calls["_decode_tick"]))
                            if calls["_decode_tick"] else None),
         "decode_ticks": len(calls["_decode_tick"]),
         "prefill_ticks": m["prefill_ticks"], "kv_dtype": m["kv_cache_dtype"],
+        "host_roundtrips": ms["host_roundtrips"],
+        "decode_tokens": ms["decode_tokens"],
+        "host_roundtrips_per_token": ms["host_roundtrips_per_token"],
+        "launch_rows": m["launch_rows"], "padded_rows": m["padded_rows"],
+        "padding_waste_ratio": m["padding_waste_ratio"],
     }
     if ms["dispatches"]:
+        fused = calls["_mixed_megastep" if ms["mixed"]
+                      else "_decode_megastep"]
         res.update({
-            "megastep_ms": 1e3 * float(np.mean(calls["_decode_megastep"])),
-            "megastep_ms_per_tick": 1e3 * sum(calls["_decode_megastep"])
-            / ms["ticks_run"],
+            "mixed": ms["mixed"],
+            "megastep_ms": 1e3 * float(np.mean(fused)),
+            "megastep_ms_per_tick": 1e3 * sum(fused) / ms["ticks_run"],
             "megasteps": ms["dispatches"],
             "ticks_per_megastep": ms["ticks_run"] / ms["dispatches"],
             "breaks": ms["breaks"], "wasted_ticks": ms["wasted_ticks"],
-            "host_roundtrips": ms["host_roundtrips"],
-            "decode_tokens": ms["decode_tokens"]})
+            "wasted_ticks_per_megastep": ms["wasted_ticks"]
+            / ms["dispatches"],
+            "host_overlap_ratio": ms["host_overlap_ratio"]})
     if "speculative" in m:
         per_req = [r["spec_accepted_tokens_per_step"] for r in m["requests"]
                    if "spec_accepted_tokens_per_step" in r]
         res.update({
-            "verify_step_ms": 1e3 * float(np.mean(calls["_spec_tick"])),
+            "verify_step_ms": (1e3 * float(np.mean(calls["_spec_tick"]))
+                               if calls["_spec_tick"] else None),
             "speculative": m["speculative"],
             "tokens_per_verify_step_per_request_mean": float(
                 np.mean(per_req)) if per_req else 0.0})
@@ -3483,6 +3650,324 @@ def phase_spec_megastep(seed: int, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the universal megastep, overlap_dispatch, the unpacked launch
+# and the dense KV-cache path, serving Llama-3-8B
+
+# the mixed megastep's launch window: min(PREFILL_WINDOW_ROWS,
+# prefill_chunk) at phase 4's prefill_chunk of 64
+MIXED_WINDOW = 8
+# 16(f): the fp32 int8 pair's chunk (one the one-tick loop's budget
+# never splits when prompts are whole multiples of it, so both servers
+# write every page's rows in the same groups: grow-only page scales make
+# the int8 bytes depend on that grouping)
+INT8_PAIR_CHUNK = 8
+
+
+def serve_dense(ff, vocab: int, prompts, new: int, **kw) -> dict:
+    """Serve `prompts` through serve_generation's default, the dense
+    GenerationServer (4 slots, max_len 2048, `kw`), every request queued
+    before the loop starts; kernel counts reset just before and read just
+    after. No hand kernel runs on this path (the reference computes it
+    outside any Pallas kernel), so every count must stay 0."""
+    server = ff.serve_generation(slots=4, max_len=2048, defer_start=True,
+                                 **kw)
+    try:
+        futs = [server.submit(p, max_new_tokens=new) for p in prompts]
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.monotonic()
+        server.start()
+        outs = [np.asarray(f.result(timeout=900)) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k.name: k.launches for k in KERNELS}
+        m = server.metrics()
+    finally:
+        server.stop()
+    for o in outs:
+        if len(o) != new or not ((0 <= o) & (o < vocab)).all():
+            raise AssertionError(f"bad output {o}")
+    if any(launches.values()):
+        raise AssertionError(f"dense server launched kernels {launches}")
+    ttft = sorted(r["ttft_s"] for r in m["requests"])
+    return {"outs": outs, "res": {
+        "wall_s": wall, "generated_tokens_per_s": new * len(outs) / wall,
+        "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+        "decode_steps": m["decode_steps"],
+        "kv_cache_bytes": _pool_bytes(server)}}
+
+
+def _identical(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def _pool_bytes(server) -> int:
+    return sum(b.numel() * b.element_size()
+               for bufs in server._caches.values() for b in bufs.values())
+
+
+def phase_mixed_dense(seed: int, card: str) -> dict:
+    """Phase 16 on Llama-3-8B (phase 4's model, server settings and 8
+    requests, 64 new tokens each), bf16 unless said:
+    (a) megastep_mixed=True, megastep_ticks=8 against the one-tick loop
+    and the decode-only megastep, greedy, and mixed N = 1 against N = 8,
+    sampled (0.8): K3 once per layer and enqueued tick, every mixed
+    launch at window 8, one synchronizing call a mixed dispatch; each
+    run's tokens/s, TTFT, wall a tick, host round trips a token, ticks a
+    dispatch, breaks and predicated-off ticks. (b) + overlap_dispatch
+    =True: host_overlap_ratio. (e) the dense default serve_generation (4
+    slots, max_len 2048) and ff.generate on two prompts: cache bytes and
+    tokens/s beside the paged pool's, no hand kernel launched. (d)
+    ragged_pack=False on the one-tick server: the padded-row share
+    against packed, K3's launches by window (8..64). (c) on
+    make_token_cyclic weights and lookup prompts (phase 15b's):
+    speculate=SpecConfig(width=2, depth=4) with the mixed megastep,
+    tokens a drafting tick a request, verify breaks; then (d) on the
+    speculative server, packed against unpacked.
+    Greedy tokens must be identical where the two runs launch the same
+    shapes: one-tick = decode megastep, mixed N = 1 = N = 8 (sampled
+    too), mixed = mixed + overlap; and on the cyclic weights, whose next
+    token is a function of the current one, spec = one-tick, packed or
+    not. In bf16 a different launch shape (the mixed window 8 for a
+    decode row, the unpacked windows, the dense attention) rounds
+    differently, and on random weights the logits are too close for the
+    argmax to survive that: those pairs' equal shares are reported, and
+    (f) holds them to identity in fp32, TF32 off, depth 2, random
+    weights, on lookup prompts: the one-tick, mixed, mixed + speculative
+    and unpacked servers, dense generate and the speculative server
+    drafting with DraftModelDrafter over the target itself (the drafts
+    accepted reported); on an int8 pool the mixed megastep against the
+    int8 one-tick server, both at INT8_PAIR_CHUNK on prompts cut to
+    whole chunks. A failed check is recorded and the phase goes on, so
+    one run reports every check; it raises at the end if any failed."""
+    from flexflow_tpu_torch.spec import DraftModelDrafter
+
+    t_phase = time.monotonic()
+    cfg = LlamaConfig.llama3_8b()
+    out = {"card": card}
+    problems = []
+    ff = FFModel(FFConfig(batch_size=1, seed=seed, device=DEVICE))
+    build_llama(ff, cfg, batch_size=1, seq_len=2048,
+                dtype=DataType.BFLOAT16)
+    ff.compile()
+    n_attn = len(ff.executor.paged_kv_cache_specs(2, 1))
+    prompts = serve_traffic(cfg.vocab_size, seed)
+    V = cfg.vocab_size
+    mixed = {"megastep_ticks": MEGASTEP_TICKS, "megastep_mixed": True}
+    # warm cuBLAS and the allocator off the clock, through each loop
+    for kw in ({}, mixed, {"ragged_pack": False}):
+        serve_closed(ff, V, [prompts[0][:16]], 4, **kw)
+
+    # (a) the mixed megastep against the one-tick loop and the decode-only
+    # megastep, greedy; mixed N = 1 against N = 8, sampled
+    runs, syncs = {}, []
+    for name, temp, kw in (
+            ("one_tick", 0.0, {}),
+            ("decode_megastep", 0.0, {"megastep_ticks": MEGASTEP_TICKS}),
+            ("mixed", 0.0, mixed),
+            ("mixed_n1_sampled", SAMPLE_TEMPERATURE,
+             {"megastep_ticks": 1, "megastep_mixed": True}),
+            ("mixed_sampled", SAMPLE_TEMPERATURE, mixed)):
+        with _WindowCounter() as wc:
+            runs[name] = serve_closed(
+                ff, V, prompts, 64, temperature=temp, seed=seed,
+                syncs=syncs if name == "mixed" else None, **kw)
+        _launches_ok(f"16a {name}", runs[name], n_attn)
+        runs[name]["res"]["launches_by_window"] = wc.by_window()
+    a = {name: r["res"] for name, r in runs.items()}
+    paged_pool_bytes = _pool_bytes(runs["one_tick"]["server"])
+    for r in runs.values():
+        r.pop("server")
+    a["syncs_per_mixed_megastep"] = sorted(set(syncs))
+    a["identical"] = identical = {
+        "one_tick=decode_megastep": _identical(
+            runs["one_tick"]["outs"], runs["decode_megastep"]["outs"]),
+        "one_tick=mixed": _identical(runs["one_tick"]["outs"],
+                                     runs["mixed"]["outs"]),
+        "mixed_n1_sampled=mixed_sampled": _identical(
+            runs["mixed_n1_sampled"]["outs"], runs["mixed_sampled"]["outs"]),
+    }
+    a["equal_share"] = {
+        "one_tick=decode_megastep": _same_share(
+            runs["one_tick"]["outs"], runs["decode_megastep"]["outs"]),
+        "one_tick=mixed": _same_share(runs["one_tick"]["outs"],
+                                      runs["mixed"]["outs"]),
+        "mixed_n1_sampled=mixed_sampled": _same_share(
+            runs["mixed_n1_sampled"]["outs"], runs["mixed_sampled"]["outs"])}
+    mixed_w8 = {k: runs[k]["res"]["launches_by_window"].get(
+        f"{MIXED_WINDOW}/bfloat16", 0) for k in ("mixed", "mixed_sampled")}
+    log(f"mixed_dense a {json.dumps(a)}")
+    out["a"] = a
+    same_shapes = ("one_tick=decode_megastep",
+                   "mixed_n1_sampled=mixed_sampled")
+    if not all(identical[k] for k in same_shapes) or set(syncs) != {1} \
+            or any(mixed_w8[k] != n_attn * runs[k]["res"]["ragged_steps"]
+                   for k in mixed_w8):
+        problems.append(f"16a: identical {identical}, syncs a mixed "
+                        f"megastep {a['syncs_per_mixed_megastep']} (want "
+                        f"1), window-8 launches {mixed_w8}")
+    greedy = runs["one_tick"]["outs"]
+
+    # (b) + overlap_dispatch
+    b = serve_closed(ff, V, prompts, 64, seed=seed, overlap_dispatch=True,
+                     **mixed)
+    _launches_ok("16b", b, n_attn)
+    b["res"]["identical_to_a"] = _identical(runs["mixed"]["outs"],
+                                            b["outs"])
+    log(f"mixed_dense b {json.dumps(b['res'])}")
+    out["b"] = b["res"]
+    if not b["res"]["identical_to_a"]:
+        problems.append("16b: overlap_dispatch changed the tokens")
+
+    # (e) the dense default server and ff.generate
+    dense = serve_dense(ff, V, prompts, 64)
+    gen = [ff.generate(p[None], max_new_tokens=64)[0] for p in prompts[:2]]
+    e = dense["res"]
+    e.update({
+        "identical_to_paged": _identical(greedy, dense["outs"]),
+        "equal_share_to_paged": _same_share(greedy, dense["outs"]),
+        "generate_identical": _identical(dense["outs"][:2], gen),
+        "paged_pool_bytes": paged_pool_bytes,
+        "paged_generated_tokens_per_s":
+            runs["one_tick"]["res"]["generated_tokens_per_s"]})
+    log(f"mixed_dense e {json.dumps(e)}")
+    out["e"] = e
+    e["generate_equal_share"] = _same_share(dense["outs"][:2], gen)
+
+    # (d) the unpacked launch on the one-tick server
+    with _WindowCounter() as wc:
+        unpacked = serve_closed(ff, V, prompts, 64, seed=seed,
+                                ragged_pack=False)
+    _launches_ok("16d", unpacked, n_attn)
+    d = {"one_tick": {
+        "identical": _identical(greedy, unpacked["outs"]),
+        "equal_share": _same_share(greedy, unpacked["outs"]),
+        "padding_waste_ratio_packed":
+            runs["one_tick"]["res"]["padding_waste_ratio"],
+        "padding_waste_ratio_unpacked":
+            unpacked["res"]["padding_waste_ratio"],
+        "launches_by_window": wc.by_window(), "res": unpacked["res"]}}
+    wide = {w: wc.at(w, "bfloat16") for w in (8, 16, 32, 64)}
+    out["unpacked_w64_launches"] = wide[64]
+    if not all(wide.values()):
+        problems.append(f"16d: launches by window {wide}")
+    del runs, b, dense, unpacked
+    torch.cuda.empty_cache()
+
+    # (c) speculation through the mixed megastep on the token-cyclic
+    # weights and lookup prompts (phase 15b's), then (d)'s unpacked
+    # speculative server against the packed one
+    make_token_cyclic(ff)
+    plain = serve_closed(ff, V, prompts, 64, seed=seed)
+    lookup = lookup_prompts(prompts, plain["outs"])
+    spec = serve_closed(ff, V, lookup, 64, seed=seed, speculate=SPEC_CONFIG,
+                        **mixed)
+    _launches_ok("16c", spec, n_attn)
+    r = spec["res"]
+    c = {"one_tick": plain["res"], "spec_mixed": r,
+         "identical": _identical(plain["outs"], spec["outs"]),
+         "equal_share": _same_share(plain["outs"], spec["outs"]),
+         "tokens_per_drafting_tick_per_request":
+             r["tokens_per_verify_step_per_request_mean"],
+         "verify_breaks": r["breaks"]["verify"]}
+    log(f"mixed_dense c {json.dumps(c)}")
+    out["c"] = c
+    if (not c["identical"]
+            or c["tokens_per_drafting_tick_per_request"] < ACCEPT_FLOOR):
+        problems.append(f"16c: identical {c['identical']}, "
+                        f"{c['tokens_per_drafting_tick_per_request']} "
+                        f"tokens a drafting tick")
+    sp = {}
+    for pack in (True, False):
+        with _WindowCounter() as wc:
+            sp[pack] = serve_closed(ff, V, lookup, 64, seed=seed,
+                                    speculate=SPEC_CONFIG, ragged_pack=pack)
+        _launches_ok(f"16d spec pack={pack}", sp[pack], n_attn)
+        sp[pack]["res"]["launches_by_window"] = wc.by_window()
+    d["spec"] = {
+        "identical": _identical(plain["outs"], sp[False]["outs"])
+        and _identical(plain["outs"], sp[True]["outs"]),
+        "padding_waste_ratio_packed": sp[True]["res"]["padding_waste_ratio"],
+        "padding_waste_ratio_unpacked":
+            sp[False]["res"]["padding_waste_ratio"],
+        "packed": sp[True]["res"], "unpacked": sp[False]["res"]}
+    log(f"mixed_dense d {json.dumps(d)}")
+    out["d"] = d
+    if not d["spec"]["identical"]:
+        problems.append("16d: the unpacked speculative server's tokens "
+                        "differ")
+    del ff, plain, spec, sp
+    torch.cuda.empty_cache()
+
+    # (f) fp32, TF32 off, depth 2, random weights
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out["f"] = phase_mixed_fp32(seed, cfg, prompts, DraftModelDrafter,
+                                    problems)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    out["seconds"] = time.monotonic() - t_phase
+    log(f"mixed_dense seconds {out['seconds']}")
+    if problems:
+        raise AssertionError("phase 16: " + "; ".join(problems))
+    return out
+
+
+def phase_mixed_fp32(seed, cfg, prompts, drafter_cls, problems) -> dict:
+    """Phase 16 (f): see phase_mixed_dense. A failed check is appended to
+    `problems`."""
+    cfg2 = dataclasses.replace(cfg, layers=2)
+    V = cfg.vocab_size
+    ff = FFModel(FFConfig(batch_size=1, seed=seed, device=DEVICE))
+    build_llama(ff, cfg2, batch_size=1, seq_len=2048, dtype=DataType.FLOAT)
+    ff.compile()
+    first = serve_closed(ff, V, prompts, 64, seed=seed)
+    lookup = lookup_prompts(prompts, first["outs"])
+    mixed = {"megastep_ticks": MEGASTEP_TICKS, "megastep_mixed": True}
+    toks, res = {}, {}
+    for name, kw in (
+            ("one_tick", {}), ("mixed", mixed),
+            ("mixed_spec", {"speculate": SPEC_CONFIG, **mixed}),
+            ("unpacked", {"ragged_pack": False}),
+            ("spec_draft_model", {"speculate": SpecConfig(
+                drafter=drafter_cls(ff), depth=SPEC_CONFIG.depth)})):
+        r = serve_closed(ff, V, lookup, 64, seed=seed, **kw)
+        _launches_ok(f"16f {name}", r, 2)
+        toks[name], res[name] = r["outs"], r["res"]
+    toks["generate"] = [ff.generate(p[None], max_new_tokens=64)[0]
+                        for p in lookup]
+    cut = [p[:len(p) // INT8_PAIR_CHUNK * INT8_PAIR_CHUNK] for p in lookup]
+    for name, kw in (("int8_one_tick", {}), ("int8_mixed", mixed)):
+        r = serve_closed(ff, V, cut, 64, seed=seed, kv_dtype="int8",
+                         prefill_chunk=INT8_PAIR_CHUNK, **kw)
+        _launches_ok(f"16f {name}", r, 2)
+        toks[name], res[name] = r["outs"], r["res"]
+    f = {"res": res, "identical": {
+        f"one_tick={k}": _identical(toks["one_tick"], toks[k])
+        for k in ("mixed", "mixed_spec", "unpacked", "generate",
+                  "spec_draft_model")}}
+    f["identical"]["int8_one_tick=int8_mixed"] = _identical(
+        toks["int8_one_tick"], toks["int8_mixed"])
+    f["equal_share"] = {
+        pair: _same_share(toks[pair.split("=")[0]], toks[pair.split("=")[1]])
+        for pair in f["identical"]}
+    dm = res["spec_draft_model"]["speculative"]
+    f["draft_model"] = {k: dm[k] for k in (
+        "steps", "draft_tokens", "accepted_tokens", "acceptance_rate")}
+    log(f"mixed_dense f {json.dumps(f)}")
+    del ff
+    torch.cuda.empty_cache()
+    if not all(f["identical"].values()):
+        problems.append(f"16f: identical {f['identical']}, shares "
+                        f"{f['equal_share']}")
+    return f
+
+
 def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
     """One kernel's record for the kernels line: its main-path launches
     and, when phase 2 ran, its measured case."""
@@ -3504,9 +3989,9 @@ def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,6,7,8,9,10,11,12,13,14,15",
+                    default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default "
-                    "1,2,3,4,6,7,8,9,10,11,12,13,14,15; 5 profiles "
+                    "1,2,3,4,6,7,8,9,10,11,12,13,14,15,16; 5 profiles "
                     "serving and training steps)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -3532,6 +4017,7 @@ def main(argv=None) -> int:
         split_sweep(card)
         split_sweep(card, [c[0] for c in ATTENTION_CASES].index("tree_w9"))
     kern8 = phase_int8_kernels(card) if 2 in phases else []
+    wide = phase_wide_windows(card) if 2 in phases else []
     flash = phase_flash_kernels(card) if 2 in phases else {}
     if 2 in phases:
         for case, shape, T, causal in FLASH_CASES:
@@ -3561,6 +4047,7 @@ def main(argv=None) -> int:
     ring_wide = (phase_ring_train_wide_heads(args.seed, card) if 14 in phases
                  else None)
     spec15 = phase_spec_megastep(args.seed, card) if 15 in phases else None
+    mixed16 = phase_mixed_dense(args.seed, card) if 16 in phases else None
     if 5 in phases:
         phase_profile(args.seed, card)
         phase_profile_train(args.seed, card)
@@ -3604,6 +4091,24 @@ def main(argv=None) -> int:
         entry["tree_w9"] = {name: val for name, val in tree.items()
                             if name not in ("name", "route", "source",
                                             "replaces")}
+    # K3 at the universal megastep's window 8 (launches in phase 16 (a)'s
+    # greedy mixed run, timed at phase 2's mixed_w8) and at the unpacked
+    # prefill's window 64 (launches in 16 (d), timed at phase 2's
+    # unpacked_chunk64_w64), bf16 q over a bf16 pool
+    w8 = (mixed16["a"]["mixed"]["launches_by_window"].get(
+        f"{MIXED_WINDOW}/bfloat16", 0) if mixed16 else 0)
+    for key, launches, results, case in (
+            ("mixed_w8", w8, kern, "mixed_w8"),
+            ("unpacked_w64", mixed16["unpacked_w64_launches"] if mixed16
+             else 0, wide, "unpacked_chunk64_w64")):
+        res = next((r for r in results if r["case"] == case
+                    and r["dtype"] == "bfloat16"
+                    and r.get("pool", "bfloat16") == "bfloat16"), None)
+        other = _kernel_entry(RAGGED_PAGED_ATTENTION, entries[0]["source"],
+                              launches, res)
+        entries[0][key] = {name: val for name, val in other.items()
+                           if name not in ("name", "route", "source",
+                                           "replaces")}
     # K1/K2 on phase 6's bf16 fit, timed at bench_1b's attention shape
     # (phase 2), and their fp32 bodies under "fp32": launches in phase 3's
     # fp32 bench_1b step (K2 there on its 3xTF32 body), timed at the same

@@ -44,6 +44,14 @@
 //     (entry, kv head) grid had 32 blocks for 132 SMs; split in runs of
 //     two 64-row pages it has 16 x 32, of which those up to the horizon
 //     run (9 x 32 at pos 1024, two blocks for each SM).
+//   * A block keeps its rows' q and acc in shared memory, rep x S rows
+//     of D. Where those leave no room even beside one-row K/V sub-tiles
+//     (rep 4, D 128: a window of 64, the unpacked prefill's 64-token
+//     chunk, or a 65-node draft tree), the window is cut into row tiles,
+//     a further grid dimension: each tile's block walks the same pages
+//     into the partials of its own rows, so every window launches. The
+//     launcher takes the fewest tiles that fit; a window that fits whole
+//     (decode 1, the packed 8, the 9-node tree) keeps its one tile.
 //   * The block leaves a partial (m, l, unnormalised acc) in fp32 in a
 //     workspace the wrapper allocates; a second kernel merges the live
 //     partials of each (entry, window row, q head) by max and rescale,
@@ -159,7 +167,10 @@ struct SplitArgs {
   int vec;     // 16-byte copies (D x element size % 16 == 0, aligned pools)
   int mma;     // products on the tensor cores (bf16 q and pool, D and kt
                // multiples of 16)
-  int rows;    // q rows a block holds: rep * S (rounded up to 16 for mma)
+  int ts;      // window rows a row tile holds (S, or less where the
+               // whole window's q and acc rows do not fit one block)
+  int nrt;     // row tiles: ceil(S / ts)
+  int rows;    // q rows a block holds: rep * ts (rounded up to 16 for mma)
   float scale;
 };
 
@@ -290,12 +301,14 @@ ragged_split_kernel(const SplitArgs a) {
       typename std::conditional<sizeof(TKV) == 2, uint16_t,
                                 uint8_t>::type>::type;
   // kv head fastest: the blocks that read the Hkv slices of one page's
-  // rows are dispatched together
-  const int g = blockIdx.x, s = blockIdx.y, b = blockIdx.z;
+  // rows are dispatched together; then the row tile, whose window rows
+  // t0 .. t0 + ts - 1 the block serves
+  const int g = blockIdx.x % a.Hkv, s = blockIdx.y, b = blockIdx.z;
+  const int t0 = blockIdx.x / a.Hkv * a.ts;
   const int j0 = s * a.pps;
   const int rep = a.H / a.Hkv;
   const bool mma = kMmaTypes && a.mma;
-  const int rows = a.rows;  // rep * S, rounded up to 16 for mma
+  const int rows = a.rows;  // rep * ts, rounded up to 16 for mma
   const int kt = a.kt, ldk = a.ldk, D = a.D, P = a.P;
   const int nch = ldk / EPC;              // chunks a staged row
   const int sw = min(8, nch & -nch) - 1;  // chunk swizzle mask
@@ -324,9 +337,9 @@ ragged_split_kernel(const SplitArgs a) {
 
   // The loads that need nothing else are issued together: the entry's
   // descriptor, the split's page ids (and an int8 pool's scales of those
-  // pages), and q's rows r = t * rep + hl for every window row t (zeros
-  // past D; the live rows, t < q_len, are the first R). acc 0, (m, l) =
-  // (-1e30, 0).
+  // pages), and q's rows r = (t - t0) * rep + hl for every window row t of
+  // the tile (zeros past D; the live rows, t < q_len, are the first R).
+  // acc 0, (m, l) = (-1e30, 0).
   const int qlen = a.qlens[b], p0 = a.pos[b];
   for (int i = tid; i < a.pps; i += kSplitThreads) {
     const int page = j0 + i < a.maxp ? a.pt[b * a.maxp + j0 + i] : 0;
@@ -337,10 +350,10 @@ ragged_split_kernel(const SplitArgs a) {
     }
   }
   const TQ* q = static_cast<const TQ*>(a.q);
-  const int rmax = rep * a.S;
+  const int rmax = rep * min(a.ts, a.S - t0);
   for (int i = tid; i < rows * ldk; i += kSplitThreads) {
     const int r = i / ldk, d = i - r * ldk;
-    const int t = r / rep, hl = r - t * rep;
+    const int t = t0 + r / rep, hl = r % rep;
     const float x = r < rmax && d < D ? to_f(q[((size_t)(b * a.S + t) * a.H +
                                                 g * rep + hl) * D + d])
                                       : 0.f;
@@ -362,9 +375,10 @@ ragged_split_kernel(const SplitArgs a) {
   }
   const int horizon = p0 + qlen;
   const int npages = live_pages(a, qlen, horizon);
-  if (j0 >= npages) return;  // past the horizon: no K/V read, no partial
+  const int R = rep * max(0, min(a.ts, qlen - t0));  // live rows
+  // past the horizon, or a tile of no live row: no K/V read, no partial
+  if (j0 >= npages || R == 0) return;
   const int j1 = min(npages, j0 + a.pps);
-  const int R = rep * qlen;  // live rows
   __syncthreads();
 
   // sub-tile i: page j0 + i / tpp, rows c0 .. c0 + n - 1 of it
@@ -439,7 +453,7 @@ ragged_split_kernel(const SplitArgs a) {
     // score of row r, key c: fp32 dot times scale where visible, -inf
     // where not (it adds nothing)
     auto put_score = [&](int r, int c, float dot) {
-      const int t = r / rep, kpos = base + c, rel = kpos - p0;
+      const int t = t0 + r / rep, kpos = base + c, rel = kpos - p0;
       const bool vis =
           kpos < p0 || (rel >= 0 && rel < qlen &&
                         a.anc[((size_t)b * a.S + t) * a.S + rel]);
@@ -659,12 +673,12 @@ ragged_split_kernel(const SplitArgs a) {
   const size_t row0 = (size_t)(b * a.nsplit + s) * a.S;
   for (int it = tid; it < R * D; it += kSplitThreads) {
     const int r = it / D, d = it - r * D;
-    const int t = r / rep, hl = r - t * rep;
+    const int t = t0 + r / rep, hl = r % rep;
     const size_t row = (row0 + t) * a.H + g * rep + hl;
     a.ws_acc[row * D + d] = sacc[r * ldk + d];
   }
   for (int r = tid; r < R; r += kSplitThreads) {
-    const int t = r / rep, hl = r - t * rep;
+    const int t = t0 + r / rep, hl = r % rep;
     const size_t row = (row0 + t) * a.H + g * rep + hl;
     a.ws_m[row] = sm[r];
     a.ws_l[row] = sl[r];
@@ -748,26 +762,38 @@ int launch_split(SplitArgs a, cudaStream_t stream) {
                              std::is_same<TKV, __nv_bfloat16>::value;
   a.ldk = (a.D + epc - 1) / epc * epc;
   a.vec = a.vec && a.ldk == a.D;
-  const int rmax = (a.H / a.Hkv) * a.S;
   // two stages of up to 64-row sub-tiles; smaller ones (then one stage)
   // where a wide window's q and acc rows leave no room. bf16 q over a
   // bf16 pool runs its products on the tensor cores where the tiles are
-  // whole k-steps (D and the sub-tile multiples of 16)
-  a.kt = a.P < kMaxTileRows ? a.P : kMaxTileRows;
-  a.stages = 2;
+  // whole k-steps (D and the sub-tile multiples of 16). Where not even
+  // one-row sub-tiles leave room for the whole window's rep x S q and acc
+  // rows, the window is cut into nrt row tiles of ts rows, each a block
+  // of its own that walks the same pages into the partials of its rows
+  // (the fewest tiles that fit, each planned afresh from 64-row
+  // sub-tiles), so any window up to the table's rows launches
   auto fit = [&]() {
     a.mma = kMmaTypes && a.D % 16 == 0 && a.kt % 16 == 0;
+    const int rmax = (a.H / a.Hkv) * a.ts;
     a.rows = a.mma ? (rmax + 15) / 16 * 16 : rmax;
     return split_smem(a.rows, a.ldk, a.kt, esz, a.stages, a.mma, a.pps);
   };
-  while (fit() > kMaxSmemBytes) {
-    if (a.kt > 8 || (a.stages == 1 && a.kt > 1))
-      a.kt = (a.kt + 1) / 2;
-    else if (a.stages == 2)
-      a.stages = 1;
-    else
-      return (int)cudaErrorInvalidValue;
+  a.nrt = 0;
+  for (int nrt = 1; nrt <= a.S && a.nrt == 0; ++nrt) {
+    a.ts = (a.S + nrt - 1) / nrt;
+    a.kt = a.P < kMaxTileRows ? a.P : kMaxTileRows;
+    a.stages = 2;
+    while (fit() > kMaxSmemBytes) {
+      if (a.kt > 8 || (a.stages == 1 && a.kt > 1))
+        a.kt = (a.kt + 1) / 2;
+      else if (a.stages == 2)
+        a.stages = 1;
+      else
+        break;
+    }
+    if (fit() <= kMaxSmemBytes) a.nrt = (a.S + a.ts - 1) / a.ts;
   }
+  if (a.nrt == 0 || (long long)a.Hkv * a.nrt > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = fit();
   auto split = ragged_split_kernel<TQ, TKV>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -779,7 +805,8 @@ int launch_split(SplitArgs a, cudaStream_t stream) {
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  split<<<dim3(a.Hkv, a.nsplit, a.B), kSplitThreads, smem, stream>>>(a);
+  split<<<dim3(a.Hkv * a.nrt, a.nsplit, a.B), kSplitThreads, smem,
+           stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // the combine pass as a programmatic dependent launch: its blocks start

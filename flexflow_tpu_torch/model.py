@@ -5,8 +5,8 @@ Layer-building methods record a lazy PCG exactly as the JAX package's do
 (same node names, guids and attrs); `compile()` infers shapes, builds the
 eager Executor on the configured device and draws the parameters there;
 `fit`, `eval` and `predict` train and run the model on numpy batches;
-`serve_generation(paged=True)` starts the paged continuous-batching
-server.
+`generate` decodes through a dense KV cache; `serve_generation` starts a
+continuous-batching server, dense by default or paged.
 """
 
 from __future__ import annotations
@@ -402,6 +402,51 @@ class FFModel:
                 for batch in self._batches(xs, batch_size)]
         return np.concatenate(outs, axis=0)[:n]
 
+    def generate(self, prompt_ids: np.ndarray, max_new_tokens: int,
+                 temperature: float = 0.0, seed: int = 0) -> np.ndarray:
+        """Autoregressive generation with a dense KV cache (counterpart of
+        the reference's generate): one prefill pass writes the (batch,
+        s) prompt's K/V into per-layer caches of s + max_new_tokens rows,
+        then single-token steps extend them (Executor.decode_fn).
+        temperature=0 is greedy and gives the JAX package's tokens;
+        temperature > 0 samples with pick_tokens from a torch.Generator
+        seeded with `seed`, which matches the reference's jax.random
+        draws in distribution only. The tokens stay on the device until
+        the end. Returns (batch, max_new_tokens) int32 tokens."""
+        from flexflow_tpu_torch.serving import pick_tokens
+
+        if max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        ex = self.executor
+        prompt_ids = np.asarray(prompt_ids, np.int32)
+        b, s = prompt_ids.shape
+        # learned-position models: decode must not run past the table
+        rows = self.position_table_rows()
+        if rows is not None and s + max_new_tokens > rows:
+            raise ValueError(
+                f"prompt ({s}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds the learned position table ({rows} rows); "
+                "rebuild the model with a longer seq_len")
+        if s < 1:
+            raise ValueError("prompt must contain at least one token")
+        dev = ex.device
+        caches = ex.init_kv_cache(b, s + max_new_tokens)
+        tr, ntr = self._params
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        temps = torch.full((b,), float(temperature), dtype=torch.float32,
+                           device=dev)
+        probs, caches = ex.decode_fn(tr, ntr, caches, 0,
+                                     torch.from_numpy(prompt_ids).to(dev))
+        tok = pick_tokens(probs[:, -1, :], temps, gen)
+        out = [tok]
+        for pos in range(s, s + max_new_tokens - 1):
+            probs, caches = ex.decode_fn(tr, ntr, caches, pos, tok[:, None])
+            tok = pick_tokens(probs[:, -1, :], temps, gen)
+            out.append(tok)
+        return torch.stack(out, dim=1).cpu().numpy()
+
     def serve_generation(self, slots: int = 4, max_len: int = 512,
                          eos_id=None, seed: int = 0, paged: bool = False,
                          page_size: int = 64, num_pages=None,
@@ -413,17 +458,20 @@ class FFModel:
                          overlap_dispatch: bool = False,
                          kv_dtype: str = "auto", kv_quant_canary=None,
                          host_tier=None, defer_start: bool = False):
-        """Continuous-batching generation over the block-paged KV cache
-        (serving.serve_generation), with the reference's defaults
-        (prefix cache and preemption on) and its kv_dtype pools ("auto",
-        "int8", "bf16", "fp16", "fp32"). `speculate=SpecConfig(...)`
-        serves through the speculative server (draft trees verified in
-        one ragged step, the accepted path committed in place);
-        `megastep_ticks=N` runs up to N pure-decode ticks per host round
-        trip. The mixed megastep, overlap_dispatch, the host tier, the
-        unpacked launch and the kv_quant_canary shadow cache are not
-        ported: asking for any of them raises NotImplementedError rather
-        than serving a different configuration."""
+        """Continuous-batching generation (serving.serve_generation) with
+        the reference's defaults: the dense GenerationServer, or with
+        `paged=True` the block-paged KV cache (prefix cache and
+        preemption on) and its kv_dtype pools ("auto", "int8", "bf16",
+        "fp16", "fp32"). `speculate=SpecConfig(...)` serves through the
+        speculative server (draft trees verified in one ragged step, the
+        accepted path committed in place); `megastep_ticks=N` runs up to
+        N pure-decode ticks per host round trip; `megastep_mixed=True`
+        fuses chunk rows and device-drafted chains into the megastep,
+        `overlap_dispatch=True` admits while it runs; `ragged_pack=False`
+        launches the unpacked prefill. The host tier and the
+        kv_quant_canary shadow cache are not ported: asking for either
+        raises NotImplementedError rather than serving a different
+        configuration."""
         from flexflow_tpu_torch.serving import serve_generation as _sg
 
         return _sg(self, slots=slots, max_len=max_len, eos_id=eos_id,

@@ -10,7 +10,9 @@ to XLA; the hand-written kernels on this path are behind the
 MULTIHEAD_ATTENTION lowering: the ragged paged attention on its paged
 branch (serving), the flash-attention forward and backward on its
 no-cache branch (training, eval and predict); and behind RING_ATTENTION's
-no-cache branch, the ring of K5 steps (parallel/ring.py).
+no-cache branch, the ring of K5 steps (parallel/ring.py). Its dense-cache
+branch (FFModel.generate, the dense GenerationServer) is plain PyTorch,
+as the reference computes it outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -133,6 +135,45 @@ def dot_product_attention(q, k, v, scale: float, mask):
     return out.to(q.dtype)
 
 
+def cached_attention(q, k, v, cache_k, cache_v, pos, *, scale: float,
+                     rope_theta=None):
+    """One autoregressive step over a DENSE KV cache (counterpart of
+    jax_ops.cached_attention): rope at absolute positions (when
+    `rope_theta`), write k/v into the (B, T, Hkv, D) caches at `pos`, in
+    place, then attend over the whole buffer under the absolute-position
+    mask (cache row kpos is visible to query row i when kpos <= pos + i;
+    rows past the write head stay masked until written) in
+    dot_product_attention's numerics. `pos` is a Python int (lockstep
+    generate and the dense admission's prefill) or a (B,) tensor (the
+    dense server's per-slot positions). As the reference's
+    dynamic_update_slice, a write that would run past T starts at T - S
+    instead; the mask keeps the unclamped positions. Returns (output,
+    cache_k, cache_v)."""
+    B, S = q.shape[0], q.shape[1]
+    T = cache_k.shape[1]
+    dev = q.device
+    if rope_theta is not None:
+        q = apply_rope(q, rope_theta, pos_offset=pos)
+        k = apply_rope(k, rope_theta, pos_offset=pos)
+    ar = torch.arange(S, device=dev)
+    kpos = torch.arange(T, device=dev)
+    if isinstance(pos, int):
+        start = min(max(pos, 0), T - S)
+        cache_k[:, start:start + S] = k.to(cache_k.dtype)
+        cache_v[:, start:start + S] = v.to(cache_v.dtype)
+        mask = (kpos[None, :] <= (pos + ar)[:, None]).expand(B, S, T)
+    else:
+        p = pos.long()
+        rows = p.clamp(0, T - S)[:, None] + ar[None, :]          # (B, S)
+        bidx = torch.arange(B, device=dev)[:, None].expand(B, S)
+        cache_k[bidx, rows] = k.to(cache_k.dtype)
+        cache_v[bidx, rows] = v.to(cache_v.dtype)
+        mask = kpos[None, None, :] <= (p[:, None] + ar[None, :])[:, :, None]
+    out = dot_product_attention(q, cache_k.to(q.dtype),
+                                cache_v.to(q.dtype), scale, mask)
+    return out, cache_k, cache_v
+
+
 def fused_attention(q, k, v, *, causal: bool, scale: float,
                     dropout: float = 0.0):
     """Attention over the whole sequence (counterpart of
@@ -168,9 +209,13 @@ def _mha(attrs, inputs, params, ctx):
             q, k, v, causal=attrs.causal, scale=scale,
             dropout=attrs.dropout if ctx.training else 0.0)
     elif ctx.page_tables is None:
-        raise NotImplementedError(
-            "dense KV-cache decode is not ported yet (ROADMAP.md, queue 1 "
-            "item 6); the port serves through the paged cache")
+        # the dense cache (FFModel.generate, the dense GenerationServer):
+        # rope, write this step's rows at pos, attend over the buffer
+        out, kc, vc = cached_attention(
+            q, k, v, ctx.kv_cache["k"], ctx.kv_cache["v"],
+            ctx.cache_position, scale=scale,
+            rope_theta=attrs.rope_theta if attrs.rope else None)
+        ctx.cache_updates.update(k=kc, v=vc)
     else:
         # every paged step — decode rows and chunked-prefill pieces — is
         # the same ragged call: rope, write this step's K/V rows into
@@ -225,16 +270,19 @@ _BINARY = {
 def position_rows(table, seq: int, ctx):
     """The rows of a learned (rows, E) position table that a (B, seq)
     window adds under the cache state of `ctx` (jax_ops._element_binary's
-    cases): without a cache the whole table, broadcast over the batch; in
-    a ragged paged step row pos[b] + depths[b, i] for window row i; with
-    per-row positions alone rows pos[b] .. pos[b] + seq - 1. Indices are
-    clamped into the table, as the reference's gathers clamp: only padded
-    rows reach past it, and their outputs are never read. (The
-    reference's scalar position, lockstep dense decode, has no caller in
-    the port.)"""
+    cases): without a cache the whole table, broadcast over the batch; at
+    a scalar position (lockstep dense decode) rows pos .. pos + seq - 1,
+    the start clamped so they fit, as the reference's dynamic_slice; in a
+    ragged paged step row pos[b] + depths[b, i] for window row i; with
+    per-row positions alone rows pos[b] .. pos[b] + seq - 1. Gathered
+    indices are clamped into the table, as the reference's gathers clamp:
+    only padded rows reach past it, and their outputs are never read."""
     pos = ctx.cache_position
     if pos is None:
         return table
+    if isinstance(pos, int):
+        start = min(max(pos, 0), table.shape[0] - seq)
+        return table[start:start + seq][None]
     depths = ctx.ragged_depths
     if depths is None:
         depths = torch.arange(seq, device=table.device)

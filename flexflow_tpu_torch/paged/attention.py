@@ -169,7 +169,11 @@ def ragged_flash_attention(q, kc_pages, vc_pages, page_tables, pos, q_lens,
     a hand-written kernel — the int8 kernel for an int8 pool (with its
     k_scales/v_scales), the fp-pool kernel otherwise, whose K/V may be of
     another float dtype than q — and raise on anything they do not take;
-    CPU tensors take the plain version. Mixed devices raise."""
+    CPU tensors take the plain version. Mixed devices raise. Any window
+    launches, as the reference's does: where one block cannot hold an
+    entry's rep x S q and acc rows (rep 4, D 128: windows 64 and 65) the
+    launcher cuts the window into row tiles, each walking the same
+    pages."""
     if (kc_pages.dtype == torch.int8) != (k_scales is not None) or (
             k_scales is None) != (v_scales is None):
         raise ValueError("an int8 pool needs k_scales and v_scales, and "

@@ -47,6 +47,11 @@ Decode flow per tick:
   5. one ragged decode launch for the decoding slots
   6. sample, append, publish freshly filled pages, finish/free
 
+`ragged_pack=False` keeps the kernel but reverts to one launch a
+mid-prefill slot at _bucket(take) rows (8, 16, 32, 64): the baseline the
+padded-row share (`padding_waste_ratio` in metrics()) is judged against.
+Tokens are identical either way.
+
 DECODE MEGASTEPS (megastep_ticks=N > 1): a pure-decode tick (no slot
 mid-prefill) runs up to N decode ticks from device-resident state
 (Executor.paged_megastep_fn) and reads the (N, slots) token buffer, the
@@ -58,11 +63,24 @@ every stop but an eos in advance and enqueues exactly that many ticks; an
 eos sampled mid-megastep predicates the rest off on the device, and the
 generator is set back to where the one-tick loop would have left it.
 
+UNIVERSAL MEGASTEPS (megastep_mixed=True): every tick is one dispatch of
+up to N fused ticks (Executor.paged_mixed_megastep_fn) that carries the
+decode rows, the mid-prefill chunk rows (at most min(8, prefill_chunk)
+rows a slot a tick) and, on the speculative server, device-drafted
+chains, all fed from a device-resident ledger of committed tokens. It
+hands control back after a chunk completes (`chunk`), when a drafting
+slot's next chain would cross its pages (`verify`), and for the decode
+megastep's reasons. A completing prefill's first token comes from the
+tick's own draw, so fixed-seed sampled tokens do not depend on N (they
+differ from the unfused loop's, as in the reference). The host enqueues
+the ticks it can prove may run, a drafting row counted at one token a
+tick; a tick the device's condition refuses is predicated off.
+`overlap_dispatch=True` runs admission (free slots and free pages only)
+after the fused ticks are enqueued and before their one read back.
+
 Not ported yet, and refused at construction rather than ignored: the
-mixed megastep and overlap_dispatch (ROADMAP queue 1 item 7), the host
-KV tier and the kv_quant_canary shadow cache (item 9) and the unpacked
-(`ragged_pack=False`) launch (item 7). Speculative decoding is the
-subclass in spec/server.py.
+host KV tier and the kv_quant_canary shadow cache (ROADMAP queue 1 item
+9). Speculative decoding is the subclass in spec/server.py.
 """
 
 from __future__ import annotations
@@ -126,14 +144,15 @@ class PagedGenerationServer(_GenerationServerBase):
         if self.megastep_ticks < 1:
             raise ValueError(
                 f"megastep_ticks must be >= 1, got {megastep_ticks}")
-        if megastep_mixed:
-            not_ported("megastep_mixed (the universal megastep)", 7)
-        if overlap_dispatch:
-            not_ported("overlap_dispatch", 7)
+        self.megastep_mixed = bool(megastep_mixed)
+        self.overlap_dispatch = bool(overlap_dispatch)
+        if self.overlap_dispatch and not self.megastep_mixed:
+            raise ValueError(
+                "overlap_dispatch overlaps host work with the in-flight "
+                "MIXED megastep dispatch; pass megastep_mixed=True")
+        self.ragged_pack = bool(ragged_pack)
         if host_tier is not None and host_tier != 0:
             not_ported("host_tier", 9)
-        if not ragged_pack:
-            not_ported("ragged_pack=False", 7)
         if kv_quant_canary:
             not_ported("kv_quant_canary (the fp32 shadow cache)", 9)
         self.kv_dtype = str(kv_dtype)
@@ -160,10 +179,27 @@ class PagedGenerationServer(_GenerationServerBase):
         ex = ff.executor
         self._step = ex.ragged_step_fn
         self._megastep = ex.paged_megastep_fn
+        self._mixed_fn = ex.paged_mixed_megastep_fn
+        # the universal megastep's launch: chunk pieces of at most the
+        # packed window, drafted chains of depth + 1 rows (depth 0 on the
+        # plain server; the speculative one sets `spec` before this)
+        spec_cfg = getattr(self, "spec", None)
+        self._spec_depth = int(spec_cfg.depth) if spec_cfg is not None \
+            else 0
+        self._mixed_window = min(self._chunk_rows, self.prefill_chunk)
         self._caches = ex.init_paged_kv_cache(num_pages, self.page_size,
                                               dtype=pool_dt)
         self._tables = np.zeros((self.slots, self.max_pages_per_seq),
                                 np.int32)
+        # device mirrors of host state, uploaded again only once a write
+        # marked them dirty (None): the page tables (admission, growth,
+        # release, defrag), the slots' temperatures (occupancy), and the
+        # universal megastep's (slots, Lbuf + 1) token ledger (occupancy;
+        # between its dispatches the megastep's own output is reused)
+        self._seq_cols = self.max_pages_per_seq * self.page_size
+        self._tables_dev: Optional[torch.Tensor] = None
+        self._temps_dev: Optional[torch.Tensor] = None
+        self._seq_dev: Optional[torch.Tensor] = None
         self._chain_desc_cache: Dict[Tuple[int, int], tuple] = {}
         self._admit_order: List[int] = []  # live slots, oldest first
         self._requeue: List[_GenRequest] = []  # preempted, ahead of queue
@@ -176,16 +212,23 @@ class PagedGenerationServer(_GenerationServerBase):
         # attention layer
         self.ragged_steps = 0
         self._prefill_rr = 0    # rotating start slot for the chunk budget
+        # launch rows shipped and those of them that were padding (q_len
+        # 0 entries, rows past an entry's q_len)
+        self.launch_rows = 0
+        self.padded_rows = 0
         # host round trips of the decode path (a one-tick decode or a
         # megastep each pay one), the tokens they decoded, why each
-        # megastep handed control back, and the ticks an eos predicated
-        # off
+        # megastep handed control back, the ticks enqueued that the
+        # device predicated off, and the share of the wait on a mixed
+        # dispatch that overlapped host work
         self.host_roundtrips = 0
         self.decode_tokens = 0
-        self.megastep_breaks = {"finish": 0, "page": 0, "limit": 0}
+        self.megastep_breaks = {r: 0 for r in ("finish", "page", "limit",
+                                               "chunk", "verify")}
         self.megastep_dispatches = 0
         self.megastep_ticks_run = 0
         self.megastep_wasted_ticks = 0
+        self.host_overlap_ratio = 0.0
         self._start(defer_start)
 
     # -- capacity and metrics ----------------------------------------------
@@ -230,10 +273,20 @@ class PagedGenerationServer(_GenerationServerBase):
             "prefill_ticks": self.prefill_ticks,
             "ragged_steps": self.ragged_steps,
             "kv_cache_dtype": self._kv_pool_dtype_name(),
+            "launch_rows": self.launch_rows,
+            "padded_rows": self.padded_rows,
+            "padding_waste_ratio": (self.padded_rows / self.launch_rows
+                                    if self.launch_rows else 0.0),
             "megastep": {
                 "ticks_max": self.megastep_ticks,
+                "mixed": self.megastep_mixed,
+                "overlap_dispatch": self.overlap_dispatch,
+                "host_overlap_ratio": self.host_overlap_ratio,
                 "host_roundtrips": self.host_roundtrips,
                 "decode_tokens": self.decode_tokens,
+                "host_roundtrips_per_token": (
+                    self.host_roundtrips / self.decode_tokens
+                    if self.decode_tokens else 0.0),
                 "dispatches": self.megastep_dispatches,
                 "ticks_run": self.megastep_ticks_run,
                 "wasted_ticks": self.megastep_wasted_ticks,
@@ -311,6 +364,8 @@ class PagedGenerationServer(_GenerationServerBase):
         self.pool.free(list(reversed(req.pages)))
         req.pages = []
         self._tables[slot] = 0
+        self._mark_tables_dirty()
+        self._mark_temps_dirty()
         if slot in self._admit_order:
             self._admit_order.remove(slot)
 
@@ -397,6 +452,8 @@ class PagedGenerationServer(_GenerationServerBase):
         self._reset_page_scales(fresh)
         self._tables[slot] = 0
         self._tables[slot, :len(pages)] = pages
+        self._mark_tables_dirty()
+        self._mark_temps_dirty()
         if cow_src is not None:
             copy_page(self._caches, cow_src, pages[b0])
             self.pool.free([cow_src])
@@ -447,6 +504,7 @@ class PagedGenerationServer(_GenerationServerBase):
                     req.pages.append(got[0])
                     req.peak_pages = max(req.peak_pages, len(req.pages))
                     self._tables[slot, len(req.pages) - 1] = got[0]
+                    self._mark_tables_dirty()
                     continue
                 victims = [s for s in self._admit_order if s != slot]
                 if self.preemption and victims:
@@ -467,6 +525,7 @@ class PagedGenerationServer(_GenerationServerBase):
             for b in bufs.values():
                 b.copy_(b[perm_t])
         self._tables = old_to_new[self._tables]
+        self._mark_tables_dirty()
         for s in self._admit_order:
             req = self._active[s]
             if req is not None:
@@ -519,6 +578,61 @@ class PagedGenerationServer(_GenerationServerBase):
         req = self._active[slot]
         return req is not None and req.prefill_pos < req.prefill_target
 
+    # -- device mirrors of host state ----------------------------------------
+
+    def _mark_tables_dirty(self):
+        """Every write to `self._tables` calls this: the device copy is
+        uploaded again at its next use, never a tick."""
+        self._tables_dev = None
+
+    def _mark_temps_dirty(self):
+        """Slot occupancy changed: the temperatures' device copy and the
+        universal megastep's token ledger no longer match the host, and
+        are rebuilt at their next use. (Page growth and defrag move
+        pages, never tokens.)"""
+        self._temps_dev = None
+        self._seq_dev = None
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array's device copy, enqueued without a host sync; it
+        copies from a private pageable copy, so the host may write `a`
+        again at once."""
+        return torch.from_numpy(np.array(a)).to(self.device,
+                                                non_blocking=True)
+
+    def _tables_device(self) -> torch.Tensor:
+        """The (slots, max_pages) page tables on the device."""
+        if self._tables_dev is None:
+            self._tables_dev = self._upload(self._tables)
+        return self._tables_dev
+
+    def _temps_device(self) -> torch.Tensor:
+        """The slots' sampling temperatures on the device (0.0, greedy,
+        for an empty slot)."""
+        if self._temps_dev is None:
+            self._temps_dev = self._upload(np.array(
+                [self._active[s].temperature if self._active[s] else 0.0
+                 for s in range(self.slots)], np.float32))
+        return self._temps_dev
+
+    def _seq_device(self) -> torch.Tensor:
+        """The universal megastep's (slots, Lbuf + 1) ledger of committed
+        tokens on the device: row s holds slot s's prompt and generated
+        tokens (a mid-prefill slot's whole prompt, which its chunk rows
+        read), column Lbuf is the trash column of masked scatters.
+        Between dispatches the megastep's own output is reused."""
+        if self._seq_dev is None:
+            seq = np.zeros((self.slots, self._seq_cols + 1), np.int32)
+            for s in range(self.slots):
+                req = self._active[s]
+                if req is None:
+                    continue
+                toks = (req.prefill_seq if self._mid_prefill(s)
+                        else req.seq_tokens())
+                seq[s, :len(toks)] = toks
+            self._seq_dev = self._upload(seq)
+        return self._seq_dev
+
     def _chain_descriptor_device(self, B: int, window: int):
         """Cached device copies of the causal-chain descriptor for a
         (B, window) launch: depths 0..window-1 and the lower-triangular
@@ -540,7 +654,8 @@ class PagedGenerationServer(_GenerationServerBase):
         ids, depths/anc None for the causal chain (decode rows, chunk
         pieces) or the (window,) node depths and (window, window)
         ancestor relation of a drafted tree. Rows past an item's q_len are
-        padding. Returns the (len(items), window, vocab) probs."""
+        padding, counted in `padded_rows`. Returns the (len(items), window,
+        vocab) probs."""
         B = len(items)
         ids = np.zeros((B, window), np.int32)
         pos = np.zeros((B,), np.int32)
@@ -567,13 +682,19 @@ class PagedGenerationServer(_GenerationServerBase):
         else:
             deps_d = torch.from_numpy(deps).to(dev)
             anc_d = torch.from_numpy(anc).to(dev)
+        # the tables ride their device mirror: the one-item-a-slot launch
+        # takes it as it is, a packed one gathers its rows on the device
+        tbl = self._tables_device()
+        if not np.array_equal(slot_idx, np.arange(self.slots)):
+            tbl = tbl[torch.from_numpy(slot_idx).to(dev)]
         probs, upd = self._step(
-            tr, ntr, self._caches,
-            torch.from_numpy(self._tables[slot_idx]).to(dev),
+            tr, ntr, self._caches, tbl,
             torch.from_numpy(pos).to(dev), torch.from_numpy(qls).to(dev),
             deps_d, anc_d, torch.from_numpy(ids).to(dev))
         self._caches = upd
         self.ragged_steps += 1
+        self.launch_rows += B * window
+        self.padded_rows += B * window - int(qls.sum())
         return probs
 
     def _tick_prep(self) -> Optional[List[int]]:
@@ -602,10 +723,11 @@ class PagedGenerationServer(_GenerationServerBase):
     def _prefill_tick(self, slots, tr, ntr):
         """Advance mid-prefill slots by at most `prefill_chunk` tokens
         ACROSS the tick, starting from a slot that rotates tick to tick.
-        Every slot's chunk is split into window pieces and the whole tick
-        rides ONE packed launch; the chunk finishing a prompt publishes
-        the prompt's tail page and samples the request's first token from
-        its own last-row probs."""
+        With ragged_pack every slot's chunk is split into window pieces
+        and the whole tick rides ONE packed launch; ragged_pack=False
+        launches once a slot, at _bucket(take) rows. The chunk finishing
+        a prompt publishes the prompt's tail page and samples the
+        request's first token from its own last-row probs."""
         budget = self.prefill_chunk
         self.prefill_ticks += 1
         rot = self._prefill_rr % len(slots)
@@ -619,19 +741,28 @@ class PagedGenerationServer(_GenerationServerBase):
             take = min(budget, req.prefill_target - req.prefill_pos)
             plan.append((s, req, req.prefill_pos, take))
             budget -= take
-        items = []
-        ends = []  # (item index, row) of each chunk's last piece
-        W = min(self._chunk_rows, max(take for _, _, _, take in plan))
-        for s, req, start, take in plan:
-            for off in range(0, take, W):
-                piece = min(W, take - off)
-                items.append((s, start + off,
-                              req.prefill_seq[start + off:
-                                              start + off + piece],
-                              None, None))
-            ends.append((len(items) - 1, (take - 1) % W))
-        probs = self._launch(items, W, tr, ntr)
-        for (s, req, start, take), (i, r) in zip(plan, ends):
+        if self.ragged_pack:
+            items = []
+            ends = []  # (item index, row) of each chunk's last piece
+            W = min(self._chunk_rows, max(take for _, _, _, take in plan))
+            for s, req, start, take in plan:
+                for off in range(0, take, W):
+                    piece = min(W, take - off)
+                    items.append((s, start + off,
+                                  req.prefill_seq[start + off:
+                                                  start + off + piece],
+                                  None, None))
+                ends.append((len(items) - 1, (take - 1) % W))
+            probs = self._launch(items, W, tr, ntr)
+            rows = [probs[i:i + 1, r, :] for i, r in ends]
+        else:
+            rows = []
+            for s, req, start, take in plan:
+                probs = self._launch(
+                    [(s, start, req.prefill_seq[start:start + take], None,
+                      None)], self._bucket(take), tr, ntr)
+                rows.append(probs[0:1, take - 1, :])
+        for (s, req, start, take), row in zip(plan, rows):
             req.prefill_pos = start + take
             req.prefill_tokens += take
             self._publish_prefix(req, req.prefill_pos)
@@ -642,8 +773,21 @@ class PagedGenerationServer(_GenerationServerBase):
                 # extending prompt can clone this page while this
                 # request keeps decoding into it
                 self._publish_tail(req)
-                self._sample_first_token(s, req, probs[i:i + 1, r, :])
+                self._sample_first_token(s, req, row)
                 self._finish_if_done(s)
+                if self._active[s] is not None:
+                    self._on_prefill_complete(s)
+
+    def _on_prefill_complete(self, slot: int):
+        """Hook fired after a request's prefill completed (tail published,
+        first token taken) and it did not finish on it. The server
+        decodes in place and does nothing here."""
+
+    def _count_decode_overlap(self):
+        """A decode tick ran while these slots were mid-prefill."""
+        for s in self._admit_order:
+            if self._mid_prefill(s):
+                self._active[s].decode_overlap_ticks += 1
 
     def _decode_tick(self, live, tr, ntr):
         """One single-token decode step for the decoding slots: one item
@@ -654,14 +798,12 @@ class PagedGenerationServer(_GenerationServerBase):
                   [int(self._tokens[s])] if s in dec else [], None, None)
                  for s in range(self.slots)]
         probs = self._launch(items, 1, tr, ntr)
-        temps = torch.tensor(
-            [self._active[s].temperature if s in dec else 0.0
-             for s in range(self.slots)], dtype=torch.float32,
-            device=self.device)
-        toks = pick_tokens(probs[:, -1, :], temps, self._gen).cpu().numpy()
+        toks = pick_tokens(probs[:, -1, :], self._temps_device(),
+                           self._gen).cpu().numpy()
         self._steps += 1
         self.host_roundtrips += 1
         self.decode_tokens += len(live)
+        self._count_decode_overlap()
         for s in live:
             req = self._active[s]
             req.pos += 1
@@ -685,31 +827,23 @@ class PagedGenerationServer(_GenerationServerBase):
         equal the one-tick loop's."""
         N = self.megastep_ticks
         pos = np.zeros((self.slots,), np.int32)
-        toks = np.zeros((self.slots,), np.int32)
-        temps = np.zeros((self.slots,), np.float32)
         rem = np.zeros((self.slots,), np.int32)
         cap = np.zeros((self.slots,), np.int32)
         act = np.zeros((self.slots,), np.bool_)
         for s in live:
             req = self._active[s]
             pos[s] = req.pos
-            toks[s] = self._tokens[s]
-            temps[s] = req.temperature
             rem[s] = req.max_new - len(req.tokens)
             cap[s] = len(req.pages) * self.page_size
             act[s] = True
         # >= 1: _ensure_pages gave every live slot the page of its next
         # write row, and a decoding slot has a token left to emit
         n = min(N, int((cap - pos)[act].min()), int(rem[act].min()))
-        dev = self.device
-
-        def up(a):  # no host sync: the staged copy needs no wait
-            return torch.from_numpy(a).to(dev, non_blocking=True)
-
+        up = self._upload
         caches, out, done, ran, states = self._megastep(
-            tr, ntr, self._caches, up(self._tables.copy()), up(pos),
-            up(toks), up(temps), up(rem), up(cap), up(act), self._gen,
-            max_ticks=N, ticks=n, eos_id=self.eos_id)
+            tr, ntr, self._caches, self._tables_device(), up(pos),
+            up(self._tokens), self._temps_device(), up(rem), up(cap),
+            up(act), self._gen, max_ticks=N, ticks=n, eos_id=self.eos_id)
         self._caches = caches
         # the ONE host transfer of the megastep
         back = torch.cat([out.reshape(-1), done.to(torch.int32),
@@ -740,6 +874,8 @@ class PagedGenerationServer(_GenerationServerBase):
                 self._finish_if_done(s)
         self._on_megastep_resume()
         self.ragged_steps += n
+        self.launch_rows += n * self.slots
+        self.padded_rows += n * self.slots - ran * len(live)
         self.host_roundtrips += 1
         self.decode_tokens += ran * len(live)
         self.megastep_dispatches += 1
@@ -751,10 +887,216 @@ class PagedGenerationServer(_GenerationServerBase):
         where the host resumes. Tests override it to check the pool's
         invariants at every resume; the server does nothing here."""
 
+    # -- the universal (mixed) megastep ---------------------------------------
+
+    def _mixed_spec_slot(self, req: _GenRequest) -> bool:
+        """Whether a decoding slot drafts a chain on the device inside the
+        mixed megastep: never here; the speculative server drafts on its
+        greedy slots."""
+        return False
+
+    def _on_mixed_spec_tick(self, req: _GenRequest, emitted: int):
+        """Hook: one drafting slot's tick committed `emitted` tokens (the
+        accepted prefix and the verifier's token)."""
+
+    def _overlap_window(self):
+        """Host work run while a mixed dispatch's ticks are enqueued and
+        before their one read back (overlap_dispatch=True): admission. It
+        touches only free slots and free pages, never a live slot's table
+        row, and never preempts; its device work (a copy-on-write page
+        clone, a scale reset, the next dispatch's uploads) is ordered
+        after the enqueued ticks by the stream. Page growth, eviction and
+        defrag stay after the fence (the next _tick_prep)."""
+        self._admit_pending()
+
+    def _mixed_dispatch(self, live, tr, ntr) -> bool:
+        """Serve this tick as one universal megastep when the mode is on;
+        returns whether it did."""
+        if not self.megastep_mixed:
+            return False
+        self._mixed_megastep(live, tr, ntr)
+        return True
+
+    def _mixed_ticks(self, live, pos, pfp, pft, rem, cap, pf_act,
+                     spec_m) -> int:
+        """The ticks the host can prove the device loop may run: the tick
+        limit; the tick on which the first chunk completes (the loop
+        breaks after it); a plain decode row's page room and remaining
+        tokens (one a tick); a drafting row's the same at its slowest
+        advance, one token a tick. An eos and a drafting row's faster
+        advance stop the loop earlier, on the device."""
+        W, D = self._mixed_window, self._spec_depth
+        n = self.megastep_ticks
+        for s in live:
+            if pf_act[s]:
+                n = min(n, -(-int(pft[s] - pfp[s]) // W))
+            else:
+                room = cap[s] - pos[s] - (D if spec_m[s] else 0)
+                n = min(n, int(room), int(rem[s]))
+        return max(n, 0)
+
+    def _mixed_megastep(self, live, tr, ntr):
+        """Up to `megastep_ticks` MIXED ticks in one dispatch
+        (Executor.paged_mixed_megastep_fn): decode rows, mid-prefill
+        chunk rows and device-drafted chains, with one transfer back of
+        the (ticks, slots, depth + 1) tokens, their counts, the finish and
+        prefill-finished flags and the tick count. With overlap_dispatch
+        the host admits between the enqueue and that read back, and
+        `host_overlap_ratio` is the host work's share of the wait. The
+        bookkeeping is replayed tick by tick in the one-tick order; a
+        completing prefill's first token is the one the device drew for
+        it. Break reasons: `chunk` after a chunk completed, `verify` when
+        a drafting slot's next chain would cross its pages, and the decode
+        megastep's `finish`, `page` and `limit`. Ticks enqueued but
+        predicated off count in wasted_ticks, and the generator is set
+        back to the state before the first of them."""
+        P, W, D = self.page_size, self._mixed_window, self._spec_depth
+        N = self.megastep_ticks
+        pos = np.zeros((self.slots,), np.int32)
+        pfp = np.zeros((self.slots,), np.int32)
+        pft = np.zeros((self.slots,), np.int32)
+        rem = np.zeros((self.slots,), np.int32)
+        cap = np.zeros((self.slots,), np.int32)
+        dec_act = np.zeros((self.slots,), np.bool_)
+        pf_act = np.zeros((self.slots,), np.bool_)
+        spec_m = np.zeros((self.slots,), np.bool_)
+        for s in live:
+            req = self._active[s]
+            cap[s] = len(req.pages) * P
+            if self._mid_prefill(s):
+                pf_act[s] = True
+                pfp[s] = req.prefill_pos
+                pft[s] = req.prefill_target
+                rem[s] = req.max_new  # the first token counts
+            else:
+                dec_act[s] = True
+                pos[s] = req.pos
+                rem[s] = req.max_new - len(req.tokens)
+                spec_m[s] = self._mixed_spec_slot(req)
+        n = self._mixed_ticks(live, pos, pfp, pft, rem, cap, pf_act, spec_m)
+        if n == 0:
+            # defensive only (_ensure_pages gives every slot its room):
+            # one unfused tick, and the ledger is rebuilt from the host
+            self._seq_dev = None
+            pre, dec = self._split_live(live)
+            if pre:
+                self._prefill_tick(pre, tr, ntr)
+            if dec:
+                self._decode_tick(dec, tr, ntr)
+            return
+        up = self._upload
+        caches, seq, out, cnt, done, pf_fin, ran, states = self._mixed_fn(
+            tr, ntr, self._caches, self._tables_device(), self._seq_device(),
+            up(pos), up(pfp), up(pft), self._temps_device(), up(rem),
+            up(cap), up(dec_act), up(pf_act), up(spec_m), self._gen,
+            max_ticks=N, window=W, depth=D, ticks=n, eos_id=self.eos_id)
+        self._caches = caches
+        self._seq_dev = seq
+        host_s = 0.0
+        if self.overlap_dispatch:
+            h0 = time.monotonic()
+            self._overlap_window()
+            host_s = time.monotonic() - h0
+        f0 = time.monotonic()
+        # the ONE host transfer of the dispatch: the fence
+        E = D + 1
+        back = torch.cat([out.reshape(-1), cnt.reshape(-1),
+                          done.to(torch.int32), pf_fin.to(torch.int32),
+                          ran.reshape(1)]).cpu().numpy()
+        fence_s = time.monotonic() - f0
+        if self.overlap_dispatch:
+            wait = host_s + fence_s
+            self.host_overlap_ratio = host_s / wait if wait > 0 else 0.0
+        k = N * self.slots
+        out_np = back[:k * E].reshape(N, self.slots, E)
+        cnt_np = back[k * E:k * (E + 1)].reshape(N, self.slots)
+        done_np = back[k * (E + 1):k * (E + 1) + self.slots]
+        pf_np = back[k * (E + 1) + self.slots:-1]
+        ran = int(back[-1])
+        if ran < n:
+            self._gen.set_state(states[ran])
+            self.megastep_wasted_ticks += n - ran
+        pf_slots = [s for s in live if pf_act[s]]
+        dec_slots = [s for s in live if dec_act[s]]
+        if pf_slots:
+            self.prefill_ticks += 1
+            if dec_slots:
+                for s in pf_slots:
+                    self._active[s].decode_overlap_ticks += ran
+        # replay the bookkeeping tick by tick in the one-tick order; chunk
+        # completions and finishes land on the last run tick only (the
+        # device loop stops after them)
+        fused = dtok = 0
+        for t in range(ran):
+            self._steps += 1
+            last = t == ran - 1
+            for s in pf_slots:
+                req = self._active[s]
+                if req is None or req.prefill_pos >= req.prefill_target:
+                    continue
+                take = min(W, req.prefill_target - req.prefill_pos)
+                fused += take
+                req.prefill_pos += take
+                req.prefill_tokens += take
+                self._publish_prefix(req, req.prefill_pos)
+                if pf_np[s] and last:
+                    # _prefill_tick's completion sequence: the tail is
+                    # published while seq_tokens() is still the prompt,
+                    # then the device's first token
+                    self._publish_tail(req)
+                    self._first_token_from_device(s, req,
+                                                  int(out_np[t, s, 0]))
+                    self._finish_if_done(s)
+                    if self._active[s] is not None:
+                        self._on_prefill_complete(s)
+            for s in dec_slots:
+                req = self._active[s]
+                if req is None:
+                    continue
+                fused += (D + 1) if spec_m[s] else 1
+                c = int(cnt_np[t, s])
+                for j in range(c):
+                    tok = int(out_np[t, s, j])
+                    req.pos += 1
+                    req.tokens.append(tok)
+                    self._tokens[s] = tok
+                dtok += c
+                if spec_m[s]:
+                    self._on_mixed_spec_tick(req, c)
+                if c:
+                    self._publish_prefix(req, req.pos)
+                    self._finish_if_done(s)
+        self._on_megastep_resume()
+        if done_np.any():
+            reason = "finish"
+        elif pf_np.any():
+            reason = "chunk"
+        elif ran < N:
+            # the slot that stopped the loop needs pages: a drafting slot
+            # whose next chain would cross them is a verify break, a plain
+            # decode row at its page boundary a page break
+            blocked = any(spec_m[s] and self._active[s] is not None
+                          and self._active[s].pos + D + 1 > cap[s]
+                          for s in dec_slots)
+            reason = "verify" if blocked else "page"
+        else:
+            reason = "limit"
+        rows = n * self.slots * max(W, D + 1)
+        self.ragged_steps += n
+        self.launch_rows += rows
+        self.padded_rows += rows - fused
+        self.host_roundtrips += 1
+        self.decode_tokens += dtok
+        self.megastep_dispatches += 1
+        self.megastep_ticks_run += ran
+        self.megastep_breaks[reason] += 1
+
     def _loop_body(self, tr, ntr):
         while not self._stop.is_set():
             live = self._tick_prep()
             if live is None:
+                continue
+            if self._mixed_dispatch(live, tr, ntr):
                 continue
             pre, dec = self._split_live(live)
             if pre:

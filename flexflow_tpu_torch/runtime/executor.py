@@ -6,10 +6,13 @@ program, the port walks the same order eagerly, calling each node's
 PyTorch lowering (ops/torch_ops.py). It draws the parameters, runs the
 forward pass for inference and training, the training step (loss,
 autograd backward through the hand-written attention kernels, optimizer
-update) and the evaluation step, and owns the paged KV pools, the one
-ragged serving step, and what serving builds on it: the speculative
-tree-verify step and accepted-path commit, and the decode megastep. Where the reference returns a jitted step function
-(`train_step()`, `ragged_step_fn()`), the port's method is the step.
+update) and the evaluation step, and owns the dense KV caches and their
+decode step (FFModel.generate, the dense server), the paged KV pools, the
+one ragged serving step, and what serving builds on it: the speculative
+tree-verify step and accepted-path commit, the decode megastep and the
+universal (mixed) megastep. Where the reference returns a jitted step
+function (`train_step()`, `ragged_step_fn()`), the port's method is the
+step.
 """
 
 from __future__ import annotations
@@ -149,8 +152,9 @@ class Executor:
         `training` and remat="attention" each attention lowering runs
         under torch.utils.checkpoint (non-reentrant): its intermediates
         are recomputed in the backward pass instead of saved, as the
-        reference's jax.checkpoint does. With `kv_caches` + `page_tables`
-        attention nodes run the PAGED step: kv_caches are per-node
+        reference's jax.checkpoint does. With `kv_caches` alone attention
+        nodes run the DENSE-cache step at `cache_position` (decode_fn).
+        With `kv_caches` + `page_tables` attention nodes run the PAGED step: kv_caches are per-node
         {"k", "v"} page pools (plus "k_scale"/"v_scale" for an int8
         pool), updated in place and reported in `cache_out`, and
         `ragged` = (q_lens, depths, anc) is the per-entry work descriptor
@@ -270,6 +274,53 @@ class Executor:
         """The sink output (the real softmax included) for one batch
         (the reference's forward_fn())."""
         return self.run_forward(trainable, nontrainable, inputs)
+
+    # ------------------------------------------------------------------
+    # dense KV caches + their decode step
+
+    def init_kv_cache(self, batch: int, max_len: int,
+                      dtype: Optional[torch.dtype] = None):
+        """Per-attention-node zeroed (batch, max_len, Hkv, D) "k"/"v"
+        buffers on the device for dense autoregressive decoding, at each
+        attention's activation dtype unless `dtype` is given.
+        RING_ATTENTION nodes decode through the same MHA cache branch (a
+        decode step has no sequence to cut). A PIPELINE composite raises:
+        it is not ported."""
+        caches = {}
+        for n in self.topo:
+            if n.op_type == OpType.PIPELINE:
+                raise NotImplementedError(
+                    "PIPELINE composites are not ported yet (ROADMAP.md, "
+                    "queue 1 item 8), nor their layer-stacked decode cache")
+            if n.op_type not in _ATTENTION_OPS:
+                continue
+            ins = self.graph.input_shapes(n)
+            dt = dtype or (ins[0].dtype.torch_dtype if ins
+                           else torch.bfloat16)
+            shape = (batch, max_len, n.attrs.num_kv, n.attrs.kdim)
+            caches[node_key(n)] = {
+                name: torch.zeros(shape, dtype=dt, device=self.device)
+                for name in ("k", "v")}
+        if not caches:
+            raise ValueError("generate() needs attention nodes "
+                             "(MULTIHEAD_ATTENTION or RING_ATTENTION)")
+        return caches
+
+    @torch.inference_mode()
+    def decode_fn(self, trainable, nontrainable, caches, pos, *inputs):
+        """(params, caches, pos, ids) -> (probs, caches): one prefill or
+        decode step through the dense-cache attention (ops/torch_ops.py
+        cached_attention). `pos` is a Python int (every row at the same
+        position: generate, the dense admission's prefill) or a (B,)
+        tensor of per-row positions (the dense server's decode). The
+        caches are written in place and returned. (The reference's
+        decode_fn() returns a jitted step; here the method is the
+        step.)"""
+        cache_out: Dict[str, Dict[str, torch.Tensor]] = {}
+        out = self.run_forward(trainable, nontrainable, inputs,
+                               kv_caches=caches, cache_position=pos,
+                               cache_out=cache_out)
+        return out, cache_out
 
     # ------------------------------------------------------------------
     # paged KV pools + the ragged step
@@ -455,6 +506,164 @@ class Executor:
             halted = halted | ~room | torch.any(fin)
         states.append(gen.get_state())
         return caches, out, done, ran, states
+
+    @torch.inference_mode()
+    def paged_mixed_megastep_fn(self, trainable, nontrainable, caches,
+                                page_tables, seq, pos, pf_pos, pf_target,
+                                temps, remaining, cap_rows, dec_active,
+                                pf_active, spec_mask, gen, *,
+                                max_ticks: int, window: int = 1,
+                                depth: int = 0,
+                                ticks: Optional[int] = None, eos_id=None):
+        """The UNIVERSAL megastep: up to `max_ticks` fused ticks that carry
+        decode rows, mid-prefill chunk rows and on-device drafted
+        speculative chains in one dispatch, with no read back to the host
+        (the reference's mixed `lax.while_loop`, executor.py
+        paged_mixed_megastep_fn).
+
+        (params, pools, page_tables, seq, pos, pf_pos, pf_target, temps,
+         remaining, cap_rows, dec_active, pf_active, spec_mask, gen) ->
+            (pools, seq, out_tokens, out_counts, done, pf_fin, ticks_run,
+             gen_states)
+
+        `seq` is the (slots, Lbuf + 1) int32 ledger of committed tokens
+        (a mid-prefill slot's row holds its whole prompt; column Lbuf is
+        the trash column of masked scatters). Every tick is ONE ragged
+        step of window Wl = max(window, depth + 1): a live prefill row
+        feeds seq[pf_pos .. pf_pos + take - 1] (take = min(window,
+        pf_target - pf_pos)), a plain decode row seq[pos], and a greedy
+        `spec_mask` row (with depth > 0) its width-1 unigram chain:
+        seq[pos] and the `depth` tokens after the most recent earlier
+        occurrence of seq[pos] (zeros where there is none). Acceptance is
+        the device argmax walk over the chain; a drafting row emits the
+        accepted prefix and the verifier's next token, a decode row and a
+        completing prefill one pick_tokens draw of the tick's (slots, V)
+        draw. Emitted tokens scatter back into `seq`. The chain is
+        written at rows pos .. pos + depth, so the accepted prefix needs
+        no commit; rejected rows sit past the advanced write head, and the
+        next tick's depth + 1 writes start at the first of them, before
+        its attention reads.
+
+        `ticks` (default max_ticks) ticks are enqueued. A tick runs only
+        where the reference's loop runs it: no slot finished and no
+        prefill chunk completed on an earlier tick, and every decoding
+        slot's next rows (pos + depth + 1 drafting, pos + 1 decoding) lie
+        inside `cap_rows`. A tick that must not run is predicated off on
+        the device: its q_lens are 0 (no attention work, K/V writes to the
+        null page), nothing is scattered into `seq` but the trash column,
+        its tokens are -1 and the tick counter stands still. The host
+        knows every stop but an eos and a drafting row's advance, so it
+        enqueues the ticks that may run counting a drafting row at one
+        token a tick; the rest are predicated off.
+
+        Returns the pools and `seq` (both updated in place), the
+        (max_ticks, slots, depth + 1) int32 tokens (-1 padded), the
+        (max_ticks, slots) emission counts, the done and prefill-finished
+        flags, the 0-d count of ticks run, and the generator's state
+        before each enqueued tick and after the last (set_state(
+        gen_states[n]) after reading n back puts the generator where n
+        unfused ticks would have left it)."""
+        from flexflow_tpu_torch.serving import pick_tokens
+
+        N = int(max_ticks)
+        n = N if ticks is None else int(ticks)
+        if not 0 <= n <= N:
+            raise ValueError(f"ticks must lie in [0, {N}], got {ticks}")
+        W = max(int(window), 1)
+        D = max(int(depth), 0)
+        Wl = max(W, D + 1)
+        E = D + 1  # emission capacity a slot a tick
+        slots = pos.shape[0]
+        dev = pos.device
+        Lb = seq.shape[1] - 1
+        i32 = torch.int32
+        win = torch.arange(Wl, dtype=torch.int64, device=dev)
+        ej = torch.arange(E, dtype=torch.int64, device=dev)
+        idxs = torch.arange(seq.shape[1], dtype=torch.int64, device=dev)
+        depths = win.to(i32).expand(slots, Wl).contiguous()
+        anc = torch.tril(torch.ones((Wl, Wl), dtype=torch.bool, device=dev)
+                         ).expand(slots, Wl, Wl).contiguous()
+        spec_on = (dec_active & spec_mask if D > 0
+                   else torch.zeros_like(dec_active))
+        out = torch.full((N, slots, E), -1, dtype=i32, device=dev)
+        cnts = torch.zeros((N, slots), dtype=i32, device=dev)
+        done = torch.zeros_like(dec_active)
+        pf_fin = torch.zeros_like(pf_active)
+        halted = torch.zeros((), dtype=torch.bool, device=dev)
+        ran = torch.zeros((), dtype=i32, device=dev)
+        p, pfp, rem = pos, pf_pos, remaining
+        states = []
+        for t in range(n):
+            need = torch.where(spec_on, p + D + 1, p + 1)
+            room = torch.all(~dec_active | (need <= cap_rows))
+            go = room & ~halted
+            pf_live = pf_active & (pfp < pf_target) & go
+            take = torch.where(pf_live, torch.clamp(pf_target - pfp, max=W),
+                               0)
+            q_lens = torch.where(pf_live, take, torch.where(
+                spec_on, D + 1, dec_active.to(i32))) * go.to(i32)
+            base = torch.where(pf_live, pfp, p)
+            cols = (base.long()[:, None] + win[None, :]).clamp(0, Lb)
+            ids = torch.gather(seq, 1, cols)
+            if D > 0:
+                last = torch.gather(seq, 1, p.long().clamp(0, Lb)[:, None])
+                hit = (seq == last) & (idxs[None, :] < p.long()[:, None])
+                j = torch.where(hit, idxs[None, :], -1).amax(dim=1)
+                dcols = j[:, None] + 1 + ej[None, :D]
+                dvalid = (j[:, None] >= 0) & (dcols <= p.long()[:, None])
+                draft = torch.where(dvalid, torch.gather(
+                    seq, 1, dcols.clamp(0, Lb)), 0)
+                chain = torch.cat([last, draft, seq.new_zeros(
+                    (slots, Wl - E))], dim=1)
+                ids = torch.where(spec_on[:, None], chain, ids)
+            probs, caches = self.ragged_step_fn(
+                trainable, nontrainable, caches, page_tables, base.to(i32),
+                q_lens.to(i32), depths, anc, ids)
+            lastrow = (q_lens.long() - 1).clamp(0, Wl - 1)
+            probs_last = torch.gather(
+                probs, 1, lastrow[:, None, None].expand(
+                    -1, 1, probs.shape[-1]))[:, 0, :]
+            states.append(gen.get_state())
+            picked = pick_tokens(probs_last, temps, gen)
+            completing = pf_live & (pfp + take >= pf_target)
+            emitting = (dec_active & go) | completing
+            if D > 0:
+                preds = torch.argmax(probs[:, :E, :], dim=-1).to(i32)
+                match = (draft == preds[:, :D]) & spec_on[:, None]
+                acc = torch.cumprod(match.to(i32), dim=1).sum(dim=1)
+                base_cnt = torch.where(spec_on, acc + 1, 1)
+                emit = torch.where(spec_on[:, None], preds, torch.where(
+                    ej[None, :] == 0, picked[:, None], -1))
+            else:
+                base_cnt = torch.ones_like(rem)
+                emit = picked[:, None]
+            cnt = torch.where(emitting, torch.minimum(
+                base_cnt, rem.clamp(min=0)), 0).to(i32)
+            valid = ej[None, :] < cnt[:, None]
+            if eos_id is not None:
+                is_eos = valid & (emit == int(eos_id))
+                first = torch.where(is_eos, ej[None, :], E).amin(dim=1)
+                cnt = torch.where(first < E, torch.minimum(
+                    cnt, (first + 1).to(i32)), cnt)
+                valid = ej[None, :] < cnt[:, None]
+            oldc = torch.where(completing, pf_target, p + 1)
+            scols = torch.where(valid, (oldc.long()[:, None] + ej[None, :])
+                                .clamp(0, Lb), Lb)
+            seq.scatter_(1, scols, emit.to(seq.dtype))
+            p = torch.where(cnt > 0, oldc + cnt - 1, p)
+            pfp = torch.where(pf_live, pfp + take, pfp)
+            rem = torch.where(emitting, rem - cnt, rem)
+            fin = emitting & (cnt > 0) & (rem <= 0)
+            if eos_id is not None:
+                fin = fin | (first < E)
+            out[t] = torch.where(valid, emit, -1)
+            cnts[t] = cnt
+            done = done | fin
+            pf_fin = pf_fin | completing
+            ran = ran + go.to(i32)
+            halted = halted | ~room | torch.any(fin) | torch.any(completing)
+        states.append(gen.get_state())
+        return caches, seq, out, cnts, done, pf_fin, ran, states
 
 
 def _commit_rows_quant(buf, sc, sp, so, dp, do):

@@ -3,10 +3,13 @@ half of flexflow_tpu/serving.py).
 
 The request queue, loop thread, submit/generate/stop contract, sampling
 and the finish/release bookkeeping that the paged scheduler
-(paged/scheduler.py) builds on. The dense GenerationServer, the HTTP
-front end and the obs/reqlog/SLO machinery are not ported yet.
+(paged/scheduler.py) builds on, and the dense GenerationServer, the
+default: every slot owns a max_len KV buffer, decoded through the MHA
+lowering's dense-cache branch (Executor.decode_fn). The HTTP front end,
+the batch Server and the obs/reqlog/SLO machinery are not ported yet.
 
   ff = FFModel(FFConfig(device="cuda")); build_llama(ff, cfg); ff.compile()
+  server = ff.serve_generation(slots=4, max_len=2048)   # dense
   server = ff.serve_generation(paged=True, slots=4, max_len=2048)
   tokens = server.submit(prompt_ids, max_new_tokens=64).result(timeout=60)
   server.stop()
@@ -55,7 +58,8 @@ class _GenRequest:
                  "done_t", "prefill_tokens", "peak_pages", "prefill_pos",
                  "prefill_target", "prefill_seq", "hashed_blocks",
                  "preemptions", "cached_prefill_tokens", "spec_steps",
-                 "spec_drafted", "spec_accepted", "spec_emitted")
+                 "spec_drafted", "spec_accepted", "spec_emitted",
+                 "decode_overlap_ticks")
 
     def __init__(self, prompt: np.ndarray, max_new: int, temperature: float):
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -88,6 +92,7 @@ class _GenRequest:
         self.spec_drafted = 0
         self.spec_accepted = 0
         self.spec_emitted = 0
+        self.decode_overlap_ticks = 0   # decode ticks run mid-prefill
 
     def seq_tokens(self) -> np.ndarray:
         """prompt + generated-so-far: what a (re-)prefill after a
@@ -114,6 +119,7 @@ class _GenRequest:
             "decode_tokens": len(self.tokens),
             "pages_held_peak": self.peak_pages,
             "preemptions": self.preemptions,
+            "decode_overlap_ticks": self.decode_overlap_ticks,
         }
         if self.spec_steps:
             m.update({
@@ -238,17 +244,55 @@ class _GenerationServerBase:
 
     # -- shared scheduler pieces -----------------------------------------
 
+    @staticmethod
+    def _bucket(n: int) -> int:
+        """The launch rows of an n-row prefill: the next power of two from
+        8 (the dense admission's bucket, the unpacked prefill's window)."""
+        b = 8
+        while b < n:
+            b *= 2
+        return b
+
     def _sample_first_token(self, slot: int, req: _GenRequest, row_probs):
         """Pick a request's FIRST token from its last prompt row's (1, V)
         probs, append it, and stamp TTFT."""
         temps = torch.full((1,), req.temperature, dtype=torch.float32,
                            device=row_probs.device)
         tok = int(pick_tokens(row_probs, temps, self._gen)[0])
+        self._first_token_from_device(slot, req, tok)
+
+    def _first_token_from_device(self, slot: int, req: _GenRequest,
+                                 tok: int):
+        """Commit a request's FIRST token when it is already drawn (the
+        universal megastep draws a completing prefill's first token from
+        the tick's own (slots, V) draw, so the generator is not drawn
+        again): append it and stamp TTFT."""
         req.pos = len(req.seq_tokens())  # before the append below
         req.tokens.append(tok)
         self._tokens[slot] = tok
         if req.first_token_t is None:
             req.first_token_t = time.monotonic()
+
+    def _admit_common(self, req: _GenRequest, slot: int, padded_len: int,
+                      scatter_rows):
+        """The dense admission: one prefill of the prompt padded right to
+        `padded_len` rows (the pad rows land past the slot's position, so
+        they stay masked until decode overwrites them) through the
+        one-slot prefill caches, its K/V rows handed to `scatter_rows`,
+        and the first token picked from the last real prompt row."""
+        tr, ntr = self._params
+        seq = req.seq_tokens()
+        n = len(seq)
+        padded = np.zeros((1, padded_len), np.int32)
+        padded[0, :n] = seq
+        probs, upd = self._prefill_step(
+            tr, ntr, self._prefill_caches, 0,
+            torch.from_numpy(padded).to(self.device))
+        scatter_rows(upd)
+        req.admit_t = time.monotonic()
+        req.prefill_tokens += n
+        self._sample_first_token(slot, req, probs[:, n - 1, :])
+        self._active[slot] = req
 
     def _release_slot(self, slot: int, req: _GenRequest,
                       completed: bool = False):
@@ -312,6 +356,85 @@ class _GenerationServerBase:
             self._fail_or_cancel(req)
 
 
+class GenerationServer(_GenerationServerBase):
+    """Continuous batching over a DENSE KV cache (serve_generation's
+    default, paged=False): each of `slots` owns a max_len buffer a
+    layer. A tick admits queued requests into free slots (one bucketed
+    prefill each, its K/V rows copied into the slot's rows), then
+    advances every live slot one token in one decode step at per-slot
+    positions (the MHA lowering's cached_attention). A finished request
+    frees its slot at once. The step is plain PyTorch, as the reference
+    computes it outside any Pallas kernel; for memory that scales with
+    the tokens in flight, pass paged=True. Greedy tokens equal the JAX
+    package's; sampled ones match it in distribution only
+    (pick_tokens)."""
+
+    def __init__(self, ff, slots: int = 4, max_len: int = 512,
+                 eos_id: Optional[int] = None, seed: int = 0,
+                 defer_start: bool = False):
+        super().__init__(ff, slots, max_len, eos_id, seed)
+        ex = ff.executor
+        self._step = ex.decode_fn
+        self._prefill_step = self._step  # one step, two input shapes
+        self._caches = ex.init_kv_cache(self.slots, self.max_len)
+        # a one-slot cache of the same rows, which admission prefills
+        self._prefill_caches = ex.init_kv_cache(1, self.max_len)
+        self._start(defer_start)
+
+    def _admit(self, req: _GenRequest, slot: int):
+        """Bucketed prefill into `slot` (_admit_common), its K/V rows
+        copied into the slot's dense rows."""
+
+        def scatter(upd):
+            for key, bufs in upd.items():
+                for name, rows in bufs.items():
+                    self._caches[key][name][slot].copy_(rows[0])
+
+        self._admit_common(
+            req, slot, min(self._bucket(len(req.seq_tokens())),
+                           self.max_len), scatter)
+        self._finish_if_done(slot)
+
+    def _loop_body(self, tr, ntr):
+        dev = self.device
+        while not self._stop.is_set():
+            admitted = False
+            for slot in range(self.slots):
+                if self._active[slot] is not None:
+                    continue
+                try:
+                    req = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                self._admit(req, slot)
+                admitted = True
+            live = [s for s in range(self.slots)
+                    if self._active[s] is not None]
+            if not live:
+                if not admitted:
+                    time.sleep(0.001)
+                continue
+            # one decode step for the whole pool (idle slots compute too)
+            pos = np.array([self._active[s].pos if self._active[s] else 0
+                            for s in range(self.slots)], np.int32)
+            temps = np.array([self._active[s].temperature
+                              if self._active[s] else 0.0
+                              for s in range(self.slots)], np.float32)
+            probs, self._caches = self._step(
+                tr, ntr, self._caches, torch.from_numpy(pos).to(dev),
+                torch.from_numpy(self._tokens[:, None].copy()).to(dev))
+            toks = pick_tokens(probs[:, -1, :],
+                               torch.from_numpy(temps).to(dev),
+                               self._gen).cpu().numpy()
+            self._steps += 1
+            for s in live:
+                req = self._active[s]
+                req.pos += 1
+                req.tokens.append(int(toks[s]))
+                self._tokens[s] = toks[s]
+                self._finish_if_done(s)
+
+
 def not_ported(what: str, item: int):
     """Refuse a knob the port does not serve yet, naming the ROADMAP.md
     queue-1 item that ports it."""
@@ -333,41 +456,64 @@ def serve_generation(ff, slots: int = 4, max_len: int = 512,
                      kv_quant_canary: Optional[int] = None, host_tier=None,
                      defer_start: bool = False):
     """Continuous-batching generation endpoint over a compiled causal-LM
-    FFModel, through the block-paged KV cache (paged/scheduler.py), at
-    the reference's defaults: prefix cache and preemption on.
-    `speculate=SpecConfig(...)` returns the speculative server
-    (spec/server.py); `megastep_ticks=N` runs up to N pure-decode ticks
-    per host round trip. Only the paged servers are ported; each knob they
-    do not honour yet raises NotImplementedError naming its ROADMAP item,
-    and the reference's invalid combinations raise its ValueErrors.
+    FFModel, with the reference's defaults. `paged=False` (the default)
+    returns the dense GenerationServer; `paged=True` serves through the
+    block-paged KV cache (paged/scheduler.py) with the prefix cache and
+    preemption on. `speculate=SpecConfig(...)` returns the speculative
+    server (spec/server.py); `megastep_ticks=N` runs up to N pure-decode
+    ticks per host round trip; `megastep_mixed=True` makes every tick a
+    universal megastep (chunk rows and, with speculate, device-drafted
+    chains fused with decode rows), `overlap_dispatch=True` admits while
+    its ticks run; `ragged_pack=False` launches the unpacked prefill.
+    The host KV tier and the kv_quant_canary shadow cache are not ported
+    and raise NotImplementedError naming their ROADMAP item; the
+    reference's invalid combinations raise its ValueErrors.
     `defer_start=True` builds the server without starting its loop
     (start() does)."""
     megastep_ticks = int(megastep_ticks)
     if megastep_ticks < 1:
         raise ValueError(
             f"megastep_ticks must be >= 1, got {megastep_ticks}")
-    if megastep_mixed:
-        not_ported("megastep_mixed (the universal megastep)", 7)
-    if overlap_dispatch:
-        not_ported("overlap_dispatch", 7)
-    if megastep_ticks > 1 and (not paged or speculate is not None):
+    if megastep_mixed and not paged:
+        raise ValueError(
+            "megastep_mixed fuses the paged mixed tick; pass paged=True")
+    if overlap_dispatch and not megastep_mixed:
+        raise ValueError(
+            "overlap_dispatch overlaps host work with the in-flight "
+            "MIXED megastep dispatch; pass megastep_mixed=True")
+    if (megastep_ticks > 1 and not megastep_mixed
+            and (not paged or speculate is not None)):
         raise ValueError(
             "megastep_ticks > 1 rides the paged one-tick decode loop; "
             "pass paged=True and no speculate (the speculative server's "
-            "verify step already emits multiple tokens per dispatch)")
+            "verify step already emits multiple tokens per dispatch), "
+            "or megastep_mixed=True to fuse spec verify into the "
+            "universal megastep")
     if speculate is not None and not paged:
         raise ValueError(
             "speculative decoding rides the paged KV cache (rollback is a "
             "position rewind, not a cache copy); pass paged=True")
     if not paged:
-        raise NotImplementedError(
-            "the dense GenerationServer is not ported yet; pass paged=True "
-            "(ROADMAP.md, queue 1 item 6)")
+        if kv_dtype != "auto":
+            raise ValueError(
+                "kv_dtype rides the paged KV pool; pass paged=True")
+        if kv_quant_canary:
+            raise ValueError(
+                "kv_quant_canary probes the paged KV pool's quantization "
+                "error; pass paged=True")
+        if host_tier is not None and host_tier != 0:
+            raise ValueError(
+                "host_tier spills the paged KV pool's content-addressed "
+                "pages; pass paged=True")
+        return GenerationServer(ff, slots=slots, max_len=max_len,
+                                eos_id=eos_id, seed=seed,
+                                defer_start=defer_start)
     kw = dict(slots=slots, max_len=max_len, eos_id=eos_id, seed=seed,
               page_size=page_size, num_pages=num_pages,
               preemption=preemption, prefix_cache=prefix_cache,
               prefill_chunk=prefill_chunk, ragged_pack=ragged_pack,
-              megastep_ticks=megastep_ticks, kv_dtype=kv_dtype,
+              megastep_ticks=megastep_ticks, megastep_mixed=megastep_mixed,
+              overlap_dispatch=overlap_dispatch, kv_dtype=kv_dtype,
               kv_quant_canary=kv_quant_canary, host_tier=host_tier,
               defer_start=defer_start)
     if speculate is not None:

@@ -5,8 +5,8 @@ Layered on flexflow_tpu_torch.paged: a TREE of drafted tokens is verified
 in one ragged step instead of one token per step.
 
   config.py   SpecConfig (drafter choice, tree width/depth)
-  drafter.py  drafters: n-gram prompt lookup (zero weights); the
-              draft-model drafter raises until the dense decode is ported
+  drafter.py  drafters: n-gram prompt lookup (zero weights), a draft
+              model decoded through FFModel.generate
   tree.py     token-tree trie, ancestor masks, greedy accept
   server.py   SpeculativePagedServer: draft -> tree-verify -> commit
 

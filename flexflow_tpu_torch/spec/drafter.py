@@ -7,9 +7,8 @@ and the scheduler keeps the longest verified path. Drafters run on the
 host between ticks, so a bad draft costs throughput, never correctness.
 
   NgramDrafter       prompt lookup: zero extra weights
-  DraftModelDrafter  a second (small) compiled FFModel; it decodes through
-                     the dense FFModel.generate, which the port does not
-                     have yet, so it refuses to construct
+  DraftModelDrafter  a second (small) compiled FFModel, greedy-decoded
+                     through the dense FFModel.generate
 """
 
 from __future__ import annotations
@@ -69,12 +68,21 @@ class NgramDrafter(Drafter):
 
 class DraftModelDrafter(Drafter):
     """Small-draft-model speculation: greedy-decode `depth` tokens from a
-    second compiled FFModel, one chain per step. The reference decodes
-    the draft through the dense FFModel.generate, which the port has not
-    ported yet, so this drafter raises."""
+    second compiled FFModel (its own executor, its own dense KV caches:
+    FFModel.generate), one chain per step; a model drafter expresses
+    confidence through depth, not branching. Each draft prefills the
+    whole context anew, as the reference's does. Greedy, so its chains
+    equal the JAX drafter's on the same weights."""
 
     def __init__(self, draft_ff):
-        raise NotImplementedError(
-            "DraftModelDrafter decodes through the dense FFModel.generate, "
-            "which is not ported to PyTorch yet (ROADMAP.md, queue 1 item "
-            "6); use the n-gram drafter")
+        if getattr(draft_ff, "_executor", None) is None:
+            raise ValueError(
+                "DraftModelDrafter needs a COMPILED FFModel (call "
+                ".compile() on the draft model first)")
+        self.ff = draft_ff
+
+    def draft(self, context: np.ndarray, width: int,
+              depth: int) -> List[np.ndarray]:
+        ctx = np.asarray(context, np.int32).reshape(1, -1)
+        out = self.ff.generate(ctx, max_new_tokens=depth)
+        return [np.asarray(out[0], np.int32)]

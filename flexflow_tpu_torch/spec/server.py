@@ -28,6 +28,14 @@ Tick flow (vs the base scheduler's one-token step):
 Greedy output is token-identical to the non-speculative paged path: every
 emitted token is the model's argmax continuation of its own committed
 prefix.
+
+With megastep_mixed=True every tick is instead one universal megastep
+(paged/scheduler.py): greedy slots draft a width-1 chain on the device
+from their own committed tokens (the unigram draft of
+Executor.paged_mixed_megastep_fn; the host drafter is not consulted),
+verify and accept it there, and sampled slots decode one token a tick.
+With ragged_pack=False the verify launch carries an item for every slot,
+q_len 0 for the idle and mid-prefill ones, as before ragged packing.
 """
 
 from __future__ import annotations
@@ -127,12 +135,38 @@ class SpeculativePagedServer(PagedGenerationServer):
         }
         return m
 
+    # -- universal megastep hooks -------------------------------------------
+
+    def _mixed_spec_slot(self, req) -> bool:
+        # greedy slots draft on the device; sampled ones decode a token a
+        # tick (exactness under sampling needs rejection sampling)
+        return req.temperature <= 0.0
+
+    def _on_mixed_spec_tick(self, req, emitted: int):
+        """One drafting slot's fused verify: `emitted` tokens committed
+        (the accepted draft prefix and the verifier's token). accepted =
+        emitted - 1 undercounts by at most one on a tick cut by max_new
+        or an eos, as the reference's does: it deflates acceptance,
+        never inflates it."""
+        D = max(self._spec_depth, 1)
+        accepted = max(emitted - 1, 0)
+        self.spec_steps += 1
+        self.spec_drafted += D
+        self.spec_accepted += accepted
+        self.spec_emitted += emitted
+        req.spec_steps += 1
+        req.spec_drafted += D
+        req.spec_accepted += accepted
+        req.spec_emitted += emitted
+
     # -- the speculative tick ----------------------------------------------
 
     def _loop_body(self, tr, ntr):
         while not self._stop.is_set():
             live = self._tick_prep()
             if live is None:
+                continue
+            if self._mixed_dispatch(live, tr, ntr):
                 continue
             # chunked prefill rides the same tick as in the base loop:
             # mid-prefill slots advance one budgeted chunk, then the
@@ -153,7 +187,10 @@ class SpeculativePagedServer(PagedGenerationServer):
         T = self.spec.max_nodes
         C = self.spec.depth + 1  # most rows committed a tick (path + bonus)
         # draft: one tree item per live greedy slot; sampled slots skip
-        # the drafter (their accept path is the root's draw only)
+        # the drafter (their accept path is the root's draw only). The
+        # items are the live slots, or with ragged_pack=False every slot
+        # in slot order, the idle and mid-prefill ones q_len-0 fillers
+        order = live if self.ragged_pack else list(range(self.slots))
         trees = {}
         parents = []
         for s in live:
@@ -169,22 +206,25 @@ class SpeculativePagedServer(PagedGenerationServer):
             drafted = tree.n_nodes - 1
             self.spec_drafted += drafted
             req.spec_drafted += drafted
-        anc = iter(ancestor_masks(np.stack(parents)))
+        anc = iter(ancestor_masks(np.stack(parents)) if parents else ())
         pos = np.array([self._active[s].pos if self._active[s] else 0
                         for s in range(self.slots)], np.int32)
         # items: a tree (q_len = its real node count; padding nodes are
-        # skipped work whose writes land in the null page) or one row of
-        # the last sampled token for a sampled slot
+        # skipped work whose writes land in the null page), one row of
+        # the last sampled token for a sampled slot, or a q_len-0 filler
         items = []
-        for s in live:
+        for s in order:
             req = self._active[s]
             if s in trees:
                 tree = trees[s]
                 items.append((s, req.pos, tree.tokens[:tree.n_nodes],
                               tree.depths, next(anc)))
-            else:
+            elif s in live:
                 items.append((s, req.pos, [req.tokens[-1]], None, None))
+            else:
+                items.append((s, 0, [], None, None))
         probs = self._launch(items, T, tr, ntr)
+        self._count_decode_overlap()
 
         # accept: the per-node argmaxes for the walk and the root rows'
         # draw for sampled slots (scattered back to slot order, so the
@@ -192,21 +232,19 @@ class SpeculativePagedServer(PagedGenerationServer):
         # on the device; only (items, max_nodes) + (slots,) ints cross to
         # the host, in one transfer, never the probabilities
         dev = self.device
-        temps = torch.from_numpy(np.array(
-            [self._active[s].temperature if self._active[s] else 0.0
-             for s in range(self.slots)], np.float32)).to(dev)
-        idx = torch.from_numpy(np.array(live, np.int64)).to(dev)
+        idx = torch.from_numpy(np.array(order, np.int64)).to(dev)
         root = probs.new_zeros((self.slots, probs.shape[-1]))
         root[idx] = probs[:, 0, :]
-        sampled = pick_tokens(root, temps, self._gen)
+        sampled = pick_tokens(root, self._temps_device(), self._gen)
         back = torch.cat([torch.argmax(probs, dim=-1).to(torch.int32)
                           .reshape(-1), sampled]).cpu().numpy()
-        preds = back[:len(live) * T].reshape(len(live), T)
-        sampled = back[len(live) * T:]
+        preds = back[:len(order) * T].reshape(len(order), T)
+        sampled = back[len(order) * T:]
+        item_of = {s: i for i, s in enumerate(order)}
         plans = {}
-        for i, s in enumerate(live):
+        for s in live:
             if s in trees:
-                path, emitted = accept_greedy(trees[s], preds[i])
+                path, emitted = accept_greedy(trees[s], preds[item_of[s]])
                 plans[s] = (path, emitted[:-1], emitted[-1])
             else:
                 plans[s] = ([0], [], int(sampled[s]))
@@ -239,7 +277,7 @@ class SpeculativePagedServer(PagedGenerationServer):
             req.spec_emitted += L
             self.spec_emitted += L
         self._caches = self._commit(
-            self._caches, torch.from_numpy(self._tables).to(dev),
+            self._caches, self._tables_device(),
             torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev))
         for s in live:
             # publish AFTER the commit: only rows below the advanced

@@ -1187,6 +1187,75 @@ def test_ragged_kernels_at_tree_window_match_plain_version(dtype, pool):
         assert not got[b, ql:].any()
 
 
+def _wide_case(window, seed, H=32, Hkv=8, D=128, P=64, N=129, MAXP=32):
+    """One entry at a window wider than one block's rows hold at
+    Llama-3-8B's attention (rep 4, D 128): the unpacked prefill's launch
+    of a 13-token chunk (window 16) or a 64-token one (window 64), or a
+    65-node draft tree (SpecConfig(width=8, depth=8)'s max_nodes), every
+    node live, under its ancestor mask."""
+    from flexflow_tpu_torch.spec.tree import ancestor_masks, build_tree
+
+    rs = np.random.RandomState(seed)
+    anc = np.zeros((1, window, window), bool)
+    if window == 65:
+        chains = [np.array([10 * w + d + 1 for d in range(8)])
+                  for w in range(8)]
+        tree = build_tree(7, chains, 65)
+        assert tree.n_nodes == 65
+        anc[0] = ancestor_masks(tree.parents[None])[0]
+        q_len = 65
+    else:
+        q_len = 13 if window == 16 else window
+        anc[0, :q_len, :q_len] = np.tril(np.ones((q_len, q_len), bool))
+    pos = rs.randint(1, MAXP * P - window, size=1).astype(np.int32)
+    pt = (rs.permutation(N - 1)[:MAXP] + 1).reshape(1, MAXP)
+    q = rs.standard_normal((1, window, H, D)).astype(np.float32)
+    kc = rs.standard_normal((N, P, Hkv, D)).astype(np.float32)
+    vc = rs.standard_normal((N, P, Hkv, D)).astype(np.float32)
+    return [torch.from_numpy(a) for a in
+            (q, kc, vc, pt.astype(np.int32), pos,
+             np.array([q_len], np.int32), anc)]
+
+
+@pytest.mark.parametrize("window", [16, 64, 65])
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_kernels_at_wide_windows_match_plain_version(dtype, pool,
+                                                            window):
+    """K3 at the windows the unpacked prefill (16, 64) and a wide draft
+    tree (65) launch, where a block cannot hold the whole window's q and
+    acc rows and the kernel cuts the window into row tiles: one launch
+    each, on fp and int8 pools, against the plain version (TOLS; rows
+    past q_len exact zeros)."""
+    _needs_card()
+    from flexflow_tpu_torch.kernels import (
+        RAGGED_PAGED_ATTENTION,
+        RAGGED_PAGED_ATTENTION_INT8,
+    )
+
+    q, kc, vc, pt, pos, qls, anc = _wide_case(window, seed=window)
+    sc = {}
+    if pool == "int8":
+        kc, ks, vc, vs = _int8_pools(kc, vc)
+        sc = {"k_scales": ks.cuda(), "v_scales": vs.cuda()}
+        kernel = RAGGED_PAGED_ATTENTION_INT8
+    else:
+        kc, vc = kc.to(dtype), vc.to(dtype)
+        kernel = RAGGED_PAGED_ATTENTION
+    args = [q.to(dtype).cuda(), kc.cuda(), vc.cuda()] + [
+        a.cuda() for a in (pt, pos, qls, anc)]
+    scale = 128 ** -0.5
+    before = kernel.launches
+    got = ragged_flash_attention(*args, scale=scale, **sc)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = ragged_gather_attention(*args, scale=scale, **sc)
+    err = (got.float() - want.float()).abs()
+    assert float(err.max()) <= TOLS[dtype] * max(1.0, float(
+        want.float().abs().max()))
+    assert not got[0, int(qls[0]):].any()
+
+
 def _tiny_llama(device, vocab=512):
     from flexflow_tpu_torch import DataType, FFConfig, FFModel
     from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama

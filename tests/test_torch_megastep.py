@@ -221,9 +221,12 @@ def test_megastep_pool_invariants_at_every_resume(lm):
 
 
 def test_megastep_rejects_invalid_configs(lm):
-    """The reference's invalid configurations raise its ValueErrors; the
-    mixed megastep and overlap_dispatch are not ported and raise
-    NotImplementedError naming their ROADMAP item."""
+    """The reference's invalid configurations raise its ValueErrors:
+    megastep_ticks below 1, a megastep without paged, a plain megastep
+    with speculate, overlap_dispatch without the mixed megastep, the
+    mixed megastep without paged. The combinations the mixed megastep
+    makes valid (speculate with megastep_ticks > 1, overlap_dispatch)
+    build their server."""
     _, tff = lm
     with pytest.raises(ValueError, match="megastep_ticks"):
         tff.serve_generation(max_len=64, megastep_ticks=0, paged=True)
@@ -232,10 +235,19 @@ def test_megastep_rejects_invalid_configs(lm):
     with pytest.raises(ValueError, match="speculate"):
         tff.serve_generation(max_len=64, megastep_ticks=8, paged=True,
                              speculate=SpecConfig(width=2, depth=3))
-    for kw in ({"megastep_mixed": True}, {"overlap_dispatch": True}):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tff.serve_generation(max_len=64, megastep_ticks=8, paged=True,
-                                 **kw)
+    with pytest.raises(ValueError, match="megastep_mixed"):
+        tff.serve_generation(max_len=64, megastep_ticks=8, paged=True,
+                             overlap_dispatch=True)
+    with pytest.raises(ValueError, match="paged"):
+        tff.serve_generation(max_len=64, megastep_ticks=8,
+                             megastep_mixed=True)
+    for kw in ({"megastep_mixed": True, "overlap_dispatch": True},
+               {"megastep_mixed": True,
+                "speculate": SpecConfig(width=2, depth=3)}):
+        server = tff.serve_generation(max_len=64, megastep_ticks=8,
+                                      paged=True, defer_start=True, **kw)
+        server.stop()
+        assert server.megastep_mixed and server.megastep_ticks == 8
 
 
 def test_megastep_with_chunked_prefill_mixed_batch(lm):

@@ -186,7 +186,9 @@ def test_mha_paged_branch(heads, kv_heads):
 def test_mha_outside_the_paged_path_raises():
     """Outside the paged path the lowering attends with the flash path
     (tests/test_torch_flash_attention.py); what is not ported there
-    raises: attention dropout in training, and a dense KV cache."""
+    raises: attention dropout in training. A dense KV cache takes the
+    cached_attention branch (tests/test_torch_generate.py): it writes this
+    step's rows at the position, in place, and attends."""
     attrs = A.MultiHeadAttentionAttrs(16, 2, dropout=0.1)
     x = torch.zeros(1, 2, 16)
     params = {"wq": torch.zeros(16, 2, 8), "wk": torch.zeros(16, 2, 8),
@@ -195,7 +197,12 @@ def test_mha_outside_the_paged_path_raises():
         torch_ops._mha(attrs, [x] * 3, params, LowerCtx(training=True))
     (y,) = torch_ops._mha(attrs, [x] * 3, params, LowerCtx(training=False))
     assert y.shape == (1, 2, 16)
-    with pytest.raises(NotImplementedError, match="dense KV-cache"):
-        torch_ops._mha(attrs, [x] * 3, params, LowerCtx(
-            kv_cache={"k": torch.zeros(1, 4, 2, 8),
-                      "v": torch.zeros(1, 4, 2, 8)}))
+    cache = {"k": torch.zeros(1, 4, 2, 8), "v": torch.zeros(1, 4, 2, 8)}
+    ctx = LowerCtx(kv_cache=cache, cache_position=1)
+    x = torch.ones(1, 2, 16)
+    params = {n: torch.full_like(p, 0.1) for n, p in params.items()}
+    (y,) = torch_ops._mha(attrs, [x] * 3, params, ctx)
+    assert y.shape == (1, 2, 16) and bool(torch.isfinite(y).all())
+    assert ctx.cache_updates["k"] is cache["k"]
+    assert cache["k"][0, 1:3].abs().sum() > 0
+    assert not cache["k"][0, 0].any() and not cache["k"][0, 3].any()

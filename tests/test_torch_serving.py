@@ -172,30 +172,40 @@ def test_paged_server_greedy_tokens_match_jax(kv_heads):
 
 
 def test_unsupported_server_knobs_raise():
-    """megastep_ticks=4 serves; speculate=object() raises TypeError, as
-    the reference does; what the port does not serve yet raises
-    NotImplementedError naming its ROADMAP item, rather than serving a
-    different configuration; an unknown kv_dtype is a ValueError."""
-    _, tff = _models(2)
-    server = tff.serve_generation(slots=2, max_len=32, paged=True,
-                                  page_size=4, megastep_ticks=4)
-    try:
-        got = server.generate(np.arange(1, 7, dtype=np.int32), 5,
-                              timeout=120)
-    finally:
-        server.stop()
-    assert len(got) == 5 and server.metrics()["megastep"]["dispatches"] > 0
+    """megastep_ticks=4, the mixed megastep (with overlap_dispatch), the
+    unpacked launch and the dense default all serve, each with the
+    reference's greedy tokens; speculate=object() raises TypeError and
+    overlap_dispatch without the mixed megastep ValueError, as the
+    reference does; what the port does not serve yet (the host tier, the
+    kv_quant_canary shadow cache) raises NotImplementedError naming its
+    ROADMAP item, rather than serving a different configuration; an
+    unknown kv_dtype is a ValueError."""
+    jff, tff = _models(2)
+    prompt = np.arange(1, 7, dtype=np.int32)
+    want = np.asarray(jff.generate(prompt[None], max_new_tokens=5)[0])
+    for kw in ({"paged": True, "megastep_ticks": 4},
+               {"paged": True, "megastep_ticks": 4, "megastep_mixed": True,
+                "overlap_dispatch": True},
+               {"paged": True, "ragged_pack": False}, {}):
+        server = tff.serve_generation(slots=2, max_len=32, page_size=4,
+                                      **kw)
+        try:
+            got = server.generate(prompt, 5, timeout=120)
+        finally:
+            server.stop()
+        np.testing.assert_array_equal(got, want, err_msg=str(kw))
+        if kw.get("megastep_ticks"):
+            assert server.metrics()["megastep"]["dispatches"] > 0
     with pytest.raises(TypeError, match="SpecConfig"):
         tff.serve_generation(slots=2, max_len=32, paged=True, page_size=4,
                              speculate=object())
-    for kw in ({"megastep_mixed": True}, {"overlap_dispatch": True},
-               {"host_tier": 8}, {"ragged_pack": False},
-               {"kv_quant_canary": 2}):
+    with pytest.raises(ValueError, match="megastep_mixed"):
+        tff.serve_generation(slots=2, max_len=32, paged=True, page_size=4,
+                             overlap_dispatch=True)
+    for kw in ({"host_tier": 8}, {"kv_quant_canary": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tff.serve_generation(slots=2, max_len=32, paged=True,
                                  page_size=4, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tff.serve_generation(slots=2, max_len=32)  # dense server
     with pytest.raises(ValueError, match="kv_dtype"):
         tff.serve_generation(slots=2, max_len=32, paged=True, page_size=4,
                              kv_dtype="int7")

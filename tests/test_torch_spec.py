@@ -102,8 +102,10 @@ def test_spec_config_matches_reference():
     for drafter in ("model", "nope"):
         with pytest.raises(ValueError):
             tspec.SpecConfig(drafter=drafter).build_drafter()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tspec.SpecConfig(drafter="model", draft_model=object()).build_drafter()
+    for spec in (tspec, jspec):
+        with pytest.raises(ValueError, match="COMPILED"):
+            spec.SpecConfig(drafter="model",
+                            draft_model=object()).build_drafter()
     assert isinstance(tspec.SpecConfig().build_drafter(), tspec.NgramDrafter)
     for w, d in ((1, 1), (2, 4), (3, 2)):
         t, j = tspec.SpecConfig(width=w, depth=d), jspec.SpecConfig(
