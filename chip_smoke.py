@@ -3,11 +3,12 @@ port's main paths on one NVIDIA card, paged Llama serving (fp and int8 KV
 pools, prefix cache, preemption, defrag, decode and universal megasteps,
 speculative decoding, the unpacked launch), dense KV-cache serving and
 generation, Llama training (head dims 128,
-64, 96 and 100), GPT-2 training and paged serving, and Llama training
-through ring attention (head dims 128, 96 and 100), and holds every
+64, 96 and 100), GPT-2 training and paged serving, Llama training
+through ring attention (head dims 128, 96 and 100), and Mixtral-8x7B's
+widths trained and served paged (the MoE ops), and holds every
 hand-written kernel on them to its plain PyTorch version.
 
-    python3 chip_smoke.py            # phases 1..4, 6..16, one card
+    python3 chip_smoke.py            # phases 1..4, 6..17, one card
     python3 chip_smoke.py --phases 5 # + profiles of serving and training
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
@@ -39,7 +40,9 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      quantize-on-append, and over a bf16 pool under fp32 q; and the
      flash-attention forward, dq and dk/dv kernels at the training
      path's shape (bench_1b attention: B 8, S = T 1024, H 16, Hkv 8,
-     D 128, causal), then at a ragged S = T = 1000, at S 256 against
+     D 128, causal) and at phase 17a's (Mixtral-8x7B attention: B 2,
+     S = T 2048, H 32, Hkv 8, D 128, causal), then at a ragged S = T =
+     1000, at S 256 against
      T 1024 (full), at head dim 256 (Gemma-7B's attention: B 2, S = T
      1024, 16 heads of 256, causal), at 384 and 512, and at S = T 4096
      (4 heads over 2, D 128, causal and full: K2's fp32 sums past 2048
@@ -80,7 +83,12 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      3xTF32 body);
      and the ring at a local sequence that is not a multiple of 128
      (s_loc 192, bench_1b's attention widths; the same K5 ring, no
-     length gate): its output, gradients and launches;
+     length gate): its output, gradients and launches; at Mixtral-8x7B's
+     widths two packed ragged steps, depth 2, on an fp pool, and one Adam
+     train step, depth 1, batch 1, seq 256 (the load-balance term too),
+     each first reporting the expert assignment of both sides and the
+     (row, choice) pairs dropped at capacity (some must drop in the
+     train step), and refusing a difference in assignment;
   4. serving: Llama-3-8B (32 layers, bf16, random weights from a seed)
      through serve_generation(paged=True) at its defaults (prefix cache
      and preemption on); 8 requests of 128..1024 prompt tokens, 64 new
@@ -94,8 +102,9 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      of 8 ticks at phase 16's window 8 (three decode rows, one prefill
      row; wall, device time, idle share, launches a tick), one bench_1b
      train step, one GPT-2 XL train step, one phase-10 ring step, one
-     phase-11 step, one phase-12 step, one phase-13 step and one ring
-     step of phase 14's Phi-3-mini-width Llama;
+     phase-11 step, one phase-12 step, one phase-13 step, one ring
+     step of phase 14's Phi-3-mini-width Llama and one step of phase
+     17a's Mixtral (on uniform ids: the experts' rows nearly even);
   6. training: bench_1b (16 layers, bf16, batch 8, seq 1024,
      remat="none", Adam lr 1e-4, random weights from a seed) through
      ff.fit for one epoch of 10 seeded batches, then 10 timed steps on
@@ -213,7 +222,26 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      identical, and the int8 mixed megastep against the int8 one-tick
      server (the kernels line records K3's window-8 launches of (a)
      under "mixed_w8" and its window-64 launches of (d) under
-     "unpacked_w64").
+     "unpacked_w64");
+ 17. Mixtral-8x7B's widths (vocab 32000, dim 4096, 32 heads over 8 of
+     128, rope theta 1e6, 8 experts of FFN 14336 top-2, capacity factor
+     1.25, lambda_bal 1e-2; the repo's experts have two matrices, no w3
+     gate; random weights from a seed): (a) trained at depth 2 of 32,
+     bf16, batch 2 x 2048, Adam lr 1e-4, through ff.fit a step at a
+     time on one batch: losses (finite, falling), tokens/s, MFU from the
+     active FLOPs (attention, router, 2 of 8 experts, lm head) with the
+     computed expert rows' share beside it, peak memory, the pairs
+     dropped at capacity in each step, and K1, K2 dq and K2 dk/dv
+     once a layer and step; (b) served at all 32 layers in bf16 (63.3
+     GB; the deepest that fits beside the pool otherwise, its reckoning
+     printed) through serve_generation(paged=True): 8 prompts of
+     64..512 tokens, 64 new each, greedy: tokens/s, TTFT p50, peak
+     memory, K3 once per layer and step, and a profiled steady decode
+     step's wall and device ms beside its floor (every weight read, the
+     bytes over the HBM rate); (c) bench_1b at phase 6's shape under
+     remat="none" and remat="hidden": peak memory, step ms, the first
+     loss alike (the kernels line records K1/K2's launches of (a) and
+     K3's of (b) under "mixtral").
 The line before the last is the kernel list as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
@@ -222,6 +250,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import re
 import shutil
@@ -266,6 +295,8 @@ from flexflow_tpu_torch.kernels import (
 )
 from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2
 from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
+from flexflow_tpu_torch.models.mixtral import MixtralConfig, build_mixtral
+from flexflow_tpu_torch.ops import torch_ops
 from flexflow_tpu_torch.ops.flash_attention import (
     FlashAttentionFunction,
     flash_attention,
@@ -416,6 +447,9 @@ K5_CASES = [
 ]
 # the K5_CASES also timed: the padded widths no phase trains through
 K5_TIMED_CASES = ("d48", "d80")
+# K1/K2 at phase 17a's attention: Mixtral-8x7B's widths (32 heads over 8
+# of 128) at batch 2, S = T 2048, causal
+MIXTRAL_FLASH_SHAPE = (2, 2048, 32, 8, 128)
 # K1/K2 at head dim 256: Gemma-7B's attention widths (16 heads of 256, no
 # GQA), B 2, S = T 1024, causal
 D256_SHAPE = (2, 1024, 16, 16, 256)
@@ -1854,7 +1888,8 @@ def phase_gpt2_step(seed: int) -> dict:
 
 def _train_model(cfg, device, *, batch, seq, dtype, remat, seed,
                  params=None, mesh_shape=None) -> FFModel:
-    """build_llama or build_gpt2 (by the config's type) -> compile(Adam
+    """build_llama, build_gpt2 or build_mixtral (by the config's type) ->
+    compile(Adam
     lr 1e-4, sparse CE, accuracy and sparse-CE metrics), the training
     path's entry points. With a `mesh_shape` the Llama is built with ring
     attention over its `seq` axis."""
@@ -1862,6 +1897,8 @@ def _train_model(cfg, device, *, batch, seq, dtype, remat, seed,
                           remat=remat, mesh_shape=mesh_shape))
     if isinstance(cfg, GPT2Config):
         build_gpt2(ff, cfg, batch_size=batch, seq_len=seq, dtype=dtype)
+    elif isinstance(cfg, MixtralConfig):
+        build_mixtral(ff, cfg, batch_size=batch, seq_len=seq, dtype=dtype)
     else:
         build_llama(ff, cfg, batch_size=batch, seq_len=seq, dtype=dtype,
                     use_ring_attention=mesh_shape is not None)
@@ -2007,6 +2044,180 @@ def phase_ring_untiled(seed: int) -> dict:
         raise AssertionError(f"the ring at s_loc {S // RING_SHARDS} on the "
                              f"card disagrees with the CPU: {bad}")
     return {"cases": res}
+
+
+class RouteRecorder:
+    """Records every EXPERTS sort plan while it is entered
+    (torch_ops.sorted_dispatch, the module attribute the lowering calls,
+    wrapped): each call's (t, k) top-k expert ids, its slots, the expert
+    count and the capacity, the tensors kept on their device with no read
+    back."""
+
+    def __enter__(self):
+        self.calls = []
+        self._real = torch_ops.sorted_dispatch
+
+        def record(topi, n, cap):
+            slot, kept = self._real(topi, n, cap)
+            self.calls.append((topi, slot, n, cap))
+            return slot, kept
+
+        torch_ops.sorted_dispatch = record
+        return self
+
+    def __exit__(self, *exc):
+        torch_ops.sorted_dispatch = self._real
+
+    def dropped(self, calls=None) -> int:
+        """(row, choice) pairs that found their expert full."""
+        return int(sum(int((slot == n * cap).sum())
+                       for _, slot, n, cap in (calls or self.calls)))
+
+
+def route_report(calls_both) -> dict:
+    """The expert assignment of each EXPERTS call of a card run and of the
+    same run on the CPU after it (the first half of `calls_both`, then
+    the second): rows routed to each expert (both choices), pairs
+    dropped, and whether the choices and slots agree. Raises, before any
+    value is compared, when they do not."""
+    half = len(calls_both) // 2
+    card_calls, cpu_calls = calls_both[:half], calls_both[half:]
+    calls = []
+    for (ti, ts, n, cap), (ci, cs, _, _) in zip(card_calls, cpu_calls):
+        ti, ts = ti.cpu(), ts.cpu()
+        cut = n * cap
+        calls.append({
+            "rows": ti.shape[0], "capacity": cap,
+            "card_per_expert": torch.bincount(ti.reshape(-1),
+                                              minlength=n).tolist(),
+            "cpu_per_expert": torch.bincount(ci.reshape(-1),
+                                             minlength=n).tolist(),
+            "card_dropped": int((ts == cut).sum()),
+            "cpu_dropped": int((cs == cut).sum()),
+            "choices_differ": int((ti != ci).sum()),
+            "slots_differ": int((ts != cs).sum())})
+    res = {"calls": calls, "same": 2 * half == len(calls_both) and all(
+        c["choices_differ"] == 0 and c["slots_differ"] == 0 for c in calls)}
+    log(f"routes {json.dumps(res)}")
+    if not res["same"]:
+        raise AssertionError("the card routes tokens to other experts than "
+                             f"the CPU: {res}")
+    return res
+
+
+# the Zipf exponent of the MoE phases' token ids: text's token
+# frequencies fall off as a power of their rank. Uniformly random ids
+# route evenly (every expert near k * t / n rows), so capacity would
+# rarely bind at alpha 1.25; a text-like skew makes the drop path run
+ZIPF_A = 1.2
+
+
+def zipf_tokens(n: int, seq: int, vocab: int, seed: int):
+    """n sequences of token ids whose frequencies follow Zipf's law
+    (ZIPF_A), ranks mapped onto a seeded permutation of the vocabulary;
+    labels the next token."""
+    rs = np.random.RandomState(seed)
+    ranks = np.minimum(rs.zipf(ZIPF_A, (n, seq)), vocab) - 1
+    x = rs.permutation(vocab)[ranks].astype(np.int32)
+    return x, np.roll(x, -1, axis=1).astype(np.int32)
+
+
+def mixtral_8x7b(layers: int = None) -> MixtralConfig:
+    cfg = MixtralConfig.mixtral_8x7b()
+    return dataclasses.replace(cfg, layers=layers or cfg.layers)
+
+
+def phase_mixtral_step(seed: int) -> dict:
+    """Two packed ragged steps at Mixtral-8x7B widths, depth 2, fp32 with
+    TF32 off, over an fp pool, card against CPU on the same seeded
+    weights (phase_step's): the expert assignment of both sides
+    (route_report), then the probabilities to STEP_RTOL/ATOL. Each step
+    routes all 24 rows of its window, the pad entry's too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = mixtral_8x7b(2)
+
+    def make(device, params=None):
+        ff = FFModel(FFConfig(batch_size=1, seed=seed, device=device))
+        build_mixtral(ff, cfg, batch_size=1, seq_len=8, dtype=DataType.FLOAT)
+        return ff.compile(params=params)
+
+    with RouteRecorder() as routes:
+        gpu, cpu = _ragged_steps(make, cfg.vocab_size, (None,))
+    res = {"routes": route_report(routes.calls)}
+    res.update(_fp_step_check("mixtral_8x7b_depth2", gpu[None][0],
+                              cpu[None][0]))
+    return res
+
+
+def phase_mixtral_train_step(seed: int, seq: int = 256) -> dict:
+    """One Adam train step at Mixtral-8x7B widths, depth 1, fp32 (TF32
+    off), batch 1, seq 256 (cap 80 of the 512 (row, choice) pairs an
+    expert at alpha 1.25; Zipf-distributed ids, so some pairs drop), card
+    against CPU from the
+    same seeded weights: the expert assignment of both sides
+    (route_report), then the load-balance term of a forward at the
+    starting weights, the step's loss and every parameter after it,
+    under phase_train_step's tolerances. The card's step launches K1 and
+    K2 once."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = mixtral_8x7b(1)
+    kw = dict(batch=1, seq=seq, dtype=DataType.FLOAT, remat="none",
+              seed=seed)
+    card_ff = _train_model(cfg, DEVICE, **kw)
+    cpu_ff = _train_model(cfg, "cpu", **kw, params=tuple(
+        {k: {n: t.cpu() for n, t in w.items()} for k, w in tree.items()}
+        for tree in card_ff._params))
+    x, y = zipf_tokens(1, seq, cfg.vocab_size, seed + 1)
+    out = []
+    with RouteRecorder() as routes:
+        for ff in (card_ff, cpu_ff):
+            ex = ff.executor
+            tr, ntr = ff._params
+            bx, by = (torch.from_numpy(a).to(ex.device) for a in (x, y))
+            with torch.no_grad():
+                _, aux = ex.run_forward(tr, ntr, [bx], training=True,
+                                        skip_sink_softmax=True,
+                                        return_aux=True)
+            _reset_launches()
+            tr, ntr, _, m = ex.train_step(tr, ntr, ff._opt_state, by, bx)
+            if ff is card_ff:
+                flat = _flash_launches()
+            out.append((float(m["loss"]), float(aux),
+                        {f"{k}/{n}": t.cpu() for k, w in tr.items()
+                         for n, t in w.items()}))
+    # the forward and the step route alike, both at the starting weights
+    route = route_report(routes.calls)
+    (gl, ga, gp), (cl, ca, cp) = out
+    diffs = {n: (gp[n] - cp[n]).abs() for n in gp}
+    worst = max(diffs, key=lambda n: float(diffs[n].max()))
+    outside = sum(int((d > TRAIN_PARAM_TOL * (1 + cp[n].abs())).sum())
+                  for n, d in diffs.items())
+    total = sum(d.numel() for d in diffs.values())
+    res = {"model": "mixtral_8x7b", "layers": 1, "seq": seq,
+           "dropped_pairs": route["calls"][0]["cpu_dropped"],
+           "flash_launches": flat, "loss_card": gl, "loss_cpu": cl,
+           "loss_rel_err": abs(gl - cl) / abs(cl), "aux_card": ga,
+           "aux_cpu": ca, "aux_rel_err": abs(ga - ca) / abs(ca),
+           "max_param_abs_err": float(diffs[worst].max()),
+           "worst_param": worst, "weights": total,
+           "weights_outside_tol": outside, "lr": TRAIN_LR,
+           "loss_rtol": TRAIN_LOSS_RTOL, "param_tol": TRAIN_PARAM_TOL,
+           "outlier_fraction_allowed": TRAIN_OUTLIER_FRACTION}
+    log(f"train_step {json.dumps(res)}")
+    del card_ff, cpu_ff
+    torch.cuda.empty_cache()
+    ok = (np.isfinite(gl) and res["loss_rel_err"] <= TRAIN_LOSS_RTOL
+          and res["aux_rel_err"] <= TRAIN_LOSS_RTOL
+          and res["max_param_abs_err"] <= 2 * TRAIN_LR
+          and outside <= TRAIN_OUTLIER_FRACTION * total
+          and res["dropped_pairs"] > 0
+          and flat == {k: 1 for k in flat})
+    if not ok:
+        raise AssertionError(f"card Mixtral train step disagrees with CPU: "
+                             f"{res}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3968,6 +4179,305 @@ def phase_mixed_fp32(seed, cfg, prompts, drafter_cls, problems) -> dict:
     return f
 
 
+# ---------------------------------------------------------------------------
+# phase 17: Mixtral-8x7B's widths trained through K1/K2 and served paged
+# through K3; remat="hidden" against "none" on bench_1b
+
+# 17a: depth 2 of 32 (2.225 B parameters: fp32 masters, gradients and
+# Adam's moments ~35.6 GB, depth 3 would pass 60 GB), bf16, batch 2 x
+# 2048, MIXTRAL_STEPS fit steps on one repeated batch, the last
+# MIXTRAL_TIMED timed
+MIXTRAL_TRAIN_LAYERS, MIXTRAL_BATCH, MIXTRAL_SEQ = 2, 2, 2048
+MIXTRAL_STEPS, MIXTRAL_TIMED = 6, 3
+# 17b: serve_generation(paged=True)'s settings and traffic: 8 prompts of
+# 64..512 tokens from the seed, 64 new tokens each, greedy
+MIXTRAL_SERVE = dict(slots=4, max_len=2048, page_size=64, prefill_chunk=64)
+MIXTRAL_PROMPTS, MIXTRAL_PROMPT_MIN, MIXTRAL_PROMPT_MAX, MIXTRAL_NEW = (
+    8, 64, 512, 64)
+# what a serving step needs on the card beside its weights and its pool
+# (activations, the (B, S, vocab) probabilities, the allocator's slack)
+MIXTRAL_SERVE_MARGIN_GB = 4.0
+
+
+def free_card() -> float:
+    """Collect what earlier phases left in reference cycles (a server and
+    its loop thread keep each other, and with them a model's weights),
+    return the cached blocks, and give the GB still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def mixtral_param_count(cfg) -> dict:
+    """Parameters of the repo's Mixtral (two expert matrices, no w3 gate):
+    per layer and in all."""
+    hd = cfg.dim // cfg.heads
+    layer = (cfg.dim * cfg.heads * hd + 2 * cfg.dim * cfg.kv_heads * hd
+             + cfg.heads * hd * cfg.dim + cfg.dim * cfg.n_experts
+             + 2 * cfg.n_experts * cfg.dim * cfg.hidden + 2 * cfg.dim)
+    other = 2 * cfg.vocab_size * cfg.dim + cfg.dim
+    return {"per_layer": layer, "other": other,
+            "total": cfg.layers * layer + other}
+
+
+def mixtral_flops_per_token(cfg, seq: int) -> float:
+    """ACTIVE matmul FLOPs per trained token, forward and backward:
+    attention's projections, the router, k of the n experts and the lm
+    head, plus causal attention at half density, as
+    llama_flops_per_token counts a dense model."""
+    hd = cfg.dim // cfg.heads
+    per_layer = (cfg.dim * cfg.heads * hd + 2 * cfg.dim * cfg.kv_heads * hd
+                 + cfg.heads * hd * cfg.dim + cfg.dim * cfg.n_experts
+                 + cfg.top_k * 2 * cfg.dim * cfg.hidden)
+    n_matmul = cfg.layers * per_layer + cfg.dim * cfg.vocab_size
+    return 6.0 * n_matmul + 6.0 * cfg.layers * seq * cfg.dim
+
+
+def phase_mixtral_train(seed: int, card: str) -> dict:
+    """17a: Mixtral-8x7B's widths (dim 4096, 32 heads over 8, FFN 14336, 8
+    experts top-2, alpha 1.25, lambda 1e-2, vocab 32000) at depth 2, bf16,
+    batch 2 x 2048, Adam lr 1e-4, through ff.fit one step at a time on
+    one repeated batch of Zipf-distributed ids (zipf_tokens; each fit's
+    loss is its step's; counts reset just
+    before the first, read just after the last): the loss must be finite
+    and fall, and K1, K2 dq and K2 dk/dv launch once a layer and step."""
+    cfg = mixtral_8x7b(MIXTRAL_TRAIN_LAYERS)
+    held_gb = free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ff = _train_model(cfg, DEVICE, batch=MIXTRAL_BATCH, seq=MIXTRAL_SEQ,
+                      dtype=DataType.BFLOAT16, remat="none", seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    x, y = zipf_tokens(MIXTRAL_BATCH, MIXTRAL_SEQ, cfg.vocab_size, seed)
+    losses, step_s, dropped = [], [], []
+    _reset_launches()
+    with RouteRecorder() as routes:
+        for i in range(MIXTRAL_STEPS):
+            routes.calls.clear()
+            t0 = time.perf_counter()
+            pm = ff.fit(x, y, epochs=1, verbose=False)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(pm.sparse_cce_loss / pm.train_all)
+            dropped.append(routes.dropped())
+        cap = routes.calls[0][3]
+    fit_launches = _flash_launches()
+    timed = step_s[-MIXTRAL_TIMED:]
+    step = sum(timed) / len(timed)
+    tokens = MIXTRAL_BATCH * MIXTRAL_SEQ
+    flops = mixtral_flops_per_token(cfg, MIXTRAL_SEQ) * tokens
+    res = {
+        "model": "mixtral_8x7b", "layers": cfg.layers, "of_layers": 32,
+        "dtype": "bfloat16", "batch": MIXTRAL_BATCH, "seq": MIXTRAL_SEQ,
+        "remat": "none",
+        "params": sum(t.numel() for w in ff._params[0].values()
+                      for t in w.values()),
+        "init_s": init_s, "losses": losses, "step_s": step_s,
+        "timed_steps": len(timed), "step_ms": step * 1e3,
+        "tokens_per_s": tokens / step, "active_flops_per_step": flops,
+        "mfu_active": flops / step / PEAK_OPS[torch.bfloat16],
+        "expert_capacity": cap,
+        "expert_rows_computed_over_active":
+            cfg.n_experts * cap / (tokens * cfg.top_k),
+        "dropped_pairs_by_step": dropped,
+        "dropped_share_by_step": [
+            n / (tokens * cfg.top_k * cfg.layers) for n in dropped],
+        "fit_launches": fit_launches, "held_before_gb": held_gb,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": card,
+    }
+    log(f"mixtral_train {json.dumps(res)}")
+    del ff
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"Mixtral loss did not fall: {losses}")
+    want = cfg.layers * MIXTRAL_STEPS
+    if any(n != want for n in fit_launches.values()):
+        raise AssertionError(f"Mixtral fit launches {fit_launches} != "
+                             f"{want} each")
+    return res
+
+
+def mixtral_serve_layers(cfg, num_pages: int) -> dict:
+    """The reckoning of 17b's depth: the bf16 weights and the pool of
+    `num_pages` pages at each depth against the card's free memory less
+    MIXTRAL_SERVE_MARGIN_GB; the deepest that fits, up to all 32
+    layers."""
+    free, total = torch.cuda.mem_get_info()
+    counts = mixtral_param_count(cfg)
+    hd = cfg.dim // cfg.heads
+    page_layer = MIXTRAL_SERVE["page_size"] * 2 * cfg.kv_heads * hd * 2
+
+    def need(layers):
+        return (2 * (layers * counts["per_layer"] + counts["other"])
+                + num_pages * page_layer * layers)
+
+    room = free - MIXTRAL_SERVE_MARGIN_GB * 1e9
+    layers = max([n for n in range(1, cfg.layers + 1) if need(n) <= room],
+                 default=1)
+    return {"free_gb": free / 1e9, "total_gb": total / 1e9,
+            "margin_gb": MIXTRAL_SERVE_MARGIN_GB,
+            "weights_gb_32": 2 * (32 * counts["per_layer"]
+                                  + counts["other"]) / 1e9,
+            "pool_gb_32": num_pages * page_layer * 32 / 1e9,
+            "params_32": 32 * counts["per_layer"] + counts["other"],
+            "layers": layers, "weights_gb": 2 * (
+                layers * counts["per_layer"] + counts["other"]) / 1e9}
+
+
+def phase_mixtral_serve(seed: int, card: str) -> dict:
+    """17b: Mixtral-8x7B's widths, bf16, all 32 layers (or the depth
+    mixtral_serve_layers' reckoning allows), random weights from the seed,
+    through serve_generation(paged=True) at MIXTRAL_SERVE: 8 prompts of
+    64..512 tokens, 64 new each, greedy; counts reset just before, read
+    just after; K3 once per layer and ragged step. Then a profiled
+    steady decode step (4 slots at pos 1024): wall and device ms."""
+    cfg = mixtral_8x7b()
+    num_pages = MIXTRAL_SERVE["slots"] * (
+        MIXTRAL_SERVE["max_len"] // MIXTRAL_SERVE["page_size"]) + 1
+    held_gb = free_card()
+    reckoning = mixtral_serve_layers(cfg, num_pages)
+    reckoning["held_before_gb"] = held_gb
+    log(f"mixtral_serve reckoning {json.dumps(reckoning)}")
+    cfg = mixtral_8x7b(reckoning["layers"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ff = FFModel(FFConfig(batch_size=1, seed=seed, device=DEVICE))
+    build_mixtral(ff, cfg, batch_size=1, seq_len=MIXTRAL_SERVE["max_len"],
+                  dtype=DataType.BFLOAT16)
+    ff.compile()
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(MIXTRAL_PROMPT_MIN, MIXTRAL_PROMPT_MAX + 1,
+                      size=MIXTRAL_PROMPTS)
+    prompts = [rs.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in lens]
+    server = ff.serve_generation(paged=True, seed=seed, **MIXTRAL_SERVE)
+    try:
+        server.generate(prompts[0][:16], max_new_tokens=2, timeout=600)
+        steps0, served0 = server.ragged_steps, server.requests_served
+        _reset_launches()
+        t1 = time.monotonic()
+        futs = [server.submit(p, max_new_tokens=MIXTRAL_NEW)
+                for p in prompts]
+        outs = [f.result(timeout=900) for f in futs]
+        wall = time.monotonic() - t1
+        launches = {k.name: k.launches for k in KERNELS}
+        steps = server.ragged_steps - steps0
+        recs = server.metrics()["requests"][served0:]
+    finally:
+        server.stop()
+    del server
+    torch.cuda.empty_cache()
+    for o in outs:
+        if len(o) != MIXTRAL_NEW or not (
+                (0 <= o) & (o < cfg.vocab_size)).all():
+            raise AssertionError(f"bad output {o}")
+    if launches[RAGGED_PAGED_ATTENTION.name] != cfg.layers * steps \
+            or steps == 0:
+        raise AssertionError(f"launches {launches} != {cfg.layers} x "
+                             f"{steps}")
+    ttft = sorted(r["ttft_s"] for r in recs)
+    # a steady decode step, profiled: 4 slots at pos 1024 on a fresh pool
+    ex = ff.executor
+    tr, ntr = ff._params
+    caches = ex.init_paged_kv_cache(NUM_PAGES, P)
+    args = _decode_launch(DEVICE, cfg.vocab_size, rs)
+    for _ in range(2):
+        ex.ragged_step_fn(tr, ntr, caches, *args)
+    torch.cuda.synchronize()
+    n = 3
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ex.ragged_step_fn(tr, ntr, caches, *args)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) / n * 1e3
+    decode = _profile_summary(prof, n, prof_wall)
+    # a decode tick reads every weight but the embedding table (each
+    # expert takes >= 1 row): its least time is those bytes over the HBM
+    # rate
+    bytes_read = sum(t.numel() * t.element_size() for k, w in tr.items()
+                     if not k.startswith("tok_emb") for t in w.values())
+    res = {
+        "model": "mixtral_8x7b", "layers": cfg.layers, "dtype": "bfloat16",
+        "reckoning": reckoning, "requests": len(outs),
+        "prompt_lens": lens.tolist(), "new_tokens": MIXTRAL_NEW,
+        "ragged_steps": steps, "launches": launches, "wall_s": wall,
+        "generated_tokens_per_s": MIXTRAL_NEW * len(outs) / wall,
+        "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+        "decode_step": {k: decode[k] for k in (
+            "wall_ms", "device_ms", "idle_share", "device_launches",
+            "top")},
+        "decode_floor_ms": bytes_read / HBM_BYTES_PER_S * 1e3,
+        "init_s": init_s,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": card,
+    }
+    log(f"mixtral_serve {json.dumps(res)}")
+    del ff, ex, tr, ntr, caches
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_remat_hidden(seed: int, card: str) -> dict:
+    """17c: bench_1b at phase 6's shape (16 layers, bf16, batch 8, seq
+    1024, Adam lr 1e-4) under remat="none" and remat="hidden" (each
+    SwiGLU MLP recomputed in backward): three train steps on one batch
+    each, peak memory and the mean ms of the last two; the first step's
+    loss must agree within the bf16 TOLS."""
+    cfg = LlamaConfig.bench_1b()
+    x, y = _token_batches(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size, seed)
+    res = {"model": "bench_1b", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "card": card}
+    for remat in ("none", "hidden"):
+        res[f"held_before_gb_{remat}"] = free_card()
+        torch.cuda.reset_peak_memory_stats()
+        ff = _train_model(cfg, DEVICE, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                          dtype=DataType.BFLOAT16, remat=remat, seed=seed)
+        ex = ff.executor
+        tr, ntr = ff._params
+        opt = ff._opt_state
+        bx, by = (torch.from_numpy(a).to(DEVICE) for a in (x, y))
+        losses, times = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        res[remat] = {"losses": losses,
+                      "step_ms": sum(times[1:]) / 2 * 1e3,
+                      "groups": len(ex.remat_groups),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del ff, ex, tr, ntr, opt, m
+    torch.cuda.empty_cache()
+    _, rtol = TOLS[torch.bfloat16]
+    a, b = res["none"]["losses"][0], res["hidden"]["losses"][0]
+    res["first_loss_rel_diff"] = abs(a - b) / abs(a)
+    res["rtol"] = rtol
+    log(f"remat_hidden {json.dumps(res)}")
+    if res["first_loss_rel_diff"] > rtol \
+            or res["hidden"]["groups"] != cfg.layers \
+            or not all(np.isfinite(res["hidden"]["losses"])):
+        raise AssertionError(f"remat='hidden' run: {res}")
+    return res
+
+
+def phase_mixtral(seed: int, card: str) -> dict:
+    t0 = time.monotonic()
+    res = {"a": phase_mixtral_train(seed, card),
+           "b": phase_mixtral_serve(seed, card),
+           "c": phase_remat_hidden(seed, card)}
+    log(f"mixtral seconds {time.monotonic() - t0}")
+    return res
+
+
 def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
     """One kernel's record for the kernels line: its main-path launches
     and, when phase 2 ran, its measured case."""
@@ -3989,9 +4499,9 @@ def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16",
+                    default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated phases to run (default "
-                    "1,2,3,4,6,7,8,9,10,11,12,13,14,15,16; 5 profiles "
+                    "1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17; 5 profiles "
                     "serving and training steps)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -4019,6 +4529,9 @@ def main(argv=None) -> int:
     kern8 = phase_int8_kernels(card) if 2 in phases else []
     wide = phase_wide_windows(card) if 2 in phases else []
     flash = phase_flash_kernels(card) if 2 in phases else {}
+    flash_mixtral = (phase_flash_kernels(card, MIXTRAL_FLASH_SHAPE,
+                                         "mixtral_8x7b_causal")
+                     if 2 in phases else {})
     if 2 in phases:
         for case, shape, T, causal in FLASH_CASES:
             phase_flash_kernels(card, shape, case, T, causal)
@@ -4033,6 +4546,8 @@ def main(argv=None) -> int:
         phase_train_step(args.seed, label="bench_1b_ring", seq=1024,
                          mesh_shape={"seq": RING_SHARDS})
         phase_ring_untiled(args.seed)
+        phase_mixtral_step(args.seed)
+        phase_mixtral_train_step(args.seed)
     serve = phase_serve(args.seed, card) if 4 in phases else None
     train = phase_train(args.seed, card) if 6 in phases else None
     serve8 = phase_serve_int8(args.seed, card) if 7 in phases else None
@@ -4048,6 +4563,7 @@ def main(argv=None) -> int:
                  else None)
     spec15 = phase_spec_megastep(args.seed, card) if 15 in phases else None
     mixed16 = phase_mixed_dense(args.seed, card) if 16 in phases else None
+    mixtral17 = phase_mixtral(args.seed, card) if 17 in phases else None
     if 5 in phases:
         phase_profile(args.seed, card)
         phase_profile_train(args.seed, card)
@@ -4062,6 +4578,10 @@ def main(argv=None) -> int:
         phase_profile_train(args.seed, card, phi3_mini(),
                             "phi3_mini_ring_s8192", batch=1, seq=RING_SEQ,
                             mesh_shape={"seq": RING_SHARDS})
+        phase_profile_train(args.seed, card,
+                            mixtral_8x7b(MIXTRAL_TRAIN_LAYERS),
+                            "mixtral_8x7b", batch=MIXTRAL_BATCH,
+                            seq=MIXTRAL_SEQ)
     main_case = next((r for r in kern if r["case"] == ATTENTION_CASES[0][0]
                       and r["dtype"] == "bfloat16"), None)
     entries = [_kernel_entry(
@@ -4109,6 +4629,16 @@ def main(argv=None) -> int:
         entries[0][key] = {name: val for name, val in other.items()
                            if name not in ("name", "route", "source",
                                            "replaces")}
+    # K3 serving Mixtral-8x7B's widths (phase 17b), timed at phase 2's
+    # steady decode case, whose attention widths (32 heads over 8 of 128,
+    # page 64) are Mixtral's
+    moe = _kernel_entry(
+        RAGGED_PAGED_ATTENTION, entries[0]["source"],
+        mixtral17["b"]["launches"][RAGGED_PAGED_ATTENTION.name]
+        if mixtral17 else 0, main_case)
+    entries[0]["mixtral"] = {name: val for name, val in moe.items()
+                             if name not in ("name", "route", "source",
+                                             "replaces")}
     # K1/K2 on phase 6's bf16 fit, timed at bench_1b's attention shape
     # (phase 2), and their fp32 bodies under "fp32": launches in phase 3's
     # fp32 bench_1b step (K2 there on its 3xTF32 body), timed at the same
@@ -4127,6 +4657,15 @@ def main(argv=None) -> int:
         entry["fp32"] = {key: val for key, val in fp32.items()
                          if key not in ("name", "route", "source",
                                         "replaces")}
+        # phase 17a's fit at Mixtral-8x7B's widths, timed at its
+        # attention shape (phase 2's mixtral_8x7b_causal)
+        moe = _kernel_entry(
+            k, entry["source"],
+            mixtral17["a"]["fit_launches"][k.name] if mixtral17 else 0,
+            flash_mixtral.get("bfloat16", {}).get(k.name))
+        entry["mixtral"] = {key: val for key, val in moe.items()
+                            if key not in ("name", "route", "source",
+                                           "replaces")}
         entries.append(entry)
     # K4 on phase 11's bf16 fit (D 64), timed at its attention shape
     # (phase 2); under "phi3_mini" on phase 12's (D 96, the padded wgmma

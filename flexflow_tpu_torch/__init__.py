@@ -12,8 +12,9 @@ that are multiples of 128, the head-major ones for every other head dim
 the ring-attention step, which folds a k/v block into carried softmax
 statistics (csrc/flash_attention_bh_fwd.cu; ops/ring_flash.py,
 parallel/ring.py). Models: Llama (models/llama.py, optionally with ring
-attention over the mesh's seq axis) and GPT-2 (models/gpt2.py). It
-imports torch, never jax, and nothing of flexflow_tpu.
+attention over the mesh's seq axis), GPT-2 (models/gpt2.py) and the
+Mixtral-style MoE decoder (models/mixtral.py; the MoE ops are PyTorch
+ops). It imports torch, never jax, and nothing of flexflow_tpu.
 """
 
 from flexflow_tpu_torch.config import FFConfig

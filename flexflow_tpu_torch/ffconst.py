@@ -87,6 +87,21 @@ class MetricsType(enum.Enum):
     MEAN_ABSOLUTE_ERROR = "mean_absolute_error"
 
 
+class ParamSyncType(enum.Enum):
+    """Gradient/parameter synchronization mode (FFConfig.param_sync).
+    On one device PSUM and SHARDED (optimizer state sharded over the
+    data axis) both keep the whole state on the card."""
+
+    NONE = "none"
+    PSUM = "psum"
+    SHARDED = "sharded"
+
+
+class CompMode(enum.Enum):
+    TRAINING = "training"
+    INFERENCE = "inference"
+
+
 class OpType(enum.Enum):
     """Operator types: the PCG node vocabulary, with the JAX package's
     values. Only the ops of the Llama serving path have lowerings in the

@@ -11,13 +11,14 @@ continuous-batching server, dense by default or paged.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from flexflow_tpu_torch.config import FFConfig
+from flexflow_tpu_torch.config import TRANSFER_GUARDS, FFConfig
 from flexflow_tpu_torch.ffconst import (
     ActiMode,
     AggrMode,
@@ -108,7 +109,7 @@ class FFModel:
                          name or "weight")
 
     # ------------------------------------------------------------------
-    # layers (the subset build_llama and build_gpt2 call)
+    # layers (the subset the model builders call)
 
     def create_tensor(self, dims: Sequence[int],
                       dtype: DataType = DataType.FLOAT,
@@ -210,6 +211,64 @@ class FFModel:
         return self._one(OpType.SOFTMAX, A.SoftmaxAttrs(axis), [input],
                          name or "softmax")
 
+    def top_k(self, input: Tensor, k: int, sorted: bool = True,
+              name=None) -> Tuple[Tensor, Tensor]:
+        """(values, int32 indices) of the k largest entries of the last
+        dim; on ties the lower index first."""
+        node = self._add(OpType.TOPK, A.TopKAttrs(k, sorted), [input],
+                         name or "topk")
+        return Tensor(node, 0), Tensor(node, 1)
+
+    # ---- MoE ----
+
+    def group_by(self, input: Tensor, assign: Tensor, n: int, alpha: float,
+                 name=None) -> List[Tensor]:
+        node = self._add(OpType.GROUP_BY, A.GroupByAttrs(n, alpha),
+                         [input, assign], name or "group_by")
+        return [Tensor(node, i) for i in range(n)]
+
+    def aggregate(self, inputs: Sequence[Tensor], n: int,
+                  lambda_bal: float = 0.0, name=None) -> Tensor:
+        return self._one(OpType.AGGREGATE, A.AggregateAttrs(n, lambda_bal),
+                         list(inputs), name or "aggregate")
+
+    def aggregate_spec(self, inputs: Sequence[Tensor], n: int,
+                       lambda_bal: float = 0.0, name=None) -> Tensor:
+        return self._one(OpType.AGGREGATE_SPEC,
+                         A.AggregateSpecAttrs(n, lambda_bal), list(inputs),
+                         name or "aggregate_spec")
+
+    def experts(self, input: Tensor, gate: Tensor, n_experts: int, k: int,
+                hidden_dim: int, out_dim: int, alpha: float = 1.0,
+                activation: ActiMode = ActiMode.GELU,
+                lambda_bal: float = 1e-2, dispatch: str = "sort",
+                name=None) -> Tensor:
+        """The fused MoE FFN bank over gate logits `gate` (ops/torch_ops.py
+        _experts)."""
+        return self._one(
+            OpType.EXPERTS,
+            A.ExpertsAttrs(n_experts, k, hidden_dim, out_dim, alpha,
+                           ActiMode.coerce(activation), lambda_bal,
+                           dispatch=dispatch),
+            [input, gate], name or "experts")
+
+    def moe(self, input: Tensor, num_exp: int, num_select: int,
+            expert_hidden_size: int, alpha: float = 2.0,
+            lambda_bal: float = 0.04, name=None) -> Tensor:
+        """Composite MoE layer: gate dense -> softmax -> top-k -> group_by
+        -> a ReLU dense per expert -> aggregate."""
+        base = name or "moe"
+        gate_preds = self.dense(input, num_exp, name=f"{base}_gate")
+        gate_sm = self.softmax(gate_preds, name=f"{base}_gate_sm")
+        topk_values, topk_assign = self.top_k(gate_sm, num_select)
+        grouped = self.group_by(input, topk_assign, num_exp, alpha)
+        expert_outs = [self.dense(g, expert_hidden_size, ActiMode.RELU,
+                                  name=f"{base}_expert{i}")
+                       for i, g in enumerate(grouped)]
+        return self.aggregate(
+            [topk_values, topk_assign, topk_assign, gate_sm] + expert_outs,
+            num_exp, lambda_bal, name=name)
+
     def position_table_rows(self) -> Optional[int]:
         """Rows of the smallest learned-position table in the graph, or
         None. The servers keep prompt + new tokens within it."""
@@ -250,7 +309,9 @@ class FFModel:
         self._mesh = make_mesh(self.config.mesh_shape or {"data": 1})
         self._executor = Executor(self.graph, device, loss_type=loss_type,
                                   metrics=self._metrics, optimizer=optimizer,
-                                  remat=self.config.remat, mesh=self._mesh)
+                                  remat=self.config.remat, mesh=self._mesh,
+                                  seq_length=self.config.seq_length,
+                                  donate=self.config.donate_buffers)
         if params is None:
             tr, ntr = self._executor.init_params(self.config.seed)
         else:
@@ -342,17 +403,18 @@ class FFModel:
             self.current_metrics = PerfMetrics()
             dev_sums = None
             n_samples = 0
-            for batch in self._batches(xs + [y], batch_size):
-                *bx, by = self._to_device(batch)
-                tr, ntr, opt_state, m = ex.train_step(tr, ntr, opt_state,
-                                                      by, *bx)
-                self._step_count += 1
-                bsz = by.shape[0]
-                n_samples += bsz
-                scaled = {k: (v if k == "accuracy_correct" else v * bsz)
-                          for k, v in m.items() if k != "loss"}
-                dev_sums = scaled if dev_sums is None else {
-                    k: dev_sums[k] + v for k, v in scaled.items()}
+            with self._transfer_guard():
+                for batch in self._batches(xs + [y], batch_size):
+                    *bx, by = self._to_device(batch)
+                    tr, ntr, opt_state, m = ex.train_step(
+                        tr, ntr, opt_state, by, *bx)
+                    self._step_count += 1
+                    bsz = by.shape[0]
+                    n_samples += bsz
+                    scaled = {k: (v if k == "accuracy_correct" else v * bsz)
+                              for k, v in m.items() if k != "loss"}
+                    dev_sums = scaled if dev_sums is None else {
+                        k: dev_sums[k] + v for k, v in scaled.items()}
             self.current_metrics.train_all = n_samples
             if dev_sums is not None:
                 # the one device-to-host sync of the epoch
@@ -368,6 +430,23 @@ class FFModel:
         self._params = (tr, ntr)
         self._opt_state = opt_state
         return self.current_metrics
+
+    @contextlib.contextmanager
+    def _transfer_guard(self):
+        """fit's step loop under config.transfer_guard: on the card,
+        torch.cuda.set_sync_debug_mode at the guard's level, so a host
+        sync inside a step warns ("log") or raises ("disallow"); nothing
+        on the CPU, where no transfer exists."""
+        level = self.config.transfer_guard
+        if level is None or self.executor.device.type != "cuda":
+            yield
+            return
+        before = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(TRANSFER_GUARDS[level])
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
 
     def eval(self, x: Union[np.ndarray, Sequence[np.ndarray]], y: np.ndarray,
              batch_size: Optional[int] = None,
@@ -401,6 +480,51 @@ class FFModel:
                 .float().cpu().numpy()
                 for batch in self._batches(xs, batch_size)]
         return np.concatenate(outs, axis=0)[:n]
+
+    # ------------------------------------------------------------------
+    # weight access (the reference's get_weight / set_weight)
+
+    def get_weight(self, tensor_or_name: Union[Tensor, str],
+                   weight_name: str = "kernel") -> np.ndarray:
+        """The weight `weight_name` of a node (its Tensor or its name) as
+        a numpy array on the host (a bfloat16 leaf, which numpy lacks, as
+        float32)."""
+        key = self._resolve_param_key(tensor_or_name)
+        leaf = self._param_tree(key, weight_name)[key][weight_name]
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.float()
+        return leaf.detach().cpu().numpy()
+
+    def set_weight(self, tensor_or_name: Union[Tensor, str],
+                   value: np.ndarray, weight_name: str = "kernel"):
+        """Replace the weight `weight_name` of a node by `value`, cast to
+        the stored leaf's dtype and placed on its device, as the
+        reference casts to the old leaf's dtype and sharding."""
+        key = self._resolve_param_key(tensor_or_name)
+        tree = self._param_tree(key, weight_name)
+        old = tree[key][weight_name]
+        value = np.asarray(value)
+        if tuple(value.shape) != tuple(old.shape):
+            raise ValueError(f"{key}/{weight_name} has shape "
+                             f"{tuple(old.shape)}, got {value.shape}")
+        tree[key][weight_name] = torch.from_numpy(
+            np.array(value, copy=True)).to(device=old.device,
+                                           dtype=old.dtype)
+
+    def _param_tree(self, key: str, weight_name: str):
+        """The parameter tree (trainable first) holding key/weight_name."""
+        if self._params is None:
+            raise RuntimeError("call compile() first")
+        tr, ntr = self._params
+        return tr if weight_name in tr.get(key, {}) else ntr
+
+    def _resolve_param_key(self, tensor_or_name) -> str:
+        if isinstance(tensor_or_name, Tensor):
+            return tensor_or_name.node.stable_key()
+        for n in self.graph.nodes:
+            if n.name == tensor_or_name:
+                return n.stable_key()
+        raise KeyError(tensor_or_name)
 
     def generate(self, prompt_ids: np.ndarray, max_new_tokens: int,
                  temperature: float = 0.0, seed: int = 0) -> np.ndarray:

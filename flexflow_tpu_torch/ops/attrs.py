@@ -1,17 +1,20 @@
 """Attribute dataclasses of the ported operators (counterpart of
 flexflow_tpu/ops/attrs.py): INPUT, WEIGHT, EMBEDDING, RMS_NORM,
 LAYER_NORM, LINEAR, ELEMENT_BINARY, ELEMENT_UNARY, SOFTMAX,
-MULTIHEAD_ATTENTION, RING_ATTENTION.
+MULTIHEAD_ATTENTION, RING_ATTENTION, TOPK and the MoE ops (GROUP_BY,
+AGGREGATE, AGGREGATE_SPEC, EXPERTS).
 
 Field names, order and defaults match the reference, so `repr(attrs)` —
 and with it Graph.structure_hash — agrees between the two packages, and
 the weight specs keep the JAX layouts: `kernel` (in, out), `wq` (E, H, D),
-`wk`/`wv` (E, Hkv, D), `wo` (H, D, E), `scale`, `bias`, `weight`.
+`wk`/`wv` (E, Hkv, D), `wo` (H, D, E), `scale`, `bias`, `weight`, the
+experts' `w1` (n, dim, hidden) and `w2` (n, hidden, out).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 from flexflow_tpu_torch.ffconst import ActiMode, AggrMode, DataType
@@ -259,3 +262,114 @@ class SoftmaxAttrs(OpAttrs):
 
     def infer(self, x: Shape):
         return (elementwise_like(x),)
+
+
+@dataclasses.dataclass(frozen=True)
+class TopKAttrs(OpAttrs):
+    """Top-k along the last dim -> (values, int32 indices)."""
+
+    k: int
+    sorted: bool = True
+
+    def infer(self, x: Shape):
+        dims = tuple(_carry(d) for d in x.dims[:-1]) + (ParallelDim(self.k),)
+        return (Shape(dims, x.dtype, x.replica),
+                Shape(dims, DataType.INT32, x.replica))
+
+
+# ---------------------------------------------------------------------------
+# MoE ops
+
+
+def moe_capacity(rows: int, k: int, alpha: float, n_experts: int) -> int:
+    """Rows each expert takes: ceil(k * rows * alpha / n_experts), at
+    least 1. A (row, choice) past its expert's capacity is dropped."""
+    return max(1, int(math.ceil(k * rows * alpha / n_experts)))
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupByAttrs(OpAttrs):
+    """Route tokens to per-expert buffers. Inputs: data (batch, dim),
+    assignments (batch, k) int. Outputs: n_experts tensors (capacity,
+    dim), capacity = ceil(k * batch * alpha / n)."""
+
+    n_experts: int
+    alpha: float = 1.0  # capacity factor
+
+    def capacity(self, batch: int, k: int) -> int:
+        return moe_capacity(batch, k, self.alpha, self.n_experts)
+
+    def infer(self, x: Shape, assign: Shape):
+        cap = self.capacity(x.dims[0].size, assign.dims[-1].size)
+        out = Shape((ParallelDim(cap), _carry(x.dims[-1])), x.dtype,
+                    x.replica)
+        return tuple(out for _ in range(self.n_experts))
+
+
+@dataclasses.dataclass(frozen=True)
+class AggregateAttrs(OpAttrs):
+    """Weighted combine of expert outputs. Inputs: gate_preds (batch, k),
+    gate_assign (batch, k), true_gate_assign (batch, k), the full gate
+    (batch, n), then n expert outputs (cap, dim). Output: (batch, dim).
+    `lambda_bal` weighs the load-balancing term."""
+
+    n_experts: int
+    lambda_bal: float = 0.0
+
+    def infer(self, *ins: Shape):
+        gate_preds, expert0 = ins[0], ins[4]
+        batch = gate_preds.dims[0].size
+        dims = (_carry(gate_preds.dims[0], batch), _carry(expert0.dims[-1]))
+        return (Shape(dims, expert0.dtype, expert0.replica),)
+
+
+@dataclasses.dataclass(frozen=True)
+class AggregateSpecAttrs(AggregateAttrs):
+    """Speculative aggregate: every (sample, choice) slot's expert output
+    as its own row, (batch * k, dim), for a loss over repeated labels."""
+
+    def infer(self, *ins: Shape):
+        gate_preds, expert0 = ins[0], ins[4]
+        batch, k = gate_preds.dims[0].size, gate_preds.dims[-1].size
+        dims = (ParallelDim(batch * k), _carry(expert0.dims[-1]))
+        return (Shape(dims, expert0.dtype, expert0.replica),)
+
+
+EXPERT_DISPATCHES = ("sort", "dense")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertsAttrs(OpAttrs):
+    """Fused MoE FFN bank: top-k gate -> capacity dispatch -> two-layer
+    expert FFN over stacked weights -> weighted combine. Inputs: tokens
+    (..., dim), gate logits (..., n_experts). Output: (..., out_dim).
+    `normalize` renormalizes the top-k gate probabilities to sum 1
+    (Mixtral's convention); `dispatch` "sort" routes rows by a token sort
+    into a static (n * cap, dim) buffer, "dense" by one-hot matmuls (the
+    numerics oracle)."""
+
+    n_experts: int
+    k: int
+    hidden_dim: int
+    out_dim: int
+    alpha: float = 1.0
+    activation: ActiMode = ActiMode.GELU
+    lambda_bal: float = 1e-2
+    normalize: bool = True
+    dispatch: str = "sort"
+
+    def capacity(self, batch: int) -> int:
+        return moe_capacity(batch, self.k, self.alpha, self.n_experts)
+
+    def infer(self, x: Shape, gate: Shape):
+        dims = (tuple(_carry(d) for d in x.dims[:-1])
+                + (ParallelDim(self.out_dim),))
+        return (Shape(dims, x.dtype, x.replica),)
+
+    def weights(self, x: Shape, gate: Shape):
+        dim, dt, n = x.dims[-1].size, x.dtype, self.n_experts
+        return {
+            "w1": WeightSpec(TensorShape((n, dim, self.hidden_dim), dt)),
+            "w2": WeightSpec(TensorShape((n, self.hidden_dim, self.out_dim),
+                                         dt)),
+        }

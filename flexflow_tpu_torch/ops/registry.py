@@ -24,6 +24,8 @@ class LowerCtx:
     device: Optional[torch.device] = None
     mesh: Optional[Any] = None
     training: bool = False
+    # FFConfig.seq_length, the iteration-config truncation
+    seq_length: Optional[int] = None
     node_guid: int = 0
     # paged KV cache: kv_cache is THIS attention node's {"k", "v"} pool,
     # (num_pages, page_size, Hkv, D); page_tables maps each batch entry's
@@ -40,6 +42,10 @@ class LowerCtx:
     ragged_anc: Optional[torch.Tensor] = None
     cache_updates: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict)
+    # the load-balance term an MoE lowering adds to the training loss
+    # (EXPERTS, and AGGREGATE with lambda_bal > 0, in training); the
+    # executor sums them over the graph
+    aux_loss: Optional[torch.Tensor] = None
 
 
 _LOWERINGS: Dict[OpType, Callable] = {}

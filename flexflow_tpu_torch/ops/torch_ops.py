@@ -1,5 +1,5 @@
-"""PyTorch lowerings of the ported operators, the Llama and GPT-2 paths'
-(counterpart of flexflow_tpu/ops/jax_ops.py).
+"""PyTorch lowerings of the ported operators, the Llama, GPT-2 and MoE
+paths' (counterpart of flexflow_tpu/ops/jax_ops.py).
 
 Each lowering reproduces the reference's numerics discipline: weights
 are cast to the activation dtype at the use site, matmuls accumulate in
@@ -366,3 +366,177 @@ def _rms_norm(attrs, inputs, params, ctx):
 @register_lowering(OpType.SOFTMAX)
 def _softmax(attrs, inputs, params, ctx):
     return [torch.softmax(inputs[0], dim=attrs.axis)]
+
+
+# ---------------------------------------------------------------------------
+# top-k and the MoE ops: group_by / aggregate / fused experts
+#
+# The reference computes all of them in jnp, outside any Pallas kernel,
+# so they are PyTorch ops here too: sorts, gathers and batched matmuls.
+
+
+def topk_lower_first(x, k: int):
+    """(values, int64 indices) of the k largest entries along the last
+    dim, largest first and, among equal values, the lower index first, as
+    lax.top_k orders them (torch.topk promises no order on ties): a
+    stable descending sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+@register_lowering(OpType.TOPK)
+def _topk(attrs, inputs, params, ctx):
+    (x,) = inputs
+    vals, idx = topk_lower_first(x, attrs.k)
+    return [vals, idx.to(torch.int32)]
+
+
+def dispatch_mask(assign, n_experts: int, capacity: int):
+    """assign (b, k) int expert ids -> the (b, k, n, capacity) fp32
+    one-hot dispatch, (row, choice) pairs past their expert's capacity
+    dropped. Each expert's queue fills in k-major order (choice 0 of
+    every row, then choice 1, ...), rows in batch order within a choice."""
+    b, k = assign.shape
+    onehot = F.one_hot(assign.long(), n_experts).float()        # (b, k, n)
+    flat = onehot.transpose(0, 1).reshape(b * k, n_experts)     # k-major
+    pos = torch.cumsum(flat, dim=0) - flat
+    pos = pos.reshape(k, b, n_experts).transpose(0, 1)          # (b, k, n)
+    onehot = onehot * (pos < capacity)
+    slot = F.one_hot(pos.long().clamp(max=capacity), capacity + 1)[
+        ..., :capacity].float()
+    return onehot[..., None] * slot
+
+
+@register_lowering(OpType.GROUP_BY)
+def _group_by(attrs, inputs, params, ctx):
+    x, assign = inputs                                  # (b, d), (b, k)
+    cap = attrs.capacity(x.shape[0], assign.shape[-1])
+    disp = dispatch_mask(assign, attrs.n_experts, cap).sum(dim=1)
+    outs = torch.einsum("bnc,bd->ncd", disp.to(x.dtype), x)
+    return list(outs.unbind(0))
+
+
+def _moe_combine_inputs(inputs, n_experts: int):
+    """AGGREGATE's inputs: gate_preds (b, k), gate_assign (b, k), the
+    stacked expert outputs (n, cap, d), and the dispatch mask."""
+    gate_preds, gate_assign = inputs[0], inputs[1]
+    experts = torch.stack(inputs[4:], dim=0)
+    disp = dispatch_mask(gate_assign, n_experts, experts.shape[1])
+    return gate_preds, experts, disp
+
+
+@register_lowering(OpType.AGGREGATE)
+def _aggregate(attrs, inputs, params, ctx):
+    gate_preds, experts, disp = _moe_combine_inputs(inputs, attrs.n_experts)
+    combine = (disp * gate_preds.float()[..., None, None]).sum(dim=1)
+    y = torch.einsum("bnc,ncd->bd", combine.to(experts.dtype), experts)
+    if attrs.lambda_bal > 0.0 and ctx.training:
+        # the Switch-style load-balance term n * sum_e f_e * p_e, its
+        # gradient reaching the gate through the full distribution
+        full_gate = inputs[3].float()                           # (b, n)
+        counts = disp.sum(dim=(0, 1, 3))          # rows kept per expert
+        frac = counts / counts.sum().clamp_min(1.0)
+        ctx.aux_loss = (attrs.n_experts * torch.sum(
+            frac * full_gate.mean(dim=0)) * attrs.lambda_bal)
+    return [y]
+
+
+@register_lowering(OpType.AGGREGATE_SPEC)
+def _aggregate_spec(attrs, inputs, params, ctx):
+    gate_preds, experts, disp = _moe_combine_inputs(inputs, attrs.n_experts)
+    b, k = gate_preds.shape
+    per_slot = torch.einsum("bknc,ncd->bkd", disp.to(experts.dtype), experts)
+    return [per_slot.reshape(b * k, -1)]
+
+
+def sorted_dispatch(topi, n_experts: int, cap: int):
+    """The token-sort dispatch plan of (t, k) expert ids `topi`.
+
+    The flat slots f = choice * t + row (k-major, dispatch_mask's arrival
+    order, so both dispatches drop the same pairs) are stably sorted by
+    expert; a slot's rank within its expert is its sorted position less
+    the expert's first position (searchsorted). Returns
+      slot_of_flat (t * k,) int64: the buffer row e * cap + rank of each
+        slot, or n * cap where its expert was full (dropped);
+      kept (n,) int64: the rows each expert keeps.
+    No (t, n, cap) tensor is made, and nothing is read back to the host."""
+    t, k = topi.shape
+    flat_e = topi.long().transpose(0, 1).reshape(-1)
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    rank = (torch.arange(t * k, device=topi.device)
+            - torch.searchsorted(sorted_e, sorted_e, side="left"))
+    buf_slot = torch.where(rank < cap, sorted_e * cap + rank,
+                           n_experts * cap)
+    slot_of_flat = torch.empty_like(buf_slot).scatter_(0, order, buf_slot)
+    ids = torch.arange(n_experts, device=topi.device)
+    counts = (torch.searchsorted(sorted_e, ids, side="right")
+              - torch.searchsorted(sorted_e, ids, side="left"))
+    return slot_of_flat, counts.clamp(max=cap)
+
+
+def expert_ffn(buf, w1, w2, act: ActiMode):
+    """The expert bank on its (n, cap, d) rows: two batched matmuls over
+    the stacked weights, in the rows' dtype."""
+    h = apply_activation(torch.bmm(buf, w1.to(buf.dtype)), act)
+    return torch.bmm(h, w2.to(buf.dtype))
+
+
+@register_lowering(OpType.EXPERTS)
+def _experts(attrs, inputs, params, ctx):
+    """Fused MoE FFN: softmax of the gate in fp32, top-k (lower expert
+    first on ties), optional renormalisation, capacity dispatch, the
+    expert bank, the weighted k-sum; in training the Switch load-balance
+    term n * sum_e f_e * p_e * lambda_bal goes to ctx.aux_loss. Every row of
+    x is routed and counts toward capacity (in a serving step the
+    window's pad rows too, as in the reference).
+
+    dispatch "sort": sorted_dispatch's plan. Each buffer row gathers its
+    token (an empty row gathers a zero row), so dropped slots move no
+    data and take no gradient; the expert outputs gather back per slot
+    from a zero-padded (n * cap + 1, out) table. "dense": the one-hot
+    dispatch and combine einsums."""
+    x, gate_logits = inputs
+    n, k = attrs.n_experts, attrs.k
+    lead = x.shape[:-1]
+    xt = x.reshape(-1, x.shape[-1])
+    t, d = xt.shape
+    probs = torch.softmax(gate_logits.reshape(-1, n).float(), dim=-1)
+    topv, topi = topk_lower_first(probs, k)                     # (t, k)
+    if attrs.normalize:
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+    cap = attrs.capacity(t)
+    if attrs.dispatch == "sort":
+        slot_of_flat, kept = sorted_dispatch(topi, n, cap)
+        token_of_flat = torch.arange(t, device=x.device).repeat(k)
+        # which token fills each buffer row: kept slots own their rows
+        # alone; the dropped ones all land on row n * cap, cut off
+        src = torch.full((n * cap + 1,), t, dtype=torch.long,
+                         device=x.device)
+        src.scatter_(0, slot_of_flat, token_of_flat)
+        xpad = torch.cat([xt, xt.new_zeros(1, d)])
+        buf = xpad[src[:-1]].view(n, cap, d)
+        o = expert_ffn(buf, params["w1"], params["w2"], attrs.activation)
+        o_flat = torch.cat([o.reshape(n * cap, attrs.out_dim),
+                            o.new_zeros(1, attrs.out_dim)])
+        per_slot = o_flat[slot_of_flat]                  # (t * k, out)
+        w = topv.transpose(0, 1).reshape(-1, 1).to(per_slot.dtype)
+        y = (per_slot * w).view(k, t, attrs.out_dim).sum(dim=0)
+        kept = kept.float()
+        frac = kept / kept.sum().clamp_min(1.0)
+    elif attrs.dispatch == "dense":
+        disp = dispatch_mask(topi, n, cap)                  # (t, k, n, c)
+        combine = disp * topv[..., None, None]
+        disp_tok = disp.sum(dim=1)                             # (t, n, c)
+        buf = torch.einsum("tnc,td->ncd", disp_tok.to(xt.dtype), xt)
+        o = expert_ffn(buf, params["w1"], params["w2"], attrs.activation)
+        y = torch.einsum("tknc,nco->to", combine.to(o.dtype), o)
+        frac = disp_tok.sum(dim=(0, 2)) / disp_tok.sum().clamp_min(1.0)
+    else:
+        raise ValueError(f"ExpertsAttrs.dispatch must be one of "
+                         f"('sort', 'dense'), got {attrs.dispatch!r}")
+    if ctx.training:
+        # only the train step reads it (the reference writes it always
+        # and its other steps drop it)
+        ctx.aux_loss = (n * torch.sum(frac * probs.mean(dim=0))
+                        * attrs.lambda_bal)
+    return [y.reshape(*lead, attrs.out_dim)]

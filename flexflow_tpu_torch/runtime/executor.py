@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from flexflow_tpu_torch.ffconst import LossType, MetricsType, OpType
+from flexflow_tpu_torch.ffconst import ActiMode, LossType, MetricsType, OpType
 from flexflow_tpu_torch.ops.registry import LowerCtx, get_lowering
 from flexflow_tpu_torch.pcg.graph import Graph, Node
 from flexflow_tpu_torch.runtime import initializer as init_mod
@@ -48,7 +48,8 @@ class Executor:
     def __init__(self, graph: Graph, device: torch.device, *,
                  loss_type: Optional[LossType] = None,
                  metrics: Sequence[MetricsType] = (), optimizer=None,
-                 remat: str = "attention", mesh=None):
+                 remat: str = "attention", mesh=None,
+                 seq_length: Optional[int] = None, donate: bool = True):
         self.graph = graph
         self.device = torch.device(device)
         self.mesh = mesh
@@ -56,6 +57,8 @@ class Executor:
         self.metrics = list(metrics)
         self.optimizer = optimizer
         self.remat = remat
+        self.seq_length = seq_length
+        self.donate = donate
         self.topo = graph.topo_order()
         self.input_nodes = [n for n in self.topo if n.op_type == OpType.INPUT]
         sinks = graph.sinks()
@@ -70,6 +73,110 @@ class Executor:
             LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
             LossType.CATEGORICAL_CROSSENTROPY,
         )
+        # AGGREGATE_SPEC emits one row per (sample, choice) slot, so the
+        # loss sees each label that many times (np.repeat order): the
+        # ratio of the sink's batch to the first input's
+        self.label_repeats = 1
+        if any(n.op_type == OpType.AGGREGATE_SPEC for n in self.topo):
+            in_b = self.input_nodes[0].outputs[0].dims[0].size
+            out_b = self.sink.outputs[0].dims[0].size
+            if in_b > 0 and out_b % in_b == 0 and out_b // in_b > 1:
+                self.label_repeats = out_b // in_b
+        # remat="hidden": the MLP groups recomputed in backward
+        self.remat_groups = (self._find_hidden_groups()
+                             if remat == "hidden" else {})
+        self._remat_member_of = {
+            g.guid: entry for entry, (members, _, _) in
+            self.remat_groups.items() for g in members}
+
+    def _find_hidden_groups(self):
+        """The MLP-hidden groups remat="hidden" recomputes, found as the
+        reference's Executor._find_hidden_groups finds them, node for
+        node: {entry guid: (members in topo order, (guid, idx) of the
+        group's one output, external (src guid, src idx) inputs in first-
+        use order)}. Patterns, every inner node with one consumer:
+          A: MUL(UNARY(LINEAR_g(x)), LINEAR_u(x)), the SwiGLU diamond
+             (the unary on the product's first input);
+          B: expanding LINEAR(activation) -> LINEAR;
+          C: expanding LINEAR -> UNARY -> LINEAR;
+        each swallowing its trailing contracting LINEAR when that is the
+        last member's only consumer, so the group outputs the model-width
+        tensor and the hidden one is recomputed, not saved."""
+        consumers: Dict[int, list] = {}
+        for n in self.topo:
+            for e in self.graph.out_edges(n):
+                consumers.setdefault(n.guid, []).append(e)
+        by_guid = {n.guid: n for n in self.topo}
+        topo_pos = {n.guid: i for i, n in enumerate(self.topo)}
+
+        def single_consumer(guid):
+            es = consumers.get(guid, [])
+            return by_guid[es[0].dst] if len(es) == 1 else None
+
+        def is_expanding(n):
+            ins = self.graph.input_shapes(n)
+            return bool(ins) and (n.outputs[0].dims[-1].size
+                                  > ins[0].dims[-1].size)
+
+        def sources(n):
+            return {(e.src, e.src_idx) for e in self.graph.in_edges(n)}
+
+        groups, claimed = {}, set()
+        for m in self.topo:
+            if m.guid in claimed:
+                continue
+            members = None
+            if m.op_type == OpType.ELEMENT_BINARY and getattr(
+                    m.attrs, "kind", None) in ("mul", "multiply"):
+                ins = list(self.graph.in_edges(m))
+                if len(ins) == 2:
+                    s, u = by_guid[ins[0].src], by_guid[ins[1].src]
+                    g_edges = list(self.graph.in_edges(s))
+                    if (s.op_type == OpType.ELEMENT_UNARY
+                            and u.op_type == OpType.LINEAR
+                            and single_consumer(s.guid) is m
+                            and single_consumer(u.guid) is m and g_edges):
+                        g = by_guid[g_edges[0].src]
+                        if (g.op_type == OpType.LINEAR
+                                and single_consumer(g.guid) is s
+                                and is_expanding(g) and is_expanding(u)
+                                and sources(g) == sources(u)):
+                            members = [g, u, s, m]
+            elif (m.op_type == OpType.LINEAR and is_expanding(m)
+                  and m.attrs.activation is not ActiMode.NONE):
+                nxt = single_consumer(m.guid)
+                if nxt is not None and nxt.op_type == OpType.LINEAR:
+                    members = [m]
+            elif m.op_type == OpType.LINEAR and is_expanding(m):
+                nxt = single_consumer(m.guid)
+                if nxt is not None and nxt.op_type == OpType.ELEMENT_UNARY:
+                    nxt2 = single_consumer(nxt.guid)
+                    if nxt2 is not None and nxt2.op_type == OpType.LINEAR:
+                        members = [m, nxt]
+            if members:
+                tail = single_consumer(members[-1].guid)
+                if (tail is not None and tail.op_type == OpType.LINEAR
+                        and not is_expanding(tail)
+                        and tail.guid not in claimed):
+                    members.append(tail)
+            if not members or any(n.guid in claimed for n in members):
+                continue
+            members.sort(key=lambda n: topo_pos[n.guid])
+            member_set = {n.guid for n in members}
+            # every external input must be computed before the entry
+            ext = []
+            for gn in members:
+                for e in self.graph.in_edges(gn):
+                    if e.src not in member_set \
+                            and (e.src, e.src_idx) not in ext:
+                        ext.append((e.src, e.src_idx))
+            if any(topo_pos[src] > topo_pos[members[0].guid]
+                   for src, _ in ext):
+                continue
+            groups[members[0].guid] = (members, (members[-1].guid, 0),
+                                       tuple(ext))
+            claimed.update(member_set)
+        return groups
 
     # ------------------------------------------------------------------
     # parameters
@@ -145,15 +252,19 @@ class Executor:
     def run_forward(self, trainable, nontrainable, inputs: Sequence, *,
                     training: bool = False, skip_sink_softmax: bool = False,
                     kv_caches=None, cache_position=None, cache_out=None,
-                    page_tables=None, ragged=None):
-        """Topo-order evaluation; returns the sink output. With
+                    page_tables=None, ragged=None, return_aux=False):
+        """Topo-order evaluation; returns the sink output, or with
+        `return_aux` (output, aux): the sum of the load-balance terms the
+        MoE lowerings wrote (None when none did). With
         `skip_sink_softmax` a final Softmax node passes its input (the raw
         logits) through, for a loss that fuses the softmax. With
         `training` and remat="attention" each attention lowering runs
         under torch.utils.checkpoint (non-reentrant): its intermediates
         are recomputed in the backward pass instead of saved, as the
-        reference's jax.checkpoint does. With `kv_caches` alone attention
-        nodes run the DENSE-cache step at `cache_position` (decode_fn).
+        reference's jax.checkpoint does; with remat="hidden" each of
+        `remat_groups` does (_run_remat_group). With `kv_caches` alone
+        attention nodes run the DENSE-cache step at `cache_position`
+        (decode_fn).
         With `kv_caches` + `page_tables` attention nodes run the PAGED step: kv_caches are per-node
         {"k", "v"} page pools (plus "k_scale"/"v_scale" for an int8
         pool), updated in place and reported in `cache_out`, and
@@ -171,8 +282,16 @@ class Executor:
             ragged = chain_descriptor(inputs[0].shape[0], inputs[0].shape[1],
                                       device=inputs[0].device)
         q_lens, depths, anc = ragged if ragged is not None else (None,) * 3
+        groups = self.remat_groups if training else {}
+        aux = None
         for n in self.topo:
             if n.op_type == OpType.INPUT:
+                continue
+            if groups and n.guid in self._remat_member_of:
+                entry = self._remat_member_of[n.guid]
+                if n.guid == entry:  # the other members run inside it
+                    values.update(self._run_remat_group(
+                        groups[entry], values, trainable, nontrainable))
                 continue
             key = node_key(n)
             ins = [values[(e.src, e.src_idx)] for e in self.graph.in_edges(n)]
@@ -183,7 +302,7 @@ class Executor:
                 continue
             ctx = LowerCtx(
                 device=self.device, mesh=self.mesh, training=training,
-                node_guid=n.guid,
+                seq_length=self.seq_length, node_guid=n.guid,
                 kv_cache=(kv_caches.get(key) if kv_caches is not None
                           else None),
                 cache_position=cache_position, page_tables=page_tables,
@@ -199,35 +318,88 @@ class Executor:
                 outs = lowering(n.attrs, ins, params, ctx)
             for i, o in enumerate(outs):
                 values[(n.guid, i)] = o
+            if ctx.aux_loss is not None:
+                aux = ctx.aux_loss if aux is None else aux + ctx.aux_loss
             if ctx.cache_updates and cache_out is not None:
                 cache_out[key] = dict(ctx.cache_updates)
-        return values[(self.sink.guid, 0)]
+        out = values[(self.sink.guid, 0)]
+        return (out, aux) if return_aux else out
+
+    def _run_remat_group(self, group, values, trainable, nontrainable):
+        """One remat="hidden" group under torch.utils.checkpoint
+        (non-reentrant): only its external inputs are saved for backward,
+        the hidden activations inside are recomputed. Returns {output key:
+        value}."""
+        members, out_key, ext = group
+
+        def group_fn(*xs):
+            local = dict(zip(ext, xs))
+            for gn in members:
+                key = node_key(gn)
+                ins = [local[(e.src, e.src_idx)]
+                       for e in self.graph.in_edges(gn)]
+                params = {**trainable.get(key, {}),
+                          **nontrainable.get(key, {})}
+                ctx = LowerCtx(device=self.device, mesh=self.mesh,
+                               training=True, seq_length=self.seq_length,
+                               node_guid=gn.guid)
+                for i, o in enumerate(get_lowering(gn.op_type)(
+                        gn.attrs, ins, params, ctx)):
+                    local[(gn.guid, i)] = o
+            return local[out_key]
+
+        return {out_key: checkpoint(group_fn, *[values[k] for k in ext],
+                                    use_reentrant=False)}
 
     # ------------------------------------------------------------------
     # training and evaluation steps
 
     def loss_and_grads(self, trainable, nontrainable, labels, *inputs):
         """The loss of one batch (forward with training=True, the sink
-        softmax fused into the loss) and its gradient with respect to
-        every trainable leaf. Returns (loss, logits, grads): loss and
-        logits detached, grads a tree shaped like `trainable`."""
+        softmax fused into the loss) and the gradient of the loss plus
+        the graph's MoE load-balance terms with respect to every
+        trainable leaf. Returns (loss, logits, grads): the loss without
+        those terms, as the reference reports it, loss and logits
+        detached, grads a tree shaped like `trainable`."""
+        labels = self._maybe_repeat_labels(labels)
         leaves = [p for ws in trainable.values() for p in ws.values()]
         for p in leaves:
             p.requires_grad_(True)
         try:
-            logits = self.run_forward(
+            logits, aux = self.run_forward(
                 trainable, nontrainable, inputs, training=True,
-                skip_sink_softmax=self.fuse_loss_softmax)
+                skip_sink_softmax=self.fuse_loss_softmax, return_aux=True)
             loss = compute_loss(self.loss_type, logits, labels,
                                 self._sink_is_softmax())
-            grads = torch.autograd.grad(loss, leaves)
+            # the gradient is the loss's plus the MoE load-balance
+            # terms'; the loss reported is the loss alone
+            grads = torch.autograd.grad(
+                loss if aux is None else loss + aux, leaves,
+                allow_unused=True)
         finally:
             for p in leaves:
                 p.requires_grad_(False)
-        it = iter(grads)
+        # a leaf the loss does not reach (AGGREGATE_SPEC reads only the
+        # shape of its gate values) has a zero gradient, as jax.grad's
+        it = iter(torch.zeros_like(p) if g is None else g
+                  for g, p in zip(grads, leaves))
         grad_tree = {nk: {wn: next(it) for wn in ws}
                      for nk, ws in trainable.items()}
         return loss.detach(), logits.detach(), grad_tree
+
+    def _maybe_repeat_labels(self, labels):
+        """AGGREGATE_SPEC's k rows per sample need each label k times."""
+        if self.label_repeats > 1:
+            return torch.repeat_interleave(labels, self.label_repeats, dim=0)
+        return labels
+
+    def _rescale_correct(self, step_metrics):
+        """The correct count averaged over the slots, so it stays on the
+        per-sample scale fit and eval sum."""
+        if self.label_repeats > 1 and "accuracy_correct" in step_metrics:
+            step_metrics["accuracy_correct"] = (
+                step_metrics["accuracy_correct"] / self.label_repeats)
+        return step_metrics
 
     def _sink_is_softmax(self) -> bool:
         """The logits still end in the sink softmax (not fused into the
@@ -240,17 +412,23 @@ class Executor:
         then the optimizer's update of the fp32 masters and the state, in
         place. Returns (trainable, nontrainable, opt_state, metrics);
         metrics (the compiled metrics and "loss") are 0-d tensors on the
-        device, so the step never waits for the card."""
+        device, so the step never waits for the card. With donate=False
+        (FFConfig.donate_buffers) the trees passed in are left intact and
+        the step updates copies."""
         for ws in trainable.values():
             for p in ws.values():
                 if p.dtype != torch.float32:
                     raise ValueError(
                         "train_step updates fp32 master weights; pass "
                         "Executor.master_params(trainable)")
+        if not self.donate:
+            trainable, opt_state = _clone_tree(trainable), _clone_tree(
+                opt_state)
         loss, logits, grad_tree = self.loss_and_grads(
             trainable, nontrainable, labels, *inputs)
-        metrics = compute_step_metrics(self.metrics, self.loss_type, logits,
-                                       labels, self._sink_is_softmax())
+        metrics = self._rescale_correct(compute_step_metrics(
+            self.metrics, self.loss_type, logits,
+            self._maybe_repeat_labels(labels), self._sink_is_softmax()))
         metrics["loss"] = loss
         del logits
         trainable, opt_state = self.optimizer.update(grad_tree, trainable,
@@ -261,11 +439,12 @@ class Executor:
     def eval_step(self, trainable, nontrainable, labels, *inputs):
         """The loss and the compiled metrics of one batch, as 0-d tensors
         on the device."""
+        labels = self._maybe_repeat_labels(labels)
         logits = self.run_forward(trainable, nontrainable, inputs,
                                   skip_sink_softmax=self.fuse_loss_softmax)
         sink_is_sm = self._sink_is_softmax()
-        m = compute_step_metrics(self.metrics, self.loss_type, logits,
-                                 labels, sink_is_sm)
+        m = self._rescale_correct(compute_step_metrics(
+            self.metrics, self.loss_type, logits, labels, sink_is_sm))
         m["loss"] = compute_loss(self.loss_type, logits, labels, sink_is_sm)
         return m
 
@@ -664,6 +843,13 @@ class Executor:
             halted = halted | ~room | torch.any(fin) | torch.any(completing)
         states.append(gen.get_state())
         return caches, seq, out, cnts, done, pf_fin, ran, states
+
+
+def _clone_tree(tree):
+    """A copy of a nested dict of tensors (other leaves kept)."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
 def _commit_rows_quant(buf, sc, sp, so, dp, do):

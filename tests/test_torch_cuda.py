@@ -1393,3 +1393,54 @@ def test_megastep_makes_no_host_sync_and_matches_one_tick(temperature):
     for k in caches:
         for n in ("k", "v"):
             assert torch.equal(mcaches[k][n], caches[k][n])
+
+
+@pytest.mark.parametrize("dispatch", ["sort", "dense"])
+@pytest.mark.parametrize("alpha", [2.0, 1.25])
+def test_experts_on_card_match_cpu(alpha, dispatch):
+    """The EXPERTS lowering (PyTorch ops: sort, searchsorted, gathers,
+    batched matmuls) on CUDA tensors, fp32 with TF32 off, against the
+    same call on CPU tensors: the same top-k choices and dropped pairs,
+    and the output, load-balance term and gradients within 1e-5 (summation
+    order only). The sort plan runs under set_sync_debug_mode("error"):
+    no read back to the host."""
+    _needs_card()
+    from flexflow_tpu_torch.ffconst import ActiMode
+    from flexflow_tpu_torch.ops import torch_ops
+    from flexflow_tpu_torch.ops.attrs import ExpertsAttrs
+    from flexflow_tpu_torch.ops.registry import LowerCtx
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = np.random.RandomState(2)
+    t, d, n, k, h = 256, 64, 8, 2, 128
+    # gate logits skewed toward the last experts, so capacity binds at
+    # alpha 1.25 (evenly spread choices would fill ~64 of 80 rows each)
+    host = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rs.randn(t, d), rs.randn(t, n) * 2 + np.linspace(0.0, 2.0, n),
+        rs.randn(n, d, h) * 0.1, rs.randn(n, h, d) * 0.1, rs.randn(t, d))]
+    at = ExpertsAttrs(n, k, h, d, alpha, ActiMode.SILU, dispatch=dispatch)
+    res = {}
+    for device in ("cuda", "cpu"):
+        x, gl, w1, w2, cot = (a.to(device).requires_grad_(i < 4)
+                              for i, a in enumerate(host))
+        ctx = LowerCtx(training=True)
+        if device == "cuda" and dispatch == "sort":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = torch_ops._experts(at, [x, gl], {"w1": w1, "w2": w2}, ctx)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ((y * cot).sum() + ctx.aux_loss).backward()
+        probs = torch.softmax(gl.detach(), dim=-1)
+        _, topi = torch_ops.topk_lower_first(probs, k)
+        slot, _ = torch_ops.sorted_dispatch(topi, n, at.capacity(t))
+        res[device] = [v.detach().cpu() for v in (
+            y, ctx.aux_loss, x.grad, gl.grad, w1.grad, w2.grad, topi, slot)]
+    for i, (a, b) in enumerate(zip(res["cuda"], res["cpu"])):
+        if i >= 6:
+            assert torch.equal(a, b), ("topi", "slot")[i - 6]
+        else:
+            assert torch.allclose(a, b, atol=1e-5, rtol=1e-5), i
+    if alpha < 2.0:
+        assert int((res["cpu"][7] == n * at.capacity(t)).sum()) > 0

@@ -130,13 +130,14 @@ def test_chip_smoke_fails_without_cuda():
 
 
 def test_training_entry_points_raise():
-    """What the training slice does not port raises, naming ROADMAP:
-    remat="hidden", attention dropout in training, fit(dataloaders=...)."""
+    """What the training slice does not port raises, naming ROADMAP: a
+    refused config field (fit's profiler capture), attention dropout in
+    training, fit(dataloaders=...)."""
     from flexflow_tpu_torch import FFConfig, FFModel
     from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FFConfig(device="cpu", remat="hidden")
+        FFConfig(device="cpu", profiler_trace_dir="trace")
     ff = FFModel(FFConfig(batch_size=1, device="cpu"))
     x = ff.create_tensor((1, 4, 16))
     ff.multihead_attention(x, x, x, 16, 2, dropout=0.1)
