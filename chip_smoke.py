@@ -4,11 +4,13 @@ pools, prefix cache, preemption, defrag, decode and universal megasteps,
 speculative decoding, the unpacked launch), dense KV-cache serving and
 generation, Llama training (head dims 128,
 64, 96 and 100), GPT-2 training and paged serving, Llama training
-through ring attention (head dims 128, 96 and 100), and Mixtral-8x7B's
-widths trained and served paged (the MoE ops), and holds every
-hand-written kernel on them to its plain PyTorch version.
+through ring attention (head dims 128, 96 and 100), Mixtral-8x7B's
+widths trained and served paged (the MoE ops), and the model zoo trained
+at full width (BERT-base, the encoder-decoder Transformer, ResNet-50, the
+LSTM NMT, DLRM), and holds every hand-written kernel on them to its plain
+PyTorch version.
 
-    python3 chip_smoke.py            # phases 1..4, 6..17, one card
+    python3 chip_smoke.py            # phases 1..4, 6..18, one card
     python3 chip_smoke.py --phases 5 # + profiles of serving and training
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
@@ -88,7 +90,16 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      train step, depth 1, batch 1, seq 256 (the load-balance term too),
      each first reporting the expert assignment of both sides and the
      (row, choice) pairs dropped at capacity (some must drop in the
-     train step), and refusing a difference in assignment;
+     train step), and refusing a difference in assignment; and the zoo
+     (phase_zoo_step): one Adam step of BERT at BERT-base's widths,
+     depth 2, dropout 0 (K4 twice a kernel), of the encoder-decoder at
+     TransformerConfig()'s widths, depth 1, src 256, tgt 200 (K4 three
+     times a kernel: non-causal, causal, cross), of the NMT at
+     NMTConfig()'s widths, depth 1, and of DLRM at a 10 k vocabulary,
+     each to phase_train_step's bounds, and one SGD step of ResNet-50 at
+     64x64, batch 8, held by each leaf's update direction with its moved
+     running statistics (the ZOO_RESNET_* bounds: its random-init fp32
+     gradients are ill-conditioned);
   4. serving: Llama-3-8B (32 layers, bf16, random weights from a seed)
      through serve_generation(paged=True) at its defaults (prefix cache
      and preemption on); 8 requests of 128..1024 prompt tokens, 64 new
@@ -111,7 +122,8 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      one repeated batch (the loss must fall); each flash kernel must
      launch 16 times per step; then two remat="attention" steps, where
      the forward kernel launches twice per layer;
-  7. the whole paged server: Llama-3-8B (32 layers, bf16) through
+  7. the whole paged server: Llama-3-8B's widths (8 of its 32 layers,
+     SERVE7_LAYERS; bf16) through
      serve_generation(paged=True, kv_dtype="int8") with a pool smaller
      than four slots' longest sequences; a 512-token system prompt served
      first, then 8 requests of that prompt + a 64..512-token suffix, 192
@@ -130,8 +142,8 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      3xTF32 bodies only (K4's forward and backward ms a step reported);
      then the
      masters before timed step 8 (where the loss jumps) give that step's
-     loss and gradients, fp32, batch 1, on the card and on the CPU, which
-     must agree;
+     loss and gradients, fp32, batch 1, its first 256 tokens
+     (GPT2_CHECK_SEQ), on the card and on the CPU, which must agree;
   9. serving GPT-2 XL (48 layers, bf16, max_len 1024 = its position
      table) through serve_generation(paged=True) at its defaults; 8
      requests of 128..768 prompt tokens, 64 new tokens each; the ragged
@@ -186,7 +198,8 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      cp.async-loaded body) cut to 2 layers (RING_OPENLLAMA_LAYERS, to keep
      the phase short) the same way (the kernels line records K5's
      launches of each under "phi3_mini" and "openllama_3b");
- 15. serving Llama-3-8B (phase 4's model, requests and server defaults)
+ 15. serving Llama-3-8B's widths at 4 of its 32 layers (MEGASTEP_LAYERS;
+     phase 4's requests and server defaults)
      (a) through megastep_ticks=8 against the one-tick loop, greedy and
      sampled at a fixed seed: tokens identical, one synchronizing CUDA
      call a megastep (set_sync_debug_mode("warn")), the ragged kernel
@@ -203,7 +216,8 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      it left equal on the card and on the CPU (the kernels line records
      the tree-window launches of (b) and of (c)'s int8 pool under
      "tree_w9");
- 16. serving Llama-3-8B (phase 4's model, server settings and requests)
+ 16. serving Llama-3-8B's widths at MEGASTEP_LAYERS layers (phase 4's
+     server settings and requests)
      (a) through megastep_mixed=True, megastep_ticks=8 (the universal
      megastep: chunk rows and decode rows in one dispatch, K3 at window
      8) against the one-tick loop and the decode-only megastep, greedy,
@@ -241,9 +255,35 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      bytes over the HBM rate); (c) bench_1b at phase 6's shape under
      remat="none" and remat="hidden": peak memory, step ms, the first
      loss alike (the kernels line records K1/K2's launches of (a) and
-     K3's of (b) under "mixtral").
-The line before the last is the kernel list as JSON; the last line is
-{"ok": true, "device": {...}}. Exits non-zero without CUDA.
+     K3's of (b) under "mixtral");
+ 18. the model zoo at full width, each a fit of 10 steps on one repeated
+     batch (Adam lr 1e-4; the loss must fall), with PyTorch's default
+     precision flags (fp32 matmuls in fp32, cuDNN's convolutions in
+     TF32): (a) BERT-base (BertConfig(): 12 x 768, 12 heads of 64, FFN
+     3072, vocab 30522), batch 32 x seq 512, declared bf16 (fp32 from
+     its position add on, as the reference computes it), remat none, at
+     the reference's attention dropout 0.1 (the dense dropout route once
+     a layer and step, K4 never), then eval and predict (K4's forward once
+     a layer a call), then a fresh model at dropout 0 (K4's forward, dq
+     and dk/dv once a layer and step): ms a step, tokens/s, MFU at 989
+     TF/s (bert_flops_per_token), peak memory; (b) the encoder-decoder
+     Transformer at TransformerConfig() (512 wide, 8 heads, FFN 2048, 6 + 6
+     layers, fp32), src 256, tgt 200, batch 32, MSE: K4's fp32 bodies
+     three times a layer and step (encoder, causal decoder,
+     cross-attention at S 200 != T 256); (c) ResNet-50 at 224x224, batch
+     64, 1000 classes, fp32: images/s, every BatchNorm's running
+     statistics moved and read by predict; (d) the LSTM NMT at
+     NMTConfig() (1024 / 1024, 2 + 2 layers, 32000-word vocabularies), 32
+     + 32 tokens, batch 64: tokens/s; (e) DLRM at build_dlrm's defaults
+     (8 tables of 1 M x 64 fp32), batch 2048, MSE: samples/s; then K4
+     against its plain versions at their attention shapes, timed beside
+     SDPA in fp32 (K4_ZOO_CASES; the kernels line records K4's launches
+     of (a) and (b) under "bert_base", "encdec_self", "encdec_causal",
+     "encdec_cross").
+Each phase, and each part of phases 2 and 3, logs its wall seconds on a
+`phase_time` line. The line before the last is the kernel list as JSON;
+the last line is {"ok": true, "device": {...}}. Exits non-zero without
+CUDA.
 """
 
 from __future__ import annotations
@@ -270,6 +310,7 @@ from flexflow_tpu_torch import (
     FFModel,
     LossType,
     MetricsType,
+    SGDOptimizer,
 )
 from flexflow_tpu_torch.kernels import (
     FLASH_ATTENTION_BH_DKV,
@@ -293,9 +334,17 @@ from flexflow_tpu_torch.kernels import (
     launch_flash_attention_dq,
     launch_flash_attention_fwd,
 )
+from flexflow_tpu_torch.models.bert import BertConfig, build_bert
+from flexflow_tpu_torch.models.dlrm import build_dlrm
 from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2
 from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
 from flexflow_tpu_torch.models.mixtral import MixtralConfig, build_mixtral
+from flexflow_tpu_torch.models.nmt import NMTConfig, build_nmt
+from flexflow_tpu_torch.models.resnet import build_resnet50
+from flexflow_tpu_torch.models.transformer import (
+    TransformerConfig,
+    build_transformer_encoder_decoder,
+)
 from flexflow_tpu_torch.ops import torch_ops
 from flexflow_tpu_torch.ops.flash_attention import (
     FlashAttentionFunction,
@@ -319,6 +368,7 @@ from flexflow_tpu_torch.paged.attention import (
 )
 from flexflow_tpu_torch.paged.quant import dequantize_pages, quantized_append
 from flexflow_tpu_torch.parallel.mesh import make_mesh
+from flexflow_tpu_torch.runtime.executor import merge_state
 from flexflow_tpu_torch.parallel.ring import ring_dot_product_attention
 from flexflow_tpu_torch.serving import pick_tokens
 from flexflow_tpu_torch.spec import SpecConfig
@@ -385,6 +435,16 @@ WIDE_SPEC = SpecConfig(width=8, depth=8)
 MEGASTEP_TICKS = 8
 SAMPLE_TEMPERATURE = 0.8
 ACCEPT_FLOOR = 1.5
+# phases 15 and 16 serve Llama-3-8B's widths at 4 of its 32 layers (phase
+# 4 serves all 32): each runs about a dozen serves of phase 4's traffic,
+# and a decode tick's host time grows ~2 ms a layer, so at 32 layers the
+# two took 350 of the default run's 1000 s (H100 80GB HBM3, 700 W)
+MEGASTEP_LAYERS = 4
+
+
+def llama3_8b_cut(layers: int) -> LlamaConfig:
+    """Llama-3-8B's widths at `layers` of its 32 layers."""
+    return dataclasses.replace(LlamaConfig.llama3_8b(), layers=layers)
 # the training path's attention: bench_1b at batch 8, seq 1024
 FB, FS, FH, FHKV, FD = 8, 1024, 16, 8, 128
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCHES, TIMED_STEPS = 8, 1024, 10, 10
@@ -487,8 +547,10 @@ GPT2_POSITIONS = 1024  # n_positions: the position table, serving's max_len
 GPT2_BATCHES = 10
 # phase 8's timed step (1-based) whose loss jumps in every run, and the
 # card-vs-CPU gradient check of it: each leaf's gradient in norm, fp32
-# with TF32 off, summation order only over 48 layers at seq 1024
-GPT2_CHECK_STEP, GPT2_GRAD_RTOL = 8, 1e-3
+# with TF32 off, summation order only over 48 layers. It takes the first
+# GPT2_CHECK_SEQ tokens of the step's first sequence: the CPU's side of
+# all 1024 took 62-74 s of the run, and its time on a shared host varies
+GPT2_CHECK_STEP, GPT2_GRAD_RTOL, GPT2_CHECK_SEQ = 8, 1e-3, 256
 # phase 9's traffic: 8 prompts uniform in 128..768 tokens, 64 new each
 GPT2_PROMPTS, GPT2_PROMPT_MIN, GPT2_PROMPT_MAX, GPT2_NEW = 8, 128, 768, 64
 
@@ -547,6 +609,15 @@ def gpt2_xl() -> GPT2Config:
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def timed(phase: str, fn, *args, **kw):
+    """Runs fn(*args, **kw) and logs its wall seconds under `phase`."""
+    t0 = time.monotonic()
+    out = fn(*args, **kw)
+    secs = time.monotonic() - t0
+    log(f"phase_time {json.dumps({'phase': phase, 'seconds': secs})}")
+    return out
 
 
 def card_line() -> str:
@@ -2284,7 +2355,9 @@ def phase_serve(seed: int, card: str) -> dict:
 # phase 7: the whole paged server — int8 pool, prefix cache, preemption,
 # defrag — serving Llama-3-8B
 
-# serve_generation's settings for phase 7 and its traffic
+# serve_generation's settings for phase 7 and its traffic; its Llama-3-8B
+# at 8 of 32 layers (58 s of the run at 32, almost all host time a layer)
+SERVE7_LAYERS = 8
 SERVE7 = dict(slots=4, max_len=2048, page_size=64, prefill_chunk=64,
               kv_dtype="int8")
 SYS_LEN, SUFFIX_MIN, SUFFIX_MAX, SERVE7_REQUESTS, SERVE7_NEW = (
@@ -2364,13 +2437,13 @@ def serve_int8_traffic(ff, vocab: int, seed: int,
             "records": m["requests"][served0:], "num_pages": num_pages,
             "prompt_lens": [len(p) for p in prompts]}
 def phase_serve_int8(seed: int, card: str) -> dict:
-    """Phase 7 on the card: Llama-3-8B, 32 layers, bf16, random weights
-    from the seed, through serve_int8_traffic. Fails unless every output
+    """Phase 7 on the card: Llama-3-8B's widths, SERVE7_LAYERS layers,
+    bf16, random weights from the seed, through serve_int8_traffic. Fails unless every output
     has SERVE7_NEW valid tokens, the int8 kernel launched once per layer
     and ragged step and the fp kernel never, the four requests admitted
     first each mapped the 8 shared pages (hit tokens >= 4 x 512), growth
     preempted at least once and a defrag ran."""
-    cfg = LlamaConfig.llama3_8b()
+    cfg = llama3_8b_cut(SERVE7_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     ff = FFModel(FFConfig(batch_size=1, seed=seed, device=DEVICE))
@@ -3002,7 +3075,9 @@ def phase_gpt2_train(seed: int, card: str) -> dict:
                      "dkv": cfg.layers}}:
         raise AssertionError(f"K4's fp32 forward, dq and dk/dv did not run "
                              f"on their 3xTF32 bodies alone: {bodies}")
-    res["step_check"] = gpt2_step_check(cfg, saved, x[:1], y[:1], seed)
+    res["step_check"] = gpt2_step_check(
+        cfg, saved, *(np.ascontiguousarray(a[:1, :GPT2_CHECK_SEQ])
+                      for a in (x, y)), seed)
     return res
 
 
@@ -3021,8 +3096,8 @@ def gpt2_step_check(cfg, saved, x, y, seed) -> dict:
     """Phase 8's step GPT2_CHECK_STEP (where its loss jumps, 9.90 ->
     11.34, with the same digits in every run) looked at again: the
     masters before that step, loaded into GPT-2 XL built in fp32 (TF32
-    off) on the card and on the CPU, give the loss and every gradient of the step's first sequence
-    (batch 1). If the two agree the card computes the step as the CPU's
+    off) on the card and on the CPU, give the loss and every gradient of
+    the step's first sequence, its first GPT2_CHECK_SEQ tokens (batch 1). If the two agree the card computes the step as the CPU's
     plain path does, and the jump is the optimizer's dynamics (Adam on a
     repeated batch), not a fault of the card's kernels. Agreement: the
     loss to TRAIN_LOSS_RTOL; all gradients together, and every leaf's, to
@@ -3035,9 +3110,11 @@ def gpt2_step_check(cfg, saved, x, y, seed) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     out = []
     for device in (DEVICE, "cpu"):
-        params = tuple({k: {n: t.to(device) for n, t in w.items()}
+        # the position table's first rows: a build at seq S has S of them
+        params = tuple({k: {n: (t[:x.shape[1]] if k.startswith("wpe")
+                                else t).to(device) for n, t in w.items()}
                         for k, w in tree.items()} for tree in saved)
-        ff = _train_model(cfg, device, batch=1, seq=GPT2_POSITIONS,
+        ff = _train_model(cfg, device, batch=1, seq=x.shape[1],
                           dtype=DataType.FLOAT, remat="none", seed=seed,
                           params=params)
         t0 = time.monotonic()
@@ -3054,7 +3131,8 @@ def gpt2_step_check(cfg, saved, x, y, seed) -> dict:
     worst = max(rel, key=rel.get)
     bk_noise = max((float(max(gg[n].norm(), cg[n].norm())) / norm
                     for n in key_bias), default=0.0)
-    res = {"step": GPT2_CHECK_STEP, "batch": 1, "dtype": "float32",
+    res = {"step": GPT2_CHECK_STEP, "batch": 1, "seq": x.shape[1],
+           "dtype": "float32",
            "loss_card": gl, "loss_cpu": cl,
            "loss_rel_err": abs(gl - cl) / abs(cl),
            "grad_norm": norm, "grad_rel_err": diff / norm,
@@ -3720,7 +3798,8 @@ def _same_share(a, b) -> float:
 
 def phase_spec_megastep(seed: int, card: str) -> dict:
     """Phase 15: the paged server's decode megastep and speculative
-    decoding on Llama-3-8B (phase 4's model and 8 requests, 64 new each).
+    decoding at Llama-3-8B's widths, MEGASTEP_LAYERS layers (phase 4's 8
+    requests, 64 new each).
     (a) megastep_ticks=8 against the one-tick loop at full width, bf16:
     tokens identical, greedy and sampled at a fixed seed; one host sync a
     megastep; K3 once per layer and ragged step (each megastep tick one
@@ -3734,8 +3813,8 @@ def phase_spec_megastep(seed: int, card: str) -> dict:
     speculative server on an int8 pool too, its tokens' share equal to
     the int8 one-tick server's reported, and a commit on the pools it
     left equal on the card and on the CPU."""
-    cfg = LlamaConfig.llama3_8b()
-    out = {"card": card}
+    cfg = llama3_8b_cut(MEGASTEP_LAYERS)
+    out = {"card": card, "layers": cfg.layers}
     t0 = time.monotonic()
     ff = FFModel(FFConfig(batch_size=1, seed=seed, device=DEVICE))
     build_llama(ff, cfg, batch_size=1, seq_len=2048,
@@ -3919,8 +3998,9 @@ def _pool_bytes(server) -> int:
 
 
 def phase_mixed_dense(seed: int, card: str) -> dict:
-    """Phase 16 on Llama-3-8B (phase 4's model, server settings and 8
-    requests, 64 new tokens each), bf16 unless said:
+    """Phase 16 at Llama-3-8B's widths, MEGASTEP_LAYERS layers (phase 4's
+    server settings and 8 requests, 64 new tokens each), bf16 unless
+    said:
     (a) megastep_mixed=True, megastep_ticks=8 against the one-tick loop
     and the decode-only megastep, greedy, and mixed N = 1 against N = 8,
     sampled (0.8): K3 once per layer and enqueued tick, every mixed
@@ -3955,8 +4035,8 @@ def phase_mixed_dense(seed: int, card: str) -> dict:
     from flexflow_tpu_torch.spec import DraftModelDrafter
 
     t_phase = time.monotonic()
-    cfg = LlamaConfig.llama3_8b()
-    out = {"card": card}
+    cfg = llama3_8b_cut(MEGASTEP_LAYERS)
+    out = {"card": card, "layers": cfg.layers}
     problems = []
     ff = FFModel(FFConfig(batch_size=1, seed=seed, device=DEVICE))
     build_llama(ff, cfg, batch_size=1, seq_len=2048,
@@ -4478,6 +4558,568 @@ def phase_mixtral(seed: int, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 18 (and phase 3's zoo checks): the model zoo on the card
+
+# the zoo's cells: a fit of ZOO_STEPS steps on one repeated batch (Adam
+# lr ZOO_LR), so the loss must fall. BERT takes BERT_LR, the bottom of
+# its paper's fine-tuning range (arXiv:1810.04805: 5e-5, 3e-5, 2e-5):
+# with no warmup, Adam's first steps move every weight by about lr, and
+# the 12 post-LayerNorm layers of random BERT-base swing the loss on one
+# repeated batch from 1.31 to 8.03 at 1e-4 and to 6.24 at 5e-5, ending
+# above where they began (H100 80GB HBM3, 700 W)
+ZOO_STEPS, ZOO_LR, BERT_LR = 10, 1e-4, 2e-5
+BERT_BATCH, BERT_SEQ = 32, 512
+ENCDEC_BATCH, ENCDEC_SRC, ENCDEC_TGT = 32, 256, 200
+RESNET_BATCH, RESNET_IMAGE, RESNET_CLASSES = 64, 224, 1000
+NMT_BATCH, NMT_SRC, NMT_TGT = 64, 32, 32
+DLRM_BATCH, DLRM_VOCAB = 2048, 1000000
+# K4 at the zoo's attention shapes (B·H, S, T, D, causal), in fp32 as the
+# models run them (BERT declared bf16 runs fp32 from its position add on,
+# the table being stored fp32, as the reference computes it; the
+# Transformer builder fixes fp32): BERT-base's, and the encoder's,
+# the decoder's causal self-attention and its cross-attention (S 200 !=
+# T 256) at TransformerConfig()
+K4_ZOO_CASES = (
+    ("bert_base", BERT_BATCH * 12, BERT_SEQ, BERT_SEQ, 64, False),
+    ("encdec_self", ENCDEC_BATCH * 8, ENCDEC_SRC, ENCDEC_SRC, 64, False),
+    ("encdec_causal", ENCDEC_BATCH * 8, ENCDEC_TGT, ENCDEC_TGT, 64, True),
+    ("encdec_cross", ENCDEC_BATCH * 8, ENCDEC_TGT, ENCDEC_SRC, 64, False),
+)
+# phase 3's encoder-decoder and ResNet-50 checks compare the step's
+# gradients (and ResNet's moved running statistics), not weights after
+# an optimizer step. Adam's first step (lr * g / (|g| + 1e-8)) does not
+# fit phase_train_step's bounds for the encoder-decoder: its encoder's
+# gradients peak near 1e-5 (the query and key projections' near 2e-8),
+# so many entries sit where eps sets the step, and a 1e-9 summation-order
+# difference in g moves a weight by 1e-5 (H100 80GB HBM3, 700 W: 2933 of
+# 7.35 M weights past 1e-5, the loss equal to 8e-8); and an SGD step's
+# update, read back as the difference of two fp32 weights, carries the
+# weights' rounding (1 / 316 of a 1e-6 update). Leaves whose CPU
+# gradient is below ZOO_GRAD_NOISE of the model's largest are zero in
+# exact arithmetic (a key bias, a conv bias before BatchNorm) and must
+# stay below ten times that on the card; every other leaf is held to
+# ZOO_GRAD_RTOL of its largest entry (the encoder-decoder), or by its
+# direction (ResNet-50). Random-init ResNet-50's fp32 gradients are
+# ill-conditioned: against a float64 evaluation of the graph, PyTorch's
+# own fp32 CPU gradients are off by up to 14% of a leaf's largest entry
+# (64x64, batch 16), so no elementwise bound holds between two fp32
+# runs; each leaf must point the CPU's way (cosine >= ZOO_RESNET_COS).
+# Its forward drifts by summation order through 50 layers (two CPU
+# backends: 2.5e-4 of the logits' largest entry), so its loss takes
+# ZOO_RESNET_LOSS_RTOL and its moved running statistics
+# ZOO_RESNET_STAT_TOL (abs and rel)
+ZOO_GRAD_NOISE, ZOO_GRAD_RTOL = 1e-6, 1e-4
+ZOO_RESNET_COS, ZOO_RESNET_LOSS_RTOL, ZOO_RESNET_STAT_TOL = 0.995, 1e-4, 1e-3
+
+
+def _route_launches() -> dict:
+    """Each kernel's launches and the dense dropout route's calls."""
+    out = {k.name: k.launches for k in KERNELS}
+    route = torch_ops.DENSE_DROPOUT_ATTENTION
+    out[route.name] = route.launches
+    return out
+
+
+def _reset_routes():
+    _reset_launches()
+    torch_ops.DENSE_DROPOUT_ATTENTION.launches = 0
+
+
+def _k4_route(launches: dict) -> dict:
+    return {k: launches[k] for k in (
+        FLASH_ATTENTION_BH_FWD.name, FLASH_ATTENTION_BH_DQ.name,
+        FLASH_ATTENTION_BH_DKV.name, torch_ops.DENSE_DROPOUT_ATTENTION.name)}
+
+
+def zoo_fit(ff, xs, y, steps: int = ZOO_STEPS) -> dict:
+    """ff.fit over `steps` copies of one batch, the main path: kernel and
+    route counts reset just before, read just after. A wrapper of the
+    executor's train_step records each step's loss (a tensor on the
+    card, read after the fit) and CUDA events around it; step_ms is the
+    events' mean over steps 2..n (the first pays one-time setup)."""
+    ex = ff.executor
+    step = ex.train_step
+    losses, events = [], []
+
+    def recorded(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*args, **kw)
+        end.record()
+        losses.append(out[3]["loss"])
+        events.append((start, end))
+        return out
+
+    xs = [np.concatenate([a] * steps) for a in xs]
+    y = np.concatenate([y] * steps)
+    ex.train_step = recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_routes()
+    t0 = time.perf_counter()
+    try:
+        pm = ff.fit(xs, y, epochs=1, verbose=False)
+        torch.cuda.synchronize()
+    finally:
+        del ex.train_step
+    wall = time.perf_counter() - t0
+    return {"steps": len(losses), "samples": pm.train_all,
+            "losses": [float(v) for v in losses],
+            "step_ms": events[1][0].elapsed_time(events[-1][1])
+            / (len(events) - 1),
+            "fit_s": wall, "launches": _route_launches(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _falls(label: str, losses, problems: list):
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        problems.append(f"{label}: the loss on a repeated batch did not "
+                        f"fall: {losses}")
+
+
+def _want_routes(label, launches, want: dict, problems: list):
+    got = _k4_route(launches)
+    if got != want:
+        problems.append(f"{label}: K4 / dense-route launches {got}, want "
+                        f"{want}")
+
+
+def _k4_want(fwd: int, bwd: int, dense: int) -> dict:
+    return {FLASH_ATTENTION_BH_FWD.name: fwd, FLASH_ATTENTION_BH_DQ.name: bwd,
+            FLASH_ATTENTION_BH_DKV.name: bwd,
+            torch_ops.DENSE_DROPOUT_ATTENTION.name: dense}
+
+
+def bert_flops_per_token(cfg, seq: int) -> float:
+    """Matmul FLOPs per trained token, forward and backward: the four
+    attention projections and the two MLP matrices a layer, and the
+    non-causal scores and value products over `seq` keys (the embedding
+    lookup and the 2-class head left out), as llama_flops_per_token
+    counts a Llama's."""
+    per_layer = 4 * cfg.hidden * cfg.hidden + 2 * cfg.hidden \
+        * cfg.intermediate
+    return 6.0 * cfg.layers * per_layer + 12.0 * cfg.layers * seq \
+        * cfg.hidden
+
+
+def _zoo_model(build, loss_type, batch, seed, metrics=(),
+               lr=ZOO_LR) -> FFModel:
+    ff = FFModel(FFConfig(batch_size=batch, seed=seed, device=DEVICE,
+                          remat="none"))
+    build(ff)
+    return ff.compile(optimizer=AdamOptimizer(lr=lr),
+                      loss_type=loss_type, metrics=list(metrics))
+
+
+def phase_zoo_bert(seed: int, problems: list) -> dict:
+    """18a: BERT-base (BertConfig(): 12 x 768, 12 heads of 64, FFN 3072,
+    vocab 30522) at batch 32 x seq 512, declared bf16, remat none: fit at
+    the reference's attention dropout 0.1 (the dense route once a layer
+    and step, K4 never), eval and predict (K4's forward once a layer a
+    call, the dense route never), then a fresh model fit at dropout 0
+    (K4's forward, dq and dk/dv once a layer and step)."""
+    cfg = BertConfig()
+    rs = np.random.RandomState(seed)
+    x = rs.randint(0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ)).astype(
+        np.int32)
+    y = rs.randint(0, cfg.num_classes, BERT_BATCH).astype(np.int32)
+    tokens = BERT_BATCH * BERT_SEQ
+    flops = bert_flops_per_token(cfg, BERT_SEQ) * tokens
+    res = {"model": "bert_base", "batch": BERT_BATCH, "seq": BERT_SEQ,
+           "declared": "bfloat16", "runs": "float32 after add_pos",
+           "flops_per_step": flops}
+    n = cfg.layers * ZOO_STEPS
+    for dropout in (cfg.dropout, 0.0):
+        free_card()
+        ff = _zoo_model(lambda f: build_bert(
+            f, dataclasses.replace(cfg, dropout=dropout),
+            batch_size=BERT_BATCH, seq_len=BERT_SEQ,
+            dtype=DataType.BFLOAT16),
+            LossType.SPARSE_CATEGORICAL_CROSSENTROPY, BERT_BATCH, seed,
+            metrics=[MetricsType.ACCURACY], lr=BERT_LR)
+        fit = zoo_fit(ff, [x], y)
+        fit.update(tokens_per_s=tokens / fit["step_ms"] * 1e3,
+                   mfu=flops / (fit["step_ms"] / 1e3)
+                   / PEAK_OPS[torch.bfloat16])
+        label = f"bert dropout {dropout}"
+        _falls(label, fit["losses"], problems)
+        _want_routes(label, fit["launches"],
+                     _k4_want(0, 0, n) if dropout else _k4_want(n, n, 0),
+                     problems)
+        res[f"fit_dropout_{dropout}"] = fit
+        if dropout:
+            _reset_routes()
+            pm = ff.eval(x, y, verbose=False)
+            probs = ff.predict(x)
+            torch.cuda.synchronize()
+            launches = _route_launches()
+            res["eval_predict"] = {
+                "launches": _k4_route(launches),
+                "accuracy": pm.train_correct / max(pm.train_all, 1),
+                "shape": list(probs.shape),
+                "finite": bool(np.isfinite(probs).all()),
+                "row_sum_err": float(np.abs(probs.sum(-1) - 1).max())}
+            _want_routes("bert eval + predict", launches,
+                         _k4_want(2 * cfg.layers, 0, 0), problems)
+            if not res["eval_predict"]["finite"] \
+                    or res["eval_predict"]["row_sum_err"] > 1e-4 \
+                    or probs.shape != (BERT_BATCH, cfg.num_classes):
+                problems.append(f"bert predict: {res['eval_predict']}")
+        del ff
+    return res
+
+
+def phase_zoo_encdec(seed: int, problems: list) -> dict:
+    """18b: the encoder-decoder Transformer at TransformerConfig() (512
+    wide, 8 heads of 64, FFN 2048, 6 + 6 layers, fp32 as the builder
+    fixes it), src 256, tgt 200, batch 32, MSE as the reference example
+    trains it: K4's fp32 (3xTF32) bodies on the encoder's non-causal
+    self-attention, the decoder's causal one and its cross-attention
+    (S 200 != T 256), each once a layer and step."""
+    cfg = TransformerConfig()
+    rs = np.random.RandomState(seed + 1)
+    src = rs.randn(ENCDEC_BATCH, ENCDEC_SRC, cfg.dim).astype(np.float32)
+    tgt = rs.randn(ENCDEC_BATCH, ENCDEC_TGT, cfg.dim).astype(np.float32)
+    y = rs.randn(ENCDEC_BATCH, ENCDEC_TGT, 1).astype(np.float32)
+    free_card()
+    ff = _zoo_model(lambda f: build_transformer_encoder_decoder(
+        f, cfg, batch_size=ENCDEC_BATCH, src_len=ENCDEC_SRC,
+        tgt_len=ENCDEC_TGT), LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+        ENCDEC_BATCH, seed)
+    fit = zoo_fit(ff, [src, tgt], y)
+    tokens = ENCDEC_BATCH * (ENCDEC_SRC + ENCDEC_TGT)
+    fit.update(model="transformer_encoder_decoder", batch=ENCDEC_BATCH,
+               src=ENCDEC_SRC, tgt=ENCDEC_TGT, dtype="float32",
+               tokens_per_s=tokens / fit["step_ms"] * 1e3)
+    n = 3 * cfg.layers * ZOO_STEPS
+    _falls("encoder-decoder", fit["losses"], problems)
+    _want_routes("encoder-decoder", fit["launches"], _k4_want(n, n, 0),
+                 problems)
+    del ff
+    return fit
+
+
+def phase_zoo_resnet(seed: int, problems: list) -> dict:
+    """18c: ResNet-50 at 224x224, batch 64, 1000 classes, fp32: every
+    BatchNorm's running statistics must move in the fit, and predict must
+    read them (its output differs from the same weights' under the
+    initial statistics)."""
+    rs = np.random.RandomState(seed + 2)
+    x = rs.randn(RESNET_BATCH, 3, RESNET_IMAGE, RESNET_IMAGE).astype(
+        np.float32)
+    y = rs.randint(0, RESNET_CLASSES, RESNET_BATCH).astype(np.int32)
+    free_card()
+    ff = _zoo_model(lambda f: build_resnet50(
+        f, batch_size=RESNET_BATCH, classes=RESNET_CLASSES,
+        image_size=RESNET_IMAGE), LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+        RESNET_BATCH, seed)
+    stats0 = {k: {n: t.clone() for n, t in w.items()}
+              for k, w in ff._params[1].items()}
+    fit = zoo_fit(ff, [x], y)
+    tr, ntr = ff._params
+    moved = sum(not torch.equal(ntr[k]["running_mean"],
+                                stats0[k]["running_mean"])
+                and not torch.equal(ntr[k]["running_var"],
+                                    stats0[k]["running_var"])
+                for k in stats0)
+    p_trained = ff.predict(x)
+    ff._params = (tr, stats0)
+    p_initial = ff.predict(x)
+    ff._params = (tr, ntr)
+    fit.update(model="resnet50", batch=RESNET_BATCH, image=RESNET_IMAGE,
+               dtype="float32", images_per_s=RESNET_BATCH
+               / fit["step_ms"] * 1e3, batch_norms=len(stats0),
+               stats_moved=moved,
+               predict_stats_effect=float(np.abs(p_trained
+                                                 - p_initial).max()),
+               predict_finite=bool(np.isfinite(p_trained).all()))
+    _falls("resnet50", fit["losses"], problems)
+    if moved != len(stats0) or not fit["predict_stats_effect"] > 0 \
+            or not fit["predict_finite"]:
+        problems.append(f"resnet50 running statistics: {fit}")
+    del ff, tr, ntr, stats0
+    return fit
+
+
+def phase_zoo_nmt(seed: int, problems: list) -> dict:
+    """18d: the LSTM NMT at NMTConfig() (embeddings and hidden 1024, 2 + 2
+    layers, 32000-word vocabularies), 32 + 32 tokens, batch 64, fp32."""
+    cfg = NMTConfig()
+    rs = np.random.RandomState(seed + 3)
+    src = rs.randint(0, cfg.src_vocab, (NMT_BATCH, NMT_SRC)).astype(np.int32)
+    tgt = rs.randint(0, cfg.tgt_vocab, (NMT_BATCH, NMT_TGT)).astype(np.int32)
+    y = np.roll(tgt, -1, axis=1).astype(np.int32)
+    free_card()
+    ff = _zoo_model(lambda f: build_nmt(
+        f, cfg, batch_size=NMT_BATCH, src_len=NMT_SRC, tgt_len=NMT_TGT),
+        LossType.SPARSE_CATEGORICAL_CROSSENTROPY, NMT_BATCH, seed)
+    fit = zoo_fit(ff, [src, tgt], y)
+    fit.update(model="nmt", batch=NMT_BATCH, src=NMT_SRC, tgt=NMT_TGT,
+               dtype="float32",
+               tokens_per_s=NMT_BATCH * (NMT_SRC + NMT_TGT)
+               / fit["step_ms"] * 1e3,
+               target_tokens_per_s=NMT_BATCH * NMT_TGT / fit["step_ms"]
+               * 1e3)
+    _falls("nmt", fit["losses"], problems)
+    del ff
+    return fit
+
+
+def phase_zoo_dlrm(seed: int, problems: list) -> dict:
+    """18e: DLRM at build_dlrm's defaults (8 tables of 1 M x 64 fp32, a
+    13-wide dense input, MLPs 512-256-64 and 512-256-1), batch 2048,
+    MSE."""
+    rs = np.random.RandomState(seed + 4)
+    xs = [rs.randn(DLRM_BATCH, 13).astype(np.float32)] + [
+        rs.randint(0, DLRM_VOCAB, (DLRM_BATCH, 1)).astype(np.int32)
+        for _ in range(8)]
+    y = rs.rand(DLRM_BATCH, 1).astype(np.float32)
+    free_card()
+    ff = _zoo_model(lambda f: build_dlrm(f, vocab=DLRM_VOCAB,
+                                         batch_size=DLRM_BATCH),
+                    LossType.MEAN_SQUARED_ERROR_AVG_REDUCE, DLRM_BATCH, seed)
+    fit = zoo_fit(ff, xs, y)
+    fit.update(model="dlrm", batch=DLRM_BATCH, dtype="float32",
+               params=sum(t.numel() for w in ff._params[0].values()
+                          for t in w.values()),
+               samples_per_s=DLRM_BATCH / fit["step_ms"] * 1e3)
+    _falls("dlrm", fit["losses"], problems)
+    del ff
+    return fit
+
+
+def phase_zoo(seed: int, card: str) -> dict:
+    """Phase 18. Runs with PyTorch's default precision flags (fp32
+    matmuls in fp32, cuDNN's fp32 convolutions in TF32), set here and
+    restored after; collects every sub-phase's problems and raises at
+    the end. The kernels line records K4's launches of (a) and (b) and
+    its times at their shapes (K4_ZOO_CASES)."""
+    t0 = time.monotonic()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    problems: list = []
+    res = {"card": card, "matmul_tf32": False, "cudnn_tf32": True}
+    try:
+        for key, fn in (("a", phase_zoo_bert), ("b", phase_zoo_encdec),
+                        ("c", phase_zoo_resnet), ("d", phase_zoo_nmt),
+                        ("e", phase_zoo_dlrm)):
+            res[key] = fn(seed, problems)
+            log(f"zoo_{key} {json.dumps(res[key])}")
+        free_card()
+        timed = {}
+        for i, (case, BH, S, T, D, causal) in enumerate(K4_ZOO_CASES):
+            r = k4_check(BH, S, T, D, causal, torch.float32, seed + 10 + i,
+                         timed=True)
+            timed[case] = r
+            if not all(v["ok"] for v in r.values()):
+                problems.append(f"K4 at {case}: {r}")
+        res["k4"] = timed
+        log(f"zoo_k4 {json.dumps(timed)}")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    res["seconds"] = time.monotonic() - t0
+    log(f"zoo seconds {res['seconds']}")
+    if problems:
+        raise AssertionError(f"phase 18: {problems}")
+    return res
+
+
+def _zoo_step_check(label, build, loss_type, xs, y, seed, optimizer,
+                    grads: bool = False):
+    """One train step of a zoo model at fp32 with TF32 off, the card
+    against the CPU from the same seeded weights: the loss, and every
+    parameter after the step (with `grads` every gradient of the step
+    instead) and the non-trainable tree after it, and the card's K4
+    launches. Returns (result, card leaves, CPU leaves, card and CPU
+    non-trainable leaves), leaves keyed "node key/weight name"."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card_ff = FFModel(FFConfig(batch_size=len(y), seed=seed, device=DEVICE,
+                               remat="none"))
+    build(card_ff)
+    card_ff.compile(optimizer=optimizer(), loss_type=loss_type)
+    cpu_ff = FFModel(FFConfig(batch_size=len(y), seed=seed, device="cpu",
+                              remat="none"))
+    build(cpu_ff)
+    cpu_ff.compile(optimizer=optimizer(), loss_type=loss_type,
+                   params=tuple({k: {n: t.cpu() for n, t in w.items()}
+                                 for k, w in tree.items()}
+                                for tree in card_ff._params))
+    out = []
+    for ff in (card_ff, cpu_ff):
+        ex = ff.executor
+        tr, ntr = ff._params
+        by = torch.from_numpy(y).to(ex.device)
+        bx = [torch.from_numpy(a).to(ex.device) for a in xs]
+        _reset_routes()
+        if grads:
+            state = {}
+            loss, _, tr = ex.loss_and_grads(tr, ntr, by, *bx,
+                                            state_out=state)
+            ntr = merge_state(ntr, state)
+        else:
+            tr, ntr, _, m = ex.train_step(tr, ntr, ff._opt_state, by, *bx)
+            loss = m["loss"]
+        out.append((float(loss),
+                    {f"{k}/{n}": t.cpu() for k, w in tr.items()
+                     for n, t in w.items()},
+                    {f"{k}/{n}": t.cpu() for k, w in ntr.items()
+                     for n, t in w.items()}))
+        if ff is card_ff:
+            k4 = _k4_route(_route_launches())
+    (gl, gp, gs), (cl, cp, cs) = out
+    res = {"model": label, "loss_card": gl, "loss_cpu": cl,
+           "loss_rel_err": abs(gl - cl) / abs(cl), "k4": k4,
+           "weights": sum(t.numel() for t in cp.values())}
+    del card_ff, cpu_ff
+    torch.cuda.empty_cache()
+    return res, gp, cp, gs, cs
+
+
+def _grad_agreement(gp, cp):
+    """Card gradients `gp` against CPU gradients `cp`, leaf by leaf: the
+    least cosine and the largest error over the leaf's largest entry,
+    over the leaves above ZOO_GRAD_NOISE of the largest gradient; and
+    whether the card's stays below ten times that on every other leaf."""
+    floor = ZOO_GRAD_NOISE * max(float(t.abs().max()) for t in cp.values())
+    cos, rel, noise_ok = 1.0, 0.0, True
+    for n in gp:
+        want, got = cp[n].double().flatten(), gp[n].double().flatten()
+        top = float(want.abs().max())
+        if top <= floor:
+            noise_ok &= float(got.abs().max()) <= 10 * floor
+            continue
+        cos = min(cos, float(got @ want / got.norm() / want.norm()))
+        rel = max(rel, float((got - want).abs().max()) / top)
+    return cos, rel, noise_ok
+
+
+def phase_zoo_step(seed: int) -> dict:
+    """Phase 3's zoo checks, fp32 with TF32 off, card against CPU: one
+    Adam step (lr TRAIN_LR, phase_train_step's bounds) of BERT at
+    BERT-base's widths, depth 2, dropout 0, seq 128, batch 2 (K4 twice
+    a kernel), of the NMT at NMTConfig()'s widths, depth 1, batch 2, and
+    of DLRM at a 10 k vocabulary, batch 256; the gradients of one step of
+    the encoder-decoder at TransformerConfig()'s widths, depth 1, src
+    256, tgt 200, batch 2 (K4 three times a kernel; ZOO_GRAD_RTOL), and
+    of ResNet-50 at 64x64, batch 8, with its running statistics compared
+    after the step (the ZOO_RESNET_* bounds)."""
+    rs = np.random.RandomState(seed + 5)
+    adam = lambda: AdamOptimizer(lr=TRAIN_LR)  # noqa: E731
+    bert = dataclasses.replace(BertConfig(), layers=2, dropout=0.0)
+    tcfg = dataclasses.replace(TransformerConfig(), layers=1)
+    ncfg = dataclasses.replace(NMTConfig(), layers=1)
+    cases = [
+        ("bert_base_depth2", lambda f: build_bert(
+            f, bert, batch_size=2, seq_len=128),
+         LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+         [rs.randint(0, bert.vocab_size, (2, 128)).astype(np.int32)],
+         rs.randint(0, 2, 2).astype(np.int32), 2),
+        ("nmt_depth1", lambda f: build_nmt(f, ncfg, batch_size=2),
+         LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+         [rs.randint(0, ncfg.src_vocab, (2, 32)).astype(np.int32),
+          rs.randint(0, ncfg.tgt_vocab, (2, 32)).astype(np.int32)],
+         rs.randint(0, ncfg.tgt_vocab, (2, 32)).astype(np.int32), 0),
+        ("dlrm_vocab10k", lambda f: build_dlrm(f, vocab=10000,
+                                               batch_size=256),
+         LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+         [rs.randn(256, 13).astype(np.float32)]
+         + [rs.randint(0, 10000, (256, 1)).astype(np.int32)
+            for _ in range(8)],
+         rs.rand(256, 1).astype(np.float32), 0),
+    ]
+    encdec = ("encdec_depth1", lambda f: build_transformer_encoder_decoder(
+        f, tcfg, batch_size=2, src_len=ENCDEC_SRC, tgt_len=ENCDEC_TGT),
+        LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+        [rs.randn(2, ENCDEC_SRC, tcfg.dim).astype(np.float32),
+         rs.randn(2, ENCDEC_TGT, tcfg.dim).astype(np.float32)],
+        rs.randn(2, ENCDEC_TGT, 1).astype(np.float32))
+    out, problems = {}, []
+    for label, build, loss, xs, y, k4_n in cases:
+        res, gp, cp, _, _ = _zoo_step_check(label, build, loss, xs, y,
+                                            seed, adam)
+        diffs = {n: (gp[n] - cp[n]).abs() for n in gp}
+        worst = max(diffs, key=lambda n: float(diffs[n].max()))
+        outside = sum(int((d > TRAIN_PARAM_TOL * (1 + cp[n].abs())).sum())
+                      for n, d in diffs.items())
+        res.update(max_param_abs_err=float(diffs[worst].max()),
+                   worst_param=worst, weights_outside_tol=outside)
+        log(f"zoo_step {json.dumps(res)}")
+        want = _k4_want(k4_n, k4_n, 0)
+        if not (np.isfinite(res["loss_card"])
+                and res["loss_rel_err"] <= TRAIN_LOSS_RTOL
+                and res["max_param_abs_err"] <= 2 * TRAIN_LR
+                and outside <= TRAIN_OUTLIER_FRACTION * res["weights"]
+                and res["k4"] == want):
+            problems.append(res)
+        out[label] = res
+    res, gp, cp, _, _ = _zoo_step_check(*encdec, seed, SGDOptimizer,
+                                        grads=True)
+    cos, rel, noise_ok = _grad_agreement(gp, cp)
+    res.update(min_grad_cos=cos, max_grad_rel_err=rel,
+               noise_leaves_ok=noise_ok, grad_rtol=ZOO_GRAD_RTOL)
+    log(f"zoo_step {json.dumps(res)}")
+    if not (np.isfinite(res["loss_card"])
+            and res["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and rel <= ZOO_GRAD_RTOL and noise_ok
+            and res["k4"] == _k4_want(3, 3, 0)):
+        problems.append(res)
+    out["encdec_depth1"] = res
+    x = rs.randn(8, 3, 64, 64).astype(np.float32)
+    y = rs.randint(0, RESNET_CLASSES, 8).astype(np.int32)
+    res, gp, cp, gs, cs = _zoo_step_check(
+        "resnet50_64", lambda f: build_resnet50(f, batch_size=8,
+                                                image_size=64),
+        LossType.SPARSE_CATEGORICAL_CROSSENTROPY, [x], y, seed,
+        SGDOptimizer, grads=True)
+    cos, rel, noise_ok = _grad_agreement(gp, cp)
+    stat_err = max(float(((gs[n] - cs[n]).abs()
+                          / (1 + cs[n].abs())).max()) for n in cs)
+    # the running means start at zeros: each must have moved
+    means = [n for n in gs if n.endswith("/running_mean")]
+    moved = sum(bool(gs[n].any()) for n in means)
+    res.update(min_grad_cos=cos, max_grad_rel_err=rel,
+               noise_leaves_ok=noise_ok, max_stat_err=stat_err,
+               stats=len(cs), cos_bound=ZOO_RESNET_COS, loss_rtol=ZOO_RESNET_LOSS_RTOL,
+               stat_tol=ZOO_RESNET_STAT_TOL)
+    log(f"zoo_step {json.dumps(res)}")
+    if not (np.isfinite(res["loss_card"])
+            and res["loss_rel_err"] <= ZOO_RESNET_LOSS_RTOL
+            and cos >= ZOO_RESNET_COS and noise_ok
+            and stat_err <= ZOO_RESNET_STAT_TOL and moved == len(means)):
+        problems.append(res)
+    out["resnet50_64"] = res
+    if problems:
+        raise AssertionError(f"card zoo train steps disagree with CPU: "
+                             f"{problems}")
+    return out
+
+
+def _zoo_k4_entries(kernel, zoo) -> tuple:
+    """(key, launches, timed case) of K4 kernel `kernel` on phase 18: BERT-
+    base's fit at dropout 0 (18a) under "bert_base", and the encoder-
+    decoder's fit (18b, all three attentions) under "encdec_self",
+    "encdec_causal" and "encdec_cross", each timed at its own shape
+    (K4_ZOO_CASES); the encoder-decoder's launches, one fit over all
+    three shapes, stand under each of its keys."""
+    out = []
+    for case, *_ in K4_ZOO_CASES:
+        if zoo is None:
+            launches = 0
+        elif case == "bert_base":
+            launches = zoo["a"]["fit_dropout_0.0"]["launches"][kernel.name]
+        else:
+            launches = zoo["b"]["launches"][kernel.name]
+        timed = (zoo or {}).get("k4", {}).get(case, {}).get(kernel.name)
+        out.append((case, launches, timed))
+    return tuple(out)
+
+
 def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
     """One kernel's record for the kernels line: its main-path launches
     and, when phase 2 ran, its measured case."""
@@ -4499,10 +5141,10 @@ def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17",
+                    default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18",
                     help="comma-separated phases to run (default "
-                    "1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17; 5 profiles "
-                    "serving and training steps)")
+                    "1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18; 5 "
+                    "profiles serving and training steps)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -4522,48 +5164,68 @@ def main(argv=None) -> int:
              "hgmma": hgmma_counts(), "ptxas": ptxas_report(),
              "tf32_hmma": tf32_hmma_counts()}
     log(f"build {json.dumps(built)}")
-    kern = phase_kernels(card) if 2 in phases else []
+    kern = timed("2:k3", phase_kernels, card) if 2 in phases else []
     if 2 in phases:
-        split_sweep(card)
-        split_sweep(card, [c[0] for c in ATTENTION_CASES].index("tree_w9"))
-    kern8 = phase_int8_kernels(card) if 2 in phases else []
-    wide = phase_wide_windows(card) if 2 in phases else []
-    flash = phase_flash_kernels(card) if 2 in phases else {}
-    flash_mixtral = (phase_flash_kernels(card, MIXTRAL_FLASH_SHAPE,
-                                         "mixtral_8x7b_causal")
+        timed("2:split_sweep", split_sweep, card)
+        timed("2:split_sweep_tree", split_sweep, card,
+              [c[0] for c in ATTENTION_CASES].index("tree_w9"))
+    kern8 = timed("2:k3_int8", phase_int8_kernels, card) \
+        if 2 in phases else []
+    wide = timed("2:k3_wide", phase_wide_windows, card) \
+        if 2 in phases else []
+    flash = timed("2:k1k2", phase_flash_kernels, card) \
+        if 2 in phases else {}
+    flash_mixtral = (timed("2:k1k2_mixtral", phase_flash_kernels, card,
+                           MIXTRAL_FLASH_SHAPE, "mixtral_8x7b_causal")
                      if 2 in phases else {})
     if 2 in phases:
         for case, shape, T, causal in FLASH_CASES:
-            phase_flash_kernels(card, shape, case, T, causal)
-    k4 = phase_k4_kernels(card) if 2 in phases else {}
-    k5 = phase_k5_kernels(card) if 2 in phases else {}
+            timed(f"2:k1k2_{case}", phase_flash_kernels, card, shape, case,
+                  T, causal)
+    k4 = timed("2:k4", phase_k4_kernels, card) if 2 in phases else {}
+    k5 = timed("2:k5", phase_k5_kernels, card) if 2 in phases else {}
     step3 = None
     if 3 in phases:
-        phase_step(args.seed)
-        phase_gpt2_step(args.seed)
-        step3 = phase_train_step(args.seed)
-        phase_train_step(args.seed, gpt2_xl(), "gpt2_xl")
-        phase_train_step(args.seed, label="bench_1b_ring", seq=1024,
-                         mesh_shape={"seq": RING_SHARDS})
-        phase_ring_untiled(args.seed)
-        phase_mixtral_step(args.seed)
-        phase_mixtral_train_step(args.seed)
-    serve = phase_serve(args.seed, card) if 4 in phases else None
-    train = phase_train(args.seed, card) if 6 in phases else None
-    serve8 = phase_serve_int8(args.seed, card) if 7 in phases else None
-    gpt2 = phase_gpt2_train(args.seed, card) if 8 in phases else None
+        timed("3:step", phase_step, args.seed)
+        timed("3:gpt2_step", phase_gpt2_step, args.seed)
+        step3 = timed("3:train_step", phase_train_step, args.seed)
+        timed("3:train_step_gpt2_xl", phase_train_step, args.seed,
+              gpt2_xl(), "gpt2_xl")
+        timed("3:train_step_ring", phase_train_step, args.seed,
+              label="bench_1b_ring", seq=1024,
+              mesh_shape={"seq": RING_SHARDS})
+        timed("3:ring_untiled", phase_ring_untiled, args.seed)
+        timed("3:mixtral_step", phase_mixtral_step, args.seed)
+        timed("3:mixtral_train_step", phase_mixtral_train_step, args.seed)
+        timed("3:zoo_step", phase_zoo_step, args.seed)
+    serve = timed("4", phase_serve, args.seed, card) if 4 in phases \
+        else None
+    train = timed("6", phase_train, args.seed, card) if 6 in phases \
+        else None
+    serve8 = timed("7", phase_serve_int8, args.seed, card) if 7 in phases \
+        else None
+    gpt2 = timed("8", phase_gpt2_train, args.seed, card) if 8 in phases \
+        else None
     if 9 in phases:
-        phase_gpt2_serve(args.seed, card)
-    ring = phase_ring_train(args.seed, card) if 10 in phases else None
-    train_200m = phase_train_200m(args.seed, card) if 11 in phases else None
-    train_phi3 = phase_train_phi3(args.seed, card) if 12 in phases else None
-    train_ollama = (phase_train_openllama(args.seed, card) if 13 in phases
-                    else None)
-    ring_wide = (phase_ring_train_wide_heads(args.seed, card) if 14 in phases
-                 else None)
-    spec15 = phase_spec_megastep(args.seed, card) if 15 in phases else None
-    mixed16 = phase_mixed_dense(args.seed, card) if 16 in phases else None
-    mixtral17 = phase_mixtral(args.seed, card) if 17 in phases else None
+        timed("9", phase_gpt2_serve, args.seed, card)
+    ring = timed("10", phase_ring_train, args.seed, card) if 10 in phases \
+        else None
+    train_200m = (timed("11", phase_train_200m, args.seed, card)
+                  if 11 in phases else None)
+    train_phi3 = (timed("12", phase_train_phi3, args.seed, card)
+                  if 12 in phases else None)
+    train_ollama = (timed("13", phase_train_openllama, args.seed, card)
+                    if 13 in phases else None)
+    ring_wide = (timed("14", phase_ring_train_wide_heads, args.seed, card)
+                 if 14 in phases else None)
+    spec15 = (timed("15", phase_spec_megastep, args.seed, card)
+              if 15 in phases else None)
+    mixed16 = (timed("16", phase_mixed_dense, args.seed, card)
+               if 16 in phases else None)
+    mixtral17 = (timed("17", phase_mixtral, args.seed, card)
+                 if 17 in phases else None)
+    zoo18 = timed("18", phase_zoo, args.seed, card) if 18 in phases \
+        else None
     if 5 in phases:
         phase_profile(args.seed, card)
         phase_profile_train(args.seed, card)
@@ -4691,7 +5353,8 @@ def main(argv=None) -> int:
                  k4.get("timed", {}).get("openllama_3b_causal", {}).get(
                      k.name)),
                 ("fp32", gpt2["fit_launches"][k.name] if gpt2 else 0,
-                 k4.get("main", {}).get("float32", {}).get(k.name))):
+                 k4.get("main", {}).get("float32", {}).get(k.name))) \
+                + _zoo_k4_entries(k, zoo18):
             other = _kernel_entry(k, entry["source"], launches, res)
             entry[key] = {name: val for name, val in other.items()
                           if name not in ("name", "route", "source",

@@ -11,10 +11,14 @@ that are multiples of 128, the head-major ones for every other head dim
 (csrc/flash_attention_bh_fwd.cu, csrc/flash_attention_bh_bwd.cu), and
 the ring-attention step, which folds a k/v block into carried softmax
 statistics (csrc/flash_attention_bh_fwd.cu; ops/ring_flash.py,
-parallel/ring.py). Models: Llama (models/llama.py, optionally with ring
-attention over the mesh's seq axis), GPT-2 (models/gpt2.py) and the
-Mixtral-style MoE decoder (models/mixtral.py; the MoE ops are PyTorch
-ops). It imports torch, never jax, and nothing of flexflow_tpu.
+parallel/ring.py). Models: one module per module of the reference's
+zoo (models/): Llama (optionally with ring attention over the mesh's seq
+axis), GPT-2, the Mixtral-style MoE decoder, BERT, the Transformer
+encoder and encoder-decoder, the LSTM NMT, the MLP, AlexNet, ResNet-50,
+ResNeXt-50, Inception-v3, CANDLE-UNO, DLRM and XDL; their convolution,
+pooling, BatchNorm, LSTM and MoE math are PyTorch ops, as the
+reference's are lax/jnp. It imports torch, never jax, and nothing of
+flexflow_tpu.
 """
 
 from flexflow_tpu_torch.config import FFConfig

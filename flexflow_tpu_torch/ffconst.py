@@ -70,6 +70,11 @@ class AggrMode(_Coercible, enum.Enum):
     AVG = "avg"
 
 
+class PoolType(_Coercible, enum.Enum):
+    MAX = "max"
+    AVG = "avg"
+
+
 class LossType(enum.Enum):
     CATEGORICAL_CROSSENTROPY = "categorical_crossentropy"
     SPARSE_CATEGORICAL_CROSSENTROPY = "sparse_categorical_crossentropy"
@@ -104,9 +109,9 @@ class CompMode(enum.Enum):
 
 class OpType(enum.Enum):
     """Operator types: the PCG node vocabulary, with the JAX package's
-    values. Only the ops of the Llama serving path have lowerings in the
-    port so far (ops/torch_ops.py); the rest are named so graphs and
-    hashes line up with the reference."""
+    values. Every op the JAX package lowers has a PyTorch lowering
+    (ops/torch_ops.py) but PIPELINE and CACHE; FUSED, LOSS and METRICS
+    have none in either package."""
 
     INPUT = "input"
     WEIGHT = "weight"

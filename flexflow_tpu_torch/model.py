@@ -26,6 +26,7 @@ from flexflow_tpu_torch.ffconst import (
     LossType,
     MetricsType,
     OpType,
+    PoolType,
 )
 from flexflow_tpu_torch.ops import attrs as A
 from flexflow_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -55,6 +56,16 @@ class Tensor:
         return f"Tensor({self.node.name}:{self.idx} {self.shape})"
 
 
+def _refuse_initializers(**inits):
+    """The layer methods' initializer arguments: None draws the weight's
+    default; an override is not ported yet and raises."""
+    given = sorted(k for k, v in inits.items() if v is not None)
+    if given:
+        raise NotImplementedError(
+            f"initializer overrides ({', '.join(given)}) are not ported yet "
+            "(ROADMAP.md, queue 1 item 8)")
+
+
 class FFModel:
     """Build a layer graph, compile it for one device, train or serve
     it."""
@@ -70,6 +81,9 @@ class FFModel:
         self._loss_type = LossType.SPARSE_CATEGORICAL_CROSSENTROPY
         self._metrics: List[MetricsType] = []
         self._step_count = 0
+        # each fit call draws from a fresh stream, config.seed + 1 + the
+        # calls before it, as the reference's fit does
+        self._fit_calls = 0
         self.current_metrics: Optional[PerfMetrics] = None
         self._used_names: set = set()
 
@@ -100,16 +114,13 @@ class FFModel:
                       name: Optional[str] = None) -> Tensor:
         """A standalone weight as a graph source (glorot_uniform, as the
         reference draws it when no initializer is given)."""
-        if initializer is not None:
-            raise NotImplementedError(
-                "initializer overrides are not ported yet (ROADMAP.md, "
-                "queue 1 item 8)")
+        _refuse_initializers(weight=initializer)
         return self._one(OpType.WEIGHT,
                          A.WeightAttrs(TensorShape(tuple(dims), dtype)), [],
                          name or "weight")
 
     # ------------------------------------------------------------------
-    # layers (the subset the model builders call)
+    # layers (the reference's layer methods, with its signatures)
 
     def create_tensor(self, dims: Sequence[int],
                       dtype: DataType = DataType.FLOAT,
@@ -120,16 +131,48 @@ class FFModel:
 
     def dense(self, input: Tensor, out_dim: int,
               activation: ActiMode = ActiMode.NONE, use_bias: bool = True,
+              kernel_initializer=None, bias_initializer=None,
               name: Optional[str] = None) -> Tensor:
+        _refuse_initializers(kernel=kernel_initializer,
+                             bias=bias_initializer)
         return self._one(
             OpType.LINEAR,
             A.LinearAttrs(out_dim, use_bias, ActiMode.coerce(activation)),
             [input], name or "dense")
 
+    def conv2d(self, input: Tensor, out_channels: int, kernel_h: int,
+               kernel_w: int, stride_h: int = 1, stride_w: int = 1,
+               padding_h: int = 0, padding_w: int = 0,
+               activation: ActiMode = ActiMode.NONE, groups: int = 1,
+               use_bias: bool = True, kernel_initializer=None,
+               bias_initializer=None, name: Optional[str] = None) -> Tensor:
+        """2-D convolution of an NCHW tensor, OIHW kernel."""
+        _refuse_initializers(kernel=kernel_initializer,
+                             bias=bias_initializer)
+        return self._one(
+            OpType.CONV2D,
+            A.Conv2DAttrs(out_channels, (kernel_h, kernel_w),
+                          (stride_h, stride_w), (padding_h, padding_w),
+                          groups, use_bias, ActiMode.coerce(activation)),
+            [input], name or "conv2d")
+
+    def pool2d(self, input: Tensor, kernel_h: int, kernel_w: int,
+               stride_h: int, stride_w: int, padding_h: int = 0,
+               padding_w: int = 0, pool_type: PoolType = PoolType.MAX,
+               activation: ActiMode = ActiMode.NONE,
+               name: Optional[str] = None) -> Tensor:
+        return self._one(
+            OpType.POOL2D,
+            A.Pool2DAttrs((kernel_h, kernel_w), (stride_h, stride_w),
+                          (padding_h, padding_w), PoolType.coerce(pool_type),
+                          ActiMode.coerce(activation)),
+            [input], name or "pool2d")
+
     def embedding(self, input: Tensor, num_entries: int, out_dim: int,
                   aggr: AggrMode = AggrMode.NONE,
-                  dtype: DataType = DataType.FLOAT,
+                  dtype: DataType = DataType.FLOAT, kernel_initializer=None,
                   name: Optional[str] = None) -> Tensor:
+        _refuse_initializers(kernel=kernel_initializer)
         return self._one(
             OpType.EMBEDDING,
             A.EmbeddingAttrs(num_entries, out_dim, AggrMode.coerce(aggr),
@@ -142,7 +185,9 @@ class FFModel:
                             bias: bool = True, causal: bool = False,
                             kv_heads: Optional[int] = None,
                             rope: bool = False, rope_theta: float = 10000.0,
+                            kernel_initializer=None,
                             name: Optional[str] = None) -> Tensor:
+        _refuse_initializers(kernel=kernel_initializer)
         return self._one(
             OpType.MULTIHEAD_ATTENTION,
             A.MultiHeadAttentionAttrs(
@@ -188,12 +233,125 @@ class FFModel:
                          A.ElementBinaryAttrs("add", position_table=True),
                          [x, table], name or "add_pos")
 
+    def subtract(self, x, y, name=None):
+        return self._binary("subtract", x, y, name)
+
     def multiply(self, x, y, name=None):
         return self._binary("multiply", x, y, name)
 
+    def divide(self, x, y, name=None):
+        return self._binary("divide", x, y, name)
+
+    def max(self, x, y, name=None):
+        return self._binary("max", x, y, name)
+
+    def min(self, x, y, name=None):
+        return self._binary("min", x, y, name)
+
+    def batch_matmul(self, a: Tensor, b: Tensor, a_seq_length_dim: int = -1,
+                     b_seq_length_dim: int = -1, name=None) -> Tensor:
+        return self._one(
+            OpType.BATCH_MATMUL,
+            A.BatchMatmulAttrs(a_seq_length_dim, b_seq_length_dim), [a, b],
+            name or "batch_matmul")
+
+    # ---- elementwise unary ----
+
+    def _unary(self, kind: str, x: Tensor, name, scalar: float = 0.0,
+               inplace: bool = False) -> Tensor:
+        return self._one(OpType.ELEMENT_UNARY,
+                         A.ElementUnaryAttrs(kind, scalar, inplace), [x],
+                         name or kind)
+
     def silu(self, x, name=None):
-        return self._one(OpType.ELEMENT_UNARY, A.ElementUnaryAttrs("silu"),
-                         [x], name or "silu")
+        return self._unary("silu", x, name)
+
+    def exp(self, x, name=None):
+        return self._unary("exp", x, name)
+
+    def sin(self, x, name=None):
+        return self._unary("sin", x, name)
+
+    def cos(self, x, name=None):
+        return self._unary("cos", x, name)
+
+    def relu(self, x, inplace: bool = True, name=None):
+        return self._unary("relu", x, name, inplace=inplace)
+
+    def gelu(self, x, name=None):
+        return self._unary("gelu", x, name)
+
+    def sigmoid(self, x, name=None):
+        return self._unary("sigmoid", x, name)
+
+    def tanh(self, x, name=None):
+        return self._unary("tanh", x, name)
+
+    def elu(self, x, name=None):
+        return self._unary("elu", x, name)
+
+    def rsqrt(self, x, name=None):
+        return self._unary("rsqrt", x, name)
+
+    def pow(self, x, exponent: float, name=None):
+        return self._unary("pow", x, name, scalar=exponent)
+
+    def identity(self, x, name=None):
+        return self._unary("identity", x, name)
+
+    def scalar_add(self, x, scalar: float, name=None):
+        return self._unary("scalar_add", x, name, scalar=scalar)
+
+    def scalar_sub(self, x, scalar: float, name=None):
+        return self._unary("scalar_sub", x, name, scalar=scalar)
+
+    def scalar_multiply(self, x, scalar: float, name=None):
+        return self._unary("scalar_multiply", x, name, scalar=scalar)
+
+    def scalar_true_divide(self, x, scalar: float, name=None):
+        return self._unary("scalar_truediv", x, name, scalar=scalar)
+
+    # ---- shape ----
+
+    def reshape(self, input: Tensor, shape: Sequence[int],
+                name=None) -> Tensor:
+        return self._one(OpType.RESHAPE, A.ReshapeAttrs(tuple(shape)),
+                         [input], name or "reshape")
+
+    def flat(self, input: Tensor, name=None) -> Tensor:
+        return self._one(OpType.FLAT, A.FlatAttrs(), [input], name or "flat")
+
+    def transpose(self, input: Tensor, perm: Sequence[int],
+                  name=None) -> Tensor:
+        return self._one(OpType.TRANSPOSE, A.TransposeAttrs(tuple(perm)),
+                         [input], name or "transpose")
+
+    def reverse(self, input: Tensor, axis: int, name=None) -> Tensor:
+        return self._one(OpType.REVERSE, A.ReverseAttrs(axis), [input],
+                         name or "reverse")
+
+    def concat(self, tensors: Sequence[Tensor], axis: int,
+               name=None) -> Tensor:
+        # normalised, as the reference does, so -1 and ndim - 1 give
+        # equal attrs
+        axis = axis % len(tensors[0].shape)
+        return self._one(OpType.CONCAT, A.ConcatAttrs(axis), list(tensors),
+                         name or "concat")
+
+    def split(self, input: Tensor, sizes: Union[int, Sequence[int]],
+              axis: int, name=None) -> List[Tensor]:
+        """Pieces of `input` along `axis`: `sizes` a list of lengths, or
+        the number of equal pieces."""
+        axis = axis % len(input.shape)
+        if isinstance(sizes, int):
+            sizes = [input.shape[axis] // sizes] * sizes
+        node = self._add(OpType.SPLIT, A.SplitAttrs(tuple(sizes), axis),
+                         [input], name or "split")
+        return [Tensor(node, i) for i in range(len(sizes))]
+
+    def cast(self, input: Tensor, dtype: DataType, name=None) -> Tensor:
+        return self._one(OpType.CAST, A.CastAttrs(dtype), [input],
+                         name or "cast")
 
     def layer_norm(self, input: Tensor, axes: Sequence[int] = (-1,),
                    elementwise_affine: bool = True, eps: float = 1e-5,
@@ -210,6 +368,54 @@ class FFModel:
     def softmax(self, input: Tensor, axis: int = -1, name=None) -> Tensor:
         return self._one(OpType.SOFTMAX, A.SoftmaxAttrs(axis), [input],
                          name or "softmax")
+
+    def batch_norm(self, input: Tensor, relu: bool = True,
+                   name=None) -> Tensor:
+        """BatchNorm over NCHW's channels; its running statistics are
+        non-trainable weights the train step moves."""
+        return self._one(OpType.BATCH_NORM, A.BatchNormAttrs(relu), [input],
+                         name or "batch_norm")
+
+    def dropout(self, input: Tensor, rate: float, seed: int = 0,
+                name=None) -> Tensor:
+        """Dropout in training (the node's own random stream; `seed` is
+        kept in the attrs as the reference keeps it); identity in eval
+        and predict."""
+        return self._one(OpType.DROPOUT, A.DropoutAttrs(rate, seed), [input],
+                         name or "dropout")
+
+    # ---- gather / reduce ----
+
+    def gather(self, input: Tensor, index: Tensor, axis: int,
+               name=None) -> Tensor:
+        return self._one(OpType.GATHER, A.GatherAttrs(axis), [input, index],
+                         name or "gather")
+
+    def reduce_sum(self, input: Tensor, axes: Sequence[int],
+                   keepdims: bool = False, name=None) -> Tensor:
+        return self._one(OpType.REDUCE_SUM,
+                         A.ReduceAttrs("sum", tuple(axes), keepdims),
+                         [input], name or "reduce_sum")
+
+    def mean(self, input: Tensor, axes: Sequence[int],
+             keepdims: bool = False, name=None) -> Tensor:
+        return self._one(OpType.MEAN,
+                         A.ReduceAttrs("mean", tuple(axes), keepdims),
+                         [input], name or "mean")
+
+    # ---- recurrent ----
+
+    def lstm(self, input: Tensor, hidden: int,
+             initial_state: Optional[Tuple[Tensor, Tensor]] = None,
+             use_bias: bool = True, reverse: bool = False,
+             name=None) -> Tuple[Tensor, Tensor, Tensor]:
+        """One LSTM layer over a (batch, seq, dim) sequence -> (outputs,
+        h_n, c_n); `initial_state` (h0, c0) wires a decoder to an
+        encoder's final state."""
+        ins = [input] + (list(initial_state) if initial_state else [])
+        node = self._add(OpType.LSTM, A.LSTMAttrs(hidden, use_bias, reverse),
+                         ins, name or "lstm")
+        return Tensor(node, 0), Tensor(node, 1), Tensor(node, 2)
 
     def top_k(self, input: Tensor, k: int, sorted: bool = True,
               name=None) -> Tuple[Tensor, Tensor]:
@@ -399,6 +605,12 @@ class FFModel:
         ex = self.executor
         tr, ntr = self._params
         opt_state = self._opt_state
+        # a fresh dropout stream per call (repeated fit calls, as a
+        # per-epoch loop makes, do not replay the first call's masks);
+        # step i of the call draws from (stream, i)
+        stream = self.config.seed + 1 + self._fit_calls
+        self._fit_calls += 1
+        step = 0
         for epoch in range(epochs):
             self.current_metrics = PerfMetrics()
             dev_sums = None
@@ -407,7 +619,8 @@ class FFModel:
                 for batch in self._batches(xs + [y], batch_size):
                     *bx, by = self._to_device(batch)
                     tr, ntr, opt_state, m = ex.train_step(
-                        tr, ntr, opt_state, by, *bx)
+                        tr, ntr, opt_state, by, *bx, rng=(stream, step))
+                    step += 1
                     self._step_count += 1
                     bsz = by.shape[0]
                     n_samples += bsz

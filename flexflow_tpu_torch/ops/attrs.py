@@ -1,14 +1,19 @@
 """Attribute dataclasses of the ported operators (counterpart of
 flexflow_tpu/ops/attrs.py): INPUT, WEIGHT, EMBEDDING, RMS_NORM,
 LAYER_NORM, LINEAR, ELEMENT_BINARY, ELEMENT_UNARY, SOFTMAX,
-MULTIHEAD_ATTENTION, RING_ATTENTION, TOPK and the MoE ops (GROUP_BY,
-AGGREGATE, AGGREGATE_SPEC, EXPERTS).
+MULTIHEAD_ATTENTION, RING_ATTENTION, TOPK, the MoE ops (GROUP_BY,
+AGGREGATE, AGGREGATE_SPEC, EXPERTS), the CNN ops (CONV2D, POOL2D,
+BATCH_NORM), DROPOUT, the shape ops (FLAT, RESHAPE, TRANSPOSE, REVERSE,
+CONCAT, SPLIT, CAST), BATCH_MATMUL, GATHER, REDUCE_SUM, MEAN and LSTM.
 
 Field names, order and defaults match the reference, so `repr(attrs)` —
 and with it Graph.structure_hash — agrees between the two packages, and
 the weight specs keep the JAX layouts: `kernel` (in, out), `wq` (E, H, D),
 `wk`/`wv` (E, Hkv, D), `wo` (H, D, E), `scale`, `bias`, `weight`, the
-experts' `w1` (n, dim, hidden) and `w2` (n, hidden, out).
+experts' `w1` (n, dim, hidden) and `w2` (n, hidden, out), a conv's
+`kernel` (out, in / groups, kh, kw), BatchNorm's `scale`, `bias` and its
+non-trainable `running_mean` / `running_var` (C,), LSTM's `wx` (in, 4H),
+`wh` (H, 4H) and `bias` (4H,), gates in the order i, f, g, o.
 """
 
 from __future__ import annotations
@@ -17,12 +22,13 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
-from flexflow_tpu_torch.ffconst import ActiMode, AggrMode, DataType
+from flexflow_tpu_torch.ffconst import ActiMode, AggrMode, DataType, PoolType
 from flexflow_tpu_torch.ops.base import (
     OpAttrs,
     WeightSpec,
     broadcast_dims,
     elementwise_like,
+    fresh,
 )
 from flexflow_tpu_torch.pcg.tensor import (
     ParallelDim,
@@ -373,3 +379,264 @@ class ExpertsAttrs(OpAttrs):
             "w2": WeightSpec(TensorShape((n, self.hidden_dim, self.out_dim),
                                          dt)),
         }
+
+
+# ---------------------------------------------------------------------------
+# conv / pool / BatchNorm / dropout
+
+
+@dataclasses.dataclass(frozen=True)
+class Conv2DAttrs(OpAttrs):
+    """2-D convolution, NCHW input, OIHW kernel (out, in / groups, kh,
+    kw), symmetric padding per spatial dim."""
+
+    out_channels: int
+    kernel: Tuple[int, int]
+    stride: Tuple[int, int] = (1, 1)
+    padding: Tuple[int, int] = (0, 0)
+    groups: int = 1
+    use_bias: bool = True
+    activation: ActiMode = ActiMode.NONE
+
+    def infer(self, x: Shape):
+        n, c, h, w = (d.size for d in x.dims)
+        oh = (h + 2 * self.padding[0] - self.kernel[0]) // self.stride[0] + 1
+        ow = (w + 2 * self.padding[1] - self.kernel[1]) // self.stride[1] + 1
+        dims = (_carry(x.dims[0]), ParallelDim(self.out_channels),
+                ParallelDim(oh), ParallelDim(ow))
+        return (Shape(dims, x.dtype, x.replica),)
+
+    def weights(self, x: Shape):
+        cin = x.dims[1].size
+        w = {"kernel": WeightSpec(TensorShape(
+            (self.out_channels, cin // self.groups, *self.kernel), x.dtype))}
+        if self.use_bias:
+            w["bias"] = WeightSpec(TensorShape((self.out_channels,), x.dtype),
+                                   "zeros")
+        return w
+
+
+@dataclasses.dataclass(frozen=True)
+class Pool2DAttrs(OpAttrs):
+    """Max or average pooling over NCHW's spatial dims."""
+
+    kernel: Tuple[int, int]
+    stride: Tuple[int, int]
+    padding: Tuple[int, int] = (0, 0)
+    pool_type: PoolType = PoolType.MAX
+    activation: ActiMode = ActiMode.NONE
+
+    def infer(self, x: Shape):
+        n, c, h, w = (d.size for d in x.dims)
+        oh = (h + 2 * self.padding[0] - self.kernel[0]) // self.stride[0] + 1
+        ow = (w + 2 * self.padding[1] - self.kernel[1]) // self.stride[1] + 1
+        dims = (_carry(x.dims[0]), _carry(x.dims[1]), ParallelDim(oh),
+                ParallelDim(ow))
+        return (Shape(dims, x.dtype, x.replica),)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchNormAttrs(OpAttrs):
+    """BatchNorm over the channel dim of NCHW. The running statistics are
+    non-trainable weights the train step updates (LowerCtx.state_updates)."""
+
+    relu: bool = False
+    momentum: float = 0.1
+    eps: float = 1e-5
+
+    def infer(self, x: Shape):
+        return (elementwise_like(x),)
+
+    def weights(self, x: Shape):
+        c = TensorShape((x.dims[1].size,), x.dtype)
+        return {
+            "scale": WeightSpec(c, "ones"),
+            "bias": WeightSpec(c, "zeros"),
+            "running_mean": WeightSpec(c, "zeros", trainable=False),
+            "running_var": WeightSpec(c, "ones", trainable=False),
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class DropoutAttrs(OpAttrs):
+    rate: float
+    seed: int = 0
+
+    def infer(self, x: Shape):
+        return (elementwise_like(x),)
+
+
+# ---------------------------------------------------------------------------
+# shape ops
+
+
+@dataclasses.dataclass(frozen=True)
+class ReshapeAttrs(OpAttrs):
+    shape: Tuple[int, ...]
+
+    def infer(self, x: Shape):
+        if math.prod(self.shape) != x.to_shape().num_elements():
+            raise ValueError(f"reshape {x} -> {self.shape}: element count "
+                             "mismatch")
+        return (fresh(self.shape, x.dtype),)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatAttrs(OpAttrs):
+    """Flatten all non-batch dims."""
+
+    def infer(self, x: Shape):
+        rest = math.prod(d.size for d in x.dims[1:])
+        return (Shape((_carry(x.dims[0]), ParallelDim(rest)), x.dtype,
+                      x.replica),)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransposeAttrs(OpAttrs):
+    perm: Tuple[int, ...]
+
+    def infer(self, x: Shape):
+        dims = tuple(_carry(x.dims[p]) for p in self.perm)
+        return (Shape(dims, x.dtype, x.replica),)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReverseAttrs(OpAttrs):
+    axis: int
+
+    def infer(self, x: Shape):
+        return (elementwise_like(x),)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConcatAttrs(OpAttrs):
+    axis: int
+
+    def infer(self, *ins: Shape):
+        ax = self.axis % ins[0].ndim
+        total = sum(s.dims[ax].size for s in ins)
+        dims = tuple(ParallelDim(total) if i == ax else _carry(d)
+                     for i, d in enumerate(ins[0].dims))
+        return (Shape(dims, ins[0].dtype, ins[0].replica),)
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitAttrs(OpAttrs):
+    sizes: Tuple[int, ...]
+    axis: int
+
+    def infer(self, x: Shape):
+        ax = self.axis % x.ndim
+        return tuple(
+            Shape(tuple(ParallelDim(sz) if i == ax else _carry(d)
+                        for i, d in enumerate(x.dims)), x.dtype, x.replica)
+            for sz in self.sizes)
+
+
+@dataclasses.dataclass(frozen=True)
+class CastAttrs(OpAttrs):
+    dtype: DataType
+
+    def infer(self, x: Shape):
+        return (elementwise_like(x, self.dtype),)
+
+
+# ---------------------------------------------------------------------------
+# batch matmul / gather / reduce / LSTM
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchMatmulAttrs(OpAttrs):
+    """(b..., m, k) @ (b..., k, n); a_seq_length_dim / b_seq_length_dim
+    (>= 0) name the dims FFConfig.seq_length truncates."""
+
+    a_seq_length_dim: int = -1
+    b_seq_length_dim: int = -1
+
+    def infer(self, a: Shape, b: Shape):
+        if a.ndim != b.ndim or a.ndim < 2:
+            raise ValueError(f"batch_matmul rank mismatch: {a} vs {b}")
+        if a.dims[-1].size != b.dims[-2].size:
+            raise ValueError(f"batch_matmul inner dim mismatch: {a} vs {b}")
+        dims = tuple(_carry(d) for d in a.dims[:-1]) + (_carry(b.dims[-1]),)
+        return (Shape(dims, a.dtype, a.replica),)
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherAttrs(OpAttrs):
+    """torch.gather semantics along `axis`: the output has the index's
+    shape."""
+
+    axis: int
+
+    def infer(self, x: Shape, index: Shape):
+        return (Shape(tuple(_carry(d) for d in index.dims), x.dtype,
+                      x.replica),)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReduceAttrs(OpAttrs):
+    """reduce_sum (`kind` "sum") or mean ("mean") over `axes`."""
+
+    kind: str
+    axes: Tuple[int, ...]
+    keepdims: bool = False
+
+    def infer(self, x: Shape):
+        for a in self.axes:
+            if not -x.ndim <= a < x.ndim:
+                raise ValueError(
+                    f"reduce axis {a} out of range for {x.ndim}-D input")
+        ax = {a % x.ndim for a in self.axes}
+        dims = []
+        for i, d in enumerate(x.dims):
+            if i in ax:
+                if self.keepdims:
+                    dims.append(ParallelDim(1))
+            else:
+                dims.append(_carry(d))
+        return (Shape(tuple(dims), x.dtype, x.replica),)
+
+
+@dataclasses.dataclass(frozen=True)
+class LSTMAttrs(OpAttrs):
+    """One LSTM layer over a whole sequence. Inputs: x (batch, seq, in)
+    [, h0 (batch, hidden), c0 (batch, hidden)]. Outputs: y (batch, seq,
+    hidden), h_n and c_n (batch, hidden). Gates i, f, g, o: `wx` and `wh`
+    are torch.nn.LSTM's weight_ih / weight_hh transposed, `bias` its
+    b_ih + b_hh."""
+
+    hidden: int
+    use_bias: bool = True
+    reverse: bool = False
+
+    def infer(self, x: Shape, h0: Optional[Shape] = None,
+              c0: Optional[Shape] = None):
+        if x.ndim != 3:
+            raise ValueError(f"lstm expects (batch, seq, in_dim), got {x}")
+        for nm, st in (("h0", h0), ("c0", c0)):
+            if st is None:
+                continue
+            if st.ndim != 2 or st.dims[0].size != x.dims[0].size \
+                    or st.dims[1].size != self.hidden:
+                raise ValueError(
+                    f"lstm initial state {nm} must be (batch="
+                    f"{x.dims[0].size}, hidden={self.hidden}), got {st}")
+        b, s = x.dims[0], x.dims[1]
+        h = ParallelDim(self.hidden)
+        y = Shape((_carry(b), ParallelDim(s.size), h), x.dtype, x.replica)
+        state = Shape((_carry(b), h), x.dtype, x.replica)
+        return (y, state, state)
+
+    def weights(self, x: Shape, *state):
+        in_dim = x.dims[-1].size
+        w = {
+            "wx": WeightSpec(TensorShape((in_dim, 4 * self.hidden),
+                                         x.dtype)),
+            "wh": WeightSpec(TensorShape((self.hidden, 4 * self.hidden),
+                                         x.dtype)),
+        }
+        if self.use_bias:
+            w["bias"] = WeightSpec(TensorShape((4 * self.hidden,), x.dtype),
+                                   "zeros")
+        return w

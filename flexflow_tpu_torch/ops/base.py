@@ -7,7 +7,11 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 from flexflow_tpu_torch.ffconst import DataType
-from flexflow_tpu_torch.pcg.tensor import ParallelTensorShape, TensorShape
+from flexflow_tpu_torch.pcg.tensor import (
+    ParallelDim,
+    ParallelTensorShape,
+    TensorShape,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +39,11 @@ def elementwise_like(s: ParallelTensorShape,
                      dtype: Optional[DataType] = None) -> ParallelTensorShape:
     """Output shape identical to input (degrees propagate through)."""
     return dataclasses.replace(s, dtype=dtype or s.dtype)
+
+
+def fresh(dims: Tuple[int, ...], dtype: DataType) -> ParallelTensorShape:
+    """Unsharded shape from logical dims."""
+    return ParallelTensorShape(tuple(ParallelDim(d) for d in dims), dtype)
 
 
 def broadcast_dims(a: Tuple[int, ...], b: Tuple[int, ...]) -> Tuple[int, ...]:

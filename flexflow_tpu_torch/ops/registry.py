@@ -9,11 +9,27 @@ calls them eagerly, node by node, in topological order.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from flexflow_tpu_torch.ffconst import OpType
+
+_MASK64 = (1 << 64) - 1
+
+
+def node_seed(stream: Tuple[int, int], node_guid: int) -> int:
+    """The seed of one node's random draws in one training step: (fit
+    stream, step, node guid) mixed by splitmix64's finaliser, so a node's
+    draw never depends on how many other nodes drew before it (the
+    reference folds the guid into the step's key, jax.random.fold_in)."""
+    h = 0
+    for v in (*stream, node_guid):
+        h = ((h ^ (int(v) & _MASK64)) + 0x9E3779B97F4A7C15) & _MASK64
+        h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & _MASK64
+        h ^= h >> 31
+    return h & ((1 << 63) - 1)
 
 
 @dataclasses.dataclass
@@ -46,6 +62,27 @@ class LowerCtx:
     # (EXPERTS, and AGGREGATE with lambda_bal > 0, in training); the
     # executor sums them over the graph
     aux_loss: Optional[torch.Tensor] = None
+    # this node's random stream in a training step (node_seed), None
+    # outside training: eval and predict draw nothing
+    rng_seed: Optional[int] = None
+    # non-trainable weights the lowering moves (BatchNorm's running
+    # statistics), merged into the non-trainable tree by the train step
+    state_updates: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
+
+    def generator(self, device) -> torch.Generator:
+        """A torch.Generator on `device` seeded from `rng_seed`, fresh at
+        every call: a forward recomputed under torch.utils.checkpoint
+        (which restores only the global RNG state) draws the same mask
+        as the first one."""
+        if self.rng_seed is None:
+            raise RuntimeError(
+                "this lowering draws random numbers but the call has no "
+                "random stream: only a training step (Executor.run_forward"
+                "(training=True)) draws")
+        gen = torch.Generator(device=device)
+        gen.manual_seed(self.rng_seed)
+        return gen
 
 
 _LOWERINGS: Dict[OpType, Callable] = {}
@@ -64,6 +101,11 @@ def get_lowering(op_type: OpType) -> Callable:
     from flexflow_tpu_torch.ops import torch_ops  # noqa: F401
 
     if op_type not in _LOWERINGS:
+        if op_type in (OpType.PIPELINE, OpType.CACHE):
+            raise NotImplementedError(
+                f"no PyTorch lowering for {op_type} yet (ROADMAP.md, queue "
+                "1 item 8c)")
         raise NotImplementedError(
-            f"no PyTorch lowering for {op_type} yet (ROADMAP.md, queue 1)")
+            f"{op_type} has no lowering: it is not an executable node, in "
+            "the JAX package either")
     return _LOWERINGS[op_type]

@@ -1,5 +1,6 @@
-"""PyTorch lowerings of the ported operators, the Llama, GPT-2 and MoE
-paths' (counterpart of flexflow_tpu/ops/jax_ops.py).
+"""PyTorch lowerings of the ported operators (counterpart of
+flexflow_tpu/ops/jax_ops.py): every op the JAX package lowers but
+PIPELINE and CACHE.
 
 Each lowering reproduces the reference's numerics discipline: weights
 are cast to the activation dtype at the use site, matmuls accumulate in
@@ -12,7 +13,13 @@ branch (serving), the flash-attention forward and backward on its
 no-cache branch (training, eval and predict); and behind RING_ATTENTION's
 no-cache branch, the ring of K5 steps (parallel/ring.py). Its dense-cache
 branch (FFModel.generate, the dense GenerationServer) is plain PyTorch,
-as the reference computes it outside any Pallas kernel.
+as the reference computes it outside any Pallas kernel, and so is the
+attention of a training step at a dropout rate above 0: the reference
+sends dropout to no kernel (flash_attention_available is False for it)
+and computes it densely, and so does the port (dense_dropout_attention,
+counted in DENSE_DROPOUT_ATTENTION). Conv, pooling, BatchNorm and the
+LSTM are PyTorch ops (cuDNN's convolution among them), as the
+reference's are lax/jnp.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from flexflow_tpu_torch.ffconst import ActiMode, AggrMode, OpType
+from flexflow_tpu_torch.ffconst import ActiMode, AggrMode, OpType, PoolType
 from flexflow_tpu_torch.ops.flash_attention import flash_attention
 from flexflow_tpu_torch.ops.registry import register_lowering
 
@@ -41,6 +48,30 @@ def apply_activation(x, act: ActiMode):
     raise ValueError(f"unknown activation {act}")
 
 
+@register_lowering(OpType.INPUT)
+def _input(attrs, inputs, params, ctx):
+    raise RuntimeError("INPUT nodes are bound by the executor, not lowered")
+
+
+@register_lowering(OpType.NOOP)
+def _noop(attrs, inputs, params, ctx):
+    return [inputs[0]]
+
+
+def _reshard(attrs, inputs, params, ctx):
+    """A parallel op (REPARTITION, COMBINE, REPLICATE, REDUCTION,
+    ALL_TO_ALL, FUSED_PARALLEL) changes where a tensor's pieces live, not
+    its value; on the port's one device every piece lives on that device,
+    so the node passes its input on, as the reference's sharding
+    constraint does on a one-device mesh."""
+    return [inputs[0]]
+
+
+for _op in (OpType.REPARTITION, OpType.COMBINE, OpType.REPLICATE,
+            OpType.REDUCTION, OpType.ALL_TO_ALL, OpType.FUSED_PARALLEL):
+    register_lowering(_op)(_reshard)
+
+
 @register_lowering(OpType.WEIGHT)
 def _weight(attrs, inputs, params, ctx):
     # the stored parameter as it is, as the reference returns it: a
@@ -57,6 +88,38 @@ def _linear(attrs, inputs, params, ctx):
     if attrs.use_bias:
         y = y + params["bias"].to(x.dtype)
     return [apply_activation(y, attrs.activation)]
+
+
+@register_lowering(OpType.CONV2D)
+def _conv2d(attrs, inputs, params, ctx):
+    """NCHW x OIHW, symmetric padding, feature groups; the bias added
+    after the convolution in x's dtype, as the reference adds it."""
+    (x,) = inputs
+    y = F.conv2d(x, params["kernel"].to(x.dtype), stride=attrs.stride,
+                 padding=attrs.padding, groups=attrs.groups)
+    if attrs.use_bias:
+        y = y + params["bias"].to(x.dtype)[None, :, None, None]
+    return [apply_activation(y, attrs.activation)]
+
+
+def matmul_f32(a, b):
+    """a @ b summed in fp32 and rounded once to a's dtype (the
+    reference's preferred_element_type=float32 then astype)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.matmul(a, b)
+    return torch.matmul(a.float(), b.float()).to(a.dtype)
+
+
+@register_lowering(OpType.BATCH_MATMUL)
+def _batch_matmul(attrs, inputs, params, ctx):
+    a, b = inputs
+    if ctx.seq_length is not None:
+        # the iteration config's truncation of the marked dims
+        if attrs.a_seq_length_dim >= 0:
+            a = a.narrow(attrs.a_seq_length_dim, 0, ctx.seq_length)
+        if attrs.b_seq_length_dim >= 0:
+            b = b.narrow(attrs.b_seq_length_dim, 0, ctx.seq_length)
+    return [matmul_f32(a, b)]
 
 
 @register_lowering(OpType.EMBEDDING)
@@ -174,16 +237,62 @@ def cached_attention(q, k, v, cache_k, cache_v, pos, *, scale: float,
     return out, cache_k, cache_v
 
 
+class RouteCounter:
+    """Counts the calls of a route that is not a kernel of the port, as a
+    kernel counts its launches (kernels.CudaKernel.launches), so a run can
+    show which route its attention took."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+
+DENSE_DROPOUT_ATTENTION = RouteCounter("dense_dropout_attention")
+
+
+def dropout_mask(shape, keep: float, gen: torch.Generator, device):
+    """Bernoulli(keep) as a bool tensor of `shape`, from `gen`."""
+    return torch.rand(shape, generator=gen, device=device) < keep
+
+
+def dense_dropout_attention(q, k, v, *, causal: bool, scale: float,
+                            rate: float, gen: torch.Generator):
+    """The reference's `_dot_product_attention` with dropout on the
+    probabilities (jax_ops.py:175): fp32 logits and softmax, the
+    probabilities rounded to q's dtype, each kept with probability
+    1 - rate and scaled by 1 / (1 - rate) in q's dtype, then the value
+    product summed in fp32. The route a training step's attention takes
+    at a dropout rate above 0, on the card and on the CPU; each call adds
+    one to DENSE_DROPOUT_ATTENTION.launches (twice a layer and step under
+    remat="attention", whose backward recomputes the forward)."""
+    DENSE_DROPOUT_ATTENTION.launches += 1
+    B, S, H, _ = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    if Hkv != H:
+        k = k.repeat_interleave(H // Hkv, dim=2)
+        v = v.repeat_interleave(H // Hkv, dim=2)
+    logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    if causal:
+        tri = torch.ones(S, T, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~tri, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    keep = 1.0 - rate
+    probs = (probs / keep).masked_fill(
+        ~dropout_mask(probs.shape, keep, gen, q.device), 0)
+    out = torch.einsum("bhst,bthd->bshd", probs.float(), v.float())
+    return out.to(q.dtype)
+
+
 def fused_attention(q, k, v, *, causal: bool, scale: float,
-                    dropout: float = 0.0):
+                    dropout: float = 0.0, gen=None):
     """Attention over the whole sequence (counterpart of
     jax_ops.fused_attention): the flash kernels on the card, their plain
-    version on the CPU (ops/flash_attention.py). Attention dropout is not
-    ported: a rate above 0 raises."""
+    version on the CPU (ops/flash_attention.py); at a dropout rate above
+    0 (a training step's) the dense route with dropout, as the
+    reference routes it."""
     if dropout > 0.0:
-        raise NotImplementedError(
-            "attention dropout is not ported yet (ROADMAP.md, queue 1 "
-            "item 8, DROPOUT); Llama's attention has none")
+        return dense_dropout_attention(q, k, v, causal=causal, scale=scale,
+                                       rate=dropout, gen=gen)
     return flash_attention(q, k, v, causal=causal, scale=scale)
 
 
@@ -205,9 +314,10 @@ def _mha(attrs, inputs, params, ctx):
         if attrs.rope:
             q = apply_rope(q, attrs.rope_theta)
             k = apply_rope(k, attrs.rope_theta)
+        rate = attrs.dropout if ctx.training else 0.0
         out = fused_attention(
-            q, k, v, causal=attrs.causal, scale=scale,
-            dropout=attrs.dropout if ctx.training else 0.0)
+            q, k, v, causal=attrs.causal, scale=scale, dropout=rate,
+            gen=ctx.generator(q.device) if rate > 0.0 else None)
     elif ctx.page_tables is None:
         # the dense cache (FFModel.generate, the dense GenerationServer):
         # rope, write this step's rows at pos, attend over the buffer
@@ -328,6 +438,178 @@ def _element_unary(attrs, inputs, params, ctx):
     if k == "scalar_truediv":
         return [x / s]
     return [_UNARY[k](x)]
+
+
+# ---------------------------------------------------------------------------
+# shape ops
+
+
+@register_lowering(OpType.RESHAPE)
+def _reshape(attrs, inputs, params, ctx):
+    return [inputs[0].reshape(attrs.shape)]
+
+
+@register_lowering(OpType.FLAT)
+def _flat(attrs, inputs, params, ctx):
+    x = inputs[0]
+    return [x.reshape(x.shape[0], -1)]
+
+
+@register_lowering(OpType.TRANSPOSE)
+def _transpose(attrs, inputs, params, ctx):
+    return [inputs[0].permute(attrs.perm)]
+
+
+@register_lowering(OpType.REVERSE)
+def _reverse(attrs, inputs, params, ctx):
+    return [torch.flip(inputs[0], dims=(attrs.axis,))]
+
+
+@register_lowering(OpType.CONCAT)
+def _concat(attrs, inputs, params, ctx):
+    return [torch.cat(inputs, dim=attrs.axis)]
+
+
+@register_lowering(OpType.SPLIT)
+def _split(attrs, inputs, params, ctx):
+    return list(torch.split(inputs[0], list(attrs.sizes), dim=attrs.axis))
+
+
+@register_lowering(OpType.CAST)
+def _cast(attrs, inputs, params, ctx):
+    return [inputs[0].to(attrs.dtype.torch_dtype)]
+
+
+# ---------------------------------------------------------------------------
+# pooling / BatchNorm / dropout
+
+
+@register_lowering(OpType.POOL2D)
+def _pool2d(attrs, inputs, params, ctx):
+    """Max pooling pads with -inf; average pooling sums in fp32 and
+    divides by kh * kw, the padding included (lax.reduce_window's). The
+    padding is explicit, since F.max_pool2d refuses one above half the
+    kernel, which the reference takes."""
+    (x,) = inputs
+    ph, pw = attrs.padding
+    pad = (pw, pw, ph, ph)
+    if attrs.pool_type == PoolType.MAX:
+        if ph or pw:
+            x = F.pad(x, pad, value=float("-inf"))
+        y = F.max_pool2d(x, attrs.kernel, attrs.stride)
+    else:
+        xf = x.float()
+        if ph or pw:
+            xf = F.pad(xf, pad)
+        y = F.avg_pool2d(xf, attrs.kernel, attrs.stride).to(x.dtype)
+    return [apply_activation(y, attrs.activation)]
+
+
+@register_lowering(OpType.BATCH_NORM)
+def _batch_norm(attrs, inputs, params, ctx):
+    """Training normalises with the batch's mean and biased variance over
+    (N, H, W) in fp32 and moves the running statistics as (1 - m) *
+    running + m * batch, the biased variance included (F.batch_norm's own
+    update takes the unbiased one, so the update is written here); eval
+    normalises with the running statistics. The affine runs in fp32, the
+    result in x's dtype, then the fused ReLU."""
+    (x,) = inputs
+    xf = x.float()
+    scale, bias = params["scale"].float(), params["bias"].float()
+    if ctx.training:
+        y = F.batch_norm(xf, None, None, scale, bias, training=True,
+                         eps=attrs.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+            m = attrs.momentum
+            for name, stat in (("running_mean", mean), ("running_var", var)):
+                old = params[name]
+                ctx.state_updates[name] = ((1 - m) * old.float()
+                                           + m * stat).to(old.dtype)
+    else:
+        y = F.batch_norm(xf, params["running_mean"].float(),
+                         params["running_var"].float(), scale, bias,
+                         training=False, eps=attrs.eps)
+    y = y.to(x.dtype)
+    return [F.relu(y) if attrs.relu else y]
+
+
+@register_lowering(OpType.DROPOUT)
+def _dropout(attrs, inputs, params, ctx):
+    """Identity outside training or at rate 0; otherwise each element kept
+    with probability 1 - rate (from the node's stream, ctx.generator) and
+    scaled by 1 / (1 - rate) in x's dtype."""
+    (x,) = inputs
+    if not ctx.training or attrs.rate == 0.0:
+        return [x]
+    keep = 1.0 - attrs.rate
+    mask = dropout_mask(x.shape, keep, ctx.generator(x.device), x.device)
+    return [(x / keep).masked_fill(~mask, 0)]
+
+
+# ---------------------------------------------------------------------------
+# gather / reduce
+
+
+@register_lowering(OpType.GATHER)
+def _gather(attrs, inputs, params, ctx):
+    """take_along_axis: torch.gather, whose indices are int64 (the graph
+    carries int32)."""
+    x, idx = inputs
+    return [torch.gather(x, attrs.axis, idx.long())]
+
+
+@register_lowering(OpType.REDUCE_SUM)
+def _reduce(attrs, inputs, params, ctx):
+    (x,) = inputs
+    fn = torch.sum if attrs.kind == "sum" else torch.mean
+    return [fn(x, dim=tuple(attrs.axes), keepdim=attrs.keepdims)]
+
+
+@register_lowering(OpType.MEAN)
+def _mean(attrs, inputs, params, ctx):
+    (x,) = inputs
+    return [torch.mean(x, dim=tuple(attrs.axes), keepdim=attrs.keepdims)]
+
+
+# ---------------------------------------------------------------------------
+# recurrent
+
+
+@register_lowering(OpType.LSTM)
+def _lstm(attrs, inputs, params, ctx):
+    """One LSTM layer over the whole sequence, as the reference's
+    lax.scan computes it: the input projection of every step is one
+    product outside the recurrence; each step adds h @ wh (rounded to x's
+    dtype) to it, takes the gates i, f, g, o in fp32, keeps c in fp32 and
+    h in x's dtype. `reverse` runs the sequence backwards and flips the
+    outputs back. Returns (y, h_n, c_n), c_n in x's dtype. torch.nn.LSTM
+    (cuDNN) keeps another weight layout and other rounding points, so the
+    loop is written in torch ops."""
+    x = inputs[0]
+    B, S, _ = x.shape
+    dt = x.dtype
+    wx = params["wx"].to(dt)
+    wh = params["wh"].to(dt)
+    h = inputs[1] if len(inputs) > 1 else x.new_zeros(B, attrs.hidden)
+    c = (inputs[2] if len(inputs) > 2
+         else x.new_zeros(B, attrs.hidden)).float()
+    if attrs.reverse:
+        x = torch.flip(x, dims=(1,))
+    xg = matmul_f32(x, wx)
+    if attrs.use_bias:
+        xg = xg + params["bias"].to(dt)
+    ys = []
+    for t in range(S):
+        gates = (xg[:, t] + matmul_f32(h, wh)).float()
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = (torch.sigmoid(o) * torch.tanh(c)).to(dt)
+        ys.append(h)
+    y = torch.stack(ys, dim=1)
+    if attrs.reverse:
+        y = torch.flip(y, dims=(1,))
+    return [y, h, c.to(dt)]
 
 
 @register_lowering(OpType.LAYER_NORM)

@@ -9,6 +9,7 @@ inference reads the same as the reference's. There is no PartitionSpec.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 from flexflow_tpu_torch.ffconst import DataType
@@ -24,6 +25,9 @@ class TensorShape:
     @property
     def ndim(self) -> int:
         return len(self.dims)
+
+    def num_elements(self) -> int:
+        return math.prod(self.dims) if self.dims else 1
 
     def __str__(self) -> str:
         return f"{list(self.dims)}:{self.dtype.value}"

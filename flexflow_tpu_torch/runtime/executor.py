@@ -23,23 +23,39 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from flexflow_tpu_torch.ffconst import ActiMode, LossType, MetricsType, OpType
-from flexflow_tpu_torch.ops.registry import LowerCtx, get_lowering
+from flexflow_tpu_torch.ops.registry import LowerCtx, get_lowering, node_seed
 from flexflow_tpu_torch.pcg.graph import Graph, Node
 from flexflow_tpu_torch.runtime import initializer as init_mod
 from flexflow_tpu_torch.runtime.loss import compute_loss
 from flexflow_tpu_torch.runtime.metrics import compute_step_metrics
 
 # weights stored fp32 whatever their declared dtype, so their values are
-# the reference's fp32 masters: the norm scales and biases (their
-# lowerings compute in fp32) and WEIGHT's table (its lowering hands the
-# master on as it is, and jnp-style promotion follows from its dtype)
+# the reference's fp32 masters: the norm scales and biases and
+# BatchNorm's running statistics (their lowerings compute in fp32) and
+# WEIGHT's table (its lowering hands the master on as it is, and
+# jnp-style promotion follows from its dtype)
 _FP32_USE = {(OpType.RMS_NORM, "scale"), (OpType.LAYER_NORM, "scale"),
-             (OpType.LAYER_NORM, "bias"), (OpType.WEIGHT, "weight")}
+             (OpType.LAYER_NORM, "bias"), (OpType.WEIGHT, "weight"),
+             (OpType.BATCH_NORM, "scale"), (OpType.BATCH_NORM, "bias"),
+             (OpType.BATCH_NORM, "running_mean"),
+             (OpType.BATCH_NORM, "running_var")}
 _ATTENTION_OPS = (OpType.MULTIHEAD_ATTENTION, OpType.RING_ATTENTION)
 
 
 def node_key(node: Node) -> str:
     return node.stable_key()
+
+
+def merge_state(nontrainable, updates):
+    """A new non-trainable tree: `nontrainable`'s leaves with `updates`
+    (node key -> weight name -> tensor) in place of theirs; the tree
+    passed in is not changed."""
+    if not updates:
+        return nontrainable
+    new = {k: dict(v) for k, v in nontrainable.items()}
+    for nk, ws in updates.items():
+        new.setdefault(nk, {}).update(ws)
+    return new
 
 
 class Executor:
@@ -252,7 +268,9 @@ class Executor:
     def run_forward(self, trainable, nontrainable, inputs: Sequence, *,
                     training: bool = False, skip_sink_softmax: bool = False,
                     kv_caches=None, cache_position=None, cache_out=None,
-                    page_tables=None, ragged=None, return_aux=False):
+                    page_tables=None, ragged=None, return_aux=False,
+                    rng: Optional[Tuple[int, int]] = None,
+                    state_out: Optional[dict] = None):
         """Topo-order evaluation; returns the sink output, or with
         `return_aux` (output, aux): the sum of the load-balance terms the
         MoE lowerings wrote (None when none did). With
@@ -269,8 +287,16 @@ class Executor:
         {"k", "v"} page pools (plus "k_scale"/"v_scale" for an int8
         pool), updated in place and reported in `cache_out`, and
         `ragged` = (q_lens, depths, anc) is the per-entry work descriptor
-        (causal-chain default when None)."""
+        (causal-chain default when None).
+
+        In training each node's draws come from its own stream,
+        `node_seed((fit stream, step), guid)` with `rng` = (fit stream,
+        step) ((0, 0) when None); outside training nothing draws. With
+        `state_out` the non-trainable weights a node moves (BatchNorm's
+        running statistics) land in state_out[node key]."""
         values: Dict[Tuple[int, int], Any] = {}
+        if training and rng is None:
+            rng = (0, 0)
         if len(inputs) != len(self.input_nodes):
             raise ValueError(f"expected {len(self.input_nodes)} inputs, "
                              f"got {len(inputs)}")
@@ -291,7 +317,8 @@ class Executor:
                 entry = self._remat_member_of[n.guid]
                 if n.guid == entry:  # the other members run inside it
                     values.update(self._run_remat_group(
-                        groups[entry], values, trainable, nontrainable))
+                        groups[entry], values, trainable, nontrainable,
+                        rng))
                 continue
             key = node_key(n)
             ins = [values[(e.src, e.src_idx)] for e in self.graph.in_edges(n)]
@@ -303,6 +330,7 @@ class Executor:
             ctx = LowerCtx(
                 device=self.device, mesh=self.mesh, training=training,
                 seq_length=self.seq_length, node_guid=n.guid,
+                rng_seed=node_seed(rng, n.guid) if training else None,
                 kv_cache=(kv_caches.get(key) if kv_caches is not None
                           else None),
                 cache_position=cache_position, page_tables=page_tables,
@@ -322,10 +350,12 @@ class Executor:
                 aux = ctx.aux_loss if aux is None else aux + ctx.aux_loss
             if ctx.cache_updates and cache_out is not None:
                 cache_out[key] = dict(ctx.cache_updates)
+            if ctx.state_updates and state_out is not None:
+                state_out[key] = dict(ctx.state_updates)
         out = values[(self.sink.guid, 0)]
         return (out, aux) if return_aux else out
 
-    def _run_remat_group(self, group, values, trainable, nontrainable):
+    def _run_remat_group(self, group, values, trainable, nontrainable, rng):
         """One remat="hidden" group under torch.utils.checkpoint
         (non-reentrant): only its external inputs are saved for backward,
         the hidden activations inside are recomputed. Returns {output key:
@@ -342,7 +372,8 @@ class Executor:
                           **nontrainable.get(key, {})}
                 ctx = LowerCtx(device=self.device, mesh=self.mesh,
                                training=True, seq_length=self.seq_length,
-                               node_guid=gn.guid)
+                               node_guid=gn.guid,
+                               rng_seed=node_seed(rng, gn.guid))
                 for i, o in enumerate(get_lowering(gn.op_type)(
                         gn.attrs, ins, params, ctx)):
                     local[(gn.guid, i)] = o
@@ -354,13 +385,17 @@ class Executor:
     # ------------------------------------------------------------------
     # training and evaluation steps
 
-    def loss_and_grads(self, trainable, nontrainable, labels, *inputs):
+    def loss_and_grads(self, trainable, nontrainable, labels, *inputs,
+                       rng: Optional[Tuple[int, int]] = None,
+                       state_out: Optional[dict] = None):
         """The loss of one batch (forward with training=True, the sink
-        softmax fused into the loss) and the gradient of the loss plus
-        the graph's MoE load-balance terms with respect to every
-        trainable leaf. Returns (loss, logits, grads): the loss without
-        those terms, as the reference reports it, loss and logits
-        detached, grads a tree shaped like `trainable`."""
+        softmax fused into the loss, draws from the stream `rng` = (fit
+        stream, step)) and the gradient of the loss plus the graph's MoE
+        load-balance terms with respect to every trainable leaf. Returns
+        (loss, logits, grads): the loss without those terms, as the
+        reference reports it, loss and logits detached, grads a tree
+        shaped like `trainable`; the running statistics the forward moved
+        go to `state_out` (run_forward's)."""
         labels = self._maybe_repeat_labels(labels)
         leaves = [p for ws in trainable.values() for p in ws.values()]
         for p in leaves:
@@ -368,7 +403,8 @@ class Executor:
         try:
             logits, aux = self.run_forward(
                 trainable, nontrainable, inputs, training=True,
-                skip_sink_softmax=self.fuse_loss_softmax, return_aux=True)
+                skip_sink_softmax=self.fuse_loss_softmax, return_aux=True,
+                rng=rng, state_out=state_out)
             loss = compute_loss(self.loss_type, logits, labels,
                                 self._sink_is_softmax())
             # the gradient is the loss's plus the MoE load-balance
@@ -407,14 +443,17 @@ class Executor:
         return self.last_op_is_softmax and not self.fuse_loss_softmax
 
     def train_step(self, trainable, nontrainable, opt_state, labels,
-                   *inputs):
-        """One training step: the loss and gradients of `loss_and_grads`,
-        then the optimizer's update of the fp32 masters and the state, in
-        place. Returns (trainable, nontrainable, opt_state, metrics);
-        metrics (the compiled metrics and "loss") are 0-d tensors on the
-        device, so the step never waits for the card. With donate=False
-        (FFConfig.donate_buffers) the trees passed in are left intact and
-        the step updates copies."""
+                   *inputs, rng: Optional[Tuple[int, int]] = None):
+        """One training step: the loss and gradients of `loss_and_grads`
+        (dropout drawn from the stream `rng` = (fit stream, step), (0, 0)
+        when None), then the optimizer's update of the fp32 masters and
+        the state, in place. Returns (trainable, nontrainable, opt_state,
+        metrics); the non-trainable tree returned is a new one holding the
+        running statistics the step moved (the reference's state_updates
+        merged in); metrics (the compiled metrics and "loss") are 0-d
+        tensors on the device, so the step never waits for the card. With
+        donate=False (FFConfig.donate_buffers) the trees passed in are
+        left intact and the step updates copies."""
         for ws in trainable.values():
             for p in ws.values():
                 if p.dtype != torch.float32:
@@ -424,8 +463,10 @@ class Executor:
         if not self.donate:
             trainable, opt_state = _clone_tree(trainable), _clone_tree(
                 opt_state)
+        state: Dict[str, Dict[str, torch.Tensor]] = {}
         loss, logits, grad_tree = self.loss_and_grads(
-            trainable, nontrainable, labels, *inputs)
+            trainable, nontrainable, labels, *inputs, rng=rng,
+            state_out=state)
         metrics = self._rescale_correct(compute_step_metrics(
             self.metrics, self.loss_type, logits,
             self._maybe_repeat_labels(labels), self._sink_is_softmax()))
@@ -433,7 +474,8 @@ class Executor:
         del logits
         trainable, opt_state = self.optimizer.update(grad_tree, trainable,
                                                      opt_state)
-        return trainable, nontrainable, opt_state, metrics
+        return (trainable, merge_state(nontrainable, state), opt_state,
+                metrics)
 
     @torch.no_grad()
     def eval_step(self, trainable, nontrainable, labels, *inputs):

@@ -1444,3 +1444,194 @@ def test_experts_on_card_match_cpu(alpha, dispatch):
             assert torch.allclose(a, b, atol=1e-5, rtol=1e-5), i
     if alpha < 2.0:
         assert int((res["cpu"][7] == n * at.capacity(t)).sum()) > 0
+
+
+def _card_vs_cpu(lower, attrs, host_ins, host_params, host_cot,
+                 training=False, rng_seed=None):
+    """One lowering on CUDA and on CPU tensors, fp32 with TF32 off for
+    matmul and cuDNN: (outputs, input grads, param grads, state updates)
+    per device, on the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from flexflow_tpu_torch.ops.registry import LowerCtx
+
+    res = {}
+    for device in ("cuda", "cpu"):
+        ins = [a.to(device).requires_grad_(a.is_floating_point())
+               for a in host_ins]
+        ps = {k: v.to(device).requires_grad_(k not in ("running_mean",
+                                                       "running_var"))
+              for k, v in host_params.items()}
+        ctx = LowerCtx(training=training, rng_seed=rng_seed)
+        outs = lower(attrs, ins, ps, ctx)
+        sum((o * c.to(device)).sum() for o, c in zip(outs, host_cot)
+            if c is not None).backward()
+        res[device] = (
+            [o.detach().cpu() for o in outs],
+            [a.grad.cpu() for a in ins if a.grad is not None],
+            {k: v.grad.cpu() for k, v in ps.items() if v.grad is not None},
+            {k: v.cpu() for k, v in ctx.state_updates.items()})
+    return res
+
+
+def _assert_card_matches_cpu(res, tol=1e-4):
+    (go, gi, gp, gs), (co, ci, cp, cs) = res["cuda"], res["cpu"]
+    for a, b in zip(go + gi + list(gp.values()) + list(gs.values()),
+                    co + ci + list(cp.values()) + list(cs.values())):
+        assert torch.allclose(a, b, atol=tol, rtol=tol), float(
+            (a - b).abs().max())
+    assert sorted(gp) == sorted(cp) and sorted(gs) == sorted(cs)
+
+
+@pytest.mark.parametrize("groups,stride,pad", [(1, (1, 1), (1, 1)),
+                                               (4, (2, 2), (3, 3))])
+def test_conv2d_on_card_matches_cpu(groups, stride, pad):
+    """CONV2D (cuDNN) on the card against the CPU, fp32 with TF32 off:
+    the output and the gradients of x, kernel and bias within 1e-4
+    (summation order only)."""
+    _needs_card()
+    from flexflow_tpu_torch.ffconst import ActiMode
+    from flexflow_tpu_torch.ops import torch_ops
+    from flexflow_tpu_torch.ops.attrs import Conv2DAttrs
+
+    rs = np.random.RandomState(3)
+    k = (7, 7) if pad == (3, 3) else (3, 3)
+    x = torch.from_numpy(rs.randn(4, 16, 28, 28).astype(np.float32))
+    w = torch.from_numpy((rs.randn(32, 16 // groups, *k) * 0.1)
+                         .astype(np.float32))
+    b = torch.from_numpy(rs.randn(32).astype(np.float32))
+    at = Conv2DAttrs(32, k, stride, pad, groups, True, ActiMode.RELU)
+    oh = (28 + 2 * pad[0] - k[0]) // stride[0] + 1
+    cot = torch.from_numpy(rs.randn(4, 32, oh, oh).astype(np.float32))
+    _assert_card_matches_cpu(_card_vs_cpu(
+        torch_ops._conv2d, at, [x], {"kernel": w, "bias": b}, [cot]))
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_batch_norm_on_card_matches_cpu(training):
+    """BATCH_NORM on the card against the CPU, fp32: the output, the
+    gradients of x, scale and bias, and in training both moved running
+    statistics within 1e-4."""
+    _needs_card()
+    from flexflow_tpu_torch.ops import torch_ops
+    from flexflow_tpu_torch.ops.attrs import BatchNormAttrs
+
+    rs = np.random.RandomState(4)
+    x = torch.from_numpy((rs.randn(8, 32, 14, 14) * 2 + 1)
+                         .astype(np.float32))
+    ps = {"scale": torch.from_numpy(rs.rand(32).astype(np.float32) + 0.5),
+          "bias": torch.from_numpy(rs.randn(32).astype(np.float32)),
+          "running_mean": torch.zeros(32), "running_var": torch.ones(32)}
+    cot = torch.from_numpy(rs.randn(*x.shape).astype(np.float32))
+    res = _card_vs_cpu(torch_ops._batch_norm, BatchNormAttrs(True), [x], ps,
+                       [cot], training=training)
+    _assert_card_matches_cpu(res)
+    assert bool(res["cuda"][3]) == training
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_on_card_matches_cpu(reverse):
+    """LSTM (the step loop in torch ops) on the card against the CPU, fp32
+    with TF32 off, from an initial state: y, h_n, c_n and the gradients
+    of x, h0, c0, wx, wh and bias within 1e-4."""
+    _needs_card()
+    from flexflow_tpu_torch.ops import torch_ops
+    from flexflow_tpu_torch.ops.attrs import LSTMAttrs
+
+    rs = np.random.RandomState(5)
+    B, S, D, H = 4, 12, 32, 48
+
+    def t(*shape, s=1.0):
+        return torch.from_numpy((rs.randn(*shape) * s).astype(np.float32))
+
+    ins = [t(B, S, D), t(B, H, s=0.5), t(B, H, s=0.5)]
+    ps = {"wx": t(D, 4 * H, s=0.2), "wh": t(H, 4 * H, s=0.2),
+          "bias": t(4 * H, s=0.1)}
+    cots = [t(B, S, H), t(B, H), t(B, H)]
+    _assert_card_matches_cpu(_card_vs_cpu(
+        torch_ops._lstm, LSTMAttrs(H, True, reverse), ins, ps, cots))
+
+
+def _k4_counts():
+    from flexflow_tpu_torch.kernels import (
+        FLASH_ATTENTION_BH_DKV,
+        FLASH_ATTENTION_BH_DQ,
+        FLASH_ATTENTION_BH_FWD,
+    )
+
+    return [k.launches for k in (FLASH_ATTENTION_BH_FWD,
+                                 FLASH_ATTENTION_BH_DQ,
+                                 FLASH_ATTENTION_BH_DKV)]
+
+
+@pytest.mark.parametrize("model", ["bert", "encoder_decoder"])
+def test_zoo_attention_reaches_k4(model):
+    """A two-layer BERT (biased, non-causal, head dim 64, dropout 0) and
+    a one-layer encoder-decoder (fp32; non-causal encoder, causal
+    decoder, cross-attention with S 6 != T 10) train one step on the
+    card: each attention node launches K4's forward, dq and dk/dv once
+    (remat none), the dense dropout route never; the loss is finite."""
+    _needs_card()
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer
+    from flexflow_tpu_torch.models import (
+        BertConfig,
+        TransformerConfig,
+        build_bert,
+        build_transformer_encoder_decoder,
+    )
+    from flexflow_tpu_torch.ops import torch_ops
+
+    rs = np.random.RandomState(6)
+    ff = FFModel(FFConfig(batch_size=2, device="cuda", remat="none"))
+    if model == "bert":
+        build_bert(ff, BertConfig(vocab_size=128, hidden=128, layers=2,
+                                  heads=2, intermediate=256, dropout=0.0),
+                   batch_size=2, seq_len=16)
+        loss, n_attn = LossType.SPARSE_CATEGORICAL_CROSSENTROPY, 2
+        xs = [rs.randint(0, 128, (2, 16)).astype(np.int32)]
+        y = rs.randint(0, 2, 2).astype(np.int32)
+    else:
+        build_transformer_encoder_decoder(
+            ff, TransformerConfig(dim=128, heads=2, hidden=256, layers=1),
+            batch_size=2, src_len=10, tgt_len=6)
+        loss, n_attn = LossType.MEAN_SQUARED_ERROR_AVG_REDUCE, 3
+        xs = [rs.randn(2, 10, 128).astype(np.float32),
+              rs.randn(2, 6, 128).astype(np.float32)]
+        y = rs.randn(2, 6, 1).astype(np.float32)
+    ff.compile(optimizer=SGDOptimizer(lr=0.01), loss_type=loss)
+    before, dense = _k4_counts(), torch_ops.DENSE_DROPOUT_ATTENTION.launches
+    tr, ntr = ff._params
+    *_, m = ff.executor.train_step(
+        tr, ntr, ff._opt_state, torch.from_numpy(y).cuda(),
+        *(torch.from_numpy(a).cuda() for a in xs))
+    assert [a - b for a, b in zip(_k4_counts(), before)] == [n_attn] * 3
+    assert torch_ops.DENSE_DROPOUT_ATTENTION.launches == dense
+    assert bool(torch.isfinite(m["loss"]))
+
+
+def test_dense_dropout_route_only_in_training_above_rate_zero():
+    """A BERT at attention dropout 0.1 on the card: a train step takes
+    the dense route once a layer and launches no K4 forward; predict
+    (eval) at the same rate launches K4's forward once a layer and the
+    dense route never."""
+    _needs_card()
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.models import BertConfig, build_bert
+    from flexflow_tpu_torch.ops import torch_ops
+
+    rs = np.random.RandomState(7)
+    ff = FFModel(FFConfig(batch_size=2, device="cuda", remat="none"))
+    build_bert(ff, BertConfig(vocab_size=128, hidden=128, layers=2, heads=2,
+                              intermediate=256, dropout=0.1),
+               batch_size=2, seq_len=16)
+    ff.compile(optimizer=SGDOptimizer(lr=0.01))
+    x = rs.randint(0, 128, (2, 16)).astype(np.int32)
+    y = rs.randint(0, 2, 2).astype(np.int32)
+    before, dense = _k4_counts(), torch_ops.DENSE_DROPOUT_ATTENTION.launches
+    ff.fit(x, y, verbose=False)
+    assert torch_ops.DENSE_DROPOUT_ATTENTION.launches - dense == 2
+    assert _k4_counts() == before
+    out = ff.predict(x)
+    assert torch_ops.DENSE_DROPOUT_ATTENTION.launches - dense == 2
+    assert _k4_counts()[0] - before[0] == 2
+    assert np.isfinite(out).all()

@@ -131,20 +131,26 @@ def test_chip_smoke_fails_without_cuda():
 
 def test_training_entry_points_raise():
     """What the training slice does not port raises, naming ROADMAP: a
-    refused config field (fit's profiler capture), attention dropout in
-    training, fit(dataloaders=...)."""
-    from flexflow_tpu_torch import FFConfig, FFModel
+    refused config field (fit's profiler capture), an initializer
+    override, fit(dataloaders=...). Attention dropout in training is
+    ported (the dense route): fit trains through it."""
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType
     from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
+    from flexflow_tpu_torch.ops import torch_ops
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FFConfig(device="cpu", profiler_trace_dir="trace")
     ff = FFModel(FFConfig(batch_size=1, device="cpu"))
     x = ff.create_tensor((1, 4, 16))
-    ff.multihead_attention(x, x, x, 16, 2, dropout=0.1)
-    ff.compile()
-    ids = np.zeros((1, 4, 16), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ff.fit(ids, np.zeros((1, 4, 16), np.float32))
+        ff.dense(x, 16, kernel_initializer="zeros")
+    ff.multihead_attention(x, x, x, 16, 2, dropout=0.1)
+    ff.compile(loss_type=LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
+    before = torch_ops.DENSE_DROPOUT_ATTENTION.launches
+    m = ff.fit(np.ones((1, 4, 16), np.float32),
+               np.zeros((1, 4, 16), np.float32), verbose=False)
+    assert torch_ops.DENSE_DROPOUT_ATTENTION.launches > before
+    assert m.train_all == 1
     ff = FFModel(FFConfig(batch_size=1, device="cpu"))
     build_llama(ff, LlamaConfig.tiny(), batch_size=1, seq_len=4)
     ff.compile()

@@ -185,16 +185,24 @@ def test_mha_paged_branch(heads, kv_heads):
 
 def test_mha_outside_the_paged_path_raises():
     """Outside the paged path the lowering attends with the flash path
-    (tests/test_torch_flash_attention.py); what is not ported there
-    raises: attention dropout in training. A dense KV cache takes the
-    cached_attention branch (tests/test_torch_generate.py): it writes this
-    step's rows at the position, in place, and attends."""
+    (tests/test_torch_flash_attention.py); attention dropout in training
+    takes the dense route, which draws from the node's random stream: a
+    training call without one raises, one with a stream counts a dense
+    call (tests/test_torch_dropout.py holds the route to the reference).
+    A dense KV cache takes the cached_attention branch
+    (tests/test_torch_generate.py): it writes this step's rows at the
+    position, in place, and attends."""
     attrs = A.MultiHeadAttentionAttrs(16, 2, dropout=0.1)
     x = torch.zeros(1, 2, 16)
     params = {"wq": torch.zeros(16, 2, 8), "wk": torch.zeros(16, 2, 8),
               "wv": torch.zeros(16, 2, 8), "wo": torch.zeros(2, 8, 16)}
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(RuntimeError, match="random stream"):
         torch_ops._mha(attrs, [x] * 3, params, LowerCtx(training=True))
+    before = torch_ops.DENSE_DROPOUT_ATTENTION.launches
+    (y,) = torch_ops._mha(attrs, [x] * 3, params,
+                          LowerCtx(training=True, rng_seed=5))
+    assert y.shape == (1, 2, 16)
+    assert torch_ops.DENSE_DROPOUT_ATTENTION.launches == before + 1
     (y,) = torch_ops._mha(attrs, [x] * 3, params, LowerCtx(training=False))
     assert y.shape == (1, 2, 16)
     cache = {"k": torch.zeros(1, 4, 2, 8), "v": torch.zeros(1, 4, 2, 8)}
