@@ -7,10 +7,12 @@ generation, Llama training (head dims 128,
 through ring attention (head dims 128, 96 and 100), Mixtral-8x7B's
 widths trained and served paged (the MoE ops), and the model zoo trained
 at full width (BERT-base, the encoder-decoder Transformer, ResNet-50, the
-LSTM NMT, DLRM), and holds every hand-written kernel on them to its plain
-PyTorch version.
+LSTM NMT, DLRM), a Llama built as one PIPELINE composite trained and
+decoded, BERT-base behind the batch server and the paged server behind
+the HTTP endpoint with its request log and SLO, and holds every
+hand-written kernel on them to its plain PyTorch version.
 
-    python3 chip_smoke.py            # phases 1..4, 6..18, one card
+    python3 chip_smoke.py            # phases 1..4, 6..19, one card
     python3 chip_smoke.py --phases 5 # + profiles of serving and training
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
@@ -279,7 +281,39 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      against its plain versions at their attention shapes, timed beside
      SDPA in fp32 (K4_ZOO_CASES; the kernels line records K4's launches
      of (a) and (b) under "bert_base", "encdec_self", "encdec_causal",
-     "encdec_cross").
+     "encdec_cross");
+ 19. the PIPELINE composite and the serving surface: (a) bench_1b (16
+     layers, bf16, batch 8 x 1024, Adam lr 1e-4, remat none) built with
+     use_pipeline=True on phase 6's weights (the unstacked build from the
+     same seed, its leaves stacked on a leading layer dim:
+     stacked_llama_params) through ff.fit over phase 6's 10 batches: K1,
+     K2 dq and K2 dk/dv once a layer and step, the first loss the
+     unstacked build's within the bf16 TOLS, then 10 timed steps on one
+     batch (the loss must fall) beside the unstacked build's, timed in
+     the same run; (b) FFModel.generate through the stacked dense cache
+     ((32, 4, 1024, 8, 128)) at Llama-3-8B's widths, bf16, 4 prompts of
+     128 tokens, 64 new, greedy, beside the unstacked build on the same
+     weights (ms a token, the share of equal tokens), identical tokens at
+     depth 2 in fp32, and serve_generation(paged=True) refused with the
+     reference's ValueError; (c) BERT-base (BertConfig(), seq 128,
+     declared bf16, so K4's fp32 bodies) behind ff.serve(batch_sizes=
+     (32,), max_delay_ms=2) (its [CLS] reshape fixes the batch dim): 256
+     requests of 1..4 rows from 8 client threads, each answer predict's
+     within FLASH_TOLS, requests/s, latency p50 / p99, rows a batch, K4's
+     forward once a layer a forward; then
+     http_serve: ready, a KServe-v2 infer equal to predict, /metrics, 503
+     after stop; K4's forward timed at the 32-row batch's attention
+     shape; (d) phase 4's requests at Llama-3-8B's widths, 4 layers,
+     through the paged server behind http_serve with the request log
+     (64), 4 kept records and an SLO every request misses (a breach
+     bundle in a temporary directory), against the same requests with
+     the log off: 8 records, their JSONL export read back, 4 kept and 4
+     dropped, /v2 metrics equal to metrics(), /metrics parsed with
+     ff_slo_breaches_total >= 1, the bundle, equal tokens, and the decode
+     tick's ms and synchronizing calls with and without (the kernels
+     line records K1/K2's launches of (a) under "pipeline_1b", K4's
+     forward's of (c) under "bert_serve", K3's of (d) under
+     "http_serve").
 Each phase, and each part of phases 2 and 3, logs its wall seconds on a
 `phase_time` line. The line before the last is the kernel list as JSON;
 the last line is {"ok": true, "device": {...}}. Exits non-zero without
@@ -292,11 +326,16 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 import warnings
 
 import numpy as np
@@ -370,7 +409,8 @@ from flexflow_tpu_torch.paged.quant import dequantize_pages, quantized_append
 from flexflow_tpu_torch.parallel.mesh import make_mesh
 from flexflow_tpu_torch.runtime.executor import merge_state
 from flexflow_tpu_torch.parallel.ring import ring_dot_product_attention
-from flexflow_tpu_torch.serving import pick_tokens
+from flexflow_tpu_torch.obs import SLOTarget, load_jsonl
+from flexflow_tpu_torch.serving import http_serve, pick_tokens
 from flexflow_tpu_torch.spec import SpecConfig
 from flexflow_tpu_torch.spec.fixtures import make_token_cyclic
 from flexflow_tpu_torch.spec.tree import ancestor_masks, build_tree
@@ -1958,12 +1998,14 @@ def phase_gpt2_step(seed: int) -> dict:
 
 
 def _train_model(cfg, device, *, batch, seq, dtype, remat, seed,
-                 params=None, mesh_shape=None) -> FFModel:
+                 params=None, mesh_shape=None,
+                 use_pipeline=False) -> FFModel:
     """build_llama, build_gpt2 or build_mixtral (by the config's type) ->
     compile(Adam
     lr 1e-4, sparse CE, accuracy and sparse-CE metrics), the training
     path's entry points. With a `mesh_shape` the Llama is built with ring
-    attention over its `seq` axis."""
+    attention over its `seq` axis, with `use_pipeline` as one PIPELINE
+    composite."""
     ff = FFModel(FFConfig(batch_size=batch, seed=seed, device=device,
                           remat=remat, mesh_shape=mesh_shape))
     if isinstance(cfg, GPT2Config):
@@ -1972,7 +2014,8 @@ def _train_model(cfg, device, *, batch, seq, dtype, remat, seed,
         build_mixtral(ff, cfg, batch_size=batch, seq_len=seq, dtype=dtype)
     else:
         build_llama(ff, cfg, batch_size=batch, seq_len=seq, dtype=dtype,
-                    use_ring_attention=mesh_shape is not None)
+                    use_ring_attention=mesh_shape is not None,
+                    use_pipeline=use_pipeline)
     return ff.compile(
         optimizer=AdamOptimizer(lr=TRAIN_LR),
         loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
@@ -5100,6 +5143,568 @@ def phase_zoo_step(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the PIPELINE composite trained and decoded, BERT-base behind
+# the batch server, the paged server behind http_serve with its request
+# log and SLO
+
+# the names build_llama gives the blocks' nodes and their leaves, by the
+# PIPELINE composite's stacked leaf
+PIPELINE_LEAVES = {"ln1": ("attn_norm", "scale"), "wq": ("attn", "wq"),
+                   "wk": ("attn", "wk"), "wv": ("attn", "wv"),
+                   "wo": ("attn", "wo"), "ln2": ("mlp_norm", "scale"),
+                   "gate": ("gate", "kernel"), "up": ("up", "kernel"),
+                   "down": ("down", "kernel")}
+# 19b: FFModel.generate at Llama-3-8B's widths (all 32 layers, bf16),
+# 4 prompts of 128 tokens, 64 new, greedy; the token identity check at
+# depth 2 in fp32 (as phase 16f)
+DECODE_PROMPTS, DECODE_PROMPT_LEN, DECODE_NEW = 4, 128, 64
+# 19c: BERT-base served at the sequence length run_classifier.py uses by
+# default; 256 requests of 1..4 rows from 8 client threads. The batcher
+# runs the graph at the batch it was built for: BERT's [CLS] reshape
+# (cls_flat) fixes the batch dim, in the reference's graph as in the
+# port's, so every batch is padded to 32 rows
+BATCH_SIZES, BATCH_DELAY_MS, BERT_SERVE_SEQ = (32,), 2.0, 128
+BATCH_REQUESTS, BATCH_CLIENTS = 256, 8
+# 19d: an SLO no request of phase 4's traffic meets (a prompt of 128 or
+# more tokens is prefilled over at least two 64-row chunk ticks, each
+# taking milliseconds), so the first completed request trips a breach
+SLO_TTFT_P95_S = 1e-3
+RECORD_LIMIT, REQLOG_CAPACITY = 4, 64
+
+
+def stacked_llama_params(flat: FFModel, pipe: FFModel) -> tuple:
+    """The (trainable, nontrainable) trees of `pipe`, a
+    build_llama(use_pipeline=True) graph, from the leaves of `flat`, the
+    unstacked build of the same config: each block leaf stacked on a
+    leading layer dim, the embedding, final norm and head as they are.
+    The stacked tensors are new; `flat` may be dropped after."""
+    fkey = {n.name: n.stable_key() for n in flat.graph.nodes}
+    pkey = {n.name: n.stable_key() for n in pipe.graph.nodes}
+    ftr, fntr = flat._params
+    layers = sum(1 for n in flat.graph.nodes if n.name.endswith("_attn"))
+    tr = {pkey["decoder_pipeline"]: {
+        leaf: torch.stack([ftr[fkey[f"l{i}_{node}"]][w]
+                           for i in range(layers)])
+        for leaf, (node, w) in PIPELINE_LEAVES.items()}}
+    for name in ("tok_emb", "final_norm", "lm_head"):
+        tr[pkey[name]] = {w: t.clone() for w, t in ftr[fkey[name]].items()}
+    return tr, {}
+
+
+def _pipeline_graph(cfg, batch, seq, dtype, seed) -> FFModel:
+    """The PIPELINE build of `cfg`, not compiled (its node keys)."""
+    ff = FFModel(FFConfig(batch_size=batch, seed=seed, device=DEVICE,
+                          remat="none"))
+    build_llama(ff, cfg, batch_size=batch, seq_len=seq, dtype=dtype,
+                use_pipeline=True)
+    return ff
+
+
+def _timed_steps(ff, bx, by) -> dict:
+    """TIMED_STEPS train steps on one repeated batch on the card: step ms
+    (host clock over the steps, ending in a synchronize), tokens/s, peak
+    GB and the losses."""
+    ex = ff.executor
+    tr, ntr = ff._params
+    opt = ff._opt_state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    ff._params, ff._opt_state = (tr, ntr), opt
+    return {"step_ms": step_s * 1e3,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses": [float(v) for v in losses]}
+
+
+def _recorded_fit(ff, x, y) -> tuple:
+    """ff.fit over (x, y), one epoch, kernel counts reset just before and
+    read just after; a wrapper of the executor's train_step records each
+    step's loss (read after the fit). Returns (fit seconds, steps,
+    losses, flash launches)."""
+    ex = ff.executor
+    step = ex.train_step
+    losses = []
+
+    def recorded(*args, **kw):
+        out = step(*args, **kw)
+        losses.append(out[3]["loss"])
+        return out
+
+    ex.train_step = recorded
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.monotonic()
+    try:
+        pm = ff.fit(x, y, epochs=1, verbose=False)
+        torch.cuda.synchronize()
+    finally:
+        del ex.train_step
+    return (time.monotonic() - t0, pm.train_all // TRAIN_BATCH,
+            [float(v) for v in losses], _flash_launches())
+
+
+def phase_pipeline_train(seed: int, problems: list) -> dict:
+    """19a: bench_1b (16 layers, bf16, batch 8, seq 1024, remat="none",
+    Adam lr 1e-4) built with use_pipeline=True on phase 6's weights (the
+    unstacked build from the same seed, its leaves stacked by
+    stacked_llama_params): ff.fit over the 10 seeded batches of phase 6
+    (the main path: counts reset just before, read just after; K1, K2 dq
+    and K2 dk/dv once a layer and step), then 10 timed steps on one
+    repeated batch (the loss must fall); the unstacked build the same
+    way first, re-timed in this run. The two fits' first losses (the
+    same weights, the same batch) must agree within the bf16 TOLS."""
+    cfg = LlamaConfig.bench_1b()
+    x, y = _token_batches(TRAIN_BATCH * TRAIN_BATCHES, TRAIN_SEQ,
+                          cfg.vocab_size, seed)
+    bx, by = (torch.from_numpy(a[:TRAIN_BATCH]).to(DEVICE) for a in (x, y))
+    free_card()
+    flat = _train_model(cfg, DEVICE, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        dtype=DataType.BFLOAT16, remat="none", seed=seed)
+    pipe = _pipeline_graph(cfg, TRAIN_BATCH, TRAIN_SEQ, DataType.BFLOAT16,
+                           seed)
+    params = stacked_llama_params(flat, pipe)
+    _, _, flat_losses, _ = _recorded_fit(flat, x, y)
+    unstacked = _timed_steps(flat, bx, by)
+    unstacked["fit_losses"] = flat_losses
+    del flat
+    free_card()
+    pipe.compile(optimizer=AdamOptimizer(lr=TRAIN_LR),
+                 loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                 metrics=[MetricsType.ACCURACY,
+                          MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY],
+                 params=params)
+    del params
+    fit_s, fit_steps, fit_losses, fit_launches = _recorded_fit(pipe, x, y)
+    stacked = _timed_steps(pipe, bx, by)
+    flops = llama_flops_per_token(cfg, TRAIN_SEQ) * TRAIN_BATCH * TRAIN_SEQ
+    res = {"model": "bench_1b", "layers": cfg.layers, "dtype": "bfloat16",
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": "none",
+           "fit_s": fit_s, "fit_steps": fit_steps,
+           "fit_losses": fit_losses, "fit_launches": fit_launches,
+           "launches_per_step": {k: n / TRAIN_BATCHES
+                                 for k, n in fit_launches.items()},
+           "first_loss_unstacked": flat_losses[0],
+           "pipeline": stacked, "unstacked": unstacked,
+           "step_ms_ratio": stacked["step_ms"] / unstacked["step_ms"],
+           "mfu": flops / (stacked["step_ms"] / 1e3)
+           / PEAK_OPS[torch.bfloat16]}
+    del pipe
+    free_card()
+    log(f"pipeline_train {json.dumps(res)}")
+    want = cfg.layers * TRAIN_BATCHES
+    if any(n != want for n in fit_launches.values()) \
+            or RAGGED_PAGED_ATTENTION.launches != 0:
+        problems.append(f"19a: fit launches {fit_launches} != {want} each")
+    rtol, atol = TOLS[torch.bfloat16]
+    if not abs(fit_losses[0] - flat_losses[0]) <= \
+            atol + rtol * abs(flat_losses[0]):
+        problems.append(f"19a: first loss {fit_losses[0]} vs the unstacked "
+                        f"build's {flat_losses[0]}")
+    for label, losses in (("pipeline", stacked["losses"]),
+                          ("unstacked", unstacked["losses"])):
+        _falls(f"19a {label}", losses, problems)
+    return res
+
+
+def _generate_timed(ff, prompts, new: int) -> tuple:
+    """FFModel.generate on the card after a 2-token warm-up generate (the
+    allocator and cuBLAS's first calls off the clock): (tokens, ms a
+    generated token)."""
+    ff.generate(prompts, max_new_tokens=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ff.generate(prompts, max_new_tokens=new)
+    return out, (time.perf_counter() - t0) / new * 1e3
+
+
+def phase_pipeline_decode(seed: int, problems: list) -> dict:
+    """19b: FFModel.generate through the PIPELINE composite's stacked
+    dense cache ((32, 4, 1024, 8, 128) "k"/"v") at Llama-3-8B's widths,
+    bf16, 4 prompts of 128 tokens, 64 new, greedy, beside the unstacked
+    build on the same weights: ms a token and the share of tokens they
+    agree on; then at depth 2 in fp32 the two must agree token for
+    token; and serve_generation(paged=True) on the PIPELINE graph must
+    raise the reference's ValueError."""
+    res = {}
+    rs = np.random.RandomState(seed)
+    for label, layers, dtype in (("bf16", None, DataType.BFLOAT16),
+                                 ("fp32_depth2", 2, DataType.FLOAT)):
+        cfg = LlamaConfig.llama3_8b()
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, layers=layers)
+        prompts = rs.randint(0, cfg.vocab_size,
+                             (DECODE_PROMPTS, DECODE_PROMPT_LEN)).astype(
+                                 np.int32)
+        free_card()
+        flat = FFModel(FFConfig(batch_size=DECODE_PROMPTS, seed=seed,
+                                device=DEVICE))
+        build_llama(flat, cfg, batch_size=DECODE_PROMPTS, seq_len=2048,
+                    dtype=dtype)
+        flat.compile()
+        _reset_launches()
+        want, flat_ms = _generate_timed(flat, prompts, DECODE_NEW)
+        pipe = _pipeline_graph(cfg, DECODE_PROMPTS, 2048, dtype, seed)
+        params = stacked_llama_params(flat, pipe)
+        del flat
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        pipe.compile(params=params)
+        del params
+        caches = pipe.executor.init_kv_cache(
+            DECODE_PROMPTS, DECODE_PROMPT_LEN + DECODE_NEW)
+        shape = list(next(iter(caches.values()))["k"].shape)
+        del caches
+        got, pipe_ms = _generate_timed(pipe, prompts, DECODE_NEW)
+        launches = {k.name: k.launches for k in KERNELS}
+        r = {"layers": cfg.layers, "dtype": str(dtype.value),
+             "prompts": DECODE_PROMPTS, "prompt_len": DECODE_PROMPT_LEN,
+             "new_tokens": DECODE_NEW, "stacked_cache_shape": shape,
+             "pipeline_ms_per_token": pipe_ms,
+             "unstacked_ms_per_token": flat_ms,
+             "equal_share": float(np.mean(got == want)),
+             "identical": bool(np.array_equal(got, want)),
+             "launches": launches,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if layers is not None:
+            try:
+                pipe.serve_generation(paged=True, slots=4, max_len=2048)
+                r["paged_refused"] = None
+            except ValueError as e:
+                r["paged_refused"] = str(e)
+        res[label] = r
+        del pipe
+        free_card()
+        if any(launches.values()):
+            problems.append(f"19b {label}: the dense-cache path launched "
+                            f"kernels {launches}")
+    log(f"pipeline_decode {json.dumps(res)}")
+    if not res["fp32_depth2"]["identical"]:
+        problems.append(f"19b: fp32 depth 2 tokens differ from the "
+                        f"unstacked build's: share "
+                        f"{res['fp32_depth2']['equal_share']}")
+    if not (res["fp32_depth2"]["paged_refused"] or "").startswith(
+            "paged decode does not support PIPELINE composite graphs"):
+        problems.append(f"19b: paged serve of the PIPELINE graph: "
+                        f"{res['fp32_depth2']['paged_refused']}")
+    return res
+
+
+def _http_json(base: str, path: str):
+    with urllib.request.urlopen(base + path, timeout=60) as r:
+        return r.status, json.load(r)
+
+
+def _http_text(base: str, path: str) -> str:
+    with urllib.request.urlopen(base + path, timeout=60) as r:
+        return r.read().decode()
+
+
+def prometheus_samples(text: str) -> dict:
+    """{sample name with labels: value} of a Prometheus text exposition;
+    raises unless every line is a `# TYPE name kind` line or a sample of
+    the family its last TYPE line named."""
+    out, family = {}, None
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            _, _, family, kind = ln.split(" ")
+            if kind not in ("counter", "gauge", "histogram"):
+                raise ValueError(f"bad kind: {ln}")
+            continue
+        name, value = ln.rsplit(" ", 1)
+        base = name.split("{")[0]
+        if family is None or not (base == family
+                                  or base.startswith(family + "_")):
+            raise ValueError(f"sample outside its family: {ln}")
+        out[name] = float(value)
+    return out
+
+
+def phase_batch_serve(seed: int, problems: list) -> dict:
+    """19c: BERT-base (BertConfig(), declared bf16: fp32 from its position
+    add on, so K4's fp32 bodies) at seq 128 behind ff.serve(batch_sizes=
+    (32,), max_delay_ms=2) (BATCH_SIZES): 256 requests of 1..4 seeded rows
+    from 8 closed-loop client threads (the main path: counts reset just
+    before, read just after; K4's forward once a layer a forward), every
+    answer equal to predict on its rows within FLASH_TOLS[fp32];
+    requests/s, latency p50 / p99, forwards, the real rows a batch
+    gathered (a batch past 32 rows runs as more forwards). Then
+    http_serve(port=0):
+    ready, one KServe-v2 infer equal to predict, /metrics as Prometheus
+    text, and 503 on ready after stop(). K4's forward is timed at the
+    largest batch's attention shape."""
+    cfg = BertConfig()
+    free_card()
+    ff = FFModel(FFConfig(batch_size=BATCH_SIZES[-1], seed=seed,
+                          device=DEVICE))
+    build_bert(ff, cfg, batch_size=BATCH_SIZES[-1], seq_len=BERT_SERVE_SEQ,
+               dtype=DataType.BFLOAT16)
+    ff.compile()
+    rs = np.random.RandomState(seed)
+    reqs = [rs.randint(0, cfg.vocab_size, (int(n), BERT_SERVE_SEQ)).astype(
+        np.int32) for n in rs.randint(1, 5, size=BATCH_REQUESTS)]
+    server = ff.serve(batch_sizes=BATCH_SIZES, max_delay_ms=BATCH_DELAY_MS)
+    batches = []  # the real rows of each forward the batcher runs
+    run = server.instance.run
+    server.instance.run = lambda xs: batches.append(len(xs[0])) or run(xs)
+    cat = server._run_batch
+    server._run_batch = lambda batch, total: (
+        batches.append(-total), cat(batch, total))
+    answers, latency = [None] * len(reqs), [0.0] * len(reqs)
+
+    def client(c):
+        for i in range(c, len(reqs), BATCH_CLIENTS):
+            t0 = time.perf_counter()
+            answers[i] = server.submit(reqs[i]).result(timeout=600)
+            latency[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(BATCH_CLIENTS)]
+    torch.cuda.synchronize()
+    _reset_routes()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    launches = _k4_route(_route_launches())
+    served = server.requests_served
+    rows = [len(r) for r in reqs]
+    want = ff.predict(np.concatenate(reqs), batch_size=BATCH_SIZES[-1])
+    err = float(max(np.abs(a - w).max() for a, w in zip(
+        answers, np.split(want, np.cumsum(rows)[:-1]))))
+    lat = sorted(latency)
+    res = {"model": "bert_base", "seq": BERT_SERVE_SEQ,
+           "declared": "bfloat16", "runs": "float32 after add_pos",
+           "batch_sizes": list(BATCH_SIZES), "max_delay_ms": BATCH_DELAY_MS,
+           "requests": len(reqs), "clients": BATCH_CLIENTS,
+           "rows": int(sum(rows)), "served": served, "wall_s": wall,
+           "requests_per_s": len(reqs) / wall,
+           "rows_per_s": sum(rows) / wall,
+           "latency_p50_ms": 1e3 * lat[len(lat) // 2],
+           "latency_p99_ms": 1e3 * lat[int(np.ceil(0.99 * len(lat))) - 1],
+           "batches": sum(1 for b in batches if b > 0),
+           "rows_per_batch_mean": float(np.mean(
+               [-b for b in batches if b < 0])),
+           "launches": launches, "max_abs_err_vs_predict": err}
+    n_batches = sum(1 for b in batches if b > 0)
+    server.instance.run, server._run_batch = run, cat
+    httpd = http_serve(server, port=0, model_name="bert")
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        status, ready = _http_json(base, "/v2/health/ready")
+        x = reqs[0]
+        req = urllib.request.Request(
+            f"{base}/v2/models/bert/infer", data=json.dumps({"inputs": [{
+                "name": "input_ids", "shape": list(x.shape),
+                "datatype": "INT32", "data": x.reshape(-1).tolist()}]})
+            .encode(), headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            out = json.load(r)["outputs"][0]
+        got = np.asarray(out["data"], np.float32).reshape(out["shape"])
+        samples = prometheus_samples(_http_text(base, "/metrics"))
+        server.stop()
+        try:
+            _http_json(base, "/v2/health/ready")
+            after_stop = 200
+        except urllib.error.HTTPError as e:
+            after_stop = e.code
+    finally:
+        httpd.shutdown()
+        server.stop()
+    res["http"] = {
+        "ready": [status, ready["ready"]],
+        "infer_max_abs_err": float(np.abs(got - want[:len(x)]).max()),
+        "metrics_requests_served": samples.get("ff_server_requests_served"),
+        "ready_after_stop": after_stop}
+    del ff
+    free_card()
+    timed = k4_check(BATCH_SIZES[-1] * cfg.heads, BERT_SERVE_SEQ,
+                     BERT_SERVE_SEQ, cfg.hidden // cfg.heads, False,
+                     torch.float32, seed + 20, timed=True)
+    res["k4"] = timed
+    log(f"batch_serve {json.dumps(res)}")
+    tol = FLASH_TOLS[torch.float32][0]
+    if served != len(reqs) or any(a is None for a in answers) \
+            or not err <= tol:
+        problems.append(f"19c: served {served}, max |err| vs predict {err}")
+    if launches != _k4_want(cfg.layers * n_batches, 0, 0):
+        problems.append(f"19c: launches {launches} for {n_batches} "
+                        f"batches")
+    h = res["http"]
+    if h["ready"] != [200, True] or not h["infer_max_abs_err"] <= tol \
+            or h["metrics_requests_served"] != served + 1 \
+            or h["ready_after_stop"] != 503:
+        problems.append(f"19c: http {h}")
+    if not all(v["ok"] for v in timed.values()):
+        problems.append(f"19c: K4 at the serving shape {timed}")
+    return res
+
+
+def _serve_http(ff, vocab, prompts, new, observe: bool) -> dict:
+    """Phase 4's requests through serve_generation(paged=True) at its
+    defaults (4 slots, max_len 2048, page 64, chunk 64), every request
+    queued before the loop starts, behind http_serve; with `observe` the
+    request log (REQLOG_CAPACITY), bounded records (RECORD_LIMIT) and an
+    SLO monitor dumping to a temporary directory, else the request log
+    off. Each decode tick is timed on the host and its synchronizing
+    CUDA calls counted (sync debug "warn"); kernel counts reset just
+    before the loop starts, read after its last request. Stops the
+    server, then scrapes its JSON and Prometheus metrics."""
+    dump_dir = tempfile.mkdtemp(prefix="ff_slo_") if observe else None
+    kw = (dict(reqlog_capacity=REQLOG_CAPACITY,
+               request_record_limit=RECORD_LIMIT,
+               slo=SLOTarget(ttft_p95_s=SLO_TTFT_P95_S, window=8,
+                             min_samples=1), slo_dump_dir=dump_dir)
+          if observe else dict(reqlog_capacity=0))
+    gen = ff.serve_generation(paged=True, slots=4, max_len=2048,
+                              page_size=64, prefill_chunk=64,
+                              defer_start=True, **kw)
+    syncs, calls = [], {"_decode_tick": []}
+    _count_syncs(gen, syncs, "_decode_tick")
+    _timed(gen, "_decode_tick", calls)
+    fwd = ff.serve(batch_sizes=(1,), warmup=False)
+    httpd = http_serve(fwd, port=0, model_name="llama",
+                       generation_server=gen)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        futs = [gen.submit(p, max_new_tokens=new) for p in prompts]
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.monotonic()
+        gen.start()
+        outs = [np.asarray(f.result(timeout=900)) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k.name: k.launches for k in KERNELS}
+        gen.stop()
+        m = gen.metrics()
+        status, v2 = _http_json(base, "/v2/models/llama/metrics")
+        text = _http_text(base, "/metrics")
+    finally:
+        httpd.shutdown()
+        fwd.stop()
+        gen.stop()
+    gen.pool.check_invariants(owners={})
+    for o in outs:
+        if len(o) != new or not ((0 <= o) & (o < vocab)).all():
+            raise AssertionError(f"bad output {o}")
+    return {"outs": outs, "gen": gen, "metrics": m, "v2": v2,
+            "v2_status": status, "prometheus": text, "dump_dir": dump_dir,
+            "res": {"wall_s": wall, "launches": launches,
+                    "ragged_steps": m["ragged_steps"],
+                    "decode_ticks": len(calls["_decode_tick"]),
+                    "decode_tick_ms": 1e3 * float(np.mean(
+                        calls["_decode_tick"])),
+                    "syncs_per_decode_tick": float(np.mean(syncs)),
+                    "generated_tokens_per_s": new * len(outs) / wall}}
+
+
+def phase_http_serve(seed: int, problems: list) -> dict:
+    """19d: Llama-3-8B's widths at MEGASTEP_LAYERS layers, bf16, phase 4's
+    8 requests (128..1024 prompt tokens, 64 new) through the paged server
+    behind http_serve, with the request log (capacity 64), bounded
+    request records (4) and an SLO (TTFT p95 under SLO_TTFT_P95_S) dumping
+    to a temporary directory, against the same requests with the request
+    log off: the reqlog's 8 records and their JSONL export, 4 records
+    kept and 4 dropped, the /v2 metrics equal to metrics(), /metrics as
+    Prometheus text with ff_slo_breaches_total >= 1, the breach bundle,
+    equal tokens, K3 once a layer and ragged step, and the decode tick's
+    host ms and synchronizing calls with and without."""
+    cfg = llama3_8b_cut(MEGASTEP_LAYERS)
+    free_card()
+    ff = FFModel(FFConfig(batch_size=1, seed=seed, device=DEVICE))
+    build_llama(ff, cfg, batch_size=1, seq_len=2048,
+                dtype=DataType.BFLOAT16)
+    ff.compile()
+    prompts = serve_traffic(cfg.vocab_size, seed)
+    plain = _serve_http(ff, cfg.vocab_size, prompts, 64, observe=False)
+    seen = _serve_http(ff, cfg.vocab_size, prompts, 64, observe=True)
+    gen, m = seen["gen"], seen["metrics"]
+    recs = gen.request_log.records()
+    path = os.path.join(seen["dump_dir"], "reqlog.jsonl")
+    exported = gen.request_log.export_jsonl(path)
+    reread = load_jsonl(path)
+    slo = m.get("slo", {})
+    bundle = slo.get("last_dump")
+    bundle_files = sorted(os.listdir(bundle)) if bundle else []
+    samples = prometheus_samples(seen["prometheus"])
+    res = {"model": "llama3_8b", "layers": cfg.layers, "dtype": "bfloat16",
+           "requests": len(prompts), "new_tokens": 64,
+           "plain": plain["res"], "observed": seen["res"],
+           "decode_tick_ms_ratio": seen["res"]["decode_tick_ms"]
+           / plain["res"]["decode_tick_ms"],
+           "reqlog": m["reqlog"], "records": len(recs),
+           "exported": exported, "export_reads_back": reread == recs,
+           "requests_kept": len(m["requests"]),
+           "request_records_dropped": m["request_records_dropped"],
+           "v2_status": seen["v2_status"],
+           "v2_equals_metrics": seen["v2"]["generation"] == json.loads(
+               json.dumps(m)),
+           "slo": {k: slo.get(k) for k in ("breaches", "goodput_ratio",
+                                           "ttft_p95_s", "samples")},
+           "prometheus_samples": len(samples),
+           "ff_slo_breaches_total": samples.get("ff_slo_breaches_total"),
+           "ff_goodput_ratio": samples.get("ff_goodput_ratio"),
+           "bundle_files": bundle_files,
+           "identical_tokens": _identical(plain["outs"], seen["outs"]),
+           "ttft_p50_s": sorted(r["first_token_ns"] - r["submit_ns"]
+                                for r in recs)[len(recs) // 2] / 1e9}
+    shutil.rmtree(seen["dump_dir"], ignore_errors=True)
+    del ff, gen, plain, seen
+    free_card()
+    log(f"http_serve {json.dumps(res)}")
+    n_attn = cfg.layers
+    for label in ("plain", "observed"):
+        r = res[label]
+        got = r["launches"][RAGGED_PAGED_ATTENTION.name]
+        if r["ragged_steps"] == 0 or got != n_attn * r["ragged_steps"]:
+            problems.append(f"19d {label}: K3 launched {got}, not {n_attn} "
+                            f"x {r['ragged_steps']} steps")
+    checks = {
+        "records": res["records"] == len(prompts),
+        "export": res["exported"] == len(prompts)
+        and res["export_reads_back"],
+        "retention": res["requests_kept"] == RECORD_LIMIT
+        and res["request_records_dropped"] == len(prompts) - RECORD_LIMIT,
+        "v2": res["v2_status"] == 200 and res["v2_equals_metrics"],
+        "breach": (res["ff_slo_breaches_total"] or 0) >= 1
+        and (res["slo"]["breaches"] or 0) >= 1,
+        "bundle": {"reqlog_tail.jsonl", "metrics.json",
+                   "slo.json"} <= set(bundle_files),
+        "tokens": res["identical_tokens"],
+        "no_device_read": res["observed"]["syncs_per_decode_tick"]
+        == res["plain"]["syncs_per_decode_tick"]}
+    res["checks"] = checks
+    if not all(checks.values()):
+        problems.append(f"19d: {checks}")
+    return res
+
+
+def phase_pipeline_and_serving(seed: int, card: str) -> dict:
+    """Phase 19 (a-d), each part timed on its own phase_time line;
+    collects every part's problems and raises at the end. The kernels
+    line records K1/K2's launches of (a) under "pipeline_1b", K4's
+    forward's of (c) under "bert_serve" (timed at its largest batch's
+    attention shape) and K3's of (d) under "http_serve"."""
+    problems: list = []
+    res = {"card": card}
+    for key, fn in (("a", phase_pipeline_train), ("b", phase_pipeline_decode),
+                    ("c", phase_batch_serve), ("d", phase_http_serve)):
+        res[key] = timed(f"19{key}", fn, seed, problems)
+    if problems:
+        raise AssertionError(f"phase 19: {problems}")
+    return res
+
+
 def _zoo_k4_entries(kernel, zoo) -> tuple:
     """(key, launches, timed case) of K4 kernel `kernel` on phase 18: BERT-
     base's fit at dropout 0 (18a) under "bert_base", and the encoder-
@@ -5118,6 +5723,19 @@ def _zoo_k4_entries(kernel, zoo) -> tuple:
         timed = (zoo or {}).get("k4", {}).get(case, {}).get(kernel.name)
         out.append((case, launches, timed))
     return tuple(out)
+
+
+def _batch_serve_k4_entry(kernel, p19) -> tuple:
+    """K4's forward under the batch server (phase 19c: BERT-base, fp32
+    bodies), timed at its largest batch's attention shape; the backward
+    kernels do not run there."""
+    if kernel is not FLASH_ATTENTION_BH_FWD:
+        return ()
+    if p19 is None:
+        return (("bert_serve", 0, None),)
+    return (("bert_serve",
+             p19["c"]["launches"][FLASH_ATTENTION_BH_FWD.name],
+             p19["c"]["k4"][FLASH_ATTENTION_BH_FWD.name]),)
 
 
 def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
@@ -5141,9 +5759,9 @@ def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18",
+                    default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19",
                     help="comma-separated phases to run (default "
-                    "1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18; 5 "
+                    "1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19; 5 "
                     "profiles serving and training steps)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -5226,6 +5844,8 @@ def main(argv=None) -> int:
                  if 17 in phases else None)
     zoo18 = timed("18", phase_zoo, args.seed, card) if 18 in phases \
         else None
+    p19 = (timed("19", phase_pipeline_and_serving, args.seed, card)
+           if 19 in phases else None)
     if 5 in phases:
         phase_profile(args.seed, card)
         phase_profile_train(args.seed, card)
@@ -5301,6 +5921,16 @@ def main(argv=None) -> int:
     entries[0]["mixtral"] = {name: val for name, val in moe.items()
                              if name not in ("name", "route", "source",
                                              "replaces")}
+    # K3 serving phase 19d's requests behind http_serve with the request
+    # log and the SLO on (Llama-3-8B's widths at 4 layers), timed at
+    # phase 2's steady decode case
+    other = _kernel_entry(
+        RAGGED_PAGED_ATTENTION, entries[0]["source"],
+        p19["d"]["observed"]["launches"][RAGGED_PAGED_ATTENTION.name]
+        if p19 else 0, main_case)
+    entries[0]["http_serve"] = {name: val for name, val in other.items()
+                                if name not in ("name", "route", "source",
+                                                "replaces")}
     # K1/K2 on phase 6's bf16 fit, timed at bench_1b's attention shape
     # (phase 2), and their fp32 bodies under "fp32": launches in phase 3's
     # fp32 bench_1b step (K2 there on its 3xTF32 body), timed at the same
@@ -5328,6 +5958,15 @@ def main(argv=None) -> int:
         entry["mixtral"] = {key: val for key, val in moe.items()
                             if key not in ("name", "route", "source",
                                            "replaces")}
+        # phase 19a's fit of bench_1b built as one PIPELINE composite,
+        # whose attention shape is phase 2's bench_1b case
+        pipe = _kernel_entry(
+            k, entry["source"],
+            p19["a"]["fit_launches"][k.name] if p19 else 0,
+            flash.get("bfloat16", {}).get(k.name))
+        entry["pipeline_1b"] = {key: val for key, val in pipe.items()
+                                if key not in ("name", "route", "source",
+                                               "replaces")}
         entries.append(entry)
     # K4 on phase 11's bf16 fit (D 64), timed at its attention shape
     # (phase 2); under "phi3_mini" on phase 12's (D 96, the padded wgmma
@@ -5354,7 +5993,7 @@ def main(argv=None) -> int:
                      k.name)),
                 ("fp32", gpt2["fit_launches"][k.name] if gpt2 else 0,
                  k4.get("main", {}).get("float32", {}).get(k.name))) \
-                + _zoo_k4_entries(k, zoo18):
+                + _zoo_k4_entries(k, zoo18) + _batch_serve_k4_entry(k, p19):
             other = _kernel_entry(k, entry["source"], launches, res)
             entry[key] = {name: val for name, val in other.items()
                           if name not in ("name", "route", "source",

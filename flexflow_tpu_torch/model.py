@@ -5,7 +5,8 @@ Layer-building methods record a lazy PCG exactly as the JAX package's do
 (same node names, guids and attrs); `compile()` infers shapes, builds the
 eager Executor on the configured device and draws the parameters there;
 `fit`, `eval` and `predict` train and run the model on numpy batches;
-`generate` decodes through a dense KV cache; `serve_generation` starts a
+`generate` decodes through a dense KV cache; `serve` starts the batch
+server (the dynamic batcher); `serve_generation` starts a
 continuous-batching server, dense by default or paged.
 """
 
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,16 +57,6 @@ class Tensor:
         return f"Tensor({self.node.name}:{self.idx} {self.shape})"
 
 
-def _refuse_initializers(**inits):
-    """The layer methods' initializer arguments: None draws the weight's
-    default; an override is not ported yet and raises."""
-    given = sorted(k for k, v in inits.items() if v is not None)
-    if given:
-        raise NotImplementedError(
-            f"initializer overrides ({', '.join(given)}) are not ported yet "
-            "(ROADMAP.md, queue 1 item 8)")
-
-
 class FFModel:
     """Build a layer graph, compile it for one device, train or serve
     it."""
@@ -86,6 +77,13 @@ class FFModel:
         self._fit_calls = 0
         self.current_metrics: Optional[PerfMetrics] = None
         self._used_names: set = set()
+        # node key -> weight name -> Initializer, from the layer methods'
+        # initializer arguments (init_params draws these leaves from them)
+        self._init_overrides: Dict[str, Dict] = {}
+        # cache node name -> score function, and the buffer cache_score
+        # last compared against
+        self._cache_scores: Dict[str, object] = {}
+        self._cache_snapshots: Dict[str, np.ndarray] = {}
 
     # ------------------------------------------------------------------
     # graph building helpers
@@ -109,15 +107,23 @@ class FFModel:
     def _one(self, op_type, op_attrs, inputs, name) -> Tensor:
         return Tensor(self._add(op_type, op_attrs, inputs, name))
 
+    def _record_init(self, node: Node, **inits):
+        """Record a layer method's initializer arguments (None keeps the
+        weight's default) for compile() to draw from."""
+        d = {k: v for k, v in inits.items() if v is not None}
+        if d:
+            self._init_overrides[node.stable_key()] = d
+
     def create_weight(self, dims: Sequence[int],
                       dtype: DataType = DataType.FLOAT, initializer=None,
                       name: Optional[str] = None) -> Tensor:
         """A standalone weight as a graph source (glorot_uniform, as the
-        reference draws it when no initializer is given)."""
-        _refuse_initializers(weight=initializer)
-        return self._one(OpType.WEIGHT,
+        reference draws it, unless an `initializer` is given)."""
+        node = self._add(OpType.WEIGHT,
                          A.WeightAttrs(TensorShape(tuple(dims), dtype)), [],
                          name or "weight")
+        self._record_init(node, weight=initializer)
+        return Tensor(node)
 
     # ------------------------------------------------------------------
     # layers (the reference's layer methods, with its signatures)
@@ -133,12 +139,13 @@ class FFModel:
               activation: ActiMode = ActiMode.NONE, use_bias: bool = True,
               kernel_initializer=None, bias_initializer=None,
               name: Optional[str] = None) -> Tensor:
-        _refuse_initializers(kernel=kernel_initializer,
-                             bias=bias_initializer)
-        return self._one(
+        node = self._add(
             OpType.LINEAR,
             A.LinearAttrs(out_dim, use_bias, ActiMode.coerce(activation)),
             [input], name or "dense")
+        self._record_init(node, kernel=kernel_initializer,
+                          bias=bias_initializer)
+        return Tensor(node)
 
     def conv2d(self, input: Tensor, out_channels: int, kernel_h: int,
                kernel_w: int, stride_h: int = 1, stride_w: int = 1,
@@ -147,14 +154,15 @@ class FFModel:
                use_bias: bool = True, kernel_initializer=None,
                bias_initializer=None, name: Optional[str] = None) -> Tensor:
         """2-D convolution of an NCHW tensor, OIHW kernel."""
-        _refuse_initializers(kernel=kernel_initializer,
-                             bias=bias_initializer)
-        return self._one(
+        node = self._add(
             OpType.CONV2D,
             A.Conv2DAttrs(out_channels, (kernel_h, kernel_w),
                           (stride_h, stride_w), (padding_h, padding_w),
                           groups, use_bias, ActiMode.coerce(activation)),
             [input], name or "conv2d")
+        self._record_init(node, kernel=kernel_initializer,
+                          bias=bias_initializer)
+        return Tensor(node)
 
     def pool2d(self, input: Tensor, kernel_h: int, kernel_w: int,
                stride_h: int, stride_w: int, padding_h: int = 0,
@@ -172,12 +180,13 @@ class FFModel:
                   aggr: AggrMode = AggrMode.NONE,
                   dtype: DataType = DataType.FLOAT, kernel_initializer=None,
                   name: Optional[str] = None) -> Tensor:
-        _refuse_initializers(kernel=kernel_initializer)
-        return self._one(
+        node = self._add(
             OpType.EMBEDDING,
             A.EmbeddingAttrs(num_entries, out_dim, AggrMode.coerce(aggr),
                              dtype),
             [input], name or "embedding")
+        self._record_init(node, kernel=kernel_initializer)
+        return Tensor(node)
 
     def multihead_attention(self, query: Tensor, key: Tensor, value: Tensor,
                             embed_dim: int, num_heads: int, kdim: int = 0,
@@ -187,14 +196,16 @@ class FFModel:
                             rope: bool = False, rope_theta: float = 10000.0,
                             kernel_initializer=None,
                             name: Optional[str] = None) -> Tensor:
-        _refuse_initializers(kernel=kernel_initializer)
-        return self._one(
+        node = self._add(
             OpType.MULTIHEAD_ATTENTION,
             A.MultiHeadAttentionAttrs(
                 embed_dim, num_heads, kv_heads,
                 kdim // num_heads if kdim else None, causal, bias, dropout,
                 rope, rope_theta),
             [query, key, value], name or "attention")
+        self._record_init(node, wq=kernel_initializer, wk=kernel_initializer,
+                          wv=kernel_initializer, wo=kernel_initializer)
+        return Tensor(node)
 
     def ring_attention(self, query: Tensor, key: Tensor, value: Tensor,
                        embed_dim: int, num_heads: int, causal: bool = True,
@@ -475,6 +486,51 @@ class FFModel:
             [topk_values, topk_assign, topk_assign, gate_sm] + expert_outs,
             num_exp, lambda_bal, name=name)
 
+    # ---- composites and the activation cache ----
+
+    def pipeline(self, input: Tensor, layers: int, heads: int, kv_heads: int,
+                 hidden: int, n_microbatches: int = 4, causal: bool = True,
+                 rope_theta: float = 500000.0, norm_eps: float = 1e-5,
+                 name=None) -> Tensor:
+        """`layers` Llama decoder blocks as one composite, weights stacked
+        on a leading layer dim (ops/torch_ops.py _pipeline: the blocks in
+        turn on one device; `n_microbatches` belongs to the GPipe
+        schedule, which needs a `pipe` mesh axis)."""
+        return self._one(
+            OpType.PIPELINE,
+            A.PipelineAttrs(layers, heads, kv_heads, hidden, n_microbatches,
+                            causal, rope_theta, norm_eps),
+            [input], name or "pipeline")
+
+    def cache(self, input: Tensor, score_func=None, name=None) -> Tensor:
+        """Activation cache: every training step stores its input in a
+        non-trainable buffer, which eval and predict return in its place;
+        `score_func(old, new) -> float` is run on the host by
+        cache_score(name)."""
+        name = name or "cache"
+        t = self._one(OpType.CACHE, A.CacheAttrs(), [input], name)
+        if score_func is not None:
+            self._cache_scores[t.node.name] = score_func
+        return t
+
+    def cache_score(self, name: str) -> float:
+        """The cache's score function on (previous snapshot, current
+        buffer), as numpy on the host; the current buffer becomes the
+        next call's snapshot. 1.0 on the first call (nothing to compare);
+        without a score function, the cosine similarity of the two."""
+        node = next(n for n in self.graph.nodes if n.name == name)
+        cur = self.get_weight(name, "cached")
+        prev = self._cache_snapshots.get(name)
+        self._cache_snapshots[name] = cur
+        if prev is None:
+            return 1.0
+        fn = self._cache_scores.get(node.name)
+        if fn is None:
+            denom = float((prev * prev).sum() ** 0.5
+                          * (cur * cur).sum() ** 0.5)
+            return float((prev * cur).sum()) / max(denom, 1e-30)
+        return float(fn(prev, cur))
+
     def position_table_rows(self) -> Optional[int]:
         """Rows of the smallest learned-position table in the graph, or
         None. The servers keep prompt + new tokens within it."""
@@ -519,7 +575,8 @@ class FFModel:
                                   seq_length=self.config.seq_length,
                                   donate=self.config.donate_buffers)
         if params is None:
-            tr, ntr = self._executor.init_params(self.config.seed)
+            tr, ntr = self._executor.init_params(self.config.seed,
+                                                 self._init_overrides)
         else:
             # training updates the weights in place: a model compiled to
             # train takes copies, so it never shares storage with the
@@ -793,8 +850,12 @@ class FFModel:
                          ragged_pack: bool = True, megastep_ticks: int = 1,
                          megastep_mixed: bool = False,
                          overlap_dispatch: bool = False,
-                         kv_dtype: str = "auto", kv_quant_canary=None,
-                         host_tier=None, defer_start: bool = False):
+                         kv_dtype: str = "auto",
+                         request_record_limit=None, serve_strategy=None,
+                         search_budget=None, traffic="smoke",
+                         reqlog_capacity=None, slo=None, slo_dump_dir=None,
+                         kv_quant_canary=None, defer_start: bool = False,
+                         host_tier=None):
         """Continuous-batching generation (serving.serve_generation) with
         the reference's defaults: the dense GenerationServer, or with
         `paged=True` the block-paged KV cache (prefix cache and
@@ -805,10 +866,14 @@ class FFModel:
         N pure-decode ticks per host round trip; `megastep_mixed=True`
         fuses chunk rows and device-drafted chains into the megastep,
         `overlap_dispatch=True` admits while it runs; `ragged_pack=False`
-        launches the unpacked prefill. The host tier and the
-        kv_quant_canary shadow cache are not ported: asking for either
-        raises NotImplementedError rather than serving a different
-        configuration."""
+        launches the unpacked prefill. `request_record_limit` bounds the
+        per-request records of metrics(), `reqlog_capacity` sizes the
+        request log (0 disables it), `slo=SLOTarget(...)` arms the SLO
+        monitor with breach dumps under `slo_dump_dir`. The host tier,
+        the kv_quant_canary shadow cache and the serving-strategy search
+        (`serve_strategy`, `search_budget`, `traffic`) are not ported:
+        asking for any raises NotImplementedError rather than serving a
+        different configuration."""
         from flexflow_tpu_torch.serving import serve_generation as _sg
 
         return _sg(self, slots=slots, max_len=max_len, eos_id=eos_id,
@@ -819,5 +884,19 @@ class FFModel:
                    megastep_ticks=megastep_ticks,
                    megastep_mixed=megastep_mixed,
                    overlap_dispatch=overlap_dispatch, kv_dtype=kv_dtype,
+                   request_record_limit=request_record_limit,
+                   serve_strategy=serve_strategy,
+                   search_budget=search_budget, traffic=traffic,
+                   reqlog_capacity=reqlog_capacity, slo=slo,
+                   slo_dump_dir=slo_dump_dir,
                    kv_quant_canary=kv_quant_canary, host_tier=host_tier,
                    defer_start=defer_start)
+
+    def serve(self, batch_sizes=(1, 8), max_delay_ms: float = 2.0,
+              warmup: bool = True):
+        """A batch-serving endpoint over this compiled model: the dynamic
+        batcher of serving.Server (serving.serve)."""
+        from flexflow_tpu_torch.serving import serve as _serve
+
+        return _serve(self, batch_sizes=batch_sizes,
+                      max_delay_ms=max_delay_ms, warmup=warmup)

@@ -19,7 +19,11 @@ from flexflow_tpu_torch.models.candle_uno import build_candle_uno
 from flexflow_tpu_torch.models.dlrm import build_dlrm
 from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2
 from flexflow_tpu_torch.models.inception import build_inception_v3
-from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
+from flexflow_tpu_torch.models.llama import (
+    LlamaConfig,
+    build_llama,
+    llama_pp_strategy,
+)
 from flexflow_tpu_torch.models.mixtral import (
     MixtralConfig,
     build_mixtral,
@@ -46,4 +50,4 @@ __all__ = ["BertConfig", "GPT2Config", "LlamaConfig", "MixtralConfig",
            "build_moe_classifier", "build_moe_spec_classifier", "build_nmt",
            "build_resnet50", "build_resnext50", "build_transformer_encoder",
            "build_transformer_encoder_decoder", "build_xdl",
-           "mixtral_ep_strategy", "nmt_dp_strategy"]
+           "llama_pp_strategy", "mixtral_ep_strategy", "nmt_dp_strategy"]

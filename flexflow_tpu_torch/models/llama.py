@@ -3,8 +3,10 @@ flexflow_tpu/models/llama.py): RMSNorm, GQA attention with RoPE, SwiGLU
 MLP, through the FFModel layer API — the same calls in the same order, so
 both packages build the same PCG. With `use_ring_attention` each layer's
 attention is a RING_ATTENTION node (sequence-parallel over the mesh's
-`seq` axis). The pipeline composite and the sharding strategies are not
-ported yet.
+`seq` axis); with `use_pipeline` every decoder block is one PIPELINE
+composite with stacked weights (ops/torch_ops.py _pipeline). The sharding
+strategies need mesh axes across cards and raise (ROADMAP.md, queue 1
+item 12).
 """
 
 from __future__ import annotations
@@ -47,15 +49,21 @@ def build_llama(ff: FFModel, cfg: LlamaConfig, batch_size: int = None,
                 seq_len: int = 2048, dtype: DataType = DataType.BFLOAT16,
                 use_ring_attention: bool = False,
                 seq_mode: str = "ring",
-                use_pipeline: bool = False) -> Tensor:
-    if use_pipeline:
-        raise NotImplementedError(
-            "the pipeline composite is not ported yet (ROADMAP.md, queue 1 "
-            "items 8 and 12)")
+                use_pipeline: bool = False,
+                n_microbatches: int = 4) -> Tensor:
     b = batch_size or ff.config.batch_size
     ids = ff.create_tensor((b, seq_len), DataType.INT32, name="input_ids")
     h = ff.embedding(ids, cfg.vocab_size, cfg.dim, dtype=dtype,
                      name="tok_emb")
+    if use_pipeline:
+        # every decoder block as ONE stacked-weight composite
+        h = ff.pipeline(h, cfg.layers, cfg.heads, cfg.kv_heads, cfg.hidden,
+                        n_microbatches=n_microbatches,
+                        rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
+                        name="decoder_pipeline")
+        h = ff.rms_norm(h, eps=cfg.norm_eps, name="final_norm")
+        logits = ff.dense(h, cfg.vocab_size, use_bias=False, name="lm_head")
+        return ff.softmax(logits, name="softmax")
     for i in range(cfg.layers):
         a = ff.rms_norm(h, eps=cfg.norm_eps, name=f"l{i}_attn_norm")
         if use_ring_attention:
@@ -78,3 +86,12 @@ def build_llama(ff: FFModel, cfg: LlamaConfig, batch_size: int = None,
     h = ff.rms_norm(h, eps=cfg.norm_eps, name="final_norm")
     logits = ff.dense(h, cfg.vocab_size, use_bias=False, name="lm_head")
     return ff.softmax(logits, name="softmax")
+
+
+def llama_pp_strategy(cfg: LlamaConfig):
+    """The reference's pipeline strategy shards the PIPELINE composite's
+    stacked layer dim over a `pipe` mesh axis, which spans several
+    cards."""
+    raise NotImplementedError(
+        "llama_pp_strategy needs a `pipe` mesh axis across cards, not "
+        "ported yet (ROADMAP.md, queue 1 item 12)")

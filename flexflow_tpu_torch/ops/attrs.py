@@ -4,7 +4,8 @@ LAYER_NORM, LINEAR, ELEMENT_BINARY, ELEMENT_UNARY, SOFTMAX,
 MULTIHEAD_ATTENTION, RING_ATTENTION, TOPK, the MoE ops (GROUP_BY,
 AGGREGATE, AGGREGATE_SPEC, EXPERTS), the CNN ops (CONV2D, POOL2D,
 BATCH_NORM), DROPOUT, the shape ops (FLAT, RESHAPE, TRANSPOSE, REVERSE,
-CONCAT, SPLIT, CAST), BATCH_MATMUL, GATHER, REDUCE_SUM, MEAN and LSTM.
+CONCAT, SPLIT, CAST), BATCH_MATMUL, GATHER, REDUCE_SUM, MEAN, LSTM, CACHE
+and the PIPELINE composite.
 
 Field names, order and defaults match the reference, so `repr(attrs)` —
 and with it Graph.structure_hash — agrees between the two packages, and
@@ -13,7 +14,9 @@ the weight specs keep the JAX layouts: `kernel` (in, out), `wq` (E, H, D),
 experts' `w1` (n, dim, hidden) and `w2` (n, hidden, out), a conv's
 `kernel` (out, in / groups, kh, kw), BatchNorm's `scale`, `bias` and its
 non-trainable `running_mean` / `running_var` (C,), LSTM's `wx` (in, 4H),
-`wh` (H, 4H) and `bias` (4H,), gates in the order i, f, g, o.
+`wh` (H, 4H) and `bias` (4H,), gates in the order i, f, g, o, and
+PIPELINE's `ln1`, `wq`, `wk`, `wv`, `wo`, `ln2`, `gate`, `up` and `down`
+in the same layouts with a leading layer dim L.
 """
 
 from __future__ import annotations
@@ -640,3 +643,77 @@ class LSTMAttrs(OpAttrs):
             w["bias"] = WeightSpec(TensorShape((4 * self.hidden,), x.dtype),
                                    "zeros")
         return w
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheAttrs(OpAttrs):
+    """Activation cache: a non-trainable buffer of the input, written by
+    every training step and read back outside training (FFModel.cache,
+    FFModel.cache_score)."""
+
+    def infer(self, x: Shape):
+        return (elementwise_like(x),)
+
+    def weights(self, x: Shape):
+        return {"cached": WeightSpec(x.to_shape(), "zeros", trainable=False)}
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineAttrs(OpAttrs):
+    """`layers` identical Llama decoder blocks (RMSNorm -> GQA attention
+    with RoPE -> RMSNorm -> SwiGLU MLP) as one composite, their weights
+    STACKED on a leading layer dim. On one device the lowering runs the
+    blocks in turn (ops/torch_ops.py _pipeline); `n_microbatches` is the
+    GPipe schedule's, which needs a `pipe` mesh axis, and has no effect
+    there, as in the reference without one."""
+
+    layers: int
+    heads: int
+    kv_heads: int
+    hidden: int
+    n_microbatches: int = 4
+    causal: bool = True
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+
+    def infer(self, x: Shape):
+        return (elementwise_like(x),)
+
+    def weights(self, x: Shape):
+        dim = x.dims[-1].size
+        hd = dim // self.heads
+        dt = x.dtype
+        L = self.layers
+
+        def w(*shape):
+            return WeightSpec(TensorShape((L,) + shape, dt))
+
+        return {
+            "ln1": WeightSpec(TensorShape((L, dim), dt), "ones"),
+            "wq": w(dim, self.heads, hd),
+            "wk": w(dim, self.kv_heads, hd),
+            "wv": w(dim, self.kv_heads, hd),
+            "wo": w(self.heads, hd, dim),
+            "ln2": WeightSpec(TensorShape((L, dim), dt), "ones"),
+            "gate": w(dim, self.hidden),
+            "up": w(dim, self.hidden),
+            "down": w(self.hidden, dim),
+        }
+
+    def flops(self, ins, outs):
+        """Matmul FLOPs of one forward: the projections and the MLP at
+        2 a multiply-add, and QK^T + PV at causal half density."""
+        x = ins[0]
+        tokens = math.prod(d.size for d in x.dims[:-1])
+        seq = x.dims[-2].size if x.ndim >= 2 else 1
+        dim = x.dims[-1].size
+        hd = dim // self.heads
+        per_layer = (
+            dim * self.heads * hd
+            + 2 * dim * self.kv_heads * hd
+            + self.heads * hd * dim
+            + 3 * dim * self.hidden
+        )
+        dense = 2 * tokens * per_layer
+        attn = 2 * tokens * seq * dim
+        return self.layers * (dense + attn)

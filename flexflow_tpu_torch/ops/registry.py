@@ -101,10 +101,6 @@ def get_lowering(op_type: OpType) -> Callable:
     from flexflow_tpu_torch.ops import torch_ops  # noqa: F401
 
     if op_type not in _LOWERINGS:
-        if op_type in (OpType.PIPELINE, OpType.CACHE):
-            raise NotImplementedError(
-                f"no PyTorch lowering for {op_type} yet (ROADMAP.md, queue "
-                "1 item 8c)")
         raise NotImplementedError(
             f"{op_type} has no lowering: it is not an executable node, in "
             "the JAX package either")

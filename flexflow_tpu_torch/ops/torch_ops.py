@@ -1,6 +1,5 @@
 """PyTorch lowerings of the ported operators (counterpart of
-flexflow_tpu/ops/jax_ops.py): every op the JAX package lowers but
-PIPELINE and CACHE.
+flexflow_tpu/ops/jax_ops.py): every op the JAX package lowers.
 
 Each lowering reproduces the reference's numerics discipline: weights
 are cast to the activation dtype at the use site, matmuls accumulate in
@@ -11,8 +10,10 @@ to XLA; the hand-written kernels on this path are behind the
 MULTIHEAD_ATTENTION lowering: the ragged paged attention on its paged
 branch (serving), the flash-attention forward and backward on its
 no-cache branch (training, eval and predict); and behind RING_ATTENTION's
-no-cache branch, the ring of K5 steps (parallel/ring.py). Its dense-cache
-branch (FFModel.generate, the dense GenerationServer) is plain PyTorch,
+no-cache branch, the ring of K5 steps (parallel/ring.py); and behind
+PIPELINE, whose decoder blocks take MULTIHEAD_ATTENTION's route. Its
+dense-cache branch (FFModel.generate, the dense GenerationServer) and
+PIPELINE's are plain PyTorch,
 as the reference computes it outside any Pallas kernel, and so is the
 attention of a training step at a dropout rate above 0: the reference
 sends dropout to no kernel (flash_attention_available is False for it)
@@ -822,3 +823,87 @@ def _experts(attrs, inputs, params, ctx):
         ctx.aux_loss = (n * torch.sum(frac * probs.mean(dim=0))
                         * attrs.lambda_bal)
     return [y.reshape(*lead, attrs.out_dim)]
+
+
+# ---------------------------------------------------------------------------
+# the activation cache and the pipeline composite (the reference's
+# _cache, _decoder_block and _pipeline, jax_ops.py)
+
+
+@register_lowering(OpType.CACHE)
+def _cache(attrs, inputs, params, ctx):
+    """A training step writes its input into the non-trainable "cached"
+    buffer (state_updates, merged by the train step) and passes it on;
+    outside training the node returns the buffer."""
+    (x,) = inputs
+    if ctx.training:
+        ctx.state_updates["cached"] = x.detach().to(params["cached"].dtype)
+        return [x]
+    return [params["cached"]]
+
+
+def _decoder_block(p, h, attrs, cache=None):
+    """One Llama decoder block on one layer's params `p` (the unstacked
+    builder's RMSNorm -> GQA attention with RoPE -> RMSNorm -> SwiGLU,
+    residuals around both halves). Attention goes through
+    fused_attention, the route of an unstacked MHA node (K1/K2 at head
+    dims that are multiples of 128, K4 at the others). `cache` = (cache_k,
+    cache_v, pos) switches it to the dense-cache step (cached_attention),
+    which writes this step's rows into the caches in place; the return
+    is then (h, cache_k, cache_v)."""
+    dt = h.dtype
+
+    def rms(x, scale):
+        xf = x.float()
+        ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(ms + attrs.norm_eps)
+                * scale.float()).to(dt)
+
+    scale = 1.0 / ((h.shape[-1] // attrs.heads) ** 0.5)
+    a = rms(h, p["ln1"])
+    q = qkv_project(a, p["wq"], dt)
+    k = qkv_project(a, p["wk"], dt)
+    v = qkv_project(a, p["wv"], dt)
+    kc = vc = None
+    if cache is not None:
+        cache_k, cache_v, pos = cache
+        o, kc, vc = cached_attention(q, k, v, cache_k, cache_v, pos,
+                                     scale=scale,
+                                     rope_theta=attrs.rope_theta)
+    else:
+        q = apply_rope(q, attrs.rope_theta)
+        k = apply_rope(k, attrs.rope_theta)
+        o = fused_attention(q, k, v, causal=attrs.causal, scale=scale)
+    h = h + attn_out_project(o, p["wo"], dt)
+    m = rms(h, p["ln2"])
+    g = torch.matmul(m, p["gate"].to(dt))
+    u = torch.matmul(m, p["up"].to(dt))
+    h = h + torch.matmul(F.silu(g) * u, p["down"].to(dt))
+    return h if cache is None else (h, kc, vc)
+
+
+@register_lowering(OpType.PIPELINE)
+def _pipeline(attrs, inputs, params, ctx):
+    """The stacked decoder blocks, layer i on params[name][i], in turn:
+    the reference's path without a `pipe` mesh axis (a lax.scan over the
+    stack); the GPipe schedule needs one and the port's mesh has none.
+    With a dense KV cache each layer's slice of the (L, B, T, Hkv, D)
+    "k"/"v" caches goes through the block's cached step, written in
+    place. The paged pool has no PIPELINE path (Executor
+    .paged_kv_cache_specs raises)."""
+    (h,) = inputs
+    # one unbind a leaf: its backward stacks the layers' gradients in one
+    # write, where indexing each layer would build a stack-sized gradient
+    # a layer and sum them
+    layers = [dict(zip(params, ws))
+              for ws in zip(*(w.unbind(0) for w in params.values()))]
+    if ctx.kv_cache is not None:
+        ck, cv = ctx.kv_cache["k"], ctx.kv_cache["v"]
+        for p, k_i, v_i in zip(layers, ck.unbind(0), cv.unbind(0)):
+            h, _, _ = _decoder_block(p, h, attrs,
+                                    cache=(k_i, v_i, ctx.cache_position))
+        ctx.cache_updates.update(k=ck, v=cv)
+        return [h]
+    for p in layers:
+        h = _decoder_block(p, h, attrs)
+    return [h]

@@ -116,3 +116,18 @@ def dequantize_pages(pages, scales):
     """pages: (..., P, Hkv, D) int8 gathered by page; scales: (..., Hkv)
     fp32 gathered the same way. Returns fp32 pages."""
     return pages.float() * scales[..., None, :, None]
+
+
+def quantize_leaf(arr: torch.Tensor) -> torch.Tensor:
+    """Per-leaf symmetric int8 fake quantization for weight storage
+    (Executor.init_params(weight_dtype="int8")): every element snaps to
+    the 255-point grid scale * [-127..127], scale = max |arr| / 127 (1
+    for an all-zero leaf), and the result is stored bf16, as the
+    reference stores it: the matmuls downstream stay dense float. fp32
+    arithmetic and round-half-to-even throughout, so the values equal the
+    JAX package's bit for bit."""
+    a = arr.float()
+    scale = a.abs().max() / QMAX
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.round(a / scale).clamp_(-QMAX, QMAX)
+    return (q * scale).to(torch.bfloat16)

@@ -93,6 +93,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from flexflow_tpu_torch import obs
 from flexflow_tpu_torch.paged.pool import EMPTY_HASH, PagePool
 from flexflow_tpu_torch.paged.quant import is_quantized_dtype, resolve_kv_dtype
 from flexflow_tpu_torch.serving import (
@@ -139,6 +140,9 @@ class PagedGenerationServer(_GenerationServerBase):
                  megastep_mixed: bool = False,
                  overlap_dispatch: bool = False, kv_dtype: str = "auto",
                  host_tier=None, kv_quant_canary: Optional[int] = None,
+                 request_record_limit: Optional[int] = None,
+                 reqlog_capacity: Optional[int] = None, slo=None,
+                 slo_dump_dir: Optional[str] = None,
                  defer_start: bool = False):
         self.megastep_ticks = int(megastep_ticks)
         if self.megastep_ticks < 1:
@@ -158,7 +162,10 @@ class PagedGenerationServer(_GenerationServerBase):
         self.kv_dtype = str(kv_dtype)
         pool_dt = resolve_kv_dtype(self.kv_dtype)  # validates the name
         self._quantized = pool_dt is not None and is_quantized_dtype(pool_dt)
-        super().__init__(ff, slots, max_len, eos_id, seed)
+        super().__init__(ff, slots, max_len, eos_id, seed,
+                         request_record_limit=request_record_limit,
+                         reqlog_capacity=reqlog_capacity, slo=slo,
+                         slo_dump_dir=slo_dump_dir)
         self.page_size = int(page_size)
         # table_slack_tokens widens every page table past max_len: the
         # speculative verify writes its draft tree's rows past the
@@ -212,23 +219,34 @@ class PagedGenerationServer(_GenerationServerBase):
         # attention layer
         self.ragged_steps = 0
         self._prefill_rr = 0    # rotating start slot for the chunk budget
-        # launch rows shipped and those of them that were padding (q_len
-        # 0 entries, rows past an entry's q_len)
-        self.launch_rows = 0
-        self.padded_rows = 0
-        # host round trips of the decode path (a one-tick decode or a
-        # megastep each pay one), the tokens they decoded, why each
-        # megastep handed control back, the ticks enqueued that the
-        # device predicated off, and the share of the wait on a mixed
-        # dispatch that overlapped host work
-        self.host_roundtrips = 0
-        self.decode_tokens = 0
-        self.megastep_breaks = {r: 0 for r in ("finish", "page", "limit",
-                                               "chunk", "verify")}
+        # the registry's counters, all summed on the host from what the
+        # loop already knows (no device read): ticks the loop slept with
+        # nothing live or admitted and the seconds asleep; launch rows
+        # shipped and those of them that were padding (q_len 0 entries,
+        # rows past an entry's q_len), the last launch's padded share;
+        # ticks a megastep ran, host round trips of the decode path (a
+        # one-tick decode or a megastep each pay one) and the tokens they
+        # decoded, why each megastep handed control back; and the share
+        # of the wait on a mixed dispatch that overlapped host work
+        self._c_idle = self.registry.counter("idle_ticks_total")
+        self._c_idle_s = self.registry.counter("idle_wait_seconds_total")
+        self._c_rows = self.registry.counter("launch_rows_total")
+        self._c_pad = self.registry.counter("padded_rows_total")
+        self._g_waste = self.registry.gauge("padding_waste_ratio")
+        self._h_mega = self.registry.histogram("megastep_ticks",
+                                               obs.COUNT_BUCKETS)
+        self._c_rt = self.registry.counter("host_roundtrips_total")
+        self._c_dtok = self.registry.counter("decode_tokens_total")
+        self._g_rt_tok = self.registry.gauge("host_roundtrips_per_token")
+        self._c_break = {
+            r: self.registry.counter(f"megastep_break_{r}_total")
+            for r in ("finish", "page", "limit", "chunk", "verify")}
+        self._g_overlap = self.registry.gauge("host_overlap_ratio")
+        # dispatches, ticks run and the ticks enqueued that the device
+        # predicated off
         self.megastep_dispatches = 0
         self.megastep_ticks_run = 0
         self.megastep_wasted_ticks = 0
-        self.host_overlap_ratio = 0.0
         self._start(defer_start)
 
     # -- capacity and metrics ----------------------------------------------
@@ -254,6 +272,24 @@ class PagedGenerationServer(_GenerationServerBase):
         kbuf = next(iter(self._caches.values()))["k"]
         return str(kbuf.dtype).replace("torch.", "")
 
+    # -- request log (obs.reqlog) ------------------------------------------
+
+    def _prefix_chain(self, req: _GenRequest) -> tuple:
+        """The pool's sha1 chain over the prompt's page-aligned blocks:
+        entry i content-addresses the whole prefix through block i, so
+        two records share a chain prefix iff their prompts shared those
+        pages."""
+        return tuple(self.pool.chain_hashes(req.prompt))
+
+    def _reqlog_kv_dtype(self) -> str:
+        return self._kv_pool_dtype_name()
+
+    def _reqlog_record(self, req: _GenRequest, m: dict,
+                       done_t: float) -> dict:
+        rec = super()._reqlog_record(req, m, done_t)
+        rec["page_size"] = self.page_size
+        return rec
+
     def metrics(self) -> dict:
         """Aggregate serving metrics and the per-request records, plus
         pool occupancy and fragmentation and the prefix-cache counters."""
@@ -273,24 +309,26 @@ class PagedGenerationServer(_GenerationServerBase):
             "prefill_ticks": self.prefill_ticks,
             "ragged_steps": self.ragged_steps,
             "kv_cache_dtype": self._kv_pool_dtype_name(),
-            "launch_rows": self.launch_rows,
-            "padded_rows": self.padded_rows,
-            "padding_waste_ratio": (self.padded_rows / self.launch_rows
-                                    if self.launch_rows else 0.0),
+            "launch_rows": int(self._c_rows.value),
+            "padded_rows": int(self._c_pad.value),
+            "padding_waste_ratio": (
+                self._c_pad.value / self._c_rows.value
+                if self._c_rows.value else 0.0),
             "megastep": {
                 "ticks_max": self.megastep_ticks,
                 "mixed": self.megastep_mixed,
                 "overlap_dispatch": self.overlap_dispatch,
-                "host_overlap_ratio": self.host_overlap_ratio,
-                "host_roundtrips": self.host_roundtrips,
-                "decode_tokens": self.decode_tokens,
+                "host_overlap_ratio": float(self._g_overlap.value),
+                "host_roundtrips": int(self._c_rt.value),
+                "decode_tokens": int(self._c_dtok.value),
                 "host_roundtrips_per_token": (
-                    self.host_roundtrips / self.decode_tokens
-                    if self.decode_tokens else 0.0),
+                    self._c_rt.value / self._c_dtok.value
+                    if self._c_dtok.value else 0.0),
                 "dispatches": self.megastep_dispatches,
                 "ticks_run": self.megastep_ticks_run,
                 "wasted_ticks": self.megastep_wasted_ticks,
-                "breaks": dict(self.megastep_breaks),
+                "breaks": {r: int(c.value)
+                           for r, c in self._c_break.items()},
             },
             "prefix_cache": {
                 "enabled": self.prefix_cache,
@@ -693,9 +731,22 @@ class PagedGenerationServer(_GenerationServerBase):
             deps_d, anc_d, torch.from_numpy(ids).to(dev))
         self._caches = upd
         self.ragged_steps += 1
-        self.launch_rows += B * window
-        self.padded_rows += B * window - int(qls.sum())
+        self._count_rows(B * window, B * window - int(qls.sum()))
         return probs
+
+    def _count_rows(self, rows: int, padded: int):
+        """Launch rows shipped and how many of them were padding."""
+        self._c_rows.inc(rows)
+        self._c_pad.inc(padded)
+        self._g_waste.set(padded / rows if rows else 0.0)
+
+    def _count_roundtrip(self, tokens: int):
+        """One host round trip of the decode path, which bought `tokens`
+        decoded tokens."""
+        self._c_rt.inc()
+        self._c_dtok.inc(tokens)
+        if self._c_dtok.value:
+            self._g_rt_tok.set(self._c_rt.value / self._c_dtok.value)
 
     def _tick_prep(self) -> Optional[List[int]]:
         """Defrag if requested, admit, grow pages. Returns the live slots
@@ -709,7 +760,10 @@ class PagedGenerationServer(_GenerationServerBase):
         self.peak_active = max(self.peak_active, len(live))
         if not live:
             if not admitted:
+                t0 = time.monotonic()
                 time.sleep(0.001)
+                self._c_idle.inc()
+                self._c_idle_s.inc(time.monotonic() - t0)
             return None
         self._ensure_pages()  # may preempt: recompute live after
         return self._live() or None
@@ -728,6 +782,7 @@ class PagedGenerationServer(_GenerationServerBase):
         launches once a slot, at _bucket(take) rows. The chunk finishing
         a prompt publishes the prompt's tail page and samples the
         request's first token from its own last-row probs."""
+        t0 = time.monotonic()
         budget = self.prefill_chunk
         self.prefill_ticks += 1
         rot = self._prefill_rr % len(slots)
@@ -777,6 +832,7 @@ class PagedGenerationServer(_GenerationServerBase):
                 self._finish_if_done(s)
                 if self._active[s] is not None:
                     self._on_prefill_complete(s)
+        self._h_prefill.observe(time.monotonic() - t0)
 
     def _on_prefill_complete(self, slot: int):
         """Hook fired after a request's prefill completed (tail published,
@@ -793,6 +849,7 @@ class PagedGenerationServer(_GenerationServerBase):
         """One single-token decode step for the decoding slots: one item
         per slot, q_len 1 for decoding slots and 0 for idle and
         mid-prefill ones, so probs stays slot-indexed."""
+        t0 = time.monotonic()
         dec = set(live)
         items = [(s, self._active[s].pos if s in dec else 0,
                   [int(self._tokens[s])] if s in dec else [], None, None)
@@ -801,8 +858,7 @@ class PagedGenerationServer(_GenerationServerBase):
         toks = pick_tokens(probs[:, -1, :], self._temps_device(),
                            self._gen).cpu().numpy()
         self._steps += 1
-        self.host_roundtrips += 1
-        self.decode_tokens += len(live)
+        self._count_roundtrip(len(live))
         self._count_decode_overlap()
         for s in live:
             req = self._active[s]
@@ -811,6 +867,8 @@ class PagedGenerationServer(_GenerationServerBase):
             self._tokens[s] = toks[s]
             self._publish_prefix(req, req.pos)
             self._finish_if_done(s)
+        self._h_tick.observe(time.monotonic() - t0)
+        self._h_tokens.observe(len(live))
 
     def _decode_megastep(self, live, tr, ntr):
         """Up to `megastep_ticks` decode ticks in one dispatch
@@ -825,6 +883,7 @@ class PagedGenerationServer(_GenerationServerBase):
         one-tick order, so page growth, admission, eviction and defrag
         stay between megasteps, and greedy and fixed-seed sampled tokens
         equal the one-tick loop's."""
+        t0 = time.monotonic()
         N = self.megastep_ticks
         pos = np.zeros((self.slots,), np.int32)
         rem = np.zeros((self.slots,), np.int32)
@@ -874,13 +933,15 @@ class PagedGenerationServer(_GenerationServerBase):
                 self._finish_if_done(s)
         self._on_megastep_resume()
         self.ragged_steps += n
-        self.launch_rows += n * self.slots
-        self.padded_rows += n * self.slots - ran * len(live)
-        self.host_roundtrips += 1
-        self.decode_tokens += ran * len(live)
+        self._count_rows(n * self.slots, n * self.slots - ran * len(live))
+        self._count_roundtrip(ran * len(live))
         self.megastep_dispatches += 1
         self.megastep_ticks_run += ran
-        self.megastep_breaks[reason] += 1
+        self._h_mega.observe(ran)
+        self._c_break[reason].inc()
+        # the latency a tick, so the histogram compares across widths
+        self._h_tick.observe((time.monotonic() - t0) / max(ran, 1))
+        self._h_tokens.observe(len(live))
 
     def _on_megastep_resume(self):
         """Hook fired after a megastep's bookkeeping replay, the point
@@ -950,6 +1011,7 @@ class PagedGenerationServer(_GenerationServerBase):
         megastep's `finish`, `page` and `limit`. Ticks enqueued but
         predicated off count in wasted_ticks, and the generator is set
         back to the state before the first of them."""
+        t0 = time.monotonic()
         P, W, D = self.page_size, self._mixed_window, self._spec_depth
         N = self.megastep_ticks
         pos = np.zeros((self.slots,), np.int32)
@@ -1006,7 +1068,7 @@ class PagedGenerationServer(_GenerationServerBase):
         fence_s = time.monotonic() - f0
         if self.overlap_dispatch:
             wait = host_s + fence_s
-            self.host_overlap_ratio = host_s / wait if wait > 0 else 0.0
+            self._g_overlap.set(host_s / wait if wait > 0 else 0.0)
         k = N * self.slots
         out_np = back[:k * E].reshape(N, self.slots, E)
         cnt_np = back[k * E:k * (E + 1)].reshape(N, self.slots)
@@ -1083,13 +1145,14 @@ class PagedGenerationServer(_GenerationServerBase):
             reason = "limit"
         rows = n * self.slots * max(W, D + 1)
         self.ragged_steps += n
-        self.launch_rows += rows
-        self.padded_rows += rows - fused
-        self.host_roundtrips += 1
-        self.decode_tokens += dtok
+        self._count_rows(rows, rows - fused)
+        self._count_roundtrip(dtok)
         self.megastep_dispatches += 1
         self.megastep_ticks_run += ran
-        self.megastep_breaks[reason] += 1
+        self._h_mega.observe(ran)
+        self._c_break[reason].inc()
+        self._h_tick.observe((time.monotonic() - t0) / max(ran, 1))
+        self._h_tokens.observe(len(live))
 
     def _loop_body(self, tr, ntr):
         while not self._stop.is_set():

@@ -38,12 +38,39 @@ _FP32_USE = {(OpType.RMS_NORM, "scale"), (OpType.LAYER_NORM, "scale"),
              (OpType.LAYER_NORM, "bias"), (OpType.WEIGHT, "weight"),
              (OpType.BATCH_NORM, "scale"), (OpType.BATCH_NORM, "bias"),
              (OpType.BATCH_NORM, "running_mean"),
-             (OpType.BATCH_NORM, "running_var")}
+             (OpType.BATCH_NORM, "running_var"),
+             (OpType.PIPELINE, "ln1"), (OpType.PIPELINE, "ln2")}
 _ATTENTION_OPS = (OpType.MULTIHEAD_ATTENTION, OpType.RING_ATTENTION)
+
+
+# init_params(weight_dtype=...)'s float names; "int8" is quantize_leaf
+_WEIGHT_DTYPES = {
+    "fp32": torch.float32, "float32": torch.float32,
+    "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+    "fp16": torch.float16, "float16": torch.float16,
+    "fp8": torch.float8_e4m3fn, "float8_e4m3fn": torch.float8_e4m3fn,
+}
 
 
 def node_key(node: Node) -> str:
     return node.stable_key()
+
+
+def cast_weight_leaf(arr: torch.Tensor, weight_dtype: str) -> torch.Tensor:
+    """The storage cast of one drawn leaf (init_params(weight_dtype=...)):
+    a float name is a plain cast; "int8" snaps the leaf to its symmetric
+    int8 grid and stores it bf16 (paged.quant.quantize_leaf), since no
+    matmul of the executor takes int8 operands."""
+    if weight_dtype == "int8":
+        from flexflow_tpu_torch.paged.quant import quantize_leaf
+
+        return quantize_leaf(arr)
+    dt = _WEIGHT_DTYPES.get(weight_dtype)
+    if dt is None:
+        raise ValueError(
+            f"unknown weight_dtype {weight_dtype!r}; expected one of "
+            f"{sorted(set(_WEIGHT_DTYPES))} or 'int8'")
+    return arr.to(dt)
 
 
 def merge_state(nontrainable, updates):
@@ -225,13 +252,20 @@ class Executor:
             return torch.float32
         return dt
 
-    def init_params(self, seed: int):
+    def init_params(self, seed: int, overrides: Optional[Dict] = None,
+                    weight_dtype: Optional[str] = None):
         """Draw (trainable, nontrainable) parameter trees on the device.
         Leaf i (in sorted (node key, weight name) order) draws from its own
         torch.Generator on the device, seeded from (seed, i), so the
         values do not depend on which other leaves exist or in which
-        order they are drawn. Each leaf is drawn in fp32 and stored at
-        its storage dtype."""
+        order they are drawn. `overrides` maps node key -> weight name ->
+        Initializer (the layer methods' kernel_initializer and
+        bias_initializer, create_weight's initializer), drawn from the
+        same generator in place of the weight's default. Each leaf is
+        drawn in fp32 and stored at its storage dtype, or with
+        `weight_dtype` cast to that instead (cast_weight_leaf: "fp32",
+        "bf16", "fp16", "fp8" or "int8")."""
+        overrides = overrides or {}
         specs = self.weight_specs()
         by_key = {node_key(n): n for n in self.topo}
         index = {}
@@ -241,11 +275,15 @@ class Executor:
         tr, ntr = {}, {}
         for nk, ws in specs.items():
             for wn, spec in ws.items():
-                ini = init_mod.resolve(spec.initializer)
+                ini = init_mod.resolve(overrides.get(nk, {}).get(wn)
+                                       or spec.initializer)
                 gen = torch.Generator(device=self.device)
                 gen.manual_seed(seed * 1_000_003 + index[(nk, wn)])
                 arr = ini(gen, spec.shape.dims, torch.float32, self.device)
-                arr = arr.to(self.storage_dtype(by_key[nk], wn, spec))
+                if weight_dtype is not None:
+                    arr = cast_weight_leaf(arr, weight_dtype)
+                else:
+                    arr = arr.to(self.storage_dtype(by_key[nk], wn, spec))
                 (tr if spec.trainable else ntr).setdefault(nk, {})[wn] = arr
         return tr, ntr
 
@@ -505,26 +543,29 @@ class Executor:
         buffers on the device for dense autoregressive decoding, at each
         attention's activation dtype unless `dtype` is given.
         RING_ATTENTION nodes decode through the same MHA cache branch (a
-        decode step has no sequence to cut). A PIPELINE composite raises:
-        it is not ported."""
+        decode step has no sequence to cut); a PIPELINE composite gets
+        layer-stacked (layers, batch, max_len, Hkv, D) buffers, which its
+        lowering threads through the blocks a layer slice each."""
         caches = {}
         for n in self.topo:
-            if n.op_type == OpType.PIPELINE:
-                raise NotImplementedError(
-                    "PIPELINE composites are not ported yet (ROADMAP.md, "
-                    "queue 1 item 8), nor their layer-stacked decode cache")
-            if n.op_type not in _ATTENTION_OPS:
-                continue
             ins = self.graph.input_shapes(n)
             dt = dtype or (ins[0].dtype.torch_dtype if ins
                            else torch.bfloat16)
-            shape = (batch, max_len, n.attrs.num_kv, n.attrs.kdim)
+            if n.op_type in _ATTENTION_OPS:
+                shape = (batch, max_len, n.attrs.num_kv, n.attrs.kdim)
+            elif n.op_type == OpType.PIPELINE:
+                a = n.attrs
+                shape = (a.layers, batch, max_len, a.kv_heads,
+                         ins[0].dims[-1].size // a.heads)
+            else:
+                continue
             caches[node_key(n)] = {
                 name: torch.zeros(shape, dtype=dt, device=self.device)
                 for name in ("k", "v")}
         if not caches:
-            raise ValueError("generate() needs attention nodes "
-                             "(MULTIHEAD_ATTENTION or RING_ATTENTION)")
+            raise ValueError(
+                "generate() needs attention nodes (MULTIHEAD_ATTENTION, "
+                "RING_ATTENTION, or a PIPELINE composite)")
         return caches
 
     @torch.inference_mode()
@@ -557,8 +598,10 @@ class Executor:
         specs = {}
         for n in self.topo:
             if n.op_type == OpType.PIPELINE:
-                raise ValueError("paged decode does not support PIPELINE "
-                                 "composite graphs")
+                raise ValueError(
+                    "paged decode does not support PIPELINE composite "
+                    "graphs (their KV cache is threaded through the layer "
+                    "scan); serve with paged=False")
             if n.op_type not in (OpType.MULTIHEAD_ATTENTION,
                                  OpType.RING_ATTENTION):
                 continue
@@ -574,6 +617,21 @@ class Executor:
             raise ValueError("paged decode needs attention nodes "
                              "(MULTIHEAD_ATTENTION or RING_ATTENTION)")
         return specs
+
+    def can_paged_decode(self) -> bool:
+        """True when this graph has the shape paged decode serves: token
+        inputs, a token-level (b, s, vocab) sink, attention nodes, and no
+        PIPELINE composite (whose cache is threaded through the layer
+        stack). A pooled-classification graph (BERT's (b, classes) head)
+        has attention but nothing to decode."""
+        has_attn = any(n.op_type in _ATTENTION_OPS for n in self.topo)
+        no_pipe = all(n.op_type != OpType.PIPELINE for n in self.topo)
+        token_in = (len(self.input_nodes) == 1
+                    and self.input_nodes[0].outputs[0].ndim == 2
+                    and not self.input_nodes[0].outputs[0].dtype.torch_dtype
+                    .is_floating_point)
+        token_out = self.sink.outputs[0].ndim >= 3
+        return has_attn and no_pipe and token_in and token_out
 
     def init_paged_kv_cache(self, num_pages: int, page_size: int,
                             dtype: Optional[torch.dtype] = None):

@@ -1,14 +1,35 @@
-"""Continuous-batching generation serving (counterpart of the generation
-half of flexflow_tpu/serving.py).
+"""Inference serving (counterpart of flexflow_tpu/serving.py).
 
-The request queue, loop thread, submit/generate/stop contract, sampling
-and the finish/release bookkeeping that the paged scheduler
-(paged/scheduler.py) builds on, and the dense GenerationServer, the
-default: every slot owns a max_len KV buffer, decoded through the MHA
-lowering's dense-cache branch (Executor.decode_fn). The HTTP front end,
-the batch Server and the obs/reqlog/SLO machinery are not ported yet.
+The batch server: a ModelInstance runs the executor's forward on the
+device at each allowed batch size, and the dynamic batcher (Server)
+queues requests, concatenates them up to the largest batch or until
+`max_delay_ms` passes, pads to the nearest allowed size by repeating the
+last row, runs one forward a batch (one copy back), and splits the
+result per request. `http_serve` puts the KServe-v2 JSON surface (and
+the Prometheus `/metrics` text) in front of it, stdlib only.
+
+The generation servers: the request queue, loop thread,
+submit/generate/stop contract, sampling and the finish/release
+bookkeeping that the paged scheduler (paged/scheduler.py) builds on,
+and the dense GenerationServer, the default: every slot owns a max_len
+KV buffer, decoded through the MHA lowering's dense-cache branch
+(Executor.decode_fn). Every generation server owns a MetricsRegistry
+(obs.metrics: tick latency, TTFT, queue time, tokens a tick), keeps the
+per-request records of the last `request_record_limit` requests in a
+BoundedRing, writes one reqlog record per completed request
+(`reqlog_capacity`, obs.reqlog) and, with `slo=SLOTarget(...)`, feeds
+the SLO monitor, which dumps a breach bundle under `slo_dump_dir`. All of
+it is host bookkeeping on what the server already knows: no device read
+is added to a tick. The reference's compile tracker, span tracer, host
+KV tier and router have no counterpart here yet, so the fields they fill
+hold their defaults: a request's compile seconds are 0.0 (its TTFT
+without compile is its TTFT), and the reqlog record's `spilled_pages`,
+`fetched_pages` and `routed_to` are 0, 0 and None; breach dumps carry no
+trace tail, strategy or compile snapshot.
 
   ff = FFModel(FFConfig(device="cuda")); build_llama(ff, cfg); ff.compile()
+  server = ff.serve(batch_sizes=(1, 8, 32), max_delay_ms=2)  # batch
+  y = server.submit(x).result()
   server = ff.serve_generation(slots=4, max_len=2048)   # dense
   server = ff.serve_generation(paged=True, slots=4, max_len=2048)
   tokens = server.submit(prompt_ids, max_new_tokens=64).result(timeout=60)
@@ -17,15 +38,18 @@ the batch Server and the obs/reqlog/SLO machinery are not ported yet.
 
 from __future__ import annotations
 
-import collections
+import json
 import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from flexflow_tpu_torch import obs
+from flexflow_tpu_torch.ffconst import DataType
 
 
 def pick_tokens(probs_last: torch.Tensor, temps: torch.Tensor,
@@ -52,6 +76,321 @@ def pick_tokens(probs_last: torch.Tensor, temps: torch.Tensor,
     return torch.where(temps > 0.0, sampled, greedy)
 
 
+def _host_dtype(dt: DataType) -> np.dtype:
+    """The numpy dtype of a host batch for an input declared `dt`
+    (numpy has no bfloat16: such inputs travel as float32 and are cast on
+    the device)."""
+    return np.dtype("float32" if dt == DataType.BFLOAT16 else dt.value)
+
+
+class ModelInstance:
+    """The executor's forward on the model's device, run at each allowed
+    batch size (the reference's compiled instance a batch size; the
+    port's forward is eager, so one forward serves every size)."""
+
+    def __init__(self, ff, batch_sizes: Sequence[int]):
+        self.ff = ff
+        self.batch_sizes = tuple(sorted(set(batch_sizes)))
+        self._fwd = ff.executor.forward
+        self._params = ff._params
+        self._in_dtypes = [n.outputs[0].dtype.torch_dtype
+                           for n in ff.executor.input_nodes]
+
+    def pick_batch(self, n: int) -> int:
+        for b in self.batch_sizes:
+            if n <= b:
+                return b
+        return self.batch_sizes[-1]
+
+    def run(self, inputs: List[np.ndarray]) -> np.ndarray:
+        """Run one already-padded batch; the output comes back in one copy
+        (a bfloat16 one as float32, which numpy lacks)."""
+        tr, ntr = self._params
+        with torch.inference_mode():
+            xs = [x.to(dt) if x.is_floating_point() and dt.is_floating_point
+                  else x
+                  for x, dt in zip(self.ff._to_device(inputs),
+                                   self._in_dtypes)]
+            out = self._fwd(tr, ntr, *xs)
+            if out.dtype == torch.bfloat16:
+                out = out.float()
+            return out.cpu().numpy()
+
+    def warmup(self):
+        """Run zeros at every batch size before the first request (the
+        allocator and the kernels' first launches off the clock)."""
+        specs = [n.outputs[0] for n in self.ff.executor.input_nodes]
+        for b in self.batch_sizes:
+            self.run([np.zeros((b,) + tuple(d.size for d in s.dims[1:]),
+                               _host_dtype(s.dtype)) for s in specs])
+
+
+class _Request:
+    __slots__ = ("inputs", "future", "n")
+
+    def __init__(self, inputs: List[np.ndarray]):
+        self.inputs = inputs
+        self.n = inputs[0].shape[0]
+        self.future: Future = Future()
+
+
+class Server:
+    """Dynamic batcher: requests queue up, are concatenated up to the
+    largest allowed batch (or until `max_delay_ms` passes), run as one
+    forward, and split back per request. One thread, the loop's, touches
+    the device."""
+
+    def __init__(self, instance: ModelInstance, max_delay_ms: float = 2.0):
+        self.instance = instance
+        self.max_delay = max_delay_ms / 1e3
+        self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._running = True
+        self._served = 0
+        self._thread.start()
+
+    # -- client side ----------------------------------------------------
+
+    def submit(self, *inputs: np.ndarray) -> Future:
+        """Queue one request (its batch dim may be any size >= 1)."""
+        if not self._running:
+            raise RuntimeError("server is stopped")
+        req = _Request([np.asarray(x) for x in inputs])
+        self._q.put(req)
+        return req.future
+
+    def predict(self, *inputs: np.ndarray) -> np.ndarray:
+        return self.submit(*inputs).result()
+
+    def stop(self):
+        self._running = False
+        self._q.put(None)
+        self._thread.join(timeout=10)
+        self._drain()
+
+    def _drain(self):
+        """Fail any request still queued when the loop exits (a request
+        racing stop() must not leave its future forever pending)."""
+        while True:
+            try:
+                req = self._q.get_nowait()
+            except queue.Empty:
+                return
+            if req is not None and not req.future.done():
+                req.future.set_exception(RuntimeError("server stopped"))
+
+    @property
+    def requests_served(self) -> int:
+        return self._served
+
+    # -- scheduler ------------------------------------------------------
+
+    def _loop(self):
+        max_b = self.instance.batch_sizes[-1]
+        while self._running:
+            req = self._q.get()
+            if req is None:
+                break
+            batch = [req]
+            total = req.n
+            deadline = time.monotonic() + self.max_delay
+            while total < max_b:
+                timeout = deadline - time.monotonic()
+                if timeout <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=timeout)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._running = False
+                    break
+                batch.append(nxt)
+                total += nxt.n
+            self._run_batch(batch, total)
+        self._drain()
+
+    def _run_batch(self, batch: List[_Request], total: int):
+        b = self.instance.pick_batch(total)
+        try:
+            n_inputs = len(batch[0].inputs)
+            cat = [np.concatenate([r.inputs[i] for r in batch])
+                   for i in range(n_inputs)]
+            # pad to the allowed batch by repeating the last row (padded
+            # rows are computed and sliced off); past the largest size,
+            # several chunks
+            outs = []
+            for off in range(0, total, b):
+                chunk = [c[off:off + b] for c in cat]
+                pad = b - chunk[0].shape[0]
+                if pad:
+                    chunk = [np.concatenate([c, np.repeat(c[-1:], pad, 0)])
+                             for c in chunk]
+                out = self.instance.run(chunk)
+                outs.append(out[:min(b, total - off)])
+            full = np.concatenate(outs)
+            off = 0
+            for r in batch:
+                r.future.set_result(full[off:off + r.n])
+                off += r.n
+                self._served += 1
+        except Exception as e:  # sent to every waiting client
+            for r in batch:
+                if not r.future.done():
+                    r.future.set_exception(e)
+
+
+def serve(ff, batch_sizes: Sequence[int] = (1, 8), max_delay_ms: float = 2.0,
+          warmup: bool = True) -> Server:
+    """A batch-serving endpoint over a compiled FFModel."""
+    inst = ModelInstance(ff, batch_sizes)
+    if warmup:
+        inst.warmup()
+    return Server(inst, max_delay_ms=max_delay_ms)
+
+
+def serve_onnx(path: str, *args, **kwargs):
+    """ONNX model -> served model: needs the ONNX frontend."""
+    raise NotImplementedError(
+        "serve_onnx needs the ONNX frontend, not ported yet (ROADMAP.md, "
+        "queue 1 item 10)")
+
+
+# ---------------------------------------------------------------------------
+# HTTP endpoint (KServe-v2-shaped JSON)
+
+
+_DTYPE_TO_V2 = {"float32": "FP32", "float64": "FP64", "int32": "INT32",
+                "int64": "INT64", "bool": "BOOL", "float16": "FP16"}
+_V2_TO_DTYPE = {v: k for k, v in _DTYPE_TO_V2.items()}
+
+
+def http_serve(server: Server, port: int = 8000, model_name: str = "model",
+               generation_server=None):
+    """Expose a Server over HTTP with the KServe v2 JSON surface:
+
+      GET  /v2/health/ready                 -> 200, 503 once stopped
+      GET  /v2/models/<name>               -> metadata
+      GET  /v2/models/<name>/metrics       -> serving metrics JSON
+      GET  /metrics                        -> Prometheus text exposition
+      POST /v2/models/<name>/infer         -> {"inputs": [{"name","shape",
+                                               "datatype","data"}...]}
+
+    Inputs bind by name when every one is named after a graph input, by
+    position otherwise. The JSON metrics carry the batcher's counters
+    and, with a `generation_server` (serve_generation) attached, its
+    metrics(); `GET /metrics` serves the same numbers (its
+    MetricsRegistry plus the flattened scalar metrics, `ff_` prefix) as
+    Prometheus text. Binds 127.0.0.1 (`port=0` takes a free port: read it
+    from `server_address`). Returns the ThreadingHTTPServer, serving on
+    a daemon thread; call .shutdown() to stop it."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    input_names = [n.name for n in server.instance.ff.executor.input_nodes]
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):  # quiet
+            pass
+
+        def _send(self, code: int, payload: dict):
+            self._send_raw(code, json.dumps(payload).encode(),
+                           "application/json")
+
+        def _send_raw(self, code: int, body: bytes, ctype: str):
+            try:
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            except OSError:
+                # the client went away mid-response (a second status
+                # line would corrupt the stream)
+                self.close_connection = True
+
+        def do_GET(self):
+            if self.path == "/v2/health/ready":
+                ready = getattr(server, "_running", True)
+                self._send(200 if ready else 503, {"ready": bool(ready)})
+            elif self.path == f"/v2/models/{model_name}":
+                self._send(200, {"name": model_name,
+                                 "platform": "flexflow_tpu_torch",
+                                 "requests_served": server.requests_served})
+            elif self.path == f"/v2/models/{model_name}/metrics":
+                payload = {
+                    "server": {"requests_served": server.requests_served},
+                }
+                if generation_server is not None:
+                    payload["generation"] = generation_server.metrics()
+                self._send(200, payload)
+            elif self.path == "/metrics":
+                scalars = {"server_requests_served":
+                           float(server.requests_served)}
+                if generation_server is not None:
+                    gm = generation_server.metrics()
+                    gm.pop("requests", None)    # per-request detail and
+                    gm.pop("histograms", None)  # the registry's own
+                    scalars.update(obs.flatten_scalars(gm, "generation"))
+                    reg = generation_server.registry
+                else:
+                    reg = obs.MetricsRegistry()
+                self._send_raw(
+                    200,
+                    reg.prometheus_text(extra_scalars=scalars).encode(),
+                    "text/plain; version=0.0.4")
+            else:
+                self._send(404, {"error": f"unknown path {self.path}"})
+
+        def do_POST(self):
+            if self.path != f"/v2/models/{model_name}/infer":
+                self._send(404, {"error": f"unknown path {self.path}"})
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n))
+                specs = req["inputs"]
+                names = [s.get("name") for s in specs]
+                if (len(specs) == len(input_names) and all(names)
+                        and set(names) == set(input_names)):
+                    specs = sorted(
+                        specs, key=lambda s: input_names.index(s["name"]))
+                arrays = []
+                for spec in specs:
+                    v2dt = spec.get("datatype", "FP32")
+                    if v2dt not in _V2_TO_DTYPE:
+                        raise ValueError(f"unsupported datatype {v2dt!r}")
+                    arrays.append(
+                        np.asarray(spec["data"], dtype=_V2_TO_DTYPE[v2dt])
+                        .reshape(spec["shape"]))
+            except Exception as e:
+                self._send(400, {"error": f"{type(e).__name__}: {e}"})
+                return
+            try:
+                out = np.asarray(server.predict(*arrays))
+            except Exception as e:
+                # an inference failure is a server error (retryable),
+                # unlike the request-decode 400s above
+                self._send(503, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._send(200, {
+                "model_name": model_name,
+                "outputs": [{
+                    "name": "output0",
+                    "shape": list(out.shape),
+                    "datatype": _DTYPE_TO_V2.get(str(out.dtype), "FP32"),
+                    "data": out.reshape(-1).tolist(),
+                }],
+            })
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", port), Handler)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd
+
+
+# ---------------------------------------------------------------------------
+# continuous batching for autoregressive generation
+
+
 class _GenRequest:
     __slots__ = ("prompt", "max_new", "temperature", "future", "tokens",
                  "pos", "pages", "submit_t", "admit_t", "first_token_t",
@@ -59,7 +398,8 @@ class _GenRequest:
                  "prefill_target", "prefill_seq", "hashed_blocks",
                  "preemptions", "cached_prefill_tokens", "spec_steps",
                  "spec_drafted", "spec_accepted", "spec_emitted",
-                 "decode_overlap_ticks")
+                 "decode_overlap_ticks", "spilled_pages", "fetched_pages",
+                 "routed_to")
 
     def __init__(self, prompt: np.ndarray, max_new: int, temperature: float):
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -93,6 +433,11 @@ class _GenRequest:
         self.spec_accepted = 0
         self.spec_emitted = 0
         self.decode_overlap_ticks = 0   # decode ticks run mid-prefill
+        # the reference's host KV tier and router fill these; the port
+        # has neither, so they keep the reference's defaults
+        self.spilled_pages = 0
+        self.fetched_pages = 0
+        self.routed_to: Optional[str] = None
 
     def seq_tokens(self) -> np.ndarray:
         """prompt + generated-so-far: what a (re-)prefill after a
@@ -104,12 +449,17 @@ class _GenRequest:
 
     def metrics(self) -> dict:
         """Per-request metrics (the queue time runs from submit to the
-        LAST admission, so a preempted request's requeue wait counts)."""
+        LAST admission, so a preempted request's requeue wait counts).
+        The port compiles nothing at serve time: a request's compile
+        seconds are 0.0 and its TTFT without them is its TTFT."""
+        ttft = (self.first_token_t - self.submit_t
+                if self.first_token_t is not None else None)
         m = {
             "queue_time_s": (self.admit_t - self.submit_t
                              if self.admit_t is not None else None),
-            "ttft_s": (self.first_token_t - self.submit_t
-                       if self.first_token_t is not None else None),
+            "ttft_s": ttft,
+            "first_compile_s": 0.0 if ttft is not None else None,
+            "ttft_excl_compile_s": ttft,
             # first token to last: the request's decode phase
             "decode_s": (self.done_t - self.first_token_t
                          if self.done_t is not None
@@ -136,14 +486,21 @@ class _GenRequest:
 
 
 class _GenerationServerBase:
-    """Request queue + stop/drain contract + sampling shared by the
-    generation servers. The loop thread runs under torch.inference_mode
-    (grad mode is thread-local, so the thread enters it itself)."""
+    """Request queue + stop/drain contract + sampling + observability
+    (registry, bounded request records, reqlog, SLO monitor) shared by
+    the generation servers. The loop thread runs under
+    torch.inference_mode (grad mode is thread-local, so the thread enters
+    it itself)."""
 
+    # default cap on the per-request records metrics() returns; the
+    # oldest drop first (counted). Override with request_record_limit.
     MAX_REQUEST_RECORDS = 1024
 
     def __init__(self, ff, slots: int, max_len: int,
-                 eos_id: Optional[int], seed: int):
+                 eos_id: Optional[int], seed: int,
+                 request_record_limit: Optional[int] = None,
+                 reqlog_capacity: Optional[int] = None,
+                 slo=None, slo_dump_dir: Optional[str] = None):
         self.ff = ff
         self.slots = int(slots)
         self.max_len = int(max_len)
@@ -169,8 +526,39 @@ class _GenerationServerBase:
         self._running = True
         self._served = 0
         self._steps = 0
-        self._request_metrics = collections.deque(
-            maxlen=self.MAX_REQUEST_RECORDS)
+        limit = (int(request_record_limit) if request_record_limit
+                 is not None else self.MAX_REQUEST_RECORDS)
+        if limit < 1:
+            raise ValueError(
+                f"request_record_limit must be >= 1, got {limit}")
+        self.request_record_limit = limit
+        # per-request metric records and the reqlog share one bounded
+        # retention path (obs.BoundedRing); both drop counts ride metrics()
+        self._request_metrics = obs.BoundedRing(limit)
+        # the flight recorder: one record per completed request, on by
+        # default; capacity 0 gives the falsy NULL_REQLOG
+        self._reqlog = obs.request_log(reqlog_capacity)
+        if slo is not None and not isinstance(slo, obs.SLOMonitor):
+            slo = obs.SLOMonitor(slo, dump_dir=slo_dump_dir)
+        elif slo is not None and slo_dump_dir is not None:
+            slo.dump_dir = slo_dump_dir
+        self._slo = slo
+        # always-on histograms: the JSON metrics payload and the
+        # Prometheus text endpoint both read them
+        self.registry = obs.MetricsRegistry()
+        self._h_tick = self.registry.histogram("tick_latency_s")
+        self._h_prefill = self.registry.histogram("prefill_tick_s")
+        self._h_ttft = self.registry.histogram("ttft_s")
+        self._h_queue = self.registry.histogram("queue_time_s")
+        self._h_tokens = self.registry.histogram("tokens_per_tick",
+                                                 obs.COUNT_BUCKETS)
+        self._h_ttft_excl = self.registry.histogram("ttft_excl_compile_s")
+        # the SLO series exist only when a target is declared
+        if self._slo is not None:
+            self._c_slo_breaches = self.registry.counter(
+                "slo_breaches_total")
+            self._g_goodput = self.registry.gauge("goodput_ratio")
+            self._g_goodput.set(1.0)
         self.loop_error: Optional[BaseException] = None
         self._thread: Optional[threading.Thread] = None
 
@@ -237,10 +625,39 @@ class _GenerationServerBase:
     def decode_steps(self) -> int:
         return self._steps
 
+    @property
+    def request_log(self):
+        """The flight recorder (obs.RequestLog, or the falsy NULL_REQLOG
+        with reqlog_capacity=0); `export_jsonl(path)` writes it out."""
+        return self._reqlog
+
+    @property
+    def slo_monitor(self):
+        """The SLO judge (obs.SLOMonitor), or None without a target."""
+        return self._slo
+
     def metrics(self) -> dict:
-        return {"requests_served": self._served,
-                "decode_steps": self._steps,
-                "requests": list(self._request_metrics)}
+        """Aggregate serving metrics, the records of the last
+        `request_record_limit` completed requests (and how many fell
+        off), the reqlog's state, the registry's histograms and, with a
+        target, the SLO snapshot (subclasses extend it). This dict is
+        what http_serve's /v2/models/<name>/metrics serves."""
+        out = {
+            "requests_served": self._served,
+            "decode_steps": self._steps,
+            "requests": list(self._request_metrics),
+            "request_records_dropped": self._request_metrics.dropped,
+            "reqlog": {
+                "enabled": bool(self._reqlog),
+                "records": len(self._reqlog),
+                "capacity": self._reqlog.capacity,
+                "dropped": self._reqlog.dropped,
+            },
+            "histograms": self.registry.to_json(),
+        }
+        if self._slo is not None:
+            out["slo"] = self._slo.snapshot()
+        return out
 
     # -- shared scheduler pieces -----------------------------------------
 
@@ -294,13 +711,88 @@ class _GenerationServerBase:
         self._sample_first_token(slot, req, probs[:, n - 1, :])
         self._active[slot] = req
 
+    # -- request log (obs.reqlog) ----------------------------------------
+
+    def _prefix_chain(self, req: _GenRequest) -> tuple:
+        """The content-hash prefix chain of the reqlog record (never the
+        raw tokens); the dense server has no page pool to derive one
+        from, the paged one overrides it."""
+        return ()
+
+    def _reqlog_kv_dtype(self) -> str:
+        """The KV storage dtype of the reqlog record (the paged server
+        overrides it with its pool's)."""
+        return "dense"
+
+    def _reqlog_record(self, req: _GenRequest, m: dict,
+                       done_t: float) -> dict:
+        """One flight-recorder record per completed request, the
+        reference's keys (obs.reqlog's schema): lifecycle stamps in ns of
+        time.monotonic (a missing stamp collapses forward to done), prompt
+        length and prefix chain, sampling params, kv dtype, the
+        speculative, preemption and page counters, and the per-phase
+        breakdown the stamps imply."""
+        admit_t = req.admit_t if req.admit_t is not None else done_t
+        first_t = (req.first_token_t if req.first_token_t is not None
+                   else done_t)
+        return {
+            "rid": self._served + 1,
+            "label": f"req {self._served + 1}",
+            "submit_ns": int(req.submit_t * 1e9),
+            "admit_ns": int(admit_t * 1e9),
+            "first_token_ns": int(first_t * 1e9),
+            "done_ns": int(done_t * 1e9),
+            "prompt_tokens": int(len(req.prompt)),
+            "prefix_chain": list(self._prefix_chain(req)),
+            "temperature": req.temperature,
+            "max_new_tokens": req.max_new,
+            "kv_dtype": self._reqlog_kv_dtype(),
+            "decode_tokens": m["decode_tokens"],
+            "prefill_tokens": m["prefill_tokens"],
+            "cached_prefill_tokens": m["cached_prefill_tokens"],
+            "pages_held_peak": m["pages_held_peak"],
+            "preemptions": m["preemptions"],
+            "spec_steps": m.get("spec_steps", 0),
+            "spec_draft_tokens": m.get("spec_draft_tokens", 0),
+            "spec_accepted_tokens": m.get("spec_accepted_tokens", 0),
+            "spilled_pages": req.spilled_pages,
+            "fetched_pages": req.fetched_pages,
+            "routed_to": req.routed_to,
+            "phases": {
+                "queue_s": max(0.0, admit_t - req.submit_t),
+                "prefill_s": max(0.0, first_t - admit_t),
+                "decode_s": max(0.0, done_t - first_t),
+            },
+        }
+
     def _release_slot(self, slot: int, req: _GenRequest,
                       completed: bool = False):
         """Subclass hook: reclaim per-slot resources (paged frees pages).
-        Completed requests record their per-request metrics."""
+        A completed request (not a cancellation) records its metrics,
+        feeds the histograms, and writes its reqlog record, which the SLO
+        monitor judges; a breach it trips dumps the bundle from this, the
+        loop's, thread."""
         if completed:
-            req.done_t = time.monotonic()
-            self._request_metrics.append(req.metrics())
+            req.done_t = done_t = time.monotonic()
+            m = req.metrics()
+            self._request_metrics.append(m)
+            if m["ttft_s"] is not None:
+                self._h_ttft.observe(m["ttft_s"])
+            if m["ttft_excl_compile_s"] is not None:
+                self._h_ttft_excl.observe(m["ttft_excl_compile_s"])
+            if m["queue_time_s"] is not None:
+                self._h_queue.observe(m["queue_time_s"])
+            # one record build for both, none when both are off
+            if self._reqlog or self._slo is not None:
+                record = self._reqlog_record(req, m, done_t)
+                self._reqlog.log(record)
+                if self._slo is not None:
+                    tripped = self._slo.observe(record)
+                    self._g_goodput.set(self._slo.goodput)
+                    if tripped:
+                        self._c_slo_breaches.inc()
+                        self._slo.dump(reqlog=self._reqlog,
+                                       metrics=self.metrics)
         self._active[slot] = None
 
     def _finish_if_done(self, slot: int):
@@ -371,8 +863,14 @@ class GenerationServer(_GenerationServerBase):
 
     def __init__(self, ff, slots: int = 4, max_len: int = 512,
                  eos_id: Optional[int] = None, seed: int = 0,
+                 request_record_limit: Optional[int] = None,
+                 reqlog_capacity: Optional[int] = None, slo=None,
+                 slo_dump_dir: Optional[str] = None,
                  defer_start: bool = False):
-        super().__init__(ff, slots, max_len, eos_id, seed)
+        super().__init__(ff, slots, max_len, eos_id, seed,
+                         request_record_limit=request_record_limit,
+                         reqlog_capacity=reqlog_capacity, slo=slo,
+                         slo_dump_dir=slo_dump_dir)
         ex = ff.executor
         self._step = ex.decode_fn
         self._prefill_step = self._step  # one step, two input shapes
@@ -388,7 +886,13 @@ class GenerationServer(_GenerationServerBase):
         def scatter(upd):
             for key, bufs in upd.items():
                 for name, rows in bufs.items():
-                    self._caches[key][name][slot].copy_(rows[0])
+                    # a PIPELINE node's caches lead with the layer dim:
+                    # (L, B, T, Hkv, D), the batch dim second
+                    big = self._caches[key][name]
+                    if rows.ndim == 5:
+                        big[:, slot].copy_(rows[:, 0])
+                    else:
+                        big[slot].copy_(rows[0])
 
         self._admit_common(
             req, slot, min(self._bucket(len(req.seq_tokens())),
@@ -415,6 +919,7 @@ class GenerationServer(_GenerationServerBase):
                     time.sleep(0.001)
                 continue
             # one decode step for the whole pool (idle slots compute too)
+            t0 = time.monotonic()
             pos = np.array([self._active[s].pos if self._active[s] else 0
                             for s in range(self.slots)], np.int32)
             temps = np.array([self._active[s].temperature
@@ -433,6 +938,8 @@ class GenerationServer(_GenerationServerBase):
                 req.tokens.append(int(toks[s]))
                 self._tokens[s] = toks[s]
                 self._finish_if_done(s)
+            self._h_tick.observe(time.monotonic() - t0)
+            self._h_tokens.observe(len(live))
 
 
 def not_ported(what: str, item: int):
@@ -453,6 +960,10 @@ def serve_generation(ff, slots: int = 4, max_len: int = 512,
                      megastep_mixed: bool = False,
                      overlap_dispatch: bool = False,
                      kv_dtype: str = "auto",
+                     request_record_limit: Optional[int] = None,
+                     serve_strategy=None, search_budget=None,
+                     traffic="smoke", reqlog_capacity: Optional[int] = None,
+                     slo=None, slo_dump_dir: Optional[str] = None,
                      kv_quant_canary: Optional[int] = None, host_tier=None,
                      defer_start: bool = False):
     """Continuous-batching generation endpoint over a compiled causal-LM
@@ -465,11 +976,24 @@ def serve_generation(ff, slots: int = 4, max_len: int = 512,
     universal megastep (chunk rows and, with speculate, device-drafted
     chains fused with decode rows), `overlap_dispatch=True` admits while
     its ticks run; `ragged_pack=False` launches the unpacked prefill.
-    The host KV tier and the kv_quant_canary shadow cache are not ported
-    and raise NotImplementedError naming their ROADMAP item; the
-    reference's invalid combinations raise its ValueErrors.
-    `defer_start=True` builds the server without starting its loop
-    (start() does)."""
+    `request_record_limit` bounds the per-request records metrics()
+    keeps, `reqlog_capacity` sizes the request log (0 disables it), and
+    `slo=SLOTarget(...)` arms the SLO monitor with breach dumps under
+    `slo_dump_dir`. The host KV tier, the kv_quant_canary shadow cache
+    and the serving-strategy search (`serve_strategy`, `search_budget`,
+    `traffic` other than its default) are not ported and raise
+    NotImplementedError naming their ROADMAP item; the reference's
+    invalid combinations raise its ValueErrors. `defer_start=True`
+    builds the server without starting its loop (start() does)."""
+    if serve_strategy is not None:
+        not_ported("serve_strategy (search/servesearch.py)", 9)
+    if search_budget is not None:
+        not_ported("search_budget (search/servesearch.py)", 9)
+    if traffic != "smoke":
+        not_ported("traffic (traffic.py)", 9)
+    obs_kw = dict(request_record_limit=request_record_limit,
+                  reqlog_capacity=reqlog_capacity, slo=slo,
+                  slo_dump_dir=slo_dump_dir)
     megastep_ticks = int(megastep_ticks)
     if megastep_ticks < 1:
         raise ValueError(
@@ -507,7 +1031,7 @@ def serve_generation(ff, slots: int = 4, max_len: int = 512,
                 "pages; pass paged=True")
         return GenerationServer(ff, slots=slots, max_len=max_len,
                                 eos_id=eos_id, seed=seed,
-                                defer_start=defer_start)
+                                defer_start=defer_start, **obs_kw)
     kw = dict(slots=slots, max_len=max_len, eos_id=eos_id, seed=seed,
               page_size=page_size, num_pages=num_pages,
               preemption=preemption, prefix_cache=prefix_cache,
@@ -515,7 +1039,7 @@ def serve_generation(ff, slots: int = 4, max_len: int = 512,
               megastep_ticks=megastep_ticks, megastep_mixed=megastep_mixed,
               overlap_dispatch=overlap_dispatch, kv_dtype=kv_dtype,
               kv_quant_canary=kv_quant_canary, host_tier=host_tier,
-              defer_start=defer_start)
+              defer_start=defer_start, **obs_kw)
     if speculate is not None:
         from flexflow_tpu_torch.spec.server import SpeculativePagedServer
 

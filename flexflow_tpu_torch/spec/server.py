@@ -40,11 +40,13 @@ q_len 0 for the idle and mid-prefill ones, as before ragged packing.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from flexflow_tpu_torch import obs
 from flexflow_tpu_torch.paged.scheduler import PagedGenerationServer
 from flexflow_tpu_torch.serving import _GenRequest, pick_tokens
 from flexflow_tpu_torch.spec.config import SpecConfig
@@ -70,6 +72,9 @@ class SpeculativePagedServer(PagedGenerationServer):
                  megastep_mixed: bool = False,
                  overlap_dispatch: bool = False, kv_dtype: str = "auto",
                  host_tier=None, kv_quant_canary: Optional[int] = None,
+                 request_record_limit: Optional[int] = None,
+                 reqlog_capacity: Optional[int] = None, slo=None,
+                 slo_dump_dir: Optional[str] = None,
                  defer_start: bool = False):
         if not isinstance(spec, SpecConfig):
             raise TypeError(
@@ -95,7 +100,15 @@ class SpeculativePagedServer(PagedGenerationServer):
                          overlap_dispatch=overlap_dispatch,
                          kv_dtype=kv_dtype, host_tier=host_tier,
                          kv_quant_canary=kv_quant_canary,
-                         defer_start=defer_start)
+                         request_record_limit=request_record_limit,
+                         reqlog_capacity=reqlog_capacity, slo=slo,
+                         slo_dump_dir=slo_dump_dir, defer_start=True)
+        # a tick's draft acceptance (accepted / drafted), registered before
+        # the loop starts
+        self._h_accept = self.registry.histogram("spec_acceptance",
+                                                 obs.RATIO_BUCKETS)
+        if not defer_start:
+            self.start()
 
     # -- page accounting: the tree's scratch rows count --------------------
 
@@ -158,6 +171,7 @@ class SpeculativePagedServer(PagedGenerationServer):
         req.spec_drafted += D
         req.spec_accepted += accepted
         req.spec_emitted += emitted
+        self._h_accept.observe(accepted / D)
 
     # -- the speculative tick ----------------------------------------------
 
@@ -184,6 +198,8 @@ class SpeculativePagedServer(PagedGenerationServer):
             self._spec_tick(live, tr, ntr)
 
     def _spec_tick(self, live, tr, ntr):
+        t0 = time.monotonic()
+        d0, a0, e0 = self.spec_drafted, self.spec_accepted, self.spec_emitted
         T = self.spec.max_nodes
         C = self.spec.depth + 1  # most rows committed a tick (path + bonus)
         # draft: one tree item per live greedy slot; sampled slots skip
@@ -285,3 +301,9 @@ class SpeculativePagedServer(PagedGenerationServer):
             # it never reach the prefix cache
             self._publish_prefix(self._active[s], self._active[s].pos)
             self._finish_if_done(s)
+        emitted = self.spec_emitted - e0
+        self._h_tick.observe(time.monotonic() - t0)
+        self._h_tokens.observe(emitted)
+        if self.spec_drafted > d0:
+            self._h_accept.observe((self.spec_accepted - a0)
+                                   / (self.spec_drafted - d0))

@@ -1635,3 +1635,68 @@ def test_dense_dropout_route_only_in_training_above_rate_zero():
     assert torch_ops.DENSE_DROPOUT_ATTENTION.launches - dense == 2
     assert _k4_counts()[0] - before[0] == 2
     assert np.isfinite(out).all()
+
+
+def test_pipeline_train_step_launches_k1_k2_once_a_layer(monkeypatch):
+    """build_llama(use_pipeline=True) at head dim 128 (K1/K2's route),
+    bf16, remat none, trains one step on the card: K1's forward, K2's dq
+    and K2's dk/dv each launch once per layer of the stack (2 layers),
+    no plain version runs, and the loss is finite."""
+    _needs_card()
+    from flexflow_tpu_torch import AdamOptimizer, DataType, FFConfig, FFModel
+    from flexflow_tpu_torch.kernels import (
+        FLASH_ATTENTION_DKV,
+        FLASH_ATTENTION_DQ,
+        FLASH_ATTENTION_FWD,
+    )
+    from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
+    from flexflow_tpu_torch.ops import flash_attention as fa
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain flash version ran on the card")
+
+    for name in ("flash_attention_reference", "flash_dq_reference",
+                 "flash_dkv_reference"):
+        monkeypatch.setattr(fa, name, plain)
+    cfg = LlamaConfig(vocab_size=512, dim=256, layers=2, heads=2,
+                      kv_heads=1, hidden=512)
+    ff = FFModel(FFConfig(batch_size=2, device="cuda", remat="none"))
+    build_llama(ff, cfg, batch_size=2, seq_len=256,
+                dtype=DataType.BFLOAT16, use_pipeline=True)
+    ff.compile(optimizer=AdamOptimizer(lr=1e-4))
+    x = np.random.RandomState(8).randint(0, 512, (2, 256)).astype(np.int32)
+    y = np.roll(x, -1, axis=1)
+    kernels = (FLASH_ATTENTION_FWD, FLASH_ATTENTION_DQ, FLASH_ATTENTION_DKV)
+    before = [k.launches for k in kernels]
+    tr, ntr = ff._params
+    *_, m = ff.executor.train_step(tr, ntr, ff._opt_state,
+                                   torch.from_numpy(y).cuda(),
+                                   torch.from_numpy(x).cuda())
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 2, 2]
+    assert bool(torch.isfinite(m["loss"]))
+
+
+def test_batch_server_forward_reaches_k4():
+    """A two-layer BERT (head dim 64, declared bf16: fp32 from its
+    position add on) behind the batch server on the card: a 3-row request
+    runs one padded batch of 4, K4's forward launches once a layer, and
+    the answer is predict's."""
+    _needs_card()
+    from flexflow_tpu_torch import DataType, FFConfig, FFModel
+    from flexflow_tpu_torch.models import BertConfig, build_bert
+
+    ff = FFModel(FFConfig(batch_size=4, device="cuda"))
+    build_bert(ff, BertConfig(vocab_size=128, hidden=128, layers=2,
+                              heads=2, intermediate=256, dropout=0.0),
+               batch_size=4, seq_len=32, dtype=DataType.BFLOAT16)
+    ff.compile()
+    x = np.random.RandomState(9).randint(0, 128, (3, 32)).astype(np.int32)
+    server = ff.serve(batch_sizes=(1, 4), max_delay_ms=1.0, warmup=False)
+    try:
+        before = _k4_counts()[0]
+        got = server.predict(x)
+        assert _k4_counts()[0] - before == 2
+    finally:
+        server.stop()
+    np.testing.assert_allclose(got, ff.predict(x), atol=1e-5, rtol=1e-4)

@@ -131,9 +131,10 @@ def test_chip_smoke_fails_without_cuda():
 
 def test_training_entry_points_raise():
     """What the training slice does not port raises, naming ROADMAP: a
-    refused config field (fit's profiler capture), an initializer
-    override, fit(dataloaders=...). Attention dropout in training is
-    ported (the dense route): fit trains through it."""
+    refused config field (fit's profiler capture), fit(dataloaders=...)
+    and fit(recompile_state=...). Initializer overrides are ported (the
+    override draws the leaf) and so is attention dropout in training
+    (the dense route): fit trains through it."""
     from flexflow_tpu_torch import FFConfig, FFModel, LossType
     from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
     from flexflow_tpu_torch.ops import torch_ops
@@ -142,10 +143,10 @@ def test_training_entry_points_raise():
         FFConfig(device="cpu", profiler_trace_dir="trace")
     ff = FFModel(FFConfig(batch_size=1, device="cpu"))
     x = ff.create_tensor((1, 4, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ff.dense(x, 16, kernel_initializer="zeros")
-    ff.multihead_attention(x, x, x, 16, 2, dropout=0.1)
+    d = ff.dense(x, 16, kernel_initializer="zeros", name="zeroed")
+    ff.multihead_attention(d, d, d, 16, 2, dropout=0.1)
     ff.compile(loss_type=LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
+    assert not ff.get_weight("zeroed").any()
     before = torch_ops.DENSE_DROPOUT_ATTENTION.launches
     m = ff.fit(np.ones((1, 4, 16), np.float32),
                np.zeros((1, 4, 16), np.float32), verbose=False)
@@ -156,3 +157,6 @@ def test_training_entry_points_raise():
     ff.compile()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ff.fit(dataloaders=[object()])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ff.fit(np.zeros((1, 4), np.int32), np.zeros((1, 4), np.int32),
+               recompile_state=object())

@@ -43,6 +43,7 @@ from flexflow_tpu_torch import (  # noqa: E402
 from flexflow_tpu_torch.models.llama import (  # noqa: E402
     LlamaConfig,
     build_llama,
+    llama_pp_strategy,
 )
 from flexflow_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from flexflow_tpu_torch.ops import torch_ops  # noqa: E402
@@ -497,8 +498,9 @@ def test_ring_llama_paged_server_greedy_tokens_match_jax(monkeypatch):
 
 def test_unported_parallelism_raises():
     """A mesh axis other than seq above 1, Ulysses and the pipeline
-    composite raise NotImplementedError naming ROADMAP; nothing is
-    ignored."""
+    strategy (GPipe stages over a `pipe` axis) raise NotImplementedError
+    naming ROADMAP; nothing is ignored. The PIPELINE composite itself
+    builds: its blocks run in turn on one device."""
     for shape in ({"model": 2}, {"data": 2, "seq": 2}, {"pipe": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FFConfig(device="cpu", mesh_shape=shape)
@@ -510,8 +512,9 @@ def test_unported_parallelism_raises():
         build_llama(ff, LlamaConfig.tiny(), batch_size=1, seq_len=8,
                     use_ring_attention=True, seq_mode="ulysses")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_llama(ff, LlamaConfig.tiny(), batch_size=1, seq_len=8,
-                    use_pipeline=True)
+        llama_pp_strategy(LlamaConfig.tiny())
+    build_llama(ff, LlamaConfig.tiny(), batch_size=1, seq_len=8,
+                use_pipeline=True)
     x = ff.create_tensor((1, 8, 16))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ff.ulysses_attention(x, x, x, 16, 2)

@@ -4,7 +4,7 @@ MEAN and LSTM held to the JAX package's lowerings on the CPU, outputs
 and gradients (jax.value_and_grad against autograd) in fp32 (within
 TOL) and bf16 (within BF16_TOL of the largest value;
 tests/torch_parity.py); and the registry: every op the JAX package
-lowers has a PyTorch lowering, PIPELINE and CACHE excepted."""
+lowers has a PyTorch lowering."""
 
 import numpy as np
 import pytest
@@ -147,24 +147,22 @@ def test_lstm_matches_jax(reverse, state, bias, dtype):
 
 def test_every_reference_lowering_has_a_port_lowering():
     """Enumerating OpType: every op the JAX package lowers (jax_ops and
-    the parallel ops) has a PyTorch lowering in the port but PIPELINE and
-    CACHE (ROADMAP.md, queue 1 item 8c), which raise naming it; the ops
-    neither package lowers (FUSED, LOSS, METRICS) raise too."""
+    the parallel ops, PIPELINE and CACHE among them) has a PyTorch
+    lowering in the port; the ops neither package lowers (FUSED, LOSS,
+    METRICS) raise."""
     missing, refused = [], []
     for op in OpType:
         jop = JOpType(op.value)
         try:
             get_lowering(op)
-        except NotImplementedError as e:
+        except NotImplementedError:
             refused.append(op)
-            if op in (OpType.PIPELINE, OpType.CACHE):
-                assert "item 8c" in str(e)
             continue
         assert callable(get_lowering(op))
         if jop not in J_LOWERINGS:
             missing.append(op)
     assert sorted(o.value for o in refused) == sorted(
-        ["pipeline", "cache"] + [o.value for o in OpType
-                                 if JOpType(o.value) not in J_LOWERINGS])
+        o.value for o in OpType if JOpType(o.value) not in J_LOWERINGS)
+    assert OpType.PIPELINE not in refused and OpType.CACHE not in refused
     assert not missing, missing
     assert {o.value for o in OpType} == {o.value for o in JOpType}
