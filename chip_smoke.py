@@ -9,10 +9,13 @@ widths trained and served paged (the MoE ops), and the model zoo trained
 at full width (BERT-base, the encoder-decoder Transformer, ResNet-50, the
 LSTM NMT, DLRM), a Llama built as one PIPELINE composite trained and
 decoded, BERT-base behind the batch server and the paged server behind
-the HTTP endpoint with its request log and SLO, and holds every
-hand-written kernel on them to its plain PyTorch version.
+the HTTP endpoint with its request log and SLO, the paged server with a
+host KV tier, disaggregated into prefill and decode workers, behind a
+prefix-affinity router, with the kv_quant_canary shadow cache and under
+the span tracer, and holds every hand-written kernel on them to its plain
+PyTorch version.
 
-    python3 chip_smoke.py            # phases 1..4, 6..19, one card
+    python3 chip_smoke.py            # phases 1..4, 6..20, one card
     python3 chip_smoke.py --phases 5 # + profiles of serving and training
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
@@ -41,7 +44,8 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      fp32 q over fp and int8 pools, each with its split plan, the fp kernel's pages per split swept at the
      steady decode case and at tree_w9 (SPLIT_SWEEP, fp and int8
      pools), over int8 pools (Llama's cases) written by the port's own
-     quantize-on-append, and over a bf16 pool under fp32 q; and the
+     quantize-on-append, over a bf16 pool under fp32 q and over an fp32
+     pool under bf16 q (the canary's shadow launch, phase 20c); and the
      flash-attention forward, dq and dk/dv kernels at the training
      path's shape (bench_1b attention: B 8, S = T 1024, H 16, Hkv 8,
      D 128, causal) and at phase 17a's (Mixtral-8x7B attention: B 2,
@@ -313,7 +317,48 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      tick's ms and synchronizing calls with and without (the kernels
      line records K1/K2's launches of (a) under "pipeline_1b", K4's
      forward's of (c) under "bert_serve", K3's of (d) under
-     "http_serve").
+     "http_serve");
+ 20. the host KV tier, disaggregation, the canary and the tracer, at
+     Llama-3-8B's widths, 8 of its 32 layers (TIER_LAYERS), bf16, random
+     weights from the seed (a page of 64 rows is 2 MiB): (a) four
+     1024-token system prompts, 32 requests of one plus 64 tokens of
+     their own, 32 new each, in 8 waves of 4 sharing a prompt (A, B, C,
+     D, A, B, C, D; each wave's first request alone, then the other
+     three), through serve_generation(paged=True) at its defaults with
+     40 pages and no tier, 40 pages and host_tier=128, and 160 pages
+     (every prefix resident): prefill tokens computed, hit tokens,
+     spilled and fetched pages, tier drops, fetch latency, TTFT p50 of
+     the second round's wave-first requests and of all, tokens/s, peak
+     memory, K3's launches; the tiered run's tokens must equal the
+     resident run's, one page's spill and fetch must be bit-exact, and
+     at fp32 (TF32 off) and depth 2 the three runs token-identical;
+     (b) the same waves through DisaggPair(ff, tier_pages=128,
+     num_pages=40): 32 handoffs, pages spilled and fetched, tokens
+     beside (a)'s resident run (the bf16 share; fp32 depth 2
+     identical), TTFT and tokens/s beside the monolithic server's (one
+     card and one interpreter serve both workers: no gain); then the
+     32 requests in seeded shuffled order through a PrefixAffinityRouter
+     over two 40-page servers against a round-robin spread: hit tokens
+     (the router's must be more); (c) phase 4's requests through an int8
+     pool with no canary, kv_quant_canary=1 and FF_TPU_KV_QUANT_DEBUG=1:
+     identical tokens, kv_quant_error under the catalog's 1e-2 band with
+     no breach, windows, decode tick ms with a window open against none,
+     the shadow pool's bytes, the int8 kernel once a layer and step and
+     the fp kernel (bf16 q over the fp32 shadow) once a layer and shadow
+     step; (d) phase 4's requests at 4 layers through the paged server
+     with obs.enable() against without (and an SLO every request misses):
+     identical tokens, decode tick ms and equal synchronizing calls a
+     tick, the spans by name, the ledger's shape keys and stats, a
+     request track, the Chrome trace loaded back, the breach bundle's
+     trace tail; a torch.profiler capture (every thread) over 10 traced
+     decode ticks whose decode_tick ranges enclose K3's split-kernel
+     launches, a layer's each; fit under FFConfig(profiler_trace_dir=...)
+     at bench_1b's widths, depth 2, batch 8 x 1024, 3 steps, whose trace
+     names K1's and K2's kernels (the kernels line records K3's
+     launches of (a)'s tiered run, (b)'s pair and (d)'s traced run under
+     "tier_disagg_trace", its shadow launches of (c) under
+     "canary_shadow", timed at phase 2's fp32-pool case, and the int8
+     kernel's of (c) under "canary").
 Each phase, and each part of phases 2 and 3, logs its wall seconds on a
 `phase_time` line. The line before the last is the kernel list as JSON;
 the last line is {"ok": true, "device": {...}}. Exits non-zero without
@@ -350,7 +395,10 @@ from flexflow_tpu_torch import (
     LossType,
     MetricsType,
     SGDOptimizer,
+    obs,
 )
+from flexflow_tpu_torch.analysis import num_budgets
+from flexflow_tpu_torch.disagg import DisaggPair, PrefixAffinityRouter
 from flexflow_tpu_torch.kernels import (
     FLASH_ATTENTION_BH_DKV,
     FLASH_ATTENTION_BH_DQ,
@@ -410,7 +458,7 @@ from flexflow_tpu_torch.parallel.mesh import make_mesh
 from flexflow_tpu_torch.runtime.executor import merge_state
 from flexflow_tpu_torch.parallel.ring import ring_dot_product_attention
 from flexflow_tpu_torch.obs import SLOTarget, load_jsonl
-from flexflow_tpu_torch.serving import http_serve, pick_tokens
+from flexflow_tpu_torch.serving import _GenRequest, http_serve, pick_tokens
 from flexflow_tpu_torch.spec import SpecConfig
 from flexflow_tpu_torch.spec.fixtures import make_token_cyclic
 from flexflow_tpu_torch.spec.tree import ancestor_masks, build_tree
@@ -1193,7 +1241,8 @@ def phase_int8_kernels(card: str) -> list:
     """The int8 kernel at the serving shapes (the cases of phase_kernels,
     q in bf16 and fp32) over int8 pages written by quantized_append from
     seeded rows; then the fp-pool kernel over a bf16 pool under fp32 q
-    (the mixed-dtype route). No single PyTorch call dequantizes and
+    (the mixed-dtype route) and over an fp32 pool under bf16 q (the
+    kv_quant_canary's shadow launch). No single PyTorch call dequantizes and
     attends, so library_ms is None; SDPA over the same pages
     pre-dequantized to bf16 is timed beside it as a yardstick only."""
     scale = 1.0 / D ** 0.5
@@ -1230,6 +1279,21 @@ def phase_int8_kernels(card: str) -> list:
              (q, args[1].float(), args[2].float(), pt, pos, qls, anc),
              scale)),
          "library": "SDPA over the pages cast to fp32"}))
+    # the kv_quant_canary's shadow launch: bf16 q over the fp32 shadow
+    # pool, at the decode launch's shape (phase 20c), its bound the fp32
+    # pool's bytes; SDPA in bf16 over the pages cast to bf16 beside it
+    q, kc, vc, pt, pos, qls, anc = attention_case(
+        window, kinds, torch.float32, seed=0, fixed_pos=fixed)
+    qb = q.bfloat16()
+    args = (qb, kc, vc, pt, pos, qls, anc)
+    results.append(_kernel_check(
+        name + "_fp32_pool", torch.bfloat16, TOLS[torch.bfloat16][0], args,
+        {}, scale, card,
+        {"window": window, "kinds": kinds,
+         "library_ms": time_ms(library_call(
+             (qb, kc.bfloat16(), vc.bfloat16(), pt, pos, qls, anc), scale)),
+         "library": "SDPA in bf16 over the pages cast to bf16"}))
+    del q, kc, vc, args
     torch.cuda.empty_cache()
     return results
 
@@ -5705,6 +5769,728 @@ def phase_pipeline_and_serving(seed: int, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the host KV tier, prefill/decode disaggregation, the router,
+# the kv_quant_canary shadow cache and the span tracer
+
+# Llama-3-8B's widths at 8 of its 32 layers, bf16: a page of 64 rows is
+# 2 x 8 x 8 x 128 x 64 x 2 B = 2 MiB
+TIER_LAYERS = 8
+TIER_SERVE = dict(slots=4, max_len=2048, page_size=64, prefill_chunk=64)
+# four 1024-token system prompts (16 pages each); a request is one of them
+# plus 64 tokens of its own and asks for 32 new; TIER_WAVES waves of four
+# requests sharing a prompt, in the order A, B, C, D, A, B, C, D: a chat
+# service that keeps more system prompts than its pool holds
+TIER_SYS, TIER_SUFFIX, TIER_NEW, TIER_WAVES = 1024, 64, 32, 8
+# the small pool (a wave holds ~24 pages live, so by the second round
+# every prefix has been evicted), the tier (128 pages: 256 MiB of host
+# memory) and a pool that keeps every prefix resident
+TIER_SMALL_POOL, TIER_CAPACITY, TIER_BIG_POOL = 40, 128, 160
+# the fp32 check (TF32 off): depth 2, the same prompts, 8 new tokens
+TIER_FP32_LAYERS, TIER_FP32_NEW = 2, 8
+# the tracer: phase 19d's depth, the decode ticks of its profiler capture;
+# fit's capture at bench_1b's widths, depth 2, batch 8 x 1024, 3 steps
+TRACE_LAYERS, TRACE_TICKS = 4, 10
+# phase 4's new tokens a request, for the canary's and the tracer's runs
+SERVE4_NEW = 64
+FIT_TRACE_LAYERS, FIT_TRACE_STEPS = 2, 3
+
+
+def tier_traffic(vocab: int, seed: int) -> list:
+    """TIER_WAVES waves of four prompts: wave w's share system prompt
+    w % 4 (TIER_SYS seeded tokens), each with TIER_SUFFIX seeded tokens of
+    its own."""
+    rs = np.random.RandomState(seed + 20)
+    systems = [rs.randint(0, vocab, (TIER_SYS,)).astype(np.int32)
+               for _ in range(4)]
+    return [[np.concatenate([systems[w % 4], rs.randint(
+        0, vocab, (TIER_SUFFIX,)).astype(np.int32)]) for _ in range(4)]
+        for w in range(TIER_WAVES)]
+
+
+def serve_waves(target, waves, new: int) -> list:
+    """Each wave through target.submit_request (a paged server or a
+    DisaggPair): its first request alone to completion (its prefix pages
+    publish), then the other three together. Returns the requests in
+    submission order: tokens, TTFT stamps and page counters on each."""
+    reqs = []
+    for wave in waves:
+        first = _GenRequest(wave[0], new, 0.0)
+        target.submit_request(first)
+        first.future.result(timeout=900)
+        rest = [_GenRequest(p, new, 0.0) for p in wave[1:]]
+        for r in rest:
+            target.submit_request(r)
+        for r in rest:
+            r.future.result(timeout=900)
+        reqs += [first] + rest
+    return reqs
+
+
+def _p50(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def wave_report(reqs, wall: float, new: int) -> dict:
+    """Prefill tokens computed (all, second round), hit tokens, fetched
+    pages, TTFT p50 of the second round's wave-first requests and of all,
+    and tokens/s."""
+    half = len(reqs) // 2
+    ttft = [r.first_token_t - r.submit_t for r in reqs]
+    return {
+        "prefill_tokens": sum(r.prefill_tokens for r in reqs),
+        "prefill_tokens_round2": sum(r.prefill_tokens for r in reqs[half:]),
+        "hit_tokens": sum(r.cached_prefill_tokens for r in reqs),
+        "fetched_pages": sum(r.fetched_pages for r in reqs),
+        "ttft_p50_round2_first_s": _p50(ttft[half::4]),
+        "ttft_round2_first_s": ttft[half::4],
+        "ttft_p50_s": _p50(ttft), "wall_s": wall,
+        "generated_tokens_per_s": new * len(reqs) / wall,
+    }
+
+
+def _tier_block(m: dict) -> dict:
+    """The host-tier numbers of a server's metrics()."""
+    ht = m["host_tier"]
+    return {k: ht.get(k) for k in (
+        "spilled_pages", "fetched_pages", "dropped_pages_total",
+        "occupancy_pages", "fetch_latency_s_avg", "fetch_seconds_total")}
+
+
+def tier_run(ff, waves, new: int, num_pages: int, seed: int,
+             host_tier=None) -> dict:
+    """The waves through serve_generation(paged=True) at TIER_SERVE with
+    `num_pages` and `host_tier`; kernel counts reset just before and
+    read just after; the pool's invariants checked after the drain."""
+    server = ff.serve_generation(paged=True, num_pages=num_pages, seed=seed,
+                                 host_tier=host_tier, **TIER_SERVE)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps0 = server.ragged_steps
+        _reset_launches()
+        t0 = time.monotonic()
+        reqs = serve_waves(server, waves, new)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k.name: k.launches for k in KERNELS}
+        steps = server.ragged_steps - steps0
+        m = server.metrics()
+    finally:
+        server.stop()
+    server.pool.check_invariants(owners={})
+    res = wave_report(reqs, wall, new)
+    res.update({"num_pages": num_pages, "ragged_steps": steps,
+                "launches": launches, "preemptions": m["preemptions"],
+                "evictions": m["prefix_cache"]["evictions"],
+                "host_tier": _tier_block(m),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return {"server": server,
+            "outs": [np.asarray(r.future.result()) for r in reqs],
+            "res": res}
+
+
+def page_roundtrip(server) -> dict:
+    """One resident page of `server`'s pool spilled to a host payload, the
+    page overwritten, the payload fetched back: every leaf's row must be
+    the same bytes as before."""
+    page = next(iter(server.pool._full.values()))
+    before = {k: {n: b[page].clone() for n, b in bufs.items()}
+              for k, bufs in server._caches.items()}
+    payload = server._tier_read_page(page)
+    for bufs in server._caches.values():
+        for b in bufs.values():
+            b[page].fill_(3)
+    server._tier_write_page(page, payload)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(b[page], before[k][n])
+                for k, bufs in server._caches.items()
+                for n, b in bufs.items())
+    pinned = all(t.is_pinned() for bufs in payload.values()
+                 for t in bufs.values())
+    nbytes = server._page_layout()[1]
+    return {"page": int(page), "bit_exact": exact, "payload_pinned": pinned,
+            "payload_bytes": nbytes, "leaves": sum(
+                len(b) for b in payload.values())}
+
+
+def _llama_cut(layers: int, seed: int, dtype) -> FFModel:
+    """Llama-3-8B's widths at `layers` layers, compiled on the card."""
+    ff = FFModel(FFConfig(batch_size=1, seed=seed, device=DEVICE))
+    build_llama(ff, llama3_8b_cut(layers), batch_size=1,
+                seq_len=TIER_SERVE["max_len"], dtype=dtype)
+    return ff.compile()
+
+
+def _warm(ff, prompt):
+    """cuBLAS and the allocator warmed off the clock."""
+    server = ff.serve_generation(paged=True, **TIER_SERVE)
+    try:
+        server.generate(prompt[:16], max_new_tokens=2, timeout=900)
+    finally:
+        server.stop()
+
+
+def _k3_ok(label, r, layers, problems, kernel=None, steps=None):
+    kernel = kernel or RAGGED_PAGED_ATTENTION
+    steps = r["ragged_steps"] if steps is None else steps
+    got = r["launches"][kernel.name]
+    if steps == 0 or got != layers * steps:
+        problems.append(f"{label}: {kernel.name} launched {got}, not "
+                        f"{layers} x {steps} steps")
+
+
+def phase_host_tier(seed: int, problems: list, ff, ff32) -> dict:
+    """20a: the waves through three servers of `ff` (Llama-3-8B's widths,
+    TIER_LAYERS layers, bf16): (1) TIER_SMALL_POOL pages, no tier; (2) the
+    same pool with a TIER_CAPACITY-page host tier; (3) TIER_BIG_POOL
+    pages, no tier (every prefix resident: the reference tokens). Run 2's
+    tokens must equal run 3's (a fetched page is the spilled bytes, and
+    the launch shapes match), it must fetch, one page's spill and fetch
+    must be bit-exact, and through `ff32` (fp32, TF32 off, depth 2) the
+    three runs must be token-identical. Returns the runs' reports and
+    run 3's tokens in both precisions, which 20b compares against."""
+    cfg = llama3_8b_cut(TIER_LAYERS)
+    waves = tier_traffic(cfg.vocab_size, seed)
+    runs = {}
+    for key, pages, tier in (("no_tier", TIER_SMALL_POOL, None),
+                             ("tier", TIER_SMALL_POOL, TIER_CAPACITY),
+                             ("resident", TIER_BIG_POOL, None)):
+        runs[key] = tier_run(ff, waves, TIER_NEW, pages, seed, tier)
+        _k3_ok(f"20a {key}", runs[key]["res"], cfg.layers, problems)
+    trip = page_roundtrip(runs["tier"]["server"])
+    res = {"model": "llama3_8b", "layers": cfg.layers, "dtype": "bfloat16",
+           "requests": TIER_WAVES * 4, "new_tokens": TIER_NEW,
+           "prompt_tokens": TIER_SYS + TIER_SUFFIX,
+           "tier_capacity_pages": TIER_CAPACITY,
+           **{k: r["res"] for k, r in runs.items()},
+           "roundtrip": trip,
+           "tier_vs_resident_same_share": _same_share(
+               runs["tier"]["outs"], runs["resident"]["outs"]),
+           "tier_vs_resident_identical": _identical(
+               runs["tier"]["outs"], runs["resident"]["outs"]),
+           "no_tier_vs_resident_same_share": _same_share(
+               runs["no_tier"]["outs"], runs["resident"]["outs"])}
+    bf16_outs = runs["resident"]["outs"]
+    del runs
+    free_card()
+    fp32 = {key: tier_run(ff32, waves, TIER_FP32_NEW, pages, seed, tier)
+            for key, pages, tier in (
+                ("no_tier", TIER_SMALL_POOL, None),
+                ("tier", TIER_SMALL_POOL, TIER_CAPACITY),
+                ("resident", TIER_BIG_POOL, None))}
+    res["fp32_depth2"] = {
+        "layers": TIER_FP32_LAYERS, "new_tokens": TIER_FP32_NEW,
+        **{k: {"prefill_tokens_round2": r["res"]["prefill_tokens_round2"],
+               "host_tier": r["res"]["host_tier"]} for k, r in fp32.items()},
+        "identical": _identical(fp32["no_tier"]["outs"],
+                                fp32["resident"]["outs"])
+        and _identical(fp32["tier"]["outs"], fp32["resident"]["outs"])}
+    fp32_outs = fp32["resident"]["outs"]
+    del fp32
+    free_card()
+    log(f"host_tier {json.dumps(res)}")
+    checks = {
+        "tier_tokens": res["tier_vs_resident_identical"],
+        "fetched": (res["tier"]["host_tier"]["fetched_pages"] or 0) > 0,
+        "spilled": (res["tier"]["host_tier"]["spilled_pages"] or 0) > 0,
+        "roundtrip": trip["bit_exact"],
+        "fp32_identical": res["fp32_depth2"]["identical"]}
+    res["checks"] = checks
+    if not all(checks.values()):
+        problems.append(f"20a: {checks}")
+    return {"res": res, "bf16_outs": bf16_outs, "fp32_outs": fp32_outs}
+
+
+def pair_run(ff, waves, new: int, seed: int) -> dict:
+    """The waves through DisaggPair(ff, tier_pages=TIER_CAPACITY,
+    num_pages=TIER_SMALL_POOL) at TIER_SERVE: a prefill worker and a decode
+    server, each with its own loop thread on the card, the KV handed over
+    through the shared host tier."""
+    pair = DisaggPair(ff, tier_pages=TIER_CAPACITY,
+                      num_pages=TIER_SMALL_POOL, seed=seed, **TIER_SERVE)
+    try:
+        torch.cuda.synchronize()
+        steps0 = pair.prefill.ragged_steps + pair.decode.ragged_steps
+        _reset_launches()
+        t0 = time.monotonic()
+        reqs = serve_waves(pair, waves, new)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k.name: k.launches for k in KERNELS}
+        steps = (pair.prefill.ragged_steps + pair.decode.ragged_steps
+                 - steps0)
+        m = pair.metrics()
+    finally:
+        pair.stop()
+    pair.prefill.pool.check_invariants(owners={})
+    pair.decode.pool.check_invariants(owners={})
+    res = wave_report(reqs, wall, new)
+    res.update({"handoffs": m["handoffs"], "ragged_steps": steps,
+                "prefill_steps": pair.prefill.ragged_steps,
+                "decode_steps": pair.decode.ragged_steps,
+                "launches": launches,
+                "spilled_pages": sum(r.spilled_pages for r in reqs),
+                "host_tier": {k: m["host_tier"][k] for k in (
+                    "spilled_pages_total", "fetched_pages_total",
+                    "dropped_pages_total", "occupancy_pages",
+                    "fetch_latency_s_avg")}})
+    return {"outs": [np.asarray(r.future.result()) for r in reqs],
+            "res": res}
+
+
+def router_run(ff, reqs, seed: int, affinity: bool) -> dict:
+    """The requests, all at once, over two paged servers of
+    TIER_SMALL_POOL pages each: through a PrefixAffinityRouter, or round
+    robin. Hit tokens summed over both pools."""
+    servers = [ff.serve_generation(paged=True, num_pages=TIER_SMALL_POOL,
+                                   seed=seed, **TIER_SERVE)
+               for _ in range(2)]
+    router = PrefixAffinityRouter(servers, names=["a", "b"])
+    try:
+        t0 = time.monotonic()
+        if affinity:
+            futs = [router.submit(p, TIER_NEW) for p in reqs]
+        else:
+            futs = [servers[i % 2].submit(p, TIER_NEW)
+                    for i, p in enumerate(reqs)]
+        for f in futs:
+            f.result(timeout=900)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        ms = [s.metrics() for s in servers]
+    finally:
+        router.stop()
+    for s in servers:
+        s.pool.check_invariants(owners={})
+    out = {"hit_tokens": sum(m["prefix_cache"]["hit_tokens"] for m in ms),
+           "prefill_tokens": sum(r["prefill_tokens"] for m in ms
+                                 for r in m["requests"]),
+           "per_server": [m["requests_served"] for m in ms],
+           "wall_s": wall,
+           "generated_tokens_per_s": TIER_NEW * len(reqs) / wall}
+    if affinity:
+        out["router"] = router.metrics()
+    return out
+
+
+def phase_disagg(seed: int, problems: list, tier: dict, ff, ff32) -> dict:
+    """20b: the waves through a DisaggPair at 20a's widths and pool (32
+    handoffs, pages spilled and fetched, tokens beside 20a's resident run;
+    TTFT and tokens/s beside the monolithic server's: one card and one
+    interpreter serve both workers, so this is no gain); fp32 at depth 2,
+    tokens identical to the monolithic server's; then the same requests
+    in seeded shuffled order through a PrefixAffinityRouter over two
+    paged servers against a round-robin spread: hit tokens."""
+    cfg = llama3_8b_cut(TIER_LAYERS)
+    waves = tier_traffic(cfg.vocab_size, seed)
+    pair = pair_run(ff, waves, TIER_NEW, seed)
+    mono = tier["res"]["resident"]
+    res = {"model": "llama3_8b", "layers": cfg.layers, "dtype": "bfloat16",
+           "pair": pair["res"],
+           "monolithic": {k: mono[k] for k in (
+               "ttft_p50_s", "ttft_p50_round2_first_s",
+               "generated_tokens_per_s", "prefill_tokens")},
+           "pair_vs_monolithic_same_share": _same_share(
+               pair["outs"], tier["bf16_outs"])}
+    _k3_ok("20b pair", pair["res"], cfg.layers, problems)
+    order = np.random.RandomState(seed + 21).permutation(TIER_WAVES * 4)
+    flat = [p for wave in waves for p in wave]
+    shuffled = [flat[i] for i in order]
+    res["round_robin"] = router_run(ff, shuffled, seed, affinity=False)
+    res["affinity"] = router_run(ff, shuffled, seed, affinity=True)
+    free_card()
+    pair32 = pair_run(ff32, waves, TIER_FP32_NEW, seed)
+    res["fp32_depth2"] = {
+        "handoffs": pair32["res"]["handoffs"],
+        "identical": _identical(pair32["outs"], tier["fp32_outs"])}
+    free_card()
+    log(f"disagg {json.dumps(res)}")
+    n = TIER_WAVES * 4
+    checks = {
+        "handoffs": res["pair"]["handoffs"] == n
+        and res["fp32_depth2"]["handoffs"] == n,
+        "spilled": res["pair"]["host_tier"]["spilled_pages_total"] > 0,
+        "fetched": res["pair"]["host_tier"]["fetched_pages_total"] > 0,
+        "fp32_identical": res["fp32_depth2"]["identical"],
+        "router_hits": res["affinity"]["hit_tokens"]
+        > res["round_robin"]["hit_tokens"]}
+    res["checks"] = checks
+    if not all(checks.values()):
+        problems.append(f"20b: {checks}")
+    return res
+
+
+def canary_run(ff, prompts, new: int, debug: bool = False, **kw) -> dict:
+    """Phase 4's requests through serve_generation(paged=True,
+    kv_dtype="int8") at TIER_SERVE and `kw`, every request queued before
+    the loop starts; with `debug`, the server built under
+    FF_TPU_KV_QUANT_DEBUG=1. Each decode tick is timed on the host and
+    filed by whether a shadow window was open; kernel counts reset just
+    before the loop starts, read after its last request."""
+    if debug:
+        os.environ["FF_TPU_KV_QUANT_DEBUG"] = "1"
+    try:
+        server = ff.serve_generation(paged=True, kv_dtype="int8",
+                                     defer_start=True, **TIER_SERVE, **kw)
+    finally:
+        os.environ.pop("FF_TPU_KV_QUANT_DEBUG", None)
+    ticks = {"window_open": [], "no_window": []}
+    tick = server._decode_tick
+
+    def timed_tick(*a):
+        key = "window_open" if server._caches_ref is not None \
+            else "no_window"
+        t0 = time.perf_counter()
+        try:
+            return tick(*a)
+        finally:
+            ticks[key].append(time.perf_counter() - t0)
+
+    server._decode_tick = timed_tick
+    try:
+        futs = [server.submit(p, max_new_tokens=new) for p in prompts]
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.monotonic()
+        server.start()
+        outs = [np.asarray(f.result(timeout=900)) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k.name: k.launches for k in KERNELS}
+        m = server.metrics()
+    finally:
+        server.stop()
+    server.pool.check_invariants(owners={})
+    kv = [b for bufs in server._caches.values()
+          for n, b in bufs.items() if n in ("k", "v")]
+    res = {"kv_quant_error": m["kv_quant_error"],
+           "canary": m["kv_quant_canary"],
+           "ragged_steps": m["ragged_steps"],
+           "shadow_steps": server.shadow_steps, "launches": launches,
+           "decode_ticks": {k: len(v) for k, v in ticks.items()},
+           "decode_tick_ms": {k: 1e3 * float(np.mean(v)) if v else None
+                              for k, v in ticks.items()},
+           "wall_s": wall,
+           "generated_tokens_per_s": new * len(outs) / wall,
+           "pool_bytes": _pool_bytes(server),
+           "shadow_pool_bytes": sum(b.numel() * 4 for b in kv)}
+    return {"outs": outs, "res": res}
+
+
+def phase_canary(seed: int, problems: list, ff) -> dict:
+    """20c: phase 4's eight requests (128..1024 prompt tokens, 64 new) at
+    Llama-3-8B's widths, TIER_LAYERS layers, bf16, through an int8 pool
+    three times: no canary, kv_quant_canary=1, FF_TPU_KV_QUANT_DEBUG=1.
+    Tokens identical (the shadow only observes), kv_quant_error under the
+    catalog's band with no breach, the int8 kernel once a layer and
+    ragged step, and the fp kernel (bf16 q over the fp32 shadow pool)
+    once a layer and shadow step; decode tick ms with a window open
+    against no canary, the shadow pool's bytes."""
+    cfg = llama3_8b_cut(TIER_LAYERS)
+    prompts = serve_traffic(cfg.vocab_size, seed)
+    runs = {"plain": canary_run(ff, prompts, SERVE4_NEW),
+            "canary": canary_run(ff, prompts, SERVE4_NEW,
+                                 kv_quant_canary=1),
+            "debug": canary_run(ff, prompts, SERVE4_NEW, debug=True)}
+    band = num_budgets.tolerance("kv-canary-shadow-delta")
+    res = {"model": "llama3_8b", "layers": cfg.layers, "dtype": "bfloat16",
+           "band": band, **{k: r["res"] for k, r in runs.items()},
+           "identical_tokens": _identical(runs["plain"]["outs"],
+                                          runs["canary"]["outs"])
+           and _identical(runs["plain"]["outs"], runs["debug"]["outs"])}
+    plain_ms = res["plain"]["decode_tick_ms"]["no_window"]
+    open_ms = res["canary"]["decode_tick_ms"]["window_open"]
+    res["window_open_tick_ratio"] = (open_ms / plain_ms if open_ms
+                                     and plain_ms else None)
+    del runs
+    free_card()
+    log(f"canary {json.dumps(res)}")
+    for key in ("plain", "canary", "debug"):
+        r = res[key]
+        _k3_ok(f"20c {key}", r, cfg.layers, problems,
+               kernel=RAGGED_PAGED_ATTENTION_INT8)
+        if key != "plain":
+            _k3_ok(f"20c {key} shadow", r, cfg.layers, problems,
+                   steps=r["shadow_steps"])
+    checks = {
+        "tokens": res["identical_tokens"],
+        "in_band": all(0.0 < res[k]["kv_quant_error"] < band
+                       for k in ("canary", "debug")),
+        "no_breach": all(res[k]["canary"]["breaches"] == 0
+                         for k in ("canary", "debug")),
+        "windows": res["canary"]["canary"]["windows"] >= 1,
+        "plain_shadowless": res["plain"]["shadow_steps"] == 0
+        and res["plain"]["launches"][RAGGED_PAGED_ATTENTION.name] == 0}
+    res["checks"] = checks
+    if not all(checks.values()):
+        problems.append(f"20c: {checks}")
+    return res
+
+
+def _traced_serve(ff, prompts, new: int, traced: bool, dump_dir: str):
+    """Phase 4's requests through the paged server at TIER_SERVE, every
+    request queued before the loop starts, with an SLO every request
+    misses (bundles under `dump_dir`), under obs.enable() or not. Each
+    decode tick is timed on the host and its synchronizing CUDA calls
+    counted (sync debug "warn")."""
+    rec = obs.enable() if traced else None
+    server = ff.serve_generation(
+        paged=True, defer_start=True, slo_dump_dir=dump_dir,
+        slo=SLOTarget(ttft_p95_s=SLO_TTFT_P95_S, window=8, min_samples=1),
+        **TIER_SERVE)
+    syncs, calls = [], {"_decode_tick": []}
+    _count_syncs(server, syncs, "_decode_tick")
+    _timed(server, "_decode_tick", calls)
+    try:
+        futs = [server.submit(p, max_new_tokens=new) for p in prompts]
+        torch.cuda.synchronize()
+        _reset_launches()
+        server.start()
+        outs = [np.asarray(f.result(timeout=900)) for f in futs]
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in KERNELS}
+        m = server.metrics()
+    finally:
+        server.stop()
+        obs.disable()
+    server.pool.check_invariants(owners={})
+    return {"outs": outs, "rec": rec, "metrics": m, "res": {
+        "launches": launches, "ragged_steps": m["ragged_steps"],
+        "decode_ticks": len(calls["_decode_tick"]),
+        "decode_tick_ms": 1e3 * float(np.mean(calls["_decode_tick"])),
+        "syncs_per_decode_tick": float(np.mean(syncs))}}
+
+
+def _enclosed(doc: dict, kernel: str, spans=("decode_tick",
+                                              "prefill_tick")) -> dict:
+    """From a torch.profiler Chrome trace: each launch of a device kernel
+    whose name holds `kernel` — its launch call on the host, found by
+    correlation id — filed by the host span range of `spans` (the obs
+    spans' record_function ranges) on the same thread that encloses it;
+    "none" counts the launches no such range encloses."""
+    evs = doc.get("traceEvents", [])
+    ranges = [e for e in evs if e.get("ph") == "X"
+              and e.get("cat") == "user_annotation"
+              and e.get("name") in spans]
+    device = ("kernel", "gpu_memcpy", "gpu_memset", "gpu_user_annotation")
+    calls = {e["args"]["correlation"]: e for e in evs
+             if e.get("ph") == "X" and e.get("cat") not in device
+             and "correlation" in e.get("args", {})}
+    out = {s: 0 for s in spans}
+    out["none"] = 0
+    out["ranges"] = {s: sum(1 for r in ranges if r["name"] == s)
+                     for s in spans}
+    for e in evs:
+        if e.get("cat") != "kernel" or kernel not in e.get("name", ""):
+            continue
+        call = calls.get(e.get("args", {}).get("correlation"))
+        home = None
+        if call is not None:
+            for r in ranges:
+                if (r["tid"] == call["tid"] and r["ts"] <= call["ts"]
+                        <= r["ts"] + r["dur"]):
+                    home = r["name"]
+                    break
+        out[home or "none"] += 1
+    return out
+
+
+def profile_traced_ticks(ff, prompts, layers: int) -> dict:
+    """A traced paged server (obs.enable()) serving four of phase 4's
+    prompts cut to 64 tokens, TRACE_TICKS + 1 new tokens each (one
+    prefill tick a prompt, then TRACE_TICKS decode ticks), under
+    torch.profiler (CPU and CUDA activity, every thread: the loop runs
+    on its own), exported as a Chrome trace and parsed: the decode_tick
+    ranges must enclose `layers` K3 split-kernel launches each."""
+    cfg = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    obs.enable()
+    server = ff.serve_generation(paged=True, defer_start=True, **TIER_SERVE)
+    try:
+        futs = [server.submit(p[:64], max_new_tokens=TRACE_TICKS + 1)
+                for p in prompts[:4]]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA],
+                experimental_config=cfg) as prof:
+            server.start()
+            for f in futs:
+                f.result(timeout=900)
+            torch.cuda.synchronize()
+    finally:
+        server.stop()
+        obs.disable()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            doc = json.load(f)
+    finally:
+        os.remove(path)
+    found = _enclosed(doc, "ragged_split_kernel")
+    return {"split_kernel_launches": found,
+            "decode_ticks_enclosing_all": found["decode_tick"]
+            == layers * found["ranges"]["decode_tick"] > 0
+            and found["none"] == 0}
+
+
+def fit_trace(seed: int) -> dict:
+    """fit under FFConfig(profiler_trace_dir=...) at bench_1b's widths,
+    FIT_TRACE_LAYERS layers, bf16, batch 8 x 1024, FIT_TRACE_STEPS steps:
+    the trace file it writes, loaded, must name K1's forward and K2's dq
+    and dk/dv (their tensor-core bodies at head dim 128), each launched
+    once a layer and step."""
+    cfg = dataclasses.replace(LlamaConfig.bench_1b(),
+                              layers=FIT_TRACE_LAYERS)
+    trace_dir = tempfile.mkdtemp(prefix="ff_fit_trace_")
+    ff = FFModel(FFConfig(batch_size=TRAIN_BATCH, seed=seed, device=DEVICE,
+                          remat="none", profiler_trace_dir=trace_dir))
+    build_llama(ff, cfg, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                dtype=DataType.BFLOAT16)
+    ff.compile(optimizer=AdamOptimizer(lr=TRAIN_LR),
+               loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY)
+    x, y = _token_batches(TRAIN_BATCH * FIT_TRACE_STEPS, TRAIN_SEQ,
+                          cfg.vocab_size, seed)
+    _reset_launches()
+    t0 = time.monotonic()
+    ff.fit(x, y, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _flash_launches()
+    files = sorted(os.listdir(trace_dir))
+    named = {}
+    size = 0
+    for name in files:
+        path = os.path.join(trace_dir, name)
+        size += os.path.getsize(path)
+        with open(path) as f:
+            doc = json.load(f)
+        for e in doc.get("traceEvents", []):
+            if e.get("cat") == "kernel":
+                body = wgmma_name(e.get("name", ""))
+                if body:
+                    kernel, args = body.rstrip(">").split("<")
+                    key = f"{kernel}<{','.join(args.split(',')[:2])}>"
+                    named[key] = named.get(key, 0) + 1
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    want = {f"flash_{k}_wgmma_kernel<FlatLayout,128>"
+            for k in ("fwd", "dq", "dkv")}
+    per = FIT_TRACE_LAYERS * FIT_TRACE_STEPS
+    return {"files": files, "trace_bytes": size, "wall_s": wall,
+            "launches": launches, "kernels_named": named,
+            "names_k1_k2": want <= set(named)
+            and all(named[w] == per for w in want),
+            "launches_ok": all(v == per for v in launches.values())}
+
+
+def phase_tracer(seed: int, problems: list) -> dict:
+    """20d: phase 4's requests at Llama-3-8B's widths, TRACE_LAYERS
+    layers, bf16, through the paged server with obs.enable() against the
+    same requests without it: tokens, decode tick ms and synchronizing
+    calls a tick, the spans by name, the ledger's shape keys and stats,
+    one request track, the exported Chrome trace loaded back, the SLO
+    breach bundle's trace tail; a torch.profiler capture over
+    TRACE_TICKS traced ticks whose decode_tick ranges enclose K3's
+    launches; and fit's capture under profiler_trace_dir."""
+    cfg = llama3_8b_cut(TRACE_LAYERS)
+    free_card()
+    ff = _llama_cut(TRACE_LAYERS, seed, DataType.BFLOAT16)
+    prompts = serve_traffic(cfg.vocab_size, seed)
+    _warm(ff, prompts[0])
+    dump_dir = tempfile.mkdtemp(prefix="ff_trace_slo_")
+    plain = _traced_serve(ff, prompts, SERVE4_NEW, False,
+                          os.path.join(dump_dir, "plain"))
+    seen = _traced_serve(ff, prompts, SERVE4_NEW, True,
+                         os.path.join(dump_dir, "traced"))
+    rec, m = seen["rec"], seen["metrics"]
+    spans = {}
+    for e in rec.events:
+        n, dur = spans.get(e[0], (0, 0.0))
+        spans[e[0]] = (n + 1, dur + e[2] / 1e9)
+    doc_path = os.path.join(dump_dir, "trace.json")
+    rec.export_chrome_trace(doc_path)
+    with open(doc_path) as f:
+        doc = json.load(f)
+    track = [e for e in doc["traceEvents"] if e["ph"] == "X"
+             and e["pid"] == 2 and e["tid"] == 1]
+    bundle = m["slo"]["last_dump"]
+    tail_path = os.path.join(bundle, "trace_tail.json") if bundle else ""
+    tail = {}
+    if tail_path and os.path.exists(tail_path):
+        with open(tail_path) as f:
+            tail = json.load(f)
+    res = {"model": "llama3_8b", "layers": cfg.layers, "dtype": "bfloat16",
+           "plain": plain["res"], "traced": seen["res"],
+           "decode_tick_ms_ratio": seen["res"]["decode_tick_ms"]
+           / plain["res"]["decode_tick_ms"],
+           "identical_tokens": _identical(plain["outs"], seen["outs"]),
+           "spans": {k: {"count": n, "ms_mean": 1e3 * s / n}
+                     for k, (n, s) in sorted(spans.items())},
+           "ledger": {k: rec.ledger.stats(k) for k in rec.ledger.shapes()},
+           "request_tracks": len(rec.requests),
+           "request_track_1": [(e["name"], e["dur"]) for e in track],
+           "trace_events": len(doc["traceEvents"]),
+           "slo_breaches": m["slo"]["breaches"],
+           "bundle_trace_tail_events": len(tail.get("traceEvents", []))}
+    shutil.rmtree(dump_dir, ignore_errors=True)
+    res["profile"] = profile_traced_ticks(ff, prompts, cfg.layers)
+    del ff, plain, seen, rec
+    free_card()
+    res["fit"] = fit_trace(seed)
+    free_card()
+    log(f"tracer {json.dumps(res)}")
+    for label in ("plain", "traced"):
+        _k3_ok(f"20d {label}", res[label], cfg.layers, problems)
+    checks = {
+        "tokens": res["identical_tokens"],
+        "no_device_read": res["traced"]["syncs_per_decode_tick"]
+        == res["plain"]["syncs_per_decode_tick"],
+        "spans": {"tick_prep", "admit_pending", "prefill_tick",
+                  "decode_tick"} <= set(res["spans"]),
+        "ledger": any(k.startswith("decode|") for k in res["ledger"])
+        and any(k.startswith("prefill|") for k in res["ledger"]),
+        "request_tracks": res["request_tracks"] == len(prompts)
+        and [n for n, _ in res["request_track_1"]]
+        == ["queued", "prefill", "decode"],
+        "bundle_tail": res["slo_breaches"] >= 1
+        and res["bundle_trace_tail_events"] > 0,
+        "profile_encloses_k3": res["profile"]["decode_ticks_enclosing_all"],
+        "fit_trace_names_k1_k2": res["fit"]["names_k1_k2"],
+        "fit_launches": res["fit"]["launches_ok"]}
+    res["checks"] = checks
+    if not all(checks.values()):
+        problems.append(f"20d: {checks}")
+    return res
+
+
+def phase_tier_disagg_canary_trace(seed: int, card: str) -> dict:
+    """Phase 20 (a-d), each part timed on its own phase_time line;
+    collects every part's problems and raises at the end. The kernels
+    line records K3's launches of (a)'s tiered run, (b)'s pair, (c)'s
+    live and shadow steps and (d)'s traced run."""
+    problems: list = []
+    res = {"card": card}
+    free_card()
+    ff = _llama_cut(TIER_LAYERS, seed, DataType.BFLOAT16)
+    ff32 = _llama_cut(TIER_FP32_LAYERS, seed, DataType.FLOAT)
+    prompt = tier_traffic(llama3_8b_cut(TIER_LAYERS).vocab_size, seed)[0][0]
+    _warm(ff, prompt)
+    _warm(ff32, prompt)
+    tier = timed("20a", phase_host_tier, seed, problems, ff, ff32)
+    res["a"] = tier["res"]
+    res["b"] = timed("20b", phase_disagg, seed, problems, tier, ff, ff32)
+    del ff32
+    res["c"] = timed("20c", phase_canary, seed, problems, ff)
+    del ff, tier
+    res["d"] = timed("20d", phase_tracer, seed, problems)
+    if problems:
+        raise AssertionError(f"phase 20: {problems}")
+    return res
+
+
 def _zoo_k4_entries(kernel, zoo) -> tuple:
     """(key, launches, timed case) of K4 kernel `kernel` on phase 18: BERT-
     base's fit at dropout 0 (18a) under "bert_base", and the encoder-
@@ -5759,9 +6545,10 @@ def _kernel_entry(kernel, source: str, launches: int, res) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19",
+                    default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19,"
+                    "20",
                     help="comma-separated phases to run (default "
-                    "1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19; 5 "
+                    "1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20; 5 "
                     "profiles serving and training steps)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -5846,6 +6633,8 @@ def main(argv=None) -> int:
         else None
     p19 = (timed("19", phase_pipeline_and_serving, args.seed, card)
            if 19 in phases else None)
+    p20 = (timed("20", phase_tier_disagg_canary_trace, args.seed, card)
+           if 20 in phases else None)
     if 5 in phases:
         phase_profile(args.seed, card)
         phase_profile_train(args.seed, card)
@@ -5931,6 +6720,30 @@ def main(argv=None) -> int:
     entries[0]["http_serve"] = {name: val for name, val in other.items()
                                 if name not in ("name", "route", "source",
                                                 "replaces")}
+    # K3 on phase 20's main paths, timed at phase 2's steady decode case:
+    # the tiered server of (a), the disaggregated pair of (b) and the
+    # traced server of (d), bf16 q over bf16 pools ("tier_disagg_trace");
+    # the canary's shadow replays of (c), bf16 q over the fp32 shadow
+    # pool, timed at phase 2's case of that dtype pair ("canary_shadow");
+    # and the int8 kernel under the canary's live steps of (c)
+    fp32_pool = next((r for r in kern8 if r["case"].endswith("_fp32_pool")),
+                     None)
+    for entry, kernel, key, launches, case in (
+            (entries[0], RAGGED_PAGED_ATTENTION, "tier_disagg_trace",
+             (p20["a"]["tier"]["launches"][RAGGED_PAGED_ATTENTION.name]
+              + p20["b"]["pair"]["launches"][RAGGED_PAGED_ATTENTION.name]
+              + p20["d"]["traced"]["launches"][RAGGED_PAGED_ATTENTION.name])
+             if p20 else 0, main_case),
+            (entries[0], RAGGED_PAGED_ATTENTION, "canary_shadow",
+             p20["c"]["canary"]["launches"][RAGGED_PAGED_ATTENTION.name]
+             if p20 else 0, fp32_pool),
+            (entries[1], RAGGED_PAGED_ATTENTION_INT8, "canary",
+             p20["c"]["canary"]["launches"][
+                 RAGGED_PAGED_ATTENTION_INT8.name] if p20 else 0,
+             int8_case)):
+        other = _kernel_entry(kernel, entry["source"], launches, case)
+        entry[key] = {name: val for name, val in other.items()
+                      if name not in ("name", "route", "source", "replaces")}
     # K1/K2 on phase 6's bf16 fit, timed at bench_1b's attention shape
     # (phase 2), and their fp32 bodies under "fp32": launches in phase 3's
     # fp32 bench_1b step (K2 there on its 3xTF32 body), timed at the same

@@ -28,7 +28,7 @@ TRANSFER_GUARDS = {"allow": "default", "log": "warn", "log_explicit": "warn",
 
 # the reference's fields the port refuses away from their defaults, and
 # the ROADMAP.md queue 1 item that ports each: strategy search and its
-# fusion pass (11), fit's profiler capture (9), periodic checkpoints (10)
+# fusion pass (11), periodic checkpoints (10)
 _SEARCH = 11
 REFUSED = {
     "search_budget": _SEARCH, "search_alpha": _SEARCH,
@@ -42,7 +42,6 @@ REFUSED = {
     "export_strategy_computation_graph_file": _SEARCH,
     "include_costs_dot_graph": _SEARCH, "perform_fusion": _SEARCH,
     "checkpoint_dir": 10, "checkpoint_every": 10,
-    "profiler_trace_dir": 9,
 }
 
 
@@ -99,6 +98,8 @@ class FFConfig:
     # the reference prints the timed strategy playoff under it; the port
     # has no search, so it prints nothing more
     profiling: bool = False
+    # fit runs under torch.profiler (CPU and, on the card, CUDA
+    # activities) and writes a Chrome trace into this directory
     profiler_trace_dir: Optional[str] = None
     # "log" | "disallow" (TRANSFER_GUARDS): fit's step loop runs under
     # torch.cuda.set_sync_debug_mode("warn" | "error"), so a host sync in

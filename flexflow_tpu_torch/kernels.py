@@ -245,6 +245,9 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def _launch(kernel: CudaKernel, device, *args):
     """Call `kernel`'s C entry point with `args` and the current stream of
     `device`, raise on a non-zero code, and count the launch."""
@@ -253,7 +256,9 @@ def _launch(kernel: CudaKernel, device, *args):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = fn(*args, stream)
     kernel.check(code)
-    kernel.launches += 1
+    # two serving loops may launch at once (disagg.DisaggPair)
+    with _COUNT_LOCK:
+        kernel.launches += 1
 
 
 def launch_ragged_paged_attention(q, kc, vc, page_tables, pos, q_lens, anc,

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -75,6 +76,8 @@ class FFModel:
         # each fit call draws from a fresh stream, config.seed + 1 + the
         # calls before it, as the reference's fit does
         self._fit_calls = 0
+        # fit traces written under config.profiler_trace_dir
+        self._profiler_traces = 0
         self.current_metrics: Optional[PerfMetrics] = None
         self._used_names: set = set()
         # node key -> weight name -> Initializer, from the layer methods'
@@ -645,8 +648,12 @@ class FFModel:
         """Training loop over numpy arrays `x` (one array or a list, one
         per graph input) and labels `y`: one train_step per full batch.
         Metrics add up on the device through the epoch and reach the
-        host once per epoch, as the reference's do. Data loaders and
-        recompilation are not ported yet and raise."""
+        host once per epoch, as the reference's do. With
+        config.profiler_trace_dir the whole call runs under
+        torch.profiler and writes a Chrome trace there (on top of
+        config.transfer_guard, as the reference stacks its capture and
+        its guard). Data loaders and recompilation are not ported yet
+        and raise."""
         if dataloaders is not None:
             raise NotImplementedError(
                 "fit(dataloaders=...) is not ported yet (ROADMAP.md, queue "
@@ -655,6 +662,30 @@ class FFModel:
             raise NotImplementedError(
                 "fit(recompile_state=...) is not ported yet (ROADMAP.md, "
                 "queue 1 item 10)")
+        with contextlib.ExitStack() as stack:
+            if self.config.profiler_trace_dir:
+                stack.enter_context(self._profiler_capture(
+                    self.config.profiler_trace_dir))
+            return self._fit_impl(x, y, epochs, batch_size, verbose)
+
+    def _profiler_capture(self, trace_dir: str):
+        """torch.profiler over fit (the reference's jax.profiler.trace):
+        CPU activity, and CUDA activity when the model runs on the card,
+        written on exit as a Chrome trace under `trace_dir`
+        (fit_<pid>_<n>.pt.trace.json)."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.executor.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(trace_dir, exist_ok=True)
+        self._profiler_traces += 1
+        path = os.path.join(
+            trace_dir,
+            f"fit_{os.getpid()}_{self._profiler_traces}.pt.trace.json")
+        return torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=lambda prof: prof.export_chrome_trace(path))
+
+    def _fit_impl(self, x, y, epochs, batch_size, verbose) -> PerfMetrics:
         epochs = epochs or self.config.epochs
         batch_size = batch_size or self.config.batch_size
         xs = [x] if isinstance(x, np.ndarray) else list(x)
@@ -869,11 +900,14 @@ class FFModel:
         launches the unpacked prefill. `request_record_limit` bounds the
         per-request records of metrics(), `reqlog_capacity` sizes the
         request log (0 disables it), `slo=SLOTarget(...)` arms the SLO
-        monitor with breach dumps under `slo_dump_dir`. The host tier,
-        the kv_quant_canary shadow cache and the serving-strategy search
-        (`serve_strategy`, `search_budget`, `traffic`) are not ported:
-        asking for any raises NotImplementedError rather than serving a
-        different configuration."""
+        monitor with breach dumps under `slo_dump_dir`. `host_tier`
+        spills evicted prefix pages to host memory (a page capacity, or
+        a disagg.HostTier shared with another server) and
+        `kv_quant_canary=N` shadows every Nth admission's launches in
+        fp32. The serving-strategy search (`serve_strategy`,
+        `search_budget`, `traffic`) is not ported: asking for it raises
+        NotImplementedError rather than serving a different
+        configuration."""
         from flexflow_tpu_torch.serving import serve_generation as _sg
 
         return _sg(self, slots=slots, max_len=max_len, eos_id=eos_id,

@@ -12,9 +12,9 @@ excursion, `ff_slo_breaches_total`), and the monitor stays "breached"
 until the window percentile recovers.
 
 A breach event triggers the flight-recorder dump: the last-N reqlog
-records, a span trace's tail when the caller passes a recorder (the port
-has no span tracer yet, so its servers pass none), and a full metrics
-snapshot, bundled into `<dump_dir>/breach_NNNN/`.
+records, the span recorder's Chrome-trace tail (when `obs.enable()` is
+on, the servers pass it), and a full metrics snapshot, bundled into
+`<dump_dir>/breach_NNNN/`.
 
 Percentiles are NEAREST-RANK (ceil(q*n)-th of the sorted window) so a
 breach test can hand-compute the exact trip point.

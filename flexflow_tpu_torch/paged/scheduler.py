@@ -78,13 +78,39 @@ tick; a tick the device's condition refuses is predicated off.
 `overlap_dispatch=True` runs admission (free slots and free pages only)
 after the fused ticks are enqueued and before their one read back.
 
-Not ported yet, and refused at construction rather than ignored: the
-host KV tier and the kv_quant_canary shadow cache (ROADMAP queue 1 item
-9). Speculative decoding is the subclass in spec/server.py.
+HOST KV TIER (host_tier=capacity or a shared disagg.HostTier): LRU
+evictions SPILL full pages (every cache leaf's row, an int8 pool's scales
+included) into host memory under their chain hashes, and admission's
+lookup fetches a spilled prefix back into a fresh page. A spill is one
+gather of the page's bytes and one copy to host (one sync a page); a fetch
+writes the rows back from pinned memory without a sync. A tier shared by
+two servers is the prefill/decode handoff channel (disagg/workers.py).
+
+KV QUANT CANARY (kv_quant_canary=N, or FF_TPU_KV_QUANT_CANARY): every Nth
+admission opens a window in which an fp32 SHADOW of the pool (the int8
+pool dequantized, another pool cast) replays every launch; the running max
+abs delta of the probabilities over live rows stays on the device and is
+read only by metrics() (the kv_quant_error gauge, a breach counted once a
+crossing of the catalog's "kv-canary-shadow-delta" band). The window
+closes when its request leaves (finish, preemption) or a tier fetch
+rewrites the pool behind the shadow; while it is open the megasteps stand
+down to the one-tick path. FF_TPU_KV_QUANT_DEBUG=1 on an int8 pool keeps
+the shadow for every launch of the server's life and forces
+megastep_ticks=1 and megastep_mixed=False.
+
+TRACING (obs.enable()): the tick phases run inside obs spans (tick_prep,
+defrag, admit_pending, idle_wait, prefill_tick, decode_tick, megastep,
+overlap_admit) and record their host wall times in the tick ledger
+(prefill / decode shape keys). A span stamps the host clock around work
+already enqueued and never reads the device.
+
+Speculative decoding is the subclass in spec/server.py.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import queue
 import threading
 import time
@@ -94,14 +120,20 @@ import numpy as np
 import torch
 
 from flexflow_tpu_torch import obs
+from flexflow_tpu_torch.analysis.num_budgets import tolerance
 from flexflow_tpu_torch.paged.pool import EMPTY_HASH, PagePool
-from flexflow_tpu_torch.paged.quant import is_quantized_dtype, resolve_kv_dtype
+from flexflow_tpu_torch.paged.quant import (
+    dequantize_pages,
+    is_quantized_dtype,
+    resolve_kv_dtype,
+)
 from flexflow_tpu_torch.serving import (
     _GenerationServerBase,
     _GenRequest,
-    not_ported,
     pick_tokens,
 )
+
+_log = logging.getLogger(__name__)
 
 # Packed prefill windows are capped at this many rows.
 PREFILL_WINDOW_ROWS = 8
@@ -123,6 +155,20 @@ def reset_page_scales(caches, pages: List[int]):
         for name, b in bufs.items():
             if name.endswith("_scale"):
                 b[pages] = 0.0
+
+
+def shadow_snapshot(caches):
+    """An fp32 copy of the pool, coherent with what it holds: an int8
+    pool's pages dequantized with their scales (the sidecar leaves drop),
+    any other pool cast. Divergence measured from here on is pure
+    quantization drift."""
+    out = {}
+    for key, bufs in caches.items():
+        out[key] = {n: (dequantize_pages(b, bufs[n + "_scale"])
+                        if n + "_scale" in bufs
+                        else b.to(torch.float32, copy=True))
+                    for n, b in bufs.items() if not n.endswith("_scale")}
+    return out
 
 
 class PagedGenerationServer(_GenerationServerBase):
@@ -155,13 +201,29 @@ class PagedGenerationServer(_GenerationServerBase):
                 "overlap_dispatch overlaps host work with the in-flight "
                 "MIXED megastep dispatch; pass megastep_mixed=True")
         self.ragged_pack = bool(ragged_pack)
-        if host_tier is not None and host_tier != 0:
-            not_ported("host_tier", 9)
-        if kv_quant_canary:
-            not_ported("kv_quant_canary (the fp32 shadow cache)", 9)
         self.kv_dtype = str(kv_dtype)
         pool_dt = resolve_kv_dtype(self.kv_dtype)  # validates the name
         self._quantized = pool_dt is not None and is_quantized_dtype(pool_dt)
+        # FF_TPU_KV_QUANT_DEBUG=1 keeps an fp32 shadow of an int8 pool for
+        # the server's life and replays every launch against it; the
+        # shadow must observe every tick, so the megasteps are forced off
+        self._kv_quant_debug = (self._quantized and os.environ.get(
+            "FF_TPU_KV_QUANT_DEBUG") == "1")
+        if self._kv_quant_debug and self.megastep_ticks > 1:
+            _log.info("FF_TPU_KV_QUANT_DEBUG=1: forcing megastep_ticks=1 "
+                      "so the fp32 shadow cache observes every tick")
+            self.megastep_ticks = 1
+        if self._kv_quant_debug and self.megastep_mixed:
+            _log.info("FF_TPU_KV_QUANT_DEBUG=1: forcing megastep_mixed="
+                      "False so the fp32 shadow cache observes every launch")
+            self.megastep_mixed = False
+            self.overlap_dispatch = False
+        if kv_quant_canary is None:
+            kv_quant_canary = int(
+                os.environ.get("FF_TPU_KV_QUANT_CANARY", "0") or 0)
+        if kv_quant_canary < 0:
+            raise ValueError(
+                f"kv_quant_canary must be >= 0, got {kv_quant_canary}")
         super().__init__(ff, slots, max_len, eos_id, seed,
                          request_record_limit=request_record_limit,
                          reqlog_capacity=reqlog_capacity, slo=slo,
@@ -196,6 +258,53 @@ class PagedGenerationServer(_GenerationServerBase):
         self._mixed_window = min(self._chunk_rows, self.prefill_chunk)
         self._caches = ex.init_paged_kv_cache(num_pages, self.page_size,
                                               dtype=pool_dt)
+        # the fp32 shadow pool: for the server's life under the debug
+        # flag, else only inside a canary window (_maybe_open_canary);
+        # the running max abs probability delta stays on the device
+        self._caches_ref = (ex.init_paged_kv_cache(
+            num_pages, self.page_size, dtype=torch.float32)
+            if self._kv_quant_debug else None)
+        self._quant_err_dev = torch.zeros((), dtype=torch.float32,
+                                          device=self.device)
+        self.kv_quant_canary = (0 if self._kv_quant_debug
+                                else int(kv_quant_canary))
+        self._canary_admits = 0
+        self._canary_req: Optional[_GenRequest] = None
+        self._c_canary = self.registry.counter(
+            "kv_quant_canary_windows_total")
+        self._g_qerr = self.registry.gauge("kv_quant_error")
+        self._g_qerr.set(0.0)
+        # the canary is a watchdog: its alert band is the catalog's, and
+        # the running max crossing it counts one breach and logs once
+        self.kv_quant_threshold = float(tolerance("kv-canary-shadow-delta"))
+        self._quant_breached = False
+        self._c_qbreach = self.registry.counter(
+            "kv_quant_canary_breaches_total")
+        # the host KV tier (an int capacity for a private tier, or a
+        # HostTier shared with another server: the disagg handoff
+        # channel); its payload layout is the caches dict's, fixed
+        # for the pool's life
+        self.host_tier = None
+        self._payload_layout = None
+        if host_tier is not None and host_tier != 0:
+            from flexflow_tpu_torch.disagg.host_tier import HostTier
+
+            if self._kv_quant_debug:
+                raise ValueError(
+                    "host_tier and FF_TPU_KV_QUANT_DEBUG=1 are mutually "
+                    "exclusive: the all-ticks fp32 shadow cannot observe "
+                    "pages restored behind its back")
+            self.host_tier = (host_tier if isinstance(host_tier, HostTier)
+                              else HostTier(int(host_tier)))
+            self.pool.attach_tier(self.host_tier, self._tier_read_page,
+                                  self._tier_write_page)
+        # spill/fetch counters (synced from the pool's truth by metrics())
+        # and the tier's occupancy and fetch-latency gauges
+        self._c_spill = self.registry.counter("kv_spill_pages_total")
+        self._c_fetch = self.registry.counter("kv_fetch_pages_total")
+        self._g_tier_occ = self.registry.gauge("host_tier_occupancy_pages")
+        self._g_tier_ratio = self.registry.gauge("host_tier_occupancy_ratio")
+        self._g_tier_lat = self.registry.gauge("host_tier_fetch_latency_s")
         self._tables = np.zeros((self.slots, self.max_pages_per_seq),
                                 np.int32)
         # device mirrors of host state, uploaded again only once a write
@@ -216,8 +325,9 @@ class PagedGenerationServer(_GenerationServerBase):
         self.peak_active = 0
         self.prefill_ticks = 0
         # ragged steps run: each launches the attention kernel once per
-        # attention layer
+        # attention layer; and the canary's replays of them on the shadow
         self.ragged_steps = 0
+        self.shadow_steps = 0
         self._prefill_rr = 0    # rotating start slot for the chunk budget
         # the registry's counters, all summed on the host from what the
         # loop already knows (no device read): ticks the loop slept with
@@ -309,6 +419,16 @@ class PagedGenerationServer(_GenerationServerBase):
             "prefill_ticks": self.prefill_ticks,
             "ragged_steps": self.ragged_steps,
             "kv_cache_dtype": self._kv_pool_dtype_name(),
+            "kv_quant_error": self._kv_quant_error(),
+            "kv_quant_canary": {
+                "every": self.kv_quant_canary,
+                "debug_mode": self._kv_quant_debug,
+                "windows": int(self._c_canary.value),
+                "window_open": (self._canary_req is not None
+                                or self._kv_quant_debug),
+                "threshold": self.kv_quant_threshold,
+                "breaches": int(self._c_qbreach.value),
+            },
             "launch_rows": int(self._c_rows.value),
             "padded_rows": int(self._c_pad.value),
             "padding_waste_ratio": (
@@ -340,7 +460,42 @@ class PagedGenerationServer(_GenerationServerBase):
                 "evictions": pool.evictions,
             },
         })
+        # the tier block, and the registry synced at scrape time: the
+        # counters follow THIS pool's spill/fetch truth (a shared tier's
+        # totals add up both servers'), the gauges follow the tier
+        self._c_spill.inc(pool.spilled_pages - self._c_spill.value)
+        self._c_fetch.inc(pool.fetched_pages - self._c_fetch.value)
+        tier = self.host_tier
+        m["host_tier"] = {"enabled": tier is not None,
+                          "spilled_pages": pool.spilled_pages,
+                          "fetched_pages": pool.fetched_pages}
+        if tier is not None:
+            tm = tier.metrics()
+            m["host_tier"].update(tm)
+            self._g_tier_occ.set(tm["occupancy_pages"])
+            self._g_tier_ratio.set(tm["occupancy_ratio"])
+            self._g_tier_lat.set(tm["fetch_latency_s_avg"])
         return m
+
+    def _kv_quant_error(self) -> float:
+        """The running max abs probability delta against the fp32 shadow
+        (0.0 until a window or the debug flag samples it). Read from the
+        device only here, at scrape time, and only once a shadow launch
+        has run, so the serving loop never waits for it (an SLO breach
+        dumps metrics() from inside a tick); the first read past the
+        band counts a breach and logs once (the running max only
+        grows)."""
+        err = float(self._quant_err_dev) if self.shadow_steps else 0.0
+        self._g_qerr.set(err)
+        if err > self.kv_quant_threshold and not self._quant_breached:
+            self._quant_breached = True
+            self._c_qbreach.inc()
+            _log.warning(
+                "kv_quant_error %.3g breached the kv-canary-shadow-delta "
+                "budget %.3g (analysis/num_budgets.py): the quantized pool "
+                "has drifted past its declared band vs the fp32 shadow",
+                err, self.kv_quant_threshold)
+        return err
 
     def request_defrag(self):
         """Ask the loop to compact the page pool between ticks (host
@@ -393,11 +548,36 @@ class PagedGenerationServer(_GenerationServerBase):
         req.prefill_seq = None
         req.hashed_blocks = 0
 
+    def _maybe_open_canary(self, req: _GenRequest):
+        """Every `kv_quant_canary`-th successful admission opens a shadow
+        window on that request: the shadow becomes an fp32 snapshot of
+        the CURRENT pool, so _launch's replay measures the divergence
+        accrued from this admission on. One window at a time; the
+        megasteps stand down while one is open."""
+        if not self.kv_quant_canary:
+            return
+        self._canary_admits += 1
+        if (self._canary_admits % self.kv_quant_canary == 0
+                and self._caches_ref is None):
+            self._caches_ref = shadow_snapshot(self._caches)
+            self._canary_req = req
+            self._c_canary.inc()
+
+    def _close_canary(self, req: _GenRequest):
+        """Drop the shadow window when its request leaves (finish,
+        cancellation or preemption: a preempted request's replay would
+        resume against a stale shadow)."""
+        if self._canary_req is req:
+            self._canary_req = None
+            self._caches_ref = None
+
     def _free_pages_of(self, slot: int, req: _GenRequest):
         """Publish what the request wrote, then drop its page references
         LEAF-first: a chain lookup stops at its first missing block, so
         under pressure the LRU must reclaim tail pages before the roots
-        every shared prefix runs through."""
+        every shared prefix runs through. A canary window on the request
+        closes."""
+        self._close_canary(req)
         self._publish_tail(req)
         self.pool.free(list(reversed(req.pages)))
         req.pages = []
@@ -426,6 +606,120 @@ class PagedGenerationServer(_GenerationServerBase):
         self.preemptions += 1
         self._requeue.insert(0, req)
 
+    # -- host-tier payloads (disagg/host_tier.py) ----------------------------
+
+    def _page_layout(self):
+        """[(node key, leaf name, row shape, dtype, byte offset, bytes)]
+        of one page's rows across every leaf of the pool (an int8 pool's
+        scales included), and the total bytes: the layout of a tier
+        payload, fixed for the pool's life."""
+        if self._payload_layout is None:
+            layout, off = [], 0
+            for key, bufs in self._caches.items():
+                for name, b in bufs.items():
+                    nbytes = b[0].numel() * b.element_size()
+                    layout.append((key, name, tuple(b.shape[1:]), b.dtype,
+                                   off, nbytes))
+                    off += nbytes
+            self._payload_layout = (layout, off)
+        return self._payload_layout
+
+    def _tier_read_page(self, page: int):
+        """Snapshot one pool page to host: the page's rows of every leaf
+        (its scales too, so scales travel with their page) gathered into
+        one contiguous byte buffer on the device and moved in ONE copy
+        to host memory (pinned on the card), which waits for the writes
+        the rows came from: one sync a spilled page. The payload keeps
+        the caches dict's structure, each leaf a host view of that
+        buffer."""
+        layout, total = self._page_layout()
+        rows = torch.cat([self._caches[key][name][page].reshape(-1)
+                          .view(torch.uint8)
+                          for key, name, *_ in layout])
+        host = torch.empty(total, dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        host.copy_(rows)
+        payload: Dict[str, Dict[str, torch.Tensor]] = {}
+        for key, name, shape, dt, off, nbytes in layout:
+            payload.setdefault(key, {})[name] = (
+                host[off:off + nbytes].view(dt).reshape(shape))
+        return payload
+
+    def _write_payload(self, page: int, payload):
+        """Copy a payload's rows into `page` of every leaf. From pinned
+        memory the copies do not block the host; the host allocator
+        keeps a pinned block until the copies reading it have run, so
+        the payload may be dropped at once."""
+        for key, bufs in payload.items():
+            for name, rows in bufs.items():
+                self._caches[key][name][page].copy_(rows, non_blocking=True)
+
+    def _tier_write_page(self, page: int, payload):
+        """Restore one spilled payload into a freshly allocated page. A
+        fetch rewrites pool content behind any open canary shadow, so the
+        window closes (the probe aborts rather than report a phantom
+        divergence). The tier's fetch latency is the host time of the
+        enqueue."""
+        t0 = time.monotonic()
+        self._write_payload(page, payload)
+        if self._canary_req is not None:
+            self._close_canary(self._canary_req)
+        if self.host_tier is not None:
+            self.host_tier.observe_fetch_seconds(time.monotonic() - t0)
+
+    def adopt_pool_from(self, old: "PagedGenerationServer") -> bool:
+        """Take over the predecessor's PagePool and device caches when the
+        pool geometry and storage dtype are identical, so content-
+        addressed prefix pages survive a server swap and carried requests
+        re-attach instead of recomputing. Returns False on any mismatch
+        (or when either side runs a shadow cache) and keeps the fresh
+        pool — correct either way, just a colder start. Both loops must
+        be quiescent: this server's not started (defer_start=True), the
+        predecessor's stopped."""
+        if self._thread.ident is not None:
+            raise RuntimeError(
+                "adopt_pool_from() requires a server whose loop has not "
+                "started (construct with defer_start=True)")
+        same = (self.page_size == old.page_size
+                and self.pool.num_pages == old.pool.num_pages
+                and self.max_pages_per_seq == old.max_pages_per_seq
+                and self._kv_pool_dtype_name() == old._kv_pool_dtype_name()
+                and self._caches_ref is None and old._caches_ref is None)
+        if not same:
+            return False
+        self.pool = old.pool
+        self._caches = old._caches
+        return True
+
+    def adopt_request_pages(self, src: "PagedGenerationServer",
+                            req: _GenRequest) -> int:
+        """Per-request page adoption on one device (generalizing
+        adopt_pool_from's whole-pool swap): copy the FULL prefix pages
+        `req`'s sequence has resident on `src` into this server's pool,
+        registered under the same chain hashes and parked dead-cached, so
+        this server's admission lookup re-attaches them. For a quiescent
+        receiver (its loop not started, or the call made from its own
+        loop thread); the live handoff goes through a shared HostTier
+        (disagg/workers.py). Returns the pages adopted; a full pool or a
+        dtype mismatch adopts fewer — the remainder recomputes."""
+        if self._kv_pool_dtype_name() != src._kv_pool_dtype_name():
+            return 0
+        adopted = 0
+        for h in self.pool.chain_hashes(req.seq_tokens()):
+            if h in self.pool._full:
+                continue
+            page = src.pool._full.get(h)
+            if page is None:
+                break  # src's chain broke; nothing deeper is resident
+            got = self.pool.alloc(1)
+            if got is None:
+                break
+            self._write_payload(got[0], src._tier_read_page(page))
+            self.pool.register_full(got[0], h)
+            self.pool.free(got)  # registered: parks on the LRU dead list
+            adopted += 1
+        return adopted
+
     def _reset_page_scales(self, pages: List[int]):
         """Zero the scales of freshly ALLOCATED pages (int8 pools only),
         wherever pages come off the free list — admission's private pages
@@ -447,7 +741,11 @@ class PagedGenerationServer(_GenerationServerBase):
         cached = 0
         cow = None
         if self.prefix_cache:
+            fetched0 = self.pool.fetched_pages
             shared, cached, cow = self.pool.lookup(seq)
+            # host-tier fetches the lookup made count for THIS request
+            # (the reqlog's fetched_pages; a disagg handoff lands so)
+            req.fetched_pages += self.pool.fetched_pages - fetched0
         # always recompute at least the LAST prompt token: its forward
         # pass gives the first sampled token's distribution (the cache
         # stores K/V, not logits)
@@ -494,6 +792,8 @@ class PagedGenerationServer(_GenerationServerBase):
         self._mark_temps_dirty()
         if cow_src is not None:
             copy_page(self._caches, cow_src, pages[b0])
+            if self._caches_ref is not None:
+                copy_page(self._caches_ref, cow_src, pages[b0])
             self.pool.free([cow_src])
         req.prefill_seq = seq
         req.prefill_pos = start
@@ -504,6 +804,7 @@ class PagedGenerationServer(_GenerationServerBase):
         req.admit_t = time.monotonic()
         self._active[slot] = req
         self._admit_order.append(slot)
+        self._maybe_open_canary(req)
         return True
 
     def _pop_next(self) -> Optional[_GenRequest]:
@@ -559,9 +860,10 @@ class PagedGenerationServer(_GenerationServerBase):
         one global old-to-new map, so shared pages stay shared."""
         perm, old_to_new = self.pool.defrag()
         perm_t = torch.from_numpy(perm.astype(np.int64)).to(self.device)
-        for bufs in self._caches.values():
-            for b in bufs.values():
-                b.copy_(b[perm_t])
+        for caches in (self._caches, self._caches_ref or {}):
+            for bufs in caches.values():
+                for b in bufs.values():
+                    b.copy_(b[perm_t])
         self._tables = old_to_new[self._tables]
         self._mark_tables_dirty()
         for s in self._admit_order:
@@ -725,11 +1027,25 @@ class PagedGenerationServer(_GenerationServerBase):
         tbl = self._tables_device()
         if not np.array_equal(slot_idx, np.arange(self.slots)):
             tbl = tbl[torch.from_numpy(slot_idx).to(dev)]
-        probs, upd = self._step(
-            tr, ntr, self._caches, tbl,
-            torch.from_numpy(pos).to(dev), torch.from_numpy(qls).to(dev),
-            deps_d, anc_d, torch.from_numpy(ids).to(dev))
+        pos_d = torch.from_numpy(pos).to(dev)
+        qls_d = torch.from_numpy(qls).to(dev)
+        ids_d = torch.from_numpy(ids).to(dev)
+        probs, upd = self._step(tr, ntr, self._caches, tbl, pos_d, qls_d,
+                                deps_d, anc_d, ids_d)
         self._caches = upd
+        if self._caches_ref is not None:
+            # the canary's replay: the same launch against the fp32
+            # shadow; the running max abs probability delta over LIVE rows
+            # stays on the device until metrics() reads it
+            probs_ref, self._caches_ref = self._step(
+                tr, ntr, self._caches_ref, tbl, pos_d, qls_d, deps_d, anc_d,
+                ids_d)
+            live_rows = (torch.arange(window, device=dev)[None, :]
+                         < qls_d[:, None])
+            delta = torch.max((probs.float() - probs_ref.float()).abs()
+                              * live_rows[:, :, None])
+            self._quant_err_dev = torch.maximum(self._quant_err_dev, delta)
+            self.shadow_steps += 1
         self.ragged_steps += 1
         self._count_rows(B * window, B * window - int(qls.sum()))
         return probs
@@ -752,21 +1068,33 @@ class PagedGenerationServer(_GenerationServerBase):
         """Defrag if requested, admit, grow pages. Returns the live slots
         (decoding AND mid-prefill), or None when nothing is live (sleeps
         briefly when nothing was admitted either)."""
-        if self._defrag_req.is_set():
-            self._defrag_req.clear()
-            self._apply_defrag()
-        admitted = self._admit_pending()
-        live = self._live()
-        self.peak_active = max(self.peak_active, len(live))
-        if not live:
-            if not admitted:
-                t0 = time.monotonic()
-                time.sleep(0.001)
-                self._c_idle.inc()
-                self._c_idle_s.inc(time.monotonic() - t0)
-            return None
-        self._ensure_pages()  # may preempt: recompute live after
-        return self._live() or None
+        with obs.span("tick_prep") as sp:
+            if self._defrag_req.is_set():
+                self._defrag_req.clear()
+                with obs.span("defrag"):
+                    self._apply_defrag()
+            with obs.span("admit_pending"):
+                admitted = self._admit_pending()
+            live = self._live()
+            self.peak_active = max(self.peak_active, len(live))
+            if sp:
+                sp.set(live=len(live),
+                       mid_prefill=sum(1 for s in live
+                                       if self._mid_prefill(s)),
+                       pages_in_use=self.pool.pages_in_use,
+                       admitted=admitted)
+            if not live:
+                if not admitted:
+                    # waiting for work is a span of its own, apart from
+                    # real prep
+                    t0 = time.monotonic()
+                    with obs.span("idle_wait"):
+                        time.sleep(0.001)
+                    self._c_idle.inc()
+                    self._c_idle_s.inc(time.monotonic() - t0)
+                return None
+            self._ensure_pages()  # may preempt: recompute live after
+            return self._live() or None
 
     def _split_live(self, live):
         """(mid-prefill slots, decoding slots) for this tick."""
@@ -783,6 +1111,7 @@ class PagedGenerationServer(_GenerationServerBase):
         a prompt publishes the prompt's tail page and samples the
         request's first token from its own last-row probs."""
         t0 = time.monotonic()
+        sp = obs.span("prefill_tick").__enter__()
         budget = self.prefill_chunk
         self.prefill_ticks += 1
         rot = self._prefill_rr % len(slots)
@@ -832,7 +1161,15 @@ class PagedGenerationServer(_GenerationServerBase):
                 self._finish_if_done(s)
                 if self._active[s] is not None:
                     self._on_prefill_complete(s)
-        self._h_prefill.observe(time.monotonic() - t0)
+        chunked = self.prefill_chunk - budget
+        if sp:
+            sp.set(slots=len(slots), chunk_tokens=chunked)
+        sp.__exit__(None, None, None)
+        dt = time.monotonic() - t0
+        self._h_prefill.observe(dt)
+        led = obs.ledger()
+        if led is not None:
+            led.record("prefill", dt, batch=len(slots), chunk=chunked)
 
     def _on_prefill_complete(self, slot: int):
         """Hook fired after a request's prefill completed (tail published,
@@ -850,6 +1187,9 @@ class PagedGenerationServer(_GenerationServerBase):
         per slot, q_len 1 for decoding slots and 0 for idle and
         mid-prefill ones, so probs stays slot-indexed."""
         t0 = time.monotonic()
+        sp = obs.span("decode_tick").__enter__()
+        if sp:
+            sp.set(live=len(live), pages_in_use=self.pool.pages_in_use)
         dec = set(live)
         items = [(s, self._active[s].pos if s in dec else 0,
                   [int(self._tokens[s])] if s in dec else [], None, None)
@@ -867,8 +1207,13 @@ class PagedGenerationServer(_GenerationServerBase):
             self._tokens[s] = toks[s]
             self._publish_prefix(req, req.pos)
             self._finish_if_done(s)
-        self._h_tick.observe(time.monotonic() - t0)
+        sp.__exit__(None, None, None)
+        dt = time.monotonic() - t0
+        self._h_tick.observe(dt)
         self._h_tokens.observe(len(live))
+        led = obs.ledger()
+        if led is not None:
+            led.record("decode", dt, batch=len(live))
 
     def _decode_megastep(self, live, tr, ntr):
         """Up to `megastep_ticks` decode ticks in one dispatch
@@ -882,8 +1227,15 @@ class PagedGenerationServer(_GenerationServerBase):
         (append, prefix publication, finish) token by token in the
         one-tick order, so page growth, admission, eviction and defrag
         stay between megasteps, and greedy and fixed-seed sampled tokens
-        equal the one-tick loop's."""
+        equal the one-tick loop's. While a canary window is open it stands
+        down to the one-tick path, whose launches the shadow replays (a
+        window opens on any admission, so this is decided a dispatch)."""
+        if self._caches_ref is not None:
+            return self._decode_tick(live, tr, ntr)
         t0 = time.monotonic()
+        sp = obs.span("megastep").__enter__()
+        if sp:
+            sp.set(live=len(live), pages_in_use=self.pool.pages_in_use)
         N = self.megastep_ticks
         pos = np.zeros((self.slots,), np.int32)
         rem = np.zeros((self.slots,), np.int32)
@@ -939,9 +1291,17 @@ class PagedGenerationServer(_GenerationServerBase):
         self.megastep_ticks_run += ran
         self._h_mega.observe(ran)
         self._c_break[reason].inc()
+        if sp:
+            sp.set(ticks=ran, break_reason=reason,
+                   fused_rows=ran * len(live))
+        sp.__exit__(None, None, None)
+        dt = time.monotonic() - t0
         # the latency a tick, so the histogram compares across widths
-        self._h_tick.observe((time.monotonic() - t0) / max(ran, 1))
+        self._h_tick.observe(dt / max(ran, 1))
         self._h_tokens.observe(len(live))
+        led = obs.ledger()
+        if led is not None:
+            led.record("decode", dt, batch=len(live), width=max(ran, 1))
 
     def _on_megastep_resume(self):
         """Hook fired after a megastep's bookkeeping replay, the point
@@ -968,12 +1328,15 @@ class PagedGenerationServer(_GenerationServerBase):
         clone, a scale reset, the next dispatch's uploads) is ordered
         after the enqueued ticks by the stream. Page growth, eviction and
         defrag stay after the fence (the next _tick_prep)."""
-        self._admit_pending()
+        with obs.span("overlap_admit"):
+            self._admit_pending()
 
     def _mixed_dispatch(self, live, tr, ntr) -> bool:
-        """Serve this tick as one universal megastep when the mode is on;
-        returns whether it did."""
-        if not self.megastep_mixed:
+        """Serve this tick as one universal megastep when the mode is on
+        and no canary window is open (the shadow must observe every
+        launch, so an open window stands the fused dispatch down to the
+        one-tick path); returns whether it did."""
+        if not self.megastep_mixed or self._caches_ref is not None:
             return False
         self._mixed_megastep(live, tr, ntr)
         return True
@@ -1012,6 +1375,9 @@ class PagedGenerationServer(_GenerationServerBase):
         predicated off count in wasted_ticks, and the generator is set
         back to the state before the first of them."""
         t0 = time.monotonic()
+        sp = obs.span("megastep").__enter__()
+        if sp:
+            sp.set(live=len(live), pages_in_use=self.pool.pages_in_use)
         P, W, D = self.page_size, self._mixed_window, self._spec_depth
         N = self.megastep_ticks
         pos = np.zeros((self.slots,), np.int32)
@@ -1039,6 +1405,7 @@ class PagedGenerationServer(_GenerationServerBase):
         if n == 0:
             # defensive only (_ensure_pages gives every slot its room):
             # one unfused tick, and the ledger is rebuilt from the host
+            sp.__exit__(None, None, None)
             self._seq_dev = None
             pre, dec = self._split_live(live)
             if pre:
@@ -1151,8 +1518,16 @@ class PagedGenerationServer(_GenerationServerBase):
         self.megastep_ticks_run += ran
         self._h_mega.observe(ran)
         self._c_break[reason].inc()
-        self._h_tick.observe((time.monotonic() - t0) / max(ran, 1))
+        if sp:
+            sp.set(ticks=ran, break_reason=reason, fused_rows=fused,
+                   pf_slots=len(pf_slots), dec_slots=len(dec_slots))
+        sp.__exit__(None, None, None)
+        dt = time.monotonic() - t0
+        self._h_tick.observe(dt / max(ran, 1))
         self._h_tokens.observe(len(live))
+        led = obs.ledger()
+        if led is not None:
+            led.record("decode", dt, batch=len(live), width=max(ran, 1))
 
     def _loop_body(self, tr, ntr):
         while not self._stop.is_set():

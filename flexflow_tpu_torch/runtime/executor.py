@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from flexflow_tpu_torch import obs
 from flexflow_tpu_torch.ffconst import ActiMode, LossType, MetricsType, OpType
 from flexflow_tpu_torch.ops.registry import LowerCtx, get_lowering, node_seed
 from flexflow_tpu_torch.pcg.graph import Graph, Node
@@ -482,6 +483,15 @@ class Executor:
 
     def train_step(self, trainable, nontrainable, opt_state, labels,
                    *inputs, rng: Optional[Tuple[int, int]] = None):
+        """One training step (_train_step), inside an obs span named
+        "train_step", so under obs.enable() train steps land on the host
+        trace beside the serving ticks."""
+        with obs.span("train_step"):
+            return self._train_step(trainable, nontrainable, opt_state,
+                                    labels, *inputs, rng=rng)
+
+    def _train_step(self, trainable, nontrainable, opt_state, labels,
+                    *inputs, rng: Optional[Tuple[int, int]] = None):
         """One training step: the loss and gradients of `loss_and_grads`
         (dropout drawn from the stream `rng` = (fit stream, step), (0, 0)
         when None), then the optimizer's update of the fp32 masters and
@@ -515,10 +525,15 @@ class Executor:
         return (trainable, merge_state(nontrainable, state), opt_state,
                 metrics)
 
-    @torch.no_grad()
     def eval_step(self, trainable, nontrainable, labels, *inputs):
         """The loss and the compiled metrics of one batch, as 0-d tensors
-        on the device."""
+        on the device (inside an obs span named "eval_step" under
+        obs.enable())."""
+        with obs.span("eval_step"):
+            return self._eval_step(trainable, nontrainable, labels, *inputs)
+
+    @torch.no_grad()
+    def _eval_step(self, trainable, nontrainable, labels, *inputs):
         labels = self._maybe_repeat_labels(labels)
         logits = self.run_forward(trainable, nontrainable, inputs,
                                   skip_sink_softmax=self.fuse_loss_softmax)

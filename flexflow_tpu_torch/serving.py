@@ -18,14 +18,16 @@ KV buffer, decoded through the MHA lowering's dense-cache branch
 per-request records of the last `request_record_limit` requests in a
 BoundedRing, writes one reqlog record per completed request
 (`reqlog_capacity`, obs.reqlog) and, with `slo=SLOTarget(...)`, feeds
-the SLO monitor, which dumps a breach bundle under `slo_dump_dir`. All of
-it is host bookkeeping on what the server already knows: no device read
-is added to a tick. The reference's compile tracker, span tracer, host
-KV tier and router have no counterpart here yet, so the fields they fill
-hold their defaults: a request's compile seconds are 0.0 (its TTFT
-without compile is its TTFT), and the reqlog record's `spilled_pages`,
-`fetched_pages` and `routed_to` are 0, 0 and None; breach dumps carry no
-trace tail, strategy or compile snapshot.
+the SLO monitor, which dumps a breach bundle under `slo_dump_dir`. Under
+obs.enable() the tick phases run inside obs spans, record their wall
+times in the tick ledger, and each completed request becomes a request
+track of the trace. All of it is host bookkeeping on what the server
+already knows: no device read is added to a tick. The reqlog record's
+`spilled_pages` and `fetched_pages` come from the paged server's host
+tier, `routed_to` from the prefix-affinity router (disagg/). The
+reference's compile tracker has no counterpart here yet: a request's
+compile seconds are 0.0 (its TTFT without compile is its TTFT), and
+breach dumps carry no strategy or compile snapshot.
 
   ff = FFModel(FFConfig(device="cuda")); build_llama(ff, cfg); ff.compile()
   server = ff.serve(batch_sizes=(1, 8, 32), max_delay_ms=2)  # batch
@@ -433,8 +435,8 @@ class _GenRequest:
         self.spec_accepted = 0
         self.spec_emitted = 0
         self.decode_overlap_ticks = 0   # decode ticks run mid-prefill
-        # the reference's host KV tier and router fill these; the port
-        # has neither, so they keep the reference's defaults
+        # the paged server's host KV tier and the prefix-affinity router
+        # fill these (disagg/)
         self.spilled_pages = 0
         self.fetched_pages = 0
         self.routed_to: Optional[str] = None
@@ -592,8 +594,16 @@ class _GenerationServerBase:
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if len(prompt) == 0:
             raise ValueError("prompt must contain at least one token")
-        self._check_capacity(prompt, max_new_tokens)
-        req = _GenRequest(prompt, max_new_tokens, temperature)
+        return self.submit_request(
+            _GenRequest(prompt, max_new_tokens, temperature))
+
+    def submit_request(self, req: _GenRequest) -> Future:
+        """Enqueue an ALREADY-BUILT request: the disagg handoff path
+        (disagg/workers.py) hands a prefill worker's live request (its
+        future, first token and counters intact) to the decode worker,
+        whose admission re-attaches its spilled pages through the shared
+        host tier; the router stamps `routed_to` before it enqueues."""
+        self._check_capacity(req.prompt, req.max_new)
         with self._lock:
             if not self._running:
                 raise RuntimeError(f"{type(self).__name__} is stopped")
@@ -770,8 +780,10 @@ class _GenerationServerBase:
         """Subclass hook: reclaim per-slot resources (paged frees pages).
         A completed request (not a cancellation) records its metrics,
         feeds the histograms, and writes its reqlog record, which the SLO
-        monitor judges; a breach it trips dumps the bundle from this, the
-        loop's, thread."""
+        monitor judges; a breach it trips dumps the bundle (with the span
+        trace's tail under obs.enable()) from this, the loop's, thread.
+        Under obs.enable() the request's lifecycle goes to the trace as
+        a request track."""
         if completed:
             req.done_t = done_t = time.monotonic()
             m = req.metrics()
@@ -792,7 +804,15 @@ class _GenerationServerBase:
                     if tripped:
                         self._c_slo_breaches.inc()
                         self._slo.dump(reqlog=self._reqlog,
+                                       recorder=obs.recorder(),
                                        metrics=self.metrics)
+            rec = obs.recorder()
+            if rec is not None:
+                # the request's lifecycle track (queued, prefill, decode)
+                # on the spans' monotonic clock
+                rec.record_request(req.submit_t, req.admit_t,
+                                   req.first_token_t, done_t,
+                                   label=f"req {self._served + 1}", attrs=m)
         self._active[slot] = None
 
     def _finish_if_done(self, slot: int):
@@ -903,15 +923,20 @@ class GenerationServer(_GenerationServerBase):
         dev = self.device
         while not self._stop.is_set():
             admitted = False
-            for slot in range(self.slots):
-                if self._active[slot] is not None:
-                    continue
-                try:
-                    req = self._queue.get_nowait()
-                except queue.Empty:
-                    break
-                self._admit(req, slot)
-                admitted = True
+            with obs.span("admit") as sp:
+                n_admitted = 0
+                for slot in range(self.slots):
+                    if self._active[slot] is not None:
+                        continue
+                    try:
+                        req = self._queue.get_nowait()
+                    except queue.Empty:
+                        break
+                    self._admit(req, slot)
+                    admitted = True
+                    n_admitted += 1
+                if sp and n_admitted:
+                    sp.set(admitted=n_admitted)
             live = [s for s in range(self.slots)
                     if self._active[s] is not None]
             if not live:
@@ -920,26 +945,33 @@ class GenerationServer(_GenerationServerBase):
                 continue
             # one decode step for the whole pool (idle slots compute too)
             t0 = time.monotonic()
-            pos = np.array([self._active[s].pos if self._active[s] else 0
-                            for s in range(self.slots)], np.int32)
-            temps = np.array([self._active[s].temperature
-                              if self._active[s] else 0.0
-                              for s in range(self.slots)], np.float32)
-            probs, self._caches = self._step(
-                tr, ntr, self._caches, torch.from_numpy(pos).to(dev),
-                torch.from_numpy(self._tokens[:, None].copy()).to(dev))
-            toks = pick_tokens(probs[:, -1, :],
-                               torch.from_numpy(temps).to(dev),
-                               self._gen).cpu().numpy()
-            self._steps += 1
-            for s in live:
-                req = self._active[s]
-                req.pos += 1
-                req.tokens.append(int(toks[s]))
-                self._tokens[s] = toks[s]
-                self._finish_if_done(s)
-            self._h_tick.observe(time.monotonic() - t0)
+            with obs.span("decode_tick") as sp:
+                if sp:
+                    sp.set(live=len(live))
+                pos = np.array([self._active[s].pos if self._active[s]
+                                else 0 for s in range(self.slots)], np.int32)
+                temps = np.array([self._active[s].temperature
+                                  if self._active[s] else 0.0
+                                  for s in range(self.slots)], np.float32)
+                probs, self._caches = self._step(
+                    tr, ntr, self._caches, torch.from_numpy(pos).to(dev),
+                    torch.from_numpy(self._tokens[:, None].copy()).to(dev))
+                toks = pick_tokens(probs[:, -1, :],
+                                   torch.from_numpy(temps).to(dev),
+                                   self._gen).cpu().numpy()
+                self._steps += 1
+                for s in live:
+                    req = self._active[s]
+                    req.pos += 1
+                    req.tokens.append(int(toks[s]))
+                    self._tokens[s] = toks[s]
+                    self._finish_if_done(s)
+            dt = time.monotonic() - t0
+            self._h_tick.observe(dt)
             self._h_tokens.observe(len(live))
+            led = obs.ledger()
+            if led is not None:
+                led.record("decode", dt, batch=len(live))
 
 
 def not_ported(what: str, item: int):
@@ -979,10 +1011,13 @@ def serve_generation(ff, slots: int = 4, max_len: int = 512,
     `request_record_limit` bounds the per-request records metrics()
     keeps, `reqlog_capacity` sizes the request log (0 disables it), and
     `slo=SLOTarget(...)` arms the SLO monitor with breach dumps under
-    `slo_dump_dir`. The host KV tier, the kv_quant_canary shadow cache
-    and the serving-strategy search (`serve_strategy`, `search_budget`,
-    `traffic` other than its default) are not ported and raise
-    NotImplementedError naming their ROADMAP item; the reference's
+    `slo_dump_dir`. `host_tier` (a page capacity, or a shared
+    disagg.HostTier) spills evicted prefix pages to host memory and
+    fetches them back; `kv_quant_canary=N` replays every Nth admission's
+    launches against an fp32 shadow of the pool (the kv_quant_error
+    gauge). The serving-strategy search (`serve_strategy`,
+    `search_budget`, `traffic` other than its default) is not ported and
+    raises NotImplementedError naming its ROADMAP item; the reference's
     invalid combinations raise its ValueErrors. `defer_start=True`
     builds the server without starting its loop (start() does)."""
     if serve_strategy is not None:

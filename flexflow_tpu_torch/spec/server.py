@@ -207,6 +207,7 @@ class SpeculativePagedServer(PagedGenerationServer):
         # items are the live slots, or with ragged_pack=False every slot
         # in slot order, the idle and mid-prefill ones q_len-0 fillers
         order = live if self.ragged_pack else list(range(self.slots))
+        sp = obs.span("draft").__enter__()
         trees = {}
         parents = []
         for s in live:
@@ -222,6 +223,9 @@ class SpeculativePagedServer(PagedGenerationServer):
             drafted = tree.n_nodes - 1
             self.spec_drafted += drafted
             req.spec_drafted += drafted
+        if sp:
+            sp.set(live=len(live), width=T, drafted=self.spec_drafted - d0)
+        sp.__exit__(None, None, None)
         anc = iter(ancestor_masks(np.stack(parents)) if parents else ())
         pos = np.array([self._active[s].pos if self._active[s] else 0
                         for s in range(self.slots)], np.int32)
@@ -239,6 +243,10 @@ class SpeculativePagedServer(PagedGenerationServer):
                 items.append((s, req.pos, [req.tokens[-1]], None, None))
             else:
                 items.append((s, 0, [], None, None))
+        sp = obs.span("verify").__enter__()
+        if sp:
+            sp.set(live=len(live), width=T,
+                   pages_in_use=self.pool.pages_in_use)
         probs = self._launch(items, T, tr, ntr)
         self._count_decode_overlap()
 
@@ -256,6 +264,7 @@ class SpeculativePagedServer(PagedGenerationServer):
                           .reshape(-1), sampled]).cpu().numpy()
         preds = back[:len(order) * T].reshape(len(order), T)
         sampled = back[len(order) * T:]
+        sp.__exit__(None, None, None)  # verify: closes at the read back
         item_of = {s: i for i, s in enumerate(order)}
         plans = {}
         for s in live:
@@ -269,6 +278,8 @@ class SpeculativePagedServer(PagedGenerationServer):
 
         # commit: the accepted path's rows onto the contiguous committed
         # rows (unused entries copy a row onto itself)
+        sp = obs.span("commit").__enter__()
+        a1 = self.spec_accepted
         src = np.repeat(pos[:, None], C, axis=1)
         dst = src.copy()
         for s in live:
@@ -292,9 +303,14 @@ class SpeculativePagedServer(PagedGenerationServer):
             req.spec_steps += 1
             req.spec_emitted += L
             self.spec_emitted += L
-        self._caches = self._commit(
-            self._caches, self._tables_device(),
-            torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev))
+        src_d = torch.from_numpy(src).to(dev)
+        dst_d = torch.from_numpy(dst).to(dev)
+        self._caches = self._commit(self._caches, self._tables_device(),
+                                    src_d, dst_d)
+        if self._caches_ref is not None:
+            # the canary's fp32 shadow takes the same accepted-row commit
+            self._caches_ref = self._commit(
+                self._caches_ref, self._tables_device(), src_d, dst_d)
         for s in live:
             # publish AFTER the commit: only rows below the advanced
             # write head hold committed K/V; the tree's scratch rows past
@@ -302,8 +318,15 @@ class SpeculativePagedServer(PagedGenerationServer):
             self._publish_prefix(self._active[s], self._active[s].pos)
             self._finish_if_done(s)
         emitted = self.spec_emitted - e0
-        self._h_tick.observe(time.monotonic() - t0)
+        if sp:
+            sp.set(emitted=emitted, accepted=self.spec_accepted - a1)
+        sp.__exit__(None, None, None)
+        dt = time.monotonic() - t0
+        self._h_tick.observe(dt)
         self._h_tokens.observe(emitted)
         if self.spec_drafted > d0:
             self._h_accept.observe((self.spec_accepted - a0)
                                    / (self.spec_drafted - d0))
+        led = obs.ledger()
+        if led is not None:
+            led.record("verify", dt, batch=len(live), width=T)

@@ -1700,3 +1700,88 @@ def test_batch_server_forward_reaches_k4():
     finally:
         server.stop()
     np.testing.assert_allclose(got, ff.predict(x), atol=1e-5, rtol=1e-4)
+
+
+def test_canary_shadow_launch_matches_plain_version():
+    """The kv_quant_canary's shadow launch: bf16 q over an fp32 pool at the
+    serving decode's shape (Llama-3-8B's attention: 32 heads over 8 of
+    128, page 64, 4 slots at position 1024, a 32-page table). The fp
+    kernel converts the fp32 rows on load; it must agree with the plain
+    version's cast."""
+    _needs_card()
+    H, Hkv, D, P, MAXP, B = 32, 8, 128, 64, 32, 4
+    N = B * MAXP + 1
+    rs = np.random.RandomState(20)
+    pt = (rs.permutation(N - 1)[:B * MAXP] + 1).reshape(B, MAXP)
+    q = torch.from_numpy(rs.standard_normal((B, 1, H, D)).astype(
+        np.float32)).cuda().bfloat16()
+    kc = torch.from_numpy(rs.standard_normal((N, P, Hkv, D)).astype(
+        np.float32)).cuda()
+    vc = torch.from_numpy(rs.standard_normal((N, P, Hkv, D)).astype(
+        np.float32)).cuda()
+    args = (q, kc, vc, torch.from_numpy(pt.astype(np.int32)).cuda(),
+            torch.full((B,), 1024, dtype=torch.int32, device="cuda"),
+            torch.ones((B,), dtype=torch.int32, device="cuda"),
+            torch.ones((B, 1, 1), dtype=torch.bool, device="cuda"))
+    scale = 1.0 / D ** 0.5
+    got = ragged_flash_attention(*args, scale=scale)
+    torch.cuda.synchronize()
+    want = ragged_gather_attention(*args, scale=scale)
+    assert got.dtype == torch.bfloat16
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= TOLS[torch.bfloat16] * max(1.0, float(
+        want.float().abs().max()))
+
+
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8"])
+def test_host_tier_page_roundtrip_is_bit_exact(kv_dtype):
+    """A page's tier payload on the card: the page's rows of every leaf
+    (an int8 pool's scales too) in one pinned host buffer, written back
+    bit for bit; and a tiny Llama served through a pool too small for its
+    prefixes gives, with a host tier that spills and fetches, the tokens
+    of the untiered server, and with kv_quant_canary=1 the same again."""
+    _needs_card()
+    from flexflow_tpu_torch import DataType, FFConfig, FFModel
+    from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
+
+    ff = FFModel(FFConfig(batch_size=1, seed=3, device="cuda"))
+    build_llama(ff, LlamaConfig(vocab_size=512, dim=256, layers=2, heads=2,
+                                kv_heads=1, hidden=512),
+                batch_size=1, seq_len=64, dtype=DataType.BFLOAT16)
+    ff.compile()
+    rs = np.random.RandomState(4)
+    prompts = [rs.randint(0, 512, (n,)).astype(np.int32)
+               for n in (19, 23, 17)]
+    traffic = prompts + [prompts[0]]
+    outs, servers = {}, {}
+    for key, kw in (("plain", {}), ("tier", {"host_tier": 32}),
+                    ("canary", {"host_tier": 32, "kv_quant_canary": 1})):
+        server = ff.serve_generation(paged=True, slots=1, max_len=64,
+                                     page_size=8, num_pages=8,
+                                     kv_dtype=kv_dtype, **kw)
+        try:
+            outs[key] = [server.generate(p, 6, timeout=300)
+                         for p in traffic]
+        finally:
+            server.stop()
+        server.pool.check_invariants(owners={})
+        servers[key] = server
+    for key in ("tier", "canary"):
+        for a, b in zip(outs[key], outs["plain"]):
+            np.testing.assert_array_equal(a, b)
+    tiered = servers["tier"]
+    assert tiered.pool.spilled_pages > 0 and tiered.pool.fetched_pages > 0
+    page = next(iter(tiered.pool._full.values()))
+    before = {k: {n: b[page].clone() for n, b in bufs.items()}
+              for k, bufs in tiered._caches.items()}
+    payload = tiered._tier_read_page(page)
+    assert all(t.is_pinned() and t.device.type == "cpu"
+               for bufs in payload.values() for t in bufs.values())
+    for bufs in tiered._caches.values():
+        for b in bufs.values():
+            b[page].fill_(5)
+    tiered._tier_write_page(page, payload)
+    torch.cuda.synchronize()
+    for k, bufs in tiered._caches.items():
+        for n, b in bufs.items():
+            assert torch.equal(b[page], before[k][n]), (k, n)

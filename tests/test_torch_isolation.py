@@ -47,6 +47,16 @@ _RING_MODULES = ("flexflow_tpu_torch.parallel.mesh",
                  "flexflow_tpu_torch.parallel.comm_spec",
                  "flexflow_tpu_torch.parallel.ring",
                  "flexflow_tpu_torch.ops.ring_flash")
+# the host tier, disaggregation, the span tracer and ledger, and the
+# numerics budget catalog
+_SERVE_OBS_MODULES = ("flexflow_tpu_torch.disagg",
+                      "flexflow_tpu_torch.disagg.host_tier",
+                      "flexflow_tpu_torch.disagg.router",
+                      "flexflow_tpu_torch.disagg.workers",
+                      "flexflow_tpu_torch.obs.trace",
+                      "flexflow_tpu_torch.obs.ledger",
+                      "flexflow_tpu_torch.analysis",
+                      "flexflow_tpu_torch.analysis.num_budgets")
 # the speculative-decoding package
 _SPEC_MODULES = ("flexflow_tpu_torch.spec",
                  "flexflow_tpu_torch.spec.config",
@@ -68,6 +78,7 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
     assert int(count.split()[0]) >= 21
     assert set(_RING_MODULES) <= set(names.split())
     assert set(_SPEC_MODULES) <= set(names.split())
+    assert set(_SERVE_OBS_MODULES) <= set(names.split())
 
 
 def test_no_reference_import_statements_in_port_sources():
@@ -131,7 +142,7 @@ def test_chip_smoke_fails_without_cuda():
 
 def test_training_entry_points_raise():
     """What the training slice does not port raises, naming ROADMAP: a
-    refused config field (fit's profiler capture), fit(dataloaders=...)
+    refused config field (periodic checkpoints), fit(dataloaders=...)
     and fit(recompile_state=...). Initializer overrides are ported (the
     override draws the leaf) and so is attention dropout in training
     (the dense route): fit trains through it."""
@@ -140,7 +151,7 @@ def test_training_entry_points_raise():
     from flexflow_tpu_torch.ops import torch_ops
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FFConfig(device="cpu", profiler_trace_dir="trace")
+        FFConfig(device="cpu", checkpoint_dir="ckpt")
     ff = FFModel(FFConfig(batch_size=1, device="cpu"))
     x = ff.create_tensor((1, 4, 16))
     d = ff.dense(x, 16, kernel_initializer="zeros", name="zeroed")

@@ -176,17 +176,20 @@ def test_unsupported_server_knobs_raise():
     unpacked launch and the dense default all serve, each with the
     reference's greedy tokens; speculate=object() raises TypeError and
     overlap_dispatch without the mixed megastep ValueError, as the
-    reference does; what the port does not serve yet (the host tier, the
-    kv_quant_canary shadow cache) raises NotImplementedError naming its
-    ROADMAP item, rather than serving a different configuration; an
-    unknown kv_dtype is a ValueError."""
+    reference does; the host tier and the kv_quant_canary shadow cache
+    serve with the reference's greedy tokens too (the knobs the port
+    does not serve yet are held to raising NotImplementedError by
+    tests/test_torch_batch_serving.py); an unknown kv_dtype is a
+    ValueError."""
     jff, tff = _models(2)
     prompt = np.arange(1, 7, dtype=np.int32)
     want = np.asarray(jff.generate(prompt[None], max_new_tokens=5)[0])
     for kw in ({"paged": True, "megastep_ticks": 4},
                {"paged": True, "megastep_ticks": 4, "megastep_mixed": True,
                 "overlap_dispatch": True},
-               {"paged": True, "ragged_pack": False}, {}):
+               {"paged": True, "ragged_pack": False},
+               {"paged": True, "host_tier": 8},
+               {"paged": True, "kv_quant_canary": 2}, {}):
         server = tff.serve_generation(slots=2, max_len=32, page_size=4,
                                       **kw)
         try:
@@ -202,10 +205,6 @@ def test_unsupported_server_knobs_raise():
     with pytest.raises(ValueError, match="megastep_mixed"):
         tff.serve_generation(slots=2, max_len=32, paged=True, page_size=4,
                              overlap_dispatch=True)
-    for kw in ({"host_tier": 8}, {"kv_quant_canary": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tff.serve_generation(slots=2, max_len=32, paged=True,
-                                 page_size=4, **kw)
     with pytest.raises(ValueError, match="kv_dtype"):
         tff.serve_generation(slots=2, max_len=32, paged=True, page_size=4,
                              kv_dtype="int7")
