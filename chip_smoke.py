@@ -12,10 +12,12 @@ decoded, BERT-base behind the batch server and the paged server behind
 the HTTP endpoint with its request log and SLO, the paged server with a
 host KV tier, disaggregated into prefill and decode workers, behind a
 prefix-affinity router, with the kv_quant_canary shadow cache and under
-the span tracer, and holds every hand-written kernel on them to its plain
-PyTorch version.
+the span tracer, GPT-2 imported from the HuggingFace layout, trained from
+file loaders with periodic checkpoints and resumed, a Llama-3-8B-width
+HF import, and every example script, and holds every hand-written kernel
+on them to its plain PyTorch version.
 
-    python3 chip_smoke.py            # phases 1..4, 6..20, one card
+    python3 chip_smoke.py            # phases 1..4, 6..21, one card
     python3 chip_smoke.py --phases 5 # + profiles of serving and training
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
@@ -319,8 +321,8 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      forward's of (c) under "bert_serve", K3's of (d) under
      "http_serve");
  20. the host KV tier, disaggregation, the canary and the tracer, at
-     Llama-3-8B's widths, 8 of its 32 layers (TIER_LAYERS), bf16, random
-     weights from the seed (a page of 64 rows is 2 MiB): (a) four
+     Llama-3-8B's widths, 4 of its 32 layers (TIER_LAYERS), bf16, random
+     weights from the seed (a page of 64 rows is 1 MiB): (a) four
      1024-token system prompts, 32 requests of one plus 64 tokens of
      their own, 32 new each, in 8 waves of 4 sharing a prompt (A, B, C,
      D, A, B, C, D; each wave's first request alone, then the other
@@ -358,7 +360,37 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      launches of (a)'s tiered run, (b)'s pair and (d)'s traced run under
      "tier_disagg_trace", its shadow launches of (c) under
      "canary_shadow", timed at phase 2's fp32-pool case, and the int8
-     kernel's of (c) under "canary").
+     kernel's of (c) under "canary");
+ 21. checkpoints, data loaders, recompilation, the frontends and the
+     examples, under a temporary directory removed at the end: (a) GPT-2
+     124M's widths (vocab 50257, 768 wide, 12 layers of 12 heads, 1024
+     positions, gelu_new, tied head; a GPT2LMHeadModel-shaped stand-in,
+     no transformers on the card, its weights seeded) through
+     import_hf_causal_lm at seq 1024, bf16 compute (fp32 from the
+     position add: K4's fp32 bodies), copy_hf_weights and compile(Adam
+     lr 1e-4), then fit over two FileDataLoaders of 16 batches of 8 x
+     1024 (.npy files written from the seed) with checkpoint_every 8 and
+     a RecompileState whose alter changes nothing firing once at step 4:
+     K4's three kernels once a layer and step, each save's seconds and
+     GB, the syncs a step under transfer_guard "log" against the same
+     batches through fit(x, y) (equal, and equal weights bit for bit);
+     restore_model(step_8) trained on batches 9-16 must end bit for bit
+     on the writer's state; (b) restore_model(step_16) through
+     serve_generation(paged=True), 4 greedy requests of 32 tokens (K3
+     once a layer and ragged step), tokens equal to the writer's; (c)
+     Llama-3-8B's widths (a LlamaForCausalLM-shaped stand-in, untied) at
+     2 of its 32 layers (memory and time) through the HF importer: the
+     weights copied (3 + 9 a layer), bf16 predict at seq 128 (K1 once a
+     layer) against the port's fp32 path on the CPU over the same
+     weights, within the hf-import-parity budgets, argmax agreeing on
+     90% of rows; (d) every example of flexflow_tpu_torch/examples in
+     this process, one epoch on the card; the resnet example's module
+     through torch.fx at batch 64 against the module's own output on the
+     card; the keras MNIST MLP (784-512-512-10), its loss falling; then
+     K4 (fp32) at (a)'s attention shape, K1/K2 at (c)'s and K3 at (b)'s
+     decode, timed (the kernels line records K4's launches of (a) under
+     "gpt2_124m", K3's of (b) under "gpt2_124m_restored" and K1's of (c)
+     under "llama3_8b_hf").
 Each phase, and each part of phases 2 and 3, logs its wall seconds on a
 `phase_time` line. The line before the last is the kernel list as JSON;
 the last line is {"ok": true, "device": {...}}. Exits non-zero without
@@ -1031,51 +1063,57 @@ GPT2_ATTENTION_CASE = ("gpt2_xl_decode_b4_pos960", 1, ["decode"] * 4, 960)
 GPT2_HEADS = (25, 25, 64)
 
 
+def k3_case(case, heads, dtype, seed: int, card: str) -> dict:
+    """The fp-pool ragged kernel against its plain version at one case
+    (name, window, entry kinds, fixed position) and `heads` = (H, Hkv, D):
+    error, kernel / plain / SDPA times, the bound; raises on a
+    difference past TOLS or a non-zero tail."""
+    name, window, kinds, fixed = case
+    scale = 1.0 / heads[2] ** 0.5
+    args = attention_case(window, kinds, dtype, seed=seed, fixed_pos=fixed,
+                          heads=heads)
+    got = ragged_flash_attention(*args, scale=scale)
+    want = ragged_gather_attention(*args, scale=scale)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    atol, rtol = TOLS[dtype]
+    ok = bool((err <= atol + rtol * want.float().abs()).all())
+    zero_tail = all(not got[b, int(args[5][b]):].any()
+                    for b in range(len(kinds)))
+    bound_ms, bound_by, nbytes, ops = attention_bound(args)
+    plan = ragged_split_plan(len(kinds), window, heads[0], heads[1], P,
+                             MAXP, torch.cuda.get_device_properties(
+                                 0).multi_processor_count)
+    res = {
+        "case": name, "dtype": str(dtype).replace("torch.", ""),
+        "heads": list(heads), "window": window, "kinds": kinds,
+        "split_plan": list(plan),
+        "pos": args[4].tolist(), "q_lens": args[5].tolist(),
+        "max_abs_err": float(err.max()), "atol": atol, "rtol": rtol,
+        "ms": time_ms(lambda: ragged_flash_attention(*args, scale=scale)),
+        "plain_ms": time_ms(lambda: ragged_gather_attention(
+            *args, scale=scale)),
+        "library_ms": time_ms(library_call(args, scale)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bytes": nbytes, "ops": ops, "card": card,
+    }
+    log(f"kernel {json.dumps(res)}")
+    if not ok or not zero_tail:
+        raise AssertionError(
+            f"ragged_paged_attention {name} {dtype}: max |err| "
+            f"{res['max_abs_err']:.3g} vs atol {atol} rtol {rtol}, "
+            f"zero tail {zero_tail}")
+    return res
+
+
 def phase_kernels(card: str) -> list:
     """The fp-pool ragged kernel against its plain version at Llama-3-8B's
     serving cases and GPT-2 XL's decode case, bf16 and fp32 q."""
     cases = [(c, (H, HKV, D)) for c in ATTENTION_CASES] + [
         (GPT2_ATTENTION_CASE, GPT2_HEADS)]
-    results = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for i, ((name, window, kinds, fixed), heads) in enumerate(cases):
-            scale = 1.0 / heads[2] ** 0.5
-            args = attention_case(window, kinds, dtype, seed=i,
-                                  fixed_pos=fixed, heads=heads)
-            got = ragged_flash_attention(*args, scale=scale)
-            want = ragged_gather_attention(*args, scale=scale)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs()
-            atol, rtol = TOLS[dtype]
-            ok = bool((err <= atol + rtol * want.float().abs()).all())
-            zero_tail = all(not got[b, int(args[5][b]):].any()
-                            for b in range(len(kinds)))
-            bound_ms, bound_by, nbytes, ops = attention_bound(args)
-            plan = ragged_split_plan(len(kinds), window, heads[0], heads[1],
-                                     P, MAXP, torch.cuda.get_device_properties(
-                                         0).multi_processor_count)
-            res = {
-                "case": name, "dtype": str(dtype).replace("torch.", ""),
-                "heads": list(heads), "window": window, "kinds": kinds,
-                "split_plan": list(plan),
-                "pos": args[4].tolist(), "q_lens": args[5].tolist(),
-                "max_abs_err": float(err.max()), "atol": atol, "rtol": rtol,
-                "ms": time_ms(lambda: ragged_flash_attention(
-                    *args, scale=scale)),
-                "plain_ms": time_ms(lambda: ragged_gather_attention(
-                    *args, scale=scale)),
-                "library_ms": time_ms(library_call(args, scale)),
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "bytes": nbytes, "ops": ops, "card": card,
-            }
-            log(f"kernel {json.dumps(res)}")
-            if not ok or not zero_tail:
-                raise AssertionError(
-                    f"ragged_paged_attention {name} {dtype}: max |err| "
-                    f"{res['max_abs_err']:.3g} vs atol {atol} rtol {rtol}, "
-                    f"zero tail {zero_tail}")
-            results.append(res)
-    return results
+    return [k3_case(case, heads, dtype, i, card)
+            for dtype in (torch.bfloat16, torch.float32)
+            for i, (case, heads) in enumerate(cases)]
 
 
 def split_sweep(card: str, case: int = 0) -> dict:
@@ -5773,9 +5811,10 @@ def phase_pipeline_and_serving(seed: int, card: str) -> dict:
 # phase 20: the host KV tier, prefill/decode disaggregation, the router,
 # the kv_quant_canary shadow cache and the span tracer
 
-# Llama-3-8B's widths at 8 of its 32 layers, bf16: a page of 64 rows is
-# 2 x 8 x 8 x 128 x 64 x 2 B = 2 MiB
-TIER_LAYERS = 8
+# Llama-3-8B's widths at 4 of its 32 layers (8 until the default run
+# neared 1000 s with phase 21), bf16: a page of 64 rows is
+# 2 x 4 x 8 x 128 x 64 x 2 B = 1 MiB
+TIER_LAYERS = 4
 TIER_SERVE = dict(slots=4, max_len=2048, page_size=64, prefill_chunk=64)
 # four 1024-token system prompts (16 pages each); a request is one of them
 # plus 64 tokens of its own and asks for 32 new; TIER_WAVES waves of four
@@ -5783,7 +5822,7 @@ TIER_SERVE = dict(slots=4, max_len=2048, page_size=64, prefill_chunk=64)
 # service that keeps more system prompts than its pool holds
 TIER_SYS, TIER_SUFFIX, TIER_NEW, TIER_WAVES = 1024, 64, 32, 8
 # the small pool (a wave holds ~24 pages live, so by the second round
-# every prefix has been evicted), the tier (128 pages: 256 MiB of host
+# every prefix has been evicted), the tier (128 pages: 128 MiB of host
 # memory) and a pool that keeps every prefix resident
 TIER_SMALL_POOL, TIER_CAPACITY, TIER_BIG_POOL = 40, 128, 160
 # the fp32 check (TF32 off): depth 2, the same prompts, 8 new tokens
@@ -6491,6 +6530,475 @@ def phase_tier_disagg_canary_trace(seed: int, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 21: checkpoints, data loaders, recompilation, the frontends, the
+# CLI's examples
+
+# GPT-2 124M (openai-community/gpt2: GPT2Config()'s widths, 12 layers),
+# trained from two FileDataLoaders over P21_BATCHES batches of 8 x 1024
+P21_BATCHES, P21_EVERY, P21_RECOMPILE_AT = 16, 8, 4
+# the restored step-16 model serves these greedy requests
+P21_REQUESTS, P21_NEW, P21_PROMPT_MIN, P21_PROMPT_MAX = 4, 32, 64, 256
+# Llama-3-8B's widths through the HF importer at this depth, predict at
+# this sequence (K1 at D 128)
+P21_LLAMA_LAYERS, P21_LLAMA_SEQ = 2, 128
+# (example module, flags): every port example, one epoch on the card
+P21_EXAMPLES = [
+    ("mnist_mlp", ("-b", "64")), ("alexnet_cifar10", ("-b", "32")),
+    ("bert_attribute_parallel", ("-b", "8")), ("candle_uno", ("-b", "16")),
+    ("dlrm_train", ("-b", "32")), ("inception_v3", ("-b", "4")),
+    ("llama_train", ("-b", "4")), ("llama_train", ("-b", "4", "--pipeline")),
+    ("mixtral_moe", ("-b", "8")), ("nmt_seq2seq", ("-b", "32")),
+    ("resnet_torch_import", ("-b", "8")), ("hf_finetune", ("-b", "4")),
+    ("transformer", ("-b", "8")), ("transformer", ("-b", "8", "--enc-dec")),
+]
+P21_FX_BATCH = 64
+P21_FX_TOL = 1e-4  # fp32, cuDNN's convolutions on both sides
+
+
+def _gpt2_import(hf_model, seed: int, **cfg) -> tuple:
+    """The HF importer's main path: GPT-2 at seq 1024, bf16 compute (fp32
+    from the position add, as the reference computes it), Adam's fp32
+    masters; (model, weights copied)."""
+    from flexflow_tpu_torch.frontends.hf import (
+        copy_hf_weights, import_hf_causal_lm,
+    )
+
+    ff = FFModel(FFConfig(batch_size=TRAIN_BATCH, seed=seed, device=DEVICE,
+                          remat="none", **cfg))
+    import_hf_causal_lm(hf_model, ff, batch_size=TRAIN_BATCH,
+                        seq_len=GPT2_POSITIONS, dtype=DataType.BFLOAT16)
+    ff.compile(optimizer=AdamOptimizer(lr=TRAIN_LR),
+               loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+               metrics=[MetricsType.ACCURACY,
+                        MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the tied head is copied
+        n = copy_hf_weights(hf_model, ff)
+    return ff, n
+
+
+def _state_leaves(ff) -> dict:
+    from flexflow_tpu_torch.runtime.checkpoint import _flatten
+
+    tr, ntr = ff._params
+    return _flatten({"trainable": tr, "nontrainable": ntr,
+                     "opt_state": ff._opt_state})
+
+
+def _state_diff(a, b) -> dict:
+    """Leaf by leaf: bit-equal, and the largest |a - b| over the largest
+    |b| of any leaf that differs."""
+    la, lb = _state_leaves(a), _state_leaves(b)
+    if sorted(la) != sorted(lb):
+        return {"same_leaves": False}
+    unequal, worst = 0, 0.0
+    for k, v in la.items():
+        w = lb[k]
+        if isinstance(v, int):
+            unequal += int(v != w)
+            continue
+        if not torch.equal(v, w):
+            unequal += 1
+            d = float((v.float() - w.float()).abs().max())
+            worst = max(worst, d / max(float(w.float().abs().max()), 1e-30))
+    return {"same_leaves": True, "leaves": len(la), "unequal": unequal,
+            "bit_equal": unequal == 0, "max_rel_diff": worst}
+
+
+def _synced_fit(ff, **kw) -> tuple:
+    """ff.fit under its config's transfer_guard ("log": sync debug
+    "warn" around the step loop; checkpoints and the recompile trigger
+    exempt): (metrics, synchronizing calls warned, wall s, launches)."""
+    _reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.monotonic()
+        pm = ff.fit(epochs=1, verbose=False, **kw)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+    return pm, syncs, wall, {k.name: k.launches for k in KERNELS}
+
+
+def phase_checkpoint_resume(seed: int, problems: list, work: str) -> dict:
+    """21a: GPT-2 124M's widths (a GPT2LMHeadModel-shaped stand-in, seeded
+    weights) through import_hf_causal_lm / copy_hf_weights, compile(Adam),
+    fit(dataloaders=[two FileDataLoaders], recompile_state=...) over
+    P21_BATCHES batches of 8 x 1024 with checkpoint_every P21_EVERY (the
+    main path: K4's three kernels once a layer and step); the same
+    batches through fit(x, y) from the same import (equal syncs a step,
+    equal weights: the no-op recompile and the loaders change nothing);
+    restore_model(step_8) trained on batches 9-16 against the writer.
+    Returns the result and the writer (for 21b)."""
+    from flexflow_tpu_torch.frontends.hf_standin import gpt2_standin
+    from flexflow_tpu_torch.runtime import checkpoint as ckpt
+    from flexflow_tpu_torch.runtime.recompile import RecompileState
+
+    cfg = GPT2Config()
+    hf_model = gpt2_standin(vocab_size=cfg.vocab_size,
+                            n_positions=GPT2_POSITIONS, n_embd=cfg.dim,
+                            n_layer=cfg.layers, n_head=cfg.heads, seed=seed,
+                            device=DEVICE)
+    x, y = _token_batches(TRAIN_BATCH * P21_BATCHES, GPT2_POSITIONS,
+                          cfg.vocab_size, seed)
+    half = TRAIN_BATCH * P21_EVERY
+    files = {}
+    for name, arr in (("x", x), ("y", y), ("x_tail", x[half:]),
+                      ("y_tail", y[half:])):
+        files[name] = os.path.join(work, f"{name}.npy")
+        np.save(files[name], arr)
+    ck_dir = os.path.join(work, "ck")
+    saves = []
+    real_save = ckpt.periodic_save
+
+    def timed_save(d, model, **kw):
+        t0 = time.monotonic()
+        path = real_save(d, model, **kw)
+        saves.append({"path": os.path.basename(path),
+                      "s": time.monotonic() - t0,
+                      "gb": os.path.getsize(os.path.join(
+                          path, "arrays.npz")) / 1e9})
+        return path
+
+    writer, copied = _gpt2_import(hf_model, seed, checkpoint_dir=ck_dir,
+                                  checkpoint_every=P21_EVERY,
+                                  transfer_guard="log")
+    fired = []
+    state = RecompileState(
+        lambda s: not fired and writer._step_count >= P21_RECOMPILE_AT,
+        lambda s: fired.append(writer._step_count), writer)
+    executor0 = writer.executor
+    loaders = [writer.create_data_loader(None, files[n])
+               for n in ("x", "y")]
+    ckpt.periodic_save = timed_save
+    try:
+        pm, syncs, wall, launches = _synced_fit(
+            writer, dataloaders=loaders, recompile_state=state)
+    finally:
+        ckpt.periodic_save = real_save
+    plain, _ = _gpt2_import(hf_model, seed, transfer_guard="log")
+    pm_np, syncs_np, wall_np, _ = _synced_fit(plain, x=x, y=y)
+    same_as_plain = _state_diff(plain, writer)
+    del plain
+    free_card()
+    t0 = time.monotonic()
+    resumed = ckpt.restore_model(os.path.join(ck_dir, "step_8"),
+                                 device=DEVICE)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    resumed.fit(dataloaders=[resumed.create_data_loader(None, files[n])
+                             for n in ("x_tail", "y_tail")],
+                verbose=False)
+    resume = _state_diff(resumed, writer)
+    del resumed
+    free_card()
+    with open(os.path.join(ck_dir, "latest.json")) as f:
+        latest = json.load(f)
+    want = cfg.layers * P21_BATCHES
+    res = {"model": "gpt2_124m", "layers": cfg.layers,
+           "weights_copied": copied, "steps": writer._step_count,
+           "samples": pm.train_all,
+           "loss": pm.sparse_cce_loss / max(pm.train_all, 1),
+           "fit_wall_s": wall, "fit_x_y_wall_s": wall_np,
+           "launches": launches, "saves": saves, "restore_s": restore_s,
+           "restore_gb": saves[0]["gb"] if saves else None,
+           "latest": latest, "recompiled_at_step": fired,
+           "executor_rebuilt": writer.executor is not executor0,
+           "syncs_per_step_loaders": syncs / P21_BATCHES,
+           "syncs_per_step_x_y": syncs_np / P21_BATCHES,
+           "loaders_vs_x_y": same_as_plain, "resume_vs_writer": resume}
+    log(f"checkpoint_resume {json.dumps(res)}")
+    checks = {
+        "copied": copied == 5 + 16 * cfg.layers,
+        "steps": writer._step_count == P21_BATCHES
+        and pm.train_all == TRAIN_BATCH * P21_BATCHES
+        and bool(np.isfinite(res["loss"])),
+        "saves": [s["path"] for s in saves] == ["step_8", "step_16"]
+        and latest == {"name": "step_16", "step": 16},
+        "recompiled_once": fired == [P21_RECOMPILE_AT]
+        and state.recompilations == 1 and res["executor_rebuilt"],
+        "k4_each_layer_and_step": all(launches[k.name] == want
+                                      for k in K4_KERNELS),
+        "no_other_attention": all(launches[k.name] == 0 for k in KERNELS
+                                  if k not in K4_KERNELS),
+        "equal_syncs": syncs == syncs_np,
+        "no_op_recompile_and_loaders_change_nothing":
+            same_as_plain.get("bit_equal", False),
+        "resume_bit_equal": resume.get("bit_equal", False),
+    }
+    res["checks"] = checks
+    if not all(checks.values()):
+        problems.append(f"21a: {checks}")
+    return res, writer
+
+
+def _greedy_tokens(ff, prompts) -> tuple:
+    """Greedy tokens of `prompts` through the paged server, every request
+    queued before the first tick (the schedule depends on the tokens
+    alone); (tokens, launches, ragged steps, wall s)."""
+    server = ff.serve_generation(paged=True, slots=4,
+                                 max_len=GPT2_POSITIONS, page_size=64,
+                                 defer_start=True)
+    try:
+        _reset_launches()
+        t0 = time.monotonic()
+        futs = [server.submit(p, max_new_tokens=P21_NEW) for p in prompts]
+        server.start()
+        outs = [np.asarray(f.result(timeout=600)) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k.name: k.launches for k in KERNELS}
+        steps = server.ragged_steps
+    finally:
+        server.stop()
+    server.pool.check_invariants(owners={})
+    return outs, launches, steps, wall
+
+
+def phase_serve_restored(seed: int, problems: list, writer,
+                         work: str) -> dict:
+    """21b: restore_model(step_16), bit for bit the writer's state, served
+    through serve_generation(paged=True): P21_REQUESTS greedy requests of
+    P21_NEW tokens (K3 once a layer and ragged step) against the model
+    that wrote the checkpoint, token for token."""
+    from flexflow_tpu_torch.runtime.checkpoint import restore_model
+
+    t0 = time.monotonic()
+    restored = restore_model(os.path.join(work, "ck", "step_16"),
+                             device=DEVICE)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    # step_16 holds the writer's final state: with 21a's resume equal to
+    # the writer, the resume equals step_16
+    step16 = _state_diff(restored, writer)
+    vocab = GPT2Config().vocab_size
+    rs = np.random.RandomState(seed + 21)
+    prompts = [rs.randint(0, vocab, (n,)).astype(np.int32) for n in
+               rs.randint(P21_PROMPT_MIN, P21_PROMPT_MAX + 1,
+                          P21_REQUESTS)]
+    outs, launches, steps, wall = _greedy_tokens(restored, prompts)
+    want, _, _, _ = _greedy_tokens(writer, prompts)
+    layers = GPT2Config().layers
+    res = {"restore_s": restore_s, "step_16_vs_writer": step16,
+           "requests": len(prompts),
+           "prompt_lens": [len(p) for p in prompts], "new": P21_NEW,
+           "ragged_steps": steps, "launches": launches, "wall_s": wall,
+           "tokens_per_s": P21_NEW * len(prompts) / wall,
+           "identical_tokens": all(np.array_equal(a, b)
+                                   for a, b in zip(outs, want))}
+    log(f"serve_restored {json.dumps(res)}")
+    checks = {"step_16_is_the_writer": step16.get("bit_equal", False),
+              "tokens": res["identical_tokens"]
+              and all(len(o) == P21_NEW for o in outs),
+              "k3": steps > 0 and launches[RAGGED_PAGED_ATTENTION.name]
+              == layers * steps}
+    res["checks"] = checks
+    if not all(checks.values()):
+        problems.append(f"21b: {checks}")
+    return res
+
+
+def phase_hf_llama(seed: int, problems: list) -> dict:
+    """21c: a LlamaForCausalLM-shaped stand-in at Llama-3-8B's widths,
+    P21_LLAMA_LAYERS of its 32 layers (memory and time), seeded fp32
+    weights on the card, through import_hf_causal_lm (bf16) and
+    copy_hf_weights: the weights copied, then predict at seq
+    P21_LLAMA_SEQ through K1 (once a layer) against the port's fp32 path
+    on the CPU over the same (bf16-stored) weights, within the
+    hf-import-parity budgets with argmax agreeing on 90% of rows."""
+    from flexflow_tpu_torch.frontends.hf import (
+        copy_hf_weights, import_hf_causal_lm,
+    )
+    from flexflow_tpu_torch.frontends.hf_standin import llama_standin
+
+    cfg = llama3_8b_cut(P21_LLAMA_LAYERS)
+    free_card()
+    t0 = time.monotonic()
+    hf_model = llama_standin(
+        vocab_size=cfg.vocab_size, hidden_size=cfg.dim,
+        intermediate_size=cfg.hidden, num_hidden_layers=cfg.layers,
+        num_attention_heads=cfg.heads, num_key_value_heads=cfg.kv_heads,
+        rope_theta=cfg.rope_theta, rms_norm_eps=cfg.norm_eps, seed=seed,
+        device=DEVICE)
+    ff = FFModel(FFConfig(batch_size=1, seed=seed, device=DEVICE))
+    import_hf_causal_lm(hf_model, ff, batch_size=1, seq_len=P21_LLAMA_SEQ,
+                        dtype=DataType.BFLOAT16)
+    ff.compile()
+    copied = copy_hf_weights(hf_model, ff)
+    del hf_model
+    torch.cuda.synchronize()
+    import_s = time.monotonic() - t0
+    ids = np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (1, P21_LLAMA_SEQ)).astype(np.int32)
+    _reset_launches()
+    got = ff.predict(ids)
+    launches = {k.name: k.launches for k in KERNELS}
+    cpu = FFModel(FFConfig(batch_size=1, seed=seed, device="cpu"))
+    build_llama(cpu, cfg, batch_size=1, seq_len=P21_LLAMA_SEQ,
+                dtype=DataType.FLOAT)
+    cpu.compile(params=tuple({k: {n: t.float().cpu() for n, t in w.items()}
+                              for k, w in tree.items()}
+                             for tree in ff._params))
+    del ff
+    free_card()
+    want = cpu.predict(ids)
+    del cpu
+    atol = num_budgets.tolerance("hf-import-parity-atol")
+    rtol = num_budgets.tolerance("hf-import-parity-rtol")
+    agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+    res = {"model": "llama3_8b", "layers": cfg.layers,
+           "seq": P21_LLAMA_SEQ, "weights_copied": copied,
+           "import_s": import_s, "launches": launches,
+           "max_abs_err": float(np.abs(got - want).max()),
+           "atol": atol, "rtol": rtol, "argmax_agreement": agree,
+           "finite": bool(np.isfinite(got).all())}
+    log(f"hf_llama {json.dumps(res)}")
+    checks = {
+        "copied": copied == 3 + 9 * cfg.layers,
+        "close": res["finite"] and bool(np.allclose(got, want, atol=atol,
+                                                    rtol=rtol)),
+        "argmax": agree >= 0.9,
+        "k1": launches[FLASH_ATTENTION_FWD.name] == cfg.layers,
+    }
+    res["checks"] = checks
+    if not all(checks.values()):
+        problems.append(f"21c: {checks}")
+    return res
+
+
+def phase_examples(seed: int, problems: list) -> dict:
+    """21d: every port example in this process, one epoch on the card
+    (a reported epoch, its samples, seconds, launches); the resnet
+    example's torch module imported through torch.fx at batch
+    P21_FX_BATCH against the module's own output on the card; and the
+    keras MNIST MLP (784-512-512-10) on the synthetic mnist."""
+    import contextlib
+    import importlib
+    import io
+
+    from flexflow_tpu_torch.examples.resnet_torch_import import (
+        make_torch_resnet_block,
+    )
+    from flexflow_tpu_torch.frontends import keras
+    from flexflow_tpu_torch.frontends.torch_fx import PyTorchModel
+
+    runs = []
+    for name, flags in P21_EXAMPLES:
+        mod = importlib.import_module(f"flexflow_tpu_torch.examples.{name}")
+        _reset_launches()
+        out = io.StringIO()
+        t0 = time.monotonic()
+        try:
+            with contextlib.redirect_stdout(out):
+                pm = mod.main([*flags, "-e", "1"])
+            torch.cuda.synchronize()
+            err = None
+        except Exception as e:  # noqa: BLE001 - each example reports
+            pm, err = None, repr(e)
+        runs.append({"example": " ".join((name,) + flags[2:]),
+                     "s": time.monotonic() - t0,
+                     "samples": pm.train_all if pm else 0,
+                     "epoch_line": "epoch 0: samples=" in out.getvalue(),
+                     "launches": {k.name: k.launches for k in KERNELS
+                                  if k.launches},
+                     "error": err})
+        free_card()
+    torch.manual_seed(seed)
+    module = make_torch_resnet_block().to(DEVICE).eval()
+    ff = FFModel(FFConfig(batch_size=P21_FX_BATCH, seed=seed, device=DEVICE))
+    pm_fx = PyTorchModel(module)
+    (out,) = pm_fx.torch_to_ff(ff, [ff.create_tensor(
+        (P21_FX_BATCH, 3, 32, 32), name="input")])
+    ff.softmax(out)
+    ff.compile(loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY)
+    pm_fx.copy_weights(ff)
+    xs = np.random.RandomState(seed).standard_normal(
+        (P21_FX_BATCH, 3, 32, 32)).astype(np.float32)
+    got = ff.predict(xs)
+    with torch.no_grad():
+        want = torch.softmax(module(torch.from_numpy(xs).to(DEVICE)),
+                             -1).cpu().numpy()
+    fx_err = float(np.abs(got - want).max())
+    del ff, module
+    (xtr, ytr), _ = keras.datasets.mnist.load_data(seed=seed)
+    xk = (xtr.reshape(len(xtr), 784) / 255.0).astype(np.float32)
+    yk = ytr.astype(np.int32)
+    km = keras.Sequential(config=FFConfig(batch_size=64, seed=seed,
+                                          device=DEVICE))
+    km.add_input((784,))
+    km.add(keras.Dense(512, activation="relu"))
+    km.add(keras.Dense(512, activation="relu"))
+    km.add(keras.Dense(10))
+    km.add(keras.Activation("softmax"))
+    km.compile(optimizer="sgd", loss="sparse_categorical_crossentropy",
+               metrics=["accuracy"])
+    t0 = time.monotonic()
+    hist = km.fit(xk, yk, epochs=2, verbose=False)
+    torch.cuda.synchronize()
+    keras_s = time.monotonic() - t0
+    res = {"examples": runs, "fx_resnet_block": {
+        "batch": P21_FX_BATCH, "max_abs_err": fx_err, "tol": P21_FX_TOL},
+           "keras_mnist_mlp": {"loss": hist.history["loss"],
+                               "accuracy": hist.history["accuracy"],
+                               "s": keras_s}}
+    log(f"examples {json.dumps(res)}")
+    loss = hist.history["loss"]
+    checks = {
+        "examples": all(r["error"] is None and r["samples"] > 0
+                        and r["epoch_line"] for r in runs),
+        "fx": fx_err <= P21_FX_TOL,
+        "keras": all(np.isfinite(loss)) and loss[-1] < loss[0],
+    }
+    res["checks"] = checks
+    if not all(checks.values()):
+        problems.append(f"21d: {checks}")
+    return res
+
+
+def phase_frontends_checkpoints(seed: int, card: str) -> dict:
+    """Phase 21 (a-d), each part timed on its own phase_time line, its
+    checkpoints and data files under a temporary directory removed at
+    the end; collects every part's problems and raises at the end. The
+    kernels line records K4's launches of (a) under "gpt2_124m", K3's of
+    (b) under "gpt2_124m_restored" and K1's of (c) under "llama3_8b_hf",
+    each timed at its shape here."""
+    problems: list = []
+    res = {"card": card}
+    work = tempfile.mkdtemp(prefix="ff_phase21_")
+    try:
+        free_card()
+        res["a"], writer = timed("21a", phase_checkpoint_resume, seed,
+                                 problems, work)
+        res["b"] = timed("21b", phase_serve_restored, seed, problems,
+                         writer, work)
+        del writer
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["c"] = timed("21c", phase_hf_llama, seed, problems)
+    res["d"] = timed("21d", phase_examples, seed, problems)
+    cfg = GPT2Config()
+    res["k4"] = k4_check(TRAIN_BATCH * cfg.heads, GPT2_POSITIONS,
+                         GPT2_POSITIONS, cfg.dim // cfg.heads, True,
+                         torch.float32, seed, timed=True)
+    lcfg = llama3_8b_cut(P21_LLAMA_LAYERS)
+    res["k1"] = phase_flash_kernels(
+        card, (1, P21_LLAMA_SEQ, lcfg.heads, lcfg.kv_heads,
+               lcfg.dim // lcfg.heads), "llama3_8b_s128")
+    res["k3"] = k3_case(("gpt2_124m_decode_b4_pos192", 1, ["decode"] * 4,
+                         192), (cfg.heads, cfg.heads, cfg.dim // cfg.heads),
+                        torch.float32, 21, card)
+    for r in res["k4"].values():
+        r.update(case="gpt2_124m_causal", card=card)
+        log(f"kernel {json.dumps(r)}")
+    if not all(r["ok"] for r in res["k4"].values()):
+        problems.append(f"21: K4 at GPT-2 124M's shape: {res['k4']}")
+    free_card()
+    if problems:
+        raise AssertionError(f"phase 21: {problems}")
+    return res
+
+
 def _zoo_k4_entries(kernel, zoo) -> tuple:
     """(key, launches, timed case) of K4 kernel `kernel` on phase 18: BERT-
     base's fit at dropout 0 (18a) under "bert_base", and the encoder-
@@ -6546,10 +7054,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19,"
-                    "20",
+                    "20,21",
                     help="comma-separated phases to run (default "
-                    "1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20; 5 "
-                    "profiles serving and training steps)")
+                    "1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21; "
+                    "5 profiles serving and training steps)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -6635,6 +7143,8 @@ def main(argv=None) -> int:
            if 19 in phases else None)
     p20 = (timed("20", phase_tier_disagg_canary_trace, args.seed, card)
            if 20 in phases else None)
+    p21 = (timed("21", phase_frontends_checkpoints, args.seed, card)
+           if 21 in phases else None)
     if 5 in phases:
         phase_profile(args.seed, card)
         phase_profile_train(args.seed, card)
@@ -6744,6 +7254,15 @@ def main(argv=None) -> int:
         other = _kernel_entry(kernel, entry["source"], launches, case)
         entry[key] = {name: val for name, val in other.items()
                       if name not in ("name", "route", "source", "replaces")}
+    # K3 serving phase 21b's restored GPT-2 124M (fp32 q over an fp32
+    # pool: Adam's masters), timed at its decode shape in phase 21
+    other = _kernel_entry(
+        RAGGED_PAGED_ATTENTION, entries[0]["source"],
+        p21["b"]["launches"][RAGGED_PAGED_ATTENTION.name] if p21 else 0,
+        p21["k3"] if p21 else None)
+    entries[0]["gpt2_124m_restored"] = {
+        name: val for name, val in other.items()
+        if name not in ("name", "route", "source", "replaces")}
     # K1/K2 on phase 6's bf16 fit, timed at bench_1b's attention shape
     # (phase 2), and their fp32 bodies under "fp32": launches in phase 3's
     # fp32 bench_1b step (K2 there on its 3xTF32 body), timed at the same
@@ -6780,13 +7299,24 @@ def main(argv=None) -> int:
         entry["pipeline_1b"] = {key: val for key, val in pipe.items()
                                 if key not in ("name", "route", "source",
                                                "replaces")}
+        if k is FLASH_ATTENTION_FWD:
+            # phase 21c's bf16 predict of the HF-imported Llama-3-8B
+            # widths, timed at its attention shape in phase 21
+            hfl = _kernel_entry(
+                k, entry["source"],
+                p21["c"]["launches"][k.name] if p21 else 0,
+                p21["k1"]["bfloat16"][k.name] if p21 else None)
+            entry["llama3_8b_hf"] = {key: val for key, val in hfl.items()
+                                     if key not in ("name", "route",
+                                                    "source", "replaces")}
         entries.append(entry)
     # K4 on phase 11's bf16 fit (D 64), timed at its attention shape
     # (phase 2); under "phi3_mini" on phase 12's (D 96, the padded wgmma
     # bodies), timed at its shape; under "openllama_3b" on phase 13's (D
     # 100, the cp.async-loaded bodies), timed at its shape; and its fp32
     # bodies on phase 8's: GPT-2 XL's fit, timed at its attention shape
-    # (phase 2), under "fp32"
+    # (phase 2), under "fp32"; and on phase 21a's fit of the HF-imported
+    # GPT-2 124M (fp32 bodies too), timed at its shape, under "gpt2_124m"
     for k, src in ((FLASH_ATTENTION_BH_FWD, "flash_attention_bh_fwd.cu"),
                    (FLASH_ATTENTION_BH_DQ, "flash_attention_bh_bwd.cu"),
                    (FLASH_ATTENTION_BH_DKV, "flash_attention_bh_bwd.cu")):
@@ -6805,7 +7335,9 @@ def main(argv=None) -> int:
                  k4.get("timed", {}).get("openllama_3b_causal", {}).get(
                      k.name)),
                 ("fp32", gpt2["fit_launches"][k.name] if gpt2 else 0,
-                 k4.get("main", {}).get("float32", {}).get(k.name))) \
+                 k4.get("main", {}).get("float32", {}).get(k.name)),
+                ("gpt2_124m", p21["a"]["launches"][k.name] if p21 else 0,
+                 p21["k4"][k.name] if p21 else None)) \
                 + _zoo_k4_entries(k, zoo18) + _batch_serve_k4_entry(k, p19):
             other = _kernel_entry(k, entry["source"], launches, res)
             entry[key] = {name: val for name, val in other.items()

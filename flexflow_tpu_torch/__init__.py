@@ -17,7 +17,13 @@ axis), GPT-2, the Mixtral-style MoE decoder, BERT, the Transformer
 encoder and encoder-decoder, the LSTM NMT, the MLP, AlexNet, ResNet-50,
 ResNeXt-50, Inception-v3, CANDLE-UNO, DLRM and XDL; their convolution,
 pooling, BatchNorm, LSTM and MoE math are PyTorch ops, as the
-reference's are lax/jnp. It imports torch, never jax, and nothing of
+reference's are lax/jnp. Around them: checkpoints (runtime/checkpoint.py,
+the JAX package's npz format), data loaders (runtime/dataloader.py, a
+native gather worker built from csrc/ffloader.cc at first use),
+recompilation in fit (runtime/recompile.py), the HuggingFace, torch.fx,
+Keras and keras_exp frontends (frontends/), the CLI driver (`python -m
+flexflow_tpu_torch SCRIPT flags`) and one example script per reference
+example (examples/). It imports torch, never jax, and nothing of
 flexflow_tpu.
 """
 
@@ -33,6 +39,16 @@ from flexflow_tpu_torch.ffconst import (
 from flexflow_tpu_torch.model import FFModel, Tensor
 from flexflow_tpu_torch.runtime.optimizer import AdamOptimizer, SGDOptimizer
 
+# the FFConfig the CLI driver (python -m flexflow_tpu_torch) parsed
+_driver_config = None
+
+
+def get_driver_config() -> FFConfig:
+    """The FFConfig `python -m flexflow_tpu_torch SCRIPT flags` parsed from
+    its flags, or the default FFConfig outside the driver."""
+    return _driver_config or FFConfig()
+
+
 __all__ = ["ActiMode", "AdamOptimizer", "AggrMode", "DataType", "FFConfig",
            "FFModel", "LossType", "MetricsType", "OpType", "SGDOptimizer",
-           "Tensor"]
+           "Tensor", "get_driver_config"]

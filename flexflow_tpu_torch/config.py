@@ -28,7 +28,7 @@ TRANSFER_GUARDS = {"allow": "default", "log": "warn", "log_explicit": "warn",
 
 # the reference's fields the port refuses away from their defaults, and
 # the ROADMAP.md queue 1 item that ports each: strategy search and its
-# fusion pass (11), periodic checkpoints (10)
+# fusion pass (11)
 _SEARCH = 11
 REFUSED = {
     "search_budget": _SEARCH, "search_alpha": _SEARCH,
@@ -41,7 +41,6 @@ REFUSED = {
     "export_strategy_file": _SEARCH,
     "export_strategy_computation_graph_file": _SEARCH,
     "include_costs_dot_graph": _SEARCH, "perform_fusion": _SEARCH,
-    "checkpoint_dir": 10, "checkpoint_every": 10,
 }
 
 
@@ -90,7 +89,9 @@ class FFConfig:
     export_strategy_computation_graph_file: Optional[str] = None
     include_costs_dot_graph: bool = False
 
-    # ---- periodic checkpoints: refused (REFUSED) ----
+    # ---- periodic checkpoints ----
+    # fit writes checkpoint_dir/step_N (runtime/checkpoint.periodic_save)
+    # after every checkpoint_every-th step when both are set
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0
 

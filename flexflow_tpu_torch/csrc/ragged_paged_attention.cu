@@ -796,8 +796,14 @@ int launch_split(SplitArgs a, cudaStream_t stream) {
     return (int)cudaErrorInvalidValue;
   const size_t smem = fit();
   auto split = ragged_split_kernel<TQ, TKV>;
+  // the most any launch may ask for, not this launch's need: the limit
+  // belongs to the function, shared by every host thread, and two
+  // serving loops (a disaggregated pair's workers) launch at once with
+  // other windows; a smaller limit set between another thread's set and
+  // its launch would refuse that launch (cudaErrorInvalidValue)
   cudaError_t err = cudaFuncSetAttribute(
-      split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      split, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kMaxSmemBytes);
   if (err != cudaSuccess) return (int)err;
   // all of the SM's 228 KB as shared memory: as many blocks on an SM as
   // their stages fit, for the bytes in flight

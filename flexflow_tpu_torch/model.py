@@ -572,11 +572,7 @@ class FFModel:
         self.graph.infer_shapes()
         # the reference's default mesh is {"data": devices}: one here
         self._mesh = make_mesh(self.config.mesh_shape or {"data": 1})
-        self._executor = Executor(self.graph, device, loss_type=loss_type,
-                                  metrics=self._metrics, optimizer=optimizer,
-                                  remat=self.config.remat, mesh=self._mesh,
-                                  seq_length=self.config.seq_length,
-                                  donate=self.config.donate_buffers)
+        self._executor = self._new_executor(device, optimizer)
         if params is None:
             tr, ntr = self._executor.init_params(self.config.seed,
                                                  self._init_overrides)
@@ -594,6 +590,21 @@ class FFModel:
             self._opt_state = self._executor.init_opt_state(optimizer, tr)
         self._params = (tr, ntr)
         return self
+
+    def _new_executor(self, device, optimizer) -> Executor:
+        return Executor(self.graph, device, loss_type=self._loss_type,
+                        metrics=self._metrics, optimizer=optimizer,
+                        remat=self.config.remat, mesh=self._mesh,
+                        seq_length=self.config.seq_length,
+                        donate=self.config.donate_buffers)
+
+    def _recompile(self):
+        """A new Executor from the (altered) graph, with the settings,
+        optimizer, weights and optimizer state of the current one
+        (runtime/recompile.py)."""
+        self.graph.infer_shapes()
+        ex = self.executor
+        self._executor = self._new_executor(ex.device, ex.optimizer)
 
     @property
     def executor(self) -> Executor:
@@ -642,31 +653,46 @@ class FFModel:
             self._opt_state = ex.init_opt_state(ex.optimizer, tr)
             self._params = (tr, ntr)
 
+    def create_data_loader(self, tensor: Optional[Tensor], full_array,
+                           batch_size: Optional[int] = None,
+                           shuffle: bool = False, seed: int = 0):
+        """A loader of one graph input (or the labels) for
+        fit(dataloaders=...): a numpy array gives the in-memory
+        SingleDataLoader, a .npy file path the native FileDataLoader
+        (runtime/dataloader.py)."""
+        from flexflow_tpu_torch.runtime import dataloader
+
+        if isinstance(full_array, (str, os.PathLike)):
+            return dataloader.FileDataLoader(
+                self, tensor, os.fspath(full_array), batch_size=batch_size,
+                shuffle=shuffle, seed=seed)
+        return dataloader.SingleDataLoader(self, tensor, full_array,
+                                           batch_size=batch_size,
+                                           shuffle=shuffle, seed=seed)
+
     def fit(self, x=None, y=None, epochs: Optional[int] = None,
             batch_size: Optional[int] = None, verbose: bool = True,
             dataloaders=None, recompile_state=None) -> PerfMetrics:
-        """Training loop over numpy arrays `x` (one array or a list, one
-        per graph input) and labels `y`: one train_step per full batch.
-        Metrics add up on the device through the epoch and reach the
-        host once per epoch, as the reference's do. With
-        config.profiler_trace_dir the whole call runs under
-        torch.profiler and writes a Chrome trace there (on top of
-        config.transfer_guard, as the reference stacks its capture and
-        its guard). Data loaders and recompilation are not ported yet
-        and raise."""
-        if dataloaders is not None:
-            raise NotImplementedError(
-                "fit(dataloaders=...) is not ported yet (ROADMAP.md, queue "
-                "1 item 10); pass numpy arrays x, y")
-        if recompile_state is not None:
-            raise NotImplementedError(
-                "fit(recompile_state=...) is not ported yet (ROADMAP.md, "
-                "queue 1 item 10)")
+        """Training loop: one train_step per full batch of numpy arrays
+        `x` (one array or a list, one per graph input) and labels `y`, or
+        of `dataloaders` = [input loaders..., label loader]
+        (create_data_loader; batch t+1 is copied while step t runs; an
+        explicit `batch_size` overrides the loaders'). Metrics add up on
+        the device through the epoch and reach the host once per epoch,
+        as the reference's do. After each step `recompile_state`'s trigger
+        is checked (runtime/recompile.py), and with config.checkpoint_dir
+        and checkpoint_every a checkpoint is written every
+        checkpoint_every steps (runtime/checkpoint.periodic_save); both
+        read the device on purpose, outside config.transfer_guard. With
+        config.profiler_trace_dir the whole call runs under torch.profiler
+        and writes a Chrome trace there (on top of the guard, as the
+        reference stacks its capture and its guard)."""
         with contextlib.ExitStack() as stack:
             if self.config.profiler_trace_dir:
                 stack.enter_context(self._profiler_capture(
                     self.config.profiler_trace_dir))
-            return self._fit_impl(x, y, epochs, batch_size, verbose)
+            return self._fit_impl(x, y, epochs, batch_size, verbose,
+                                  dataloaders, recompile_state)
 
     def _profiler_capture(self, trace_dir: str):
         """torch.profiler over fit (the reference's jax.profiler.trace):
@@ -685,10 +711,19 @@ class FFModel:
             activities=acts,
             on_trace_ready=lambda prof: prof.export_chrome_trace(path))
 
-    def _fit_impl(self, x, y, epochs, batch_size, verbose) -> PerfMetrics:
+    def _fit_impl(self, x, y, epochs, batch_size, verbose, dataloaders,
+                  recompile_state) -> PerfMetrics:
+        from flexflow_tpu_torch.runtime.checkpoint import periodic_save
+        from flexflow_tpu_torch.runtime.dataloader import PrefetchLoader
+        from flexflow_tpu_torch.runtime.recompile import (
+            recompile_on_condition,
+        )
+
         epochs = epochs or self.config.epochs
+        explicit_bs = batch_size
         batch_size = batch_size or self.config.batch_size
-        xs = [x] if isinstance(x, np.ndarray) else list(x)
+        ckpt_dir = self.config.checkpoint_dir
+        ckpt_every = self.config.checkpoint_every if ckpt_dir else 0
         self._prepare_training()
         ex = self.executor
         tr, ntr = self._params
@@ -701,11 +736,20 @@ class FFModel:
         step = 0
         for epoch in range(epochs):
             self.current_metrics = PerfMetrics()
+            if dataloaders is not None:
+                if explicit_bs is not None:
+                    for dl in dataloaders:
+                        dl.batch_size = explicit_bs
+                batches = iter(PrefetchLoader(self, dataloaders))
+            else:
+                xs = [x] if isinstance(x, np.ndarray) else list(x)
+                batches = (self._to_device(b)
+                           for b in self._batches(xs + [y], batch_size))
             dev_sums = None
             n_samples = 0
             with self._transfer_guard():
-                for batch in self._batches(xs + [y], batch_size):
-                    *bx, by = self._to_device(batch)
+                for batch in batches:
+                    *bx, by = batch
                     tr, ntr, opt_state, m = ex.train_step(
                         tr, ntr, opt_state, by, *bx, rng=(stream, step))
                     step += 1
@@ -716,6 +760,23 @@ class FFModel:
                               for k, v in m.items() if k != "loss"}
                     dev_sums = scaled if dev_sums is None else {
                         k: dev_sums[k] + v for k, v in scaled.items()}
+                    if recompile_state is None and not (
+                            ckpt_every and self._step_count % ckpt_every
+                            == 0):
+                        continue
+                    self._params = (tr, ntr)
+                    self._opt_state = opt_state
+                    with self._sync_allowed():
+                        if recompile_state is not None:
+                            recompile_state.last_metrics = m
+                            if recompile_on_condition(self,
+                                                      recompile_state):
+                                ex = self.executor
+                                tr, ntr = self._params
+                                opt_state = self._opt_state
+                        if ckpt_every \
+                                and self._step_count % ckpt_every == 0:
+                            periodic_save(ckpt_dir, self)
             self.current_metrics.train_all = n_samples
             if dev_sums is not None:
                 # the one device-to-host sync of the epoch
@@ -732,18 +793,28 @@ class FFModel:
         self._opt_state = opt_state
         return self.current_metrics
 
-    @contextlib.contextmanager
     def _transfer_guard(self):
         """fit's step loop under config.transfer_guard: on the card,
         torch.cuda.set_sync_debug_mode at the guard's level, so a host
         sync inside a step warns ("log") or raises ("disallow"); nothing
         on the CPU, where no transfer exists."""
         level = self.config.transfer_guard
-        if level is None or self.executor.device.type != "cuda":
+        return self._sync_debug(TRANSFER_GUARDS[level] if level else None)
+
+    def _sync_allowed(self):
+        """A deliberate read of the device inside fit's step loop (a
+        recompile trigger, a checkpoint), exempt from
+        config.transfer_guard as the reference exempts it."""
+        return self._sync_debug("default")
+
+    @contextlib.contextmanager
+    def _sync_debug(self, mode):
+        if self.config.transfer_guard is None or mode is None \
+                or self.executor.device.type != "cuda":
             yield
             return
         before = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode(TRANSFER_GUARDS[level])
+        torch.cuda.set_sync_debug_mode(mode)
         try:
             yield
         finally:
@@ -797,20 +868,23 @@ class FFModel:
         return leaf.detach().cpu().numpy()
 
     def set_weight(self, tensor_or_name: Union[Tensor, str],
-                   value: np.ndarray, weight_name: str = "kernel"):
-        """Replace the weight `weight_name` of a node by `value`, cast to
-        the stored leaf's dtype and placed on its device, as the
-        reference casts to the old leaf's dtype and sharding."""
+                   value: Union[np.ndarray, torch.Tensor],
+                   weight_name: str = "kernel"):
+        """Replace the weight `weight_name` of a node by `value` (numpy, or
+        a torch tensor on any device, copied without a trip through
+        numpy), cast to the stored leaf's dtype and placed on its device,
+        as the reference casts to the old leaf's dtype and sharding."""
         key = self._resolve_param_key(tensor_or_name)
         tree = self._param_tree(key, weight_name)
         old = tree[key][weight_name]
-        value = np.asarray(value)
+        if not isinstance(value, torch.Tensor):
+            value = torch.from_numpy(np.array(value, copy=True))
         if tuple(value.shape) != tuple(old.shape):
             raise ValueError(f"{key}/{weight_name} has shape "
-                             f"{tuple(old.shape)}, got {value.shape}")
-        tree[key][weight_name] = torch.from_numpy(
-            np.array(value, copy=True)).to(device=old.device,
-                                           dtype=old.dtype)
+                             f"{tuple(old.shape)}, got "
+                             f"{tuple(value.shape)}")
+        new = torch.empty(old.shape, dtype=old.dtype, device=old.device)
+        tree[key][weight_name] = new.copy_(value.detach())
 
     def _param_tree(self, key: str, weight_name: str):
         """The parameter tree (trainable first) holding key/weight_name."""

@@ -252,10 +252,13 @@ def serve(ff, batch_sizes: Sequence[int] = (1, 8), max_delay_ms: float = 2.0,
 
 
 def serve_onnx(path: str, *args, **kwargs):
-    """ONNX model -> served model: needs the ONNX frontend."""
+    """ONNX model -> served model: needs the ONNX frontend, which needs
+    the `onnx` package (installed neither where the port's tests run nor
+    on the card's machine, and the JAX package has no ONNX test to hold a
+    port against)."""
     raise NotImplementedError(
-        "serve_onnx needs the ONNX frontend, not ported yet (ROADMAP.md, "
-        "queue 1 item 10)")
+        "serve_onnx needs the ONNX frontend, which waits for the onnx "
+        "package (ROADMAP.md, queue 1 item 10)")
 
 
 # ---------------------------------------------------------------------------

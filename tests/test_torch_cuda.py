@@ -1785,3 +1785,128 @@ def test_host_tier_page_roundtrip_is_bit_exact(kv_dtype):
     for k, bufs in tiered._caches.items():
         for n, b in bufs.items():
             assert torch.equal(b[page], before[k][n]), (k, n)
+
+
+def test_prefetch_on_the_card_gives_the_cpu_batches(tmp_path):
+    """PrefetchLoader on the card (pinned buffers, non_blocking copies on
+    a side stream, the step's stream waiting on an event) yields the
+    batches the CPU path yields, in order, for the in-memory and the file
+    loader, shuffled."""
+    _needs_card()
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType
+    from flexflow_tpu_torch.runtime.dataloader import PrefetchLoader
+
+    rs = np.random.RandomState(0)
+    x = rs.standard_normal((96, 10)).astype(np.float32)
+    y = rs.randint(0, 4, 96).astype(np.int32)
+    np.save(tmp_path / "x.npy", x)
+    batches = {}
+    for device in ("cuda", "cpu"):
+        ff = FFModel(FFConfig(batch_size=16, device=device))
+        t = ff.create_tensor((16, 10), name="input")
+        ff.softmax(ff.dense(t, 4, name="d"))
+        ff.compile(loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY)
+        loaders = [ff.create_data_loader(t, str(tmp_path / "x.npy"),
+                                         shuffle=True, seed=4),
+                   ff.create_data_loader(None, y, shuffle=True, seed=4)]
+        got = []
+        for _ in range(2):  # two epochs: reshuffled
+            for bx, by in PrefetchLoader(ff, loaders):
+                assert bx.device.type == device
+                got.append((bx.cpu().numpy(), by.cpu().numpy()))
+        batches[device] = got
+    assert len(batches["cuda"]) == len(batches["cpu"]) == 12
+    for (gx, gy), (wx, wy) in zip(batches["cuda"], batches["cpu"]):
+        np.testing.assert_array_equal(gx, wx)
+        np.testing.assert_array_equal(gy, wy)
+
+
+def test_checkpoint_saved_on_the_card_restores_bit_exact(tmp_path):
+    """A bf16 Llama trained two steps on the card (bf16 Adam moments),
+    saved and rebuilt by restore_model on the card and on the CPU: every
+    leaf bit for bit, the step count, and the card model's next step
+    equal on both card models."""
+    _needs_card()
+    from flexflow_tpu_torch import (
+        AdamOptimizer, DataType, FFConfig, FFModel, LossType,
+    )
+    from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
+    from flexflow_tpu_torch.runtime import checkpoint as ckpt
+
+    ff = FFModel(FFConfig(batch_size=2, device="cuda"))
+    build_llama(ff, LlamaConfig.tiny(), batch_size=2, seq_len=128,
+                dtype=DataType.BFLOAT16)
+    ff.compile(optimizer=AdamOptimizer(lr=1e-3, state_dtype="bfloat16"),
+               loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY)
+    rs = np.random.RandomState(1)
+    x = rs.randint(0, 512, (4, 128)).astype(np.int32)
+    y = np.roll(x, -1, 1)
+    ff.fit(x, y, verbose=False)
+    path = str(tmp_path / "ck")
+    ckpt.save_checkpoint(path, ff)
+
+    def flat(m):
+        tr, ntr = m._params
+        return ckpt._flatten({"trainable": tr, "nontrainable": ntr,
+                              "opt_state": m._opt_state})
+
+    want = flat(ff)
+    for device in ("cuda", "cpu"):
+        back = ckpt.restore_model(path, device=device)
+        got = flat(back)
+        assert sorted(got) == sorted(want) and back._step_count == 2
+        for k, v in want.items():
+            if isinstance(v, int):
+                assert got[k] == v
+                continue
+            assert got[k].dtype == v.dtype and got[k].device.type == device
+            assert torch.equal(got[k].cpu(), v.cpu()), k
+    back = ckpt.restore_model(path, device="cuda")
+    ff.fit(x[:2], y[:2], verbose=False)
+    back.fit(x[:2], y[:2], verbose=False)
+    for k, v in flat(ff).items():
+        if not isinstance(v, int):
+            assert torch.equal(flat(back)[k], v), k
+
+
+def test_ragged_kernel_launches_from_two_threads():
+    """Three host threads launch K3 at once with other windows (1, 16 and
+    64: other dynamic shared memory), as a disaggregated pair's prefill
+    and decode workers do: no launch is refused (the shared-memory limit
+    is the function's, shared by every thread), and each thread's last
+    result matches the plain version (TOLS)."""
+    _needs_card()
+    import threading
+
+    cases = []
+    for window in (1, 16, 64):
+        q, kc, vc, pt, pos, qls, anc = _wide_case(window, seed=window)
+        cases.append([t.cuda() for t in (q.to(torch.bfloat16),
+                                         kc.to(torch.bfloat16),
+                                         vc.to(torch.bfloat16))]
+                     + [t.cuda() for t in (pt, pos, qls, anc)])
+    scale = 128 ** -0.5
+    errors, outs = [], [None] * len(cases)
+    start = threading.Barrier(len(cases))
+
+    def worker(i):
+        try:
+            start.wait()
+            for _ in range(3000):
+                outs[i] = ragged_flash_attention(*cases[i], scale=scale)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for args, got in zip(cases, outs):
+        want = ragged_gather_attention(*args, scale=scale)
+        err = (got.float() - want.float()).abs()
+        assert float(err.max()) <= TOLS[torch.bfloat16] * max(
+            1.0, float(want.float().abs().max()))

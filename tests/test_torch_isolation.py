@@ -1,5 +1,6 @@
-"""flexflow_tpu_torch stands alone: it imports neither jax nor flexflow_tpu,
-and it never drifts to the CPU when a card was asked for."""
+"""flexflow_tpu_torch stands alone: it imports neither jax nor flexflow_tpu
+(nor transformers: the HF importer duck-types its models), and it never
+drifts to the CPU when a card was asked for."""
 
 import ast
 import os
@@ -21,12 +22,12 @@ _GUARDED_IMPORT = textwrap.dedent("""
     class Refuse:
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "flexflow_tpu"):
+            if top in REFUSED:
                 raise ImportError(f"refused import of {name}")
             return None
 
-    for mod in [m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flexflow_tpu")]:
+    REFUSED = ("jax", "jaxlib", "flexflow_tpu", "transformers")
+    for mod in [m for m in sys.modules if m.split(".")[0] in REFUSED]:
         del sys.modules[mod]
     sys.meta_path.insert(0, Refuse())
     import flexflow_tpu_torch
@@ -35,8 +36,7 @@ _GUARDED_IMPORT = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     import chip_smoke
-    bad = [m for m in sys.modules
-           if m.split(".")[0] in ("jax", "jaxlib", "flexflow_tpu")]
+    bad = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     assert not bad, bad
     print(len(names), "modules")
     print(" ".join(names))
@@ -57,6 +57,32 @@ _SERVE_OBS_MODULES = ("flexflow_tpu_torch.disagg",
                       "flexflow_tpu_torch.obs.ledger",
                       "flexflow_tpu_torch.analysis",
                       "flexflow_tpu_torch.analysis.num_budgets")
+# checkpoints, data loaders, recompilation, serialization, the native
+# loader, the frontends, the CLI driver and the examples
+_FRONTEND_RUNTIME_MODULES = (
+    "flexflow_tpu_torch.__main__",
+    "flexflow_tpu_torch.native",
+    "flexflow_tpu_torch.pcg.serialize",
+    "flexflow_tpu_torch.runtime.checkpoint",
+    "flexflow_tpu_torch.runtime.dataloader",
+    "flexflow_tpu_torch.runtime.recompile",
+    "flexflow_tpu_torch.frontends",
+    "flexflow_tpu_torch.frontends.hf",
+    "flexflow_tpu_torch.frontends.hf_standin",
+    "flexflow_tpu_torch.frontends.torch_fx",
+    "flexflow_tpu_torch.frontends.keras",
+    "flexflow_tpu_torch.frontends.keras.callbacks",
+    "flexflow_tpu_torch.frontends.keras.datasets",
+    "flexflow_tpu_torch.frontends.keras.layers",
+    "flexflow_tpu_torch.frontends.keras.models",
+    "flexflow_tpu_torch.frontends.keras.optimizers",
+    "flexflow_tpu_torch.frontends.keras_exp",
+    "flexflow_tpu_torch.examples",
+) + tuple(f"flexflow_tpu_torch.examples.{n}" for n in (
+    "alexnet_cifar10", "bert_attribute_parallel", "candle_uno",
+    "dlrm_train", "hf_finetune", "inception_v3", "llama_train",
+    "mixtral_moe", "mnist_mlp", "nmt_seq2seq", "resnet_torch_import",
+    "transformer"))
 # the speculative-decoding package
 _SPEC_MODULES = ("flexflow_tpu_torch.spec",
                  "flexflow_tpu_torch.spec.config",
@@ -67,8 +93,9 @@ _SPEC_MODULES = ("flexflow_tpu_torch.spec",
 
 
 def test_port_and_chip_smoke_import_without_jax_or_reference():
-    """Every port module and chip_smoke import with jax and flexflow_tpu
-    refused by a meta-path hook, in a fresh interpreter."""
+    """Every port module and chip_smoke import with jax, flexflow_tpu and
+    transformers refused by a meta-path hook, in a fresh interpreter
+    (frontends.hf among them)."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", _GUARDED_IMPORT], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
@@ -79,6 +106,7 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
     assert set(_RING_MODULES) <= set(names.split())
     assert set(_SPEC_MODULES) <= set(names.split())
     assert set(_SERVE_OBS_MODULES) <= set(names.split())
+    assert set(_FRONTEND_RUNTIME_MODULES) <= set(names.split())
 
 
 def test_no_reference_import_statements_in_port_sources():
@@ -96,6 +124,25 @@ def test_no_reference_import_statements_in_port_sources():
             for n in names:
                 assert n.split(".")[0] not in ("jax", "jaxlib",
                                                "flexflow_tpu"), (f, n)
+
+
+def test_native_loader_builds_from_the_port_source_at_first_use(
+        monkeypatch, tmp_path):
+    """The loader library is compiled from csrc/ffloader.cc into
+    _build/ at first use, never at import, with no switch to skip it; a
+    failed compile raises with g++'s output instead of returning None."""
+    from flexflow_tpu_torch import native
+
+    assert native.LOADER_SOURCE == PORT / "csrc" / "ffloader.cc"
+    assert native.loader_library_path().parent == PORT / "_build"
+    src = (PORT / "native" / "__init__.py").read_text()
+    assert "environ" not in src
+    bad = tmp_path / "bad.cc"
+    bad.write_text("this is not C++")
+    monkeypatch.setattr(native, "LOADER_SOURCE", bad)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        native.build_loader()
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -141,17 +188,20 @@ def test_chip_smoke_fails_without_cuda():
 
 
 def test_training_entry_points_raise():
-    """What the training slice does not port raises, naming ROADMAP: a
-    refused config field (periodic checkpoints), fit(dataloaders=...)
-    and fit(recompile_state=...). Initializer overrides are ported (the
-    override draws the leaf) and so is attention dropout in training
-    (the dense route): fit trains through it."""
+    """What the training slice does not port raises, naming ROADMAP: the
+    orbax checkpoint backend (item 12). Ported and no longer refused:
+    periodic checkpoints (FFConfig.checkpoint_dir / checkpoint_every),
+    fit(dataloaders=...), fit(recompile_state=...), initializer
+    overrides (the override draws the leaf) and attention dropout in
+    training (the dense route): fit trains through each."""
+    import tempfile
+
     from flexflow_tpu_torch import FFConfig, FFModel, LossType
     from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
     from flexflow_tpu_torch.ops import torch_ops
+    from flexflow_tpu_torch.runtime.checkpoint import save_checkpoint
+    from flexflow_tpu_torch.runtime.recompile import RecompileState
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FFConfig(device="cpu", checkpoint_dir="ckpt")
     ff = FFModel(FFConfig(batch_size=1, device="cpu"))
     x = ff.create_tensor((1, 4, 16))
     d = ff.dense(x, 16, kernel_initializer="zeros", name="zeroed")
@@ -163,11 +213,18 @@ def test_training_entry_points_raise():
                np.zeros((1, 4, 16), np.float32), verbose=False)
     assert torch_ops.DENSE_DROPOUT_ATTENTION.launches > before
     assert m.train_all == 1
-    ff = FFModel(FFConfig(batch_size=1, device="cpu"))
-    build_llama(ff, LlamaConfig.tiny(), batch_size=1, seq_len=4)
-    ff.compile()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ff.fit(dataloaders=[object()])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ff.fit(np.zeros((1, 4), np.int32), np.zeros((1, 4), np.int32),
-               recompile_state=object())
+    with tempfile.TemporaryDirectory() as ckdir:
+        ff = FFModel(FFConfig(batch_size=1, device="cpu",
+                              checkpoint_dir=ckdir, checkpoint_every=2))
+        build_llama(ff, LlamaConfig.tiny(), batch_size=1, seq_len=4)
+        ff.compile()
+        ids = np.zeros((2, 4), np.int32)
+        st = RecompileState(lambda s: s.recompilations == 0,
+                            lambda s: None, ff)
+        ff.fit(dataloaders=[ff.create_data_loader(None, ids),
+                            ff.create_data_loader(None, ids)],
+               recompile_state=st, verbose=False)
+        assert st.recompilations == 1
+        assert sorted(os.listdir(ckdir)) == ["latest.json", "step_2"]
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            save_checkpoint(os.path.join(ckdir, "o"), ff, backend="orbax")
