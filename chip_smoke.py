@@ -14,10 +14,11 @@ host KV tier, disaggregated into prefill and decode workers, behind a
 prefix-affinity router, with the kv_quant_canary shadow cache and under
 the span tracer, GPT-2 imported from the HuggingFace layout, trained from
 file loaders with periodic checkpoints and resumed, a Llama-3-8B-width
-HF import, and every example script, and holds every hand-written kernel
-on them to its plain PyTorch version.
+HF import, and every example script, the strategy search with measured
+costs and the timed playoff on bench_1b and its ring candidates, and
+holds every hand-written kernel on them to its plain PyTorch version.
 
-    python3 chip_smoke.py            # phases 1..4, 6..21, one card
+    python3 chip_smoke.py            # phases 1..4, 6..22, one card
     python3 chip_smoke.py --phases 5 # + profiles of serving and training
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
@@ -206,7 +207,7 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      cp.async-loaded body) cut to 2 layers (RING_OPENLLAMA_LAYERS, to keep
      the phase short) the same way (the kernels line records K5's
      launches of each under "phi3_mini" and "openllama_3b");
- 15. serving Llama-3-8B's widths at 4 of its 32 layers (MEGASTEP_LAYERS;
+ 15. serving Llama-3-8B's widths at 2 of its 32 layers (MEGASTEP_LAYERS;
      phase 4's requests and server defaults)
      (a) through megastep_ticks=8 against the one-tick loop, greedy and
      sampled at a fixed seed: tokens identical, one synchronizing CUDA
@@ -309,7 +310,7 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      forward once a layer a forward; then
      http_serve: ready, a KServe-v2 infer equal to predict, /metrics, 503
      after stop; K4's forward timed at the 32-row batch's attention
-     shape; (d) phase 4's requests at Llama-3-8B's widths, 4 layers,
+     shape; (d) phase 4's requests at Llama-3-8B's widths, 2 layers,
      through the paged server behind http_serve with the request log
      (64), 4 kept records and an SLO every request misses (a breach
      bundle in a temporary directory), against the same requests with
@@ -321,8 +322,8 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      forward's of (c) under "bert_serve", K3's of (d) under
      "http_serve");
  20. the host KV tier, disaggregation, the canary and the tracer, at
-     Llama-3-8B's widths, 4 of its 32 layers (TIER_LAYERS), bf16, random
-     weights from the seed (a page of 64 rows is 1 MiB): (a) four
+     Llama-3-8B's widths, 2 of its 32 layers (TIER_LAYERS), bf16, random
+     weights from the seed (a page of 64 rows is 512 KiB): (a) four
      1024-token system prompts, 32 requests of one plus 64 tokens of
      their own, 32 new each, in 8 waves of 4 sharing a prompt (A, B, C,
      D, A, B, C, D; each wave's first request alone, then the other
@@ -390,7 +391,25 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      K4 (fp32) at (a)'s attention shape, K1/K2 at (c)'s and K3 at (b)'s
      decode, timed (the kernels line records K4's launches of (a) under
      "gpt2_124m", K3's of (b) under "gpt2_124m_restored" and K1's of (c)
-     under "llama3_8b_hf").
+     under "llama3_8b_hf");
+ 22. the strategy search: (a) bench_1b (16 layers, bf16, batch 8 x
+     1024, Adam lr 1e-4, remat none) compiled with search_budget=8,
+     measure_costs (op shards timed through the lowerings on the card,
+     mxu_efficiency fitted), validate_top_k=2 (the candidates' real
+     train steps timed by CUDA events), the event simulator, a strategy
+     file and a costed DOT export, from the weights of the same model
+     compiled without the search; both fit 8 steps and the losses must
+     agree within the catalog's bf16 band (hf-import-parity-atol); K1
+     must launch in the measurement, the playoff and the fit, K2 in the
+     playoff and the fit; (b) bench_1b's plain graph at batch 1 x 8192
+     over {"seq": 4}, searched at budget 12 with validate_top_k=2: the
+     pool must keep a ring candidate, which the playoff times through K5
+     and K4's backward beside the unrewritten graph (and any Ulysses
+     candidate); modeled ms price 4 H100s, timed ms this one card (not
+     comparable); the winner fits 4 steps (its loss falls) and the ring
+     candidate's initial loss holds to the unrewritten graph's (the
+     kernels line records K1/K2's launches of (a) under "search_1b" and
+     K5's and K4's backward's of (b) under "search_ring").
 Each phase, and each part of phases 2 and 3, logs its wall seconds on a
 `phase_time` line. The line before the last is the kernel list as JSON;
 the last line is {"ok": true, "device": {...}}. Exits non-zero without
@@ -426,6 +445,7 @@ from flexflow_tpu_torch import (
     FFModel,
     LossType,
     MetricsType,
+    OpType,
     SGDOptimizer,
     obs,
 )
@@ -453,6 +473,7 @@ from flexflow_tpu_torch.kernels import (
     launch_flash_attention_dq,
     launch_flash_attention_fwd,
 )
+from flexflow_tpu_torch.model import carry_params
 from flexflow_tpu_torch.models.bert import BertConfig, build_bert
 from flexflow_tpu_torch.models.dlrm import build_dlrm
 from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2
@@ -490,6 +511,8 @@ from flexflow_tpu_torch.parallel.mesh import make_mesh
 from flexflow_tpu_torch.runtime.executor import merge_state
 from flexflow_tpu_torch.parallel.ring import ring_dot_product_attention
 from flexflow_tpu_torch.obs import SLOTarget, load_jsonl
+from flexflow_tpu_torch.search import api as search_api
+from flexflow_tpu_torch.search.substitution import structural_class
 from flexflow_tpu_torch.serving import _GenRequest, http_serve, pick_tokens
 from flexflow_tpu_torch.spec import SpecConfig
 from flexflow_tpu_torch.spec.fixtures import make_token_cyclic
@@ -555,11 +578,12 @@ WIDE_SPEC = SpecConfig(width=8, depth=8)
 MEGASTEP_TICKS = 8
 SAMPLE_TEMPERATURE = 0.8
 ACCEPT_FLOOR = 1.5
-# phases 15 and 16 serve Llama-3-8B's widths at 4 of its 32 layers (phase
+# phases 15 and 16 serve Llama-3-8B's widths at 2 of its 32 layers (phase
 # 4 serves all 32): each runs about a dozen serves of phase 4's traffic,
 # and a decode tick's host time grows ~2 ms a layer, so at 32 layers the
-# two took 350 of the default run's 1000 s (H100 80GB HBM3, 700 W)
-MEGASTEP_LAYERS = 4
+# two took 350 of the default run's 1000 s, at 4 layers 97 s of 958 s
+# with phase 22 (H100 80GB HBM3, 700 W)
+MEGASTEP_LAYERS = 2
 
 
 def llama3_8b_cut(layers: int) -> LlamaConfig:
@@ -5811,10 +5835,10 @@ def phase_pipeline_and_serving(seed: int, card: str) -> dict:
 # phase 20: the host KV tier, prefill/decode disaggregation, the router,
 # the kv_quant_canary shadow cache and the span tracer
 
-# Llama-3-8B's widths at 4 of its 32 layers (8 until the default run
-# neared 1000 s with phase 21), bf16: a page of 64 rows is
-# 2 x 4 x 8 x 128 x 64 x 2 B = 1 MiB
-TIER_LAYERS = 4
+# Llama-3-8B's widths at 2 of its 32 layers (8 until the default run
+# neared 1000 s with phase 21, 4 until it did again with phase 22),
+# bf16: a page of 64 rows is 2 x 2 x 8 x 128 x 64 x 2 B = 512 KiB
+TIER_LAYERS = 2
 TIER_SERVE = dict(slots=4, max_len=2048, page_size=64, prefill_chunk=64)
 # four 1024-token system prompts (16 pages each); a request is one of them
 # plus 64 tokens of its own and asks for 32 new; TIER_WAVES waves of four
@@ -5822,7 +5846,7 @@ TIER_SERVE = dict(slots=4, max_len=2048, page_size=64, prefill_chunk=64)
 # service that keeps more system prompts than its pool holds
 TIER_SYS, TIER_SUFFIX, TIER_NEW, TIER_WAVES = 1024, 64, 32, 8
 # the small pool (a wave holds ~24 pages live, so by the second round
-# every prefix has been evicted), the tier (128 pages: 128 MiB of host
+# every prefix has been evicted), the tier (128 pages: 64 MiB of host
 # memory) and a pool that keeps every prefix resident
 TIER_SMALL_POOL, TIER_CAPACITY, TIER_BIG_POOL = 40, 128, 160
 # the fp32 check (TF32 off): depth 2, the same prompts, 8 new tokens
@@ -6999,6 +7023,315 @@ def phase_frontends_checkpoints(seed: int, card: str) -> dict:
     return res
 
 
+P22_STEPS = 8  # 22a: fit steps, searched and unsearched
+P22_RING_STEPS = 4  # 22b: fit steps of the adopted winner
+# the catalog's bf16 band (analysis/num_budgets.py): a bf16 loss of a
+# rewritten graph against the graph as built, on the same weights
+P22_LOSS_ATOL = num_budgets.tolerance("hf-import-parity-atol")
+
+
+class StageLaunches:
+    """The kernels' launches inside each stage of one compile(): the
+    measured cost model's sweep (search.api._maybe_measure) and the timed
+    playoff (FFModel._validate_candidates), read around each call; the
+    playoff's candidate pool is kept too."""
+
+    def __init__(self):
+        self.stages = {}
+        self.playoff_pool = []
+
+    def _wrap(self, owner, name, stage):
+        inner = getattr(owner, name)
+
+        def wrapper(*args, **kw):
+            if stage == "playoff":
+                self.playoff_pool = list(args[1])
+            before = {k.name: k.launches for k in KERNELS}
+            try:
+                return inner(*args, **kw)
+            finally:
+                self.stages[stage] = {k.name: k.launches - before[k.name]
+                                      for k in KERNELS}
+
+        setattr(owner, name, wrapper)
+        return inner
+
+    def __enter__(self):
+        self._saved = [(search_api, "_maybe_measure", self._wrap(
+            search_api, "_maybe_measure", "measurement")),
+            (FFModel, "_validate_candidates", self._wrap(
+                FFModel, "_validate_candidates", "playoff"))]
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def _kinds(graph) -> list:
+    """A candidate's structural modes (substitution.structural_class)."""
+    return sorted("/".join(k) for k in structural_class(graph))
+
+
+def _playoff_report(ff, pool) -> list:
+    """Each timed candidate: its modeled and timed step ms, its node
+    count and structural modes, and whether it won (empty when the pool
+    held one candidate and compile() timed nothing)."""
+    v = getattr(ff, "strategy_validation", None)
+    if v is None:
+        return []
+    return [{"modeled_rank": r, "modeled_ms": m, "timed_ms": t,
+             "nodes": len(pool[r][1]), "structure": _kinds(pool[r][1]),
+             "won": r == v["picked_modeled_rank"]}
+            for r, m, t in zip(v["modeled_ranks"], v["modeled_ms"],
+                               v["timed_ms"])]
+
+
+def _clone_params(ff) -> tuple:
+    return tuple({k: {n: t.detach().clone() for n, t in w.items()}
+                  for k, w in tree.items()} for tree in ff._params)
+
+
+def _fit_losses(ff, x, y, batch: int) -> list:
+    """ff.fit over the batches one call each: each call's loss is that
+    step's."""
+    out = []
+    for i in range(x.shape[0] // batch):
+        pm = ff.fit(x[i * batch:(i + 1) * batch],
+                    y[i * batch:(i + 1) * batch], verbose=False)
+        out.append(pm.sparse_cce_loss / pm.train_all)
+    return out
+
+
+def phase_search_train(seed: int, problems: list, work: str) -> dict:
+    """22a: bench_1b (16 layers, D 128, bf16, batch 8 x 1024, Adam lr
+    1e-4, remat none) compiled with search_budget=8, measure_costs,
+    validate_top_k=2 and the event simulator, exporting its strategy and
+    its costed graph, from the weights of the same model compiled without
+    the search (compile(params=)); both fit P22_STEPS steps on the same
+    batches. The searched model's losses must hold to the unsearched
+    one's within P22_LOSS_ATOL (every rewrite keeps the function on one
+    card); K1 must launch in the measurement, the playoff and the fit,
+    K2 in the playoff and the fit (the sweep times forwards only)."""
+    cfg = LlamaConfig.bench_1b()
+    x, y = _token_batches(TRAIN_BATCH * P22_STEPS, TRAIN_SEQ,
+                          cfg.vocab_size, seed)
+    free_card()
+    plain = _train_model(cfg, DEVICE, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         dtype=DataType.BFLOAT16, remat="none", seed=seed)
+    params = _clone_params(plain)
+    plain_losses = _fit_losses(plain, x, y, TRAIN_BATCH)
+    del plain
+    free_card()
+    ff = FFModel(FFConfig(
+        batch_size=TRAIN_BATCH, seed=seed, device=DEVICE, remat="none",
+        search_budget=8, measure_costs=True, validate_top_k=2,
+        use_simulator=True,
+        export_strategy_file=os.path.join(work, "strategy.json"),
+        export_strategy_computation_graph_file=os.path.join(work, "pcg.dot"),
+        include_costs_dot_graph=True))
+    build_llama(ff, cfg, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                dtype=DataType.BFLOAT16)
+    built_nodes = len(ff.graph)
+    _reset_launches()
+    t0 = time.monotonic()
+    with StageLaunches() as stages:
+        ff.compile(optimizer=AdamOptimizer(lr=TRAIN_LR),
+                   loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                   metrics=[MetricsType.ACCURACY,
+                            MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY],
+                   params=params)
+    compile_s = time.monotonic() - t0
+    del params
+    before = _flash_launches()
+    losses = _fit_losses(ff, x, y, TRAIN_BATCH)
+    torch.cuda.synchronize()
+    fit = {n: v - before[n] for n, v in _flash_launches().items()}
+    st = ff.search_stats
+    knobs = st["measured"]
+    strategy = json.load(open(os.path.join(work, "strategy.json")))
+    dot = open(os.path.join(work, "pcg.dot")).read()
+    res = {
+        "model": "bench_1b", "layers": cfg.layers, "dtype": "bfloat16",
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "op_shards_measured": knobs["op_shards"],
+        "median_analytic_over_measured": knobs["median_ratio"],
+        "mxu_efficiency": knobs["mxu_efficiency"],
+        "search_wall_s": st["wall_s"], "best_cost_ms": st["best_cost"] * 1e3,
+        "baseline_cost_ms": st["baseline_cost"] * 1e3,
+        "candidates_seen": st["candidates_seen"],
+        "pool": len(ff.searched_candidates),
+        "winner_rules": st["winner_rules"],
+        "nodes_built": built_nodes, "nodes_adopted": len(ff.graph),
+        "playoff": _playoff_report(ff, stages.playoff_pool),
+        "compile_s": compile_s,
+        "launches": {"measurement": stages.stages.get("measurement"),
+                     "playoff": stages.stages.get("playoff"),
+                     "fit": fit},
+        "losses": losses, "unsearched_losses": plain_losses,
+        "loss_atol": P22_LOSS_ATOL,
+        "strategy_views": len(strategy), "dot_costed": "ms}" in dot,
+    }
+    log(f"search_train {json.dumps(res)}")
+    del ff
+    free_card()
+    k1, k2 = FLASH_ATTENTION_FWD.name, FLASH_ATTENTION_DQ.name
+    for stage, names in (("measurement", (k1,)), ("playoff", (k1, k2)),
+                         ("fit", (k1, k2, FLASH_ATTENTION_DKV.name))):
+        got = res["launches"][stage] or {}
+        if not all(got.get(n, 0) > 0 for n in names):
+            problems.append(f"22a: {stage} launched {got}, wanted "
+                            f"{names} each")
+    if fit[k1] != cfg.layers * P22_STEPS:
+        problems.append(f"22a: fit launched K1 {fit[k1]} times, wanted "
+                        f"{cfg.layers * P22_STEPS}")
+    if not 0 < res["mxu_efficiency"] <= 1 or res["op_shards_measured"] < 1:
+        problems.append(f"22a: calibration {knobs}")
+    if len(res["playoff"]) != len(stages.playoff_pool) \
+            or len(res["playoff"]) < 2:
+        problems.append(f"22a: playoff timed {res['playoff']} of "
+                        f"{len(stages.playoff_pool)} candidates")
+    diff = max(abs(a - b) for a, b in zip(losses, plain_losses))
+    if not all(np.isfinite(losses)) or diff > P22_LOSS_ATOL:
+        problems.append(f"22a: searched losses {losses} vs unsearched "
+                        f"{plain_losses} (max diff {diff})")
+    if not res["strategy_views"] or not res["dot_costed"]:
+        problems.append("22a: the exports are empty")
+    return res
+
+
+def _eval_loss(ff, bx, by) -> float:
+    with torch.no_grad():
+        m = ff.executor.eval_step(*ff._params, by, bx)
+    return float(m["loss"])
+
+
+def phase_search_ring(seed: int, problems: list) -> dict:
+    """22b: the plain bench_1b graph (no use_ring_attention) at batch 1 x
+    RING_SEQ over {"seq": RING_SHARDS}, searched at budget 12 with
+    validate_top_k=2 from the weights of the same graph compiled without
+    the search. The pool must keep a ring-attention candidate; the
+    playoff times it (K5 and K4's backward) beside the unrewritten graph
+    (K1/K2 over all RING_SEQ rows) and any Ulysses candidate; modeled ms
+    price RING_SHARDS H100s, timed ms are this one card's, so the two are
+    not comparable. The winner fits P22_RING_STEPS steps on one repeated
+    batch (finite, falling); the ring candidate's loss on the initial
+    weights holds to the unrewritten graph's within P22_LOSS_ATOL."""
+    cfg = LlamaConfig.bench_1b()
+    mesh = {"seq": RING_SHARDS}
+    x, y = _token_batches(1, RING_SEQ, cfg.vocab_size, seed)
+    bx, by = (torch.from_numpy(a).to(DEVICE) for a in (x, y))
+    free_card()
+
+    def model(search: bool):
+        kw = dict(search_budget=12, validate_top_k=2) if search else {}
+        ff = FFModel(FFConfig(batch_size=1, seed=seed, device=DEVICE,
+                              remat="none", mesh_shape=mesh, **kw))
+        build_llama(ff, cfg, batch_size=1, seq_len=RING_SEQ,
+                    dtype=DataType.BFLOAT16)
+        return ff
+
+    compile_kw = dict(
+        optimizer=AdamOptimizer(lr=TRAIN_LR),
+        loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+        metrics=[MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY])
+    plain = model(False)
+    plain.compile(**compile_kw)
+    params = _clone_params(plain)
+    plain_loss = _eval_loss(plain, bx, by)
+    built = plain.graph
+    del plain
+    free_card()
+    ff = model(True)
+    _reset_launches()
+    t0 = time.monotonic()
+    with StageLaunches() as stages:
+        ff.compile(params=params, **compile_kw)
+    compile_s = time.monotonic() - t0
+    pool = ff.searched_candidates
+    rings = [c for c in pool if any(
+        n.op_type == OpType.RING_ATTENTION and n.attrs.seq_mode == "ring"
+        for n in c[1].nodes)]
+    before = {k.name: k.launches for k in KERNELS}
+    losses = []
+    for _ in range(P22_RING_STEPS):
+        pm = ff.fit(x, y, verbose=False)
+        losses.append(pm.sparse_cce_loss / pm.train_all)
+    torch.cuda.synchronize()
+    fit = {k.name: k.launches - before[k.name] for k in KERNELS}
+    st = ff.search_stats
+    res = {
+        "model": "bench_1b", "layers": cfg.layers, "dtype": "bfloat16",
+        "batch": 1, "seq": RING_SEQ, "mesh_shape": mesh,
+        "modeled_for": f"{RING_SHARDS} H100s (the modeled mesh)",
+        "timed_on": "this one card: modeled and timed ms are not "
+                    "comparable",
+        "search_wall_s": st["wall_s"], "best_cost_ms": st["best_cost"] * 1e3,
+        "baseline_cost_ms": st["baseline_cost"] * 1e3,
+        "pool": [{"modeled_ms": c * 1e3, "nodes": len(g),
+                  "structure": _kinds(g)} for c, g, _ in pool],
+        "playoff": _playoff_report(ff, stages.playoff_pool),
+        "compile_s": compile_s, "winner_structure": _kinds(ff.graph),
+        "launches": {"playoff": stages.stages.get("playoff"), "fit": fit},
+        "losses": losses, "unrewritten_initial_loss": plain_loss,
+        "loss_atol": P22_LOSS_ATOL,
+    }
+    del ff
+    free_card()
+    if rings:
+        # the ring candidate on the initial weights
+        rf = model(False)
+        rf.graph = min(rings, key=lambda c: c[0])[1].copy()
+        rf.compile(params=carry_params(params, built, rf.graph),
+                   **compile_kw)
+        res["ring_initial_loss"] = _eval_loss(rf, bx, by)
+        del rf
+        free_card()
+    log(f"search_ring {json.dumps(res)}")
+    carry = FLASH_ATTENTION_BH_FWD_CARRY.name
+    timed_ring = [p for p in res["playoff"] if "seq_attention/ring"
+                  in p["structure"]]
+    if not rings or not timed_ring:
+        problems.append(f"22b: no ring candidate in the pool or playoff: "
+                        f"{res['pool']}, {res['playoff']}")
+    if not (res["launches"]["playoff"] or {}).get(carry):
+        problems.append(f"22b: the playoff launched no K5: "
+                        f"{res['launches']['playoff']}")
+    ulysses = [c for c in res["pool"] if "seq_attention/ulysses"
+               in c["structure"]]
+    if ulysses and not any("seq_attention/ulysses" in p["structure"]
+                           for p in res["playoff"]):
+        problems.append(f"22b: a Ulysses candidate was not timed: "
+                        f"{res['playoff']}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        problems.append(f"22b: the winner's loss did not fall: {losses}")
+    ring_loss = res.get("ring_initial_loss")
+    if ring_loss is None or not abs(ring_loss - plain_loss) <= P22_LOSS_ATOL:
+        problems.append(f"22b: ring candidate's initial loss {ring_loss} vs "
+                        f"the unrewritten graph's {plain_loss}")
+    return res
+
+
+def phase_search(seed: int, card: str) -> dict:
+    """Phase 22 (a, b), each part timed on its own phase_time line, the
+    exports under a temporary directory removed at the end; collects
+    every part's problems and raises at the end. The kernels line
+    records K1/K2's launches of (a) under "search_1b" and K5's and K4's
+    backward's of (b) under "search_ring"."""
+    problems: list = []
+    res = {"card": card}
+    work = tempfile.mkdtemp(prefix="ff_phase22_")
+    try:
+        res["a"] = timed("22a", phase_search_train, seed, problems, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["b"] = timed("22b", phase_search_ring, seed, problems)
+    free_card()
+    if problems:
+        raise AssertionError(f"phase 22: {problems}")
+    return res
+
+
 def _zoo_k4_entries(kernel, zoo) -> tuple:
     """(key, launches, timed case) of K4 kernel `kernel` on phase 18: BERT-
     base's fit at dropout 0 (18a) under "bert_base", and the encoder-
@@ -7054,10 +7387,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19,"
-                    "20,21",
+                    "20,21,22",
                     help="comma-separated phases to run (default "
-                    "1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21; "
-                    "5 profiles serving and training steps)")
+                    "1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,"
+                    "22; 5 profiles serving and training steps)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -7145,6 +7478,8 @@ def main(argv=None) -> int:
            if 20 in phases else None)
     p21 = (timed("21", phase_frontends_checkpoints, args.seed, card)
            if 21 in phases else None)
+    p22 = timed("22", phase_search, args.seed, card) if 22 in phases \
+        else None
     if 5 in phases:
         phase_profile(args.seed, card)
         phase_profile_train(args.seed, card)
@@ -7299,6 +7634,15 @@ def main(argv=None) -> int:
         entry["pipeline_1b"] = {key: val for key, val in pipe.items()
                                 if key not in ("name", "route", "source",
                                                "replaces")}
+        # phase 22a's searched bench_1b: launches in its measurement,
+        # playoff and fit together, timed at bench_1b's attention shape
+        srch = _kernel_entry(
+            k, entry["source"],
+            sum(n[k.name] for n in p22["a"]["launches"].values() if n)
+            if p22 else 0, flash.get("bfloat16", {}).get(k.name))
+        entry["search_1b"] = {key: val for key, val in srch.items()
+                              if key not in ("name", "route", "source",
+                                             "replaces")}
         if k is FLASH_ATTENTION_FWD:
             # phase 21c's bf16 predict of the HF-imported Llama-3-8B
             # widths, timed at its attention shape in phase 21
@@ -7337,7 +7681,14 @@ def main(argv=None) -> int:
                 ("fp32", gpt2["fit_launches"][k.name] if gpt2 else 0,
                  k4.get("main", {}).get("float32", {}).get(k.name)),
                 ("gpt2_124m", p21["a"]["launches"][k.name] if p21 else 0,
-                 p21["k4"][k.name] if p21 else None)) \
+                 p21["k4"][k.name] if p21 else None),
+                # phase 22b's ring candidate's backward in the playoff and
+                # the winner's fit, timed at phase 10's ring block
+                ("search_ring",
+                 sum(n[k.name] for n in p22["b"]["launches"].values() if n)
+                 if p22 else 0,
+                 k4.get("timed", {}).get(
+                     "d128_ring_block_causal_bfloat16", {}).get(k.name))) \
                 + _zoo_k4_entries(k, zoo18) + _batch_serve_k4_entry(k, p19):
             other = _kernel_entry(k, entry["source"], launches, res)
             entry[key] = {name: val for name, val in other.items()
@@ -7352,6 +7703,15 @@ def main(argv=None) -> int:
         carry, "flexflow_tpu_torch/csrc/flash_attention_bh_fwd.cu",
         ring["fit_launches"][carry.name] if ring else 0,
         k5.get("main", {}).get("bfloat16_full"))
+    # K5 on phase 22b's playoff and fit (the searched ring candidate of
+    # bench_1b), timed at phase 10's block
+    other = _kernel_entry(
+        carry, entry["source"],
+        sum(n[carry.name] for n in p22["b"]["launches"].values() if n)
+        if p22 else 0, k5.get("main", {}).get("bfloat16_full"))
+    entry["search_ring"] = {name: val for name, val in other.items()
+                            if name not in ("name", "route", "source",
+                                            "replaces")}
     for key, (block, _, _) in zip(("phi3_mini", "openllama_3b"),
                                   K5_RING_BLOCKS):
         other = _kernel_entry(

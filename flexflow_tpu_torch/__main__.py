@@ -6,9 +6,10 @@ Parses the reference's flags (FFConfig.from_args: -b, -e, --seed,
 which a script reads through `flexflow_tpu_torch.get_driver_config()`,
 and runs SCRIPT as __main__ with those flags as its argv. `--device`
 before SCRIPT is passed on to it (the card unless "cpu" is asked for).
-Flags the port refuses raise before the script runs: --budget and the
-other search flags (ROADMAP.md queue 1 item 11), a --mesh or --devices of
-more than one card (item 12).
+The search flags (--budget, --alpha, --validate-top-k, --import /
+--export, --compgraph, --machine-model-file, ...) reach compile() through
+the config. A --mesh or --devices of more than one card raises before
+the script runs (ROADMAP.md queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from flexflow_tpu_torch.config import FFConfig
 
 USAGE = ("usage: python -m flexflow_tpu_torch [--device cpu] SCRIPT [flags]\n"
          "flags: -b/--batch-size -e/--epochs --seed --checkpoint-dir D "
-         "--checkpoint-every N --device cuda|cpu --profiling ...")
+         "--checkpoint-every N --device cuda|cpu --profiling --budget N "
+         "--import F --export F ...")
 
 
 def main(argv=None) -> int:

@@ -1,13 +1,15 @@
 """Runtime configuration (counterpart of flexflow_tpu/config.py).
 
 Every field of the reference's FFConfig, with its name and default, and
-its argv parser `from_args`. A field is either ported (it does on one
-device what the reference does there) or refused: set away from its
-default it raises NotImplementedError naming the ROADMAP.md queue 1 item
-that ports it (`REFUSED`), so no setting is silently ignored. The port
-adds one field, `device`: every entry point runs on the card ("cuda")
-unless the caller asks for "cpu", and a CUDA request on a machine
-without a card raises instead of drifting to the CPU.
+its argv parser `from_args`. Every field is ported: it does on one device
+what the reference does there. A field the port could not honour would
+be listed in `REFUSED` with the ROADMAP.md queue 1 item that ports it and
+raise NotImplementedError away from its default, so no setting is
+silently ignored; none is listed now. Several cards (`num_devices` above
+1, a mesh axis other than `seq` above 1) raise (item 12). The port adds
+one field, `device`: every entry point runs on the card ("cuda") unless
+the caller asks for "cpu", and a CUDA request on a machine without a
+card raises instead of drifting to the CPU.
 """
 
 from __future__ import annotations
@@ -26,22 +28,9 @@ REMAT_MODES = ("none", "attention", "hidden")
 TRANSFER_GUARDS = {"allow": "default", "log": "warn", "log_explicit": "warn",
                    "disallow": "error", "disallow_explicit": "error"}
 
-# the reference's fields the port refuses away from their defaults, and
-# the ROADMAP.md queue 1 item that ports each: strategy search and its
-# fusion pass (11)
-_SEARCH = 11
-REFUSED = {
-    "search_budget": _SEARCH, "search_alpha": _SEARCH,
-    "only_data_parallel": _SEARCH, "enable_parameter_parallel": _SEARCH,
-    "enable_attribute_parallel": _SEARCH, "enable_submesh": _SEARCH,
-    "memory_search": _SEARCH, "search_num_devices": _SEARCH,
-    "machine_model_file": _SEARCH, "measure_costs": _SEARCH,
-    "validate_top_k": _SEARCH, "measure_cache_file": _SEARCH,
-    "use_simulator": _SEARCH, "import_strategy_file": _SEARCH,
-    "export_strategy_file": _SEARCH,
-    "export_strategy_computation_graph_file": _SEARCH,
-    "include_costs_dot_graph": _SEARCH, "perform_fusion": _SEARCH,
-}
+# the reference's fields the port refuses away from their defaults, each
+# with the ROADMAP.md queue 1 item that ports it: none
+REFUSED: Dict[str, int] = {}
 
 
 @dataclasses.dataclass
@@ -70,12 +59,20 @@ class FFConfig:
     # PSUM or SHARDED: on one device both keep the whole optimizer state
     param_sync: ParamSyncType = ParamSyncType.PSUM
 
-    # ---- strategy search: refused away from the defaults (REFUSED) ----
+    # ---- strategy search (search/api.py): budget <= 5 runs MCMC over
+    # views on the fixed graph, > 5 the Unity substitution search; the
+    # machine priced is config.machine_model_file's, else H100s as many
+    # as the mesh has positions (search_num_devices extends the data axis);
+    # measure_costs times op shards on `device`; validate_top_k > 1 times
+    # the top candidates' real train steps on `device` and keeps the
+    # fastest ----
     search_budget: int = 0
     search_alpha: float = 1.05
     only_data_parallel: bool = False
     enable_parameter_parallel: bool = True
     enable_attribute_parallel: bool = True
+    # splits a data axis of 4 or more into data x data_sub; the one card's
+    # data axis is 1, so nothing splits, as in the reference on such a mesh
     enable_submesh: bool = False
     memory_search: bool = False
     search_num_devices: Optional[int] = None
@@ -96,8 +93,8 @@ class FFConfig:
     checkpoint_every: int = 0
 
     # ---- execution ----
-    # the reference prints the timed strategy playoff under it; the port
-    # has no search, so it prints nothing more
+    # prints the search's measured knobs, its modeled best and the timed
+    # strategy playoff, as the reference does
     profiling: bool = False
     # fit runs under torch.profiler (CPU and, on the card, CUDA
     # activities) and writes a Chrome trace into this directory

@@ -2,8 +2,9 @@
 the port): multi-branch concat blocks, at 75x75 so the example stays
 small.
 
-The reference's example takes --budget for its strategy search; the port
-has none yet and refuses the flag (ROADMAP.md queue 1 item 11).
+The reference's example takes --budget for its strategy search, and so
+does the port's: compile() runs the search (search/api.py) on the
+configured mesh.
 
 Run:  python -m flexflow_tpu_torch.examples.inception_v3 -b 4 -e 1
 """

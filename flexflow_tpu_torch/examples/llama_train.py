@@ -3,10 +3,10 @@
 The reference's example trains under a hand TP strategy on a mesh with a
 model axis (--mesh data=2,model=4), a searched one (--budget), or a
 pipeline over a pipe axis (--pipeline --mesh data=2,pipe=4). The port
-runs one card: those meshes raise (ROADMAP.md queue 1 item 12) and so
-does --budget (item 11). It trains the same tiny Llama on one card;
---pipeline builds its blocks as one PIPELINE composite, which the port
-runs block after block on the card.
+runs one card: those meshes raise (ROADMAP.md queue 1 item 12); --budget
+runs the strategy search on the one card's mesh. It trains the same tiny
+Llama on one card; --pipeline builds its blocks as one PIPELINE
+composite, which the port runs block after block on the card.
 
 Run:  python -m flexflow_tpu_torch.examples.llama_train -b 8 -e 1 [--pipeline]
 """

@@ -157,3 +157,15 @@ class OpType(enum.Enum):
     PIPELINE = "pipeline"
     LOSS = "loss"
     METRICS = "metrics"
+
+
+# ops whose lowering is a pure resharding (no math); PIPELINE is a real
+# compute composite, priced like any op
+PARALLEL_OP_TYPES = frozenset({
+    OpType.REPARTITION,
+    OpType.COMBINE,
+    OpType.REPLICATE,
+    OpType.REDUCTION,
+    OpType.ALL_TO_ALL,
+    OpType.FUSED_PARALLEL,
+})

@@ -32,6 +32,7 @@ from flexflow_tpu_torch.ffconst import (
 )
 from flexflow_tpu_torch.ops import attrs as A
 from flexflow_tpu_torch.parallel.mesh import Mesh, make_mesh
+from flexflow_tpu_torch.parallel.sharding import ShardingView
 from flexflow_tpu_torch.pcg.graph import Graph, Node
 from flexflow_tpu_torch.pcg.tensor import TensorShape
 from flexflow_tpu_torch.runtime.executor import Executor
@@ -56,6 +57,62 @@ class Tensor:
 
     def __repr__(self):
         return f"Tensor({self.node.name}:{self.idx} {self.shape})"
+
+
+_MERGED = "_merged"
+
+
+def carry_params(params, built: Graph, graph: Graph):
+    """Re-key (trainable, nontrainable) trees made for the graph as built
+    to `graph`, a rewrite of it by the strategy search. A node the rewrite
+    kept keeps its key and weights; a linear that merge_parallel_linears
+    made of several bias-free ones ("{a}_{b}_merged") takes their kernels
+    concatenated on the out dim in its name's order (the rule's weight
+    map), so the rewritten graph computes the same function. Any other
+    weighted node the built graph lacks raises."""
+    tr, ntr = params
+    linears = {n.name: n.stable_key() for n in built.nodes
+               if n.op_type == OpType.LINEAR}
+
+    def kernel(name: str):
+        if name in linears:
+            return tr[linears[name]]["kernel"]
+        parts = split(name[:-len(_MERGED)]) if name.endswith(_MERGED) \
+            else None
+        if not parts:
+            return None
+        return torch.cat([kernel(p) for p in parts], dim=-1)
+
+    def split(stem: str):
+        # the names of the merged linears, each a built linear or itself
+        # a merge, joined by "_"
+        for i in range(len(stem), 0, -1):
+            head, rest = stem[:i], stem[i + 1:]
+            if head in linears or (head.endswith(_MERGED)
+                                   and kernel(head) is not None):
+                if i == len(stem):
+                    return [head]
+                if stem[i] == "_" and (tail := split(rest)):
+                    return [head] + tail
+        return None
+
+    out_tr, out_ntr = {}, {}
+    for node in graph.nodes:
+        key = node.stable_key()
+        if key in tr or key in ntr:
+            for src, dst in ((tr, out_tr), (ntr, out_ntr)):
+                if key in src:
+                    dst[key] = src[key]
+            continue
+        if node.attrs is None or not node.attrs.weights(*node.in_shapes):
+            continue
+        k = kernel(node.name) if node.op_type == OpType.LINEAR else None
+        if k is None:
+            raise ValueError(
+                f"params hold no weights for {key!r}, which the strategy "
+                "search's rewrite made, and none to carry to it")
+        out_tr[key] = {"kernel": k}
+    return out_tr, out_ntr
 
 
 class FFModel:
@@ -217,18 +274,25 @@ class FFModel:
                        name: Optional[str] = None) -> Tensor:
         """Sequence-parallel attention: MULTIHEAD_ATTENTION's weights
         (no biases) with the sequence cut over the mesh's `seq` axis
-        (parallel/ring.py). Only seq_mode="ring" is ported."""
+        (parallel/ring.py), exchanged as a ring or, with
+        seq_mode="ulysses", by the all-to-all of sequence for heads."""
         return self._one(
             OpType.RING_ATTENTION,
             A.RingAttentionAttrs(embed_dim, num_heads, kv_heads, None, causal,
                                  False, 0.0, rope, rope_theta, seq_mode),
             [query, key, value], name or "ring_attention")
 
-    def ulysses_attention(self, *args, **kwargs) -> Tensor:
-        """DeepSpeed-Ulysses sequence parallelism is not ported yet."""
-        raise NotImplementedError(
-            "ulysses_attention is not ported yet (ROADMAP.md, queue 1 item "
-            "12); use ring_attention")
+    def ulysses_attention(self, query: Tensor, key: Tensor, value: Tensor,
+                          embed_dim: int, num_heads: int, causal: bool = True,
+                          kv_heads: Optional[int] = None, rope: bool = False,
+                          rope_theta: float = 10000.0,
+                          name: Optional[str] = None) -> Tensor:
+        """DeepSpeed-Ulysses sequence parallelism: ring_attention with
+        seq_mode="ulysses"."""
+        return self.ring_attention(
+            query, key, value, embed_dim, num_heads, causal=causal,
+            kv_heads=kv_heads, rope=rope, rope_theta=rope_theta,
+            seq_mode="ulysses", name=name or "ulysses_attention")
 
     def _binary(self, kind: str, x: Tensor, y: Tensor, name) -> Tensor:
         return self._one(OpType.ELEMENT_BINARY, A.ElementBinaryAttrs(kind),
@@ -551,12 +615,26 @@ class FFModel:
 
     def compile(self, optimizer: Optional[Optimizer] = None,
                 loss_type: LossType = LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
-                metrics: Sequence[MetricsType] = (), params=None):
-        """Infer shapes, build the executor on the configured device and
-        draw the parameters there from `config.seed` — or, when `params`
-        is given, take those (trainable, nontrainable) trees instead,
-        moved to the device (e.g. runtime.weights.params_from_numpy's, or
-        another FFModel's `_params`; copied when compiled to train).
+                metrics: Sequence[MetricsType] = (), params=None,
+                strategy: Optional[Dict[str, ShardingView]] = None):
+        """Infer shapes, pick a strategy, build the executor on the
+        configured device and draw the parameters there from
+        `config.seed` — or, when `params` is given, take those
+        (trainable, nontrainable) trees instead, moved to the device
+        (e.g. runtime.weights.params_from_numpy's, or another FFModel's
+        `_params`; copied when compiled to train).
+
+        The strategy is `strategy` (node name -> ShardingView), else
+        config.import_strategy_file's (checked against this graph and
+        mesh by analysis/consistency.py), else, with config.search_budget
+        > 0, the strategy search's (search/api.py): MCMC over views at a
+        budget up to 5, the Unity substitution search above, which may
+        rewrite the graph. With config.validate_top_k > 1 the top
+        candidates' real train steps are timed on the device and the
+        fastest is kept (`strategy_validation`). `params` is keyed by the
+        graph as built: the weights of a linear the search merged with
+        others (merge_parallel_linears) are theirs concatenated
+        (carry_params). On one card every view computes whole tensors.
 
         With an `optimizer` the model is compiled to train: every
         floating trainable leaf is an fp32 master (the reference's
@@ -565,18 +643,74 @@ class FFModel:
         `fit` trains with SGDOptimizer() (the reference's default),
         turning the trainable leaves into fp32 masters at its first
         step."""
-        device = self.config.torch_device()
+        cfg = self.config
+        device = cfg.torch_device()
         self._optimizer = optimizer or SGDOptimizer()
         self._loss_type = loss_type
         self._metrics = list(metrics)
         self.graph.infer_shapes()
+        built = self.graph
+        if cfg.perform_fusion:
+            # reference --fusion / apply_fusion (model.cc:2965): fold
+            # linear + activation pairs into one node before the search
+            from flexflow_tpu_torch.search.substitution import (
+                make_fuse_linear_activation,
+            )
+
+            xf = make_fuse_linear_activation()
+            while cands := xf.apply_all(self.graph):
+                self.graph = cands[0]
         # the reference's default mesh is {"data": devices}: one here
-        self._mesh = make_mesh(self.config.mesh_shape or {"data": 1})
+        mesh_axes = dict(cfg.mesh_shape or {"data": 1})
+        if (cfg.enable_submesh and "data_sub" not in mesh_axes
+                and mesh_axes.get("data", 1) >= 4
+                and mesh_axes["data"] % 2 == 0):
+            mesh_axes["data_sub"] = 2
+            mesh_axes["data"] //= 2
+        self._mesh = make_mesh(mesh_axes)
+        axis_sizes = self._mesh.axes
+        if strategy is None and cfg.import_strategy_file:
+            strategy = self._import_strategy(cfg.import_strategy_file,
+                                             axis_sizes)
+        candidates: List = []
+        self.search_stats = {}
+        if (strategy is None and not cfg.only_data_parallel
+                and cfg.search_budget > 0):
+            from flexflow_tpu_torch.search import api
+
+            collect = candidates if cfg.validate_top_k > 1 else None
+            if cfg.search_budget > 5:
+                self.graph, strategy = api.graph_optimize(
+                    self.graph, axis_sizes, cfg, candidates_out=collect,
+                    stats_out=self.search_stats)
+            else:
+                strategy = api.search_strategy(self.graph, axis_sizes, cfg,
+                                               candidates_out=collect)
+        # the full modeled pool (top-k + best-per-structural-class + the
+        # unrewritten baseline) stays inspectable after compile
+        self.searched_candidates = list(candidates)
+        if len(candidates) > 1:
+            from flexflow_tpu_torch.search.substitution import (
+                structural_class,
+            )
+
+            # the timed pool: the top validate_top_k by modeled cost plus
+            # every structural candidate past the cutoff
+            picked = list(candidates[:cfg.validate_top_k])
+            have = {id(g) for _, g, _ in picked}
+            for cand in candidates[cfg.validate_top_k:]:
+                if structural_class(cand[1]) and id(cand[1]) not in have:
+                    picked.append(cand)
+                    have.add(id(cand[1]))
+            self.graph, strategy = self._validate_candidates(picked, device)
+        self._apply_strategy(self.graph, strategy)
         self._executor = self._new_executor(device, optimizer)
         if params is None:
             tr, ntr = self._executor.init_params(self.config.seed,
                                                  self._init_overrides)
         else:
+            if self.graph is not built:
+                params = carry_params(params, built, self.graph)
             # training updates the weights in place: a model compiled to
             # train takes copies, so it never shares storage with the
             # trees it was given
@@ -589,14 +723,187 @@ class FFModel:
             tr = self._executor.master_params(tr)
             self._opt_state = self._executor.init_opt_state(optimizer, tr)
         self._params = (tr, ntr)
+        if cfg.export_strategy_file:
+            self.export_strategy_file(cfg.export_strategy_file)
+        if cfg.export_strategy_computation_graph_file:
+            self._export_dot(cfg.export_strategy_computation_graph_file)
         return self
 
-    def _new_executor(self, device, optimizer) -> Executor:
-        return Executor(self.graph, device, loss_type=self._loss_type,
-                        metrics=self._metrics, optimizer=optimizer,
-                        remat=self.config.remat, mesh=self._mesh,
-                        seq_length=self.config.seq_length,
-                        donate=self.config.donate_buffers)
+    def _import_strategy(self, path: str, axis_sizes: Dict[str, int]):
+        """Read a strategy file (either package's export) and check it
+        against this graph and mesh: an inconsistent file raises with
+        each error by node; warnings are logged."""
+        import json
+        import logging
+
+        from flexflow_tpu_torch.analysis.consistency import check_strategy
+        from flexflow_tpu_torch.parallel.sharding import view_from_json
+
+        with open(path) as f:
+            strategy = {k: view_from_json(v) for k, v in json.load(f).items()}
+        findings = check_strategy(self.graph, strategy, axis_sizes,
+                                  subject=os.path.basename(path))
+        errors = [f for f in findings if f.severity == "error"]
+        if errors:
+            detail = "\n".join(f"  [{f.code}] {f.where}: {f.message}"
+                               for f in errors)
+            raise ValueError(
+                f"imported strategy file {path} is inconsistent with this "
+                f"graph/mesh ({len(errors)} error(s)):\n{detail}")
+        warned = [f.message for f in findings if f.severity == "warning"]
+        if warned:
+            logging.getLogger(__name__).warning(
+                "imported strategy %s: %s", path, "; ".join(warned))
+        return strategy
+
+    def _apply_strategy(self, graph: Graph, strategy) -> None:
+        """Attach the strategy's views to their nodes; an unnamed INPUT
+        takes the batch-over-data view when the data axis exceeds 1 (never
+        on one card)."""
+        from flexflow_tpu_torch.parallel.sharding import (
+            data_batch_spec,
+            group_degree,
+        )
+
+        axis_sizes = self._mesh.axes
+        for n in graph.nodes:
+            if strategy and n.name in strategy:
+                n.sharding = strategy[n.name]
+            elif n.op_type == OpType.INPUT and (
+                    axis_sizes.get("data", 1) > 1
+                    or axis_sizes.get("data_sub", 1) > 1):
+                shape = n.outputs[0]
+                spec = data_batch_spec(shape.ndim, shape.dims[0].size,
+                                       axis_sizes)
+                deg = group_degree(spec[0], axis_sizes)
+                if deg > 1 and shape.dims[0].size % deg == 0:
+                    n.sharding = ShardingView((spec,))
+
+    def _validate_candidates(self, candidates, device):
+        """The timed playoff (the reference's _validate_candidates):
+        each candidate's real train step runs on `device` from weights
+        drawn at config.seed, on zero inputs and labels, once to warm up
+        and three times timed (CUDA events on the card), and the fastest
+        candidate wins. A candidate whose lowering refuses its shapes
+        (ValueError, NotImplementedError) loses with a warning; any other
+        failure, a kernel's build or launch among them, raises. Records
+        the outcome in `strategy_validation`."""
+        import time
+        import warnings
+
+        results = []  # (seconds, modeled rank, graph, strategy)
+        for rank, (modeled, graph, strategy) in enumerate(candidates):
+            # candidates may share one Graph object: a private copy keeps
+            # each candidate's node shardings to itself
+            graph = graph.copy()
+            self._apply_strategy(graph, strategy)
+            ex = self._new_executor(device, self._optimizer, graph,
+                                    donate=True)
+            try:
+                tr, ntr = ex.init_params(self.config.seed,
+                                         self._init_overrides)
+                tr = ex.master_params(tr)
+                opt = ex.init_opt_state(self._optimizer, tr)
+                inputs = [torch.zeros(
+                    tuple(d.size for d in n.outputs[0].dims),
+                    dtype=n.outputs[0].dtype.torch_dtype, device=device)
+                    for n in ex.input_nodes]
+                labels = torch.from_numpy(self._synth_labels(graph)).to(
+                    device)
+                tr, ntr, opt, m = ex.train_step(tr, ntr, opt, labels,
+                                                *inputs)
+                float(m["loss"])
+                t0 = time.perf_counter()
+                if device.type == "cuda":
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                for _ in range(3):
+                    tr, ntr, opt, m = ex.train_step(tr, ntr, opt, labels,
+                                                    *inputs)
+                if device.type == "cuda":
+                    end.record()
+                    end.synchronize()
+                    dt = start.elapsed_time(end) / 1e3 / 3
+                else:
+                    float(m["loss"])
+                    dt = (time.perf_counter() - t0) / 3
+                results.append((dt, rank, graph, strategy))
+            except (ValueError, NotImplementedError) as e:
+                warnings.warn(f"strategy candidate failed validation: {e}")
+            finally:
+                tr = ntr = opt = m = inputs = None
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
+        if not results:
+            _, g, s = candidates[0]
+            return g, s
+        results.sort(key=lambda r: r[0])
+        win = results[0]
+        self.strategy_validation = {
+            "timed_ms": [r[0] * 1e3 for r in results],
+            # modeled rank (0 = the model's own pick) per timed entry
+            "modeled_ranks": [r[1] for r in results],
+            "modeled_ms": [candidates[r[1]][0] * 1e3 for r in results],
+            "picked_modeled_rank": win[1],
+            "picked_timed_index": 0,
+            "search": dict(self.search_stats),
+        }
+        if self.config.profiling:
+            timed = ", ".join(f"{r[0] * 1e3:.2f}" for r in results)
+            print(f"[search] top-{len(results)} validated (ms/step): "
+                  f"{timed}")
+        return win[2], win[3]
+
+    def _synth_labels(self, graph: Graph) -> np.ndarray:
+        """Zero labels for the timed playoff, shaped as fit passes them:
+        the INPUT batch and the sink's middle dims."""
+        sink = graph.sinks()[0]
+        out = sink.outputs[0]
+        first_input = next(n for n in graph.nodes
+                           if n.op_type == OpType.INPUT)
+        b = first_input.outputs[0].dims[0].size
+        dims = (b,) + tuple(d.size for d in out.dims[1:])
+        if self._loss_type == LossType.SPARSE_CATEGORICAL_CROSSENTROPY:
+            return np.zeros(dims[:-1], np.int32)
+        return np.zeros(dims, np.float32)
+
+    def export_strategy_file(self, path: str) -> None:
+        """Write the compiled strategy as JSON, node name -> view (the
+        reference's --export-strategy format; either package imports the
+        other's)."""
+        import json
+
+        from flexflow_tpu_torch.parallel.sharding import view_to_json
+
+        with open(path, "w") as f:
+            json.dump({n.name: view_to_json(n.sharding)
+                       for n in self.graph.nodes if n.sharding is not None},
+                      f, indent=1)
+
+    def _export_dot(self, path: str) -> None:
+        """The compiled graph as GraphViz (--compgraph); with
+        include_costs_dot_graph each node carries its modeled per-shard
+        time in ms."""
+        costs = None
+        if self.config.include_costs_dot_graph:
+            from flexflow_tpu_torch.search.api import _cost_model
+
+            cm = _cost_model(self._mesh.axes, self.config)
+            costs = {n.guid: (cm.node_compute_time(self.graph, n, n.sharding)
+                              + cm.node_comm_time(self.graph, n, n.sharding))
+                     * 1e3 for n in self.graph.nodes}
+        with open(path, "w") as f:
+            f.write(self.graph.to_dot(costs=costs))
+
+    def _new_executor(self, device, optimizer, graph: Optional[Graph] = None,
+                      donate: Optional[bool] = None) -> Executor:
+        return Executor(graph or self.graph, device,
+                        loss_type=self._loss_type, metrics=self._metrics,
+                        optimizer=optimizer, remat=self.config.remat,
+                        mesh=self._mesh, seq_length=self.config.seq_length,
+                        donate=(self.config.donate_buffers if donate is None
+                                else donate))
 
     def _recompile(self):
         """A new Executor from the (altered) graph, with the settings,

@@ -77,6 +77,14 @@ class WeightAttrs(OpAttrs):
 
 
 @dataclasses.dataclass(frozen=True)
+class NoOpAttrs(OpAttrs):
+    """An identity node (the substitution corpus's NOOP)."""
+
+    def infer(self, *ins):
+        return (elementwise_like(ins[0]),)
+
+
+@dataclasses.dataclass(frozen=True)
 class LinearAttrs(OpAttrs):
     """Dense layer: y = act(x @ W + b); W (in_dim, out_dim), b (out_dim,)."""
 
@@ -99,6 +107,11 @@ class LinearAttrs(OpAttrs):
                                    "zeros")
         return w
 
+    def flops(self, ins, outs):
+        x = ins[0]
+        batch = math.prod(d.size for d in x.dims[:-1])
+        return 2 * batch * x.dims[-1].size * self.out_dim
+
 
 @dataclasses.dataclass(frozen=True)
 class EmbeddingAttrs(OpAttrs):
@@ -119,6 +132,9 @@ class EmbeddingAttrs(OpAttrs):
         return {"kernel": WeightSpec(
             TensorShape((self.num_entries, self.out_dim), self.dtype),
             "normal")}
+
+    def flops(self, ins, outs):
+        return outs[0].to_shape().num_elements()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,6 +188,16 @@ class MultiHeadAttentionAttrs(OpAttrs):
             w["bo"] = WeightSpec(TensorShape((self.embed_dim,), dt), "zeros")
         return w
 
+    def flops(self, ins, outs):
+        q = ins[0]
+        b = q.dims[0].size
+        s = q.dims[1].size
+        e = q.dims[-1].size
+        hd = self.kdim
+        proj = 2 * b * s * e * (self.num_heads + 2 * self.num_kv + self.num_heads) * hd
+        attn = 2 * 2 * b * self.num_heads * s * s * hd
+        return proj + attn
+
 
 SEQ_MODES = ("ring", "ulysses")
 
@@ -180,17 +206,13 @@ SEQ_MODES = ("ring", "ulysses")
 class RingAttentionAttrs(MultiHeadAttentionAttrs):
     """Sequence-parallel attention: MultiHeadAttention's math and
     weights with the sequence cut over the mesh's `seq` axis. `seq_mode`
-    picks the exchange: "ring" rotates k/v blocks (parallel/ring.py);
-    "ulysses" (the reference's all-to-all of sequence for heads) is not
-    ported yet and raises."""
+    picks the exchange: "ring" rotates k/v blocks, "ulysses" trades the
+    sequence cut for a head cut around full attention (parallel/ring.py;
+    on one card its two all-to-alls cancel)."""
 
     seq_mode: str = "ring"
 
     def __post_init__(self):
-        if self.seq_mode == "ulysses":
-            raise NotImplementedError(
-                'seq_mode="ulysses" is not ported yet (ROADMAP.md, queue 1 '
-                'item 12); use "ring"')
         if self.seq_mode not in SEQ_MODES:
             raise ValueError(f"seq_mode must be one of {SEQ_MODES}, got "
                              f"{self.seq_mode!r}")
@@ -217,6 +239,9 @@ class ElementBinaryAttrs(OpAttrs):
                         else ParallelDim(size))
         return (Shape(tuple(dims), a.dtype, src.replica),)
 
+    def flops(self, ins, outs):
+        return outs[0].to_shape().num_elements()
+
 
 @dataclasses.dataclass(frozen=True)
 class ElementUnaryAttrs(OpAttrs):
@@ -229,6 +254,9 @@ class ElementUnaryAttrs(OpAttrs):
 
     def infer(self, x: Shape):
         return (elementwise_like(x),)
+
+    def flops(self, ins, outs):
+        return outs[0].to_shape().num_elements()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -383,6 +411,12 @@ class ExpertsAttrs(OpAttrs):
                                          dt)),
         }
 
+    def flops(self, ins, outs):
+        x = ins[0]
+        tokens = math.prod(d.size for d in x.dims[:-1])
+        dim = x.dims[-1].size
+        return 2 * tokens * self.k * (dim * self.hidden_dim + self.hidden_dim * self.out_dim)
+
 
 # ---------------------------------------------------------------------------
 # conv / pool / BatchNorm / dropout
@@ -417,6 +451,12 @@ class Conv2DAttrs(OpAttrs):
             w["bias"] = WeightSpec(TensorShape((self.out_channels,), x.dtype),
                                    "zeros")
         return w
+
+    def flops(self, ins, outs):
+        x, y = ins[0], outs[0]
+        cin = x.dims[1].size
+        per_out = 2 * cin // self.groups * self.kernel[0] * self.kernel[1]
+        return per_out * y.to_shape().num_elements()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -564,6 +604,11 @@ class BatchMatmulAttrs(OpAttrs):
         dims = tuple(_carry(d) for d in a.dims[:-1]) + (_carry(b.dims[-1]),)
         return (Shape(dims, a.dtype, a.replica),)
 
+    def flops(self, ins, outs):
+        a, b = ins
+        batch = math.prod(d.size for d in a.dims[:-2])
+        return 2 * batch * a.dims[-2].size * a.dims[-1].size * b.dims[-1].size
+
 
 @dataclasses.dataclass(frozen=True)
 class GatherAttrs(OpAttrs):
@@ -643,6 +688,11 @@ class LSTMAttrs(OpAttrs):
             w["bias"] = WeightSpec(TensorShape((4 * self.hidden,), x.dtype),
                                    "zeros")
         return w
+
+    def flops(self, ins, outs):
+        x = ins[0]
+        b, s, d = (dim.size for dim in x.dims)
+        return 2 * b * s * 4 * self.hidden * (d + self.hidden)
 
 
 @dataclasses.dataclass(frozen=True)

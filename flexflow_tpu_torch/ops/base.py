@@ -26,13 +26,27 @@ class WeightSpec:
 
 class OpAttrs:
     """Base class for operator attribute dataclasses (frozen, hashable):
-    `infer` gives output shapes, `weights` the op's weight specs."""
+    `infer` gives output shapes, `weights` the op's weight specs, and
+    `flops` / `bytes_accessed` feed the strategy search's cost model."""
 
     def infer(self, *ins: ParallelTensorShape) -> Tuple[ParallelTensorShape, ...]:
         raise NotImplementedError
 
     def weights(self, *ins: ParallelTensorShape) -> Dict[str, WeightSpec]:
         return {}
+
+    def flops(self, ins, outs) -> int:
+        """Forward FLOPs given input/output ParallelTensorShapes (global,
+        unsharded counts; the cost model divides by parallelism)."""
+        return 0
+
+    def bytes_accessed(self, ins, outs) -> int:
+        """HBM traffic estimate: read inputs + weights, write outputs."""
+        total = sum(s.global_bytes() for s in ins)
+        total += sum(s.global_bytes() for s in outs)
+        for w in self.weights(*ins).values():
+            total += w.shape.size_bytes()
+        return total
 
 
 def elementwise_like(s: ParallelTensorShape,

@@ -97,8 +97,10 @@ def register_lowering(op_type: OpType):
 
 
 def get_lowering(op_type: OpType) -> Callable:
-    # importing the op library populates the registry on first use
+    # importing the op library and the parallel ops populates the
+    # registry on first use
     from flexflow_tpu_torch.ops import torch_ops  # noqa: F401
+    from flexflow_tpu_torch.parallel import parallel_ops  # noqa: F401
 
     if op_type not in _LOWERINGS:
         raise NotImplementedError(

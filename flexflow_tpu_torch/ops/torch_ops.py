@@ -59,20 +59,6 @@ def _noop(attrs, inputs, params, ctx):
     return [inputs[0]]
 
 
-def _reshard(attrs, inputs, params, ctx):
-    """A parallel op (REPARTITION, COMBINE, REPLICATE, REDUCTION,
-    ALL_TO_ALL, FUSED_PARALLEL) changes where a tensor's pieces live, not
-    its value; on the port's one device every piece lives on that device,
-    so the node passes its input on, as the reference's sharding
-    constraint does on a one-device mesh."""
-    return [inputs[0]]
-
-
-for _op in (OpType.REPARTITION, OpType.COMBINE, OpType.REPLICATE,
-            OpType.REDUCTION, OpType.ALL_TO_ALL, OpType.FUSED_PARALLEL):
-    register_lowering(_op)(_reshard)
-
-
 @register_lowering(OpType.WEIGHT)
 def _weight(attrs, inputs, params, ctx):
     # the stored parameter as it is, as the reference returns it: a

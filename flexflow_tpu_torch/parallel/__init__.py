@@ -1,2 +1,3 @@
-"""Parallelism (counterpart of flexflow_tpu/parallel/): the mesh and
-sequence-parallel ring attention, its shards on one device."""
+"""Parallelism (counterpart of flexflow_tpu/parallel/): the mesh,
+sharding views, parallel ops, and sequence-parallel attention (the ring
+and Ulysses), its shards on one device."""

@@ -54,14 +54,21 @@ def check_axes(axes: Dict[str, int]):
                 "12)")
 
 
-def make_mesh(axes: Dict[str, int]) -> Mesh:
-    """A Mesh with the canonical axis order (unknown names after the
-    known ones, in their given order). Size-1 axes are kept, as the
-    reference keeps them."""
-    check_axes(axes)
+def canonical_axes(axes: Dict[str, int]) -> Dict[str, int]:
+    """`axes` in the canonical axis order (unknown names after the known
+    ones, in their given order): the order of a mesh's devices, which the
+    search's machine models read to tell which groups leave a node."""
     names = [n for n in AXIS_ORDER if n in axes]
     names += [n for n in axes if n not in names]
-    return Mesh(tuple(names), tuple(axes[n] for n in names))
+    return {n: axes[n] for n in names}
+
+
+def make_mesh(axes: Dict[str, int]) -> Mesh:
+    """A Mesh with the canonical axis order. Size-1 axes are kept, as the
+    reference keeps them."""
+    check_axes(axes)
+    ordered = canonical_axes(axes)
+    return Mesh(tuple(ordered), tuple(ordered.values()))
 
 
 def mesh_axis_size(mesh: Optional[Mesh], name: str) -> int:

@@ -8,6 +8,14 @@ denominator in fp32), so the result equals full attention. On one device
 every shard is held by the one process and the rotation passes block
 references (ops/ring_flash.py `_ppermute`).
 
+`ulysses_dot_product_attention` is the other exchange (seq_mode=
+"ulysses"): an all-to-all trades the sequence cut for a head cut, each
+shard attends over the whole sequence for its heads, and a second
+all-to-all trades back. When one process holds every shard, as on the
+one card, the two exchanges cancel and what is left is full attention
+through the flash route (K1/K2 at head dims that are multiples of 128, K4
+otherwise); `comm_spec.ulysses_plan`'s fallback takes the K5 ring.
+
 `ring_dot_product_attention` routes by the mesh alone: no seq axis ->
 plain (flash) attention; otherwise the ring of kernel K5
 (`ring_flash_attention`), whatever the local sequence's length. The
@@ -30,7 +38,10 @@ from flexflow_tpu_torch.ops.torch_ops import (
     fused_attention,
     qkv_project,
 )
-from flexflow_tpu_torch.parallel.comm_spec import ring_repeats_kv
+from flexflow_tpu_torch.parallel.comm_spec import (
+    ring_repeats_kv,
+    ulysses_plan,
+)
 from flexflow_tpu_torch.parallel.mesh import mesh_axis_size
 
 
@@ -62,11 +73,35 @@ def ring_dot_product_attention(q, k, v, *, mesh, causal: bool,
                                 scale=scale)
 
 
+def ulysses_dot_product_attention(q, k, v, *, mesh, causal: bool,
+                                  scale: float):
+    """DeepSpeed-Ulysses over the mesh's `seq` axis (the reference's
+    parallel/ring.py:168). The reference's first all-to-all gives each
+    shard every position of H/n heads and its second one gives the
+    sequence cut back; on one process, which holds all n shards, the two
+    exchanges are inverse permutations of the same tensor and cancel, so
+    the shards' attentions together are full attention over the whole
+    sequence. The plan's decisions (parallel/comm_spec.py) are the
+    reference's: local heads that do not split n ways fall back to the
+    ring, and GQA kv is repeated when its heads do not split."""
+    n = mesh_axis_size(mesh, "seq")
+    if n == 1:
+        return fused_attention(q, k, v, causal=causal, scale=scale)
+    H, Hkv = q.shape[2], k.shape[2]
+    plan = ulysses_plan(H, Hkv, mesh_axis_size(mesh, "model"), n)
+    if plan.fallback_to_ring:
+        return ring_dot_product_attention(q, k, v, mesh=mesh, causal=causal,
+                                          scale=scale)
+    if plan.repeat_kv:
+        k, v = repeat_kv(k, v, H // Hkv)
+    return fused_attention(q, k, v, causal=causal, scale=scale)
+
+
 def ring_attention_lowering(attrs, inputs, params, ctx):
     """Lowering of OpType.RING_ATTENTION without a KV cache: the same
     projections as MULTIHEAD_ATTENTION (no biases), RoPE at the global
-    positions before the sequence is cut, the ring, the output
-    projection."""
+    positions before the sequence is cut, the exchange `seq_mode` names
+    (the ring or Ulysses), the output projection."""
     q_in = inputs[0]
     k_in = inputs[1] if len(inputs) > 1 else q_in
     v_in = inputs[2] if len(inputs) > 2 else k_in
@@ -77,7 +112,9 @@ def ring_attention_lowering(attrs, inputs, params, ctx):
     if attrs.rope:
         q = apply_rope(q, attrs.rope_theta)
         k = apply_rope(k, attrs.rope_theta)
-    out = ring_dot_product_attention(q, k, v, mesh=ctx.mesh,
-                                     causal=attrs.causal,
-                                     scale=1.0 / (attrs.kdim ** 0.5))
+    seq_attn = (ulysses_dot_product_attention
+                if attrs.seq_mode == "ulysses"
+                else ring_dot_product_attention)
+    out = seq_attn(q, k, v, mesh=ctx.mesh, causal=attrs.causal,
+                   scale=1.0 / (attrs.kdim ** 0.5))
     return [attn_out_project(out, params["wo"], dt)]

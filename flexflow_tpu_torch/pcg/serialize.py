@@ -7,13 +7,12 @@ encode generically (every op attribute class is a frozen dataclass of
 scalars, tuples, enums and TensorShapes) as {"$dc": [class name,
 fields]}, {"$enum": [enum, member]} and {"$shape": [dims, dtype]}, so
 each package reads the other's `pcg.json` (a checkpoint's graph).
-
-The port has no ShardingView yet: it writes every node's sharding as
-null, and a node whose sharding is not null raises (strategies are
-ROADMAP.md queue 1 item 11, several cards item 12).
+Node shardings (the strategy search's ShardingViews) travel in
+parallel/sharding.py's JSON form, and the parallel ops' attrs classes
+(parallel/parallel_ops.py) encode like the ops'.
 
 Round trip: `graph_from_json(graph_to_json(g))` reproduces guids, attrs,
-edges and `structure_hash()`.
+shardings, edges and `structure_hash()`.
 """
 
 from __future__ import annotations
@@ -41,14 +40,15 @@ _REGISTRY: Optional[Dict[str, type]] = None
 
 
 def _attrs_registry() -> Dict[str, type]:
-    """Every OpAttrs subclass of ops/attrs.py by class name."""
+    """Every OpAttrs subclass by class name (ops + parallel ops)."""
     global _REGISTRY
     if _REGISTRY is None:
         import flexflow_tpu_torch.ops.attrs as A
+        import flexflow_tpu_torch.parallel.parallel_ops as P
         from flexflow_tpu_torch.ops.base import OpAttrs
 
         _REGISTRY = {
-            obj.__name__: obj for obj in vars(A).values()
+            obj.__name__: obj for mod in (A, P) for obj in vars(mod).values()
             if isinstance(obj, type) and issubclass(obj, OpAttrs)
             and obj is not OpAttrs}
     return _REGISTRY
@@ -83,36 +83,25 @@ def _dec(v):
             return TensorShape(tuple(int(d) for d in dims), _dec(dt))
         if "$dc" in v:
             cls_name, fields = v["$dc"]
-            cls = _attrs_registry().get(cls_name)
-            if cls is None:
-                raise NotImplementedError(
-                    f"pcg attrs class {cls_name!r} has no counterpart in "
-                    "the port (parallel ops and the search's rewrites: "
-                    "ROADMAP.md queue 1 items 11 and 12)")
+            cls = _attrs_registry()[cls_name]
             return cls(**{k: _dec(x) for k, x in fields.items()})
     return v
 
 
-def _no_sharding(name: str, sharding):
-    if sharding is not None:
-        raise NotImplementedError(
-            f"node {name!r} carries a sharding ({sharding!r}); the port "
-            "runs one card and has no ShardingView yet (ROADMAP.md queue "
-            "1 items 11 and 12)")
-
-
 def graph_to_dict(graph: Graph) -> Dict:
+    from flexflow_tpu_torch.parallel.sharding import view_to_json
+
     nodes = []
     max_guid = 0
     for n in graph.nodes:
-        _no_sharding(n.name, n.sharding)
         max_guid = max(max_guid, n.guid)
         nodes.append({
             "guid": n.guid,
             "op": n.op_type.name,
             "attrs": _enc(n.attrs) if n.attrs is not None else None,
             "name": n.name,
-            "sharding": None,
+            "sharding": (view_to_json(n.sharding)
+                         if n.sharding is not None else None),
         })
     edges = [
         [e.src, e.dst, e.src_idx, e.dst_idx]
@@ -126,12 +115,15 @@ def graph_to_json(graph: Graph) -> str:
 
 
 def graph_from_dict(d: Dict) -> Graph:
+    from flexflow_tpu_torch.parallel.sharding import view_from_json
+
     g = Graph()
     for spec in d["nodes"]:
-        _no_sharding(spec["name"], spec["sharding"])
-        g.add_node(Node(spec["guid"], OpType[spec["op"]],
-                        _dec(spec["attrs"]) if spec["attrs"] is not None
-                        else None, spec["name"]))
+        n = Node(spec["guid"], OpType[spec["op"]],
+                 _dec(spec["attrs"]) if spec["attrs"] is not None else None,
+                 spec["name"])
+        n.sharding = view_from_json(spec["sharding"])
+        g.add_node(n)
     for src, dst, si, di in d["edges"]:
         g.add_edge(g.node(src), g.node(dst), si, di)
     g._guid_counter = itertools.count(d["next_guid"])

@@ -1,9 +1,9 @@
 """Tensor shape IR (counterpart of flexflow_tpu/pcg/tensor.py).
 
 Shapes are plain data: logical dims + dtype, and per-dim partition
-degrees with the names of the mesh axes that would shard them. The port
-runs on one device, so degrees stay 1; they are kept so the attrs' shape
-inference reads the same as the reference's. There is no PartitionSpec.
+degrees with the names of the mesh axes that shard them. The strategy
+search reasons about degrees on a modeled machine; on the port's one card
+every shard lives on that card. There is no PartitionSpec.
 """
 
 from __future__ import annotations
@@ -25,6 +25,9 @@ class TensorShape:
     @property
     def ndim(self) -> int:
         return len(self.dims)
+
+    def size_bytes(self) -> int:
+        return self.num_elements() * self.dtype.size_bytes
 
     def num_elements(self) -> int:
         return math.prod(self.dims) if self.dims else 1
@@ -48,6 +51,14 @@ class ParallelDim:
             raise ValueError(
                 f"size {self.size} not divisible by degree {self.degree}")
 
+    @property
+    def shard_size(self) -> int:
+        return self.size // self.degree
+
+    def with_degree(self, degree: int,
+                    axes: Tuple[str, ...] = ()) -> "ParallelDim":
+        return ParallelDim(self.size, degree, axes)
+
 
 @dataclasses.dataclass(frozen=True)
 class ParallelTensorShape:
@@ -70,6 +81,40 @@ class ParallelTensorShape:
     @property
     def ndim(self) -> int:
         return len(self.dims)
+
+    def degree(self, dim: int) -> int:
+        return self.dims[dim].degree
+
+    @property
+    def replica_degree(self) -> int:
+        return self.replica.degree
+
+    def total_degree(self) -> int:
+        """Number of shards (devices this tensor's computation spans)."""
+        return math.prod(d.degree for d in self.dims) * self.replica.degree
+
+    def shard_shape(self) -> Tuple[int, ...]:
+        return tuple(d.shard_size for d in self.dims)
+
+    def shard_bytes(self) -> int:
+        return math.prod(self.shard_shape()) * self.dtype.size_bytes
+
+    def global_bytes(self) -> int:
+        return self.to_shape().size_bytes()
+
+    def is_fully_replicated(self) -> bool:
+        return all(d.degree == 1 for d in self.dims)
+
+    def with_dim_degree(self, dim: int, degree: int,
+                        axes: Tuple[str, ...] = ()) -> "ParallelTensorShape":
+        dims = list(self.dims)
+        dims[dim] = dims[dim].with_degree(degree, axes)
+        return dataclasses.replace(self, dims=tuple(dims))
+
+    def with_replica(self, degree: int,
+                     axes: Tuple[str, ...] = ()) -> "ParallelTensorShape":
+        return dataclasses.replace(self,
+                                   replica=ParallelDim(degree, degree, axes))
 
     def __str__(self) -> str:
         parts = []

@@ -275,7 +275,7 @@ def test_pcg_json_is_the_reference_format():
     """The same builder calls give the same pcg.json in both packages (a
     tiny Llama: attention, RMSNorm, SwiGLU, enums, shapes); each package
     reads the other's, keeping guids, edges and the structure hash; a
-    node with a sharding raises in the port, naming items 11 and 12."""
+    node's sharding (a search's ShardingView) crosses in both directions."""
     from flexflow_tpu.models.llama import LlamaConfig as JLlamaConfig
     from flexflow_tpu.models.llama import build_llama as jbuild_llama
     from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
@@ -297,5 +297,8 @@ def test_pcg_json_is_the_reference_format():
     d = json.loads(payload)
     d["nodes"][0]["sharding"] = {"outputs": [[["data"], []]],
                                  "weights": {}}
-    with pytest.raises(NotImplementedError, match="items 11 and 12"):
-        graph_from_json(json.dumps(d))
+    sharded = graph_from_json(json.dumps(d))
+    jsharded = jser.graph_from_json(json.dumps(d))
+    assert sharded.structure_hash() != ff.graph.structure_hash()
+    assert json.loads(graph_to_json(sharded)) == json.loads(
+        jser.graph_to_json(jsharded)) == d

@@ -1910,3 +1910,56 @@ def test_ragged_kernel_launches_from_two_threads():
         err = (got.float() - want.float()).abs()
         assert float(err.max()) <= TOLS[torch.bfloat16] * max(
             1.0, float(want.float().abs().max()))
+
+
+def _bench_1b_attention():
+    """bench_1b's graph (batch 8, seq 1024, bf16) and one attention node,
+    shapes only: nothing is drawn."""
+    from flexflow_tpu_torch import FFConfig, FFModel, OpType
+    from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
+
+    ff = FFModel(FFConfig(batch_size=8, device="cuda"))
+    build_llama(ff, LlamaConfig.bench_1b(), batch_size=8, seq_len=1024)
+    ff.graph.infer_shapes()
+    return ff.graph, next(n for n in ff.graph.nodes
+                          if n.op_type == OpType.MULTIHEAD_ATTENTION)
+
+
+def test_measured_cost_model_times_attention_through_k1():
+    """The search's measured path times bench_1b's attention shard (B 8,
+    S 1024, H 16, Hkv 8, D 128, bf16) through the port's lowering on the
+    card: K1's forward launches at every warm-up and timed repeat, and
+    the time is positive."""
+    _needs_card()
+    from flexflow_tpu_torch.kernels import FLASH_ATTENTION_FWD
+    from flexflow_tpu_torch.search.machine_model import H100MachineModel
+    from flexflow_tpu_torch.search.measured import MeasuredCostModel
+
+    g, attn = _bench_1b_attention()
+    cost = MeasuredCostModel(H100MachineModel.make("h100", 1), {"data": 1},
+                             device="cuda")
+    before = FLASH_ATTENTION_FWD.launches
+    t = cost.measure_node(g, attn, None, training=False)
+    assert FLASH_ATTENTION_FWD.launches - before == cost.warmup + cost.repeats
+    assert t is not None and t > 0
+
+
+def test_kernel_build_failure_raises_through_measured_cost_model(
+        monkeypatch, tmp_path):
+    """A K1 source nvcc refuses fails the measurement with nvcc's error:
+    the op is not silently left unmeasured (the reference's broad except
+    returned None)."""
+    _needs_card()
+    from flexflow_tpu_torch.kernels import FLASH_ATTENTION_FWD
+    from flexflow_tpu_torch.search.machine_model import H100MachineModel
+    from flexflow_tpu_torch.search.measured import MeasuredCostModel
+
+    bad = tmp_path / "flash_attention_fwd.cu"
+    bad.write_text("this is not CUDA\n")
+    monkeypatch.setattr(FLASH_ATTENTION_FWD, "source", bad)
+    monkeypatch.setattr(FLASH_ATTENTION_FWD, "_fn", None)
+    g, attn = _bench_1b_attention()
+    cost = MeasuredCostModel(H100MachineModel.make("h100", 1), {"data": 1},
+                             device="cuda")
+    with pytest.raises(RuntimeError):
+        cost.measure_node(g, attn, None, training=False)

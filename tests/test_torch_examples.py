@@ -1,9 +1,9 @@
 """Every example script of the port (flexflow_tpu_torch/examples/, one per
 examples/python/*.py) and the CLI driver, run in this process on
 `--device cpu` at small batches: each trains an epoch and reports its
-samples; the driver parses the reference's flags, hands them to the
-script and refuses what the port does not run (a search budget: queue 1
-item 11; a mesh over several cards: item 12)."""
+samples; the driver parses the reference's flags (the search's among
+them), hands them to the script and refuses what the port does not run
+(a mesh over several cards: queue 1 item 12)."""
 
 import importlib
 import pathlib
@@ -83,7 +83,7 @@ def test_cli_driver_runs_a_script(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (("--budget", "8"), 11),
+    (("--mesh", "seq=2,model=2"), 12),
     (("--mesh", "data=2,model=4"), 12),
     (("--devices", "8"), 12),
 ])

@@ -83,6 +83,15 @@ _FRONTEND_RUNTIME_MODULES = (
     "dlrm_train", "hf_finetune", "inception_v3", "llama_train",
     "mixtral_moe", "mnist_mlp", "nmt_seq2seq", "resnet_torch_import",
     "transformer"))
+# the strategy search and what it reads: sharding views, parallel ops,
+# graph algorithms, the consistency checks
+_SEARCH_MODULES = ("flexflow_tpu_torch.parallel.sharding",
+                   "flexflow_tpu_torch.parallel.parallel_ops",
+                   "flexflow_tpu_torch.pcg.algorithms",
+                   "flexflow_tpu_torch.analysis.consistency") + tuple(
+    f"flexflow_tpu_torch.search.{n}" for n in (
+        "api", "cost_model", "dp", "eventsim", "machine_model", "mcmc",
+        "measured", "space", "substitution", "table", "xfer_engine"))
 # the speculative-decoding package
 _SPEC_MODULES = ("flexflow_tpu_torch.spec",
                  "flexflow_tpu_torch.spec.config",
@@ -95,7 +104,7 @@ _SPEC_MODULES = ("flexflow_tpu_torch.spec",
 def test_port_and_chip_smoke_import_without_jax_or_reference():
     """Every port module and chip_smoke import with jax, flexflow_tpu and
     transformers refused by a meta-path hook, in a fresh interpreter
-    (frontends.hf among them)."""
+    (frontends.hf and the strategy search among them)."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", _GUARDED_IMPORT], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
@@ -107,6 +116,7 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
     assert set(_SPEC_MODULES) <= set(names.split())
     assert set(_SERVE_OBS_MODULES) <= set(names.split())
     assert set(_FRONTEND_RUNTIME_MODULES) <= set(names.split())
+    assert set(_SEARCH_MODULES) <= set(names.split())
 
 
 def test_no_reference_import_statements_in_port_sources():
