@@ -15,10 +15,12 @@ prefix-affinity router, with the kv_quant_canary shadow cache and under
 the span tracer, GPT-2 imported from the HuggingFace layout, trained from
 file loaders with periodic checkpoints and resumed, a Llama-3-8B-width
 HF import, and every example script, the strategy search with measured
-costs and the timed playoff on bench_1b and its ring candidates, and
-holds every hand-written kernel on them to its plain PyTorch version.
+costs and the timed playoff on bench_1b and its ring candidates, the
+serving-strategy search with its calibration loop and the autopilot's
+drain-and-swap, and holds every hand-written kernel on them to its plain
+PyTorch version.
 
-    python3 chip_smoke.py            # phases 1..4, 6..22, one card
+    python3 chip_smoke.py            # phases 1..4, 6..23, one card
     python3 chip_smoke.py --phases 5 # + profiles of serving and training
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
@@ -48,8 +50,10 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      steady decode case and at tree_w9 (SPLIT_SWEEP, fp and int8
      pools), over int8 pools (Llama's cases) written by the port's own
      quantize-on-append, over a bf16 pool under fp32 q and over an fp32
-     pool under bf16 q (the canary's shadow launch, phase 20c); and the
-     flash-attention forward, dq and dk/dv kernels at the training
+     pool under bf16 q (the canary's shadow launch, phase 20c), and at
+     the page sizes the serving search offers besides 64 (8, 16, 32,
+     128: the steady decode, mixed_w8 and tree_w9 cases, bf16 q over
+     bf16 and int8 pools, PAGE_SIZES); and the flash-attention forward, dq and dk/dv kernels at the training
      path's shape (bench_1b attention: B 8, S = T 1024, H 16, Hkv 8,
      D 128, causal) and at phase 17a's (Mixtral-8x7B attention: B 2,
      S = T 2048, H 32, Hkv 8, D 128, causal), then at a ragged S = T =
@@ -409,7 +413,37 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      comparable); the winner fits 4 steps (its loss falls) and the ring
      candidate's initial loss holds to the unrewritten graph's (the
      kernels line records K1/K2's launches of (a) under "search_1b" and
-     K5's and K4's backward's of (b) under "search_ring").
+     K5's and K4's backward's of (b) under "search_ring");
+ 23. the serving-strategy search: (a) Llama-3-8B's widths at 4 of its 32
+     layers (P23_LAYERS), bf16, random weights from the seed, through
+     serve_generation(paged=True, search_budget=64, traffic=the
+     shared-system-prompt profile at page 64: a 128-token system prompt,
+     16 requests of 64 new tokens, 8 offered at once), 8 slots, max_len
+     256, priced on the H100 machine model: the search's seconds, the
+     winner's knobs and its predicted TTFT p95 and seconds a token; the
+     profile's sample through the winner and through ServeStrategy():
+     measured TTFT p95, tokens/s and K3's fp and int8 launches beside
+     the predictions (the winner's K3 body once a layer and ragged step);
+     (b) fftrace's traced serve (plain, speculative, and decode and
+     mixed megasteps of 2, 4, 8 and 16 ticks) of 8 of those
+     requests on the card, `fftrace calibrate` (scales by tick shape,
+     stamped with the card), the search again with the report (the
+     winner and its predictions before and after), and `servesearch
+     simulate`'s simulator on (a)'s winner request log, uncalibrated and
+     calibrated, beside (a)'s measured TTFT p95, and the calibrated
+     search's winner served as (a) serves; (c) fp32 with TF32 off,
+     2 layers: ServingAutopilot.swap_to from page 16 / chunk 32 to chunk
+     16 under continuous submits: nothing dropped, every stream equal to
+     the one-tick loop's, at least one request carried, the pool
+     adopted, the cutover ms; then the same swap in four fresh
+     processes (`--swap-probe`: cold, warm, warm, cold), the
+     successor's first tick and the stall after cutover with the warm-up
+     off and on; after each part, K3 held to its plain
+     version on the very inputs of that part's calls (the first, 8th,
+     64th, ... call of each launch geometry: page size, pool dtype,
+     window, batch), each geometry timed (the kernels line records K3's
+     launches of (a) and of (b)'s calibrated winner under "servesearch",
+     with those geometries' checks and times).
 Each phase, and each part of phases 2 and 3, logs its wall seconds on a
 `phase_time` line. The line before the last is the kernel list as JSON;
 the last line is {"ok": true, "device": {...}}. Exits non-zero without
@@ -511,6 +545,7 @@ from flexflow_tpu_torch.parallel.mesh import make_mesh
 from flexflow_tpu_torch.runtime.executor import merge_state
 from flexflow_tpu_torch.parallel.ring import ring_dot_product_attention
 from flexflow_tpu_torch.obs import SLOTarget, load_jsonl
+from flexflow_tpu_torch.obs.slo import percentile
 from flexflow_tpu_torch.search import api as search_api
 from flexflow_tpu_torch.search.substitution import structural_class
 from flexflow_tpu_torch.serving import _GenRequest, http_serve, pick_tokens
@@ -972,14 +1007,17 @@ def spec_trees() -> list:
 
 
 def attention_case(window: int, kinds, dtype, seed: int, fixed_pos=None,
-                   heads=(H, HKV, D)):
+                   heads=(H, HKV, D), page: int = P):
     """Inputs of one ragged attention call at the serving path's shapes
     (`heads` = (H, Hkv, D), Llama-3-8B's by default): one entry per kind
     ("decode" q_len 1, "chunk:N" q_len N, "tree:i" spec_trees()[i] as the
     speculative server launches it: q_len its live nodes under its
     ancestor mask, "pad"), positions `fixed_pos` or random up to ~2000,
-    distinct random pages per entry."""
+    distinct random pages per entry. Pages of `page` rows, a table as
+    many rows long as MAXP pages of P rows."""
     nh, nkv, hd = heads
+    maxp = MAXP * P // page
+    num_pages = (NUM_PAGES - 1) * P // page + 1
     rs = np.random.RandomState(seed)
     B = len(kinds)
     pos = np.zeros(B, np.int32)
@@ -991,21 +1029,21 @@ def attention_case(window: int, kinds, dtype, seed: int, fixed_pos=None,
         if kind.startswith("tree:"):
             tree = spec_trees()[int(kind[5:])]
             qls[b] = tree.n_nodes
-            pos[b] = rs.randint(1, MAXP * P - window)
+            pos[b] = rs.randint(1, maxp * page - window)
             anc[b] = ancestor_masks(tree.parents[None])[0]
             continue
         n = 1 if kind == "decode" else int(kind.split(":")[1])
         qls[b] = n
         pos[b] = (fixed_pos if fixed_pos is not None
-                  else rs.randint(1, MAXP * P - max(48, window)))
+                  else rs.randint(1, maxp * page - max(48, window)))
         anc[b, :n, :n] = np.tril(np.ones((n, n), bool))
-    pt = (rs.permutation(NUM_PAGES - 1)[:B * MAXP] + 1).reshape(B, MAXP)
+    pt = (rs.permutation(num_pages - 1)[:B * maxp] + 1).reshape(B, maxp)
     dev = DEVICE
     q = torch.from_numpy(rs.standard_normal((B, window, nh, hd))
                          .astype(np.float32)).to(dev, dtype)
-    kc = torch.from_numpy(rs.standard_normal((NUM_PAGES, P, nkv, hd))
+    kc = torch.from_numpy(rs.standard_normal((num_pages, page, nkv, hd))
                           .astype(np.float32)).to(dev, dtype)
-    vc = torch.from_numpy(rs.standard_normal((NUM_PAGES, P, nkv, hd))
+    vc = torch.from_numpy(rs.standard_normal((num_pages, page, nkv, hd))
                           .astype(np.float32)).to(dev, dtype)
     return (q, kc, vc, torch.from_numpy(pt.astype(np.int32)).to(dev),
             torch.from_numpy(pos).to(dev), torch.from_numpy(qls).to(dev),
@@ -1023,7 +1061,7 @@ def attention_bound(args, quantized: bool = False) -> tuple:
     pool (q is upcast and the pages dequantized to fp32)."""
     q, kc, vc, pt, pos, qls, anc = args
     B, S, nh, hd = q.shape
-    nkv = kc.shape[2]
+    page, nkv = kc.shape[1], kc.shape[2]
     isz, kv_isz = q.element_size(), kc.element_size()
     horizon = (pos.long() + qls.long()) * (qls > 0).long()
     kv_rows = int(horizon.sum())
@@ -1031,8 +1069,8 @@ def attention_bound(args, quantized: bool = False) -> tuple:
               + pt.numel() * 4 + pos.numel() * 4 + qls.numel() * 4
               + anc.numel())
     if quantized:
-        nbytes += 2 * int(((horizon + P - 1) // P).sum()) * nkv * 4
-    vis = ragged_visibility_mask(pt, pos, qls, anc, P)
+        nbytes += 2 * int(((horizon + page - 1) // page).sum()) * nkv * 4
+    vis = ragged_visibility_mask(pt, pos, qls, anc, page)
     live = torch.arange(S, device=q.device)[None, :] < qls[:, None]
     visible = int((vis.sum(-1) * live).sum())
     ops = 4 * hd * nh * visible
@@ -1052,7 +1090,7 @@ def library_call(args, scale):
     kg = kc[pt.long()].reshape(B, -1, nkv, hd).transpose(1, 2).contiguous()
     vg = vc[pt.long()].reshape(B, -1, nkv, hd).transpose(1, 2).contiguous()
     qh = q.transpose(1, 2).contiguous()
-    mask = ragged_visibility_mask(pt, pos, qls, anc, P)[:, None]
+    mask = ragged_visibility_mask(pt, pos, qls, anc, kc.shape[1])[:, None]
     try:
         F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask,
                                        scale=scale, enable_gqa=True)
@@ -1250,16 +1288,59 @@ def phase_wide_windows(card: str) -> list:
     return out
 
 
+# K3 at the page sizes the serving-strategy search offers
+# (search.servesearch.default_space) besides phase 2's P: at 8, 16 and 32
+# rows several pages share one 64-row key sub-tile, at 128 one page spans
+# two (and an int8 page's one scale covers both); each at the steady
+# decode launch, the mixed megastep's window and the tree verify's
+PAGE_SIZES = (8, 16, 32, 128)
+PAGE_SIZE_CASES = ("decode_b4_pos1024", "mixed_w8", "tree_w9")
+
+
+def phase_page_sizes(card: str) -> list:
+    """Every PAGE_SIZE_CASES case at every PAGE_SIZES page, bf16 q, over a
+    bf16 pool and over its int8 pages, held to the plain version and
+    timed (_kernel_check) with the split plan it ran under."""
+    scale = 1.0 / D ** 0.5
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for page in PAGE_SIZES:
+        for i, (name, window, kinds, fixed) in enumerate(ATTENTION_CASES):
+            if name not in PAGE_SIZE_CASES:
+                continue
+            q, kc, vc, pt, pos, qls, anc = attention_case(
+                window, kinds, torch.float32, seed=i, fixed_pos=fixed,
+                page=page)
+            extra = {"page_size": page, "window": window, "kinds": kinds,
+                     "split_plan": list(ragged_split_plan(
+                         len(kinds), window, H, HKV, page, pt.shape[1], sm))}
+            args = (q.bfloat16(), kc.bfloat16(), vc.bfloat16(), pt, pos,
+                    qls, anc)
+            out.append(_kernel_check(
+                f"{name}_page{page}", torch.bfloat16,
+                TOLS[torch.bfloat16][0], args, {}, scale, card,
+                dict(extra, library_ms=time_ms(library_call(args, scale)))))
+            kq, ks, vq, vs = int8_pools(kc, vc)
+            out.append(_kernel_check(
+                f"{name}_page{page}", torch.bfloat16,
+                INT8_TOLS[torch.bfloat16], (args[0], kq, vq, *args[3:]),
+                {"k_scales": ks, "v_scales": vs}, scale, card,
+                dict(extra, library_ms=None)))
+            del q, kc, vc, args, kq, vq
+    torch.cuda.empty_cache()
+    return out
+
+
 def int8_pools(kc, vc):
     """(k pages, k scales, v pages, v scales): the int8 pool the port's own
     quantize-on-append writes for the seeded fp rows, one page a call."""
-    N = kc.shape[0]
+    N, rows = kc.shape[:2]
     out = []
     for x in (kc, vc):
         pool = torch.zeros(x.shape, dtype=torch.int8, device=x.device)
         scales = torch.zeros((N, HKV), device=x.device)
-        off = torch.arange(P, device=x.device)[None]
-        live = torch.ones((1, P), dtype=torch.bool, device=x.device)
+        off = torch.arange(rows, device=x.device)[None]
+        live = torch.ones((1, rows), dtype=torch.bool, device=x.device)
         for page in range(N):
             quantized_append(pool, scales, x[page][None],
                              torch.full_like(off, page), off, live)
@@ -1267,10 +1348,11 @@ def int8_pools(kc, vc):
     return out
 
 
-def _kernel_check(name, dtype, tol, args, sc, scale, card, extra):
+def _kernel_check(name, dtype, tol, args, sc, scale, card, extra,
+                  time_it: bool = True):
     """Launch the wrapper once, hold it to the plain version (max |err|
     <= tol * max(1, max |plain|), rows past q_len exact zeros), and time
-    kernel, plain version and bound."""
+    kernel and plain version (unless not `time_it`) beside the bound."""
     got = ragged_flash_attention(*args, scale=scale, **sc)
     want = ragged_gather_attention(*args, scale=scale, **sc)
     torch.cuda.synchronize()
@@ -1284,13 +1366,14 @@ def _kernel_check(name, dtype, tol, args, sc, scale, card, extra):
         "pool": str(args[1].dtype).replace("torch.", ""),
         "pos": args[4].tolist(), "q_lens": args[5].tolist(),
         "max_abs_err": err, "tol": tol, "limit": limit,
-        "ms": time_ms(lambda: ragged_flash_attention(*args, scale=scale,
-                                                     **sc)),
-        "plain_ms": time_ms(lambda: ragged_gather_attention(
-            *args, scale=scale, **sc)),
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
         "ops": ops, "card": card, **extra,
     }
+    if time_it:
+        res["ms"] = time_ms(lambda: ragged_flash_attention(
+            *args, scale=scale, **sc))
+        res["plain_ms"] = time_ms(lambda: ragged_gather_attention(
+            *args, scale=scale, **sc))
     log(f"kernel {json.dumps(res)}")
     if err > limit or not zero_tail:
         raise AssertionError(f"{name} {dtype} {res['pool']} pool: max |err| "
@@ -7332,6 +7415,557 @@ def phase_search(seed: int, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the serving-strategy search, its calibration loop and the
+# autopilot's drain-and-swap
+
+# Llama-3-8B's widths at this depth, bf16: the search's priced graph and
+# the servers of 23a and 23b
+P23_LAYERS = 4
+P23_SLOTS, P23_MAX_LEN, P23_BUDGET = 8, 256, 64
+# the shared-system-prompt profile at the server's page (64: a 128-token
+# system prompt) and 16 requests of 64 new tokens, 8 offered at once
+P23_PROFILE = dict(page_size=64, requests=16, new_tokens=64,
+                   offered_concurrency=8)
+# 23b's traced serve (fftrace smoke's runs: plain paged, speculative,
+# then a decode and a mixed megastep of each of the search's megastep
+# widths past 1) on the first requests of the same sample
+P23_TRACE_REQUESTS, P23_TRACE_NEW = 8, 32
+P23_TRACE_MEGASTEP = (2, 4, 8, 16)
+# 23c: fp32 (TF32 off) at this depth, for token identity, as phases 15
+# and 16 compare servers; the prompts cycle through this pool
+P23_SWAP_LAYERS, P23_SWAP_SLOTS, P23_SWAP_MAX_LEN = 2, 4, 128
+P23_SWAP_PROMPTS, P23_SWAP_NEW = (24, 40, 56, 72), 16
+
+
+# phase 23 holds K3 to its plain version at the calls its servers made:
+# of each launch geometry the inputs of these calls (1-based) are kept
+K3_KEEP_CALLS = (1, 8, 64, 512, 4096)
+
+
+class _K3Capture:
+    """Installed as paged.attention.ragged_flash_attention (the name the
+    paged attention step calls): counts the calls by launch geometry (q
+    dtype, pool dtype, page size, window, batch, table pages) and keeps
+    clones of the inputs of each geometry's K3_KEEP_CALLS-th calls, taken
+    in stream order right after the call, so that the kernel can be held
+    to its plain version at what the servers gave it."""
+
+    def __init__(self):
+        import flexflow_tpu_torch.paged.attention as pa
+
+        self.module, self.fn = pa, pa.ragged_flash_attention
+        self.counts, self.kept = {}, {}
+        self.lock = threading.Lock()
+
+    def __enter__(self):
+        def capture(q, kc, vc, pt, pos, qls, anc, *, scale, k_scales=None,
+                    v_scales=None):
+            out = self.fn(q, kc, vc, pt, pos, qls, anc, scale=scale,
+                          k_scales=k_scales, v_scales=v_scales)
+            key = (str(q.dtype).replace("torch.", ""),
+                   str(kc.dtype).replace("torch.", ""), int(kc.shape[1]),
+                   int(q.shape[1]), int(q.shape[0]), int(pt.shape[1]))
+            with self.lock:
+                n = self.counts[key] = self.counts.get(key, 0) + 1
+            if n in K3_KEEP_CALLS:
+                sc = ({} if k_scales is None else
+                      {"k_scales": k_scales.clone(),
+                       "v_scales": v_scales.clone()})
+                kept = tuple(t.clone() for t in (q, kc, vc, pt, pos, qls,
+                                                 anc))
+                with self.lock:
+                    self.kept.setdefault(key, []).append(
+                        (n, kept, sc, scale))
+            return out
+
+        self.module.ragged_flash_attention = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.module.ragged_flash_attention = self.fn
+
+
+def k3_served_checks(cap: _K3Capture, card: str, label: str) -> list:
+    """Every call `cap` kept, through the K3 wrapper and its plain version
+    on the same inputs (_kernel_check: max |err| within TOLS's tol, or
+    INT8_TOLS's for an int8 pool, x max(1, max |plain|); rows past q_len
+    exact zeros; an AssertionError on any difference); each geometry's
+    last kept call timed beside its bound and, over an fp pool, SDPA.
+    Returns one record a geometry (its last kept call) with its calls."""
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    with torch.inference_mode():
+        for key in sorted(cap.kept):
+            qd, pool, page, window, batch, maxp = key
+            kept = sorted(cap.kept[key], key=lambda k: k[0])
+            for i, (n, args, sc, scale) in enumerate(kept):
+                last = i == len(kept) - 1
+                extra = {"served": label, "page_size": page,
+                         "window": window, "batch": batch,
+                         "table_pages": maxp, "call": n,
+                         "calls": cap.counts[key],
+                         "split_plan": list(ragged_split_plan(
+                             batch, window, args[0].shape[2],
+                             args[1].shape[2], page, maxp, sm))}
+                if last:
+                    extra["library_ms"] = (None if sc else time_ms(
+                        library_call(args, scale)))
+                tol = (INT8_TOLS[args[0].dtype] if sc
+                       else TOLS[args[0].dtype][0])
+                res = _kernel_check(f"{label}_{pool}_page{page}_w{window}"
+                                    f"_b{batch}_t{maxp}",
+                                    args[0].dtype, tol, args, sc, scale,
+                                    card, extra, time_it=last)
+                if last:
+                    out.append(res)
+    cap.kept.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p23_profile(vocab: int, seed: int):
+    """23a's traffic: the shared-system-prompt profile sized to the
+    server (P23_PROFILE) and one seeded sample of it."""
+    from flexflow_tpu_torch.search.traffic import get_profile
+
+    prof = get_profile("shared-system-prompt", **P23_PROFILE)
+    return prof, prof.sample(np.random.RandomState(seed), vocab)
+
+
+def serve_strategy_run(ff, strategy, prompts, new: int) -> dict:
+    """`prompts` through serve_generation(serve_strategy=strategy), every
+    request queued before the loop starts (the burst the pricer's
+    offered concurrency fills); kernel counts reset just before start,
+    read after the last result. TTFT p95 from the request log, decoded
+    tokens over the wall, K3's fp and int8 launches."""
+    server = ff.serve_generation(slots=P23_SLOTS, max_len=P23_MAX_LEN,
+                                 serve_strategy=strategy, defer_start=True)
+    try:
+        futs = [server.submit(p, max_new_tokens=new) for p in prompts]
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.monotonic()
+        server.start()
+        outs = [np.asarray(f.result(timeout=900)) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k.name: k.launches for k in KERNELS}
+    finally:
+        server.stop()
+    records = server.request_log.records()
+    server.pool.check_invariants(owners={})
+    m = server.metrics()
+    return {"server": server, "outs": outs, "records": records,
+            "res": {"fingerprint": server.strategy_fingerprint,
+                    "preemptions": m["preemptions"],
+                    "prefix_hit_tokens": m["prefix_cache"]["hit_tokens"],
+                    "host_tier": m["host_tier"],
+                    "decode_steps": m["decode_steps"],
+                    "megastep": {k: m["megastep"][k] for k in (
+                        "dispatches", "ticks_run", "host_roundtrips",
+                        "host_roundtrips_per_token", "breaks")},
+                    "wall_s": wall,
+                    # nearest rank, as the simulator's and the SLO's
+                    "ttft_p95_s": percentile([(r["first_token_ns"]
+                                               - r["submit_ns"]) / 1e9
+                                              for r in records], 0.95),
+                    "tokens_per_s": sum(len(o) for o in outs) / wall,
+                    "launches": {k: launches[k] for k in (
+                        RAGGED_PAGED_ATTENTION.name,
+                        RAGGED_PAGED_ATTENTION_INT8.name)},
+                    "ragged_steps": m["ragged_steps"]}}
+
+
+def _predicted(m: dict) -> dict:
+    return {"ttft_p95_s": m["ttft_p95_s"],
+            "s_per_token": 1.0 / max(m["tokens_per_s"], 1e-12),
+            "tokens_per_s": m["tokens_per_s"]}
+
+
+def phase_search_serve(seed: int, problems: list, ff, work: str) -> dict:
+    """23a: serve_generation(paged=True, search_budget=P23_BUDGET,
+    traffic=the shared-system-prompt profile) on the H100 machine model:
+    the search's seconds, winner and predicted TTFT p95 and seconds a
+    token; then the profile's sample served through the winner and
+    through ServeStrategy() (each warmed first on two requests): measured
+    TTFT p95, tokens/s and K3's launches (fp, int8) beside the
+    predictions. The winner's K3 body must launch once a layer and
+    ragged step, every output must be in the vocabulary, and the
+    strategy serve_generation searched must be the one search_serve_
+    strategy returns for the same call. The share of tokens the two
+    serves agree on is reported, not checked: their pools differ in
+    dtype and page size, so int8 rounding and bf16 sums in another order
+    may pick other tokens; each K3 call is held to its plain version on
+    its own inputs after the part (k3_served_checks), and 23c holds
+    whole streams in fp32."""
+    from flexflow_tpu_torch.search.servesearch import search_serve_strategy
+
+    cfg = llama3_8b_cut(P23_LAYERS)
+    prof, sample = p23_profile(cfg.vocab_size, seed)
+    t0 = time.monotonic()
+    found = search_serve_strategy(ff, traffic=prof, budget=P23_BUDGET,
+                                  slots=P23_SLOTS, max_len=P23_MAX_LEN)
+    search_s = time.monotonic() - t0
+    gen = ff.serve_generation(paged=True, search_budget=P23_BUDGET,
+                              traffic=prof, slots=P23_SLOTS,
+                              max_len=P23_MAX_LEN, defer_start=True)
+    gen.stop()
+    if gen.serve_strategy != found.best:
+        problems.append(f"23a: serve_generation served "
+                        f"{gen.serve_strategy}, the search found "
+                        f"{found.best}")
+    res = {"model": "llama3_8b", "layers": cfg.layers, "dtype": "bfloat16",
+           "slots": P23_SLOTS, "max_len": P23_MAX_LEN,
+           "profile": {"name": prof.name, **P23_PROFILE,
+                       "stats": found.stats},
+           "search": {"seconds": search_s, "budget": P23_BUDGET,
+                      "trials": found.trials,
+                      "machine": "H100MachineModel (datasheet defaults)",
+                      "layouts": found.layouts,
+                      "winner": found.best.to_json(),
+                      "winner_describe": found.best.describe(),
+                      "improvement": found.improvement}}
+    runs = {}
+    for key, strategy, predicted in (
+            ("winner", found.best, found.best_metrics),
+            ("default", found.default, found.default_metrics)):
+        serve_strategy_run(ff, strategy, sample.prompts[:2], 4)  # warm
+        run = serve_strategy_run(ff, strategy, sample.prompts,
+                                 prof.new_tokens)
+        runs[key] = run
+        res[key] = dict(run["res"], predicted=_predicted(predicted),
+                        describe=strategy.describe())
+        for o in run["outs"]:
+            if len(o) != prof.new_tokens or not (
+                    (0 <= o) & (o < cfg.vocab_size)).all():
+                problems.append(f"23a {key}: bad output {o}")
+    body = (RAGGED_PAGED_ATTENTION_INT8 if found.best.kv_dtype == "int8"
+            else RAGGED_PAGED_ATTENTION)
+    _k3_ok("23a winner", {"launches": runs["winner"]["res"]["launches"],
+                          "ragged_steps": runs["winner"]["res"][
+                              "ragged_steps"]}, cfg.layers, problems, body)
+    res["same_tokens_share"] = _same_share(runs["winner"]["outs"],
+                                           runs["default"]["outs"])
+    reqlog_path = os.path.join(work, "winner_reqlog.jsonl")
+    runs["winner"]["server"].request_log.export_jsonl(reqlog_path)
+    log(f"servesearch {json.dumps(res)}")
+    return {"res": res, "found": found, "profile": prof, "sample": sample,
+            "reqlog": reqlog_path,
+            "measured_ttft_p95_s": runs["winner"]["res"]["ttft_p95_s"]}
+
+
+def phase_calibration_loop(seed: int, problems: list, ff, a: dict,
+                           work: str) -> dict:
+    """23b: fftrace's traced serve (the smoke's plain and speculative
+    runs, and decode and mixed megasteps of P23_TRACE_MEGASTEP ticks) of
+    the first P23_TRACE_REQUESTS requests on the card, stamped
+    with the card; `fftrace calibrate` of its ledger: measured/predicted
+    scales by tick shape; the search again with that report: how the
+    winner and its predictions move, and the new winner served as 23a
+    serves (measured TTFT p95, tokens/s, K3); then `servesearch simulate`'s
+    simulator on 23a's winner request log, uncalibrated and calibrated,
+    beside the TTFT p95 23a measured. The report must carry this card's
+    name, a decode, a prefill and a verify shape and a fused decode
+    shape (width past 1), and the second search must have used it."""
+    from flexflow_tpu_torch.search.servesearch import search_serve_strategy
+    from flexflow_tpu_torch.tools import fftrace
+    from flexflow_tpu_torch.tools import servesearch as servesearch_cli
+
+    out = os.path.join(work, "fftrace")
+    summary = fftrace.traced_serve(
+        ff, a["sample"].prompts[:P23_TRACE_REQUESTS], out,
+        max_new=P23_TRACE_NEW, speculate=SpecConfig(width=2, depth=3),
+        megastep=P23_TRACE_MEGASTEP, server_kwargs=dict(slots=P23_SLOTS, max_len=P23_MAX_LEN,
+                           page_size=64), fixture="chip_smoke 23b")
+    cal_path = os.path.join(work, "calibration.json")
+    rc = fftrace.main(["calibrate", summary["ledger"], "--out", cal_path])
+    with open(cal_path) as f:
+        report = json.load(f)
+    prof = a["profile"]
+    again = search_serve_strategy(ff, traffic=prof, budget=P23_BUDGET,
+                                  slots=P23_SLOTS, max_len=P23_MAX_LEN,
+                                  calibration=cal_path)
+    winner = a["found"].best
+    serve_strategy_run(ff, again.best, a["sample"].prompts[:2], 4)  # warm
+    served = serve_strategy_run(ff, again.best, a["sample"].prompts,
+                                prof.new_tokens)
+    sims = {}
+    for key, calib in (("uncalibrated", None), ("calibrated", cal_path)):
+        sim, closed = servesearch_cli.simulate(
+            ff, a["reqlog"], winner, slots=P23_SLOTS, max_len=P23_MAX_LEN,
+            seed=seed, calibration=calib)
+        sims[key] = {"sim_ttft_p95_s": sim.metrics["ttft_p95_s"],
+                     "sim_tokens_per_s": sim.metrics["tokens_per_s"],
+                     "closed_form_ttft_p95_s": closed["ttft_p95_s"],
+                     "ticks": sim.ticks}
+    res = {"card": report["meta"].get("card"),
+           "trace": {k: summary[k] for k in ("reqlog_records", "events",
+                                             "shapes")},
+           "base": report["base"],
+           "tick_scales": report["tick_scales"],
+           "phases": report["phases"],
+           "search_before": {"winner": winner.describe(),
+                             "predicted": _predicted(
+                                 a["found"].best_metrics)},
+           "search_after": {"winner": again.best.describe(),
+                            "predicted": _predicted(again.best_metrics),
+                            "calibration": again.calibration,
+                            "measured": served["res"]},
+           "winner_moved": again.best != winner,
+           "simulate": sims,
+           "measured_ttft_p95_s": a["measured_ttft_p95_s"]}
+    log(f"calibration {json.dumps(res)}")
+    phases = {parse.split("|")[0] for parse in report["tick_scales"]}
+    body = (RAGGED_PAGED_ATTENTION_INT8 if again.best.kv_dtype == "int8"
+            else RAGGED_PAGED_ATTENTION)
+    _k3_ok("23b calibrated winner", served["res"],
+           llama3_8b_cut(P23_LAYERS).layers, problems, body)
+    checks = {"calibrate_rc": rc == 0,
+              "card": res["card"] == torch.cuda.get_device_name(0),
+              "shapes": {"decode", "prefill", "verify"} <= phases,
+              "fused_shapes": any(k.startswith("decode|")
+                                  and not k.endswith("|w1")
+                                  for k in report["tick_scales"]),
+              "used": bool((again.calibration or {}).get("used"))}
+    if not all(checks.values()):
+        problems.append(f"23b: {checks}")
+    res["checks"] = checks
+    res["launches"] = served["res"]["launches"]
+    return res
+
+
+def swap_fixture(seed: int):
+    """23c's model (Llama-3-8B's widths at P23_SWAP_LAYERS layers, fp32,
+    seeded), its prompt pool, and the strategies swapped from and to."""
+    from flexflow_tpu_torch.search.servesearch import ServeStrategy
+
+    cfg = llama3_8b_cut(P23_SWAP_LAYERS)
+    ff = FFModel(FFConfig(batch_size=1, seed=seed, device=DEVICE))
+    build_llama(ff, cfg, batch_size=1, seq_len=P23_SWAP_MAX_LEN,
+                dtype=DataType.FLOAT)
+    ff.compile()
+    rs = np.random.RandomState(seed + 23)
+    pool = [rs.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+            for n in P23_SWAP_PROMPTS]
+    first = ServeStrategy(page_size=16, prefill_chunk=32)
+    return ff, cfg, pool, first, dataclasses.replace(first, prefill_chunk=16)
+
+
+# 23c's probe of the swap's warm-up: one fresh process a mode, in this
+# order, so that no swap inherits another's loaded modules or allocator
+P23_PROBE_ORDER = ("cold", "warm", "warm", "cold")
+
+
+def swap_probe(seed: int, mode: str) -> dict:
+    """One swap in this (fresh) process, 23c's model, strategies and
+    prompts, fp32 with TF32 off: the predecessor serves two requests,
+    the pool's four are submitted and the autopilot swaps to the
+    successor with its warm-up (warm_launch_shapes) on (`mode` "warm")
+    or stood in by a no-op ("cold"). The
+    wall of the successor's first tick (a prefill of the carried
+    requests) and of its second, the stall from the cutover's start to
+    the first tick's end, and the warm-up's seconds, by timing every
+    prefill and decode tick of the server class."""
+    from flexflow_tpu_torch.serving_autopilot import ServingAutopilot
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ff, cfg, pool, first, alt = swap_fixture(seed)
+    ap = ServingAutopilot(ff, first, slots=P23_SWAP_SLOTS,
+                          max_len=P23_SWAP_MAX_LEN)
+    ticks = []
+    cls = type(ap.server)
+    if mode == "cold":
+        cls.warm_launch_shapes = lambda self: []
+    for name in ("_prefill_tick", "_decode_tick"):
+        def timed_tick(self, *a, _fn=getattr(cls, name), _name=name):
+            t = time.monotonic()
+            try:
+                return _fn(self, *a)
+            finally:
+                ticks.append((id(self), _name, t, time.monotonic()))
+        setattr(cls, name, timed_tick)
+    try:
+        for k in range(2):
+            ap.generate(pool[k], P23_SWAP_NEW)
+        futs = [ap.submit(p, max_new_tokens=P23_SWAP_NEW) for p in pool]
+        t_call = time.monotonic()
+        swap = ap.swap_to(alt)
+        t_cut = time.monotonic() - swap["cutover_s"]
+        for f in futs:
+            f.result(timeout=900)
+        new = id(ap.server)
+    finally:
+        ap.stop()
+    mine = sorted((t for t in ticks if t[0] == new), key=lambda t: t[2])
+    return {"mode": mode, "carried": swap["carried"],
+            "warmed": swap["warmed"], "build_and_warm_s": t_cut - t_call,
+            "cutover_ms": 1e3 * swap["cutover_s"],
+            "first_tick": mine[0][1],
+            "first_tick_ms": 1e3 * (mine[0][3] - mine[0][2]),
+            "stall_ms": 1e3 * (mine[0][3] - t_cut),
+            "second_tick_ms": 1e3 * (mine[1][3] - mine[1][2]),
+            "ticks": len(mine)}
+
+
+def phase_swap_probes(seed: int) -> dict:
+    """P23_PROBE_ORDER's swap_probe runs, each `chip_smoke.py --swap-probe
+    MODE` in a process of its own; a failed probe raises."""
+    runs = []
+    for mode in P23_PROBE_ORDER:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--swap-probe",
+             mode, "--seed", str(seed)], capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"swap probe {mode}: exit "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        runs.append(json.loads(proc.stdout.splitlines()[-1]))
+    res = {"runs": runs}
+    for mode in ("cold", "warm"):
+        mine = [r for r in runs if r["mode"] == mode]
+        for key in ("first_tick_ms", "stall_ms", "second_tick_ms"):
+            res[f"{mode}_{key}"] = [r[key] for r in mine]
+    log(f"swap_probe {json.dumps(res)}")
+    return res
+
+
+def phase_hot_swap(seed: int, problems: list) -> dict:
+    """23c: fp32 with TF32 off, Llama-3-8B's widths at P23_SWAP_LAYERS
+    layers: a ServingAutopilot on ServeStrategy(page 16, chunk 32) serves
+    the P23_SWAP_PROMPTS pool, two requests before the swap and four in
+    flight when swap_to(chunk 16) is called while a thread keeps
+    submitting; every request's tokens must equal the one-tick loop's
+    for its prompt (one server of the first strategy, no swap), at least
+    one request must be carried, the pool adopted, the request log must
+    hold both fingerprints and metrics() one swap. The cutover ms."""
+    from flexflow_tpu_torch.serving_autopilot import ServingAutopilot
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ff, cfg, pool, first, alt = swap_fixture(seed)
+        ref = ff.serve_generation(slots=P23_SWAP_SLOTS,
+                                  max_len=P23_SWAP_MAX_LEN,
+                                  serve_strategy=first)
+        try:
+            want = [ref.generate(p, P23_SWAP_NEW, timeout=900)
+                    for p in pool]
+        finally:
+            ref.stop()
+        ap = ServingAutopilot(ff, first, slots=P23_SWAP_SLOTS,
+                              max_len=P23_SWAP_MAX_LEN)
+        futs, done = [], threading.Event()
+
+        def submitter():
+            i = 0
+            while not done.is_set():
+                if sum(1 for _, f in futs if not f.done()) < 8:
+                    futs.append((i % len(pool), ap.submit(
+                        pool[i % len(pool)], max_new_tokens=P23_SWAP_NEW)))
+                    i += 1
+                else:
+                    time.sleep(0.002)
+
+        try:
+            fp_old = ap.strategy_fingerprint
+            before = [ap.generate(pool[k], P23_SWAP_NEW) for k in range(2)]
+            for k in range(len(pool)):
+                futs.append((k, ap.submit(pool[k],
+                                          max_new_tokens=P23_SWAP_NEW)))
+            feeder = threading.Thread(target=submitter)
+            feeder.start()
+            swap = ap.swap_to(alt)
+            time.sleep(0.2)
+            done.set()
+            feeder.join(timeout=120)
+            outs = [(k, np.asarray(f.result(timeout=900)))
+                    for k, f in futs]
+            after = [ap.generate(pool[k], P23_SWAP_NEW)
+                     for k in range(len(pool))]
+            stamps = {r.get("strategy")
+                      for r in ap.request_log.records()}
+            swaps = ap.metrics()["autopilot"]["swaps"]
+        finally:
+            done.set()
+            ap.stop()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    mismatched = sum(not np.array_equal(o, want[k]) for k, o in outs)
+    mismatched += sum(not np.array_equal(o, want[k])
+                      for k, o in enumerate(before))
+    mismatched += sum(not np.array_equal(o, want[k])
+                      for k, o in enumerate(after))
+    res = {"layers": cfg.layers, "dtype": "float32",
+           "from": first.describe(), "to": alt.describe(),
+           "requests": len(outs) + len(before) + len(after),
+           "mismatched": mismatched, "carried": swap["carried"],
+           "pool_adopted": swap["pool_adopted"],
+           "warmed": swap["warmed"],
+           "cutover_ms": 1e3 * swap["cutover_s"],
+           "fingerprints": sorted(s for s in stamps if s)}
+    log(f"hot_swap {json.dumps(res)}")
+    checks = {"tokens": mismatched == 0, "carried": swap["carried"] >= 1,
+              "adopted": swap["pool_adopted"] is True,
+              "stamps": stamps == {fp_old, alt.fingerprint()},
+              "swaps": swaps == 1}
+    res["checks"] = checks
+    if not all(checks.values()):
+        problems.append(f"23c: {checks}")
+    return res
+
+
+def phase_servesearch(seed: int, card: str) -> dict:
+    """Phase 23 (a-c), each part timed on its own phase_time line, the
+    request log and the fftrace output under a temporary directory
+    removed at the end; collects every part's problems and raises at the
+    end. Each part runs under a _K3Capture, and after it every K3 call
+    kept is held to the plain version (k3_served_checks, "k3_served":
+    one timed record a launch geometry), so whatever strategy the search
+    picked is checked at its page size, pool dtype and windows. The
+    kernels line records K3's launches (fp and int8) of (a)'s winner and
+    default serves and (b)'s calibrated winner's under "servesearch",
+    with those records."""
+    problems: list = []
+    res = {"card": card, "k3_served": []}
+    free_card()
+    work = tempfile.mkdtemp(prefix="ff_phase23_")
+    try:
+        ff = _llama_cut(P23_LAYERS, seed, DataType.BFLOAT16)
+        with _K3Capture() as cap:
+            a = timed("23a", phase_search_serve, seed, problems, ff, work)
+        res["k3_served"] += timed("23a:k3", k3_served_checks, cap, card,
+                                  "23a")
+        res["a"] = a["res"]
+        launches = {k: res["a"]["winner"]["launches"][k]
+                    + res["a"]["default"]["launches"][k]
+                    for k in res["a"]["winner"]["launches"]}
+        with _K3Capture() as cap:
+            res["b"] = timed("23b", phase_calibration_loop, seed, problems,
+                             ff, a, work)
+        res["k3_served"] += timed("23b:k3", k3_served_checks, cap, card,
+                                  "23b")
+        launches = {k: n + res["b"]["launches"][k]
+                    for k, n in launches.items()}
+        res["launches"] = launches
+        del ff, a
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    free_card()
+    with _K3Capture() as cap:
+        res["c"] = timed("23c", phase_hot_swap, seed, problems)
+    res["k3_served"] += timed("23c:k3", k3_served_checks, cap, card, "23c")
+    free_card()
+    res["c"]["probe"] = timed("23c:probe", phase_swap_probes, seed)
+    if problems:
+        raise AssertionError(f"phase 23: {problems}")
+    return res
+
+
 def _zoo_k4_entries(kernel, zoo) -> tuple:
     """(key, launches, timed case) of K4 kernel `kernel` on phase 18: BERT-
     base's fit at dropout 0 (18a) under "bert_base", and the encoder-
@@ -7387,16 +8021,23 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19,"
-                    "20,21,22",
+                    "20,21,22,23",
                     help="comma-separated phases to run (default "
                     "1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,"
-                    "22; 5 profiles serving and training steps)")
+                    "22,23; 5 profiles serving and training steps)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--swap-probe", choices=("warm", "cold"),
+                    help="run only phase 23c's swap_probe in this mode and "
+                    "print its JSON (phase 23 starts these itself)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", flush=True)
         return 2
+    if args.swap_probe:
+        print(json.dumps(swap_probe(args.seed, args.swap_probe)),
+              flush=True)
+        return 0
     t_start = time.monotonic()
     card = card_line()
     log(f"card {card}")
@@ -7419,6 +8060,8 @@ def main(argv=None) -> int:
         if 2 in phases else []
     wide = timed("2:k3_wide", phase_wide_windows, card) \
         if 2 in phases else []
+    if 2 in phases:
+        timed("2:k3_pages", phase_page_sizes, card)
     flash = timed("2:k1k2", phase_flash_kernels, card) \
         if 2 in phases else {}
     flash_mixtral = (timed("2:k1k2_mixtral", phase_flash_kernels, card,
@@ -7479,6 +8122,8 @@ def main(argv=None) -> int:
     p21 = (timed("21", phase_frontends_checkpoints, args.seed, card)
            if 21 in phases else None)
     p22 = timed("22", phase_search, args.seed, card) if 22 in phases \
+        else None
+    p23 = timed("23", phase_servesearch, args.seed, card) if 23 in phases \
         else None
     if 5 in phases:
         phase_profile(args.seed, card)
@@ -7598,6 +8243,33 @@ def main(argv=None) -> int:
     entries[0]["gpt2_124m_restored"] = {
         name: val for name, val in other.items()
         if name not in ("name", "route", "source", "replaces")}
+    # K3 serving phase 23a's searched winner and the default strategy and
+    # 23b's calibrated winner (Llama-3-8B's widths at 4 layers, bf16 q):
+    # each body's numbers are those of phase 23's own calls, held to the
+    # plain version at the geometry it launched most ("k3_served"), and
+    # every geometry phase 23 launched stands under "served"
+    for entry, kernel, int8 in (
+            (entries[0], RAGGED_PAGED_ATTENTION, False),
+            (entries[1], RAGGED_PAGED_ATTENTION_INT8, True)):
+        served = [r for r in (p23["k3_served"] if p23 else [])
+                  if (r["pool"] == "int8") == int8]
+        case = max(served, key=lambda r: r["calls"], default=None)
+        other = _kernel_entry(kernel, entry["source"],
+                              p23["launches"][kernel.name] if p23 else 0,
+                              case)
+        if case is not None:
+            other.update({k: case[k] for k in ("page_size", "window",
+                                                "batch", "dtype", "pool")},
+                         part=case["served"])
+        other["served"] = [
+            {k: r[k] for k in ("served", "dtype", "pool", "page_size",
+                               "window", "batch", "calls", "split_plan",
+                               "max_abs_err", "limit", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms")}
+            for r in served]
+        entry["servesearch"] = {name: val for name, val in other.items()
+                                if name not in ("name", "route", "source",
+                                                "replaces")}
     # K1/K2 on phase 6's bf16 fit, timed at bench_1b's attention shape
     # (phase 2), and their fp32 bodies under "fp32": launches in phase 3's
     # fp32 bench_1b step (K2 there on its 3xTF32 body), timed at the same

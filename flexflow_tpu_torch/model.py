@@ -1285,10 +1285,12 @@ class FFModel:
         spills evicted prefix pages to host memory (a page capacity, or
         a disagg.HostTier shared with another server) and
         `kv_quant_canary=N` shadows every Nth admission's launches in
-        fp32. The serving-strategy search (`serve_strategy`,
-        `search_budget`, `traffic`) is not ported: asking for it raises
-        NotImplementedError rather than serving a different
-        configuration."""
+        fp32. `search_budget=N` searches the serving knobs against the
+        `traffic` profile (search/servesearch.py, priced on the H100
+        machine model) and serves the winner (on the card it can lose to
+        the default strategy: see serving.serve_generation);
+        `serve_strategy` serves a known ServeStrategy or its JSON
+        dict."""
         from flexflow_tpu_torch.serving import serve_generation as _sg
 
         return _sg(self, slots=slots, max_len=max_len, eos_id=eos_id,

@@ -1,5 +1,5 @@
 """Observability of the servers and the training loop (counterpart of
-flexflow_tpu/obs/, all of it but the compile tracker and the calibration):
+flexflow_tpu/obs/, all of it but the compile tracker):
 
   * `MetricsRegistry` (obs.metrics): counters, gauges and fixed-bucket
     histograms. Always on — every generation server owns one and feeds
@@ -33,8 +33,10 @@ Taking a trace:
     obs.recorder().export_chrome_trace("trace.json")   # Perfetto
     obs.ledger().save("ledger.json")
 
-The compile tracker waits for CUDA graphs and the calibration for the
-cost model (ROADMAP.md, queue 1 items 7 and 11).
+`obs.calibrate` (imported as a module: it reaches the strategy search)
+diffs a saved ledger against the tick time the search prices, per tick
+shape: the scales the serving-strategy search takes. The compile tracker
+waits for CUDA graphs (ROADMAP.md, queue 1 items 7 and 9).
 """
 
 from __future__ import annotations

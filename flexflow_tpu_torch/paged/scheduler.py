@@ -104,6 +104,16 @@ overlap_admit) and record their host wall times in the tick ledger
 (prefill / decode shape keys). A span stamps the host clock around work
 already enqueued and never reads the device.
 
+DRAIN-AND-SWAP (serving_autopilot.py): detach_for_swap() stops the loop
+and hands back every live and waiting request with its future pending
+(_detach_active publishes and frees a live request's pages); a successor
+built with defer_start=True loads its K3 body (warm_launch_shapes()),
+adopts this pool
+when the geometry matches (adopt_pool_from), takes the requests with
+absorb_requests() and starts. Every server carries the ServeStrategy it
+runs (derived from its knobs when none was passed), whose fingerprint
+stamps its reqlog records.
+
 Speculative decoding is the subclass in spec/server.py.
 """
 
@@ -189,7 +199,7 @@ class PagedGenerationServer(_GenerationServerBase):
                  request_record_limit: Optional[int] = None,
                  reqlog_capacity: Optional[int] = None, slo=None,
                  slo_dump_dir: Optional[str] = None,
-                 defer_start: bool = False):
+                 serve_strategy=None, defer_start: bool = False):
         self.megastep_ticks = int(megastep_ticks)
         if self.megastep_ticks < 1:
             raise ValueError(
@@ -227,7 +237,8 @@ class PagedGenerationServer(_GenerationServerBase):
         super().__init__(ff, slots, max_len, eos_id, seed,
                          request_record_limit=request_record_limit,
                          reqlog_capacity=reqlog_capacity, slo=slo,
-                         slo_dump_dir=slo_dump_dir)
+                         slo_dump_dir=slo_dump_dir,
+                         serve_strategy=serve_strategy)
         self.page_size = int(page_size)
         # table_slack_tokens widens every page table past max_len: the
         # speculative verify writes its draft tree's rows past the
@@ -357,7 +368,29 @@ class PagedGenerationServer(_GenerationServerBase):
         self.megastep_dispatches = 0
         self.megastep_ticks_run = 0
         self.megastep_wasted_ticks = 0
+        if self.serve_strategy is None:
+            # derived from the knobs as they stand (after the debug flag's
+            # adjustments), so the fingerprint names what this server runs
+            self.serve_strategy = self._derive_strategy()
         self._start(defer_start)
+
+    def shape_config(self) -> dict:
+        """The knobs that decide which launches this server can dispatch:
+        the pool geometry, the prefill packing, the megastep modes and the
+        storage dtype (the speculative server adds its tree): the
+        reference's enumerate_catalog kwargs. The shapecheck catalog that
+        reads them waits for ROADMAP.md queue 1 item 13."""
+        return {
+            "slots": self.slots, "max_len": self.max_len, "paged": True,
+            "page_size": self.page_size,
+            "prefill_chunk": self.prefill_chunk,
+            "ragged_pack": self.ragged_pack,
+            "megastep_ticks": self.megastep_ticks,
+            "megastep_mixed": self.megastep_mixed,
+            "num_pages": self.pool.num_pages,
+            "kv_dtype": self.kv_dtype,
+            "window_rows": self._chunk_rows,
+        }
 
     # -- capacity and metrics ----------------------------------------------
 
@@ -605,6 +638,88 @@ class PagedGenerationServer(_GenerationServerBase):
         req.preemptions += 1
         self.preemptions += 1
         self._requeue.insert(0, req)
+
+    # -- drain-and-swap (serving_autopilot) ----------------------------------
+
+    def _derive_strategy(self):
+        """The ServeStrategy this server runs, read from its knobs: for a
+        server built without one, so reqlog stamping and the autopilot's
+        window segmentation work on hand-built servers too. A page (or
+        chunk) wider than max_len behaves as one clamped to it, and is
+        clamped so the strategy passes its own validate()."""
+        from flexflow_tpu_torch.search.servesearch import ServeStrategy
+
+        spec = getattr(self, "spec", None)
+        dense_pages = self.slots * self.max_pages_per_seq
+        frac = (1.0 if self.pool.num_pages >= dense_pages + 1
+                else max((self.pool.num_pages - 1) / dense_pages, 1e-6))
+        return ServeStrategy(
+            page_size=min(self.page_size, self.max_len),
+            prefill_chunk=min(self.prefill_chunk, self.max_len),
+            spec_width=(spec.width if spec is not None else 0),
+            spec_depth=(spec.depth if spec is not None else 0),
+            megastep_ticks=self.megastep_ticks,
+            megastep_mixed=self.megastep_mixed,
+            overlap_dispatch=self.overlap_dispatch,
+            ragged_pack=self.ragged_pack,
+            pool_fraction=round(frac, 6),
+            kv_dtype=self.kv_dtype,
+        )
+
+    def _detach_active(self) -> List[_GenRequest]:
+        """The carry-over side of detach_for_swap(): every live request
+        leaves its slot with its future untouched. Its pages are published
+        to the prefix cache (tail included) and freed leaf first, and a
+        canary window on it closes, so a successor that adopts this pool
+        re-attaches what survives the LRU and recomputes only the rest.
+        Not a preemption: no counter moves. The preempted requests waiting
+        to resume follow, in their order."""
+        carried: List[_GenRequest] = []
+        for slot in list(self._admit_order):
+            req = self._active[slot]
+            self._free_pages_of(slot, req)
+            self._reset_prefill_state(req)
+            self._active[slot] = None
+            carried.append(req)
+        carried.extend(self._requeue)
+        self._requeue.clear()
+        return carried
+
+    def absorb_requests(self, reqs: List[_GenRequest]):
+        """Seed this not-yet-started server (defer_start=True) with the
+        requests a predecessor's detach_for_swap() carried out. They go
+        to the FRONT of the admission order, ahead of anything submitted
+        here directly, so in-flight work resumes first after cutover."""
+        if self._thread.ident is not None:
+            raise RuntimeError(
+                "absorb_requests() requires a server whose loop has not "
+                "started (construct with defer_start=True)")
+        self._requeue[:0] = list(reqs)
+
+    def warm_launch_shapes(self) -> List[str]:
+        """Build (where the checkout has no build yet) and bind the K3
+        body this server's pool takes, before its loop starts: the
+        drain-and-swap warm-up. The reference compiles every jit launch
+        shape of its shapecheck catalog here; a CUDA launch needs no
+        compile per shape, and running one step of each tick kind on
+        scratch pages first left the successor's first tick as it was
+        (chip_smoke.py phase 23c's swap probe). On the CPU the plain
+        version runs and nothing is loaded. Returns the kernels readied."""
+        if self._thread.ident is not None:
+            raise RuntimeError(
+                "warm_launch_shapes() runs before the loop starts "
+                "(construct with defer_start=True)")
+        if self.device.type != "cuda":
+            return []
+        from flexflow_tpu_torch.kernels import (
+            RAGGED_PAGED_ATTENTION,
+            RAGGED_PAGED_ATTENTION_INT8,
+        )
+
+        kernel = (RAGGED_PAGED_ATTENTION_INT8 if self._quantized
+                  else RAGGED_PAGED_ATTENTION)
+        kernel.function()
+        return [kernel.name]
 
     # -- host-tier payloads (disagg/host_tier.py) ----------------------------
 
@@ -1546,6 +1661,8 @@ class PagedGenerationServer(_GenerationServerBase):
                     self._decode_tick(dec, tr, ntr)
 
     def _drain(self):
+        if self._detaching:
+            return  # the successor owns the carried futures
         super()._drain()
         for req in self._requeue:
             self._fail_or_cancel(req)

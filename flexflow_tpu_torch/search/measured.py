@@ -68,6 +68,35 @@ def _weight_shard_shape(shape, spec, axis_sizes) -> Tuple[int, ...]:
     return tuple(dims)
 
 
+def calibration_scales(report: Dict) -> Dict[str, float]:
+    """The scale table of an `fftrace calibrate` report
+    (obs.calibrate.calibration_report): per-tick-shape factors plus the
+    per-phase medians as `phase|*` fallbacks for shapes the ledger never
+    saw."""
+    if not isinstance(report, dict):
+        raise TypeError(f"expected a report dict, got {type(report)}")
+    scales = report.get("tick_scales", report)
+    if not isinstance(scales, dict):
+        raise TypeError(f"expected a report dict, got {type(report)}")
+    table = {key: float(ratio) for key, ratio in scales.items()}
+    for phase, ratio in report.get("phases", {}).items():
+        table[f"{phase}|*"] = float(ratio)
+    return table
+
+
+def lookup_tick_scale(table: Dict[str, float], phase: str, batch: int,
+                      chunk: int = 0, width: int = 1) -> float:
+    """Measured/predicted ratio for this tick shape in a
+    calibration_scales table: exact shape first, then the phase's
+    median, else 1.0 (uncalibrated)."""
+    from flexflow_tpu_torch.obs.ledger import shape_key
+
+    exact = table.get(shape_key(phase, batch, chunk, width))
+    if exact is not None:
+        return exact
+    return table.get(f"{phase}|*", 1.0)
+
+
 @dataclasses.dataclass
 class MeasuredCostModel(CostModel):
     """CostModel whose node_compute_time is backed by timings on `device`
@@ -81,6 +110,9 @@ class MeasuredCostModel(CostModel):
     _measured: Dict[str, float] = dataclasses.field(default_factory=dict)
     # keys whose lowering refused the shapes: priced analytically
     _refused: set = dataclasses.field(default_factory=set)
+    # serving-tick calibration (fftrace): per-tick-shape scale factors
+    # (measured / predicted) from obs.calibrate.calibration_report
+    _tick_scale: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     # ------------------------------------------------------------------
 
@@ -244,6 +276,48 @@ class MeasuredCostModel(CostModel):
         # pipe-sharded PIPELINE still pays the GPipe bubble on top
         factor *= pipeline_compute_factor(node, view, self.axis_sizes)
         return t * factor
+
+    # ------------------------------------------------------------------
+    # serving-tick calibration (fftrace): obs.calibrate measures real
+    # decode/verify/prefill ticks against the analytic step price; the
+    # per-shape ratios land here so a search pricing a serving
+    # configuration can correct its tick-time estimate with the card's
+
+    def set_tick_calibration(self, report: Dict) -> int:
+        """Ingest an `fftrace calibrate` report (obs.calibrate
+        .calibration_report): per-tick-shape scale factors plus the
+        per-phase medians as `phase|*` fallbacks for shapes the ledger
+        never saw. Returns the number of exact shapes loaded."""
+        table = calibration_scales(report)
+        self._tick_scale.update(table)
+        return len(report.get("tick_scales", report))
+
+    def tick_scale(self, phase: str, batch: int, chunk: int = 0,
+                   width: int = 1) -> float:
+        """Measured/predicted ratio for this tick shape
+        (lookup_tick_scale)."""
+        return lookup_tick_scale(self._tick_scale, phase, batch, chunk,
+                                 width)
+
+    def decode_tick_time(self, graph: Graph,
+                         strategy: Dict[str, ShardingView],
+                         phase: str = "decode", batch: int = 1,
+                         chunk: int = 0, width: int = 1) -> float:
+        """Calibrated wall-time estimate for one serving tick of the
+        given shape: the step price (this model's, so measured op shards
+        where it has timed them) scaled to the tick's token count
+        (obs.calibrate's linear model), times the measured correction
+        for that shape."""
+        from flexflow_tpu_torch.obs.calibrate import (
+            graph_tokens,
+            predict_tick_seconds,
+        )
+        from flexflow_tpu_torch.search.cost_model import graph_cost
+
+        base = graph_cost(graph, strategy, self, training=False).time
+        pred = predict_tick_seconds(base, graph_tokens(graph), phase,
+                                    batch, chunk, width)
+        return pred * self.tick_scale(phase, batch, chunk, width)
 
     # ------------------------------------------------------------------
 

@@ -24,10 +24,16 @@ times in the tick ledger, and each completed request becomes a request
 track of the trace. All of it is host bookkeeping on what the server
 already knows: no device read is added to a tick. The reqlog record's
 `spilled_pages` and `fetched_pages` come from the paged server's host
-tier, `routed_to` from the prefix-affinity router (disagg/). The
-reference's compile tracker has no counterpart here yet: a request's
-compile seconds are 0.0 (its TTFT without compile is its TTFT), and
-breach dumps carry no strategy or compile snapshot.
+tier, `routed_to` from the prefix-affinity router (disagg/), and its
+`strategy` is the fingerprint of the ServeStrategy the server realizes
+(search/servesearch.py; the paged server derives one from its knobs when
+none was passed), which `metrics()["strategy"]` and a breach bundle's
+`strategy.json` carry too. `detach_for_swap()` pauses the loop without
+cancelling a future and hands back every request still owed a result,
+the drain half of the autopilot's drain-and-swap (serving_autopilot.py).
+The reference's compile tracker has no counterpart here yet: a
+request's compile seconds are 0.0 (its TTFT without compile is its
+TTFT), and breach dumps carry no compile snapshot.
 
   ff = FFModel(FFConfig(device="cuda")); build_llama(ff, cfg); ff.compile()
   server = ff.serve(batch_sizes=(1, 8, 32), max_delay_ms=2)  # batch
@@ -505,8 +511,18 @@ class _GenerationServerBase:
                  eos_id: Optional[int], seed: int,
                  request_record_limit: Optional[int] = None,
                  reqlog_capacity: Optional[int] = None,
-                 slo=None, slo_dump_dir: Optional[str] = None):
+                 slo=None, slo_dump_dir: Optional[str] = None,
+                 serve_strategy=None):
         self.ff = ff
+        # the ServeStrategy this server realizes (search.servesearch),
+        # when known: its fingerprint stamps every reqlog record and the
+        # metrics payload, so records attribute to the strategy that
+        # served them across autopilot swaps
+        self.serve_strategy = serve_strategy
+        self._strategy_fp: Optional[str] = None
+        # set while detach_for_swap() pauses the loop: the finally-drain
+        # must not cancel futures that are about to be carried over
+        self._detaching = False
         self.slots = int(slots)
         self.max_len = int(max_len)
         # learned-position models (GPT-2/BERT-style): a position past the
@@ -649,6 +665,16 @@ class _GenerationServerBase:
         """The SLO judge (obs.SLOMonitor), or None without a target."""
         return self._slo
 
+    @property
+    def strategy_fingerprint(self) -> Optional[str]:
+        """Short content hash of the ServeStrategy this server realizes
+        (None when unknown: the dense server without an explicit
+        strategy). Stamped into reqlog records and metrics() so records
+        after a swap segment by the strategy that served them."""
+        if self._strategy_fp is None and self.serve_strategy is not None:
+            self._strategy_fp = self.serve_strategy.fingerprint()
+        return self._strategy_fp
+
     def metrics(self) -> dict:
         """Aggregate serving metrics, the records of the last
         `request_record_limit` completed requests (and how many fell
@@ -668,6 +694,11 @@ class _GenerationServerBase:
             },
             "histograms": self.registry.to_json(),
         }
+        if self.serve_strategy is not None:
+            out["strategy"] = {
+                "fingerprint": self.strategy_fingerprint,
+                "knobs": self.serve_strategy.to_json(),
+            }
         if self._slo is not None:
             out["slo"] = self._slo.snapshot()
         return out
@@ -748,7 +779,7 @@ class _GenerationServerBase:
         admit_t = req.admit_t if req.admit_t is not None else done_t
         first_t = (req.first_token_t if req.first_token_t is not None
                    else done_t)
-        return {
+        rec = {
             "rid": self._served + 1,
             "label": f"req {self._served + 1}",
             "submit_ns": int(req.submit_t * 1e9),
@@ -777,6 +808,10 @@ class _GenerationServerBase:
                 "decode_s": max(0.0, done_t - first_t),
             },
         }
+        fp = self.strategy_fingerprint
+        if fp is not None:
+            rec["strategy"] = fp
+        return rec
 
     def _release_slot(self, slot: int, req: _GenRequest,
                       completed: bool = False):
@@ -806,9 +841,12 @@ class _GenerationServerBase:
                     self._g_goodput.set(self._slo.goodput)
                     if tripped:
                         self._c_slo_breaches.inc()
-                        self._slo.dump(reqlog=self._reqlog,
-                                       recorder=obs.recorder(),
-                                       metrics=self.metrics)
+                        self._slo.dump(
+                            reqlog=self._reqlog, recorder=obs.recorder(),
+                            metrics=self.metrics,
+                            strategy=(self.serve_strategy.to_json()
+                                      if self.serve_strategy is not None
+                                      else None))
             rec = obs.recorder()
             if rec is not None:
                 # the request's lifecycle track (queued, prefill, decode)
@@ -842,6 +880,49 @@ class _GenerationServerBase:
             # runs on ANY exit so blocked callers always unblock
             self._drain()
 
+    # -- drain-and-swap (serving_autopilot) ------------------------------
+
+    def detach_for_swap(self) -> List[_GenRequest]:
+        """Pause the serving loop WITHOUT cancelling futures and hand
+        back every request still owed a result, in service order:
+        mid-flight requests first (oldest first, so re-admission keeps
+        their priority), then whatever was queued. Each keeps its Future,
+        its prompt and every token it has decoded (seq_tokens()), so a
+        successor resumes it through absorb_requests() and greedy streams
+        stay token-identical. This server is stopped afterwards; only its
+        pool and caches remain adoptable (adopt_pool_from)."""
+        with self._lock:
+            self._running = False
+            self._detaching = True
+            self._stop.set()
+        if self._thread.ident is not None:
+            self._thread.join(timeout=30)
+            if self._thread.is_alive():
+                with self._lock:
+                    self._detaching = False
+                raise RuntimeError(
+                    "serving loop did not pause within 30s — refusing to "
+                    "detach requests from a live loop")
+        carried = self._detach_active()
+        while True:
+            try:
+                carried.append(self._queue.get_nowait())
+            except queue.Empty:
+                break
+        return carried
+
+    def _detach_active(self) -> List[_GenRequest]:
+        """Subclass hook: pull mid-flight requests out of their slots
+        without cancelling them (the paged server also publishes their
+        pages and frees them). Only called with the loop stopped."""
+        carried: List[_GenRequest] = []
+        for s in range(self.slots):
+            req = self._active[s]
+            if req is not None:
+                self._active[s] = None
+                carried.append(req)
+        return carried
+
     def _loop_body(self, tr, ntr):
         raise NotImplementedError
 
@@ -857,7 +938,10 @@ class _GenerationServerBase:
     def _drain(self):
         """Cancel (or fail, after a loop error) whatever is still queued
         or mid-decode, so callers unblock — a truncated sequence must not
-        look like a completed one."""
+        look like a completed one. During a detach_for_swap the successor
+        owns every pending future, so cancellation stands down."""
+        if self._detaching:
+            return
         for s in range(self.slots):
             req = self._active[s]
             if req is not None:
@@ -889,11 +973,12 @@ class GenerationServer(_GenerationServerBase):
                  request_record_limit: Optional[int] = None,
                  reqlog_capacity: Optional[int] = None, slo=None,
                  slo_dump_dir: Optional[str] = None,
-                 defer_start: bool = False):
+                 serve_strategy=None, defer_start: bool = False):
         super().__init__(ff, slots, max_len, eos_id, seed,
                          request_record_limit=request_record_limit,
                          reqlog_capacity=reqlog_capacity, slo=slo,
-                         slo_dump_dir=slo_dump_dir)
+                         slo_dump_dir=slo_dump_dir,
+                         serve_strategy=serve_strategy)
         ex = ff.executor
         self._step = ex.decode_fn
         self._prefill_step = self._step  # one step, two input shapes
@@ -977,14 +1062,6 @@ class GenerationServer(_GenerationServerBase):
                 led.record("decode", dt, batch=len(live))
 
 
-def not_ported(what: str, item: int):
-    """Refuse a knob the port does not serve yet, naming the ROADMAP.md
-    queue-1 item that ports it."""
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch server yet (ROADMAP.md, "
-        f"queue 1 item {item})")
-
-
 def serve_generation(ff, slots: int = 4, max_len: int = 512,
                      eos_id: Optional[int] = None, seed: int = 0,
                      paged: bool = False, page_size: int = 64,
@@ -1018,20 +1095,59 @@ def serve_generation(ff, slots: int = 4, max_len: int = 512,
     disagg.HostTier) spills evicted prefix pages to host memory and
     fetches them back; `kv_quant_canary=N` replays every Nth admission's
     launches against an fp32 shadow of the pool (the kv_quant_error
-    gauge). The serving-strategy search (`serve_strategy`,
-    `search_budget`, `traffic` other than its default) is not ported and
-    raises NotImplementedError naming its ROADMAP item; the reference's
-    invalid combinations raise its ValueErrors. `defer_start=True`
-    builds the server without starting its loop (start() does)."""
+    gauge). `search_budget=N` runs the serving-strategy search
+    (search/servesearch.py) for N anneal iterations against the `traffic`
+    profile (a name of search/traffic.py, a TrafficProfile or a
+    RecordedProfile) on the H100 machine model and serves the winner.
+    On the card the winner can serve fewer tokens a second than
+    ServeStrategy(): the pricer takes a fused megastep for one dispatch,
+    but until ticks run as CUDA graphs (ROADMAP.md queue 1 item 7) each
+    fused tick is enqueued from the host; a calibration whose ledger
+    holds fused shapes (`fftrace smoke --megastep`) prices that in.
+    `serve_strategy` applies a known ServeStrategy (or its to_json()
+    dict). Either decides the paged knobs wholesale, and passing an
+    explicit `speculate` beside it raises; a strategy whose mesh spans
+    more than one card raises as the port's meshes do. The reference's
+    invalid combinations raise its ValueErrors. `defer_start=True` builds
+    the server without starting its loop (start() does)."""
+    if search_budget is not None and serve_strategy is None:
+        from flexflow_tpu_torch.search.servesearch import (
+            search_serve_strategy,
+        )
+
+        serve_strategy = search_serve_strategy(
+            ff, traffic=traffic, budget=int(search_budget), slots=slots,
+            max_len=max_len).best
     if serve_strategy is not None:
-        not_ported("serve_strategy (search/servesearch.py)", 9)
-    if search_budget is not None:
-        not_ported("search_budget (search/servesearch.py)", 9)
-    if traffic != "smoke":
-        not_ported("traffic (traffic.py)", 9)
+        from flexflow_tpu_torch.parallel.mesh import check_axes
+        from flexflow_tpu_torch.search.servesearch import ServeStrategy
+
+        if isinstance(serve_strategy, dict):
+            serve_strategy = ServeStrategy.from_json(serve_strategy)
+        if speculate is not None:
+            raise ValueError(
+                "serve_strategy already decides speculation — drop the "
+                "explicit speculate= argument")
+        kw = serve_strategy.to_server_kwargs(slots, max_len)
+        check_axes(dict(serve_strategy.mesh))
+        paged = True
+        page_size = kw["page_size"]
+        prefill_chunk = kw["prefill_chunk"]
+        ragged_pack = kw["ragged_pack"]
+        megastep_ticks = kw["megastep_ticks"]
+        megastep_mixed = kw["megastep_mixed"]
+        overlap_dispatch = kw["overlap_dispatch"]
+        speculate = kw["speculate"]
+        kv_dtype = kw["kv_dtype"]
+        if kw["num_pages"] is not None:
+            num_pages = kw["num_pages"]
+        # the strategy's host-tier capacity applies only when the caller
+        # did not hand over a tier of their own (a shared tier wins)
+        if host_tier is None and kw["host_tier"] is not None:
+            host_tier = kw["host_tier"]
     obs_kw = dict(request_record_limit=request_record_limit,
                   reqlog_capacity=reqlog_capacity, slo=slo,
-                  slo_dump_dir=slo_dump_dir)
+                  slo_dump_dir=slo_dump_dir, serve_strategy=serve_strategy)
     megastep_ticks = int(megastep_ticks)
     if megastep_ticks < 1:
         raise ValueError(

@@ -75,7 +75,7 @@ class SpeculativePagedServer(PagedGenerationServer):
                  request_record_limit: Optional[int] = None,
                  reqlog_capacity: Optional[int] = None, slo=None,
                  slo_dump_dir: Optional[str] = None,
-                 defer_start: bool = False):
+                 serve_strategy=None, defer_start: bool = False):
         if not isinstance(spec, SpecConfig):
             raise TypeError(
                 f"speculate must be a SpecConfig, got {type(spec).__name__}")
@@ -102,13 +102,23 @@ class SpeculativePagedServer(PagedGenerationServer):
                          kv_quant_canary=kv_quant_canary,
                          request_record_limit=request_record_limit,
                          reqlog_capacity=reqlog_capacity, slo=slo,
-                         slo_dump_dir=slo_dump_dir, defer_start=True)
+                         slo_dump_dir=slo_dump_dir,
+                         serve_strategy=serve_strategy, defer_start=True)
         # a tick's draft acceptance (accepted / drafted), registered before
         # the loop starts
         self._h_accept = self.registry.histogram("spec_acceptance",
                                                  obs.RATIO_BUCKETS)
         if not defer_start:
             self.start()
+
+    def shape_config(self) -> dict:
+        """The paged server's launch knobs plus the verify tree: verify
+        launches are (live, max_nodes) windows and the accepted path
+        commits (slots, depth + 1) rows."""
+        cfg = super().shape_config()
+        cfg["spec_max_nodes"] = self.spec.max_nodes
+        cfg["spec_depth"] = self.spec.depth
+        return cfg
 
     # -- page accounting: the tree's scratch rows count --------------------
 

@@ -479,13 +479,12 @@ def _serve_records(ff, prompts, max_new=4, **kw):
 @pytest.mark.parametrize("paged", [True, False])
 def test_reqlog_records_match_the_jax_servers(paged, tmp_path):
     """The same requests on the same weights through the JAX server and
-    the port's: the records carry the reference's keys (but "strategy",
-    the fingerprint of the JAX paged server's derived ServeStrategy,
-    which the port has no search to derive), the same content fields
-    (prompt length, tokens, the sha1 page-block prefix chain, kv dtype,
-    page size, prefill split, preemptions, the speculative counts, the
-    tier and router defaults) and ordered lifecycle stamps; the JSONL
-    export reads back equal."""
+    the port's: the records carry the reference's keys, the same content
+    fields (prompt length, tokens, the sha1 page-block prefix chain, kv
+    dtype, page size, prefill split, preemptions, the speculative counts,
+    the tier and router defaults, and on the paged server the
+    fingerprint of the ServeStrategy both derive from their knobs) and
+    ordered lifecycle stamps; the JSONL export reads back equal."""
     jff, tff = _lms()
     shared = _prompts(9, (4,))[0]
     prompts = [np.concatenate([shared, p]) for p in _prompts(10, (1, 4, 2))]
@@ -499,9 +498,10 @@ def test_reqlog_records_match_the_jax_servers(paged, tmp_path):
                "temperature", "max_new_tokens", "kv_dtype", "decode_tokens",
                "prefill_tokens", "cached_prefill_tokens", "preemptions",
                "spec_steps", "spec_draft_tokens", "spec_accepted_tokens",
-               "spilled_pages", "fetched_pages", "routed_to", "page_size")
+               "spilled_pages", "fetched_pages", "routed_to", "page_size",
+               "strategy")
     for t, j in zip(trecs, jrecs):
-        assert set(t) == set(j) - {"strategy"}
+        assert set(t) == set(j)
         assert set(t["phases"]) == set(j["phases"]) == {
             "queue_s", "prefill_s", "decode_s"}
         assert {k: t.get(k) for k in content} == {k: j.get(k)
@@ -512,6 +512,7 @@ def test_reqlog_records_match_the_jax_servers(paged, tmp_path):
     if paged:
         assert trecs[0]["page_size"] == 4
         assert len({r["prefix_chain"][0] for r in trecs}) == 1
+        assert len(trecs[0]["strategy"]) == 12
     else:
         assert trecs[0]["kv_dtype"] == "dense"
     from flexflow_tpu_torch.obs import reqlog as reqlog_mod
@@ -591,12 +592,32 @@ def test_slo_prometheus_series_gated_on_target():
 
 
 def test_serve_generation_refuses_the_search_arguments_by_item():
-    """serve_strategy, search_budget and a traffic profile other than the
-    default need the serving-strategy search: NotImplementedError naming
-    the item, never a TypeError."""
+    """The serving-strategy search is ported: serve_strategy (a JSON
+    dict here) and search_budget serve, and what the reference refuses
+    the port refuses with the reference's errors — a strategy beside an
+    explicit speculate (ValueError), an unknown traffic profile
+    (KeyError naming it), a strategy mesh of more than one card (the
+    port's multi-card refusal, queue 1 item 12)."""
+    from flexflow_tpu_torch.spec import SpecConfig
+
     _, tff = _lms()
-    for kw in ({"serve_strategy": {"page_size": 4}}, {"search_budget": 4},
-               {"traffic": "chat"}):
-        with pytest.raises(NotImplementedError, match=r"queue 1 item 9\)"):
-            tff.serve_generation(slots=1, max_len=16, paged=True,
-                                 page_size=4, **kw)
+    prompt = _prompts(0, [5])[0]
+    for kw in ({"serve_strategy": {"page_size": 4, "prefill_chunk": 8}},
+               {"search_budget": 4, "traffic": "mixed-length"}):
+        srv = tff.serve_generation(slots=1, max_len=16, **kw)
+        try:
+            assert len(srv.generate(prompt, 3)) == 3
+            assert srv.metrics()["strategy"]["fingerprint"] == \
+                srv.strategy_fingerprint
+        finally:
+            srv.stop()
+    with pytest.raises(ValueError, match="speculation"):
+        tff.serve_generation(slots=1, max_len=16,
+                             serve_strategy={"page_size": 4},
+                             speculate=SpecConfig(width=2, depth=2))
+    with pytest.raises(KeyError, match="chat"):
+        tff.serve_generation(slots=1, max_len=16, search_budget=4,
+                             traffic="chat")
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 12\)"):
+        tff.serve_generation(slots=1, max_len=16, serve_strategy={
+            "page_size": 4, "mesh": [["data", 2]]})

@@ -1963,3 +1963,87 @@ def test_kernel_build_failure_raises_through_measured_cost_model(
                              device="cuda")
     with pytest.raises(RuntimeError):
         cost.measure_node(g, attn, None, training=False)
+
+
+def _tiny_llama_on_card():
+    from flexflow_tpu_torch import DataType, FFConfig, FFModel
+    from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
+
+    ff = FFModel(FFConfig(batch_size=1, seed=7, device="cuda"))
+    build_llama(ff, LlamaConfig.tiny(), batch_size=1, seq_len=8,
+                dtype=DataType.FLOAT)
+    ff.compile()
+    return ff
+
+
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8"])
+def test_warm_launch_shapes_loads_the_pool_body(kv_dtype):
+    """A paged server built with defer_start readies the K3 body its pool
+    takes (the drain-and-swap warm-up) without starting its loop."""
+    _needs_card()
+    from flexflow_tpu_torch import kernels
+
+    ff = _tiny_llama_on_card()
+    srv = ff.serve_generation(slots=2, max_len=32, paged=True,
+                              kv_dtype=kv_dtype, defer_start=True)
+    body = (kernels.RAGGED_PAGED_ATTENTION_INT8 if kv_dtype == "int8"
+            else kernels.RAGGED_PAGED_ATTENTION)
+    try:
+        assert srv.warm_launch_shapes() == [body.name]
+        assert body._fn is not None
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8"])
+def test_searched_strategy_server_reaches_k3(kv_dtype, monkeypatch):
+    """serve_generation(search_budget=...) on the card searches on the
+    H100 machine model and serves through K3: the fp body's launch count
+    rises for an "auto" pool, the int8 body's for an int8 one (the
+    search's space pinned to that dtype), every request is served, and
+    every K3 call the server made agrees with the plain version on its
+    own inputs (TOLS x max(1, max |plain|)), whatever page size and
+    windows the search picked."""
+    _needs_card()
+    import flexflow_tpu_torch.paged.attention as pa
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.search.servesearch import (
+        default_space,
+        search_serve_strategy,
+    )
+
+    ff = _tiny_llama_on_card()
+    space = dict(default_space(max_len=32), kv_dtype=[kv_dtype])
+    res = search_serve_strategy(ff, traffic="smoke", budget=24, seed=0,
+                                slots=2, max_len=32, space=space)
+    assert res.best.kv_dtype == kv_dtype
+    assert res.objective.hbm_budget_bytes == 80e9
+    body = (kernels.RAGGED_PAGED_ATTENTION_INT8 if kv_dtype == "int8"
+            else kernels.RAGGED_PAGED_ATTENTION)
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 512, (n,)).astype(np.int32) for n in (3, 9, 5)]
+    calls = []
+
+    def held(*args, scale, k_scales=None, v_scales=None):
+        out = wrapper(*args, scale=scale, k_scales=k_scales,
+                      v_scales=v_scales)
+        want = ragged_gather_attention(*args, scale=scale,
+                                       k_scales=k_scales, v_scales=v_scales)
+        calls.append((tuple(args[1].shape), float(
+            (out.float() - want.float()).abs().max()), TOLS[args[0].dtype]
+            * max(1.0, float(want.float().abs().max()))))
+        return out
+
+    wrapper = pa.ragged_flash_attention
+    monkeypatch.setattr(pa, "ragged_flash_attention", held)
+    before = body.launches
+    srv = ff.serve_generation(slots=2, max_len=32,
+                              serve_strategy=res.best.to_json())
+    try:
+        got = [srv.generate(p, 8, timeout=300) for p in prompts]
+    finally:
+        srv.stop()
+    assert body.launches - before == len(calls) > 0
+    assert all(shape[1] == res.best.page_size for shape, _, _ in calls)
+    assert all(err <= limit for _, err, limit in calls), calls
+    assert all(len(g) == 8 for g in got)

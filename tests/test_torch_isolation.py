@@ -92,6 +92,17 @@ _SEARCH_MODULES = ("flexflow_tpu_torch.parallel.sharding",
     f"flexflow_tpu_torch.search.{n}" for n in (
         "api", "cost_model", "dp", "eventsim", "machine_model", "mcmc",
         "measured", "space", "substitution", "table", "xfer_engine"))
+# the serving-strategy search, its simulator and calibration, the
+# autopilot, and the two command-line tools
+_SERVESEARCH_MODULES = (
+    "flexflow_tpu_torch.serving_autopilot",
+    "flexflow_tpu_torch.search.servesearch",
+    "flexflow_tpu_torch.search.ticksim",
+    "flexflow_tpu_torch.search.traffic",
+    "flexflow_tpu_torch.obs.calibrate",
+    "flexflow_tpu_torch.tools",
+    "flexflow_tpu_torch.tools.fftrace",
+    "flexflow_tpu_torch.tools.servesearch")
 # the speculative-decoding package
 _SPEC_MODULES = ("flexflow_tpu_torch.spec",
                  "flexflow_tpu_torch.spec.config",
@@ -117,6 +128,7 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
     assert set(_SERVE_OBS_MODULES) <= set(names.split())
     assert set(_FRONTEND_RUNTIME_MODULES) <= set(names.split())
     assert set(_SEARCH_MODULES) <= set(names.split())
+    assert set(_SERVESEARCH_MODULES) <= set(names.split())
 
 
 def test_no_reference_import_statements_in_port_sources():
