@@ -135,7 +135,7 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      one repeated batch (the loss must fall); each flash kernel must
      launch 16 times per step; then two remat="attention" steps, where
      the forward kernel launches twice per layer;
-  7. the whole paged server: Llama-3-8B's widths (8 of its 32 layers,
+  7. the whole paged server: Llama-3-8B's widths (4 of its 32 layers,
      SERVE7_LAYERS; bf16) through
      serve_generation(paged=True, kv_dtype="int8") with a pool smaller
      than four slots' longest sequences; a 512-token system prompt served
@@ -144,17 +144,19 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      launch once per layer and step and the fp kernel never, the shared
      pages must hit, growth must preempt, and the pool's invariants must
      hold after the drain;
-  8. training GPT-2 XL (openai-community/gpt2-xl widths: vocab 50257, dim
-     1600, 48 layers, 25 heads of 64, FFN 6400, 1024 positions; declared
+  8. training GPT-2 XL's widths (openai-community/gpt2-xl: vocab 50257,
+     dim 1600, 25 heads of 64, FFN 6400, 1024 positions) at 12 of its 48
+     layers (GPT2_TRAIN_LAYERS: the default run's time limit; declared
      bf16, fp32 from the position add on as the reference computes it,
      batch 8, seq 1024, remat="none", Adam lr 1e-4, random weights from a
      seed) through ff.fit for one epoch of 10 seeded batches, then 10
      timed steps on one repeated batch (the loss must fall); each K4
-     kernel must launch 48 times per step and K1/K2 never, and two
+     kernel must launch once a layer and step and K1/K2 never, and two
      profiled steps must show K4's fp32 forward, dq and dk/dv on their
      3xTF32 bodies only (K4's forward and backward ms a step reported);
      then the
-     masters before timed step 8 (where the loss jumps) give that step's
+     masters before timed step 8 (where the loss jumped at 48 layers) give
+     that step's
      loss and gradients, fp32, batch 1, its first 256 tokens
      (GPT2_CHECK_SEQ), on the card and on the CPU, which must agree;
   9. serving GPT-2 XL (48 layers, bf16, max_len 1024 = its position
@@ -184,18 +186,20 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      The kernels line takes K4's launches from this phase;
  12. training a Llama at Phi-3-mini's widths
      (microsoft/Phi-3-mini-4k-instruct: vocab 32064, dim 3072, 32 heads
-     and 32 kv heads of 96, FFN 8192, rope theta 10000; 16 of its 32
-     layers) as phase 11 trains the 200m one: each K4 kernel must launch
-     16 times per step, on its tensor-core bodies at head dim 96 only
+     and 32 kv heads of 96, FFN 8192, rope theta 10000; 8 of its 32
+     layers: PHI3_LAYERS) as phase 11 trains the 200m one: each K4 kernel
+     must launch once a layer and step, on its tensor-core bodies at
+     head dim 96 only
      (the kernels line records these launches under "phi3_mini");
  13. training a Llama at OpenLLaMA-3B's widths
      (openlm-research/open_llama_3b: vocab 32000, dim 3200, 32 heads and
      32 kv heads of 100, FFN 8640, rope theta 10000, rms_norm_eps 1e-6,
-     untied embeddings; 16 of its 26 layers) the same way: each K4 kernel
-     must launch 16 times per step, on its tensor-core bodies at head dim
-     100 only, whose tiles are filled by cp.async (the kernels line
+     untied embeddings; 8 of its 26 layers: OPENLLAMA_LAYERS) the same
+     way: each K4 kernel must launch once a layer and step, on its
+     tensor-core bodies at head dim 100 only, whose tiles are filled by
+     cp.async (the kernels line
      records these launches under "openllama_3b");
- 14. training phase 12's Llama at Phi-3-mini's widths (16 layers, head
+ 14. training phase 12's Llama at Phi-3-mini's widths (8 layers, head
      dim 96; its family's 128k-context variant shares these widths) at
      8192 tokens, batch 1, through ring attention over {"seq": 4}, as
      phase 10 trains bench_1b: per layer and step K5 folds 10 blocks and
@@ -405,8 +409,9 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      compiled without the search; both fit 8 steps and the losses must
      agree within the catalog's bf16 band (hf-import-parity-atol); K1
      must launch in the measurement, the playoff and the fit, K2 in the
-     playoff and the fit; (b) bench_1b's plain graph at batch 1 x 8192
-     over {"seq": 4}, searched at budget 12 with validate_top_k=2: the
+     playoff and the fit; (b) bench_1b's plain graph at P22_RING_LAYERS
+     of its 16 layers, batch 1 x 8192 over {"seq": 4}, searched at budget
+     12 with validate_top_k=2: the
      pool must keep a ring candidate, which the playoff times through K5
      and K4's backward beside the unrewritten graph (and any Ulysses
      candidate); modeled ms price 4 H100s, timed ms this one card (not
@@ -435,8 +440,8 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      2 layers: ServingAutopilot.swap_to from page 16 / chunk 32 to chunk
      16 under continuous submits: nothing dropped, every stream equal to
      the one-tick loop's, at least one request carried, the pool
-     adopted, the cutover ms; then the same swap in four fresh
-     processes (`--swap-probe`: cold, warm, warm, cold), the
+     adopted, the cutover ms; then the same swap in two fresh
+     processes (`--swap-probe`: cold, then warm), the
      successor's first tick and the stall after cutover with the warm-up
      off and on; after each part, K3 held to its plain
      version on the very inputs of that part's calls (the first, 8th,
@@ -444,6 +449,34 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      window, batch), each geometry timed (the kernels line records K3's
      launches of (a) and of (b)'s calibrated winner under "servesearch",
      with those geometries' checks and times).
+24. One process per card, its ranks started by this script
+    (`--dist-worker`, after this process built every kernel) and put on
+    the one card over gloo (NCCL refuses two ranks of one communicator
+    on one card; gloo stages the CUDA tensors through the host), each
+    cell through FFModel -> build_llama -> compile(Adam, accuracy and
+    sparse cross-entropy metrics, llama_tp_strategy) -> fit on the
+    global batch (each rank feeds its rows; the step ms from CUDA events
+    around each step of fit's loop): (a) fp32, a Llama at D 128 (dim
+    256, 2 heads, 2 kv heads), 4 ranks at data 2 x model 2, 3 Adam
+    steps, PSUM and ZeRO-1 (SHARDED), every rank's losses and fit
+    metrics and the gathered parameters held to one process on the card
+    (1e-4 relative; parameters by each leaf's error norm over its norm);
+    (b) bf16 at Llama-3-8B's widths, P24B_LAYERS layers, fp32 masters,
+    global batch 4 x 1024, 4 ranks at data 2 x model 2 with ZeRO-1, one
+    step: every rank's loss the same all-reduced value, finite, and with
+    the fit metrics within 2e-2 of one process on the card (run first,
+    its parameters and Adam first moment saved, then freed), every
+    leaf's parameters within 2e-2 and first moment (the gradient: (1 -
+    beta1) g) within 0.1 of that run's by the worst leaf's error norm
+    over its norm, each rank comparing its own pieces; each rank's K1/K2
+    launches (16 local heads, 4 kv heads), peak memory and step ms (gloo
+    through the host: not a figure for several cards); (c) one rank over
+    NCCL (world 1): init, each collective the port calls, on CUDA
+    tensors, and one fit step; (d) compile(search_budget=16) over 4 ranks
+    at data 4, a Llama at D 64 (K4): every rank adopts rank 0's strategy
+    (one fingerprint) and one fit step runs. The kernels line records
+    (a)'s, (b)'s and (d)'s launches under "dist_fp32", "dist_llama3_8b"
+    and "dist_search", timed at the ranks' local attention shapes.
 Each phase, and each part of phases 2 and 3, logs its wall seconds on a
 `phase_time` line. The line before the last is the kernel list as JSON;
 the last line is {"ok": true, "device": {...}}. Exits non-zero without
@@ -511,7 +544,12 @@ from flexflow_tpu_torch.model import carry_params
 from flexflow_tpu_torch.models.bert import BertConfig, build_bert
 from flexflow_tpu_torch.models.dlrm import build_dlrm
 from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2
-from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
+from flexflow_tpu_torch.ffconst import ParamSyncType
+from flexflow_tpu_torch.models.llama import (
+    LlamaConfig,
+    build_llama,
+    llama_tp_strategy,
+)
 from flexflow_tpu_torch.models.mixtral import MixtralConfig, build_mixtral
 from flexflow_tpu_torch.models.nmt import NMTConfig, build_nmt
 from flexflow_tpu_torch.models.resnet import build_resnet50
@@ -722,11 +760,18 @@ RING_LOGITS_RTOL = 0.1
 # depth 2, so that K5's cp.async-loaded body (D 100) runs on a model path
 # and the phase stays short
 RING_OPENLLAMA_LAYERS = 2
+# captures profile_flash makes of the same steps while one comes up
+# short of the kernels' own launch counts
+PROFILE_ATTEMPTS = 3
 GPT2_POSITIONS = 1024  # n_positions: the position table, serving's max_len
 GPT2_BATCHES = 10
-# phase 8's timed step (1-based) whose loss jumps in every run, and the
+# phase 8 trains GPT-2 XL's widths at this depth (of 48: the default run's
+# time limit, which every phase shares)
+GPT2_TRAIN_LAYERS = 12
+# phase 8's timed step (1-based) whose loss jumped in every run at 48
+# layers (at 12 it falls), and the
 # card-vs-CPU gradient check of it: each leaf's gradient in norm, fp32
-# with TF32 off, summation order only over 48 layers. It takes the first
+# with TF32 off, summation order only over the layers. It takes the first
 # GPT2_CHECK_SEQ tokens of the step's first sequence: the CPU's side of
 # all 1024 took 62-74 s of the run, and its time on a shared host varies
 GPT2_CHECK_STEP, GPT2_GRAD_RTOL, GPT2_CHECK_SEQ = 8, 1e-3, 256
@@ -743,9 +788,10 @@ def llama_200m() -> LlamaConfig:
                        kv_heads=8, hidden=2816)
 
 
-# phase 12: Phi-3-mini's 32 layers cut to 16 (fp32 masters, gradients and
-# Adam's two moments of the whole depth do not fit one 80 GB card)
-PHI3_LAYERS = 16
+# phase 12: Phi-3-mini's 32 layers cut to 8 (fp32 masters, gradients and
+# Adam's two moments of the whole depth do not fit one 80 GB card; 8 for
+# the default run's time limit, which every phase shares)
+PHI3_LAYERS = 8
 
 
 def phi3_mini() -> LlamaConfig:
@@ -760,10 +806,11 @@ def phi3_mini() -> LlamaConfig:
                        rope_theta=10000.0, norm_eps=1e-5)
 
 
-# phase 13: OpenLLaMA-3B's 26 layers cut to 16 (fp32 masters, gradients
+# phase 13: OpenLLaMA-3B's 26 layers cut to 8 (fp32 masters, gradients
 # and Adam's two moments of the whole depth, with the activations of a
-# batch of 8 x 1024, do not fit one 80 GB card)
-OPENLLAMA_LAYERS = 16
+# batch of 8 x 1024, do not fit one 80 GB card; 8 for the default run's
+# time limit, which every phase shares)
+OPENLLAMA_LAYERS = 8
 
 
 def open_llama_3b() -> LlamaConfig:
@@ -2608,8 +2655,9 @@ def phase_serve(seed: int, card: str) -> dict:
 # defrag — serving Llama-3-8B
 
 # serve_generation's settings for phase 7 and its traffic; its Llama-3-8B
-# at 8 of 32 layers (58 s of the run at 32, almost all host time a layer)
-SERVE7_LAYERS = 8
+# at 4 of 32 layers (58 s of the run at 32, almost all host time a layer,
+# against the default run's time limit, which every phase shares)
+SERVE7_LAYERS = 4
 SERVE7 = dict(slots=4, max_len=2048, page_size=64, prefill_chunk=64,
               kv_dtype="int8")
 SYS_LEN, SUFFIX_MIN, SUFFIX_MAX, SERVE7_REQUESTS, SERVE7_NEW = (
@@ -3223,14 +3271,15 @@ def _k4_launches() -> dict:
 
 
 def phase_gpt2_train(seed: int, card: str) -> dict:
-    """GPT-2 XL, bf16 (fp32 from the position add on, as the reference
+    """GPT-2 XL's widths at GPT2_TRAIN_LAYERS of its 48 layers, bf16
+    (fp32 from the position add on, as the reference
     computes it), batch 8, seq 1024, remat none: one ff.fit epoch of 10
     seeded batches (the main path; counts reset just before, read just
     after), then 10 timed train steps on one repeated batch, then two
     profiled ones. Each K4 kernel must launch once per layer and step,
     K1/K2 and the ragged kernels never, and K4's fp32 forward, dq and
     dk/dv run their 3xTF32 bodies alone."""
-    cfg = gpt2_xl()
+    cfg = dataclasses.replace(gpt2_xl(), layers=GPT2_TRAIN_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     ff = _train_model(cfg, DEVICE, batch=TRAIN_BATCH, seq=GPT2_POSITIONS,
@@ -3282,13 +3331,13 @@ def phase_gpt2_train(seed: int, card: str) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # two profiled steps: K4's bodies (fp32 forward, dq and dk/dv on the
     # 3xTF32 ones) and K4's device ms a step, forward and backward
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
-        torch.cuda.synchronize()
-    bodies = flash_bodies(prof, 2)
+    def step():
+        nonlocal tr, ntr, opt, m
+        tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
+
+    prof, read, short = profile_flash(step, 2, {
+        "k4": ("HeadMajor", r"flash_bh_(fwd|dq|dkv)_kernel<", K4_KERNELS)})
+    bodies = read["k4"]
     k4_us = {"fwd": 0.0, "bwd": 0.0}
     for e in _device_events(prof):
         t32 = tf32_name(e.key) or ""
@@ -3311,7 +3360,8 @@ def phase_gpt2_train(seed: int, card: str) -> dict:
         "timed_launches": timed_launches, "step_ms": step_s * 1e3,
         "tokens_per_s": tokens / step_s, "flops_per_step": flops,
         "mfu": flops / step_s / PEAK_OPS[torch.bfloat16],
-        "peak_mem_gb": peak_gb, "profile": bodies, "card": card,
+        "peak_mem_gb": peak_gb, "profile": bodies,
+        "profile_short_captures": short, "card": card,
     }
     log(f"train_gpt2 {json.dumps(res)}")
     del ff, ex, tr, ntr, opt, m
@@ -3345,15 +3395,15 @@ def _loss_and_grads(ff, x, y):
 
 
 def gpt2_step_check(cfg, saved, x, y, seed) -> dict:
-    """Phase 8's step GPT2_CHECK_STEP (where its loss jumps, 9.90 ->
-    11.34, with the same digits in every run) looked at again: the
+    """Phase 8's step GPT2_CHECK_STEP (where its loss jumped at 48 layers,
+    9.90 -> 11.34, with the same digits in every run) looked at again: the
     masters before that step, loaded into GPT-2 XL built in fp32 (TF32
     off) on the card and on the CPU, give the loss and every gradient of
     the step's first sequence, its first GPT2_CHECK_SEQ tokens (batch 1). If the two agree the card computes the step as the CPU's
     plain path does, and the jump is the optimizer's dynamics (Adam on a
     repeated batch), not a fault of the card's kernels. Agreement: the
     loss to TRAIN_LOSS_RTOL; all gradients together, and every leaf's, to
-    GPT2_GRAD_RTOL in norm (fp32 summation order over 48 layers); except
+    GPT2_GRAD_RTOL in norm (fp32 summation order over the layers); except
     the key biases, whose gradient is 0 in exact arithmetic (softmax does
     not see a constant added to a row of scores), so both sides hold only
     rounding noise there: each must be under GPT2_GRAD_RTOL of the norm of
@@ -3432,8 +3482,6 @@ def phase_ring_train(seed: int, card: str, cfg=None,
     the ring model's at the initial weights (bf16, so within
     RING_LOGITS_RTOL of their largest). Logged as train_ring_`label`
     (before the ring half's checks) and train_ring_`label`_no_ring."""
-    from torch.profiler import ProfilerActivity, profile
-
     cfg = cfg or LlamaConfig.bench_1b()
     head_dim = cfg.dim // cfg.heads
     mesh = {"seq": RING_SHARDS}
@@ -3479,13 +3527,16 @@ def phase_ring_train(seed: int, card: str, cfg=None,
     losses = [float(v) for v in losses]
     timed_launches = {k.name: k.launches for k in ring_kernels}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def step():
+        nonlocal tr, ntr, opt, m
         tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
-        torch.cuda.synchronize()
-    carry = flash_bodies(prof, 1, "HeadMajorCarry",
-                         r"flash_bh_fwd_(carry)_kernel<", "k5")
-    k4 = flash_bodies(prof, 1)
+
+    prof, read, short = profile_flash(step, 1, {
+        "k5": ("HeadMajorCarry", r"flash_bh_fwd_(carry)_kernel<",
+               (FLASH_ATTENTION_BH_FWD_CARRY,)),
+        "k4": ("HeadMajor", r"flash_bh_(fwd|dq|dkv)_kernel<", K4_KERNELS)})
+    carry, k4 = read["k5"], read["k4"]
     del prof
     flops = llama_flops_per_token(cfg, RING_SEQ) * RING_SEQ
     res = {
@@ -3502,7 +3553,7 @@ def phase_ring_train(seed: int, card: str, cfg=None,
         "tokens_per_s": RING_SEQ / step_s, "flops_per_step": flops,
         "mfu": flops / step_s / PEAK_OPS[torch.bfloat16],
         "peak_mem_gb": peak_gb, "profile": carry, "k4_profile": k4,
-        "card": card,
+        "profile_short_captures": short, "card": card,
     }
     if isinstance(carry["k5_share_of_device_time"], float):
         # the device's idle share of a timed step
@@ -3629,6 +3680,48 @@ def flash_bodies(prof, n: int, tag: str = "HeadMajor",
             "not measured"}
 
 
+def profile_flash(step, n: int, families: dict) -> tuple:
+    """Profile n calls of `step` (CPU and CUDA activities) and read each
+    family of `families` ({label: (tag, cuda_core, wrapper kernels)})
+    through flash_bodies(prof, n, tag, cuda_core, label). A torch.profiler
+    capture can lose kernel records (on an H100 80GB HBM3 at 700.00 W,
+    phase 14's profiled step once held 16 of the 20 K5 launches its
+    wrapper counted, on the tensor-core body alone, its device time short
+    by theirs), so while a family's bodies hold fewer records than its
+    wrappers counted over the calls, the calls are captured again,
+    PROFILE_ATTEMPTS captures in all. Returns (prof, {label: bodies},
+    short): the last capture, read, and for each short capture {label:
+    [recorded, counted]}. Only the count of records is retried: the
+    callers hold the last capture's bodies (which body, which head dims,
+    how many a step) to what they must be, so a launch that reaches no
+    body's name fails every capture and then the caller's check."""
+    from torch.profiler import ProfilerActivity, profile
+
+    short = []
+    for _ in range(PROFILE_ATTEMPTS):
+        before = {k.name: k.launches for fam in families.values()
+                  for k in fam[2]}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+        read = {label: flash_bodies(prof, n, tag, cuda_core, label)
+                for label, (tag, cuda_core, _) in families.items()}
+        missing = {}
+        for label, (_, _, kernels) in families.items():
+            recorded = n * sum(c for body in read[label][
+                "launches_per_step"].values() for c in body.values())
+            counted = sum(k.launches - before[k.name] for k in kernels)
+            if recorded < counted:
+                missing[label] = [recorded, counted]
+        if not missing:
+            break
+        short.append(missing)
+        log(f"profile_short {json.dumps(missing)}")
+    return prof, read, short
+
+
 def _train_head_major(seed: int, card: str, cfg, label: str) -> dict:
     """`cfg` (a head dim that is not a multiple of 128, so every attention
     takes the head-major route), bf16, fp32 masters, batch 8, seq 1024,
@@ -3640,8 +3733,6 @@ def _train_head_major(seed: int, card: str, cfg, label: str) -> dict:
     model's head dim (flash_*_wgmma_kernel<HeadMajor, D, ...>) and none
     on its CUDA-core bodies; reports K4's share of the device time and
     the device's idle share of a timed step. Logged as `label`."""
-    from torch.profiler import ProfilerActivity, profile
-
     head_dim = cfg.dim // cfg.heads
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -3683,12 +3774,15 @@ def _train_head_major(seed: int, card: str, cfg, label: str) -> dict:
     timed_launches = _k4_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n = 2
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
-        torch.cuda.synchronize()
-    bodies = flash_bodies(prof, n)
+
+    def step():
+        nonlocal tr, ntr, opt, m
+        tr, ntr, opt, m = ex.train_step(tr, ntr, opt, by, bx)
+
+    prof, read, short = profile_flash(step, n, {
+        "k4": ("HeadMajor", r"flash_bh_(fwd|dq|dkv)_kernel<", K4_KERNELS)})
+    bodies = read["k4"]
+    del prof
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = llama_flops_per_token(cfg, TRAIN_SEQ) * tokens
     res = {
@@ -3704,7 +3798,8 @@ def _train_head_major(seed: int, card: str, cfg, label: str) -> dict:
         "timed_launches": timed_launches, "step_ms": step_s * 1e3,
         "tokens_per_s": tokens / step_s, "flops_per_step": flops,
         "mfu": flops / step_s / PEAK_OPS[torch.bfloat16],
-        "peak_mem_gb": peak_gb, "profile": bodies, "card": card,
+        "peak_mem_gb": peak_gb, "profile": bodies,
+        "profile_short_captures": short, "card": card,
     }
     if isinstance(bodies["k4_share_of_device_time"], float):
         # the device's idle share of a timed step
@@ -7108,6 +7203,9 @@ def phase_frontends_checkpoints(seed: int, card: str) -> dict:
 
 P22_STEPS = 8  # 22a: fit steps, searched and unsearched
 P22_RING_STEPS = 4  # 22b: fit steps of the adopted winner
+# 22b: bench_1b's depth there (of 16: the default run's time limit,
+# which every phase shares)
+P22_RING_LAYERS = 8
 # the catalog's bf16 band (analysis/num_budgets.py): a bf16 loss of a
 # rewritten graph against the graph as built, on the same weights
 P22_LOSS_ATOL = num_budgets.tolerance("hf-import-parity-atol")
@@ -7290,8 +7388,9 @@ def _eval_loss(ff, bx, by) -> float:
 
 
 def phase_search_ring(seed: int, problems: list) -> dict:
-    """22b: the plain bench_1b graph (no use_ring_attention) at batch 1 x
-    RING_SEQ over {"seq": RING_SHARDS}, searched at budget 12 with
+    """22b: the plain bench_1b graph (no use_ring_attention) at
+    P22_RING_LAYERS layers, batch 1 x RING_SEQ over {"seq": RING_SHARDS},
+    searched at budget 12 with
     validate_top_k=2 from the weights of the same graph compiled without
     the search. The pool must keep a ring-attention candidate; the
     playoff times it (K5 and K4's backward) beside the unrewritten graph
@@ -7300,7 +7399,8 @@ def phase_search_ring(seed: int, problems: list) -> dict:
     not comparable. The winner fits P22_RING_STEPS steps on one repeated
     batch (finite, falling); the ring candidate's loss on the initial
     weights holds to the unrewritten graph's within P22_LOSS_ATOL."""
-    cfg = LlamaConfig.bench_1b()
+    cfg = dataclasses.replace(LlamaConfig.bench_1b(),
+                              layers=P22_RING_LAYERS)
     mesh = {"seq": RING_SHARDS}
     x, y = _token_batches(1, RING_SEQ, cfg.vocab_size, seed)
     bx, by = (torch.from_numpy(a).to(DEVICE) for a in (x, y))
@@ -7754,7 +7854,10 @@ def swap_fixture(seed: int):
 
 # 23c's probe of the swap's warm-up: one fresh process a mode, in this
 # order, so that no swap inherits another's loaded modules or allocator
-P23_PROBE_ORDER = ("cold", "warm", "warm", "cold")
+# (one process of each, as a probe process costs 17-19 s of the default
+# run's time limit on an H100 host; ("cold", "warm", "warm", "cold")
+# repeats each mode in an order that cancels drift)
+P23_PROBE_ORDER = ("cold", "warm")
 
 
 def swap_probe(seed: int, mode: str) -> dict:
@@ -7966,6 +8069,471 @@ def phase_servesearch(seed: int, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 24: one process per card, its ranks on the one card over gloo
+
+P24_RANKS = 4
+P24_MESH = {"data": 2, "model": 2}
+P24_METRICS = [MetricsType.ACCURACY,
+               MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY]
+# (a) fp32 at D 128 (dim 256, 2 heads, 2 kv heads): 1 head a rank
+P24A_CFG = LlamaConfig(vocab_size=512, dim=256, layers=2, heads=2,
+                       kv_heads=2, hidden=512, rope_theta=10000.0)
+P24A_BATCH, P24A_SEQ, P24A_STEPS = 4, 256, 3
+P24A_RTOL = 1e-4
+# (b) Llama-3-8B's widths at 2 layers, bf16, global batch 4 x 1024, one
+# step (a gloo step through the host takes ~13-19 s): the loss, the fit
+# metrics and every parameter within P24B_RTOL of one process, and its
+# gradient, leaf by leaf through Adam's first moment (m = (1 - beta1) g
+# after one step), within P24B_GRAD_RTOL: bf16 gradients of two
+# summation orders differ by ~1e-2 at random init, while a gradient left
+# partial over `model` is off by ~1 (PERF.md section 6, PR 23); the loss
+# and the parameters after one step barely see such a fault
+P24B_LAYERS, P24B_BATCH, P24B_SEQ, P24B_STEPS = 2, 4, 1024, 1
+P24B_RTOL = 2e-2
+P24B_GRAD_RTOL = 0.1
+# (d) the search at D 64 (dim 256, 4 heads, 2 kv heads): K4's route
+P24D_CFG = LlamaConfig(vocab_size=512, dim=256, layers=2, heads=4,
+                       kv_heads=2, hidden=512, rope_theta=10000.0)
+P24D_BATCH, P24D_SEQ, P24D_BUDGET = 8, 128, 16
+P24D_MESH = {"data": 4}
+P24_TIMEOUT_S = 600
+
+
+def _leaves(tree) -> list:
+    """[(node key, weight, leaf)] of a tree, in one order on every rank."""
+    return [(nk, wn, tree[nk][wn]) for nk in sorted(tree)
+            for wn in sorted(tree[nk])]
+
+
+def p24_save_ref(ref_dir: str, trees: dict):
+    """The one-process run's whole leaves of each tree in `trees` ({name:
+    tree}), one .npy a leaf, for the ranks to cut their pieces from."""
+    os.makedirs(ref_dir, exist_ok=True)
+    for name, tree in trees.items():
+        for i, (_, _, t) in enumerate(_leaves(tree)):
+            np.save(os.path.join(ref_dir, f"{name}_{i}.npy"),
+                    t.detach().float().cpu().numpy())
+
+
+def p24_rel_to_ref(ex, ref_dir: str, name: str, tree, specs) -> dict:
+    """Each leaf of this rank's `tree` (laid out as `specs`) against the
+    same piece of the one-process run's leaf (p24_save_ref): the norm of
+    the difference over the norm of the reference, each a sum of squares
+    over every rank (a leaf the ranks share is counted alike everywhere,
+    which leaves the ratio as it is). Every rank calls it."""
+    import warnings
+
+    import torch.distributed as tdist
+
+    sums, keys = [], []
+    for i, (nk, wn, t) in enumerate(_leaves(tree)):
+        whole = np.load(os.path.join(ref_dir, f"{name}_{i}.npy"),
+                        mmap_mode="r")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # a read-only map
+            want = ex.pmesh.shard(torch.from_numpy(whole), specs[nk][wn])
+        want = want.to(t.device, torch.float32)
+        got = t.detach().float()
+        sums.append(torch.stack([(got - want).square().sum(),
+                                 want.square().sum()]).double().cpu())
+        keys.append(f"{nk}/{wn}")
+    tot = torch.stack(sums)
+    tdist.all_reduce(tot)
+    rel = (tot[:, 0] / tot[:, 1].clamp_min(1e-300)).sqrt()
+    return dict(zip(keys, rel.tolist()))
+
+
+def p24_train(cell: str, seed: int, mesh=None, sync: str = "psum",
+              steps=None, ref_dir=None) -> dict:
+    """Cell (a) or (b) through FFModel -> build_llama -> compile(Adam,
+    the accuracy and cross-entropy metrics, llama_tp_strategy on a mesh)
+    -> fit over the global batches (each rank feeds its piece): the
+    losses and step ms (CUDA events around each step of fit's own loop,
+    from a wrapper of the executor's train_step), fit's metrics, the
+    launches of the fit (counts set to 0 just before, read just after),
+    peak memory, and for (a) the gathered parameters. For (b) with
+    `ref_dir`: one process saves its parameters and Adam's first moment
+    there; the ranks hold theirs to it (p24_rel_to_ref)."""
+    if cell == "a":
+        cfg, batch, seq = P24A_CFG, P24A_BATCH, P24A_SEQ
+        steps, dtype = steps or P24A_STEPS, DataType.FLOAT
+    else:
+        cfg, batch, seq = llama3_8b_cut(P24B_LAYERS), P24B_BATCH, P24B_SEQ
+        steps, dtype = steps or P24B_STEPS, DataType.BFLOAT16
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ff = FFModel(FFConfig(batch_size=batch, seed=seed, device=DEVICE,
+                          mesh_shape=mesh, param_sync=ParamSyncType(sync)))
+    build_llama(ff, cfg, batch_size=batch, seq_len=seq, dtype=dtype)
+    ff.compile(optimizer=AdamOptimizer(lr=TRAIN_LR),
+               loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+               metrics=P24_METRICS,
+               strategy=llama_tp_strategy(cfg) if mesh else None)
+    compile_s = time.monotonic() - t0
+    x, y = _token_batches(batch * steps, seq, cfg.vocab_size, seed + 24)
+    ex = ff.executor
+    step = ex.train_step
+    losses, events = [], []
+
+    def recorded(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*args, **kw)
+        end.record()
+        losses.append(out[3]["loss"])
+        events.append((start, end))
+        return out
+
+    ex.train_step = recorded
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.monotonic()
+    try:
+        pm = ff.fit(x, y, epochs=1, verbose=False)
+        torch.cuda.synchronize()
+    finally:
+        del ex.train_step
+    fit_s = time.monotonic() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    tr, _ = ff._params
+    opt = ff._opt_state
+    res = {"cell": cell, "sync": sync, "mesh": mesh,
+           "losses": [float(v) for v in losses],
+           "step_ms": [a.elapsed_time(b) for a, b in events],
+           "metrics": {"correct": pm.train_correct,
+                       "sparse_cce": pm.sparse_cce_loss / pm.train_all,
+                       "samples": pm.train_all},
+           "compile_s": compile_s, "fit_s": fit_s, "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "local_params": sum(t.numel() for _, _, t in _leaves(tr))}
+    if cell == "a":
+        full = ex.gather_params(tr)
+        res["params"] = {f"{k}/{n}": t.cpu().numpy()
+                         for k, w in full.items() for n, t in w.items()}
+    if sync == "sharded" and mesh:
+        res["opt_m_numel"] = sum(t.numel() for _, _, t in _leaves(opt["m"]))
+    if ref_dir is not None:
+        t0 = time.monotonic()
+        if mesh is None:
+            p24_save_ref(ref_dir, {"params": tr, "adam_m": opt["m"]})
+        else:
+            res["param_rel"] = p24_rel_to_ref(ex, ref_dir, "params", tr,
+                                              ex.param_specs())
+            res["adam_m_rel"] = p24_rel_to_ref(
+                ex, ref_dir, "adam_m", opt["m"], ex.opt_state_specs(opt)["m"])
+        res["ref_s"] = time.monotonic() - t0
+    del ff, ex, tr, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def p24_search(seed: int) -> dict:
+    """Cell (d): compile(search_budget=P24D_BUDGET) over the ranks (rank 0
+    searches, every rank takes its graph and strategy), then one fit
+    step of the searched model: the strategy's fingerprint, the loss and
+    the step's launches."""
+    import hashlib
+
+    from flexflow_tpu_torch.runtime import distributed
+
+    ff = FFModel(FFConfig(batch_size=P24D_BATCH, seed=seed, device=DEVICE,
+                          mesh_shape=P24D_MESH, search_budget=P24D_BUDGET))
+    build_llama(ff, P24D_CFG, batch_size=P24D_BATCH, seq_len=P24D_SEQ,
+                dtype=DataType.FLOAT)
+    ff.compile(optimizer=AdamOptimizer(lr=TRAIN_LR),
+               loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+               metrics=[MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY])
+    doc = json.dumps({
+        "strategy": distributed.strategy_to_json(
+            {n.name: n.sharding for n in ff.graph.nodes
+             if n.sharding is not None}),
+        "nodes": [[n.name, n.op_type.name] for n in ff.executor.topo]},
+        sort_keys=True)
+    x, y = _token_batches(P24D_BATCH, P24D_SEQ, P24D_CFG.vocab_size,
+                          seed + 25)
+    _reset_launches()
+    pm = ff.fit(x, y, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    res = {"cell": "d", "fingerprint": hashlib.sha1(doc.encode()).hexdigest(),
+           "winner_rules": ff.search_stats.get("winner_rules"),
+           "loss": pm.sparse_cce_loss / pm.train_all,
+           "samples": pm.train_all,
+           "launches": {k.name: k.launches for k in KERNELS}}
+    del ff
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def p24_nccl(seed: int) -> dict:
+    """Cell (c), one rank over NCCL (world 1): each collective the port
+    calls, on CUDA tensors, checked, then one fit step of (a)'s model
+    through the same entry points."""
+    import torch.distributed as tdist
+
+    x = torch.arange(8, dtype=torch.float32, device=DEVICE)
+    checks = {}
+    y = x.clone()
+    tdist.all_reduce(y)
+    checks["all_reduce"] = bool(torch.equal(y, x))
+    parts = [torch.empty_like(x)]
+    tdist.all_gather(parts, x)
+    checks["all_gather"] = bool(torch.equal(parts[0], x))
+    out = torch.empty_like(x)
+    rs = getattr(tdist, "reduce_scatter_single", None) \
+        or tdist.reduce_scatter_tensor
+    rs(out, x)
+    checks["reduce_scatter"] = bool(torch.equal(out, x))
+    out = torch.empty_like(x)
+    tdist.all_to_all_single(out, x)
+    checks["all_to_all_single"] = bool(torch.equal(out, x))
+    y = x.clone()
+    tdist.broadcast(y, src=0)
+    checks["broadcast"] = bool(torch.equal(y, x))
+    step = p24_train("a", seed, steps=1)
+    return {"cell": "c", "backend": tdist.get_backend(),
+            "world": tdist.get_world_size(), "collectives": checks,
+            "losses": step["losses"], "launches": step["launches"]}
+
+
+def dist_worker(cell: str, out_dir: str, seed: int) -> int:
+    """One rank of phase 24 (`--dist-worker`): join the process group on
+    card 0 (gloo, or NCCL for cell "c"), run the cell's tasks, write this
+    rank's results under `out_dir`, leave the group. (b) reads the one
+    process's leaves from "ref_b" beside `out_dir`."""
+    import pickle
+
+    from flexflow_tpu_torch.runtime import distributed
+
+    t0 = time.monotonic()
+    distributed.initialize(backend="nccl" if cell == "c" else "gloo",
+                           device="cuda:0", timeout_s=P24_TIMEOUT_S)
+    rank = distributed.process_index()
+    init_s = time.monotonic() - t0
+    if cell == "c":
+        results = [p24_nccl(seed)]
+    else:
+        ref_b = os.path.join(os.path.dirname(out_dir), "ref_b")
+        results = [p24_train("a", seed, P24_MESH, "psum"),
+                   p24_train("a", seed, P24_MESH, "sharded"),
+                   p24_search(seed),
+                   p24_train("b", seed, P24_MESH, "sharded", ref_dir=ref_b)]
+    results[0]["init_s"] = init_s
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+    distributed.shutdown()
+    return 0
+
+
+def p24_start(cell: str, n: int, seed: int, work: str) -> tuple:
+    """Start `n` ranks of `cell` (this script, `--dist-worker`) on card 0,
+    writing under `work`/`cell`; returns (cell, that directory, [(process,
+    log file)])."""
+    import socket
+
+    out_dir = os.path.join(work, cell)
+    os.makedirs(out_dir)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
+                   LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), OMP_NUM_THREADS="2")
+        log_f = open(os.path.join(out_dir, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker",
+             cell, "--dist-dir", out_dir, "--seed", str(seed)], env=env,
+            stdout=log_f, stderr=subprocess.STDOUT), log_f))
+    return cell, out_dir, procs
+
+
+def p24_wait(groups) -> list:
+    """Wait for every rank of every group p24_start started; a rank that
+    fails, or a run past P24_TIMEOUT_S, fails the phase (every rank of
+    every group is stopped). Returns each group's per-rank results."""
+    import pickle
+
+    everyone = [(cell, r, p) for cell, _, procs in groups
+                for r, (p, _) in enumerate(procs)]
+    deadline = time.monotonic() + P24_TIMEOUT_S
+    failed = None
+    try:
+        while any(p.poll() is None for _, _, p in everyone):
+            bad = [(c, r) for c, r, p in everyone if p.poll() not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                failed = bad or "timeout"
+                break
+            time.sleep(0.2)
+        if failed is None:
+            failed = [(c, r) for c, r, p in everyone if p.returncode != 0] \
+                or None
+    finally:
+        for _, _, procs in groups:
+            for p, log_f in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+                log_f.close()
+    if failed is not None:
+        tails = []
+        for cell, out_dir, procs in groups:
+            for r in range(len(procs)):
+                with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+                    tails.append(f"--- 24{cell} rank {r} ---\n"
+                                 f"{f.read()[-3000:]}")
+        raise AssertionError(f"phase 24: ranks {failed} failed\n"
+                             + "\n".join(tails))
+    out = []
+    for _, out_dir, procs in groups:
+        per = []
+        for r in range(len(procs)):
+            with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+                per.append(pickle.load(f))
+        out.append(per)
+    return out
+
+
+def _leaf_rel(got: dict, want: dict) -> float:
+    """The largest relative error of any leaf: the norm of its difference
+    over its norm."""
+    return max(float(np.linalg.norm(got[k] - w)
+                     / max(np.linalg.norm(w), 1e-30))
+               for k, w in want.items())
+
+
+def phase_dist(seed: int, card: str) -> dict:
+    """Phase 24: one process per card on the one card (see the module
+    docstring). The one-process references run first, in this process,
+    and are freed before the ranks start; (b)'s leaves go to a temporary
+    directory the ranks read, removed at the end."""
+    problems = []
+    work = tempfile.mkdtemp(prefix="p24_")
+    try:
+        return _phase_dist(seed, card, work, problems)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phase_dist(seed: int, card: str, work: str, problems: list) -> dict:
+    ref_a = timed("24a:one_process", p24_train, "a", seed)
+    ref_b = timed("24b:one_process", p24_train, "b", seed,
+                  ref_dir=os.path.join(work, "ref_b"))
+    # the local attention shapes the ranks' K1/K2 run at, each kernel held
+    # to its plain version there and timed
+    flash_b = timed("24b:k1k2_local", phase_flash_kernels, card,
+                    (P24B_BATCH // P24_MESH["data"], P24B_SEQ,
+                     32 // P24_MESH["model"], 8 // P24_MESH["model"], 128),
+                    "llama3_8b_tp2_local")
+    flash_a = timed("24a:k1k2_local", phase_flash_kernels, card,
+                    (P24A_BATCH // P24_MESH["data"], P24A_SEQ, 1, 1, 128),
+                    "p24a_tp2_local")
+    k4_d = k4_check(P24D_BATCH // P24D_MESH["data"] * P24D_CFG.heads,
+                    P24D_SEQ, P24D_SEQ, P24D_CFG.dim // P24D_CFG.heads,
+                    True, torch.float32, seed, timed=True)
+    if not all(r["ok"] for r in k4_d.values()):
+        problems.append(f"K4 at (d)'s local shape: {k4_d}")
+    ref_a_params = ref_a.pop("params")
+    free_gb = free_card()
+    # the NCCL rank runs beside the four gloo ranks (its own world of one)
+    ranks, nccl = timed("24:ranks", p24_wait, [
+        p24_start("abd", P24_RANKS, seed, work),
+        p24_start("c", 1, seed, work)])
+    nccl = nccl[0][0]
+    res = {"card": card, "allocated_gb_before_ranks": free_gb,
+           "a": {"one_process": ref_a}, "b": {"one_process": ref_b},
+           "c": nccl, "k1k2_local": {"b": flash_b, "a": flash_a},
+           "k4_local_d": k4_d}
+
+    def same_fit(cell, per, ref, rtol, correct_tol):
+        """Every rank's losses and fit metrics against one process."""
+        loss_rel = max(abs(a - b) / abs(b) for r in per
+                       for a, b in zip(r["losses"], ref["losses"]))
+        cce_rel = max(abs(r["metrics"]["sparse_cce"]
+                          - ref["metrics"]["sparse_cce"])
+                      / abs(ref["metrics"]["sparse_cce"]) for r in per)
+        if any(len(r["losses"]) != len(ref["losses"]) for r in per) \
+                or any(r["losses"] != per[0]["losses"] for r in per) \
+                or not all(np.isfinite(per[0]["losses"])) \
+                or loss_rel > rtol or cce_rel > rtol \
+                or any(r["metrics"]["samples"] != ref["metrics"]["samples"]
+                       or abs(r["metrics"]["correct"]
+                              - ref["metrics"]["correct"]) > correct_tol
+                       for r in per):
+            problems.append(
+                f"24{cell}: losses {[r['losses'] for r in per]}, metrics "
+                f"{[r['metrics'] for r in per]} vs one process "
+                f"{ref['losses']}, {ref['metrics']} (rtol {rtol})")
+        return {"loss_rel": loss_rel, "sparse_cce_rel": cce_rel}
+
+    # (a): PSUM and ZeRO-1 against the one process
+    for i, sync in enumerate(("psum", "sharded")):
+        per = [r[i] for r in ranks]
+        got = per[0].pop("params")
+        rel = _leaf_rel(got, ref_a_params)
+        max_abs = max(float(np.abs(got[k] - w).max())
+                      for k, w in ref_a_params.items())
+        for r in per[1:]:
+            r.pop("params")
+        res["a"][sync] = {"ranks": per, "param_rel": rel,
+                          "param_max_abs_diff": max_abs,
+                          **same_fit("a " + sync, per, ref_a, P24A_RTOL, 0)}
+        if rel > P24A_RTOL:
+            problems.append(f"24a {sync}: parameters {rel} relative to one "
+                            f"process, over {P24A_RTOL}")
+    # (d): every rank on rank 0's strategy, one step
+    per_d = [r[2] for r in ranks]
+    res["d"] = {"ranks": per_d}
+    if len({r["fingerprint"] for r in per_d}) != 1 \
+            or len({r["loss"] for r in per_d}) != 1 \
+            or not np.isfinite(per_d[0]["loss"]):
+        problems.append(f"24d: strategies or losses differ: {per_d}")
+    # (b): one all-reduced loss on every rank, near the one process's;
+    # every leaf's parameters and Adam first moment (its gradient) near
+    # the one process's
+    per_b = [r[3] for r in ranks]
+    res["b"].update(ranks=per_b, **same_fit("b", per_b, ref_b, P24B_RTOL, 1))
+    for key, tol in (("param_rel", P24B_RTOL),
+                     ("adam_m_rel", P24B_GRAD_RTOL)):
+        worst = max(per_b[0][key].items(), key=lambda kv: kv[1])
+        res["b"][key] = {"worst_leaf": worst[0], "rel": worst[1],
+                         "tol": tol}
+        if any(r[key] != per_b[0][key] for r in per_b) \
+                or not worst[1] <= tol:
+            problems.append(f"24b: {key} {worst} over {tol}, or the ranks "
+                            f"disagree")
+    for cell, per in (("a", res["a"]["psum"]["ranks"]), ("b", per_b)):
+        for r in per:
+            if not all(r["launches"][k.name] > 0 for k in FLASH_KERNELS):
+                problems.append(f"24{cell}: a rank's K1/K2 did not launch: "
+                                f"{r['launches']}")
+    if not all(r["launches"][k.name] > 0 for r in per_d
+               for k in K4_KERNELS):
+        problems.append(f"24d: a rank's K4 did not launch")
+    if nccl["backend"] != "nccl" or not all(nccl["collectives"].values()) \
+            or not all(np.isfinite(nccl["losses"])):
+        problems.append(f"24c: {nccl}")
+    log(f"dist {json.dumps(res, default=str)}")
+    if problems:
+        raise AssertionError("phase 24: " + "; ".join(problems))
+    return res
+
+
+def _dist_launches(p24, part: str, kernel) -> int:
+    """A kernel's launches over every rank of a phase 24 cell."""
+    if p24 is None:
+        return 0
+    if part == "a":
+        per = p24["a"]["psum"]["ranks"] + p24["a"]["sharded"]["ranks"]
+    else:
+        per = p24[part]["ranks"]
+    return sum(r["launches"][kernel.name] for r in per)
+
+
 def _zoo_k4_entries(kernel, zoo) -> tuple:
     """(key, launches, timed case) of K4 kernel `kernel` on phase 18: BERT-
     base's fit at dropout 0 (18a) under "bert_base", and the encoder-
@@ -8021,14 +8589,19 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19,"
-                    "20,21,22,23",
+                    "20,21,22,23,24",
                     help="comma-separated phases to run (default "
                     "1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,"
-                    "22,23; 5 profiles serving and training steps)")
+                    "22,23,24; 5 profiles serving and training steps)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--swap-probe", choices=("warm", "cold"),
                     help="run only phase 23c's swap_probe in this mode and "
                     "print its JSON (phase 23 starts these itself)")
+    ap.add_argument("--dist-worker", choices=("abd", "c"),
+                    help="run as one rank of phase 24 (RANK, WORLD_SIZE, "
+                    "MASTER_ADDR and MASTER_PORT from the environment; "
+                    "phase 24 starts these itself)")
+    ap.add_argument("--dist-dir", help="where a --dist-worker rank writes")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -8038,6 +8611,8 @@ def main(argv=None) -> int:
         print(json.dumps(swap_probe(args.seed, args.swap_probe)),
               flush=True)
         return 0
+    if args.dist_worker:
+        return dist_worker(args.dist_worker, args.dist_dir, args.seed)
     t_start = time.monotonic()
     card = card_line()
     log(f"card {card}")
@@ -8124,6 +8699,8 @@ def main(argv=None) -> int:
     p22 = timed("22", phase_search, args.seed, card) if 22 in phases \
         else None
     p23 = timed("23", phase_servesearch, args.seed, card) if 23 in phases \
+        else None
+    p24 = timed("24", phase_dist, args.seed, card) if 24 in phases \
         else None
     if 5 in phases:
         phase_profile(args.seed, card)
@@ -8244,7 +8821,8 @@ def main(argv=None) -> int:
         name: val for name, val in other.items()
         if name not in ("name", "route", "source", "replaces")}
     # K3 serving phase 23a's searched winner and the default strategy and
-    # 23b's calibrated winner (Llama-3-8B's widths at 4 layers, bf16 q):
+    # 23b's calibrated winner (Llama-3-8B's widths at P23_LAYERS layers,
+    # bf16 q):
     # each body's numbers are those of phase 23's own calls, held to the
     # plain version at the geometry it launched most ("k3_served"), and
     # every geometry phase 23 launched stands under "served"
@@ -8315,6 +8893,17 @@ def main(argv=None) -> int:
         entry["search_1b"] = {key: val for key, val in srch.items()
                               if key not in ("name", "route", "source",
                                              "replaces")}
+        # phase 24's ranks: (b)'s bf16 steps at Llama-3-8B's widths (4
+        # ranks, data 2 x model 2), timed at a rank's local attention
+        # shape, and (a)'s fp32 steps (PSUM and ZeRO-1), timed at theirs
+        for key, part, dtype in (("dist_llama3_8b", "b", "bfloat16"),
+                                 ("dist_fp32", "a", "float32")):
+            dst = _kernel_entry(
+                k, entry["source"], _dist_launches(p24, part, k),
+                p24["k1k2_local"][part][dtype][k.name] if p24 else None)
+            entry[key] = {name: val for name, val in dst.items()
+                          if name not in ("name", "route", "source",
+                                          "replaces")}
         if k is FLASH_ATTENTION_FWD:
             # phase 21c's bf16 predict of the HF-imported Llama-3-8B
             # widths, timed at its attention shape in phase 21
@@ -8360,7 +8949,11 @@ def main(argv=None) -> int:
                  sum(n[k.name] for n in p22["b"]["launches"].values() if n)
                  if p22 else 0,
                  k4.get("timed", {}).get(
-                     "d128_ring_block_causal_bfloat16", {}).get(k.name))) \
+                     "d128_ring_block_causal_bfloat16", {}).get(k.name)),
+                # phase 24d's searched D 64 Llama over 4 ranks (fp32
+                # bodies), timed at a rank's local attention shape
+                ("dist_search", _dist_launches(p24, "d", k),
+                 p24["k4_local_d"][k.name] if p24 else None)) \
                 + _zoo_k4_entries(k, zoo18) + _batch_serve_k4_entry(k, p19):
             other = _kernel_entry(k, entry["source"], launches, res)
             entry[key] = {name: val for name, val in other.items()

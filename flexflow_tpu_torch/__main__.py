@@ -8,8 +8,12 @@ and runs SCRIPT as __main__ with those flags as its argv. `--device`
 before SCRIPT is passed on to it (the card unless "cpu" is asked for).
 The search flags (--budget, --alpha, --validate-top-k, --import /
 --export, --compgraph, --machine-model-file, ...) reach compile() through
-the config. A --mesh or --devices of more than one card raises before
-the script runs (ROADMAP.md queue 1 item 12).
+the config. Under torchrun (`torchrun --nproc-per-node N -m
+flexflow_tpu_torch SCRIPT --mesh data=D,model=M`, D x M = N) each process
+joins the process group first (runtime.distributed.initialize: NCCL on
+the card LOCAL_RANK names, gloo with --device cpu), so the script's
+model spans the N processes; a --mesh or --devices that is not the world
+size raises before the script runs.
 """
 
 from __future__ import annotations
@@ -43,8 +47,14 @@ def main(argv=None) -> int:
     # kept on the package (not this module: under `python -m` this file
     # runs as __main__, and a script importing flexflow_tpu_torch.__main__
     # would get a second instance)
+    import os
+
     import flexflow_tpu_torch
 
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from flexflow_tpu_torch.runtime import distributed
+
+        distributed.initialize(device=device or "cuda")
     flexflow_tpu_torch._driver_config = FFConfig.from_args(rest)
     sys.argv = [script] + rest
     runpy.run_path(script, run_name="__main__")

@@ -5,8 +5,10 @@ its argv parser `from_args`. Every field is ported: it does on one device
 what the reference does there. A field the port could not honour would
 be listed in `REFUSED` with the ROADMAP.md queue 1 item that ports it and
 raise NotImplementedError away from its default, so no setting is
-silently ignored; none is listed now. Several cards (`num_devices` above
-1, a mesh axis other than `seq` above 1) raise (item 12). The port adds
+silently ignored; none is listed now. Several cards run one process
+each (torchrun, runtime/distributed.py): `num_devices` is the world size
+and a mesh's `data` x `model` must equal it; the `pipe`, `expert` and
+`data_sub` axes raise (item 12). The port adds
 one field, `device`: every entry point runs on the card ("cuda") unless
 the caller asks for "cpu", and a CUDA request on a machine without a
 card raises instead of drifting to the CPU.
@@ -20,7 +22,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from flexflow_tpu_torch.ffconst import CompMode, DataType, ParamSyncType
-from flexflow_tpu_torch.parallel.mesh import check_axes
+from flexflow_tpu_torch.parallel.mesh import check_axes, check_world
 
 REMAT_MODES = ("none", "attention", "hidden")
 # transfer_guard levels -> torch.cuda.set_sync_debug_mode's: the guard
@@ -45,18 +47,22 @@ class FFConfig:
     seq_length: Optional[int] = None
 
     # ---- devices / mesh ----
-    # None, 0 or 1: the one card; more raises (queue 1 item 12)
+    # the cards, one process each: above 1 it must be the world size of
+    # the process group (runtime/distributed.initialize)
     num_devices: Optional[int] = None
-    # explicit mesh shape, {axis name: size}; None is {"data": 1}. Only
-    # "seq" may exceed 1: ring attention cuts the sequence into that many
-    # shards on the one device; any other axis above 1 raises (ROADMAP.md,
+    # explicit mesh shape, {axis name: size}; None is {"data": world
+    # size}. "data" and "model" span the processes (their product is the
+    # world size); "seq" cuts ring attention's sequence inside one
+    # process; "pipe", "expert" and "data_sub" above 1 raise (ROADMAP.md,
     # queue 1 item 12)
     mesh_shape: Optional[Dict[str, int]] = None
 
     # ---- numerics ----
     # carried, as the reference carries it (nothing there reads it)
     compute_dtype: DataType = DataType.FLOAT
-    # PSUM or SHARDED: on one device both keep the whole optimizer state
+    # PSUM or SHARDED: SHARDED is ZeRO-1 over the data axis (the Adam
+    # state cut over `data`, gradients reduce-scattered, new parameters
+    # all-gathered); with data 1 both keep the whole optimizer state
     param_sync: ParamSyncType = ParamSyncType.PSUM
 
     # ---- strategy search (search/api.py): budget <= 5 runs MCMC over
@@ -71,8 +77,9 @@ class FFConfig:
     only_data_parallel: bool = False
     enable_parameter_parallel: bool = True
     enable_attribute_parallel: bool = True
-    # splits a data axis of 4 or more into data x data_sub; the one card's
-    # data axis is 1, so nothing splits, as in the reference on such a mesh
+    # splits a data axis of 4 or more into data x data_sub (submesh
+    # placement), which raises: `data_sub` is not ported yet (queue 1 item
+    # 12); a smaller data axis does not split, as in the reference
     enable_submesh: bool = False
     memory_search: bool = False
     search_num_devices: Optional[int] = None
@@ -130,12 +137,18 @@ class FFConfig:
                     f"FFConfig.{name}={value!r} is not ported yet "
                     f"(ROADMAP.md, queue 1 item {item})")
         if self.num_devices is not None and self.num_devices > 1:
-            raise NotImplementedError(
-                f"FFConfig.num_devices={self.num_devices}: the port runs on "
-                "one card; several are not ported yet (ROADMAP.md, queue 1 "
-                "item 12)")
+            import torch.distributed as dist
+
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            if self.num_devices != world:
+                raise ValueError(
+                    f"FFConfig.num_devices={self.num_devices} but the world "
+                    f"size is {world}: one process runs each card (torchrun "
+                    f"--nproc-per-node {self.num_devices}, then "
+                    "runtime.distributed.initialize())")
         if self.mesh_shape is not None:
             check_axes(self.mesh_shape)
+            check_world(self.mesh_shape)
         if self.remat not in REMAT_MODES:
             raise ValueError(f"remat must be one of {REMAT_MODES}, got "
                              f"{self.remat!r}")

@@ -3,10 +3,13 @@ bert_attribute_parallel.py on the port).
 
 The reference's example splits attention heads over a mesh's model axis
 (--mesh data=2,model=4 with bert_attribute_parallel_strategy). The port
-runs one card: a --mesh with a model axis above 1 raises (ROADMAP.md
-queue 1 item 12), so this trains the same BERT without a strategy.
+does the same one process per card; without a --mesh it trains the same
+BERT on one card without a strategy.
 
 Run:  python -m flexflow_tpu_torch.examples.bert_attribute_parallel -b 8 -e 1
+      torchrun --nproc-per-node 8 -m flexflow_tpu_torch \
+          flexflow_tpu_torch/examples/bert_attribute_parallel.py -b 8 \
+          --mesh data=2,model=4
 """
 
 import sys
@@ -16,7 +19,9 @@ import numpy as np
 from flexflow_tpu_torch import (
     AdamOptimizer, FFConfig, FFModel, LossType, MetricsType,
 )
-from flexflow_tpu_torch.models.bert import BertConfig, build_bert
+from flexflow_tpu_torch.models.bert import (
+    BertConfig, bert_attribute_parallel_strategy, build_bert,
+)
 
 SEQ = 128
 
@@ -31,6 +36,8 @@ def main(argv=None):
         optimizer=AdamOptimizer(lr=1e-4),
         loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
         metrics=[MetricsType.ACCURACY],
+        strategy=(bert_attribute_parallel_strategy(bcfg)
+                  if cfg.mesh_shape else None),
     )
     rs = np.random.RandomState(0)
     n = cfg.batch_size * 4

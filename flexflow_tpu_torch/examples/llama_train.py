@@ -3,12 +3,15 @@
 The reference's example trains under a hand TP strategy on a mesh with a
 model axis (--mesh data=2,model=4), a searched one (--budget), or a
 pipeline over a pipe axis (--pipeline --mesh data=2,pipe=4). The port
-runs one card: those meshes raise (ROADMAP.md queue 1 item 12); --budget
-runs the strategy search on the one card's mesh. It trains the same tiny
-Llama on one card; --pipeline builds its blocks as one PIPELINE
-composite, which the port runs block after block on the card.
+runs the first two one process per card: on a --mesh it trains under
+llama_tp_strategy, with --budget under the searched strategy (rank 0
+searches, every rank runs its result). A pipe axis raises (ROADMAP.md
+queue 1 item 12); --pipeline on one card builds the blocks as one
+PIPELINE composite, which runs block after block.
 
 Run:  python -m flexflow_tpu_torch.examples.llama_train -b 8 -e 1 [--pipeline]
+      torchrun --nproc-per-node 4 -m flexflow_tpu_torch \
+          flexflow_tpu_torch/examples/llama_train.py -b 8 --mesh data=2,model=2
 """
 
 import dataclasses
@@ -19,7 +22,9 @@ import numpy as np
 from flexflow_tpu_torch import (
     AdamOptimizer, FFConfig, FFModel, LossType, MetricsType,
 )
-from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
+from flexflow_tpu_torch.models.llama import (
+    LlamaConfig, build_llama, llama_tp_strategy,
+)
 
 SEQ = 256
 
@@ -37,10 +42,14 @@ def main(argv=None):
     ff = FFModel(cfg)
     build_llama(ff, lcfg, batch_size=cfg.batch_size, seq_len=SEQ,
                 use_pipeline=use_pipeline)
+    strategy = None
+    if cfg.mesh_shape and not use_pipeline and cfg.search_budget == 0:
+        strategy = llama_tp_strategy(lcfg)
     ff.compile(
         optimizer=AdamOptimizer(lr=1e-3),
         loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
         metrics=[MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY],
+        strategy=strategy,
     )
     rs = np.random.RandomState(0)
     n = cfg.batch_size * 8

@@ -3,10 +3,13 @@ stacked-LSTM encoder and decoder, a vocabulary projection, on a synthetic
 copy-with-offset translation task.
 
 The reference's example shards the batch over a mesh (nmt_dp_strategy
-under --mesh data=2,model=4). The port runs one card: that mesh raises
-(ROADMAP.md queue 1 item 12), so this trains without a strategy.
+under --mesh data=2,model=4). The port does the same one process per
+card; without a --mesh it trains on one card without a strategy.
 
 Run:  python -m flexflow_tpu_torch.examples.nmt_seq2seq -b 32 -e 3
+      torchrun --nproc-per-node 8 -m flexflow_tpu_torch \
+          flexflow_tpu_torch/examples/nmt_seq2seq.py -b 32 \
+          --mesh data=2,model=4
 """
 
 import sys
@@ -16,7 +19,7 @@ import numpy as np
 from flexflow_tpu_torch import (
     AdamOptimizer, FFConfig, FFModel, LossType, MetricsType,
 )
-from flexflow_tpu_torch.models.nmt import NMTConfig, build_nmt
+from flexflow_tpu_torch.models.nmt import NMTConfig, build_nmt, nmt_dp_strategy
 
 SRC_LEN, TGT_LEN = 16, 16
 
@@ -43,6 +46,7 @@ def main(argv=None):
         loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
         metrics=[MetricsType.ACCURACY,
                  MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY],
+        strategy=nmt_dp_strategy(cfg) if ffcfg.mesh_shape else None,
     )
     src, dec_in, tgt = synthetic_pairs(cfg, n=ffcfg.batch_size * 8)
     ff.fit([src, dec_in], tgt, epochs=ffcfg.epochs)

@@ -24,6 +24,7 @@ process built its source.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -113,15 +114,40 @@ class CudaKernel:
 def build(kernels: Sequence[CudaKernel]) -> Dict[str, float]:
     """Compile every source whose library is missing, one nvcc process per
     source, all started together; returns {source file: seconds} for the
-    ones built. A failed compile raises with nvcc's output."""
+    ones built. A failed compile raises with nvcc's output.
+
+    Several processes may build at once (one per card under torchrun):
+    each library has a lock file beside it, held with fcntl.flock while
+    it is built, and is looked for again once the lock is held, so it is
+    built once; nvcc writes to a temporary name that os.replace moves
+    into place, so no process loads a half-written library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
-    started = set()
+    todo: Dict[Path, CudaKernel] = {}
     for k in kernels:
         out = k.library_path()
-        if out.exists() or out in started:
+        if not out.exists():
+            todo.setdefault(out, k)
+    locks = []
+    try:
+        for out in sorted(todo):
+            out.parent.mkdir(parents=True, exist_ok=True)
+            fd = os.open(str(out.with_suffix(".lock")),
+                         os.O_CREAT | os.O_RDWR, 0o644)
+            fcntl.flock(fd, fcntl.LOCK_EX)
+            locks.append(fd)
+        return _build_locked(todo, kernels)
+    finally:
+        for fd in locks:
+            fcntl.flock(fd, fcntl.LOCK_UN)
+            os.close(fd)
+
+
+def _build_locked(todo: Dict[Path, "CudaKernel"],
+                  kernels: Sequence[CudaKernel]) -> Dict[str, float]:
+    procs = []
+    for out, k in todo.items():
+        if out.exists():  # another process built it while this one waited
             continue
-        started.add(out)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs.append((k, out, tmp, time.monotonic(), subprocess.Popen(
             k.build_command(tmp), stdout=subprocess.PIPE,

@@ -28,10 +28,11 @@ from flexflow_tpu_torch.ffconst import (
     LossType,
     MetricsType,
     OpType,
+    ParamSyncType,
     PoolType,
 )
 from flexflow_tpu_torch.ops import attrs as A
-from flexflow_tpu_torch.parallel.mesh import Mesh, make_mesh
+from flexflow_tpu_torch.parallel.mesh import Mesh, make_mesh, process_count
 from flexflow_tpu_torch.parallel.sharding import ShardingView
 from flexflow_tpu_torch.pcg.graph import Graph, Node
 from flexflow_tpu_torch.pcg.tensor import TensorShape
@@ -116,14 +117,17 @@ def carry_params(params, built: Graph, graph: Graph):
 
 
 class FFModel:
-    """Build a layer graph, compile it for one device, train or serve
-    it."""
+    """Build a layer graph, compile it for its device (one process per
+    card on a mesh of several), train or serve it."""
 
     def __init__(self, config: Optional[FFConfig] = None):
         self.config = config or FFConfig()
         self.graph = Graph()
         self._executor: Optional[Executor] = None
         self._mesh: Optional[Mesh] = None
+        # the process mesh (parallel/spmd.ProcessMesh) when the mesh spans
+        # several processes
+        self._pmesh = None
         self._params = None  # (trainable, nontrainable)
         self._opt_state = None
         self._optimizer: Optional[Optimizer] = None
@@ -634,7 +638,11 @@ class FFModel:
         fastest is kept (`strategy_validation`). `params` is keyed by the
         graph as built: the weights of a linear the search merged with
         others (merge_parallel_linears) are theirs concatenated
-        (carry_params). On one card every view computes whole tensors.
+        (carry_params). In one process every view computes whole
+        tensors; on a mesh over several processes (data x model = the
+        world size) each rank holds its shards: rank 0 searches and
+        every rank takes its graph and strategy, and the given or drawn
+        whole trees are cut to the rank's pieces.
 
         With an `optimizer` the model is compiled to train: every
         floating trainable leaf is an fp32 master (the reference's
@@ -660,8 +668,11 @@ class FFModel:
             xf = make_fuse_linear_activation()
             while cands := xf.apply_all(self.graph):
                 self.graph = cands[0]
-        # the reference's default mesh is {"data": devices}: one here
-        mesh_axes = dict(cfg.mesh_shape or {"data": 1})
+        # the reference's default mesh is {"data": devices}: one process
+        # per card, so the world size
+        from flexflow_tpu_torch.runtime import distributed as dist
+
+        mesh_axes = dict(cfg.mesh_shape or {"data": dist.process_count()})
         if (cfg.enable_submesh and "data_sub" not in mesh_axes
                 and mesh_axes.get("data", 1) >= 4
                 and mesh_axes["data"] % 2 == 0):
@@ -669,6 +680,11 @@ class FFModel:
             mesh_axes["data"] //= 2
         self._mesh = make_mesh(mesh_axes)
         axis_sizes = self._mesh.axes
+        self._pmesh = None
+        if process_count(axis_sizes) > 1:
+            from flexflow_tpu_torch.parallel.spmd import ProcessMesh
+
+            self._pmesh = ProcessMesh(axis_sizes)
         if strategy is None and cfg.import_strategy_file:
             strategy = self._import_strategy(cfg.import_strategy_file,
                                              axis_sizes)
@@ -679,13 +695,27 @@ class FFModel:
             from flexflow_tpu_torch.search import api
 
             collect = candidates if cfg.validate_top_k > 1 else None
-            if cfg.search_budget > 5:
-                self.graph, strategy = api.graph_optimize(
-                    self.graph, axis_sizes, cfg, candidates_out=collect,
-                    stats_out=self.search_stats)
-            else:
-                strategy = api.search_strategy(self.graph, axis_sizes, cfg,
-                                               candidates_out=collect)
+            # several processes: rank 0 searches and every rank takes its
+            # graph, strategy, statistics and playoff pool, so all ranks
+            # run one program (the reference's GraphOptimalViewSerialized)
+            if dist.process_index() == 0:
+                if cfg.search_budget > 5:
+                    self.graph, strategy = api.graph_optimize(
+                        self.graph, axis_sizes, cfg, candidates_out=collect,
+                        stats_out=self.search_stats)
+                else:
+                    strategy = api.search_strategy(
+                        self.graph, axis_sizes, cfg, candidates_out=collect)
+            if dist.is_multi_host():
+                if cfg.search_budget > 5:
+                    self.graph, strategy = dist.broadcast_graph(self.graph,
+                                                                strategy)
+                    self.search_stats = dist.broadcast_stats(
+                        self.search_stats)
+                else:
+                    strategy = dist.broadcast_strategy(strategy)
+                if collect is not None:
+                    candidates[:] = dist.broadcast_candidates(candidates)
         # the full modeled pool (top-k + best-per-structural-class + the
         # unrewritten baseline) stays inspectable after compile
         self.searched_candidates = list(candidates)
@@ -713,11 +743,12 @@ class FFModel:
                 params = carry_params(params, built, self.graph)
             # training updates the weights in place: a model compiled to
             # train takes copies, so it never shares storage with the
-            # trees it was given
-            tr, ntr = tuple(
+            # trees it was given; on a process mesh each rank keeps its
+            # pieces of the whole trees
+            tr, ntr = self._executor.shard_params(*(
                 {k: {n: t.to(device, copy=optimizer is not None)
                      for n, t in w.items()}
-                 for k, w in tree.items()} for tree in params)
+                 for k, w in tree.items()} for tree in params))
         self._opt_state = None
         if optimizer is not None:
             tr = self._executor.master_params(tr)
@@ -791,6 +822,8 @@ class FFModel:
         import time
         import warnings
 
+        from flexflow_tpu_torch.runtime import distributed as dist
+
         results = []  # (seconds, modeled rank, graph, strategy)
         for rank, (modeled, graph, strategy) in enumerate(candidates):
             # candidates may share one Graph object: a private copy keeps
@@ -810,6 +843,11 @@ class FFModel:
                     for n in ex.input_nodes]
                 labels = torch.from_numpy(self._synth_labels(graph)).to(
                     device)
+                if ex.pmesh is not None:
+                    inputs = [ex.pmesh.shard(x, sp).contiguous() for x, sp
+                              in zip(inputs, ex.input_specs())]
+                    labels = ex.pmesh.shard(
+                        labels, ex.label_spec(labels.ndim)).contiguous()
                 tr, ntr, opt, m = ex.train_step(tr, ntr, opt, labels,
                                                 *inputs)
                 float(m["loss"])
@@ -840,13 +878,18 @@ class FFModel:
             return g, s
         results.sort(key=lambda r: r[0])
         win = results[0]
+        if dist.is_multi_host():
+            # the ranks' clocks may order the candidates differently; every
+            # rank adopts rank 0's winner
+            pick = dist.broadcast_winner_index(win[1])
+            win = next(r for r in results if r[1] == pick)
         self.strategy_validation = {
             "timed_ms": [r[0] * 1e3 for r in results],
             # modeled rank (0 = the model's own pick) per timed entry
             "modeled_ranks": [r[1] for r in results],
             "modeled_ms": [candidates[r[1]][0] * 1e3 for r in results],
             "picked_modeled_rank": win[1],
-            "picked_timed_index": 0,
+            "picked_timed_index": results.index(win),
             "search": dict(self.search_stats),
         }
         if self.config.profiling:
@@ -903,7 +946,10 @@ class FFModel:
                         optimizer=optimizer, remat=self.config.remat,
                         mesh=self._mesh, seq_length=self.config.seq_length,
                         donate=(self.config.donate_buffers if donate is None
-                                else donate))
+                                else donate),
+                        pmesh=self._pmesh,
+                        zero_sharded_opt=(self.config.param_sync
+                                          == ParamSyncType.SHARDED))
 
     def _recompile(self):
         """A new Executor from the (altered) graph, with the settings,
@@ -912,6 +958,8 @@ class FFModel:
         self.graph.infer_shapes()
         ex = self.executor
         self._executor = self._new_executor(ex.device, ex.optimizer)
+        # the optimizer state kept is cut as the old executor cut it
+        self._executor.zero_dims = ex.zero_dims
 
     @property
     def executor(self) -> Executor:
@@ -1050,7 +1098,7 @@ class FFModel:
                 batches = iter(PrefetchLoader(self, dataloaders))
             else:
                 xs = [x] if isinstance(x, np.ndarray) else list(x)
-                batches = (self._to_device(b)
+                batches = (self._to_device(ex.local_batch(b, labels=True))
                            for b in self._batches(xs + [y], batch_size))
             dev_sums = None
             n_samples = 0
@@ -1061,7 +1109,9 @@ class FFModel:
                         tr, ntr, opt_state, by, *bx, rng=(stream, step))
                     step += 1
                     self._step_count += 1
-                    bsz = by.shape[0]
+                    # the metrics are the global batch's means (on a
+                    # process mesh each rank holds its rows)
+                    bsz = by.shape[0] * ex.batch_degree()
                     n_samples += bsz
                     scaled = {k: (v if k == "accuracy_correct" else v * bsz)
                               for k, v in m.items() if k != "loss"}
@@ -1135,7 +1185,8 @@ class FFModel:
         tr, ntr = self._params
         pm = PerfMetrics()
         for batch in self._batches(xs + [y], batch_size):
-            *bx, by = self._to_device(batch)
+            *bx, by = self._to_device(
+                self.executor.local_batch(batch, labels=True))
             m = self.executor.eval_step(tr, ntr, by, *bx)
             pm.update({k: float(v) for k, v in m.items() if k != "loss"},
                       batch_size)
@@ -1146,7 +1197,8 @@ class FFModel:
     def predict(self, x: Union[np.ndarray, Sequence[np.ndarray]],
                 batch_size: Optional[int] = None) -> np.ndarray:
         """The sink output for every row of `x` (the last batch padded,
-        unlike fit/eval), as fp32 numpy."""
+        unlike fit/eval), as fp32 numpy; on a process mesh every rank
+        feeds its piece of each batch and gets the whole output."""
         xs = [x] if isinstance(x, np.ndarray) else list(x)
         batch_size = batch_size or self.config.batch_size
         tr, ntr = self._params
@@ -1155,7 +1207,8 @@ class FFModel:
         if pad:
             xs = [np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
                   for a in xs]
-        outs = [self.executor.forward(tr, ntr, *self._to_device(batch))
+        ex = self.executor
+        outs = [ex.forward(tr, ntr, *self._to_device(ex.local_batch(batch)))
                 .float().cpu().numpy()
                 for batch in self._batches(xs, batch_size)]
         return np.concatenate(outs, axis=0)[:n]
@@ -1167,9 +1220,13 @@ class FFModel:
                    weight_name: str = "kernel") -> np.ndarray:
         """The weight `weight_name` of a node (its Tensor or its name) as
         a numpy array on the host (a bfloat16 leaf, which numpy lacks, as
-        float32)."""
+        float32). On a process mesh the whole leaf, gathered from every
+        rank's piece: every rank calls it."""
         key = self._resolve_param_key(tensor_or_name)
         leaf = self._param_tree(key, weight_name)[key][weight_name]
+        if self._pmesh is not None:
+            leaf = self.executor.gather_params(
+                {key: {weight_name: leaf}})[key][weight_name]
         if leaf.dtype == torch.bfloat16:
             leaf = leaf.float()
         return leaf.detach().cpu().numpy()
@@ -1180,12 +1237,17 @@ class FFModel:
         """Replace the weight `weight_name` of a node by `value` (numpy, or
         a torch tensor on any device, copied without a trip through
         numpy), cast to the stored leaf's dtype and placed on its device,
-        as the reference casts to the old leaf's dtype and sharding."""
+        as the reference casts to the old leaf's dtype and sharding (on a
+        process mesh `value` is the whole leaf; each rank keeps its
+        piece)."""
         key = self._resolve_param_key(tensor_or_name)
         tree = self._param_tree(key, weight_name)
         old = tree[key][weight_name]
         if not isinstance(value, torch.Tensor):
             value = torch.from_numpy(np.array(value, copy=True))
+        if self._pmesh is not None:
+            value = self._pmesh.shard(
+                value, self.executor.param_specs()[key][weight_name])
         if tuple(value.shape) != tuple(old.shape):
             raise ValueError(f"{key}/{weight_name} has shape "
                              f"{tuple(old.shape)}, got "
@@ -1221,6 +1283,7 @@ class FFModel:
         the end. Returns (batch, max_new_tokens) int32 tokens."""
         from flexflow_tpu_torch.serving import pick_tokens
 
+        self._refuse_mesh_serving("generate")
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
@@ -1293,6 +1356,7 @@ class FFModel:
         dict."""
         from flexflow_tpu_torch.serving import serve_generation as _sg
 
+        self._refuse_mesh_serving("serve_generation")
         return _sg(self, slots=slots, max_len=max_len, eos_id=eos_id,
                    seed=seed, paged=paged, page_size=page_size,
                    num_pages=num_pages, preemption=preemption,
@@ -1309,11 +1373,19 @@ class FFModel:
                    kv_quant_canary=kv_quant_canary, host_tier=host_tier,
                    defer_start=defer_start)
 
+    def _refuse_mesh_serving(self, what: str):
+        if self._pmesh is not None:
+            raise NotImplementedError(
+                f"{what} on a mesh of {dict(self._pmesh.sizes)} (serving on "
+                "a mesh above 1) is not ported yet: compile the model on one "
+                "process to serve it (ROADMAP.md, queue 1 item 12)")
+
     def serve(self, batch_sizes=(1, 8), max_delay_ms: float = 2.0,
               warmup: bool = True):
         """A batch-serving endpoint over this compiled model: the dynamic
         batcher of serving.Server (serving.serve)."""
         from flexflow_tpu_torch.serving import serve as _serve
 
+        self._refuse_mesh_serving("serve")
         return _serve(self, batch_sizes=batch_sizes,
                       max_delay_ms=max_delay_ms, warmup=warmup)

@@ -2,9 +2,10 @@
 building the reference's PCG node for node: the MLP, AlexNet, ResNet-50,
 ResNeXt-50, Inception-v3, CANDLE-UNO, BERT, the Transformer encoder and
 encoder-decoder, the LSTM NMT, DLRM, XDL, Llama, GPT-2 and the
-Mixtral-style MoE decoder with the MoE classifiers. The sharding
-strategies need mesh axes across cards and raise (ROADMAP.md, queue 1
-item 12)."""
+Mixtral-style MoE decoder with the MoE classifiers. The strategies over
+the `data` and `model` axes (llama_tp_strategy, BERT's and NMT's) run one
+process per card; those over `pipe` and `expert` raise (ROADMAP.md, queue
+1 item 12)."""
 
 from flexflow_tpu_torch.models.alexnet import (
     build_alexnet,
@@ -23,6 +24,7 @@ from flexflow_tpu_torch.models.llama import (
     LlamaConfig,
     build_llama,
     llama_pp_strategy,
+    llama_tp_strategy,
 )
 from flexflow_tpu_torch.models.mixtral import (
     MixtralConfig,
@@ -50,4 +52,5 @@ __all__ = ["BertConfig", "GPT2Config", "LlamaConfig", "MixtralConfig",
            "build_moe_classifier", "build_moe_spec_classifier", "build_nmt",
            "build_resnet50", "build_resnext50", "build_transformer_encoder",
            "build_transformer_encoder_decoder", "build_xdl",
-           "llama_pp_strategy", "mixtral_ep_strategy", "nmt_dp_strategy"]
+           "llama_pp_strategy", "llama_tp_strategy", "mixtral_ep_strategy",
+           "nmt_dp_strategy"]

@@ -14,8 +14,11 @@ from __future__ import annotations
 
 import dataclasses
 
+from typing import Dict
+
 from flexflow_tpu_torch.ffconst import ActiMode, DataType
 from flexflow_tpu_torch.model import FFModel, Tensor
+from flexflow_tpu_torch.parallel.sharding import ShardingView
 
 
 @dataclasses.dataclass
@@ -54,9 +57,32 @@ def build_bert(ff: FFModel, cfg: BertConfig, batch_size: int = None,
     return ff.softmax(logits, name="softmax")
 
 
-def bert_attribute_parallel_strategy(cfg: BertConfig):
-    """The reference shards attention heads and the MLP over a `model`
-    mesh axis, which spans several cards."""
-    raise NotImplementedError(
-        "bert_attribute_parallel_strategy needs a `model` mesh axis across "
-        "cards, not ported yet (ROADMAP.md, queue 1 item 12)")
+def bert_attribute_parallel_strategy(cfg: BertConfig
+                                     ) -> Dict[str, ShardingView]:
+    """Attention heads cut over the `model` axis (the reference's
+    attribute parallelism, attention.cc head-parallel machine views) and
+    the Megatron column/row split of the FFN."""
+    views: Dict[str, ShardingView] = {}
+    for i in range(cfg.layers):
+        views[f"l{i}_attn"] = ShardingView(
+            output_specs=(None,),
+            weight_specs={
+                "wq": ((), ("model",), ()),
+                "wk": ((), ("model",), ()),
+                "wv": ((), ("model",), ()),
+                "wo": (("model",), (), ()),
+                "bq": (("model",), ()),
+                "bk": (("model",), ()),
+                "bv": (("model",), ()),
+                "bo": ((),),
+            },
+        )
+        views[f"l{i}_ff1"] = ShardingView(
+            output_specs=(None,),
+            weight_specs={"kernel": ((), ("model",)), "bias": (("model",),)},
+        )
+        views[f"l{i}_ff2"] = ShardingView(
+            output_specs=(None,),
+            weight_specs={"kernel": (("model",), ()), "bias": ((),)},
+        )
+    return views

@@ -4,17 +4,22 @@ MLP, through the FFModel layer API — the same calls in the same order, so
 both packages build the same PCG. With `use_ring_attention` each layer's
 attention is a RING_ATTENTION node (sequence-parallel over the mesh's
 `seq` axis); with `use_pipeline` every decoder block is one PIPELINE
-composite with stacked weights (ops/torch_ops.py _pipeline). The sharding
-strategies need mesh axes across cards and raise (ROADMAP.md, queue 1
-item 12).
+composite with stacked weights (ops/torch_ops.py _pipeline).
+`llama_tp_strategy` is the reference's Megatron layout over the `data`
+and `model` axes (one process per card); its sequence-parallel form and
+the pipeline strategy need axes across cards the port does not run yet
+(ROADMAP.md, queue 1 item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from typing import Dict
+
 from flexflow_tpu_torch.ffconst import DataType
 from flexflow_tpu_torch.model import FFModel, Tensor
+from flexflow_tpu_torch.parallel.sharding import ShardingView
 
 
 @dataclasses.dataclass
@@ -88,10 +93,54 @@ def build_llama(ff: FFModel, cfg: LlamaConfig, batch_size: int = None,
     return ff.softmax(logits, name="softmax")
 
 
+def llama_tp_strategy(cfg: LlamaConfig, seq_parallel: bool = False
+                      ) -> Dict[str, ShardingView]:
+    """Hybrid TP+DP views, the reference's Megatron layout: attention
+    heads and the MLP column/row split over `model`, the gate -> silu ->
+    x -> down chain keeping its hidden dim cut over `model` between the
+    column and row products; activations cut over `data` on the batch;
+    lm_head and softmax cut on the vocabulary. `seq_parallel=True` (the
+    sequence over `seq` beside them) raises: `seq` across processes is
+    not ported yet."""
+    if seq_parallel:
+        raise NotImplementedError(
+            "llama_tp_strategy(seq_parallel=True) cuts the sequence over "
+            "`seq` across processes (the ring's send/recv between cards), "
+            "not ported yet (ROADMAP.md, queue 1 item 12)")
+    act3 = (("data",), (), ())           # (batch, seq, features)
+    hid3 = (("data",), (), ("model",))   # feature dim cut over model
+    views: Dict[str, ShardingView] = {}
+    for i in range(cfg.layers):
+        views[f"l{i}_attn"] = ShardingView(
+            output_specs=(act3,),
+            weight_specs={
+                "wq": ((), ("model",), ()),
+                "wk": ((), ("model",), ()),
+                "wv": ((), ("model",), ()),
+                "wo": (("model",), (), ()),
+            },
+            input_specs=(act3,) * 3,
+        )
+        views[f"l{i}_gate"] = ShardingView(
+            (hid3,), {"kernel": ((), ("model",))}, input_specs=(act3,))
+        views[f"l{i}_up"] = ShardingView(
+            (hid3,), {"kernel": ((), ("model",))}, input_specs=(act3,))
+        views[f"l{i}_silu"] = ShardingView((hid3,))
+        views[f"l{i}_gxu"] = ShardingView((hid3,))
+        views[f"l{i}_down"] = ShardingView(
+            (act3,), {"kernel": (("model",), ())}, input_specs=(hid3,))
+    views["lm_head"] = ShardingView(
+        (hid3,), {"kernel": ((), ("model",))}, input_specs=(act3,))
+    views["softmax"] = ShardingView((hid3,))
+    views["tok_emb"] = ShardingView(
+        output_specs=(act3,), weight_specs={"kernel": ((), ("model",))})
+    return views
+
+
 def llama_pp_strategy(cfg: LlamaConfig):
     """The reference's pipeline strategy shards the PIPELINE composite's
     stacked layer dim over a `pipe` mesh axis, which spans several
     cards."""
     raise NotImplementedError(
-        "llama_pp_strategy needs a `pipe` mesh axis across cards, not "
-        "ported yet (ROADMAP.md, queue 1 item 12)")
+        "llama_pp_strategy needs the `pipe` axis (GPipe stages across "
+        "cards), not ported yet (ROADMAP.md, queue 1 item 12)")

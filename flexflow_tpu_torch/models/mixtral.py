@@ -74,8 +74,8 @@ def mixtral_ep_strategy(cfg: MixtralConfig):
     """The reference's expert-parallel strategy shards the stacked expert
     weights over an `expert` mesh axis, which spans several cards."""
     raise NotImplementedError(
-        "mixtral_ep_strategy needs an `expert` mesh axis across cards, not "
-        "ported yet (ROADMAP.md, queue 1 item 12)")
+        "mixtral_ep_strategy needs the `expert` axis (expert parallelism "
+        "across cards), not ported yet (ROADMAP.md, queue 1 item 12)")
 
 
 def build_moe_classifier(ff: FFModel, input_dim: int, num_classes: int,

@@ -10,8 +10,11 @@ from __future__ import annotations
 
 import dataclasses
 
+from typing import Dict
+
 from flexflow_tpu_torch.ffconst import DataType
 from flexflow_tpu_torch.model import FFModel, Tensor
+from flexflow_tpu_torch.parallel.sharding import ShardingView
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,9 +54,22 @@ def build_nmt(ff: FFModel, cfg: NMTConfig, batch_size: int = None,
     return ff.softmax(logits, name="softmax")
 
 
-def nmt_dp_strategy(cfg: NMTConfig):
-    """The reference shards the batch over a `data` mesh axis (and the
-    projection over `model`), which span several cards."""
-    raise NotImplementedError(
-        "nmt_dp_strategy needs `data` and `model` mesh axes across cards, "
-        "not ported yet (ROADMAP.md, queue 1 item 12)")
+def nmt_dp_strategy(cfg: NMTConfig) -> Dict[str, ShardingView]:
+    """Data-parallel views (the reference NMT's default ParallelConfig is
+    batch partitioning too, nmt.cc:319-350) with the vocabulary
+    projection cut on its columns over `model` when that axis exists,
+    the softmaxDP analog."""
+    seq3 = (("data",), (), ())
+    state2 = (("data",), ())
+    views: Dict[str, ShardingView] = {}
+    for pre in ("enc", "dec"):
+        for i in range(cfg.layers):
+            views[f"{pre}{i}"] = ShardingView((seq3, state2, state2))
+    views["src_emb"] = ShardingView((seq3,))
+    views["tgt_emb"] = ShardingView((seq3,))
+    views["proj"] = ShardingView(
+        ((("data",), (), ("model",)),), {"kernel": ((), ("model",))},
+        input_specs=(seq3,),
+    )
+    views["softmax"] = ShardingView(((("data",), (), ("model",)),))
+    return views

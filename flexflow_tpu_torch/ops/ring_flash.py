@@ -25,9 +25,10 @@ their blocks and are home after n steps.
 The reference runs one shard per device inside shard_map and rotates
 with `lax.ppermute`. Here one process holds every shard on its device and
 the rotation moves block references: `_ppermute` is the one place where a
-process group's send/recv goes when shards live on several cards
-(ROADMAP.md, queue 1 item 12). The reference's zero-pad of D to 128 lanes
-is TPU tiling and is dropped, as for K4.
+process group's send/recv goes when `seq` spans several processes, not
+ported yet (ROADMAP.md, queue 1 item 12: `seq` across processes). The
+reference's zero-pad of D to 128 lanes is TPU tiling and is dropped, as
+for K4.
 """
 
 from __future__ import annotations

@@ -1,12 +1,14 @@
 """The device mesh (counterpart of flexflow_tpu/parallel/mesh.py).
 
 The reference lays a `jax.sharding.Mesh` of named axes over its devices.
-The port runs on one device: its `Mesh` names the axes and their sizes,
-and every position of every axis lives on that device. Only the `seq`
-axis may exceed 1: its positions are the shards of ring attention
-(parallel/ring.py), which one process holds and rotates as block
-references. One process per card (`torch.distributed`) and the data and
-model axes are ROADMAP.md, queue 1 item 12.
+The port runs one process per card (torch.distributed, launched by
+torchrun): the `data` and `model` axes span the processes, in the
+canonical order, and the product of their sizes is the world size
+(parallel/spmd.py holds their process groups and collectives). The
+`seq` axis stays inside one process: its positions are the shards of
+ring attention (parallel/ring.py), which the process holds and rotates
+as block references. `seq` across processes, `pipe`, `expert` and
+`data_sub` are ROADMAP.md, queue 1 item 12.
 
 Canonical axis names used across the framework:
   data     — batch (data parallel)
@@ -22,8 +24,16 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 AXIS_ORDER = ("pipe", "data", "data_sub", "expert", "seq", "model")
-# the axes a one-device mesh can hold above size 1
+# the axes one process holds whole above size 1
 SINGLE_DEVICE_AXES = ("seq",)
+# the axes whose positions are processes (one per card)
+PROCESS_AXES = ("data", "model")
+# what each axis not yet ported waits for
+_UNPORTED = {
+    "pipe": "the `pipe` axis (GPipe stages across cards)",
+    "expert": "the `expert` axis (expert parallelism across cards)",
+    "data_sub": "the `data_sub` axis (submesh placement)",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,18 +50,48 @@ class Mesh:
 
 
 def check_axes(axes: Dict[str, int]):
-    """Refuse sizes below 1 and any axis but `seq` above 1: the port holds
-    no other axis yet, and never ignores one."""
+    """Refuse sizes below 1, the axes not ported yet above 1, and `seq`
+    above 1 beside a process axis above 1 (the ring across processes);
+    never ignore one."""
     for name, size in axes.items():
         if not isinstance(size, int) or size < 1:
             raise ValueError(f"mesh axis {name!r} must have a positive int "
                              f"size, got {size!r}")
-        if size > 1 and name not in SINGLE_DEVICE_AXES:
+        if size > 1 and name not in SINGLE_DEVICE_AXES + PROCESS_AXES:
+            part = _UNPORTED.get(name, f"mesh axis {name!r}")
             raise NotImplementedError(
-                f"mesh axis {name!r} of size {size}: only 'seq' may exceed "
-                "1 on one device; data, model, expert and pipeline axes "
-                "across cards are not ported yet (ROADMAP.md, queue 1 item "
-                "12)")
+                f"mesh axis {name!r} of size {size}: {part} is not ported "
+                "yet (ROADMAP.md, queue 1 item 12)")
+    if any(axes.get(n, 1) > 1 for n in SINGLE_DEVICE_AXES) \
+            and process_count(axes) > 1:
+        raise NotImplementedError(
+            f"mesh {dict(axes)}: `seq` above 1 beside the data or model "
+            "axis would cut the sequence across processes (the ring's "
+            "send/recv between cards), not ported yet (ROADMAP.md, queue 1 "
+            "item 12)")
+
+
+def process_count(axes: Dict[str, int]) -> int:
+    """The processes a mesh spans: the product of its process axes."""
+    n = 1
+    for name in PROCESS_AXES:
+        n *= axes.get(name, 1)
+    return n
+
+
+def check_world(axes: Dict[str, int]):
+    """The product of the process axes must be the world size (1 without
+    a process group): a ValueError names both."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = process_count(axes)
+    if n != world:
+        raise ValueError(
+            f"mesh {dict(axes)} spans {n} processes (data x model) but the "
+            f"world size is {world}: launch one process per card, e.g. "
+            f"torchrun --nproc-per-node {n}, and call "
+            "flexflow_tpu_torch.runtime.distributed.initialize()")
 
 
 def canonical_axes(axes: Dict[str, int]) -> Dict[str, int]:
@@ -67,6 +107,7 @@ def make_mesh(axes: Dict[str, int]) -> Mesh:
     """A Mesh with the canonical axis order. Size-1 axes are kept, as the
     reference keeps them."""
     check_axes(axes)
+    check_world(axes)
     ordered = canonical_axes(axes)
     return Mesh(tuple(ordered), tuple(ordered.values()))
 

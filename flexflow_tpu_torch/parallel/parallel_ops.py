@@ -10,11 +10,13 @@ flexflow_tpu/parallel/parallel_ops.py).
 
 The strategy search inserts and prices them (search/substitution.py,
 search/cost_model.py). None of them changes a tensor's value, only where
-its pieces live. On the port's one card every piece of every axis but
-`seq` is the one piece (the mesh refuses others above 1), and every `seq`
-piece lives in the one process, so each lowering passes its input on. A
-degree above 1 over another axis is several cards, which the port does not
-run yet (ROADMAP.md, queue 1 item 12): that raises.
+its pieces live. On a process mesh (the `data` and `model` axes, one
+process per card) each lays its input out as the reference's lowering
+constrains it, with real collectives (parallel/shard_rules.py: a cut is
+a local slice, a gather an all-gather, a moved cut an all-to-all; their
+backwards in parallel/spmd.py). In one process every piece of every axis
+but `seq` is the one piece, and every `seq` piece lives in that process,
+so the lowering below passes its input on.
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ from typing import Optional, Tuple
 from flexflow_tpu_torch.ffconst import OpType
 from flexflow_tpu_torch.ops.base import OpAttrs, elementwise_like
 from flexflow_tpu_torch.ops.registry import register_lowering
-from flexflow_tpu_torch.parallel.mesh import mesh_axis_size
 from flexflow_tpu_torch.parallel.sharding import Spec
 from flexflow_tpu_torch.pcg.tensor import ParallelDim, ParallelTensorShape
 
@@ -140,27 +141,10 @@ class AllToAllAttrs(OpAttrs):
         return (dataclasses.replace(x, dims=tuple(dims)),)
 
 
-# the axes whose every position one process holds on one card
-_LOCAL_AXES = ("seq",)
-
-
-def moved_axes(attrs) -> Tuple[str, ...]:
-    """The mesh axes a parallel op reshards over."""
-    if isinstance(attrs, FusedParallelOpAttrs):
-        return tuple(a for _, _, axes in attrs.steps for a in axes)
-    return tuple(getattr(attrs, "axes", ()))
-
-
 def _reshard(attrs, inputs, params, ctx):
-    """The identity on one card; raises for a degree above 1 over an axis
-    whose positions would be other cards."""
-    for a in moved_axes(attrs):
-        n = mesh_axis_size(ctx.mesh, a)
-        if n > 1 and a not in _LOCAL_AXES:
-            raise NotImplementedError(
-                f"{type(attrs).__name__} over mesh axis {a!r} of size {n} "
-                "moves data between cards, which the port does not run yet "
-                "(ROADMAP.md, queue 1 item 12)")
+    """The identity in one process, where every piece of a `seq` axis and
+    the only piece of every other axis live (a process mesh lays such
+    values out in parallel/shard_rules.py instead)."""
     return [inputs[0]]
 
 

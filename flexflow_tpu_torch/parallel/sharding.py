@@ -3,9 +3,12 @@ flexflow_tpu/parallel/sharding.py).
 
 A view names, for each tensor dim of an op's outputs and weights, the
 mesh axes that shard it. The strategy search assigns one per node and
-prices it on a modeled machine; on the port's one card every shard lives
-on that card, so a view is the record of the strategy and the executor
-computes whole tensors (prune_spec gives the degrees it implies there).
+prices it on a modeled machine. On a process mesh (the `data` and
+`model` axes, one process per card) the executor lays each value out as
+its view's spec says, pruned by prune_spec: each rank holds the piece its
+coordinates pick (parallel/spmd.py), as GSPMD places a NamedSharding's
+shards. In one process a view is the record of the strategy and the
+executor computes whole tensors.
 
 A `Spec` is a per-dim tuple of mesh-axis tuples, e.g. for a (batch, seq,
 hidden) activation sharded DP×TP: ((("data",), (), ("model",))).
@@ -119,10 +122,10 @@ class ShardingView:
 def prune_spec(spec: Optional[Spec], shape: Tuple[int, ...],
                mesh) -> Optional[Spec]:
     """Drop per-dim axis assignments whose degree does not divide the dim
-    size (the reference's machine-view validity rule), and axes the mesh
-    lacks. `mesh` is a parallel.mesh.Mesh or its {axis: size} dict. On one
-    card every axis but `seq` has size 1, so a view over such an axis, or
-    over one the mesh lacks, comes back at degree 1."""
+    size (the reference's machine-view validity rule: a kv-head dim of 2
+    cannot shard over a 4-way model axis, so it stays replicated), axes
+    the mesh lacks and axes of size 1. `mesh` is a parallel.mesh.Mesh or
+    its {axis: size} dict."""
     if spec is None or mesh is None:
         return spec
     sizes = dict(mesh) if isinstance(mesh, dict) else mesh.axes

@@ -16,8 +16,13 @@ bfloat16 leaves, which numpy lacks, are written as the JAX package writes
 them (ml_dtypes' bfloat16 saves as raw 2-byte "|V2" records) and read back
 through an int16 view into torch.bfloat16, never through a cast. Restore
 puts each leaf on the model's device in the dtype of the leaf it replaces.
-The orbax backend (sharded, multi-process) is ROADMAP.md queue 1 item 12
-and raises.
+
+On a process mesh (one process per card) every rank calls save: each
+whole leaf is gathered from the ranks' pieces (the optimizer state's
+ZeRO-1 slices too) and rank 0 writes, so the files are those of a
+one-card save and either package restores them. Every rank restores,
+each keeping its pieces of the whole leaves. The orbax backend (each
+process writing its own shards) is ROADMAP.md queue 1 item 12 and raises.
 """
 
 from __future__ import annotations
@@ -32,8 +37,9 @@ import numpy as np
 import torch
 
 _SEP = "\x1f"
-_ORBAX = ("the orbax backend writes sharded state from several "
-          "processes; the port has one card (ROADMAP.md queue 1 item 12)")
+_ORBAX = ("the orbax backend (each process writing its own shards, the "
+          "DCP counterpart) is not ported yet; the npz backend gathers "
+          "whole leaves on rank 0 (ROADMAP.md queue 1 item 12)")
 _BF16_RECORD = np.dtype("V2")
 
 
@@ -85,9 +91,31 @@ def from_numpy(arr: np.ndarray, like) -> Any:
 
 
 def _state(ffmodel) -> Dict:
+    """The saved trees, whole leaves (gathered on a process mesh)."""
     tr, ntr = ffmodel._params
-    return {"trainable": tr, "nontrainable": ntr,
-            "opt_state": ffmodel._opt_state or {}}
+    opt = ffmodel._opt_state or {}
+    if ffmodel._pmesh is None:
+        return {"trainable": tr, "nontrainable": ntr, "opt_state": opt}
+    ex, pm = ffmodel.executor, ffmodel._pmesh
+    specs = ex.opt_state_specs(opt)
+    return {"trainable": ex.gather_params(tr),
+            "nontrainable": ex.gather_params(ntr),
+            "opt_state": {k: ({nk: {wn: pm.gather(t, specs[k][nk][wn])
+                                    for wn, t in ws.items()}
+                               for nk, ws in v.items()}
+                              if k in specs else v)
+                          for k, v in opt.items()}}
+
+
+def _specs(ffmodel) -> Optional[Dict]:
+    """The Spec of every saved leaf, shaped like _state's trees (None on
+    one process)."""
+    if ffmodel._pmesh is None:
+        return None
+    ex = ffmodel.executor
+    ps = ex.param_specs()
+    return {"trainable": ps, "nontrainable": ps,
+            "opt_state": ex.opt_state_specs(ffmodel._opt_state or {})}
 
 
 def save_checkpoint(path: str, ffmodel, extra: Optional[Dict] = None,
@@ -98,8 +126,14 @@ def save_checkpoint(path: str, ffmodel, extra: Optional[Dict] = None,
         raise NotImplementedError(f"backend={backend!r}: {_ORBAX}")
     from flexflow_tpu_torch.pcg.serialize import graph_to_json
 
+    from flexflow_tpu_torch.runtime import distributed as dist
+
+    state = _state(ffmodel)
+    if dist.process_index() != 0:
+        dist.sync_global_devices("checkpoint")
+        return
     os.makedirs(path, exist_ok=True)
-    arrays = {k: to_numpy(v) for k, v in _flatten(_state(ffmodel)).items()}
+    arrays = {k: to_numpy(v) for k, v in _flatten(state).items()}
     np.savez(os.path.join(path, "arrays.npz"), **arrays)
     opt = ffmodel._optimizer
     opt_spec = None
@@ -133,11 +167,17 @@ def save_checkpoint(path: str, ffmodel, extra: Optional[Dict] = None,
     }
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f)
-    # one card: no node carries a sharding
+    # the node shardings, as --export-strategy writes them ({} when no
+    # node carries one)
+    from flexflow_tpu_torch.parallel.sharding import view_to_json
+
     with open(os.path.join(path, "strategy.json"), "w") as f:
-        json.dump({}, f, indent=1)
+        json.dump({n.name: view_to_json(n.sharding)
+                   for n in ffmodel.graph.nodes if n.sharding is not None},
+                  f, indent=1)
     with open(os.path.join(path, "pcg.json"), "w") as f:
         f.write(graph_to_json(ffmodel.graph))
+    dist.sync_global_devices("checkpoint")
 
 
 def _read_meta(path: str) -> Dict:
@@ -163,29 +203,42 @@ def restore_checkpoint(path: str, ffmodel) -> Dict:
     with np.load(os.path.join(path, "arrays.npz")) as data:
         state = _unflatten({k: data[k] for k in data.files})
 
-    def put_like(saved: Dict, current: Dict) -> Dict:
+    pm = ffmodel._pmesh
+    specs = _specs(ffmodel) or {}
+
+    def put_like(saved: Dict, current: Dict, spec: Optional[Dict]) -> Dict:
         out = {}
         for k, cur in current.items():
             if isinstance(cur, dict):
-                out[k] = put_like(saved.get(k, {}), cur)
+                out[k] = put_like(saved.get(k, {}), cur,
+                                  (spec or {}).get(k))
                 continue
             if k not in saved:
                 raise KeyError(f"checkpoint missing parameter {k}")
             arr = saved[k]
             shape = tuple(cur.shape) if isinstance(cur, torch.Tensor) \
                 else ()
+            cut = (spec or {}).get(k) if pm is not None else None
+            if cut is not None:
+                # the whole leaf this rank's piece comes from
+                shape = tuple(n * pm.degree(a)
+                              for n, a in zip(shape, cut))
             if tuple(arr.shape) != shape:
                 raise ValueError(f"checkpoint shape mismatch for {k}: "
                                  f"{arr.shape} vs {shape}")
-            out[k] = from_numpy(arr, cur)
+            t = from_numpy(arr, cur)
+            out[k] = pm.shard(t, cut).clone() if cut is not None else t
         return out
 
     tr, ntr = ffmodel._params
-    ffmodel._params = (put_like(state.get("trainable", {}), tr),
-                       put_like(state.get("nontrainable", {}), ntr))
+    ffmodel._params = (
+        put_like(state.get("trainable", {}), tr, specs.get("trainable")),
+        put_like(state.get("nontrainable", {}), ntr,
+                 specs.get("nontrainable")))
     if ffmodel._opt_state is not None:
         ffmodel._opt_state = put_like(state.get("opt_state", {}),
-                                      ffmodel._opt_state)
+                                      ffmodel._opt_state,
+                                      specs.get("opt_state"))
     ffmodel._step_count = meta.get("step_count", 0)
     return meta
 

@@ -78,15 +78,13 @@ class PrefetchLoader:
         stream = (torch.cuda.Stream(device) if device.type == "cuda"
                   else None)
         try:
-            nxt = _put([ld.next_batch() for ld in self.loaders], device,
-                       stream)
+            nxt = _put(self._local(), device, stream)
         except StopIteration:
             return
         while True:
             cur = nxt
             try:
-                nxt = _put([ld.next_batch() for ld in self.loaders], device,
-                           stream)
+                nxt = _put(self._local(), device, stream)
             except StopIteration:
                 nxt = None
             yield _ready(cur)
@@ -95,6 +93,13 @@ class PrefetchLoader:
 
     def __len__(self) -> int:
         return min(ld.num_batches for ld in self.loaders)
+
+    def _local(self) -> List[np.ndarray]:
+        """The loaders' next global batch (the inputs, then the labels),
+        cut to this rank's piece on a process mesh: each rank copies
+        only its rows to its card."""
+        arrays = [ld.next_batch() for ld in self.loaders]
+        return self.ffmodel.executor.local_batch(arrays, labels=True)
 
 
 def _put(arrays, device: torch.device, stream) -> tuple:

@@ -1,4 +1,4 @@
-"""Executor: runs a PCG eagerly on one device (counterpart of
+"""Executor: runs a PCG eagerly on its device (counterpart of
 flexflow_tpu/runtime/executor.py).
 
 Where the JAX package traces the topo-order walk into one jitted XLA
@@ -19,16 +19,24 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from flexflow_tpu_torch import obs
 from flexflow_tpu_torch.ffconst import ActiMode, LossType, MetricsType, OpType
 from flexflow_tpu_torch.ops.registry import LowerCtx, get_lowering, node_seed
+from flexflow_tpu_torch.parallel import shard_rules, spmd
+from flexflow_tpu_torch.parallel.shard_rules import DATA
+from flexflow_tpu_torch.parallel.sharding import prune_spec
 from flexflow_tpu_torch.pcg.graph import Graph, Node
 from flexflow_tpu_torch.runtime import initializer as init_mod
-from flexflow_tpu_torch.runtime.loss import compute_loss
-from flexflow_tpu_torch.runtime.metrics import compute_step_metrics
+from flexflow_tpu_torch.runtime.loss import compute_loss, sharded_loss
+from flexflow_tpu_torch.runtime.metrics import (
+    VOCAB_SHARDED_METRICS,
+    compute_step_metrics,
+    vocab_sharded_step_metrics,
+)
 
 # weights stored fp32 whatever their declared dtype, so their values are
 # the reference's fp32 masters: the norm scales and biases and
@@ -93,10 +101,18 @@ class Executor:
                  loss_type: Optional[LossType] = None,
                  metrics: Sequence[MetricsType] = (), optimizer=None,
                  remat: str = "attention", mesh=None,
-                 seq_length: Optional[int] = None, donate: bool = True):
+                 seq_length: Optional[int] = None, donate: bool = True,
+                 pmesh=None, zero_sharded_opt: bool = False):
         self.graph = graph
         self.device = torch.device(device)
         self.mesh = mesh
+        # the process mesh (parallel/spmd.ProcessMesh) when the data or
+        # model axis spans several processes, else None
+        self.pmesh = pmesh
+        # ZeRO-1: the optimizer state cut over `data` (ParamSyncType
+        # .SHARDED); {node key: {weight: cut dim or None}} once drawn
+        self.zero_sharded_opt = zero_sharded_opt
+        self.zero_dims = None
         self.loss_type = loss_type
         self.metrics = list(metrics)
         self.optimizer = optimizer
@@ -285,6 +301,11 @@ class Executor:
                     arr = cast_weight_leaf(arr, weight_dtype)
                 else:
                     arr = arr.to(self.storage_dtype(by_key[nk], wn, spec))
+                if self.pmesh is not None:
+                    # every rank draws the whole leaf, as one card does,
+                    # and keeps its piece
+                    arr = self.pmesh.shard(
+                        arr, self.param_specs()[nk][wn]).clone()
                 (tr if spec.trainable else ntr).setdefault(nk, {})[wn] = arr
         return tr, ntr
 
@@ -298,8 +319,146 @@ class Executor:
                 for nk, ws in trainable.items()}
 
     def init_opt_state(self, optimizer, params):
-        """The optimizer's state for `params`, on the params' device."""
-        return optimizer.init_state(params)
+        """The optimizer's state for `params`, on the params' device. Under
+        ZeRO-1 over a data axis above 1 each leaf's state covers this
+        rank's slice of the leaf's largest dim that is not cut already
+        and that the data degree divides (the reference's
+        opt_state_shardings); a leaf with no such dim keeps it whole."""
+        pm = self.pmesh
+        if not self.zero_sharded_opt or pm is None \
+                or pm.sizes.get(DATA, 1) <= 1:
+            return optimizer.init_state(params)
+        d = pm.sizes[DATA]
+        specs = self.param_specs()
+        self.zero_dims = {}
+        for nk, ws in params.items():
+            for wn, p in ws.items():
+                spec = specs[nk][wn]
+                best, best_size = None, 0
+                for i, size in enumerate(p.shape):
+                    if not spec[i] and size % d == 0 and size > best_size:
+                        best, best_size = i, size
+                self.zero_dims.setdefault(nk, {})[wn] = best
+        return optimizer.init_state(self._zero_slices(params))
+
+    def _zero_slices(self, tree):
+        """Views of this rank's ZeRO-1 slice of every leaf (the leaf
+        itself where it has no cut dim)."""
+        pm = self.pmesh
+        out = {}
+        for nk, ws in tree.items():
+            out[nk] = {}
+            for wn, p in ws.items():
+                dim = self.zero_dims[nk][wn]
+                out[nk][wn] = p if dim is None else pm.shard(
+                    p, tuple((DATA,) if i == dim else ()
+                             for i in range(p.ndim)))
+        return out
+
+    def opt_state_specs(self, opt_state):
+        """{state key: {node key: {weight: Spec}}} of the state trees that
+        mirror the parameters: the parameter's spec, plus `data` on the
+        ZeRO-1 dim (checkpoint gathers them)."""
+        specs = self.param_specs()
+        out = {}
+        for k, v in opt_state.items():
+            if not isinstance(v, dict):
+                continue
+            out[k] = {}
+            for nk, ws in v.items():
+                out[k][nk] = {}
+                for wn in ws:
+                    spec = list(specs[nk][wn])
+                    dim = (self.zero_dims or {}).get(nk, {}).get(wn)
+                    if dim is not None:
+                        spec[dim] = (DATA,)
+                    out[k][nk][wn] = tuple(spec)
+        return out
+
+    # ------------------------------------------------------------------
+    # one process per card: the layouts of the parameters and the batch
+
+    def _prune(self, spec, shape) -> Tuple:
+        """A view's spec as this mesh can cut `shape` (prune_spec), one
+        entry a dim."""
+        shape = tuple(shape)
+        spec = prune_spec(spec, shape, self.mesh) if spec else None
+        spec = tuple(spec or ())[:len(shape)]
+        return tuple(tuple(a) for a in spec) + tuple(
+            () for _ in range(len(shape) - len(spec)))
+
+    def param_specs(self) -> Dict[str, Dict[str, Tuple]]:
+        """{node key: {weight: Spec}}: how each leaf is cut over the
+        process mesh (its view's weight spec, pruned; whole without)."""
+        if getattr(self, "_param_specs", None) is None:
+            out = {}
+            for n in self.topo:
+                if n.attrs is None or n.op_type == OpType.INPUT:
+                    continue
+                ws = n.attrs.weights(*self.graph.input_shapes(n))
+                view = n.sharding
+                for wn, spec in ws.items():
+                    decl = (view.weight_specs.get(wn)
+                            if view is not None else None)
+                    out.setdefault(node_key(n), {})[wn] = self._prune(
+                        decl, spec.shape.dims)
+            self._param_specs = out
+        return self._param_specs
+
+    def input_specs(self):
+        """The Spec of each graph input (its view's, pruned)."""
+        out = []
+        for n in self.input_nodes:
+            shape = tuple(d.size for d in n.outputs[0].dims)
+            v = n.sharding
+            out.append(self._prune(v.output_spec(0) if v else None, shape))
+        return out
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """The axes the batch (dim 0 of the first input) is cut over."""
+        specs = self.input_specs()
+        return tuple(specs[0][0]) if specs and specs[0] else ()
+
+    def batch_degree(self) -> int:
+        """Into how many pieces the batch is cut (1 on one process)."""
+        if self.pmesh is None:
+            return 1
+        return self.pmesh.degree(self.pmesh.keep(self.batch_axes))
+
+    def label_spec(self, ndim: int):
+        return (self.batch_axes,) + tuple(() for _ in range(ndim - 1))
+
+    def local_batch(self, arrays, labels: bool = False):
+        """This rank's piece of each global input array (and of the
+        labels, last, with `labels`)."""
+        from flexflow_tpu_torch.runtime.distributed import host_local_batch
+
+        if self.pmesh is None:
+            return list(arrays)
+        specs = self.input_specs()[:len(arrays) - int(labels)]
+        if labels:
+            specs.append(self.label_spec(np.ndim(arrays[-1])))
+        return host_local_batch(arrays, specs, self.pmesh)
+
+    def shard_params(self, trainable, nontrainable):
+        """Whole (trainable, nontrainable) trees -> this rank's pieces."""
+        if self.pmesh is None:
+            return trainable, nontrainable
+        specs = self.param_specs()
+        return tuple(
+            {nk: {wn: self.pmesh.shard(t, specs[nk][wn]).clone()
+                  for wn, t in ws.items()} for nk, ws in tree.items()}
+            for tree in (trainable, nontrainable))
+
+    def gather_params(self, tree):
+        """Every rank's pieces -> the whole leaves, on every rank (a
+        collective: every rank calls it)."""
+        if self.pmesh is None:
+            return tree
+        specs = self.param_specs()
+        return {nk: {wn: self.pmesh.gather(t, specs[nk][wn])
+                     for wn, t in ws.items()} for nk, ws in tree.items()}
 
     # ------------------------------------------------------------------
     # forward
@@ -333,6 +492,17 @@ class Executor:
         step) ((0, 0) when None); outside training nothing draws. With
         `state_out` the non-trainable weights a node moves (BatchNorm's
         running statistics) land in state_out[node key]."""
+        if self.pmesh is not None:
+            if kv_caches is not None or page_tables is not None:
+                raise NotImplementedError(
+                    "decoding on a mesh of several processes (serving on a "
+                    "mesh above 1) is not ported yet (ROADMAP.md, queue 1 "
+                    "item 12)")
+            out, aux, _ = self._run_forward_spmd(
+                trainable, nontrainable, inputs, training=training,
+                skip_sink_softmax=skip_sink_softmax, rng=rng,
+                state_out=state_out)
+            return (out, aux) if return_aux else out
         values: Dict[Tuple[int, int], Any] = {}
         if training and rng is None:
             rng = (0, 0)
@@ -355,9 +525,10 @@ class Executor:
             if groups and n.guid in self._remat_member_of:
                 entry = self._remat_member_of[n.guid]
                 if n.guid == entry:  # the other members run inside it
-                    values.update(self._run_remat_group(
-                        groups[entry], values, trainable, nontrainable,
-                        rng))
+                    self._run_remat_group(
+                        groups[entry], values, rng,
+                        lambda gn, ins, _, ctx: _lower_node(
+                            gn, ins, trainable, nontrainable, ctx))
                 continue
             key = node_key(n)
             ins = [values[(e.src, e.src_idx)] for e in self.graph.in_edges(n)]
@@ -394,32 +565,118 @@ class Executor:
         out = values[(self.sink.guid, 0)]
         return (out, aux) if return_aux else out
 
-    def _run_remat_group(self, group, values, trainable, nontrainable, rng):
+    def _run_forward_spmd(self, trainable, nontrainable, inputs, *,
+                          training: bool, skip_sink_softmax: bool, rng,
+                          state_out):
+        """run_forward on this rank's pieces: (sink piece, aux, its
+        layout)."""
+        if training and rng is None:
+            rng = (0, 0)
+        if len(inputs) != len(self.input_nodes):
+            raise ValueError(f"expected {len(self.input_nodes)} inputs, "
+                             f"got {len(inputs)}")
+        values: Dict[Tuple[int, int], Any] = {}
+        layouts: Dict[Tuple[int, int], Tuple] = {}
+        for n, x, spec in zip(self.input_nodes, inputs, self.input_specs()):
+            values[(n.guid, 0)] = x
+            layouts[(n.guid, 0)] = spec
+        groups = self.remat_groups if training else {}
+        aux = None
+        for n in self.topo:
+            if n.op_type == OpType.INPUT:
+                continue
+            if groups and n.guid in self._remat_member_of:
+                entry = self._remat_member_of[n.guid]
+                if n.guid == entry:
+                    self._run_remat_group(
+                        groups[entry], values, rng,
+                        lambda gn, ins, lays, ctx: self._run_node_spmd(
+                            gn, ins, lays, trainable, nontrainable, ctx,
+                            remat=False),
+                        layouts)
+                continue
+            srcs = [(e.src, e.src_idx) for e in self.graph.in_edges(n)]
+            if skip_sink_softmax and n.guid == self.sink.guid \
+                    and n.op_type == OpType.SOFTMAX:
+                values[(n.guid, 0)] = values[srcs[0]]
+                layouts[(n.guid, 0)] = layouts[srcs[0]]
+                continue
+            ctx = LowerCtx(
+                device=self.device, mesh=self.mesh, training=training,
+                seq_length=self.seq_length, node_guid=n.guid,
+                rng_seed=node_seed(rng, n.guid) if training else None)
+            outs, lays = self._run_node_spmd(
+                n, [values[k] for k in srcs], [layouts[k] for k in srcs],
+                trainable, nontrainable, ctx,
+                remat=training and self.remat == "attention")
+            for i, (o, lay) in enumerate(zip(outs, lays)):
+                values[(n.guid, i)] = o
+                layouts[(n.guid, i)] = lay
+            if ctx.aux_loss is not None:
+                aux = ctx.aux_loss if aux is None else aux + ctx.aux_loss
+            if ctx.state_updates and state_out is not None:
+                state_out[node_key(n)] = dict(ctx.state_updates)
+        key = (self.sink.guid, 0)
+        return values[key], aux, layouts[key]
+
+    def _run_node_spmd(self, n, ins, in_layouts, trainable, nontrainable,
+                       ctx, remat: bool):
+        """One node on this rank's pieces (shard_rules.run_node), its
+        outputs laid out as its view says."""
+        key = node_key(n)
+        params = {**trainable.get(key, {}), **nontrainable.get(key, {})}
+        w_layouts = self.param_specs().get(key, {})
+        w_shapes = {wn: tuple(spec.shape.dims) for wn, spec in
+                    n.attrs.weights(*self.graph.input_shapes(n)).items()}
+        in_shapes = [tuple(d.size for d in s.dims)
+                     for s in self.graph.input_shapes(n)]
+        outs, lays = shard_rules.run_node(
+            n, ins, in_layouts, in_shapes, params, w_layouts, w_shapes,
+            self.pmesh, ctx, remat, self._prune)
+        outs, lays = list(outs), list(lays)
+        view = n.sharding
+        for i in range(len(outs)):
+            spec = view.output_spec(i) if view is not None else None
+            if spec is None:
+                continue
+            target = self._prune(spec, [d.size for d in n.outputs[i].dims])
+            outs[i] = spmd.redistribute(outs[i], self.pmesh, lays[i], target)
+            lays[i] = target
+        return outs, lays
+
+    def _run_remat_group(self, group, values, rng, run_node, layouts=None):
         """One remat="hidden" group under torch.utils.checkpoint
         (non-reentrant): only its external inputs are saved for backward,
-        the hidden activations inside are recomputed. Returns {output key:
-        value}."""
+        the hidden activations inside are recomputed. `run_node(node,
+        ins, in_layouts, ctx)` runs one member and returns (outputs, their
+        layouts): the one-card lowering (layouts None), or _run_node_spmd
+        on a rank's pieces, where `layouts` holds every value's layout.
+        The group's output goes into `values` (its layout into
+        `layouts`)."""
         members, out_key, ext = group
+        out_layout = {}
 
         def group_fn(*xs):
             local = dict(zip(ext, xs))
+            lays = {k: None if layouts is None else layouts[k] for k in ext}
             for gn in members:
-                key = node_key(gn)
-                ins = [local[(e.src, e.src_idx)]
-                       for e in self.graph.in_edges(gn)]
-                params = {**trainable.get(key, {}),
-                          **nontrainable.get(key, {})}
+                srcs = [(e.src, e.src_idx) for e in self.graph.in_edges(gn)]
                 ctx = LowerCtx(device=self.device, mesh=self.mesh,
                                training=True, seq_length=self.seq_length,
                                node_guid=gn.guid,
                                rng_seed=node_seed(rng, gn.guid))
-                for i, o in enumerate(get_lowering(gn.op_type)(
-                        gn.attrs, ins, params, ctx)):
+                outs, ls = run_node(gn, [local[k] for k in srcs],
+                                    [lays[k] for k in srcs], ctx)
+                for i, (o, lay) in enumerate(zip(outs, ls)):
                     local[(gn.guid, i)] = o
+                    lays[(gn.guid, i)] = lay
+            out_layout["spec"] = lays[out_key]
             return local[out_key]
 
-        return {out_key: checkpoint(group_fn, *[values[k] for k in ext],
-                                    use_reentrant=False)}
+        values[out_key] = checkpoint(group_fn, *[values[k] for k in ext],
+                                     use_reentrant=False)
+        if layouts is not None:
+            layouts[out_key] = out_layout["spec"]
 
     # ------------------------------------------------------------------
     # training and evaluation steps
@@ -435,17 +692,38 @@ class Executor:
         reference reports it, loss and logits detached, grads a tree
         shaped like `trainable`; the running statistics the forward moved
         go to `state_out` (run_forward's)."""
+        loss, logits, grads, _ = self._loss_and_grads(
+            trainable, nontrainable, labels, *inputs, rng=rng,
+            state_out=state_out)
+        return loss, logits, grads
+
+    def _loss_and_grads(self, trainable, nontrainable, labels, *inputs,
+                        rng=None, state_out=None):
+        """loss_and_grads, plus the layout of the logits it returns (None
+        on one process). On a process mesh the gradients are this rank's
+        pieces, a parameter's still partial over `data` (the train step
+        reduces them)."""
         labels = self._maybe_repeat_labels(labels)
         leaves = [p for ws in trainable.values() for p in ws.values()]
         for p in leaves:
             p.requires_grad_(True)
+        layout = None
         try:
-            logits, aux = self.run_forward(
-                trainable, nontrainable, inputs, training=True,
-                skip_sink_softmax=self.fuse_loss_softmax, return_aux=True,
-                rng=rng, state_out=state_out)
-            loss = compute_loss(self.loss_type, logits, labels,
-                                self._sink_is_softmax())
+            if self.pmesh is None:
+                logits, aux = self.run_forward(
+                    trainable, nontrainable, inputs, training=True,
+                    skip_sink_softmax=self.fuse_loss_softmax,
+                    return_aux=True, rng=rng, state_out=state_out)
+                loss = compute_loss(self.loss_type, logits, labels,
+                                    self._sink_is_softmax())
+            else:
+                logits, aux, layout = self._run_forward_spmd(
+                    trainable, nontrainable, inputs, training=True,
+                    skip_sink_softmax=self.fuse_loss_softmax, rng=rng,
+                    state_out=state_out)
+                loss, logits, layout = sharded_loss(
+                    self.loss_type, logits, layout, labels,
+                    self._sink_is_softmax(), self.pmesh, self.batch_axes)
             # the gradient is the loss's plus the MoE load-balance
             # terms'; the loss reported is the loss alone
             grads = torch.autograd.grad(
@@ -460,7 +738,40 @@ class Executor:
                   for g, p in zip(grads, leaves))
         grad_tree = {nk: {wn: next(it) for wn in ws}
                      for nk, ws in trainable.items()}
-        return loss.detach(), logits.detach(), grad_tree
+        return loss.detach(), logits.detach(), grad_tree, layout
+
+    def _step_metrics(self, logits, layout, labels, loss):
+        """compute_step_metrics; on a process mesh over the global batch:
+        the means averaged and the correct counts summed over the batch's
+        axes. Logits cut on the vocabulary (those of the fused sparse
+        cross-entropy `loss`) stay cut for accuracy and that
+        cross-entropy (vocab_sharded_step_metrics); another metric
+        gathers the vocabulary on the rank's rows."""
+        labels = self._maybe_repeat_labels(labels)
+        if self.pmesh is None or not self.metrics:
+            return self._rescale_correct(compute_step_metrics(
+                self.metrics, self.loss_type, logits, labels,
+                self._sink_is_softmax()))
+        pm = self.pmesh
+        v_axes = pm.keep(layout[-1]) if logits.ndim >= 2 else ()
+        with torch.no_grad():
+            if v_axes and set(self.metrics) <= VOCAB_SHARDED_METRICS:
+                m = vocab_sharded_step_metrics(self.metrics, logits, labels,
+                                               loss, pm, v_axes)
+            else:
+                whole = spmd.redistribute(logits, pm, layout,
+                                          tuple(layout[:-1]) + ((),))
+                m = compute_step_metrics(self.metrics, self.loss_type,
+                                         whole, labels,
+                                         self._sink_is_softmax())
+            m = self._rescale_correct(m)
+            keys = sorted(m)
+            deg = pm.degree(pm.keep(self.batch_axes))
+            vec = torch.stack([m[k].float() * (1.0 if k == "accuracy_correct"
+                                               else 1.0 / deg)
+                               for k in keys])
+            vec = pm.all_reduce(vec, self.batch_axes, inplace=True)
+        return dict(zip(keys, vec.unbind()))
 
     def _maybe_repeat_labels(self, labels):
         """AGGREGATE_SPEC's k rows per sample need each label k times."""
@@ -512,18 +823,59 @@ class Executor:
             trainable, opt_state = _clone_tree(trainable), _clone_tree(
                 opt_state)
         state: Dict[str, Dict[str, torch.Tensor]] = {}
-        loss, logits, grad_tree = self.loss_and_grads(
+        loss, logits, grad_tree, layout = self._loss_and_grads(
             trainable, nontrainable, labels, *inputs, rng=rng,
             state_out=state)
-        metrics = self._rescale_correct(compute_step_metrics(
-            self.metrics, self.loss_type, logits,
-            self._maybe_repeat_labels(labels), self._sink_is_softmax()))
+        metrics = self._step_metrics(logits, layout, labels, loss)
         metrics["loss"] = loss
         del logits
-        trainable, opt_state = self.optimizer.update(grad_tree, trainable,
-                                                     opt_state)
+        if self.pmesh is None:
+            trainable, opt_state = self.optimizer.update(
+                grad_tree, trainable, opt_state)
+        else:
+            opt_state = self._update_sharded(grad_tree, trainable, opt_state)
         return (trainable, merge_state(nontrainable, state), opt_state,
                 metrics)
+
+    def _update_sharded(self, grad_tree, trainable, opt_state):
+        """The optimizer's step on a process mesh: each gradient summed
+        over `data`, then the update of this rank's pieces; under ZeRO-1
+        the sum is a reduce-scatter onto the rank's slice, the update
+        runs on the slice, and the new slices are all-gathered into the
+        parameter."""
+        pm = self.pmesh
+        dax = pm.live((DATA,))
+        seen = set()
+
+        def reduced(g):
+            # the sum in place: the step owns its gradients, but autograd
+            # may hand two leaves one buffer, which is then copied first
+            key = g.untyped_storage().data_ptr()
+            if key in seen:
+                g = g.clone()
+            seen.add(key)
+            return pm.all_reduce(g, dax, inplace=True)
+
+        if self.zero_dims is None or not dax:
+            grads = {nk: {wn: reduced(g) for wn, g in ws.items()}
+                     for nk, ws in grad_tree.items()}
+            self.optimizer.update(grads, trainable, opt_state)
+            return opt_state
+        grads = {}
+        for nk, ws in grad_tree.items():
+            grads[nk] = {}
+            for wn, g in ws.items():
+                dim = self.zero_dims[nk][wn]
+                grads[nk][wn] = (reduced(g) if dim is None
+                                 else pm.reduce_scatter(g, dim, dax))
+        slices = self._zero_slices(trainable)
+        self.optimizer.update(grads, slices, opt_state)
+        for nk, ws in trainable.items():
+            for wn, p in ws.items():
+                dim = self.zero_dims[nk][wn]
+                if dim is not None:
+                    p.copy_(pm.all_gather(slices[nk][wn], dim, dax))
+        return opt_state
 
     def eval_step(self, trainable, nontrainable, labels, *inputs):
         """The loss and the compiled metrics of one batch, as 0-d tensors
@@ -534,10 +886,22 @@ class Executor:
 
     @torch.no_grad()
     def _eval_step(self, trainable, nontrainable, labels, *inputs):
+        sink_is_sm = self._sink_is_softmax()
+        if self.pmesh is not None:
+            logits, _, layout = self._run_forward_spmd(
+                trainable, nontrainable, inputs, training=False,
+                skip_sink_softmax=self.fuse_loss_softmax, rng=None,
+                state_out=None)
+            loss, logits, layout = sharded_loss(
+                self.loss_type, logits, layout,
+                self._maybe_repeat_labels(labels), sink_is_sm, self.pmesh,
+                self.batch_axes)
+            m = self._step_metrics(logits, layout, labels, loss)
+            m["loss"] = loss
+            return m
         labels = self._maybe_repeat_labels(labels)
         logits = self.run_forward(trainable, nontrainable, inputs,
                                   skip_sink_softmax=self.fuse_loss_softmax)
-        sink_is_sm = self._sink_is_softmax()
         m = self._rescale_correct(compute_step_metrics(
             self.metrics, self.loss_type, logits, labels, sink_is_sm))
         m["loss"] = compute_loss(self.loss_type, logits, labels, sink_is_sm)
@@ -546,7 +910,13 @@ class Executor:
     @torch.no_grad()
     def forward(self, trainable, nontrainable, *inputs):
         """The sink output (the real softmax included) for one batch
-        (the reference's forward_fn())."""
+        (the reference's forward_fn()); on a process mesh the whole
+        output on every rank, from each rank's piece of the batch."""
+        if self.pmesh is not None:
+            out, _, layout = self._run_forward_spmd(
+                trainable, nontrainable, inputs, training=False,
+                skip_sink_softmax=False, rng=None, state_out=None)
+            return self.pmesh.gather(out, layout)
         return self.run_forward(trainable, nontrainable, inputs)
 
     # ------------------------------------------------------------------
@@ -958,6 +1328,14 @@ class Executor:
             halted = halted | ~room | torch.any(fin) | torch.any(completing)
         states.append(gen.get_state())
         return caches, seq, out, cnts, done, pf_fin, ran, states
+
+
+def _lower_node(n, ins, trainable, nontrainable, ctx):
+    """One node through its one-card lowering: (outputs, no layouts)."""
+    key = node_key(n)
+    params = {**trainable.get(key, {}), **nontrainable.get(key, {})}
+    outs = get_lowering(n.op_type)(n.attrs, ins, params, ctx)
+    return outs, [None] * len(outs)
 
 
 def _clone_tree(tree):

@@ -5,6 +5,13 @@ dLoss/dLogit. Sparse cross-entropy on raw logits (the graph's final
 Softmax skipped and fused into the loss) is `_FusedSparseCE`, with a
 hand-written backward, as the reference's `_fused_sparse_ce` custom VJP:
 plain torch ops, as the reference's are jnp.
+
+On a process mesh (`sharded_loss`) the loss is the mean over the global
+batch: each rank's rows summed and divided by the global row count, then
+all-reduced over the batch's axes. Logits cut on the vocabulary take
+`_VocabShardedCE`: the row max and the sum of exponentials are
+all-reduced over the vocabulary's axes, the label's logit comes from the
+rank that owns it, and the backward stays local.
 """
 
 from __future__ import annotations
@@ -41,6 +48,70 @@ class _FusedSparseCE(torch.autograd.Function):
         d[torch.arange(n, device=d.device), labels] -= 1.0
         d *= gbar / n
         return d.to(logits.dtype), None
+
+
+class _VocabShardedCE(torch.autograd.Function):
+    """sum(logsumexp(logits) - logits[target]) / n_total over (N, V/m)
+    pieces of logits cut over `axes` (this rank's vocabulary block is
+    [index * V/m, (index + 1) * V/m)); the same residuals and backward as
+    _FusedSparseCE, on the rank's block."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, pm, axes, n_total):
+        import torch.distributed as dist
+
+        v_loc = logits.shape[-1]
+        labels = labels.long().clamp(0, v_loc * pm.degree(axes) - 1)
+        lf = logits.float()
+        m = pm.all_reduce(lf.amax(dim=-1), axes, op=dist.ReduceOp.MAX,
+                          inplace=True)
+        s = pm.all_reduce(torch.exp(lf - m[:, None]).sum(dim=-1), axes,
+                          inplace=True)
+        lse = m + torch.log(s)
+        local = labels - pm.index(axes) * v_loc
+        own = (local >= 0) & (local < v_loc)
+        local = local.clamp(0, v_loc - 1)
+        tgt = torch.gather(lf, 1, local[:, None])[:, 0] * own
+        tgt = pm.all_reduce(tgt, axes, inplace=True)
+        ctx.save_for_backward(logits, local, own, lse)
+        ctx.n_total = n_total
+        return torch.sum(lse - tgt) / n_total
+
+    @staticmethod
+    def backward(ctx, gbar):
+        logits, local, own, lse = ctx.saved_tensors
+        d = torch.exp(logits.float() - lse[:, None])
+        rows = torch.arange(d.shape[0], device=d.device)
+        d[rows, local] -= own.float()
+        d *= gbar / ctx.n_total
+        return d.to(logits.dtype), None, None, None, None
+
+
+def sharded_loss(loss_type: LossType, logits, layout, labels,
+                 last_op_is_softmax: bool, pm, batch_axes):
+    """compute_loss on a process mesh: `logits` is this rank's piece,
+    laid out as `layout`; `labels` are the rank's rows (cut over
+    `batch_axes` on dim 0). Returns (loss, logits, their layout): the
+    loss is the global mean, the same on every rank; the logits come back
+    laid out with the batch over `batch_axes`, the vocabulary cut as it
+    was for a fused sparse cross-entropy and whole otherwise."""
+    from flexflow_tpu_torch.parallel import spmd
+
+    nd = logits.ndim
+    fused = (loss_type == LossType.SPARSE_CATEGORICAL_CROSSENTROPY
+             and not last_op_is_softmax and nd >= 2)
+    v_axes = pm.keep(layout[-1]) if fused else ()
+    target = (tuple(batch_axes),) + tuple(() for _ in range(nd - 2)) + (
+        (v_axes,) if nd >= 2 else ())
+    logits = spmd.redistribute(logits, pm, layout, target)
+    deg = pm.degree(pm.keep(batch_axes))
+    if v_axes:
+        lg, lb = _flatten_sparse(logits, labels)
+        loss = _VocabShardedCE.apply(lg, lb, pm, v_axes, lg.shape[0] * deg)
+    else:
+        loss = compute_loss(loss_type, logits, labels,
+                            last_op_is_softmax) / deg
+    return spmd.all_reduce(loss, pm, batch_axes), logits, target
 
 
 def _flatten_sparse(logits, labels):

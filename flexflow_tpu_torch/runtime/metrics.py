@@ -1,8 +1,10 @@
 """Training metrics (counterpart of flexflow_tpu/runtime/metrics.py).
 
 `compute_step_metrics` gives each batch's metrics as 0-d tensors on the
-device, with no host sync; `PerfMetrics` is the host-side accumulator
-that fit() fills once per epoch and eval() once per batch.
+device, with no host sync; `vocab_sharded_step_metrics` gives those of
+logits cut on the vocabulary over a process mesh, without gathering
+them; `PerfMetrics` is the host-side accumulator that fit() fills once
+per epoch and eval() once per batch.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ from flexflow_tpu_torch.ffconst import LossType, MetricsType
 
 LOSS_KEYS = ("cce_loss", "sparse_cce_loss", "mse_loss", "rmse_loss",
              "mae_loss")
+# the metrics vocab_sharded_step_metrics computes
+VOCAB_SHARDED_METRICS = frozenset({
+    MetricsType.ACCURACY, MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY})
 
 
 @dataclasses.dataclass
@@ -106,4 +111,44 @@ def compute_step_metrics(measured: Sequence[MetricsType],
                 torch.mean(torch.square(lf - labels.float())))
         elif m == MetricsType.MEAN_ABSOLUTE_ERROR:
             out["mae_loss"] = torch.mean(torch.abs(lf - labels.float()))
+    return out
+
+
+@torch.no_grad()
+def vocab_sharded_step_metrics(measured: Sequence[MetricsType], logits,
+                               labels, loss, pm, axes
+                               ) -> Dict[str, torch.Tensor]:
+    """compute_step_metrics of raw logits cut over `axes` on the
+    vocabulary (this rank's block is [index * V/m, (index + 1) * V/m)),
+    for this rank's rows, under the fused sparse cross-entropy `loss`
+    (the global batch's mean of the same logits, runtime/loss.py's
+    _VocabShardedCE), which is that metric's value. The prediction is
+    the argmax over the whole vocabulary: each row's largest logit
+    all-reduced (max), then the least index that holds it (min), the
+    first as torch.argmax takes it. Only VOCAB_SHARDED_METRICS."""
+    import torch.distributed as dist
+
+    out: Dict[str, torch.Tensor] = {}
+    lf = logits.float()
+    batch = labels.shape[0]
+    if lf.ndim > 2:
+        lf = lf.reshape(-1, lf.shape[-1])
+        lbl = labels.reshape(-1).long()
+    else:
+        lbl = labels.reshape(labels.shape[0], -1)[:, 0].long()
+    v_loc = lf.shape[-1]
+    for m in measured:
+        if m == MetricsType.ACCURACY:
+            best, idx = lf.max(dim=-1)
+            # not in place: `best` is compared with the maximum below
+            top = pm.all_reduce(best, axes, op=dist.ReduceOp.MAX)
+            first = torch.where(best == top, idx + pm.index(axes) * v_loc,
+                                torch.full_like(idx, v_loc * pm.degree(axes)))
+            pred = pm.all_reduce(first, axes, op=dist.ReduceOp.MIN,
+                                 inplace=True)
+            out["accuracy_correct"] = (pred == lbl).float().mean() * batch
+        elif m == MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY:
+            out["sparse_cce_loss"] = loss
+        else:
+            raise ValueError(f"{m} needs the whole vocabulary")
     return out

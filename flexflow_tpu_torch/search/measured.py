@@ -18,9 +18,11 @@ a shard when the search first prices it, as FlexFlow's simulator
 measures inside the cost query (simulator.cc:537): otherwise a rewrite's
 new ops (a linear with its activation fused in, two linears merged) are
 priced by the roofline against measured originals, and on the card the
-measured graph as built always wins. The collective sweep has
-nothing to measure on one card (ROADMAP.md queue 1 item 12): the
-machine's NVLink knobs keep their datasheet defaults.
+measured graph as built always wins. The collective sweep (timing the
+all-reduce, all-gather and reduce-scatter of a process mesh across
+cards to fit the machine model's NVLink knobs) is not ported yet
+(ROADMAP.md queue 1 item 12: the collective sweep): the knobs keep their
+datasheet defaults.
 
 Unlike the reference, a failure is not an unmeasured op: a kernel that
 fails to build or to launch raises. Only a lowering that refuses the

@@ -1119,7 +1119,7 @@ def serve_generation(ff, slots: int = 4, max_len: int = 512,
             ff, traffic=traffic, budget=int(search_budget), slots=slots,
             max_len=max_len).best
     if serve_strategy is not None:
-        from flexflow_tpu_torch.parallel.mesh import check_axes
+        from flexflow_tpu_torch.parallel.mesh import check_axes, process_count
         from flexflow_tpu_torch.search.servesearch import ServeStrategy
 
         if isinstance(serve_strategy, dict):
@@ -1130,6 +1130,11 @@ def serve_generation(ff, slots: int = 4, max_len: int = 512,
                 "explicit speculate= argument")
         kw = serve_strategy.to_server_kwargs(slots, max_len)
         check_axes(dict(serve_strategy.mesh))
+        if process_count(dict(serve_strategy.mesh)) > 1:
+            raise NotImplementedError(
+                f"serve_strategy mesh {dict(serve_strategy.mesh)} (serving "
+                "on a mesh above 1) is not ported yet (ROADMAP.md, queue 1 "
+                "item 12)")
         paged = True
         page_size = kw["page_size"]
         prefill_chunk = kw["prefill_chunk"]

@@ -73,9 +73,13 @@ def test_every_reference_field_is_ported_or_refused_by_item(name):
     """Set away from its default, each field of the reference's FFConfig
     either takes the value (and keeps it, as the reference does) or
     raises NotImplementedError naming the queue 1 item that ports it;
-    never a TypeError."""
+    never a TypeError. num_devices is the world size of the process
+    group (one process per card): 2 in this one process raises
+    ValueError naming both."""
     if name == "num_devices=2":
-        name, value, item = "num_devices", 2, 12
+        with pytest.raises(ValueError, match="world size is 1"):
+            FFConfig(device="cpu", num_devices=2)
+        return
     else:
         default = next(f.default for f in _FIELDS if f.name == name)
         value = _other_value(name, default)
@@ -122,7 +126,10 @@ def test_from_args_maps_every_flag_to_the_reference_field(argv):
                if _value(getattr(ref, f.name)) != _value(f.default)}
     items = {REFUSED[n] for n in changed if n in REFUSED}
     if changed.get("num_devices", 1) > 1:
-        items.add(12)
+        # num_devices is the world size: more than this one process
+        with pytest.raises(ValueError, match="world size is 1"):
+            FFConfig.from_args(argv)
+        return
     if items:
         with pytest.raises(NotImplementedError) as e:
             FFConfig.from_args(argv)

@@ -84,13 +84,26 @@ def test_cli_driver_runs_a_script(capsys, monkeypatch):
 
 @pytest.mark.parametrize("flags,item", [
     (("--mesh", "seq=2,model=2"), 12),
-    (("--mesh", "data=2,model=4"), 12),
-    (("--devices", "8"), 12),
+    (("--mesh", "data=2,expert=2"), 12),
+    (("--mesh", "pipe=2"), 12),
 ])
 def test_cli_driver_refuses_by_item(flags, item, monkeypatch):
     monkeypatch.setattr(sys, "argv", sys.argv[:])
     monkeypatch.setattr(flexflow_tpu_torch, "_driver_config", None)
     with pytest.raises(NotImplementedError,
                        match=rf"queue 1 item {item}\)"):
+        driver.main(["--device", "cpu", str(EXAMPLES / "mnist_mlp.py"),
+                     *flags])
+
+
+@pytest.mark.parametrize("flags", [("--mesh", "data=2,model=4"),
+                                   ("--devices", "8")])
+def test_cli_driver_refuses_more_cards_than_processes(flags, monkeypatch):
+    """A mesh or device count above the world size (one process here)
+    raises ValueError naming both: each card runs its own process
+    (torchrun)."""
+    monkeypatch.setattr(sys, "argv", sys.argv[:])
+    monkeypatch.setattr(flexflow_tpu_torch, "_driver_config", None)
+    with pytest.raises(ValueError, match="world size is 1"):
         driver.main(["--device", "cpu", str(EXAMPLES / "mnist_mlp.py"),
                      *flags])

@@ -103,6 +103,11 @@ _SERVESEARCH_MODULES = (
     "flexflow_tpu_torch.tools",
     "flexflow_tpu_torch.tools.fftrace",
     "flexflow_tpu_torch.tools.servesearch")
+# one process per card: the process group, the process mesh and its
+# collectives, the ops on their shards
+_DISTRIBUTED_MODULES = ("flexflow_tpu_torch.runtime.distributed",
+                        "flexflow_tpu_torch.parallel.spmd",
+                        "flexflow_tpu_torch.parallel.shard_rules")
 # the speculative-decoding package
 _SPEC_MODULES = ("flexflow_tpu_torch.spec",
                  "flexflow_tpu_torch.spec.config",
@@ -129,6 +134,7 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
     assert set(_FRONTEND_RUNTIME_MODULES) <= set(names.split())
     assert set(_SEARCH_MODULES) <= set(names.split())
     assert set(_SERVESEARCH_MODULES) <= set(names.split())
+    assert set(_DISTRIBUTED_MODULES) <= set(names.split())
 
 
 def test_no_reference_import_statements_in_port_sources():

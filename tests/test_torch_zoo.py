@@ -83,11 +83,25 @@ def test_graph_matches_reference_at_published_sizes(builder):
 
 
 def test_strategies_raise_naming_the_roadmap():
-    """The sharding strategies need mesh axes across cards."""
+    """The strategies over the pipe and expert axes still raise, naming
+    ROADMAP; those over data and model (one process per card) are the
+    reference's views."""
     with pytest.raises(NotImplementedError, match=r"queue 1 item 12\)"):
-        tmodels.bert_attribute_parallel_strategy(tmodels.BertConfig())
+        tmodels.llama_pp_strategy(tmodels.LlamaConfig.tiny())
     with pytest.raises(NotImplementedError, match=r"queue 1 item 12\)"):
-        tmodels.nmt_dp_strategy(tmodels.NMTConfig())
+        tmodels.mixtral_ep_strategy(tmodels.MixtralConfig.tiny())
+    from flexflow_tpu.models import bert as jbert
+    from flexflow_tpu.models import nmt as jnmt
+    from flexflow_tpu.parallel.sharding import view_to_json as jview
+    from flexflow_tpu_torch.parallel.sharding import view_to_json
+
+    for name, cfg, jmod in (
+            ("bert_attribute_parallel_strategy", "BertConfig", jbert),
+            ("nmt_dp_strategy", "NMTConfig", jnmt)):
+        got = getattr(tmodels, name)(getattr(tmodels, cfg)())
+        want = getattr(jmod, name)(getattr(jmod, cfg)())
+        assert {k: view_to_json(v) for k, v in got.items()} == \
+            {k: jview(v) for k, v in want.items()}
 
 
 B = 2
