@@ -20,7 +20,7 @@ serving-strategy search with its calibration loop and the autopilot's
 drain-and-swap, and holds every hand-written kernel on them to its plain
 PyTorch version.
 
-    python3 chip_smoke.py            # phases 1..4, 6..23, one card
+    python3 chip_smoke.py            # phases 1..4, 6..25, one card
     python3 chip_smoke.py --phases 5 # + profiles of serving and training
 
 Phases (each raises on failure: non-zero exit, no "ok" line):
@@ -199,7 +199,7 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
      tensor-core bodies at head dim 100 only, whose tiles are filled by
      cp.async (the kernels line
      records these launches under "openllama_3b");
- 14. training phase 12's Llama at Phi-3-mini's widths (8 layers, head
+ 14. training phase 12's Llama at Phi-3-mini's widths (PHI3_LAYERS, head
      dim 96; its family's 128k-context variant shares these widths) at
      8192 tokens, batch 1, through ring attention over {"seq": 4}, as
      phase 10 trains bench_1b: per layer and step K5 folds 10 blocks and
@@ -477,6 +477,31 @@ Phases (each raises on failure: non-zero exit, no "ok" line):
     (one fingerprint) and one fit step runs. The kernels line records
     (a)'s, (b)'s and (d)'s launches under "dist_fp32", "dist_llama3_8b"
     and "dist_search", timed at the ranks' local attention shapes.
+25. `seq` across processes, in phase 24's group of 4 gloo ranks (after
+    its cells; `--phases 25` alone starts the group for it), each model
+    built with ring attention under llama_tp_strategy(seq_parallel=True):
+    (a) fp32, a Llama at D 128 (dim 512, 4 heads over 2 kv heads), the
+    ring on data 2 x seq 2 and Ulysses on seq 2 x model 2, 3 Adam steps
+    through fit, every rank's losses and the gathered parameters held to
+    one process on the card (the same model on no mesh) within 1e-4;
+    (b) bf16 at Llama-3-8B's widths, P25B_LAYERS layers, global batch 1 x
+    8192 (4096 tokens a rank), the ring on seq 2 x model 2 with ZeRO-1
+    (over seq), one step: the loss within 2e-2 and every leaf's
+    parameters and Adam first moment within 2e-2 and 0.1 of one process
+    on the one-card {"seq": 2} ring, as 24b; (c) Ulysses at (b)'s widths,
+    one predict of 1 x P25C_SEQ, each rank's block of the output held to
+    one process's (error norm over norm, P25C_RTOL); (d) generate from
+    fresh weights: fp32 at (a)'s widths on both meshes, the tokens one
+    process's; bf16 at (b)'s widths, the prefill's last probabilities
+    within P25D_RTOL. In (a)-(c) each rank's K5, K4 and K1/K2 launches
+    are exactly those of its own blocks (the ring: K5 for seq index + 1
+    blocks, twice under remat, K4's dq and dk/dv as many; Ulysses: one
+    flash attention a layer), and the first launch of each kernel and
+    causality on each rank is held to its plain version on that rank's
+    own inputs (`_LaunchCapture`), the last rank's timed alone on the
+    card. The kernels line records them under "dist_seq_fp32",
+    "dist_seq_llama3_8b", "dist_ulysses_fp32" and
+    "dist_ulysses_llama3_8b".
 Each phase, and each part of phases 2 and 3, logs its wall seconds on a
 `phase_time` line. The line before the last is the kernel list as JSON;
 the last line is {"ok": true, "device": {...}}. Exits non-zero without
@@ -8299,11 +8324,13 @@ def p24_nccl(seed: int) -> dict:
             "losses": step["losses"], "launches": step["launches"]}
 
 
-def dist_worker(cell: str, out_dir: str, seed: int) -> int:
-    """One rank of phase 24 (`--dist-worker`): join the process group on
-    card 0 (gloo, or NCCL for cell "c"), run the cell's tasks, write this
-    rank's results under `out_dir`, leave the group. (b) reads the one
-    process's leaves from "ref_b" beside `out_dir`."""
+def dist_worker(cell: str, out_dir: str, seed: int, phases=(24,)) -> int:
+    """One rank of phases 24 and 25 (`--dist-worker`): join the process
+    group on card 0 (gloo, or NCCL for cell "c"), run the cell's tasks of
+    `phases`, write this rank's results under `out_dir` ({"p24": [...],
+    "p25": {...}}, None for a phase not run), leave the group. 24b reads
+    the one process's leaves from "ref_b" beside `out_dir`, phase 25
+    from "ref_25"."""
     import pickle
 
     from flexflow_tpu_torch.runtime import distributed
@@ -8313,25 +8340,31 @@ def dist_worker(cell: str, out_dir: str, seed: int) -> int:
                            device="cuda:0", timeout_s=P24_TIMEOUT_S)
     rank = distributed.process_index()
     init_s = time.monotonic() - t0
+    out = {"p24": None, "p25": None, "init_s": init_s}
+    work = os.path.dirname(out_dir)
     if cell == "c":
-        results = [p24_nccl(seed)]
+        out["p24"] = [p24_nccl(seed)]
     else:
-        ref_b = os.path.join(os.path.dirname(out_dir), "ref_b")
-        results = [p24_train("a", seed, P24_MESH, "psum"),
-                   p24_train("a", seed, P24_MESH, "sharded"),
-                   p24_search(seed),
-                   p24_train("b", seed, P24_MESH, "sharded", ref_dir=ref_b)]
-    results[0]["init_s"] = init_s
+        if 24 in phases:
+            ref_b = os.path.join(work, "ref_b")
+            out["p24"] = [
+                p24_train("a", seed, P24_MESH, "psum"),
+                p24_train("a", seed, P24_MESH, "sharded"),
+                p24_search(seed),
+                p24_train("b", seed, P24_MESH, "sharded", ref_dir=ref_b)]
+        if 25 in phases:
+            out["p25"] = p25_rank(seed, os.path.join(work, "ref_25"))
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
-        pickle.dump(results, f)
+        pickle.dump(out, f)
     distributed.shutdown()
     return 0
 
 
-def p24_start(cell: str, n: int, seed: int, work: str) -> tuple:
-    """Start `n` ranks of `cell` (this script, `--dist-worker`) on card 0,
-    writing under `work`/`cell`; returns (cell, that directory, [(process,
-    log file)])."""
+def p24_start(cell: str, n: int, seed: int, work: str, phases=(24,)
+              ) -> tuple:
+    """Start `n` ranks of `cell` (this script, `--dist-worker`) of
+    `phases` on card 0, writing under `work`/`cell`; returns (cell, that
+    directory, [(process, log file)])."""
     import socket
 
     out_dir = os.path.join(work, cell)
@@ -8347,7 +8380,8 @@ def p24_start(cell: str, n: int, seed: int, work: str) -> tuple:
         log_f = open(os.path.join(out_dir, f"rank{r}.log"), "w")
         procs.append((subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--dist-worker",
-             cell, "--dist-dir", out_dir, "--seed", str(seed)], env=env,
+             cell, "--dist-dir", out_dir, "--seed", str(seed),
+             "--phases", ",".join(map(str, sorted(phases)))], env=env,
             stdout=log_f, stderr=subprocess.STDOUT), log_f))
     return cell, out_dir, procs
 
@@ -8406,20 +8440,35 @@ def _leaf_rel(got: dict, want: dict) -> float:
                for k, w in want.items())
 
 
-def phase_dist(seed: int, card: str) -> dict:
-    """Phase 24: one process per card on the one card (see the module
-    docstring). The one-process references run first, in this process,
-    and are freed before the ranks start; (b)'s leaves go to a temporary
-    directory the ranks read, removed at the end."""
+def phase_dist(seed: int, card: str, phases=(24, 25)) -> tuple:
+    """Phases 24 and 25 (those of `phases`): one process per card on the
+    one card (see the module docstring), in one group of ranks. The
+    one-process references run first, in this process, and are freed
+    before the ranks start; the leaves and outputs the ranks compare with
+    go to a temporary directory they read, removed at the end. Returns
+    (phase 24's result, phase 25's), None for a phase not run."""
     problems = []
     work = tempfile.mkdtemp(prefix="p24_")
     try:
-        return _phase_dist(seed, card, work, problems)
+        return _phase_dist(seed, card, work, problems, phases)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def _phase_dist(seed: int, card: str, work: str, problems: list) -> dict:
+def _phase_dist(seed: int, card: str, work: str, problems: list,
+                phases) -> tuple:
+    one25 = (p25_one_process(seed, os.path.join(work, "ref_25"))
+             if 25 in phases else None)
+    res25 = None
+    if 24 not in phases:
+        free_card()
+        (ranks,) = timed("25:ranks", p24_wait, [
+            p24_start("abd", P24_RANKS, seed, work, phases)])
+        res25 = p25_judge(one25, [r["p25"] for r in ranks], card, problems)
+        log(f"dist_seq {json.dumps(res25, default=str)}")
+        if problems:
+            raise AssertionError("phase 25: " + "; ".join(problems))
+        return None, res25
     ref_a = timed("24a:one_process", p24_train, "a", seed)
     ref_b = timed("24b:one_process", p24_train, "b", seed,
                   ref_dir=os.path.join(work, "ref_b"))
@@ -8441,9 +8490,13 @@ def _phase_dist(seed: int, card: str, work: str, problems: list) -> dict:
     free_gb = free_card()
     # the NCCL rank runs beside the four gloo ranks (its own world of one)
     ranks, nccl = timed("24:ranks", p24_wait, [
-        p24_start("abd", P24_RANKS, seed, work),
+        p24_start("abd", P24_RANKS, seed, work, phases),
         p24_start("c", 1, seed, work)])
-    nccl = nccl[0][0]
+    if 25 in phases:
+        res25 = p25_judge(one25, [r["p25"] for r in ranks], card, problems)
+        log(f"dist_seq {json.dumps(res25, default=str)}")
+    ranks = [r["p24"] for r in ranks]
+    nccl = nccl[0]["p24"][0]
     res = {"card": card, "allocated_gb_before_ranks": free_gb,
            "a": {"one_process": ref_a}, "b": {"one_process": ref_b},
            "c": nccl, "k1k2_local": {"b": flash_b, "a": flash_a},
@@ -8519,8 +8572,582 @@ def _phase_dist(seed: int, card: str, work: str, problems: list) -> dict:
         problems.append(f"24c: {nccl}")
     log(f"dist {json.dumps(res, default=str)}")
     if problems:
-        raise AssertionError("phase 24: " + "; ".join(problems))
+        raise AssertionError("phases 24, 25: " + "; ".join(problems))
+    return res, res25
+
+
+# ---------------------------------------------------------------------------
+# phase 25: `seq` across processes, in phase 24's ranks (4 on the one card
+# over gloo)
+
+# (a) fp32 at D 128 (dim 512, 4 heads over 2 kv heads: Ulysses' 2 local
+# heads a rank at model 2 split over seq 2), ring on data 2 x seq 2 and
+# Ulysses on seq 2 x model 2, 3 Adam steps each, held to one process (the
+# same ring-built model on no mesh: plain flash attention) within 1e-4
+P25_MESHES = {"ring": {"data": 2, "seq": 2},
+              "ulysses": {"seq": 2, "model": 2}}
+P25A_CFG = LlamaConfig(vocab_size=512, dim=512, layers=2, heads=4,
+                       kv_heads=2, hidden=1024, rope_theta=10000.0)
+P25A_BATCH, P25A_SEQ, P25A_STEPS = 4, 256, 3
+P25A_RTOL = P24A_RTOL
+# (b) Llama-3-8B's widths at 2 layers, bf16, the ring on seq 2 x model 2,
+# global batch 1 x 8192 (4096 tokens a rank), ZeRO-1 (over seq), one step,
+# held leaf by leaf to one process on the one-card {"seq": 2} ring under
+# phase 24b's bounds
+P25B_LAYERS, P25B_SEQ = 2, 8192
+P25B_MESH = {"seq": 2, "model": 2}
+P25B_ONE_CARD = {"seq": 2}
+# (c) Ulysses at (b)'s widths, one predict of 1 x P25C_SEQ on (b)'s mesh:
+# each rank's block of the output probabilities against one process's,
+# by the error norm over the norm (bf16)
+P25C_SEQ = 2048
+P25C_RTOL = 2e-2
+# (d) generate: fp32 at (a)'s widths on both meshes, the tokens those of
+# one process; at (b)'s widths in bf16 on (b)'s mesh, the prefill's last
+# probabilities within P25D_RTOL (error norm over norm) of one process's
+P25D_PROMPT, P25D_NEW = 32, 8
+P25D_RTOL = 2e-2
+# the launch functions the attention wrappers call by these names
+# (ops/flash_attention.py), by kernel
+P25_LAUNCHES = {
+    FLASH_ATTENTION_FWD.name: launch_flash_attention_fwd,
+    FLASH_ATTENTION_DQ.name: launch_flash_attention_dq,
+    FLASH_ATTENTION_DKV.name: launch_flash_attention_dkv,
+    FLASH_ATTENTION_BH_FWD.name: launch_flash_attention_bh_fwd,
+    FLASH_ATTENTION_BH_DQ.name: launch_flash_attention_bh_dq,
+    FLASH_ATTENTION_BH_DKV.name: launch_flash_attention_bh_dkv,
+    FLASH_ATTENTION_BH_FWD_CARRY.name: launch_flash_attention_bh_fwd_carry,
+}
+# how many of each launch's leading arguments are inputs (the rest are
+# outputs, and K5's m, l and acc, which it updates in place, are inputs)
+P25_INPUTS = {
+    FLASH_ATTENTION_FWD.name: 3, FLASH_ATTENTION_DQ.name: 6,
+    FLASH_ATTENTION_DKV.name: 6, FLASH_ATTENTION_BH_FWD.name: 3,
+    FLASH_ATTENTION_BH_DQ.name: 6, FLASH_ATTENTION_BH_DKV.name: 6,
+    FLASH_ATTENTION_BH_FWD_CARRY.name: 6,
+}
+
+
+class _LaunchCapture:
+    """Installed over the launch functions the attention wrappers call
+    (ops/flash_attention.py's names): keeps clones of the inputs of the
+    first launch of each kernel and causality, taken before the launch
+    (K5 updates its inputs m, l and acc), so that each kernel can be held
+    to its plain version at what this rank gave it. The launches still
+    count in the kernels' own counters."""
+
+    def __init__(self):
+        import flexflow_tpu_torch.ops.flash_attention as fa
+
+        self.module = fa
+        self.fns = {name: getattr(fa, fn.__name__) for name, fn in
+                    P25_LAUNCHES.items()}
+        self.kept = {}
+
+    def __enter__(self):
+        for name, fn in self.fns.items():
+            setattr(self.module, P25_LAUNCHES[name].__name__,
+                    self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        n_in = P25_INPUTS[name]
+
+        def capture(*args):
+            causal, scale = args[-2], args[-1]
+            if (name, causal) not in self.kept:
+                self.kept[name, causal] = (
+                    tuple(t.clone() for t in args[:n_in]), scale)
+            return fn(*args)
+
+        return capture
+
+    def __exit__(self, *exc):
+        for name, fn in P25_LAUNCHES.items():
+            setattr(self.module, fn.__name__, self.fns[name])
+
+
+def _p25_call(name, args, causal, scale):
+    """(launch, plain version, (got, want) pairs, tol, lse pair or None,
+    bound (ms, by, bytes, ops), library call or None) of one kept call."""
+    q, k = args[0], args[1]
+    dtype = q.dtype
+    fwd_tol, grad_tol = FLASH_TOLS[dtype]
+    fn = P25_LAUNCHES[name]
+    if name == FLASH_ATTENTION_FWD.name:
+        B, S, H, _ = q.shape
+        out = torch.empty_like(q)
+        lse = torch.empty(B, H, S, device=q.device)
+        want, want_lse = flash_attention_reference(*args, causal, scale)
+        lib = F.scaled_dot_product_attention
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in args)
+        return (lambda: fn(*args, out, lse, causal, scale),
+                lambda: flash_attention_reference(*args, causal, scale),
+                [(out, want)], fwd_tol, (lse, want_lse),
+                flash_bounds(q, k, causal)[name],
+                lambda: lib(qh, kh, vh, is_causal=causal, scale=scale,
+                            enable_gqa=True))
+    if name in (FLASH_ATTENTION_DQ.name, FLASH_ATTENTION_DKV.name):
+        dq = name == FLASH_ATTENTION_DQ.name
+        plain = flash_dq_reference if dq else flash_dkv_reference
+        outs = ([torch.empty_like(q)] if dq else
+                [torch.empty_like(k), torch.empty_like(args[2])])
+        want = plain(*args, causal, scale)
+        want = [want] if dq else list(want)
+        _, lib_bwd = sdpa_calls(*args[:4], scale, causal)
+        return (lambda: fn(*args, *outs, causal, scale),
+                lambda: plain(*args, causal, scale),
+                list(zip(outs, want)), grad_tol, None,
+                flash_bounds(q, k, causal)[name], lib_bwd)
+    if name == FLASH_ATTENTION_BH_FWD_CARRY.name:
+        bufs = [t.clone() for t in args[3:]]
+        want = flash_bh_fwd_carry_reference(*args, causal, scale)
+        return (lambda: fn(*args[:3], *bufs, causal, scale),
+                lambda: flash_bh_fwd_carry_reference(*args, causal, scale),
+                list(zip(bufs, want)), fwd_tol, None,
+                k5_bound(q, k, causal), None)
+    bounds = flash_bounds(q[:, :, None], k[:, :, None], causal, K4_KERNELS)
+    lib_fwd, lib_bwd = sdpa_bh_calls(
+        *args[:3], args[3] if len(args) > 3 else torch.zeros_like(q), scale,
+        causal)
+    if name == FLASH_ATTENTION_BH_FWD.name:
+        out = torch.empty_like(q)
+        lse = torch.empty(q.shape[:2], device=q.device)
+        want, want_lse = flash_bh_reference(*args, causal, scale)
+        return (lambda: fn(*args, out, lse, causal, scale),
+                lambda: flash_bh_reference(*args, causal, scale),
+                [(out, want)], fwd_tol, (lse, want_lse), bounds[name],
+                lib_fwd)
+    dq = name == FLASH_ATTENTION_BH_DQ.name
+    plain = flash_bh_dq_reference if dq else flash_bh_dkv_reference
+    outs = ([torch.empty_like(q)] if dq else
+            [torch.empty_like(k), torch.empty_like(args[2])])
+    want = plain(*args, causal, scale)
+    want = [want] if dq else list(want)
+    return (lambda: fn(*args, *outs, causal, scale),
+            lambda: plain(*args, causal, scale), list(zip(outs, want)),
+            grad_tol, None, bounds[name], lib_bwd)
+
+
+def p25_kernel_checks(cap: _LaunchCapture, timed: bool) -> list:
+    """Every call `cap` kept, through its kernel and its plain version on
+    the same inputs (max |err| and the error norm within FLASH_TOLS, as
+    phase 2); with `timed`, the kernel's, the plain version's and the
+    library call's times (SDPA's forward or its autograd backward; none
+    for K5, which takes a carried state) and the bound at that shape.
+    Each rank checks its own; one rank at a time times (phase_dist_25)."""
+    out = []
+    for (name, causal), (args, scale) in sorted(cap.kept.items()):
+        launch, plain, pairs, tol, lse, bound, lib = _p25_call(
+            name, args, causal, scale)
+        launch()
+        torch.cuda.synchronize()
+        err, ok, rel = _err_ok(pairs, tol, lse)
+        res = {"kernel": name, "causal": causal,
+               "dtype": str(args[0].dtype).replace("torch.", ""),
+               "shape": [list(t.shape) for t in args[:2]],
+               "max_abs_err": err, "rel_norm_err": rel, "tol": tol,
+               "ok": ok}
+        if timed:
+            res.update({"ms": time_ms(launch), "plain_ms": time_ms(plain),
+                        "library_ms": time_ms(lib) if lib else None,
+                        "bound_ms": bound[0], "bound_by": bound[1],
+                        "bytes": bound[2], "ops": bound[3]})
+        out.append(res)
+        del launch, plain, pairs, lse, lib
+    cap.kept.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p25_checks(cap, rank: int, world: int) -> list:
+    """p25_kernel_checks on every rank at once, then the last rank's
+    calls timed while the others wait, so the card times one rank."""
+    import torch.distributed as tdist
+
+    timed = rank == world - 1
+    kept = dict(cap.kept)
+    res = p25_kernel_checks(cap, False)
+    tdist.barrier()
+    if timed:
+        cap.kept.update(kept)
+        res = p25_kernel_checks(cap, True)
+    del kept
+    tdist.barrier()
     return res
+
+
+def p25_model(cell: str, seed: int, mode: str, mesh, train: bool):
+    """Cell `cell`'s ring-built Llama (`mode` "ring" or "ulysses") through
+    FFModel -> build_llama -> compile (with Adam and phase 24's metrics
+    when `train`; bf16 weights otherwise) on `mesh` under
+    llama_tp_strategy(seq_parallel=True) across processes (no strategy
+    in one process)."""
+    if cell == "a":
+        cfg, batch, seq, dtype = (P25A_CFG, P25A_BATCH, P25A_SEQ,
+                                  DataType.FLOAT)
+    else:
+        cfg, batch, dtype = llama3_8b_cut(P25B_LAYERS), 1, DataType.BFLOAT16
+        seq = P25B_SEQ if cell == "b" else P25C_SEQ
+    from flexflow_tpu_torch.runtime import distributed
+
+    ranks = distributed.is_multi_host()
+    ff = FFModel(FFConfig(batch_size=batch, seed=seed, device=DEVICE,
+                          mesh_shape=mesh,
+                          param_sync=ParamSyncType(
+                              "sharded" if cell == "b" else "psum")))
+    build_llama(ff, cfg, batch_size=batch, seq_len=seq, dtype=dtype,
+                use_ring_attention=True, seq_mode=mode)
+    ff.compile(optimizer=AdamOptimizer(lr=TRAIN_LR) if train else None,
+               loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+               metrics=P24_METRICS if train else (),
+               strategy=llama_tp_strategy(cfg, seq_parallel=True)
+               if ranks else None)
+    return ff, cfg, batch, seq
+
+
+def _p25_expected(ff, mode: str, steps: int, train: bool):
+    """This rank's launches of its main path: the ring folds K5 for each
+    block its own query block sees (seq index + 1, causal) and runs K4's
+    dq and dk/dv on the same; Ulysses runs K1 (and K2 in training) once a
+    layer; under remat="attention" training runs each forward twice."""
+    pm = ff.executor.pmesh
+    layers = sum(1 for n in ff.executor.topo
+                 if n.op_type.name == "RING_ATTENTION")
+    fwd = 2 if train and ff.config.remat == "attention" else 1
+    bwd = 1 if train else 0
+    if mode == "ring":
+        blocks = pm.coords.get("seq", 0) + 1 if pm is not None else 1
+        per = {FLASH_ATTENTION_BH_FWD_CARRY.name: fwd * blocks,
+               FLASH_ATTENTION_BH_DQ.name: bwd * blocks,
+               FLASH_ATTENTION_BH_DKV.name: bwd * blocks}
+    else:
+        per = {FLASH_ATTENTION_FWD.name: fwd, FLASH_ATTENTION_DQ.name: bwd,
+               FLASH_ATTENTION_DKV.name: bwd}
+    return {k: v * layers * steps for k, v in per.items()}
+
+
+def p25_fit(cell: str, seed: int, mode: str, mesh, ref_dir=None) -> dict:
+    """Cell (a) or (b): fit over the global batches (each rank feeds its
+    rows and its sequence block), the launches of the fit (counts set to
+    0 just before, read just after) against _p25_expected on the ranks,
+    the losses, step ms (CUDA events around each step of fit's loop),
+    fit's metrics and peak memory; (a)'s gathered parameters; for (b)
+    with `ref_dir` one process saves its parameters and Adam's first
+    moment there and the ranks hold theirs to them (p24_rel_to_ref).
+    res["cap"] keeps the inputs of the kernels' first launches
+    (_LaunchCapture) for p25_kernel_checks."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ff, cfg, batch, seq = p25_model(cell, seed, mode, mesh, True)
+    compile_s = time.monotonic() - t0
+    steps = P25A_STEPS if cell == "a" else 1
+    x, y = _token_batches(batch * steps, seq, cfg.vocab_size, seed + 25)
+    ex = ff.executor
+    step = ex.train_step
+    losses, events = [], []
+
+    def recorded(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*args, **kw)
+        end.record()
+        losses.append(out[3]["loss"])
+        events.append((start, end))
+        return out
+
+    ex.train_step = recorded
+    torch.cuda.synchronize()
+    with _LaunchCapture() as cap:
+        _reset_launches()
+        t0 = time.monotonic()
+        try:
+            pm = ff.fit(x, y, epochs=1, verbose=False)
+            torch.cuda.synchronize()
+        finally:
+            del ex.train_step
+        fit_s = time.monotonic() - t0
+        launches = {k.name: k.launches for k in KERNELS}
+    tr, _ = ff._params
+    opt = ff._opt_state
+    res = {"cell": cell, "mode": mode, "mesh": mesh,
+           "losses": [float(v) for v in losses],
+           "step_ms": [a.elapsed_time(b) for a, b in events],
+           "metrics": {"correct": pm.train_correct,
+                       "sparse_cce": pm.sparse_cce_loss / pm.train_all,
+                       "samples": pm.train_all},
+           "compile_s": compile_s, "fit_s": fit_s, "launches": launches,
+           "expected_launches": _p25_expected(ff, mode, steps, True),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if cell == "a":
+        full = ex.gather_params(tr)
+        res["params"] = {f"{k}/{n}": t.cpu().numpy()
+                         for k, w in full.items() for n, t in w.items()}
+    if ref_dir is not None:
+        t0 = time.monotonic()
+        if ex.pmesh is None:
+            p24_save_ref(ref_dir, {"params": tr, "adam_m": opt["m"]})
+        else:
+            res["param_rel"] = p24_rel_to_ref(ex, ref_dir, "params", tr,
+                                              ex.param_specs())
+            res["adam_m_rel"] = p24_rel_to_ref(
+                ex, ref_dir, "adam_m", opt["m"], ex.opt_state_specs(opt)["m"])
+        res["ref_s"] = time.monotonic() - t0
+    del ff, ex, tr, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["cap"] = cap
+    return res
+
+
+def p25_predict(seed: int, ref_dir: str) -> dict:
+    """Cell (c): Ulysses at (b)'s widths, one predict of 1 x P25C_SEQ.
+    One process (no mesh) saves its output probabilities to `ref_dir`;
+    each rank holds the rows of its own sequence block to them (the
+    error norm over the norm, each a sum over every rank), and every
+    rank's whole output must be the same (its sum)."""
+    import torch.distributed as tdist
+
+    t0 = time.monotonic()
+    ff, cfg, batch, seq = p25_model("c", seed, "ulysses",
+                                    P25B_MESH if tdist.is_initialized()
+                                    else None, False)
+    x, _ = _token_batches(batch, seq, cfg.vocab_size, seed + 26)
+    torch.cuda.synchronize()
+    compile_s = time.monotonic() - t0
+    with _LaunchCapture() as cap:
+        _reset_launches()
+        t0 = time.monotonic()
+        out = ff.predict(x)
+        predict_s = time.monotonic() - t0
+        launches = {k.name: k.launches for k in KERNELS}
+    t0 = time.monotonic()
+    # the comparisons run on the card: numpy over these 1 GB outputs took
+    # ~7.5 s a rank, 4 ranks sharing the host's cores
+    dev = torch.from_numpy(out).to(DEVICE)
+    res = {"cell": "c", "compile_s": compile_s, "predict_s": predict_s,
+           "launches": launches, "finite": bool(torch.isfinite(dev).all()),
+           "shape": list(out.shape)}
+    path = os.path.join(ref_dir, "c_probs.npy")
+    ex = ff.executor
+    if ex.pmesh is None:
+        np.save(path, out)
+    else:
+        res["expected_launches"] = _p25_expected(ff, "ulysses", 1, False)
+        s_loc = seq // P25B_MESH["seq"]
+        blk = slice(ex.pmesh.coords["seq"] * s_loc,
+                    (ex.pmesh.coords["seq"] + 1) * s_loc)
+        want = torch.from_numpy(np.ascontiguousarray(
+            np.load(path, mmap_mode="r")[:, blk])).to(DEVICE)
+        diff = dev[:, blk] - want
+        sums = torch.stack([diff.double().square().sum(),
+                            want.double().square().sum()]).cpu()
+        tdist.all_reduce(sums)
+        res["rel"] = float((sums[0] / sums[1]).sqrt())
+        res["max_abs_diff"] = float(diff.abs().max())
+        res["sum"] = float(dev.double().sum())
+        del want, diff
+    res["compare_s"] = time.monotonic() - t0
+    del dev
+    del ff, ex, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["cap"] = cap
+    return res
+
+
+def p25_generate(seed: int, ref_dir: str) -> dict:
+    """Cell (d): generate from fresh weights (drawn from the seed), fp32
+    at (a)'s widths on each of P25_MESHES (the ring's and Ulysses' model;
+    decode runs the dense cache either way), and bf16 at (b)'s widths on
+    P25B_MESH: the prefill's probabilities at the last prompt position
+    (Executor.decode_fn on fresh caches), then generate's tokens. In one
+    process (no mesh) each result goes to `ref_dir`; on the ranks each
+    is held to it (fp32 tokens identical, bf16 probabilities within
+    P25D_RTOL)."""
+    import torch.distributed as tdist
+
+    ranks = tdist.is_initialized()
+    res = {"cell": "d"}
+    cells = [("a", m, P25_MESHES[m]) for m in ("ring", "ulysses")] \
+        + [("b", "ring", P25B_MESH)]
+    for cell, mode, mesh in cells:
+        t0 = time.monotonic()
+        ff, cfg, _, _ = p25_model(cell, seed, mode, mesh if ranks else None,
+                                  False)
+        batch = P25A_BATCH if cell == "a" else 1
+        prompt, _ = _token_batches(batch, P25D_PROMPT, cfg.vocab_size,
+                                   seed + 27)
+        ex = ff.executor
+        tr, ntr = ff._params
+        caches = ex.init_kv_cache(batch, P25D_PROMPT + P25D_NEW)
+        probs, _ = ex.decode_fn(tr, ntr, caches, 0,
+                                torch.from_numpy(prompt).to(DEVICE))
+        last = probs[:, -1].float().cpu().numpy()
+        del caches, probs
+        tokens = ff.generate(prompt, P25D_NEW)
+        key = f"{cell}_{mode}"
+        out = {"tokens": tokens.tolist(), "s": time.monotonic() - t0}
+        if not ranks:
+            np.save(os.path.join(ref_dir, f"d_{key}_probs.npy"), last)
+            np.save(os.path.join(ref_dir, f"d_{key}_tokens.npy"), tokens)
+        else:
+            want = np.load(os.path.join(ref_dir, f"d_{key}_probs.npy"))
+            out["prefill_rel"] = float(np.linalg.norm(last - want)
+                                       / np.linalg.norm(want))
+            out["tokens_equal"] = bool(np.array_equal(
+                tokens, np.load(os.path.join(ref_dir,
+                                             f"d_{key}_tokens.npy"))))
+        res[key] = out
+        del ff, ex, tr, ntr
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def p25_rank(seed: int, ref_dir: str) -> dict:
+    """Phase 25 on one rank: (a) the ring and Ulysses fits, (b), (c), (d),
+    each cell's kernels held to their plain versions on this rank's own
+    inputs after it ran (_p25_checks)."""
+    import torch.distributed as tdist
+
+    rank, world = tdist.get_rank(), tdist.get_world_size()
+    out = {}
+    for key, fn in (
+            ("a_ring", lambda: p25_fit("a", seed, "ring",
+                                       P25_MESHES["ring"])),
+            ("a_ulysses", lambda: p25_fit("a", seed, "ulysses",
+                                          P25_MESHES["ulysses"])),
+            ("b", lambda: p25_fit("b", seed, "ring", P25B_MESH,
+                                  ref_dir=ref_dir)),
+            ("c", lambda: p25_predict(seed, ref_dir))):
+        t0 = time.monotonic()
+        res = fn()
+        t1 = time.monotonic()
+        res["checks"] = _p25_checks(res.pop("cap"), rank, world)
+        res["checks_s"] = time.monotonic() - t1
+        res["wall_s"] = time.monotonic() - t0
+        out[key] = res
+    out["d"] = p25_generate(seed, ref_dir)
+    return out
+
+
+def p25_one_process(seed: int, ref_dir: str) -> dict:
+    """Phase 25's references in this process (world 1): (a)'s fit on no
+    mesh, (b)'s on the one-card {"seq": 2} ring (its leaves saved), (c)'s
+    predict and (d)'s generations (saved), each freed before the next."""
+    os.makedirs(ref_dir, exist_ok=True)
+    res = {"a": timed("25a:one_process", p25_fit, "a", seed, "ring", None),
+           "b": timed("25b:one_process", p25_fit, "b", seed, "ring",
+                      P25B_ONE_CARD, ref_dir=ref_dir),
+           "c": timed("25c:one_process", p25_predict, seed, ref_dir),
+           "d": timed("25d:one_process", p25_generate, seed, ref_dir)}
+    for key in ("a", "b", "c"):
+        res[key].pop("cap")
+    return res
+
+
+def p25_judge(one: dict, ranks: list, card: str, problems: list) -> dict:
+    """Phase 25's checks on the ranks' results against the one process's
+    (`problems` collects each failure)."""
+    res = {"card": card, "one_process": {
+        key: {k: v for k, v in one[key].items() if k != "params"}
+        for key in one}}
+    for key, mode in (("a_ring", "ring"), ("a_ulysses", "ulysses")):
+        per = [r[key] for r in ranks]
+        ref = one["a"]
+        got = per[0].pop("params")
+        for r in per[1:]:
+            r.pop("params")
+        rel = _leaf_rel(got, ref["params"])
+        loss_rel = max(abs(a - b) / abs(b) for r in per
+                       for a, b in zip(r["losses"], ref["losses"]))
+        res[key] = {"ranks": per, "param_rel": rel, "loss_rel": loss_rel}
+        if any(r["losses"] != per[0]["losses"] for r in per) \
+                or len(per[0]["losses"]) != P25A_STEPS \
+                or loss_rel > P25A_RTOL or rel > P25A_RTOL \
+                or any(r["metrics"]["samples"] != ref["metrics"]["samples"]
+                       for r in per):
+            problems.append(f"25{key}: losses {per[0]['losses']} vs one "
+                            f"process {ref['losses']}, parameters {rel} "
+                            f"(rtol {P25A_RTOL})")
+    per_b = [r["b"] for r in ranks]
+    ref_b = one["b"]
+    loss_rel = max(abs(r["losses"][0] - ref_b["losses"][0])
+                   / abs(ref_b["losses"][0]) for r in per_b)
+    res["b"] = {"ranks": per_b, "loss_rel": loss_rel}
+    if loss_rel > P24B_RTOL or not np.isfinite(per_b[0]["losses"][0]) \
+            or any(r["losses"] != per_b[0]["losses"] for r in per_b):
+        problems.append(f"25b: losses {[r['losses'] for r in per_b]} vs one "
+                        f"process {ref_b['losses']}")
+    for key, tol in (("param_rel", P24B_RTOL),
+                     ("adam_m_rel", P24B_GRAD_RTOL)):
+        worst = max(per_b[0][key].items(), key=lambda kv: kv[1])
+        res["b"][key] = {"worst_leaf": worst[0], "rel": worst[1], "tol": tol}
+        if any(r[key] != per_b[0][key] for r in per_b) \
+                or not worst[1] <= tol:
+            problems.append(f"25b: {key} {worst} over {tol}, or the ranks "
+                            "disagree")
+    per_c = [r["c"] for r in ranks]
+    res["c"] = {"ranks": per_c, "rel": per_c[0]["rel"], "tol": P25C_RTOL}
+    if not all(r["finite"] for r in per_c) \
+            or len({r["sum"] for r in per_c}) != 1 \
+            or not per_c[0]["rel"] <= P25C_RTOL:
+        problems.append(f"25c: probabilities {per_c[0]['rel']} relative to "
+                        f"one process (tol {P25C_RTOL}), or the ranks' "
+                        "outputs differ")
+    per_d = [r["d"] for r in ranks]
+    res["d"] = {"ranks": per_d}
+    for r in per_d:
+        for key in ("a_ring", "a_ulysses"):
+            if not r[key]["tokens_equal"]:
+                problems.append(f"25d {key}: tokens {r[key]['tokens']} vs "
+                                f"one process {one['d'][key]['tokens']}")
+        if not r["b_ring"]["prefill_rel"] <= P25D_RTOL:
+            problems.append(f"25d: bf16 prefill probabilities "
+                            f"{r['b_ring']['prefill_rel']} over {P25D_RTOL}")
+    # every rank's launches are its own blocks' (no gather), and each
+    # kernel it launched agrees with its plain version on its inputs
+    for key in ("a_ring", "a_ulysses", "b", "c"):
+        for i, r in enumerate(ranks):
+            got = {k: r[key]["launches"][k] for k in r[key]["expected_launches"]}
+            if got != r[key]["expected_launches"] \
+                    or not all(v > 0 for k, v in got.items()
+                               if r[key]["expected_launches"][k]):
+                problems.append(f"25{key} rank {i}: launches {got}, "
+                                f"expected {r[key]['expected_launches']}")
+            bad = [c for c in r[key]["checks"] if not c["ok"]]
+            launched = {k for k, v in got.items() if v}
+            checked = {c["kernel"] for c in r[key]["checks"]}
+            if bad or not launched <= checked:
+                problems.append(f"25{key} rank {i}: kernel checks {bad}, "
+                                f"checked {checked} of {launched}")
+    return res
+
+
+def _p25_entries(p25, kernel) -> tuple:
+    """(key, launches over every rank, timed check) of `kernel` on phase
+    25's main paths: the ring (K5, K4's dq and dk/dv) of (a) at fp32 and
+    (b) at Llama-3-8B's widths, Ulysses' flash attention (K1, K2) of (a)
+    and (c); each timed at the last rank's own inputs (its causal
+    block)."""
+    out = []
+    for key, cell in (("dist_seq_fp32", "a_ring"),
+                      ("dist_seq_llama3_8b", "b"),
+                      ("dist_ulysses_fp32", "a_ulysses"),
+                      ("dist_ulysses_llama3_8b", "c")):
+        if p25 is None:
+            out.append((key, 0, None))
+            continue
+        per = p25[cell]["ranks"] if cell in p25 else []
+        launches = sum(r["launches"][kernel.name] for r in per)
+        if not launches:
+            continue
+        checks = [c for c in per[-1]["checks"] if c["kernel"] == kernel.name]
+        timed = max(checks, key=lambda c: c["causal"], default=None)
+        out.append((key, launches, timed))
+    return tuple(out)
 
 
 def _dist_launches(p24, part: str, kernel) -> int:
@@ -8589,18 +9216,19 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19,"
-                    "20,21,22,23,24",
+                    "20,21,22,23,24,25",
                     help="comma-separated phases to run (default "
                     "1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,"
-                    "22,23,24; 5 profiles serving and training steps)")
+                    "22,23,24,25; 5 profiles serving and training steps)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--swap-probe", choices=("warm", "cold"),
                     help="run only phase 23c's swap_probe in this mode and "
                     "print its JSON (phase 23 starts these itself)")
     ap.add_argument("--dist-worker", choices=("abd", "c"),
-                    help="run as one rank of phase 24 (RANK, WORLD_SIZE, "
-                    "MASTER_ADDR and MASTER_PORT from the environment; "
-                    "phase 24 starts these itself)")
+                    help="run as one rank of phases 24 and 25 (those of "
+                    "--phases; RANK, WORLD_SIZE, MASTER_ADDR and "
+                    "MASTER_PORT from the environment; phase 24 starts "
+                    "these itself)")
     ap.add_argument("--dist-dir", help="where a --dist-worker rank writes")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -8612,7 +9240,8 @@ def main(argv=None) -> int:
               flush=True)
         return 0
     if args.dist_worker:
-        return dist_worker(args.dist_worker, args.dist_dir, args.seed)
+        return dist_worker(args.dist_worker, args.dist_dir, args.seed,
+                           phases)
     t_start = time.monotonic()
     card = card_line()
     log(f"card {card}")
@@ -8700,8 +9329,10 @@ def main(argv=None) -> int:
         else None
     p23 = timed("23", phase_servesearch, args.seed, card) if 23 in phases \
         else None
-    p24 = timed("24", phase_dist, args.seed, card) if 24 in phases \
-        else None
+    p24 = p25 = None
+    if phases & {24, 25}:
+        p24, p25 = timed("24,25", phase_dist, args.seed, card,
+                         phases & {24, 25})
     if 5 in phases:
         phase_profile(args.seed, card)
         phase_profile_train(args.seed, card)
@@ -8904,6 +9535,13 @@ def main(argv=None) -> int:
             entry[key] = {name: val for name, val in dst.items()
                           if name not in ("name", "route", "source",
                                           "replaces")}
+        # phase 25's Ulysses ranks (a at fp32, c at Llama-3-8B's widths),
+        # timed at the last rank's own inputs
+        for key, launches, res in _p25_entries(p25, k):
+            dst = _kernel_entry(k, entry["source"], launches, res)
+            entry[key] = {name: val for name, val in dst.items()
+                          if name not in ("name", "route", "source",
+                                          "replaces")}
         if k is FLASH_ATTENTION_FWD:
             # phase 21c's bf16 predict of the HF-imported Llama-3-8B
             # widths, timed at its attention shape in phase 21
@@ -8954,7 +9592,8 @@ def main(argv=None) -> int:
                 # bodies), timed at a rank's local attention shape
                 ("dist_search", _dist_launches(p24, "d", k),
                  p24["k4_local_d"][k.name] if p24 else None)) \
-                + _zoo_k4_entries(k, zoo18) + _batch_serve_k4_entry(k, p19):
+                + _zoo_k4_entries(k, zoo18) + _batch_serve_k4_entry(k, p19) \
+                + _p25_entries(p25, k):
             other = _kernel_entry(k, entry["source"], launches, res)
             entry[key] = {name: val for name, val in other.items()
                           if name not in ("name", "route", "source",
@@ -8983,6 +9622,12 @@ def main(argv=None) -> int:
             carry, entry["source"],
             ring_wide[key]["fit_launches"][carry.name] if ring_wide else 0,
             k5.get("timed", {}).get(f"{block}_full"))
+        entry[key] = {name: val for name, val in other.items()
+                      if name not in ("name", "route", "source", "replaces")}
+    # K5 on phase 25's ring between ranks ((a) fp32, (b) at Llama-3-8B's
+    # widths), timed at the last rank's own causal block
+    for key, launches, res in _p25_entries(p25, carry):
+        other = _kernel_entry(carry, entry["source"], launches, res)
         entry[key] = {name: val for name, val in other.items()
                       if name not in ("name", "route", "source", "replaces")}
     entries.append(entry)

@@ -9,11 +9,12 @@ before SCRIPT is passed on to it (the card unless "cpu" is asked for).
 The search flags (--budget, --alpha, --validate-top-k, --import /
 --export, --compgraph, --machine-model-file, ...) reach compile() through
 the config. Under torchrun (`torchrun --nproc-per-node N -m
-flexflow_tpu_torch SCRIPT --mesh data=D,model=M`, D x M = N) each process
-joins the process group first (runtime.distributed.initialize: NCCL on
-the card LOCAL_RANK names, gloo with --device cpu), so the script's
-model spans the N processes; a --mesh or --devices that is not the world
-size raises before the script runs.
+flexflow_tpu_torch SCRIPT --mesh data=D,seq=S,model=M`, D x S x M = N,
+any of them left out at 1) each process joins the process group first
+(runtime.distributed.initialize: NCCL on the card LOCAL_RANK names, gloo
+with --device cpu), so the script's model spans the N processes; a
+--mesh or --devices that is not the world size raises before the script
+runs.
 """
 
 from __future__ import annotations

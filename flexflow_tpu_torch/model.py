@@ -790,25 +790,31 @@ class FFModel:
     def _apply_strategy(self, graph: Graph, strategy) -> None:
         """Attach the strategy's views to their nodes; an unnamed INPUT
         takes the batch-over-data view when the data axis exceeds 1 (never
-        on one card)."""
+        on one card), and where `seq` spans processes its dim 1 cut over
+        `seq` too, so each rank is fed its block of the sequence."""
         from flexflow_tpu_torch.parallel.sharding import (
             data_batch_spec,
             group_degree,
         )
 
         axis_sizes = self._mesh.axes
+        seq = (self._pmesh.live(("seq",)) if self._pmesh is not None
+               else ())
         for n in graph.nodes:
             if strategy and n.name in strategy:
                 n.sharding = strategy[n.name]
-            elif n.op_type == OpType.INPUT and (
-                    axis_sizes.get("data", 1) > 1
-                    or axis_sizes.get("data_sub", 1) > 1):
+            elif n.op_type == OpType.INPUT:
                 shape = n.outputs[0]
-                spec = data_batch_spec(shape.ndim, shape.dims[0].size,
-                                       axis_sizes)
+                spec = list(data_batch_spec(shape.ndim, shape.dims[0].size,
+                                            axis_sizes))
                 deg = group_degree(spec[0], axis_sizes)
-                if deg > 1 and shape.dims[0].size % deg == 0:
-                    n.sharding = ShardingView((spec,))
+                if deg <= 1 or shape.dims[0].size % deg:
+                    spec[0] = ()
+                if seq and shape.ndim >= 2 \
+                        and shape.dims[1].size % axis_sizes["seq"] == 0:
+                    spec[1] = seq
+                if any(spec):
+                    n.sharding = ShardingView((tuple(spec),))
 
     def _validate_candidates(self, candidates, device):
         """The timed playoff (the reference's _validate_candidates):
@@ -1280,10 +1286,13 @@ class FFModel:
         temperature > 0 samples with pick_tokens from a torch.Generator
         seeded with `seed`, which matches the reference's jax.random
         draws in distribution only. The tokens stay on the device until
-        the end. Returns (batch, max_new_tokens) int32 tokens."""
+        the end. Returns (batch, max_new_tokens) int32 tokens. On a
+        process mesh every rank passes the whole prompt and gets every
+        token: each decodes its rows over caches of its kv heads,
+        replicated over `seq` (Executor.init_kv_cache, decode_fn); the
+        paged and batch servers stay refused there."""
         from flexflow_tpu_torch.serving import pick_tokens
 
-        self._refuse_mesh_serving("generate")
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")

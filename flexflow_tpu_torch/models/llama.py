@@ -95,20 +95,16 @@ def build_llama(ff: FFModel, cfg: LlamaConfig, batch_size: int = None,
 
 def llama_tp_strategy(cfg: LlamaConfig, seq_parallel: bool = False
                       ) -> Dict[str, ShardingView]:
-    """Hybrid TP+DP views, the reference's Megatron layout: attention
-    heads and the MLP column/row split over `model`, the gate -> silu ->
-    x -> down chain keeping its hidden dim cut over `model` between the
-    column and row products; activations cut over `data` on the batch;
-    lm_head and softmax cut on the vocabulary. `seq_parallel=True` (the
-    sequence over `seq` beside them) raises: `seq` across processes is
-    not ported yet."""
-    if seq_parallel:
-        raise NotImplementedError(
-            "llama_tp_strategy(seq_parallel=True) cuts the sequence over "
-            "`seq` across processes (the ring's send/recv between cards), "
-            "not ported yet (ROADMAP.md, queue 1 item 12)")
-    act3 = (("data",), (), ())           # (batch, seq, features)
-    hid3 = (("data",), (), ("model",))   # feature dim cut over model
+    """Hybrid TP(+SP)+DP views, the reference's Megatron layout:
+    attention heads and the MLP column/row split over `model`, the gate
+    -> silu -> x -> down chain keeping its hidden dim cut over `model`
+    between the column and row products; activations cut over `data` on
+    the batch (and over `seq` on the sequence with `seq_parallel`, for
+    a model built with use_ring_attention); lm_head and softmax cut on
+    the vocabulary."""
+    sq = ("seq",) if seq_parallel else ()
+    act3 = (("data",), sq, ())           # (batch, seq, features)
+    hid3 = (("data",), sq, ("model",))   # feature dim cut over model
     views: Dict[str, ShardingView] = {}
     for i in range(cfg.layers):
         views[f"l{i}_attn"] = ShardingView(

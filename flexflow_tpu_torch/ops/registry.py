@@ -39,6 +39,9 @@ class LowerCtx:
 
     device: Optional[torch.device] = None
     mesh: Optional[Any] = None
+    # the process mesh (parallel/spmd.ProcessMesh) a rank's pieces run
+    # on, None in one process: ring attention reads its `seq` axis
+    pmesh: Optional[Any] = None
     training: bool = False
     # FFConfig.seq_length, the iteration-config truncation
     seq_length: Optional[int] = None

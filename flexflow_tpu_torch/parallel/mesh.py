@@ -2,13 +2,21 @@
 
 The reference lays a `jax.sharding.Mesh` of named axes over its devices.
 The port runs one process per card (torch.distributed, launched by
-torchrun): the `data` and `model` axes span the processes, in the
-canonical order, and the product of their sizes is the world size
-(parallel/spmd.py holds their process groups and collectives). The
-`seq` axis stays inside one process: its positions are the shards of
-ring attention (parallel/ring.py), which the process holds and rotates
-as block references. `seq` across processes, `pipe`, `expert` and
-`data_sub` are ROADMAP.md, queue 1 item 12.
+torchrun). `process_axes` is the one rule for which axes span the
+processes:
+
+  - a world of 1 (no process group, or one rank): the `data` and
+    `model` axes above 1 would need other processes (check_world
+    refuses them), and `seq` stays inside the process: its positions
+    are the shards of the one-card ring (parallel/ring.py), which the
+    process holds and rotates as block references;
+  - a world above 1: every axis above 1 among `data`, `seq` and `model`
+    is a process axis, and the product of their sizes is the world
+    size (parallel/spmd.py holds their process groups, the ring's hop
+    and the collectives).
+
+The canonical order puts `model` fastest over the ranks and `seq`
+next. `pipe`, `expert` and `data_sub` are ROADMAP.md, queue 1 item 12.
 
 Canonical axis names used across the framework:
   data     — batch (data parallel)
@@ -24,10 +32,9 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 AXIS_ORDER = ("pipe", "data", "data_sub", "expert", "seq", "model")
-# the axes one process holds whole above size 1
-SINGLE_DEVICE_AXES = ("seq",)
-# the axes whose positions are processes (one per card)
-PROCESS_AXES = ("data", "model")
+# the axes whose positions may be processes (one per card), in
+# canonical order
+PROCESS_AXES = ("data", "seq", "model")
 # what each axis not yet ported waits for
 _UNPORTED = {
     "pipe": "the `pipe` axis (GPipe stages across cards)",
@@ -50,45 +57,55 @@ class Mesh:
 
 
 def check_axes(axes: Dict[str, int]):
-    """Refuse sizes below 1, the axes not ported yet above 1, and `seq`
-    above 1 beside a process axis above 1 (the ring across processes);
-    never ignore one."""
+    """Refuse sizes below 1 and the axes not ported yet above 1; never
+    ignore one."""
     for name, size in axes.items():
         if not isinstance(size, int) or size < 1:
             raise ValueError(f"mesh axis {name!r} must have a positive int "
                              f"size, got {size!r}")
-        if size > 1 and name not in SINGLE_DEVICE_AXES + PROCESS_AXES:
+        if size > 1 and name not in PROCESS_AXES:
             part = _UNPORTED.get(name, f"mesh axis {name!r}")
             raise NotImplementedError(
                 f"mesh axis {name!r} of size {size}: {part} is not ported "
                 "yet (ROADMAP.md, queue 1 item 12)")
-    if any(axes.get(n, 1) > 1 for n in SINGLE_DEVICE_AXES) \
-            and process_count(axes) > 1:
-        raise NotImplementedError(
-            f"mesh {dict(axes)}: `seq` above 1 beside the data or model "
-            "axis would cut the sequence across processes (the ring's "
-            "send/recv between cards), not ported yet (ROADMAP.md, queue 1 "
-            "item 12)")
 
 
-def process_count(axes: Dict[str, int]) -> int:
+def _world() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def process_axes(axes: Dict[str, int], world: Optional[int] = None
+                 ) -> Tuple[str, ...]:
+    """The axes of `axes` whose positions are processes, in canonical
+    order, for a world of `world` processes (the process group's, 1
+    without one): on a world of 1 `data` and `model` above 1 (which
+    check_world then refuses) and never `seq`, the one-card ring's axis;
+    on a world above 1 every axis above 1 among `data`, `seq` and
+    `model`."""
+    world = _world() if world is None else world
+    names = PROCESS_AXES if world > 1 else ("data", "model")
+    return tuple(n for n in names if axes.get(n, 1) > 1)
+
+
+def process_count(axes: Dict[str, int], world: Optional[int] = None) -> int:
     """The processes a mesh spans: the product of its process axes."""
     n = 1
-    for name in PROCESS_AXES:
-        n *= axes.get(name, 1)
+    for name in process_axes(axes, world):
+        n *= axes[name]
     return n
 
 
 def check_world(axes: Dict[str, int]):
     """The product of the process axes must be the world size (1 without
     a process group): a ValueError names both."""
-    import torch.distributed as dist
-
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    n = process_count(axes)
+    world = _world()
+    n = process_count(axes, world)
     if n != world:
         raise ValueError(
-            f"mesh {dict(axes)} spans {n} processes (data x model) but the "
+            f"mesh {dict(axes)} spans {n} processes (data x seq x model on "
+            "a world above 1, data x model on one) but the "
             f"world size is {world}: launch one process per card, e.g. "
             f"torchrun --nproc-per-node {n}, and call "
             "flexflow_tpu_torch.runtime.distributed.initialize()")

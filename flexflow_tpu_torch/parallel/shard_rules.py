@@ -18,7 +18,15 @@ says (the reference's with_sharding_constraint).
   - MULTIHEAD_ATTENTION: heads cut over an axis (wq/wk/wv on their head
     dim, wo on its first): each rank runs the one-card lowering on its
     local heads (H/m and Hkv/m; K1/K2 or K4 on the card, as on one card),
-    the output projection's partial sums are all-reduced, then `bo`.
+    the output projection's partial sums are all-reduced, then `bo`. The
+    sequence is whole. In a decode step (a dense KV cache) the rank's
+    cache holds its rows and its kv heads.
+  - RING_ATTENTION: the same, and when `seq` is a process axis the
+    inputs and the output are cut on the sequence (dim 1) over it: the
+    ring or Ulysses runs between the ranks (parallel/ring.py). kv heads
+    that do not split over the head cut stay whole, and each rank
+    projects the kv head of each of its q heads (the reference's
+    ring_repeats_kv repeat), whether or not `seq` is a process axis.
   - element-wise ops, the norms and softmax keep their input's layout,
     whole on the dims they reduce over.
   - per-row ops (LSTM, convolution, pooling, shape ops that keep dim 0)
@@ -43,8 +51,10 @@ from flexflow_tpu_torch.ops.registry import get_lowering
 from flexflow_tpu_torch.parallel import spmd
 from flexflow_tpu_torch.parallel.spmd import Spec, replicated
 
-# the axis whose parameter gradients the train step reduces
-DATA = "data"
+DATA, SEQ = "data", "seq"
+# the axes over which a parameter's gradient is left partial, for the
+# train step to reduce: a rank's rows (`data`) or tokens (`seq`)
+GRAD_AXES = (DATA, SEQ)
 
 _PARALLEL_OPS = (OpType.REPARTITION, OpType.COMBINE, OpType.REPLICATE,
                  OpType.REDUCTION, OpType.ALL_TO_ALL, OpType.FUSED_PARALLEL)
@@ -219,6 +229,8 @@ def embedding_plan(node, in_layouts, in_shapes, w_layouts, pm, ctx) -> Plan:
 
 def attention_plan(node, in_layouts, in_shapes, w_layouts, pm, ctx,
                    remat: bool) -> Plan:
+    from flexflow_tpu_torch.parallel.comm_spec import ring_repeats_kv
+
     attrs = node.attrs
     wq = tuple(tuple(x) for x in w_layouts["wq"])
     heads = wq[1]
@@ -226,20 +238,39 @@ def attention_plan(node, in_layouts, in_shapes, w_layouts, pm, ctx,
         raise NotImplementedError(
             f"{node.name}: attention weights cut on the model width or the "
             "head dim; the port cuts attention on its heads only")
+    ring = node.op_type == OpType.RING_ATTENTION and ctx.kv_cache is None
+    # the reference's repeat rule (ring_repeats_kv): kv heads that do not
+    # split over the head cut stay whole (wk and wv uncut), and each rank
+    # projects the kv head of each of its q heads (_rank_kv)
+    kv_whole = ring and bool(heads) and ring_repeats_kv(
+        attrs.num_heads, attrs.num_kv, pm.degree(heads))
     if heads:
         m = pm.degree(heads)
-        kv = attrs.kv_heads or attrs.num_heads
-        if kv % m or attrs.num_heads % m:
+        if attrs.num_heads % m or (attrs.num_kv % m and not kv_whole):
             raise ValueError(
-                f"{node.name}: {attrs.num_heads} heads / {kv} kv heads do "
-                f"not split over {heads} of degree {m}: a model degree "
-                "must divide the kv heads")
-    w = {"wq": ((), heads, ()), "wk": ((), heads, ()),
-         "wv": ((), heads, ()), "wo": (heads, (), ())}
+                f"{node.name}: {attrs.num_heads} heads / {attrs.num_kv} kv "
+                f"heads do not split over {heads} of degree {m}: a model "
+                "degree must divide the kv heads (ring attention's kv heads "
+                "stay whole when they do not split; decode and plain "
+                "attention need them cut)")
+    kvh = () if kv_whole else heads
+    w = {"wq": ((), heads, ()), "wk": ((), kvh, ()),
+         "wv": ((), kvh, ()), "wo": (heads, (), ())}
     if attrs.use_bias:
-        w.update(bq=(heads, ()), bk=(heads, ()), bv=(heads, ()), bo=((),))
-    xs = [_without(tuple(lay), set(heads))[:-1] + ((),)
-          for lay in in_layouts]
+        w.update(bq=(heads, ()), bk=(kvh, ()), bv=(kvh, ()), bo=((),))
+    # the sequence: cut over `seq` when the ring or Ulysses runs between
+    # the ranks, whole otherwise
+    seq = pm.live((SEQ,)) if ring else ()
+    xs = []
+    for lay, shape in zip(in_layouts, in_shapes):
+        x = _without(tuple(lay), set(heads) | {SEQ})[:-1] + ((),)
+        if seq:
+            if shape[1] % pm.degree(seq):
+                raise ValueError(
+                    f"{node.name}: sequence {shape[1]} does not split over "
+                    f"the {pm.degree(seq)} positions of mesh axis 'seq'")
+            x = (x[0], seq) + x[2:]
+        xs.append(x)
     lower = get_lowering(node.op_type)
 
     def local(*args):
@@ -252,6 +283,9 @@ def attention_plan(node, in_layouts, in_shapes, w_layouts, pm, ctx,
     names = list(w)
 
     def compute(ins, params):
+        if kv_whole:
+            params = dict(params, **_rank_kv(params, heads, pm,
+                                             attrs.num_heads, attrs.num_kv))
         args = list(ins) + [params[k] for k in names]
         if remat:
             y = checkpoint(local, *args, use_reentrant=False)
@@ -263,6 +297,24 @@ def attention_plan(node, in_layouts, in_shapes, w_layouts, pm, ctx,
         return [y]
 
     return Plan(xs, w, [xs[0]], compute, post=("bo",), reduced=heads)
+
+
+def _rank_kv(params, heads, pm, H: int, Hkv: int) -> Dict:
+    """wk, wv (and bk, bv) whole over the head cut, narrowed to the kv head
+    of each of this rank's q heads (q head j uses kv head j // (H / Hkv),
+    jnp.repeat's order), so the rank's attention is on H / m heads each.
+    Autograd sums each kv head's gradient over the q heads that use it;
+    the step sums the ranks' parts."""
+    h = H // pm.degree(heads)
+    i = pm.index(heads)
+    out = {}
+    for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+        if name in params:
+            w = params[name]
+            idx = torch.arange(i * h, (i + 1) * h, device=w.device) \
+                // (H // Hkv)
+            out[name] = w.index_select(dim, idx)
+    return out
 
 
 def parallel_op_spec(node, ndim: int) -> Spec:
@@ -300,8 +352,8 @@ def plan_for(node, in_layouts, in_shapes, w_layouts, w_shapes, pm, ctx,
     if t == OpType.EMBEDDING:
         return embedding_plan(node, in_layouts, in_shapes, w_layouts, pm,
                               ctx)
-    if t == OpType.MULTIHEAD_ATTENTION and rate == 0.0 \
-            and ctx.kv_cache is None:
+    if t in (OpType.MULTIHEAD_ATTENTION, OpType.RING_ATTENTION) \
+            and rate == 0.0 and ctx.page_tables is None:
         return attention_plan(node, in_layouts, in_shapes, w_layouts, pm,
                               ctx, remat)
     if t in (OpType.ELEMENT_UNARY, OpType.CAST):
@@ -337,9 +389,9 @@ def run_node(node, ins: Sequence[torch.Tensor], in_layouts, in_shapes,
           if k in plan.w_specs else v for k, v in params.items()}
     # the gradient rule: an operand whole over an axis the computation
     # is cut over gets the sum of its ranks' gradients (copy_to); a
-    # parameter's sum over `data` is left to the train step, and a
-    # parameter used where nothing is cut over `data` takes 1/d of the
-    # gradient every data rank computes whole
+    # parameter's sum over `data` and `seq` (GRAD_AXES) is left to the
+    # train step, and a parameter used where nothing is cut over one of
+    # them takes 1/size of the gradient every rank of it computes whole
     cut = set()
     for s in list(plan.in_specs) + [plan.w_specs[k] for k in plan.w_specs
                                     if k not in plan.post]:
@@ -349,16 +401,15 @@ def run_node(node, ins: Sequence[torch.Tensor], in_layouts, in_shapes,
             xs[i] = spmd.copy_to(
                 x, pm, tuple(a for a in pm.names if a in cut
                              and a not in spmd.sharded_axes(plan.in_specs[i])))
-    d = pm.sizes.get(DATA, 1)
     for k, v in ps.items():
         if not v.requires_grad:
             continue
         use = cut - set(plan.reduced) if k in plan.post else cut
         own = set(spmd.sharded_axes(plan.w_specs.get(k, ())))
         f = tuple(a for a in pm.names if a in use and a not in own
-                  and a != DATA)
+                  and a not in GRAD_AXES)
         v = spmd.copy_to(v, pm, f)
-        if d > 1 and DATA not in use:
-            v = spmd.scale_grad(v, 1.0 / d)
+        v = spmd.scale_grad(v, 1.0 / pm.degree(
+            [a for a in pm.live(GRAD_AXES) if a not in use]))
         ps[k] = v
     return plan.compute(xs, ps), plan.out_specs

@@ -21,9 +21,14 @@ that keep the rule:
   scale_grad   identity forward      backward: times a constant
 
 The parameters are the one exception, kept for the optimizer: a parameter
-replicated over `data` and used on data-cut activations holds the partial
-gradient of its rank's rows, and the train step reduces it over `data`
-(an all-reduce, or under ZeRO-1 a reduce-scatter).
+replicated over `data` (or `seq`) and used on activations cut over it
+holds the partial gradient of its rank's rows (or tokens), and the train
+step reduces it over `data` and `seq` (an all-reduce, or under ZeRO-1 a
+reduce-scatter).
+
+`ring_shift` is the ring's hop over `seq` (ops/ring_flash.py): rank j of
+a `seq` group sends to j + 1 and receives from j - 1, every send and its
+receive posted together, so no rank waits on another's order.
 
 The gloo backend moves CPU tensors; a CUDA tensor under gloo (several
 ranks on one card, which NCCL refuses) is staged through the host by
@@ -33,6 +38,7 @@ tensors as they are.
 
 from __future__ import annotations
 
+import copy
 import itertools
 import math
 from datetime import timedelta
@@ -41,7 +47,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from flexflow_tpu_torch.parallel.mesh import AXIS_ORDER, PROCESS_AXES
+from flexflow_tpu_torch.parallel.mesh import process_axes
 
 Spec = Tuple[Tuple[str, ...], ...]
 
@@ -51,9 +57,10 @@ def replicated(ndim: int) -> Spec:
 
 
 class ProcessMesh:
-    """The `data` and `model` axes over the world's ranks, in the
-    canonical axis order (the last axis varies fastest over the ranks, so
-    `model` groups are neighbouring ranks). Builds one process group for
+    """The process axes (mesh.process_axes: `data`, `seq`, `model`) over
+    the world's ranks, in the canonical axis order (the last axis varies
+    fastest over the ranks, so `model` groups are neighbouring ranks and
+    `seq` groups the next stride). Builds one process group for
     every set of axes and every position of the others, on every rank, in
     the same order (torch.distributed.new_group's contract), with the
     timeout initialize() gave the process group."""
@@ -68,8 +75,7 @@ class ProcessMesh:
                 "a mesh over several processes needs torch.distributed: "
                 "call flexflow_tpu_torch.runtime.distributed.initialize() "
                 "first (torchrun sets its environment)")
-        self.names = tuple(n for n in AXIS_ORDER
-                           if n in PROCESS_AXES and axes.get(n, 1) > 1)
+        self.names = process_axes(axes, dist.get_world_size())
         self.sizes = {n: axes[n] for n in self.names}
         world = math.prod(self.sizes.values())
         if world != dist.get_world_size():
@@ -106,6 +112,18 @@ class ProcessMesh:
         for n in self.names:
             r = r * self.sizes[n] + coords[n]
         return r
+
+    def without(self, axes: Sequence[str]) -> "ProcessMesh":
+        """This mesh with `axes` taken out of its names: a layout that
+        cuts a dim over one of them reads as whole, and collectives run
+        in the groups of the others (which this rank shares with the
+        ranks at its own positions on `axes`). Decode runs so, replicated
+        over `seq`."""
+        other = copy.copy(self)
+        other.names = tuple(n for n in self.names if n not in axes)
+        other.sizes = {n: self.sizes[n] for n in other.names}
+        other.coords = {n: self.coords[n] for n in other.names}
+        return other
 
     def live(self, axes: Sequence[str]) -> Tuple[str, ...]:
         """`axes` without those the process mesh lacks or holds at 1, in
@@ -198,6 +216,31 @@ class ProcessMesh:
         out = torch.empty_like(buf)
         dist.all_to_all_single(out, buf, group=self.groups[axes])
         return torch.cat(list(back(out).unbind(0)), dim=cat_dim)
+
+    def ring_shift(self, tensors: Sequence[torch.Tensor], axis: str
+                   ) -> list:
+        """One hop of the ring over `axis`: this rank's `tensors` go to
+        the next position (j -> j + 1 mod n) and the previous position's
+        arrive, in one dist.batch_isend_irecv, so a send and its receive
+        never wait on each other. Ranks come from dist.get_global_rank
+        on the axis's group (its group rank is the position: the
+        group's ranks, sorted, list the positions in order). Under gloo
+        CUDA tensors go through the host, as every collective here."""
+        group = self.groups[(axis,)]
+        n, j = self.sizes[axis], self.coords[axis]
+        nxt = dist.get_global_rank(group, (j + 1) % n)
+        prv = dist.get_global_rank(group, (j - 1) % n)
+        ops, bufs, backs = [], [], []
+        for i, t in enumerate(tensors):
+            buf, back = _stage(t.contiguous(), self.backend)
+            got = torch.empty_like(buf)
+            ops.append(dist.P2POp(dist.isend, buf, nxt, group, tag=i))
+            ops.append(dist.P2POp(dist.irecv, got, prv, group, tag=i))
+            bufs.append(got)
+            backs.append(back)
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return [back(b) for back, b in zip(backs, bufs)]
 
     # -- shards of whole tensors (no autograd) --------------------------
 

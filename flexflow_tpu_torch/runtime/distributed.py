@@ -15,10 +15,11 @@ torch.distributed:
     as JSON, to every rank, so a search that is not deterministic (or
     measures costs) cannot leave two ranks with two programs.
   - `host_local_batch()`: each rank's piece of the global batch (its
-    data rank's rows), `sync_global_devices()` a barrier.
+    data rank's rows, and where `seq` spans processes its block of the
+    sequence), `sync_global_devices()` a barrier.
 
 Launch: `torchrun --nproc-per-node N -m flexflow_tpu_torch script.py
---mesh data=D,model=M` (D x M = N).
+--mesh data=D,seq=S,model=M` (D x S x M = N).
 """
 
 from __future__ import annotations
@@ -215,9 +216,10 @@ def broadcast_winner_index(index: int) -> int:
 
 def host_local_batch(arrays: Sequence[np.ndarray], specs, pmesh
                      ) -> List[np.ndarray]:
-    """Each global batch array's piece on this rank: the rows of its data
-    rank for an array whose spec cuts dim 0, the whole array otherwise
-    (`specs` holds one Spec or None per array)."""
+    """Each global batch array's piece on this rank, as its spec cuts it:
+    the rows of its data rank where dim 0 is cut, its sequence block
+    where dim 1 is cut over `seq`, the whole array otherwise (`specs`
+    holds one Spec or None per array)."""
     out = []
     for a, spec in zip(arrays, specs):
         if pmesh is None or spec is None:

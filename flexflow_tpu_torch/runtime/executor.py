@@ -27,7 +27,7 @@ from flexflow_tpu_torch import obs
 from flexflow_tpu_torch.ffconst import ActiMode, LossType, MetricsType, OpType
 from flexflow_tpu_torch.ops.registry import LowerCtx, get_lowering, node_seed
 from flexflow_tpu_torch.parallel import shard_rules, spmd
-from flexflow_tpu_torch.parallel.shard_rules import DATA
+from flexflow_tpu_torch.parallel.shard_rules import GRAD_AXES, SEQ
 from flexflow_tpu_torch.parallel.sharding import prune_spec
 from flexflow_tpu_torch.pcg.graph import Graph, Node
 from flexflow_tpu_torch.runtime import initializer as init_mod
@@ -106,11 +106,12 @@ class Executor:
         self.graph = graph
         self.device = torch.device(device)
         self.mesh = mesh
-        # the process mesh (parallel/spmd.ProcessMesh) when the data or
-        # model axis spans several processes, else None
+        # the process mesh (parallel/spmd.ProcessMesh) when the data, seq
+        # or model axis spans several processes, else None
         self.pmesh = pmesh
-        # ZeRO-1: the optimizer state cut over `data` (ParamSyncType
-        # .SHARDED); {node key: {weight: cut dim or None}} once drawn
+        # ZeRO-1: the optimizer state cut over `data` and `seq`
+        # (ParamSyncType.SHARDED); {node key: {weight: cut dim or None}}
+        # once drawn
         self.zero_sharded_opt = zero_sharded_opt
         self.zero_dims = None
         self.loss_type = loss_type
@@ -320,15 +321,16 @@ class Executor:
 
     def init_opt_state(self, optimizer, params):
         """The optimizer's state for `params`, on the params' device. Under
-        ZeRO-1 over a data axis above 1 each leaf's state covers this
-        rank's slice of the leaf's largest dim that is not cut already
-        and that the data degree divides (the reference's
-        opt_state_shardings); a leaf with no such dim keeps it whole."""
+        ZeRO-1 over data x seq above 1 (the axes a gradient is reduced
+        over) each leaf's state covers this rank's slice of the leaf's
+        largest dim that is not cut already and that their degree divides
+        (the reference's opt_state_shardings, over `data`); a leaf with no
+        such dim keeps it whole."""
         pm = self.pmesh
         if not self.zero_sharded_opt or pm is None \
-                or pm.sizes.get(DATA, 1) <= 1:
+                or not pm.live(GRAD_AXES):
             return optimizer.init_state(params)
-        d = pm.sizes[DATA]
+        d = pm.degree(pm.live(GRAD_AXES))
         specs = self.param_specs()
         self.zero_dims = {}
         for nk, ws in params.items():
@@ -351,14 +353,14 @@ class Executor:
             for wn, p in ws.items():
                 dim = self.zero_dims[nk][wn]
                 out[nk][wn] = p if dim is None else pm.shard(
-                    p, tuple((DATA,) if i == dim else ()
+                    p, tuple(pm.live(GRAD_AXES) if i == dim else ()
                              for i in range(p.ndim)))
         return out
 
     def opt_state_specs(self, opt_state):
         """{state key: {node key: {weight: Spec}}} of the state trees that
-        mirror the parameters: the parameter's spec, plus `data` on the
-        ZeRO-1 dim (checkpoint gathers them)."""
+        mirror the parameters: the parameter's spec, plus the ZeRO-1 axes
+        on their dim (checkpoint gathers them)."""
         specs = self.param_specs()
         out = {}
         for k, v in opt_state.items():
@@ -371,7 +373,7 @@ class Executor:
                     spec = list(specs[nk][wn])
                     dim = (self.zero_dims or {}).get(nk, {}).get(wn)
                     if dim is not None:
-                        spec[dim] = (DATA,)
+                        spec[dim] = self.pmesh.live(GRAD_AXES)
                     out[k][nk][wn] = tuple(spec)
         return out
 
@@ -426,12 +428,28 @@ class Executor:
             return 1
         return self.pmesh.degree(self.pmesh.keep(self.batch_axes))
 
+    @property
+    def seq_axes(self) -> Tuple[str, ...]:
+        """The axes the labels' dim 1 is cut over: the first input's dim
+        1 cut (`seq` across processes: model._apply_strategy) when the
+        sink keeps the sequence as its dim 1, a per-token loss."""
+        specs = self.input_specs()
+        out = self.sink.outputs[0].dims
+        first = self.input_nodes[0].outputs[0].dims
+        if not specs or len(specs[0]) < 2 or len(out) < 3 \
+                or out[1].size != first[1].size:
+            return ()
+        return tuple(specs[0][1])
+
     def label_spec(self, ndim: int):
-        return (self.batch_axes,) + tuple(() for _ in range(ndim - 1))
+        seq = (self.seq_axes,) if ndim >= 2 else ()
+        return (self.batch_axes,) + seq + tuple(
+            () for _ in range(ndim - 1 - len(seq)))
 
     def local_batch(self, arrays, labels: bool = False):
         """This rank's piece of each global input array (and of the
-        labels, last, with `labels`)."""
+        labels, last, with `labels`): its rows, and its sequence block
+        where `seq` spans processes."""
         from flexflow_tpu_torch.runtime.distributed import host_local_batch
 
         if self.pmesh is None:
@@ -493,15 +511,16 @@ class Executor:
         `state_out` the non-trainable weights a node moves (BatchNorm's
         running statistics) land in state_out[node key]."""
         if self.pmesh is not None:
-            if kv_caches is not None or page_tables is not None:
+            if page_tables is not None:
                 raise NotImplementedError(
-                    "decoding on a mesh of several processes (serving on a "
-                    "mesh above 1) is not ported yet (ROADMAP.md, queue 1 "
-                    "item 12)")
+                    "paged decoding on a mesh of several processes (serving "
+                    "on a mesh above 1) is not ported yet (ROADMAP.md, "
+                    "queue 1 item 12)")
             out, aux, _ = self._run_forward_spmd(
                 trainable, nontrainable, inputs, training=training,
                 skip_sink_softmax=skip_sink_softmax, rng=rng,
-                state_out=state_out)
+                state_out=state_out, kv_caches=kv_caches,
+                cache_position=cache_position, cache_out=cache_out)
             return (out, aux) if return_aux else out
         values: Dict[Tuple[int, int], Any] = {}
         if training and rng is None:
@@ -567,9 +586,13 @@ class Executor:
 
     def _run_forward_spmd(self, trainable, nontrainable, inputs, *,
                           training: bool, skip_sink_softmax: bool, rng,
-                          state_out):
+                          state_out, kv_caches=None, cache_position=None,
+                          cache_out=None):
         """run_forward on this rank's pieces: (sink piece, aux, its
-        layout)."""
+        layout). With `kv_caches` (a dense-cache decode step) every rank
+        runs on its rows and its heads with the sequence whole: the
+        process mesh without `seq` (decode_mesh)."""
+        pm = self.pmesh if kv_caches is None else self.decode_mesh()
         if training and rng is None:
             rng = (0, 0)
         if len(inputs) != len(self.input_nodes):
@@ -592,7 +615,7 @@ class Executor:
                         groups[entry], values, rng,
                         lambda gn, ins, lays, ctx: self._run_node_spmd(
                             gn, ins, lays, trainable, nontrainable, ctx,
-                            remat=False),
+                            remat=False, pm=pm),
                         layouts)
                 continue
             srcs = [(e.src, e.src_idx) for e in self.graph.in_edges(n)]
@@ -601,28 +624,42 @@ class Executor:
                 values[(n.guid, 0)] = values[srcs[0]]
                 layouts[(n.guid, 0)] = layouts[srcs[0]]
                 continue
+            key = node_key(n)
             ctx = LowerCtx(
-                device=self.device, mesh=self.mesh, training=training,
-                seq_length=self.seq_length, node_guid=n.guid,
-                rng_seed=node_seed(rng, n.guid) if training else None)
+                device=self.device, mesh=self.mesh, pmesh=pm,
+                training=training, seq_length=self.seq_length,
+                node_guid=n.guid,
+                rng_seed=node_seed(rng, n.guid) if training else None,
+                kv_cache=(kv_caches.get(key) if kv_caches is not None
+                          else None),
+                cache_position=cache_position)
             outs, lays = self._run_node_spmd(
                 n, [values[k] for k in srcs], [layouts[k] for k in srcs],
                 trainable, nontrainable, ctx,
-                remat=training and self.remat == "attention")
+                remat=training and self.remat == "attention", pm=pm)
             for i, (o, lay) in enumerate(zip(outs, lays)):
                 values[(n.guid, i)] = o
                 layouts[(n.guid, i)] = lay
             if ctx.aux_loss is not None:
                 aux = ctx.aux_loss if aux is None else aux + ctx.aux_loss
             if ctx.state_updates and state_out is not None:
-                state_out[node_key(n)] = dict(ctx.state_updates)
+                state_out[key] = dict(ctx.state_updates)
+            if ctx.cache_updates and cache_out is not None:
+                cache_out[key] = dict(ctx.cache_updates)
         key = (self.sink.guid, 0)
         return values[key], aux, layouts[key]
 
+    def decode_mesh(self):
+        """The process mesh a decode step runs on: without `seq`, so every
+        layout that cuts the sequence reads as whole (decode is
+        sequential; the reference decodes RING_ATTENTION through the MHA
+        cache path) and the `seq` ranks compute alike."""
+        return self.pmesh.without((SEQ,))
+
     def _run_node_spmd(self, n, ins, in_layouts, trainable, nontrainable,
-                       ctx, remat: bool):
-        """One node on this rank's pieces (shard_rules.run_node), its
-        outputs laid out as its view says."""
+                       ctx, remat: bool, pm):
+        """One node on this rank's pieces (shard_rules.run_node) on the
+        process mesh `pm`, its outputs laid out as its view says."""
         key = node_key(n)
         params = {**trainable.get(key, {}), **nontrainable.get(key, {})}
         w_layouts = self.param_specs().get(key, {})
@@ -632,7 +669,7 @@ class Executor:
                      for s in self.graph.input_shapes(n)]
         outs, lays = shard_rules.run_node(
             n, ins, in_layouts, in_shapes, params, w_layouts, w_shapes,
-            self.pmesh, ctx, remat, self._prune)
+            pm, ctx, remat, self._prune)
         outs, lays = list(outs), list(lays)
         view = n.sharding
         for i in range(len(outs)):
@@ -640,7 +677,7 @@ class Executor:
             if spec is None:
                 continue
             target = self._prune(spec, [d.size for d in n.outputs[i].dims])
-            outs[i] = spmd.redistribute(outs[i], self.pmesh, lays[i], target)
+            outs[i] = spmd.redistribute(outs[i], pm, lays[i], target)
             lays[i] = target
         return outs, lays
 
@@ -662,6 +699,8 @@ class Executor:
             for gn in members:
                 srcs = [(e.src, e.src_idx) for e in self.graph.in_edges(gn)]
                 ctx = LowerCtx(device=self.device, mesh=self.mesh,
+                               pmesh=self.pmesh if layouts is not None
+                               else None,
                                training=True, seq_length=self.seq_length,
                                node_guid=gn.guid,
                                rng_seed=node_seed(rng, gn.guid))
@@ -723,7 +762,8 @@ class Executor:
                     state_out=state_out)
                 loss, logits, layout = sharded_loss(
                     self.loss_type, logits, layout, labels,
-                    self._sink_is_softmax(), self.pmesh, self.batch_axes)
+                    self._sink_is_softmax(), self.pmesh, self.batch_axes,
+                    self.seq_axes)
             # the gradient is the loss's plus the MoE load-balance
             # terms'; the loss reported is the loss alone
             grads = torch.autograd.grad(
@@ -742,8 +782,10 @@ class Executor:
 
     def _step_metrics(self, logits, layout, labels, loss):
         """compute_step_metrics; on a process mesh over the global batch:
-        the means averaged and the correct counts summed over the batch's
-        axes. Logits cut on the vocabulary (those of the fused sparse
+        the means averaged over the batch's and the sequence's axes, the
+        correct counts (a mean over each sample's tokens, times its rows)
+        summed over the batch's and averaged over the sequence's. Logits
+        cut on the vocabulary (those of the fused sparse
         cross-entropy `loss`) stay cut for accuracy and that
         cross-entropy (vocab_sharded_step_metrics); another metric
         gathers the vocabulary on the rank's rows."""
@@ -766,11 +808,13 @@ class Executor:
                                          self._sink_is_softmax())
             m = self._rescale_correct(m)
             keys = sorted(m)
-            deg = pm.degree(pm.keep(self.batch_axes))
-            vec = torch.stack([m[k].float() * (1.0 if k == "accuracy_correct"
-                                               else 1.0 / deg)
-                               for k in keys])
-            vec = pm.all_reduce(vec, self.batch_axes, inplace=True)
+            deg_b = pm.degree(pm.keep(self.batch_axes))
+            deg_s = pm.degree(pm.keep(self.seq_axes))
+            vec = torch.stack([m[k].float() / (
+                deg_s if k == "accuracy_correct" else deg_b * deg_s)
+                for k in keys])
+            axes = pm.live(self.batch_axes + self.seq_axes)
+            vec = pm.all_reduce(vec, axes, inplace=True)
         return dict(zip(keys, vec.unbind()))
 
     def _maybe_repeat_labels(self, labels):
@@ -839,12 +883,13 @@ class Executor:
 
     def _update_sharded(self, grad_tree, trainable, opt_state):
         """The optimizer's step on a process mesh: each gradient summed
-        over `data`, then the update of this rank's pieces; under ZeRO-1
-        the sum is a reduce-scatter onto the rank's slice, the update
-        runs on the slice, and the new slices are all-gathered into the
-        parameter."""
+        over `data` and `seq` (a parameter replicated over them holds its
+        rank's rows' and tokens' part), then the update of this rank's
+        pieces; under ZeRO-1 the sum is a reduce-scatter onto the rank's
+        slice, the update runs on the slice, and the new slices are
+        all-gathered into the parameter."""
         pm = self.pmesh
-        dax = pm.live((DATA,))
+        dax = pm.live(GRAD_AXES)
         seen = set()
 
         def reduced(g):
@@ -895,7 +940,7 @@ class Executor:
             loss, logits, layout = sharded_loss(
                 self.loss_type, logits, layout,
                 self._maybe_repeat_labels(labels), sink_is_sm, self.pmesh,
-                self.batch_axes)
+                self.batch_axes, self.seq_axes)
             m = self._step_metrics(logits, layout, labels, loss)
             m["loss"] = loss
             return m
@@ -930,17 +975,31 @@ class Executor:
         RING_ATTENTION nodes decode through the same MHA cache branch (a
         decode step has no sequence to cut); a PIPELINE composite gets
         layer-stacked (layers, batch, max_len, Hkv, D) buffers, which its
-        lowering threads through the blocks a layer slice each."""
+        lowering threads through the blocks a layer slice each. On a
+        process mesh each rank's buffers hold its rows (`batch` cut as the
+        batch is) and its kv heads (cut as wk is), the same on every
+        `seq` rank."""
         caches = {}
+        rows, specs = batch, None
+        if self.pmesh is not None:
+            pm = self.decode_mesh()
+            deg = pm.degree(pm.keep(self.batch_axes))
+            if batch % deg:
+                raise ValueError(f"a batch of {batch} rows does not split "
+                                 f"over {self.batch_axes} of degree {deg}")
+            rows, specs = batch // deg, self.param_specs()
         for n in self.topo:
             ins = self.graph.input_shapes(n)
             dt = dtype or (ins[0].dtype.torch_dtype if ins
                            else torch.bfloat16)
             if n.op_type in _ATTENTION_OPS:
-                shape = (batch, max_len, n.attrs.num_kv, n.attrs.kdim)
+                kv = n.attrs.num_kv
+                if specs is not None:
+                    kv //= pm.degree(pm.keep(specs[node_key(n)]["wk"][1]))
+                shape = (rows, max_len, kv, n.attrs.kdim)
             elif n.op_type == OpType.PIPELINE:
                 a = n.attrs
-                shape = (a.layers, batch, max_len, a.kv_heads,
+                shape = (a.layers, rows, max_len, a.kv_heads,
                          ins[0].dims[-1].size // a.heads)
             else:
                 continue
@@ -962,12 +1021,23 @@ class Executor:
         tensor of per-row positions (the dense server's decode). The
         caches are written in place and returned. (The reference's
         decode_fn() returns a jitted step; here the method is the
-        step.)"""
+        step.) On a process mesh `inputs` are the whole batch: each rank
+        runs its rows over its caches (init_kv_cache) and every rank gets
+        the whole output."""
         cache_out: Dict[str, Dict[str, torch.Tensor]] = {}
-        out = self.run_forward(trainable, nontrainable, inputs,
-                               kv_caches=caches, cache_position=pos,
-                               cache_out=cache_out)
-        return out, cache_out
+        if self.pmesh is None:
+            out = self.run_forward(trainable, nontrainable, inputs,
+                                   kv_caches=caches, cache_position=pos,
+                                   cache_out=cache_out)
+            return out, cache_out
+        pm = self.decode_mesh()
+        inputs = [pm.shard(x, sp).contiguous()
+                  for x, sp in zip(inputs, self.input_specs())]
+        out, _, layout = self._run_forward_spmd(
+            trainable, nontrainable, inputs, training=False,
+            skip_sink_softmax=False, rng=None, state_out=None,
+            kv_caches=caches, cache_position=pos, cache_out=cache_out)
+        return pm.gather(out, layout), cache_out
 
     # ------------------------------------------------------------------
     # paged KV pools + the ragged step

@@ -7,8 +7,10 @@ hand-written backward, as the reference's `_fused_sparse_ce` custom VJP:
 plain torch ops, as the reference's are jnp.
 
 On a process mesh (`sharded_loss`) the loss is the mean over the global
-batch: each rank's rows summed and divided by the global row count, then
-all-reduced over the batch's axes. Logits cut on the vocabulary take
+batch: each rank's rows (and, with the sequence cut over `seq`, its
+tokens) summed and divided by the global count, then all-reduced over
+the batch's and the sequence's axes. The logits keep their sequence
+cut: nothing gathers them. Logits cut on the vocabulary take
 `_VocabShardedCE`: the row max and the sum of exponentials are
 all-reduced over the vocabulary's axes, the label's logit comes from the
 rank that owns it, and the backward stays local.
@@ -88,30 +90,38 @@ class _VocabShardedCE(torch.autograd.Function):
 
 
 def sharded_loss(loss_type: LossType, logits, layout, labels,
-                 last_op_is_softmax: bool, pm, batch_axes):
+                 last_op_is_softmax: bool, pm, batch_axes, seq_axes=()):
     """compute_loss on a process mesh: `logits` is this rank's piece,
-    laid out as `layout`; `labels` are the rank's rows (cut over
-    `batch_axes` on dim 0). Returns (loss, logits, their layout): the
-    loss is the global mean, the same on every rank; the logits come back
-    laid out with the batch over `batch_axes`, the vocabulary cut as it
-    was for a fused sparse cross-entropy and whole otherwise."""
+    laid out as `layout`; `labels` are the rank's piece (cut over
+    `batch_axes` on dim 0, and over `seq_axes` on dim 1 for (b, s, V)
+    logits). Returns (loss, logits, their layout): the loss is the global
+    mean, the same on every rank; the logits come back laid out with the
+    batch over `batch_axes`, the sequence over `seq_axes`, the
+    vocabulary cut as it was for a fused sparse cross-entropy and whole
+    otherwise."""
     from flexflow_tpu_torch.parallel import spmd
 
     nd = logits.ndim
     fused = (loss_type == LossType.SPARSE_CATEGORICAL_CROSSENTROPY
              and not last_op_is_softmax and nd >= 2)
     v_axes = pm.keep(layout[-1]) if fused else ()
-    target = (tuple(batch_axes),) + tuple(() for _ in range(nd - 2)) + (
-        (v_axes,) if nd >= 2 else ())
+    seq_axes = tuple(seq_axes) if nd >= 3 else ()
+    target = [tuple(batch_axes)] + [()] * (nd - 1)
+    if seq_axes:
+        target[1] = seq_axes
+    if nd >= 2:
+        target[-1] = v_axes
+    target = tuple(target)
     logits = spmd.redistribute(logits, pm, layout, target)
-    deg = pm.degree(pm.keep(batch_axes))
+    deg = pm.degree(pm.keep(batch_axes)) * pm.degree(pm.keep(seq_axes))
     if v_axes:
         lg, lb = _flatten_sparse(logits, labels)
         loss = _VocabShardedCE.apply(lg, lb, pm, v_axes, lg.shape[0] * deg)
     else:
         loss = compute_loss(loss_type, logits, labels,
                             last_op_is_softmax) / deg
-    return spmd.all_reduce(loss, pm, batch_axes), logits, target
+    return (spmd.all_reduce(loss, pm, pm.live(tuple(batch_axes) + seq_axes)),
+            logits, target)
 
 
 def _flatten_sparse(logits, labels):

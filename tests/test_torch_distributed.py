@@ -98,10 +98,20 @@ class _Group:
                 stdout=subprocess.PIPE, stderr=self.logs[r], text=True,
                 bufsize=1))
         self.n = 0
+        self.pending = None
 
     def run(self, task, **args):
         """Run `task` on every rank; returns the task's name (its files
         are <name>_rank<r>.npz / .json under self.tmp)."""
+        return self.wait(self.submit(task, **args))
+
+    def submit(self, task, **args):
+        """Send `task` to every rank without waiting for it, so the test
+        process can work meanwhile; `wait` collects the replies. One task
+        at a time: a reply line read ahead into a pipe's buffer would
+        not wake select."""
+        assert self.pending is None, f"{self.pending} still runs"
+        self.pending = task
         self.n += 1
         name = f"{task}{self.n}"
         args.update(out=self.tmp, name=name)
@@ -109,6 +119,11 @@ class _Group:
         for p in self.procs:
             p.stdin.write(line)
             p.stdin.flush()
+        return name
+
+    def wait(self, name):
+        """Every rank's reply to the task `name`, the one submitted."""
+        task, self.pending = self.pending, None
         deadline = time.monotonic() + TASK_TIMEOUT_S
         replies = [None] * WORLD
         while any(r is None for r in replies):
@@ -603,23 +618,32 @@ def test_four_rank_checkpoint_restores_in_both_packages(group, jax_llama,
 
 
 def test_process_mesh_refusals(group):
-    """On the four ranks: a mesh whose data x model is not the world size
-    raises ValueError naming both; serving a model compiled on a mesh of
-    several processes raises and names queue 1 item 12."""
+    """On the four ranks: a mesh whose data x seq x model is not the world
+    size raises ValueError naming both; what stays of queue 1 item 12
+    raises and names it: the pipe, expert and data_sub axes, and the
+    batch server, the dense and the paged generation servers of a model
+    compiled on a mesh of several processes (a ring Llama on data 2 x seq
+    2; generate itself runs there: tests/test_torch_seq_parallel.py)."""
     name = group.run("refusals", cfg=LLAMA)
     got = group.json(name)
     assert "spans 2 processes" in got["world"]
     assert "world size is 4" in got["world"]
-    for what in ("serve", "paged", "generate"):
+    assert "spans 8 processes" in got["world_seq"]
+    for what, part in (("pipe", "`pipe` axis"), ("expert", "`expert` axis"),
+                       ("data_sub", "`data_sub` axis")):
+        assert part in got[what]
+        assert "queue 1 item 12)" in got[what]
+    for what in ("serve", "serve_generation", "paged"):
         assert "serving on a mesh above 1" in got[what]
         assert "queue 1 item 12)" in got[what]
 
 
 def test_unported_axes_and_modes_are_refused_by_part():
     """What stays of item 12 raises, each naming its part: the pipe,
-    expert and data_sub axes, seq beside a process axis (the ring across
-    processes), llama_tp_strategy(seq_parallel=True); in one process a
-    data x model of 2 is not the world size (ValueError)."""
+    expert and data_sub axes, and the pipeline and expert strategies; in
+    one process a data x model of 2, with `seq` beside it or not, is not
+    the world size (ValueError), while `seq` alone is the one-card ring
+    (tests/test_torch_ring.py)."""
     from flexflow_tpu_torch.models.mixtral import (
         MixtralConfig,
         mixtral_ep_strategy,
@@ -627,20 +651,18 @@ def test_unported_axes_and_modes_are_refused_by_part():
 
     for shape, part in (({"pipe": 2}, "`pipe` axis"),
                         ({"expert": 2}, "`expert` axis"),
-                        ({"data_sub": 2}, "`data_sub` axis"),
-                        ({"data": 2, "seq": 2}, "across processes")):
+                        ({"data_sub": 2}, "`data_sub` axis")):
         with pytest.raises(NotImplementedError,
                            match=r"queue 1 item 12\)") as e:
             FFConfig(device="cpu", mesh_shape=shape)
         assert part in str(e.value)
-    with pytest.raises(NotImplementedError, match="across processes"):
-        tllama.llama_tp_strategy(tllama.LlamaConfig(**LLAMA),
-                                 seq_parallel=True)
+    assert FFConfig(device="cpu", mesh_shape={"seq": 4}).mesh_shape
     with pytest.raises(NotImplementedError, match="`pipe` axis"):
         tllama.llama_pp_strategy(tllama.LlamaConfig(**LLAMA))
     with pytest.raises(NotImplementedError, match="`expert` axis"):
         mixtral_ep_strategy(MixtralConfig.tiny())
-    for shape in ({"data": 2}, {"model": 2}, {"data": 2, "model": 2}):
+    for shape in ({"data": 2}, {"model": 2}, {"data": 2, "model": 2},
+                  {"data": 2, "seq": 2}, {"seq": 2, "model": 2}):
         with pytest.raises(ValueError, match="world size is 1"):
             FFConfig(device="cpu", mesh_shape=shape)
     with pytest.raises(ValueError, match="world size is 1"):
@@ -648,11 +670,16 @@ def test_unported_axes_and_modes_are_refused_by_part():
 
 
 def test_strategies_are_the_references():
-    """llama_tp_strategy, bert_attribute_parallel_strategy and
-    nmt_dp_strategy give the JAX package's views, view for view."""
+    """llama_tp_strategy (with and without seq_parallel),
+    bert_attribute_parallel_strategy and nmt_dp_strategy give the JAX
+    package's views, view for view."""
     pairs = (
         (tllama.llama_tp_strategy(tllama.LlamaConfig(**LLAMA)),
          jllama.llama_tp_strategy(jllama.LlamaConfig(**LLAMA))),
+        (tllama.llama_tp_strategy(tllama.LlamaConfig(**LLAMA),
+                                  seq_parallel=True),
+         jllama.llama_tp_strategy(jllama.LlamaConfig(**LLAMA),
+                                  seq_parallel=True)),
         (tbert.bert_attribute_parallel_strategy(tbert.BertConfig(**BERT)),
          jbert.bert_attribute_parallel_strategy(jbert.BertConfig(**BERT))),
         (tnmt.nmt_dp_strategy(tnmt.NMTConfig(**NMT)),

@@ -83,7 +83,7 @@ def test_cli_driver_runs_a_script(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (("--mesh", "seq=2,model=2"), 12),
+    (("--mesh", "data=2,data_sub=2"), 12),
     (("--mesh", "data=2,expert=2"), 12),
     (("--mesh", "pipe=2"), 12),
 ])
@@ -97,11 +97,12 @@ def test_cli_driver_refuses_by_item(flags, item, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [("--mesh", "data=2,model=4"),
-                                   ("--devices", "8")])
+                                   ("--devices", "8"),
+                                   ("--mesh", "seq=2,model=2")])
 def test_cli_driver_refuses_more_cards_than_processes(flags, monkeypatch):
     """A mesh or device count above the world size (one process here)
     raises ValueError naming both: each card runs its own process
-    (torchrun)."""
+    (torchrun; `seq` beside `model` spans processes too)."""
     monkeypatch.setattr(sys, "argv", sys.argv[:])
     monkeypatch.setattr(flexflow_tpu_torch, "_driver_config", None)
     with pytest.raises(ValueError, match="world size is 1"):

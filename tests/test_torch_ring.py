@@ -497,18 +497,20 @@ def test_ring_llama_paged_server_greedy_tokens_match_jax(monkeypatch):
 
 
 def test_unported_parallelism_raises():
-    """seq beside a process axis, a `pipe` axis and the pipeline strategy
-    (GPipe stages over it) raise NotImplementedError naming ROADMAP, a
-    model axis wider than the world ValueError; nothing is ignored.
-    Ulysses builds (one card: its exchanges cancel,
+    """A `pipe` axis and the pipeline strategy (GPipe stages over it)
+    raise NotImplementedError naming ROADMAP, a model or data axis wider
+    than the world ValueError (`seq` beside it spans processes too:
+    tests/test_torch_seq_parallel.py); nothing is ignored. Ulysses
+    builds (one card: its exchanges cancel,
     tests/test_torch_search_compile.py), and so does the PIPELINE
     composite: its blocks run in turn on one device."""
-    for shape in ({"data": 2, "seq": 2}, {"pipe": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FFConfig(device="cpu", mesh_shape={"pipe": 2})
+    # the model and data axes span processes: 2 is not this one process's
+    # world, and neither is 4 with seq beside data
+    for shape in ({"model": 2}, {"data": 2, "seq": 2}):
+        with pytest.raises(ValueError, match="world size is 1"):
             FFConfig(device="cpu", mesh_shape=shape)
-    # the model axis spans processes: 2 is not this one process's world
-    with pytest.raises(ValueError, match="world size is 1"):
-        FFConfig(device="cpu", mesh_shape={"model": 2})
     with pytest.raises(ValueError, match="positive"):
         FFConfig(device="cpu", mesh_shape={"seq": 0})
     ff = FFModel(FFConfig(batch_size=1, device="cpu",

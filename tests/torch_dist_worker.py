@@ -34,6 +34,28 @@ from flexflow_tpu_torch.runtime.weights import params_from_numpy  # noqa: E402
 
 RANK = int(os.environ["RANK"])
 
+# calls of the attention kernels' wrappers on this rank (their plain
+# versions here), by name: K5's fold and K4's dq and dk/dv as the ring
+# calls them, and the flash attention Ulysses calls
+CALLS = {}
+
+
+def _count_calls():
+    from flexflow_tpu_torch.ops import ring_flash, torch_ops
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapper(*a, **kw):
+            CALLS[name] = CALLS.get(name, 0) + 1
+            return fn(*a, **kw)
+
+        setattr(mod, name, wrapper)
+
+    for name in ("flash_bh_fwd_carry", "flash_bh_dq", "flash_bh_dkv"):
+        counted(ring_flash, name)
+    counted(torch_ops, "flash_attention")
+
 
 def _tree(npz, prefix):
     out = {}
@@ -77,8 +99,11 @@ def _model(args):
         )
 
         mc = LlamaConfig(**args["cfg"])
-        build_llama(ff, mc, seq_len=args["seq"], dtype=DataType.FLOAT)
-        strategy = llama_tp_strategy(mc)
+        build_llama(ff, mc, seq_len=args["seq"], dtype=DataType.FLOAT,
+                    use_ring_attention=args.get("ring", False),
+                    seq_mode=args.get("seq_mode", "ring"))
+        strategy = llama_tp_strategy(
+            mc, seq_parallel=args.get("seq_parallel", False))
     elif kind == "bert":
         from flexflow_tpu_torch.models.bert import (
             BertConfig,
@@ -120,6 +145,7 @@ def task_train(args):
     tr, ntr = ff._params
     opt = ff._opt_state
     losses, step_metrics = [], []
+    CALLS.clear()
     for i in range(args["steps"]):
         xs = [data[f"x{j}_{i}"] for j in range(args["n_inputs"])]
         *bx, by = [torch.from_numpy(a) for a in
@@ -129,6 +155,7 @@ def task_train(args):
         step_metrics.append({"correct": float(m["accuracy_correct"]),
                              "sparse_cce": float(m["sparse_cce_loss"])})
     ff._params, ff._opt_state = (tr, ntr), opt
+    calls = dict(CALLS)
     full = ex.gather_params(tr)
     state = {f"{nk}/{wn}": list(t.shape)
              for nk, ws in opt.get("m", {}).items() for wn, t in ws.items()}
@@ -145,7 +172,48 @@ def task_train(args):
            "opt_m_shapes": state, "param_shapes": local,
            "predict_sum": float(np.float64(out).sum()),
            "eval": {"correct": pm.train_correct, "all": pm.train_all,
-                    "sparse_cce": pm.sparse_cce_loss}})
+                    "sparse_cce": pm.sparse_cce_loss},
+           "calls": calls, "local_batch": [list(a.shape) for a in
+                                           ex.local_batch([xs[0]])]})
+
+
+def task_predict(args):
+    """Compile the model from the weights in args["data"] and save its
+    predict on the first batch, whole on every rank, and the kernel
+    wrappers' calls of that one forward. With args["drop_rope_offset"]
+    the ring's RoPE ignores the rank's sequence offset (a check that a
+    test notices its loss)."""
+    from flexflow_tpu_torch.parallel import ring
+
+    data = np.load(args["data"])
+    ff, strategy = _model(args)
+    ff.compile(loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+               strategy=strategy, params=params_from_numpy(
+                   _tree(data, "tr"), _tree(data, "ntr"), "cpu"))
+    CALLS.clear()
+    rope = ring.apply_rope
+    if args.get("drop_rope_offset"):
+        # every rank rotates its block as if it began the sequence
+        ring.apply_rope = lambda x, theta, pos_offset=0: rope(x, theta)
+    try:
+        out = ff.predict(data["x0_0"])
+    finally:
+        ring.apply_rope = rope
+    _save(args, args["name"], {"predict": out} if RANK == 0 else None,
+          {"calls": dict(CALLS),
+           "predict_sum": float(np.float64(out).sum())})
+
+
+def task_generate(args):
+    """Compile the model from the weights in args["data"] and save the
+    greedy tokens of generate on its prompt (every rank)."""
+    data = np.load(args["data"])
+    ff, strategy = _model(args)
+    ff.compile(loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+               strategy=strategy, params=params_from_numpy(
+                   _tree(data, "tr"), _tree(data, "ntr"), "cpu"))
+    toks = ff.generate(data["prompt"], args["new"])
+    _save(args, args["name"], meta={"tokens": toks.tolist()})
 
 
 def task_search(args):
@@ -283,25 +351,41 @@ def task_accuracy(args):
 
 
 def task_refusals(args):
-    """What a process mesh refuses: a mesh whose data x model is not the
-    world size, and serving on a mesh above 1. Saves the messages."""
+    """What a process mesh refuses: a mesh whose data x seq x model is
+    not the world size, the axes not ported, and serving on a mesh above
+    1. Saves the messages."""
     out = {}
-    try:
-        FFConfig(device="cpu", mesh_shape={"data": 2})
-    except ValueError as e:
-        out["world"] = str(e)
-    from flexflow_tpu_torch.models.llama import LlamaConfig, build_llama
+    for key, shape in (("world", {"data": 2}),
+                       ("world_seq", {"data": 2, "seq": 4})):
+        try:
+            FFConfig(device="cpu", mesh_shape=shape)
+        except ValueError as e:
+            out[key] = str(e)
+    for key, shape in (("pipe", {"pipe": 4}), ("expert", {"expert": 4}),
+                       ("data_sub", {"data": 2, "data_sub": 2})):
+        try:
+            FFConfig(device="cpu", mesh_shape=shape)
+        except NotImplementedError as e:
+            out[key] = str(e)
+    from flexflow_tpu_torch.models.llama import (
+        LlamaConfig,
+        build_llama,
+        llama_tp_strategy,
+    )
 
     ff = FFModel(FFConfig(batch_size=4, device="cpu",
-                          mesh_shape={"data": 2, "model": 2}))
-    build_llama(ff, LlamaConfig(**args["cfg"]), seq_len=8,
-                dtype=DataType.FLOAT)
-    ff.compile(loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY)
+                          mesh_shape={"data": 2, "seq": 2}))
+    mc = LlamaConfig(**args["cfg"])
+    build_llama(ff, mc, seq_len=8, dtype=DataType.FLOAT,
+                use_ring_attention=True)
+    ff.compile(loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+               strategy=llama_tp_strategy(mc, seq_parallel=True))
     for name, call in (
-            ("serve", lambda: ff.serve_generation(slots=1, max_len=16)),
+            ("serve", lambda: ff.serve(batch_sizes=(4,), warmup=False)),
+            ("serve_generation",
+             lambda: ff.serve_generation(slots=1, max_len=16)),
             ("paged", lambda: ff.serve_generation(slots=1, max_len=16,
-                                                  paged=True)),
-            ("generate", lambda: ff.generate(np.zeros((4, 4), np.int32), 2))):
+                                                  paged=True))):
         try:
             call()
         except NotImplementedError as e:
@@ -309,7 +393,8 @@ def task_refusals(args):
     _save(args, args["name"], meta=out)
 
 
-TASKS = {"train": task_train, "search": task_search,
+TASKS = {"train": task_train, "predict": task_predict,
+         "generate": task_generate, "search": task_search,
          "checkpoint": task_checkpoint, "parallel_op": task_parallel_op,
          "ce": task_ce, "accuracy": task_accuracy,
          "refusals": task_refusals}
@@ -317,6 +402,7 @@ TASKS = {"train": task_train, "search": task_search,
 
 def main():
     dist.initialize(device="cpu", timeout_s=60)
+    _count_calls()
     for line in sys.stdin:
         line = line.strip()
         if not line:
